@@ -1,0 +1,78 @@
+"""Blender synthetic dataset loader, static variant (port of
+``swnerf_tpu/data/blender.py:90-117``): transforms_{split}.json (or an
+80/10/10 split of one transforms.json), RGBA / 255, focal from
+camera_angle_x, a 360-pose render path, testskip stride on val/test.
+
+PNGs are decoded by the port's own reader (``utils/png.py``), not imageio.
+``half_res`` is a 2x2 box average, the JAX loader's fallback without cv2.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from swnerf_torch.data.cameras import spherical_orbit
+from swnerf_torch.utils.png import read_pngs
+
+
+def _read_split_metas(basedir: str):
+    metas = {}
+    for s in ("train", "val", "test"):
+        path = os.path.join(basedir, f"transforms_{s}.json")
+        if os.path.exists(path):
+            with open(path) as fp:
+                metas[s] = json.load(fp)
+        else:
+            metas[s] = None
+    if all(m is None for m in metas.values()):
+        with open(os.path.join(basedir, "transforms.json")) as fp:
+            meta = json.load(fp)
+        frames = meta["frames"]
+        n = len(frames)
+        a, b = int(0.8 * n), int(0.9 * n)
+        shared = {k: v for k, v in meta.items() if k != "frames"}
+        metas = {
+            "train": {**shared, "frames": frames[:a]},
+            "val": {**shared, "frames": frames[a:b]},
+            "test": {**shared, "frames": frames[b:]},
+        }
+    return metas
+
+
+def _load_frames(basedir: str, frames):
+    imgs = read_pngs([os.path.join(basedir, frame["file_path"] + ".png") for frame in frames])
+    poses = [np.array(frame["transform_matrix"]) for frame in frames]
+    return (np.array(imgs) / 255.0).astype(np.float32), np.array(poses).astype(np.float32)
+
+
+def load_blender_data(basedir: str, half_res: bool = False, testskip: int = 1):
+    """Returns (imgs [N, H, W, 4], poses [N, 4, 4], render_poses,
+    [H, W, focal], i_split)."""
+    metas = _read_split_metas(basedir)
+    all_imgs, all_poses, counts = [], [], [0]
+    meta = None
+    for s in ("train", "val", "test"):
+        meta = metas[s]
+        skip = 1 if (s == "train" or testskip == 0) else testskip
+        imgs, poses = _load_frames(basedir, meta["frames"][::skip])
+        counts.append(counts[-1] + imgs.shape[0])
+        all_imgs.append(imgs)
+        all_poses.append(poses)
+
+    i_split = [np.arange(counts[i], counts[i + 1]) for i in range(3)]
+    imgs = np.concatenate(all_imgs, 0)
+    poses = np.concatenate(all_poses, 0)
+
+    H, W = imgs[0].shape[:2]
+    camera_angle_x = float(meta["camera_angle_x"])
+    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
+    render_poses = spherical_orbit(360)
+
+    if half_res:
+        H, W, focal = H // 2, W // 2, focal / 2.0
+        imgs = imgs.reshape(imgs.shape[0], H, 2, W, 2, -1).mean((2, 4)).astype(np.float32)
+
+    return imgs, poses, render_poses, [H, W, focal], i_split

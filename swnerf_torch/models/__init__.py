@@ -1,0 +1,5 @@
+"""Neural fields (port of ``swnerf_tpu.models``)."""
+
+from swnerf_torch.models.vanilla import VanillaNeRF, VanillaNeRFConfig
+
+__all__ = ["VanillaNeRF", "VanillaNeRFConfig"]

@@ -1,0 +1,65 @@
+"""Shared building blocks for MLP fields (port of
+``swnerf_tpu/models/common.py``).
+
+The JAX package keeps weights ``[fan_in, fan_out]`` in a pytree; the port
+keeps ``nn.Linear`` modules, whose weights are ``[fan_out, fan_in]`` like the
+reference's ``.tar`` checkpoints. ``Field`` becomes the :class:`Field`
+interface below.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+
+class Field(nn.Module):
+    """A neural field consumed by the render core:
+    ``forward(pts [N, S, 3], viewdirs [N, 3] | None) -> raw [N, S, C]``.
+    ``cfg`` is the model config the field was built from."""
+
+    cfg = None
+
+
+def torch_linear_init(
+    fan_in: int,
+    fan_out: int,
+    generator: Optional[torch.Generator] = None,
+    device: Optional[torch.device] = None,
+) -> Dict[str, torch.Tensor]:
+    """torch ``nn.Linear``'s default distribution, drawn from ``generator``
+    on its own device and placed on ``device``:
+    ``W [out, in], b ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in))``."""
+    k = 1.0 / math.sqrt(fan_in)
+    gdev = generator.device if generator is not None else None
+    w = torch.rand((fan_out, fan_in), generator=generator, device=gdev) * (2 * k) - k
+    b = torch.rand((fan_out,), generator=generator, device=gdev) * (2 * k) - k
+    return {"weight": w.to(device), "bias": b.to(device)}
+
+
+def init_mlp_stack(
+    dims: Sequence[Tuple[int, int]],
+    generator: Optional[torch.Generator] = None,
+    device: Optional[torch.device] = None,
+) -> List[nn.Linear]:
+    """Linear layers with explicit ``(fan_in, fan_out)`` pairs (skip
+    connections make the sizes non-chained), initialised by
+    :func:`torch_linear_init`."""
+    layers = []
+    for fi, fo in dims:
+        # skip_init: the weights come from ``generator``, not the global RNG.
+        lin = torch.nn.utils.skip_init(nn.Linear, fi, fo, device=device)
+        p = torch_linear_init(fi, fo, generator, device)
+        with torch.no_grad():
+            lin.weight.copy_(p["weight"])
+            lin.bias.copy_(p["bias"])
+        layers.append(lin)
+    return layers
+
+
+def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W^T + b`` in fp32."""
+    return torch.nn.functional.linear(x, layer.weight, layer.bias)

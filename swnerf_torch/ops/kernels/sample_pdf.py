@@ -1,0 +1,82 @@
+"""Kernel B2: inverse-CDF importance sampling (``csrc/sample_pdf.cu``) and
+its plain PyTorch twin.
+
+Replaces ``swnerf_tpu/ops/pallas/sample_pdf.py::_kernel``. The uniforms
+``u`` are built outside, as the JAX wrapper does (``sample_pdf.py:103-109``).
+The twin sums in the kernel's order (explicit sequential scans), so the two
+agree bit for bit on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from swnerf_torch.ops.kernels import build, launches
+
+NAME = "sample_pdf"
+
+
+def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """bins [N, M], weights [N, M-1], u [N, S] -> samples [N, S] (fp32)."""
+    M = bins.shape[-1]
+    w = weights + 1e-5  # prevent nans (reference ray.py:111)
+    total = w[:, 0]
+    for j in range(1, M - 1):
+        total = total + w[:, j]
+    pdf = w / total[:, None]
+    cols = [torch.zeros_like(total)]
+    for j in range(M - 1):
+        cols.append(cols[-1] + pdf[:, j])
+    cdf = torch.stack(cols, -1)  # [N, M]
+
+    inds = (cdf[:, None, :] <= u[:, :, None]).sum(-1)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=M - 1)
+    cdf_b = torch.gather(cdf, 1, below)
+    cdf_a = torch.gather(cdf, 1, above)
+    bins_b = torch.gather(bins, 1, below)
+    bins_a = torch.gather(bins, 1, above)
+    denom = cdf_a - cdf_b
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_b) / denom
+    return bins_b + t * (bins_a - bins_b)
+
+
+def _row_stride(x: torch.Tensor, name: str) -> int:
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"{name}: expected a 2-D float32 tensor, got {tuple(x.shape)} {x.dtype}")
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"{name}: the last dimension must be contiguous")
+    return x.stride(0)
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """B2 on CUDA tensors, the plain twin on CPU tensors."""
+    if bins.device.type == "cpu":
+        return sample_pdf_plain(bins, weights, u)
+    N, M = bins.shape
+    S = u.shape[-1]
+    if bins.device.type != "cuda" or weights.device != bins.device or u.device != bins.device:
+        raise ValueError("sample_pdf: bins, weights and u must lie on one CUDA device")
+    if weights.shape != (N, M - 1) or u.shape != (N, S) or not 2 <= M <= 1024:
+        raise ValueError(
+            f"sample_pdf: bad shapes bins {tuple(bins.shape)}, weights "
+            f"{tuple(weights.shape)}, u {tuple(u.shape)} (need 2 <= M <= 1024)"
+        )
+    strides = [_row_stride(x, n) for x, n in ((bins, "bins"), (weights, "weights"), (u, "u"))]
+    out = torch.empty((N, S), dtype=torch.float32, device=bins.device)
+    lib = build.load(NAME)
+    fn = lib.sample_pdf_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    with torch.cuda.device(bins.device):
+        code = fn(
+            bins.data_ptr(), strides[0], weights.data_ptr(), strides[1], u.data_ptr(), strides[2],
+            out.data_ptr(), N, M, S, stream,
+        )
+    build.check(lib, code, "sample_pdf")
+    launches[NAME] += 1
+    return out

@@ -1,0 +1,152 @@
+"""The volumetric render core (port of ``swnerf_tpu/render/core.py``).
+
+coarse stratified sampling -> field -> composite
+[-> inverse-CDF importance resample -> fine field -> composite]
+
+``render_rays`` is the plain path through the field modules.
+``render_image`` renders a whole image in chunks of ``chunk`` rays, through
+a forward-only eval pass (``render/fused_eval.py``: kernels B3 and B2) when
+one is given, else through ``render_rays``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from swnerf_torch.device import resolve_device
+from swnerf_torch.models.common import Field
+from swnerf_torch.ops.rays import get_rays, ndc_rays
+from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays, sample_pdf
+from swnerf_torch.ops.volume import composite
+
+
+class Rays(NamedTuple):
+    """A batch of rays. All leading dims [N]."""
+
+    origins: torch.Tensor  # [N, 3]
+    directions: torch.Tensor  # [N, 3] (unnormalized; used for deltas)
+    viewdirs: Optional[torch.Tensor]  # [N, 3] unit directions, or None
+    near: torch.Tensor  # [N]
+    far: torch.Tensor  # [N]
+
+    def slice(self, start: int, stop: int) -> "Rays":
+        return Rays(*(None if x is None else x[start:stop] for x in self))
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Render options."""
+
+    n_samples: int = 64
+    n_importance: int = 0
+    perturb: float = 1.0
+    lindisp: bool = False
+    raw_noise_std: float = 0.0
+    white_bkgd: bool = False
+    use_viewdirs: bool = True
+
+    def eval_mode(self) -> "RenderConfig":
+        """Deterministic eval variant (reference render_kwargs_test,
+        run.py:302-304): no jitter, no density noise."""
+        return dataclasses.replace(self, perturb=0.0, raw_noise_std=0.0)
+
+
+def render_rays(
+    model: Field,
+    rays: Rays,
+    cfg: RenderConfig,
+    generator: Optional[torch.Generator] = None,
+    fine_model: Optional[Field] = None,
+) -> Dict[str, torch.Tensor]:
+    """Render a ray batch through the field modules. Returns per-ray maps:
+    rgb, disp, acc, weights, depth, z_vals, raw; with a fine pass also rgb0,
+    disp0, acc0 (coarse) and z_std."""
+    viewdirs = rays.viewdirs if cfg.use_viewdirs else None
+    z_vals = sample_along_rays(
+        rays.near, rays.far, cfg.n_samples, cfg.perturb, cfg.lindisp, generator=generator
+    )
+    pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
+    raw = model(pts, viewdirs)
+    out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator)
+
+    ret: Dict[str, torch.Tensor] = {}
+    if cfg.n_importance > 0:
+        ret.update(rgb0=out.rgb, disp0=out.disp, acc0=out.acc)
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(
+            z_mid, out.weights[..., 1:-1], cfg.n_importance, generator=generator, det=(cfg.perturb == 0.0)
+        )
+        z_vals = merge_z_vals(z_vals, z_samples)
+        pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
+        raw = (fine_model if fine_model is not None else model)(pts, viewdirs)
+        out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator)
+        ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+
+    ret.update(
+        rgb=out.rgb, disp=out.disp, acc=out.acc, weights=out.weights, depth=out.depth, z_vals=z_vals, raw=raw
+    )
+    return ret
+
+
+def make_rays_from_camera(
+    H: int,
+    W: int,
+    focal_or_K,
+    c2w,
+    near: float,
+    far: float,
+    use_viewdirs: bool = True,
+    ndc: bool = False,
+    device: Optional[torch.device] = None,
+) -> Rays:
+    """Full-image ray grid, flattened to [H*W] rays (reference render(),
+    run.py:105-158), on ``device`` (default ``cuda``)."""
+    rays_o, rays_d = get_rays(H, W, focal_or_K, c2w, device=resolve_device(device))
+    viewdirs = None
+    if use_viewdirs:
+        viewdirs = (rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)).reshape(-1, 3)
+    if ndc:
+        focal = focal_or_K if isinstance(focal_or_K, (int, float)) else focal_or_K[0][0]
+        rays_o, rays_d = ndc_rays(H, W, float(focal), 1.0, rays_o, rays_d)
+    rays_o = rays_o.reshape(-1, 3).contiguous()
+    rays_d = rays_d.reshape(-1, 3).contiguous()
+    n = rays_o.shape[0]
+    return Rays(
+        origins=rays_o,
+        directions=rays_d,
+        viewdirs=viewdirs,
+        near=torch.full((n,), near, dtype=rays_o.dtype, device=rays_o.device),
+        far=torch.full((n,), far, dtype=rays_o.dtype, device=rays_o.device),
+    )
+
+
+@torch.no_grad()
+def render_image(
+    model: Field,
+    rays: Rays,
+    cfg: RenderConfig,
+    chunk: int = 8192,
+    fine_model: Optional[Field] = None,
+    eval_pass=None,
+) -> Dict[str, torch.Tensor]:
+    """Whole-image render in chunks of ``chunk`` rays, always in eval mode
+    (deterministic). Returns rgb [N, 3], disp, acc, depth [N]."""
+    cfg = cfg.eval_mode()
+    use_pass = eval_pass is not None and rays.viewdirs is not None
+    if use_pass:
+        packed = eval_pass.pack(model)
+        packed_fine = eval_pass.pack(fine_model) if fine_model is not None else None
+    outs = []
+    n = rays.origins.shape[0]
+    for start in range(0, n, chunk):
+        tile = rays.slice(start, min(n, start + chunk))
+        if use_pass:
+            outs.append(eval_pass(packed, packed_fine, tile, cfg))
+        else:
+            out = render_rays(model, tile, cfg, fine_model=fine_model)
+            outs.append((out["rgb"], out["disp"], out["acc"], out["depth"]))
+    rgb, disp, acc, depth = (torch.cat(parts, 0) for parts in zip(*outs))
+    return {"rgb": rgb, "disp": disp, "acc": acc, "depth": depth}

@@ -1,0 +1,88 @@
+"""Forward-only eval rendering through kernels B3 and B2 (port of
+``swnerf_tpu/render/fused_eval.py::make_vanilla_eval_pass``).
+
+One render-pass kernel per pass computes encode + trunk + composite; B2
+resamples between the passes and ``torch.sort`` merges the depths. The
+semantics are the deterministic eval mode of ``render_rays``: linspace z,
+no noise, ``det`` resampling, and disp = 1/max(1e-10, depth/acc) with its
+0/0 -> NaN kept (computed here with ``torch.maximum``, not in the kernel).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from swnerf_torch.ops.embedding import positional_encoding
+from swnerf_torch.ops.kernels import render_pass as b3
+from swnerf_torch.ops.kernels import sample_pdf as b2
+from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
+from swnerf_torch.render.core import Rays, RenderConfig
+
+
+def _dists_scaled(z_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+    """deltas * |d| with the reference's trailing 1e10 (ray.py:163-167)."""
+    d = z_vals[..., 1:] - z_vals[..., :-1]
+    d = torch.cat([d, torch.full_like(d[..., :1], 1e10)], -1)
+    return d * torch.linalg.norm(rays_d[..., None, :], dim=-1)
+
+
+def supports_eval_pass(mcfg, fcfg=None) -> bool:
+    """Both passes' architectures fit B3 and share the embedding sizes."""
+    if not b3.supports_config(mcfg):
+        return False
+    return fcfg is None or (
+        b3.supports_config(fcfg) and (fcfg.multires, fcfg.multires_views) == (mcfg.multires, mcfg.multires_views)
+    )
+
+
+class VanillaEvalPass:
+    """``pack(model)`` once per image, then ``(packed, packed_fine, rays,
+    ecfg) -> (rgb, disp, acc, depth)`` per chunk of rays.
+
+    ``compute_dtype`` is B3's operand type (bf16 default, fp32 for parity).
+    ``plain=True`` runs the kernels' plain twins on any device, which is how
+    a kernel render is checked against plain torch on the card.
+    """
+
+    def __init__(self, mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+        self.mcfg = mcfg
+        self.compute_dtype = compute_dtype
+        self._render = b3.render_pass_plain if plain else b3.render_pass
+        self._sample_pdf = b2.sample_pdf_plain if plain else b2.sample_pdf
+
+    def pack(self, model) -> b3.PackedParams:
+        return b3.pack_params(model.state_dict(), model.cfg, self.compute_dtype)
+
+    def __call__(
+        self,
+        packed: b3.PackedParams,
+        packed_fine: Optional[b3.PackedParams],
+        rays: Rays,
+        ecfg: RenderConfig,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        origins = rays.origins.contiguous()
+        directions = rays.directions.contiguous()
+        vd_emb = positional_encoding(rays.viewdirs, self.mcfg.nf_views).contiguous()
+
+        def one(p, z):
+            return self._render(
+                p, origins, directions, vd_emb, z, _dists_scaled(z, directions), None, ecfg.white_bkgd
+            )
+
+        z_vals = sample_along_rays(rays.near, rays.far, ecfg.n_samples, 0.0, ecfg.lindisp).contiguous()
+        res = one(packed, z_vals)
+        if ecfg.n_importance > 0:
+            n = z_vals.shape[0]
+            z_mid = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+            u = torch.linspace(0.0, 1.0, ecfg.n_importance, device=z_vals.device).expand(n, ecfg.n_importance)
+            z_samples = self._sample_pdf(z_mid, res.weights[:, 1:-1], u)
+            z_all = merge_z_vals(z_vals, z_samples)
+            res = one(packed_fine if packed_fine is not None else packed, z_all)
+        disp = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
+        return res.rgb, disp, res.acc, res.depth
+
+
+def make_vanilla_eval_pass(mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> VanillaEvalPass:
+    return VanillaEvalPass(mcfg, compute_dtype, plain)

@@ -1,0 +1,90 @@
+"""Checkpoints, vanilla ``.tar`` schema (port of
+``swnerf_tpu/train/checkpoint.py``).
+
+The schema is the reference's ``{global_step, network_fn_state_dict,
+network_fine_state_dict, optimizer_state_dict}`` with weights in torch
+``[out, in]`` layout, so the port's modules load it as is. The JAX package
+keeps ``[in, out]`` pytrees; :func:`params_from_jax` is the weight bridge
+that gives both packages identical weights.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _vanilla_layers(tree: Mapping[str, Any]) -> Iterator[Tuple[str, Mapping[str, Any]]]:
+    """(torch module name, layer) in the reference's ``parameters()`` order:
+    pts_linears, views_linears, feature, alpha, rgb (or output)."""
+    for i, lyr in enumerate(tree["pts_linears"]):
+        yield f"pts_linears.{i}", lyr
+    if "views_linears" in tree:
+        for i, lyr in enumerate(tree["views_linears"]):
+            yield f"views_linears.{i}", lyr
+        for name in ("feature_linear", "alpha_linear", "rgb_linear"):
+            yield name, tree[name]
+    else:
+        yield "output_linear", tree["output_linear"]
+
+
+def _state_dict(tree: Mapping[str, Any], transpose: bool) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for name, lyr in _vanilla_layers(tree):
+        w = np.asarray(lyr["weight"] if "weight" in lyr else lyr["w"], dtype=np.float32)
+        b = np.asarray(lyr["bias"] if "bias" in lyr else lyr["b"], dtype=np.float32)
+        sd[f"{name}.weight"] = torch.tensor(w.T if transpose else w)
+        sd[f"{name}.bias"] = torch.tensor(b)
+    return sd
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX vanilla param pytree (numpy leaves, ``{"pts_linears": [{"w":
+    [in, out], "b"}], "feature_linear": ...}``) -> the port's state dict in
+    ``[out, in]`` layout."""
+    return _state_dict(tree, transpose=True)
+
+
+def vanilla_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``.tar``'s vanilla state dict (already ``[out, in]``) -> the port's
+    state dict: same walk as :func:`params_from_jax`, without the transpose."""
+    tree: Dict[str, Any] = {"pts_linears": [], "views_linears": []}
+    for key in sd:
+        mod, _, field = key.rpartition(".")
+        head, _, idx = mod.partition(".")
+        if head in ("pts_linears", "views_linears"):
+            layers = tree[head]
+            while len(layers) <= int(idx):
+                layers.append({})
+            layers[int(idx)][field] = sd[key]
+        else:
+            tree.setdefault(mod, {})[field] = sd[key]
+    if not tree["views_linears"]:
+        del tree["views_linears"]
+    return _state_dict(tree, transpose=False)
+
+
+def load_tar(path: str) -> Dict[str, Any]:
+    """Load a ``.tar`` checkpoint onto the CPU (tensors only, no pickled code)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def find_checkpoints(basedir: str, expname: str, ft_path: Optional[str] = None) -> List[str]:
+    """Latest-last ``.tar`` checkpoints of an experiment, ordered by
+    iteration number; ``ft_path`` names one file and wins (reference
+    run.py:262-268)."""
+    if ft_path is not None and ft_path != "None":
+        return [ft_path]
+    d = os.path.join(basedir, expname)
+    if not os.path.isdir(d):
+        return []
+    names = [f for f in os.listdir(d) if f.endswith(".tar")]
+
+    def key(f):
+        stem = os.path.splitext(f)[0]
+        return (int(stem) if stem.isdigit() else -1, stem)
+
+    return [os.path.join(d, f) for f in sorted(names, key=key)]
