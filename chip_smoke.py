@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of swnerf_torch on one NVIDIA card: build the CUDA kernels,
 hold each against its plain PyTorch twin, render test views of the trained
-vanilla NeRF through the real CLI, and time the kernels.
+vanilla NeRF and resume its training through the real CLI, and time the
+kernels.
 
     python3 chip_smoke.py
 
@@ -17,16 +18,35 @@ Phases (each raises on failure; nothing is caught):
      bf16 kernels), launch counts, PSNR/SSIM, and frame 0 re-rendered by the
      plain twins in fp32 (|dPSNR| <= 0.1 dB);
   6. each kernel against its twin again at the main path's chunk shape
-     (32,768 rays, bf16), its time there beside its bound, a per-stage
-     breakdown of one frame, and the JSON lines.
+     (32,768 rays, bf16), its time there beside its bound and a per-stage
+     breakdown of one frame;
+  7. B1 render_loss vs its twin with the 010000.tar weights on 1024 seeded
+     pixels of train view r_0 (coarse S=64 jittered, fine S=192 from a B2
+     pass), noise std 1: fp32 rgb/acc within 1e-4, depth and sqerr rtol
+     1e-4 (atol 1e-5 / 1e-7), gradients rel L2 1e-4 (or, on ReLU ties, no
+     further from the float64 twin than twice the fp32 twin, PERF.md); bf16
+     rgb max 1e-2 / mean 1e-3, gradients rel L2 1e-2; bit-equal repeats;
+  8. the kernel train step vs the eager autograd step from the same state
+     and draws: fp32 loss rel 1e-5, gradients as in 7 (float64 eager step as
+     the reference); bf16 loss rel 1e-2;
+  9. the training main path: ``run_nerf`` resumed from 010000.tar for 200
+     full-width bf16 steps (train PSNR >= 30 dB at every print, checkpoints
+     010100/010200 with Adam step 10200, B1 and B2 launch counts), ms per
+     step, rays/s, samples/s and a per-stage breakdown of one step;
+ 10. test frame 0 rendered from 010200.tar through the serving path:
+     >= 30 dB and within 0.5 dB of phase 5's frame 0; then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -325,6 +345,30 @@ def main() -> int:
     print("[6 breakdown] frame 0, device ms by stage: " + ", ".join(
         f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
     print(f"[6 breakdown] stage sum {total:.1f} ms vs timed frame {per_frame * 1e3:.1f} ms")
+    del pc, pf, res_c, zf, distf
+    torch.cuda.empty_cache()
+
+    # ---- 7. B1 against its twin; 8. the kernel step against the eager step
+    b1_rows = phase7_b1(dev, cfg, coarse, fine)
+    phase8_steps(dev, cfg, coarse, fine)
+
+    # ---- 9. the training main path; 10. the trained checkpoint serves
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        train_counts, ckpt = phase9_train(dev, cfg, coarse, fine, tmp)
+        phase10_serve(tmp, ckpt, metrics["psnr"][0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels[0]["launches"] += train_counts.get("sample_pdf", 0)  # B2 runs on both main paths
+    for S, row in b1_rows.items():
+        kernels.append(entry(
+            f"render_loss[S={S}]", "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+            train_counts.get(f"render_loss[S={S}]", 0), *row,
+        ))
+    for k in kernels[len(kernels) - len(b1_rows):]:
+        print(f"[6 kernel] {k['name']}: {k['ms']:.3f} ms/launch (plain {k['plain_ms']:.3f} ms), bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']} -> {100 * k['bound_ms'] / k['ms']:.2f}% of the bound, "
+              f"{k['launches']} launches in 200 train steps")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -383,6 +427,355 @@ def frame_breakdown(rays, cfg, pc, pf, chunk):
         for i, k in enumerate(names):
             acc[k] += ev[i].elapsed_time(ev[i + 1])
     return acc
+
+
+# ---------------------------------------------------------------- training phases
+
+
+def train_view_rays(dev, n, seed):
+    """``n`` seeded random pixels of train view r_0: rays (``build_rays``)
+    and the white-composited target colours."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.ops.rays import get_rays_at
+    from swnerf_torch.render.core import build_rays
+    from swnerf_torch.utils.png import read_png
+
+    with open(DATADIR / "transforms_train.json") as f:
+        meta = json.load(f)
+    frame = meta["frames"][0]
+    img = read_png(str(DATADIR / (frame["file_path"] + ".png"))).astype(np.float32) / 255.0
+    img = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+    H, W = img.shape[:2]
+    focal = 0.5 * W / np.tan(0.5 * float(meta["camera_angle_x"]))
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pix = torch.stack([torch.randint(0, H, (n,), generator=g, device=dev),
+                       torch.randint(0, W, (n,), generator=g, device=dev)], -1)
+    c2w = torch.tensor(frame["transform_matrix"], dtype=torch.float32, device=dev)[:3, :4]
+    o, d = get_rays_at(pix, H, W, K, c2w)
+    target = torch.as_tensor(img, device=dev)[pix[:, 0], pix[:, 1]].contiguous()
+    return build_rays(o, d, 2.0, 6.0), target
+
+
+def rel_l2(got, ref):
+    """Per-tensor ||got - ref|| / ||ref||, in float64."""
+    return {k: ((got[k].double().cpu() - ref[k].double().cpu()).norm()
+                / ref[k].double().cpu().norm().clamp_min(1e-300)).item() for k in ref}
+
+
+def check_fp32_grads(tag, kern, ref32, ref64):
+    """The fp32 gradient bar: each tensor within rel L2 1e-4 of the fp32
+    reference, or, where the two fp32 computations disagree on a ReLU mask,
+    no further from the float64 reference than twice the fp32 reference is.
+    At D=8 a few of the ~1e8 trunk pre-activations can sit within fp32
+    rounding of 0; two summation orders then disagree on those masks and the
+    lower trunk's gradients move by far more than 1e-4 (ROADMAP.md Queue C)."""
+    r32, rk, rr = rel_l2(kern, ref32), rel_l2(kern, ref64), rel_l2(ref32, ref64)
+    print(f"[{tag}] rel L2 vs fp32 reference: max {max(r32.values()):.3e} ({max(r32, key=r32.get)}), "
+          f"heads max {max(v for k, v in r32.items() if 'pts_linears' not in k):.3e}")
+    print(f"[{tag}] rel L2 vs float64 reference: kernel max {max(rk.values()):.3e}, "
+          f"fp32 reference max {max(rr.values()):.3e}")
+    bad = {k: (r32[k], rk[k], rr[k]) for k in rk if r32[k] > 1e-4 and rk[k] > 2.0 * rr[k]}
+    if bad:
+        fail(f"{tag}: gradients off the fp32 reference and further from the float64 one than it is: {bad}")
+
+
+def phase7_b1(dev, cfg, coarse, fine):
+    """B1 against its twin on the main path's shapes; returns, per S, the
+    [6 kernel] row fields (max_abs_err, ms, plain_ms, bytes, ops, kind)."""
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
+
+    rays, target = train_view_rays(dev, 1024, seed=0)
+    n = 1024
+    scale = 1.0 / (3 * n)
+    g = torch.Generator(device=dev).manual_seed(1)
+    o, d = rays.origins, rays.directions
+    ve = positional_encoding(rays.viewdirs, cfg.nf_views).contiguous()
+    z64 = sample_along_rays(rays.near, rays.far, 64, 1.0, generator=g).contiguous()
+    noise64 = torch.randn(z64.shape, generator=g, device=dev)  # std 1: the sigma > 0 mask is exercised
+    pc32 = b3.pack_params(coarse.state_dict(), cfg, torch.float32)
+    w64 = b1.render_loss_plain(pc32, o, d, ve, z64, b3_dists(z64, d), noise64, target, True, scale)[0].weights
+    u = torch.rand((n, 128), generator=g, device=dev)
+    zf = merge_z_vals(z64, b2.sample_pdf((0.5 * (z64[:, 1:] + z64[:, :-1])).contiguous(), w64[:, 1:-1], u))
+    zf = zf.contiguous()
+    noise192 = torch.randn(zf.shape, generator=g, device=dev)
+    rows = {}
+    for S, model, zz, nz in ((64, coarse, z64, noise64), (192, fine, zf, noise192)):
+        args = (o, d, ve, zz, b3_dists(zz, d), nz, target)
+        sd = model.state_dict()
+        # fp32 operands: kernel vs twin, the float64 twin as the conditioning reference
+        p32 = b3.pack_params(sd, cfg, torch.float32)
+        got, gk = b1.render_loss(p32, *args, True, scale)
+        ref, gr = b1.render_loss_plain(p32, *args, True, scale)
+        p64 = b3.pack_params(sd, cfg, torch.float64)
+        _, g64 = b1.render_loss_plain(p64, *(x.double() for x in args), True, scale)
+        torch.cuda.synchronize()
+        drgb = (got.rgb - ref.rgb).abs().max().item()
+        dacc = (got.acc - ref.acc).abs().max().item()
+        depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
+        # sqerr: rel 1e-4, with atol 1e-7 for the rays whose error is ~0
+        sq_ok = torch.allclose(got.sqerr, ref.sqerr, rtol=1e-4, atol=1e-7)
+        print(f"[7 B1 fp32 S={S}] max|drgb|={drgb:.3e} max|dacc|={dacc:.3e} "
+              f"max|ddepth|={(got.depth - ref.depth).abs().max().item():.3e} depth_within_rtol={depth_ok} "
+              f"max|dsqerr|={(got.sqerr - ref.sqerr).abs().max().item():.3e} sqerr_within_rtol={sq_ok} "
+              f"max|dw|={(got.weights - ref.weights).abs().max().item():.3e}")
+        if drgb > 1e-4 or dacc > 1e-4 or not depth_ok or not sq_ok:
+            fail(f"B1 fp32 S={S} outputs outside rgb/acc 1e-4, depth and sqerr rtol 1e-4 (atol 1e-5 / 1e-7)")
+        check_fp32_grads(f"7 B1 fp32 S={S}", b1.unpack_grads(gk, p32), b1.unpack_grads(gr, p32),
+                         b1.unpack_grads(g64, p64))
+        _, gk2 = b1.render_loss(p32, *args, True, scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])):
+            fail(f"B1 fp32 S={S}: two launches gave different gradients")
+        del gr, g64, gk2
+        # bf16 operands (the main path's): kernel vs the bf16 twin
+        p16 = b3.pack_params(sd, cfg, torch.bfloat16)
+        got, gk = b1.render_loss(p16, *args, True, scale)
+        ref, gr = b1.render_loss_plain(p16, *args, True, scale)
+        _, gk2 = b1.render_loss(p16, *args, True, scale)
+        torch.cuda.synchronize()
+        diff = (got.rgb - ref.rgb).abs()
+        rel = rel_l2(b1.unpack_grads(gk, p16), b1.unpack_grads(gr, p16))
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])
+        print(f"[7 B1 bf16 S={S}] max|drgb|={diff.max().item():.3e} mean|drgb|={diff.mean().item():.3e} "
+              f"grads max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
+        if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
+            fail(f"B1 bf16 S={S}: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+        nbytes = (4 * (6 * n + ve.numel() + 3 * zz.numel() + 3 * n) + 2 * p16.weights.numel() + 4 * p16.biases.numel()
+                  + 4 * (4 * n + zz.numel()) + 4 * (p16.weights.numel() + p16.biases.numel()))
+        flops = 2 * b1.train_macs_per_sample(p16) * zz.numel()
+        ms = cuda_ms(lambda: b1.render_loss(p16, *args, True, scale), 5)
+        plain_ms = cuda_ms(lambda: b1.render_loss_plain(p16, *args, True, scale), 2)
+        rows[S] = (diff.max().item(), ms, plain_ms, nbytes, flops, "bf16")
+        del gk, gr, gk2, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _fresh_state(cfg, coarse, fine, device, dtype=None):
+    from swnerf_torch.models import VanillaNeRF
+    from swnerf_torch.train.loop import init_train_state
+
+    def copy(model):
+        m = VanillaNeRF(cfg, device=device)
+        m.load_state_dict(model.state_dict())
+        return m.to(dtype) if dtype is not None else m
+
+    return init_train_state(copy(coarse), copy(fine), 5e-4, 500, step=10000)
+
+
+def _grads(state):
+    return {f"{net}.{k}": p.grad.detach().clone() for net, m in (("coarse", state.coarse), ("fine", state.fine))
+            for k, p in m.named_parameters()}
+
+
+def phase8_steps(dev, cfg, coarse, fine):
+    """The kernel step (B1, B2) against the eager autograd step, same state
+    and draws; the eager step in float64 on the CPU is the reference for the
+    gradient bar of check_fp32_grads."""
+    import torch
+
+    from swnerf_torch.render.core import Draws, RenderConfig, Rays, make_draws
+    from swnerf_torch.train.fused_step import make_fused_train_step
+    from swnerf_torch.train.loop import make_train_step
+
+    rays, target = train_view_rays(dev, 1024, seed=2)
+    rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+    draws = make_draws(rcfg, 1024, torch.Generator(device=dev).manual_seed(3), dev)
+    sk, se = _fresh_state(cfg, coarse, fine, dev), _fresh_state(cfg, coarse, fine, dev)
+    mk = make_fused_train_step(cfg, rcfg, fcfg=cfg, compute_dtype=torch.float32)(sk, rays, target, draws=draws)
+    me = make_train_step(rcfg)(se, rays, target, draws=draws)
+    torch.cuda.synchronize()
+    s64 = _fresh_state(cfg, coarse, fine, "cpu", torch.float64)
+    cpu64 = lambda x: None if x is None else x.detach().cpu().double()  # noqa: E731
+    make_train_step(rcfg)(s64, Rays(*(cpu64(x) for x in rays)), cpu64(target), draws=Draws(*(cpu64(x) for x in draws)))
+    dloss = abs(mk["total_loss"].item() - me["total_loss"].item()) / me["total_loss"].item()
+    print(f"[8 step fp32] total_loss kernel {mk['total_loss'].item():.7f} eager {me['total_loss'].item():.7f} "
+          f"rel {dloss:.3e}; psnr {mk['psnr'].item():.4f} vs {me['psnr'].item():.4f}")
+    if dloss > 1e-5:
+        fail(f"kernel step loss rel {dloss} > 1e-5")
+    check_fp32_grads("8 step fp32", _grads(sk), _grads(se), _grads(s64))
+    sb = _fresh_state(cfg, coarse, fine, dev)
+    mb = make_fused_train_step(cfg, rcfg, fcfg=cfg, compute_dtype=torch.bfloat16)(sb, rays, target, draws=draws)
+    dl16 = abs(mb["total_loss"].item() - me["total_loss"].item()) / me["total_loss"].item()
+    print(f"[8 step bf16] total_loss kernel {mb['total_loss'].item():.7f} vs fp32 eager: rel {dl16:.3e}")
+    if dl16 > 1e-2:
+        fail(f"bf16 kernel step loss rel {dl16} > 1e-2")
+    del sk, se, s64, sb
+    torch.cuda.empty_cache()
+
+
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def phase9_train(dev, cfg, coarse, fine, tmp):
+    """The training main path through the CLI: 200 steps resumed from
+    010000.tar. Returns its launch counts and the last checkpoint's path."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_nerf
+    from swnerf_torch.train.checkpoint import load_tar
+
+    argv = [
+        "--config", str(CONFIG), "--ft_path", str(CKPT), "--basedir", str(tmp), "--datadir", str(DATADIR),
+        "--device", "cuda", "--i_print", "50", "--i_weights", "100",
+    ]
+    os.environ["SWNERF_MAX_ITERS"] = "10201"
+    buf = io.StringIO()
+    try:
+        launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            res = run_nerf.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    finally:
+        os.environ.pop("SWNERF_MAX_ITERS", None)
+    out = buf.getvalue()
+    exp = tmp / "full_nerf_200k"
+    print(f"[9 train] launches {json.dumps(counts, sort_keys=True)} (200 steps), CLI wall {wall:.2f} s")
+    if f"Reloading from {CKPT}" not in out or "kernel train step" not in out or min(res["step_ms"]) != 10001:
+        fail("the training run did not resume from 010000.tar at 10000 on the kernel step")
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    psnrs = [(r["step"], r["psnr"]) for r in recs if "psnr" in r]
+    print(f"[9 train] train PSNR at the prints: {psnrs}")
+    if len(psnrs) != 4 or min(p for _, p in psnrs) < 30.0:
+        fail(f"train PSNR below 30 dB at a print (or not 4 prints): {psnrs}")
+    for i in (10100, 10200):
+        ck = load_tar(str(exp / f"{i:06d}.tar"))
+        steps = {int(e["step"]) for e in ck["optimizer_state_dict"]["state"].values()}
+        keys = set(ck)
+        print(f"[9 train] {i:06d}.tar keys {sorted(keys)} Adam step {steps}")
+        if keys != {"global_step", "network_fn_state_dict", "network_fine_state_dict", "optimizer_state_dict"} \
+                or steps != {i} or ck["global_step"] != i:
+            fail(f"{i:06d}.tar: keys {keys}, Adam steps {steps}")
+    b1_count = counts.get("render_loss[S=64]", 0) + counts.get("render_loss[S=192]", 0)
+    if b1_count < 400 or counts.get("sample_pdf", 0) < 200:
+        fail(f"the training main path launched B1 {b1_count} and B2 {counts.get('sample_pdf', 0)} times")
+    quiet = {i: ms for i, ms in res["step_ms"].items() if i % 50 and (i - 1) % 50}
+    med = statistics.median(quiet.values())
+    spr = 1024 * (64 + 192)
+    print(f"[9 train] ms per step, median of {len(quiet)} steps that neither print nor save (CUDA events): "
+          f"{med:.3f} ms (min {min(quiet.values()):.3f}, max {max(quiet.values()):.3f}); "
+          f"{1024 / med * 1e3:.4g} rays/s, {spr / med * 1e3:.4g} samples/s")
+    stages = step_breakdown(dev, cfg, coarse, fine)
+    total = sum(stages.values())
+    print("[9 breakdown] one step, device ms by stage: " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
+    print(f"[9 breakdown] stage sum {total:.2f} ms vs median step {med:.2f} ms")
+    return counts, exp / "010200.tar"
+
+
+def step_breakdown(dev, cfg, coarse, fine):
+    """Device milliseconds of each stage of one kernel train step (bf16, the
+    CLI's step), CUDA events between stages, after one warm-up step. The
+    stages are those of train/fused_step.py, written out here."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.ops.rays import get_rays_at
+    from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
+    from swnerf_torch.pipelines.common import ImageSampler, Scene
+    from swnerf_torch.render.core import RenderConfig, build_rays, make_draws
+    from swnerf_torch.train.fused_step import _set_grads
+
+    rays, _ = train_view_rays(dev, 1, seed=0)
+    with open(DATADIR / "transforms_train.json") as f:
+        meta = json.load(f)
+    H = W = 400
+    focal = 0.5 * W / np.tan(0.5 * float(meta["camera_angle_x"]))
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    poses = np.array([fr["transform_matrix"] for fr in meta["frames"][:1]], np.float32)
+    scene = Scene(images=np.zeros((1, H, W, 3), np.float32), poses=poses, render_poses=poses, H=H, W=W, focal=focal,
+                  K=K, near=2.0, far=6.0, i_train=np.arange(1), i_val=np.arange(0), i_test=np.arange(0))
+    images = torch.rand((1, H, W, 3), device=dev)
+    poses_dev = torch.as_tensor(poses[:, :3, :4], device=dev)
+    sampler = ImageSampler(scene, 1024, 0, 0.5)
+    rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True)
+    state = _fresh_state(cfg, coarse, fine, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    names = ("host sampler", "rays + z", "pack coarse", "coarse B1", "B2", "sort", "pack fine", "fine B1",
+             "unpack + Adam")
+    acc = dict.fromkeys(names, 0.0)
+    for rep in range(2):  # the first is the warm-up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        img_i, pixels = sampler.next(20000)
+        pixels = torch.as_tensor(pixels, device=dev)
+        ev[1].record()
+        o, d = get_rays_at(pixels, H, W, K, poses_dev[img_i])
+        target = images[img_i][pixels[:, 0], pixels[:, 1]].contiguous()
+        r = build_rays(o, d, 2.0, 6.0)
+        draws = make_draws(rcfg, 1024, g, dev)
+        z = sample_along_rays(r.near, r.far, 64, 1.0, t_rand=draws.t_rand).contiguous()
+        ve = positional_encoding(r.viewdirs, cfg.nf_views).contiguous()
+        ev[2].record()
+        state.zero_grad()
+        pk = b3.pack_params(state.coarse.state_dict(), cfg, torch.bfloat16)
+        ev[3].record()
+        oc, gc = b1.render_loss(pk, r.origins, r.directions, ve, z, b3_dists(z, r.directions), None, target, True,
+                                1.0 / 3072)
+        ev[4].record()
+        zs = b2.sample_pdf((0.5 * (z[:, 1:] + z[:, :-1])).contiguous(), oc.weights[:, 1:-1], draws.u)
+        ev[5].record()
+        zf = merge_z_vals(z, zs).contiguous()
+        ev[6].record()
+        pkf = b3.pack_params(state.fine.state_dict(), cfg, torch.bfloat16)
+        ev[7].record()
+        _, gf = b1.render_loss(pkf, r.origins, r.directions, ve, zf, b3_dists(zf, r.directions), None, target, True,
+                               1.0 / 3072)
+        ev[8].record()
+        _set_grads(state.coarse, b1.unpack_grads(gc, pk))
+        _set_grads(state.fine, b1.unpack_grads(gf, pkf))
+        state.apply_update()
+        ev[9].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, k in enumerate(names):
+                acc[k] = ev[i].elapsed_time(ev[i + 1])
+    return acc
+
+
+def phase10_serve(tmp, ckpt, psnr_before):
+    """Test frame 0 rendered from the trained checkpoint by the serving CLI."""
+    from swnerf_torch.pipelines import run_nerf
+
+    argv = [
+        "--config", str(CONFIG), "--render_only", "--render_test", "--testskip", "25", "--device", "cuda",
+        "--basedir", str(tmp / "serve"), "--datadir", str(DATADIR), "--ft_path", str(ckpt),
+    ]
+    metrics = json.loads((Path(run_nerf.main(argv)) / "metrics.json").read_text())
+    psnr = metrics["psnr"][0]
+    print(f"[10 serve] frame 0 from {ckpt.name}: PSNR {psnr:.3f} dB SSIM {metrics['ssim'][0]:.4f}; "
+          f"from 010000.tar {psnr_before:.3f} dB (delta {psnr - psnr_before:+.3f} dB)")
+    if not psnr >= 30.0 or abs(psnr - psnr_before) > 0.5:
+        fail(f"frame 0 from {ckpt.name}: {psnr} dB (< 30 dB or more than 0.5 dB from {psnr_before})")
 
 
 if __name__ == "__main__":

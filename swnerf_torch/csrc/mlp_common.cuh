@@ -1,0 +1,164 @@
+// Device code shared by the render kernels B3 (render_pass.cu) and B1
+// (render_loss.cu): operand-type traits, the 64-row MLP chunk product, the
+// activation epilogue and the in-block Fourier encoding.
+//
+// A block of NT threads runs the MLP over CH sample rows at a time. The
+// chunk's activations live in shared memory k-major ([feature][LDA], rows
+// padded so the epilogue's column-wise stores are conflict-free); weights
+// stream from global memory through a KT-row shared tile, and each thread
+// accumulates an 8-row x NC/32-column register tile in fp32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int CH = 64;    // sample rows per MLP chunk
+constexpr int NT = 256;   // threads per block: 8 warps x 8 rows = CH rows
+constexpr int KT = 16;    // weight rows per shared-memory tile
+constexpr int CIN = 64;   // padded position-embedding width
+constexpr int CV = 32;    // padded view-embedding width
+constexpr int NRED = 4 * CH * 3;
+
+template <typename T> struct Op;
+template <> struct Op<float> {
+  static constexpr int LDA = CH + 4;
+  static __device__ __forceinline__ float f(float x) { return x; }
+  static __device__ __forceinline__ float q(float x) { return x; }
+  static __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+  static __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+template <> struct Op<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int LDA = CH + 8;
+  static __device__ __forceinline__ float f(T x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ T q(float x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      v[2 * i] = t.x;
+      v[2 * i + 1] = t.y;
+    }
+  }
+  static __device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+// acc[i][j] += sum_k A[k][row_i] * Wg[k][col_j] over K (a multiple of KT).
+// A: shared, k-major [K][LDA]; Wg: global, row-major [K][NC]. Thread (warp
+// ty, lane) owns rows ty*8 .. ty*8+7 and columns j*32 + lane.
+template <typename T, int NC>
+__device__ __forceinline__ void mm_acc(float (&acc)[8][NC / 32], const T* __restrict__ A, int K,
+                                       const T* __restrict__ Wg, T* __restrict__ Ws) {
+  constexpr int CPT = NC / 32;
+  constexpr int LDA = Op<T>::LDA;
+  constexpr int NV = KT * NC * (int)sizeof(T) / 16;
+  const int lane = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  for (int k0 = 0; k0 < K; k0 += KT) {
+    __syncthreads();  // the previous tile (and any earlier writer of A) is done
+    const uint4* src = reinterpret_cast<const uint4*>(Wg + (size_t)k0 * NC);
+    uint4* dst = reinterpret_cast<uint4*>(Ws);
+    for (int v = threadIdx.x; v < NV; v += NT) dst[v] = __ldg(src + v);
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < KT; ++kk) {
+      float a[8];
+      Op<T>::load8(A + (k0 + kk) * LDA + ty * 8, a);
+      float w[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) w[j] = Op<T>::f(Ws[kk * NC + j * 32 + lane]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+    }
+  }
+}
+
+// out[col][row] = q(act(acc + bias[col])), k-major for the next layer.
+template <typename T, int NC, bool RELU>
+__device__ __forceinline__ void store_act(const float (&acc)[8][NC / 32], const float* __restrict__ bias,
+                                          T* __restrict__ out) {
+  constexpr int LDA = Op<T>::LDA;
+  const int lane = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NC / 32; ++j) {
+    const int col = j * 32 + lane;
+    const float b = bias[col];
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float z = acc[i][j] + b;
+      v[i] = RELU ? fmaxf(z, 0.f) : z;
+    }
+    Op<T>::store8(out + col * LDA + ty * 8, v);
+  }
+}
+
+template <int R, int C>
+__device__ __forceinline__ void zero(float (&acc)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
+}
+
+// Positions and view embeddings of rows row0 .. row0+CH-1 of this block
+// into shared memory (k-major). Rows past the block's samples get x = 0.
+// sin and cos are sinf/cosf of the exact product x * 2^f (no fast math).
+template <typename T>
+__device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict__ vemb_s, int row0, int rows,
+                                             long long ray0, int S, int L, int cv,
+                                             const float* __restrict__ origins, const float* __restrict__ dirs,
+                                             const float* __restrict__ z, const float* __restrict__ vemb) {
+  constexpr int LDA = Op<T>::LDA;
+  const int r = threadIdx.x & (CH - 1);
+  const int p = threadIdx.x / CH;  // 4 parts share a row
+  const int g = row0 + r;
+  const bool valid = g < rows;
+  const long long ray = ray0 + (valid ? g / S : 0);
+  float x[3] = {0.f, 0.f, 0.f};
+  if (valid) {
+    const float zz = z[ray * S + g % S];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = __fadd_rn(origins[ray * 3 + a], __fmul_rn(dirs[ray * 3 + a], zz));
+  }
+  if (p == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) emb[a * LDA + r] = Op<T>::q(x[a]);
+    for (int k = 3 + 6 * L; k < CIN; ++k) emb[k * LDA + r] = Op<T>::q(0.f);
+  }
+  for (int f = p; f < L; f += 4) {
+    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t = x[a] * scale;
+      emb[(3 + 6 * f + a) * LDA + r] = Op<T>::q(sinf(t));
+      emb[(6 + 6 * f + a) * LDA + r] = Op<T>::q(cosf(t));
+    }
+  }
+  for (int k = p; k < CV; k += 4)
+    vemb_s[k * LDA + r] = Op<T>::q((valid && k < cv) ? vemb[ray * cv + k] : 0.f);
+}
+
+}  // namespace

@@ -10,6 +10,7 @@ interface below.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -22,6 +23,26 @@ class Field(nn.Module):
     ``cfg`` is the model config the field was built from."""
 
     cfg = None
+
+
+def safe_init_enabled() -> bool:
+    """``SWNERF_SAFE_INIT=1``: opt-in remedy for the dead-density seed
+    pathology. With the reference's init the initial density is about the
+    density head's bias, a per-seed coin flip; a negative draw leaves the
+    network ReLU-dead with zero gradients. Off by default: it changes the
+    init distribution."""
+    return os.environ.get("SWNERF_SAFE_INIT", "0") == "1"
+
+
+@torch.no_grad()
+def density_bias_floor(head: nn.Linear, index: Optional[int] = None, floor: float = 0.1) -> None:
+    """Fold the density head's bias in place to ``|b| + floor`` (only entry
+    ``index`` for a multi-channel output layer), so the initial density is
+    positive everywhere and gradients flow from step one."""
+    if index is None:
+        head.bias.copy_(head.bias.abs() + floor)
+    else:
+        head.bias[index] = head.bias[index].abs() + floor
 
 
 def torch_linear_init(

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from swnerf_torch.device import resolve_device
-from swnerf_torch.models.common import Field, dense, init_mlp_stack
+from swnerf_torch.models.common import Field, dense, density_bias_floor, init_mlp_stack, safe_init_enabled
 from swnerf_torch.ops.embedding import embedding_dim, positional_encoding
 
 
@@ -75,6 +75,11 @@ class VanillaNeRF(Field):
             (self.rgb_linear,) = init_mlp_stack([(W // 2, 3)], generator, device)
         else:
             (self.output_linear,) = init_mlp_stack([(W, cfg.output_ch)], generator, device)
+        if safe_init_enabled():
+            if cfg.use_viewdirs:
+                density_bias_floor(self.alpha_linear)
+            else:
+                density_bias_floor(self.output_linear, index=3)
 
     def trunk(self, pts_emb: torch.Tensor, views_emb: Optional[torch.Tensor]) -> torch.Tensor:
         """The MLP on already-embedded inputs (``apply_vanilla_trunk``):

@@ -4,6 +4,7 @@
 |---|---|---|---|
 | B2 | ``sample_pdf.sample_pdf`` | ``csrc/sample_pdf.cu`` | ``swnerf_tpu/ops/pallas/sample_pdf.py::_kernel`` |
 | B3 | ``render_pass.render_pass`` | ``csrc/render_pass.cu`` | ``swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel`` (forward only) |
+| B1 | ``render_loss.render_loss`` | ``csrc/render_loss.cu`` | ``swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel`` (train mode) |
 
 A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches its kernel or raises. ``launches`` counts kernel launches by

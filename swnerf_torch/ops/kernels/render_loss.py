@@ -1,0 +1,278 @@
+"""Kernel B1: the train-mode render pass of a vanilla NeRF
+(``csrc/render_loss.cu``), its plain PyTorch twin, and the gradient unpacking.
+
+Replaces ``swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel`` in
+train mode (``param_grads=True``, ``from_rays``, vanilla): B3's forward, the
+per-ray squared error ``sqerr_r = sum_c (rgb_map_rc - target_rc)^2`` after
+the white background, the compositing backward and the trunk reverse. The
+gradients are those of ``loss_scale * sum_r sqerr_r`` and come out of the
+kernel itself, as in the JAX package; nothing here goes through autograd.
+
+Weights arrive packed by ``render_pass.pack_params``; the gradients come back
+as one fp32 buffer in ``weight_layout`` order and one in ``bias_layout``
+order, which :func:`unpack_grads` maps to each ``nn.Linear``'s ``[out, in]``
+gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from swnerf_torch.ops.embedding import positional_encoding
+from swnerf_torch.ops.kernels import build, launches
+from swnerf_torch.ops.kernels.render_pass import (
+    CIN_PAD,
+    CV_PAD,
+    WIDTHS,
+    PackedParams,
+    _check,
+    bias_layout,
+    weight_layout,
+)
+
+NAME = "render_loss"
+
+
+class RenderLossOutput(NamedTuple):
+    rgb: torch.Tensor  # [N, 3], white-composited when asked
+    acc: torch.Tensor  # [N]
+    depth: torch.Tensor  # [N]
+    sqerr: torch.Tensor  # [N]
+    weights: torch.Tensor  # [N, S]
+
+
+Grads = Tuple[torch.Tensor, torch.Tensor]  # (weights in weight_layout, biases in bias_layout), fp32
+
+
+def train_macs_per_sample(packed: PackedParams) -> int:
+    """Multiply-adds per sample of one train-mode pass of the unpadded
+    network: the forward, every dW (as many as the forward) and the dX
+    products the reverse sweep needs (no input gradients)."""
+    W, D = packed.W, packed.D
+    dx = (W // 2) * 3 + W * (W // 2) + W * W + W + (D - 1) * W * W
+    return 2 * packed.macs_per_sample + dx
+
+
+def _excl_suffix_sum(x: torch.Tensor) -> torch.Tensor:
+    """sum_{c > b} x_c along the last axis."""
+    rev = torch.cumsum(x.flip(-1), -1)
+    return torch.cat([torch.zeros_like(rev[..., :1]), rev[..., :-1]], -1).flip(-1)
+
+
+def render_loss_plain(
+    packed: PackedParams,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    target: torch.Tensor,
+    white_bkgd: bool,
+    loss_scale: float,
+) -> Tuple[RenderLossOutput, Grads]:
+    """B1's arithmetic in torch ops, with the backward written out
+    (render_fused.py:442-478 and ``_trunk_reverse``). With bf16 weights it
+    rounds to bf16 exactly where the kernel does: the embedding, each layer's
+    output, feat, hv, the raw cotangent (g_rgb, d sigma), dhv, d feat and
+    every dz. Products and sums stay fp32; the per-sample colour is fp32.
+    float64 weights run it all in float64 (a reference for conditioning
+    checks)."""
+    cdt = packed.weights.dtype
+    acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
+    m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
+    b = packed.bias_vectors()
+    D, skip = packed.D, packed.skip
+    N, S = z_vals.shape
+    P = N * S
+
+    def q(x):  # round to the operand type, compute in fp32 (fp64)
+        return x.to(cdt).to(acc_dt)
+
+    # ---- forward (as render_pass_plain), keeping each layer's output
+    pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
+    emb = positional_encoding(pts.reshape(P, 3), packed.n_freqs)
+    emb = q(F.pad(emb, (0, CIN_PAD - emb.shape[-1])))
+    vemb = q(F.pad(views_emb, (0, CV_PAD - views_emb.shape[-1])))
+    vemb = vemb[:, None, :].expand(N, S, CV_PAD).reshape(P, CV_PAD)
+    hs = []
+    h = emb
+    for i in range(D):
+        z = h @ m[f"pts{i}"]
+        if i == skip + 1:
+            z = emb @ m[f"pts{i}_emb"] + z
+        h = q(torch.relu(z + b[f"pts{i}"]))
+        hs.append(h)
+    feat = q(h @ m["feature"] + b["feature"])
+    sigma = (h @ m["alpha"])[:, 0] + b["alpha"]
+    hv = q(torch.relu(feat @ m["views_feat"] + vemb @ m["views_emb"] + b["views"]))
+    logits = hv @ m["rgb"] + b["rgb"]
+
+    # ---- composite, loss and the composite backward
+    sigma = sigma.reshape(N, S)
+    if noise is not None:
+        sigma = sigma + noise
+    rgb = torch.sigmoid(logits).reshape(N, S, 3)
+    ex = torch.exp(-torch.relu(sigma) * dists)
+    alpha = 1.0 - ex
+    safe = torch.maximum(1.0 - alpha + 1e-10, torch.full_like(alpha, 1e-10))
+    logs = torch.log(safe)
+    trans = torch.exp(torch.cat([torch.zeros_like(logs[:, :1]), torch.cumsum(logs, -1)[:, :-1]], -1))
+    w = alpha * trans
+    acc = w.sum(-1)
+    depth = (w * z_vals).sum(-1)
+    rgb_map = (w[..., None] * rgb).sum(-2)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc[:, None])
+    err = rgb_map - target
+    sqerr = (err * err).sum(-1)
+
+    g = loss_scale * 2.0 * err  # d loss / d rgb_map
+    g_acc = -g.sum(-1) if white_bkgd else torch.zeros_like(acc)
+    dldw = (g[:, None, :] * rgb).sum(-1) + g_acc[:, None]
+    dalpha = dldw * trans - _excl_suffix_sum(dldw * w) / safe
+    dsig = torch.where(sigma > 0, dalpha * dists * ex, torch.zeros_like(dalpha))
+    drgb = w[..., None] * g[:, None, :] * rgb * (1.0 - rgb)
+    graw = torch.cat([drgb, dsig[..., None]], -1).reshape(P, 4)
+    gq = q(graw)
+
+    # ---- trunk reverse
+    gw: Dict[str, torch.Tensor] = {}
+    gb: Dict[str, torch.Tensor] = {}
+    dhv = torch.where(hv > 0, gq[:, :3] @ m["rgb"].t(), torch.zeros_like(hv))
+    dhv_c = q(dhv)
+    gw["rgb"], gb["rgb"] = hv.t() @ gq[:, :3], graw[:, :3].sum(0)
+    gw["views_feat"], gw["views_emb"], gb["views"] = feat.t() @ dhv_c, vemb.t() @ dhv_c, dhv.sum(0)
+    dfeat = q(dhv_c @ m["views_feat"].t())
+    dsq = gq[:, 3]
+    top = hs[-1]
+    gw["feature"], gb["feature"] = top.t() @ dfeat, dfeat.sum(0)
+    gw["alpha"], gb["alpha"] = top.t() @ dsq[:, None], dsq.sum(0, keepdim=True)
+    dh = dfeat @ m["feature"].t() + dsq[:, None] * m["alpha"][:, 0][None, :]
+    dz = q(torch.where(top > 0, dh, torch.zeros_like(dh)))
+    for i in range(D - 1, -1, -1):
+        if i == skip + 1:
+            gw[f"pts{i}_emb"] = emb.t() @ dz
+        gw[f"pts{i}"] = (emb if i == 0 else hs[i - 1]).t() @ dz
+        gb[f"pts{i}"] = dz.sum(0)
+        if i > 0:
+            dh = dz @ m[f"pts{i}"].t()
+            dz = q(torch.where(hs[i - 1] > 0, dh, torch.zeros_like(dh)))
+
+    grads = (
+        torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(D, packed.W, skip)]),
+        torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(D, packed.W)]),
+    )
+    return RenderLossOutput(rgb_map, acc, depth, sqerr, w), grads
+
+
+def render_loss(
+    packed: PackedParams,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    target: torch.Tensor,
+    white_bkgd: bool,
+    loss_scale: float,
+) -> Tuple[RenderLossOutput, Grads]:
+    """B1 on CUDA tensors, the plain twin on CPU tensors."""
+    if origins.device.type == "cpu":
+        return render_loss_plain(
+            packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale
+        )
+    dev = origins.device
+    N, S = z_vals.shape
+    cv = views_emb.shape[-1]
+    if (
+        dev.type != "cuda"
+        or packed.W not in WIDTHS
+        or cv != packed.input_ch_views
+        or not 1 <= S <= 1024
+        or N * S * (packed.W + 8) >= 2**31
+    ):
+        raise ValueError(f"render_loss: unsupported call (device {dev}, W {packed.W}, N {N}, S {S}, views {cv})")
+    for x, name, shape in (
+        (origins, "origins", (N, 3)), (directions, "directions", (N, 3)), (views_emb, "views_emb", (N, cv)),
+        (z_vals, "z_vals", (N, S)), (dists, "dists", (N, S)), (target, "target", (N, 3)),
+    ) + (((noise, "noise", (N, S)),) if noise is not None else ()):
+        _check(x, name, shape, dev)
+    if (
+        packed.weights.device != dev
+        or packed.biases.device != dev
+        or packed.weights.data_ptr() % 16
+        or packed.weights.dtype not in (torch.float32, torch.bfloat16)
+    ):
+        raise ValueError("render_loss: packed weights must be a 16-byte aligned fp32/bf16 buffer on the device")
+    lib = build.load(NAME)
+    bf16 = int(packed.weights.dtype == torch.bfloat16)
+    size_fn = lib.render_loss_scratch_bytes
+    size_fn.restype = ctypes.c_longlong
+    size_fn.argtypes = [ctypes.c_int] * 5
+    nbytes = size_fn(bf16, packed.W, packed.D, N, S)
+    if nbytes < 0:
+        raise ValueError(f"render_loss: unsupported width {packed.W}")
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    rgb, acc, depth, sqerr, weights = out(N, 3), out(N), out(N), out(N), out(N, S)
+    gw = torch.zeros(packed.weights.numel(), dtype=torch.float32, device=dev)
+    gb = torch.zeros(packed.biases.numel(), dtype=torch.float32, device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = lib.render_loss_launch
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, p, p, p, i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i] + [p] * 9
+    with torch.cuda.device(dev):
+        code = fn(
+            bf16, packed.W, origins.data_ptr(), directions.data_ptr(), views_emb.data_ptr(), cv,
+            z_vals.data_ptr(), dists.data_ptr(), noise.data_ptr() if noise is not None else None, target.data_ptr(),
+            packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, packed.n_freqs,
+            int(bool(white_bkgd)), float(loss_scale), N, S,
+            rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), sqerr.data_ptr(), weights.data_ptr(),
+            gw.data_ptr(), gb.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(lib, code, "render_loss")
+    launches[f"{NAME}[S={S}]"] += 1
+    return RenderLossOutput(rgb, acc, depth, sqerr, weights), (gw, gb)
+
+
+def unpack_grads(grads: Grads, packed: PackedParams) -> Dict[str, torch.Tensor]:
+    """The packed gradient buffers -> ``{state-dict key: [out, in] grad}``
+    of a ``VanillaNeRF``; padded rows are dropped (they carry zero)."""
+    gw_buf, gb_buf = grads
+    D, W, skip = packed.D, packed.W, packed.skip
+    cin, cv = 3 + 6 * packed.n_freqs, packed.input_ch_views
+    mats, off = {}, 0
+    for name, rows, cols in weight_layout(D, W, skip):
+        mats[name] = gw_buf[off : off + rows * cols].view(rows, cols)
+        off += rows * cols
+    bias, off = {}, 0
+    for name, n in bias_layout(D, W):
+        bias[name] = gb_buf[off : off + n]
+        off += n
+
+    def t(x):
+        return x.t().contiguous()
+
+    out = {}
+    for i in range(D):
+        if i == 0:
+            w = mats["pts0"][:cin]
+        elif i == skip + 1:
+            w = torch.cat([mats[f"pts{i}_emb"][:cin], mats[f"pts{i}"]], 0)
+        else:
+            w = mats[f"pts{i}"]
+        out[f"pts_linears.{i}.weight"], out[f"pts_linears.{i}.bias"] = t(w), bias[f"pts{i}"].clone()
+    out["views_linears.0.weight"] = t(torch.cat([mats["views_feat"], mats["views_emb"][:cv]], 0))
+    out["views_linears.0.bias"] = bias["views"].clone()
+    for key, name in (("feature_linear", "feature"), ("alpha_linear", "alpha"), ("rgb_linear", "rgb")):
+        out[f"{key}.weight"], out[f"{key}.bias"] = t(mats[name]), bias[name].clone()
+    return out

@@ -170,15 +170,17 @@ def render_pass_plain(
 ) -> RenderPassOutput:
     """The same arithmetic as B3 in torch ops. With bf16 weights it rounds
     the embedding, each layer's output and the weights to bf16 exactly
-    where the kernel does; products and sums stay fp32."""
+    where the kernel does; products and sums stay fp32. float64 weights run
+    it all in float64 (a reference for conditioning checks)."""
     cdt = packed.weights.dtype
-    m = {k: v.float() for k, v in packed.matrices().items()}
+    acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
+    m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
     b = packed.bias_vectors()
     N, S = z_vals.shape
     P = N * S
 
-    def q(x):  # round to the operand type, compute in fp32
-        return x.to(cdt).float()
+    def q(x):  # round to the operand type, compute in fp32 (fp64)
+        return x.to(cdt).to(acc_dt)
 
     pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
     emb = positional_encoding(pts.reshape(P, 3), packed.n_freqs)

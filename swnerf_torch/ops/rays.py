@@ -45,6 +45,22 @@ def get_rays(
     return rays_o, rays_d
 
 
+def get_rays_at(pixels: torch.Tensor, H: int, W: int, focal_or_K, c2w: torch.Tensor):
+    """Rays at given pixels only: ``pixels`` [N, 2] integer (row, col) =
+    (y, x); returns ``(rays_o, rays_d)``, each [N, 3], on ``c2w``'s device.
+    The full H x W grid is never built (training samples a few pixels)."""
+    c2w = torch.as_tensor(c2w, dtype=torch.float32)
+    j = pixels[:, 0].to(torch.float32)  # row
+    i = pixels[:, 1].to(torch.float32)  # col
+    dirs = _pixel_dirs(
+        i, j, H, W, focal_or_K, torch.stack, torch.ones_like,
+        lambda k: torch.as_tensor(k, dtype=torch.float32, device=c2w.device),
+    )
+    rays_d = torch.sum(dirs[..., None, :] * c2w[:3, :3], -1)
+    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
 def get_rays_np(H: int, W: int, focal_or_K, c2w):
     """Numpy twin of :func:`get_rays` for host-side precompute."""
     c2w = np.asarray(c2w)

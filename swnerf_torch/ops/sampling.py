@@ -22,11 +22,13 @@ def sample_along_rays(
     perturb: float = 0.0,
     lindisp: bool = False,
     generator: Optional[torch.Generator] = None,
+    t_rand: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Stratified depth samples per ray: ``[N_rays, n_samples]``.
 
     ``perturb == 0`` gives the deterministic linspace; otherwise each depth
-    is jittered uniformly inside its interval with draws from ``generator``.
+    is jittered uniformly inside its interval by ``t_rand`` [N, n_samples]
+    when given, else by draws from ``generator``.
     """
     near = near.reshape(-1, 1)
     far = far.reshape(-1, 1)
@@ -41,7 +43,8 @@ def sample_along_rays(
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], -1)
         lower = torch.cat([z_vals[..., :1], mids], -1)
-        t_rand = torch.rand(z_vals.shape, generator=generator, dtype=z_vals.dtype, device=z_vals.device)
+        if t_rand is None:
+            t_rand = torch.rand(z_vals.shape, generator=generator, dtype=z_vals.dtype, device=z_vals.device)
         z_vals = lower + (upper - lower) * t_rand
     return z_vals
 
@@ -88,11 +91,12 @@ def sample_pdf_merge(
     n_samples: int,
     generator: Optional[torch.Generator] = None,
     det: bool = False,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The hierarchical-resample idiom in one call: bins = coarse z
     midpoints, importance-sample ``n_samples`` depths from
-    ``weights[..., 1:-1]``, and return the sorted union with ``z_vals``
-    (``[N, M + n_samples]``)."""
+    ``weights[..., 1:-1]`` (uniforms ``u`` as in :func:`sample_pdf`), and
+    return the sorted union with ``z_vals`` (``[N, M + n_samples]``)."""
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-    z_samples = sample_pdf(z_mid, weights[..., 1:-1], n_samples, generator=generator, det=det)
+    z_samples = sample_pdf(z_mid, weights[..., 1:-1], n_samples, generator=generator, det=det, u=u)
     return merge_z_vals(z_vals, z_samples)

@@ -28,11 +28,13 @@ def composite(
     raw_noise_std: float = 0.0,
     white_bkgd: bool = False,
     generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> CompositeOutput:
     """Alpha-composite raw ``[N, S, 4]`` (rgb logits + density) along rays.
 
-    With ``raw_noise_std > 0`` density noise of that std is drawn from
-    ``generator``.
+    With ``raw_noise_std > 0`` density noise is added: ``noise`` [N, S]
+    (already scaled by the std) when given, else standard normal draws from
+    ``generator`` times ``raw_noise_std``.
     """
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
@@ -41,9 +43,10 @@ def composite(
     rgb = torch.sigmoid(raw[..., :3])
     sigma = raw[..., 3]
     if raw_noise_std > 0.0:
-        sigma = sigma + torch.randn(
-            sigma.shape, generator=generator, dtype=sigma.dtype, device=sigma.device
-        ) * raw_noise_std
+        if noise is None:
+            noise = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype, device=sigma.device)
+            noise = noise * raw_noise_std
+        sigma = sigma + noise
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     trans = torch.cumprod(

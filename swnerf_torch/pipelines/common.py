@@ -1,7 +1,11 @@
 """Shared pipeline machinery (port of ``swnerf_tpu/pipelines/common.py``):
-dataset dispatch, path rendering and the eval-metrics dump of
-``--render_only``. This slice loads Blender scenes; the other loaders, the
-ray samplers of training and the mp4 writer are later slices (ROADMAP.md).
+dataset dispatch, the training ray samplers and step wrappers, the
+dead-init watchdog with auto-reseed, path rendering and the eval-metrics
+dump of ``--render_only``. This slice loads Blender scenes; the other
+loaders and the mp4 writer are later slices (ROADMAP.md).
+
+The samplers stay numpy and, unlike the JAX package's, are seeded from
+``SWNERF_SEED``; at seed 0 they draw exactly the JAX samplers' indices.
 """
 
 from __future__ import annotations
@@ -10,12 +14,13 @@ import dataclasses
 import json
 import os
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from swnerf_torch.render.core import RenderConfig, make_rays_from_camera, render_image
+from swnerf_torch.ops.rays import get_rays_at, get_rays_np
+from swnerf_torch.render.core import RenderConfig, build_rays, make_rays_from_camera, render_image
 from swnerf_torch.utils.media import write_png
 from swnerf_torch.utils.metrics import LPIPS_UNAVAILABLE_NOTE, calculate_metrics
 
@@ -70,6 +75,192 @@ def load_scene(args) -> Scene:
         H=H, W=W, focal=focal, K=K, near=2.0, far=6.0,
         i_train=np.asarray(i_train), i_val=np.asarray(i_val), i_test=np.asarray(i_test),
     )
+
+
+# ---------------------------------------------------------------------------
+# Ray sampling strategies
+# ---------------------------------------------------------------------------
+
+
+def seed_value(offset: int = 0) -> int:
+    """``SWNERF_SEED + offset``, moved to a distinct seed per auto-reseed
+    attempt (``SWNERF_RESEED_ATTEMPT``), so attempt k is reproducible."""
+    seed = int(os.environ.get("SWNERF_SEED", "0")) + offset
+    attempt = reseed_attempt()
+    return seed + (attempt << 32) if attempt else seed
+
+
+class RayPoolSampler:
+    """Pre-shuffled all-image ray pool (reference use_batching path,
+    run.py:601-650). The pool ``[Np, 3, 3]`` (origin, direction, rgb) lives
+    on ``device``; the host walks a numpy permutation and hands out
+    ``[N_rand]`` index slices."""
+
+    def __init__(self, scene: Scene, n_rand: int, device, seed: Optional[int] = None):
+        rays = np.stack([get_rays_np(scene.H, scene.W, scene.K, p[:3, :4]) for p in scene.poses], 0)
+        rays = np.transpose(rays, [0, 2, 3, 1, 4])[scene.i_train]  # [Nt, H, W, 2, 3]
+        rgb = scene.images[scene.i_train][..., None, :3]
+        pool = np.concatenate([rays, rgb], -2).reshape(-1, 3, 3).astype(np.float32)
+        self._rng = np.random.default_rng(int(os.environ.get("SWNERF_SEED", "0")) if seed is None else seed)
+        self.pool = torch.as_tensor(pool, device=device)
+        self.n = pool.shape[0]
+        self.n_rand = n_rand
+        self._perm = self._rng.permutation(self.n)
+        self._i = 0
+
+    def next_indices(self) -> np.ndarray:
+        if self._i + self.n_rand > self.n:
+            self._perm = self._rng.permutation(self.n)
+            self._i = 0
+        idx = self._perm[self._i : self._i + self.n_rand]
+        self._i += self.n_rand
+        return idx.astype(np.int64)
+
+
+class ImageSampler:
+    """Per-image random pixels with the center-crop curriculum (reference
+    no_batching path, run.py:652-681): the host picks the image and the
+    (row, col) pixels; rays for just those pixels are made on the device."""
+
+    def __init__(self, scene: Scene, n_rand: int, precrop_iters: int, precrop_frac: float, seed: Optional[int] = None):
+        self.scene = scene
+        self.n_rand = n_rand
+        self.precrop_iters = precrop_iters
+        self._rng = np.random.default_rng(int(os.environ.get("SWNERF_SEED", "0")) if seed is None else seed)
+        H, W = scene.H, scene.W
+        dH, dW = int(H // 2 * precrop_frac), int(W // 2 * precrop_frac)
+        ys, xs = np.meshgrid(np.arange(H // 2 - dH, H // 2 + dH), np.arange(W // 2 - dW, W // 2 + dW), indexing="ij")
+        self._crop_coords = np.stack([ys, xs], -1).reshape(-1, 2).astype(np.int64)
+        ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+        self._full_coords = np.stack([ys, xs], -1).reshape(-1, 2).astype(np.int64)
+
+    def next(self, step: int) -> Tuple[int, np.ndarray]:
+        img_i = int(self._rng.choice(self.scene.i_train))
+        coords = self._crop_coords if step < self.precrop_iters else self._full_coords
+        # Fewer pixels than N_rand in the region: draw with replacement.
+        replace = coords.shape[0] < self.n_rand
+        sel = self._rng.choice(coords.shape[0], size=self.n_rand, replace=replace)
+        return img_i, coords[sel]
+
+
+def _scene_rays(rays_o, rays_d, cfg: RenderConfig, scene: Scene):
+    return build_rays(
+        rays_o, rays_d, scene.near, scene.far, use_viewdirs=cfg.use_viewdirs, ndc=scene.ndc,
+        H=scene.H, W=scene.W, focal=scene.focal,
+    )
+
+
+def make_pool_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
+    """Wrap a train step to consume ``(state, pool, idx, generator)``: gather
+    origins, directions and targets from the device pool."""
+
+    def step(state, pool: torch.Tensor, idx, generator=None):
+        batch = pool[torch.as_tensor(idx, device=pool.device)]
+        rays = _scene_rays(batch[:, 0], batch[:, 1], cfg, scene)
+        return train_step(state, rays, batch[:, 2].contiguous(), generator)
+
+    return step
+
+
+def make_image_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
+    """Wrap a train step to consume ``(state, images, poses, img_i, pixels,
+    generator)`` with images ``[N, H, W, 3]`` and poses ``[N, 3, 4]`` on the
+    device: rays only at the chosen pixels, targets gathered there."""
+
+    def step(state, images: torch.Tensor, poses: torch.Tensor, img_i: int, pixels, generator=None):
+        pixels = torch.as_tensor(pixels, device=images.device)
+        rays_o, rays_d = get_rays_at(pixels, scene.H, scene.W, scene.K, poses[img_i])
+        target = images[img_i][pixels[:, 0], pixels[:, 1]]
+        return train_step(state, _scene_rays(rays_o, rays_d, cfg, scene), target, generator)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Dead-init watchdog and auto-reseed
+# ---------------------------------------------------------------------------
+
+
+class DeadInitDetected(RuntimeError):
+    """A watchdog-confirmed dead-density init draw, eligible for an
+    auto-restart (raised only while SWNERF_AUTO_RESEED budget remains)."""
+
+
+def reseed_attempt() -> int:
+    """Current auto-reseed attempt counter (0 = the original seed)."""
+    return int(os.environ.get("SWNERF_RESEED_ATTEMPT", "0") or 0)
+
+
+def auto_reseed_loop(train_once, argv=None):
+    """Run a trainer, restarting with a new init seed (:func:`seed_value`)
+    when :class:`DeadInitWatchdog` confirms the dead-density draw. Opt-in via
+    ``SWNERF_AUTO_RESEED=N`` (at most N restarts); restarts happen only
+    before the first checkpoint, so auto-resume never reloads a dead run."""
+    prev = os.environ.get("SWNERF_RESEED_ATTEMPT")
+    budget = int(os.environ.get("SWNERF_AUTO_RESEED", "0") or 0)
+    try:
+        while True:
+            try:
+                return train_once(argv)
+            except DeadInitDetected:
+                attempt = reseed_attempt() + 1
+                if attempt > budget:
+                    raise
+                print(f"[AUTO-RESEED] attempt {attempt}/{budget}: reinitializing with a new seed "
+                      "and restarting from iter 0")
+                os.environ["SWNERF_RESEED_ATTEMPT"] = str(attempt)
+    finally:
+        if prev is None:
+            os.environ.pop("SWNERF_RESEED_ATTEMPT", None)
+        else:
+            os.environ["SWNERF_RESEED_ATTEMPT"] = prev
+
+
+class DeadInitWatchdog:
+    """Warn once (or, with auto-reseed budget left before the first
+    checkpoint, raise :class:`DeadInitDetected`) when a run's printed PSNR
+    stays flat below the constant-background floor.
+
+    A negative density-bias draw leaves the network ReLU-dead with zero
+    gradients; it renders the constant background forever. "Flat" here is
+    the mean of the newer half of the last ``window`` prints rising by less
+    than ``spread_db`` over the older half. The JAX package tests
+    ``max - min < 0.02 dB`` instead, which the minibatch noise of a dead run
+    never passes (under ``--raw_noise_std 1`` least of all), so its watchdog
+    cannot fire; half-window means average that noise out.
+    """
+
+    def __init__(self, print_cadence: int, min_iter: int = 500, window: int = 8, floor_db: float = 16.0,
+                 restart_until: int = 0):
+        self.print_cadence = int(print_cadence) if print_cadence else 1
+        # SWNERF_WATCHDOG_* are test-scale hooks: tiny scenes have another floor.
+        self.min_iter = int(os.environ.get("SWNERF_WATCHDOG_MIN_ITER", min_iter))
+        self.window = window
+        self.floor_db = float(os.environ.get("SWNERF_WATCHDOG_FLOOR", floor_db))
+        self.spread_db = float(os.environ.get("SWNERF_WATCHDOG_SPREAD", 0.5))
+        self.restart_until = restart_until
+        self.history: list = []
+        self.warned = False
+
+    def check(self, i: int, psnr: float) -> None:
+        self.history.append(float(psnr))
+        del self.history[: -self.window]
+        if self.warned or i < self.min_iter or len(self.history) < self.window:
+            return
+        half = self.window // 2
+        older, newer = self.history[:half], self.history[-half:]
+        rise = sum(newer) / len(newer) - sum(older) / len(older)
+        if max(self.history) >= self.floor_db or rise >= self.spread_db:
+            return
+        budget = int(os.environ.get("SWNERF_AUTO_RESEED", "0") or 0)
+        if budget and reseed_attempt() < budget and i < self.restart_until:
+            print(f"[AUTO-RESEED] PSNR flat at {psnr:.2f} dB through iter {i}: dead-density init confirmed; "
+                  "restarting with a reseeded init (SWNERF_AUTO_RESEED)")
+            raise DeadInitDetected(f"dead init at iter {i} (psnr {psnr:.2f})")
+        self.warned = True
+        print(f"[WARN] PSNR has been flat at {psnr:.2f} dB for {self.window * self.print_cadence} iters: this seed "
+              "likely drew the dead-density init (zero gradients). Restart with a different SWNERF_SEED, add "
+              "`--raw_noise_std 1e0`, or set SWNERF_SAFE_INIT=1.")
 
 
 def render_path(

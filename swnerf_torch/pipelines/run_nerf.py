@@ -1,40 +1,63 @@
 """Vanilla NeRF CLI (port of ``swnerf_tpu/pipelines/run_nerf.py``).
 
-Serving slice: ``--render_only`` renders the test views (``--render_test``)
-or the spiral path from the latest checkpoint, through kernels B3 and B2 on
-the card::
+Training (the default) and ``--render_only`` serving::
 
-    python -m swnerf_torch.pipelines.run_nerf --config <cfg.txt> \\
-        --render_only --render_test [--device cuda|cpu]
+    python -m swnerf_torch.pipelines.run_nerf --config <cfg.txt> [--device cuda|cpu]
+    python -m swnerf_torch.pipelines.run_nerf --config <cfg.txt> --render_only --render_test
 
-Training is a later slice and raises ``NotImplementedError``.
+Training resumes from the latest ``.tar`` of the experiment (or
+``--ft_path``) with its Adam state, runs one train step per iteration
+(the kernel step on B1 and B2 where ``supports_fused_step`` holds, else the
+eager autograd step), saves ``{iter:06d}.tar`` every ``--i_weights``, renders
+the test views through B3 every ``--i_testset`` and the spiral path as PNG
+frames every ``--i_video``, and prints and logs to ``metrics.jsonl`` every
+``--i_print``. ``SWNERF_MAX_ITERS`` caps the iteration count (testing).
+Serving renders the test views or the spiral path through B3 and B2.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import torch
 
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
-from swnerf_torch.pipelines.common import load_scene, render_only
+from swnerf_torch.pipelines.common import (
+    DeadInitWatchdog,
+    ImageSampler,
+    RayPoolSampler,
+    auto_reseed_loop,
+    load_scene,
+    make_image_step,
+    make_pool_step,
+    render_only,
+    render_path,
+    seed_value,
+)
 from swnerf_torch.render.core import RenderConfig
 from swnerf_torch.render.fused_eval import make_vanilla_eval_pass, supports_eval_pass
-from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, vanilla_state_dict
+from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, save_tar, vanilla_state_dict
+from swnerf_torch.train.fused_step import make_fused_train_step, supports_fused_step
+from swnerf_torch.train.loop import TrainState, init_train_state, make_train_step
 from swnerf_torch.utils.config import config_parser
+from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
+
+N_ITERS = 200000 + 1  # fixed in the vanilla runner (reference run.py:625)
 
 
 def create_vanilla(args, device: torch.device):
-    """Models, render config and eval pass from CLI args (reference
-    create_nerf, run.py:222-311), reloading the latest checkpoint.
+    """Models, train state, render config and eval pass from CLI args
+    (reference create_nerf, run.py:222-311), resuming from the latest
+    checkpoint: weights, Adam state and ``start = global_step``.
 
-    Returns (model, fine_model, rcfg, start, eval_pass). The eval pass runs
-    bf16 kernel operands on the card and fp32 plain twins on the CPU; it is
-    None for architectures B3 does not cover (the plain path renders then).
+    Returns (state, rcfg, eval_pass, (mcfg, fcfg)). The eval pass runs bf16
+    kernel operands on the card and fp32 plain twins on the CPU; it is None
+    for architectures B3 does not cover (the plain path renders then).
     """
     output_ch = 5 if args.N_importance > 0 else 4
-    generator = torch.Generator().manual_seed(int(os.environ.get("SWNERF_SEED", "0")))
+    generator = torch.Generator().manual_seed(seed_value())
 
     def cfg(depth, width):
         return VanillaNeRFConfig(
@@ -55,38 +78,158 @@ def create_vanilla(args, device: torch.device):
         lindisp=args.lindisp, raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd,
         use_viewdirs=args.use_viewdirs,
     )
+    state = init_train_state(model, fine_model, args.lrate, args.lrate_decay)
 
-    start = 0
     ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
     if ckpts and not args.no_reload:
         print("Reloading from", ckpts[-1])
         ckpt = load_tar(ckpts[-1])
-        start = int(ckpt["global_step"])
+        state.step = int(ckpt["global_step"])
         model.load_state_dict(vanilla_state_dict(ckpt["network_fn_state_dict"]))
         if fine_model is not None and ckpt.get("network_fine_state_dict"):
             fine_model.load_state_dict(vanilla_state_dict(ckpt["network_fine_state_dict"]))
+        if ckpt.get("optimizer_state_dict"):
+            state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
 
     eval_pass = None
     if supports_eval_pass(mcfg, fcfg):
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         eval_pass = make_vanilla_eval_pass(mcfg, compute_dtype=dtype)
-    return model, fine_model, rcfg, start, eval_pass
+    return state, rcfg, eval_pass, (mcfg, fcfg)
+
+
+def save_vanilla_ckpt(args, state: TrainState, i: int) -> str:
+    """``{i:06d}.tar`` with the vanilla schema (run.py:717-723); the
+    optimizer's learning rate is the schedule's at ``i``, as the JAX package
+    writes it."""
+    path = os.path.join(args.basedir, args.expname, f"{i:06d}.tar")
+    opt = state.optimizer.state_dict()
+    for group in opt["param_groups"]:
+        group["lr"] = state.schedule(i)
+    payload = {"global_step": i, "network_fn_state_dict": state.coarse.state_dict()}
+    if state.fine is not None:
+        payload["network_fine_state_dict"] = state.fine.state_dict()
+    payload["optimizer_state_dict"] = opt
+    save_tar(path, payload)
+    print("Saved checkpoints at", path)
+    return path
+
+
+def train(argv=None):
+    """Product entry; with ``SWNERF_AUTO_RESEED=N`` a watchdog-confirmed
+    dead-density init restarts training (at most N times) with a new seed."""
+    return auto_reseed_loop(_train_impl, argv)
+
+
+def _train_impl(argv=None) -> Dict:
+    """The training loop (JAX ``_train_impl``, one step per iteration).
+
+    Returns ``{"metrics": the last step's metrics, "step_ms": {iteration:
+    device ms}}``; on the card each step's time is read from CUDA events
+    recorded after every step (no synchronization in the loop)."""
+    args = config_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    scene = load_scene(args)
+    os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
+    snapshot_args(args.basedir, args.expname, args, args.config)
+    state, rcfg, eval_pass, (mcfg, fcfg) = create_vanilla(args, device)
+    start = state.step
+    logger = ExperimentLogger(args.basedir, args.expname)
+
+    if supports_fused_step(mcfg, fcfg, rcfg) and os.environ.get("SWNERF_FUSED_STEP", "1") != "0":
+        train_step = make_fused_train_step(mcfg, rcfg, fcfg=fcfg)
+        print("Using the kernel train step (B1 render-loss, B2 sample_pdf)")
+    else:
+        train_step = make_train_step(rcfg)
+        print("Using the eager autograd train step")
+    generator = torch.Generator(device=device).manual_seed(seed_value(1))
+
+    if args.no_batching:
+        sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac)
+        step_fn = make_image_step(train_step, rcfg, scene)
+        images_dev = torch.as_tensor(scene.images, device=device)
+        poses_dev = torch.as_tensor(scene.poses[:, :3, :4], device=device)
+
+        def one_step(i):
+            img_i, pixels = sampler.next(i)
+            return step_fn(state, images_dev, poses_dev, img_i, pixels, generator)
+    else:
+        sampler = RayPoolSampler(scene, args.N_rand, device)
+        step_fn = make_pool_step(train_step, rcfg, scene)
+
+        def one_step(i):
+            return step_fn(state, sampler.pool, sampler.next_indices(), generator)
+
+    n_iters = int(os.environ.get("SWNERF_MAX_ITERS", N_ITERS))
+    samples_per_step = args.N_rand * (rcfg.n_samples + (rcfg.n_samples + rcfg.n_importance if rcfg.n_importance else 0))
+    print("Training Begin")
+    print("TRAIN views are", scene.i_train)
+    print("TEST views are", scene.i_test)
+    # Auto-reseed restarts are legal only before the first checkpoint, and
+    # never on a resumed run.
+    watchdog = DeadInitWatchdog(args.i_print, restart_until=args.i_weights if start == 0 else 0)
+    cuda = device.type == "cuda"
+    events, step_ms = {}, {}
+    if cuda:
+        events[start] = torch.cuda.Event(enable_timing=True)
+        events[start].record()
+
+    metrics = {}
+    for i in range(start + 1, n_iters):
+        metrics = one_step(i)
+        if cuda:
+            events[i] = torch.cuda.Event(enable_timing=True)
+            events[i].record()
+
+        if i % args.i_weights == 0:
+            save_vanilla_ckpt(args, state, i)
+        if i % args.i_video == 0 and i > 0:
+            # PNG frames of the spiral path; the mp4 writer is a later slice.
+            viddir = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}")
+            os.makedirs(viddir, exist_ok=True)
+            render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk, savedir=viddir,
+                        eval_pass=eval_pass)
+        if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
+            testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
+            os.makedirs(testsavedir, exist_ok=True)
+            render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
+                        savedir=testsavedir, eval_pass=eval_pass)
+            print("Saved test set")
+        if i % args.i_print == 0:
+            if cuda:
+                events[i].synchronize()
+                done = sorted(events)
+                for a, b in zip(done[:-1], done[1:]):
+                    step_ms[b] = events[a].elapsed_time(events[b])
+                events = {i: events[i]}
+            m = {k: float(v) for k, v in metrics.items()}
+            logger.scalars(i, m)
+            tp = logger.throughput(i, samples_per_step)
+            rate = f" {tp['ray_samples_per_sec_per_chip'] / 1e6:.2f}M samp/s" if tp else ""
+            print(f"[TRAIN] Iter: {i} Loss: {m['total_loss']:.6f}  PSNR: {m['psnr']:.3f}{rate}", flush=True)
+            watchdog.check(i, m["psnr"])
+
+    if cuda and len(events) > 1:
+        torch.cuda.synchronize(device)
+        done = sorted(events)
+        for a, b in zip(done[:-1], done[1:]):
+            step_ms[b] = events[a].elapsed_time(events[b])
+    logger.close()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "step_ms": step_ms}
 
 
 def main(argv=None):
-    """CLI entry. Returns the render directory of ``--render_only``."""
+    """CLI entry. Returns the render directory of ``--render_only``, else
+    what :func:`train` returns."""
     args = config_parser().parse_args(argv)
     device = resolve_device(args.device)
     if not args.render_only:
-        raise NotImplementedError(
-            "training is not ported yet: it is the next slice (ROADMAP.md Queue A item 4, "
-            "kernel B1 with the eager train step); use --render_only"
-        )
+        return train(argv)
     scene = load_scene(args)
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
-    model, fine_model, rcfg, start, eval_pass = create_vanilla(args, device)
+    state, rcfg, eval_pass, _ = create_vanilla(args, device)
     print("RENDER ONLY")
-    savedir = render_only(model, fine_model, scene, rcfg, args, start, eval_pass=eval_pass)
+    savedir = render_only(state.coarse, state.fine, scene, rcfg, args, state.step, eval_pass=eval_pass)
     print("Done rendering", savedir)
     return savedir
 

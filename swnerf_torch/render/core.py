@@ -3,7 +3,9 @@
 coarse stratified sampling -> field -> composite
 [-> inverse-CDF importance resample -> fine field -> composite]
 
-``render_rays`` is the plain path through the field modules.
+``render_rays`` is the plain path through the field modules. Its random
+numbers come from a ``torch.Generator`` or, as :class:`Draws`, from the
+caller (the analog of the JAX package's ``sample_pdf(u=...)``).
 ``render_image`` renders a whole image in chunks of ``chunk`` rays, through
 a forward-only eval pass (``render/fused_eval.py``: kernels B3 and B2) when
 one is given, else through ``render_rays``.
@@ -54,41 +56,107 @@ class RenderConfig:
         return dataclasses.replace(self, perturb=0.0, raw_noise_std=0.0)
 
 
+class Draws(NamedTuple):
+    """The random numbers of one train-mode render, in the order the JAX
+    key schedule splits them (``render/core.py:104`` there)."""
+
+    t_rand: Optional[torch.Tensor]  # [N, n_samples] stratified jitter (perturb > 0)
+    noise0: Optional[torch.Tensor]  # [N, n_samples] coarse density noise, times the std
+    u: Optional[torch.Tensor]  # [N, n_importance] importance uniforms (perturb > 0)
+    noise1: Optional[torch.Tensor]  # [N, n_samples + n_importance] fine density noise
+
+
+def make_draws(cfg: RenderConfig, n: int, generator: Optional[torch.Generator], device) -> Draws:
+    """Draw what :func:`render_rays` would draw for ``n`` rays, in its
+    order; None where the config needs no randomness."""
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    def noise(*shape):
+        return torch.randn(shape, generator=generator, device=device) * cfg.raw_noise_std
+
+    jitter = cfg.perturb > 0.0
+    noisy = cfg.raw_noise_std > 0.0
+    fine = cfg.n_importance > 0
+    s_all = cfg.n_samples + cfg.n_importance
+    return Draws(
+        t_rand=rand(n, cfg.n_samples) if jitter else None,
+        noise0=noise(n, cfg.n_samples) if noisy else None,
+        u=rand(n, cfg.n_importance) if fine and jitter else None,
+        noise1=noise(n, s_all) if fine and noisy else None,
+    )
+
+
 def render_rays(
     model: Field,
     rays: Rays,
     cfg: RenderConfig,
     generator: Optional[torch.Generator] = None,
     fine_model: Optional[Field] = None,
+    draws: Optional[Draws] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a ray batch through the field modules. Returns per-ray maps:
     rgb, disp, acc, weights, depth, z_vals, raw; with a fine pass also rgb0,
-    disp0, acc0 (coarse) and z_std."""
+    disp0, acc0 (coarse) and z_std. Random numbers come from ``draws`` when
+    given, else from ``generator``."""
+    if draws is None:
+        draws = Draws(None, None, None, None)
     viewdirs = rays.viewdirs if cfg.use_viewdirs else None
     z_vals = sample_along_rays(
-        rays.near, rays.far, cfg.n_samples, cfg.perturb, cfg.lindisp, generator=generator
+        rays.near, rays.far, cfg.n_samples, cfg.perturb, cfg.lindisp, generator=generator, t_rand=draws.t_rand
     )
     pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
     raw = model(pts, viewdirs)
-    out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator)
+    out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise0)
 
     ret: Dict[str, torch.Tensor] = {}
     if cfg.n_importance > 0:
         ret.update(rgb0=out.rgb, disp0=out.disp, acc0=out.acc)
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_samples = sample_pdf(
-            z_mid, out.weights[..., 1:-1], cfg.n_importance, generator=generator, det=(cfg.perturb == 0.0)
+            z_mid, out.weights[..., 1:-1], cfg.n_importance, generator=generator, det=(cfg.perturb == 0.0),
+            u=draws.u if cfg.perturb > 0.0 else None,
         )
         z_vals = merge_z_vals(z_vals, z_samples)
         pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
         raw = (fine_model if fine_model is not None else model)(pts, viewdirs)
-        out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator)
+        out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise1)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 
     ret.update(
         rgb=out.rgb, disp=out.disp, acc=out.acc, weights=out.weights, depth=out.depth, z_vals=z_vals, raw=raw
     )
     return ret
+
+
+def build_rays(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near: float,
+    far: float,
+    use_viewdirs: bool = True,
+    ndc: bool = False,
+    H: int = 0,
+    W: int = 0,
+    focal: float = 0.0,
+) -> Rays:
+    """Pack raw origins/directions into a :class:`Rays` batch (reference
+    render() packing, run.py:137-158): viewdirs normalized from the pre-NDC
+    directions, optional NDC projection, near/far broadcast."""
+    viewdirs = None
+    if use_viewdirs:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    if ndc:
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+    n = rays_o.shape[0]
+    return Rays(
+        origins=rays_o.contiguous(),
+        directions=rays_d.contiguous(),
+        viewdirs=viewdirs,
+        near=torch.full((n,), near, dtype=rays_o.dtype, device=rays_o.device),
+        far=torch.full((n,), far, dtype=rays_o.dtype, device=rays_o.device),
+    )
 
 
 def make_rays_from_camera(

@@ -1,1 +1,2 @@
-"""Checkpoints (port of ``swnerf_tpu.train``; training itself is a later slice)."""
+"""Train state, Adam, the eager and kernel train steps, and checkpoints
+(port of ``swnerf_tpu.train``)."""

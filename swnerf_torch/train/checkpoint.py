@@ -6,6 +6,13 @@ network_fine_state_dict, optimizer_state_dict}`` with weights in torch
 ``[out, in]`` layout, so the port's modules load it as is. The JAX package
 keeps ``[in, out]`` pytrees; :func:`params_from_jax` is the weight bridge
 that gives both packages identical weights.
+
+The optimizer state is torch Adam's own ``state_dict()``: ``VanillaNeRF``
+registers its layers in the reference's ``parameters()`` order (the JAX
+package's ``_trunk_layout``), so the JAX package's Adam bridge
+(``adam_to_torch_dict``/``torch_dict_to_adam``) reads and writes the same
+entries. Only the native and orbax formats of the JAX package are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -65,6 +72,25 @@ def vanilla_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if not tree["views_linears"]:
         del tree["views_linears"]
     return _state_dict(tree, transpose=False)
+
+
+def save_tar(path: str, payload: Mapping[str, Any]) -> None:
+    """``torch.save`` a checkpoint payload; tensors are moved to the CPU
+    first, so the file loads on a machine without a card."""
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu()
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cpu(v) for v in x)
+        return x
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(cpu(dict(payload)), tmp)
+    os.replace(tmp, path)
 
 
 def load_tar(path: str) -> Dict[str, Any]:

@@ -1,1 +1,1 @@
-"""Config, metrics, images (port of ``swnerf_tpu.utils``)."""
+"""Config, metrics, images, experiment logging (port of ``swnerf_tpu.utils``)."""

@@ -1,4 +1,4 @@
-"""The CUDA kernels B2 and B3 against their plain twins, on the card.
+"""The CUDA kernels B1, B2 and B3 against their plain twins, on the card.
 
 Marked ``cuda``; without a card every test skips. Run on a machine with an
 H100 (the repo's conftest imports JAX, which that machine need not have):
@@ -7,7 +7,16 @@ H100 (the repo's conftest imports JAX, which that machine need not have):
 
 Tolerances are those of chip_smoke.py: B2 bit-exact; B3 fp32 atol 1e-4 on
 rgb/acc and rtol 1e-4 on depth; B3 bf16 max |drgb| <= 1e-2, mean <= 1e-3.
+B1 fp32: the same output bars, sqerr rel 1e-4; each gradient tensor within
+rel L2 (||d|| / ||g||) 1e-4 of the fp32 twin or, where the two disagree on
+a ReLU mask (at D=8 a few pre-activations sit on fp32 ties, PERF.md), no
+further from the float64 twin than twice the fp32 twin is;
+B1 bf16: rgb max 1e-2, mean 1e-3, each gradient tensor rel L2 1e-2; two
+launches give bit-equal gradients. The kernel step against the eager step:
+loss rel 1e-5 and the same gradient bar against the float64 eager step.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -15,6 +24,7 @@ import torch
 from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
 from swnerf_torch.ops.embedding import positional_encoding
 from swnerf_torch.ops.kernels import build, launches
+from swnerf_torch.ops.kernels import render_loss as b1
 from swnerf_torch.ops.kernels import render_pass as b3
 from swnerf_torch.ops.kernels import sample_pdf as b2
 
@@ -122,3 +132,117 @@ def test_b3_rejects_bad_inputs(dev):
         b3.render_pass(packed, o, d, ve, z.t().contiguous().t(), dist)
     with pytest.raises(ValueError):
         b3.render_pass(packed, o, d, ve[:, :-1].contiguous(), z, dist)
+
+
+def _b1_case(dev, kw, n, s, dtype, seed=0):
+    cfg = VanillaNeRFConfig(**kw)
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    packed = b3.pack_params(model.state_dict(), cfg, dtype)
+    o, d, vd, z, dist = _rays(dev, n, s, seed)
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    noise = torch.randn(z.shape, generator=g, device=dev)  # std 1: the sigma > 0 mask is exercised
+    target = torch.rand((n, 3), generator=g, device=dev)
+    return packed, (o, d, ve, z, dist, noise, target)
+
+
+def _rel_l2(got, ref):
+    """Per-tensor ||got - ref|| / ||ref|| over the unpacked gradients."""
+    return {k: ((got[k].double().cpu() - ref[k].double().cpu()).norm() / ref[k].double().cpu().norm().clamp_min(1e-300))
+            .item() for k in ref}
+
+
+def _assert_fp32_grads(got, ref32, ref64):
+    """rel L2 1e-4 against the fp32 reference, or (ReLU mask ties) no
+    further from the float64 reference than twice the fp32 one."""
+    r32, rk, rr = _rel_l2(got, ref32), _rel_l2(got, ref64), _rel_l2(ref32, ref64)
+    bad = {k: (r32[k], rk[k], rr[k]) for k in rk if r32[k] > 1e-4 and rk[k] > 2.0 * rr[k]}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(netdepth=3, netwidth=128, skips=(1,), multires=4, multires_views=2), dict()], ids=["small", "flagship"]
+)
+@pytest.mark.parametrize("n_samples", [8, 64, 192])
+@pytest.mark.parametrize("white", [True, False])
+def test_b1_fp32_matches_plain(dev, kw, n_samples, white):
+    packed, args = _b1_case(dev, kw, 300, n_samples, torch.float32)
+    scale = 1.0 / (3 * 300)
+    got, gg = b1.render_loss(packed, *args, white, scale)
+    ref, gr = b1.render_loss_plain(packed, *args, white, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got.weights, ref.weights, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.sqerr, ref.sqerr, atol=1e-7, rtol=1e-4)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    _, g64 = b1.render_loss_plain(p64, *(x.double() for x in args), white, scale)
+    _assert_fp32_grads(b1.unpack_grads(gg, packed), b1.unpack_grads(gr, packed), b1.unpack_grads(g64, p64))
+
+
+@pytest.mark.parametrize("n_samples", [64, 192])
+def test_b1_bf16_matches_plain(dev, n_samples):
+    packed, args = _b1_case(dev, {}, 1024, n_samples, torch.bfloat16)
+    before = launches[f"render_loss[S={n_samples}]"]
+    got, gg = b1.render_loss(packed, *args, True, 1.0 / 3072)
+    ref, gr = b1.render_loss_plain(packed, *args, True, 1.0 / 3072)
+    torch.cuda.synchronize()
+    assert launches[f"render_loss[S={n_samples}]"] == before + 1
+    diff = (got.rgb - ref.rgb).abs()
+    assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
+    rel = _rel_l2(b1.unpack_grads(gg, packed), b1.unpack_grads(gr, packed))
+    assert max(rel.values()) <= 1e-2, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b1_gradients_are_deterministic(dev, dtype):
+    packed, args = _b1_case(dev, {}, 1024, 192, dtype)
+    _, (w1, b1_) = b1.render_loss(packed, *args, True, 1.0 / 3072)
+    _, (w2, b2_) = b1.render_loss(packed, *args, True, 1.0 / 3072)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2) and torch.equal(b1_, b2_)
+
+
+def test_b1_rejects_bad_inputs(dev):
+    packed, (o, d, ve, z, dist, noise, target) = _b1_case(
+        dev, dict(netdepth=3, netwidth=128, skips=(1,), multires=4, multires_views=2), 16, 8, torch.float32
+    )
+    with pytest.raises(ValueError):
+        b1.render_loss(packed, o, d, ve, z, dist, noise, target[:, :2].contiguous(), True, 1.0)
+    with pytest.raises(ValueError):
+        b1.render_loss(packed, o, d, ve, z.t().contiguous().t(), dist, noise, target, True, 1.0)
+
+
+def test_kernel_step_matches_eager_step(dev):
+    """One kernel train step (B1, B2; fp32 operands) against the eager
+    autograd step from the same state and draws; the eager step in float64
+    on the CPU is the gradient reference."""
+    from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+    from swnerf_torch.train.fused_step import make_fused_train_step
+    from swnerf_torch.train.loop import init_train_state, make_train_step
+
+    cfg = VanillaNeRFConfig(netdepth=6, netwidth=128, skips=(4,), multires=10, multires_views=4)
+    rcfg = RenderConfig(n_samples=32, n_importance=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+    o, d, vd, _, _ = _rays(dev, 256, 8)
+    rays = Rays(o, d, vd, torch.full((256,), 2.0, device=dev), torch.full((256,), 6.0, device=dev))
+    target = torch.rand((256, 3), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    draws = make_draws(rcfg, 256, torch.Generator(device=dev).manual_seed(3), dev)
+
+    def state(device, dtype=torch.float32):
+        nets = [VanillaNeRF(cfg, device=device, generator=torch.Generator().manual_seed(s)).to(dtype) for s in (0, 1)]
+        return init_train_state(*nets, 5e-4, 500)
+
+    def grads(st):
+        return {f"{n}.{k}": p.grad for n, m in (("c", st.coarse), ("f", st.fine)) for k, p in m.named_parameters()}
+
+    sk, se, s64 = state(dev), state(dev), state("cpu", torch.float64)
+    before = launches["render_loss[S=96]"]
+    mk = make_fused_train_step(cfg, rcfg, fcfg=cfg, compute_dtype=torch.float32)(sk, rays, target, draws=draws)
+    me = make_train_step(rcfg)(se, rays, target, draws=draws)
+    cpu64 = lambda x: None if x is None else x.cpu().double()  # noqa: E731
+    make_train_step(rcfg)(s64, Rays(*(cpu64(x) for x in rays)), cpu64(target), draws=Draws(*(cpu64(x) for x in draws)))
+    torch.cuda.synchronize()
+    assert launches["render_loss[S=96]"] == before + 1
+    assert mk["total_loss"].item() == pytest.approx(me["total_loss"].item(), rel=1e-5)
+    _assert_fp32_grads(grads(sk), grads(se), grads(s64))

@@ -204,11 +204,6 @@ def test_render_only_cli_cpu(tmp_path):
         assert png.shape == (16, 16, 3)
 
 
-def test_training_branch_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_nerf.main(["--device", "cpu"])
-
-
 def test_device_default_is_cuda():
     from swnerf_torch.device import resolve_device
 
