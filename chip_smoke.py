@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of swnerf_torch on one NVIDIA card: build the CUDA kernels,
 hold each against its plain PyTorch twin, render test views of the trained
-vanilla NeRF and resume its training through the real CLI, and time the
-kernels.
+vanilla NeRF and T-NeRF and resume their training through the real CLIs,
+and time the kernels.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,31 @@ Phases (each raises on failure; nothing is caught):
      010100/010200 with Adam step 10200, B1 and B2 launch counts), ms per
      step, rays/s, samples/s and a per-stage breakdown of one step;
  10. test frame 0 rendered from 010200.tar through the serving path:
-     >= 30 dB and within 0.5 dB of phase 5's frame 0; then the JSON lines.
+     >= 30 dB and within 0.5 dB of phase 5's frame 0;
+ 11. the T-NeRF scene: the dynamic 400x400 textured Blender scene the
+     round-5 800000.tar was trained on (seed 0, 100/5/25 views, 128 GT
+     samples), written by the port's writer on the card;
+ 12. B4 against its twin with the 800000.tar weights (D=8, W=128): forward
+     on 4,096 rays of test view 0 at its frame time, S=64 (fp32 rgb/acc atol
+     1e-4, depth rtol 1e-4; bf16 max |drgb| <= 1e-2, mean <= 1e-3); train
+     mode on 500 seeded pixels of a train view, noise std 1 (fp32 sqerr rtol
+     1e-4, gradients rel L2 1e-4 with the float64 fallback of phase 7 on
+     mask ties; bf16 gradients rel L2 1e-2; bit-equal repeats); B4's times at
+     the main paths' shapes;
+ 13. the kernel T-NeRF step against the eager step, same state and draws:
+     fp32 loss rel 1e-5, gradients as in 12; bf16 loss rel 1e-2;
+ 14. the T-NeRF serving main path: ``run_tnerf --render_only --render_test``
+     from a copy of 800000.tar (25 frames, 400x400, 64 samples, bf16 B4):
+     ms per frame, PSNR/SSIM (mean >= 20.5 dB on the reference evaluator's
+     scale, see unit_range_psnr), frame 0 by the fp32 twin within 0.1 dB,
+     the B4 launch count, a per-stage breakdown of a frame;
+ 15. the T-NeRF training main path: ``run_tnerf`` resumed from that copy for
+     1,000 bf16 steps (train PSNR >= 19 dB at every print, 800500.tar and
+     801000.tar with their Adam steps, 1,000 B4 train launches), ms per
+     step, rays/s, samples/s and a per-stage breakdown of a step;
+ 16. test frame 0 from 801000.tar through the serving path: >= 20 dB (the
+     reference evaluator's scale) and within 0.5 dB of phase 14's frame 0;
+     then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -58,6 +82,10 @@ FULL = ROOT / "benchmarks" / "full_scale"
 CONFIG = FULL / "full_nerf_200k.txt"
 DATADIR = FULL / "data_nerf_400"
 CKPT = FULL / "logs" / "full_nerf_200k" / "010000.tar"
+TNERF_DIR = ROOT / "benchmarks" / "round5_artifacts" / "full_tnerf_800k"
+TNERF_CONFIG = TNERF_DIR / "config.txt"
+TNERF_CKPT = TNERF_DIR / "800000.tar"
+TNERF_SIZE = 400  # the frame size of the scene 800000.tar was trained on
 
 # H100 SXM data sheet, dense: HBM bandwidth and peak rates by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -191,7 +219,7 @@ def main() -> int:
     cfg, coarse, fine = load_models(dev)
     rays = view0_rays(dev)
     idx = torch.arange(4096, device=dev) * 39  # spread over the frame: object and background
-    rays4k = type(rays)(*(x[idx] for x in rays))
+    rays4k = type(rays)(*(None if x is None else x[idx] for x in rays))
     b3_err = {}
     o, d, ve, z, dist = pass_inputs(rays4k, cfg, 64)
     p32 = b3.pack_params(coarse.state_dict(), cfg, torch.float32)
@@ -369,6 +397,14 @@ def main() -> int:
         print(f"[6 kernel] {k['name']}: {k['ms']:.3f} ms/launch (plain {k['plain_ms']:.3f} ms), bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']} -> {100 * k['bound_ms'] / k['ms']:.2f}% of the bound, "
               f"{k['launches']} launches in 200 train steps")
+
+    # ---- 11-16. T-NeRF: scene, B4 against its twin, the kernel step, the
+    # serving and training main paths, and the trained checkpoint serves
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tnerf_"))
+    try:
+        kernels += tnerf_phases(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -776,6 +812,513 @@ def phase10_serve(tmp, ckpt, psnr_before):
           f"from 010000.tar {psnr_before:.3f} dB (delta {psnr - psnr_before:+.3f} dB)")
     if not psnr >= 30.0 or abs(psnr - psnr_before) > 0.5:
         fail(f"frame 0 from {ckpt.name}: {psnr} dB (< 30 dB or more than 0.5 dB from {psnr_before})")
+
+
+# ---------------------------------------------------------------- T-NeRF phases
+
+
+def tnerf_phases(dev, tmp):
+    """Phases 11-16. Returns the [kernel] rows of B4 in its two modes."""
+    import torch
+
+    from swnerf_torch.models import TNeRF, TNeRFConfig
+    from swnerf_torch.train.checkpoint import load_tar, tnerf_state_dict
+
+    data = phase11_scene(dev, tmp / "data_dyn_400")
+    cfg = TNeRFConfig()
+    model = TNeRF(cfg, device=dev)
+    model.load_state_dict(tnerf_state_dict(load_tar(str(TNERF_CKPT))["network_fn_state_dict"]))
+    model.eval()
+    rows = phase12_b4(dev, cfg, model, data)
+    phase13_step(dev, cfg, model, data)
+    del model
+    torch.cuda.empty_cache()
+    exp = tmp / "logs" / "full_tnerf_800k"  # the config's expname: the copy is the newest .tar there
+    exp.mkdir(parents=True)
+    shutil.copy(TNERF_CKPT, exp / "800000.tar")
+    serve_counts, psnr0 = phase14_serve(dev, cfg, tmp, data)
+    train_counts = phase15_train(dev, cfg, tmp, data)
+    phase16_serve(tmp, data, psnr0)
+    rows["render_pass"]["launches"] = serve_counts.get("render_pass[tnerf,S=64]", 0)
+    rows["render_loss"]["launches"] = train_counts.get("render_loss[tnerf,S=64]", 0)
+    for k in rows.values():
+        print(f"[12 kernel] {k['name']}: {k['ms']:.3f} ms/launch (plain {k['plain_ms']:.3f} ms), bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']} -> {100 * k['bound_ms'] / k['ms']:.2f}% of the bound, "
+              f"{k['launches']} launches on its main path")
+    return list(rows.values())
+
+
+def tnerf_args(tmp, data, *extra):
+    return ["--config", str(TNERF_CONFIG), "--basedir", str(tmp / "logs"), "--datadir", str(data),
+            "--device", "cuda", *extra]
+
+
+def phase11_scene(dev, root):
+    """The scene of benchmarks/tpu_full_scale.py:115-129, written by the
+    port: write_blender_scene(n_train=100, n_val=5, n_test=25, size=400,
+    dynamic=True, scene="textured", white_bkgd=True), seed 0, 128 samples."""
+    import torch
+
+    from swnerf_torch.data.synthetic import write_blender_scene
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_blender_scene(str(root), n_train=100, n_val=5, n_test=25, size=TNERF_SIZE, dynamic=True,
+                        scene="textured", white_bkgd=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"[11 scene] dynamic textured {TNERF_SIZE}x{TNERF_SIZE}, 100/5/25 views, 128 GT samples: written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return root
+
+
+def gt_image(data, split, index):
+    """(frame metadata, white-composited image [H, W, 3]) of one view of the
+    written scene."""
+    import numpy as np
+
+    from swnerf_torch.utils.png import read_png
+
+    with open(data / f"transforms_{split}.json") as f:
+        meta = json.load(f)
+    frame = meta["frames"][index]
+    img = read_png(str(data / (frame["file_path"] + ".png"))).astype(np.float32) / 255.0
+    return meta, frame, img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+
+
+def unit_range_psnr(psnrs, data):
+    """The CLI's per-test-frame PSNRs (metrics.json: skimage's, whose data
+    range is the ground truth's max - min) on the scale of the evaluator that
+    logged the reference's 21.60 dB (benchmarks/parity_vs_torch.py:445,
+    data_range=1.0). The MSE is the same, so the two differ by
+    -20 log10(max - min): about 1.1 dB on this scene, whose darkest colour
+    is sigmoid(-2) = 0.12. T-NeRF's colours lie in [0, 1], so the
+    evaluator's clip changes nothing."""
+    import math
+
+    out = []
+    for i, p in enumerate(psnrs):
+        img = gt_image(data, "test", i)[2]
+        out.append(p - 20.0 * math.log10(float(img.max() - img.min())))
+    return out
+
+
+def frame_rays(dev, data, split, index):
+    """All rays of one view of the written scene at its frame time, and its
+    white-composited image [H*W, 3]."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.render.core import make_rays_from_camera
+
+    meta, frame, img = gt_image(data, split, index)
+    H, W = img.shape[:2]
+    focal = 0.5 * W / np.tan(0.5 * float(meta["camera_angle_x"]))
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    c2w = np.array(frame["transform_matrix"], np.float32)[:3, :4]
+    rays = make_rays_from_camera(H, W, K, c2w, 2.0, 6.0, device=dev, time=float(frame["time"]))
+    return rays, torch.as_tensor(img.reshape(-1, 3), device=dev)
+
+
+def tnerf_pass_inputs(rays, cfg, z):
+    from swnerf_torch.ops.embedding import positional_encoding
+
+    o, d = rays.origins.contiguous(), rays.directions.contiguous()
+    ve = positional_encoding(rays.viewdirs, cfg.nf_views).contiguous()
+    return o, d, ve, z.contiguous(), b3_dists(z, d), rays.times.reshape(-1).contiguous()
+
+
+def phase12_b4(dev, cfg, model, data):
+    """B4 against its twin in both modes and operand types, and its times at
+    the main paths' shapes. Returns the two [kernel] rows (launches filled
+    in by the main paths)."""
+    import torch
+
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.sampling import sample_along_rays
+
+    sd = model.state_dict()
+    rays, _ = frame_rays(dev, data, "test", 0)
+    idx = torch.arange(4096, device=dev) * (TNERF_SIZE**2 // 4096)  # spread over the frame: objects and background
+    r4k = type(rays)(*(x[idx] for x in rays))
+    o, d, ve, z, dist, t = tnerf_pass_inputs(r4k, cfg, sample_along_rays(r4k.near, r4k.far, 64, 0.0))
+    fwd_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = b3.pack_tnerf_params(sd, cfg, dtype)
+        got = b3.render_pass(packed, o, d, ve, z, dist, None, True, t)
+        ref = b3.render_pass_plain(packed, o, d, ve, z, dist, None, True, t)
+        torch.cuda.synchronize()
+        drgb = (got.rgb - ref.rgb).abs()
+        dacc = (got.acc - ref.acc).abs().max().item()
+        depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        print(f"[12 B4 fwd {tag}] N=4096 S=64 t={float(t[0]):.3f}: max|drgb|={drgb.max().item():.3e} "
+              f"mean|drgb|={drgb.mean().item():.3e} max|dacc|={dacc:.3e} "
+              f"max|ddepth|={(got.depth - ref.depth).abs().max().item():.3e} depth_within_rtol={depth_ok} "
+              f"max|dw|={(got.weights - ref.weights).abs().max().item():.3e}")
+        if dtype == torch.float32:
+            if drgb.max().item() > 1e-4 or dacc > 1e-4 or not depth_ok:
+                fail("B4 forward fp32 outside atol 1e-4 (rgb, acc) / rtol 1e-4 (depth)")
+        else:
+            fwd_err = drgb.max().item()
+            if fwd_err > 1e-2 or drgb.mean().item() > 1e-3:
+                fail("B4 forward bf16: max |drgb| > 1e-2 or mean > 1e-3")
+
+    # train mode: 500 seeded pixels of train view 37 at its frame time, noise std 1
+    n, scale = 500, 1.0 / 1500
+    rays, img = frame_rays(dev, data, "train", 37)
+    g = torch.Generator(device=dev).manual_seed(0)
+    sel = torch.randint(0, img.shape[0], (n,), generator=g, device=dev)
+    r500 = type(rays)(*(x[sel] for x in rays))
+    target = img[sel].contiguous()
+    z = sample_along_rays(r500.near, r500.far, 64, 1.0, generator=g)
+    noise = torch.randn(z.shape, generator=g, device=dev)
+    o, d, ve, z, dist, t = tnerf_pass_inputs(r500, cfg, z)
+    args = (o, d, ve, z, dist, noise, target)
+    p32 = b3.pack_tnerf_params(sd, cfg, torch.float32)
+    got, gk = b1.render_loss(p32, *args, True, scale, t)
+    ref, gr = b1.render_loss_plain(p32, *args, True, scale, t)
+    p64 = b3.pack_tnerf_params(sd, cfg, torch.float64)
+    _, g64 = b1.render_loss_plain(p64, *(x.double() for x in args), True, scale, t.double())
+    torch.cuda.synchronize()
+    drgb = (got.rgb - ref.rgb).abs().max().item()
+    sq_ok = torch.allclose(got.sqerr, ref.sqerr, rtol=1e-4, atol=1e-7)
+    depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
+    print(f"[12 B4 train fp32] N=500 S=64 t={float(t[0]):.4f}: max|drgb|={drgb:.3e} "
+          f"max|dsqerr|={(got.sqerr - ref.sqerr).abs().max().item():.3e} sqerr_within_rtol={sq_ok} "
+          f"depth_within_rtol={depth_ok}")
+    if drgb > 1e-4 or not sq_ok or not depth_ok:
+        fail("B4 train fp32 outputs outside rgb 1e-4, sqerr rtol 1e-4 (atol 1e-7), depth rtol 1e-4")
+    check_fp32_grads("12 B4 train fp32", b1.unpack_tnerf_grads(gk, p32), b1.unpack_tnerf_grads(gr, p32),
+                     b1.unpack_tnerf_grads(g64, p64))
+    _, gk2 = b1.render_loss(p32, *args, True, scale, t)
+    torch.cuda.synchronize()
+    if not (torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])):
+        fail("B4 train fp32: two launches gave different gradients")
+    p16 = b3.pack_tnerf_params(sd, cfg, torch.bfloat16)
+    got, gk = b1.render_loss(p16, *args, True, scale, t)
+    ref, gr = b1.render_loss_plain(p16, *args, True, scale, t)
+    _, gk2 = b1.render_loss(p16, *args, True, scale, t)
+    torch.cuda.synchronize()
+    diff = (got.rgb - ref.rgb).abs()
+    rel = rel_l2(b1.unpack_tnerf_grads(gk, p16), b1.unpack_tnerf_grads(gr, p16))
+    same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])
+    print(f"[12 B4 train bf16] max|drgb|={diff.max().item():.3e} mean|drgb|={diff.mean().item():.3e} "
+          f"grads max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
+    if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
+        fail("B4 train bf16: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+    train_row = entry(
+        "render_loss[tnerf,S=64]", "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+        0, diff.max().item(),
+        cuda_ms(lambda: b1.render_loss(p16, *args, True, scale, t), 20),
+        cuda_ms(lambda: b1.render_loss_plain(p16, *args, True, scale, t), 5),
+        4 * (7 * n + ve.numel() + 3 * z.numel() + 3 * n) + 2 * p16.weights.numel() + 4 * p16.biases.numel()
+        + 4 * (4 * n + z.numel()) + 4 * (p16.weights.numel() + p16.biases.numel()),
+        2 * b1.train_macs_per_sample(p16) * z.numel(), "bf16",
+    )
+
+    # forward at the serving path's shape: the first 32,768-ray chunk of test view 0
+    rays, _ = frame_rays(dev, data, "test", 0)
+    chunk = rays.slice(0, 32768)
+    o, d, ve, z, dist, t = tnerf_pass_inputs(chunk, cfg, sample_along_rays(chunk.near, chunk.far, 64, 0.0))
+    got = b3.render_pass(p16, o, d, ve, z, dist, None, True, t)
+    ref = b3.render_pass_plain(p16, o, d, ve, z, dist, None, True, t)
+    drgb = (got.rgb - ref.rgb).abs()
+    print(f"[12 check] render_pass[tnerf,S=64] bf16 N=32768: max|drgb|={drgb.max().item():.3e} "
+          f"mean|drgb|={drgb.mean().item():.3e}")
+    if drgb.max().item() > 1e-2 or drgb.mean().item() > 1e-3:
+        fail("B4 forward bf16 at the serving shape: max |drgb| > 1e-2 or mean > 1e-3")
+    del got, ref
+    nc = z.shape[0]
+    fwd_row = entry(
+        "render_pass[tnerf,S=64]", "swnerf_torch/csrc/render_pass.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+        0, max(fwd_err, drgb.max().item()),
+        cuda_ms(lambda: b3.render_pass(p16, o, d, ve, z, dist, None, True, t), 10),
+        cuda_ms(lambda: b3.render_pass_plain(p16, o, d, ve, z, dist, None, True, t), 3),
+        4 * (7 * nc + ve.numel() + 2 * z.numel() + 5 * nc + z.numel()) + 2 * p16.weights.numel(),
+        2 * p16.macs_per_sample * z.numel(), "bf16",
+    )
+    torch.cuda.empty_cache()
+    return {"render_pass": fwd_row, "render_loss": train_row}
+
+
+def phase13_step(dev, cfg, model, data):
+    """The kernel T-NeRF step (B4) against the eager autograd step from the
+    same state and draws; the eager step in float64 on the CPU is the
+    gradient reference of check_fp32_grads."""
+    import torch
+
+    from swnerf_torch.models import TNeRF
+    from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+    from swnerf_torch.train.fused_step import make_fused_tnerf_step
+    from swnerf_torch.train.loop import init_train_state, make_train_step
+
+    rays, img = frame_rays(dev, data, "train", 61)
+    g = torch.Generator(device=dev).manual_seed(2)
+    sel = torch.randint(0, img.shape[0], (500,), generator=g, device=dev)
+    rays = Rays(*(x[sel] for x in rays))
+    target = img[sel].contiguous()
+    rcfg = RenderConfig(n_samples=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+    draws = make_draws(rcfg, 500, torch.Generator(device=dev).manual_seed(3), dev)
+
+    def fresh(device, dtype=torch.float32):
+        m = TNeRF(cfg, device=device)
+        m.load_state_dict(model.state_dict())
+        return init_train_state(m.to(dtype), None, 5e-4, 500, step=800000)
+
+    def grads(st):
+        return {k: p.grad.detach().clone() for k, p in st.coarse.named_parameters()}
+
+    sk, se, s64 = fresh(dev), fresh(dev), fresh("cpu", torch.float64)
+    mk = make_fused_tnerf_step(cfg, rcfg, compute_dtype=torch.float32)(sk, rays, target, draws=draws)
+    me = make_train_step(rcfg)(se, rays, target, draws=draws)
+    cpu64 = lambda x: None if x is None else x.detach().cpu().double()  # noqa: E731
+    make_train_step(rcfg)(s64, Rays(*(cpu64(x) for x in rays)), cpu64(target), draws=Draws(*(cpu64(x) for x in draws)))
+    torch.cuda.synchronize()
+    dloss = abs(mk["loss"].item() - me["loss"].item()) / me["loss"].item()
+    print(f"[13 step fp32] loss kernel {mk['loss'].item():.7f} eager {me['loss'].item():.7f} rel {dloss:.3e}; "
+          f"psnr {mk['psnr'].item():.4f} vs {me['psnr'].item():.4f}")
+    if dloss > 1e-5:
+        fail(f"kernel T-NeRF step loss rel {dloss} > 1e-5")
+    check_fp32_grads("13 step fp32", grads(sk), grads(se), grads(s64))
+    sb = fresh(dev)
+    mb = make_fused_tnerf_step(cfg, rcfg, compute_dtype=torch.bfloat16)(sb, rays, target, draws=draws)
+    dl16 = abs(mb["loss"].item() - me["loss"].item()) / me["loss"].item()
+    print(f"[13 step bf16] loss kernel {mb['loss'].item():.7f} vs fp32 eager: rel {dl16:.3e}")
+    if dl16 > 1e-2:
+        fail(f"bf16 kernel T-NeRF step loss rel {dl16} > 1e-2")
+    del sk, se, s64, sb
+    torch.cuda.empty_cache()
+
+
+def phase14_serve(dev, cfg, tmp, data):
+    """The serving main path through run_tnerf: 25 test frames at their
+    times. Returns its launch counts and frame 0's PSNR."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_tnerf
+    from swnerf_torch.render.core import RenderConfig, render_image
+    from swnerf_torch.render.fused_eval import make_tnerf_eval_pass
+    from swnerf_torch.utils.metrics import calculate_metrics
+
+    launches.clear()
+    t0 = time.perf_counter()
+    savedir = Path(run_tnerf.main(tnerf_args(tmp, data, "--render_only", "--render_test")))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    metrics = json.loads((savedir / "metrics.json").read_text())
+    print(f"[14 main] launches {json.dumps(counts, sort_keys=True)} (25 frames), CLI wall {wall:.2f} s")
+    if counts.get("render_pass[tnerf,S=64]", 0) <= 0:
+        fail("the T-NeRF serving path launched no render_pass[tnerf,S=64]")
+    secs = metrics["seconds_per_frame"]
+    per_frame = sum(secs[1:]) / len(secs[1:])  # frame 0 is the warm-up
+    print(f"[14 main] seconds per frame {[round(x, 4) for x in secs]}")
+    n_rays = TNERF_SIZE**2
+    print(f"[14 main] frames 1-24: {per_frame * 1e3:.2f} ms/frame, {n_rays / per_frame:.4g} rays/s, "
+          f"{n_rays * 64 / per_frame:.4g} samples/s")
+    unit = unit_range_psnr(metrics["psnr"], data)
+    for i, (p, u, q) in enumerate(zip(metrics["psnr"], unit, metrics["ssim"])):
+        print(f"[14 main] frame {i}: PSNR {p:.3f} dB (data range 1: {u:.3f} dB) SSIM {q:.4f}")
+    mean_psnr, mean_unit = sum(metrics["psnr"]) / len(unit), sum(unit) / len(unit)
+    print(f"[14 main] mean PSNR {mean_psnr:.3f} dB (data range 1: {mean_unit:.3f} dB; the reference run logged "
+          f"21.596), mean SSIM {sum(metrics['ssim']) / len(unit):.4f} over {len(unit)} frames")
+    if len(unit) != 25 or not mean_unit >= 20.5:
+        fail(f"mean PSNR {mean_unit} (data range 1) < 20.5 dB (or not 25 frames)")
+
+    # frame 0 again, the fp32 twin on the card
+    from swnerf_torch.models import TNeRF
+    from swnerf_torch.train.checkpoint import load_tar, tnerf_state_dict
+
+    model = TNeRF(cfg, device=dev)
+    model.load_state_dict(tnerf_state_dict(load_tar(str(TNERF_CKPT))["network_fn_state_dict"]))
+    rays, img = frame_rays(dev, data, "test", 0)
+    plain = make_tnerf_eval_pass(cfg, compute_dtype=torch.float32, plain=True)
+    out = render_image(model, rays, RenderConfig(n_samples=64, white_bkgd=True), chunk=8192, eval_pass=plain)
+    hw3 = (TNERF_SIZE, TNERF_SIZE, 3)
+    psnr_plain = calculate_metrics(img.reshape(hw3).cpu().numpy(), out["rgb"].reshape(hw3).cpu().numpy())[0]
+    dpsnr = abs(psnr_plain - metrics["psnr"][0])
+    print(f"[14 plain fp32] frame 0 PSNR {psnr_plain:.3f} dB, |dPSNR| vs bf16 B4 {dpsnr:.4f} dB")
+    if dpsnr > 0.1:
+        fail(f"|dPSNR| {dpsnr} > 0.1 dB")
+    del out
+
+    stages = tnerf_frame_breakdown(dev, cfg, model, rays)
+    total = sum(stages.values())
+    print("[14 breakdown] frame 0, device ms by stage: " + ", ".join(
+        f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
+    print(f"[14 breakdown] stage sum {total:.2f} ms vs timed frame {per_frame * 1e3:.2f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return counts, unit[0]
+
+
+def tnerf_frame_breakdown(dev, cfg, model, rays, chunk=32768):
+    """Device milliseconds of each stage of the T-NeRF eval pass over one
+    frame, chunk by chunk as render_image runs it (after one warm-up)."""
+    import torch
+
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.sampling import sample_along_rays
+
+    packed = b3.pack_tnerf_params(model.state_dict(), cfg, torch.bfloat16)
+    names = ("rays + z + view embedding", "B4", "disp")
+    acc = dict.fromkeys(names, 0.0)
+    n_all = rays.origins.shape[0]
+    for rep in range(2):
+        for start in range(0, n_all, chunk):
+            tile = rays.slice(start, min(n_all, start + chunk))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            ev[0].record()
+            o, d, ve, z, dist, t = tnerf_pass_inputs(tile, cfg, sample_along_rays(tile.near, tile.far, 64, 0.0))
+            ev[1].record()
+            res = b3.render_pass(packed, o, d, ve, z, dist, None, True, t)
+            ev[2].record()
+            _ = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
+            ev[3].record()
+            torch.cuda.synchronize()
+            if rep:
+                for i, k in enumerate(names):
+                    acc[k] += ev[i].elapsed_time(ev[i + 1])
+    return acc
+
+
+def phase15_train(dev, cfg, tmp, data):
+    """The training main path through run_tnerf: 1,000 bf16 steps resumed
+    from the copy of 800000.tar. Returns its launch counts."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_tnerf
+    from swnerf_torch.train.checkpoint import load_tar
+
+    os.environ["SWNERF_MAX_ITERS"] = "801001"
+    buf = io.StringIO()
+    try:
+        launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            res = run_tnerf.main(tnerf_args(tmp, data, "--i_print", "100", "--i_weights", "500"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    finally:
+        os.environ.pop("SWNERF_MAX_ITERS", None)
+    out = buf.getvalue()
+    exp = tmp / "logs" / "full_tnerf_800k"
+    print(f"[15 train] launches {json.dumps(counts, sort_keys=True)} (1000 steps), CLI wall {wall:.2f} s")
+    if "Reloading from" not in out or "kernel T-NeRF train step" not in out or min(res["step_ms"]) != 800001:
+        fail("the T-NeRF training run did not resume from 800000.tar at 800000 on the kernel step")
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    psnrs = [(r["step"], round(r["psnr"], 3)) for r in recs if "psnr" in r]
+    print(f"[15 train] train PSNR at the prints: {psnrs}")
+    if len(psnrs) != 10 or min(p for _, p in psnrs) < 19.0:
+        fail(f"train PSNR below 19 dB at a print (or not 10 prints): {psnrs}")
+    for i in (800500, 801000):
+        ck = load_tar(str(exp / f"{i:06d}.tar"))
+        steps = {int(e["step"]) for e in ck["optimizer_state_dict"]["state"].values()}
+        print(f"[15 train] {i:06d}.tar keys {sorted(ck)} Adam step {steps} "
+              f"({len(ck['optimizer_state_dict']['state'])} entries)")
+        if set(ck) != {"global_step", "network_fn_state_dict", "optimizer_state_dict"} or steps != {i} \
+                or ck["global_step"] != i:
+            fail(f"{i:06d}.tar: keys {set(ck)}, Adam steps {steps}")
+    if counts.get("render_loss[tnerf,S=64]", 0) != 1000:
+        fail(f"the T-NeRF training path launched B4 {counts.get('render_loss[tnerf,S=64]', 0)} times, not 1000")
+    quiet = {i: ms for i, ms in res["step_ms"].items() if i % 100 and (i - 1) % 100}
+    med = statistics.median(quiet.values())
+    print(f"[15 train] ms per step, median of {len(quiet)} steps that neither print nor save (CUDA events): "
+          f"{med:.4f} ms (min {min(quiet.values()):.4f}, max {max(quiet.values()):.4f}); "
+          f"{500 / med * 1e3:.4g} rays/s, {500 * 64 / med * 1e3:.4g} samples/s")
+    stages = tnerf_step_breakdown(dev, cfg, data)
+    total = sum(stages.values())
+    print("[15 breakdown] one step, device ms by stage: " + ", ".join(
+        f"{k} {v:.4f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
+    print(f"[15 breakdown] stage sum {total:.3f} ms vs median step {med:.3f} ms")
+    return counts
+
+
+def tnerf_step_breakdown(dev, cfg, data):
+    """Device milliseconds of each stage of one kernel T-NeRF step (bf16, the
+    CLI's step), CUDA events between stages, after one warm-up step. The
+    stages are those of train/fused_step.py::make_fused_tnerf_step and
+    pipelines/common.py::make_time_image_step, written out here."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.models import TNeRF
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.rays import get_rays_at
+    from swnerf_torch.ops.sampling import sample_along_rays
+    from swnerf_torch.pipelines.common import ImageSampler, Scene
+    from swnerf_torch.render.core import RenderConfig, build_rays, make_draws
+    from swnerf_torch.train.fused_step import _set_grads
+    from swnerf_torch.train.loop import init_train_state
+
+    with open(data / "transforms_train.json") as f:
+        meta = json.load(f)
+    H = W = TNERF_SIZE
+    focal = 0.5 * W / np.tan(0.5 * float(meta["camera_angle_x"]))
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    poses = np.array([fr["transform_matrix"] for fr in meta["frames"]], np.float32)
+    n_views = poses.shape[0]
+    scene = Scene(images=np.zeros((n_views, 1, 1, 3), np.float32), poses=poses, render_poses=poses, H=H, W=W,
+                  focal=focal, K=K, near=2.0, far=6.0, i_train=np.arange(n_views), i_val=np.arange(0),
+                  i_test=np.arange(0))
+    images = torch.rand((n_views, H, W, 3), device=dev)
+    poses_dev = torch.as_tensor(poses[:, :3, :4], device=dev)
+    times = torch.linspace(0, 1, n_views, device=dev)
+    sampler = ImageSampler(scene, 500, 0, 0.5)
+    rcfg = RenderConfig(n_samples=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+    state = init_train_state(TNeRF(cfg, device=dev), None, 5e-4, 500)
+    g = torch.Generator(device=dev).manual_seed(0)
+    names = ("host sampler + pixel upload", "rays + z + draws", "pack weights", "B4 train", "unpack + Adam")
+    acc = dict.fromkeys(names, 0.0)
+    for rep in range(2):  # the first is the warm-up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        img_i, pixels = sampler.next(1000)
+        pixels = torch.as_tensor(pixels, device=dev)
+        ev[1].record()
+        o, d = get_rays_at(pixels, H, W, K, poses_dev[img_i])
+        target = images[img_i][pixels[:, 0], pixels[:, 1]].contiguous()
+        r = build_rays(o, d, 2.0, 6.0, times=times[img_i].reshape(1, 1).expand(500, 1).contiguous())
+        draws = make_draws(rcfg, 500, g, dev)
+        z = sample_along_rays(r.near, r.far, 64, 1.0, t_rand=draws.t_rand).contiguous()
+        ve = positional_encoding(r.viewdirs, cfg.nf_views).contiguous()
+        ev[2].record()
+        state.zero_grad()
+        pk = b3.pack_tnerf_params(state.coarse.state_dict(), cfg, torch.bfloat16)
+        ev[3].record()
+        _, gr = b1.render_loss(pk, r.origins, r.directions, ve, z, b3_dists(z, r.directions),
+                               draws.noise0.contiguous(), target, True, 1.0 / 1500, r.times.reshape(-1).contiguous())
+        ev[4].record()
+        _set_grads(state.coarse, b1.unpack_tnerf_grads(gr, pk))
+        state.apply_update()
+        ev[5].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, k in enumerate(names):
+                acc[k] = ev[i].elapsed_time(ev[i + 1])
+    return acc
+
+
+def phase16_serve(tmp, data, psnr_before):
+    """Test frame 0 rendered from the trained 801000.tar by the serving CLI
+    (--testskip 25 keeps test frame 0 only)."""
+    from swnerf_torch.pipelines import run_tnerf
+
+    savedir = Path(run_tnerf.main(tnerf_args(tmp, data, "--render_only", "--render_test", "--testskip", "25")))
+    metrics = json.loads((savedir / "metrics.json").read_text())
+    psnr = unit_range_psnr(metrics["psnr"], data)[0]
+    print(f"[16 serve] frame 0 from 801000.tar ({savedir.name}): PSNR {psnr:.3f} dB on data range 1 "
+          f"({metrics['psnr'][0]:.3f} dB in metrics.json) SSIM {metrics['ssim'][0]:.4f}; from 800000.tar "
+          f"{psnr_before:.3f} dB (delta {psnr - psnr_before:+.3f} dB)")
+    if savedir.name != "renderonly_test_801000" or not psnr >= 20.0 or abs(psnr - psnr_before) > 0.5:
+        fail(f"frame 0 from 801000.tar: {psnr} dB (< 20 dB or more than 0.5 dB from {psnr_before})")
 
 
 if __name__ == "__main__":

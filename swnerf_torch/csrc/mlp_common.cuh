@@ -1,6 +1,7 @@
-// Device code shared by the render kernels B3 (render_pass.cu) and B1
-// (render_loss.cu): operand-type traits, the 64-row MLP chunk product, the
-// activation epilogue and the in-block Fourier encoding.
+// Device code shared by the render kernels B1/B3 (vanilla) and B4 (T-NeRF)
+// in render_pass.cu and render_loss.cu: operand-type traits, the field
+// families, the 64-row MLP chunk product, the activation epilogue and the
+// in-block Fourier encoding.
 //
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
@@ -18,9 +19,29 @@ namespace {
 constexpr int CH = 64;    // sample rows per MLP chunk
 constexpr int NT = 256;   // threads per block: 8 warps x 8 rows = CH rows
 constexpr int KT = 16;    // weight rows per shared-memory tile
-constexpr int CIN = 64;   // padded position-embedding width
 constexpr int CV = 32;    // padded view-embedding width
 constexpr int NRED = 4 * CH * 3;
+
+enum class Act { None, Relu, Elu };
+
+// The two field families of the one body (render_fused.py: act, rgb_relu,
+// and the combined [embed(xyz) | embed(t)] constants of
+// raymarch.py::build_embed_consts_xt). CIN is the padded input width: a
+// multiple of KT with room for B1's column of ones after the live columns.
+struct Vanilla {
+  static constexpr int CIN = 64;          // embed(xyz): 3 + 6L <= 63
+  static constexpr Act ACT = Act::Relu;   // trunk and view layer
+  static constexpr bool TIME = false;
+  static constexpr bool RGB_RELU = false;
+  static __host__ __device__ int cin(int L) { return 3 + 6 * L; }
+};
+struct TNerf {
+  static constexpr int CIN = 96;          // [embed(xyz) | embed(t)]: 4 + 8L <= 95
+  static constexpr Act ACT = Act::Elu;
+  static constexpr bool TIME = true;
+  static constexpr bool RGB_RELU = true;  // rgb = sigmoid(max(logit, 0))
+  static __host__ __device__ int cin(int L) { return 4 + 8 * L; }
+};
 
 template <typename T> struct Op;
 template <> struct Op<float> {
@@ -94,8 +115,18 @@ __device__ __forceinline__ void mm_acc(float (&acc)[8][NC / 32], const T* __rest
   }
 }
 
+// ELU as jax.nn.elu and F.elu write it (expm1, not exp - 1).
+__device__ __forceinline__ float elu(float z) { return z > 0.f ? z : expm1f(z); }
+
+template <Act A>
+__device__ __forceinline__ float act(float z) {
+  if (A == Act::Relu) return fmaxf(z, 0.f);
+  if (A == Act::Elu) return elu(z);
+  return z;
+}
+
 // out[col][row] = q(act(acc + bias[col])), k-major for the next layer.
-template <typename T, int NC, bool RELU>
+template <typename T, int NC, Act A>
 __device__ __forceinline__ void store_act(const float (&acc)[8][NC / 32], const float* __restrict__ bias,
                                           T* __restrict__ out) {
   constexpr int LDA = Op<T>::LDA;
@@ -109,10 +140,18 @@ __device__ __forceinline__ void store_act(const float (&acc)[8][NC / 32], const 
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float z = acc[i][j] + b;
-      v[i] = RELU ? fmaxf(z, 0.f) : z;
+      v[i] = act<A>(z);
     }
     Op<T>::store8(out + col * LDA + ty * 8, v);
   }
+}
+
+// The colour the compositor takes from an rgb logit: sigmoid, after a ReLU
+// for B4 (fp32, as the twins keep it).
+template <typename A>
+__device__ __forceinline__ float rgb_of(float logit) {
+  const float l = A::RGB_RELU ? fmaxf(logit, 0.f) : logit;
+  return 1.f / (1.f + expf(-l));
 }
 
 template <int R, int C>
@@ -126,35 +165,49 @@ __device__ __forceinline__ void zero(float (&acc)[R][C]) {
 // Positions and view embeddings of rows row0 .. row0+CH-1 of this block
 // into shared memory (k-major). Rows past the block's samples get x = 0.
 // sin and cos are sinf/cosf of the exact product x * 2^f (no fast math).
-template <typename T>
+// With A::TIME the ray's frame time t follows at column dpos = 3 + 6L as
+// positional_encoding(t, L) orders it: t, then sin(2^i t), cos(2^i t) at
+// dpos + 1 + 2i and dpos + 2 + 2i. t is per ray, constant along it. The
+// columns from A::cin(L) to A::CIN are zero.
+template <typename T, typename A>
 __device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict__ vemb_s, int row0, int rows,
                                              long long ray0, int S, int L, int cv,
                                              const float* __restrict__ origins, const float* __restrict__ dirs,
-                                             const float* __restrict__ z, const float* __restrict__ vemb) {
+                                             const float* __restrict__ times, const float* __restrict__ z,
+                                             const float* __restrict__ vemb) {
   constexpr int LDA = Op<T>::LDA;
   const int r = threadIdx.x & (CH - 1);
   const int p = threadIdx.x / CH;  // 4 parts share a row
   const int g = row0 + r;
   const bool valid = g < rows;
   const long long ray = ray0 + (valid ? g / S : 0);
+  const int dpos = 3 + 6 * L;
   float x[3] = {0.f, 0.f, 0.f};
+  float t = 0.f;
   if (valid) {
     const float zz = z[ray * S + g % S];
 #pragma unroll
     for (int a = 0; a < 3; ++a) x[a] = __fadd_rn(origins[ray * 3 + a], __fmul_rn(dirs[ray * 3 + a], zz));
+    if (A::TIME) t = times[ray];
   }
   if (p == 0) {
 #pragma unroll
     for (int a = 0; a < 3; ++a) emb[a * LDA + r] = Op<T>::q(x[a]);
-    for (int k = 3 + 6 * L; k < CIN; ++k) emb[k * LDA + r] = Op<T>::q(0.f);
+    if (A::TIME) emb[dpos * LDA + r] = Op<T>::q(t);
+    for (int k = A::cin(L); k < A::CIN; ++k) emb[k * LDA + r] = Op<T>::q(0.f);
   }
   for (int f = p; f < L; f += 4) {
     const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float t = x[a] * scale;
-      emb[(3 + 6 * f + a) * LDA + r] = Op<T>::q(sinf(t));
-      emb[(6 + 6 * f + a) * LDA + r] = Op<T>::q(cosf(t));
+      const float u = x[a] * scale;
+      emb[(3 + 6 * f + a) * LDA + r] = Op<T>::q(sinf(u));
+      emb[(6 + 6 * f + a) * LDA + r] = Op<T>::q(cosf(u));
+    }
+    if (A::TIME) {
+      const float u = t * scale;
+      emb[(dpos + 1 + 2 * f) * LDA + r] = Op<T>::q(sinf(u));
+      emb[(dpos + 2 + 2 * f) * LDA + r] = Op<T>::q(cosf(u));
     }
   }
   for (int k = p; k < CV; k += 4)

@@ -1,14 +1,22 @@
-// Train-mode render pass of a vanilla NeRF (kernel B1) for Hopper: forward,
-// per-ray squared error, compositing backward and every parameter gradient.
+// Train-mode render pass of a vanilla NeRF (kernel B1) and of a T-NeRF
+// (kernel B4, train mode) for Hopper: forward, per-ray squared error,
+// compositing backward and every parameter gradient.
 //
 // Replaces swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel in
-// train mode (param_grads=True, from_rays, vanilla; :341-478 with
-// _trunk_reverse :184-268). The plain twin is
+// train mode (param_grads=True, from_rays; :341-478 with _trunk_reverse
+// :184-268), arch "vanilla" (B1) or "tnerf" (B4). B4 differs from B1 in the
+// traits of mlp_common.cuh: the [embed(xyz) | embed(t)] input (96 padded
+// rows), ELU in the trunk and the view layer, whose derivative the reverse
+// sweep takes from the stored post-activation h (h > 0 ? 1 : h + 1, in
+// fp32 from h in the operand type, raymarch.py:242-248), and a ReLU on the
+// rgb logits before the sigmoid, whose mask [logit > 0] multiplies the
+// colour cotangent. The plain twin is
 // swnerf_torch/ops/kernels/render_loss.py::render_loss_plain.
 //
 // Bound on the card: operations. At D=8, W=256 the forward is 593,408
 // multiply-adds per sample and the backward's dX and dW products about twice
-// that, against ~1 KB of per-ray input. The TPU kernel keeps a tile's
+// that (T-NeRF at D=8, W=128: 162,816 and 465,216 in all), against ~1 KB of
+// per-ray input. The TPU kernel keeps a tile's
 // activations in VMEM and rematerialises the gaps; a Hopper SM has 227 KB of
 // shared memory, less than one fine ray's activations (192 x 256 x 4 B per
 // layer). So this kernel stores them instead:
@@ -20,8 +28,10 @@
 //     feature (so dW's bias row falls out of the same product). One thread
 //     per ray then composites, forms the loss cotangent and sweeps the ray
 //     backwards for the raw cotangent [P, 4] (d rgb logits, d sigma).
-//  2. head_bwd_kernel: d hv through the rgb head and the view layer's ReLU.
-//  3. gemm_kernel, per layer from the top: dH = dZ W^T with the ReLU' mask
+//  2. head_bwd_kernel: d hv through the rgb head and the view layer's
+//     activation.
+//  3. gemm_kernel, per layer from the top: dH = dZ W^T with the activation's
+//     derivative
 //     and the rounding to the operand type in its epilogue (row-parallel over
 //     samples), and dW = X^T dZ as partial sums over a fixed split of the
 //     samples. reduce_kernel adds the partials in split order and scatters
@@ -54,7 +64,7 @@ constexpr int GEMM_BLOCKS = 1056;  // dW split target: 8 blocks per SM
 
 template <typename T>
 struct Scratch {
-  T* emb;    // [P][CIN], column cin = 1
+  T* emb;    // [P][A::CIN], column A::cin(L) = 1
   T* vemb;   // [P][CV]
   T* h;      // D x [P][W + PADC], column W = 1, layer i at h + i * hstride
   size_t hstride;
@@ -80,10 +90,11 @@ __device__ __forceinline__ void spill(const T* __restrict__ s, int ncopy, T* __r
     for (int r = threadIdx.x; r < nvalid; r += NT) g[(p0 + r) * ld + ncopy] = Op<T>::q(1.f);
 }
 
-template <typename T, int W>
+template <typename T, int W, typename A>
 __global__ void __launch_bounds__(NT)
 render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
-                       const float* __restrict__ vemb, int cv, const float* __restrict__ z,
+                       const float* __restrict__ times, const float* __restrict__ vemb, int cv,
+                       const float* __restrict__ z,
                        const float* __restrict__ dist, const float* __restrict__ noise,
                        const float* __restrict__ target, const T* __restrict__ wts,
                        const float* __restrict__ bias, int D, int skip, int L, int white, float loss_scale,
@@ -99,15 +110,15 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   const int nr = (int)min((long long)rays_per_block, (long long)N - ray0);
   const int rows = nr * S;
   const long long p0 = ray0 * S;
-  const int cin = 3 + 6 * L;
+  const int cin = A::cin(L);
 
   float* raw_s = reinterpret_cast<float*>(smem_raw);  // [rays_per_block * S][4]
   float* lt_s = raw_s + rays_per_block * S * 4;        // [rays_per_block * S]
   float* red = lt_s + rays_per_block * S;              // [4][CH][3]
   T* actA = reinterpret_cast<T*>(red + NRED);          // [W][LDA]
   T* actB = actA + W * LDA;                            // [W][LDA]
-  T* emb = actB + W * LDA;                             // [CIN][LDA]
-  T* vemb_s = emb + CIN * LDA;                         // [CV][LDA]
+  T* emb = actB + W * LDA;                             // [A::CIN][LDA]
+  T* vemb_s = emb + A::CIN * LDA;                      // [CV][LDA]
   T* Ws = vemb_s + CV * LDA;                           // [KT][W]
 
   const float* b_views = bias + (D + 1) * W;
@@ -119,9 +130,9 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   for (int row0 = 0; row0 < rows; row0 += CH) {
     const int nvalid = min(CH, rows - row0);
     const long long pr = p0 + row0;
-    encode_chunk<T>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, z, vemb);
+    encode_chunk<T, A>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
     __syncthreads();
-    spill<T>(emb, cin, sc.emb, CIN, pr, nvalid, true);
+    spill<T>(emb, cin, sc.emb, A::CIN, pr, nvalid, true);
     spill<T>(vemb_s, cv, sc.vemb, CV, pr, nvalid, false);
     const T* wp = wts;
     const float* bp = bias;
@@ -130,9 +141,9 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
     {
       float acc[8][W / 32];
       zero(acc);
-      mm_acc<T, W>(acc, emb, CIN, wp, Ws);
-      wp += CIN * W;
-      store_act<T, W, true>(acc, bp, h);
+      mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
+      wp += A::CIN * W;
+      store_act<T, W, A::ACT>(acc, bp, h);
       bp += W;
       __syncthreads();
       spill<T>(h, W, sc.h, LDW, pr, nvalid, true);
@@ -141,12 +152,12 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       float acc[8][W / 32];
       zero(acc);
       if (i == skip + 1) {  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
-        mm_acc<T, W>(acc, emb, CIN, wp, Ws);
-        wp += CIN * W;
+        mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
+        wp += A::CIN * W;
       }
       mm_acc<T, W>(acc, h, W, wp, Ws);
       wp += W * W;
-      store_act<T, W, true>(acc, bp, g);
+      store_act<T, W, A::ACT>(acc, bp, g);
       bp += W;
       T* t = h;
       h = g;
@@ -159,7 +170,7 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       zero(acc);
       mm_acc<T, W>(acc, h, W, wp, Ws);
       wp += W * W;
-      store_act<T, W, false>(acc, bp, g);
+      store_act<T, W, Act::None>(acc, bp, g);
       __syncthreads();
       spill<T>(g, W, sc.feat, LDW, pr, nvalid, false);
     }
@@ -179,7 +190,7 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       wp += W * WH;
       mm_acc<T, WH>(acc, vemb_s, CV, wp, Ws);
       wp += CV * WH;
-      store_act<T, WH, true>(acc, b_views, h);
+      store_act<T, WH, A::ACT>(acc, b_views, h);
     }
     __syncthreads();
     spill<T>(h, WH, sc.hv, LDH, pr, nvalid, false);
@@ -225,9 +236,9 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       wr[s] = w;
       acc += w;
       dep += w * zr[s];
-      c0 += w * (1.f / (1.f + expf(-rw[0])));
-      c1 += w * (1.f / (1.f + expf(-rw[1])));
-      c2 += w * (1.f / (1.f + expf(-rw[2])));
+      c0 += w * rgb_of<A>(rw[0]);
+      c1 += w * rgb_of<A>(rw[1]);
+      c2 += w * rgb_of<A>(rw[2]);
     }
     if (white) {
       c0 += 1.f - acc;
@@ -258,7 +269,7 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       const float w = alpha * tr;
       float rgb[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) rgb[c] = 1.f / (1.f + expf(-rw[c]));
+      for (int c = 0; c < 3; ++c) rgb[c] = rgb_of<A>(rw[c]);
       const float dldw = ((g0 * rgb[0] + g1 * rgb[1]) + g2 * rgb[2]) + gacc;
       const float dalpha = dldw * tr - suff / safe;
       suff += dldw * w;
@@ -267,7 +278,8 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       const long long pp = ray * S + s;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float d = w * gcol[c] * rgb[c] * (1.f - rgb[c]);
+        float d = w * gcol[c] * rgb[c] * (1.f - rgb[c]);
+        if (A::RGB_RELU && !(rw[c] > 0.f)) d = 0.f;  // the colour ReLU's mask
         sc.graw[pp * 4 + c] = d;
         sc.gq[pp * 4 + c] = Op<T>::q(d);
       }
@@ -278,8 +290,12 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   }
 }
 
-// d hv = (q(g_rgb) @ W_rgb^T) * [hv > 0], in fp32 and rounded.
-template <typename T, int WH>
+// ELU's derivative from its stored output h (h = expm1(z) for z <= 0), in
+// fp32 from h in the operand type, as _act_grad takes it.
+__device__ __forceinline__ float elu_grad(float h) { return h > 0.f ? 1.f : h + 1.f; }
+
+// d hv = (q(g_rgb) @ W_rgb^T) * act'(hv), in fp32 and rounded.
+template <typename T, int WH, Act A>
 __global__ void head_bwd_kernel(const T* __restrict__ gq, const T* __restrict__ hv, int ldh,
                                 const T* __restrict__ w_rgb, long long P, float* __restrict__ dhv32,
                                 T* __restrict__ dhv_c) {
@@ -290,7 +306,8 @@ __global__ void head_bwd_kernel(const T* __restrict__ gq, const T* __restrict__ 
   float s = 0.f;
 #pragma unroll
   for (int c = 0; c < 3; ++c) s = fmaf(Op<T>::f(gq[p * 4 + c]), Op<T>::f(w_rgb[j * 3 + c]), s);
-  const float d = Op<T>::f(hv[p * ldh + j]) > 0.f ? s : 0.f;
+  const float h = Op<T>::f(hv[p * ldh + j]);
+  const float d = A == Act::Elu ? s * elu_grad(h) : (h > 0.f ? s : 0.f);
   dhv32[idx] = d;
   dhv_c[idx] = Op<T>::q(d);
 }
@@ -306,14 +323,16 @@ struct GemmArgs {
   float* part;        // partial mode: [splits][M][N] fp32
   void* C;            // epilogue mode: q(act) into C[m*ldc + n]
   long long ldc;
-  const void* mask;   // epilogue: times [mask(m, n) > 0]
+  const void* mask;   // epilogue: times act'(mask(m, n)), the activation output
   long long ldm;
   const void* u;      // epilogue: + u[m*su] * v[n] before the mask
   long long su;
   const void* v;
 };
 
-template <typename T, bool PARTIAL>
+// ELU: the epilogue's act' is ELU's (else ReLU's [mask > 0]); a template
+// parameter, so the vanilla instantiations stay the code B1 was measured with.
+template <typename T, bool PARTIAL, bool ELU = false>
 __global__ void __launch_bounds__(256) gemm_kernel(GemmArgs g) {
   __shared__ __align__(16) float As[GK][GT + 4];
   __shared__ __align__(16) float Bs[GK][GT + 4];
@@ -366,7 +385,11 @@ __global__ void __launch_bounds__(256) gemm_kernel(GemmArgs g) {
         float val = acc[i][j];
         if (g.u)
           val += Op<T>::f(static_cast<const T*>(g.u)[m * g.su]) * Op<T>::f(static_cast<const T*>(g.v)[n]);
-        if (g.mask && !(Op<T>::f(static_cast<const T*>(g.mask)[m * g.ldm + n]) > 0.f)) val = 0.f;
+        if (ELU) {
+          if (g.mask) val *= elu_grad(Op<T>::f(static_cast<const T*>(g.mask)[m * g.ldm + n]));
+        } else if (g.mask && !(Op<T>::f(static_cast<const T*>(g.mask)[m * g.ldm + n]) > 0.f)) {
+          val = 0.f;
+        }
         static_cast<T*>(g.C)[m * g.ldc + n] = Op<T>::q(val);
       }
     }
@@ -419,11 +442,11 @@ size_t part_floats(int W) {
   return (size_t)(GEMM_BLOCKS + tiles) * GT * GT;
 }
 
-template <typename T>
+template <typename T, typename A>
 size_t scratch_bytes(int W, int D, long long P) {
   const int WH = W / 2;
   size_t b = 0;
-  b += align256(sizeof(T) * P * CIN);
+  b += align256(sizeof(T) * P * A::CIN);
   b += align256(sizeof(T) * P * CV);
   b += align256(sizeof(T) * P * (W + PADC)) * D;
   b += align256(sizeof(T) * P * (W + PADC));        // feat
@@ -470,10 +493,10 @@ int gemm_reduce(GemmArgs g, float* part, int Mw, int split_col, Region ra, Regio
 }
 
 // dH-style product: row-parallel, masked and rounded in the epilogue.
-template <typename T>
+template <typename T, bool ELU = false>
 int gemm_act(GemmArgs g, cudaStream_t st) {
   g.kchunk = ceil_div(g.K, GK) * GK;
-  gemm_kernel<T, false><<<dim3(ceil_div(g.M, GT), ceil_div(g.N, GT), 1), 256, 0, st>>>(g);
+  gemm_kernel<T, false, ELU><<<dim3(ceil_div(g.M, GT), ceil_div(g.N, GT), 1), 256, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,18 +526,20 @@ GemmArgs gemm_args(const void* A, long long sam, long long sat, const void* B, l
     if (c_ != 0) return c_;           \
   } while (0)
 
-template <typename T, int W>
-int launch(const float* origins, const float* dirs, const float* vemb, int cv, const float* z, const float* dist,
-           const float* noise, const float* target, const void* wts_v, const float* bias, int D, int skip, int L,
-           int white, float loss_scale, int N, int S, float* rgb, float* acc, float* depth, float* sqerr,
-           float* w_out, float* gw, float* gb, void* scratch, cudaStream_t st) {
+template <typename T, int W, typename A>
+int launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
+           const float* dist, const float* noise, const float* target, const void* wts_v, const float* bias, int D,
+           int skip, int L, int white, float loss_scale, int N, int S, float* rgb, float* acc, float* depth,
+           float* sqerr, float* w_out, float* gw, float* gb, void* scratch, cudaStream_t st) {
+  constexpr int CIN = A::CIN;
+  constexpr bool ELU = A::ACT == Act::Elu;
   constexpr int LDA = Op<T>::LDA;
   constexpr int WH = W / 2;
   constexpr int LDW = W + PADC;
   constexpr int LDH = WH + PADC;
   const T* wts = static_cast<const T*>(wts_v);
   const long long P = (long long)N * S;
-  const int cin = 3 + 6 * L;
+  const int cin = A::cin(L);
 
   Carver cv_{static_cast<unsigned char*>(scratch)};
   Scratch<T> sc;
@@ -537,12 +562,12 @@ int launch(const float* origins, const float* dirs, const float* vemb, int cv, c
   const int rays_per_block = std::max(1, CH / S);
   const size_t smem = sizeof(float) * ((size_t)rays_per_block * S * 5 + NRED) +
                       sizeof(T) * ((size_t)(2 * W + CIN + CV) * LDA + KT * W);
-  auto kern = render_loss_fwd_kernel<T, W>;
+  auto kern = render_loss_fwd_kernel<T, W, A>;
   SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
-  kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, vemb, cv, z, dist, noise, target, wts, bias, D, skip, L,
-                                            white, loss_scale, N, S, rays_per_block, rgb, acc, depth, sqerr, w_out,
-                                            sc);
+  kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, wts, bias, D,
+                                            skip, L, white, loss_scale, N, S, rays_per_block, rgb, acc, depth,
+                                            sqerr, w_out, sc);
   SWNERF_CHECK(cudaGetLastError());
 
   // Offsets of the packed matrices (ops/kernels/render_pass.py::weight_layout)
@@ -568,7 +593,8 @@ int launch(const float* origins, const float* dirs, const float* vemb, int cv, c
   const Region none{nullptr, 0, nullptr};
 
   // 2. rgb head and view layer
-  head_bwd_kernel<T, WH><<<ceil_div(P * WH, 256), 256, 0, st>>>(sc.gq, sc.hv, LDH, wts + off_rgb, P, dhv32, dhv_c);
+  head_bwd_kernel<T, WH, A::ACT><<<ceil_div(P * WH, 256), 256, 0, st>>>(sc.gq, sc.hv, LDH, wts + off_rgb, P, dhv32,
+                                                                        dhv_c);
   SWNERF_CHECK(cudaGetLastError());
   SWNERF_RUN(gemm_reduce<T>(gemm_args(sc.hv, 1, LDH, sc.gq, 4, 1, WH, 4, (int)P), part, WH, 3,
                             Region{gw + off_rgb, 3, nullptr}, none, st));
@@ -589,7 +615,7 @@ int launch(const float* origins, const float* dirs, const float* vemb, int cv, c
   }
   SWNERF_RUN(gemm_reduce<T>(gemm_args(hl(D - 1), 1, LDW, sc.dfa, LDW, 1, W + 1, W + 1, (int)P), part, W, W,
                             Region{gw + off_feat, W, gb_feat}, Region{gw + off_alpha, 1, gb_alpha}, st));
-  {  // dz_{D-1} = q((dfeat @ W_feat^T + dsigma * w_alpha^T) * [h_{D-1} > 0])
+  {  // dz_{D-1} = q((dfeat @ W_feat^T + dsigma * w_alpha^T) * act'(h_{D-1}))
     GemmArgs g = gemm_args(sc.dfa, LDW, 1, wts + off_feat, 1, W, (int)P, W, W);
     g.u = sc.dfa + W;
     g.su = LDW;
@@ -598,7 +624,7 @@ int launch(const float* origins, const float* dirs, const float* vemb, int cv, c
     g.ldm = LDW;
     g.C = dz[(D - 1) & 1];
     g.ldc = W;
-    SWNERF_RUN(gemm_act<T>(g, st));
+    SWNERF_RUN((gemm_act<T, ELU>(g, st)));
   }
 
   // 4. the trunk, from the top
@@ -617,9 +643,9 @@ int launch(const float* origins, const float* dirs, const float* vemb, int cv, c
       GemmArgs g = gemm_args(dzi, W, 1, wts + off_w[i], 1, W, (int)P, W, W);
       g.mask = hl(i - 1);
       g.ldm = LDW;
-      g.C = dz[(i - 1) & 1];
+        g.C = dz[(i - 1) & 1];
       g.ldc = W;
-      SWNERF_RUN(gemm_act<T>(g, st));
+      SWNERF_RUN((gemm_act<T, ELU>(g, st)));
     }
   }
   return 0;
@@ -634,36 +660,50 @@ const char* swnerf_error_string(int code) {
 }
 
 // Bytes of scratch render_loss_launch needs, or -1 for an unsupported width.
-long long render_loss_scratch_bytes(int bf16, int W, int D, int N, int S) {
+long long render_loss_scratch_bytes(int tnerf, int bf16, int W, int D, int N, int S) {
   if (W != 128 && W != 256) return -1;
   const long long P = (long long)N * S;
-  return (long long)(bf16 ? scratch_bytes<__nv_bfloat16>(W, D, P) : scratch_bytes<float>(W, D, P));
+  if (tnerf)
+    return (long long)(bf16 ? scratch_bytes<__nv_bfloat16, TNerf>(W, D, P) : scratch_bytes<float, TNerf>(W, D, P));
+  return (long long)(bf16 ? scratch_bytes<__nv_bfloat16, Vanilla>(W, D, P) : scratch_bytes<float, Vanilla>(W, D, P));
 }
 
-// origins, dirs [N, 3]; vemb [N, cv]; z, dist, noise (nullable) [N, S];
-// target [N, 3]; wts / bias: the packed buffers of
-// ops/kernels/render_pass.py::pack_params (bf16 != 0: bf16 operands, else
-// fp32). Outputs rgb [N, 3], acc, depth, sqerr [N], w_out [N, S]; gw / gb:
-// fp32 gradients of loss_scale * sum(sqerr) in the packed layouts, which the
-// caller zeroes (padded rows stay 0). scratch: render_loss_scratch_bytes.
-int render_loss_launch(int bf16, int W, const float* origins, const float* dirs, const float* vemb, int cv,
-                       const float* z, const float* dist, const float* noise, const float* target, const void* wts,
-                       const float* bias, int D, int skip, int L, int white, float loss_scale, int N, int S,
-                       float* rgb, float* acc, float* depth, float* sqerr, float* w_out, float* gw, float* gb,
-                       void* scratch, void* stream) {
+// tnerf: 0 for a vanilla field (B1), 1 for a T-NeRF (B4). origins, dirs
+// [N, 3]; times [N] (B4 only, else null); vemb [N, cv]; z, dist, noise
+// (nullable) [N, S]; target [N, 3]; wts / bias: the packed buffers of
+// ops/kernels/render_pass.py::pack_params / pack_tnerf_params (bf16 != 0:
+// bf16 operands, else fp32). Outputs rgb [N, 3], acc, depth, sqerr [N],
+// w_out [N, S]; gw / gb: fp32 gradients of loss_scale * sum(sqerr) in the
+// packed layouts, which the caller zeroes (padded rows stay 0). scratch:
+// render_loss_scratch_bytes.
+int render_loss_launch(int tnerf, int bf16, int W, const float* origins, const float* dirs, const float* times,
+                       const float* vemb, int cv, const float* z, const float* dist, const float* noise,
+                       const float* target, const void* wts, const float* bias, int D, int skip, int L, int white,
+                       float loss_scale, int N, int S, float* rgb, float* acc, float* depth, float* sqerr,
+                       float* w_out, float* gw, float* gb, void* scratch, void* stream) {
   if (N == 0) return 0;
-  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || 3 + 6 * L >= CIN || cv > CV)
+  // cin < CIN leaves room for the column of ones of the embedding's dW.
+  const bool cin_ok = tnerf ? times != nullptr && TNerf::cin(L) < TNerf::CIN : Vanilla::cin(L) < Vanilla::CIN;
+  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || !cin_ok || cv > CV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWNERF_LAUNCH(T, WW)                                                                                  \
-  launch<T, WW>(origins, dirs, vemb, cv, z, dist, noise, target, wts, bias, D, skip, L, white, loss_scale, N, S, \
-                rgb, acc, depth, sqerr, w_out, gw, gb, scratch, st)
-  if (bf16) {
-    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256);
-    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128);
+#define SWNERF_LAUNCH(T, WW, AA)                                                                               \
+  launch<T, WW, AA>(origins, dirs, times, vemb, cv, z, dist, noise, target, wts, bias, D, skip, L, white,     \
+                    loss_scale, N, S, rgb, acc, depth, sqerr, w_out, gw, gb, scratch, st)
+  if (tnerf) {
+    if (bf16) {
+      if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, TNerf);
+      if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, TNerf);
+    } else {
+      if (W == 256) return SWNERF_LAUNCH(float, 256, TNerf);
+      if (W == 128) return SWNERF_LAUNCH(float, 128, TNerf);
+    }
+  } else if (bf16) {
+    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, Vanilla);
   } else {
-    if (W == 256) return SWNERF_LAUNCH(float, 256);
-    if (W == 128) return SWNERF_LAUNCH(float, 128);
+    if (W == 256) return SWNERF_LAUNCH(float, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(float, 128, Vanilla);
   }
 #undef SWNERF_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,16 +1,22 @@
-// Forward render pass of a vanilla NeRF (kernel B3) for Hopper.
+// Forward render pass of a vanilla NeRF (kernel B3) and of a T-NeRF
+// (kernel B4, forward mode) for Hopper.
 //
 // Replaces swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel in
-// forward-only, from-rays, vanilla mode (param_grads=False). Per sample:
-// pts = o + d*z, Fourier encoding, the D-layer ReLU trunk with one skip,
-// feature + alpha heads, the view layer and the rgb head. Per ray: alpha =
+// forward-only, from-rays mode (param_grads=False), arch "vanilla" (B3) or
+// "tnerf" (B4: act="elu", rgb_relu, the [embed(xyz) | embed(t)] input). Per
+// sample: pts = o + d*z, Fourier encoding (with the ray's frame time for
+// B4), the D-layer ReLU (B4: ELU) trunk with one skip, feature + alpha
+// heads, the view layer and the rgb head (B4: ReLU on the logits before the
+// compositor's sigmoid). One body serves both families through the traits
+// of mlp_common.cuh. Per ray: alpha =
 // 1 - exp(-relu(sigma + noise) * dist), T = exp(exclusive prefix sum of
 // log(max(1 - alpha + 1e-10, 1e-10))), w = alpha * T, and the rgb / acc /
 // depth maps with optional white background. The plain twin is
 // swnerf_torch/ops/kernels/render_pass.py::render_pass_plain.
 //
 // Bound on the card: operations (~1.19 MFLOP of MLP per sample at D=8,
-// W=256, against ~1 KB of per-ray input). Design: one block of 256 threads
+// W=256; ~0.33 MFLOP for T-NeRF at D=8, W=128; against ~1 KB of per-ray
+// input). Design: one block of 256 threads
 // owns whole rays and runs the MLP over 64-row chunks of their samples
 // (mlp_common.cuh): the chunk's embedding and its two ping-pong activation
 // buffers live in shared memory, and weights stream from global memory
@@ -33,10 +39,10 @@
 
 namespace {
 
-template <typename T, int W>
+template <typename T, int W, typename A>
 __global__ void __launch_bounds__(NT)
 render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
-                   const float* __restrict__ vemb, int cv, const float* __restrict__ z,
+                   const float* __restrict__ times, const float* __restrict__ vemb, int cv, const float* __restrict__ z,
                    const float* __restrict__ dist, const float* __restrict__ noise,
                    const T* __restrict__ wts, const float* __restrict__ bias, int D, int skip, int L,
                    int white, int N, int S, int rays_per_block, float* __restrict__ rgb_out,
@@ -52,8 +58,8 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
   float* red = raw_s + rays_per_block * S * 4;         // [4][CH][3]
   T* actA = reinterpret_cast<T*>(red + NRED);          // [W][LDA]
   T* actB = actA + W * LDA;                            // [W][LDA]
-  T* emb = actB + W * LDA;                             // [CIN][LDA]
-  T* vemb_s = emb + CIN * LDA;                         // [CV][LDA]
+  T* emb = actB + W * LDA;                             // [A::CIN][LDA]
+  T* vemb_s = emb + A::CIN * LDA;                      // [CV][LDA]
   T* Ws = vemb_s + CV * LDA;                           // [KT][W]
 
   const float* b_views = bias + (D + 1) * W;
@@ -63,7 +69,7 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
   const int p = threadIdx.x / CH;
 
   for (int row0 = 0; row0 < rows; row0 += CH) {
-    encode_chunk<T>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, z, vemb);
+    encode_chunk<T, A>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
     const T* wp = wts;
     const float* bp = bias;
     T* h = actA;
@@ -71,21 +77,21 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
     {
       float acc[8][W / 32];
       zero(acc);
-      mm_acc<T, W>(acc, emb, CIN, wp, Ws);
-      wp += CIN * W;
-      store_act<T, W, true>(acc, bp, h);
+      mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
+      wp += A::CIN * W;
+      store_act<T, W, A::ACT>(acc, bp, h);
       bp += W;
     }
     for (int i = 1; i < D; ++i) {
       float acc[8][W / 32];
       zero(acc);
       if (i == skip + 1) {  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
-        mm_acc<T, W>(acc, emb, CIN, wp, Ws);
-        wp += CIN * W;
+        mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
+        wp += A::CIN * W;
       }
       mm_acc<T, W>(acc, h, W, wp, Ws);
       wp += W * W;
-      store_act<T, W, true>(acc, bp, g);
+      store_act<T, W, A::ACT>(acc, bp, g);
       bp += W;
       T* t = h;
       h = g;
@@ -96,7 +102,7 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
       zero(acc);
       mm_acc<T, W>(acc, h, W, wp, Ws);
       wp += W * W;
-      store_act<T, W, false>(acc, bp, g);
+      store_act<T, W, Act::None>(acc, bp, g);
     }
     {  // alpha head: one dot of length W per row, 4 threads per row
       float s = 0.f;
@@ -114,7 +120,7 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
       wp += W * WH;
       mm_acc<T, WH>(acc, vemb_s, CV, wp, Ws);
       wp += CV * WH;
-      store_act<T, WH, true>(acc, b_views, h);
+      store_act<T, WH, A::ACT>(acc, b_views, h);
     }
     __syncthreads();
     {  // rgb head: three dots of length W/2 per row
@@ -158,9 +164,9 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
       wr[s] = w;
       acc += w;
       dep += w * zr[s];
-      c0 += w * (1.f / (1.f + expf(-rw[0])));
-      c1 += w * (1.f / (1.f + expf(-rw[1])));
-      c2 += w * (1.f / (1.f + expf(-rw[2])));
+      c0 += w * rgb_of<A>(rw[0]);
+      c1 += w * rgb_of<A>(rw[1]);
+      c2 += w * rgb_of<A>(rw[2]);
     }
     if (white) {
       c0 += 1.f - acc;
@@ -175,20 +181,20 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
   }
 }
 
-template <typename T, int W>
-int launch(const float* origins, const float* dirs, const float* vemb, int cv, const float* z,
+template <typename T, int W, typename A>
+int launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
            const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
            int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
            cudaStream_t stream) {
   constexpr int LDA = Op<T>::LDA;
   const int rays_per_block = std::max(1, CH / S);
   const size_t smem = sizeof(float) * ((size_t)rays_per_block * S * 4 + NRED) +
-                      sizeof(T) * ((size_t)(2 * W + CIN + CV) * LDA + KT * W);
-  auto kern = render_pass_kernel<T, W>;
+                      sizeof(T) * ((size_t)(2 * W + A::CIN + CV) * LDA + KT * W);
+  auto kern = render_pass_kernel<T, W, A>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
-  kern<<<(unsigned)blocks, NT, smem, stream>>>(origins, dirs, vemb, cv, z, dist, noise,
+  kern<<<(unsigned)blocks, NT, smem, stream>>>(origins, dirs, times, vemb, cv, z, dist, noise,
                                                 static_cast<const T*>(wts), bias, D, skip, L, white, N, S,
                                                 rays_per_block, rgb, acc, depth, w_out);
   return static_cast<int>(cudaGetLastError());
@@ -202,24 +208,37 @@ const char* swnerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// origins, dirs [N, 3]; vemb [N, cv]; z, dist, noise (nullable) [N, S];
-// wts / bias: the packed buffers of ops/kernels/render_pass.py::pack_params
-// (bf16 != 0: bf16 operands, else fp32); outputs rgb [N, 3], acc [N],
-// depth [N], w_out [N, S]. All contiguous.
-int render_pass_launch(int bf16, int W, const float* origins, const float* dirs, const float* vemb,
-                       int cv, const float* z, const float* dist, const float* noise, const void* wts,
-                       const float* bias, int D, int skip, int L, int white, int N, int S, float* rgb,
-                       float* acc, float* depth, float* w_out, void* stream) {
+// tnerf: 0 for a vanilla field (B3), 1 for a T-NeRF (B4). origins, dirs
+// [N, 3]; times [N] (B4 only, else null); vemb [N, cv]; z, dist, noise
+// (nullable) [N, S]; wts / bias: the packed buffers of
+// ops/kernels/render_pass.py::pack_params / pack_tnerf_params (bf16 != 0:
+// bf16 operands, else fp32); outputs rgb [N, 3], acc [N], depth [N],
+// w_out [N, S]. All contiguous.
+int render_pass_launch(int tnerf, int bf16, int W, const float* origins, const float* dirs, const float* times,
+                       const float* vemb, int cv, const float* z, const float* dist, const float* noise,
+                       const void* wts, const float* bias, int D, int skip, int L, int white, int N, int S,
+                       float* rgb, float* acc, float* depth, float* w_out, void* stream) {
   if (N == 0) return 0;
+  if (tnerf ? (times == nullptr || TNerf::cin(L) > TNerf::CIN) : Vanilla::cin(L) > Vanilla::CIN)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWNERF_LAUNCH(T, WW) \
-  launch<T, WW>(origins, dirs, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S, rgb, acc, depth, w_out, st)
-  if (bf16) {
-    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256);
-    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128);
+#define SWNERF_LAUNCH(T, WW, AA)                                                                                  \
+  launch<T, WW, AA>(origins, dirs, times, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S, rgb, acc, \
+                    depth, w_out, st)
+  if (tnerf) {
+    if (bf16) {
+      if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, TNerf);
+      if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, TNerf);
+    } else {
+      if (W == 256) return SWNERF_LAUNCH(float, 256, TNerf);
+      if (W == 128) return SWNERF_LAUNCH(float, 128, TNerf);
+    }
+  } else if (bf16) {
+    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, Vanilla);
   } else {
-    if (W == 256) return SWNERF_LAUNCH(float, 256);
-    if (W == 128) return SWNERF_LAUNCH(float, 128);
+    if (W == 256) return SWNERF_LAUNCH(float, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(float, 128, Vanilla);
   }
 #undef SWNERF_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -19,8 +19,9 @@ from torch import nn
 
 class Field(nn.Module):
     """A neural field consumed by the render core:
-    ``forward(pts [N, S, 3], viewdirs [N, 3] | None) -> raw [N, S, C]``.
-    ``cfg`` is the model config the field was built from."""
+    ``forward(pts [N, S, 3], viewdirs [N, 3] | None, times [N, 1] | None)
+    -> raw [N, S, C]``. ``cfg`` is the model config the field was built
+    from."""
 
     cfg = None
 

@@ -97,8 +97,11 @@ class VanillaNeRF(Field):
             return torch.cat([dense(self.rgb_linear, h), alpha], -1)
         return dense(self.output_linear, h)
 
-    def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4]."""
+    def forward(
+        self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor] = None, times: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4]; ``times`` is
+        ignored (the render core passes every field the rays' times)."""
         pts_emb = positional_encoding(pts, self.cfg.nf_pts)
         views_emb = None
         if self.cfg.use_viewdirs:

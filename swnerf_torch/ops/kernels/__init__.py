@@ -5,6 +5,11 @@
 | B2 | ``sample_pdf.sample_pdf`` | ``csrc/sample_pdf.cu`` | ``swnerf_tpu/ops/pallas/sample_pdf.py::_kernel`` |
 | B3 | ``render_pass.render_pass`` | ``csrc/render_pass.cu`` | ``swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel`` (forward only) |
 | B1 | ``render_loss.render_loss`` | ``csrc/render_loss.cu`` | ``swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel`` (train mode) |
+| B4 | ``render_pass.render_pass`` and ``render_loss.render_loss`` with ``arch="tnerf"`` packed weights | ``csrc/render_pass.cu``, ``csrc/render_loss.cu`` | ``_render_loss_kernel`` with ``arch="tnerf"`` (forward only and train mode) |
+
+B4 is B3's and B1's body instantiated for the T-NeRF family (the ``TNerf``
+traits of ``csrc/mlp_common.cuh``); its launches count as
+``render_pass[tnerf,S=..]`` and ``render_loss[tnerf,S=..]``.
 
 A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches its kernel or raises. ``launches`` counts kernel launches by

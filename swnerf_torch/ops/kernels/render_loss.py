@@ -1,17 +1,22 @@
-"""Kernel B1: the train-mode render pass of a vanilla NeRF
-(``csrc/render_loss.cu``), its plain PyTorch twin, and the gradient unpacking.
+"""Kernels B1 and B4 (train mode): the train-mode render pass of a vanilla
+NeRF and of a T-NeRF (``csrc/render_loss.cu``), their plain PyTorch twin,
+and the gradient unpacking.
 
 Replaces ``swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel`` in
-train mode (``param_grads=True``, ``from_rays``, vanilla): B3's forward, the
-per-ray squared error ``sqerr_r = sum_c (rgb_map_rc - target_rc)^2`` after
-the white background, the compositing backward and the trunk reverse. The
-gradients are those of ``loss_scale * sum_r sqerr_r`` and come out of the
-kernel itself, as in the JAX package; nothing here goes through autograd.
+train mode (``param_grads=True``, ``from_rays``), arch ``"vanilla"`` (B1)
+or ``"tnerf"`` (B4): B3's / B4's forward, the per-ray squared error
+``sqerr_r = sum_c (rgb_map_rc - target_rc)^2`` after the white background,
+the compositing backward and the trunk reverse. The gradients are those of
+``loss_scale * sum_r sqerr_r`` and come out of the kernel itself, as in the
+JAX package; nothing here goes through autograd. B4's reverse takes ELU'
+from each stored activation (``h > 0 ? 1 : h + 1``) and masks the colour
+cotangent with its ReLU (``[logit > 0]``).
 
-Weights arrive packed by ``render_pass.pack_params``; the gradients come back
-as one fp32 buffer in ``weight_layout`` order and one in ``bias_layout``
-order, which :func:`unpack_grads` maps to each ``nn.Linear``'s ``[out, in]``
-gradient.
+Weights arrive packed by ``render_pass.pack_params`` /
+``pack_tnerf_params``; the gradients come back as one fp32 buffer in
+``weight_layout`` order and one in ``bias_layout`` order, which
+:func:`unpack_grads` / :func:`unpack_tnerf_grads` map to each
+``nn.Linear``'s ``[out, in]`` gradient.
 """
 
 from __future__ import annotations
@@ -20,17 +25,17 @@ import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from swnerf_torch.ops.embedding import positional_encoding
 from swnerf_torch.ops.kernels import build, launches
 from swnerf_torch.ops.kernels.render_pass import (
-    CIN_PAD,
-    CV_PAD,
     WIDTHS,
     PackedParams,
     _check,
     bias_layout,
+    check_times,
+    colour,
+    field_forward,
+    launch_key,
     weight_layout,
 )
 
@@ -63,6 +68,15 @@ def _excl_suffix_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(rev[..., :1]), rev[..., :-1]], -1).flip(-1)
 
 
+def _through_act(dh: torch.Tensor, h: torch.Tensor, arch: str) -> torch.Tensor:
+    """``dh`` times the activation's derivative, taken from its output
+    ``h`` (rounded to the operand type): ReLU ``[h > 0]``; ELU
+    ``h > 0 ? 1 : h + 1`` (``raymarch.py::_act_grad``)."""
+    if arch == "tnerf":
+        return dh * torch.where(h > 0, torch.ones_like(h), h + 1.0)
+    return torch.where(h > 0, dh, torch.zeros_like(dh))
+
+
 def render_loss_plain(
     packed: PackedParams,
     origins: torch.Tensor,
@@ -74,8 +88,9 @@ def render_loss_plain(
     target: torch.Tensor,
     white_bkgd: bool,
     loss_scale: float,
+    times: Optional[torch.Tensor] = None,
 ) -> Tuple[RenderLossOutput, Grads]:
-    """B1's arithmetic in torch ops, with the backward written out
+    """B1's / B4's arithmetic in torch ops, with the backward written out
     (render_fused.py:442-478 and ``_trunk_reverse``). With bf16 weights it
     rounds to bf16 exactly where the kernel does: the embedding, each layer's
     output, feat, hv, the raw cotangent (g_rgb, d sigma), dhv, d feat and
@@ -85,8 +100,7 @@ def render_loss_plain(
     cdt = packed.weights.dtype
     acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
     m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
-    b = packed.bias_vectors()
-    D, skip = packed.D, packed.skip
+    D, skip, arch = packed.D, packed.skip, packed.arch
     N, S = z_vals.shape
     P = N * S
 
@@ -94,29 +108,14 @@ def render_loss_plain(
         return x.to(cdt).to(acc_dt)
 
     # ---- forward (as render_pass_plain), keeping each layer's output
-    pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
-    emb = positional_encoding(pts.reshape(P, 3), packed.n_freqs)
-    emb = q(F.pad(emb, (0, CIN_PAD - emb.shape[-1])))
-    vemb = q(F.pad(views_emb, (0, CV_PAD - views_emb.shape[-1])))
-    vemb = vemb[:, None, :].expand(N, S, CV_PAD).reshape(P, CV_PAD)
-    hs = []
-    h = emb
-    for i in range(D):
-        z = h @ m[f"pts{i}"]
-        if i == skip + 1:
-            z = emb @ m[f"pts{i}_emb"] + z
-        h = q(torch.relu(z + b[f"pts{i}"]))
-        hs.append(h)
-    feat = q(h @ m["feature"] + b["feature"])
-    sigma = (h @ m["alpha"])[:, 0] + b["alpha"]
-    hv = q(torch.relu(feat @ m["views_feat"] + vemb @ m["views_emb"] + b["views"]))
-    logits = hv @ m["rgb"] + b["rgb"]
+    fwd = field_forward(packed, origins, directions, views_emb, z_vals, times)
+    emb, vemb, hs, feat, hv, logits = fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, fwd.logits
 
     # ---- composite, loss and the composite backward
-    sigma = sigma.reshape(N, S)
+    sigma = fwd.sigma
     if noise is not None:
         sigma = sigma + noise
-    rgb = torch.sigmoid(logits).reshape(N, S, 3)
+    rgb = colour(logits, arch).reshape(N, S, 3)
     ex = torch.exp(-torch.relu(sigma) * dists)
     alpha = 1.0 - ex
     safe = torch.maximum(1.0 - alpha + 1e-10, torch.full_like(alpha, 1e-10))
@@ -137,13 +136,15 @@ def render_loss_plain(
     dalpha = dldw * trans - _excl_suffix_sum(dldw * w) / safe
     dsig = torch.where(sigma > 0, dalpha * dists * ex, torch.zeros_like(dalpha))
     drgb = w[..., None] * g[:, None, :] * rgb * (1.0 - rgb)
+    if arch == "tnerf":  # the colour ReLU's mask
+        drgb = torch.where(logits.reshape(N, S, 3) > 0, drgb, torch.zeros_like(drgb))
     graw = torch.cat([drgb, dsig[..., None]], -1).reshape(P, 4)
     gq = q(graw)
 
     # ---- trunk reverse
     gw: Dict[str, torch.Tensor] = {}
     gb: Dict[str, torch.Tensor] = {}
-    dhv = torch.where(hv > 0, gq[:, :3] @ m["rgb"].t(), torch.zeros_like(hv))
+    dhv = _through_act(gq[:, :3] @ m["rgb"].t(), hv, arch)
     dhv_c = q(dhv)
     gw["rgb"], gb["rgb"] = hv.t() @ gq[:, :3], graw[:, :3].sum(0)
     gw["views_feat"], gw["views_emb"], gb["views"] = feat.t() @ dhv_c, vemb.t() @ dhv_c, dhv.sum(0)
@@ -153,7 +154,7 @@ def render_loss_plain(
     gw["feature"], gb["feature"] = top.t() @ dfeat, dfeat.sum(0)
     gw["alpha"], gb["alpha"] = top.t() @ dsq[:, None], dsq.sum(0, keepdim=True)
     dh = dfeat @ m["feature"].t() + dsq[:, None] * m["alpha"][:, 0][None, :]
-    dz = q(torch.where(top > 0, dh, torch.zeros_like(dh)))
+    dz = q(_through_act(dh, top, arch))
     for i in range(D - 1, -1, -1):
         if i == skip + 1:
             gw[f"pts{i}_emb"] = emb.t() @ dz
@@ -161,10 +162,10 @@ def render_loss_plain(
         gb[f"pts{i}"] = dz.sum(0)
         if i > 0:
             dh = dz @ m[f"pts{i}"].t()
-            dz = q(torch.where(hs[i - 1] > 0, dh, torch.zeros_like(dh)))
+            dz = q(_through_act(dh, hs[i - 1], arch))
 
     grads = (
-        torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(D, packed.W, skip)]),
+        torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(D, packed.W, skip, packed.cin_pad)]),
         torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(D, packed.W)]),
     )
     return RenderLossOutput(rgb_map, acc, depth, sqerr, w), grads
@@ -181,14 +182,17 @@ def render_loss(
     target: torch.Tensor,
     white_bkgd: bool,
     loss_scale: float,
+    times: Optional[torch.Tensor] = None,
 ) -> Tuple[RenderLossOutput, Grads]:
-    """B1 on CUDA tensors, the plain twin on CPU tensors."""
+    """B1 (vanilla) or B4 (T-NeRF, with per-ray ``times`` [N]) on CUDA
+    tensors, the plain twin on CPU tensors."""
+    N, S = z_vals.shape
+    check_times(packed, times, N, "render_loss")
     if origins.device.type == "cpu":
         return render_loss_plain(
-            packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale
+            packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale, times
         )
     dev = origins.device
-    N, S = z_vals.shape
     cv = views_emb.shape[-1]
     if (
         dev.type != "cuda"
@@ -201,7 +205,9 @@ def render_loss(
     for x, name, shape in (
         (origins, "origins", (N, 3)), (directions, "directions", (N, 3)), (views_emb, "views_emb", (N, cv)),
         (z_vals, "z_vals", (N, S)), (dists, "dists", (N, S)), (target, "target", (N, 3)),
-    ) + (((noise, "noise", (N, S)),) if noise is not None else ()):
+    ) + (((noise, "noise", (N, S)),) if noise is not None else ()) + (
+        ((times, "times", (N,)),) if times is not None else ()
+    ):
         _check(x, name, shape, dev)
     if (
         packed.weights.device != dev
@@ -211,11 +217,12 @@ def render_loss(
     ):
         raise ValueError("render_loss: packed weights must be a 16-byte aligned fp32/bf16 buffer on the device")
     lib = build.load(NAME)
+    tnerf = int(packed.arch == "tnerf")
     bf16 = int(packed.weights.dtype == torch.bfloat16)
     size_fn = lib.render_loss_scratch_bytes
     size_fn.restype = ctypes.c_longlong
-    size_fn.argtypes = [ctypes.c_int] * 5
-    nbytes = size_fn(bf16, packed.W, packed.D, N, S)
+    size_fn.argtypes = [ctypes.c_int] * 6
+    nbytes = size_fn(tnerf, bf16, packed.W, packed.D, N, S)
     if nbytes < 0:
         raise ValueError(f"render_loss: unsupported width {packed.W}")
 
@@ -229,10 +236,11 @@ def render_loss(
     fn = lib.render_loss_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i] + [p] * 9
+    fn.argtypes = [i, i, i, p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i] + [p] * 9
     with torch.cuda.device(dev):
         code = fn(
-            bf16, packed.W, origins.data_ptr(), directions.data_ptr(), views_emb.data_ptr(), cv,
+            tnerf, bf16, packed.W, origins.data_ptr(), directions.data_ptr(),
+            times.data_ptr() if times is not None else None, views_emb.data_ptr(), cv,
             z_vals.data_ptr(), dists.data_ptr(), noise.data_ptr() if noise is not None else None, target.data_ptr(),
             packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, packed.n_freqs,
             int(bool(white_bkgd)), float(loss_scale), N, S,
@@ -240,18 +248,20 @@ def render_loss(
             gw.data_ptr(), gb.data_ptr(), scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "render_loss")
-    launches[f"{NAME}[S={S}]"] += 1
+    launches[launch_key(NAME, packed, S)] += 1
     return RenderLossOutput(rgb, acc, depth, sqerr, weights), (gw, gb)
 
 
-def unpack_grads(grads: Grads, packed: PackedParams) -> Dict[str, torch.Tensor]:
-    """The packed gradient buffers -> ``{state-dict key: [out, in] grad}``
-    of a ``VanillaNeRF``; padded rows are dropped (they carry zero)."""
+def _unpack(grads: Grads, packed: PackedParams, trunk_key: str, heads) -> Dict[str, torch.Tensor]:
+    """The packed gradient buffers -> ``{state-dict key: [out, in] grad}``:
+    layer i of the trunk under ``trunk_key.format(i)``, and ``heads`` maps
+    "feature", "alpha", "views", "rgb" to their keys. Padded rows are
+    dropped (they carry zero)."""
     gw_buf, gb_buf = grads
     D, W, skip = packed.D, packed.W, packed.skip
-    cin, cv = 3 + 6 * packed.n_freqs, packed.input_ch_views
+    cin, cv = packed.cin, packed.input_ch_views
     mats, off = {}, 0
-    for name, rows, cols in weight_layout(D, W, skip):
+    for name, rows, cols in weight_layout(D, W, skip, packed.cin_pad):
         mats[name] = gw_buf[off : off + rows * cols].view(rows, cols)
         off += rows * cols
     bias, off = {}, 0
@@ -270,9 +280,24 @@ def unpack_grads(grads: Grads, packed: PackedParams) -> Dict[str, torch.Tensor]:
             w = torch.cat([mats[f"pts{i}_emb"][:cin], mats[f"pts{i}"]], 0)
         else:
             w = mats[f"pts{i}"]
-        out[f"pts_linears.{i}.weight"], out[f"pts_linears.{i}.bias"] = t(w), bias[f"pts{i}"].clone()
-    out["views_linears.0.weight"] = t(torch.cat([mats["views_feat"], mats["views_emb"][:cv]], 0))
-    out["views_linears.0.bias"] = bias["views"].clone()
-    for key, name in (("feature_linear", "feature"), ("alpha_linear", "alpha"), ("rgb_linear", "rgb")):
+        key = trunk_key.format(i)
+        out[f"{key}.weight"], out[f"{key}.bias"] = t(w), bias[f"pts{i}"].clone()
+    mats["views"] = torch.cat([mats["views_feat"], mats["views_emb"][:cv]], 0)
+    for name, key in heads.items():
         out[f"{key}.weight"], out[f"{key}.bias"] = t(mats[name]), bias[name].clone()
     return out
+
+
+def unpack_grads(grads: Grads, packed: PackedParams) -> Dict[str, torch.Tensor]:
+    """B1's packed gradients -> the ``VanillaNeRF`` state-dict keys."""
+    return _unpack(grads, packed, "pts_linears.{}", {
+        "views": "views_linears.0", "feature": "feature_linear", "alpha": "alpha_linear", "rgb": "rgb_linear",
+    })
+
+
+def unpack_tnerf_grads(grads: Grads, packed: PackedParams) -> Dict[str, torch.Tensor]:
+    """B4's packed gradients -> the ``TNeRF`` state-dict keys (port of
+    ``render_fused.py::unpack_tnerf_grads``)."""
+    return _unpack(grads, packed, "layers.{}.0", {
+        "alpha": "density.0", "feature": "feature.0", "views": "layer_9.0", "rgb": "color.0",
+    })

@@ -1,18 +1,26 @@
-"""Kernel B3: the forward render pass of a vanilla NeRF
-(``csrc/render_pass.cu``), its plain PyTorch twin, and the weight packing.
+"""Kernels B3 and B4 (forward mode): the forward render pass of a vanilla
+NeRF and of a T-NeRF (``csrc/render_pass.cu``), their plain PyTorch twin,
+and the weight packing.
 
 Replaces ``swnerf_tpu/ops/pallas/render_fused.py::_render_loss_kernel`` in
-forward-only, from-rays, vanilla mode. Inputs are per-ray origins and
-directions, the per-ray view embedding, and per-sample z, dist·|d| and
-density noise; outputs are rgb (white-composited when asked), acc, depth
-and the compositing weights, which feed B2.
+forward-only, from-rays mode, arch ``"vanilla"`` (B3) or ``"tnerf"`` (B4).
+Inputs are per-ray origins and directions (and, for B4, the per-ray frame
+times), the per-ray view embedding, and per-sample z, dist·|d| and density
+noise; outputs are rgb (white-composited when asked), acc, depth and the
+compositing weights, which feed B2.
 
-``pack_params`` lays the weights out for this card rather than for the
-TPU's 128 lanes: one contiguous buffer in the operand type (fp32 or bf16),
-each matrix ``[in, out]`` row-major, the position embedding padded to 64
-rows and the view embedding to 32; biases in a separate fp32 buffer. The
-skip layer is split into its embedding and hidden rows, as
-``swnerf_tpu/ops/pallas/raymarch.py::pack_params`` does.
+B4 is B3's body with three changes (the Pallas kernel's ``act="elu"``,
+``rgb_relu`` and ``build_embed_consts_xt``): the input is
+``[embed(xyz) | embed(t)]``, the trunk and the view layer use ELU, and a
+ReLU on the rgb logits comes before the compositor's sigmoid.
+
+``pack_params`` and ``pack_tnerf_params`` lay the weights out for this card
+rather than for the TPU's 128 lanes: one contiguous buffer in the operand
+type (fp32 or bf16), each matrix ``[in, out]`` row-major, the input
+embedding padded to 64 rows (96 for B4) and the view embedding to 32;
+biases in a separate fp32 buffer. The skip layer is split into its
+embedding and hidden rows, as ``swnerf_tpu/ops/pallas/raymarch.py::
+pack_params`` / ``pack_tnerf_params`` do.
 """
 
 from __future__ import annotations
@@ -29,6 +37,10 @@ from swnerf_torch.ops.kernels import build, launches
 
 NAME = "render_pass"
 CIN_PAD = 64  # padded position-embedding width (multires <= 10)
+# Padded [embed(xyz) | embed(t)] width: 84 live columns at multires 10, a
+# multiple of the kernel's 16-row weight tile with room for B1/B4's column
+# of ones after the live columns.
+CIN_PAD_T = 96
 CV_PAD = 32  # padded view-embedding width (multires_views <= 4)
 WIDTHS = (128, 256)
 
@@ -47,13 +59,29 @@ def supports_config(cfg) -> bool:
     )
 
 
-def weight_layout(D: int, W: int, skip: int) -> List[Tuple[str, int, int]]:
+def supports_tnerf(cfg) -> bool:
+    """The T-NeRF shapes B4 is built for (``raymarch.py::supports_tnerf``
+    with this card's widths): Fourier encoding, W in (128, 256), the
+    combined position + time embedding within ``CIN_PAD_T`` rows, the view
+    embedding within ``CV_PAD``, and exactly one skip inside the trunk
+    (skips fire at ``i % skip_layer == 0``)."""
+    return (
+        cfg.i_embed == 0
+        and cfg.net_dim in WIDTHS
+        and cfg.in_feat + cfg.time_feat <= CIN_PAD_T
+        and cfg.dir_feat <= CV_PAD
+        and cfg.skip_layer + 2 <= cfg.netdepth <= 2 * cfg.skip_layer
+    )
+
+
+def weight_layout(D: int, W: int, skip: int, cin_pad: int = CIN_PAD) -> List[Tuple[str, int, int]]:
     """(name, rows, cols) of each packed matrix, in buffer order. The
-    kernel walks the same order (csrc/render_pass.cu)."""
-    out = [("pts0", CIN_PAD, W)]
+    kernel walks the same order (csrc/render_pass.cu). ``cin_pad`` is
+    ``CIN_PAD`` for a vanilla field and ``CIN_PAD_T`` for a T-NeRF."""
+    out = [("pts0", cin_pad, W)]
     for i in range(1, D):
         if i == skip + 1:
-            out.append((f"pts{i}_emb", CIN_PAD, W))
+            out.append((f"pts{i}_emb", cin_pad, W))
         out.append((f"pts{i}", W, W))
     out += [
         ("feature", W, W),
@@ -73,20 +101,31 @@ def bias_layout(D: int, W: int) -> List[Tuple[str, int]]:
 
 @dataclasses.dataclass(frozen=True)
 class PackedParams:
-    """A vanilla field's weights, packed for B3 and its plain twin."""
+    """A field's weights, packed for B3 (``arch="vanilla"``) or B4
+    (``arch="tnerf"``) and their plain twin."""
 
     weights: torch.Tensor  # 1-D, operand dtype (float32 or bfloat16)
     biases: torch.Tensor  # 1-D float32
     D: int
     W: int
     skip: int
-    n_freqs: int  # position-encoding frequencies (multires)
+    n_freqs: int  # position-encoding frequencies (multires; also the time's for B4)
     input_ch_views: int
+    arch: str = "vanilla"
+
+    @property
+    def cin(self) -> int:
+        """Live input columns: embed(xyz), then embed(t) for a T-NeRF."""
+        return 3 + 6 * self.n_freqs + (1 + 2 * self.n_freqs if self.arch == "tnerf" else 0)
+
+    @property
+    def cin_pad(self) -> int:
+        return CIN_PAD_T if self.arch == "tnerf" else CIN_PAD
 
     def matrices(self) -> Dict[str, torch.Tensor]:
         """Views of the packed matrices, by weight_layout name."""
         out, off = {}, 0
-        for name, rows, cols in weight_layout(self.D, self.W, self.skip):
+        for name, rows, cols in weight_layout(self.D, self.W, self.skip, self.cin_pad):
             out[name] = self.weights[off : off + rows * cols].view(rows, cols)
             off += rows * cols
         return out
@@ -101,9 +140,55 @@ class PackedParams:
     @property
     def macs_per_sample(self) -> int:
         """Multiply-adds per sample of the unpadded network."""
-        W, cin = self.W, 3 + 6 * self.n_freqs
+        W, cin = self.W, self.cin
         trunk = cin * W + (self.D - 1) * W * W + cin * W  # layer 0, layers 1.., skip rows
         return trunk + W * W + W + (W + self.input_ch_views) * (W // 2) + (W // 2) * 3
+
+
+def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
+    return F.pad(w, (0, 0, 0, rows - w.shape[0]))
+
+
+def _pack(trunk, heads, skip: int, cin: int, dtype: torch.dtype, **meta) -> PackedParams:
+    """``trunk``: ``(weight [out, in], bias)`` per layer; ``heads``: the same
+    for "feature", "alpha", "views" (its input is ``[feature | view
+    embedding]``) and "rgb". Returns them packed in ``weight_layout`` /
+    ``bias_layout`` order."""
+    D, W = len(trunk), trunk[0][0].shape[0]
+    packed_meta = dict(D=D, W=W, skip=skip, **meta)
+    cin_pad = CIN_PAD_T if meta.get("arch") == "tnerf" else CIN_PAD
+    mats: Dict[str, torch.Tensor] = {}
+    for i, (w, _) in enumerate(trunk):
+        w = w.t()  # [in, out]
+        if i == 0:
+            mats["pts0"] = _pad_rows(w, cin_pad)
+        elif i == skip + 1:
+            mats[f"pts{i}_emb"] = _pad_rows(w[:cin], cin_pad)
+            mats[f"pts{i}"] = w[cin:]
+        else:
+            mats[f"pts{i}"] = w
+    mats["feature"] = heads["feature"][0].t()
+    mats["alpha"] = heads["alpha"][0].t()
+    vw = heads["views"][0].t()
+    mats["views_feat"] = vw[:W]
+    mats["views_emb"] = _pad_rows(vw[W:], CV_PAD)
+    mats["rgb"] = heads["rgb"][0].t()
+    flat = []
+    for name, rows, cols in weight_layout(D, W, skip, cin_pad):
+        if tuple(mats[name].shape) != (rows, cols):
+            raise ValueError(f"{name}: shape {tuple(mats[name].shape)} != {(rows, cols)}")
+        flat.append(mats[name].reshape(-1))
+    biases = {f"pts{i}": b for i, (_, b) in enumerate(trunk)}
+    biases.update({k: heads[k][1] for k in ("feature", "views", "rgb", "alpha")})
+    return PackedParams(
+        weights=torch.cat(flat).to(dtype).contiguous(),
+        biases=torch.cat([biases[n] for n, _ in bias_layout(D, W)]).contiguous(),
+        **packed_meta,
+    )
+
+
+def _layer(sd, key):
+    return sd[f"{key}.weight"].detach().to(torch.float32), sd[f"{key}.bias"].detach().to(torch.float32)
 
 
 def pack_params(state_dict, cfg, dtype: torch.dtype = torch.bfloat16) -> PackedParams:
@@ -111,44 +196,29 @@ def pack_params(state_dict, cfg, dtype: torch.dtype = torch.bfloat16) -> PackedP
     keys) for B3. The result lies on the state dict's device."""
     if not supports_config(cfg):
         raise ValueError(f"render_pass does not support {cfg}")
-    D, W, skip = cfg.netdepth, cfg.netwidth, cfg.skips[0]
-    cin, cv = cfg.input_ch, cfg.input_ch_views
-    sd = {k: v.detach().to(torch.float32) for k, v in state_dict.items()}
+    trunk = [_layer(state_dict, f"pts_linears.{i}") for i in range(cfg.netdepth)]
+    heads = {k: _layer(state_dict, key) for k, key in (
+        ("feature", "feature_linear"), ("alpha", "alpha_linear"), ("views", "views_linears.0"), ("rgb", "rgb_linear"),
+    )}
+    return _pack(trunk, heads, cfg.skips[0], cfg.input_ch, dtype, n_freqs=cfg.multires,
+                 input_ch_views=cfg.input_ch_views)
 
-    def pad_rows(w, rows):
-        return F.pad(w, (0, 0, 0, rows - w.shape[0]))
 
-    mats: Dict[str, torch.Tensor] = {}
-    for i in range(D):
-        w = sd[f"pts_linears.{i}.weight"].t()  # [in, out]
-        if i == 0:
-            mats["pts0"] = pad_rows(w, CIN_PAD)
-        elif i == skip + 1:
-            mats[f"pts{i}_emb"] = pad_rows(w[:cin], CIN_PAD)
-            mats[f"pts{i}"] = w[cin:]
-        else:
-            mats[f"pts{i}"] = w
-    mats["feature"] = sd["feature_linear.weight"].t()
-    mats["alpha"] = sd["alpha_linear.weight"].t()
-    vw = sd["views_linears.0.weight"].t()
-    mats["views_feat"] = vw[:W]
-    mats["views_emb"] = pad_rows(vw[W:], CV_PAD)
-    mats["rgb"] = sd["rgb_linear.weight"].t()
-    flat = []
-    for name, rows, cols in weight_layout(D, W, skip):
-        if tuple(mats[name].shape) != (rows, cols):
-            raise ValueError(f"{name}: shape {tuple(mats[name].shape)} != {(rows, cols)}")
-        flat.append(mats[name].reshape(-1))
-    biases = {f"pts{i}": sd[f"pts_linears.{i}.bias"] for i in range(D)}
-    biases.update(
-        feature=sd["feature_linear.bias"], views=sd["views_linears.0.bias"],
-        rgb=sd["rgb_linear.bias"], alpha=sd["alpha_linear.bias"],
-    )
-    return PackedParams(
-        weights=torch.cat(flat).to(dtype).contiguous(),
-        biases=torch.cat([biases[n] for n, _ in bias_layout(D, W)]).contiguous(),
-        D=D, W=W, skip=skip, n_freqs=cfg.multires, input_ch_views=cv,
-    )
+def pack_tnerf_params(state_dict, cfg, dtype: torch.dtype = torch.bfloat16) -> PackedParams:
+    """Pack a T-NeRF state dict (the ``.tar`` keys ``layers.{i}.0``,
+    ``density.0``, ``feature.0``, ``layer_9.0``, ``color.0``) for B4, as
+    ``raymarch.py::pack_tnerf_params`` does: ``density`` is the alpha head,
+    ``layer_9`` the view layer (split into its feature and view-embedding
+    rows) and ``color`` the rgb head. The result lies on the state dict's
+    device."""
+    if not supports_tnerf(cfg):
+        raise ValueError(f"render_pass does not support {cfg}")
+    trunk = [_layer(state_dict, f"layers.{i}.0") for i in range(cfg.netdepth)]
+    heads = {k: _layer(state_dict, f"{key}.0") for k, key in (
+        ("feature", "feature"), ("alpha", "density"), ("views", "layer_9"), ("rgb", "color"),
+    )}
+    return _pack(trunk, heads, cfg.skip_layer, cfg.in_feat + cfg.time_feat, dtype, n_freqs=cfg.multires,
+                 input_ch_views=cfg.dir_feat, arch="tnerf")
 
 
 class RenderPassOutput(NamedTuple):
@@ -158,20 +228,36 @@ class RenderPassOutput(NamedTuple):
     weights: torch.Tensor  # [N, S]
 
 
-def render_pass_plain(
-    packed: PackedParams,
-    origins: torch.Tensor,
-    directions: torch.Tensor,
-    views_emb: torch.Tensor,
-    z_vals: torch.Tensor,
-    dists: torch.Tensor,
-    noise: Optional[torch.Tensor] = None,
-    white_bkgd: bool = False,
-) -> RenderPassOutput:
-    """The same arithmetic as B3 in torch ops. With bf16 weights it rounds
-    the embedding, each layer's output and the weights to bf16 exactly
-    where the kernel does; products and sums stay fp32. float64 weights run
-    it all in float64 (a reference for conditioning checks)."""
+def act(x: torch.Tensor, arch: str) -> torch.Tensor:
+    """The trunk's and the view layer's activation: ReLU, or ELU (expm1,
+    as the kernel) for a T-NeRF."""
+    return F.elu(x) if arch == "tnerf" else torch.relu(x)
+
+
+def colour(logits: torch.Tensor, arch: str) -> torch.Tensor:
+    """Per-sample colour from the rgb logits: sigmoid, after a ReLU for a
+    T-NeRF (its colour head's ReLU, then the compositor's sigmoid)."""
+    return torch.sigmoid(torch.relu(logits) if arch == "tnerf" else logits)
+
+
+class FieldForward(NamedTuple):
+    """The plain twin's forward, per sample (rows ray-major): the rounded
+    operands the kernels keep and the fp32 head outputs."""
+
+    emb: torch.Tensor  # [P, cin_pad]
+    vemb: torch.Tensor  # [P, CV_PAD]
+    hs: List[torch.Tensor]  # each trunk layer's output [P, W]
+    feat: torch.Tensor  # [P, W]
+    hv: torch.Tensor  # [P, W/2]
+    sigma: torch.Tensor  # [N, S], before noise
+    logits: torch.Tensor  # [P, 3]
+
+
+def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, times=None) -> FieldForward:
+    """Encode and run the packed field as the kernels do. With bf16 weights
+    it rounds the embedding, each layer's output and the weights to bf16
+    exactly where the kernels do; products and sums stay fp32. float64
+    weights run it all in float64 (a reference for conditioning checks)."""
     cdt = packed.weights.dtype
     acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
     m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
@@ -184,25 +270,47 @@ def render_pass_plain(
 
     pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
     emb = positional_encoding(pts.reshape(P, 3), packed.n_freqs)
-    emb = q(F.pad(emb, (0, CIN_PAD - emb.shape[-1])))
+    if packed.arch == "tnerf":  # [embed(xyz) | embed(t)], t constant along the ray
+        t = times.reshape(N, 1, 1).expand(N, S, 1).reshape(P, 1)
+        emb = torch.cat([emb, positional_encoding(t, packed.n_freqs)], -1)
+    emb = q(F.pad(emb, (0, packed.cin_pad - emb.shape[-1])))
     vemb = q(F.pad(views_emb, (0, CV_PAD - views_emb.shape[-1])))
     vemb = vemb[:, None, :].expand(N, S, CV_PAD).reshape(P, CV_PAD)
 
+    hs = []
     h = emb
     for i in range(packed.D):
         z = h @ m[f"pts{i}"]
         if i == packed.skip + 1:
             z = emb @ m[f"pts{i}_emb"] + z
-        h = q(torch.relu(z + b[f"pts{i}"]))
+        h = q(act(z + b[f"pts{i}"], packed.arch))
+        hs.append(h)
     feat = q(h @ m["feature"] + b["feature"])
     sigma = (h @ m["alpha"])[:, 0] + b["alpha"]
-    hv = q(torch.relu(feat @ m["views_feat"] + vemb @ m["views_emb"] + b["views"]))
+    hv = q(act(feat @ m["views_feat"] + vemb @ m["views_emb"] + b["views"], packed.arch))
     logits = hv @ m["rgb"] + b["rgb"]
+    return FieldForward(emb, vemb, hs, feat, hv, sigma.reshape(N, S), logits)
 
-    sigma = sigma.reshape(N, S)
+
+def render_pass_plain(
+    packed: PackedParams,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    white_bkgd: bool = False,
+    times: Optional[torch.Tensor] = None,
+) -> RenderPassOutput:
+    """The same arithmetic as B3 / B4 in torch ops (see
+    :func:`field_forward` for the rounding)."""
+    N, S = z_vals.shape
+    fwd = field_forward(packed, origins, directions, views_emb, z_vals, times)
+    sigma = fwd.sigma
     if noise is not None:
         sigma = sigma + noise
-    rgb = torch.sigmoid(logits).reshape(N, S, 3)
+    rgb = colour(fwd.logits, packed.arch).reshape(N, S, 3)
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
     safe = torch.maximum(1.0 - alpha + 1e-10, torch.full_like(alpha, 1e-10))
     logs = torch.log(safe)
@@ -224,6 +332,20 @@ def _check(x: torch.Tensor, name: str, shape, device) -> None:
         )
 
 
+def check_times(packed: PackedParams, times: Optional[torch.Tensor], n: int, what: str) -> None:
+    """A T-NeRF pass needs per-ray times ``[N]``; a vanilla pass takes none."""
+    if (packed.arch == "tnerf") != (times is not None):
+        raise ValueError(f"{what}: arch {packed.arch!r} {'needs' if times is None else 'takes no'} times")
+    if times is not None and tuple(times.shape) != (n,):
+        raise ValueError(f"{what}: times must be [N] = [{n}], got {tuple(times.shape)}")
+
+
+def launch_key(name: str, packed: PackedParams, S: int) -> str:
+    """The ``launches`` key of one kernel call: ``render_pass[S=64]`` for
+    B3, ``render_pass[tnerf,S=64]`` for B4."""
+    return f"{name}[S={S}]" if packed.arch == "vanilla" else f"{name}[{packed.arch},S={S}]"
+
+
 def render_pass(
     packed: PackedParams,
     origins: torch.Tensor,
@@ -233,19 +355,24 @@ def render_pass(
     dists: torch.Tensor,
     noise: Optional[torch.Tensor] = None,
     white_bkgd: bool = False,
+    times: Optional[torch.Tensor] = None,
 ) -> RenderPassOutput:
-    """B3 on CUDA tensors, the plain twin on CPU tensors."""
-    if origins.device.type == "cpu":
-        return render_pass_plain(packed, origins, directions, views_emb, z_vals, dists, noise, white_bkgd)
-    dev = origins.device
+    """B3 (vanilla) or B4 (T-NeRF, with per-ray ``times`` [N]) on CUDA
+    tensors, the plain twin on CPU tensors."""
     N, S = z_vals.shape
+    check_times(packed, times, N, "render_pass")
+    if origins.device.type == "cpu":
+        return render_pass_plain(packed, origins, directions, views_emb, z_vals, dists, noise, white_bkgd, times)
+    dev = origins.device
     cv = views_emb.shape[-1]
     if dev.type != "cuda" or packed.W not in WIDTHS or cv != packed.input_ch_views or not 1 <= S <= 1024:
         raise ValueError(f"render_pass: unsupported call (device {dev}, W {packed.W}, S {S}, views {cv})")
     for x, name, shape in (
         (origins, "origins", (N, 3)), (directions, "directions", (N, 3)), (views_emb, "views_emb", (N, cv)),
         (z_vals, "z_vals", (N, S)), (dists, "dists", (N, S)),
-    ) + (((noise, "noise", (N, S)),) if noise is not None else ()):
+    ) + (((noise, "noise", (N, S)),) if noise is not None else ()) + (
+        ((times, "times", (N,)),) if times is not None else ()
+    ):
         _check(x, name, shape, dev)
     if (
         packed.weights.device != dev
@@ -262,11 +389,12 @@ def render_pass(
     fn = lib.render_pass_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [i, i, i, p, p, p, p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
     with torch.cuda.device(dev):
         code = fn(
-            int(packed.weights.dtype == torch.bfloat16), packed.W,
-            origins.data_ptr(), directions.data_ptr(), views_emb.data_ptr(), cv,
+            int(packed.arch == "tnerf"), int(packed.weights.dtype == torch.bfloat16), packed.W,
+            origins.data_ptr(), directions.data_ptr(), times.data_ptr() if times is not None else None,
+            views_emb.data_ptr(), cv,
             z_vals.data_ptr(), dists.data_ptr(), noise.data_ptr() if noise is not None else None,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             packed.D, packed.skip, packed.n_freqs, int(bool(white_bkgd)), N, S,
@@ -274,5 +402,5 @@ def render_pass(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "render_pass")
-    launches[f"{NAME}[S={S}]"] += 1
+    launches[launch_key(NAME, packed, S)] += 1
     return RenderPassOutput(rgb, acc, depth, weights)

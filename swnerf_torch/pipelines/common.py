@@ -1,8 +1,8 @@
 """Shared pipeline machinery (port of ``swnerf_tpu/pipelines/common.py``):
 dataset dispatch, the training ray samplers and step wrappers, the
 dead-init watchdog with auto-reseed, path rendering and the eval-metrics
-dump of ``--render_only``. This slice loads Blender scenes; the other
-loaders and the mp4 writer are later slices (ROADMAP.md).
+dump of ``--render_only``. The port loads static and dynamic Blender
+scenes; the other loaders and the mp4 writer are later slices (ROADMAP.md).
 
 The samplers stay numpy and, unlike the JAX package's, are seeded from
 ``SWNERF_SEED``; at seed 0 they draw exactly the JAX samplers' indices.
@@ -42,6 +42,8 @@ class Scene:
     i_val: np.ndarray
     i_test: np.ndarray
     ndc: bool = False
+    times: Optional[np.ndarray] = None  # [N] frame times of a dynamic scene
+    render_times: Optional[np.ndarray] = None  # one per render pose
 
 
 def _composite_background(images: np.ndarray, white_bkgd: bool) -> np.ndarray:
@@ -53,27 +55,40 @@ def _composite_background(images: np.ndarray, white_bkgd: bool) -> np.ndarray:
 
 
 def load_scene(args) -> Scene:
-    """Dataset dispatch (reference run.py:431-511); Blender only so far."""
-    if args.dataset_type != "blender":
+    """Dataset dispatch (reference run.py:431-511): ``blender`` and, for the
+    time-conditioned trainers, ``blender_dnerf``, whose ``--render_test``
+    also renders at the test frames' times."""
+    times = render_times = None
+    if args.dataset_type == "blender":
+        from swnerf_torch.data.blender import load_blender_data
+
+        images, poses, render_poses, hwf, (i_train, i_val, i_test) = load_blender_data(
+            args.datadir, args.half_res, args.testskip
+        )
+    elif args.dataset_type == "blender_dnerf":
+        from swnerf_torch.data.blender import load_blender_dynamic_data
+
+        images, poses, times, render_poses, render_times, hwf, (i_train, i_val, i_test) = (
+            load_blender_dynamic_data(args.datadir, args.half_res, args.testskip)
+        )
+    else:
         raise NotImplementedError(
             f"dataset_type {args.dataset_type!r} is not ported yet (ROADMAP.md Queue A, other loaders)"
         )
-    from swnerf_torch.data.blender import load_blender_data
-
-    images, poses, render_poses, hwf, (i_train, i_val, i_test) = load_blender_data(
-        args.datadir, args.half_res, args.testskip
-    )
     images = _composite_background(images, args.white_bkgd)
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], dtype=np.float64)
     if getattr(args, "render_test", False):
         render_poses = np.array(poses[i_test])
+        if times is not None:
+            render_times = np.array(times[i_test])
     return Scene(
         images=np.asarray(images, np.float32),
         poses=np.asarray(poses, np.float32),
         render_poses=np.asarray(render_poses, np.float32),
         H=H, W=W, focal=focal, K=K, near=2.0, far=6.0,
         i_train=np.asarray(i_train), i_val=np.asarray(i_val), i_test=np.asarray(i_test),
+        times=times, render_times=render_times,
     )
 
 
@@ -119,13 +134,17 @@ class RayPoolSampler:
 
 class ImageSampler:
     """Per-image random pixels with the center-crop curriculum (reference
-    no_batching path, run.py:652-681): the host picks the image and the
-    (row, col) pixels; rays for just those pixels are made on the device."""
+    no_batching path, run.py:652-681) and, for dynamic scenes, the time
+    curriculum (``precrop_iters_time``, run_dnerf.py:650-655): the host picks
+    the image and the (row, col) pixels; rays for just those pixels are made
+    on the device."""
 
-    def __init__(self, scene: Scene, n_rand: int, precrop_iters: int, precrop_frac: float, seed: Optional[int] = None):
+    def __init__(self, scene: Scene, n_rand: int, precrop_iters: int, precrop_frac: float, seed: Optional[int] = None,
+                 precrop_iters_time: int = 0):
         self.scene = scene
         self.n_rand = n_rand
         self.precrop_iters = precrop_iters
+        self.precrop_iters_time = precrop_iters_time
         self._rng = np.random.default_rng(int(os.environ.get("SWNERF_SEED", "0")) if seed is None else seed)
         H, W = scene.H, scene.W
         dH, dW = int(H // 2 * precrop_frac), int(W // 2 * precrop_frac)
@@ -135,7 +154,12 @@ class ImageSampler:
         self._full_coords = np.stack([ys, xs], -1).reshape(-1, 2).astype(np.int64)
 
     def next(self, step: int) -> Tuple[int, np.ndarray]:
-        img_i = int(self._rng.choice(self.scene.i_train))
+        i_train = self.scene.i_train
+        if step >= self.precrop_iters_time:
+            img_i = int(self._rng.choice(i_train))
+        else:  # the reachable frame range grows linearly
+            max_sample = max(int(step / float(self.precrop_iters_time) * len(i_train)), 3)
+            img_i = int(self._rng.choice(i_train[:max_sample]))
         coords = self._crop_coords if step < self.precrop_iters else self._full_coords
         # Fewer pixels than N_rand in the region: draw with replacement.
         replace = coords.shape[0] < self.n_rand
@@ -174,6 +198,52 @@ def make_image_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
         return train_step(state, _scene_rays(rays_o, rays_d, cfg, scene), target, generator)
 
     return step
+
+
+def make_time_image_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
+    """Wrap a train step to consume ``(state, images, poses, times, img_i,
+    pixels, generator)`` with ``times`` [N] on the device: as
+    :func:`make_image_step`, every ray carrying the frame time of image
+    ``img_i`` in ``rays.times``."""
+
+    def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i: int, pixels,
+             generator=None):
+        pixels = torch.as_tensor(pixels, device=images.device)
+        rays_o, rays_d = get_rays_at(pixels, scene.H, scene.W, scene.K, poses[img_i])
+        target = images[img_i][pixels[:, 0], pixels[:, 1]]
+        t = times[img_i].reshape(1, 1).expand(pixels.shape[0], 1).contiguous()
+        rays = build_rays(rays_o, rays_d, scene.near, scene.far, use_viewdirs=cfg.use_viewdirs, times=t)
+        return train_step(state, rays, target, generator)
+
+    return step
+
+
+class StepTimer:
+    """Per-step device milliseconds: a CUDA event recorded after every step,
+    read only at :meth:`collect` (no synchronization inside the loop).
+    Records nothing on the CPU."""
+
+    def __init__(self, device: torch.device, start: int):
+        self.cuda = device.type == "cuda"
+        self._events: dict = {}
+        self.step_ms: dict = {}
+        self.record(start)
+
+    def record(self, i: int) -> None:
+        if self.cuda:
+            self._events[i] = torch.cuda.Event(enable_timing=True)
+            self._events[i].record()
+
+    def collect(self) -> None:
+        """Wait for the newest event and turn the gaps up to it into
+        ``step_ms[i]`` (ms between the ends of steps i-1 and i)."""
+        if len(self._events) < 2:
+            return
+        done = sorted(self._events)
+        self._events[done[-1]].synchronize()
+        for a, b in zip(done[:-1], done[1:]):
+            self.step_ms[b] = self._events[a].elapsed_time(self._events[b])
+        self._events = {done[-1]: self._events[done[-1]]}
 
 
 # ---------------------------------------------------------------------------
@@ -273,10 +343,12 @@ def render_path(
     savedir: Optional[str] = None,
     render_factor: int = 0,
     eval_pass=None,
+    times: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, List[float]]:
     """Render a pose path (reference render_path run.py:172-219) on the
-    model's device. Returns (rgbs [T, H, W, 3], disps [T, H, W], seconds per
-    frame); on a card each frame is timed between two synchronizations."""
+    model's device, pose i at frame time ``times[i]`` for a time-conditioned
+    field. Returns (rgbs [T, H, W, 3], disps [T, H, W], seconds per frame);
+    on a card each frame is timed between two synchronizations."""
     H, W, K = scene.H, scene.W, scene.K.copy()
     if render_factor != 0:
         H, W = H // render_factor, W // render_factor
@@ -291,7 +363,7 @@ def render_path(
         t0 = time.perf_counter()
         rays = make_rays_from_camera(
             H, W, K, c2w[:3, :4], scene.near, scene.far, use_viewdirs=ecfg.use_viewdirs, ndc=scene.ndc,
-            device=device,
+            device=device, time=None if times is None else float(times[i]),
         )
         out = render_image(model, rays, ecfg, chunk=chunk, fine_model=fine_model, eval_pass=eval_pass)
         if device.type == "cuda":
@@ -309,14 +381,15 @@ def render_path(
 
 def render_only(model, fine_model, scene: Scene, cfg: RenderConfig, args, start: int, eval_pass=None) -> str:
     """The --render_only path (run.py:557-596): render the test poses or
-    the spiral path, write PNGs, and metrics.json when the ground truth is
-    known. metrics.json also records each frame's render seconds."""
+    the spiral path (at ``scene.render_times`` for a dynamic scene), write
+    PNGs, and metrics.json when the ground truth is known. metrics.json also
+    records each frame's render seconds."""
     suffix = "test" if args.render_test else "path"
     savedir = os.path.join(args.basedir, args.expname, f"renderonly_{suffix}_{start:06d}")
     os.makedirs(savedir, exist_ok=True)
     rgbs, _, seconds = render_path(
         model, fine_model, scene.render_poses, scene, cfg, chunk=args.chunk, savedir=savedir,
-        render_factor=args.render_factor, eval_pass=eval_pass,
+        render_factor=args.render_factor, eval_pass=eval_pass, times=scene.render_times,
     )
     payload = {"seconds_per_frame": seconds}
     if args.render_test and args.render_factor == 0:

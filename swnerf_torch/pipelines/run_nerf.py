@@ -28,6 +28,7 @@ from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
     RayPoolSampler,
+    StepTimer,
     auto_reseed_loop,
     load_scene,
     make_image_step,
@@ -168,18 +169,12 @@ def _train_impl(argv=None) -> Dict:
     # Auto-reseed restarts are legal only before the first checkpoint, and
     # never on a resumed run.
     watchdog = DeadInitWatchdog(args.i_print, restart_until=args.i_weights if start == 0 else 0)
-    cuda = device.type == "cuda"
-    events, step_ms = {}, {}
-    if cuda:
-        events[start] = torch.cuda.Event(enable_timing=True)
-        events[start].record()
+    timer = StepTimer(device, start)
 
     metrics = {}
     for i in range(start + 1, n_iters):
         metrics = one_step(i)
-        if cuda:
-            events[i] = torch.cuda.Event(enable_timing=True)
-            events[i].record()
+        timer.record(i)
 
         if i % args.i_weights == 0:
             save_vanilla_ckpt(args, state, i)
@@ -196,12 +191,7 @@ def _train_impl(argv=None) -> Dict:
                         savedir=testsavedir, eval_pass=eval_pass)
             print("Saved test set")
         if i % args.i_print == 0:
-            if cuda:
-                events[i].synchronize()
-                done = sorted(events)
-                for a, b in zip(done[:-1], done[1:]):
-                    step_ms[b] = events[a].elapsed_time(events[b])
-                events = {i: events[i]}
+            timer.collect()
             m = {k: float(v) for k, v in metrics.items()}
             logger.scalars(i, m)
             tp = logger.throughput(i, samples_per_step)
@@ -209,13 +199,9 @@ def _train_impl(argv=None) -> Dict:
             print(f"[TRAIN] Iter: {i} Loss: {m['total_loss']:.6f}  PSNR: {m['psnr']:.3f}{rate}", flush=True)
             watchdog.check(i, m["psnr"])
 
-    if cuda and len(events) > 1:
-        torch.cuda.synchronize(device)
-        done = sorted(events)
-        for a, b in zip(done[:-1], done[1:]):
-            step_ms[b] = events[a].elapsed_time(events[b])
+    timer.collect()
     logger.close()
-    return {"metrics": {k: float(v) for k, v in metrics.items()}, "step_ms": step_ms}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "step_ms": timer.step_ms}
 
 
 def main(argv=None):

@@ -1,0 +1,193 @@
+"""T-NeRF CLI (port of ``swnerf_tpu/pipelines/run_tnerf.py``): one
+time-conditioned field, no fine pass.
+
+Training (the default) and ``--render_only`` serving::
+
+    python -m swnerf_torch.pipelines.run_tnerf --config <cfg.txt> [--device cuda|cpu]
+    python -m swnerf_torch.pipelines.run_tnerf --config <cfg.txt> --render_only --render_test
+
+The dnerf flag set (``config_parser_dnerf``), the dynamic Blender loader,
+``net_dim`` 128 and skip 4 whatever ``--netwidth`` says, and
+``N_importance`` forced to 0 (reference run_tnerf.py:264-280,329).
+Training resumes from the latest ``.tar`` of the experiment (or
+``--ft_path``) with its Adam state, runs one train step per iteration (the
+kernel step on B4 where ``supports_fused_tnerf_step`` holds and
+``SWNERF_FUSED_STEP`` is not 0, else the eager autograd step), saves
+``{iter:06d}.tar`` every ``--i_weights``, renders the test views at their
+frame times every ``--i_testset`` and the render path as PNG frames every
+``--i_video``, and prints and logs to ``metrics.jsonl`` every ``--i_print``.
+``SWNERF_MAX_ITERS`` caps the iteration count (testing). Serving renders the
+test views (or the render path) at their frame times through B4 and writes
+PNG frames and metrics.json; the mp4 writer is a later slice. K steps per
+dispatch, tensor parallelism and multi-GPU are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Union
+
+import torch
+
+from swnerf_torch.device import resolve_device
+from swnerf_torch.models import TNeRF, TNeRFConfig
+from swnerf_torch.ops.kernels.render_pass import supports_tnerf
+from swnerf_torch.pipelines.common import (
+    DeadInitWatchdog,
+    ImageSampler,
+    StepTimer,
+    auto_reseed_loop,
+    load_scene,
+    make_time_image_step,
+    render_only,
+    render_path,
+    seed_value,
+)
+from swnerf_torch.render.core import RenderConfig
+from swnerf_torch.render.fused_eval import make_tnerf_eval_pass
+from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, save_tar, tnerf_state_dict
+from swnerf_torch.train.fused_step import make_fused_tnerf_step, supports_fused_tnerf_step
+from swnerf_torch.train.loop import TrainState, init_train_state, make_train_step
+from swnerf_torch.utils.config import config_parser_dnerf
+from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
+
+
+def create_tnerf(args, device: torch.device):
+    """The field, train state, render config and eval pass from CLI args
+    (reference run_tnerf.py:264-280), resuming from the latest checkpoint:
+    weights, Adam state and ``start = global_step``.
+
+    Returns (state, rcfg, eval_pass, mcfg). The eval pass runs B4 with bf16
+    operands on the card and its fp32 plain twin on the CPU; it is None for
+    architectures B4 does not cover (the plain path renders then).
+    """
+    mcfg = TNeRFConfig(
+        netdepth=args.netdepth, net_dim=128, skip_layer=4, multires=args.multires,
+        multires_views=args.multires_views, i_embed=args.i_embed,
+    )
+    model = TNeRF(mcfg, device=device, generator=torch.Generator().manual_seed(seed_value()))
+    rcfg = RenderConfig(
+        n_samples=args.N_samples, n_importance=0, perturb=args.perturb, lindisp=args.lindisp,
+        raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd, use_viewdirs=True,
+    )
+    state = init_train_state(model, None, args.lrate, args.lrate_decay)
+
+    ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
+    if ckpts and not args.no_reload:
+        print("Reloading from", ckpts[-1])
+        ckpt = load_tar(ckpts[-1])
+        state.step = int(ckpt["global_step"])
+        model.load_state_dict(tnerf_state_dict(ckpt["network_fn_state_dict"]))
+        if ckpt.get("optimizer_state_dict"):
+            state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+
+    eval_pass = None
+    if supports_tnerf(mcfg):
+        eval_pass = make_tnerf_eval_pass(mcfg, torch.bfloat16 if device.type == "cuda" else torch.float32)
+    return state, rcfg, eval_pass, mcfg
+
+
+def save_tnerf_ckpt(args, state: TrainState, i: int) -> str:
+    """``{i:06d}.tar`` with the T-NeRF schema (run_tnerf.py:719-728); the
+    optimizer's learning rate is the schedule's at ``i``, as the JAX package
+    writes it."""
+    path = os.path.join(args.basedir, args.expname, f"{i:06d}.tar")
+    opt = state.optimizer.state_dict()
+    for group in opt["param_groups"]:
+        group["lr"] = state.schedule(i)
+    save_tar(path, {
+        "global_step": i, "network_fn_state_dict": state.coarse.state_dict(), "optimizer_state_dict": opt,
+    })
+    print("Saved checkpoints at", path)
+    return path
+
+
+def train(argv=None):
+    """Product entry; with ``SWNERF_AUTO_RESEED=N`` a watchdog-confirmed
+    dead-density init restarts training (at most N times) with a new seed."""
+    return auto_reseed_loop(_train_impl, argv)
+
+
+main = train
+
+
+def _train_impl(argv=None) -> Union[str, Dict]:
+    """The CLI: ``--render_only`` renders and returns the directory of the
+    frames; training returns ``{"metrics": the last step's metrics,
+    "step_ms": {iteration: device ms}}`` (CUDA events after every step)."""
+    args = config_parser_dnerf().parse_args(argv)
+    if args.dataset_type != "blender":
+        raise ValueError(f"Unknown dataset type {args.dataset_type!r} (tnerf supports blender)")
+    device = resolve_device(args.device)
+    args.dataset_type = "blender_dnerf"
+    scene = load_scene(args)
+    args.dataset_type = "blender"
+    os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
+    snapshot_args(args.basedir, args.expname, args, args.config)
+    state, rcfg, eval_pass, mcfg = create_tnerf(args, device)
+    start = state.step
+
+    if args.render_only:
+        print("RENDER ONLY")
+        savedir = render_only(state.coarse, None, scene, rcfg, args, start, eval_pass=eval_pass)
+        print("Done rendering", savedir)
+        return savedir
+
+    logger = ExperimentLogger(args.basedir, args.expname)
+    sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac,
+                           precrop_iters_time=args.precrop_iters_time)
+    if supports_fused_tnerf_step(mcfg, rcfg) and os.environ.get("SWNERF_FUSED_STEP", "1") != "0":
+        train_step = make_fused_tnerf_step(mcfg, rcfg)
+        print("Using the kernel T-NeRF train step (B4 render-loss)")
+    else:
+        train_step = make_train_step(rcfg)
+        print("Using the eager autograd train step")
+    step_fn = make_time_image_step(train_step, rcfg, scene)
+    images_dev = torch.as_tensor(scene.images, device=device)
+    poses_dev = torch.as_tensor(scene.poses[:, :3, :4], device=device)
+    times_dev = torch.as_tensor(scene.times, device=device)
+    generator = torch.Generator(device=device).manual_seed(seed_value(1))
+
+    n_iters = int(os.environ.get("SWNERF_MAX_ITERS", args.N_iter + 1))
+    samples_per_step = args.N_rand * rcfg.n_samples
+    print("Begin")
+    print("TRAIN views are", scene.i_train)
+    print("TEST views are", scene.i_test)
+    # Auto-reseed restarts only before the first checkpoint, never on a resume.
+    watchdog = DeadInitWatchdog(args.i_print, restart_until=args.i_weights if start == 0 else 0)
+    timer = StepTimer(device, start)
+
+    metrics = {}
+    for i in range(start + 1, n_iters):
+        img_i, pixels = sampler.next(i)
+        metrics = step_fn(state, images_dev, poses_dev, times_dev, img_i, pixels, generator)
+        timer.record(i)
+
+        if i % args.i_weights == 0:
+            save_tnerf_ckpt(args, state, i)
+        if i % args.i_print == 0:
+            timer.collect()
+            m = {k: float(v) for k, v in metrics.items()}
+            logger.scalars(i, m)
+            tp = logger.throughput(i, samples_per_step)
+            rate = f" {tp['ray_samples_per_sec_per_chip'] / 1e6:.2f}M samp/s" if tp else ""
+            print(f"[TRAIN] Iter: {i} Loss: {m['loss']:.6f} PSNR: {m['psnr']:.3f}{rate}", flush=True)
+            watchdog.check(i, m["psnr"])
+        if i % args.i_video == 0 and i > 0:
+            # PNG frames of the render path at its times; the mp4 writer is a later slice.
+            viddir = os.path.join(args.basedir, args.expname, f"frames_{args.expname}_spiral_{i:06d}_time")
+            render_path(state.coarse, None, scene.render_poses, scene, rcfg, args.chunk, savedir=viddir,
+                        eval_pass=eval_pass, times=scene.render_times)
+        if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
+            testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
+            render_path(state.coarse, None, scene.poses[scene.i_test], scene, rcfg, args.chunk,
+                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test])
+            print("Saved test set")
+
+    timer.collect()
+    logger.close()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "step_ms": timer.step_ms}
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,10 @@ coarse stratified sampling -> field -> composite
 numbers come from a ``torch.Generator`` or, as :class:`Draws`, from the
 caller (the analog of the JAX package's ``sample_pdf(u=...)``).
 ``render_image`` renders a whole image in chunks of ``chunk`` rays, through
-a forward-only eval pass (``render/fused_eval.py``: kernels B3 and B2) when
-one is given, else through ``render_rays``.
+a forward-only eval pass (``render/fused_eval.py``: kernels B3 and B2, or
+B4 for a T-NeRF) when one is given, else through ``render_rays``. Rays of a
+time-conditioned field carry their frame times (``Rays.times``), which the
+render core hands to the field.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ class Rays(NamedTuple):
     viewdirs: Optional[torch.Tensor]  # [N, 3] unit directions, or None
     near: torch.Tensor  # [N]
     far: torch.Tensor  # [N]
+    times: Optional[torch.Tensor] = None  # [N, 1] frame time, or None
 
     def slice(self, start: int, stop: int) -> "Rays":
         return Rays(*(None if x is None else x[start:stop] for x in self))
@@ -107,7 +110,7 @@ def render_rays(
         rays.near, rays.far, cfg.n_samples, cfg.perturb, cfg.lindisp, generator=generator, t_rand=draws.t_rand
     )
     pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
-    raw = model(pts, viewdirs)
+    raw = model(pts, viewdirs, rays.times)
     out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise0)
 
     ret: Dict[str, torch.Tensor] = {}
@@ -120,7 +123,7 @@ def render_rays(
         )
         z_vals = merge_z_vals(z_vals, z_samples)
         pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
-        raw = (fine_model if fine_model is not None else model)(pts, viewdirs)
+        raw = (fine_model if fine_model is not None else model)(pts, viewdirs, rays.times)
         out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise1)
         ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 
@@ -140,10 +143,12 @@ def build_rays(
     H: int = 0,
     W: int = 0,
     focal: float = 0.0,
+    times: Optional[torch.Tensor] = None,
 ) -> Rays:
     """Pack raw origins/directions into a :class:`Rays` batch (reference
     render() packing, run.py:137-158): viewdirs normalized from the pre-NDC
-    directions, optional NDC projection, near/far broadcast."""
+    directions, optional NDC projection, near/far broadcast, and the
+    per-ray frame times [N, 1] of a time-conditioned field."""
     viewdirs = None
     if use_viewdirs:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
@@ -156,6 +161,7 @@ def build_rays(
         viewdirs=viewdirs,
         near=torch.full((n,), near, dtype=rays_o.dtype, device=rays_o.device),
         far=torch.full((n,), far, dtype=rays_o.dtype, device=rays_o.device),
+        times=times,
     )
 
 
@@ -169,9 +175,11 @@ def make_rays_from_camera(
     use_viewdirs: bool = True,
     ndc: bool = False,
     device: Optional[torch.device] = None,
+    time: Optional[float] = None,
 ) -> Rays:
     """Full-image ray grid, flattened to [H*W] rays (reference render(),
-    run.py:105-158), on ``device`` (default ``cuda``)."""
+    run.py:105-158), on ``device`` (default ``cuda``); with ``time`` every
+    ray carries that frame time."""
     rays_o, rays_d = get_rays(H, W, focal_or_K, c2w, device=resolve_device(device))
     viewdirs = None
     if use_viewdirs:
@@ -188,6 +196,7 @@ def make_rays_from_camera(
         viewdirs=viewdirs,
         near=torch.full((n,), near, dtype=rays_o.dtype, device=rays_o.device),
         far=torch.full((n,), far, dtype=rays_o.dtype, device=rays_o.device),
+        times=None if time is None else torch.full((n, 1), time, dtype=rays_o.dtype, device=rays_o.device),
     )
 
 
@@ -201,9 +210,15 @@ def render_image(
     eval_pass=None,
 ) -> Dict[str, torch.Tensor]:
     """Whole-image render in chunks of ``chunk`` rays, always in eval mode
-    (deterministic). Returns rgb [N, 3], disp, acc, depth [N]."""
+    (deterministic). Returns rgb [N, 3], disp, acc, depth [N]. An eval pass
+    is used only where it takes the rays' times or their absence
+    (``supports_times``), as in the JAX package."""
     cfg = cfg.eval_mode()
-    use_pass = eval_pass is not None and rays.viewdirs is not None
+    use_pass = (
+        eval_pass is not None
+        and rays.viewdirs is not None
+        and (rays.times is not None) == bool(getattr(eval_pass, "supports_times", False))
+    )
     if use_pass:
         packed = eval_pass.pack(model)
         packed_fine = eval_pass.pack(fine_model) if fine_model is not None else None

@@ -1,5 +1,6 @@
-"""Forward-only eval rendering through kernels B3 and B2 (port of
-``swnerf_tpu/render/fused_eval.py::make_vanilla_eval_pass``).
+"""Forward-only eval rendering through kernels B3 and B2, or B4 for a
+T-NeRF (port of ``swnerf_tpu/render/fused_eval.py::make_vanilla_eval_pass``
+and ``make_tnerf_eval_pass``).
 
 One render-pass kernel per pass computes encode + trunk + composite; B2
 resamples between the passes and ``torch.sort`` merges the depths. The
@@ -86,3 +87,45 @@ class VanillaEvalPass:
 
 def make_vanilla_eval_pass(mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> VanillaEvalPass:
     return VanillaEvalPass(mcfg, compute_dtype, plain)
+
+
+class TNeRFEvalPass:
+    """``pack(model)`` once per image, then ``(packed, packed_fine, rays,
+    ecfg) -> (rgb, disp, acc, depth)`` per chunk of rays: one forward-only
+    B4 pass per chunk, the rays' frame times riding with them. Single pass
+    (the T-NeRF runner forces ``n_importance`` to 0). ``compute_dtype`` and
+    ``plain`` as for :class:`VanillaEvalPass`."""
+
+    supports_times = True
+
+    def __init__(self, mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+        self.mcfg = mcfg
+        self.compute_dtype = compute_dtype
+        self._render = b3.render_pass_plain if plain else b3.render_pass
+
+    def pack(self, model) -> b3.PackedParams:
+        return b3.pack_tnerf_params(model.state_dict(), model.cfg, self.compute_dtype)
+
+    def __call__(
+        self,
+        packed: b3.PackedParams,
+        packed_fine: Optional[b3.PackedParams],
+        rays: Rays,
+        ecfg: RenderConfig,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        del packed_fine  # single model
+        if ecfg.n_importance:
+            raise ValueError("the T-NeRF eval pass is single-pass (n_importance=0)")
+        directions = rays.directions.contiguous()
+        vd_emb = positional_encoding(rays.viewdirs, self.mcfg.nf_views).contiguous()
+        z_vals = sample_along_rays(rays.near, rays.far, ecfg.n_samples, 0.0, ecfg.lindisp).contiguous()
+        res = self._render(
+            packed, rays.origins.contiguous(), directions, vd_emb, z_vals, _dists_scaled(z_vals, directions), None,
+            ecfg.white_bkgd, rays.times.reshape(-1).contiguous(),
+        )
+        disp = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
+        return res.rgb, disp, res.acc, res.depth
+
+
+def make_tnerf_eval_pass(mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> TNeRFEvalPass:
+    return TNeRFEvalPass(mcfg, compute_dtype, plain)

@@ -1,15 +1,16 @@
-"""Checkpoints, vanilla ``.tar`` schema (port of
+"""Checkpoints, vanilla and T-NeRF ``.tar`` schemas (port of
 ``swnerf_tpu/train/checkpoint.py``).
 
-The schema is the reference's ``{global_step, network_fn_state_dict,
-network_fine_state_dict, optimizer_state_dict}`` with weights in torch
-``[out, in]`` layout, so the port's modules load it as is. The JAX package
-keeps ``[in, out]`` pytrees; :func:`params_from_jax` is the weight bridge
-that gives both packages identical weights.
+The vanilla schema is the reference's ``{global_step,
+network_fn_state_dict, network_fine_state_dict, optimizer_state_dict}``;
+T-NeRF's has no fine dict (run_tnerf.py:719-728). Weights are in torch
+``[out, in]`` layout, so the port's modules load them as they are. The JAX
+package keeps ``[in, out]`` pytrees; :func:`params_from_jax` is the weight
+bridge that gives both packages identical weights.
 
 The optimizer state is torch Adam's own ``state_dict()``: ``VanillaNeRF``
-registers its layers in the reference's ``parameters()`` order (the JAX
-package's ``_trunk_layout``), so the JAX package's Adam bridge
+and ``TNeRF`` register their layers in the reference's ``parameters()``
+order (the JAX package's ``model_layout``), so the JAX package's Adam bridge
 (``adam_to_torch_dict``/``torch_dict_to_adam``) reads and writes the same
 entries. Only the native and orbax formats of the JAX package are not
 ported yet.
@@ -38,9 +39,9 @@ def _vanilla_layers(tree: Mapping[str, Any]) -> Iterator[Tuple[str, Mapping[str,
         yield "output_linear", tree["output_linear"]
 
 
-def _state_dict(tree: Mapping[str, Any], transpose: bool) -> Dict[str, torch.Tensor]:
+def _state_dict(layers: Iterator[Tuple[str, Mapping[str, Any]]], transpose: bool) -> Dict[str, torch.Tensor]:
     sd = {}
-    for name, lyr in _vanilla_layers(tree):
+    for name, lyr in layers:
         w = np.asarray(lyr["weight"] if "weight" in lyr else lyr["w"], dtype=np.float32)
         b = np.asarray(lyr["bias"] if "bias" in lyr else lyr["b"], dtype=np.float32)
         sd[f"{name}.weight"] = torch.tensor(w.T if transpose else w)
@@ -48,11 +49,28 @@ def _state_dict(tree: Mapping[str, Any], transpose: bool) -> Dict[str, torch.Ten
     return sd
 
 
+def _tnerf_layers(tree: Mapping[str, Any]) -> Iterator[Tuple[str, Mapping[str, Any]]]:
+    """(torch module name, layer) of a T-NeRF in the ``.tar``'s order: the
+    reference wraps each Linear in a Sequential (``<name>.0``)."""
+    for i, lyr in enumerate(tree["layers"]):
+        yield f"layers.{i}.0", lyr
+    for name in ("density", "feature", "layer_9", "color"):
+        yield f"{name}.0", tree[name]
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX vanilla param pytree (numpy leaves, ``{"pts_linears": [{"w":
-    [in, out], "b"}], "feature_linear": ...}``) -> the port's state dict in
-    ``[out, in]`` layout."""
-    return _state_dict(tree, transpose=True)
+    """A JAX param pytree (numpy leaves) -> the port's state dict in
+    ``[out, in]`` layout: vanilla ``{"pts_linears": [{"w": [in, out],
+    "b"}], "feature_linear": ...}`` or T-NeRF ``{"layers": [...],
+    "density", "feature", "layer_9", "color"}``."""
+    layers = _tnerf_layers(tree) if "layers" in tree else _vanilla_layers(tree)
+    return _state_dict(layers, transpose=True)
+
+
+def tnerf_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``.tar``'s T-NeRF state dict -> the port's: the same keys
+    (``layers.{i}.0.*``, ``density.0.*``, ...), as float32 tensors."""
+    return {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()}
 
 
 def vanilla_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -71,7 +89,7 @@ def vanilla_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             tree.setdefault(mod, {})[field] = sd[key]
     if not tree["views_linears"]:
         del tree["views_linears"]
-    return _state_dict(tree, transpose=False)
+    return _state_dict(_vanilla_layers(tree), transpose=False)
 
 
 def save_tar(path: str, payload: Mapping[str, Any]) -> None:

@@ -8,8 +8,11 @@ whose learning rate before the n-th update (n updates already done) is
 ``scale_by_learning_rate`` reads in the JAX package.
 
 ``make_train_step`` is the autograd step through ``render_rays``: the
-reference the kernel step (``train/fused_step.py``) is held to, and the path
-for configurations that kernel does not cover. A step updates the
+reference the kernel steps (``train/fused_step.py``) are held to, and the
+path for configurations they do not cover. With a T-NeRF field (no fine
+model) and rays that carry their frame times it is also the eager T-NeRF
+step, the port of ``swnerf_tpu/pipelines/run_dnerf.py::make_dnerf_step``
+without its TV branch: render with times, MSE, autograd, Adam. A step updates the
 :class:`TrainState` in place and leaves each parameter's gradient in
 ``.grad`` until the next step.
 """

@@ -1,5 +1,5 @@
-"""Config-file-layered CLI (port of ``swnerf_tpu/utils/config.py``, the
-vanilla parser), plus ``--device``.
+"""Config-file-layered CLI (port of ``swnerf_tpu/utils/config.py``: the
+vanilla parser and the dynamic-family parser), plus ``--device``.
 
 ``--config <txt>`` files of ``key = value`` lines become defaults and CLI
 flags override them; ``#``/``;`` comments, bare-flag booleans and repeated
@@ -76,9 +76,9 @@ class ConfigArgumentParser(argparse.ArgumentParser):
         return super().parse_args(argv, namespace)
 
 
-def config_parser() -> ConfigArgumentParser:
-    """The vanilla-NeRF parser (reference utils.py:16-99) and ``--device``."""
-    p = ConfigArgumentParser()
+def _add_base_flags(p: ConfigArgumentParser) -> None:
+    """Flags common to both reference parsers (utils.py:16-99,101-237) and
+    ``--device``."""
     p.add_argument("--config", is_config_file=True, help="config file path")
     p.add_argument("--expname", type=str, help="experiment name")
     p.add_argument("--basedir", type=str, default="./logs/", help="where to store ckpts and logs")
@@ -126,6 +126,14 @@ def config_parser() -> ConfigArgumentParser:
     p.add_argument("--lindisp", action="store_true", help="sample linearly in disparity rather than depth")
     p.add_argument("--spherify", action="store_true", help="set for spherical 360 scenes")
     p.add_argument("--llffhold", type=int, default=8, help="take every 1/N images as LLFF test set")
+
+
+def config_parser() -> ConfigArgumentParser:
+    """The vanilla-NeRF parser (reference utils.py:16-99): base flags,
+    testskip default 8, the vanilla logging cadence and the mesh /
+    metric-scale flags."""
+    p = ConfigArgumentParser()
+    _add_base_flags(p)
     p.add_argument("--testskip", type=int, default=8, help="load 1/N images from test/val sets")
 
     # logging cadence
@@ -139,4 +147,30 @@ def config_parser() -> ConfigArgumentParser:
     p.add_argument("--resolution", type=int, default=128, help="resolution of the mesh")
     p.add_argument("--threshold", type=int, default=8, help="density threshold of the mesh")
     p.add_argument("--real_length", type=float, default=0.005, help="real length of the aruco marker")
+    return p
+
+
+def config_parser_dnerf() -> ConfigArgumentParser:
+    """The dynamic-family parser (reference utils.py:101-237): base flags,
+    nerf_type / N_iter, half precision, the canonical-time and two-model
+    switches, the time curriculum, the TV loss, and the dnerf logging
+    cadence. The multiresolution-pyramid flags come with that trainer."""
+    p = ConfigArgumentParser()
+    _add_base_flags(p)
+    p.add_argument("--testskip", type=int, default=2, help="load 1/N images from test/val sets")
+
+    p.add_argument("--nerf_type", type=str, default="original", help="nerf network type")
+    p.add_argument("--N_iter", type=int, default=500000, help="num training iterations")
+    p.add_argument("--do_half_precision", action="store_true", help="half precision training and inference")
+    p.add_argument("--not_zero_canonical", action="store_true", help="if set zero time is not the canonic space")
+    p.add_argument("--use_two_models_for_fine", action="store_true", help="use two models for fine results")
+    p.add_argument("--precrop_iters_time", type=int, default=0, help="number of steps to train on central time")
+    p.add_argument("--add_tv_loss", action="store_true", help="evaluate tv loss")
+    p.add_argument("--tv_loss_weight", type=float, default=1.0e-4, help="weight of tv loss")
+
+    p.add_argument("--i_print", type=int, default=1000, help="console printout frequency")
+    p.add_argument("--i_img", type=int, default=5000, help="tensorboard image log frequency")
+    p.add_argument("--i_weights", type=int, default=5000, help="ckpt save frequency")
+    p.add_argument("--i_testset", type=int, default=40000, help="testset save frequency")
+    p.add_argument("--i_video", type=int, default=40000, help="render-poses video save frequency")
     return p

@@ -1,4 +1,4 @@
-"""The CUDA kernels B1, B2 and B3 against their plain twins, on the card.
+"""The CUDA kernels B1, B2, B3 and B4 against their plain twins, on the card.
 
 Marked ``cuda``; without a card every test skips. Run on a machine with an
 H100 (the repo's conftest imports JAX, which that machine need not have):
@@ -14,6 +14,9 @@ further from the float64 twin than twice the fp32 twin is;
 B1 bf16: rgb max 1e-2, mean 1e-3, each gradient tensor rel L2 1e-2; two
 launches give bit-equal gradients. The kernel step against the eager step:
 loss rel 1e-5 and the same gradient bar against the float64 eager step.
+B4 (T-NeRF, both modes) is held to the bars of B3 (forward) and B1 (train
+mode); its colour ReLU can tie at a logit of 0 as B1's trunk ReLUs do, so
+its fp32 gradients take the same float64 fallback.
 """
 
 import dataclasses
@@ -21,7 +24,7 @@ import dataclasses
 import pytest
 import torch
 
-from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+from swnerf_torch.models import TNeRF, TNeRFConfig, VanillaNeRF, VanillaNeRFConfig
 from swnerf_torch.ops.embedding import positional_encoding
 from swnerf_torch.ops.kernels import build, launches
 from swnerf_torch.ops.kernels import render_loss as b1
@@ -244,5 +247,139 @@ def test_kernel_step_matches_eager_step(dev):
     make_train_step(rcfg)(s64, Rays(*(cpu64(x) for x in rays)), cpu64(target), draws=Draws(*(cpu64(x) for x in draws)))
     torch.cuda.synchronize()
     assert launches["render_loss[S=96]"] == before + 1
+    assert mk["total_loss"].item() == pytest.approx(me["total_loss"].item(), rel=1e-5)
+    _assert_fp32_grads(grads(sk), grads(se), grads(s64))
+
+
+# ---------------------------------------------------------------- B4 (T-NeRF)
+
+TNERF_SMALL = dict(netdepth=4, net_dim=128, skip_layer=2, multires=4, multires_views=2)
+TNERF_CASES = [TNERF_SMALL, dict(), dict(TNERF_SMALL, net_dim=256)]
+TNERF_IDS = ["small", "full", "w256"]
+
+
+def _b4_case(dev, kw, n, s, dtype, seed=0):
+    cfg = TNeRFConfig(**kw)
+    model = TNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    packed = b3.pack_tnerf_params(model.state_dict(), cfg, dtype)
+    o, d, vd, z, dist = _rays(dev, n, s, seed)
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    noise = torch.randn(z.shape, generator=g, device=dev)
+    target = torch.rand((n, 3), generator=g, device=dev)
+    times = torch.rand((n,), generator=g, device=dev)
+    return packed, (o, d, ve, z, dist, noise, target), times
+
+
+@pytest.mark.parametrize("kw", TNERF_CASES, ids=TNERF_IDS)
+@pytest.mark.parametrize("n_samples", [8, 64, 100])
+@pytest.mark.parametrize("white", [True, False])
+def test_b4_forward_fp32_matches_plain(dev, kw, n_samples, white):
+    packed, (o, d, ve, z, dist, noise, _), times = _b4_case(dev, kw, 300, n_samples, torch.float32)
+    got = b3.render_pass(packed, o, d, ve, z, dist, noise, white, times)
+    ref = b3.render_pass_plain(packed, o, d, ve, z, dist, noise, white, times)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got.weights, ref.weights, atol=1e-4, rtol=0)
+
+
+def test_b4_forward_bf16_matches_plain(dev):
+    packed, (o, d, ve, z, dist, _, _), times = _b4_case(dev, {}, 4096, 64, torch.bfloat16)
+    before = launches["render_pass[tnerf,S=64]"]
+    got = b3.render_pass(packed, o, d, ve, z, dist, None, True, times)
+    ref = b3.render_pass_plain(packed, o, d, ve, z, dist, None, True, times)
+    torch.cuda.synchronize()
+    assert launches["render_pass[tnerf,S=64]"] == before + 1
+    diff = (got.rgb - ref.rgb).abs()
+    assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("kw", TNERF_CASES, ids=TNERF_IDS)
+@pytest.mark.parametrize("n_samples", [8, 64])
+@pytest.mark.parametrize("white", [True, False])
+def test_b4_train_fp32_matches_plain(dev, kw, n_samples, white):
+    packed, args, times = _b4_case(dev, kw, 500, n_samples, torch.float32)
+    scale = 1.0 / 1500
+    got, gg = b1.render_loss(packed, *args, white, scale, times)
+    ref, gr = b1.render_loss_plain(packed, *args, white, scale, times)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got.sqerr, ref.sqerr, atol=1e-7, rtol=1e-4)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    _, g64 = b1.render_loss_plain(p64, *(x.double() for x in args), white, scale, times.double())
+    _assert_fp32_grads(b1.unpack_tnerf_grads(gg, packed), b1.unpack_tnerf_grads(gr, packed),
+                       b1.unpack_tnerf_grads(g64, p64))
+
+
+def test_b4_train_bf16_matches_plain(dev):
+    packed, args, times = _b4_case(dev, {}, 500, 64, torch.bfloat16)
+    before = launches["render_loss[tnerf,S=64]"]
+    got, gg = b1.render_loss(packed, *args, True, 1.0 / 1500, times)
+    ref, gr = b1.render_loss_plain(packed, *args, True, 1.0 / 1500, times)
+    torch.cuda.synchronize()
+    assert launches["render_loss[tnerf,S=64]"] == before + 1
+    diff = (got.rgb - ref.rgb).abs()
+    assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
+    rel = _rel_l2(b1.unpack_tnerf_grads(gg, packed), b1.unpack_tnerf_grads(gr, packed))
+    assert max(rel.values()) <= 1e-2, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_gradients_are_deterministic(dev, dtype):
+    packed, args, times = _b4_case(dev, {}, 500, 64, dtype)
+    _, (w1, b1_) = b1.render_loss(packed, *args, True, 1.0 / 1500, times)
+    _, (w2, b2_) = b1.render_loss(packed, *args, True, 1.0 / 1500, times)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2) and torch.equal(b1_, b2_)
+
+
+def test_b4_rejects_bad_times(dev):
+    packed, (o, d, ve, z, dist, noise, target), times = _b4_case(dev, TNERF_SMALL, 16, 8, torch.float32)
+    with pytest.raises(ValueError):
+        b3.render_pass(packed, o, d, ve, z, dist, noise, True)
+    with pytest.raises(ValueError):
+        b1.render_loss(packed, o, d, ve, z, dist, noise, target, True, 1.0, times[:8].contiguous())
+    vpacked, _ = _b1_case(dev, dict(netdepth=3, netwidth=128, skips=(1,), multires=4, multires_views=2), 16, 8,
+                          torch.float32)
+    with pytest.raises(ValueError):
+        b3.render_pass(vpacked, o, d, ve, z, dist, noise, True, times)
+
+
+def test_tnerf_kernel_step_matches_eager_step(dev):
+    """One kernel T-NeRF train step (B4, fp32 operands) against the eager
+    autograd step from the same state and draws; the eager step in float64
+    on the CPU is the gradient reference."""
+    from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+    from swnerf_torch.train.fused_step import make_fused_tnerf_step
+    from swnerf_torch.train.loop import init_train_state, make_train_step
+
+    cfg = TNeRFConfig()
+    rcfg = RenderConfig(n_samples=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+    o, d, vd, _, _ = _rays(dev, 500, 8)
+    g = torch.Generator(device=dev).manual_seed(2)
+    times = torch.rand((500, 1), generator=g, device=dev)
+    rays = Rays(o, d, vd, torch.full((500,), 2.0, device=dev), torch.full((500,), 6.0, device=dev), times)
+    target = torch.rand((500, 3), generator=g, device=dev)
+    draws = make_draws(rcfg, 500, torch.Generator(device=dev).manual_seed(3), dev)
+
+    def state(device, dtype=torch.float32):
+        net = TNeRF(cfg, device=device, generator=torch.Generator().manual_seed(0)).to(dtype)
+        return init_train_state(net, None, 5e-4, 500)
+
+    def grads(st):
+        return {k: p.grad for k, p in st.coarse.named_parameters()}
+
+    sk, se, s64 = state(dev), state(dev), state("cpu", torch.float64)
+    before = launches["render_loss[tnerf,S=64]"]
+    mk = make_fused_tnerf_step(cfg, rcfg, compute_dtype=torch.float32)(sk, rays, target, draws=draws)
+    me = make_train_step(rcfg)(se, rays, target, draws=draws)
+    cpu64 = lambda x: None if x is None else x.cpu().double()  # noqa: E731
+    make_train_step(rcfg)(s64, Rays(*(cpu64(x) for x in rays)), cpu64(target), draws=Draws(*(cpu64(x) for x in draws)))
+    torch.cuda.synchronize()
+    assert launches["render_loss[tnerf,S=64]"] == before + 1
     assert mk["total_loss"].item() == pytest.approx(me["total_loss"].item(), rel=1e-5)
     _assert_fp32_grads(grads(sk), grads(se), grads(s64))

@@ -128,7 +128,7 @@ def test_full_width_checkpoint_crop_matches_jax():
     model.load_state_dict(vanilla_state_dict(ckpt["network_fn_state_dict"]))
     fine.load_state_dict(vanilla_state_dict(ckpt["network_fine_state_dict"]))
     tr = make_rays_from_camera(H, W, K, c2w[:3, :4], 2.0, 6.0, device="cpu")
-    tr = Rays(*(x[torch.from_numpy(sel)] for x in tr))
+    tr = Rays(*(None if x is None else x[torch.from_numpy(sel)] for x in tr))
     got = render_image(model, tr, RenderConfig(**rc), chunk=256, fine_model=fine,
                        eval_pass=make_vanilla_eval_pass(tcfg, compute_dtype=torch.float32))
     assert float(got["acc"].mean()) > 0.5  # the crop sees the object
