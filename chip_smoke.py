@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of swnerf_torch on one NVIDIA card: build the CUDA kernels,
 hold each against its plain PyTorch twin, render test views of the trained
-vanilla NeRF and T-NeRF and resume their training through the real CLIs,
-and time the kernels.
+vanilla NeRF, T-NeRF and D-NeRF and resume their training through the real
+CLIs, and time the kernels.
 
     python3 chip_smoke.py
 
@@ -58,7 +58,35 @@ Phases (each raises on failure; nothing is caught):
      step, rays/s, samples/s and a per-stage breakdown of a step;
  16. test frame 0 from 801000.tar through the serving path: >= 20 dB (the
      reference evaluator's scale) and within 0.5 dB of phase 14's frame 0;
-     then the JSON lines.
+ 17. B6 (the D-NeRF deformation MLP, forward and backward) against its twin
+     with the round-5 D-NeRF 800000.tar weights on the coarse (S=64) and
+     fine (S=192) points of 500 seeded pixels of a train view of phase 11's
+     scene: fp32 dx atol 1e-5, gradients rel L2 1e-4 (the float64 fallback
+     of phase 7, which also admits the distance a perturbation of fp32 size
+     moves the float64 twin: the ReLUs tie, check_fp32_grads); bf16 dx
+     max 1e-2, gradients rel L2 1e-2; bit-equal repeats;
+ 18. B3's pts mode and B5 against their twins on pts + dx of those rays,
+     noise std 1: outputs as in phase 7, gradients and dpts as in phase 17,
+     bf16 1e-2, bit-equal repeats; then B6 and B3's pts mode against their
+     twins at the serving path's chunk shape (32,768 rays), and the times;
+ 19. the kernel D-NeRF step against the eager step from the same state and
+     draws (TV on): fp32 loss rel 1e-5 (or phase 17's fallback), gradients as
+     in phase 17 (the float64 eager step on the CPU as the reference); bf16
+     loss rel 1e-2;
+ 20. the D-NeRF serving main path: ``run_dnerf --render_only --render_test
+     --testskip 5`` from a copy of 800000.tar (test frames 0/5/10/15/20,
+     400x400, 64 + 128 samples, bf16): ms per frame, rays/s, samples/s, the
+     B6/B3/B2 launch counts; each frame, rendered again at the reference
+     evaluator's 32 + 32 samples, within 0.5 dB of the reference's
+     per-frame PSNR on its scale, and at 64 + 128 no more than 0.5 dB
+     below it; frame 5 by the fp32 twins within 0.1 dB; a per-stage
+     breakdown of a frame;
+ 21. the D-NeRF training main path: ``run_dnerf`` resumed from that copy for
+     200 bf16 steps with the config's flags (train PSNR >= 34 dB at every
+     print, 800100.tar and 800200.tar with Adam step 800200, the B5 and B6
+     launch counts), ms per step, rays/s, samples/s, a per-stage breakdown;
+ 22. test frame 5 from 800200.tar through the serving path, within 0.5 dB
+     of phase 20's; then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -86,6 +114,11 @@ TNERF_DIR = ROOT / "benchmarks" / "round5_artifacts" / "full_tnerf_800k"
 TNERF_CONFIG = TNERF_DIR / "config.txt"
 TNERF_CKPT = TNERF_DIR / "800000.tar"
 TNERF_SIZE = 400  # the frame size of the scene 800000.tar was trained on
+DNERF_DIR = ROOT / "benchmarks" / "round5_artifacts" / "full_dnerf_800k"
+DNERF_CONFIG = DNERF_DIR / "config.txt"
+DNERF_CKPT = DNERF_DIR / "800000.tar"  # trained on the same scene as the T-NeRF one
+DNERF_RESULT = ROOT / "benchmarks" / "round5_artifacts" / "result_full_dnerf_800k.json"
+DNERF_FRAMES = (0, 5, 10, 15, 20)  # the test frames --testskip 5 keeps
 
 # H100 SXM data sheet, dense: HBM bandwidth and peak rates by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -403,6 +436,10 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tnerf_"))
     try:
         kernels += tnerf_phases(dev, tmp)
+        # ---- 17-22. D-NeRF on the same scene: B6, B3's pts mode and B5
+        # against their twins, the kernel step, serving, training, and the
+        # trained checkpoint serves
+        kernels += dnerf_phases(dev, tmp, tmp / "data_dyn_400")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -501,21 +538,27 @@ def rel_l2(got, ref):
                 / ref[k].double().cpu().norm().clamp_min(1e-300)).item() for k in ref}
 
 
-def check_fp32_grads(tag, kern, ref32, ref64):
+def check_fp32_grads(tag, kern, ref32, ref64, ref64p=None):
     """The fp32 gradient bar: each tensor within rel L2 1e-4 of the fp32
     reference, or, where the two fp32 computations disagree on a ReLU mask,
     no further from the float64 reference than twice the fp32 reference is.
     At D=8 a few of the ~1e8 trunk pre-activations can sit within fp32
     rounding of 0; two summation orders then disagree on those masks and the
-    lower trunk's gradients move by far more than 1e-4 (ROADMAP.md Queue C)."""
+    lower trunk's gradients move by far more than 1e-4 (ROADMAP.md Queue C).
+    With ``ref64p`` (the float64 reference on weights perturbed at fp32's
+    size, see jitter) the fallback also admits twice the distance that
+    perturbation moves the float64 reference: the D-NeRF deformation MLP's
+    ReLUs tie often enough that two fp32 orders land ~1e-3 apart."""
     r32, rk, rr = rel_l2(kern, ref32), rel_l2(kern, ref64), rel_l2(ref32, ref64)
+    rp = rel_l2(ref64p, ref64) if ref64p is not None else dict.fromkeys(rr, 0.0)
     print(f"[{tag}] rel L2 vs fp32 reference: max {max(r32.values()):.3e} ({max(r32, key=r32.get)}), "
           f"heads max {max(v for k, v in r32.items() if 'pts_linears' not in k):.3e}")
     print(f"[{tag}] rel L2 vs float64 reference: kernel max {max(rk.values()):.3e}, "
-          f"fp32 reference max {max(rr.values()):.3e}")
-    bad = {k: (r32[k], rk[k], rr[k]) for k in rk if r32[k] > 1e-4 and rk[k] > 2.0 * rr[k]}
+          f"fp32 reference max {max(rr.values()):.3e}"
+          + (f", float64 under an fp32-sized perturbation max {max(rp.values()):.3e}" if ref64p is not None else ""))
+    bad = {k: (r32[k], rk[k], rr[k], rp[k]) for k in rk if r32[k] > 1e-4 and rk[k] > 2.0 * max(rr[k], rp[k])}
     if bad:
-        fail(f"{tag}: gradients off the fp32 reference and further from the float64 one than it is: {bad}")
+        fail(f"{tag}: gradients off the fp32 reference and further from the float64 one than fp32 moves it: {bad}")
 
 
 def phase7_b1(dev, cfg, coarse, fine):
@@ -1319,6 +1362,690 @@ def phase16_serve(tmp, data, psnr_before):
           f"{psnr_before:.3f} dB (delta {psnr - psnr_before:+.3f} dB)")
     if savedir.name != "renderonly_test_801000" or not psnr >= 20.0 or abs(psnr - psnr_before) > 0.5:
         fail(f"frame 0 from 801000.tar: {psnr} dB (< 20 dB or more than 0.5 dB from {psnr_before})")
+
+
+# ---------------------------------------------------------------- D-NeRF phases
+
+
+def dnerf_phases(dev, tmp, data):
+    """Phases 17-22 on phase 11's scene. Returns the [kernel] rows of B6
+    (forward, backward), B3's pts mode and B5."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.pipelines.run_dnerf import _model_config
+    from swnerf_torch.train.checkpoint import dnerf_state_dict, load_tar
+    from swnerf_torch.utils.config import config_parser_dnerf
+
+    args = config_parser_dnerf().parse_args(["--config", str(DNERF_CONFIG)])
+    cfg = _model_config(args, args.netdepth, args.netwidth)  # D=8, W=256, skip 4, multires 10/4
+    model = DirectTemporalNeRF(cfg, device=dev)
+    model.load_state_dict(dnerf_state_dict(load_tar(str(DNERF_CKPT))["network_fn_state_dict"]))
+    model.eval()
+    inputs = dnerf_train_inputs(dev, cfg, model.state_dict(), data)
+    rows = phase17_b6(dev, cfg, model.state_dict(), inputs)
+    rows.update(phase18_pts(dev, cfg, model.state_dict(), inputs, data))
+    phase19_step(dev, cfg, model, data)
+    del model, inputs
+    torch.cuda.empty_cache()
+    exp = tmp / "logs" / "full_dnerf_800k"  # the config's expname: the copy is the newest .tar there
+    exp.mkdir(parents=True)
+    shutil.copy(DNERF_CKPT, exp / "800000.tar")
+    serve_counts, psnr5 = phase20_serve(dev, cfg, tmp, data)
+    train_counts = phase21_train(dev, cfg, tmp, data)
+    phase22_serve(tmp, data, psnr5)
+    for k, row in rows.items():
+        row["launches"] = serve_counts.get(k, 0) + train_counts.get(k, 0)
+        print(f"[18 kernel] {row['name']}: {row['ms']:.3f} ms/launch (plain {row['plain_ms']:.3f} ms), bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} -> {100 * row['bound_ms'] / row['ms']:.2f}% of the "
+              f"bound, {serve_counts.get(k, 0)} launches serving 5 frames, {train_counts.get(k, 0)} in 200 steps")
+    return list(rows.values())
+
+
+def dnerf_args(tmp, data, *extra):
+    return ["--config", str(DNERF_CONFIG), "--basedir", str(tmp / "logs"), "--datadir", str(data),
+            "--device", "cuda", *extra]
+
+
+def jitter(w, seed=0):
+    """w * (1 + 2^-20 N(0, 1)): a perturbation of the size of the rounding
+    that an fp32 dot product of length 256 accumulates (2^-24 sqrt(256))."""
+    import torch
+
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    return w * (1 + 2.0**-20 * torch.randn(w.shape, generator=g, device=w.device, dtype=w.dtype))
+
+
+def dnerf_train_inputs(dev, cfg, sd, data):
+    """500 seeded pixels of train view 37 at its frame time: the coarse
+    points (S=64, jittered), the fine points (S=192, from a B2 pass on the
+    fp32 twins' coarse weights), their dx by the fp32 B6 twin, noise std 1,
+    the view embedding and the target colours."""
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
+    from swnerf_torch.render.fused_eval import canonical_params
+
+    n = 500
+    rays, img = frame_rays(dev, data, "train", 37)
+    g = torch.Generator(device=dev).manual_seed(0)
+    sel = torch.randint(0, img.shape[0], (n,), generator=g, device=dev)
+    r = type(rays)(*(x[sel] for x in rays))
+    o, d = r.origins, r.directions
+    t = r.times.reshape(-1).contiguous()
+    ve = positional_encoding(r.viewdirs, cfg.nf_views).contiguous()
+    tn32 = b6.pack_time_params(sd, cfg, torch.float32)
+    canon32 = b3.pack_params(canonical_params(sd), cfg, torch.float32)
+    z64 = sample_along_rays(r.near, r.far, 64, 1.0, generator=g).contiguous()
+    noise64 = torch.randn(z64.shape, generator=g, device=dev)
+    pts_c = (o[:, None, :] + d[:, None, :] * z64[..., None]).contiguous()
+    dx_c = b6.time_net_plain(tn32, pts_c, t)
+    w64 = b3.render_pass_plain(canon32, None, None, ve, z64, b3_dists(z64, d), noise64, True, None,
+                               (pts_c + dx_c).contiguous()).weights
+    u = torch.rand((n, 128), generator=g, device=dev)
+    zf = merge_z_vals(z64, b2.sample_pdf((0.5 * (z64[:, 1:] + z64[:, :-1])).contiguous(), w64[:, 1:-1], u))
+    zf = zf.contiguous()
+    noise192 = torch.randn(zf.shape, generator=g, device=dev)
+    pts_f = (o[:, None, :] + d[:, None, :] * zf[..., None]).contiguous()
+    return {
+        "times": t, "ve": ve, "d": d, "target": img[sel].contiguous(),
+        64: (pts_c, dx_c, z64, noise64), 192: (pts_f, b6.time_net_plain(tn32, pts_f, t), zf, noise192),
+    }
+
+
+def phase17_b6(dev, cfg, sd, inputs):
+    """B6 against its twin on the coarse and fine points; its times (forward
+    at the serving chunk's fine shape, backward at the TV pair's 2 x 500 x
+    192 rows). Returns its two [kernel] rows."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.ops.kernels import time_net as b6
+
+    t = inputs["times"]
+    g = torch.Generator(device=dev).manual_seed(4)
+    err16 = 0.0
+    for S in (64, 192):
+        pts = inputs[S][0]
+        cot = torch.randn(pts.shape, generator=g, device=dev)
+        p32 = b6.pack_time_params(sd, cfg, torch.float32)
+        dx, gk = b6.time_net_fwd_bwd(p32, pts, t, cot)
+        _, gk2 = b6.time_net_fwd_bwd(p32, pts, t, cot)
+        ref = b6.time_net_plain(p32, pts, t)
+        gr = b6.time_net_plain_bwd(p32, pts, t, cot)
+        p64 = dataclasses.replace(p32, weights=p32.weights.double())
+        g64 = b6.time_net_plain_bwd(p64, pts.double(), t.double(), cot.double())
+        g64p = b6.time_net_plain_bwd(dataclasses.replace(p64, weights=jitter(p64.weights)), pts.double(),
+                                     t.double(), cot.double())
+        torch.cuda.synchronize()
+        ddx = (dx - ref).abs().max().item()
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])
+        print(f"[17 B6 fp32 S={S}] rows {pts.shape[0] * S}: max|ddx|={ddx:.3e} (max|dx| "
+              f"{ref.abs().max().item():.3e}) repeat bit-equal={same}")
+        if ddx > 1e-5 or not same:
+            fail(f"B6 fp32 S={S}: max |ddx| {ddx} > 1e-5 or repeats differ")
+        check_fp32_grads(f"17 B6 fp32 S={S}", *(b6.unpack_time_grads(x, p32) for x in (gk, gr, g64, g64p)))
+        p16 = b6.pack_time_params(sd, cfg, torch.bfloat16)
+        dx, gk = b6.time_net_fwd_bwd(p16, pts, t, cot)
+        _, gk2 = b6.time_net_fwd_bwd(p16, pts, t, cot)
+        ref, gr = b6.time_net_plain(p16, pts, t), b6.time_net_plain_bwd(p16, pts, t, cot)
+        torch.cuda.synchronize()
+        ddx = (dx - ref).abs().max().item()
+        rel = rel_l2(b6.unpack_time_grads(gk, p16), b6.unpack_time_grads(gr, p16))
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])
+        print(f"[17 B6 bf16 S={S}] max|ddx|={ddx:.3e} grads max rel L2={max(rel.values()):.3e} "
+              f"({max(rel, key=rel.get)}) repeat bit-equal={same}")
+        if ddx > 1e-2 or max(rel.values()) > 1e-2 or not same:
+            fail(f"B6 bf16 S={S}: max |ddx| > 1e-2, gradient rel L2 > 1e-2 or repeats differ")
+        err16 = max(err16, ddx)
+        del gk, gk2, gr, g64, g64p
+    torch.cuda.empty_cache()
+
+    # the backward at the TV pair's shape: the fine points at t and at a neighbour time
+    p16 = b6.pack_time_params(sd, cfg, torch.bfloat16)
+    pts = inputs[192][0]
+    pair = torch.cat([pts, pts]).contiguous()
+    t2 = torch.cat([t, torch.full_like(t, 0.41)]).contiguous()
+    m = pair.shape[0] * pair.shape[1]
+    cot = torch.randn((m, 3), generator=g, device=dev)
+    scratch = b6._scratch(p16, m, dev)
+    b6._launch_fwd(p16, pair, t2, scratch)
+    bwd_ms = cuda_ms(lambda: b6._launch_bwd(p16, m, cot, scratch), 10)
+    bwd_plain = cuda_ms(lambda: b6.time_net_plain_bwd(p16, pair, t2, cot), 2)
+    del scratch
+    bwd_row = entry(
+        "time_net[bwd]", "swnerf_torch/csrc/time_net.cu", "swnerf_tpu/ops/pallas/raymarch.py:480", 0, err16,
+        bwd_ms, bwd_plain, 4 * (3 * m + 3 * m + pair.shape[0]) + 2 * p16.weights.numel() + 4 * p16.weights.numel(),
+        2 * p16.bwd_macs_per_row * m, "bf16",
+    )
+    torch.cuda.empty_cache()
+    return {"time_net[bwd]": bwd_row}
+
+
+def phase18_pts(dev, cfg, sd, inputs, data):
+    """B3's pts mode and B5 against their twins on pts + dx of the phase 17
+    rays; then B6 and B3's pts mode at the serving chunk's shapes. Returns
+    the [kernel] rows of B6's forward, B3's pts mode (S=64, 192) and B5."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
+    from swnerf_torch.render.fused_eval import canonical_params
+
+    n, scale = 500, 1.0 / 1500
+    ve, d, target = inputs["ve"], inputs["d"], inputs["target"]
+    canon = canonical_params(sd)
+    fwd_err, rows = {}, {}
+    for S in (64, 192):
+        pts, dx, z, noise = inputs[S]
+        warped = (pts + dx).contiguous()
+        dist = b3_dists(z, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            packed = b3.pack_params(canon, cfg, dtype)
+            got = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, warped)
+            ref = b3.render_pass_plain(packed, None, None, ve, z, dist, noise, True, None, warped)
+            torch.cuda.synchronize()
+            drgb = (got.rgb - ref.rgb).abs()
+            dacc = (got.acc - ref.acc).abs().max().item()
+            depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            print(f"[18 B3 pts {tag} S={S}] max|drgb|={drgb.max().item():.3e} mean|drgb|={drgb.mean().item():.3e} "
+                  f"max|dacc|={dacc:.3e} depth_within_rtol={depth_ok}")
+            if dtype == torch.float32:
+                if drgb.max().item() > 1e-4 or dacc > 1e-4 or not depth_ok:
+                    fail(f"B3 pts fp32 S={S} outside atol 1e-4 (rgb, acc) / rtol 1e-4 (depth)")
+            else:
+                fwd_err[S] = drgb.max().item()
+                if drgb.max().item() > 1e-2 or drgb.mean().item() > 1e-3:
+                    fail(f"B3 pts bf16 S={S}: max |drgb| > 1e-2 or mean > 1e-3")
+
+        args = (ve, z, dist, noise, target)
+        p32 = b3.pack_params(canon, cfg, torch.float32)
+        got, gk, dk = b1.render_loss_pts(p32, warped, *args, True, scale)
+        ref, gr, dr = b1.render_loss_pts_plain(p32, warped, *args, True, scale)
+        p64 = dataclasses.replace(p32, weights=p32.weights.double())
+        a64 = tuple(x.double() for x in args)
+        _, g64, d64 = b1.render_loss_pts_plain(p64, warped.double(), *a64, True, scale)
+        _, g64p, d64p = b1.render_loss_pts_plain(dataclasses.replace(p64, weights=jitter(p64.weights)),
+                                                 warped.double(), *a64, True, scale)
+        _, gk2, dk2 = b1.render_loss_pts(p32, warped, *args, True, scale)
+        torch.cuda.synchronize()
+        drgb = (got.rgb - ref.rgb).abs().max().item()
+        sq_ok = torch.allclose(got.sqerr, ref.sqerr, rtol=1e-4, atol=1e-7)
+        depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1]) and torch.equal(dk, dk2)
+        print(f"[18 B5 fp32 S={S}] max|drgb|={drgb:.3e} max|dsqerr|={(got.sqerr - ref.sqerr).abs().max().item():.3e} "
+              f"sqerr_within_rtol={sq_ok} depth_within_rtol={depth_ok} max|ddpts|={(dk - dr).abs().max().item():.3e} "
+              f"(max|dpts| {dr.abs().max().item():.3e}) repeat bit-equal={same}")
+        if drgb > 1e-4 or not sq_ok or not depth_ok or not same:
+            fail(f"B5 fp32 S={S}: outputs outside rgb 1e-4, sqerr/depth rtol 1e-4, or repeats differ")
+        check_fp32_grads(f"18 B5 fp32 S={S}", *(dict(b1.unpack_grads(gg, pp), dpts=dd) for gg, dd, pp in (
+            (gk, dk, p32), (gr, dr, p32), (g64, d64, p64), (g64p, d64p, p64))))
+        del g64, g64p, gr, gk2
+        p16 = b3.pack_params(canon, cfg, torch.bfloat16)
+        got, gk, dk = b1.render_loss_pts(p16, warped, *args, True, scale)
+        ref, gr, dr = b1.render_loss_pts_plain(p16, warped, *args, True, scale)
+        _, gk2, dk2 = b1.render_loss_pts(p16, warped, *args, True, scale)
+        torch.cuda.synchronize()
+        diff = (got.rgb - ref.rgb).abs()
+        rel = rel_l2(dict(b1.unpack_grads(gk, p16), dpts=dk), dict(b1.unpack_grads(gr, p16), dpts=dr))
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1]) and torch.equal(dk, dk2)
+        print(f"[18 B5 bf16 S={S}] max|drgb|={diff.max().item():.3e} mean|drgb|={diff.mean().item():.3e} "
+              f"grads and dpts max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
+        if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
+            fail(f"B5 bf16 S={S}: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+        if S == 192:  # the training main path's B5 launch: shared model, fine pass only
+            nbytes = (4 * (3 * warped.numel() // 3 * 3 + ve.numel() + 3 * z.numel() + 3 * n)
+                      + 2 * p16.weights.numel() + 4 * p16.biases.numel()
+                      + 4 * (4 * n + z.numel() + warped.numel()) + 4 * (p16.weights.numel() + p16.biases.numel()))
+            rows["render_loss[pts,S=192]"] = entry(
+                "render_loss[pts,S=192]", "swnerf_torch/csrc/render_loss.cu",
+                "swnerf_tpu/ops/pallas/render_fused.py:276", 0, diff.max().item(),
+                cuda_ms(lambda: b1.render_loss_pts(p16, warped, *args, True, scale), 20),
+                cuda_ms(lambda: b1.render_loss_pts_plain(p16, warped, *args, True, scale), 5),
+                nbytes, 2 * b1.pts_train_macs_per_sample(p16) * z.numel(), "bf16",
+            )
+        del gk, gk2, gr, got, ref
+        torch.cuda.empty_cache()
+
+    # the serving path's chunk: the first 32,768 rays of test frame 5 at its time, bf16
+    rays, _ = frame_rays(dev, data, "test", 5)
+    chunk = rays.slice(0, 32768)
+    o, d = chunk.origins.contiguous(), chunk.directions.contiguous()
+    t = chunk.times.reshape(-1).contiguous()
+    ve = positional_encoding(chunk.viewdirs, cfg.nf_views).contiguous()
+    tn16, c16 = b6.pack_time_params(sd, cfg), b3.pack_params(canon, cfg)
+    z = sample_along_rays(chunk.near, chunk.far, 64, 0.0).contiguous()
+    nc = z.shape[0]
+    serve = {}
+    for S in (64, 192):
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+        dx = b6.time_net(tn16, pts, t)
+        ddx = (dx - b6.time_net_plain(tn16, pts, t)).abs().max().item()
+        warped = (pts + dx).contiguous()
+        dist = b3_dists(z, d)
+        got = b3.render_pass(c16, None, None, ve, z, dist, None, True, None, warped)
+        ref = b3.render_pass_plain(c16, None, None, ve, z, dist, None, True, None, warped)
+        drgb = (got.rgb - ref.rgb).abs()
+        print(f"[18 check] time_net bf16 rows {pts.shape[0] * S}: max|ddx|={ddx:.3e}; render_pass[pts,S={S}] bf16 "
+              f"N={nc}: max|drgb|={drgb.max().item():.3e} mean|drgb|={drgb.mean().item():.3e}")
+        if ddx > 1e-2 or drgb.max().item() > 1e-2 or drgb.mean().item() > 1e-3:
+            fail(f"B6 / B3 pts bf16 S={S} at the serving shape: max |ddx| > 1e-2, max |drgb| > 1e-2 or mean > 1e-3")
+        serve[S] = (pts, warped, z, dist, max(fwd_err[S], drgb.max().item()), ddx)
+        if S == 64:
+            u = torch.linspace(0.0, 1.0, 128, device=dev).expand(nc, 128)
+            zs = b2.sample_pdf((0.5 * (z[:, 1:] + z[:, :-1])).contiguous(), got.weights[:, 1:-1], u)
+            z = merge_z_vals(z, zs).contiguous()
+        del got, ref
+    for S, (pts, warped, zz, dist, err, _) in serve.items():
+        rows[f"render_pass[pts,S={S}]"] = entry(
+            f"render_pass[pts,S={S}]", "swnerf_torch/csrc/render_pass.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+            0, err, cuda_ms(lambda: b3.render_pass(c16, None, None, ve, zz, dist, None, True, None, warped), 3),
+            cuda_ms(lambda: b3.render_pass_plain(c16, None, None, ve, zz, dist, None, True, None, warped), 2),
+            4 * (warped.numel() + ve.numel() + 2 * zz.numel() + 5 * nc + zz.numel()) + 2 * c16.weights.numel(),
+            2 * c16.macs_per_sample * zz.numel(), "bf16",
+        )
+        torch.cuda.empty_cache()
+    pts, _, _, _, _, ddx = serve[192]
+    m = pts.shape[0] * pts.shape[1]
+    rows["time_net"] = entry(
+        "time_net", "swnerf_torch/csrc/time_net.cu", "swnerf_tpu/ops/pallas/raymarch.py:470", 0, ddx,
+        cuda_ms(lambda: b6.time_net(tn16, pts, t), 3), cuda_ms(lambda: b6.time_net_plain(tn16, pts, t), 2),
+        4 * (3 * m + nc + 3 * m) + 2 * tn16.weights.numel(), 2 * tn16.macs_per_row * m, "bf16",
+    )
+    del serve
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase19_step(dev, cfg, model, data):
+    """The kernel D-NeRF step (B6, B3's pts mode, B5, B2; shared model, TV
+    on, noise std 1) against the eager autograd step from the same state and
+    draws; the eager step in float64 on the CPU (and once more on weights
+    perturbed at fp32's size) is the reference of the fallbacks."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+    from swnerf_torch.train.fused_step import make_fused_dnerf_step
+    from swnerf_torch.train.loop import init_train_state, make_dnerf_train_step
+
+    rays, img = frame_rays(dev, data, "train", 61)
+    g = torch.Generator(device=dev).manual_seed(2)
+    sel = torch.randint(0, img.shape[0], (500,), generator=g, device=dev)
+    rays = Rays(*(x[sel] for x in rays))
+    target = img[sel].contiguous()
+    rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True, raw_noise_std=1.0,
+                        coarse_contributes=False)
+    draws = make_draws(rcfg, 500, torch.Generator(device=dev).manual_seed(3), dev)
+    t_n, tv_w = 0.41, 1e-4  # a neighbour time between frames; the config's TV weight
+
+    def fresh(device=dev, dtype=torch.float32, perturb=False):
+        m = DirectTemporalNeRF(cfg, device=device)
+        m.load_state_dict(model.state_dict())
+        m = m.to(dtype)
+        if perturb:
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.copy_(jitter(p))
+        return init_train_state(m, None, 5e-4, 500, step=800000)
+
+    def grads(st):
+        return {k: p.grad.detach().clone() for k, p in st.coarse.named_parameters()}
+
+    def eager(st, device=dev, dtype=torch.float32):
+        cast = lambda x: None if x is None else x.to(device=device, dtype=dtype)  # noqa: E731
+        return make_dnerf_train_step(rcfg, True, tv_w)(st, Rays(*(cast(x) for x in rays)), cast(target), t_n,
+                                                       draws=Draws(*(cast(x) for x in draws)))
+
+    # the float64 references run on the CPU: B2 (which the eager step reaches on the card) takes fp32
+    sk, se = fresh(), fresh()
+    s64, s64p = fresh("cpu", torch.float64), fresh("cpu", torch.float64, True)
+    launches.clear()
+    mk = make_fused_dnerf_step(cfg, rcfg, add_tv_loss=True, tv_loss_weight=tv_w, compute_dtype=torch.float32)(
+        sk, rays, target, t_n, draws=draws)
+    counts = dict(launches)
+    me, m64, m64p = eager(se), eager(s64, "cpu", torch.float64), eager(s64p, "cpu", torch.float64)
+    torch.cuda.synchronize()
+    lk, le, l64, l64p = (m["total_loss"].item() for m in (mk, me, m64, m64p))
+    dloss = abs(lk - le) / le
+    print(f"[19 step fp32] launches {json.dumps(counts, sort_keys=True)}; total_loss kernel {lk:.8f} eager {le:.8f} "
+          f"rel {dloss:.3e}; float64 eager {l64:.8f} (perturbed {l64p:.8f}); tv kernel {mk['tv'].item():.4e} eager "
+          f"{me['tv'].item():.4e}; psnr {mk['psnr'].item():.4f} vs {me['psnr'].item():.4f}")
+    if dloss > 1e-5 and abs(lk - l64) > 2 * max(abs(le - l64), abs(l64p - l64)):
+        fail(f"kernel D-NeRF step loss rel {dloss} > 1e-5, and further from the float64 step than fp32 moves it")
+    check_fp32_grads("19 step fp32", grads(sk), grads(se), grads(s64), grads(s64p))
+    del sk, s64, s64p
+    sb = fresh()
+    mb = make_fused_dnerf_step(cfg, rcfg, add_tv_loss=True, tv_loss_weight=tv_w, compute_dtype=torch.bfloat16)(
+        sb, rays, target, t_n, draws=draws)
+    dl16 = abs(mb["total_loss"].item() - le) / le
+    print(f"[19 step bf16] total_loss kernel {mb['total_loss'].item():.8f} vs fp32 eager: rel {dl16:.3e}")
+    if dl16 > 1e-2:
+        fail(f"bf16 kernel D-NeRF step loss rel {dl16} > 1e-2")
+    del se, sb
+    torch.cuda.empty_cache()
+
+
+def dnerf_unit_psnr(psnrs, data, frames):
+    """unit_range_psnr for the test frames ``frames`` (``--testskip`` keeps a
+    stride of the test split)."""
+    import math
+
+    out = []
+    for p, i in zip(psnrs, frames):
+        img = gt_image(data, "test", i)[2]
+        out.append(p - 20.0 * math.log10(float(img.max() - img.min())))
+    return out
+
+
+def phase20_serve(dev, cfg, tmp, data):
+    """The D-NeRF serving main path through run_dnerf: test frames 0, 5,
+    10, 15 and 20 at their times. Returns its launch counts and frame 5's
+    PSNR (data range 1)."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_dnerf
+    from swnerf_torch.render.core import RenderConfig, render_image
+    from swnerf_torch.render.fused_eval import make_dnerf_eval_pass
+    from swnerf_torch.train.checkpoint import dnerf_state_dict, load_tar
+    from swnerf_torch.utils.metrics import calculate_metrics
+
+    launches.clear()
+    t0 = time.perf_counter()
+    savedir = Path(run_dnerf.main(dnerf_args(tmp, data, "--render_only", "--render_test", "--testskip", "5")))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    metrics = json.loads((savedir / "metrics.json").read_text())
+    print(f"[20 main] launches {json.dumps(counts, sort_keys=True)} (5 frames), CLI wall {wall:.2f} s")
+    for key in ("time_net", "render_pass[pts,S=64]", "render_pass[pts,S=192]", "sample_pdf"):
+        if counts.get(key, 0) <= 0:
+            fail(f"the D-NeRF serving path launched no {key}")
+    secs = metrics["seconds_per_frame"]
+    per_frame = sum(secs[1:]) / len(secs[1:])  # frame 0 is the warm-up
+    n_rays = TNERF_SIZE**2
+    print(f"[20 main] seconds per frame {[round(x, 4) for x in secs]}")
+    print(f"[20 main] frames 5-20: {per_frame * 1e3:.2f} ms/frame, {n_rays / per_frame:.4g} rays/s, "
+          f"{n_rays * (64 + 192) / per_frame:.4g} samples/s (canonical samples)")
+    ref = json.loads(DNERF_RESULT.read_text())["test_frames"]
+    unit = dnerf_unit_psnr(metrics["psnr"], data, DNERF_FRAMES)
+    for i, p, u, q in zip(DNERF_FRAMES, metrics["psnr"], unit, metrics["ssim"]):
+        print(f"[20 main] test frame {i}: PSNR {p:.3f} dB (data range 1: {u:.3f} dB; the reference {ref[i]:.3f}, "
+              f"delta {u - ref[i]:+.3f}) SSIM {q:.4f}")
+    print(f"[20 main] mean PSNR (data range 1) {sum(unit) / len(unit):.3f} dB over frames {DNERF_FRAMES}; the "
+          f"reference's mean over them {sum(ref[i] for i in DNERF_FRAMES) / 5:.3f} dB")
+
+    model = DirectTemporalNeRF(cfg, device=dev)
+    model.load_state_dict(dnerf_state_dict(load_tar(str(DNERF_CKPT))["network_fn_state_dict"]))
+    model.eval()
+    # The reference's per-frame values were taken at its evaluator's own sample counts
+    # (benchmarks/parity_vs_torch.py::eval_ckpt, PARITY_SAMPLES = 32: 32 + 32): the like-for-like
+    # render, through the same bf16 eval pass, is held within 0.5 dB of them; the CLI's 64 + 128
+    # samples must not fall more than 0.5 dB below them.
+    ep16 = make_dnerf_eval_pass(cfg)
+    at32 = []
+    for i in DNERF_FRAMES:
+        rays, img = frame_rays(dev, data, "test", i)
+        out = render_image(model, rays, RenderConfig(n_samples=32, n_importance=32, white_bkgd=True), chunk=32768,
+                           eval_pass=ep16)
+        hw3 = (TNERF_SIZE, TNERF_SIZE, 3)
+        at32.append(calculate_metrics(img.reshape(hw3).cpu().numpy(), out["rgb"].reshape(hw3).cpu().numpy())[0])
+    at32 = dnerf_unit_psnr(at32, data, DNERF_FRAMES)
+    print(f"[20 main] at 32 + 32 samples (the reference evaluator's), data range 1: "
+          f"{[round(x, 3) for x in at32]} vs the reference {[round(ref[i], 3) for i in DNERF_FRAMES]} "
+          f"(deltas {[round(x - ref[i], 3) for x, i in zip(at32, DNERF_FRAMES)]})")
+    bad = [i for i, u, a in zip(DNERF_FRAMES, unit, at32) if not (abs(a - ref[i]) <= 0.5 and u >= ref[i] - 0.5)]
+    if len(unit) != 5 or bad:
+        fail(f"test frames {bad}: at 32 + 32 samples more than 0.5 dB from the reference's PSNR, or at 64 + 128 "
+             f"more than 0.5 dB below it")
+
+    # frame 5 again, the fp32 twins on the card
+    rays, img = frame_rays(dev, data, "test", 5)
+    plain = make_dnerf_eval_pass(cfg, compute_dtype=torch.float32, plain=True)
+    out = render_image(model, rays, RenderConfig(n_samples=64, n_importance=128, white_bkgd=True), chunk=8192,
+                       eval_pass=plain)
+    hw3 = (TNERF_SIZE, TNERF_SIZE, 3)
+    psnr_plain = calculate_metrics(img.reshape(hw3).cpu().numpy(), out["rgb"].reshape(hw3).cpu().numpy())[0]
+    dpsnr = abs(psnr_plain - metrics["psnr"][1])
+    print(f"[20 plain fp32] test frame 5 PSNR {psnr_plain:.3f} dB, |dPSNR| vs the bf16 kernels {dpsnr:.4f} dB")
+    if dpsnr > 0.1:
+        fail(f"|dPSNR| {dpsnr} > 0.1 dB")
+    del out
+    torch.cuda.empty_cache()
+    stages = dnerf_frame_breakdown(dev, cfg, model, rays)
+    total = sum(stages.values())
+    print("[20 breakdown] test frame 5, device ms by stage: " + ", ".join(
+        f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
+    print(f"[20 breakdown] stage sum {total:.2f} ms vs timed frame {per_frame * 1e3:.2f} ms")
+    del model
+    torch.cuda.empty_cache()
+    return counts, unit[1]
+
+
+def dnerf_frame_breakdown(dev, cfg, model, rays, chunk=32768):
+    """Device milliseconds of each stage of the D-NeRF eval pass
+    (render/fused_eval.py::DNeRFEvalPass, written out) over one frame, chunk
+    by chunk as render_image runs it, after one warm-up."""
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
+    from swnerf_torch.render.fused_eval import canonical_params
+
+    sd = model.state_dict()
+    canon, tnet = b3.pack_params(canonical_params(sd), cfg), b6.pack_time_params(sd, cfg)
+    names = ("rays + z + view embedding", "coarse B6", "coarse mask + warp", "coarse B3 pts", "B2", "sort merge",
+             "fine B6", "fine mask + warp", "fine B3 pts", "disp")
+    acc = dict.fromkeys(names, 0.0)
+    n_all = rays.origins.shape[0]
+    for rep in range(2):
+        for start in range(0, n_all, chunk):
+            tile = rays.slice(start, min(n_all, start + chunk))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            ev[0].record()
+            o, d = tile.origins.contiguous(), tile.directions.contiguous()
+            ve = positional_encoding(tile.viewdirs, cfg.nf_views).contiguous()
+            t = tile.times.reshape(-1).contiguous()
+            z = sample_along_rays(tile.near, tile.far, 64, 0.0).contiguous()
+            ev[1].record()
+
+            def one(zz, k):  # B6, the t == 0 mask and the warp, B3's pts mode; events k, k + 1, k + 2
+                pts = (o[:, None, :] + d[:, None, :] * zz[..., None]).contiguous()
+                dx = b6.time_net(tnet, pts, t)
+                ev[k].record()
+                warped = (pts + torch.where((t == 0.0)[:, None, None], torch.zeros_like(dx), dx)).contiguous()
+                ev[k + 1].record()
+                res = b3.render_pass(canon, None, None, ve, zz, b3_dists(zz, d), None, True, None, warped)
+                ev[k + 2].record()
+                return res
+
+            res = one(z, 2)
+            n = z.shape[0]
+            u = torch.linspace(0.0, 1.0, 128, device=dev).expand(n, 128)
+            zs = b2.sample_pdf((0.5 * (z[:, 1:] + z[:, :-1])).contiguous(), res.weights[:, 1:-1], u)
+            ev[5].record()
+            zf = merge_z_vals(z, zs).contiguous()
+            ev[6].record()
+            res = one(zf, 7)
+            _ = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
+            ev[10].record()
+            torch.cuda.synchronize()
+            if rep:
+                for i, k in enumerate(names):
+                    acc[k] += ev[i].elapsed_time(ev[i + 1])
+    return acc
+
+
+def phase21_train(dev, cfg, tmp, data):
+    """The D-NeRF training main path through run_dnerf: 200 bf16 steps
+    resumed from the copy of 800000.tar with the config's flags. Returns its
+    launch counts."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_dnerf
+    from swnerf_torch.train.checkpoint import load_tar
+
+    os.environ["SWNERF_MAX_ITERS"] = "800201"
+    buf = io.StringIO()
+    try:
+        launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            res = run_dnerf.main(dnerf_args(tmp, data, "--i_print", "50", "--i_weights", "100"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    finally:
+        os.environ.pop("SWNERF_MAX_ITERS", None)
+    out = buf.getvalue()
+    exp = tmp / "logs" / "full_dnerf_800k"
+    print(f"[21 train] launches {json.dumps(counts, sort_keys=True)} (200 steps), CLI wall {wall:.2f} s")
+    if "Reloading from" not in out or "kernel D-NeRF train step" not in out or min(res["step_ms"]) != 800001:
+        fail("the D-NeRF training run did not resume from 800000.tar at 800000 on the kernel step")
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    psnrs = [(r["step"], round(r["psnr"], 3), r["tv"]) for r in recs if "psnr" in r]
+    print(f"[21 train] (step, train PSNR, TV term) at the prints: {psnrs}")
+    if len(psnrs) != 4 or min(p for _, p, _ in psnrs) < 34.0:
+        fail(f"train PSNR below 34 dB at a print (or not 4 prints): {psnrs}")
+    for i in (800100, 800200):
+        ck = load_tar(str(exp / f"{i:06d}.tar"))
+        steps = {int(e["step"]) for e in ck["optimizer_state_dict"]["state"].values()}
+        print(f"[21 train] {i:06d}.tar keys {sorted(ck)} Adam step {steps} "
+              f"({len(ck['optimizer_state_dict']['state'])} entries)")
+        if set(ck) != {"global_step", "network_fn_state_dict", "optimizer_state_dict"} or steps != {i} \
+                or ck["global_step"] != i:
+            fail(f"{i:06d}.tar: keys {set(ck)}, Adam steps {steps}")
+    want = {"render_loss[pts,S=192]": 200, "time_net[bwd]": 200, "render_pass[pts,S=64]": 200, "time_net": 400,
+            "sample_pdf": 200}
+    if any(counts.get(k, 0) != v for k, v in want.items()):
+        fail(f"the D-NeRF training path's launches {counts} are not {want}")
+    quiet = {i: ms for i, ms in res["step_ms"].items() if i % 50 and (i - 1) % 50}
+    med = statistics.median(quiet.values())
+    print(f"[21 train] ms per step, median of {len(quiet)} steps that neither print nor save (CUDA events): "
+          f"{med:.3f} ms (min {min(quiet.values()):.3f}, max {max(quiet.values()):.3f}); "
+          f"{500 / med * 1e3:.4g} rays/s, {500 * (64 + 192) / med * 1e3:.4g} samples/s (canonical samples)")
+    stages = dnerf_step_breakdown(dev, cfg, data)
+    total = sum(stages.values())
+    print("[21 breakdown] one step, device ms by stage: " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
+    print(f"[21 breakdown] stage sum {total:.2f} ms vs median step {med:.2f} ms")
+    return counts
+
+
+def dnerf_step_breakdown(dev, cfg, data):
+    """Device milliseconds of each stage of one kernel D-NeRF step (bf16,
+    the CLI's step: train/fused_step.py::make_fused_dnerf_step for the shared
+    model with the TV loss, written out), CUDA events between stages, after
+    one warm-up step."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.sampling import sample_along_rays, sample_pdf_merge
+    from swnerf_torch.render.core import RenderConfig, make_draws
+    from swnerf_torch.render.fused_eval import canonical_params
+    from swnerf_torch.train.checkpoint import dnerf_state_dict, load_tar
+    from swnerf_torch.train.loop import init_train_state
+
+    rays, img = frame_rays(dev, data, "train", 37)
+    model = DirectTemporalNeRF(cfg, device=dev)
+    model.load_state_dict(dnerf_state_dict(load_tar(str(DNERF_CKPT))["network_fn_state_dict"]))
+    state = init_train_state(model, None, 5e-4, 500, step=800000)
+    rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True, raw_noise_std=1.0,
+                        coarse_contributes=False)
+    g = torch.Generator(device=dev).manual_seed(0)
+    names = ("pixels + rays", "z + draws + view embedding", "pack (autograd)", "coarse B6", "coarse B3 pts",
+             "B2 + sort", "B6 pair (train)", "B5", "TV + loss", "backward (B6 bwd, packing)", "Adam")
+    acc = dict.fromkeys(names, 0.0)
+    bf = torch.bfloat16
+    for rep in range(2):  # the first is the warm-up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        sel = torch.randint(0, img.shape[0], (500,), generator=g, device=dev)
+        r = type(rays)(*(x[sel] for x in rays))
+        target = img[sel].contiguous()
+        o, d = r.origins, r.directions
+        t = r.times.reshape(-1).contiguous()
+        ev[1].record()
+        draws = make_draws(rcfg, 500, g, dev)
+        z = sample_along_rays(r.near, r.far, 64, 1.0, t_rand=draws.t_rand).contiguous()
+        ve = positional_encoding(r.viewdirs, cfg.nf_views).contiguous()
+        ev[2].record()
+        state.zero_grad()
+        params = dict(state.coarse.named_parameters())
+        canon = b3.pack_params(canonical_params(params), cfg, torch.float32)
+        tnet = b6.pack_time_params(params, cfg, torch.float32)
+        ev[3].record()
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+        run = dataclasses.replace(tnet, weights=tnet.weights.detach().to(bf), biases=tnet.biases.detach())
+        dx = b6.time_net(run, pts, t)
+        ev[4].record()
+        c16 = dataclasses.replace(canon, weights=canon.weights.detach().to(bf), biases=canon.biases.detach())
+        out = b3.render_pass(c16, None, None, ve, z, b3_dists(z, d), draws.noise0.contiguous(), True, None,
+                             (pts + dx).contiguous())
+        ev[5].record()
+        zf = sample_pdf_merge(z, out.weights, 128, det=False, u=draws.u).contiguous()
+        ev[6].record()
+        pf = (o[:, None, :] + d[:, None, :] * zf[..., None]).contiguous()
+        t2 = torch.cat([t, torch.full_like(t, 0.41)])
+        dx2 = b6.time_net_autograd(tnet, bf, torch.cat([pf, pf]), t2)
+        ev[7].record()
+        loss, _ = b1.render_loss_pts_autograd(canon, bf, (pf + dx2[:500]).contiguous(), ve, zf, b3_dists(zf, d),
+                                              draws.noise1.contiguous(), target, True, 1.0 / 1500)
+        ev[8].record()
+        loss = loss + torch.sum((dx2[:500] - dx2[500:]) ** 2) * 1e-4
+        ev[9].record()
+        loss.backward()
+        ev[10].record()
+        state.apply_update()
+        ev[11].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, k in enumerate(names):
+                acc[k] = ev[i].elapsed_time(ev[i + 1])
+    del state, model
+    torch.cuda.empty_cache()
+    return acc
+
+
+def phase22_serve(tmp, data, psnr_before):
+    """Test frame 5 rendered from the trained 800200.tar by the serving CLI
+    (--testskip 5: frames 0, 5, 10, 15, 20)."""
+    from swnerf_torch.pipelines import run_dnerf
+
+    savedir = Path(run_dnerf.main(dnerf_args(tmp, data, "--render_only", "--render_test", "--testskip", "5")))
+    metrics = json.loads((savedir / "metrics.json").read_text())
+    unit = dnerf_unit_psnr(metrics["psnr"], data, DNERF_FRAMES)
+    print(f"[22 serve] from 800200.tar ({savedir.name}), data range 1: frames {DNERF_FRAMES} "
+          f"{[round(u, 3) for u in unit]}; test frame 5 {unit[1]:.3f} dB vs {psnr_before:.3f} dB from 800000.tar "
+          f"(delta {unit[1] - psnr_before:+.3f} dB)")
+    if savedir.name != "renderonly_test_800200" or abs(unit[1] - psnr_before) > 0.5:
+        fail(f"test frame 5 from 800200.tar: {unit[1]} dB, more than 0.5 dB from {psnr_before}")
 
 
 if __name__ == "__main__":

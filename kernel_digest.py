@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Digest and time the kernels of one checkout of swnerf_torch on the card:
+B2 sample_pdf, B3 render_pass (vanilla, from rays), B1 render_loss
+(vanilla) and B4 (T-NeRF, both modes), on seeded inputs at the main paths'
+shapes. Two checkouts whose digests agree give bit-equal outputs; run both
+in one call, in turns, to compare their times on one card:
+
+    python3 kernel_digest.py --root <checkout> [--reps N]
+
+Prints one JSON line: the card, and per kernel and operand type the sha256
+of its outputs and its mean milliseconds per launch (CUDA events, after a
+warm-up). Needs a CUDA device; builds the checkout's kernels at first use.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent), help="the checkout to load")
+    ap.add_argument("--reps", type=int, default=5)
+    a = ap.parse_args()
+    sys.path.insert(0, str(Path(a.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_digest: needs a CUDA device", file=sys.stderr)
+        return 1
+    from swnerf_torch.models import TNeRF, TNeRFConfig, VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import build
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+
+    assert Path(b3.__file__).resolve().is_relative_to(Path(a.root).resolve()), b3.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    build.build()
+
+    def rays(n, s, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        o = torch.randn((n, 3), generator=g, device=dev) * 0.3 + torch.tensor([0.0, 0.0, 4.0], device=dev)
+        d = torch.randn((n, 3), generator=g, device=dev)
+        d[:, 2] = -d[:, 2].abs() - 1.0
+        z = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4 + 2, -1).values.contiguous()
+        dist = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n, 1), 1e10, device=dev)], -1)
+        dist = (dist * torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        noise = torch.randn((n, s), generator=g, device=dev)
+        target = torch.rand((n, 3), generator=g, device=dev)
+        times = torch.rand((n,), generator=g, device=dev)
+        return o, d, vd, z, dist, noise, target, times
+
+    def digest(out):
+        h = hashlib.sha256()
+        for x in out:
+            if isinstance(x, (tuple, list)):
+                x = torch.cat([y.reshape(-1) for y in x])
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(a.reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / a.reps
+
+    out = {}
+    vcfg, tcfg = VanillaNeRFConfig(), TNeRFConfig()
+    vsd = VanillaNeRF(vcfg, device=dev, generator=torch.Generator().manual_seed(0)).state_dict()
+    tsd = TNeRF(tcfg, device=dev, generator=torch.Generator().manual_seed(1)).state_dict()
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bins = torch.sort(torch.rand((32768, 63), generator=g, device=dev) * 4 + 2, -1).values
+    w = torch.rand((32768, 64), generator=g, device=dev)[:, 1:-1]
+    u = torch.linspace(0.0, 1.0, 128, device=dev).expand(32768, 128)
+    out["sample_pdf"] = {"sha256": digest([b2.sample_pdf(bins, w, u)]), "ms": timed(lambda: b2.sample_pdf(bins, w, u))}
+
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        pv = b3.pack_params(vsd, vcfg, dtype)
+        pt = b3.pack_tnerf_params(tsd, tcfg, dtype)
+        for s in (64, 192):
+            o, d, vd, z, dist, noise, target, _ = rays(32768, s, s)
+            ve = positional_encoding(vd, vcfg.nf_views).contiguous()
+            args = (pv, o, d, ve, z, dist, None, True)
+            out[f"render_pass[S={s}] {tag}"] = {"sha256": digest(b3.render_pass(*args)),
+                                                "ms": timed(lambda: b3.render_pass(*args))}
+            o, d, vd, z, dist, noise, target, _ = rays(1024, s, 10 + s)
+            ve = positional_encoding(vd, vcfg.nf_views).contiguous()
+            args = (pv, o, d, ve, z, dist, noise, target, True, 1.0 / 3072)
+            res, grads = b1.render_loss(*args)
+            out[f"render_loss[S={s}] {tag}"] = {"sha256": digest(list(res) + list(grads)),
+                                                "ms": timed(lambda: b1.render_loss(*args))}
+        o, d, vd, z, dist, noise, target, t = rays(32768, 64, 3)
+        ve = positional_encoding(vd, tcfg.nf_views).contiguous()
+        args = (pt, o, d, ve, z, dist, None, True, t)
+        out[f"render_pass[tnerf,S=64] {tag}"] = {"sha256": digest(b3.render_pass(*args)),
+                                                 "ms": timed(lambda: b3.render_pass(*args))}
+        o, d, vd, z, dist, noise, target, t = rays(500, 64, 4)
+        ve = positional_encoding(vd, tcfg.nf_views).contiguous()
+        args = (pt, o, d, ve, z, dist, noise, target, True, 1.0 / 1500, t)
+        res, grads = b1.render_loss(*args)
+        out[f"render_loss[tnerf,S=64] {tag}"] = {"sha256": digest(list(res) + list(grads)),
+                                                 "ms": timed(lambda: b1.render_loss(*args))}
+        torch.cuda.empty_cache()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"root": a.root, "card": smi, "kernels": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,307 @@
+// The backward machinery shared by the train-mode render kernels B1/B4/B5
+// (render_loss.cu) and the deformation MLP's backward B6 (time_net.cu):
+// activation spills, a 64x64 SIMT GEMM with two epilogues, the fixed-order
+// split reduction for dW, column sums, the scratch carver, and the trunk's
+// reverse sweep.
+//
+// dW = X^T dZ runs as partial products over a fixed split of the rows, which
+// reduce_kernel adds in split order: no atomics, so two launches on the same
+// inputs give bit-equal gradients. dH = dZ W^T runs row-parallel with the
+// activation's derivative and the rounding to the operand type (or, for the
+// input cotangent of B5, an fp32 store or accumulate) in its epilogue.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "mlp_common.cuh"
+
+namespace {
+
+constexpr int PADC = 8;    // extra columns of a spilled activation row
+constexpr int GT = 64;     // GEMM output tile (rows and columns)
+constexpr int GK = 16;     // GEMM reduction tile
+constexpr int GEMM_BLOCKS = 1056;  // dW split target: 8 blocks per SM
+
+// Rows 0..nvalid-1 of a k-major shared chunk (columns 0..ncopy-1) into
+// global rows p0.. of a row-major [.][ld] buffer; with ones, column ncopy
+// of each row is set to 1.
+template <typename T>
+__device__ __forceinline__ void spill(const T* __restrict__ s, int ncopy, T* __restrict__ g, int ld,
+                                      long long p0, int nvalid, bool ones) {
+  constexpr int LDA = Op<T>::LDA;
+  for (int idx = threadIdx.x; idx < CH * ncopy; idx += NT) {
+    const int r = idx / ncopy, k = idx - r * ncopy;
+    if (r < nvalid) g[(p0 + r) * ld + k] = s[k * LDA + r];
+  }
+  if (ones)
+    for (int r = threadIdx.x; r < nvalid; r += NT) g[(p0 + r) * ld + ncopy] = Op<T>::q(1.f);
+}
+
+// ELU's derivative from its stored output h (h = expm1(z) for z <= 0), in
+// fp32 from h in the operand type, as _act_grad takes it.
+__device__ __forceinline__ float elu_grad(float h) { return h > 0.f ? 1.f : h + 1.f; }
+
+// C[M, N] = sum_t A(m, t) B(t, n), A(m, t) = A[m*sam + t*sat] and
+// B(t, n) = B[t*sbt + n*sbn]. blockIdx.z is a split of t.
+struct GemmArgs {
+  const void* A;
+  long long sam, sat;
+  const void* B;
+  long long sbt, sbn;
+  int M, N, K, kchunk;
+  float* part;        // partial mode: [splits][M][N] fp32
+  void* C;            // epilogue mode: q(act) into C[m*ldc + n]
+  long long ldc;
+  const void* mask;   // epilogue: times act'(mask(m, n)), the activation output
+  long long ldm;
+  const void* u;      // epilogue: + u[m*su] * v[n] before the mask
+  long long su;
+  const void* v;
+};
+
+// ELU: the epilogue's act' is ELU's (else ReLU's [mask > 0]). F32: 0 rounds
+// into C in the operand type; 1 stores the fp32 value into the float C; 2
+// adds it to the float C. Template parameters, so the instantiations B1
+// was measured with stay the code they were.
+template <typename T, bool PARTIAL, bool ELU = false, int F32 = 0>
+__global__ void __launch_bounds__(256) gemm_kernel(GemmArgs g) {
+  __shared__ __align__(16) float As[GK][GT + 4];
+  __shared__ __align__(16) float Bs[GK][GT + 4];
+  const T* A = static_cast<const T*>(g.A);
+  const T* B = static_cast<const T*>(g.B);
+  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
+  const int kb = blockIdx.z * g.kchunk;
+  const int ke = min(g.K, kb + g.kchunk);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const bool a_m_fast = g.sam == 1, b_n_fast = g.sbn == 1;
+  float acc[4][4];
+  zero(acc);
+  for (int k0 = kb; k0 < ke; k0 += GK) {
+    // Neighbouring threads walk the operand's contiguous dimension.
+    for (int e = threadIdx.x; e < GT * GK; e += 256) {
+      int mm, tt;
+      if (a_m_fast) { tt = e / GT; mm = e % GT; } else { mm = e / GK; tt = e % GK; }
+      const int m = m0 + mm, t = k0 + tt;
+      As[tt][mm] = (m < g.M && t < ke) ? Op<T>::f(A[m * g.sam + t * g.sat]) : 0.f;
+      int nn;
+      if (b_n_fast) { tt = e / GT; nn = e % GT; } else { nn = e / GK; tt = e % GK; }
+      const int n = n0 + nn, t2 = k0 + tt;
+      Bs[tt][nn] = (n < g.N && t2 < ke) ? Op<T>::f(B[t2 * g.sbt + n * g.sbn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= g.M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= g.N) continue;
+      if (PARTIAL) {
+        g.part[((size_t)blockIdx.z * g.M + m) * g.N + n] = acc[i][j];
+      } else if (F32) {
+        float* c = static_cast<float*>(g.C) + (size_t)m * g.ldc + n;
+        *c = F32 == 2 ? *c + acc[i][j] : acc[i][j];
+      } else {
+        float val = acc[i][j];
+        if (g.u)
+          val += Op<T>::f(static_cast<const T*>(g.u)[m * g.su]) * Op<T>::f(static_cast<const T*>(g.v)[n]);
+        if (ELU) {
+          if (g.mask) val *= elu_grad(Op<T>::f(static_cast<const T*>(g.mask)[m * g.ldm + n]));
+        } else if (g.mask && !(Op<T>::f(static_cast<const T*>(g.mask)[m * g.ldm + n]) > 0.f)) {
+          val = 0.f;
+        }
+        static_cast<T*>(g.C)[m * g.ldc + n] = Op<T>::q(val);
+      }
+    }
+  }
+}
+
+// Where a reduced [M, N] product lands: rows < Mw are weight rows, row Mw
+// (when M > Mw) the bias; columns < split go to region a, the rest to b.
+struct Region {
+  float* w;
+  int wcols;
+  float* b;
+};
+
+__global__ void reduce_kernel(const float* __restrict__ part, int splits, int M, int N, int Mw, int split,
+                              Region a, Region b) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long MN = (long long)M * N;
+  if (idx >= MN) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += part[k * MN + idx];  // fixed order: deterministic
+  const int m = (int)(idx / N), n = (int)(idx % N);
+  const Region& rg = n < split ? a : b;
+  const int c = n < split ? n : n - split;
+  if (m < Mw) {
+    if (rg.w) rg.w[(size_t)m * rg.wcols + c] = s;
+  } else if (rg.b) {
+    rg.b[c] = s;
+  }
+}
+
+// Per-split column sums of an fp32 [rows][ld] buffer (columns < ncol).
+__global__ void colsum_kernel(const float* __restrict__ src, long long ld, int ncol, long long rows,
+                              long long rchunk, float* __restrict__ part) {
+  const int col = threadIdx.x;
+  if (col >= ncol) return;
+  const long long r0 = blockIdx.x * rchunk;
+  const long long r1 = min(rows, r0 + rchunk);
+  float s = 0.f;
+  for (long long r = r0; r < r1; ++r) s += src[r * ld + col];
+  part[(size_t)blockIdx.x * ncol + col] = s;
+}
+
+int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
+
+size_t part_floats(int W) {
+  const int tiles = ceil_div(W + 1, GT) * ceil_div(W + 1, GT);
+  return (size_t)(GEMM_BLOCKS + tiles) * GT * GT;
+}
+
+struct Carver {
+  unsigned char* p;
+  template <typename X>
+  X* take(size_t count) {
+    X* out = reinterpret_cast<X*>(p);
+    p += align256(sizeof(X) * count);
+    return out;
+  }
+};
+
+#define SWNERF_CHECK(expr)                           \
+  do {                                               \
+    const cudaError_t e_ = (expr);                   \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
+
+// dW-style product: split over t, then the fixed-order reduction.
+template <typename T>
+int gemm_reduce(GemmArgs g, float* part, int Mw, int split_col, Region ra, Region rb, cudaStream_t st) {
+  const int tm = ceil_div(g.M, GT), tn = ceil_div(g.N, GT);
+  int splits = std::max(1, std::min(ceil_div(GEMM_BLOCKS, tm * tn), ceil_div(g.K, GK)));
+  g.kchunk = ceil_div(ceil_div(g.K, splits), GK) * GK;
+  splits = ceil_div(g.K, g.kchunk);
+  g.part = part;
+  gemm_kernel<T, true><<<dim3(tm, tn, splits), 256, 0, st>>>(g);
+  SWNERF_CHECK(cudaGetLastError());
+  const long long MN = (long long)g.M * g.N;
+  reduce_kernel<<<ceil_div(MN, 256), 256, 0, st>>>(part, splits, g.M, g.N, Mw, split_col, ra, rb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dH-style product: row-parallel, masked and rounded in the epilogue (or,
+// with F32, stored or accumulated in fp32).
+template <typename T, bool ELU = false, int F32 = 0>
+int gemm_act(GemmArgs g, cudaStream_t st) {
+  g.kchunk = ceil_div(g.K, GK) * GK;
+  gemm_kernel<T, false, ELU, F32><<<dim3(ceil_div(g.M, GT), ceil_div(g.N, GT), 1), 256, 0, st>>>(g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int colsum(const float* src, long long ld, int ncol, long long rows, float* part, float* dst, cudaStream_t st) {
+  const int splits = std::max(1, std::min(GEMM_BLOCKS, ceil_div(rows, 64)));
+  const long long rchunk = ceil_div(rows, splits);
+  const int used = ceil_div(rows, rchunk);
+  colsum_kernel<<<used, 256, 0, st>>>(src, ld, ncol, rows, rchunk, part);
+  SWNERF_CHECK(cudaGetLastError());
+  reduce_kernel<<<ceil_div(ncol, 256), 256, 0, st>>>(part, used, 1, ncol, 0, ncol, Region{nullptr, 0, dst},
+                                                     Region{nullptr, 0, nullptr});
+  return static_cast<int>(cudaGetLastError());
+}
+
+GemmArgs gemm_args(const void* A, long long sam, long long sat, const void* B, long long sbt, long long sbn, int M,
+                   int N, int K) {
+  GemmArgs g{};
+  g.A = A; g.sam = sam; g.sat = sat;
+  g.B = B; g.sbt = sbt; g.sbn = sbn;
+  g.M = M; g.N = N; g.K = K;
+  return g;
+}
+
+#define SWNERF_RUN(expr)              \
+  do {                                \
+    const int c_ = (expr);            \
+    if (c_ != 0) return c_;           \
+  } while (0)
+
+// Offsets of a trunk's packed matrices (ops/kernels/render_pass.py::
+// weight_layout): layer i at off_w[i], the skip layer's embedding rows at
+// off_wemb; returns the offset past the trunk.
+size_t trunk_offsets(int D, int skip, int cin_pad, int W, size_t* off_w, size_t* off_wemb) {
+  size_t o = 0;
+  off_w[0] = o;
+  o += (size_t)cin_pad * W;
+  for (int i = 1; i < D; ++i) {
+    if (i == skip + 1) {
+      *off_wemb = o;
+      o += (size_t)cin_pad * W;
+    }
+    off_w[i] = o;
+    o += (size_t)W * W;
+  }
+  return o;
+}
+
+// The trunk's reverse sweep over P rows, from dz of the top layer (in
+// dz[(D-1) & 1]) down: per layer its dW with the bias row (the spilled
+// inputs carry a column of ones), then dz of the layer below. emb is the
+// spilled input [P][CIN] (cin live columns, then the ones); h(i) layer i's
+// spilled output [P][W + PADC]. With demb (B5), the input cotangent over the
+// cin live columns, fp32 [P][cin]: dz_{skip+1} W_emb^T, then + dz_0 W_0^T.
+template <typename T, bool ELU, typename H>
+int trunk_reverse(const T* wts, const size_t* off_w, size_t off_wemb, const T* emb, int CIN, int cin, H h, T* const* dz,
+                  int D, int skip, int W, long long P, float* gw, float* gb, float* part, float* demb,
+                  cudaStream_t st) {
+  const int LDW = W + PADC;
+  const Region none{nullptr, 0, nullptr};
+  for (int i = D - 1; i >= 0; --i) {
+    const T* dzi = dz[i & 1];
+    if (i == 0 || i == skip + 1) {  // embedding rows, with the bias row
+      const size_t off = i == 0 ? off_w[0] : off_wemb;
+      SWNERF_RUN(gemm_reduce<T>(gemm_args(emb, 1, CIN, dzi, W, 1, cin + 1, W, (int)P), part, cin, W,
+                                Region{gw + off, W, gb + (size_t)i * W}, none, st));
+      if (demb) {  // d emb = dz W_emb^T over the live columns; W_emb is [CIN][W]
+        GemmArgs g = gemm_args(dzi, W, 1, wts + off, 1, W, (int)P, cin, W);
+        g.C = demb;
+        g.ldc = cin;
+        SWNERF_RUN(i == 0 ? (gemm_act<T, false, 2>(g, st)) : (gemm_act<T, false, 1>(g, st)));
+      }
+    }
+    if (i > 0) {
+      const bool bias_here = i != skip + 1;
+      SWNERF_RUN(gemm_reduce<T>(gemm_args(h(i - 1), 1, LDW, dzi, W, 1, bias_here ? W + 1 : W, W, (int)P), part,
+                                W, W, Region{gw + off_w[i], W, bias_here ? gb + (size_t)i * W : nullptr}, none,
+                                st));
+      GemmArgs g = gemm_args(dzi, W, 1, wts + off_w[i], 1, W, (int)P, W, W);
+      g.mask = h(i - 1);
+      g.ldm = LDW;
+      g.C = dz[(i - 1) & 1];
+      g.ldc = W;
+      SWNERF_RUN((gemm_act<T, ELU>(g, st)));
+    }
+  }
+  return 0;
+}
+
+}  // namespace

@@ -1,7 +1,8 @@
-// Device code shared by the render kernels B1/B3 (vanilla) and B4 (T-NeRF)
-// in render_pass.cu and render_loss.cu: operand-type traits, the field
-// families, the 64-row MLP chunk product, the activation epilogue and the
-// in-block Fourier encoding.
+// Device code shared by the render kernels B1/B3/B5 (vanilla) and B4
+// (T-NeRF) in render_pass.cu and render_loss.cu, and by the deformation MLP
+// B6 in time_net.cu: operand-type traits, the field families, the 64-row
+// MLP chunk product, the activation epilogue and the in-block Fourier
+// encoding.
 //
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
@@ -40,6 +41,15 @@ struct TNerf {
   static constexpr Act ACT = Act::Elu;
   static constexpr bool TIME = true;
   static constexpr bool RGB_RELU = true;  // rgb = sigmoid(max(logit, 0))
+  static __host__ __device__ int cin(int L) { return 4 + 8 * L; }
+};
+// The D-NeRF deformation MLP (B6): T-NeRF's [embed(xyz) | embed(t)] input
+// with ReLU; it has no colour head.
+struct TimeNet {
+  static constexpr int CIN = 96;
+  static constexpr Act ACT = Act::Relu;
+  static constexpr bool TIME = true;
+  static constexpr bool RGB_RELU = false;
   static __host__ __device__ int cin(int L) { return 4 + 8 * L; }
 };
 
@@ -168,8 +178,10 @@ __device__ __forceinline__ void zero(float (&acc)[R][C]) {
 // With A::TIME the ray's frame time t follows at column dpos = 3 + 6L as
 // positional_encoding(t, L) orders it: t, then sin(2^i t), cos(2^i t) at
 // dpos + 1 + 2i and dpos + 2 + 2i. t is per ray, constant along it. The
-// columns from A::cin(L) to A::CIN are zero.
-template <typename T, typename A>
+// columns from A::cin(L) to A::CIN are zero. With PTS (B3's pts mode, B5,
+// B6) the positions are given: ``origins`` then holds them, [ray][S][3],
+// and dirs and z are not read.
+template <typename T, typename A, bool PTS = false>
 __device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict__ vemb_s, int row0, int rows,
                                              long long ray0, int S, int L, int cv,
                                              const float* __restrict__ origins, const float* __restrict__ dirs,
@@ -185,9 +197,15 @@ __device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict_
   float x[3] = {0.f, 0.f, 0.f};
   float t = 0.f;
   if (valid) {
-    const float zz = z[ray * S + g % S];
+    if (PTS) {
+      const long long row = ray * S + g % S;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) x[a] = __fadd_rn(origins[ray * 3 + a], __fmul_rn(dirs[ray * 3 + a], zz));
+      for (int a = 0; a < 3; ++a) x[a] = origins[row * 3 + a];
+    } else {
+      const float zz = z[ray * S + g % S];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) x[a] = __fadd_rn(origins[ray * 3 + a], __fmul_rn(dirs[ray * 3 + a], zz));
+    }
     if (A::TIME) t = times[ray];
   }
   if (p == 0) {

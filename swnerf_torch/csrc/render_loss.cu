@@ -13,6 +13,15 @@
 // colour cotangent. The plain twin is
 // swnerf_torch/ops/kernels/render_loss.py::render_loss_plain.
 //
+// B5 (render_loss_pts_launch; render_fused.py's input_grads=True in pts
+// mode, :317-323 and :475-487) is B1 on given sample positions pts [N, S, 3]
+// (the D-NeRF canonical pass at x + dx), plus d loss / d pts: the trunk
+// sweep also forms the embedding's cotangent demb = dz_{skip+1} W_emb^T +
+// dz_0 W_0^T over the live columns in fp32 (gemm_common.cuh::trunk_reverse),
+// and encode_bwd_kernel chains it through the Fourier encode. Both are
+// compile-time switches (PTS): B1's and B4's instantiations are the code
+// they were.
+//
 // Bound on the card: operations. At D=8, W=256 the forward is 593,408
 // multiply-adds per sample and the backward's dX and dW products about twice
 // that (T-NeRF at D=8, W=128: 162,816 and 465,216 in all), against ~1 KB of
@@ -53,14 +62,10 @@
 
 #include <algorithm>
 
+#include "gemm_common.cuh"
 #include "mlp_common.cuh"
 
 namespace {
-
-constexpr int PADC = 8;    // extra columns of a spilled activation row
-constexpr int GT = 64;     // GEMM output tile (rows and columns)
-constexpr int GK = 16;     // GEMM reduction tile
-constexpr int GEMM_BLOCKS = 1056;  // dW split target: 8 blocks per SM
 
 template <typename T>
 struct Scratch {
@@ -75,22 +80,7 @@ struct Scratch {
   float* graw;  // [P][4]
 };
 
-// Rows 0..nvalid-1 of a k-major shared chunk (columns 0..ncopy-1) into
-// global rows p0.. of a row-major [.][ld] buffer; with ones, column ncopy
-// of each row is set to 1.
-template <typename T>
-__device__ __forceinline__ void spill(const T* __restrict__ s, int ncopy, T* __restrict__ g, int ld,
-                                      long long p0, int nvalid, bool ones) {
-  constexpr int LDA = Op<T>::LDA;
-  for (int idx = threadIdx.x; idx < CH * ncopy; idx += NT) {
-    const int r = idx / ncopy, k = idx - r * ncopy;
-    if (r < nvalid) g[(p0 + r) * ld + k] = s[k * LDA + r];
-  }
-  if (ones)
-    for (int r = threadIdx.x; r < nvalid; r += NT) g[(p0 + r) * ld + ncopy] = Op<T>::q(1.f);
-}
-
-template <typename T, int W, typename A>
+template <typename T, int W, typename A, bool PTS = false>
 __global__ void __launch_bounds__(NT)
 render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                        const float* __restrict__ times, const float* __restrict__ vemb, int cv,
@@ -130,7 +120,7 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   for (int row0 = 0; row0 < rows; row0 += CH) {
     const int nvalid = min(CH, rows - row0);
     const long long pr = p0 + row0;
-    encode_chunk<T, A>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
+    encode_chunk<T, A, PTS>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
     __syncthreads();
     spill<T>(emb, cin, sc.emb, A::CIN, pr, nvalid, true);
     spill<T>(vemb_s, cv, sc.vemb, CV, pr, nvalid, false);
@@ -290,10 +280,6 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   }
 }
 
-// ELU's derivative from its stored output h (h = expm1(z) for z <= 0), in
-// fp32 from h in the operand type, as _act_grad takes it.
-__device__ __forceinline__ float elu_grad(float h) { return h > 0.f ? 1.f : h + 1.f; }
-
 // d hv = (q(g_rgb) @ W_rgb^T) * act'(hv), in fp32 and rounded.
 template <typename T, int WH, Act A>
 __global__ void head_bwd_kernel(const T* __restrict__ gq, const T* __restrict__ hv, int ldh,
@@ -312,137 +298,29 @@ __global__ void head_bwd_kernel(const T* __restrict__ gq, const T* __restrict__ 
   dhv_c[idx] = Op<T>::q(d);
 }
 
-// C[M, N] = sum_t A(m, t) B(t, n), A(m, t) = A[m*sam + t*sat] and
-// B(t, n) = B[t*sbt + n*sbn]. blockIdx.z is a split of t.
-struct GemmArgs {
-  const void* A;
-  long long sam, sat;
-  const void* B;
-  long long sbt, sbn;
-  int M, N, K, kchunk;
-  float* part;        // partial mode: [splits][M][N] fp32
-  void* C;            // epilogue mode: q(act) into C[m*ldc + n]
-  long long ldc;
-  const void* mask;   // epilogue: times act'(mask(m, n)), the activation output
-  long long ldm;
-  const void* u;      // epilogue: + u[m*su] * v[n] before the mask
-  long long su;
-  const void* v;
-};
-
-// ELU: the epilogue's act' is ELU's (else ReLU's [mask > 0]); a template
-// parameter, so the vanilla instantiations stay the code B1 was measured with.
-template <typename T, bool PARTIAL, bool ELU = false>
-__global__ void __launch_bounds__(256) gemm_kernel(GemmArgs g) {
-  __shared__ __align__(16) float As[GK][GT + 4];
-  __shared__ __align__(16) float Bs[GK][GT + 4];
-  const T* A = static_cast<const T*>(g.A);
-  const T* B = static_cast<const T*>(g.B);
-  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
-  const int kb = blockIdx.z * g.kchunk;
-  const int ke = min(g.K, kb + g.kchunk);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool a_m_fast = g.sam == 1, b_n_fast = g.sbn == 1;
-  float acc[4][4];
-  zero(acc);
-  for (int k0 = kb; k0 < ke; k0 += GK) {
-    // Neighbouring threads walk the operand's contiguous dimension.
-    for (int e = threadIdx.x; e < GT * GK; e += 256) {
-      int mm, tt;
-      if (a_m_fast) { tt = e / GT; mm = e % GT; } else { mm = e / GK; tt = e % GK; }
-      const int m = m0 + mm, t = k0 + tt;
-      As[tt][mm] = (m < g.M && t < ke) ? Op<T>::f(A[m * g.sam + t * g.sat]) : 0.f;
-      int nn;
-      if (b_n_fast) { tt = e / GT; nn = e % GT; } else { nn = e / GK; tt = e % GK; }
-      const int n = n0 + nn, t2 = k0 + tt;
-      Bs[tt][nn] = (n < g.N && t2 < ke) ? Op<T>::f(B[t2 * g.sbt + n * g.sbn]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= g.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= g.N) continue;
-      if (PARTIAL) {
-        g.part[((size_t)blockIdx.z * g.M + m) * g.N + n] = acc[i][j];
-      } else {
-        float val = acc[i][j];
-        if (g.u)
-          val += Op<T>::f(static_cast<const T*>(g.u)[m * g.su]) * Op<T>::f(static_cast<const T*>(g.v)[n]);
-        if (ELU) {
-          if (g.mask) val *= elu_grad(Op<T>::f(static_cast<const T*>(g.mask)[m * g.ldm + n]));
-        } else if (g.mask && !(Op<T>::f(static_cast<const T*>(g.mask)[m * g.ldm + n]) > 0.f)) {
-          val = 0.f;
-        }
-        static_cast<T*>(g.C)[m * g.ldc + n] = Op<T>::q(val);
-      }
-    }
-  }
-}
-
-// Where a reduced [M, N] product lands: rows < Mw are weight rows, row Mw
-// (when M > Mw) the bias; columns < split go to region a, the rest to b.
-struct Region {
-  float* w;
-  int wcols;
-  float* b;
-};
-
-__global__ void reduce_kernel(const float* __restrict__ part, int splits, int M, int N, int Mw, int split,
-                              Region a, Region b) {
+// B5: d loss / d pts [P][3] from the embedding's cotangent demb [P][cin]
+// (fp32) through the Fourier encode (raymarch.py::_embed_bwd): the identity
+// columns, then per frequency f the derivative 2^f cos(2^f x) of the sin
+// column and -2^f sin(2^f x) of the cos column, x in fp32 from pts. The
+// Pallas kernel takes the latter as 2^f cos(2^f x + pi/2) (ROADMAP Queue C).
+__global__ void encode_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ demb, int cin, int L,
+                                  long long P, float* __restrict__ dpts) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long MN = (long long)M * N;
-  if (idx >= MN) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[k * MN + idx];  // fixed order: deterministic
-  const int m = (int)(idx / N), n = (int)(idx % N);
-  const Region& rg = n < split ? a : b;
-  const int c = n < split ? n : n - split;
-  if (m < Mw) {
-    if (rg.w) rg.w[(size_t)m * rg.wcols + c] = s;
-  } else if (rg.b) {
-    rg.b[c] = s;
+  if (idx >= P * 3) return;
+  const long long p = idx / 3;
+  const int a = (int)(idx - p * 3);
+  const float x = pts[idx];
+  const float* g = demb + p * cin;
+  float s = g[a];
+  for (int f = 0; f < L; ++f) {
+    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
+    const float u = x * scale;
+    s += scale * (cosf(u) * g[3 + 6 * f + a] - sinf(u) * g[6 + 6 * f + a]);
   }
+  dpts[idx] = s;
 }
 
-// Per-split column sums of an fp32 [rows][ld] buffer (columns < ncol).
-__global__ void colsum_kernel(const float* __restrict__ src, long long ld, int ncol, long long rows,
-                              long long rchunk, float* __restrict__ part) {
-  const int col = threadIdx.x;
-  if (col >= ncol) return;
-  const long long r0 = blockIdx.x * rchunk;
-  const long long r1 = min(rows, r0 + rchunk);
-  float s = 0.f;
-  for (long long r = r0; r < r1; ++r) s += src[r * ld + col];
-  part[(size_t)blockIdx.x * ncol + col] = s;
-}
-
-int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-size_t align256(size_t x) { return (x + 255) & ~(size_t)255; }
-
-size_t part_floats(int W) {
-  const int tiles = ceil_div(W + 1, GT) * ceil_div(W + 1, GT);
-  return (size_t)(GEMM_BLOCKS + tiles) * GT * GT;
-}
-
-template <typename T, typename A>
+template <typename T, typename A, bool PTS = false>
 size_t scratch_bytes(int W, int D, long long P) {
   const int WH = W / 2;
   size_t b = 0;
@@ -458,79 +336,17 @@ size_t scratch_bytes(int W, int D, long long P) {
   b += align256(sizeof(float) * P * 4);             // graw
   b += align256(sizeof(float) * P * WH);            // dhv32
   b += align256(sizeof(float) * part_floats(W));    // split partials
+  if (PTS) b += align256(sizeof(float) * P * A::CIN);  // demb (B5)
   return b;
 }
 
-struct Carver {
-  unsigned char* p;
-  template <typename X>
-  X* take(size_t count) {
-    X* out = reinterpret_cast<X*>(p);
-    p += align256(sizeof(X) * count);
-    return out;
-  }
-};
-
-#define SWNERF_CHECK(expr)                           \
-  do {                                               \
-    const cudaError_t e_ = (expr);                   \
-    if (e_ != cudaSuccess) return static_cast<int>(e_); \
-  } while (0)
-
-// dW-style product: split over t, then the fixed-order reduction.
-template <typename T>
-int gemm_reduce(GemmArgs g, float* part, int Mw, int split_col, Region ra, Region rb, cudaStream_t st) {
-  const int tm = ceil_div(g.M, GT), tn = ceil_div(g.N, GT);
-  int splits = std::max(1, std::min(ceil_div(GEMM_BLOCKS, tm * tn), ceil_div(g.K, GK)));
-  g.kchunk = ceil_div(ceil_div(g.K, splits), GK) * GK;
-  splits = ceil_div(g.K, g.kchunk);
-  g.part = part;
-  gemm_kernel<T, true><<<dim3(tm, tn, splits), 256, 0, st>>>(g);
-  SWNERF_CHECK(cudaGetLastError());
-  const long long MN = (long long)g.M * g.N;
-  reduce_kernel<<<ceil_div(MN, 256), 256, 0, st>>>(part, splits, g.M, g.N, Mw, split_col, ra, rb);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dH-style product: row-parallel, masked and rounded in the epilogue.
-template <typename T, bool ELU = false>
-int gemm_act(GemmArgs g, cudaStream_t st) {
-  g.kchunk = ceil_div(g.K, GK) * GK;
-  gemm_kernel<T, false, ELU><<<dim3(ceil_div(g.M, GT), ceil_div(g.N, GT), 1), 256, 0, st>>>(g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int colsum(const float* src, long long ld, int ncol, long long rows, float* part, float* dst, cudaStream_t st) {
-  const int splits = std::max(1, std::min(GEMM_BLOCKS, ceil_div(rows, 64)));
-  const long long rchunk = ceil_div(rows, splits);
-  const int used = ceil_div(rows, rchunk);
-  colsum_kernel<<<used, 256, 0, st>>>(src, ld, ncol, rows, rchunk, part);
-  SWNERF_CHECK(cudaGetLastError());
-  reduce_kernel<<<ceil_div(ncol, 256), 256, 0, st>>>(part, used, 1, ncol, 0, ncol, Region{nullptr, 0, dst},
-                                                     Region{nullptr, 0, nullptr});
-  return static_cast<int>(cudaGetLastError());
-}
-
-GemmArgs gemm_args(const void* A, long long sam, long long sat, const void* B, long long sbt, long long sbn, int M,
-                   int N, int K) {
-  GemmArgs g{};
-  g.A = A; g.sam = sam; g.sat = sat;
-  g.B = B; g.sbt = sbt; g.sbn = sbn;
-  g.M = M; g.N = N; g.K = K;
-  return g;
-}
-
-#define SWNERF_RUN(expr)              \
-  do {                                \
-    const int c_ = (expr);            \
-    if (c_ != 0) return c_;           \
-  } while (0)
-
-template <typename T, int W, typename A>
+// With PTS (B5), origins holds the sample positions [N][S][3] and dpts
+// [N][S][3] receives d(loss_scale * sum sqerr) / d pts.
+template <typename T, int W, typename A, bool PTS = false>
 int launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
            const float* dist, const float* noise, const float* target, const void* wts_v, const float* bias, int D,
            int skip, int L, int white, float loss_scale, int N, int S, float* rgb, float* acc, float* depth,
-           float* sqerr, float* w_out, float* gw, float* gb, void* scratch, cudaStream_t st) {
+           float* sqerr, float* w_out, float* gw, float* gb, float* dpts, void* scratch, cudaStream_t st) {
   constexpr int CIN = A::CIN;
   constexpr bool ELU = A::ACT == Act::Elu;
   constexpr int LDA = Op<T>::LDA;
@@ -556,13 +372,14 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   sc.graw = cv_.take<float>(P * 4);
   float* dhv32 = cv_.take<float>(P * WH);
   float* part = cv_.take<float>(part_floats(W));
+  float* demb = PTS ? cv_.take<float>(P * CIN) : nullptr;
   auto hl = [&](int i) { return sc.h + (size_t)i * sc.hstride; };
 
   // 1. forward, loss and the composite backward
   const int rays_per_block = std::max(1, CH / S);
   const size_t smem = sizeof(float) * ((size_t)rays_per_block * S * 5 + NRED) +
                       sizeof(T) * ((size_t)(2 * W + CIN + CV) * LDA + KT * W);
-  auto kern = render_loss_fwd_kernel<T, W, A>;
+  auto kern = render_loss_fwd_kernel<T, W, A, PTS>;
   SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
   kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, wts, bias, D,
@@ -573,17 +390,7 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   // Offsets of the packed matrices (ops/kernels/render_pass.py::weight_layout)
   // and biases (bias_layout).
   size_t off_w[16], off_wemb = 0;
-  size_t o = 0;
-  off_w[0] = o;
-  o += (size_t)CIN * W;
-  for (int i = 1; i < D; ++i) {
-    if (i == skip + 1) {
-      off_wemb = o;
-      o += (size_t)CIN * W;
-    }
-    off_w[i] = o;
-    o += (size_t)W * W;
-  }
+  const size_t o = trunk_offsets(D, skip, CIN, W, off_w, &off_wemb);
   const size_t off_feat = o, off_alpha = o + (size_t)W * W;
   const size_t off_vf = off_alpha + W, off_vv = off_vf + (size_t)W * WH, off_rgb = off_vv + (size_t)CV * WH;
   float* gb_feat = gb + (size_t)D * W;
@@ -627,26 +434,12 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
     SWNERF_RUN((gemm_act<T, ELU>(g, st)));
   }
 
-  // 4. the trunk, from the top
-  for (int i = D - 1; i >= 0; --i) {
-    const T* dzi = dz[i & 1];
-    if (i == 0 || i == skip + 1) {  // embedding rows, with the bias row
-      const size_t off = i == 0 ? off_w[0] : off_wemb;
-      SWNERF_RUN(gemm_reduce<T>(gemm_args(sc.emb, 1, CIN, dzi, W, 1, cin + 1, W, (int)P), part, cin, W,
-                                Region{gw + off, W, gb + (size_t)i * W}, none, st));
-    }
-    if (i > 0) {
-      const bool bias_here = i != skip + 1;
-      SWNERF_RUN(gemm_reduce<T>(gemm_args(hl(i - 1), 1, LDW, dzi, W, 1, bias_here ? W + 1 : W, W, (int)P), part,
-                                W, W, Region{gw + off_w[i], W, bias_here ? gb + (size_t)i * W : nullptr}, none,
-                                st));
-      GemmArgs g = gemm_args(dzi, W, 1, wts + off_w[i], 1, W, (int)P, W, W);
-      g.mask = hl(i - 1);
-      g.ldm = LDW;
-        g.C = dz[(i - 1) & 1];
-      g.ldc = W;
-      SWNERF_RUN((gemm_act<T, ELU>(g, st)));
-    }
+  // 4. the trunk, from the top (with B5's input cotangent)
+  SWNERF_RUN((trunk_reverse<T, ELU>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, dz, D, skip, W, P, gw, gb, part,
+                                     demb, st)));
+  if (PTS) {  // 5. B5: through the encode to the positions
+    encode_bwd_kernel<<<ceil_div(P * 3, 256), 256, 0, st>>>(origins, demb, cin, L, P, dpts);
+    SWNERF_CHECK(cudaGetLastError());
   }
   return 0;
 }
@@ -689,7 +482,7 @@ int render_loss_launch(int tnerf, int bf16, int W, const float* origins, const f
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWNERF_LAUNCH(T, WW, AA)                                                                               \
   launch<T, WW, AA>(origins, dirs, times, vemb, cv, z, dist, noise, target, wts, bias, D, skip, L, white,     \
-                    loss_scale, N, S, rgb, acc, depth, sqerr, w_out, gw, gb, scratch, st)
+                    loss_scale, N, S, rgb, acc, depth, sqerr, w_out, gw, gb, nullptr, scratch, st)
   if (tnerf) {
     if (bf16) {
       if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, TNerf);
@@ -704,6 +497,41 @@ int render_loss_launch(int tnerf, int bf16, int W, const float* origins, const f
   } else {
     if (W == 256) return SWNERF_LAUNCH(float, 256, Vanilla);
     if (W == 128) return SWNERF_LAUNCH(float, 128, Vanilla);
+  }
+#undef SWNERF_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B5's scratch bytes, or -1 for an unsupported width.
+long long render_loss_pts_scratch_bytes(int bf16, int W, int D, int N, int S) {
+  if (W != 128 && W != 256) return -1;
+  const long long P = (long long)N * S;
+  return (long long)(bf16 ? scratch_bytes<__nv_bfloat16, Vanilla, true>(W, D, P)
+                          : scratch_bytes<float, Vanilla, true>(W, D, P));
+}
+
+// B5 (the D-NeRF canonical train pass, vanilla field): B1 on given sample
+// positions pts [N, S, 3] (encoded in-block), and dpts [N, S, 3] = d(loss_scale
+// * sum sqerr) / d pts through the encode. Other arguments as
+// render_loss_launch's; scratch: render_loss_pts_scratch_bytes.
+int render_loss_pts_launch(int bf16, int W, const float* pts, const float* vemb, int cv, const float* z,
+                           const float* dist, const float* noise, const float* target, const void* wts,
+                           const float* bias, int D, int skip, int L, int white, float loss_scale, int N, int S,
+                           float* rgb, float* acc, float* depth, float* sqerr, float* w_out, float* gw, float* gb,
+                           float* dpts, void* scratch, void* stream) {
+  if (N == 0) return 0;
+  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || Vanilla::cin(L) >= Vanilla::CIN || cv > CV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SWNERF_LAUNCH(T, WW)                                                                                      \
+  launch<T, WW, Vanilla, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, target, wts, bias, D, skip, L,     \
+                               white, loss_scale, N, S, rgb, acc, depth, sqerr, w_out, gw, gb, dpts, scratch, st)
+  if (bf16) {
+    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256);
+    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128);
+  } else {
+    if (W == 256) return SWNERF_LAUNCH(float, 256);
+    if (W == 128) return SWNERF_LAUNCH(float, 128);
   }
 #undef SWNERF_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

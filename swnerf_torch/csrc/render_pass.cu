@@ -13,6 +13,11 @@
 // log(max(1 - alpha + 1e-10, 1e-10))), w = alpha * T, and the rgb / acc /
 // depth maps with optional white background. The plain twin is
 // swnerf_torch/ops/kernels/render_pass.py::render_pass_plain.
+// B3's pts mode (render_pass_pts_launch; the Pallas kernel's ``pts=`` path,
+// render_fused.py:349-356, used by the D-NeRF eval pass and the shared
+// coarse pass of its train step) takes the sample positions pts [N, S, 3]
+// in place of o + d*z: a compile-time switch (PTS), so the from-rays
+// instantiations are the code they were.
 //
 // Bound on the card: operations (~1.19 MFLOP of MLP per sample at D=8,
 // W=256; ~0.33 MFLOP for T-NeRF at D=8, W=128; against ~1 KB of per-ray
@@ -39,7 +44,7 @@
 
 namespace {
 
-template <typename T, int W, typename A>
+template <typename T, int W, typename A, bool PTS = false>
 __global__ void __launch_bounds__(NT)
 render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                    const float* __restrict__ times, const float* __restrict__ vemb, int cv, const float* __restrict__ z,
@@ -69,7 +74,7 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
   const int p = threadIdx.x / CH;
 
   for (int row0 = 0; row0 < rows; row0 += CH) {
-    encode_chunk<T, A>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
+    encode_chunk<T, A, PTS>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
     const T* wp = wts;
     const float* bp = bias;
     T* h = actA;
@@ -181,7 +186,7 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
   }
 }
 
-template <typename T, int W, typename A>
+template <typename T, int W, typename A, bool PTS = false>
 int launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
            const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
            int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
@@ -190,7 +195,7 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   const int rays_per_block = std::max(1, CH / S);
   const size_t smem = sizeof(float) * ((size_t)rays_per_block * S * 4 + NRED) +
                       sizeof(T) * ((size_t)(2 * W + A::CIN + CV) * LDA + KT * W);
-  auto kern = render_pass_kernel<T, W, A>;
+  auto kern = render_pass_kernel<T, W, A, PTS>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
@@ -239,6 +244,31 @@ int render_pass_launch(int tnerf, int bf16, int W, const float* origins, const f
   } else {
     if (W == 256) return SWNERF_LAUNCH(float, 256, Vanilla);
     if (W == 128) return SWNERF_LAUNCH(float, 128, Vanilla);
+  }
+#undef SWNERF_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B3's pts mode (the D-NeRF canonical pass, vanilla field): the sample
+// positions pts [N, S, 3] are given (o + d*z, plus the deformation) and
+// encoded in-block; z and dist still drive the depth and the compositing.
+// Other arguments as render_pass_launch's.
+int render_pass_pts_launch(int bf16, int W, const float* pts, const float* vemb, int cv, const float* z,
+                           const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
+                           int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
+                           void* stream) {
+  if (N == 0) return 0;
+  if (Vanilla::cin(L) > Vanilla::CIN) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SWNERF_LAUNCH(T, WW)                                                                                    \
+  launch<T, WW, Vanilla, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, \
+                               S, rgb, acc, depth, w_out, st)
+  if (bf16) {
+    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256);
+    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128);
+  } else {
+    if (W == 256) return SWNERF_LAUNCH(float, 256);
+    if (W == 128) return SWNERF_LAUNCH(float, 128);
   }
 #undef SWNERF_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -62,19 +62,36 @@ def torch_linear_init(
     return {"weight": w.to(device), "bias": b.to(device)}
 
 
+def kaiming_linear_init(
+    fan_in: int,
+    fan_out: int,
+    generator: Optional[torch.Generator] = None,
+    device: Optional[torch.device] = None,
+) -> Dict[str, torch.Tensor]:
+    """The D-NeRF canonical network's init (reference model.py:270-272, the
+    JAX package's ``kaiming_linear_init``): ``W ~ N(0, 2 / fan_in)``, the
+    bias as torch's default, drawn from ``generator``."""
+    k = 1.0 / math.sqrt(fan_in)
+    gdev = generator.device if generator is not None else None
+    w = torch.randn((fan_out, fan_in), generator=generator, device=gdev) * math.sqrt(2.0 / fan_in)
+    b = torch.rand((fan_out,), generator=generator, device=gdev) * (2 * k) - k
+    return {"weight": w.to(device), "bias": b.to(device)}
+
+
 def init_mlp_stack(
     dims: Sequence[Tuple[int, int]],
     generator: Optional[torch.Generator] = None,
     device: Optional[torch.device] = None,
+    init=torch_linear_init,
 ) -> List[nn.Linear]:
     """Linear layers with explicit ``(fan_in, fan_out)`` pairs (skip
-    connections make the sizes non-chained), initialised by
-    :func:`torch_linear_init`."""
+    connections make the sizes non-chained), initialised by ``init``
+    (:func:`torch_linear_init` or :func:`kaiming_linear_init`)."""
     layers = []
     for fi, fo in dims:
         # skip_init: the weights come from ``generator``, not the global RNG.
         lin = torch.nn.utils.skip_init(nn.Linear, fi, fo, device=device)
-        p = torch_linear_init(fi, fo, generator, device)
+        p = init(fi, fo, generator, device)
         with torch.no_grad():
             lin.weight.copy_(p["weight"])
             lin.bias.copy_(p["bias"])

@@ -1,0 +1,143 @@
+"""D-NeRF fields: a canonical NeRF and a deformation ("time") MLP (port of
+``swnerf_tpu/models/dnerf.py``).
+
+* :class:`NeRFOriginal` (``--nerf_type original``): the vanilla trunk with
+  kaiming-normal weights (reference model.py:270-272); its forward returns
+  ``(raw, {"dx": 0})``.
+* :class:`DirectTemporalNeRF` (``--nerf_type direct_temporal``): the
+  deformation MLP maps ``[embed(x) | embed(t)]`` to ``dx`` (its skip
+  concatenates ``embed(x)`` only, model.py:113-136; torch's default Linear
+  init), and the canonical network is queried at ``x + dx``. With
+  ``zero_canonical`` the deformation is zero where ``t == 0``, per ray, as
+  the JAX package writes the reference's one-time-per-batch branch
+  (model.py:142-146); an exact ``dx = 0`` gives the same embedding.
+
+A field's forward returns ``(raw, {"dx": dx})``; the render core carries
+``dx`` out for the TV loss. The modules are registered in the reference's
+order (``_occ``, ``_time``, ``_time_out``), so a ``.tar``'s
+``network_fn_state_dict`` loads as is and torch Adam's state maps onto the
+same tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from swnerf_torch.device import resolve_device
+from swnerf_torch.models.common import Field, dense, init_mlp_stack, kaiming_linear_init
+from swnerf_torch.models.vanilla import VanillaNeRF
+from swnerf_torch.ops.embedding import embedding_dim, positional_encoding
+
+
+@dataclasses.dataclass(frozen=True)
+class DNeRFConfig:
+    netdepth: int = 8
+    netwidth: int = 256
+    skips: Tuple[int, ...] = (4,)
+    multires: int = 10  # xyz frequencies; also the time's unless multires_time is set
+    multires_views: int = 4
+    multires_time: Optional[int] = None
+    i_embed: int = 0
+    use_viewdirs: bool = True
+    output_ch: int = 4
+    zero_canonical: bool = True
+
+    @property
+    def nf_pts(self) -> int:
+        return self.multires if self.i_embed == 0 else -1
+
+    @property
+    def nf_views(self) -> int:
+        return self.multires_views if self.i_embed == 0 else -1
+
+    @property
+    def nf_time(self) -> int:
+        if self.i_embed != 0:
+            return -1
+        return self.multires if self.multires_time is None else self.multires_time
+
+    @property
+    def input_ch(self) -> int:
+        return embedding_dim(self.nf_pts, 3)
+
+    @property
+    def input_ch_views(self) -> int:
+        return embedding_dim(self.nf_views, 3) if self.use_viewdirs else 0
+
+    @property
+    def input_ch_time(self) -> int:
+        return embedding_dim(self.nf_time, 1)
+
+
+class NeRFOriginal(VanillaNeRF):
+    """The canonical network: the vanilla trunk (same parameter names) with
+    kaiming init, on ``device`` (default ``cuda``), drawn from
+    ``generator``. Its forward ignores the times and returns a zero
+    deformation."""
+
+    def __init__(self, cfg: DNeRFConfig, device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg, device, generator, init=kaiming_linear_init)
+
+    def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor] = None,
+                times: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return super().forward(pts, viewdirs), {"dx": torch.zeros_like(pts)}
+
+
+class DirectTemporalNeRF(Field):
+    """The D-NeRF field on ``device`` (default ``cuda``): ``_occ``, the
+    canonical :class:`NeRFOriginal`, then the deformation MLP ``_time``
+    (``netdepth`` layers) and ``_time_out`` (W -> 3), drawn from
+    ``generator`` in that order."""
+
+    def __init__(self, cfg: DNeRFConfig, device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self._occ = NeRFOriginal(cfg, device, generator)
+        D, W, in_x = cfg.netdepth, cfg.netwidth, cfg.input_ch
+        dims = [(in_x + cfg.input_ch_time, W)] + [((W + in_x, W) if i in cfg.skips else (W, W)) for i in range(D - 1)]
+        self._time = nn.ModuleList(init_mlp_stack(dims, generator, device))
+        (self._time_out,) = init_mlp_stack([(W, 3)], generator, device)
+
+    def time_net(self, pts_emb: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
+        """``apply_time_net``: [embed(x) | embed(t)] -> dx, the skip
+        concatenating embed(x) only."""
+        h = torch.cat([pts_emb, time_emb], -1)
+        for i, lyr in enumerate(self._time):
+            h = torch.relu(dense(lyr, h))
+            if i in self.cfg.skips:
+                h = torch.cat([pts_emb, h], -1)
+        return dense(self._time_out, h)
+
+    def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor], times: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """pts [N, S, 3], viewdirs [N, 3], times [N, 1] (per ray) -> (raw
+        [N, S, 4], {"dx": [N, S, 3]})."""
+        cfg = self.cfg
+        t = times[..., None, :].expand(*pts.shape[:-1], 1)
+        dx = self.time_net(positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time))
+        if cfg.zero_canonical:
+            dx = torch.where(t == 0.0, torch.zeros_like(dx), dx)
+        views_emb = None
+        if cfg.use_viewdirs:
+            ve = positional_encoding(viewdirs, cfg.nf_views)
+            views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
+        raw = self._occ.trunk(positional_encoding(pts + dx, cfg.nf_pts), views_emb)
+        return raw, {"dx": dx}
+
+
+def make_dnerf_model(kind: str, cfg: DNeRFConfig, device: Optional[torch.device] = None,
+                     generator: Optional[torch.Generator] = None) -> Field:
+    """``--nerf_type``: ``original`` (:class:`NeRFOriginal`) or
+    ``direct_temporal`` (:class:`DirectTemporalNeRF`)."""
+    if kind == "original":
+        return NeRFOriginal(cfg, device, generator)
+    if kind == "direct_temporal":
+        return DirectTemporalNeRF(cfg, device, generator)
+    raise ValueError(f"nerf_type {kind!r} not recognized")

@@ -17,7 +17,14 @@ import torch
 from torch import nn
 
 from swnerf_torch.device import resolve_device
-from swnerf_torch.models.common import Field, dense, density_bias_floor, init_mlp_stack, safe_init_enabled
+from swnerf_torch.models.common import (
+    Field,
+    dense,
+    density_bias_floor,
+    init_mlp_stack,
+    safe_init_enabled,
+    torch_linear_init,
+)
 from swnerf_torch.ops.embedding import embedding_dim, positional_encoding
 
 
@@ -58,6 +65,7 @@ class VanillaNeRF(Field):
         cfg: VanillaNeRFConfig,
         device: Optional[torch.device] = None,
         generator: Optional[torch.Generator] = None,
+        init=torch_linear_init,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -65,16 +73,16 @@ class VanillaNeRF(Field):
         D, W, in_ch = cfg.netdepth, cfg.netwidth, cfg.input_ch
         # Layer i+1 takes W + input_ch when i is a skip (reference model.py:22-23).
         dims = [(in_ch, W)] + [((W + in_ch, W) if i in cfg.skips else (W, W)) for i in range(D - 1)]
-        self.pts_linears = nn.ModuleList(init_mlp_stack(dims, generator, device))
+        self.pts_linears = nn.ModuleList(init_mlp_stack(dims, generator, device, init))
         if cfg.use_viewdirs:
             self.views_linears = nn.ModuleList(
-                init_mlp_stack([(cfg.input_ch_views + W, W // 2)], generator, device)
+                init_mlp_stack([(cfg.input_ch_views + W, W // 2)], generator, device, init)
             )
-            (self.feature_linear,) = init_mlp_stack([(W, W)], generator, device)
-            (self.alpha_linear,) = init_mlp_stack([(W, 1)], generator, device)
-            (self.rgb_linear,) = init_mlp_stack([(W // 2, 3)], generator, device)
+            (self.feature_linear,) = init_mlp_stack([(W, W)], generator, device, init)
+            (self.alpha_linear,) = init_mlp_stack([(W, 1)], generator, device, init)
+            (self.rgb_linear,) = init_mlp_stack([(W // 2, 3)], generator, device, init)
         else:
-            (self.output_linear,) = init_mlp_stack([(W, cfg.output_ch)], generator, device)
+            (self.output_linear,) = init_mlp_stack([(W, cfg.output_ch)], generator, device, init)
         if safe_init_enabled():
             if cfg.use_viewdirs:
                 density_bias_floor(self.alpha_linear)

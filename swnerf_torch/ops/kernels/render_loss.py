@@ -22,6 +22,7 @@ Weights arrive packed by ``render_pass.pack_params`` /
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -31,7 +32,9 @@ from swnerf_torch.ops.kernels.render_pass import (
     WIDTHS,
     PackedParams,
     _check,
+    _check_weights,
     bias_layout,
+    check_pts,
     check_times,
     colour,
     field_forward,
@@ -60,6 +63,12 @@ def train_macs_per_sample(packed: PackedParams) -> int:
     W, D = packed.W, packed.D
     dx = (W // 2) * 3 + W * (W // 2) + W * W + W + (D - 1) * W * W
     return 2 * packed.macs_per_sample + dx
+
+
+def pts_train_macs_per_sample(packed: PackedParams) -> int:
+    """B5's multiply-adds per sample: B1's and the embedding's cotangent
+    (dz_0 W_0^T and dz_{skip+1} W_emb^T over the live columns)."""
+    return train_macs_per_sample(packed) + 2 * packed.cin * packed.W
 
 
 def _excl_suffix_sum(x: torch.Tensor) -> torch.Tensor:
@@ -97,6 +106,46 @@ def render_loss_plain(
     every dz. Products and sums stay fp32; the per-sample colour is fp32.
     float64 weights run it all in float64 (a reference for conditioning
     checks)."""
+    out, grads, _ = _twin(packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale,
+                          times)
+    return out, grads
+
+
+def encode_backward(x: torch.Tensor, demb: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """d loss / d x [P, 3] from the cotangent ``demb`` of its Fourier
+    encoding (positional_encoding's columns: x, then sin(2^f x), cos(2^f x)
+    per frequency), in the kernel's order of sums (raymarch.py::_embed_bwd,
+    which takes cos's derivative as cos(u + pi/2))."""
+    s = demb[:, 0:3]
+    for f in range(n_freqs):
+        scale = float(2**f)
+        u = x * scale
+        c = 3 + 6 * f
+        s = s + scale * (torch.cos(u) * demb[:, c : c + 3] - torch.sin(u) * demb[:, c + 3 : c + 6])
+    return s
+
+
+def render_loss_pts_plain(
+    packed: PackedParams,
+    pts: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    target: torch.Tensor,
+    white_bkgd: bool,
+    loss_scale: float,
+) -> Tuple[RenderLossOutput, Grads, torch.Tensor]:
+    """B5's arithmetic: :func:`render_loss_plain` on given positions ``pts``
+    [N, S, 3] (a vanilla field), and ``dpts`` [N, S, 3] = d(loss_scale *
+    sum sqerr) / d pts. The embedding's cotangent is fp32 (dz_{skip+1}
+    W_emb^T, then + dz_0 W_0^T over the live columns) and goes through
+    :func:`encode_backward`."""
+    return _twin(packed, None, None, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale, None, pts)
+
+
+def _twin(packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale, times=None,
+          pts=None):
     cdt = packed.weights.dtype
     acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
     m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
@@ -108,7 +157,7 @@ def render_loss_plain(
         return x.to(cdt).to(acc_dt)
 
     # ---- forward (as render_pass_plain), keeping each layer's output
-    fwd = field_forward(packed, origins, directions, views_emb, z_vals, times)
+    fwd = field_forward(packed, origins, directions, views_emb, z_vals, times, pts)
     emb, vemb, hs, feat, hv, logits = fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, fwd.logits
 
     # ---- composite, loss and the composite backward
@@ -155,20 +204,29 @@ def render_loss_plain(
     gw["alpha"], gb["alpha"] = top.t() @ dsq[:, None], dsq.sum(0, keepdim=True)
     dh = dfeat @ m["feature"].t() + dsq[:, None] * m["alpha"][:, 0][None, :]
     dz = q(_through_act(dh, top, arch))
+    demb = None
     for i in range(D - 1, -1, -1):
         if i == skip + 1:
             gw[f"pts{i}_emb"] = emb.t() @ dz
+            if pts is not None:
+                demb = dz @ m[f"pts{i}_emb"].t()
         gw[f"pts{i}"] = (emb if i == 0 else hs[i - 1]).t() @ dz
         gb[f"pts{i}"] = dz.sum(0)
         if i > 0:
             dh = dz @ m[f"pts{i}"].t()
             dz = q(_through_act(dh, hs[i - 1], arch))
+        elif pts is not None:
+            demb = demb + dz @ m["pts0"].t()
 
     grads = (
         torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(D, packed.W, skip, packed.cin_pad)]),
         torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(D, packed.W)]),
     )
-    return RenderLossOutput(rgb_map, acc, depth, sqerr, w), grads
+    dpts = None
+    if pts is not None:
+        x = pts.reshape(P, 3).to(acc_dt)
+        dpts = encode_backward(x, demb[:, : packed.cin], packed.n_freqs).reshape(N, S, 3)
+    return RenderLossOutput(rgb_map, acc, depth, sqerr, w), grads, dpts
 
 
 def render_loss(
@@ -209,13 +267,7 @@ def render_loss(
         ((times, "times", (N,)),) if times is not None else ()
     ):
         _check(x, name, shape, dev)
-    if (
-        packed.weights.device != dev
-        or packed.biases.device != dev
-        or packed.weights.data_ptr() % 16
-        or packed.weights.dtype not in (torch.float32, torch.bfloat16)
-    ):
-        raise ValueError("render_loss: packed weights must be a 16-byte aligned fp32/bf16 buffer on the device")
+    _check_weights(packed, dev, "render_loss")
     lib = build.load(NAME)
     tnerf = int(packed.arch == "tnerf")
     bf16 = int(packed.weights.dtype == torch.bfloat16)
@@ -250,6 +302,121 @@ def render_loss(
     build.check(lib, code, "render_loss")
     launches[launch_key(NAME, packed, S)] += 1
     return RenderLossOutput(rgb, acc, depth, sqerr, weights), (gw, gb)
+
+
+def render_loss_pts(
+    packed: PackedParams,
+    pts: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    target: torch.Tensor,
+    white_bkgd: bool,
+    loss_scale: float,
+) -> Tuple[RenderLossOutput, Grads, torch.Tensor]:
+    """B5 on CUDA tensors, its twin :func:`render_loss_pts_plain` on CPU
+    tensors: B1 on given positions ``pts`` [N, S, 3] of a vanilla field,
+    with ``dpts`` = d(loss_scale * sum sqerr) / d pts."""
+    N, S = z_vals.shape
+    check_pts(packed, None, None, pts, (N, S, 3), "render_loss_pts")
+    dev = z_vals.device
+    if dev.type == "cpu":
+        return render_loss_pts_plain(packed, pts, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale)
+    cv = views_emb.shape[-1]
+    if (
+        dev.type != "cuda"
+        or packed.W not in WIDTHS
+        or cv != packed.input_ch_views
+        or not 1 <= S <= 1024
+        or N * S * (packed.W + 8) >= 2**31
+    ):
+        raise ValueError(f"render_loss_pts: unsupported call (device {dev}, W {packed.W}, N {N}, S {S}, views {cv})")
+    for x, name, shape in (
+        (pts, "pts", (N, S, 3)), (views_emb, "views_emb", (N, cv)), (z_vals, "z_vals", (N, S)),
+        (dists, "dists", (N, S)), (target, "target", (N, 3)),
+    ) + (((noise, "noise", (N, S)),) if noise is not None else ()):
+        _check(x, name, shape, dev)
+    _check_weights(packed, dev, "render_loss_pts")
+    lib = build.load(NAME)
+    bf16 = int(packed.weights.dtype == torch.bfloat16)
+    size_fn = lib.render_loss_pts_scratch_bytes
+    size_fn.restype = ctypes.c_longlong
+    size_fn.argtypes = [ctypes.c_int] * 5
+    nbytes = size_fn(bf16, packed.W, packed.D, N, S)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    rgb, acc, depth, sqerr, weights, dpts = out(N, 3), out(N), out(N), out(N), out(N, S), out(N, S, 3)
+    gw = torch.zeros(packed.weights.numel(), dtype=torch.float32, device=dev)
+    gb = torch.zeros(packed.biases.numel(), dtype=torch.float32, device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = lib.render_loss_pts_launch
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, p, p, i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i] + [p] * 10
+    with torch.cuda.device(dev):
+        code = fn(
+            bf16, packed.W, pts.data_ptr(), views_emb.data_ptr(), cv, z_vals.data_ptr(), dists.data_ptr(),
+            noise.data_ptr() if noise is not None else None, target.data_ptr(),
+            packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, packed.n_freqs,
+            int(bool(white_bkgd)), float(loss_scale), N, S,
+            rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), sqerr.data_ptr(), weights.data_ptr(),
+            gw.data_ptr(), gb.data_ptr(), dpts.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(lib, code, "render_loss_pts")
+    launches[launch_key(NAME, packed, S, pts=True)] += 1
+    return RenderLossOutput(rgb, acc, depth, sqerr, weights), (gw, gb), dpts
+
+
+class _RenderLossPts(torch.autograd.Function):
+    """B5 under autograd: the forward runs the kernel (or its twin), which
+    forms the parameter and position gradients of ``loss_scale * sum
+    sqerr`` at once; the backward scales them by the loss's cotangent (the
+    per-ray outputs carry none: they feed only sampling and metrics, as in
+    fused_step.py:434-450)."""
+
+    @staticmethod
+    def forward(ctx, weights, biases, pts, packed, dtype, views_emb, z_vals, dists, noise, target, white_bkgd,
+                loss_scale):
+        run = dataclasses.replace(packed, weights=weights.detach().to(dtype).contiguous(),
+                                  biases=biases.detach().contiguous())
+        out, (gw, gb), dpts = render_loss_pts(run, pts.detach().contiguous(), views_emb, z_vals, dists, noise,
+                                              target, white_bkgd, loss_scale)
+        ctx.save_for_backward(gw, gb, dpts)
+        loss = out.sqerr.sum() * loss_scale
+        ctx.mark_non_differentiable(*out)
+        return (loss, *out)
+
+    @staticmethod
+    def backward(ctx, g_loss, *_):
+        gw, gb, dpts = ctx.saved_tensors
+        return (gw * g_loss, gb * g_loss, dpts * g_loss) + (None,) * 9
+
+
+def render_loss_pts_autograd(
+    packed: PackedParams,
+    dtype: torch.dtype,
+    pts: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    target: torch.Tensor,
+    white_bkgd: bool,
+    loss_scale: float,
+) -> Tuple[torch.Tensor, RenderLossOutput]:
+    """Differentiable B5 with ``dtype`` operands: ``(loss_scale * sum
+    sqerr, per-ray outputs)``. ``packed`` holds fp32 buffers packed by plain,
+    differentiable torch from the modules' parameters
+    (``pack_params(dict(model.named_parameters()), ...)``), so autograd
+    carries the kernel's packed gradients back to them; the loss's gradient
+    also reaches ``pts``."""
+    loss, *out = _RenderLossPts.apply(packed.weights, packed.biases, pts, packed, dtype, views_emb, z_vals, dists,
+                                      noise, target, white_bkgd, loss_scale)
+    return loss, RenderLossOutput(*out)
 
 
 def _unpack(grads: Grads, packed: PackedParams, trunk_key: str, heads) -> Dict[str, torch.Tensor]:

@@ -188,7 +188,10 @@ def _pack(trunk, heads, skip: int, cin: int, dtype: torch.dtype, **meta) -> Pack
 
 
 def _layer(sd, key):
-    return sd[f"{key}.weight"].detach().to(torch.float32), sd[f"{key}.bias"].detach().to(torch.float32)
+    """(weight, bias) of one layer in fp32. Not detached: packing the
+    modules' own parameters (``dict(model.named_parameters())``) is
+    differentiable, which the D-NeRF step relies on."""
+    return sd[f"{key}.weight"].to(torch.float32), sd[f"{key}.bias"].to(torch.float32)
 
 
 def pack_params(state_dict, cfg, dtype: torch.dtype = torch.bfloat16) -> PackedParams:
@@ -253,11 +256,13 @@ class FieldForward(NamedTuple):
     logits: torch.Tensor  # [P, 3]
 
 
-def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, times=None) -> FieldForward:
+def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, times=None, pts=None) -> FieldForward:
     """Encode and run the packed field as the kernels do. With bf16 weights
     it rounds the embedding, each layer's output and the weights to bf16
     exactly where the kernels do; products and sums stay fp32. float64
-    weights run it all in float64 (a reference for conditioning checks)."""
+    weights run it all in float64 (a reference for conditioning checks).
+    ``pts`` [N, S, 3] (pts mode) gives the sample positions in place of
+    ``origins + directions * z``."""
     cdt = packed.weights.dtype
     acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
     m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
@@ -268,7 +273,8 @@ def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, 
     def q(x):  # round to the operand type, compute in fp32 (fp64)
         return x.to(cdt).to(acc_dt)
 
-    pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
+    if pts is None:
+        pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
     emb = positional_encoding(pts.reshape(P, 3), packed.n_freqs)
     if packed.arch == "tnerf":  # [embed(xyz) | embed(t)], t constant along the ray
         t = times.reshape(N, 1, 1).expand(N, S, 1).reshape(P, 1)
@@ -302,11 +308,12 @@ def render_pass_plain(
     noise: Optional[torch.Tensor] = None,
     white_bkgd: bool = False,
     times: Optional[torch.Tensor] = None,
+    pts: Optional[torch.Tensor] = None,
 ) -> RenderPassOutput:
     """The same arithmetic as B3 / B4 in torch ops (see
-    :func:`field_forward` for the rounding)."""
+    :func:`field_forward` for the rounding and ``pts``)."""
     N, S = z_vals.shape
-    fwd = field_forward(packed, origins, directions, views_emb, z_vals, times)
+    fwd = field_forward(packed, origins, directions, views_emb, z_vals, times, pts)
     sigma = fwd.sigma
     if noise is not None:
         sigma = sigma + noise
@@ -332,6 +339,16 @@ def _check(x: torch.Tensor, name: str, shape, device) -> None:
         )
 
 
+def _check_weights(packed, dev, what: str) -> None:
+    if (
+        packed.weights.device != dev
+        or packed.biases.device != dev
+        or packed.weights.data_ptr() % 16
+        or packed.weights.dtype not in (torch.float32, torch.bfloat16)
+    ):
+        raise ValueError(f"{what}: packed weights must be a 16-byte aligned fp32/bf16 buffer on the device")
+
+
 def check_times(packed: PackedParams, times: Optional[torch.Tensor], n: int, what: str) -> None:
     """A T-NeRF pass needs per-ray times ``[N]``; a vanilla pass takes none."""
     if (packed.arch == "tnerf") != (times is not None):
@@ -340,10 +357,27 @@ def check_times(packed: PackedParams, times: Optional[torch.Tensor], n: int, wha
         raise ValueError(f"{what}: times must be [N] = [{n}], got {tuple(times.shape)}")
 
 
-def launch_key(name: str, packed: PackedParams, S: int) -> str:
+def launch_key(name: str, packed: PackedParams, S: int, pts: bool = False) -> str:
     """The ``launches`` key of one kernel call: ``render_pass[S=64]`` for
-    B3, ``render_pass[tnerf,S=64]`` for B4."""
+    B3, ``render_pass[pts,S=64]`` for its pts mode (``render_loss[pts,..]``:
+    B5), ``render_pass[tnerf,S=64]`` for B4."""
+    if pts:
+        return f"{name}[pts,S={S}]"
     return f"{name}[S={S}]" if packed.arch == "vanilla" else f"{name}[{packed.arch},S={S}]"
+
+
+def check_pts(packed: PackedParams, origins, directions, pts, shape, what: str) -> None:
+    """pts mode (a vanilla field: the D-NeRF canonical pass) takes ``pts``
+    ``[N, S, 3]`` and no origins or directions; the from-rays mode the
+    reverse."""
+    if pts is None:
+        if origins is None or directions is None:
+            raise ValueError(f"{what}: origins and directions are needed without pts")
+        return
+    if origins is not None or directions is not None or packed.arch != "vanilla":
+        raise ValueError(f"{what}: pts mode takes a vanilla field and no origins or directions")
+    if tuple(pts.shape) != shape:
+        raise ValueError(f"{what}: pts must be {shape}, got {tuple(pts.shape)}")
 
 
 def render_pass(
@@ -356,51 +390,59 @@ def render_pass(
     noise: Optional[torch.Tensor] = None,
     white_bkgd: bool = False,
     times: Optional[torch.Tensor] = None,
+    pts: Optional[torch.Tensor] = None,
 ) -> RenderPassOutput:
-    """B3 (vanilla) or B4 (T-NeRF, with per-ray ``times`` [N]) on CUDA
-    tensors, the plain twin on CPU tensors."""
+    """B3 (vanilla), B4 (T-NeRF, with per-ray ``times`` [N]) or B3's pts
+    mode (``pts`` [N, S, 3] in place of origins and directions, which are
+    then None) on CUDA tensors, the plain twin on CPU tensors."""
     N, S = z_vals.shape
     check_times(packed, times, N, "render_pass")
-    if origins.device.type == "cpu":
-        return render_pass_plain(packed, origins, directions, views_emb, z_vals, dists, noise, white_bkgd, times)
-    dev = origins.device
+    check_pts(packed, origins, directions, pts, (N, S, 3), "render_pass")
+    dev = z_vals.device
+    if dev.type == "cpu":
+        return render_pass_plain(packed, origins, directions, views_emb, z_vals, dists, noise, white_bkgd, times, pts)
     cv = views_emb.shape[-1]
     if dev.type != "cuda" or packed.W not in WIDTHS or cv != packed.input_ch_views or not 1 <= S <= 1024:
         raise ValueError(f"render_pass: unsupported call (device {dev}, W {packed.W}, S {S}, views {cv})")
-    for x, name, shape in (
-        (origins, "origins", (N, 3)), (directions, "directions", (N, 3)), (views_emb, "views_emb", (N, cv)),
-        (z_vals, "z_vals", (N, S)), (dists, "dists", (N, S)),
+    rays_in = ((pts, "pts", (N, S, 3)),) if pts is not None else (
+        (origins, "origins", (N, 3)), (directions, "directions", (N, 3)))
+    for x, name, shape in rays_in + (
+        (views_emb, "views_emb", (N, cv)), (z_vals, "z_vals", (N, S)), (dists, "dists", (N, S)),
     ) + (((noise, "noise", (N, S)),) if noise is not None else ()) + (
         ((times, "times", (N,)),) if times is not None else ()
     ):
         _check(x, name, shape, dev)
-    if (
-        packed.weights.device != dev
-        or packed.biases.device != dev
-        or packed.weights.data_ptr() % 16
-        or packed.weights.dtype not in (torch.float32, torch.bfloat16)
-    ):
-        raise ValueError("render_pass: packed weights must be a 16-byte aligned fp32/bf16 buffer on the device")
+    _check_weights(packed, dev, "render_pass")
     rgb = torch.empty((N, 3), dtype=torch.float32, device=dev)
     acc = torch.empty((N,), dtype=torch.float32, device=dev)
     depth = torch.empty((N,), dtype=torch.float32, device=dev)
     weights = torch.empty((N, S), dtype=torch.float32, device=dev)
     lib = build.load(NAME)
-    fn = lib.render_pass_launch
-    fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, i, p, p, p, p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    bf16 = int(packed.weights.dtype == torch.bfloat16)
+    tail = (
+        views_emb.data_ptr(), cv,
+        z_vals.data_ptr(), dists.data_ptr(), noise.data_ptr() if noise is not None else None,
+        packed.weights.data_ptr(), packed.biases.data_ptr(),
+        packed.D, packed.skip, packed.n_freqs, int(bool(white_bkgd)), N, S,
+        rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    tail_types = [p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
     with torch.cuda.device(dev):
-        code = fn(
-            int(packed.arch == "tnerf"), int(packed.weights.dtype == torch.bfloat16), packed.W,
-            origins.data_ptr(), directions.data_ptr(), times.data_ptr() if times is not None else None,
-            views_emb.data_ptr(), cv,
-            z_vals.data_ptr(), dists.data_ptr(), noise.data_ptr() if noise is not None else None,
-            packed.weights.data_ptr(), packed.biases.data_ptr(),
-            packed.D, packed.skip, packed.n_freqs, int(bool(white_bkgd)), N, S,
-            rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if pts is not None:
+            fn = lib.render_pass_pts_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [i, i, p] + tail_types
+            code = fn(bf16, packed.W, pts.data_ptr(), *tail)
+        else:
+            fn = lib.render_pass_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [i, i, i, p, p, p] + tail_types
+            code = fn(
+                int(packed.arch == "tnerf"), bf16, packed.W, origins.data_ptr(), directions.data_ptr(),
+                times.data_ptr() if times is not None else None, *tail,
+            )
     build.check(lib, code, "render_pass")
-    launches[launch_key(NAME, packed, S)] += 1
+    launches[launch_key(NAME, packed, S, pts is not None)] += 1
     return RenderPassOutput(rgb, acc, depth, weights)

@@ -200,22 +200,58 @@ def make_image_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
     return step
 
 
-def make_time_image_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
+def make_time_image_step(train_step, cfg: RenderConfig, scene: Scene, pass_neighbor: bool = False) -> Callable:
     """Wrap a train step to consume ``(state, images, poses, times, img_i,
     pixels, generator)`` with ``times`` [N] on the device: as
     :func:`make_image_step`, every ray carrying the frame time of image
-    ``img_i`` in ``rays.times``."""
+    ``img_i`` in ``rays.times``. With ``pass_neighbor`` (the D-NeRF steps)
+    it consumes ``(state, images, poses, times, img_i, pixels,
+    neighbor_time, generator)`` and forwards the TV loss's neighbour time."""
 
-    def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i: int, pixels,
-             generator=None):
+    def rays_and_target(images, poses, times, img_i, pixels):
         pixels = torch.as_tensor(pixels, device=images.device)
         rays_o, rays_d = get_rays_at(pixels, scene.H, scene.W, scene.K, poses[img_i])
         target = images[img_i][pixels[:, 0], pixels[:, 1]]
         t = times[img_i].reshape(1, 1).expand(pixels.shape[0], 1).contiguous()
-        rays = build_rays(rays_o, rays_d, scene.near, scene.far, use_viewdirs=cfg.use_viewdirs, times=t)
+        return build_rays(rays_o, rays_d, scene.near, scene.far, use_viewdirs=cfg.use_viewdirs, times=t), target
+
+    if pass_neighbor:
+        def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i: int, pixels,
+                 neighbor_time: float, generator=None):
+            rays, target = rays_and_target(images, poses, times, img_i, pixels)
+            return train_step(state, rays, target, neighbor_time, generator)
+
+        return step
+
+    def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i: int, pixels,
+             generator=None):
+        rays, target = rays_and_target(images, poses, times, img_i, pixels)
         return train_step(state, rays, target, generator)
 
     return step
+
+
+def neighbor_time_rng(seed: Optional[int] = None) -> np.random.Generator:
+    """The host generator of the TV loss's neighbour times, seeded from
+    ``SWNERF_SEED`` (the JAX package hard-codes 0, run_dnerf.py:421: at seed 0
+    the two draw the same times)."""
+    return np.random.default_rng(int(os.environ.get("SWNERF_SEED", "0")) if seed is None else seed)
+
+
+def pick_neighbor_time(rng: np.random.Generator, times: np.ndarray, img_i: int) -> float:
+    """A random previous or next frame, and a random interpolation toward
+    it (run_dnerf.py:690-709; swnerf_tpu/pipelines/run_dnerf.py:261-275)."""
+    t = float(times[img_i])
+    t_prev = float(times[img_i - 1]) if img_i > 0 else None
+    t_next = float(times[img_i + 1]) if img_i < len(times) - 1 else None
+    if t_prev is not None and t_next is not None:
+        if rng.random() > 0.5:
+            t_prev = None
+        else:
+            t_next = None
+    if t_prev is not None:
+        return t_prev + (t - t_prev) * float(rng.random())
+    return t + (t_next - t) * float(rng.random())
 
 
 class StepTimer:

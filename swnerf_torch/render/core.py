@@ -3,14 +3,15 @@
 coarse stratified sampling -> field -> composite
 [-> inverse-CDF importance resample -> fine field -> composite]
 
-``render_rays`` is the plain path through the field modules. Its random
+``render_rays`` is the plain path through the field modules (a D-NeRF
+field's deformation ``dx`` comes out with the maps). Its random
 numbers come from a ``torch.Generator`` or, as :class:`Draws`, from the
 caller (the analog of the JAX package's ``sample_pdf(u=...)``).
 ``render_image`` renders a whole image in chunks of ``chunk`` rays, through
-a forward-only eval pass (``render/fused_eval.py``: kernels B3 and B2, or
-B4 for a T-NeRF) when one is given, else through ``render_rays``. Rays of a
-time-conditioned field carry their frame times (``Rays.times``), which the
-render core hands to the field.
+a forward-only eval pass (``render/fused_eval.py``: kernels B3 and B2, B4
+for a T-NeRF, B6 and B3's pts mode for a D-NeRF) when one is given, else
+through ``render_rays``. Rays of a time-conditioned field carry their frame
+times (``Rays.times``), which the render core hands to the field.
 """
 
 from __future__ import annotations
@@ -52,6 +53,10 @@ class RenderConfig:
     raw_noise_std: float = 0.0
     white_bkgd: bool = False
     use_viewdirs: bool = True
+    # With a fine pass: True, the coarse pass contributes rgb0 and its
+    # gradients (vanilla; D-NeRF's two models); False, it only guides the
+    # sampling, its weights detached (D-NeRF's shared model, run_dnerf.py:445-448).
+    coarse_contributes: bool = True
 
     def eval_mode(self) -> "RenderConfig":
         """Deterministic eval variant (reference render_kwargs_test,
@@ -91,6 +96,15 @@ def make_draws(cfg: RenderConfig, n: int, generator: Optional[torch.Generator], 
     )
 
 
+def _apply(field: Field, pts: torch.Tensor, viewdirs, times):
+    """A field's ``(raw, dx or None)``: D-NeRF fields return ``(raw, {"dx":
+    dx})``, the others raw alone."""
+    out = field(pts, viewdirs, times)
+    if isinstance(out, tuple):
+        return out[0], out[1]["dx"]
+    return out, None
+
+
 def render_rays(
     model: Field,
     rays: Rays,
@@ -98,38 +112,52 @@ def render_rays(
     generator: Optional[torch.Generator] = None,
     fine_model: Optional[Field] = None,
     draws: Optional[Draws] = None,
+    z_vals: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a ray batch through the field modules. Returns per-ray maps:
-    rgb, disp, acc, weights, depth, z_vals, raw; with a fine pass also rgb0,
-    disp0, acc0 (coarse) and z_std. Random numbers come from ``draws`` when
-    given, else from ``generator``."""
+    rgb, disp, acc, weights, depth, z_vals, raw, and the last pass's
+    deformation dx for a D-NeRF field; with a fine pass also z_std and,
+    where the coarse pass contributes (``cfg.coarse_contributes``), rgb0,
+    disp0, acc0. Random numbers come from ``draws`` when given, else from
+    ``generator``. Given ``z_vals`` (the D-NeRF TV re-render), one pass of
+    the fine model (else the model) runs there, with the fine noise."""
     if draws is None:
         draws = Draws(None, None, None, None)
     viewdirs = rays.viewdirs if cfg.use_viewdirs else None
-    z_vals = sample_along_rays(
-        rays.near, rays.far, cfg.n_samples, cfg.perturb, cfg.lindisp, generator=generator, t_rand=draws.t_rand
-    )
-    pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
-    raw = model(pts, viewdirs, rays.times)
-    out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise0)
-
     ret: Dict[str, torch.Tensor] = {}
-    if cfg.n_importance > 0:
-        ret.update(rgb0=out.rgb, disp0=out.disp, acc0=out.acc)
-        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = sample_pdf(
-            z_mid, out.weights[..., 1:-1], cfg.n_importance, generator=generator, det=(cfg.perturb == 0.0),
-            u=draws.u if cfg.perturb > 0.0 else None,
-        )
-        z_vals = merge_z_vals(z_vals, z_samples)
+    if z_vals is not None:
         pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
-        raw = (fine_model if fine_model is not None else model)(pts, viewdirs, rays.times)
+        raw, dx = _apply(fine_model if fine_model is not None else model, pts, viewdirs, rays.times)
         out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise1)
-        ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
+    else:
+        z_vals = sample_along_rays(
+            rays.near, rays.far, cfg.n_samples, cfg.perturb, cfg.lindisp, generator=generator, t_rand=draws.t_rand
+        )
+        pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
+        raw, dx = _apply(model, pts, viewdirs, rays.times)
+        out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise0)
+        if cfg.n_importance > 0:
+            weights = out.weights
+            if cfg.coarse_contributes:
+                ret.update(rgb0=out.rgb, disp0=out.disp, acc0=out.acc)
+            else:
+                weights = weights.detach()
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = sample_pdf(
+                z_mid, weights[..., 1:-1], cfg.n_importance, generator=generator, det=(cfg.perturb == 0.0),
+                u=draws.u if cfg.perturb > 0.0 else None,
+            )
+            z_vals = merge_z_vals(z_vals, z_samples)
+            pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., :, None]
+            raw, dx = _apply(fine_model if fine_model is not None else model, pts, viewdirs, rays.times)
+            out = composite(raw, z_vals, rays.directions, cfg.raw_noise_std, cfg.white_bkgd, generator, draws.noise1)
+            ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)
 
     ret.update(
         rgb=out.rgb, disp=out.disp, acc=out.acc, weights=out.weights, depth=out.depth, z_vals=z_vals, raw=raw
     )
+    if dx is not None:
+        ret["dx"] = dx
     return ret
 
 

@@ -1,6 +1,7 @@
-"""Forward-only eval rendering through kernels B3 and B2, or B4 for a
-T-NeRF (port of ``swnerf_tpu/render/fused_eval.py::make_vanilla_eval_pass``
-and ``make_tnerf_eval_pass``).
+"""Forward-only eval rendering through kernels B3 and B2, B4 for a T-NeRF,
+or B6 and B3's pts mode for a D-NeRF (port of
+``swnerf_tpu/render/fused_eval.py::make_vanilla_eval_pass``,
+``make_tnerf_eval_pass`` and ``make_dnerf_eval_pass``).
 
 One render-pass kernel per pass computes encode + trunk + composite; B2
 resamples between the passes and ``torch.sort`` merges the depths. The
@@ -18,6 +19,7 @@ import torch
 from swnerf_torch.ops.embedding import positional_encoding
 from swnerf_torch.ops.kernels import render_pass as b3
 from swnerf_torch.ops.kernels import sample_pdf as b2
+from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
 from swnerf_torch.render.core import Rays, RenderConfig
 
@@ -129,3 +131,73 @@ class TNeRFEvalPass:
 
 def make_tnerf_eval_pass(mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> TNeRFEvalPass:
     return TNeRFEvalPass(mcfg, compute_dtype, plain)
+
+
+def canonical_params(params, prefix: str = "_occ."):
+    """The canonical network's entries of a DirectTemporalNeRF state dict
+    (or parameter dict), under the vanilla names ``pack_params`` reads."""
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def supports_dnerf_eval_pass(mcfg) -> bool:
+    """The D-NeRF fields the kernel eval pass covers: a canonical trunk B3
+    takes and a deformation MLP B6 takes."""
+    return b3.supports_config(mcfg) and b6.supports_time_net(mcfg)
+
+
+class DNeRFEvalPass:
+    """``pack(model)`` once per image, then ``(packed, packed_fine, rays,
+    ecfg) -> (rgb, disp, acc, depth)`` per chunk of rays, for a
+    DirectTemporalNeRF (``make_dnerf_eval_pass``, fused_eval.py:155-219):
+    per pass, B6 at the samples ``o + d*z`` and the rays' frame times, the
+    ``t == 0`` mask (``zero_canonical``), then B3's pts mode at ``pts + dx``;
+    between the passes B2 and ``torch.sort``, as :class:`VanillaEvalPass`.
+    ``compute_dtype`` and ``plain`` as there."""
+
+    supports_times = True
+
+    def __init__(self, mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False):
+        self.mcfg = mcfg
+        self.compute_dtype = compute_dtype
+        self._render = b3.render_pass_plain if plain else b3.render_pass
+        self._sample_pdf = b2.sample_pdf_plain if plain else b2.sample_pdf
+        self._time_net = b6.time_net_plain if plain else b6.time_net
+
+    def pack(self, model):
+        sd = model.state_dict()
+        return (
+            b3.pack_params(canonical_params(sd), model.cfg, self.compute_dtype),
+            b6.pack_time_params(sd, model.cfg, self.compute_dtype),
+            model.cfg.zero_canonical,
+        )
+
+    def __call__(self, packed, packed_fine, rays: Rays, ecfg: RenderConfig):
+        origins, directions = rays.origins.contiguous(), rays.directions.contiguous()
+        vd_emb = positional_encoding(rays.viewdirs, self.mcfg.nf_views).contiguous()
+        times = rays.times.reshape(-1).contiguous()
+
+        def one(p, z):
+            canon, tnet, zero_canonical = p
+            pts = (origins[:, None, :] + directions[:, None, :] * z[..., None]).contiguous()
+            dx = self._time_net(tnet, pts, times)
+            if zero_canonical:
+                dx = torch.where((times == 0.0)[:, None, None], torch.zeros_like(dx), dx)
+            return self._render(
+                canon, None, None, vd_emb, z, _dists_scaled(z, directions), None, ecfg.white_bkgd, None,
+                (pts + dx).contiguous(),
+            )
+
+        z_vals = sample_along_rays(rays.near, rays.far, ecfg.n_samples, 0.0, ecfg.lindisp).contiguous()
+        res = one(packed, z_vals)
+        if ecfg.n_importance > 0:
+            n = z_vals.shape[0]
+            z_mid = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
+            u = torch.linspace(0.0, 1.0, ecfg.n_importance, device=z_vals.device).expand(n, ecfg.n_importance)
+            z_all = merge_z_vals(z_vals, self._sample_pdf(z_mid, res.weights[:, 1:-1], u)).contiguous()
+            res = one(packed_fine if packed_fine is not None else packed, z_all)
+        disp = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
+        return res.rgb, disp, res.acc, res.depth
+
+
+def make_dnerf_eval_pass(mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False) -> DNeRFEvalPass:
+    return DNeRFEvalPass(mcfg, compute_dtype, plain)

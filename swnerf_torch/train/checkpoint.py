@@ -1,16 +1,19 @@
-"""Checkpoints, vanilla and T-NeRF ``.tar`` schemas (port of
+"""Checkpoints, vanilla, T-NeRF and D-NeRF ``.tar`` schemas (port of
 ``swnerf_tpu/train/checkpoint.py``).
 
 The vanilla schema is the reference's ``{global_step,
 network_fn_state_dict, network_fine_state_dict, optimizer_state_dict}``;
-T-NeRF's has no fine dict (run_tnerf.py:719-728). Weights are in torch
+T-NeRF's has no fine dict (run_tnerf.py:719-728); D-NeRF's has one only
+when two models are trained (run_dnerf.py:757-769). Weights are in torch
 ``[out, in]`` layout, so the port's modules load them as they are. The JAX
 package keeps ``[in, out]`` pytrees; :func:`params_from_jax` is the weight
 bridge that gives both packages identical weights.
 
-The optimizer state is torch Adam's own ``state_dict()``: ``VanillaNeRF``
-and ``TNeRF`` register their layers in the reference's ``parameters()``
-order (the JAX package's ``model_layout``), so the JAX package's Adam bridge
+The optimizer state is torch Adam's own ``state_dict()``: ``VanillaNeRF``,
+``TNeRF`` and ``DirectTemporalNeRF`` register their layers in the
+reference's ``parameters()`` order (the JAX package's ``model_layout``; a
+two-model D-NeRF run lists the coarse model's, then the fine model's), so
+the JAX package's Adam bridge
 (``adam_to_torch_dict``/``torch_dict_to_adam``) reads and writes the same
 entries. Only the native and orbax formats of the JAX package are not
 ported yet.
@@ -58,12 +61,29 @@ def _tnerf_layers(tree: Mapping[str, Any]) -> Iterator[Tuple[str, Mapping[str, A
         yield f"{name}.0", tree[name]
 
 
+def _dnerf_layers(tree: Mapping[str, Any]) -> Iterator[Tuple[str, Mapping[str, Any]]]:
+    """(torch module name, layer) of a DirectTemporalNeRF in the ``.tar``'s
+    order (swnerf_tpu/train/checkpoint.py:60-68): ``_occ.*`` (the canonical
+    trunk), ``_time.{i}``, ``_time_out``."""
+    for name, lyr in _vanilla_layers(tree["canonical"]):
+        yield f"_occ.{name}", lyr
+    for i, lyr in enumerate(tree["time_net"]["layers"]):
+        yield f"_time.{i}", lyr
+    yield "_time_out", tree["time_net"]["out"]
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX param pytree (numpy leaves) -> the port's state dict in
-    ``[out, in]`` layout: vanilla ``{"pts_linears": [{"w": [in, out],
-    "b"}], "feature_linear": ...}`` or T-NeRF ``{"layers": [...],
-    "density", "feature", "layer_9", "color"}``."""
-    layers = _tnerf_layers(tree) if "layers" in tree else _vanilla_layers(tree)
+    ``[out, in]`` layout: vanilla (and D-NeRF ``original``)
+    ``{"pts_linears": [{"w": [in, out], "b"}], "feature_linear": ...}``,
+    T-NeRF ``{"layers": [...], "density", "feature", "layer_9", "color"}``
+    or D-NeRF ``direct_temporal`` ``{"canonical", "time_net"}``."""
+    if "canonical" in tree:
+        layers = _dnerf_layers(tree)
+    elif "layers" in tree:
+        layers = _tnerf_layers(tree)
+    else:
+        layers = _vanilla_layers(tree)
     return _state_dict(layers, transpose=True)
 
 
@@ -71,6 +91,12 @@ def tnerf_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A ``.tar``'s T-NeRF state dict -> the port's: the same keys
     (``layers.{i}.0.*``, ``density.0.*``, ...), as float32 tensors."""
     return {k: torch.as_tensor(v, dtype=torch.float32) for k, v in sd.items()}
+
+
+# A D-NeRF .tar's state dict also loads under its own keys (``_occ.*``,
+# ``_time.{i}.*``, ``_time_out.*`` for ``direct_temporal``; the vanilla keys
+# for ``original``), as float32 tensors.
+dnerf_state_dict = tnerf_state_dict
 
 
 def vanilla_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

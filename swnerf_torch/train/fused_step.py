@@ -1,20 +1,24 @@
 """The kernel train steps (port of ``swnerf_tpu/train/fused_step.py``):
 vanilla, coarse B1 pass -> B2 importance sample + sorted union -> fine B1
 pass -> Adam (``make_fused_train_step``); T-NeRF, one B4 train pass -> Adam
-(``make_fused_tnerf_step``).
+(``make_fused_tnerf_step``); D-NeRF, the deformation MLP B6 and the
+canonical passes (B3's pts mode, B5) composed under autograd with the TV
+term -> Adam (``make_fused_dnerf_step``).
 
-Gradients come out of the render-loss kernel B1 itself
-(``ops/kernels/render_loss.py``), not from autograd: the step writes them
-into each parameter's ``.grad`` and runs the optimizer. Random numbers,
-sampling and loss are those of the eager ``make_train_step`` (tested against
-it). On CUDA tensors B1, B2 and B4 run their kernels (bf16 operands by
-default); on CPU tensors, which must be asked for, they run their plain
-twins (fp32).
+The vanilla and T-NeRF gradients come out of the render-loss kernel B1
+itself (``ops/kernels/render_loss.py``), not from autograd: the step writes
+them into each parameter's ``.grad`` and runs the optimizer. The D-NeRF
+step wraps B5 and B6 in ``torch.autograd.Function``s whose backward hands
+back the kernels' gradients. Random numbers, sampling and loss are those of
+the eager steps (``train/loop.py``; tested against them). On CUDA tensors
+the kernels run (bf16 operands by default); on CPU tensors, which must be
+asked for, their plain twins (fp32).
 Multi-GPU (``axis_name``/``pmean`` in the JAX step) is a later slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -22,9 +26,10 @@ import torch
 from swnerf_torch.ops.embedding import positional_encoding
 from swnerf_torch.ops.kernels import render_loss as b1
 from swnerf_torch.ops.kernels import render_pass as b3
+from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.sampling import sample_along_rays, sample_pdf_merge
 from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
-from swnerf_torch.render.fused_eval import _dists_scaled
+from swnerf_torch.render.fused_eval import _dists_scaled, canonical_params
 from swnerf_torch.train.loop import TrainState, mse_to_psnr
 
 
@@ -147,5 +152,153 @@ def make_fused_tnerf_step(cfg, rcfg: RenderConfig, compute_dtype: Optional[torch
         mse0 = out.sqerr.sum() * scale
         state.apply_update()
         return {"loss": mse0, "psnr": mse_to_psnr(mse0), "total_loss": mse0}
+
+    return train_step
+
+
+def supports_fused_dnerf_step(cfg, fcfg, rcfg: RenderConfig) -> bool:
+    """The kernel D-NeRF step covers a DirectTemporalNeRF whose canonical
+    trunk B3/B5 take and whose deformation MLP B6 takes, in each model, with
+    the same embedding sizes in both."""
+
+    def one(c):
+        return b3.supports_config(c) and b6.supports_time_net(c)
+
+    ok = one(cfg) and rcfg.use_viewdirs
+    if fcfg is not None:
+        same = (fcfg.multires, fcfg.multires_views, fcfg.multires_time) == (
+            cfg.multires, cfg.multires_views, cfg.multires_time)
+        ok = ok and one(fcfg) and same
+    return ok
+
+
+def make_fused_dnerf_step(cfg, rcfg: RenderConfig, fcfg=None, add_tv_loss: bool = False, tv_loss_weight: float = 0.0,
+                          compute_dtype: Optional[torch.dtype] = None):
+    """Build ``(state, rays, target, neighbor_time, generator=None,
+    draws=None) -> metrics`` for a DirectTemporalNeRF (``state.fine`` None:
+    one model serves both passes), the port of ``make_fused_dnerf_step``
+    (fused_step.py:350-620) on one device:
+
+    1. B6 at the coarse points (its dx detached when the coarse pass adds no
+       loss term: the shared model);
+    2. the coarse canonical pass at ``pts + dx``: B3's pts mode, forward
+       only, for the shared model; B5 (with gradients) for two models or a
+       coarse-only render;
+    3. B2 and a sort (``sample_pdf_merge``) on the coarse weights;
+    4. with the TV loss, B6 over 2N rays in one launch: the fine points at
+       the rays' times and at ``neighbor_time`` (``dx_pair``);
+    5. B5 at ``pts_f + dx_f``;
+    6. under autograd: the warp, the ``t == 0`` mask (``zero_canonical``)
+       and ``tv = sum((dx_f - dx_n)^2) * tv_loss_weight`` (a global sum);
+    7. ``loss.backward()`` runs B6's backward over the pair (B5's gradients
+       come from its forward), then Adam.
+
+    The weights are packed by plain torch from the parameters (in their
+    dtype: fp32, or float64 for a float64 reference run on the twins), so
+    autograd carries the kernels' packed gradients back to them; the kernels
+    read them in ``compute_dtype`` (None: bf16 on the card, fp32 on the
+    CPU). Random numbers (``Draws``) and loss are those of the eager
+    ``make_dnerf_train_step``."""
+    fine_cfg = fcfg if fcfg is not None else cfg
+    coarse_in_loss = rcfg.n_importance == 0 or rcfg.coarse_contributes
+
+    def packs(model, mcfg):
+        params = dict(model.named_parameters())
+        pdt = next(model.parameters()).dtype  # float32; float64 for a float64 reference run
+        return (b3.pack_params(canonical_params(params), mcfg, pdt), b6.pack_time_params(params, mcfg, pdt), mcfg)
+
+    def train_step(state: TrainState, rays: Rays, target: torch.Tensor, neighbor_time: float,
+                   generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None
+                   ) -> Dict[str, torch.Tensor]:
+        dev = rays.origins.device
+        n = rays.origins.shape[0]
+        if draws is None:
+            draws = make_draws(rcfg, n, generator, dev)
+        dtype = _dtype(compute_dtype, dev)
+        scale = 1.0 / (3.0 * n)  # d mse / d sqerr_r
+        o, d = rays.origins, rays.directions
+        target = target.contiguous()
+        vd_emb = positional_encoding(rays.viewdirs, cfg.nf_views).contiguous()
+        t = rays.times.reshape(-1).contiguous()
+        t_n = torch.full_like(t, float(neighbor_time))
+
+        def noise_of(x):
+            return x.contiguous() if rcfg.raw_noise_std > 0.0 and x is not None else None
+
+        def pts_of(z):
+            return (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+
+        def masked(dx, times, mcfg):
+            if not mcfg.zero_canonical:
+                return dx
+            return torch.where((times == 0.0)[:, None, None], torch.zeros_like(dx), dx)
+
+        def dx_at(tnet, mcfg, pts, grad: bool = True):
+            if grad:
+                return masked(b6.time_net_autograd(tnet, dtype, pts, t), t, mcfg)
+            run = dataclasses.replace(tnet, weights=tnet.weights.detach().to(dtype), biases=tnet.biases.detach())
+            return masked(b6.time_net(run, pts, t), t, mcfg)
+
+        def dx_pair(tnet, mcfg, pts):
+            """dx at the rays' times and at the neighbour time, for the same
+            points, in one B6 launch over 2N rays."""
+            t2 = torch.cat([t, t_n])
+            dx2 = masked(b6.time_net_autograd(tnet, dtype, torch.cat([pts, pts]), t2), t2, mcfg)
+            return dx2[:n], dx2[n:]
+
+        def canonical_pass(canon, pts, z, noise, grad: bool):
+            dists = _dists_scaled(z, d).contiguous()
+            if grad:
+                return b1.render_loss_pts_autograd(canon, dtype, pts, vd_emb, z, dists, noise, target,
+                                                   rcfg.white_bkgd, scale)
+            run = dataclasses.replace(canon, weights=canon.weights.detach().to(dtype), biases=canon.biases.detach())
+            out = b3.render_pass(run, None, None, vd_emb, z, dists, noise, rcfg.white_bkgd, None, pts)
+            return None, out
+
+        state.zero_grad()
+        canon_c, tnet_c, _ = packs(state.coarse, cfg)
+        z_vals = sample_along_rays(rays.near, rays.far, rcfg.n_samples, rcfg.perturb, rcfg.lindisp,
+                                   t_rand=draws.t_rand).contiguous()
+        pts_c = pts_of(z_vals)
+        dx_n = None
+        if rcfg.n_importance == 0 and add_tv_loss:
+            dx_c, dx_n = dx_pair(tnet_c, cfg, pts_c)
+        else:
+            dx_c = dx_at(tnet_c, cfg, pts_c, grad=coarse_in_loss)
+        mse0, out_c = canonical_pass(canon_c, (pts_c + dx_c).contiguous(), z_vals, noise_of(draws.noise0),
+                                     coarse_in_loss)
+        if rcfg.n_importance > 0:
+            det = rcfg.perturb == 0.0
+            z_all = sample_pdf_merge(z_vals, out_c.weights.detach(), rcfg.n_importance, det=det,
+                                     u=None if det else draws.u).contiguous()
+            pts_f = pts_of(z_all)
+            if state.fine is None:
+                canon_f, tnet_f, f_cfg = canon_c, tnet_c, cfg
+            else:
+                canon_f, tnet_f, f_cfg = packs(state.fine, fine_cfg)
+            if add_tv_loss:
+                dx_f, dx_n = dx_pair(tnet_f, f_cfg, pts_f)
+            else:
+                dx_f = dx_at(tnet_f, f_cfg, pts_f)
+            img_loss, _ = canonical_pass(canon_f, (pts_f + dx_f).contiguous(), z_all, noise_of(draws.noise1), True)
+            img_loss0 = mse0 if coarse_in_loss else None
+            dx_used = dx_f
+        else:
+            img_loss, img_loss0, dx_used = mse0, None, dx_c
+
+        # The reference's order (run_dnerf.py:688-731): img_loss (+ tv) (+ img_loss0).
+        loss = img_loss
+        metrics = {"loss": img_loss.detach(), "psnr": mse_to_psnr(img_loss.detach())}
+        if add_tv_loss:
+            tv = torch.sum((dx_used - dx_n) ** 2) * tv_loss_weight
+            loss = loss + tv
+            metrics["tv"] = tv.detach()
+        if img_loss0 is not None:
+            loss = loss + img_loss0
+            metrics["psnr0"] = mse_to_psnr(img_loss0.detach())
+        metrics["total_loss"] = loss.detach()
+        loss.backward()
+        state.apply_update()
+        return metrics
 
     return train_step

@@ -12,7 +12,8 @@ reference the kernel steps (``train/fused_step.py``) are held to, and the
 path for configurations they do not cover. With a T-NeRF field (no fine
 model) and rays that carry their frame times it is also the eager T-NeRF
 step, the port of ``swnerf_tpu/pipelines/run_dnerf.py::make_dnerf_step``
-without its TV branch: render with times, MSE, autograd, Adam. A step updates the
+without its TV branch: render with times, MSE, autograd, Adam;
+``make_dnerf_train_step`` is that step with the TV branch. A step updates the
 :class:`TrainState` in place and leaves each parameter's gradient in
 ``.grad`` until the next step.
 """
@@ -112,6 +113,50 @@ def make_train_step(cfg: RenderConfig):
         img_loss = mse(out["rgb"], target)
         loss = img_loss
         metrics = {"loss": img_loss.detach(), "psnr": mse_to_psnr(img_loss.detach())}
+        if "rgb0" in out:
+            img_loss0 = mse(out["rgb0"], target)
+            loss = loss + img_loss0
+            metrics["psnr0"] = mse_to_psnr(img_loss0.detach())
+        metrics["total_loss"] = loss.detach()
+        loss.backward()
+        state.apply_update()
+        return metrics
+
+    return train_step
+
+
+def make_dnerf_train_step(cfg: RenderConfig, add_tv_loss: bool, tv_loss_weight: float):
+    """The eager D-NeRF step (port of ``swnerf_tpu/pipelines/run_dnerf.py::
+    make_dnerf_step``): ``(state, rays, target, neighbor_time,
+    generator=None, draws=None) -> metrics``. It renders through
+    ``render_rays``; with the TV loss it re-renders the same rays at
+    ``neighbor_time`` on the first render's (detached) z_vals and adds
+    ``sum((dx - dx_neighbour)^2) * tv_loss_weight``; then the MSE terms,
+    autograd and Adam. The reference the kernel step
+    (``fused_step.make_fused_dnerf_step``) is held to."""
+
+    def train_step(
+        state: TrainState,
+        rays: Rays,
+        target: torch.Tensor,
+        neighbor_time: float,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Draws] = None,
+    ) -> Dict[str, torch.Tensor]:
+        if draws is None:
+            draws = make_draws(cfg, rays.origins.shape[0], generator, rays.origins.device)
+        state.zero_grad()
+        out = render_rays(state.coarse, rays, cfg, fine_model=state.fine, draws=draws)
+        img_loss = mse(out["rgb"], target)
+        loss = img_loss
+        metrics = {"loss": img_loss.detach(), "psnr": mse_to_psnr(img_loss.detach())}
+        if add_tv_loss:
+            rays_n = rays._replace(times=torch.full_like(rays.times, float(neighbor_time)))
+            out_n = render_rays(state.coarse, rays_n, cfg, fine_model=state.fine, draws=draws,
+                                z_vals=out["z_vals"].detach())
+            tv = torch.sum((out["dx"] - out_n["dx"]) ** 2) * tv_loss_weight
+            loss = loss + tv
+            metrics["tv"] = tv.detach()
         if "rgb0" in out:
             img_loss0 = mse(out["rgb0"], target)
             loss = loss + img_loss0

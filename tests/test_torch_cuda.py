@@ -17,6 +17,14 @@ loss rel 1e-5 and the same gradient bar against the float64 eager step.
 B4 (T-NeRF, both modes) is held to the bars of B3 (forward) and B1 (train
 mode); its colour ReLU can tie at a logit of 0 as B1's trunk ReLUs do, so
 its fp32 gradients take the same float64 fallback.
+D-NeRF: B6 (the deformation MLP) fp32 dx atol 1e-5; its fp32 gradients at
+B1's bar, where the float64 fallback also admits the distance that a
+perturbation of fp32 size moves the float64 reference (its ReLUs tie
+often: _assert_fp32_grads); bf16 dx max 1e-2, gradients rel L2 1e-2;
+bit-equal repeats. B3's pts mode at B3's bars; B5 at B6's, its dpts
+[N, S, 3] counted among the gradients. The kernel D-NeRF step against the
+eager step: loss rel 1e-5 (or as close to the float64 eager step as the
+fallback allows) and B6's gradient bar.
 """
 
 import dataclasses
@@ -24,12 +32,14 @@ import dataclasses
 import pytest
 import torch
 
-from swnerf_torch.models import TNeRF, TNeRFConfig, VanillaNeRF, VanillaNeRFConfig
+from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig, TNeRF, TNeRFConfig, VanillaNeRF, VanillaNeRFConfig
 from swnerf_torch.ops.embedding import positional_encoding
 from swnerf_torch.ops.kernels import build, launches
 from swnerf_torch.ops.kernels import render_loss as b1
 from swnerf_torch.ops.kernels import render_pass as b3
 from swnerf_torch.ops.kernels import sample_pdf as b2
+from swnerf_torch.ops.kernels import time_net as b6
+from swnerf_torch.render.fused_eval import canonical_params
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -155,11 +165,17 @@ def _rel_l2(got, ref):
             .item() for k in ref}
 
 
-def _assert_fp32_grads(got, ref32, ref64):
+def _assert_fp32_grads(got, ref32, ref64, ref64p=None):
     """rel L2 1e-4 against the fp32 reference, or (ReLU mask ties) no
-    further from the float64 reference than twice the fp32 one."""
+    further from the float64 reference than twice the fp32 one. With
+    ``ref64p``, the float64 reference on _jitter-ed weights, the fallback
+    also admits twice the distance that perturbation of fp32 size moves the
+    float64 reference: the D-NeRF deformation MLP's ReLUs tie often enough
+    at D=8 that any two fp32 summation orders land ~1e-3 apart (ROADMAP.md
+    Queue C)."""
     r32, rk, rr = _rel_l2(got, ref32), _rel_l2(got, ref64), _rel_l2(ref32, ref64)
-    bad = {k: (r32[k], rk[k], rr[k]) for k in rk if r32[k] > 1e-4 and rk[k] > 2.0 * rr[k]}
+    rp = _rel_l2(ref64p, ref64) if ref64p is not None else dict.fromkeys(rr, 0.0)
+    bad = {k: (r32[k], rk[k], rr[k], rp[k]) for k in rk if r32[k] > 1e-4 and rk[k] > 2.0 * max(rr[k], rp[k])}
     assert not bad, bad
 
 
@@ -383,3 +399,225 @@ def test_tnerf_kernel_step_matches_eager_step(dev):
     assert launches["render_loss[tnerf,S=64]"] == before + 1
     assert mk["total_loss"].item() == pytest.approx(me["total_loss"].item(), rel=1e-5)
     _assert_fp32_grads(grads(sk), grads(se), grads(s64))
+
+
+# ---------------------------------------------------------------- D-NeRF: B6, B3's pts mode, B5
+
+DNERF_SMALL = dict(netdepth=4, netwidth=128, skips=(2,), multires=4, multires_views=2)
+DNERF_CASES = [DNERF_SMALL, dict()]
+DNERF_IDS = ["small", "full"]
+
+
+def _dnerf_case(dev, kw, n, s, seed=0):
+    """A D-NeRF field with seeded weights and deformed sample positions
+    pts = o + d*z + a small offset, per-ray times (a quarter at 0), view
+    embeddings, noise std 1 and targets."""
+    cfg = DNeRFConfig(**kw)
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    o, d, vd, z, dist = _rays(dev, n, s, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]
+           + 0.05 * torch.randn((n, s, 3), generator=g, device=dev)).contiguous()
+    times = torch.rand((n,), generator=g, device=dev)
+    times[: n // 4] = 0.0
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    noise = torch.randn(z.shape, generator=g, device=dev)
+    target = torch.rand((n, 3), generator=g, device=dev)
+    return cfg, model.state_dict(), pts, times, (ve, z, dist, noise, target)
+
+
+def _time_grads(grads, packed):
+    return b6.unpack_time_grads(grads, packed)
+
+
+def _jitter(w, seed=0):
+    """w * (1 + 2^-20 N(0, 1)): a perturbation of the size of the rounding
+    that an fp32 dot product of length 256 accumulates (2^-24 sqrt(256))."""
+    g = torch.Generator(device=w.device).manual_seed(seed)
+    return w * (1 + 2.0**-20 * torch.randn(w.shape, generator=g, device=w.device, dtype=w.dtype))
+
+
+@pytest.mark.parametrize("kw", DNERF_CASES, ids=DNERF_IDS)
+@pytest.mark.parametrize("n_samples", [8, 64, 192])
+def test_b6_fp32_matches_plain(dev, kw, n_samples):
+    cfg, sd, pts, times, _ = _dnerf_case(dev, kw, 300, n_samples)
+    packed = b6.pack_time_params(sd, cfg, torch.float32)
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    before = launches["time_net"]
+    dx, grads = b6.time_net_fwd_bwd(packed, pts, times, g)
+    torch.cuda.synchronize()
+    assert launches["time_net"] == before + 1
+    torch.testing.assert_close(dx, b6.time_net_plain(packed, pts, times), atol=1e-5, rtol=0)
+    torch.testing.assert_close(b6.time_net(packed, pts, times), dx, atol=0, rtol=0)
+    ref = b6.time_net_plain_bwd(packed, pts, times, g)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    ref64 = b6.time_net_plain_bwd(p64, pts.double(), times.double(), g.double())
+    p64p = dataclasses.replace(p64, weights=_jitter(p64.weights))
+    ref64p = b6.time_net_plain_bwd(p64p, pts.double(), times.double(), g.double())
+    _assert_fp32_grads(_time_grads(grads, packed), _time_grads(ref, packed), _time_grads(ref64, p64),
+                            _time_grads(ref64p, p64))
+
+
+@pytest.mark.parametrize("n_samples", [64, 192])
+def test_b6_bf16_matches_plain_and_repeats(dev, n_samples):
+    cfg, sd, pts, times, _ = _dnerf_case(dev, {}, 500, n_samples)
+    packed = b6.pack_time_params(sd, cfg, torch.bfloat16)
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    dx, (w1, b1_) = b6.time_net_fwd_bwd(packed, pts, times, g)
+    _, (w2, b2_) = b6.time_net_fwd_bwd(packed, pts, times, g)
+    ref = b6.time_net_plain_bwd(packed, pts, times, g)
+    torch.cuda.synchronize()
+    assert (dx - b6.time_net_plain(packed, pts, times)).abs().max().item() <= 1e-2
+    rel = _rel_l2(_time_grads((w1, b1_), packed), _time_grads(ref, packed))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(w1, w2) and torch.equal(b1_, b2_)
+
+
+def test_b6_autograd_function_on_the_card(dev):
+    """time_net_autograd launches B6 forward (with its scratch) and backward
+    and hands the kernel's gradients to the parameters."""
+    cfg = DNeRFConfig(**DNERF_SMALL)
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(3))
+    params = dict(model.named_parameters())
+    _, _, pts, times, _ = _dnerf_case(dev, DNERF_SMALL, 64, 16)
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    before = launches["time_net[bwd]"]
+    dx = b6.time_net_autograd(b6.pack_time_params(params, cfg, torch.float32), torch.float32, pts, times)
+    (dx * g).sum().backward()
+    torch.cuda.synchronize()
+    assert launches["time_net[bwd]"] == before + 1
+    detached = b6.pack_time_params(model.state_dict(), cfg, torch.float32)
+    dx2, grads = b6.time_net_fwd_bwd(detached, pts, times, g)
+    assert torch.equal(dx.detach(), dx2)
+    for k, v in b6.unpack_time_grads(grads, detached).items():
+        assert torch.equal(params[k].grad, v), k
+
+
+@pytest.mark.parametrize("kw", DNERF_CASES, ids=DNERF_IDS)
+@pytest.mark.parametrize("n_samples", [8, 64, 192])
+@pytest.mark.parametrize("white", [True, False])
+def test_b3_pts_fp32_matches_plain(dev, kw, n_samples, white):
+    cfg, sd, pts, _, (ve, z, dist, noise, _) = _dnerf_case(dev, kw, 300, n_samples)
+    packed = b3.pack_params(canonical_params(sd), cfg, torch.float32)
+    before = launches[f"render_pass[pts,S={n_samples}]"]
+    got = b3.render_pass(packed, None, None, ve, z, dist, noise, white, None, pts)
+    ref = b3.render_pass_plain(packed, None, None, ve, z, dist, noise, white, None, pts)
+    torch.cuda.synchronize()
+    assert launches[f"render_pass[pts,S={n_samples}]"] == before + 1
+    torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got.weights, ref.weights, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n_samples", [64, 192])
+def test_b3_pts_bf16_matches_plain(dev, n_samples):
+    cfg, sd, pts, _, (ve, z, dist, _, _) = _dnerf_case(dev, {}, 512, n_samples)
+    packed = b3.pack_params(canonical_params(sd), cfg, torch.bfloat16)
+    got = b3.render_pass(packed, None, None, ve, z, dist, None, True, None, pts)
+    ref = b3.render_pass_plain(packed, None, None, ve, z, dist, None, True, None, pts)
+    torch.cuda.synchronize()
+    diff = (got.rgb - ref.rgb).abs()
+    assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
+
+
+def _b5_grads(grads, dpts, packed):
+    return dict(b1.unpack_grads(grads, packed), dpts=dpts)
+
+
+@pytest.mark.parametrize("kw", DNERF_CASES, ids=DNERF_IDS)
+@pytest.mark.parametrize("n_samples", [8, 64, 192])
+@pytest.mark.parametrize("white", [True, False])
+def test_b5_fp32_matches_plain(dev, kw, n_samples, white):
+    cfg, sd, pts, _, args = _dnerf_case(dev, kw, 300, n_samples)
+    packed = b3.pack_params(canonical_params(sd), cfg, torch.float32)
+    scale = 1.0 / (3 * 300)
+    before = launches[f"render_loss[pts,S={n_samples}]"]
+    got, gg, dp = b1.render_loss_pts(packed, pts, *args, white, scale)
+    ref, gr, dr = b1.render_loss_pts_plain(packed, pts, *args, white, scale)
+    torch.cuda.synchronize()
+    assert launches[f"render_loss[pts,S={n_samples}]"] == before + 1
+    torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got.weights, ref.weights, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.sqerr, ref.sqerr, atol=1e-7, rtol=1e-4)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    _, g64, d64 = b1.render_loss_pts_plain(p64, pts.double(), *(x.double() for x in args), white, scale)
+    p64p = dataclasses.replace(p64, weights=_jitter(p64.weights))
+    _, g64p, d64p = b1.render_loss_pts_plain(p64p, pts.double(), *(x.double() for x in args), white, scale)
+    _assert_fp32_grads(_b5_grads(gg, dp, packed), _b5_grads(gr, dr, packed), _b5_grads(g64, d64, p64),
+                            _b5_grads(g64p, d64p, p64))
+
+
+@pytest.mark.parametrize("n_samples", [64, 192])
+def test_b5_bf16_matches_plain_and_repeats(dev, n_samples):
+    cfg, sd, pts, _, args = _dnerf_case(dev, {}, 500, n_samples)
+    packed = b3.pack_params(canonical_params(sd), cfg, torch.bfloat16)
+    got, gg, dp = b1.render_loss_pts(packed, pts, *args, True, 1.0 / 1500)
+    _, gg2, dp2 = b1.render_loss_pts(packed, pts, *args, True, 1.0 / 1500)
+    ref, gr, dr = b1.render_loss_pts_plain(packed, pts, *args, True, 1.0 / 1500)
+    torch.cuda.synchronize()
+    diff = (got.rgb - ref.rgb).abs()
+    assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
+    rel = _rel_l2(_b5_grads(gg, dp, packed), _b5_grads(gr, dr, packed))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(gg[0], gg2[0]) and torch.equal(gg[1], gg2[1]) and torch.equal(dp, dp2)
+
+
+def test_b5_b6_reject_bad_inputs(dev):
+    cfg, sd, pts, times, (ve, z, dist, noise, target) = _dnerf_case(dev, DNERF_SMALL, 16, 8)
+    packed = b3.pack_params(canonical_params(sd), cfg, torch.float32)
+    with pytest.raises(ValueError):
+        b1.render_loss_pts(packed, pts[:, :4].contiguous(), ve, z, dist, noise, target, True, 1.0)
+    with pytest.raises(ValueError):
+        b1.render_loss_pts(packed, pts.transpose(0, 1).contiguous().transpose(0, 1), ve, z, dist, noise, target,
+                           True, 1.0)
+    tn = b6.pack_time_params(sd, cfg, torch.float32)
+    with pytest.raises(ValueError):
+        b6.time_net(tn, pts, times[:8].contiguous())
+
+
+def test_dnerf_kernel_step_matches_eager_step(dev):
+    """One kernel D-NeRF train step (B6, B3's pts mode, B5, B2; fp32
+    operands; shared model, TV on) against the eager autograd step from the
+    same state and draws; the eager step in float64 on the CPU is the
+    reference of the fallbacks."""
+    from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+    from swnerf_torch.train.fused_step import make_fused_dnerf_step
+    from swnerf_torch.train.loop import init_train_state, make_dnerf_train_step
+
+    cfg = DNeRFConfig(netdepth=6, netwidth=128, skips=(4,), multires=10, multires_views=4)
+    rcfg = RenderConfig(n_samples=32, n_importance=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0,
+                        coarse_contributes=False)
+    o, d, vd, _, _ = _rays(dev, 256, 8)
+    g = torch.Generator(device=dev).manual_seed(2)
+    times = torch.rand((256, 1), generator=g, device=dev)
+    times[:64] = 0.0
+    rays = Rays(o, d, vd, torch.full((256,), 2.0, device=dev), torch.full((256,), 6.0, device=dev), times)
+    target = torch.rand((256, 3), generator=g, device=dev)
+    draws = make_draws(rcfg, 256, torch.Generator(device=dev).manual_seed(3), dev)
+
+    def state(device, dtype=torch.float32):
+        net = DirectTemporalNeRF(cfg, device=device, generator=torch.Generator().manual_seed(0)).to(dtype)
+        return init_train_state(net, None, 5e-4, 500)
+
+    def grads(st):
+        return {k: p.grad for k, p in st.coarse.named_parameters()}
+
+    sk, se, s64, s64p = state(dev), state(dev), state("cpu", torch.float64), state("cpu", torch.float64)
+    with torch.no_grad():
+        for p in s64p.coarse.parameters():
+            p.copy_(_jitter(p))
+    before = (launches["render_loss[pts,S=96]"], launches["time_net[bwd]"])
+    mk = make_fused_dnerf_step(cfg, rcfg, add_tv_loss=True, tv_loss_weight=1e-2, compute_dtype=torch.float32)(
+        sk, rays, target, 0.4, draws=draws)
+    me = make_dnerf_train_step(rcfg, True, 1e-2)(se, rays, target, 0.4, draws=draws)
+    cpu64 = lambda x: None if x is None else x.cpu().double()  # noqa: E731
+    m64, m64p = (make_dnerf_train_step(rcfg, True, 1e-2)(st, Rays(*(cpu64(x) for x in rays)), cpu64(target), 0.4,
+                                                          draws=Draws(*(cpu64(x) for x in draws))) for st in (s64, s64p))
+    torch.cuda.synchronize()
+    assert (launches["render_loss[pts,S=96]"], launches["time_net[bwd]"]) == (before[0] + 1, before[1] + 1)
+    lk, le, l64, l64p = (m["total_loss"].item() for m in (mk, me, m64, m64p))
+    assert abs(lk - le) <= 1e-5 * abs(le) or abs(lk - l64) <= 2 * max(abs(le - l64), abs(l64p - l64)), (lk, le, l64)
+    _assert_fp32_grads(grads(sk), grads(se), grads(s64), grads(s64p))
