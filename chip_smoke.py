@@ -2,7 +2,8 @@
 """Smoke test of swnerf_torch on one NVIDIA card: build the CUDA kernels,
 hold each against its plain PyTorch twin, render test views of the trained
 vanilla NeRF, T-NeRF and D-NeRF and resume their training through the real
-CLIs, and time the kernels.
+CLIs, train a MultiRes D-NeRF from scratch through its CLI, and time the
+kernels.
 
     python3 chip_smoke.py
 
@@ -86,7 +87,32 @@ Phases (each raises on failure; nothing is caught):
      print, 800100.tar and 800200.tar with Adam step 800200, the B5 and B6
      launch counts), ms per step, rays/s, samples/s, a per-stage breakdown;
  22. test frame 5 from 800200.tar through the serving path, within 0.5 dB
-     of phase 20's; then the JSON lines.
+     of phase 20's;
+ 23. MultiRes: B7 (the field trunk on embedded inputs, forward and backward
+     with the position embedding's cotangent) and the widened B6 against
+     their twins at the per-level widths of configs/multires/lego.txt (D=8,
+     W=256; (20, 8, 20), (10, 4, 10), identity; seeded weights) on 500
+     seeded pixels of a train view of phase 11's scene, 64 jittered samples:
+     fp32 raw atol 1e-4 / rtol 1e-4 and dx atol 1e-5, gradients (and demb)
+     at phase 17's bar; bf16 raw within 1e-2 of its largest value, dx 1e-2,
+     gradients rel L2 1e-2; bit-equal repeats; the forward-only launches
+     (the test render's) at the same bars and bit-equal to the train-mode
+     ones; the last 500 rays of the test render's 2.1M-row chunk against
+     the twins at the bf16 bars; then their times at each level's rows;
+ 24. one phase-1 step (level 0) and one phase-2 step (all four levels) on
+     the kernel route against the plain route, same weights and draws: fp32
+     loss rel 1e-5, gradients at phase 17's bar; bf16 loss rel 2e-2;
+ 25. the MultiRes main path: ``run_multires --config configs/multires/lego.txt``
+     on phase 11's scene (200x200 after half_res) from scratch with
+     --raw_noise_std 1 (live densities), 100 phase-1 steps per level and
+     100 phase-2 steps with the global term from iteration 100 on, the test
+     set reconstructed at 200: each level's phase-1 loss falls from its
+     first print to its last, the phase-2 loss moves, the global PSNR is
+     finite, 000100.tar and 000200.tar carry the per-level keys, B6 and B7
+     launched; ms per phase-1 step (per level), per phase-2 step and per
+     reconstructed test frame; test frames 0/5/10/15/20 from 000200.tar
+     reconstructed by the bf16 kernels within 0.1 dB (mean PSNR) of the fp32
+     plain route, and not equal to it; then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -440,6 +466,9 @@ def main() -> int:
         # against their twins, the kernel step, serving, training, and the
         # trained checkpoint serves
         kernels += dnerf_phases(dev, tmp, tmp / "data_dyn_400")
+        # ---- 23-25. MultiRes on the same scene: B7 and the widened B6
+        # against their twins, the steps against the plain route, the CLI
+        kernels += multires_phases(dev, tmp, tmp / "data_dyn_400")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1692,8 +1721,8 @@ def phase19_step(dev, cfg, model, data):
     draws = make_draws(rcfg, 500, torch.Generator(device=dev).manual_seed(3), dev)
     t_n, tv_w = 0.41, 1e-4  # a neighbour time between frames; the config's TV weight
 
-    def fresh(device=dev, dtype=torch.float32, perturb=False):
-        m = DirectTemporalNeRF(cfg, device=device)
+    def fresh(device=dev, dtype=torch.float32, perturb=False):  # the plain route: the eager step is the reference
+        m = DirectTemporalNeRF(cfg, device=device, fused=False)
         m.load_state_dict(model.state_dict())
         m = m.to(dtype)
         if perturb:
@@ -2046,6 +2075,571 @@ def phase22_serve(tmp, data, psnr_before):
           f"(delta {unit[1] - psnr_before:+.3f} dB)")
     if savedir.name != "renderonly_test_800200" or abs(unit[1] - psnr_before) > 0.5:
         fail(f"test frame 5 from 800200.tar: {unit[1]} dB, more than 0.5 dB from {psnr_before}")
+
+
+# ---------------------------------------------------------------- MultiRes phases
+
+MULTIRES_CONFIG = ROOT / "configs" / "multires" / "lego.txt"
+MR_FRAMES = (0, 5, 10, 15, 20)  # test frames held to the fp32 plain route in phase 25
+MR_NOISE = ("--raw_noise_std", "1")  # phase 25's one change to the config: live densities (phase25_train)
+
+
+def multires_phases(dev, tmp, data):
+    """Phases 23-25 on phase 11's scene. Returns the [kernel] rows of B7
+    and of B6's MultiRes instantiation (forward, backward), with the launch
+    counts of the MultiRes main path."""
+    rows = phase23_kernels(dev, data)
+    phase24_steps(dev, data)
+    counts = phase25_train(dev, tmp, data)
+    counter = {"time_net[multires]": "time_net", "time_net[multires,bwd]": "time_net[bwd]"}
+    for k, row in rows.items():
+        row["launches"] = counts.get(counter.get(k, k), 0)
+        print(f"[23 kernel] {row['name']}: {row['ms']:.3f} ms/launch (plain {row['plain_ms']:.3f} ms), bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} -> {100 * row['bound_ms'] / row['ms']:.2f}% of the "
+              f"bound, {row['launches']} launches on the MultiRes main path")
+    return list(rows.values())
+
+
+def mr_args(*extra):
+    from swnerf_torch.utils.config import config_parser_dnerf
+
+    return config_parser_dnerf().parse_args(["--config", str(MULTIRES_CONFIG), *extra])
+
+
+def mr_level_model(dev, level, seed, **kw):
+    """A MultiRes level's field at the config's full width (D=8, W=256, skip
+    4) with seeded weights."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.pipelines import run_multires as mr
+
+    cfg = mr._level_cfg(mr_args(), mr.CHANNEL_LIST[level])
+    return DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def phase23_kernels(dev, data):
+    """B7 and the widened B6 against their twins at each level's widths on
+    the phase-1 shape (500 rays x 64 samples = 32,000 rows), then their
+    times at each level's rows. Returns B7's two [kernel] rows."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.ops.sampling import sample_along_rays
+
+    rays, _ = frame_rays(dev, data, "train", 37)
+    g = torch.Generator(device=dev).manual_seed(0)
+    sel = torch.randint(0, rays.origins.shape[0], (1024,), generator=g, device=dev)
+    r = type(rays)(*(x[sel] for x in rays))
+    z = sample_along_rays(r.near, r.far, 64, 1.0, generator=g)
+    pts_all = (r.origins[:, None, :] + r.directions[:, None, :] * z[..., None]).contiguous()  # up to 65,536 rows
+    t_all = r.times.reshape(-1).contiguous()
+    pts, t = pts_all[:500], t_all[:500]  # the checks: the phase-1 shape
+    P = pts.shape[0] * pts.shape[1]
+    err16 = {"time_net": 0.0, "trunk": 0.0}
+    cases = {}
+    for level in (0, 1, 3):
+        model = mr_level_model(dev, level, seed=level)
+        cfg, sd, occ = model.cfg, model.state_dict(), model._occ.state_dict()
+        cot = torch.randn(pts.shape, generator=g, device=dev)
+        # B6 at the level's (Lx, Lt)
+        p32 = b6.pack_time_params(sd, cfg, torch.float32)
+        dx, gk = b6.time_net_fwd_bwd(p32, pts, t, cot)
+        _, gk2 = b6.time_net_fwd_bwd(p32, pts, t, cot)
+        ref, gr = b6.time_net_plain(p32, pts, t), b6.time_net_plain_bwd(p32, pts, t, cot)
+        p64 = dataclasses.replace(p32, weights=p32.weights.double())
+        g64 = b6.time_net_plain_bwd(p64, pts.double(), t.double(), cot.double())
+        g64p = b6.time_net_plain_bwd(dataclasses.replace(p64, weights=jitter(p64.weights)), pts.double(), t.double(),
+                                     cot.double())
+        dxf = b6.time_net(p32, pts, t)  # the forward-only launch the test render runs
+        torch.cuda.synchronize()
+        ddx = (dx - ref).abs().max().item()
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])
+        fwd_same = torch.equal(dxf, dx)
+        print(f"[23 B6 fp32 level {level}] input {p32.cin} of {p32.cin_pad} rows: max|ddx|={ddx:.3e} "
+              f"(max|dx| {ref.abs().max().item():.3e}) repeat bit-equal={same}; forward-only launch max|ddx|="
+              f"{(dxf - ref).abs().max().item():.3e}, bit-equal to train mode={fwd_same}")
+        if ddx > 1e-5 or not same or not fwd_same:
+            fail(f"B6 fp32 level {level}: max |ddx| {ddx} > 1e-5, repeats differ or the forward-only launch differs "
+                 "from the train-mode one")
+        check_fp32_grads(f"23 B6 fp32 level {level}", *(b6.unpack_time_grads(x, p32) for x in (gk, gr, g64, g64p)))
+        p16 = b6.pack_time_params(sd, cfg, torch.bfloat16)
+        dx16, gk = b6.time_net_fwd_bwd(p16, pts, t, cot)
+        _, gk2 = b6.time_net_fwd_bwd(p16, pts, t, cot)
+        ref16, gr = b6.time_net_plain(p16, pts, t), b6.time_net_plain_bwd(p16, pts, t, cot)
+        dxf = b6.time_net(p16, pts, t)
+        torch.cuda.synchronize()
+        ddx = (dx16 - ref16).abs().max().item()
+        rel = rel_l2(b6.unpack_time_grads(gk, p16), b6.unpack_time_grads(gr, p16))
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])
+        fwd_same = torch.equal(dxf, dx16)
+        print(f"[23 B6 bf16 level {level}] max|ddx|={ddx:.3e} grads max rel L2={max(rel.values()):.3e} "
+              f"({max(rel, key=rel.get)}) repeat bit-equal={same}; forward-only launch max|ddx|="
+              f"{(dxf - ref16).abs().max().item():.3e}, bit-equal to train mode={fwd_same}")
+        if ddx > 1e-2 or max(rel.values()) > 1e-2 or not same or not fwd_same:
+            fail(f"B6 bf16 level {level}: max |ddx| > 1e-2, gradient rel L2 > 1e-2, repeats differ or the forward-only "
+                 "launch differs from the train-mode one")
+        err16["time_net"] = max(err16["time_net"], ddx)
+        del gk, gk2, gr, g64, g64p
+
+        # B7 at the embedded warped positions and the view embedding
+        emb = positional_encoding((pts + ref).reshape(P, 3), cfg.nf_pts).contiguous()
+        vemb = positional_encoding(r.viewdirs[:500], cfg.nf_views)[:, None, :].expand(500, 64, -1).reshape(P, -1)
+        vemb = vemb.contiguous()
+        graw = torch.randn((P, 4), generator=g, device=dev)
+        c32 = b7.pack_trunk_params(occ, cfg, torch.float32)
+        raw, gk, dk, _ = b7.trunk_fwd_bwd(c32, emb, vemb, graw)
+        _, gk2, dk2, _ = b7.trunk_fwd_bwd(c32, emb, vemb, graw)
+        rref = b7.trunk_plain(c32, emb, vemb)
+        gr, dr, _ = b7.trunk_plain_bwd(c32, emb, vemb, graw)
+        c64 = dataclasses.replace(c32, weights=c32.weights.double())
+        g64, d64, _ = b7.trunk_plain_bwd(c64, emb.double(), vemb.double(), graw.double())
+        g64p, d64p, _ = b7.trunk_plain_bwd(dataclasses.replace(c64, weights=jitter(c64.weights)), emb.double(),
+                                           vemb.double(), graw.double())
+        rawf = b7.trunk(c32, emb, vemb)  # the forward-only launch the test render runs
+        torch.cuda.synchronize()
+        draw = (raw - rref).abs().max().item()
+        raw_ok = torch.allclose(raw, rref, atol=1e-4, rtol=1e-4)
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1]) and torch.equal(dk, dk2)
+        fwd_same = torch.equal(rawf, raw)
+        print(f"[23 B7 fp32 level {level}] emb {c32.cin} of 128, vemb {c32.input_ch_views} of 128: "
+              f"max|draw|={draw:.3e} (max|raw| {rref.abs().max().item():.3e}) within atol/rtol 1e-4={raw_ok} "
+              f"max|ddemb|={(dk - dr).abs().max().item():.3e} repeat bit-equal={same}; forward-only launch "
+              f"max|draw|={(rawf - rref).abs().max().item():.3e}, bit-equal to train mode={fwd_same}")
+        if not raw_ok or not same or not fwd_same:
+            fail(f"B7 fp32 level {level}: raw outside atol/rtol 1e-4, repeats differ or the forward-only launch "
+                 "differs from the train-mode one")
+        check_fp32_grads(f"23 B7 fp32 level {level}", *(dict(b7.unpack_trunk_grads(gg, pp), demb=dd) for gg, dd, pp in (
+            (gk, dk, c32), (gr, dr, c32), (g64, d64, c64), (g64p, d64p, c64))))
+        del gk, gk2, gr, g64, g64p
+        c16 = b7.pack_trunk_params(occ, cfg, torch.bfloat16)
+        raw, gk, dk, _ = b7.trunk_fwd_bwd(c16, emb, vemb, graw)
+        _, gk2, dk2, _ = b7.trunk_fwd_bwd(c16, emb, vemb, graw)
+        rref = b7.trunk_plain(c16, emb, vemb)
+        gr, dr, _ = b7.trunk_plain_bwd(c16, emb, vemb, graw)
+        rawf = b7.trunk(c16, emb, vemb)
+        torch.cuda.synchronize()
+        draw = (raw - rref).abs().max().item()
+        scale = rref.abs().max().item()
+        rel = rel_l2(dict(b7.unpack_trunk_grads(gk, c16), demb=dk), dict(b7.unpack_trunk_grads(gr, c16), demb=dr))
+        same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1]) and torch.equal(dk, dk2)
+        fwd_same = torch.equal(rawf, raw)
+        print(f"[23 B7 bf16 level {level}] max|draw|={draw:.3e} (max|raw| {scale:.3e}) grads and demb max rel "
+              f"L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}; forward-only launch "
+              f"max|draw|={(rawf - rref).abs().max().item():.3e}, bit-equal to train mode={fwd_same}")
+        if draw > 1e-2 * scale or max(rel.values()) > 1e-2 or not same or not fwd_same:
+            fail(f"B7 bf16 level {level}: raw beyond 1e-2 of its largest value, gradient rel L2 > 1e-2, repeats "
+                 "differ or the forward-only launch differs from the train-mode one")
+        err16["trunk"] = max(err16["trunk"], draw)
+        cases[level] = (p16, c16, cfg)
+        del gk, gk2, gr
+        torch.cuda.empty_cache()
+
+    # times, bf16 (the main path's operands): every level's phase-1 rows
+    # (32,000) and its phase-2 patch rows (32^2, 16^2, 8^2, 4^2 rays x 64),
+    # on the sample positions (unwarped) of the 1,024 rays
+    rows = {}
+    vd_all = r.viewdirs
+    for level, (p16, c16, cfg) in cases.items():
+        emb_all = positional_encoding(pts_all.reshape(-1, 3), cfg.nf_pts).contiguous()
+        vemb_all = positional_encoding(vd_all, cfg.nf_views)[:, None, :].expand(1024, 64, -1).reshape(65536, -1)
+        vemb_all = vemb_all.contiguous()
+        graw_all = torch.randn((65536, 4), generator=g, device=dev)
+        cot_all = torch.randn((65536, 3), generator=g, device=dev)
+        for n_rows in sorted({P, (32 >> level) ** 2 * 64}):
+            e, v, gg = emb_all[:n_rows], vemb_all[:n_rows], graw_all[:n_rows]
+            sc = b7._scratch(c16, n_rows, dev)
+            fwd = cuda_ms(lambda: b7._launch_fwd(c16, e, v, sc), 10)
+            bwd = cuda_ms(lambda: b7._launch_bwd(c16, n_rows, gg, sc, True, False), 10)
+            n_rays = n_rows // 64
+            pp, tt, cc = pts_all[:n_rays], t_all[:n_rays], cot_all[:n_rows]
+            sc6 = b6._scratch(p16, n_rows, dev)
+            f6 = cuda_ms(lambda: b6._launch_fwd(p16, pp, tt, sc6), 10)
+            b6ms = cuda_ms(lambda: b6._launch_bwd(p16, n_rows, cc, sc6), 10)
+            print(f"[23 times level {level}] {n_rows} rows, bf16: B7 forward (train mode) {fwd:.3f} ms, backward "
+                  f"(with demb) {bwd:.3f} ms; B6 forward (train mode) {f6:.3f} ms, backward {b6ms:.3f} ms")
+            if level == 0 and n_rows == P:  # the [kernel] rows: level 0, phase 1
+                nw, nb = c16.weights.numel(), c16.biases.numel()
+                rows["trunk"] = entry(
+                    "trunk", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:435", 0,
+                    err16["trunk"], fwd, cuda_ms(lambda: b7.trunk_plain(c16, e, v), 3),
+                    4 * (e.numel() + v.numel() + 4 * n_rows) + 2 * nw + 4 * nb, 2 * c16.macs_per_row * n_rows, "bf16")
+                rows["trunk[bwd]"] = entry(
+                    "trunk[bwd]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:446", 0,
+                    err16["trunk"], bwd, cuda_ms(lambda: b7.trunk_plain_bwd(c16, e, v, gg), 3),
+                    4 * (4 * n_rows + e.numel()) + 2 * nw + 4 * (nw + nb), 2 * c16.bwd_macs_per_row() * n_rows, "bf16")
+                # B6's MultiRes rows: its 144-row instantiation at the same
+                # rows; the D-NeRF rows keep the 96-row code at its shapes
+                nw6, nb6 = p16.weights.numel(), p16.biases.numel()
+                rows["time_net[multires]"] = entry(
+                    "time_net[multires]", "swnerf_torch/csrc/time_net.cu", "swnerf_tpu/ops/pallas/raymarch.py:470", 0,
+                    err16["time_net"], f6, cuda_ms(lambda: b6.time_net_plain(p16, pp, tt), 3),
+                    4 * (3 * n_rows + n_rays + 3 * n_rows) + 2 * nw6 + 4 * nb6, 2 * p16.macs_per_row * n_rows, "bf16")
+                rows["time_net[multires,bwd]"] = entry(
+                    "time_net[multires,bwd]", "swnerf_torch/csrc/time_net.cu",
+                    "swnerf_tpu/ops/pallas/raymarch.py:480", 0, err16["time_net"], b6ms,
+                    cuda_ms(lambda: b6.time_net_plain_bwd(p16, pp, tt, cc), 3),
+                    4 * (3 * n_rows + 3 * n_rows + n_rays) + 2 * nw6 + 4 * (nw6 + nb6),
+                    2 * p16.bwd_macs_per_row * n_rows, "bf16")
+                print(f"[23 B6 level 0] {p16.macs_per_row} / {p16.bwd_macs_per_row} MACs per row: forward "
+                      f"{2 * p16.macs_per_row * n_rows / f6 / 1e9:.2f} TFLOP/s, backward "
+                      f"{2 * p16.bwd_macs_per_row * n_rows / b6ms / 1e9:.2f} TFLOP/s; B7 {c16.macs_per_row} / "
+                      f"{c16.bwd_macs_per_row()} MACs per row: forward {2 * c16.macs_per_row * n_rows / fwd / 1e9:.2f}"
+                      f" TFLOP/s, backward {2 * c16.bwd_macs_per_row() * n_rows / bwd / 1e9:.2f} TFLOP/s")
+            del sc, sc6
+        torch.cuda.empty_cache()
+    # the test render's chunk at level 0, forward only: 32,768 rays x 64 samples
+    p16, c16, cfg0 = cases[0]
+    big_pts = pts_all.repeat(32, 1, 1).contiguous()
+    big_t = t_all.repeat(32).contiguous()
+    big_emb = positional_encoding(big_pts.reshape(-1, 3), cfg0.nf_pts).contiguous()
+    big_vemb = positional_encoding(vd_all, cfg0.nf_views)[:, None, :].expand(1024, 64, -1).reshape(65536, -1)
+    big_vemb = big_vemb.repeat(32, 1).contiguous()
+    # the chunk's last 500 rays (the last blocks of the launch) against the
+    # twins, at the bf16 bars above, before the times
+    raw_big, dx_big = b7.trunk(c16, big_emb, big_vemb)[-P:], b6.time_net(p16, big_pts, big_t)[-500:]
+    rref = b7.trunk_plain(c16, big_emb[-P:], big_vemb[-P:])
+    dref = b6.time_net_plain(p16, big_pts[-500:], big_t[-500:])
+    torch.cuda.synchronize()
+    draw, ddx = (raw_big - rref).abs().max().item(), (dx_big - dref).abs().max().item()
+    print(f"[23 check level 0] the test render's chunk, forward only, bf16, its last {P} rows against the twins: B7 "
+          f"max|draw|={draw:.3e} (max|raw| {rref.abs().max().item():.3e}), B6 max|ddx|={ddx:.3e}")
+    if draw > 1e-2 * rref.abs().max().item() or ddx > 1e-2:
+        fail("B7 or B6 at the test render's chunk: raw beyond 1e-2 of its largest value or max |ddx| > 1e-2")
+    del raw_big, dx_big, rref, dref
+    f7 = cuda_ms(lambda: b7.trunk(c16, big_emb, big_vemb), 3)
+    f6 = cuda_ms(lambda: b6.time_net(p16, big_pts, big_t), 3)
+    # the slow path of sinf/cosf: B6 at level 0 against the same launch with the encode's arguments small
+    small = (big_pts * 2.0**-19).contiguous()
+    f6s = cuda_ms(lambda: b6.time_net(p16, small, big_t), 3)
+    print(f"[23 times level 0] the test render's chunk, {big_emb.shape[0]} rows, forward only, bf16: B7 {f7:.3f} ms "
+          f"({2 * c16.macs_per_row * big_emb.shape[0] / f7 / 1e9:.2f} TFLOP/s), B6 {f6:.3f} ms; B6 on the same rows "
+          f"scaled by 2^-19 (the encode's arguments below 1 rad, sinf/cosf's fast path): {f6s:.3f} ms, so the slow "
+          f"path of the 2^19 arguments costs {f6 - f6s:.3f} ms ({100 * (f6 - f6s) / f6:.1f}%)")
+    del big_emb, big_vemb, cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase24_steps(dev, data):
+    """One phase-1 step at level 0 (500 rays, TV on) and one phase-2 step over
+    the four levels (patches of 32/16/8/4 pixels at the centre, the global
+    term on) on the kernel route against the plain route, from the same
+    weights and draws; the plain route in float64 (and on weights perturbed
+    at fp32's size) as the reference of check_fp32_grads' fallback. The
+    deformation heads are scaled by 1e-3: at level 0 the encode reaches
+    2^19 |x|, and a dx of O(1) would carry its fp32 rounding into the
+    canonical input as ~0.05 rad, a difference of conditioning, not of the
+    kernels (tests/test_torch_multires.py); dx of O(1e-3) leaves the
+    comparison well conditioned."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.pipelines.common import load_scene, make_time_image_step
+    from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+    from swnerf_torch.train.loop import init_train_state, make_dnerf_train_step
+
+    args = mr_args("--datadir", str(data), "--device", "cuda")
+    args.dataset_type = "blender_dnerf"
+    scene = load_scene(args)
+    rcfg = RenderConfig(n_samples=64, perturb=1.0, white_bkgd=True)
+
+    def models(dtype=torch.float32):
+        """Per level: (kernel route, plain route fp32, plain float64, plain
+        float64 perturbed), from one seeded set of weights."""
+        out = []
+        for level in range(4):
+            kern = mr_level_model(dev, level, seed=10 + level, compute_dtype=dtype)
+            with torch.no_grad():
+                kern._time_out.weight.mul_(1e-3)
+                kern._time_out.bias.mul_(1e-3)
+            plains = []
+            for pdt, perturb in ((torch.float32, False), (torch.float64, False), (torch.float64, True)):
+                m = DirectTemporalNeRF(kern.cfg, device=dev, fused=False)
+                m.load_state_dict(kern.state_dict())
+                m = m.to(pdt)
+                if perturb:
+                    with torch.no_grad():
+                        for p in m.parameters():
+                            p.copy_(jitter(p))
+                plains.append(m)
+            out.append((kern, *plains))
+        return out
+
+    def grads(st):
+        return {k: p.grad.detach().clone() for k, p in st.coarse.named_parameters()}
+
+    # phase 1, level 0: the CLI's step on 500 pixels of train view 37
+    images = torch.as_tensor(scene.images, device=dev)
+    poses = torch.as_tensor(scene.poses[:, :3, :4], device=dev)
+    times = torch.as_tensor(scene.times, device=dev)
+    pix = torch.randint(0, scene.H, (500, 2), generator=torch.Generator().manual_seed(1)).numpy()
+
+    def phase1(model, dtype):
+        st = init_train_state(model, None, 5e-4, 250)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        cast = lambda x: None if x is None else x.to(dtype)  # noqa: E731
+
+        def step(s, rays, target, nt, generator):  # the float64 step takes the fp32 rays, cast
+            draws = make_draws(rcfg, rays.origins.shape[0], generator, dev)
+            return make_dnerf_train_step(rcfg, True, 1e-3)(s, Rays(*(cast(x) for x in rays)), cast(target), nt,
+                                                           draws=Draws(*(cast(x) for x in draws)))
+
+        m = make_time_image_step(step, rcfg, scene, pass_neighbor=True)(st, images, poses, times, 37, pix, 0.41, gen)
+        return m["total_loss"].item(), grads(st)
+
+    sets = models()
+    (lk, gk), (lp, gp), (l64, g64), (l64p, g64p) = (phase1(m, dt) for m, dt in zip(
+        sets[0], (torch.float32, torch.float32, torch.float64, torch.float64)))
+    torch.cuda.synchronize()
+    dl = abs(lk - lp) / lp
+    print(f"[24 phase 1 fp32 level 0] total_loss kernel route {lk:.8f} plain {lp:.8f} rel {dl:.3e}; float64 {l64:.8f}"
+          f" (perturbed {l64p:.8f})")
+    if dl > 1e-5 and abs(lk - l64) > 2 * max(abs(lp - l64), abs(l64p - l64)):
+        fail(f"phase-1 step loss rel {dl} > 1e-5, and further from the float64 step than fp32 moves it")
+    check_fp32_grads("24 phase 1 fp32 level 0", gk, gp, g64, g64p)
+    # bf16: 2e-2, five of bf16's unit roundoffs (2^-8); a broken operand path
+    # lands O(1) away. On these seeded weights level 0 measures 1.35e-2 on an
+    # H100 (PERF.md): its 123- and 140-column encodings round to bf16 at
+    # every layer.
+    l16, _ = phase1(models(torch.bfloat16)[0][0], torch.float32)
+    print(f"[24 phase 1 bf16 level 0] total_loss {l16:.8f} vs the fp32 plain route: rel {abs(l16 - lp) / lp:.3e}")
+    if abs(l16 - lp) / lp > 2e-2:
+        fail(f"bf16 phase-1 step loss rel {abs(l16 - lp) / lp} > 2e-2")
+
+    # phase 2: every level's centre patch of train view 37, global weight 1
+    L = 4
+    pyr_hwf = [[scene.H // 2**l, scene.W // 2**l, scene.focal / 2**l] for l in range(L)]
+    patch_sizes = [32, 16, 8, 4]
+    coords = [(10 << (L - 1 - l), 10 << (L - 1 - l)) for l in range(L)]  # (80, 80) at level 0 .. (10, 10)
+    with torch.no_grad():
+        lap = generate_laplacian_pyramid(images[37:38], levels=L)
+    pixels = [torch.stack(torch.meshgrid(torch.arange(y, y + ps, device=dev), torch.arange(x, x + ps, device=dev),
+                                         indexing="ij"), -1).reshape(-1, 2) for (y, x), ps in zip(coords, patch_sizes)]
+    targets = [lap[l][0, y : y + ps, x : x + ps] for l, ((y, x), ps) in enumerate(zip(coords, patch_sizes))]
+    full = images[37, 80:112, 80:112]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    draws = [make_draws(rcfg, ps * ps, gen, dev) for ps in patch_sizes]
+    step = mr.make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far)
+    sets = models()  # fresh weights: each phase-1 step above applied its own Adam update
+
+    def phase2(ms, dtype):
+        states = [init_train_state(m, None, 5e-4, 250) for m in ms]
+        cast = lambda x: x.to(dtype)  # noqa: E731
+        m = step(states, pixels, [cast(x) for x in targets], cast(full), cast(poses[37]), float(scene.times[37]), 1.0,
+                 draws=[Draws(cast(d.t_rand), None, None, None) for d in draws])
+        return m, [grads(s) for s in states]
+
+    (mk, gk), (mp, gp), (m64, g64), (m64p, g64p) = (phase2([s[i] for s in sets], dt) for i, dt in enumerate(
+        (torch.float32, torch.float32, torch.float64, torch.float64)))
+    torch.cuda.synchronize()
+    lk, lp, l64, l64p = (m["total_loss"].item() for m in (mk, mp, m64, m64p))
+    dl = abs(lk - lp) / lp
+    print(f"[24 phase 2 fp32] total_loss kernel route {lk:.8f} plain {lp:.8f} rel {dl:.3e} (global loss "
+          f"{mk['global_loss'].item():.6f} vs {mp['global_loss'].item():.6f}); float64 {l64:.8f} (perturbed {l64p:.8f})")
+    if dl > 1e-5 and abs(lk - l64) > 2 * max(abs(lp - l64), abs(l64p - l64)):
+        fail(f"phase-2 step loss rel {dl} > 1e-5, and further from the float64 step than fp32 moves it")
+    for l in range(L):
+        check_fp32_grads(f"24 phase 2 fp32 level {l}", gk[l], gp[l], g64[l], g64p[l])
+    m16, _ = phase2([s[0] for s in models(torch.bfloat16)], torch.float32)
+    d16 = abs(m16["total_loss"].item() - lp) / lp
+    print(f"[24 phase 2 bf16] total_loss {m16['total_loss'].item():.8f} vs the fp32 plain route: rel {d16:.3e}")
+    if d16 > 2e-2:
+        fail(f"bf16 phase-2 step loss rel {d16} > 2e-2")
+    del sets
+    torch.cuda.empty_cache()
+
+
+def phase25_train(dev, tmp, data):
+    """The MultiRes main path through run_multires (module docstring, phase
+    25). Returns its launch counts."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.ops.pyramid import reconstruct_from_pyramid
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.pipelines.common import load_scene, render_path
+    from swnerf_torch.train.loop import mse_to_psnr
+
+    # --raw_noise_std 1 (MR_NOISE): without density noise every level's loss
+    # on this scene stopped within 20 steps at the all-white render's, a
+    # density below zero takes no gradient through its ReLU, and the
+    # quality bars below compared two white images.
+    argv = ["--config", str(MULTIRES_CONFIG), "--basedir", str(tmp / "mr_logs"), "--datadir", str(data),
+            "--device", "cuda", "--global_optimization_epoch", "100", "--i_testset", "200", "--i_weights", "100",
+            *MR_NOISE]
+    env = dict(SWNERF_PHASE1_ITERS="100", SWNERF_MAX_ITERS="201")
+    os.environ.update(env)
+    try:
+        launches.clear()
+        t0 = time.perf_counter()
+        res = mr.train(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    exp = tmp / "mr_logs" / "lego"
+    print(f"[25 train] launches {json.dumps(counts, sort_keys=True)}, CLI wall {wall:.2f} s")
+    for k in ("time_net", "time_net[bwd]", "trunk", "trunk[bwd]"):
+        if counts.get(k, 0) <= 0:
+            fail(f"the MultiRes main path launched no {k}")
+    for level in range(4):
+        losses = res["phase1_loss"][level]
+        ms = res["phase1_step_ms"][level]
+        quiet = [v for i, v in ms.items() if i % 20 and (i - 1) % 20]
+        print(f"[25 phase 1 level {level}] loss at the prints {[round(x, 6) for x in losses]}; ms per step, median of "
+              f"{len(quiet)} steps that do not print (CUDA events): {statistics.median(quiet):.3f} "
+              f"(min {min(quiet):.3f}, max {max(quiet):.3f})")
+        if not losses[-1] < losses[0]:
+            fail(f"level {level}'s phase-1 loss did not fall: {losses}")
+    quiet = [v for i, v in res["phase2_step_ms"].items() if i % 20 and (i - 1) % 20 and i % 100 and (i - 1) % 100]
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    gpsnr = [(r["step"], round(r["global_psnr"], 3)) for r in recs if "global_psnr" in r]
+    totals = [(r["step"], r["total_loss"]) for r in recs if "total_loss" in r]
+    print(f"[25 phase 2] ms per step, median of {len(quiet)} steps that neither print nor save: "
+          f"{statistics.median(quiet):.3f} (min {min(quiet):.3f}, max {max(quiet):.3f}); 87,040 rows a step; global "
+          f"PSNR at the prints {gpsnr}; total loss at the prints {[(i, round(v, 6)) for i, v in totals]}")
+    if not gpsnr or not all(np.isfinite(p) for _, p in gpsnr):
+        fail(f"the global PSNR is not finite: {gpsnr}")
+    if len({v for _, v in totals}) < 2:
+        fail(f"the phase-2 loss did not move: {totals}")
+    print(f"[25 test set] {res['test_frame_ms']:.1f} ms per reconstructed test frame (every level's 64-sample render "
+          "through B6 + B7 forward and the reconstruction, 25 frames)")
+    for i in (100, 200):
+        ck = torch.load(str(exp / f"{i:06d}.tar"), map_location="cpu", weights_only=True)
+        keys = sorted(ck)
+        steps = {l: {int(e["step"]) for e in ck[f"optimizer_{l}"]["state"].values()} for l in range(4)}
+        print(f"[25 train] {i:06d}.tar keys {keys}, Adam steps per level {steps}")
+        if set(ck) != {"global_step", *(f"{k}_{l}" for k in ("network_fn", "optimizer") for l in range(4))} or \
+                any(s != {100 + i} for s in steps.values()):
+            fail(f"{i:06d}.tar: keys {keys}, Adam steps {steps}")
+
+    # 000200.tar reconstructed by the bf16 kernels and by the fp32 plain route
+    args = mr_args("--datadir", str(data), "--basedir", str(tmp / "mr_logs"), "--device", "cuda", *MR_NOISE)
+    args.dataset_type = "blender_dnerf"
+    scene = load_scene(args)
+    args.dataset_type = "blender"
+    _, states, pyr_hwf, rcfg, start = mr.create_multires(args, scene, dev)
+    idx = scene.i_test[list(MR_FRAMES)]
+    psnr, recons, renders = {}, {}, {}
+    for route in ("bf16 kernels", "fp32 plain"):
+        levels = []
+        for l, st in enumerate(states):
+            model = st.coarse
+            if route == "fp32 plain":
+                model = DirectTemporalNeRF(st.coarse.cfg, device=dev, fused=False)
+                model.load_state_dict(st.coarse.state_dict())
+            rgbs, _, _ = render_path(model, None, scene.poses[idx], mr.level_scene(scene, pyr_hwf[l]), rcfg, args.chunk,
+                                     times=scene.times[idx])
+            levels.append(torch.as_tensor(rgbs))
+        renders[route] = levels
+        recons[route] = reconstruct_from_pyramid(levels).clamp(0.0, 1.0)
+        gt = torch.as_tensor(scene.images[idx])
+        psnr[route] = [mse_to_psnr(torch.mean((recons[route][k] - gt[k]) ** 2).item()) for k in range(len(idx))]
+    mean = {k: sum(v) / len(v) for k, v in psnr.items()}
+    d = abs(mean["bf16 kernels"] - mean["fp32 plain"])
+    dlev = [(a - b).abs().max().item() for a, b in zip(renders["bf16 kernels"], renders["fp32 plain"])]
+    drec = (recons["bf16 kernels"] - recons["fp32 plain"]).abs()
+    print(f"[25 test set] from {start:06d}.tar, test frames {MR_FRAMES} at 200x200, reconstructed PSNR (data range "
+          f"1): bf16 kernels {[round(x, 3) for x in psnr['bf16 kernels']]} (mean {mean['bf16 kernels']:.4f} dB), fp32 "
+          f"plain route {[round(x, 3) for x in psnr['fp32 plain']]} (mean {mean['fp32 plain']:.4f} dB): |delta| "
+          f"{d:.4f} dB; max |bf16 - fp32| per level's render {[f'{x:.3e}' for x in dlev]}, in the reconstruction "
+          f"{drec.max().item():.3e} (mean {drec.mean().item():.3e})")
+    if start != 200 or d > 0.1:
+        fail(f"the bf16 reconstruction of 000200.tar is {d} dB from the fp32 plain route (> 0.1 dB)")
+    if drec.max().item() == 0.0:
+        fail("the bf16 and fp32 reconstructions are equal: the 0.1 dB bar saw no bf16 error (saturated frames)")
+    multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args)
+    del states
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _device_us(evt):
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+
+
+def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
+    """Device time by kernel family over 10 phase-1 steps at level 0 and 10
+    phase-2 steps (the CLI's steps on 000200.tar's levels, after 3 warm-up
+    steps each), from torch.profiler's CUDA activity, against the host
+    clock around the steps (synchronized): the device's idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.pipelines.common import ImageSampler, make_time_image_step, pick_neighbor_time
+    from swnerf_torch.train.loop import make_dnerf_train_step
+
+    images = torch.as_tensor(scene.images, device=dev)
+    poses = torch.as_tensor(scene.poses[:, :3, :4], device=dev)
+    times = torch.as_tensor(scene.times, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rng = np.random.default_rng(7)
+    lscene = mr.level_scene(scene, pyr_hwf[0], scene.images)
+    sampler = ImageSampler(lscene, args.N_rand, 0, 0.5)
+    p1 = make_time_image_step(make_dnerf_train_step(rcfg, True, args.tv_loss_weight), rcfg, lscene,
+                              pass_neighbor=True)
+
+    def phase1(i):
+        img_i, pix = sampler.next(i)
+        p1(states[0], images, poses, times, img_i, pix, pick_neighbor_time(rng, scene.times, img_i), gen)
+
+    with torch.no_grad():
+        lap = generate_laplacian_pyramid(images, levels=4)
+    patch_sizes = [32, 16, 8, 4]
+    p2 = mr.make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far)
+
+    def phase2(i):
+        coords = mr.initialize_patches(rng, pyr_hwf, i)
+        img_i = int(rng.choice(scene.i_train))
+        pixels = [torch.stack(torch.meshgrid(torch.arange(y, y + ps, device=dev), torch.arange(x, x + ps, device=dev),
+                                             indexing="ij"), -1).reshape(-1, 2)
+                  for (y, x), ps in zip(coords, patch_sizes)]
+        targets = [lap[l][img_i, y : y + ps, x : x + ps] for l, ((y, x), ps) in enumerate(zip(coords, patch_sizes))]
+        y0, x0 = coords[0]
+        p2(states, pixels, targets, images[img_i, y0 : y0 + 32, x0 : x0 + 32], poses[img_i],
+           float(scene.times[img_i]), 1.0, gen)
+
+    families = (("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd",)),
+                ("B6/B7 backward GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
+                                                         "cotangent_kernel", "round_cotangent")))
+    for name, step in (("phase 1, level 0", phase1), ("phase 2", phase2)):
+        for i in range(3):
+            step(1000 + i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(10):
+                step(2000 + i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 10
+        by = dict.fromkeys([f for f, _ in families] + ["other device work (PyTorch)"], 0.0)
+        for evt in prof.key_averages():
+            us = _device_us(evt)
+            if not us or not str(evt.device_type).endswith("CUDA"):  # kernels only, not the ops that launch them
+                continue
+            fam = next((f for f, keys in families if any(k in evt.key for k in keys)), "other device work (PyTorch)")
+            by[fam] += us / 1e3 / 10
+        busy = sum(by.values())
+        if busy == 0.0:
+            print(f"[25 breakdown] {name}: torch.profiler recorded no device time; wall {wall:.3f} ms per step")
+            continue
+        print(f"[25 breakdown] {name}, device ms per step by kernel family (torch.profiler, 10 steps): " + ", ".join(
+            f"{k} {v:.3f} ({100 * v / busy:.1f}%)" for k, v in by.items()) + f"; busy {busy:.3f} of {wall:.3f} ms "
+            f"wall per step: idle share {100 * (1 - busy / wall):.1f}%")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Digest and time the kernels of one checkout of swnerf_torch on the card:
-B2 sample_pdf, B3 render_pass (vanilla, from rays), B1 render_loss
-(vanilla) and B4 (T-NeRF, both modes), on seeded inputs at the main paths'
-shapes. Two checkouts whose digests agree give bit-equal outputs; run both
-in one call, in turns, to compare their times on one card:
+B2 sample_pdf, B3 render_pass (vanilla, from rays, and its pts mode), B1
+render_loss (vanilla), B4 (T-NeRF, both modes), B5 render_loss_pts and B6
+time_net (forward, and forward with backward), on seeded inputs at the D-NeRF
+and earlier main paths' shapes. Two checkouts whose digests agree give
+bit-equal outputs; run both in one call, in turns, to compare their times on
+one card:
 
     python3 kernel_digest.py --root <checkout> [--reps N]
 
@@ -33,12 +35,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_digest: needs a CUDA device", file=sys.stderr)
         return 1
-    from swnerf_torch.models import TNeRF, TNeRFConfig, VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig, TNeRF, TNeRFConfig, VanillaNeRF, VanillaNeRFConfig
     from swnerf_torch.ops.embedding import positional_encoding
     from swnerf_torch.ops.kernels import build
     from swnerf_torch.ops.kernels import render_loss as b1
     from swnerf_torch.ops.kernels import render_pass as b3
     from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.ops.kernels import time_net as b6
 
     assert Path(b3.__file__).resolve().is_relative_to(Path(a.root).resolve()), b3.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -82,6 +85,9 @@ def main() -> int:
     vcfg, tcfg = VanillaNeRFConfig(), TNeRFConfig()
     vsd = VanillaNeRF(vcfg, device=dev, generator=torch.Generator().manual_seed(0)).state_dict()
     tsd = TNeRF(tcfg, device=dev, generator=torch.Generator().manual_seed(1)).state_dict()
+    dcfg = DNeRFConfig()
+    dsd = DirectTemporalNeRF(dcfg, device=dev, generator=torch.Generator().manual_seed(3)).state_dict()
+    canon = {k[len("_occ."):]: v for k, v in dsd.items() if k.startswith("_occ.")}
 
     g = torch.Generator(device=dev).manual_seed(2)
     bins = torch.sort(torch.rand((32768, 63), generator=g, device=dev) * 4 + 2, -1).values
@@ -115,6 +121,33 @@ def main() -> int:
         res, grads = b1.render_loss(*args)
         out[f"render_loss[tnerf,S=64] {tag}"] = {"sha256": digest(list(res) + list(grads)),
                                                  "ms": timed(lambda: b1.render_loss(*args))}
+        # D-NeRF (its main paths' shapes): B3's pts mode at the serving chunk, B5 at
+        # 500 x 192, B6 forward at the serving chunk's fine rows and forward
+        # with backward at the TV pair's 2 x 500 x 192 rows
+        pc = b3.pack_params(canon, dcfg, dtype)
+        pt6 = b6.pack_time_params(dsd, dcfg, dtype)
+        for s in (64, 192):
+            o, d, vd, z, dist, noise, target, t = rays(32768, s, 20 + s)
+            pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+            ve = positional_encoding(vd, dcfg.nf_views).contiguous()
+            args = (pc, None, None, ve, z, dist, None, True, None, pts)
+            out[f"render_pass[pts,S={s}] {tag}"] = {"sha256": digest(b3.render_pass(*args)),
+                                                    "ms": timed(lambda: b3.render_pass(*args))}
+            if s == 192:
+                out[f"time_net {tag}"] = {"sha256": digest([b6.time_net(pt6, pts, t)]),
+                                          "ms": timed(lambda: b6.time_net(pt6, pts, t))}
+        o, d, vd, z, dist, noise, target, t = rays(500, 192, 5)
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+        ve = positional_encoding(vd, dcfg.nf_views).contiguous()
+        args = (pc, pts, ve, z, dist, noise, target, True, 1.0 / 1500)
+        res, grads, dpts = b1.render_loss_pts(*args)
+        out[f"render_loss[pts,S=192] {tag}"] = {"sha256": digest(list(res) + list(grads) + [dpts]),
+                                                "ms": timed(lambda: b1.render_loss_pts(*args))}
+        pair, t2 = torch.cat([pts, pts]).contiguous(), torch.cat([t, torch.full_like(t, 0.41)]).contiguous()
+        cot = torch.randn(pair.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+        dx, grads = b6.time_net_fwd_bwd(pt6, pair, t2, cot)
+        out[f"time_net+bwd {tag}"] = {"sha256": digest([dx, *grads]),
+                                      "ms": timed(lambda: b6.time_net_fwd_bwd(pt6, pair, t2, cot))}
         torch.cuda.empty_cache()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

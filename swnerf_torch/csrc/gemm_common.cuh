@@ -1,8 +1,9 @@
 // The backward machinery shared by the train-mode render kernels B1/B4/B5
-// (render_loss.cu) and the deformation MLP's backward B6 (time_net.cu):
-// activation spills, a 64x64 SIMT GEMM with two epilogues, the fixed-order
-// split reduction for dW, column sums, the scratch carver, and the trunk's
-// reverse sweep.
+// (render_loss.cu), the deformation MLP's backward B6 (time_net.cu) and the
+// field trunk's backward B7 (trunk.cu): activation spills, a 64x64 SIMT GEMM
+// with two epilogues, the fixed-order split reduction for dW, column sums,
+// the scratch carver, the trunk's reverse sweep and the whole field's
+// (heads, then trunk).
 //
 // dW = X^T dZ runs as partial products over a fixed split of the rows, which
 // reduce_kernel adds in split order: no atomics, so two launches on the same
@@ -302,6 +303,118 @@ int trunk_reverse(const T* wts, const size_t* off_w, size_t off_wemb, const T* e
     }
   }
   return 0;
+}
+
+// d hv = (q(g_rgb) @ W_rgb^T) * act'(hv), in fp32 and rounded.
+template <typename T, int WH, Act A>
+__global__ void head_bwd_kernel(const T* __restrict__ gq, const T* __restrict__ hv, int ldh,
+                                const T* __restrict__ w_rgb, long long P, float* __restrict__ dhv32,
+                                T* __restrict__ dhv_c) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= P * WH) return;
+  const long long p = idx / WH;
+  const int j = (int)(idx - p * WH);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) s = fmaf(Op<T>::f(gq[p * 4 + c]), Op<T>::f(w_rgb[j * 3 + c]), s);
+  const float h = Op<T>::f(hv[p * ldh + j]);
+  const float d = A == Act::Elu ? s * elu_grad(h) : (h > 0.f ? s : 0.f);
+  dhv32[idx] = d;
+  dhv_c[idx] = Op<T>::q(d);
+}
+
+// What the field's reverse sweep reads and writes, over P rows: the spilled
+// forward (emb [P][CIN] with its column of ones, vemb [P][CVP], the trunk
+// layers through h, feat [P][W + PADC], hv [P][W/2 + PADC]), the raw
+// cotangent (gq [P][4] in the operand type, graw [P][4] fp32, and
+// q(d sigma) already in column W of dfa [P][W + PADC]), and the work
+// buffers (dz ping-pong [P][W], dhv_c [P][W/2], dhv32 [P][W/2] fp32, the
+// split partials).
+template <typename T, typename H>
+struct FieldTape {
+  const T* emb;
+  const T* vemb;
+  H h;
+  const T* feat;
+  const T* hv;
+  T* dfa;
+  const T* gq;
+  const float* graw;
+  T* const* dz;
+  T* dhv_c;
+  float* dhv32;
+  float* part;
+};
+
+// The field's reverse sweep from the raw cotangent (B1, B4, B5 after their
+// composite backward; B7 from its given cotangent), in the packed layout of
+// ops/kernels/render_pass.py::weight_layout with the input padded to CIN and
+// the view embedding to CVP rows: the rgb head and the view layer, d feat
+// next to d sigma, the feature + alpha product, then the trunk
+// (trunk_reverse). gw / gb are the packed fp32 gradients (zeroed by the
+// caller); demb [P][cin] (B5, B7) and dvemb [P][cv] (B7) are the input
+// cotangents in fp32, formed where not null.
+template <typename T, int W, Act ACT, typename H>
+int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int cv, long long P,
+                  const FieldTape<T, H>& tp, float* gw, float* gb, float* demb, float* dvemb, cudaStream_t st) {
+  constexpr bool ELU = ACT == Act::Elu;
+  constexpr int WH = W / 2;
+  constexpr int LDW = W + PADC;
+  constexpr int LDH = WH + PADC;
+  size_t off_w[16], off_wemb = 0;
+  const size_t o = trunk_offsets(D, skip, CIN, W, off_w, &off_wemb);
+  const size_t off_feat = o, off_alpha = o + (size_t)W * W;
+  const size_t off_vf = off_alpha + W, off_vv = off_vf + (size_t)W * WH, off_rgb = off_vv + (size_t)CVP * WH;
+  float* gb_feat = gb + (size_t)D * W;
+  float* gb_views = gb_feat + W;
+  float* gb_rgb = gb_views + WH;
+  float* gb_alpha = gb_rgb + 3;
+  const Region none{nullptr, 0, nullptr};
+
+  // rgb head and view layer
+  head_bwd_kernel<T, WH, ACT><<<ceil_div(P * WH, 256), 256, 0, st>>>(tp.gq, tp.hv, LDH, wts + off_rgb, P, tp.dhv32,
+                                                                     tp.dhv_c);
+  SWNERF_CHECK(cudaGetLastError());
+  SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.hv, 1, LDH, tp.gq, 4, 1, WH, 4, (int)P), tp.part, WH, 3,
+                            Region{gw + off_rgb, 3, nullptr}, none, st));
+  SWNERF_RUN(colsum(tp.graw, 4, 3, P, tp.part, gb_rgb, st));
+  SWNERF_RUN(colsum(tp.dhv32, WH, WH, P, tp.part, gb_views, st));
+  SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.feat, 1, LDW, tp.dhv_c, WH, 1, W, WH, (int)P), tp.part, W, WH,
+                            Region{gw + off_vf, WH, nullptr}, none, st));
+  SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.vemb, 1, CVP, tp.dhv_c, WH, 1, cv, WH, (int)P), tp.part, cv, WH,
+                            Region{gw + off_vv, WH, nullptr}, none, st));
+  if (dvemb) {  // d vemb = dhv W_vv^T over the live columns; W_vv is [CVP][W/2]
+    GemmArgs g = gemm_args(tp.dhv_c, WH, 1, wts + off_vv, 1, WH, (int)P, cv, WH);
+    g.C = dvemb;
+    g.ldc = cv;
+    SWNERF_RUN((gemm_act<T, false, 1>(g, st)));
+  }
+
+  // d feat = q(dhv @ W_vf^T) next to the d sigma column, then the feature +
+  // alpha product's dW (its ones row gives both biases)
+  {
+    GemmArgs g = gemm_args(tp.dhv_c, WH, 1, wts + off_vf, 1, WH, (int)P, W, WH);
+    g.C = tp.dfa;
+    g.ldc = LDW;
+    SWNERF_RUN(gemm_act<T>(g, st));
+  }
+  SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.h(D - 1), 1, LDW, tp.dfa, LDW, 1, W + 1, W + 1, (int)P), tp.part, W, W,
+                            Region{gw + off_feat, W, gb_feat}, Region{gw + off_alpha, 1, gb_alpha}, st));
+  {  // dz_{D-1} = q((dfeat @ W_feat^T + dsigma * w_alpha^T) * act'(h_{D-1}))
+    GemmArgs g = gemm_args(tp.dfa, LDW, 1, wts + off_feat, 1, W, (int)P, W, W);
+    g.u = tp.dfa + W;
+    g.su = LDW;
+    g.v = wts + off_alpha;
+    g.mask = tp.h(D - 1);
+    g.ldm = LDW;
+    g.C = tp.dz[(D - 1) & 1];
+    g.ldc = W;
+    SWNERF_RUN((gemm_act<T, ELU>(g, st)));
+  }
+
+  // the trunk, from the top (with the input cotangent where asked)
+  return trunk_reverse<T, ELU>(wts, off_w, off_wemb, tp.emb, CIN, cin, tp.h, tp.dz, D, skip, W, P, gw, gb, tp.part,
+                               demb, st);
 }
 
 }  // namespace

@@ -1,8 +1,8 @@
 // Device code shared by the render kernels B1/B3/B5 (vanilla) and B4
-// (T-NeRF) in render_pass.cu and render_loss.cu, and by the deformation MLP
-// B6 in time_net.cu: operand-type traits, the field families, the 64-row
-// MLP chunk product, the activation epilogue and the in-block Fourier
-// encoding.
+// (T-NeRF) in render_pass.cu and render_loss.cu, the deformation MLP B6 in
+// time_net.cu and the field trunk B7 in trunk.cu: operand-type traits, the
+// field families of the render kernels, the 64-row MLP chunk product, the
+// activation epilogue and the render kernels' in-block Fourier encoding.
 //
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
@@ -41,15 +41,6 @@ struct TNerf {
   static constexpr Act ACT = Act::Elu;
   static constexpr bool TIME = true;
   static constexpr bool RGB_RELU = true;  // rgb = sigmoid(max(logit, 0))
-  static __host__ __device__ int cin(int L) { return 4 + 8 * L; }
-};
-// The D-NeRF deformation MLP (B6): T-NeRF's [embed(xyz) | embed(t)] input
-// with ReLU; it has no colour head.
-struct TimeNet {
-  static constexpr int CIN = 96;
-  static constexpr Act ACT = Act::Relu;
-  static constexpr bool TIME = true;
-  static constexpr bool RGB_RELU = false;
   static __host__ __device__ int cin(int L) { return 4 + 8 * L; }
 };
 

@@ -37,8 +37,9 @@
 //     feature (so dW's bias row falls out of the same product). One thread
 //     per ray then composites, forms the loss cotangent and sweeps the ray
 //     backwards for the raw cotangent [P, 4] (d rgb logits, d sigma).
-//  2. head_bwd_kernel: d hv through the rgb head and the view layer's
-//     activation.
+//  2. gemm_common.cuh::field_reverse (shared with B7, trunk.cu), from the
+//     raw cotangent: head_bwd_kernel, d hv through the rgb head and the view
+//     layer's activation;
 //  3. gemm_kernel, per layer from the top: dH = dZ W^T with the activation's
 //     derivative
 //     and the rounding to the operand type in its epilogue (row-parallel over
@@ -280,24 +281,6 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   }
 }
 
-// d hv = (q(g_rgb) @ W_rgb^T) * act'(hv), in fp32 and rounded.
-template <typename T, int WH, Act A>
-__global__ void head_bwd_kernel(const T* __restrict__ gq, const T* __restrict__ hv, int ldh,
-                                const T* __restrict__ w_rgb, long long P, float* __restrict__ dhv32,
-                                T* __restrict__ dhv_c) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P * WH) return;
-  const long long p = idx / WH;
-  const int j = (int)(idx - p * WH);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) s = fmaf(Op<T>::f(gq[p * 4 + c]), Op<T>::f(w_rgb[j * 3 + c]), s);
-  const float h = Op<T>::f(hv[p * ldh + j]);
-  const float d = A == Act::Elu ? s * elu_grad(h) : (h > 0.f ? s : 0.f);
-  dhv32[idx] = d;
-  dhv_c[idx] = Op<T>::q(d);
-}
-
 // B5: d loss / d pts [P][3] from the embedding's cotangent demb [P][cin]
 // (fp32) through the Fourier encode (raymarch.py::_embed_bwd): the identity
 // columns, then per frequency f the derivative 2^f cos(2^f x) of the sin
@@ -348,7 +331,6 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
            int skip, int L, int white, float loss_scale, int N, int S, float* rgb, float* acc, float* depth,
            float* sqerr, float* w_out, float* gw, float* gb, float* dpts, void* scratch, cudaStream_t st) {
   constexpr int CIN = A::CIN;
-  constexpr bool ELU = A::ACT == Act::Elu;
   constexpr int LDA = Op<T>::LDA;
   constexpr int WH = W / 2;
   constexpr int LDW = W + PADC;
@@ -387,56 +369,10 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
                                             sqerr, w_out, sc);
   SWNERF_CHECK(cudaGetLastError());
 
-  // Offsets of the packed matrices (ops/kernels/render_pass.py::weight_layout)
-  // and biases (bias_layout).
-  size_t off_w[16], off_wemb = 0;
-  const size_t o = trunk_offsets(D, skip, CIN, W, off_w, &off_wemb);
-  const size_t off_feat = o, off_alpha = o + (size_t)W * W;
-  const size_t off_vf = off_alpha + W, off_vv = off_vf + (size_t)W * WH, off_rgb = off_vv + (size_t)CV * WH;
-  float* gb_feat = gb + (size_t)D * W;
-  float* gb_views = gb_feat + W;
-  float* gb_rgb = gb_views + WH;
-  float* gb_alpha = gb_rgb + 3;
-  const Region none{nullptr, 0, nullptr};
-
-  // 2. rgb head and view layer
-  head_bwd_kernel<T, WH, A::ACT><<<ceil_div(P * WH, 256), 256, 0, st>>>(sc.gq, sc.hv, LDH, wts + off_rgb, P, dhv32,
-                                                                        dhv_c);
-  SWNERF_CHECK(cudaGetLastError());
-  SWNERF_RUN(gemm_reduce<T>(gemm_args(sc.hv, 1, LDH, sc.gq, 4, 1, WH, 4, (int)P), part, WH, 3,
-                            Region{gw + off_rgb, 3, nullptr}, none, st));
-  SWNERF_RUN(colsum(sc.graw, 4, 3, P, part, gb_rgb, st));
-  SWNERF_RUN(colsum(dhv32, WH, WH, P, part, gb_views, st));
-  SWNERF_RUN(gemm_reduce<T>(gemm_args(sc.feat, 1, LDW, dhv_c, WH, 1, W, WH, (int)P), part, W, WH,
-                            Region{gw + off_vf, WH, nullptr}, none, st));
-  SWNERF_RUN(gemm_reduce<T>(gemm_args(sc.vemb, 1, CV, dhv_c, WH, 1, cv, WH, (int)P), part, cv, WH,
-                            Region{gw + off_vv, WH, nullptr}, none, st));
-
-  // 3. d feat = q(dhv @ W_vf^T) next to the d sigma column, then the
-  //    feature + alpha product's dW (its ones row gives both biases)
-  {
-    GemmArgs g = gemm_args(dhv_c, WH, 1, wts + off_vf, 1, WH, (int)P, W, WH);
-    g.C = sc.dfa;
-    g.ldc = LDW;
-    SWNERF_RUN(gemm_act<T>(g, st));
-  }
-  SWNERF_RUN(gemm_reduce<T>(gemm_args(hl(D - 1), 1, LDW, sc.dfa, LDW, 1, W + 1, W + 1, (int)P), part, W, W,
-                            Region{gw + off_feat, W, gb_feat}, Region{gw + off_alpha, 1, gb_alpha}, st));
-  {  // dz_{D-1} = q((dfeat @ W_feat^T + dsigma * w_alpha^T) * act'(h_{D-1}))
-    GemmArgs g = gemm_args(sc.dfa, LDW, 1, wts + off_feat, 1, W, (int)P, W, W);
-    g.u = sc.dfa + W;
-    g.su = LDW;
-    g.v = wts + off_alpha;
-    g.mask = hl(D - 1);
-    g.ldm = LDW;
-    g.C = dz[(D - 1) & 1];
-    g.ldc = W;
-    SWNERF_RUN((gemm_act<T, ELU>(g, st)));
-  }
-
-  // 4. the trunk, from the top (with B5's input cotangent)
-  SWNERF_RUN((trunk_reverse<T, ELU>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, dz, D, skip, W, P, gw, gb, part,
-                                     demb, st)));
+  // 2-4. the heads, d feat next to d sigma, the trunk (with B5's input
+  //      cotangent): gemm_common.cuh::field_reverse
+  FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, sc.graw, dz, dhv_c, dhv32, part};
+  SWNERF_RUN((field_reverse<T, W, A::ACT>(wts, D, skip, CIN, cin, CV, cv, P, tape, gw, gb, demb, nullptr, st)));
   if (PTS) {  // 5. B5: through the encode to the positions
     encode_bwd_kernel<<<ceil_div(P * 3, 256), 256, 0, st>>>(origins, demb, cin, L, P, dpts);
     SWNERF_CHECK(cudaGetLastError());

@@ -8,13 +8,16 @@
 // embed(t) rows of its embedding block are zero, ops/kernels/time_net.py::
 // pack_time_params), and a 3-wide linear head. The Pallas kernel takes the
 // embedded rows from HBM; this one encodes in-block from the positions
-// pts [N, S, 3] and the per-ray times [N], with B4's [embed(xyz) |
-// embed(t)] layout (84 live columns of 96 at multires 10; the TimeNet traits
-// of mlp_common.cuh). That in-block encode is also what B11
+// pts [N, S, 3] and the per-ray times [N] (encode_xt below), with Lx
+// position and Lt time frequencies: 3 + 6 Lx + 1 + 2 Lt live columns, padded
+// to CIN rows. CIN = 96 holds D-NeRF's multires 10 (84 columns) and the
+// MultiRes levels (10, 4) (72) and the identity level (Lx = Lt = 0: [x | t],
+// 4); CIN = 144 holds MultiRes level 0's (20, 8) (140). Each keeps a row for
+// the dW column of ones. That in-block encode is also what B11
 // (fused_time_net_pts) computes. The input cotangent is not formed: every
-// caller feeds the positions detached (fused_step.py:478-481, 499-503). The
-// plain twin is swnerf_torch/ops/kernels/time_net.py::time_net_plain /
-// time_net_plain_bwd.
+// caller feeds the positions detached (fused_step.py:478-481, 499-503;
+// models/dnerf.py:264-268). The plain twin is
+// swnerf_torch/ops/kernels/time_net.py::time_net_plain / time_net_plain_bwd.
 //
 // Bound on the card: operations. At D=8, W=256, 84 input columns the
 // forward is 497,152 multiply-adds per row and the backward's dW and dH
@@ -33,7 +36,8 @@
 // Operands fp32 (parity mode) or bf16, rounded where the plain twin rounds
 // (the embedding, each layer's output, q(g), every dz); products accumulate
 // in fp32; gradients are fp32. SIMT only: mma/wgmma are later work. No
-// --use_fast_math (ops/kernels/build.py).
+// --use_fast_math (ops/kernels/build.py): at Lx = 20 the encode's arguments
+// reach 2^19 |x|, where sinf/cosf take their slow, exact reduction path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,13 +49,56 @@
 
 namespace {
 
-using Net = TimeNet;
+__host__ __device__ int cin_of(int Lx, int Lt) { return 3 + 6 * Lx + 1 + 2 * Lt; }
 
-template <typename T, int W, bool STORE>
+// Positions and per-ray times of rows row0 .. row0+CH-1 into shared memory
+// (k-major), in positional_encoding's order: x, then sin(2^f x), cos(2^f x)
+// at 3 + 6f and 6 + 6f for f < Lx; t at dpos = 3 + 6 Lx, then sin(2^f t),
+// cos(2^f t) at dpos + 1 + 2f and dpos + 2 + 2f for f < Lt. The columns from
+// cin_of(Lx, Lt) to CIN are zero; rows past M get x = t = 0. sin and cos are
+// sinf/cosf of the exact product x * 2^f (no fast math).
+template <typename T, int CIN>
+__device__ __forceinline__ void encode_xt(T* __restrict__ emb, int row0, int M, int S, int Lx, int Lt,
+                                          const float* __restrict__ pts, const float* __restrict__ times) {
+  constexpr int LDA = Op<T>::LDA;
+  const int r = threadIdx.x & (CH - 1);
+  const int p = threadIdx.x / CH;  // 4 parts share a row
+  const int g = row0 + r;
+  const int dpos = 3 + 6 * Lx;
+  float x[3] = {0.f, 0.f, 0.f};
+  float t = 0.f;
+  if (g < M) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = pts[(size_t)g * 3 + a];
+    t = times[g / S];
+  }
+  if (p == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) emb[a * LDA + r] = Op<T>::q(x[a]);
+    emb[dpos * LDA + r] = Op<T>::q(t);
+    for (int k = cin_of(Lx, Lt); k < CIN; ++k) emb[k * LDA + r] = Op<T>::q(0.f);
+  }
+  for (int f = p; f < Lx; f += 4) {
+    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float u = x[a] * scale;
+      emb[(3 + 6 * f + a) * LDA + r] = Op<T>::q(sinf(u));
+      emb[(6 + 6 * f + a) * LDA + r] = Op<T>::q(cosf(u));
+    }
+  }
+  for (int f = p; f < Lt; f += 4) {
+    const float u = t * (float)(1 << f);
+    emb[(dpos + 1 + 2 * f) * LDA + r] = Op<T>::q(sinf(u));
+    emb[(dpos + 2 + 2 * f) * LDA + r] = Op<T>::q(cosf(u));
+  }
+}
+
+template <typename T, int W, int CIN, bool STORE>
 __global__ void __launch_bounds__(NT)
 time_net_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ times, const T* __restrict__ wts,
-                    const float* __restrict__ bias, int D, int skip, int L, int S, int M, float* __restrict__ dx_out,
-                    T* __restrict__ emb_g, T* __restrict__ h_g, size_t hstride) {
+                    const float* __restrict__ bias, int D, int skip, int Lx, int Lt, int S, int M,
+                    float* __restrict__ dx_out, T* __restrict__ emb_g, T* __restrict__ h_g, size_t hstride) {
   constexpr int LDA = Op<T>::LDA;
   constexpr int LDW = W + PADC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -61,17 +108,16 @@ time_net_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ tim
   float* red = reinterpret_cast<float*>(smem_raw);  // [4][CH][3]
   T* actA = reinterpret_cast<T*>(red + NRED);        // [W][LDA]
   T* actB = actA + W * LDA;                          // [W][LDA]
-  T* emb = actB + W * LDA;                           // [Net::CIN][LDA]
-  T* vemb_s = emb + Net::CIN * LDA;                  // [CV][LDA] (unused: no view input)
-  T* Ws = vemb_s + CV * LDA;                         // [KT][W]
+  T* emb = actB + W * LDA;                           // [CIN][LDA]
+  T* Ws = emb + CIN * LDA;                           // [KT][W]
   const int r = threadIdx.x & (CH - 1);
   const int p = threadIdx.x / CH;
 
   // Rows are global: ray = row / S, the positions at pts[row].
-  encode_chunk<T, Net, true>(emb, vemb_s, row0, M, 0, S, L, 0, pts, nullptr, times, nullptr, nullptr);
+  encode_xt<T, CIN>(emb, row0, M, S, Lx, Lt, pts, times);
   if (STORE) {
     __syncthreads();
-    spill<T>(emb, Net::cin(L), emb_g, Net::CIN, row0, nvalid, true);
+    spill<T>(emb, cin_of(Lx, Lt), emb_g, CIN, row0, nvalid, true);
   }
   const T* wp = wts;
   const float* bp = bias;
@@ -80,8 +126,8 @@ time_net_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ tim
   {
     float acc[8][W / 32];
     zero(acc);
-    mm_acc<T, W>(acc, emb, Net::CIN, wp, Ws);
-    wp += Net::CIN * W;
+    mm_acc<T, W>(acc, emb, CIN, wp, Ws);
+    wp += CIN * W;
     store_act<T, W, Act::Relu>(acc, bp, h);
     bp += W;
     if (STORE) {
@@ -93,8 +139,8 @@ time_net_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ tim
     float acc[8][W / 32];
     zero(acc);
     if (i == skip + 1) {  // cat([embed(x), h]) @ W == emb @ W_emb + h @ W_h (W_emb's time rows are 0)
-      mm_acc<T, W>(acc, emb, Net::CIN, wp, Ws);
-      wp += Net::CIN * W;
+      mm_acc<T, W>(acc, emb, CIN, wp, Ws);
+      wp += CIN * W;
     }
     mm_acc<T, W>(acc, h, W, wp, Ws);
     wp += W * W;
@@ -151,10 +197,10 @@ struct Scratch {
 };
 
 template <typename T>
-Scratch<T> carve(void* scratch, int W, int D, long long M) {
+Scratch<T> carve(void* scratch, int CIN, int W, int D, long long M) {
   Carver cv{static_cast<unsigned char*>(scratch)};
   Scratch<T> sc;
-  sc.emb = cv.take<T>(M * Net::CIN);
+  sc.emb = cv.take<T>(M * CIN);
   sc.hstride = align256(sizeof(T) * M * (W + PADC)) / sizeof(T);
   sc.h = cv.take<T>(sc.hstride * D);
   sc.dz[0] = cv.take<T>(M * W);
@@ -165,9 +211,9 @@ Scratch<T> carve(void* scratch, int W, int D, long long M) {
 }
 
 template <typename T>
-size_t scratch_bytes(int W, int D, long long M) {
+size_t scratch_bytes(int CIN, int W, int D, long long M) {
   size_t b = 0;
-  b += align256(sizeof(T) * M * Net::CIN);
+  b += align256(sizeof(T) * M * CIN);
   b += align256(sizeof(T) * M * (W + PADC)) * D;
   b += align256(sizeof(T) * M * W) * 2;
   b += align256(sizeof(T) * M * 4);
@@ -175,29 +221,29 @@ size_t scratch_bytes(int W, int D, long long M) {
   return b;
 }
 
-template <typename T, int W>
-int fwd(const float* pts, const float* times, const void* wts, const float* bias, int D, int skip, int L, int S, int M,
-        float* dx, void* scratch, cudaStream_t st) {
+template <typename T, int W, int CIN>
+int fwd(const float* pts, const float* times, const void* wts, const float* bias, int D, int skip, int Lx, int Lt,
+        int S, int M, float* dx, void* scratch, cudaStream_t st) {
   constexpr int LDA = Op<T>::LDA;
-  const size_t smem = sizeof(float) * NRED + sizeof(T) * ((size_t)(2 * W + Net::CIN + CV) * LDA + KT * W);
+  const size_t smem = sizeof(float) * NRED + sizeof(T) * ((size_t)(2 * W + CIN) * LDA + KT * W);
   Scratch<T> sc{};
-  if (scratch) sc = carve<T>(scratch, W, D, M);
-  auto kern = scratch ? time_net_fwd_kernel<T, W, true> : time_net_fwd_kernel<T, W, false>;
+  if (scratch) sc = carve<T>(scratch, CIN, W, D, M);
+  auto kern = scratch ? time_net_fwd_kernel<T, W, CIN, true> : time_net_fwd_kernel<T, W, CIN, false>;
   SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  kern<<<ceil_div(M, CH), NT, smem, st>>>(pts, times, static_cast<const T*>(wts), bias, D, skip, L, S, M, dx, sc.emb,
-                                          sc.h, sc.hstride);
+  kern<<<ceil_div(M, CH), NT, smem, st>>>(pts, times, static_cast<const T*>(wts), bias, D, skip, Lx, Lt, S, M, dx,
+                                          sc.emb, sc.h, sc.hstride);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int bwd(int W, const void* wts_v, int D, int skip, int L, int M, const float* g, float* gw, float* gb, void* scratch,
-        cudaStream_t st) {
+int bwd(int CIN, int W, const void* wts_v, int D, int skip, int Lx, int Lt, int M, const float* g, float* gw,
+        float* gb, void* scratch, cudaStream_t st) {
   const T* wts = static_cast<const T*>(wts_v);
   const int LDW = W + PADC;
-  Scratch<T> sc = carve<T>(scratch, W, D, M);
+  Scratch<T> sc = carve<T>(scratch, CIN, W, D, M);
   auto hl = [&](int i) { return static_cast<const T*>(sc.h + (size_t)i * sc.hstride); };
   size_t off_w[16], off_wemb = 0;
-  const size_t off_out = trunk_offsets(D, skip, Net::CIN, W, off_w, &off_wemb);
+  const size_t off_out = trunk_offsets(D, skip, CIN, W, off_w, &off_wemb);
 
   round_cotangent_kernel<T><<<ceil_div((long long)M * 4, 256), 256, 0, st>>>(g, M, sc.gq);
   SWNERF_CHECK(cudaGetLastError());
@@ -212,14 +258,17 @@ int bwd(int W, const void* wts_v, int D, int skip, int L, int M, const float* g,
     a.ldc = W;
     SWNERF_RUN((gemm_act<T, false>(a, st)));
   }
-  return trunk_reverse<T, false>(wts, off_w, off_wemb, sc.emb, Net::CIN, Net::cin(L), hl, sc.dz, D, skip, W, M, gw, gb,
-                                 sc.part, nullptr, st);
+  return trunk_reverse<T, false>(wts, off_w, off_wemb, sc.emb, CIN, cin_of(Lx, Lt), hl, sc.dz, D, skip, W, M, gw,
+                                 gb, sc.part, nullptr, st);
 }
 
-bool shape_ok(int W, int D, int skip, int L, long long M) {
+// The padded input widths: D-NeRF's and MultiRes levels 1-3's, and level 0's.
+bool cin_pad_ok(int cin_pad) { return cin_pad == 96 || cin_pad == 144; }
+
+bool shape_ok(int cin_pad, int W, int D, int skip, int Lx, int Lt, long long M) {
   // cin < CIN leaves room for the column of ones of the embedding's dW.
-  return (W == 128 || W == 256) && D >= 2 && D <= 16 && skip >= 0 && skip + 1 < D && Net::cin(L) < Net::CIN &&
-         M * (W + PADC) < (1LL << 31);
+  return cin_pad_ok(cin_pad) && (W == 128 || W == 256) && D >= 2 && D <= 16 && skip >= 0 && skip + 1 < D &&
+         Lx >= 0 && Lt >= 0 && Lx < 31 && Lt < 31 && cin_of(Lx, Lt) < cin_pad && M * (W + PADC) < (1LL << 31);
 }
 
 }  // namespace
@@ -231,40 +280,44 @@ const char* swnerf_error_string(int code) {
 }
 
 // Bytes of train-mode scratch for M rows, or -1 for an unsupported shape.
-long long time_net_scratch_bytes(int bf16, int W, int D, long long M) {
-  if (W != 128 && W != 256) return -1;
-  return (long long)(bf16 ? scratch_bytes<__nv_bfloat16>(W, D, M) : scratch_bytes<float>(W, D, M));
+long long time_net_scratch_bytes(int bf16, int cin_pad, int W, int D, long long M) {
+  if ((W != 128 && W != 256) || !cin_pad_ok(cin_pad)) return -1;
+  return (long long)(bf16 ? scratch_bytes<__nv_bfloat16>(cin_pad, W, D, M) : scratch_bytes<float>(cin_pad, W, D, M));
 }
 
 // dx [N*S, 3] of the deformation MLP at pts [N, S, 3] and per-ray times
-// [N]; wts / bias: the packed buffers of ops/kernels/time_net.py::
-// pack_time_params (bf16 != 0: bf16 operands, else fp32). scratch (train
-// mode, time_net_scratch_bytes) or null: with it the forward keeps what the
-// backward needs. All contiguous.
-int time_net_fwd_launch(int bf16, int W, const float* pts, const float* times, const void* wts, const float* bias,
-                        int D, int skip, int L, int N, int S, float* dx, void* scratch, void* stream) {
+// [N], with Lx position and Lt time frequencies (0: the identity); wts /
+// bias: the packed buffers of ops/kernels/time_net.py::pack_time_params,
+// input padded to cin_pad (96 or 144) rows (bf16 != 0: bf16 operands, else
+// fp32). scratch (train mode, time_net_scratch_bytes) or null: with it the
+// forward keeps what the backward needs. All contiguous.
+int time_net_fwd_launch(int bf16, int W, int cin_pad, const float* pts, const float* times, const void* wts,
+                        const float* bias, int D, int skip, int Lx, int Lt, int N, int S, float* dx, void* scratch,
+                        void* stream) {
   const long long M = (long long)N * S;
   if (M == 0) return 0;
-  if (!shape_ok(W, D, skip, L, M)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(cin_pad, W, D, skip, Lx, Lt, M)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (W == 256) return fwd<__nv_bfloat16, 256>(pts, times, wts, bias, D, skip, L, S, (int)M, dx, scratch, st);
-    return fwd<__nv_bfloat16, 128>(pts, times, wts, bias, D, skip, L, S, (int)M, dx, scratch, st);
+#define SWNERF_FWD(T, WW, CC) fwd<T, WW, CC>(pts, times, wts, bias, D, skip, Lx, Lt, S, (int)M, dx, scratch, st)
+  if (cin_pad == 96) {
+    if (bf16) return W == 256 ? SWNERF_FWD(__nv_bfloat16, 256, 96) : SWNERF_FWD(__nv_bfloat16, 128, 96);
+    return W == 256 ? SWNERF_FWD(float, 256, 96) : SWNERF_FWD(float, 128, 96);
   }
-  if (W == 256) return fwd<float, 256>(pts, times, wts, bias, D, skip, L, S, (int)M, dx, scratch, st);
-  return fwd<float, 128>(pts, times, wts, bias, D, skip, L, S, (int)M, dx, scratch, st);
+  if (bf16) return W == 256 ? SWNERF_FWD(__nv_bfloat16, 256, 144) : SWNERF_FWD(__nv_bfloat16, 128, 144);
+  return W == 256 ? SWNERF_FWD(float, 256, 144) : SWNERF_FWD(float, 128, 144);
+#undef SWNERF_FWD
 }
 
 // The parameter gradients of sum(g * dx) for the cotangent g [M, 3] (fp32),
 // from the scratch of the train-mode forward on the same weights: gw / gb
 // in the packed layouts, which the caller zeroes.
-int time_net_bwd_launch(int bf16, int W, const void* wts, int D, int skip, int L, long long M, const float* g,
-                        float* gw, float* gb, void* scratch, void* stream) {
+int time_net_bwd_launch(int bf16, int W, int cin_pad, const void* wts, int D, int skip, int Lx, int Lt, long long M,
+                        const float* g, float* gw, float* gb, void* scratch, void* stream) {
   if (M == 0) return 0;
-  if (!shape_ok(W, D, skip, L, M)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(cin_pad, W, D, skip, Lx, Lt, M)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? bwd<__nv_bfloat16>(W, wts, D, skip, L, (int)M, g, gw, gb, scratch, st)
-              : bwd<float>(W, wts, D, skip, L, (int)M, g, gw, gb, scratch, st);
+  return bf16 ? bwd<__nv_bfloat16>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st)
+              : bwd<float>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st);
 }
 
 }  // extern "C"

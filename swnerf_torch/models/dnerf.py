@@ -17,6 +17,20 @@ A field's forward returns ``(raw, {"dx": dx})``; the render core carries
 order (``_occ``, ``_time``, ``_time_out``), so a ``.tar``'s
 ``network_fn_state_dict`` loads as is and torch Adam's state maps onto the
 same tensors.
+
+The kernel route (``fused``, as ``make_dnerf_field(cfg, fused=None)``:
+models/dnerf.py:182-290 there): the deformation MLP runs kernel B6
+(``time_net_autograd``, the positions detached) and the canonical trunk
+kernel B7 (``trunk_autograd``) on the embedded ``x + dx``; B7's input
+cotangent carries the loss into the deformation net. ``original`` runs B7
+without input gradients. ``fused=None`` takes the route on a card for the
+configurations the kernels cover (``supports_time_net``, ``supports_trunk``,
+decided at construction); on CPU tensors the same route runs the kernels'
+plain twins. Operands are bf16 on the card and fp32 on the CPU; without
+autograd (rendering) the forward-only launches run. ``compute_dtype`` is
+the parity mode alone, as the fused steps' and eval passes' argument of
+that name: the card's checks pass ``torch.float32`` to hold the route
+against the plain one. No trainer sets it.
 """
 
 from __future__ import annotations
@@ -31,6 +45,8 @@ from swnerf_torch.device import resolve_device
 from swnerf_torch.models.common import Field, dense, init_mlp_stack, kaiming_linear_init
 from swnerf_torch.models.vanilla import VanillaNeRF
 from swnerf_torch.ops.embedding import embedding_dim, positional_encoding
+from swnerf_torch.ops.kernels import time_net as b6
+from swnerf_torch.ops.kernels import trunk as b7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,33 +89,73 @@ class DNeRFConfig:
         return embedding_dim(self.nf_time, 1)
 
 
+def _operand_dtype(compute_dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.dtype:
+    return compute_dtype or (torch.bfloat16 if x.device.type == "cuda" else torch.float32)
+
+
+def kernel_trunk(net: VanillaNeRF, dtype: torch.dtype, pts_emb: torch.Tensor, views_emb: torch.Tensor
+                 ) -> torch.Tensor:
+    """The canonical trunk through B7 (``_trunk_apply``'s fused branch):
+    raw [..., 4] at pts_emb [..., cin] and views_emb [..., cv]. Under
+    autograd the weights are packed differentiably and B7's backward runs;
+    pts_emb gets its cotangent when it requires gradients."""
+    lead = pts_emb.shape[:-1]
+    emb = pts_emb.reshape(-1, pts_emb.shape[-1])
+    vemb = views_emb.reshape(-1, views_emb.shape[-1]).contiguous()
+    params = dict(net.named_parameters())
+    if torch.is_grad_enabled():
+        pdt = next(net.parameters()).dtype  # fp32; float64 for a float64 run on the twins
+        raw = b7.trunk_autograd(b7.pack_trunk_params(params, net.cfg, pdt), dtype, emb, vemb)
+    else:
+        raw = b7.trunk(b7.pack_trunk_params(params, net.cfg, dtype), emb.contiguous(), vemb)
+    return raw.reshape(*lead, 4)
+
+
 class NeRFOriginal(VanillaNeRF):
     """The canonical network: the vanilla trunk (same parameter names) with
     kaiming init, on ``device`` (default ``cuda``), drawn from
     ``generator``. Its forward ignores the times and returns a zero
-    deformation."""
+    deformation; on the kernel route (``fused``, see the module docstring)
+    its trunk runs B7 without input gradients."""
 
     def __init__(self, cfg: DNeRFConfig, device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, fused: Optional[bool] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        device = resolve_device(device)
         super().__init__(cfg, device, generator, init=kaiming_linear_init)
+        use = device.type == "cuda" if fused is None else fused
+        self.fused = use and b7.supports_trunk(cfg)
+        self.compute_dtype = compute_dtype
 
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor] = None,
                 times: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return super().forward(pts, viewdirs), {"dx": torch.zeros_like(pts)}
+        if not self.fused:
+            return super().forward(pts, viewdirs), {"dx": torch.zeros_like(pts)}
+        ve = positional_encoding(viewdirs, self.cfg.nf_views)
+        views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
+        raw = kernel_trunk(self, _operand_dtype(self.compute_dtype, pts),
+                           positional_encoding(pts, self.cfg.nf_pts), views_emb)
+        return raw, {"dx": torch.zeros_like(pts)}
 
 
 class DirectTemporalNeRF(Field):
     """The D-NeRF field on ``device`` (default ``cuda``): ``_occ``, the
     canonical :class:`NeRFOriginal`, then the deformation MLP ``_time``
     (``netdepth`` layers) and ``_time_out`` (W -> 3), drawn from
-    ``generator`` in that order."""
+    ``generator`` in that order. ``fused``: the kernel route;
+    ``compute_dtype``: its parity mode (module docstring)."""
 
     def __init__(self, cfg: DNeRFConfig, device: Optional[torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, fused: Optional[bool] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self._occ = NeRFOriginal(cfg, device, generator)
+        use = device.type == "cuda" if fused is None else fused
+        self.fused_time = use and b6.supports_time_net(cfg)
+        self.fused_trunk = use and b7.supports_trunk(cfg)
+        self.compute_dtype = compute_dtype
+        self._occ = NeRFOriginal(cfg, device, generator, fused=False)
         D, W, in_x = cfg.netdepth, cfg.netwidth, cfg.input_ch
         dims = [(in_x + cfg.input_ch_time, W)] + [((W + in_x, W) if i in cfg.skips else (W, W)) for i in range(D - 1)]
         self._time = nn.ModuleList(init_mlp_stack(dims, generator, device))
@@ -121,23 +177,35 @@ class DirectTemporalNeRF(Field):
         [N, S, 4], {"dx": [N, S, 3]})."""
         cfg = self.cfg
         t = times[..., None, :].expand(*pts.shape[:-1], 1)
-        dx = self.time_net(positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time))
+        dtype = _operand_dtype(self.compute_dtype, pts)
+        if self.fused_time:
+            params = dict(self.named_parameters())
+            tr = times.reshape(-1)
+            if torch.is_grad_enabled():
+                pdt = self._time_out.weight.dtype
+                dx = b6.time_net_autograd(b6.pack_time_params(params, cfg, pdt), dtype, pts, tr)
+            else:
+                dx = b6.time_net(b6.pack_time_params(params, cfg, dtype), pts.contiguous(), tr.contiguous())
+        else:
+            dx = self.time_net(positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time))
         if cfg.zero_canonical:
             dx = torch.where(t == 0.0, torch.zeros_like(dx), dx)
         views_emb = None
         if cfg.use_viewdirs:
             ve = positional_encoding(viewdirs, cfg.nf_views)
             views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
-        raw = self._occ.trunk(positional_encoding(pts + dx, cfg.nf_pts), views_emb)
-        return raw, {"dx": dx}
+        pts_emb = positional_encoding(pts + dx, cfg.nf_pts)
+        if self.fused_trunk:
+            return kernel_trunk(self._occ, dtype, pts_emb, views_emb), {"dx": dx}
+        return self._occ.trunk(pts_emb, views_emb), {"dx": dx}
 
 
 def make_dnerf_model(kind: str, cfg: DNeRFConfig, device: Optional[torch.device] = None,
-                     generator: Optional[torch.Generator] = None) -> Field:
+                     generator: Optional[torch.Generator] = None, fused: Optional[bool] = None) -> Field:
     """``--nerf_type``: ``original`` (:class:`NeRFOriginal`) or
-    ``direct_temporal`` (:class:`DirectTemporalNeRF`)."""
+    ``direct_temporal`` (:class:`DirectTemporalNeRF`); ``fused`` as theirs."""
     if kind == "original":
-        return NeRFOriginal(cfg, device, generator)
+        return NeRFOriginal(cfg, device, generator, fused=fused)
     if kind == "direct_temporal":
-        return DirectTemporalNeRF(cfg, device, generator)
+        return DirectTemporalNeRF(cfg, device, generator, fused=fused)
     raise ValueError(f"nerf_type {kind!r} not recognized")

@@ -9,12 +9,14 @@
 | B3 ``pts`` | ``render_pass.render_pass(pts=...)`` | ``csrc/render_pass.cu`` | ``_render_loss_kernel`` with ``pts=`` (forward only) |
 | B5 | ``render_loss.render_loss_pts`` | ``csrc/render_loss.cu`` | ``_render_loss_kernel`` with ``pts=``, ``need_input_grads=True`` |
 | B6 | ``time_net.time_net``, ``time_net.time_net_autograd`` | ``csrc/time_net.cu`` | ``swnerf_tpu/ops/pallas/raymarch.py::_fwd_kernel_plain`` / ``_bwd_kernel_plain`` |
+| B7 | ``trunk.trunk``, ``trunk.trunk_autograd`` | ``csrc/trunk.cu`` | ``swnerf_tpu/ops/pallas/raymarch.py::_fwd_kernel`` / ``_bwd_kernel`` (``fused_trunk``) |
 
 B4 is B3's and B1's body instantiated for the T-NeRF family (the ``TNerf``
 traits of ``csrc/mlp_common.cuh``); its launches count as
 ``render_pass[tnerf,S=..]`` and ``render_loss[tnerf,S=..]``. B3's pts mode
 and B5 count as ``render_pass[pts,S=..]`` and ``render_loss[pts,S=..]``,
-B6 as ``time_net`` and ``time_net[bwd]``.
+B6 as ``time_net`` and ``time_net[bwd]``, B7 as ``trunk`` and
+``trunk[bwd]``.
 
 A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches its kernel or raises. ``launches`` counts kernel launches by

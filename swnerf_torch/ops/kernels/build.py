@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PKG_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PKG_ROOT / "csrc"
 BUILD_ROOT = PKG_ROOT / "_build"
-SOURCES = ("sample_pdf", "render_pass", "render_loss", "time_net")
+SOURCES = ("sample_pdf", "render_pass", "render_loss", "time_net", "trunk")
 # No --use_fast_math: __sinf/__cosf are badly wrong at the 2^9-frequency
 # encoding arguments (~2000 rad), and fast math may reassociate the
 # transmittance floor max(1 - alpha + 1e-10, 1e-10).

@@ -39,6 +39,7 @@ from swnerf_torch.ops.kernels.render_pass import (
     colour,
     field_forward,
     launch_key,
+    quantizer,
     weight_layout,
 )
 
@@ -144,17 +145,60 @@ def render_loss_pts_plain(
     return _twin(packed, None, None, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale, None, pts)
 
 
-def _twin(packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale, times=None,
-          pts=None):
-    cdt = packed.weights.dtype
-    acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
+def field_reverse_plain(packed, emb, vemb, hs, feat, hv, graw, need_demb: bool = False, need_dvemb: bool = False):
+    """The field's reverse sweep from the raw cotangent ``graw`` [P, 4]
+    (d rgb logits, d sigma), written out as gemm_common.cuh::field_reverse
+    runs it (render_fused.py:442-478, raymarch.py::_trunk_backward): the
+    packed fp32 gradients (weights in ``weight_layout``, biases in
+    ``bias_layout`` order) and, where asked, the fp32 cotangents of the
+    embeddings over the live columns, demb [P, cin] (dz_{skip+1} W_emb^T,
+    then + dz_0 W_0^T) and dvemb [P, cv]. ``emb``, ``vemb``, ``hs``,
+    ``feat``, ``hv`` are the forward's rounded operands (:func:`field_mlp`);
+    q(graw), dhv, d feat and every dz are rounded where the kernels round."""
+    q, acc_dt = quantizer(packed)
     m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
     D, skip, arch = packed.D, packed.skip, packed.arch
+    gq = q(graw)
+    gw: Dict[str, torch.Tensor] = {}
+    gb: Dict[str, torch.Tensor] = {}
+    dhv = _through_act(gq[:, :3] @ m["rgb"].t(), hv, arch)
+    dhv_c = q(dhv)
+    gw["rgb"], gb["rgb"] = hv.t() @ gq[:, :3], graw[:, :3].sum(0)
+    gw["views_feat"], gw["views_emb"], gb["views"] = feat.t() @ dhv_c, vemb.t() @ dhv_c, dhv.sum(0)
+    dvemb = (dhv_c @ m["views_emb"].t())[:, : packed.input_ch_views] if need_dvemb else None
+    dfeat = q(dhv_c @ m["views_feat"].t())
+    dsq = gq[:, 3]
+    top = hs[-1]
+    gw["feature"], gb["feature"] = top.t() @ dfeat, dfeat.sum(0)
+    gw["alpha"], gb["alpha"] = top.t() @ dsq[:, None], dsq.sum(0, keepdim=True)
+    dh = dfeat @ m["feature"].t() + dsq[:, None] * m["alpha"][:, 0][None, :]
+    dz = q(_through_act(dh, top, arch))
+    demb = None
+    for i in range(D - 1, -1, -1):
+        if i == skip + 1:
+            gw[f"pts{i}_emb"] = emb.t() @ dz
+            if need_demb:
+                demb = dz @ m[f"pts{i}_emb"].t()
+        gw[f"pts{i}"] = (emb if i == 0 else hs[i - 1]).t() @ dz
+        gb[f"pts{i}"] = dz.sum(0)
+        if i > 0:
+            dh = dz @ m[f"pts{i}"].t()
+            dz = q(_through_act(dh, hs[i - 1], arch))
+        elif need_demb:
+            demb = demb + dz @ m["pts0"].t()
+    grads = (
+        torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(D, packed.W, skip, packed.cin_pad, packed.cv_pad)]),
+        torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(D, packed.W)]),
+    )
+    return grads, None if demb is None else demb[:, : packed.cin], dvemb
+
+
+def _twin(packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale, times=None,
+          pts=None):
+    _, acc_dt = quantizer(packed)
+    arch = packed.arch
     N, S = z_vals.shape
     P = N * S
-
-    def q(x):  # round to the operand type, compute in fp32 (fp64)
-        return x.to(cdt).to(acc_dt)
 
     # ---- forward (as render_pass_plain), keeping each layer's output
     fwd = field_forward(packed, origins, directions, views_emb, z_vals, times, pts)
@@ -188,44 +232,13 @@ def _twin(packed, origins, directions, views_emb, z_vals, dists, noise, target, 
     if arch == "tnerf":  # the colour ReLU's mask
         drgb = torch.where(logits.reshape(N, S, 3) > 0, drgb, torch.zeros_like(drgb))
     graw = torch.cat([drgb, dsig[..., None]], -1).reshape(P, 4)
-    gq = q(graw)
 
-    # ---- trunk reverse
-    gw: Dict[str, torch.Tensor] = {}
-    gb: Dict[str, torch.Tensor] = {}
-    dhv = _through_act(gq[:, :3] @ m["rgb"].t(), hv, arch)
-    dhv_c = q(dhv)
-    gw["rgb"], gb["rgb"] = hv.t() @ gq[:, :3], graw[:, :3].sum(0)
-    gw["views_feat"], gw["views_emb"], gb["views"] = feat.t() @ dhv_c, vemb.t() @ dhv_c, dhv.sum(0)
-    dfeat = q(dhv_c @ m["views_feat"].t())
-    dsq = gq[:, 3]
-    top = hs[-1]
-    gw["feature"], gb["feature"] = top.t() @ dfeat, dfeat.sum(0)
-    gw["alpha"], gb["alpha"] = top.t() @ dsq[:, None], dsq.sum(0, keepdim=True)
-    dh = dfeat @ m["feature"].t() + dsq[:, None] * m["alpha"][:, 0][None, :]
-    dz = q(_through_act(dh, top, arch))
-    demb = None
-    for i in range(D - 1, -1, -1):
-        if i == skip + 1:
-            gw[f"pts{i}_emb"] = emb.t() @ dz
-            if pts is not None:
-                demb = dz @ m[f"pts{i}_emb"].t()
-        gw[f"pts{i}"] = (emb if i == 0 else hs[i - 1]).t() @ dz
-        gb[f"pts{i}"] = dz.sum(0)
-        if i > 0:
-            dh = dz @ m[f"pts{i}"].t()
-            dz = q(_through_act(dh, hs[i - 1], arch))
-        elif pts is not None:
-            demb = demb + dz @ m["pts0"].t()
-
-    grads = (
-        torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(D, packed.W, skip, packed.cin_pad)]),
-        torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(D, packed.W)]),
-    )
+    # ---- the field's reverse sweep (with B5's embedding cotangent)
+    grads, demb, _ = field_reverse_plain(packed, emb, vemb, hs, feat, hv, graw, need_demb=pts is not None)
     dpts = None
     if pts is not None:
         x = pts.reshape(P, 3).to(acc_dt)
-        dpts = encode_backward(x, demb[:, : packed.cin], packed.n_freqs).reshape(N, S, 3)
+        dpts = encode_backward(x, demb, packed.n_freqs).reshape(N, S, 3)
     return RenderLossOutput(rgb_map, acc, depth, sqerr, w), grads, dpts
 
 
@@ -428,7 +441,7 @@ def _unpack(grads: Grads, packed: PackedParams, trunk_key: str, heads) -> Dict[s
     D, W, skip = packed.D, packed.W, packed.skip
     cin, cv = packed.cin, packed.input_ch_views
     mats, off = {}, 0
-    for name, rows, cols in weight_layout(D, W, skip, packed.cin_pad):
+    for name, rows, cols in weight_layout(D, W, skip, packed.cin_pad, packed.cv_pad):
         mats[name] = gw_buf[off : off + rows * cols].view(rows, cols)
         off += rows * cols
     bias, off = {}, 0

@@ -74,10 +74,12 @@ def supports_tnerf(cfg) -> bool:
     )
 
 
-def weight_layout(D: int, W: int, skip: int, cin_pad: int = CIN_PAD) -> List[Tuple[str, int, int]]:
+def weight_layout(D: int, W: int, skip: int, cin_pad: int = CIN_PAD, cv_pad: int = CV_PAD
+                  ) -> List[Tuple[str, int, int]]:
     """(name, rows, cols) of each packed matrix, in buffer order. The
     kernel walks the same order (csrc/render_pass.cu). ``cin_pad`` is
-    ``CIN_PAD`` for a vanilla field and ``CIN_PAD_T`` for a T-NeRF."""
+    ``CIN_PAD`` for a vanilla field and ``CIN_PAD_T`` for a T-NeRF; B7
+    (ops/kernels/trunk.py) pads both embeddings to 128."""
     out = [("pts0", cin_pad, W)]
     for i in range(1, D):
         if i == skip + 1:
@@ -87,7 +89,7 @@ def weight_layout(D: int, W: int, skip: int, cin_pad: int = CIN_PAD) -> List[Tup
         ("feature", W, W),
         ("alpha", W, 1),
         ("views_feat", W, W // 2),
-        ("views_emb", CV_PAD, W // 2),
+        ("views_emb", cv_pad, W // 2),
         ("rgb", W // 2, 3),
     ]
     return out
@@ -122,10 +124,12 @@ class PackedParams:
     def cin_pad(self) -> int:
         return CIN_PAD_T if self.arch == "tnerf" else CIN_PAD
 
+    cv_pad = CV_PAD
+
     def matrices(self) -> Dict[str, torch.Tensor]:
         """Views of the packed matrices, by weight_layout name."""
         out, off = {}, 0
-        for name, rows, cols in weight_layout(self.D, self.W, self.skip, self.cin_pad):
+        for name, rows, cols in weight_layout(self.D, self.W, self.skip, self.cin_pad, self.cv_pad):
             out[name] = self.weights[off : off + rows * cols].view(rows, cols)
             off += rows * cols
         return out
@@ -149,14 +153,13 @@ def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(w, (0, 0, 0, rows - w.shape[0]))
 
 
-def _pack(trunk, heads, skip: int, cin: int, dtype: torch.dtype, **meta) -> PackedParams:
+def pack_buffers(trunk, heads, skip: int, cin: int, cin_pad: int, cv_pad: int, dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``trunk``: ``(weight [out, in], bias)`` per layer; ``heads``: the same
     for "feature", "alpha", "views" (its input is ``[feature | view
-    embedding]``) and "rgb". Returns them packed in ``weight_layout`` /
-    ``bias_layout`` order."""
+    embedding]``) and "rgb". Returns the weights (in ``dtype``) and the fp32
+    biases, packed in ``weight_layout`` / ``bias_layout`` order."""
     D, W = len(trunk), trunk[0][0].shape[0]
-    packed_meta = dict(D=D, W=W, skip=skip, **meta)
-    cin_pad = CIN_PAD_T if meta.get("arch") == "tnerf" else CIN_PAD
     mats: Dict[str, torch.Tensor] = {}
     for i, (w, _) in enumerate(trunk):
         w = w.t()  # [in, out]
@@ -171,23 +174,25 @@ def _pack(trunk, heads, skip: int, cin: int, dtype: torch.dtype, **meta) -> Pack
     mats["alpha"] = heads["alpha"][0].t()
     vw = heads["views"][0].t()
     mats["views_feat"] = vw[:W]
-    mats["views_emb"] = _pad_rows(vw[W:], CV_PAD)
+    mats["views_emb"] = _pad_rows(vw[W:], cv_pad)
     mats["rgb"] = heads["rgb"][0].t()
     flat = []
-    for name, rows, cols in weight_layout(D, W, skip, cin_pad):
+    for name, rows, cols in weight_layout(D, W, skip, cin_pad, cv_pad):
         if tuple(mats[name].shape) != (rows, cols):
             raise ValueError(f"{name}: shape {tuple(mats[name].shape)} != {(rows, cols)}")
         flat.append(mats[name].reshape(-1))
     biases = {f"pts{i}": b for i, (_, b) in enumerate(trunk)}
     biases.update({k: heads[k][1] for k in ("feature", "views", "rgb", "alpha")})
-    return PackedParams(
-        weights=torch.cat(flat).to(dtype).contiguous(),
-        biases=torch.cat([biases[n] for n, _ in bias_layout(D, W)]).contiguous(),
-        **packed_meta,
-    )
+    return torch.cat(flat).to(dtype).contiguous(), torch.cat([biases[n] for n, _ in bias_layout(D, W)]).contiguous()
 
 
-def _layer(sd, key):
+def _pack(trunk, heads, skip: int, cin: int, dtype: torch.dtype, **meta) -> PackedParams:
+    cin_pad = CIN_PAD_T if meta.get("arch") == "tnerf" else CIN_PAD
+    weights, biases = pack_buffers(trunk, heads, skip, cin, cin_pad, CV_PAD, dtype)
+    return PackedParams(weights=weights, biases=biases, D=len(trunk), W=trunk[0][0].shape[0], skip=skip, **meta)
+
+
+def layer(sd, key):
     """(weight, bias) of one layer in fp32. Not detached: packing the
     modules' own parameters (``dict(model.named_parameters())``) is
     differentiable, which the D-NeRF step relies on."""
@@ -199,8 +204,8 @@ def pack_params(state_dict, cfg, dtype: torch.dtype = torch.bfloat16) -> PackedP
     keys) for B3. The result lies on the state dict's device."""
     if not supports_config(cfg):
         raise ValueError(f"render_pass does not support {cfg}")
-    trunk = [_layer(state_dict, f"pts_linears.{i}") for i in range(cfg.netdepth)]
-    heads = {k: _layer(state_dict, key) for k, key in (
+    trunk = [layer(state_dict, f"pts_linears.{i}") for i in range(cfg.netdepth)]
+    heads = {k: layer(state_dict, key) for k, key in (
         ("feature", "feature_linear"), ("alpha", "alpha_linear"), ("views", "views_linears.0"), ("rgb", "rgb_linear"),
     )}
     return _pack(trunk, heads, cfg.skips[0], cfg.input_ch, dtype, n_freqs=cfg.multires,
@@ -216,8 +221,8 @@ def pack_tnerf_params(state_dict, cfg, dtype: torch.dtype = torch.bfloat16) -> P
     device."""
     if not supports_tnerf(cfg):
         raise ValueError(f"render_pass does not support {cfg}")
-    trunk = [_layer(state_dict, f"layers.{i}.0") for i in range(cfg.netdepth)]
-    heads = {k: _layer(state_dict, f"{key}.0") for k, key in (
+    trunk = [layer(state_dict, f"layers.{i}.0") for i in range(cfg.netdepth)]
+    heads = {k: layer(state_dict, f"{key}.0") for k, key in (
         ("feature", "feature"), ("alpha", "density"), ("views", "layer_9"), ("rgb", "color"),
     )}
     return _pack(trunk, heads, cfg.skip_layer, cfg.in_feat + cfg.time_feat, dtype, n_freqs=cfg.multires,
@@ -256,33 +261,22 @@ class FieldForward(NamedTuple):
     logits: torch.Tensor  # [P, 3]
 
 
-def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, times=None, pts=None) -> FieldForward:
-    """Encode and run the packed field as the kernels do. With bf16 weights
-    it rounds the embedding, each layer's output and the weights to bf16
-    exactly where the kernels do; products and sums stay fp32. float64
-    weights run it all in float64 (a reference for conditioning checks).
-    ``pts`` [N, S, 3] (pts mode) gives the sample positions in place of
-    ``origins + directions * z``."""
+def quantizer(packed):
+    """(q, accumulation dtype) of a packed field: q rounds to the operand
+    type and returns to fp32 (fp64 for float64 weights)."""
     cdt = packed.weights.dtype
     acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
+    return (lambda x: x.to(cdt).to(acc_dt)), acc_dt
+
+
+def field_mlp(packed, emb: torch.Tensor, vemb: torch.Tensor):
+    """The packed field's MLP on rounded, padded embeddings emb [P,
+    cin_pad] and vemb [P, cv_pad], as the kernels run it: returns (each
+    trunk layer's output, feat, hv, sigma [P] before noise, rgb logits
+    [P, 3]), rounded where the kernels round."""
+    q, acc_dt = quantizer(packed)
     m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
     b = packed.bias_vectors()
-    N, S = z_vals.shape
-    P = N * S
-
-    def q(x):  # round to the operand type, compute in fp32 (fp64)
-        return x.to(cdt).to(acc_dt)
-
-    if pts is None:
-        pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
-    emb = positional_encoding(pts.reshape(P, 3), packed.n_freqs)
-    if packed.arch == "tnerf":  # [embed(xyz) | embed(t)], t constant along the ray
-        t = times.reshape(N, 1, 1).expand(N, S, 1).reshape(P, 1)
-        emb = torch.cat([emb, positional_encoding(t, packed.n_freqs)], -1)
-    emb = q(F.pad(emb, (0, packed.cin_pad - emb.shape[-1])))
-    vemb = q(F.pad(views_emb, (0, CV_PAD - views_emb.shape[-1])))
-    vemb = vemb[:, None, :].expand(N, S, CV_PAD).reshape(P, CV_PAD)
-
     hs = []
     h = emb
     for i in range(packed.D):
@@ -294,7 +288,29 @@ def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, 
     feat = q(h @ m["feature"] + b["feature"])
     sigma = (h @ m["alpha"])[:, 0] + b["alpha"]
     hv = q(act(feat @ m["views_feat"] + vemb @ m["views_emb"] + b["views"], packed.arch))
-    logits = hv @ m["rgb"] + b["rgb"]
+    return hs, feat, hv, sigma, hv @ m["rgb"] + b["rgb"]
+
+
+def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, times=None, pts=None) -> FieldForward:
+    """Encode and run the packed field as the kernels do. With bf16 weights
+    it rounds the embedding, each layer's output and the weights to bf16
+    exactly where the kernels do; products and sums stay fp32. float64
+    weights run it all in float64 (a reference for conditioning checks).
+    ``pts`` [N, S, 3] (pts mode) gives the sample positions in place of
+    ``origins + directions * z``."""
+    q, _ = quantizer(packed)
+    N, S = z_vals.shape
+    P = N * S
+    if pts is None:
+        pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
+    emb = positional_encoding(pts.reshape(P, 3), packed.n_freqs)
+    if packed.arch == "tnerf":  # [embed(xyz) | embed(t)], t constant along the ray
+        t = times.reshape(N, 1, 1).expand(N, S, 1).reshape(P, 1)
+        emb = torch.cat([emb, positional_encoding(t, packed.n_freqs)], -1)
+    emb = q(F.pad(emb, (0, packed.cin_pad - emb.shape[-1])))
+    vemb = q(F.pad(views_emb, (0, CV_PAD - views_emb.shape[-1])))
+    vemb = vemb[:, None, :].expand(N, S, CV_PAD).reshape(P, CV_PAD)
+    hs, feat, hv, sigma, logits = field_mlp(packed, emb, vemb)
     return FieldForward(emb, vemb, hs, feat, hv, sigma.reshape(N, S), logits)
 
 

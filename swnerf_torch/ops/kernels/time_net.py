@@ -6,17 +6,19 @@ Replaces ``swnerf_tpu/ops/pallas/raymarch.py::_fwd_kernel_plain`` /
 ``_bwd_kernel_plain`` (``fused_time_net`` and its custom VJP): ``dx =
 MLP([embed(x) | embed(t)])`` with ReLU layers, a skip that concatenates
 ``embed(x)`` only, and a 3-wide head. B6 encodes in-block from the sample
-positions ``pts`` [N, S, 3] and the per-ray times [N] (B4's input layout:
-84 live columns of 96 at multires 10), which is what B11
-(``fused_time_net_pts``) computes too. The input cotangent is not formed:
-the positions enter detached in every caller (fused_step.py:478-481,
-499-503).
+positions ``pts`` [N, S, 3] and the per-ray times [N], with its own
+position and time frequency counts (0: the identity, a MultiRes level's
+``-1``), which is what B11 (``fused_time_net_pts``) computes too. The input
+cotangent is not formed: the positions enter detached in every caller
+(fused_step.py:478-481, 499-503; models/dnerf.py:264-268).
 
 ``pack_time_params`` is the port of ``raymarch.py::pack_time_params``
 (:786-816) for this card: one buffer in the operand type, each matrix
-``[in, out]`` row-major, the input padded to 96 rows, the skip layer split
-into its embedding rows (the ``embed(t)`` rows zero, so the shared body
-ignores the time columns exactly) and its hidden rows; biases fp32.
+``[in, out]`` row-major, the input padded to 96 rows (D-NeRF's multires 10:
+84 live columns; MultiRes levels 1-3) or 144 (MultiRes level 0's (20, 8):
+140), the skip layer split into its embedding rows (the ``embed(t)`` rows
+zero, so the shared body ignores the time columns exactly) and its hidden
+rows; biases fp32.
 """
 
 from __future__ import annotations
@@ -33,31 +35,37 @@ from swnerf_torch.ops.kernels import build, launches
 from swnerf_torch.ops.kernels.render_pass import CIN_PAD_T, WIDTHS, _check
 
 NAME = "time_net"
+CIN_PAD_WIDE = 144  # MultiRes level 0: 123 + 17 = 140 live columns
+
+
+def cin_pad_of(cin: int) -> int:
+    """The padded input width B6 is instantiated for: 96, or 144 above 95
+    live columns (one row stays free for the dW column of ones)."""
+    return CIN_PAD_T if cin < CIN_PAD_T else CIN_PAD_WIDE
 
 
 def supports_time_net(cfg) -> bool:
-    """The deformation MLPs B6 is built for: Fourier encoding with one
-    frequency count for position and time, W in (128, 256), the input within
-    95 of the 96 padded rows (room for the dW column of ones), one skip
-    strictly inside the trunk."""
+    """The deformation MLPs B6 is built for: Fourier encoding or the
+    identity, any position and time frequency counts whose input fits 143 of
+    the 144 padded rows, W in (128, 256), one skip strictly inside the
+    trunk."""
     return (
-        cfg.i_embed == 0
+        cfg.i_embed in (0, -1)
         and cfg.netwidth in WIDTHS
-        and cfg.nf_time == cfg.nf_pts
-        and cfg.input_ch + cfg.input_ch_time < CIN_PAD_T
+        and cfg.input_ch + cfg.input_ch_time < CIN_PAD_WIDE
         and len(cfg.skips) == 1
         and 0 < cfg.skips[0] < cfg.netdepth - 1
         and cfg.netdepth <= 16
     )
 
 
-def weight_layout(D: int, W: int, skip: int) -> List[Tuple[str, int, int]]:
+def weight_layout(D: int, W: int, skip: int, cin_pad: int = CIN_PAD_T) -> List[Tuple[str, int, int]]:
     """(name, rows, cols) of each packed matrix, in buffer order (the
     kernel walks the same order, gemm_common.cuh::trunk_offsets)."""
-    out = [("pts0", CIN_PAD_T, W)]
+    out = [("pts0", cin_pad, W)]
     for i in range(1, D):
         if i == skip + 1:
-            out.append((f"pts{i}_emb", CIN_PAD_T, W))
+            out.append((f"pts{i}_emb", cin_pad, W))
         out.append((f"pts{i}", W, W))
     return out + [("out", W, 3)]
 
@@ -75,7 +83,8 @@ class PackedTimeParams:
     D: int
     W: int
     skip: int
-    n_freqs: int  # frequencies of both the position and the time encoding
+    n_freqs: int  # position-encoding frequencies (0: the identity)
+    n_freqs_time: int  # time-encoding frequencies (0: the identity)
 
     @property
     def input_ch(self) -> int:
@@ -84,11 +93,15 @@ class PackedTimeParams:
     @property
     def cin(self) -> int:
         """Live input columns: embed(xyz), then embed(t)."""
-        return self.input_ch + 1 + 2 * self.n_freqs
+        return self.input_ch + 1 + 2 * self.n_freqs_time
+
+    @property
+    def cin_pad(self) -> int:
+        return cin_pad_of(self.cin)
 
     def matrices(self) -> Dict[str, torch.Tensor]:
         out, off = {}, 0
-        for name, rows, cols in weight_layout(self.D, self.W, self.skip):
+        for name, rows, cols in weight_layout(self.D, self.W, self.skip, self.cin_pad):
             out[name] = self.weights[off : off + rows * cols].view(rows, cols)
             off += rows * cols
         return out
@@ -127,19 +140,20 @@ def pack_time_params(params: Mapping[str, torch.Tensor], cfg, dtype: torch.dtype
     if not supports_time_net(cfg):
         raise ValueError(f"time_net does not support {cfg}")
     D, W, skip, cin_x = cfg.netdepth, cfg.netwidth, cfg.skips[0], cfg.input_ch
+    cin_pad = cin_pad_of(cin_x + cfg.input_ch_time)
     mats = {}
     for i in range(D):
         w = params[f"{prefix}.{i}.weight"].to(torch.float32).t()  # [in, out]
         if i == 0:
-            mats["pts0"] = _pad_rows(w, CIN_PAD_T)
+            mats["pts0"] = _pad_rows(w, cin_pad)
         elif i == skip + 1:  # [embed(x) | h]: embed(x)'s rows, then zero rows where embed(t) sits
-            mats[f"pts{i}_emb"] = _pad_rows(w[:cin_x], CIN_PAD_T)
+            mats[f"pts{i}_emb"] = _pad_rows(w[:cin_x], cin_pad)
             mats[f"pts{i}"] = w[cin_x:]
         else:
             mats[f"pts{i}"] = w
     mats["out"] = params[f"{prefix}_out.weight"].to(torch.float32).t()
     flat = []
-    for name, rows, cols in weight_layout(D, W, skip):
+    for name, rows, cols in weight_layout(D, W, skip, cin_pad):
         if tuple(mats[name].shape) != (rows, cols):
             raise ValueError(f"{name}: shape {tuple(mats[name].shape)} != {(rows, cols)}")
         flat.append(mats[name].reshape(-1))
@@ -147,7 +161,7 @@ def pack_time_params(params: Mapping[str, torch.Tensor], cfg, dtype: torch.dtype
     biases.append(params[f"{prefix}_out.bias"].to(torch.float32))
     return PackedTimeParams(
         weights=torch.cat(flat).to(dtype).contiguous(), biases=torch.cat(biases).contiguous(),
-        D=D, W=W, skip=skip, n_freqs=cfg.multires,
+        D=D, W=W, skip=skip, n_freqs=max(cfg.nf_pts, 0), n_freqs_time=max(cfg.nf_time, 0),
     )
 
 
@@ -157,7 +171,7 @@ def unpack_time_grads(grads: Tuple[torch.Tensor, torch.Tensor], packed: PackedTi
     padded rows (embed(t)'s rows of the skip block among them) are dropped."""
     gw, gb = grads
     mats, off = {}, 0
-    for name, rows, cols in weight_layout(packed.D, packed.W, packed.skip):
+    for name, rows, cols in weight_layout(packed.D, packed.W, packed.skip, packed.cin_pad):
         mats[name] = gw[off : off + rows * cols].view(rows, cols)
         off += rows * cols
     out = {}
@@ -191,9 +205,9 @@ def _forward(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor, k
         return x.to(cdt).to(acc_dt)
 
     t = times.reshape(N, 1, 1).expand(N, S, 1).reshape(P, 1)
-    emb = torch.cat([positional_encoding(pts.reshape(P, 3), packed.n_freqs), positional_encoding(t, packed.n_freqs)],
-                    -1)
-    emb = q(F.pad(emb, (0, CIN_PAD_T - emb.shape[-1])))
+    emb = torch.cat([positional_encoding(pts.reshape(P, 3), packed.n_freqs),
+                     positional_encoding(t, packed.n_freqs_time)], -1)
+    emb = q(F.pad(emb, (0, packed.cin_pad - emb.shape[-1])))
     hs = []
     h = emb
     for i in range(packed.D):
@@ -241,7 +255,7 @@ def time_net_plain_bwd(
         if i > 0:
             dz = q(torch.where(hs[i - 1] > 0, dz @ m[f"pts{i}"].t(), torch.zeros_like(hs[i - 1])))
     return (
-        torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(packed.D, packed.W, packed.skip)]),
+        torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(packed.D, packed.W, packed.skip, packed.cin_pad)]),
         torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(packed.D, packed.W)]),
     )
 
@@ -269,13 +283,13 @@ def _launch_fwd(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor
         raise ValueError("time_net: packed weights must be a 16-byte aligned fp32/bf16 buffer on the device")
     lib = build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _lib_fn(lib, "time_net_fwd_launch", ctypes.c_int, [i, i, p, p, p, p, i, i, i, i, i, p, p, p])
+    fn = _lib_fn(lib, "time_net_fwd_launch", ctypes.c_int, [i, i, i, p, p, p, p, i, i, i, i, i, i, p, p, p])
     dx = torch.empty((N, S, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = fn(
-            int(packed.weights.dtype == torch.bfloat16), packed.W, pts.data_ptr(), times.data_ptr(),
-            packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, packed.n_freqs, N, S,
-            dx.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            int(packed.weights.dtype == torch.bfloat16), packed.W, packed.cin_pad, pts.data_ptr(), times.data_ptr(),
+            packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, packed.n_freqs,
+            packed.n_freqs_time, N, S, dx.data_ptr(), scratch.data_ptr() if scratch is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "time_net")
@@ -293,11 +307,11 @@ def time_net(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor) -
 
 def _scratch(packed: PackedTimeParams, M: int, dev) -> torch.Tensor:
     lib = build.load(NAME)
-    fn = _lib_fn(lib, "time_net_scratch_bytes", ctypes.c_longlong, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                                                     ctypes.c_longlong])
-    nbytes = fn(int(packed.weights.dtype == torch.bfloat16), packed.W, packed.D, M)
+    i = ctypes.c_int
+    fn = _lib_fn(lib, "time_net_scratch_bytes", ctypes.c_longlong, [i, i, i, i, ctypes.c_longlong])
+    nbytes = fn(int(packed.weights.dtype == torch.bfloat16), packed.cin_pad, packed.W, packed.D, M)
     if nbytes < 0:
-        raise ValueError(f"time_net: unsupported width {packed.W}")
+        raise ValueError(f"time_net: unsupported width {packed.W} or input {packed.cin}")
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
@@ -306,13 +320,15 @@ def _launch_bwd(packed: PackedTimeParams, M: int, g: torch.Tensor, scratch: torc
     _check(g, "g", (M, 3), dev)
     lib = build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _lib_fn(lib, "time_net_bwd_launch", ctypes.c_int, [i, i, p, i, i, i, ctypes.c_longlong, p, p, p, p, p])
+    fn = _lib_fn(lib, "time_net_bwd_launch", ctypes.c_int,
+                 [i, i, i, p, i, i, i, i, ctypes.c_longlong, p, p, p, p, p])
     gw = torch.zeros(packed.weights.numel(), dtype=torch.float32, device=dev)
     gb = torch.zeros(packed.biases.numel(), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = fn(
-            int(packed.weights.dtype == torch.bfloat16), packed.W, packed.weights.data_ptr(), packed.D, packed.skip,
-            packed.n_freqs, M, g.data_ptr(), gw.data_ptr(), gb.data_ptr(), scratch.data_ptr(),
+            int(packed.weights.dtype == torch.bfloat16), packed.W, packed.cin_pad, packed.weights.data_ptr(),
+            packed.D, packed.skip, packed.n_freqs, packed.n_freqs_time, M, g.data_ptr(), gw.data_ptr(),
+            gb.data_ptr(), scratch.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "time_net backward")

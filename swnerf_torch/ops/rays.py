@@ -47,14 +47,16 @@ def get_rays(
 
 def get_rays_at(pixels: torch.Tensor, H: int, W: int, focal_or_K, c2w: torch.Tensor):
     """Rays at given pixels only: ``pixels`` [N, 2] integer (row, col) =
-    (y, x); returns ``(rays_o, rays_d)``, each [N, 3], on ``c2w``'s device.
+    (y, x); returns ``(rays_o, rays_d)``, each [N, 3], on ``c2w``'s device,
+    in fp32 (float64 for a float64 ``c2w``: the float64 reference runs).
     The full H x W grid is never built (training samples a few pixels)."""
-    c2w = torch.as_tensor(c2w, dtype=torch.float32)
-    j = pixels[:, 0].to(torch.float32)  # row
-    i = pixels[:, 1].to(torch.float32)  # col
+    dtype = torch.float64 if isinstance(c2w, torch.Tensor) and c2w.dtype == torch.float64 else torch.float32
+    c2w = torch.as_tensor(c2w, dtype=dtype)
+    j = pixels[:, 0].to(dtype)  # row
+    i = pixels[:, 1].to(dtype)  # col
     dirs = _pixel_dirs(
         i, j, H, W, focal_or_K, torch.stack, torch.ones_like,
-        lambda k: torch.as_tensor(k, dtype=torch.float32, device=c2w.device),
+        lambda k: torch.as_tensor(k, dtype=dtype, device=c2w.device),
     )
     rays_d = torch.sum(dirs[..., None, :] * c2w[:3, :3], -1)
     rays_o = c2w[:3, -1].expand(rays_d.shape)

@@ -1,10 +1,13 @@
-"""Checkpoints, vanilla, T-NeRF and D-NeRF ``.tar`` schemas (port of
-``swnerf_tpu/train/checkpoint.py``).
+"""Checkpoints, vanilla, T-NeRF, D-NeRF and MultiRes ``.tar`` schemas
+(port of ``swnerf_tpu/train/checkpoint.py``).
 
 The vanilla schema is the reference's ``{global_step,
 network_fn_state_dict, network_fine_state_dict, optimizer_state_dict}``;
 T-NeRF's has no fine dict (run_tnerf.py:719-728); D-NeRF's has one only
-when two models are trained (run_dnerf.py:757-769). Weights are in torch
+when two models are trained (run_dnerf.py:757-769); MultiRes keeps one
+D-NeRF entry per pyramid level, ``network_fn_{l}``, ``network_fine_{l}``
+(two models) and ``optimizer_{l}`` (swnerf_tpu/pipelines/run_multires.py:
+180-223; written by ``pipelines/run_multires.py::save_multires_ckpt``). Weights are in torch
 ``[out, in]`` layout, so the port's modules load them as they are. The JAX
 package keeps ``[in, out]`` pytrees; :func:`params_from_jax` is the weight
 bridge that gives both packages identical weights.
@@ -72,12 +75,15 @@ def _dnerf_layers(tree: Mapping[str, Any]) -> Iterator[Tuple[str, Mapping[str, A
     yield "_time_out", tree["time_net"]["out"]
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree):
     """A JAX param pytree (numpy leaves) -> the port's state dict in
     ``[out, in]`` layout: vanilla (and D-NeRF ``original``)
     ``{"pts_linears": [{"w": [in, out], "b"}], "feature_linear": ...}``,
     T-NeRF ``{"layers": [...], "density", "feature", "layer_9", "color"}``
-    or D-NeRF ``direct_temporal`` ``{"canonical", "time_net"}``."""
+    or D-NeRF ``direct_temporal`` ``{"canonical", "time_net"}``. A list of
+    trees (MultiRes: one per pyramid level) gives a list of state dicts."""
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(t) for t in tree]
     if "canonical" in tree:
         layers = _dnerf_layers(tree)
     elif "layers" in tree:

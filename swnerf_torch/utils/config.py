@@ -154,7 +154,7 @@ def config_parser_dnerf() -> ConfigArgumentParser:
     """The dynamic-family parser (reference utils.py:101-237): base flags,
     nerf_type / N_iter, half precision, the canonical-time and two-model
     switches, the time curriculum, the TV loss, and the dnerf logging
-    cadence. The multiresolution-pyramid flags come with that trainer."""
+    cadence, and the multiresolution-pyramid flags of the MultiRes trainer."""
     p = ConfigArgumentParser()
     _add_base_flags(p)
     p.add_argument("--testskip", type=int, default=2, help="load 1/N images from test/val sets")
@@ -167,6 +167,12 @@ def config_parser_dnerf() -> ConfigArgumentParser:
     p.add_argument("--precrop_iters_time", type=int, default=0, help="number of steps to train on central time")
     p.add_argument("--add_tv_loss", action="store_true", help="evaluate tv loss")
     p.add_argument("--tv_loss_weight", type=float, default=1.0e-4, help="weight of tv loss")
+
+    # multiresolution pyramid options
+    p.add_argument("--layer_num", type=int, default=4, help="number of resolutions")
+    p.add_argument("--global_optimization_epoch", type=int, default=120)
+    p.add_argument("--inner_iteration", type=int, default=10)
+    p.add_argument("--loss_decrease_rate", type=float, default=0.04)
 
     p.add_argument("--i_print", type=int, default=1000, help="console printout frequency")
     p.add_argument("--i_img", type=int, default=5000, help="tensorboard image log frequency")

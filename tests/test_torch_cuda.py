@@ -25,9 +25,19 @@ bit-equal repeats. B3's pts mode at B3's bars; B5 at B6's, its dpts
 [N, S, 3] counted among the gradients. The kernel D-NeRF step against the
 eager step: loss rel 1e-5 (or as close to the float64 eager step as the
 fallback allows) and B6's gradient bar.
+MultiRes: B7 (the field trunk on embedded inputs) and the widened B6 at each
+level's widths, fp32 at B6's bars (raw atol 1e-4, rtol 1e-4; B7's gradients
+and demb at the fallback bar), bf16 within 1e-2 of the bf16 twins (raw
+relative to its largest value; gradients rel L2), bit-equal repeats; the
+D-NeRF field's kernel route and a MultiRes phase-2 step against the plain
+route (fp32, the float64 plain route on the CPU as the fallback's
+reference), with small deformation heads so that level 0's 2^19 encoding
+stays well conditioned (tests/test_torch_multires.py); ``NeRFOriginal``'s
+kernel route (B7 alone) against its plain route, fp32 and the default bf16.
 """
 
 import dataclasses
+from pathlib import Path
 
 import pytest
 import torch
@@ -39,6 +49,7 @@ from swnerf_torch.ops.kernels import render_loss as b1
 from swnerf_torch.ops.kernels import render_pass as b3
 from swnerf_torch.ops.kernels import sample_pdf as b2
 from swnerf_torch.ops.kernels import time_net as b6
+from swnerf_torch.ops.kernels import trunk as b7
 from swnerf_torch.render.fused_eval import canonical_params
 
 torch.set_num_threads(2)
@@ -598,9 +609,9 @@ def test_dnerf_kernel_step_matches_eager_step(dev):
     target = torch.rand((256, 3), generator=g, device=dev)
     draws = make_draws(rcfg, 256, torch.Generator(device=dev).manual_seed(3), dev)
 
-    def state(device, dtype=torch.float32):
-        net = DirectTemporalNeRF(cfg, device=device, generator=torch.Generator().manual_seed(0)).to(dtype)
-        return init_train_state(net, None, 5e-4, 500)
+    def state(device, dtype=torch.float32):  # the plain route: the eager step is the reference
+        net = DirectTemporalNeRF(cfg, device=device, generator=torch.Generator().manual_seed(0), fused=False)
+        return init_train_state(net.to(dtype), None, 5e-4, 500)
 
     def grads(st):
         return {k: p.grad for k, p in st.coarse.named_parameters()}
@@ -621,3 +632,320 @@ def test_dnerf_kernel_step_matches_eager_step(dev):
     lk, le, l64, l64p = (m["total_loss"].item() for m in (mk, me, m64, m64p))
     assert abs(lk - le) <= 1e-5 * abs(le) or abs(lk - l64) <= 2 * max(abs(le - l64), abs(l64p - l64)), (lk, le, l64)
     _assert_fp32_grads(grads(sk), grads(se), grads(s64), grads(s64p))
+
+
+# ---------------------------------------------------------------- MultiRes: B7 and the widened B6
+
+DNERF_CKPT = Path(__file__).resolve().parents[1] / "benchmarks" / "round5_artifacts" / "full_dnerf_800k" / "800000.tar"
+MR_BASE = dict(netdepth=8, netwidth=256, skips=(4,))
+MR_LEVELS = {
+    "level0": dict(MR_BASE, multires=20, multires_time=8, multires_views=20),
+    "level1": dict(MR_BASE, multires=10, multires_time=4, multires_views=10),
+    "identity": dict(MR_BASE, multires=-1, multires_time=-1, multires_views=-1, i_embed=-1),
+}
+
+
+def _b7_case(dev, level, n=300, s=16, seed=0):
+    """A level's canonical trunk with seeded weights, its embedded positions
+    and per-sample view embeddings (fp32, on the card) and a cotangent."""
+    cfg = DNeRFConfig(**MR_LEVELS[level])
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    o, d, vd, z, _ = _rays(dev, n, s, seed)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    emb = positional_encoding(pts, cfg.nf_pts).contiguous()
+    vemb = positional_encoding(vd, cfg.nf_views)[:, None, :].expand(n, s, -1).reshape(n * s, -1).contiguous()
+    g = torch.randn((n * s, 4), generator=torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+    return cfg, model._occ.state_dict(), emb, vemb, g
+
+
+def _b7_grads(grads, demb, packed):
+    return dict(b7.unpack_trunk_grads(grads, packed), demb=demb)
+
+
+@pytest.mark.parametrize("level", list(MR_LEVELS))
+def test_b7_fp32_matches_plain(dev, level):
+    cfg, sd, emb, vemb, g = _b7_case(dev, level)
+    packed = b7.pack_trunk_params(sd, cfg, torch.float32)
+    before = (launches["trunk"], launches["trunk[bwd]"])
+    raw, grads, demb, _ = b7.trunk_fwd_bwd(packed, emb, vemb, g)
+    torch.cuda.synchronize()
+    assert (launches["trunk"], launches["trunk[bwd]"]) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(raw, b7.trunk_plain(packed, emb, vemb), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(b7.trunk(packed, emb, vemb), raw, atol=0, rtol=0)
+    ref, dref, _ = b7.trunk_plain_bwd(packed, emb, vemb, g)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    g64, d64, _ = b7.trunk_plain_bwd(p64, emb.double(), vemb.double(), g.double())
+    g64p, d64p, _ = b7.trunk_plain_bwd(dataclasses.replace(p64, weights=_jitter(p64.weights)), emb.double(),
+                                       vemb.double(), g.double())
+    _assert_fp32_grads(_b7_grads(grads, demb, packed), _b7_grads(ref, dref, packed), _b7_grads(g64, d64, p64),
+                       _b7_grads(g64p, d64p, p64))
+
+
+@pytest.mark.parametrize("level", ["level0", "level1"])
+def test_b7_bf16_matches_plain_and_repeats(dev, level):
+    cfg, sd, emb, vemb, g = _b7_case(dev, level, n=500, s=64)
+    packed = b7.pack_trunk_params(sd, cfg, torch.bfloat16)
+    raw, grads, demb, _ = b7.trunk_fwd_bwd(packed, emb, vemb, g)
+    _, grads2, demb2, _ = b7.trunk_fwd_bwd(packed, emb, vemb, g)
+    ref = b7.trunk_plain(packed, emb, vemb)
+    gr, dr, _ = b7.trunk_plain_bwd(packed, emb, vemb, g)
+    torch.cuda.synchronize()
+    assert (raw - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    rel = _rel_l2(_b7_grads(grads, demb, packed), _b7_grads(gr, dr, packed))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(grads[0], grads2[0]) and torch.equal(grads[1], grads2[1]) and torch.equal(demb, demb2)
+
+
+def test_b7_view_cotangent_and_autograd_on_the_card(dev):
+    """dvemb when asked (fp32, against the twin), and trunk_autograd: B7's
+    forward with its scratch and its backward hand the kernel's gradients
+    and demb to the parameters and the embedding."""
+    cfg, sd, emb, vemb, g = _b7_case(dev, "level1", n=64, s=8)
+    packed = b7.pack_trunk_params(sd, cfg, torch.float32)
+    _, _, _, dv = b7.trunk_fwd_bwd(packed, emb, vemb, g, need_demb=False, need_dvemb=True)
+    _, _, dv_ref = b7.trunk_plain_bwd(packed, emb, vemb, g, need_demb=False, need_dvemb=True)
+    torch.testing.assert_close(dv, dv_ref, atol=1e-5, rtol=1e-4)
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    occ = dict(model._occ.named_parameters())
+    e = emb.clone().requires_grad_(True)
+    before = launches["trunk[bwd]"]
+    raw = b7.trunk_autograd(b7.pack_trunk_params(occ, cfg, torch.float32), torch.float32, e, vemb)
+    (raw * g).sum().backward()
+    torch.cuda.synchronize()
+    assert launches["trunk[bwd]"] == before + 1
+    detached = b7.pack_trunk_params(model._occ.state_dict(), cfg, torch.float32)
+    raw2, grads, demb, _ = b7.trunk_fwd_bwd(detached, emb, vemb, g)
+    assert torch.equal(raw.detach(), raw2) and torch.equal(e.grad, demb)
+    for k, v in b7.unpack_trunk_grads(grads, detached).items():
+        assert torch.equal(occ[k].grad, v), k
+    with pytest.raises(ValueError):
+        b7.trunk(detached, emb[:, :5].contiguous(), vemb)
+
+
+@pytest.mark.parametrize("level", list(MR_LEVELS))
+def test_b6_level_widths_fp32_matches_plain(dev, level):
+    cfg = DNeRFConfig(**MR_LEVELS[level])
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(2))
+    _, _, pts, times, _ = _dnerf_case(dev, DNERF_SMALL, 300, 16)
+    packed = b6.pack_time_params(model.state_dict(), cfg, torch.float32)
+    assert packed.cin_pad == (144 if level == "level0" else 96)
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    dx, grads = b6.time_net_fwd_bwd(packed, pts, times, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dx, b6.time_net_plain(packed, pts, times), atol=1e-5, rtol=0)
+    ref = b6.time_net_plain_bwd(packed, pts, times, g)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    ref64 = b6.time_net_plain_bwd(p64, pts.double(), times.double(), g.double())
+    ref64p = b6.time_net_plain_bwd(dataclasses.replace(p64, weights=_jitter(p64.weights)), pts.double(),
+                                   times.double(), g.double())
+    _assert_fp32_grads(*(_time_grads(x, packed) for x in (grads, ref, ref64, ref64p)))
+
+
+@pytest.mark.parametrize("level", ["level0", "level1"])
+def test_b6_level_widths_bf16_matches_plain_and_repeats(dev, level):
+    cfg = DNeRFConfig(**MR_LEVELS[level])
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(2))
+    _, _, pts, times, _ = _dnerf_case(dev, DNERF_SMALL, 500, 64)
+    packed = b6.pack_time_params(model.state_dict(), cfg, torch.bfloat16)
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    dx, (w1, b1_) = b6.time_net_fwd_bwd(packed, pts, times, g)
+    _, (w2, b2_) = b6.time_net_fwd_bwd(packed, pts, times, g)
+    ref = b6.time_net_plain_bwd(packed, pts, times, g)
+    torch.cuda.synchronize()
+    assert (dx - b6.time_net_plain(packed, pts, times)).abs().max().item() <= 1e-2
+    rel = _rel_l2(_time_grads((w1, b1_), packed), _time_grads(ref, packed))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(w1, w2) and torch.equal(b1_, b2_)
+
+
+def _mr_pair(dev, level, seed=0, head=1e-3):
+    """The same level field on the kernel route (fp32 operands) and on the
+    plain route, its deformation head scaled by ``head`` (small dx)."""
+    cfg = DNeRFConfig(**MR_LEVELS[level])
+    kern = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed),
+                              compute_dtype=torch.float32)
+    with torch.no_grad():
+        kern._time_out.weight.mul_(head)
+        kern._time_out.bias.mul_(head)
+    plain = DirectTemporalNeRF(cfg, device=dev, fused=False)
+    plain.load_state_dict(kern.state_dict())
+    assert kern.fused_time and kern.fused_trunk and not plain.fused_time
+    return kern, plain
+
+
+@pytest.mark.parametrize("level", list(MR_LEVELS))
+def test_dnerf_field_kernel_route_matches_plain_route(dev, level):
+    """A level field's forward and backward on its kernel route (B6 and B7
+    with fp32 operands, one launch each way) against the plain route on the
+    same weights: raw and dx atol 1e-4 / 1e-5, gradients at the fallback
+    bar (the plain route in float64 on the CPU as its reference); without
+    autograd the route runs the forward-only launches. At level 0 the
+    deformation head is zero (dx = 0 exactly, its gradients still formed):
+    with any dx, x + dx rounds to a neighbouring fp32 value in a row or two
+    of 3,200 depending on dx's last bit, and the 2^19 encoding turns that
+    ulp (4.8e-7 near |x| = 4) into 0.25 rad (measured on an H100 at a head
+    of 1e-3: 7 of 12,800 raw values off by up to 9.7e-3)."""
+    kern, plain = _mr_pair(dev, level, head=0.0 if level == "level0" else 1e-3)
+    o, d, vd, z, _ = _rays(dev, 200, 16, 3)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+    t = torch.rand((200, 1), generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    t[:50] = 0.0
+    g = torch.randn((200, 16, 4), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    names = ("time_net", "time_net[bwd]", "trunk", "trunk[bwd]")
+    before = [launches[k] for k in names]
+    raw, aux = kern(pts, vd, t)
+    (raw * g).sum().backward()
+    torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(names, before)] == [1, 1, 1, 1]
+    rp, ap = plain(pts, vd, t)
+    (rp * g).sum().backward()
+    p64 = DirectTemporalNeRF(kern.cfg, device="cpu", fused=False)
+    p64.load_state_dict(kern.state_dict())
+    p64 = p64.double()
+    r64, _ = p64(pts.double().cpu(), vd.double().cpu(), t.double().cpu())
+    (r64 * g.double().cpu()).sum().backward()
+    torch.testing.assert_close(aux["dx"], ap["dx"], atol=1e-5, rtol=0)
+    torch.testing.assert_close(raw, rp, atol=1e-4, rtol=1e-4)
+    grads = {k: p.grad for k, p in kern.named_parameters()}
+    _assert_fp32_grads(grads, {k: p.grad for k, p in plain.named_parameters()},
+                       {k: p.grad for k, p in p64.named_parameters()})
+    with torch.no_grad():
+        before = [launches[k] for k in names]
+        raw_nograd, _ = kern(pts, vd, t)
+        torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(names, before)] == [1, 0, 1, 0]
+    assert torch.equal(raw_nograd, raw.detach())
+
+
+@pytest.mark.parametrize("level", ["dnerf", "level0"])
+@pytest.mark.parametrize("dtype", [torch.float32, None], ids=["fp32", "default_bf16"])
+def test_nerf_original_kernel_route_matches_plain_route(dev, level, dtype):
+    """``--nerf_type original`` on the card: ``NeRFOriginal(fused=None)``
+    runs B7 without input gradients (bf16 operands by default, fp32 as the
+    parity mode), one launch each way, the forward-only launch without
+    autograd. Against ``fused=False`` on the same weights: fp32 raw atol /
+    rtol 1e-4 and gradients at the fallback bar (the float64 plain route on
+    the CPU); bf16 raw within 1e-2 of its largest value and gradients rel L2
+    1e-2 of B7's bf16 twin. A no-grad render of 256 rays, 32 samples: fp32
+    rgb atol 1e-4; bf16 against the fp32 plain route max |drgb| 2e-2, mean
+    2e-3 (phase 24's bf16 bar, five of bf16's unit roundoffs, on rgb). The
+    D-NeRF configuration renders with the canonical weights of the round-5
+    800000.tar: on seeded weights its raw values reach the hundreds, where
+    bf16's relative rounding moves a colour logit by O(1) (one pixel 0.64
+    apart on an H100)."""
+    from swnerf_torch.models.dnerf import NeRFOriginal, make_dnerf_model
+    from swnerf_torch.render.core import RenderConfig, make_rays_from_camera, render_image
+    from swnerf_torch.train.checkpoint import dnerf_state_dict, load_tar
+
+    cfg = DNeRFConfig(**({} if level == "dnerf" else MR_LEVELS[level]))
+    assert make_dnerf_model("original", cfg, dev).fused  # the trainers' model: the kernel route by default
+    kern = NeRFOriginal(cfg, dev, torch.Generator().manual_seed(3), compute_dtype=dtype)
+    if level == "dnerf":
+        sd = dnerf_state_dict(load_tar(str(DNERF_CKPT))["network_fn_state_dict"])
+        kern.load_state_dict({k[len("_occ."):]: v for k, v in sd.items() if k.startswith("_occ.")})
+    plain = make_dnerf_model("original", cfg, dev, fused=False)
+    plain.load_state_dict(kern.state_dict())
+    assert kern.fused and not plain.fused
+    o, d, vd, z, _ = _rays(dev, 200, 16, 3)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+    t = torch.full((200, 1), 0.5, device=dev)
+    g = torch.randn((200, 16, 4), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    names = ("trunk", "trunk[bwd]")
+    before = [launches[k] for k in names]
+    raw, aux = kern(pts, vd, t)
+    (raw * g).sum().backward()
+    torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(names, before)] == [1, 1]
+    assert torch.equal(aux["dx"], torch.zeros_like(pts))
+    rp, _ = plain(pts, vd, t)
+    (rp * g).sum().backward()
+    grads = {k: p.grad for k, p in kern.named_parameters()}
+    if dtype == torch.float32:
+        p64 = make_dnerf_model("original", cfg, "cpu", fused=False)
+        p64.load_state_dict(kern.state_dict())
+        p64 = p64.double()
+        r64, _ = p64(pts.double().cpu(), vd.double().cpu(), t.double().cpu())
+        (r64 * g.double().cpu()).sum().backward()
+        torch.testing.assert_close(raw, rp, atol=1e-4, rtol=1e-4)
+        _assert_fp32_grads(grads, {k: p.grad for k, p in plain.named_parameters()},
+                           {k: p.grad for k, p in p64.named_parameters()})
+    else:
+        packed = b7.pack_trunk_params(kern.state_dict(), cfg, torch.bfloat16)
+        emb = positional_encoding(pts, cfg.nf_pts).reshape(-1, cfg.input_ch).contiguous()
+        vemb = positional_encoding(vd, cfg.nf_views)[:, None, :].expand(200, 16, -1).reshape(3200, -1).contiguous()
+        ref = b7.trunk_plain(packed, emb, vemb).reshape(200, 16, 4)
+        gr, _, _ = b7.trunk_plain_bwd(packed, emb, vemb, g.reshape(-1, 4), need_demb=False)
+        assert (raw - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+        rel = _rel_l2(grads, b7.unpack_trunk_grads(gr, packed))
+        assert max(rel.values()) <= 1e-2, rel
+    with torch.no_grad():
+        before = [launches[k] for k in names]
+        raw_nograd, _ = kern(pts, vd, t)
+        torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(names, before)] == [1, 0]
+    assert torch.equal(raw_nograd, raw.detach())
+    c2w = torch.eye(4)[:3].numpy()
+    c2w[2, 3] = 4.0
+    rays = make_rays_from_camera(16, 16, 20.0, c2w, 2.0, 6.0, device=dev, time=0.5)
+    rcfg = RenderConfig(n_samples=32, white_bkgd=True)
+    with torch.no_grad():
+        rk = render_image(kern, rays, rcfg)["rgb"]
+        rpl = render_image(plain, rays, rcfg)["rgb"]
+    drgb = (rk - rpl).abs()
+    if dtype == torch.float32:
+        assert drgb.max().item() <= 1e-4
+    else:
+        assert drgb.max().item() <= 2e-2 and drgb.mean().item() <= 2e-3, (drgb.max().item(), drgb.mean().item())
+
+
+def test_multires_phase2_step_kernel_route_matches_plain_route(dev):
+    """One MultiRes phase-2 step over the 4 levels at full width (patches of
+    32/16/8/4 pixels, 16 samples, jitter from one generator) on the kernel
+    route against the plain route from the same weights and draws: every
+    metric rel 1e-4, every level's gradients at the fallback bar (the plain
+    route in float64 on the CPU as its reference)."""
+    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
+    from swnerf_torch.pipelines.run_multires import make_phase2_step
+    from swnerf_torch.render.core import Draws, RenderConfig, make_draws
+    from swnerf_torch.train.loop import init_train_state
+
+    rcfg = RenderConfig(n_samples=16, perturb=1.0, white_bkgd=True)
+    levels = ["level0", "level1", "level1", "identity"]
+    pairs = [_mr_pair(dev, lv, seed=l) for l, lv in enumerate(levels)]
+    size = 64
+    pyr_hwf = [[size // 2**l, size // 2**l, 80.0 / 2**l] for l in range(4)]
+    patch_sizes = [32, 16, 8, 4]
+    g = torch.Generator(device=dev).manual_seed(6)
+    images = torch.rand((1, size, size, 3), generator=g, device=dev)
+    lap = generate_laplacian_pyramid(images, levels=4)
+    pixels = [torch.stack(torch.meshgrid(torch.arange(8 // 2**l, 8 // 2**l + ps, device=dev),
+                                         torch.arange(8 // 2**l, 8 // 2**l + ps, device=dev), indexing="ij"), -1)
+              .reshape(-1, 2) for l, ps in enumerate(patch_sizes)]
+    targets = [lap[l][0, 8 // 2**l : 8 // 2**l + ps, 8 // 2**l : 8 // 2**l + ps] for l, ps in enumerate(patch_sizes)]
+    pose = torch.eye(4, device=dev)[:3]
+    pose[2, 3] = 4.0
+    draws = [make_draws(rcfg, ps * ps, g, dev) for ps in patch_sizes]
+    step = make_phase2_step(rcfg, pyr_hwf, patch_sizes, 2.0, 6.0)
+
+    def run(models, device, dtype):
+        states = [init_train_state(m, None, 5e-4, 250) for m in models]
+        cast = lambda x: x.to(device=device, dtype=dtype)  # noqa: E731
+        m = step(states, [p.to(device) for p in pixels], [cast(t) for t in targets], cast(images[0, 8:40, 8:40]),
+                 cast(pose), 0.4, 1.0, draws=[Draws(cast(d.t_rand), None, None, None) for d in draws])
+        return m, [{k: p.grad for k, p in s.coarse.named_parameters()} for s in states]
+
+    before = launches["trunk[bwd]"]
+    mk, gk = run([k for k, _ in pairs], dev, torch.float32)
+    torch.cuda.synchronize()
+    assert launches["trunk[bwd]"] == before + 4
+    mp, gp = run([p for _, p in pairs], dev, torch.float32)
+    cpu64 = []
+    for k, _ in pairs:
+        m = DirectTemporalNeRF(k.cfg, device="cpu", fused=False)
+        m.load_state_dict(k.state_dict())
+        cpu64.append(m.double())
+    _, g64 = run(cpu64, "cpu", torch.float64)
+    for key in mk:
+        assert mk[key].item() == pytest.approx(mp[key].item(), rel=1e-4), key
+    for a, b, c in zip(gk, gp, g64):
+        _assert_fp32_grads(a, b, c)

@@ -193,9 +193,11 @@ def test_b6_autograd_function_and_wrappers_on_cpu():
     assert sum(launches.values()) == before
     assert b6.supports_time_net(DNeRFConfig()) and b6.pack_time_params(model.state_dict(), cfg).weights.dtype == \
         torch.bfloat16
-    for bad in (dict(SMALL, netwidth=200), dict(SMALL, multires_time=3), dict(SMALL, skips=(3,)),
-                dict(SMALL, multires=12)):
+    for bad in (dict(SMALL, netwidth=200), dict(SMALL, skips=(3,)), dict(SMALL, multires=24)):
         assert not b6.supports_time_net(DNeRFConfig(**bad)), bad
+    # separate time frequencies and inputs past 95 columns: the widened B6 (144 padded rows)
+    for good in (dict(SMALL, multires_time=3), dict(SMALL, multires=12), dict(SMALL, multires=20, multires_time=8)):
+        assert b6.supports_time_net(DNeRFConfig(**good)), good
     with pytest.raises(ValueError):
         b6.pack_time_params(model.state_dict(), DNeRFConfig(**dict(SMALL, skips=(3,))))
 
