@@ -2,8 +2,10 @@
 """Smoke test of swnerf_torch on one NVIDIA card: build the CUDA kernels,
 hold each against its plain PyTorch twin, render test views of the trained
 vanilla NeRF, T-NeRF and D-NeRF and resume their training through the real
-CLIs, train a MultiRes D-NeRF from scratch through its CLI, and time the
-kernels.
+CLIs, train a MultiRes D-NeRF from scratch through its CLI, drive the
+fields' kernel routes (the eager steps, renders with no eval pass), extract
+meshes from the trained vanilla NeRF and solve their metric scale, and time
+the kernels.
 
     python3 chip_smoke.py
 
@@ -112,7 +114,42 @@ Phases (each raises on failure; nothing is caught):
      launched; ms per phase-1 step (per level), per phase-2 step and per
      reconstructed test frame; test frames 0/5/10/15/20 from 000200.tar
      reconstructed by the bf16 kernels within 0.1 dB (mean PSNR) of the fp32
-     plain route, and not equal to it; then the JSON lines.
+     plain route, and not equal to it;
+ 26. B7' (the ELU T-NeRF trunk on embedded inputs) against its twin with the
+     800000.tar weights on one eager step's rows (500 seeded pixels of a
+     train view x 64 jittered samples = 32,000 rows): fp32 raw within 1e-5
+     of its largest value, the gradients and the embeddings' cotangents at
+     phase 17's bar; bf16 raw within 1e-2 of its largest value, gradients
+     rel L2 1e-2; bit-equal repeats; the forward-only launch bit-equal to
+     the train-mode one; the serving chunk's last 32,000 rows at the bf16
+     bar; times at 32,000 rows (forward, backward) and at the 2.1M-row
+     chunk;
+ 27. B8 (the trunk with the encode in the kernel) against its twin with
+     010000.tar's fine weights on 1024 rays x 192 jittered samples, the
+     same bars, d pts and d viewdirs at the fp32 bar; times at 32,000 rows
+     and at one mesh tile (2,048 points x 100 views = 204,800 rows);
+ 28. the fields' kernel routes through the CLIs: run_nerf resumed from
+     010000.tar for 200 eager steps (SWNERF_FUSED_STEP=0: B7), then again
+     under SWNERF_FUSED_RAW=1 (B8), >= 30 dB at every print; test frame 0
+     through the fields (SWNERF_FUSED_EVAL=0) within 0.1 dB of phase 5's
+     B3 frame; run_tnerf resumed from 800000.tar for 200 eager steps (B7'),
+     >= 19 dB at every print and no B4 launch; run_tnerf --render_only
+     --testskip 5 through B4 and through B7' (SWNERF_FUSED_EVAL=0), mean
+     PSNRs within 0.1 dB; run_dnerf for 10 steps under SWNERF_FUSED=0: the
+     fp32 plain route, no field kernel launched;
+ 29. the SW mesh chain at the drill recipe: extract_mesh on 010000.tar,
+     128^3 points x 100 views over [-2, 2]^3, threshold 25, through B7
+     (bf16, the default), B8 (SWNERF_FUSED_RAW=1) and the plain fp32 route
+     (SWNERF_FUSED=0): each kernel mesh's vertex and face counts within 2%
+     of the plain mesh's, bounding boxes within one voxel (4/127), the
+     symmetric mean nearest-vertex distance under 0.25 voxel; ms for the
+     sweep and for marching + OBJ write, 1,024 launches per kernel sweep;
+     B7's time at the sweep's tile;
+ 30. the metric-scale solve without cv2: a 0.5-unit square marker
+     projected into the capture's train poses, calculate_3d_corners ->
+     marker_edge_lengths -> scale -> alignment_matrix -> transform_mesh on
+     the B7 mesh: the scale real_length / 0.5 within 1e-4 relative, the
+     marker normal onto +z within 1e-6; then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -178,7 +215,7 @@ def load_models(dev):
 
     ckpt = load_tar(str(CKPT))
     cfg = VanillaNeRFConfig()
-    coarse, fine = VanillaNeRF(cfg, device=dev), VanillaNeRF(cfg, device=dev)
+    coarse, fine = VanillaNeRF(cfg, device=dev, fused=False), VanillaNeRF(cfg, device=dev, fused=False)
     coarse.load_state_dict(vanilla_state_dict(ckpt["network_fn_state_dict"]))
     fine.load_state_dict(vanilla_state_dict(ckpt["network_fine_state_dict"]))
     return cfg, coarse.eval(), fine.eval()
@@ -469,6 +506,9 @@ def main() -> int:
         # ---- 23-25. MultiRes on the same scene: B7 and the widened B6
         # against their twins, the steps against the plain route, the CLI
         kernels += multires_phases(dev, tmp, tmp / "data_dyn_400")
+        # ---- 26-30. B7' and B8 against their twins, the fields' kernel
+        # routes through the CLIs, the SW mesh chain and its metric scale
+        kernels += field_phases(dev, tmp, tmp / "data_dyn_400", metrics["psnr"][0])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -673,7 +713,7 @@ def _fresh_state(cfg, coarse, fine, device, dtype=None):
     from swnerf_torch.train.loop import init_train_state
 
     def copy(model):
-        m = VanillaNeRF(cfg, device=device)
+        m = VanillaNeRF(cfg, device=device, fused=False)  # the eager step's reference: plain torch
         m.load_state_dict(model.state_dict())
         return m.to(dtype) if dtype is not None else m
 
@@ -898,7 +938,7 @@ def tnerf_phases(dev, tmp):
 
     data = phase11_scene(dev, tmp / "data_dyn_400")
     cfg = TNeRFConfig()
-    model = TNeRF(cfg, device=dev)
+    model = TNeRF(cfg, device=dev, fused=False)
     model.load_state_dict(tnerf_state_dict(load_tar(str(TNERF_CKPT))["network_fn_state_dict"]))
     model.eval()
     rows = phase12_b4(dev, cfg, model, data)
@@ -1134,7 +1174,7 @@ def phase13_step(dev, cfg, model, data):
     draws = make_draws(rcfg, 500, torch.Generator(device=dev).manual_seed(3), dev)
 
     def fresh(device, dtype=torch.float32):
-        m = TNeRF(cfg, device=device)
+        m = TNeRF(cfg, device=device, fused=False)  # the eager step's reference: plain torch
         m.load_state_dict(model.state_dict())
         return init_train_state(m.to(dtype), None, 5e-4, 500, step=800000)
 
@@ -1203,7 +1243,7 @@ def phase14_serve(dev, cfg, tmp, data):
     from swnerf_torch.models import TNeRF
     from swnerf_torch.train.checkpoint import load_tar, tnerf_state_dict
 
-    model = TNeRF(cfg, device=dev)
+    model = TNeRF(cfg, device=dev, fused=False)
     model.load_state_dict(tnerf_state_dict(load_tar(str(TNERF_CKPT))["network_fn_state_dict"]))
     rays, img = frame_rays(dev, data, "test", 0)
     plain = make_tnerf_eval_pass(cfg, compute_dtype=torch.float32, plain=True)
@@ -1344,7 +1384,7 @@ def tnerf_step_breakdown(dev, cfg, data):
     times = torch.linspace(0, 1, n_views, device=dev)
     sampler = ImageSampler(scene, 500, 0, 0.5)
     rcfg = RenderConfig(n_samples=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
-    state = init_train_state(TNeRF(cfg, device=dev), None, 5e-4, 500)
+    state = init_train_state(TNeRF(cfg, device=dev, fused=False), None, 5e-4, 500)
     g = torch.Generator(device=dev).manual_seed(0)
     names = ("host sampler + pixel upload", "rays + z + draws", "pack weights", "B4 train", "unpack + Adam")
     acc = dict.fromkeys(names, 0.0)
@@ -2091,7 +2131,8 @@ def multires_phases(dev, tmp, data):
     rows = phase23_kernels(dev, data)
     phase24_steps(dev, data)
     counts = phase25_train(dev, tmp, data)
-    counter = {"time_net[multires]": "time_net", "time_net[multires,bwd]": "time_net[bwd]"}
+    counter = {"time_net[multires]": "time_net", "time_net[multires,bwd]": "time_net[bwd]",
+               "trunk[multires]": "trunk", "trunk[multires,bwd]": "trunk[bwd]"}
     for k, row in rows.items():
         row["launches"] = counts.get(counter.get(k, k), 0)
         print(f"[23 kernel] {row['name']}: {row['ms']:.3f} ms/launch (plain {row['plain_ms']:.3f} ms), bound "
@@ -2264,12 +2305,12 @@ def phase23_kernels(dev, data):
                   f"(with demb) {bwd:.3f} ms; B6 forward (train mode) {f6:.3f} ms, backward {b6ms:.3f} ms")
             if level == 0 and n_rows == P:  # the [kernel] rows: level 0, phase 1
                 nw, nb = c16.weights.numel(), c16.biases.numel()
-                rows["trunk"] = entry(
-                    "trunk", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:435", 0,
+                rows["trunk[multires]"] = entry(
+                    "trunk[multires]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:435", 0,
                     err16["trunk"], fwd, cuda_ms(lambda: b7.trunk_plain(c16, e, v), 3),
                     4 * (e.numel() + v.numel() + 4 * n_rows) + 2 * nw + 4 * nb, 2 * c16.macs_per_row * n_rows, "bf16")
-                rows["trunk[bwd]"] = entry(
-                    "trunk[bwd]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:446", 0,
+                rows["trunk[multires,bwd]"] = entry(
+                    "trunk[multires,bwd]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:446", 0,
                     err16["trunk"], bwd, cuda_ms(lambda: b7.trunk_plain_bwd(c16, e, v, gg), 3),
                     4 * (4 * n_rows + e.numel()) + 2 * nw + 4 * (nw + nb), 2 * c16.bwd_macs_per_row() * n_rows, "bf16")
                 # B6's MultiRes rows: its 144-row instantiation at the same
@@ -2640,6 +2681,530 @@ def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
         print(f"[25 breakdown] {name}, device ms per step by kernel family (torch.profiler, 10 steps): " + ", ".join(
             f"{k} {v:.3f} ({100 * v / busy:.1f}%)" for k, v in by.items()) + f"; busy {busy:.3f} of {wall:.3f} ms "
             f"wall per step: idle share {100 * (1 - busy / wall):.1f}%")
+
+
+# ---------------------------------------------------------------- the fields' kernel routes and the mesh chain
+
+
+@contextlib.contextmanager
+def env(**values):
+    """os.environ with ``values`` set (None: unset) inside the block."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def field_phases(dev, tmp, data, psnr_b3_frame0):
+    """Phases 26-30. Returns the [kernel] rows of B7' and B8, and B7's at
+    the mesh sweep's shape, with their main paths' launch counts."""
+    rows = phase26_b7p(dev, data)
+    rows.update(phase27_b8(dev))
+    counts = phase28_routes(dev, tmp, data, psnr_b3_frame0)
+    mesh_rows, mesh_counts = phase29_mesh(dev, tmp)
+    rows.update(mesh_rows)
+    # launches: B7' on the eager T-NeRF step (train mode, its backward) and
+    # the T-NeRF render with no eval pass (forward only); B8 on the eager
+    # vanilla step under SWNERF_FUSED_RAW=1 and in the B8 mesh sweep; B7 in
+    # the default mesh sweep
+    src = {"trunk[tnerf]": counts["tnerf step"], "trunk[tnerf,bwd]": counts["tnerf step"],
+           "trunk[tnerf,render]": counts["tnerf render"], "trunk[raw]": counts["vanilla step B8"],
+           "trunk[raw,bwd]": counts["vanilla step B8"], "trunk[raw,mesh]": mesh_counts["B8"],
+           "trunk[mesh]": mesh_counts["B7"]}
+    key = {"trunk[tnerf,render]": "trunk[tnerf]", "trunk[raw,mesh]": "trunk[raw]", "trunk[mesh]": "trunk"}
+    for name, row in rows.items():
+        row["launches"] = src[name].get(key.get(name, name), 0)
+        print(f"[30 kernel] {name}: {row['ms']:.3f} ms/launch (plain {row['plain_ms']:.3f} ms), bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} -> {100 * row['bound_ms'] / row['ms']:.2f}% of the "
+              f"bound, {row['launches']} launches on its main path")
+    return list(rows.values())
+
+
+def hold_to_twin(tag, packed, x, xv, graw, raw):
+    """One field trunk kernel (B7' on embeddings, or B8 on positions and
+    view directions: ``raw``) against its twin on the same inputs: fp32 raw
+    within 1e-5 of its largest value (the trained densities reach the
+    hundreds, where fp32's ulp is ~6e-5), the gradients and both input cotangents
+    at check_fp32_grads' bar (float64 twin, and on weights perturbed at fp32's
+    size); bf16 raw within 1e-2 of its largest value and the gradients within
+    rel L2 1e-2; bit-equal repeats, and the forward-only launch bit-equal to
+    the train-mode one, in both types. ``packed`` is fp32; returns (the bf16
+    packing, max |d raw| in bf16)."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.ops.kernels import trunk as b7
+
+    fwd_bwd = b7.field_raw_fwd_bwd if raw else b7.trunk_fwd_bwd
+    fwd = b7.field_raw if raw else b7.trunk
+    plain = b7.field_raw_plain if raw else b7.trunk_plain
+    plain_bwd = b7.field_raw_plain_bwd if raw else b7.trunk_plain_bwd
+    names = ("dpts", "dviewdirs") if raw else ("demb", "dvemb")
+
+    def gdict(grads, pk, d0, d1):
+        return dict(b7.unpack_trunk_grads(grads, pk), **{names[0]: d0, names[1]: d1})
+
+    err16 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        pk = dataclasses.replace(packed, weights=packed.weights.to(dtype))
+        out, gk, d0, d1 = fwd_bwd(pk, x, xv, graw, True, True)
+        _, gk2, d02, d12 = fwd_bwd(pk, x, xv, graw, True, True)
+        ref = plain(pk, x, xv)
+        gr, r0, r1 = plain_bwd(pk, x, xv, graw, True, True)
+        outf = fwd(pk, x, xv)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in ((gk[0], gk2[0]), (gk[1], gk2[1]), (d0, d02), (d1, d12)))
+        fwd_same = torch.equal(outf, out)
+        draw = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        kind = "fp32" if dtype == torch.float32 else "bf16"
+        if dtype == torch.float32:
+            print(f"[{tag} {kind}] max|draw|={draw:.3e} (max|raw| {scale:.3e}: {draw / scale:.2e} of it) repeat "
+                  f"bit-equal={same}; forward-only launch bit-equal to train mode={fwd_same}")
+            if draw > 1e-5 * scale or not same or not fwd_same:
+                fail(f"{tag} fp32: raw beyond 1e-5 of its largest value, repeats differ or the forward-only launch "
+                     "differs from the train-mode one")
+            p64 = dataclasses.replace(packed, weights=packed.weights.double())
+            g64 = plain_bwd(p64, x.double(), xv.double(), graw.double(), True, True)
+            g64p = plain_bwd(dataclasses.replace(p64, weights=jitter(p64.weights)), x.double(), xv.double(),
+                             graw.double(), True, True)
+            check_fp32_grads(f"{tag} {kind}", gdict(gk, pk, d0, d1), gdict(gr, pk, r0, r1),
+                             gdict(g64[0], p64, *g64[1:]), gdict(g64p[0], p64, *g64p[1:]))
+        else:
+            rel = rel_l2(gdict(gk, pk, d0, d1), gdict(gr, pk, r0, r1))
+            err16 = draw
+            print(f"[{tag} {kind}] max|draw|={draw:.3e} (max|raw| {scale:.3e}) grads and input cotangents max rel "
+                  f"L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}; forward-only "
+                  f"launch bit-equal to train mode={fwd_same}")
+            if draw > 1e-2 * scale or max(rel.values()) > 1e-2 or not same or not fwd_same:
+                fail(f"{tag} bf16: raw beyond 1e-2 of its largest value, gradient rel L2 > 1e-2, repeats differ or "
+                     "the forward-only launch differs from the train-mode one")
+            pk16 = pk
+        del gk, gk2, gr
+        torch.cuda.empty_cache()
+    return pk16, err16
+
+
+def trunk_rows(prefix, pk16, x, xv, graw, raw, err, source_line, bwd_line):
+    """The forward and backward [kernel] rows of one field trunk kernel at
+    the rows of x (bf16, train-mode forward as the eager steps run it)."""
+    from swnerf_torch.ops.kernels import trunk as b7
+
+    n = x.shape[0]
+    sc = b7._scratch(pk16, n, x.device, raw)
+    fwd = cuda_ms(lambda: b7._launch_fwd(pk16, x, xv, sc, raw), 10)
+    bwd = cuda_ms(lambda: b7._launch_bwd(pk16, n, graw, sc, False, False, (x, xv) if raw else None), 10)
+    plain, plain_bwd = (b7.field_raw_plain, b7.field_raw_plain_bwd) if raw else (b7.trunk_plain, b7.trunk_plain_bwd)
+    nw, nb = pk16.weights.numel(), pk16.biases.numel()
+    in_bytes = 4 * (x.numel() + xv.numel())
+    bwd_name = f"{prefix[:-1]},bwd]"  # trunk[tnerf] -> trunk[tnerf,bwd]
+    rows = {
+        prefix: entry(prefix, "swnerf_torch/csrc/trunk.cu", f"swnerf_tpu/ops/pallas/raymarch.py:{source_line}", 0, err,
+                      fwd, cuda_ms(lambda: plain(pk16, x, xv), 3), in_bytes + 16 * n + 2 * nw + 4 * nb,
+                      2 * pk16.macs_per_row * n, "bf16"),
+        bwd_name: entry(bwd_name, "swnerf_torch/csrc/trunk.cu", f"swnerf_tpu/ops/pallas/raymarch.py:{bwd_line}", 0,
+                        err, bwd, cuda_ms(lambda: plain_bwd(pk16, x, xv, graw, False, False), 3),
+                        in_bytes + 16 * n + 2 * nw + 4 * (nw + nb), 2 * pk16.bwd_macs_per_row(False, False) * n,
+                        "bf16"),
+    }
+    del sc
+    return rows
+
+
+def phase26_b7p(dev, data):
+    """B7' against its twin with the round-5 T-NeRF 800000.tar weights on
+    one eager step's rows (500 seeded pixels of train view 61 at its frame
+    time x 64 jittered samples = 32,000 rows): hold_to_twin's bars. Then its
+    times there (train-mode forward, backward) and forward only at the
+    serving chunk (32,768 rays x 64 samples = 2.1M rows)."""
+    import torch
+
+    from swnerf_torch.models import TNeRF, TNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.ops.sampling import sample_along_rays
+    from swnerf_torch.train.checkpoint import load_tar, tnerf_state_dict
+
+    cfg = TNeRFConfig()
+    model = TNeRF(cfg, device=dev, fused=False)
+    model.load_state_dict(tnerf_state_dict(load_tar(str(TNERF_CKPT))["network_fn_state_dict"]))
+    p32 = b7.pack_tnerf_trunk_params(model.state_dict(), cfg, torch.float32)
+
+    def inputs(rays, z):
+        n, s = z.shape
+        pts = rays.origins[:, None, :] + rays.directions[:, None, :] * z[..., None]
+        t = rays.times.reshape(n, 1, 1).expand(n, s, 1)
+        emb = torch.cat([positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time)], -1)
+        vemb = positional_encoding(rays.viewdirs, cfg.nf_views)[:, None, :].expand(n, s, cfg.dir_feat)
+        return emb.reshape(n * s, -1).contiguous(), vemb.reshape(n * s, -1).contiguous()
+
+    rays, img = frame_rays(dev, data, "train", 61)
+    g = torch.Generator(device=dev).manual_seed(8)
+    sel = torch.randint(0, img.shape[0], (500,), generator=g, device=dev)
+    r = type(rays)(*(x[sel] for x in rays))
+    emb, vemb = inputs(r, sample_along_rays(r.near, r.far, 64, 1.0, generator=g))
+    graw = torch.randn((emb.shape[0], 4), generator=g, device=dev)
+    print(f"[26 B7'] {emb.shape[0]} rows, emb {p32.cin} of 128, vemb {p32.input_ch_views} of 128, D={p32.D}, "
+          f"W={p32.W}; colour logits > 0: {(b7.trunk_plain(p32, emb, vemb)[:, :3] > 0).float().mean().item():.3f}")
+    p16, err = hold_to_twin("26 B7'", p32, emb, vemb, graw, False)
+    rows = trunk_rows("trunk[tnerf]", p16, emb, vemb, graw, False, err, 435, 446)
+    rays, _ = frame_rays(dev, data, "test", 0)
+    chunk = rays.slice(0, 32768)
+    big, bigv = inputs(chunk, sample_along_rays(chunk.near, chunk.far, 64, 0.0))
+    out, ref = b7.trunk(p16, big[-32000:], bigv[-32000:]), b7.trunk_plain(p16, big[-32000:], bigv[-32000:])
+    draw = (out - ref).abs().max().item()
+    print(f"[26 B7' check] the serving chunk's last 32,000 rows, forward only, bf16: max|draw|={draw:.3e} "
+          f"(max|raw| {ref.abs().max().item():.3e})")
+    if draw > 1e-2 * ref.abs().max().item():
+        fail("B7' bf16 at the serving chunk: raw beyond 1e-2 of its largest value")
+    n = big.shape[0]
+    nw, nb = p16.weights.numel(), p16.biases.numel()
+    rows["trunk[tnerf,render]"] = entry(
+        "trunk[tnerf,render]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:435", 0, draw,
+        cuda_ms(lambda: b7.trunk(p16, big, bigv), 3), cuda_ms(lambda: b7.trunk_plain(p16, big, bigv), 2),
+        4 * (big.numel() + bigv.numel()) + 16 * n + 2 * nw + 4 * nb, 2 * p16.macs_per_row * n, "bf16")
+    for k, row in rows.items():
+        print(f"[26 times] {k}: {row['ms']:.3f} ms, {100 * row['bound_ms'] / row['ms']:.2f}% of the bf16 bound "
+              f"({p16.macs_per_row} MACs per row forward, {p16.bwd_macs_per_row(False, False)} backward)")
+    del big, bigv, model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase27_b8(dev):
+    """B8 against its twin with 010000.tar's fine weights on 1024 rays of
+    train view r_0 x 192 jittered samples (196,608 rows; d pts and d
+    viewdirs at the fp32 bar): hold_to_twin's bars. Then its times at
+    32,000 rows (train-mode forward, backward) and forward only at one mesh
+    tile (2,048 points x 100 views = 204,800 rows)."""
+    import torch
+
+    from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.ops.sampling import sample_along_rays
+    from swnerf_torch.pipelines.extract_mesh import fibonacci_sphere
+    from swnerf_torch.train.checkpoint import load_tar, vanilla_state_dict
+
+    cfg = VanillaNeRFConfig()
+    fine = VanillaNeRF(cfg, device=dev, fused=False)
+    fine.load_state_dict(vanilla_state_dict(load_tar(str(CKPT))["network_fine_state_dict"]))
+    p32 = b7.pack_trunk_params(fine.state_dict(), cfg, torch.float32)
+    rays, _ = train_view_rays(dev, 1024, seed=9)
+    g = torch.Generator(device=dev).manual_seed(9)
+    z = sample_along_rays(rays.near, rays.far, 192, 1.0, generator=g)
+    pts = (rays.origins[:, None, :] + rays.directions[:, None, :] * z[..., None]).reshape(-1, 3).contiguous()
+    vd = rays.viewdirs[:, None, :].expand(1024, 192, 3).reshape(-1, 3).contiguous()
+    graw = torch.randn((pts.shape[0], 4), generator=g, device=dev)
+    print(f"[27 B8] {pts.shape[0]} rows, encoded in the kernel at {p32.n_freqs} frequencies ({p32.cin} and "
+          f"{p32.input_ch_views} columns), D={p32.D}, W={p32.W}")
+    p16, err = hold_to_twin("27 B8", p32, pts, vd, graw, True)
+    rows = trunk_rows("trunk[raw]", p16, pts[:32000].contiguous(), vd[:32000].contiguous(), graw[:32000].contiguous(),
+                      True, err, 556, 569)
+    # one mesh tile: 2,048 grid points x 100 fibonacci directions
+    ax = torch.linspace(-2.0, 2.0, 128, device=dev)
+    grid = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)[64 * 128 * 128:][:2048]
+    dirs = torch.as_tensor(fibonacci_sphere(100), device=dev)
+    tp = grid[None].expand(100, 2048, 3).reshape(-1, 3).contiguous()
+    tv = dirs[:, None, :].expand(100, 2048, 3).reshape(-1, 3).contiguous()
+    n = tp.shape[0]
+    nw, nb = p16.weights.numel(), p16.biases.numel()
+    rows["trunk[raw,mesh]"] = entry(
+        "trunk[raw,mesh]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:556", 0, err,
+        cuda_ms(lambda: b7.field_raw(p16, tp, tv), 5), cuda_ms(lambda: b7.field_raw_plain(p16, tp, tv), 2),
+        4 * (tp.numel() + tv.numel()) + 16 * n + 2 * nw + 4 * nb, 2 * p16.macs_per_row * n, "bf16")
+    for k, row in rows.items():
+        print(f"[27 times] {k}: {row['ms']:.3f} ms, {100 * row['bound_ms'] / row['ms']:.2f}% of the bf16 bound")
+    del fine
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_cli(run, argv, envs, exp, prints, floor, tag):
+    """One trainer CLI run under ``envs``: its output, launch counts, train
+    PSNRs at the prints (each >= ``floor``) and its median step (ms) over
+    the steps that neither print nor save."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+
+    buf = io.StringIO()
+    with env(**envs):
+        launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            res = run(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    out = buf.getvalue()
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    psnrs = [(r["step"], round(r["psnr"], 3)) for r in recs if "psnr" in r]
+    every = int(argv[argv.index("--i_print") + 1])
+    quiet = {i: ms for i, ms in res["step_ms"].items() if i % every and (i - 1) % every}
+    med = statistics.median(quiet.values())
+    print(f"[{tag}] launches {json.dumps(counts, sort_keys=True)}, CLI wall {wall:.2f} s; train PSNR at the prints "
+          f"{psnrs}; ms per step, median of {len(quiet)} steps that do not print (CUDA events): {med:.3f}")
+    if "eager autograd train step" not in out:
+        fail(f"{tag}: the run did not take the eager step")
+    if len(psnrs) != prints or min(p for _, p in psnrs) < floor:
+        fail(f"{tag}: train PSNR below {floor} dB at a print (or not {prints} prints): {psnrs}")
+    return counts
+
+
+def phase28_routes(dev, tmp, data, psnr_b3_frame0):
+    """The fields' kernel routes through the CLIs:
+    - run_nerf resumed from 010000.tar for 200 eager steps
+      (SWNERF_FUSED_STEP=0: B7 in the fields), then again under
+      SWNERF_FUSED_RAW=1 (B8), each >= 30 dB at every print;
+    - run_nerf --render_only, test frame 0 with SWNERF_FUSED_EVAL=0 (the
+      fields through B7), within 0.1 dB of phase 5's frame 0 (the B3 eval
+      pass);
+    - run_tnerf resumed from 800000.tar for 200 eager steps (B7'), >= 19 dB
+      at every print, B4 not launched;
+    - run_tnerf --render_only --testskip 5 with the eval pass (B4) and with
+      SWNERF_FUSED_EVAL=0 (B7'): mean PSNRs within 0.1 dB;
+    - run_dnerf resumed from its 800000.tar for 10 steps under SWNERF_FUSED=0:
+      the fp32 plain route, no field kernel launched (B2, sample_pdf, has
+      its own switch in the JAX package, SWNERF_PALLAS_SAMPLE_PDF).
+    Returns the launch counts of the paths that run B7' and B8."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_dnerf, run_nerf, run_tnerf
+
+    counts = {}
+    for tag, extra in (("vanilla step B7", {}), ("vanilla step B8", {"SWNERF_FUSED_RAW": "1"})):
+        base = tmp / tag.replace(" ", "_")
+        argv = ["--config", str(CONFIG), "--ft_path", str(CKPT), "--basedir", str(base), "--datadir", str(DATADIR),
+                "--device", "cuda", "--i_print", "50", "--i_weights", "100000"]
+        c = _train_cli(run_nerf.main, argv, dict(SWNERF_FUSED_STEP="0", SWNERF_MAX_ITERS="10201", **extra),
+                       base / "full_nerf_200k", 4, 30.0, f"28 {tag}")
+        kern, kern_bwd, other = ("trunk[raw]", "trunk[raw,bwd]", "trunk") if extra else ("trunk", "trunk[bwd]",
+                                                                                         "trunk[raw]")
+        if c.get(kern, 0) < 400 or c.get(kern_bwd, 0) < 400 or c.get(other, 0) or \
+                any(k.startswith("render_loss") for k in c):
+            fail(f"28 {tag}: launches {c}")
+        counts[tag] = c
+    argv = ["--config", str(CONFIG), "--render_only", "--render_test", "--testskip", "25", "--device", "cuda",
+            "--basedir", str(tmp / "serve_b7"), "--datadir", str(DATADIR), "--ft_path", str(CKPT)]
+    with env(SWNERF_FUSED_EVAL="0"):
+        launches.clear()
+        t0 = time.perf_counter()
+        savedir = Path(run_nerf.main(argv))
+        torch.cuda.synchronize()
+        c = dict(launches)
+    m = json.loads((savedir / "metrics.json").read_text())
+    d = m["psnr"][0] - psnr_b3_frame0
+    print(f"[28 vanilla render B7] test frame 0 through the fields (SWNERF_FUSED_EVAL=0): PSNR {m['psnr'][0]:.3f} dB, "
+          f"the B3 eval pass {psnr_b3_frame0:.3f} dB (delta {d:+.4f}); {m['seconds_per_frame'][0]:.3f} s for the "
+          f"frame; launches {json.dumps(c, sort_keys=True)}; wall {time.perf_counter() - t0:.2f} s")
+    if abs(d) > 0.1 or c.get("trunk", 0) <= 0 or any(k.startswith("render_pass") for k in c):
+        fail(f"28 vanilla render B7: |dPSNR| {abs(d)} > 0.1 dB, or launches {c}")
+
+    base = tmp / "tnerf_eager"
+    argv = ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--basedir", str(base), "--datadir", str(data),
+            "--device", "cuda", "--i_print", "50", "--i_weights", "100000"]
+    c = _train_cli(run_tnerf.main, argv, dict(SWNERF_FUSED_STEP="0", SWNERF_MAX_ITERS="800201"),
+                   base / "full_tnerf_800k", 4, 19.0, "28 tnerf step B7'")
+    if c.get("trunk[tnerf]", 0) < 200 or c.get("trunk[tnerf,bwd]", 0) < 200 or c.get("render_loss[tnerf,S=64]", 0):
+        fail(f"28 tnerf step B7': launches {c}")
+    counts["tnerf step"] = c
+    psnr = {}
+    for tag, envs in (("B4 eval pass", {}), ("B7' (SWNERF_FUSED_EVAL=0)", {"SWNERF_FUSED_EVAL": "0"})):
+        argv = ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--basedir", str(tmp / "tnerf_serve"),
+                "--datadir", str(data), "--device", "cuda", "--render_only", "--render_test", "--testskip", "5"]
+        with env(**envs):
+            launches.clear()
+            savedir = Path(run_tnerf.main(argv))
+            torch.cuda.synchronize()
+            c = dict(launches)
+        m = json.loads((savedir / "metrics.json").read_text())
+        psnr[tag] = m["psnr"]
+        secs = m["seconds_per_frame"]
+        print(f"[28 tnerf render {tag}] PSNR {[round(p, 4) for p in m['psnr']]} (mean {sum(m['psnr']) / len(secs):.4f}"
+              f" dB), {1e3 * sum(secs[1:]) / len(secs[1:]):.2f} ms per frame after the first; launches "
+              f"{json.dumps(c, sort_keys=True)}")
+        if envs:
+            counts["tnerf render"] = c
+            if c.get("trunk[tnerf]", 0) <= 0 or any(k.startswith("render_pass") for k in c):
+                fail(f"28 tnerf render B7': launches {c}")
+    means = [sum(v) / len(v) for v in psnr.values()]
+    print(f"[28 tnerf render] mean PSNR B4 {means[0]:.4f} dB, B7' {means[1]:.4f} dB: |delta| "
+          f"{abs(means[0] - means[1]):.4f} dB")
+    if abs(means[0] - means[1]) > 0.1 or len(psnr["B4 eval pass"]) != 5:
+        fail("28 tnerf render: B7''s mean PSNR more than 0.1 dB from the B4 eval pass's (or not 5 frames)")
+
+    base = tmp / "dnerf_plain"
+    argv = ["--config", str(DNERF_CONFIG), "--ft_path", str(DNERF_CKPT), "--basedir", str(base), "--datadir",
+            str(data), "--device", "cuda", "--i_print", "5", "--i_weights", "100000"]
+    buf = io.StringIO()
+    with env(SWNERF_FUSED="0", SWNERF_MAX_ITERS="800011"):
+        launches.clear()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            res = run_dnerf.main(argv)
+        torch.cuda.synchronize()
+        c = dict(launches)
+    print(f"[28 dnerf SWNERF_FUSED=0] 10 steps, launches {json.dumps(c, sort_keys=True)} (B2 follows its own switch, "
+          f"as the JAX package's Pallas sample_pdf does), last metrics {res['metrics']}")
+    if set(c) - {"sample_pdf"} or "eager autograd train step" not in buf.getvalue():
+        fail(f"28 dnerf SWNERF_FUSED=0: the plain route launched {c} or did not take the eager step")
+    return counts
+
+
+MESH_BOUNDS = "[[-2.0,2.0],[-2.0,2.0],[-2.0,2.0]]"  # the drill recipe's (benchmarks/tpu_sw_chain.py:158-160)
+MESH_VOXEL = 4.0 / 127
+
+
+def phase29_mesh(dev, tmp):
+    """The SW mesh chain at the drill recipe (benchmarks/tpu_sw_chain.py):
+    extract_mesh on 010000.tar's fine network, 128^3 points x 100 views
+    over [-2, 2]^3, threshold 25, three times: the B7 route (bf16, the
+    default), the B8 route (SWNERF_FUSED_RAW=1) and the plain fp32 route
+    (SWNERF_FUSED=0). Each kernel mesh against the plain one: vertex and
+    face counts within 2%, bounding boxes within one voxel, the symmetric
+    mean nearest-vertex distance under 0.25 voxel. Then the metric-scale
+    solve without cv2 on the B7 mesh (phase 30's checks). Returns B7's mesh
+    [kernel] row and the launch counts by route."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import extract_mesh
+    from swnerf_torch.utils.mesh import load_obj
+
+    routes = {"B7": {}, "B8": {"SWNERF_FUSED_RAW": "1"}, "plain fp32": {"SWNERF_FUSED": "0"}}
+    meshes, counts = {}, {}
+    for name, envs in routes.items():
+        argv = ["--config", str(CONFIG), "--ft_path", str(CKPT), "--basedir", str(tmp / f"mesh_{len(meshes)}"),
+                "--device", "cuda", "--resolution", "128", "--threshold", "25"]
+        with env(SWNERF_MESH_BOUNDS=MESH_BOUNDS, SWNERF_MESH_VIEWS="100", **envs):
+            launches.clear()
+            res = extract_mesh.main(argv)
+            counts[name] = dict(launches)
+        v, f, _ = load_obj(res["path"])
+        meshes[name] = (v, f, res)
+        print(f"[29 mesh {name}] {res['verts']} vertices, {res['faces']} faces; sweep {1e3 * res['sweep_s']:.1f} ms "
+              f"(128^3 x 100 = {128**3 * 100} rows, synchronized), marching {1e3 * res['march_s']:.1f} ms + OBJ write "
+              f"{1e3 * res['write_s']:.1f} ms; launches {json.dumps(counts[name], sort_keys=True)}")
+    if counts["B7"] != {"trunk": 1024} or counts["B8"] != {"trunk[raw]": 1024} or counts["plain fp32"]:
+        fail(f"29 mesh: the sweeps' launches {counts} (want 1,024 B7 tiles, 1,024 B8 tiles, none)")
+    pv, pf, _ = meshes["plain fp32"]
+    tree = cKDTree(pv)
+    for name in ("B7", "B8"):
+        v, f, _ = meshes[name]
+        dn, df = abs(len(v) - len(pv)) / len(pv), abs(len(f) - len(pf)) / len(pf)
+        dbox = max(np.abs(v.min(0) - pv.min(0)).max(), np.abs(v.max(0) - pv.max(0)).max())
+        near = 0.5 * (tree.query(v)[0].mean() + cKDTree(v).query(pv)[0].mean())
+        print(f"[29 mesh {name} vs plain fp32] vertices {len(v)} vs {len(pv)} ({100 * dn:.3f}%), faces {len(f)} vs "
+              f"{len(pf)} ({100 * df:.3f}%), bounding boxes within {dbox:.4e} ({dbox / MESH_VOXEL:.3f} voxel), "
+              f"symmetric mean nearest-vertex distance {near:.4e} ({near / MESH_VOXEL:.4f} voxel)")
+        if len(pv) < 1000 or dn > 0.02 or df > 0.02 or dbox > MESH_VOXEL or near > 0.25 * MESH_VOXEL:
+            fail(f"29 mesh {name}: outside the bars against the plain fp32 mesh")
+    phase30_scale(meshes["B7"][2]["path"], tmp)
+
+    # B7 at the sweep's tile, forward only (bf16): 2,048 points x 100 views
+    from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.train.checkpoint import load_tar, vanilla_state_dict
+
+    cfg = VanillaNeRFConfig()
+    fine = VanillaNeRF(cfg, device=dev, fused=False)
+    fine.load_state_dict(vanilla_state_dict(load_tar(str(CKPT))["network_fine_state_dict"]))
+    p16 = b7.pack_trunk_params(fine.state_dict(), cfg, torch.bfloat16)
+    ax = torch.linspace(-2.0, 2.0, 128, device=dev)
+    grid = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)[64 * 128 * 128:][:2048]
+    dirs = torch.as_tensor(extract_mesh.fibonacci_sphere(100), device=dev)
+    emb = positional_encoding(grid, cfg.nf_pts)[None].expand(100, 2048, cfg.input_ch).reshape(-1, cfg.input_ch)
+    vemb = positional_encoding(dirs, cfg.nf_views)[:, None, :].expand(100, 2048, cfg.input_ch_views)
+    emb, vemb = emb.contiguous(), vemb.reshape(-1, cfg.input_ch_views).contiguous()
+    out, ref = b7.trunk(p16, emb, vemb), b7.trunk_plain(p16, emb, vemb)
+    draw = (out - ref).abs().max().item()
+    print(f"[29 B7 check] one mesh tile (204,800 rows), forward only, bf16: max|draw|={draw:.3e} "
+          f"(max|raw| {ref.abs().max().item():.3e})")
+    if draw > 1e-2 * ref.abs().max().item():
+        fail("B7 bf16 at the mesh tile: raw beyond 1e-2 of its largest value")
+    n = emb.shape[0]
+    nw, nb = p16.weights.numel(), p16.biases.numel()
+    row = entry("trunk[mesh]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:435", 0, draw,
+                cuda_ms(lambda: b7.trunk(p16, emb, vemb), 5), cuda_ms(lambda: b7.trunk_plain(p16, emb, vemb), 2),
+                4 * (emb.numel() + vemb.numel()) + 16 * n + 2 * nw + 4 * nb, 2 * p16.macs_per_row * n, "bf16")
+    sweep_bound = 1024 * row["bound_ms"]
+    print(f"[29 times] trunk[mesh]: {row['ms']:.3f} ms per tile, {100 * row['bound_ms'] / row['ms']:.2f}% of the bf16 "
+          f"bound ({p16.macs_per_row} MACs per row); 1,024 tiles at the bound: {sweep_bound:.1f} ms, measured sweep "
+          f"{1e3 * meshes['B7'][2]['sweep_s']:.1f} ms")
+    del fine, emb, vemb
+    torch.cuda.empty_cache()
+    return {"trunk[mesh]": row}, counts
+
+
+def phase30_scale(mesh_path, tmp):
+    """The metric-scale solve without cv2 (transform_mesh after detection):
+    a 0.5-unit square marker on the z = 0 plane, its corners projected
+    exactly into the capture's train poses (pinhole, zero distortion; the
+    OpenGL poses turned to +z forward as benchmarks/tpu_sw_chain.py:67-71
+    does), then calculate_3d_corners -> marker_edge_lengths -> scale ->
+    alignment_matrix -> transform_mesh on the B7 mesh: the scale is
+    real_length / 0.5 within 1e-4 relative, the marker normal maps to +z
+    within 1e-6, and the transformed mesh is the mesh scaled and turned."""
+    import numpy as np
+
+    from swnerf_torch.pipelines import transform_mesh as tm
+    from swnerf_torch.utils.mesh import load_obj
+
+    with open(DATADIR / "transforms_train.json") as f:
+        meta = json.load(f)
+    H = W = 400
+    focal = 0.5 * W / np.tan(0.5 * float(meta["camera_angle_x"]))
+    e = 0.5
+    world = np.array([[-e / 2, e / 2, 0.0], [e / 2, e / 2, 0.0], [e / 2, -e / 2, 0.0], [-e / 2, -e / 2, 0.0]])
+    flip = np.diag([1.0, -1.0, -1.0])
+    info = []
+    for fr in meta["frames"]:
+        c2w_gl = np.array(fr["transform_matrix"], np.float64)
+        R, t = c2w_gl[:3, :3] @ flip, c2w_gl[:3, 3]
+        cam = (world - t) @ R  # R^T (p - t), row-wise
+        if (cam[:, 2] <= 1e-6).any():
+            continue
+        px = focal * cam[:, :2] / cam[:, 2:] + np.array([W / 2.0, H / 2.0])
+        if px.min() < 8 or px.max() > W - 8:
+            continue
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = R, t
+        info.append({"frame": {"transform_matrix": c2w.tolist()}, "id": 7, "corners": px})
+    real = 0.05
+    t0 = time.perf_counter()
+    corners = tm.calculate_3d_corners(info, (focal, focal, W / 2.0, H / 2.0, 0.0, 0.0, 0.0, 0.0))
+    mean_len, lengths = tm.marker_edge_lengths(corners)
+    scale = real / mean_len
+    T = tm.alignment_matrix(corners)
+    out = str(tmp / "transformed_mesh.obj")
+    tm.transform_mesh(mesh_path, out, scale, T)
+    wall = time.perf_counter() - t0
+    normal = np.cross(corners[1] - corners[0], corners[2] - corners[0])
+    n2 = T[:3, :3] @ (normal / np.linalg.norm(normal))
+    v, _, _ = load_obj(mesh_path)
+    v2, _, _ = load_obj(out)
+    moved = np.abs(v2 - (scale * v.astype(np.float64)) @ T[:3, :3].T).max()
+    rel = abs(scale - real / e) / (real / e)
+    print(f"[30 scale] {len(info)} of {len(meta['frames'])} train poses see the marker; corners "
+          f"{np.round(corners, 6).tolist()}; edges {[round(x, 8) for x in lengths]}; scale {scale:.8f} (want "
+          f"{real / e}: rel {rel:.2e}); marker normal -> {np.round(n2, 9).tolist()}; transformed mesh within "
+          f"{moved:.2e} of T (s v); solve + transform {1e3 * wall:.1f} ms")
+    if len(info) < 3 or rel > 1e-4 or np.abs(n2 - [0.0, 0.0, 1.0]).max() > 1e-6 or moved > 1e-5 * max(1.0, scale):
+        fail("30 scale: the metric-scale solve missed the known scale, the +z alignment or the transform")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Digest and time the kernels of one checkout of swnerf_torch on the card:
 B2 sample_pdf, B3 render_pass (vanilla, from rays, and its pts mode), B1
-render_loss (vanilla), B4 (T-NeRF, both modes), B5 render_loss_pts and B6
-time_net (forward, and forward with backward), on seeded inputs at the D-NeRF
-and earlier main paths' shapes. Two checkouts whose digests agree give
+render_loss (vanilla), B4 (T-NeRF, both modes), B5 render_loss_pts, B6
+time_net (forward, and forward with backward), B7 trunk (the ReLU family:
+forward only, and train-mode forward with backward) and, where the checkout
+has them, B7' (the ELU T-NeRF trunk) and B8 (the trunk with the encode in
+the kernel), on seeded inputs at the main paths' shapes. Two checkouts whose digests agree give
 bit-equal outputs; run both in one call, in turns, to compare their times on
 one card:
 
@@ -42,6 +44,7 @@ def main() -> int:
     from swnerf_torch.ops.kernels import render_pass as b3
     from swnerf_torch.ops.kernels import sample_pdf as b2
     from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.kernels import trunk as b7
 
     assert Path(b3.__file__).resolve().is_relative_to(Path(a.root).resolve()), b3.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -148,6 +151,39 @@ def main() -> int:
         dx, grads = b6.time_net_fwd_bwd(pt6, pair, t2, cot)
         out[f"time_net+bwd {tag}"] = {"sha256": digest([dx, *grads]),
                                       "ms": timed(lambda: b6.time_net_fwd_bwd(pt6, pair, t2, cot))}
+        # B7 (ReLU) at the vanilla widths (63 / 27 columns): forward only at a
+        # mesh tile's 204,800 rows, train mode with the backward (and demb) at
+        # 65,536 rows; at MultiRes level 0's widths (123 / 123) at 32,000 rows
+        g7 = torch.Generator(device=dev).manual_seed(7)
+        mcfg = DNeRFConfig(multires=20, multires_views=20)
+        msd = VanillaNeRF(mcfg, device=dev, generator=torch.Generator().manual_seed(8)).state_dict()
+        for name, cfg7, sd7, rows in (("trunk", vcfg, vsd, 65536), ("trunk[multires]", mcfg, msd, 32000)):
+            p7 = b7.pack_trunk_params(sd7, cfg7, dtype)
+            emb = torch.rand((rows, cfg7.input_ch), generator=g7, device=dev) * 2 - 1
+            vemb = torch.rand((rows, cfg7.input_ch_views), generator=g7, device=dev) * 2 - 1
+            gr7 = torch.randn((rows, 4), generator=g7, device=dev)
+            res7 = b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False)
+            out[f"{name}+bwd {tag}"] = {"sha256": digest([res7[0], *res7[1], res7[2]]),
+                                        "ms": timed(lambda: b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False))}
+            if name == "trunk":
+                big = torch.rand((204800, cfg7.input_ch), generator=g7, device=dev) * 2 - 1
+                bigv = torch.rand((204800, cfg7.input_ch_views), generator=g7, device=dev) * 2 - 1
+                out[f"trunk {tag}"] = {"sha256": digest([b7.trunk(p7, big, bigv)]),
+                                       "ms": timed(lambda: b7.trunk(p7, big, bigv))}
+        if hasattr(b7, "pack_tnerf_trunk_params"):  # B7' and B8
+            pt7 = b7.pack_tnerf_trunk_params(tsd, tcfg, dtype)
+            emb = torch.rand((32000, pt7.cin), generator=g7, device=dev) * 2 - 1
+            vemb = torch.rand((32000, pt7.input_ch_views), generator=g7, device=dev) * 2 - 1
+            gr7 = torch.randn((32000, 4), generator=g7, device=dev)
+            res7 = b7.trunk_fwd_bwd(pt7, emb, vemb, gr7, False, False)
+            out[f"trunk[tnerf]+bwd {tag}"] = {"sha256": digest([res7[0], *res7[1]]),
+                                              "ms": timed(lambda: b7.trunk_fwd_bwd(pt7, emb, vemb, gr7, False, False))}
+            p8 = b7.pack_trunk_params(vsd, vcfg, dtype)
+            pts = torch.rand((32000, 3), generator=g7, device=dev) * 4 - 2
+            vd = torch.nn.functional.normalize(torch.randn((32000, 3), generator=g7, device=dev), dim=-1)
+            res8 = b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)
+            out[f"trunk[raw]+bwd {tag}"] = {"sha256": digest([res8[0], *res8[1], res8[2], res8[3]]),
+                                            "ms": timed(lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True))}
         torch.cuda.empty_cache()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

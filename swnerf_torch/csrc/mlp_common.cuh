@@ -1,8 +1,9 @@
 // Device code shared by the render kernels B1/B3/B5 (vanilla) and B4
 // (T-NeRF) in render_pass.cu and render_loss.cu, the deformation MLP B6 in
-// time_net.cu and the field trunk B7 in trunk.cu: operand-type traits, the
-// field families of the render kernels, the 64-row MLP chunk product, the
-// activation epilogue and the render kernels' in-block Fourier encoding.
+// time_net.cu and the field trunks B7, B7' and B8 in trunk.cu: operand-type
+// traits, the field families of the render kernels, the 64-row MLP chunk
+// product, the activation epilogue, the in-block Fourier encoding and its
+// backward.
 //
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
@@ -170,9 +171,11 @@ __device__ __forceinline__ void zero(float (&acc)[R][C]) {
 // positional_encoding(t, L) orders it: t, then sin(2^i t), cos(2^i t) at
 // dpos + 1 + 2i and dpos + 2 + 2i. t is per ray, constant along it. The
 // columns from A::cin(L) to A::CIN are zero. With PTS (B3's pts mode, B5,
-// B6) the positions are given: ``origins`` then holds them, [ray][S][3],
-// and dirs and z are not read.
-template <typename T, typename A, bool PTS = false>
+// B6, B8) the positions are given: ``origins`` then holds them, [ray][S][3],
+// and dirs and z are not read. With VEMB the per-ray view embeddings (vemb
+// [ray][cv], computed outside) follow into vemb_s, padded with zeros to CV
+// rows; B8 encodes its view directions with a second call instead.
+template <typename T, typename A, bool PTS = false, bool VEMB = true>
 __device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict__ vemb_s, int row0, int rows,
                                              long long ray0, int S, int L, int cv,
                                              const float* __restrict__ origins, const float* __restrict__ dirs,
@@ -219,8 +222,32 @@ __device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict_
       emb[(dpos + 2 + 2 * f) * LDA + r] = Op<T>::q(cosf(u));
     }
   }
-  for (int k = p; k < CV; k += 4)
-    vemb_s[k * LDA + r] = Op<T>::q((valid && k < cv) ? vemb[ray * cv + k] : 0.f);
+  if (VEMB)
+    for (int k = p; k < CV; k += 4)
+      vemb_s[k * LDA + r] = Op<T>::q((valid && k < cv) ? vemb[ray * cv + k] : 0.f);
+}
+
+// d/dx [P][3] from the cotangent demb [P][cin] (fp32) of x's Fourier
+// encode (raymarch.py::_embed_bwd): the identity columns, then per
+// frequency f the derivative 2^f cos(2^f x) of the sin column and
+// -2^f sin(2^f x) of the cos column, x in fp32. The Pallas kernel takes the
+// latter as 2^f cos(2^f x + pi/2) (ROADMAP Queue C). B5 chains its position
+// cotangent through it; B8 its position and view-direction cotangents.
+__global__ void encode_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ demb, int cin, int L,
+                                  long long P, float* __restrict__ dpts) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= P * 3) return;
+  const long long p = idx / 3;
+  const int a = (int)(idx - p * 3);
+  const float x = pts[idx];
+  const float* g = demb + p * cin;
+  float s = g[a];
+  for (int f = 0; f < L; ++f) {
+    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
+    const float u = x * scale;
+    s += scale * (cosf(u) * g[3 + 6 * f + a] - sinf(u) * g[6 + 6 * f + a]);
+  }
+  dpts[idx] = s;
 }
 
 }  // namespace

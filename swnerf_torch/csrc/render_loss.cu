@@ -18,9 +18,9 @@
 // (the D-NeRF canonical pass at x + dx), plus d loss / d pts: the trunk
 // sweep also forms the embedding's cotangent demb = dz_{skip+1} W_emb^T +
 // dz_0 W_0^T over the live columns in fp32 (gemm_common.cuh::trunk_reverse),
-// and encode_bwd_kernel chains it through the Fourier encode. Both are
-// compile-time switches (PTS): B1's and B4's instantiations are the code
-// they were.
+// and mlp_common.cuh::encode_bwd_kernel chains it through the Fourier
+// encode. Both are compile-time switches (PTS): B1's and B4's
+// instantiations are the code they were.
 //
 // Bound on the card: operations. At D=8, W=256 the forward is 593,408
 // multiply-adds per sample and the backward's dX and dW products about twice
@@ -279,28 +279,6 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       sc.dfa[pp * LDW + W] = Op<T>::q(dsig);
     }
   }
-}
-
-// B5: d loss / d pts [P][3] from the embedding's cotangent demb [P][cin]
-// (fp32) through the Fourier encode (raymarch.py::_embed_bwd): the identity
-// columns, then per frequency f the derivative 2^f cos(2^f x) of the sin
-// column and -2^f sin(2^f x) of the cos column, x in fp32 from pts. The
-// Pallas kernel takes the latter as 2^f cos(2^f x + pi/2) (ROADMAP Queue C).
-__global__ void encode_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ demb, int cin, int L,
-                                  long long P, float* __restrict__ dpts) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P * 3) return;
-  const long long p = idx / 3;
-  const int a = (int)(idx - p * 3);
-  const float x = pts[idx];
-  const float* g = demb + p * cin;
-  float s = g[a];
-  for (int f = 0; f < L; ++f) {
-    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
-    const float u = x * scale;
-    s += scale * (cosf(u) * g[3 + 6 * f + a] - sinf(u) * g[6 + 6 * f + a]);
-  }
-  dpts[idx] = s;
 }
 
 template <typename T, typename A, bool PTS = false>

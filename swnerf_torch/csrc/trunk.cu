@@ -1,6 +1,7 @@
-// The NeRF field trunk on embedded inputs (kernel B7) for Hopper: the
-// forward raw [P, 4], and the backward to every parameter gradient and the
-// position embedding's cotangent.
+// The NeRF field trunk on embedded inputs (kernel B7), its ELU T-NeRF
+// instantiation (B7') and its instantiation with the encode in the block
+// (B8) for Hopper: the forward raw [P, 4], and the backward to every
+// parameter gradient and the inputs' cotangents.
 //
 // Replaces swnerf_tpu/ops/pallas/raymarch.py::_fwd_kernel (:435) and
 // _bwd_kernel (:446), reached through fused_trunk (:700) and its custom VJP
@@ -17,9 +18,25 @@
 // The plain twin is swnerf_torch/ops/kernels/trunk.py::trunk_plain /
 // trunk_plain_bwd.
 //
-// The field family is a traits parameter (Trunk below: ReLU, no colour
-// ReLU, what fused_trunk runs). fused_tnerf (raymarch.py:1094) is the same
-// body with ELU and the colour ReLU: a second traits struct, not wired yet.
+// The field family is a traits parameter, one instantiation each:
+//  - Trunk (B7): the ReLU trunk of fused_trunk, as above.
+//  - TrunkElu (B7'): fused_tnerf (raymarch.py:1094-1129), the same bodies
+//    with act="elu" and rgb_relu=True: the T-NeRF field on [embed(x) |
+//    embed(t)] and embed(d) (render_pass.py::pack_tnerf_params's layout),
+//    ELU in the trunk and the view layer (ELU' from the stored output, as
+//    B4), and raw rgb = max(u, 0) for the colour logits u. The backward
+//    masks the colour cotangent by u > 0 (raymarch.py:364-368), from u kept
+//    by the train-mode forward; the rgb bias gradient sums the masked fp32
+//    cotangent.
+//  - TrunkRaw (B8): fused_field_raw (raymarch.py:956-1020, bodies
+//    _fwd_kernel_raw :556 and _bwd_kernel_raw :569), B7 on positions and
+//    per-row view directions [P, 3] (fp32): the block encodes both straight
+//    into the shared-memory embedding tiles with B3's in-block encode
+//    (mlp_common.cuh::encode_chunk, true cos), so the embeddings are born in
+//    shared memory and take no room B7 does not. Its backward forms demb and
+//    dvemb in fp32 scratch and chains them through B5's encode backward
+//    (mlp_common.cuh::encode_bwd_kernel) to d pts and d viewdirs [P, 3].
+// The flags are compile-time: B7's instantiation is the code it was.
 //
 // Bound on the card: operations. At D=8, W=256 and MultiRes level 0's
 // widths (cin = cv = 123) the forward is 636,416 multiply-adds per row and
@@ -46,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "gemm_common.cuh"
 #include "mlp_common.cuh"
@@ -60,6 +78,29 @@ struct Trunk {
   static constexpr int CV = 128;
   static constexpr Act ACT = Act::Relu;
   static constexpr bool RGB_RELU = false;
+  static constexpr bool RAW = false;
+};
+
+// B7': the T-NeRF family (B4's TNerf traits' activation and colour ReLU) on
+// the same padded widths.
+struct TrunkElu {
+  static constexpr int CIN = 128;
+  static constexpr int CV = 128;
+  static constexpr Act ACT = Act::Elu;
+  static constexpr bool RGB_RELU = true;
+  static constexpr bool RAW = false;
+};
+
+// B8: B7 with both encodes in the block. encode_chunk reads TIME and cin(L);
+// the view encode uses the same traits (CV == CIN).
+struct TrunkRaw {
+  static constexpr int CIN = 128;
+  static constexpr int CV = 128;
+  static constexpr Act ACT = Act::Relu;
+  static constexpr bool RGB_RELU = false;
+  static constexpr bool RAW = true;
+  static constexpr bool TIME = false;
+  static __host__ __device__ int cin(int L) { return 3 + 6 * L; }
 };
 
 template <typename T>
@@ -76,6 +117,10 @@ struct Scratch {
   T* gq;     // [P][4]: the cotangent in the operand type
   float* dhv32;  // [P][W/2]
   float* part;
+  float* u;      // B7': [P][4], the colour logits before the ReLU
+  float* gm;     // B7': [P][4], the cotangent with the colour masked
+  float* demb;   // B8: [P][cin], fp32
+  float* dvemb;  // B8: [P][cv], fp32
 };
 
 template <typename T, typename A>
@@ -96,6 +141,14 @@ Scratch<T> carve(void* scratch, int W, int D, long long P) {
   sc.gq = cv.take<T>(P * 4);
   sc.dhv32 = cv.take<float>(P * WH);
   sc.part = cv.take<float>(part_floats(W));
+  if (A::RGB_RELU) {
+    sc.u = cv.take<float>(P * 4);
+    sc.gm = cv.take<float>(P * 4);
+  }
+  if (A::RAW) {
+    sc.demb = cv.take<float>(P * A::CIN);
+    sc.dvemb = cv.take<float>(P * A::CV);
+  }
   return sc;
 }
 
@@ -114,6 +167,8 @@ size_t scratch_bytes(int W, int D, long long P) {
   b += align256(sizeof(T) * P * 4);            // gq
   b += align256(sizeof(float) * P * WH);       // dhv32
   b += align256(sizeof(float) * part_floats(W));
+  if (A::RGB_RELU) b += 2 * align256(sizeof(float) * P * 4);  // u, gm
+  if (A::RAW) b += align256(sizeof(float) * P * A::CIN) + align256(sizeof(float) * P * A::CV);  // demb, dvemb
   return b;
 }
 
@@ -157,8 +212,15 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
   const int r = threadIdx.x & (CH - 1);
   const int p = threadIdx.x / CH;
 
-  load_rows<T>(emb, emb_in, cin, A::CIN, row0, nvalid);
-  load_rows<T>(vemb_s, vemb_in, cv, A::CV, row0, nvalid);
+  if constexpr (A::RAW) {  // B8: emb_in / vemb_in are pts / viewdirs [M][3]; cin = 3 + 6L, cv = 3 + 6Lv
+    encode_chunk<T, A, true, false>(emb, nullptr, 0, nvalid, row0, 1, (cin - 3) / 6, 0, emb_in, nullptr, nullptr,
+                                    nullptr, nullptr);
+    encode_chunk<T, A, true, false>(vemb_s, nullptr, 0, nvalid, row0, 1, (cv - 3) / 6, 0, vemb_in, nullptr,
+                                    nullptr, nullptr, nullptr);
+  } else {
+    load_rows<T>(emb, emb_in, cin, A::CIN, row0, nvalid);
+    load_rows<T>(vemb_s, vemb_in, cv, A::CV, row0, nvalid);
+  }
   __syncthreads();
   if (STORE) {
     spill<T>(emb, cin, sc.emb, A::CIN, row0, nvalid, true);
@@ -240,20 +302,33 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
     __syncthreads();
     if (p == 0 && r < nvalid) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        raw[(row0 + r) * 4 + c] = ((red[r * 3 + c] + red[(CH + r) * 3 + c]) + red[(2 * CH + r) * 3 + c]) +
-                                  red[(3 * CH + r) * 3 + c] + b_rgb[c];
+      for (int c = 0; c < 3; ++c) {
+        float v = ((red[r * 3 + c] + red[(CH + r) * 3 + c]) + red[(2 * CH + r) * 3 + c]) +
+                  red[(3 * CH + r) * 3 + c] + b_rgb[c];
+        if constexpr (A::RGB_RELU) {  // B7': rgb = max(u, 0); the backward's mask is u > 0
+          if (STORE) sc.u[(row0 + r) * 4 + c] = v;
+          v = fmaxf(v, 0.f);
+        }
+        raw[(row0 + r) * 4 + c] = v;
+      }
     }
   }
 }
 
-// gq = q(g); column W of dfa = q(d alpha).
-template <typename T>
-__global__ void cotangent_kernel(const float* __restrict__ g, long long P, int W, T* __restrict__ gq,
-                                 T* __restrict__ dfa) {
+// gq = q(g); column W of dfa = q(d alpha). With MASK (B7'), the colour
+// columns first take the ReLU's mask u > 0, and gm keeps the masked fp32
+// cotangent.
+template <typename T, bool MASK>
+__global__ void cotangent_kernel(const float* __restrict__ g, const float* __restrict__ u, long long P, int W,
+                                 T* __restrict__ gq, T* __restrict__ dfa, float* __restrict__ gm) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= P * 4) return;
-  const T v = Op<T>::q(g[idx]);
+  float x = g[idx];
+  if (MASK) {
+    if ((idx & 3) != 3 && !(u[idx] > 0.f)) x = 0.f;
+    gm[idx] = x;
+  }
+  const T v = Op<T>::q(x);
   gq[idx] = v;
   if ((idx & 3) == 3) dfa[(idx >> 2) * (W + PADC) + W] = v;
 }
@@ -271,23 +346,59 @@ int fwd(const float* emb, int cin, const float* vemb, int cv, const void* wts, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward from the train-mode forward's scratch. demb / dvemb: B7 and
+// B7' write the embeddings' fp32 cotangents there where not null; B8 writes
+// d pts / d viewdirs [P][3] there, from x / xv (its inputs).
 template <typename T, int W, typename A>
-int bwd(const void* wts_v, int D, int skip, int cin, int cv, long long P, const float* g, float* gw, float* gb,
-        float* demb, float* dvemb, void* scratch, cudaStream_t st) {
-  static_assert(!A::RGB_RELU, "the colour ReLU's mask is not formed here");
+int bwd(const void* wts_v, int D, int skip, int cin, int cv, long long P, const float* x, const float* xv,
+        const float* g, float* gw, float* gb, float* demb, float* dvemb, void* scratch, cudaStream_t st) {
   const T* wts = static_cast<const T*>(wts_v);
   Scratch<T> sc = carve<T, A>(scratch, W, D, P);
-  cotangent_kernel<T><<<ceil_div(P * 4, 256), 256, 0, st>>>(g, P, W, sc.gq, sc.dfa);
+  cotangent_kernel<T, A::RGB_RELU><<<ceil_div(P * 4, 256), 256, 0, st>>>(g, sc.u, P, W, sc.gq, sc.dfa, sc.gm);
   SWNERF_CHECK(cudaGetLastError());
   auto hl = [&](int i) { return static_cast<const T*>(sc.h + (size_t)i * sc.hstride); };
-  FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, g, sc.dz, sc.dhv_c,
-                                  sc.dhv32, sc.part};
-  return field_reverse<T, W, A::ACT>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb, demb, dvemb, st);
+  FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, A::RGB_RELU ? sc.gm : g,
+                                  sc.dz, sc.dhv_c, sc.dhv32, sc.part};
+  if constexpr (A::RAW) {
+    SWNERF_RUN((field_reverse<T, W, A::ACT>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb,
+                                            demb ? sc.demb : nullptr, dvemb ? sc.dvemb : nullptr, st)));
+    if (demb) {
+      encode_bwd_kernel<<<ceil_div(P * 3, 256), 256, 0, st>>>(x, sc.demb, cin, (cin - 3) / 6, P, demb);
+      SWNERF_CHECK(cudaGetLastError());
+    }
+    if (dvemb) {
+      encode_bwd_kernel<<<ceil_div(P * 3, 256), 256, 0, st>>>(xv, sc.dvemb, cv, (cv - 3) / 6, P, dvemb);
+      SWNERF_CHECK(cudaGetLastError());
+    }
+    return 0;
+  } else {
+    return field_reverse<T, W, A::ACT>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb, demb, dvemb, st);
+  }
 }
 
-bool shape_ok(int W, int D, int skip, int cin, int cv, long long P) {
-  return (W == 128 || W == 256) && D >= 2 && D <= 16 && skip >= 0 && skip + 1 < D && cin >= 1 &&
-         cin < Trunk::CIN && cv >= 1 && cv <= Trunk::CV && P * (W + PADC) < (1LL << 31);
+// Calls f(Tag<T>, W, Tag<A>) for the operand type, the width and the field
+// family (0: B7, 1: B7', 2: B8).
+template <typename X>
+struct Tag {
+  using type = X;
+};
+template <int V>
+using WTag = std::integral_constant<int, V>;
+
+template <typename F>
+auto dispatch(int arch, int bf16, int W, F f) {
+  auto by_w = [&](auto t, auto a) { return W == 256 ? f(t, WTag<256>{}, a) : f(t, WTag<128>{}, a); };
+  auto by_t = [&](auto a) { return bf16 ? by_w(Tag<__nv_bfloat16>{}, a) : by_w(Tag<float>{}, a); };
+  if (arch == 2) return by_t(Tag<TrunkRaw>{});
+  if (arch == 1) return by_t(Tag<TrunkElu>{});
+  return by_t(Tag<Trunk>{});
+}
+
+bool shape_ok(int arch, int W, int D, int skip, int cin, int cv, long long P) {
+  const bool encodes = arch != 2 || ((cin - 3) % 6 == 0 && (cv - 3) % 6 == 0 && cin >= 3 && cv >= 3);
+  return arch >= 0 && arch <= 2 && encodes && (W == 128 || W == 256) && D >= 2 && D <= 16 && skip >= 0 &&
+         skip + 1 < D && cin >= 1 && cin < Trunk::CIN && cv >= 1 && cv <= Trunk::CV &&
+         P * (W + PADC) < (1LL << 31);
 }
 
 }  // namespace
@@ -298,41 +409,49 @@ const char* swnerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Bytes of train-mode scratch for P rows, or -1 for an unsupported width.
-long long trunk_scratch_bytes(int bf16, int W, int D, long long P) {
-  if (W != 128 && W != 256) return -1;
-  return (long long)(bf16 ? scratch_bytes<__nv_bfloat16, Trunk>(W, D, P) : scratch_bytes<float, Trunk>(W, D, P));
+// Bytes of train-mode scratch for P rows of field family ``arch`` (0: B7,
+// 1: B7', 2: B8), or -1 for an unsupported width or family.
+long long trunk_scratch_bytes(int arch, int bf16, int W, int D, long long P) {
+  if ((W != 128 && W != 256) || arch < 0 || arch > 2) return -1;
+  return dispatch(arch, bf16, 128, [&](auto t, auto, auto a) {
+    return (long long)scratch_bytes<typename decltype(t)::type, typename decltype(a)::type>(W, D, P);
+  });
 }
 
-// raw [P, 4] (rgb logits, alpha) of the field at emb [P, cin] and vemb
-// [P, cv] (fp32, contiguous); wts / bias: the packed buffers of
-// ops/kernels/trunk.py::pack_trunk_params (bf16 != 0: bf16 operands, else
+// raw [P, 4] of field family ``arch``: B7 (0) and B7' (1) at emb [P, cin]
+// and vemb [P, cv] (fp32, contiguous; B7': rgb after the colour ReLU); B8
+// (2) at positions emb [P, 3] and view directions vemb [P, 3], encoded in
+// the block to cin = 3 + 6L and cv = 3 + 6Lv columns. wts / bias: the
+// packed buffers of ops/kernels/trunk.py (bf16 != 0: bf16 operands, else
 // fp32). scratch (train mode, trunk_scratch_bytes) or null: with it the
 // forward keeps what the backward needs.
-int trunk_fwd_launch(int bf16, int W, const float* emb, int cin, const float* vemb, int cv, const void* wts,
+int trunk_fwd_launch(int arch, int bf16, int W, const float* emb, int cin, const float* vemb, int cv, const void* wts,
                      const float* bias, int D, int skip, long long P, float* raw, void* scratch, void* stream) {
   if (P == 0) return 0;
-  if (!shape_ok(W, D, skip, cin, cv, P)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(arch, W, D, skip, cin, cv, P)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWNERF_FWD(T, WW) fwd<T, WW, Trunk>(emb, cin, vemb, cv, wts, bias, D, skip, P, raw, scratch, st)
-  if (bf16) return W == 256 ? SWNERF_FWD(__nv_bfloat16, 256) : SWNERF_FWD(__nv_bfloat16, 128);
-  return W == 256 ? SWNERF_FWD(float, 256) : SWNERF_FWD(float, 128);
-#undef SWNERF_FWD
+  return dispatch(arch, bf16, W, [&](auto t, auto w, auto a) {
+    return fwd<typename decltype(t)::type, decltype(w)::value, typename decltype(a)::type>(
+        emb, cin, vemb, cv, wts, bias, D, skip, P, raw, scratch, st);
+  });
 }
 
 // The gradients of sum(g * raw) for the cotangent g [P, 4] (fp32), from the
-// scratch of the train-mode forward on the same weights: gw / gb in the
-// packed layouts, which the caller zeroes; demb [P, cin] and dvemb [P, cv]
-// (fp32) where not null.
-int trunk_bwd_launch(int bf16, int W, const void* wts, int D, int skip, int cin, int cv, long long P,
-                     const float* g, float* gw, float* gb, float* demb, float* dvemb, void* scratch, void* stream) {
+// scratch of the train-mode forward on the same weights and inputs: gw / gb
+// in the packed layouts, which the caller zeroes; where not null, demb
+// [P, cin] and dvemb [P, cv] (fp32) for B7 and B7', and for B8 d pts and
+// d viewdirs [P, 3] there, from its inputs x (positions) and xv (view
+// directions).
+int trunk_bwd_launch(int arch, int bf16, int W, const void* wts, int D, int skip, int cin, int cv, long long P,
+                     const float* x, const float* xv, const float* g, float* gw, float* gb, float* demb,
+                     float* dvemb, void* scratch, void* stream) {
   if (P == 0) return 0;
-  if (!shape_ok(W, D, skip, cin, cv, P)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(arch, W, D, skip, cin, cv, P)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWNERF_BWD(T, WW) bwd<T, WW, Trunk>(wts, D, skip, cin, cv, P, g, gw, gb, demb, dvemb, scratch, st)
-  if (bf16) return W == 256 ? SWNERF_BWD(__nv_bfloat16, 256) : SWNERF_BWD(__nv_bfloat16, 128);
-  return W == 256 ? SWNERF_BWD(float, 256) : SWNERF_BWD(float, 128);
-#undef SWNERF_BWD
+  return dispatch(arch, bf16, W, [&](auto t, auto w, auto a) {
+    return bwd<typename decltype(t)::type, decltype(w)::value, typename decltype(a)::type>(
+        wts, D, skip, cin, cv, P, x, xv, g, gw, gb, demb, dvemb, scratch, st);
+  });
 }
 
 }  // extern "C"

@@ -21,12 +21,17 @@ same tensors.
 The kernel route (``fused``, as ``make_dnerf_field(cfg, fused=None)``:
 models/dnerf.py:182-290 there): the deformation MLP runs kernel B6
 (``time_net_autograd``, the positions detached) and the canonical trunk
-kernel B7 (``trunk_autograd``) on the embedded ``x + dx``; B7's input
-cotangent carries the loss into the deformation net. ``original`` runs B7
-without input gradients. ``fused=None`` takes the route on a card for the
-configurations the kernels cover (``supports_time_net``, ``supports_trunk``,
-decided at construction); on CPU tensors the same route runs the kernels'
-plain twins. Operands are bf16 on the card and fp32 on the CPU; without
+kernel B7 (``VanillaNeRF.kernel_trunk``) on the embedded ``x + dx``; B7's
+input cotangent carries the loss into the deformation net. ``original``
+runs B7 without input gradients (its embeddings detached unless
+``SWNERF_FUSED_INPUT_GRADS=1``, as ``_trunk_apply`` reads it).
+``fused=None`` takes the route where ``utils/switches.py::kernel_route``
+holds (a card, ``SWNERF_FUSED`` not 0, ``SWNERF_FUSED_DTYPE=bf16``) for
+the configurations the kernels cover (``supports_time_net``,
+``supports_trunk``), decided at construction; ``SWNERF_FUSED=0`` or
+``SWNERF_FUSED_DTYPE=f32`` give the fp32 plain route. On CPU tensors an
+explicit ``fused=True`` runs the kernels' plain twins. Operands are
+``switches.operand_dtype``'s (bf16 on the card, fp32 on the CPU); without
 autograd (rendering) the forward-only launches run. ``compute_dtype`` is
 the parity mode alone, as the fused steps' and eval passes' argument of
 that name: the card's checks pass ``torch.float32`` to hold the route
@@ -47,6 +52,7 @@ from swnerf_torch.models.vanilla import VanillaNeRF
 from swnerf_torch.ops.embedding import embedding_dim, positional_encoding
 from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.kernels import trunk as b7
+from swnerf_torch.utils.switches import kernel_route, operand_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,28 +95,6 @@ class DNeRFConfig:
         return embedding_dim(self.nf_time, 1)
 
 
-def _operand_dtype(compute_dtype: Optional[torch.dtype], x: torch.Tensor) -> torch.dtype:
-    return compute_dtype or (torch.bfloat16 if x.device.type == "cuda" else torch.float32)
-
-
-def kernel_trunk(net: VanillaNeRF, dtype: torch.dtype, pts_emb: torch.Tensor, views_emb: torch.Tensor
-                 ) -> torch.Tensor:
-    """The canonical trunk through B7 (``_trunk_apply``'s fused branch):
-    raw [..., 4] at pts_emb [..., cin] and views_emb [..., cv]. Under
-    autograd the weights are packed differentiably and B7's backward runs;
-    pts_emb gets its cotangent when it requires gradients."""
-    lead = pts_emb.shape[:-1]
-    emb = pts_emb.reshape(-1, pts_emb.shape[-1])
-    vemb = views_emb.reshape(-1, views_emb.shape[-1]).contiguous()
-    params = dict(net.named_parameters())
-    if torch.is_grad_enabled():
-        pdt = next(net.parameters()).dtype  # fp32; float64 for a float64 run on the twins
-        raw = b7.trunk_autograd(b7.pack_trunk_params(params, net.cfg, pdt), dtype, emb, vemb)
-    else:
-        raw = b7.trunk(b7.pack_trunk_params(params, net.cfg, dtype), emb.contiguous(), vemb)
-    return raw.reshape(*lead, 4)
-
-
 class NeRFOriginal(VanillaNeRF):
     """The canonical network: the vanilla trunk (same parameter names) with
     kaiming init, on ``device`` (default ``cuda``), drawn from
@@ -121,21 +105,16 @@ class NeRFOriginal(VanillaNeRF):
     def __init__(self, cfg: DNeRFConfig, device: Optional[torch.device] = None,
                  generator: Optional[torch.Generator] = None, fused: Optional[bool] = None,
                  compute_dtype: Optional[torch.dtype] = None):
-        device = resolve_device(device)
-        super().__init__(cfg, device, generator, init=kaiming_linear_init)
-        use = device.type == "cuda" if fused is None else fused
-        self.fused = use and b7.supports_trunk(cfg)
-        self.compute_dtype = compute_dtype
+        super().__init__(cfg, device, generator, init=kaiming_linear_init, fused=fused, compute_dtype=compute_dtype)
 
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor] = None,
                 times: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        if not self.fused:
-            return super().forward(pts, viewdirs), {"dx": torch.zeros_like(pts)}
-        ve = positional_encoding(viewdirs, self.cfg.nf_views)
-        views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
-        raw = kernel_trunk(self, _operand_dtype(self.compute_dtype, pts),
-                           positional_encoding(pts, self.cfg.nf_pts), views_emb)
-        return raw, {"dx": torch.zeros_like(pts)}
+        pts_emb = positional_encoding(pts, self.cfg.nf_pts)
+        views_emb = None
+        if self.cfg.use_viewdirs:
+            ve = positional_encoding(viewdirs, self.cfg.nf_views)
+            views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
+        return self.apply_embedded(pts_emb, views_emb), {"dx": torch.zeros_like(pts)}
 
 
 class DirectTemporalNeRF(Field):
@@ -151,11 +130,12 @@ class DirectTemporalNeRF(Field):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        use = device.type == "cuda" if fused is None else fused
+        use = kernel_route(device) if fused is None else fused
         self.fused_time = use and b6.supports_time_net(cfg)
         self.fused_trunk = use and b7.supports_trunk(cfg)
         self.compute_dtype = compute_dtype
-        self._occ = NeRFOriginal(cfg, device, generator, fused=False)
+        # the canonical network: its trunk runs B7 through kernel_trunk below
+        self._occ = NeRFOriginal(cfg, device, generator, fused=False, compute_dtype=compute_dtype)
         D, W, in_x = cfg.netdepth, cfg.netwidth, cfg.input_ch
         dims = [(in_x + cfg.input_ch_time, W)] + [((W + in_x, W) if i in cfg.skips else (W, W)) for i in range(D - 1)]
         self._time = nn.ModuleList(init_mlp_stack(dims, generator, device))
@@ -177,7 +157,7 @@ class DirectTemporalNeRF(Field):
         [N, S, 4], {"dx": [N, S, 3]})."""
         cfg = self.cfg
         t = times[..., None, :].expand(*pts.shape[:-1], 1)
-        dtype = _operand_dtype(self.compute_dtype, pts)
+        dtype = operand_dtype(pts.device, self.compute_dtype)
         if self.fused_time:
             params = dict(self.named_parameters())
             tr = times.reshape(-1)
@@ -196,7 +176,7 @@ class DirectTemporalNeRF(Field):
             views_emb = ve[..., None, :].expand(*pts.shape[:-1], ve.shape[-1])
         pts_emb = positional_encoding(pts + dx, cfg.nf_pts)
         if self.fused_trunk:
-            return kernel_trunk(self._occ, dtype, pts_emb, views_emb), {"dx": dx}
+            return self._occ.kernel_trunk(pts_emb, views_emb, need_input_grads=True), {"dx": dx}
         return self._occ.trunk(pts_emb, views_emb), {"dx": dx}
 
 

@@ -15,8 +15,9 @@ The dnerf flag set (``config_parser_dnerf``), the dynamic Blender loader,
 the time curriculum. Training resumes from the latest ``.tar`` of the
 experiment (or ``--ft_path``) with its Adam state and runs one train step per
 iteration: the kernel step (B6, B3's pts mode, B5, B2) where
-``supports_fused_dnerf_step`` holds and ``SWNERF_FUSED_STEP`` is not 0, else
-the eager autograd step. It saves ``{iter:06d}.tar`` every ``--i_weights``
+``supports_fused_dnerf_step`` and ``utils/switches.py::kernel_step`` hold,
+else the eager autograd step (B6 and B7 on a card, the fp32 plain route
+under ``SWNERF_FUSED=0`` or ``SWNERF_FUSED_DTYPE=f32``). It saves ``{iter:06d}.tar`` every ``--i_weights``
 (with a fine dict for two models), renders the test views at their frame
 times every ``--i_testset`` and the render path as PNG frames every
 ``--i_video``, and prints and logs to ``metrics.jsonl`` every ``--i_print``.
@@ -29,7 +30,7 @@ pose swept over 120 times into ``time_only/`` (run_dnerf.py:553-566). Not
 ported yet (ROADMAP.md): the mp4 writer, K steps per dispatch, tensor and
 data parallelism, the native/orbax checkpoint formats, the TensorBoard image
 log of ``--i_img``; ``--do_half_precision`` has no effect (the kernels run
-bf16 on the card regardless).
+bf16 on the card; the plain route runs fp32).
 
 The train split's time checks (first 0, last 1, run_dnerf.py:297-298) hold
 for training only: ``--testskip`` strides the train split too, so
@@ -65,6 +66,7 @@ from swnerf_torch.train.checkpoint import dnerf_state_dict, find_checkpoints, lo
 from swnerf_torch.train.fused_step import make_fused_dnerf_step, supports_fused_dnerf_step
 from swnerf_torch.train.loop import TrainState, init_train_state, make_dnerf_train_step
 from swnerf_torch.utils.config import config_parser_dnerf
+from swnerf_torch.utils.switches import eval_pass_route, kernel_step
 from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
 
 
@@ -86,7 +88,8 @@ def create_dnerf(args, device: torch.device):
     runs B6, B3's pts mode and B2 with bf16 operands on the card and their
     fp32 plain twins on the CPU; it is None where they do not cover the
     fields (``--nerf_type original`` among them: the plain path renders
-    then, as in the JAX package).
+    then, as in the JAX package) and under ``SWNERF_FUSED_EVAL=0``
+    (``switches.eval_pass_route``, ``dnerf.py:298-299`` there).
     """
     kind = args.nerf_type
     mcfg = _model_config(args, args.netdepth, args.netwidth)
@@ -118,7 +121,7 @@ def create_dnerf(args, device: torch.device):
     covered = kind == "direct_temporal" and supports_dnerf_eval_pass(mcfg) and (
         fcfg is None or (supports_dnerf_eval_pass(fcfg) and (fcfg.multires, fcfg.multires_views)
                          == (mcfg.multires, mcfg.multires_views)))
-    if covered:
+    if covered and eval_pass_route(device):
         eval_pass = make_dnerf_eval_pass(mcfg, torch.bfloat16 if device.type == "cuda" else torch.float32)
     return state, rcfg, eval_pass, (mcfg, fcfg)
 
@@ -184,8 +187,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     logger = ExperimentLogger(args.basedir, args.expname)
     sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac,
                            precrop_iters_time=args.precrop_iters_time)
-    kernel_step = args.nerf_type == "direct_temporal" and supports_fused_dnerf_step(mcfg, fcfg, rcfg)
-    if kernel_step and os.environ.get("SWNERF_FUSED_STEP", "1") != "0":
+    if args.nerf_type == "direct_temporal" and supports_fused_dnerf_step(mcfg, fcfg, rcfg) and kernel_step(device):
         train_step = make_fused_dnerf_step(mcfg, rcfg, fcfg=fcfg, add_tv_loss=args.add_tv_loss,
                                            tv_loss_weight=args.tv_loss_weight)
         print("Using the kernel D-NeRF train step (B6, B5, B3 pts mode, B2)")

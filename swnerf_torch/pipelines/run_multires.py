@@ -22,9 +22,10 @@ one D-NeRF field per Laplacian-pyramid level, trained in two phases.
   per-level renders reconstructed to PNGs.
 
 On the card each field runs kernels B6 and B7 (``models/dnerf.py``'s kernel
-route, bf16 operands) in both phases and in the test-set renders, which go
-through the fields chunk by chunk: the D-NeRF eval pass does not cover the
-MultiRes widths. The host stream (patch corners, image indices, neighbour
+route, bf16 operands; the fp32 plain route under ``SWNERF_FUSED=0`` or
+``SWNERF_FUSED_DTYPE=f32``) in both phases and in the test-set renders,
+which go through the fields chunk by chunk: the D-NeRF eval pass does not
+cover the MultiRes widths. The host stream (patch corners, image indices, neighbour
 times) is seeded from ``SWNERF_SEED``; at seed 0 it draws the JAX package's
 (which hard-codes 0). Not ported yet (ROADMAP.md): K steps per dispatch,
 tensor and data parallelism, the native/orbax checkpoints, the mp4 writer

@@ -7,10 +7,12 @@ Training (the default) and ``--render_only`` serving::
 
 Training resumes from the latest ``.tar`` of the experiment (or
 ``--ft_path``) with its Adam state, runs one train step per iteration
-(the kernel step on B1 and B2 where ``supports_fused_step`` holds, else the
-eager autograd step), saves ``{iter:06d}.tar`` every ``--i_weights``, renders
-the test views through B3 every ``--i_testset`` and the spiral path as PNG
-frames every ``--i_video``, and prints and logs to ``metrics.jsonl`` every
+(the kernel step on B1 and B2 where ``supports_fused_step`` and
+``utils/switches.py::kernel_step`` hold, else the eager autograd step,
+whose fields run B7 on a card, or B8 under ``SWNERF_FUSED_RAW=1``), saves
+``{iter:06d}.tar`` every ``--i_weights``, renders the test views through
+B3 every ``--i_testset`` and the spiral path as PNG frames every
+``--i_video``, and prints and logs to ``metrics.jsonl`` every
 ``--i_print``. ``SWNERF_MAX_ITERS`` caps the iteration count (testing).
 Serving renders the test views or the spiral path through B3 and B2.
 """
@@ -43,6 +45,7 @@ from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, save_tar, 
 from swnerf_torch.train.fused_step import make_fused_train_step, supports_fused_step
 from swnerf_torch.train.loop import TrainState, init_train_state, make_train_step
 from swnerf_torch.utils.config import config_parser
+from swnerf_torch.utils.switches import eval_pass_route, kernel_step
 from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
 
 N_ITERS = 200000 + 1  # fixed in the vanilla runner (reference run.py:625)
@@ -55,7 +58,9 @@ def create_vanilla(args, device: torch.device):
 
     Returns (state, rcfg, eval_pass, (mcfg, fcfg)). The eval pass runs bf16
     kernel operands on the card and fp32 plain twins on the CPU; it is None
-    for architectures B3 does not cover (the plain path renders then).
+    for architectures B3 does not cover and under ``SWNERF_FUSED_EVAL=0``
+    (``switches.eval_pass_route``): ``render_image`` then applies the
+    fields, on their kernel route on a card.
     """
     output_ch = 5 if args.N_importance > 0 else 4
     generator = torch.Generator().manual_seed(seed_value())
@@ -93,7 +98,7 @@ def create_vanilla(args, device: torch.device):
             state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
 
     eval_pass = None
-    if supports_eval_pass(mcfg, fcfg):
+    if supports_eval_pass(mcfg, fcfg) and eval_pass_route(device):
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         eval_pass = make_vanilla_eval_pass(mcfg, compute_dtype=dtype)
     return state, rcfg, eval_pass, (mcfg, fcfg)
@@ -137,7 +142,7 @@ def _train_impl(argv=None) -> Dict:
     start = state.step
     logger = ExperimentLogger(args.basedir, args.expname)
 
-    if supports_fused_step(mcfg, fcfg, rcfg) and os.environ.get("SWNERF_FUSED_STEP", "1") != "0":
+    if supports_fused_step(mcfg, fcfg, rcfg) and kernel_step(device):
         train_step = make_fused_train_step(mcfg, rcfg, fcfg=fcfg)
         print("Using the kernel train step (B1 render-loss, B2 sample_pdf)")
     else:

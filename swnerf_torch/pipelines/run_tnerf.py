@@ -11,8 +11,9 @@ The dnerf flag set (``config_parser_dnerf``), the dynamic Blender loader,
 ``N_importance`` forced to 0 (reference run_tnerf.py:264-280,329).
 Training resumes from the latest ``.tar`` of the experiment (or
 ``--ft_path``) with its Adam state, runs one train step per iteration (the
-kernel step on B4 where ``supports_fused_tnerf_step`` holds and
-``SWNERF_FUSED_STEP`` is not 0, else the eager autograd step), saves
+kernel step on B4 where ``supports_fused_tnerf_step`` and
+``utils/switches.py::kernel_step`` hold, else the eager autograd step, whose
+field runs B7' on a card), saves
 ``{iter:06d}.tar`` every ``--i_weights``, renders the test views at their
 frame times every ``--i_testset`` and the render path as PNG frames every
 ``--i_video``, and prints and logs to ``metrics.jsonl`` every ``--i_print``.
@@ -49,6 +50,7 @@ from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, save_tar, 
 from swnerf_torch.train.fused_step import make_fused_tnerf_step, supports_fused_tnerf_step
 from swnerf_torch.train.loop import TrainState, init_train_state, make_train_step
 from swnerf_torch.utils.config import config_parser_dnerf
+from swnerf_torch.utils.switches import eval_pass_route, kernel_step
 from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
 
 
@@ -59,7 +61,9 @@ def create_tnerf(args, device: torch.device):
 
     Returns (state, rcfg, eval_pass, mcfg). The eval pass runs B4 with bf16
     operands on the card and its fp32 plain twin on the CPU; it is None for
-    architectures B4 does not cover (the plain path renders then).
+    architectures B4 does not cover and under ``SWNERF_FUSED_EVAL=0``
+    (``switches.eval_pass_route``): ``render_image`` then applies the field,
+    through B7' on a card.
     """
     mcfg = TNeRFConfig(
         netdepth=args.netdepth, net_dim=128, skip_layer=4, multires=args.multires,
@@ -82,7 +86,7 @@ def create_tnerf(args, device: torch.device):
             state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
 
     eval_pass = None
-    if supports_tnerf(mcfg):
+    if supports_tnerf(mcfg) and eval_pass_route(device):
         eval_pass = make_tnerf_eval_pass(mcfg, torch.bfloat16 if device.type == "cuda" else torch.float32)
     return state, rcfg, eval_pass, mcfg
 
@@ -136,7 +140,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     logger = ExperimentLogger(args.basedir, args.expname)
     sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac,
                            precrop_iters_time=args.precrop_iters_time)
-    if supports_fused_tnerf_step(mcfg, rcfg) and os.environ.get("SWNERF_FUSED_STEP", "1") != "0":
+    if supports_fused_tnerf_step(mcfg, rcfg) and kernel_step(device):
         train_step = make_fused_tnerf_step(mcfg, rcfg)
         print("Using the kernel T-NeRF train step (B4 render-loss)")
     else:

@@ -39,6 +39,7 @@ kernel route (B7 alone) against its plain route, fp32 and the default bf16.
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -116,7 +117,7 @@ def _rays(dev, n, s, seed=0):
 @pytest.mark.parametrize("white", [True, False])
 def test_b3_fp32_matches_plain(dev, kw, n_samples, white):
     cfg = VanillaNeRFConfig(**kw)
-    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
     packed = b3.pack_params(model.state_dict(), cfg, torch.float32)
     o, d, vd, z, dist = _rays(dev, 300, n_samples)
     ve = positional_encoding(vd, cfg.nf_views).contiguous()
@@ -133,7 +134,7 @@ def test_b3_fp32_matches_plain(dev, kw, n_samples, white):
 @pytest.mark.parametrize("n_samples", [64, 192])
 def test_b3_bf16_matches_plain(dev, n_samples):
     cfg = VanillaNeRFConfig()
-    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
     packed = b3.pack_params(model.state_dict(), cfg, torch.bfloat16)
     o, d, vd, z, dist = _rays(dev, 512, n_samples)
     ve = positional_encoding(vd, cfg.nf_views).contiguous()
@@ -148,7 +149,7 @@ def test_b3_bf16_matches_plain(dev, n_samples):
 
 def test_b3_rejects_bad_inputs(dev):
     cfg = VanillaNeRFConfig(netdepth=3, netwidth=128, skips=(1,), multires=4, multires_views=2)
-    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
     packed = b3.pack_params(model.state_dict(), cfg, torch.float32)
     o, d, vd, z, dist = _rays(dev, 16, 8)
     ve = positional_encoding(vd, cfg.nf_views).contiguous()
@@ -160,7 +161,7 @@ def test_b3_rejects_bad_inputs(dev):
 
 def _b1_case(dev, kw, n, s, dtype, seed=0):
     cfg = VanillaNeRFConfig(**kw)
-    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
     packed = b3.pack_params(model.state_dict(), cfg, dtype)
     o, d, vd, z, dist = _rays(dev, n, s, seed)
     ve = positional_encoding(vd, cfg.nf_views).contiguous()
@@ -260,7 +261,8 @@ def test_kernel_step_matches_eager_step(dev):
     draws = make_draws(rcfg, 256, torch.Generator(device=dev).manual_seed(3), dev)
 
     def state(device, dtype=torch.float32):
-        nets = [VanillaNeRF(cfg, device=device, generator=torch.Generator().manual_seed(s)).to(dtype) for s in (0, 1)]
+        nets = [VanillaNeRF(cfg, device=device, generator=torch.Generator().manual_seed(s), fused=False).to(dtype)
+                for s in (0, 1)]
         return init_train_state(*nets, 5e-4, 500)
 
     def grads(st):
@@ -287,7 +289,7 @@ TNERF_IDS = ["small", "full", "w256"]
 
 def _b4_case(dev, kw, n, s, dtype, seed=0):
     cfg = TNeRFConfig(**kw)
-    model = TNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    model = TNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
     packed = b3.pack_tnerf_params(model.state_dict(), cfg, dtype)
     o, d, vd, z, dist = _rays(dev, n, s, seed)
     ve = positional_encoding(vd, cfg.nf_views).contiguous()
@@ -394,7 +396,7 @@ def test_tnerf_kernel_step_matches_eager_step(dev):
     draws = make_draws(rcfg, 500, torch.Generator(device=dev).manual_seed(3), dev)
 
     def state(device, dtype=torch.float32):
-        net = TNeRF(cfg, device=device, generator=torch.Generator().manual_seed(0)).to(dtype)
+        net = TNeRF(cfg, device=device, generator=torch.Generator().manual_seed(0), fused=False).to(dtype)
         return init_train_state(net, None, 5e-4, 500)
 
     def grads(st):
@@ -949,3 +951,239 @@ def test_multires_phase2_step_kernel_route_matches_plain_route(dev):
         assert mk[key].item() == pytest.approx(mp[key].item(), rel=1e-4), key
     for a, b, c in zip(gk, gp, g64):
         _assert_fp32_grads(a, b, c)
+
+
+# ---------------------------------------------------------------- B7', B8 and the fields' kernel routes
+
+REPO = Path(__file__).resolve().parents[1]
+VANILLA_CKPT = REPO / "benchmarks" / "full_scale" / "logs" / "full_nerf_200k" / "010000.tar"
+TNERF_CKPT = REPO / "benchmarks" / "round5_artifacts" / "full_tnerf_800k" / "800000.tar"
+CAM = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 4.0]], np.float32)  # 4 units up +z, looking down -z
+
+
+def _b7p_case(dev, kw, n=300, s=16, seed=0):
+    """A seeded T-NeRF, its [embed(x) | embed(t)] and view embeddings per
+    sample (fp32, on the card) and a cotangent."""
+    cfg = TNeRFConfig(**kw)
+    model = TNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
+    o, d, vd, z, _ = _rays(dev, n, s, seed)
+    pts = o[:, None, :] + d[:, None, :] * z[..., None]
+    t = torch.rand((n, 1, 1), generator=torch.Generator(device=dev).manual_seed(seed), device=dev).expand(n, s, 1)
+    emb = torch.cat([positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time)], -1)
+    vemb = positional_encoding(vd, cfg.nf_views)[:, None, :].expand(n, s, -1)
+    g = torch.randn((n * s, 4), generator=torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+    return cfg, model.state_dict(), emb.reshape(n * s, -1).contiguous(), vemb.reshape(n * s, -1).contiguous(), g
+
+
+def _b8_case(dev, n=300, s=16, seed=0):
+    """010000.tar's fine network (D=8, W=256, multires 10/4), positions and
+    per-sample view directions [n*s, 3] and a cotangent."""
+    from swnerf_torch.train.checkpoint import load_tar, vanilla_state_dict
+
+    cfg = VanillaNeRFConfig()
+    sd = vanilla_state_dict(load_tar(str(VANILLA_CKPT))["network_fine_state_dict"])
+    o, d, vd, z, _ = _rays(dev, n, s, seed)
+    o = o * torch.tensor([1.0, 1.0, 0.0], device=dev)  # rays through the object: x, y in N(0, 0.3), from z = 0
+    pts = (o[:, None, :] + d[:, None, :] * (z[..., None] - 4.0) * 0.4).reshape(-1, 3).contiguous()
+    vdp = vd[:, None, :].expand(n, s, 3).reshape(-1, 3).contiguous()
+    g = torch.randn((n * s, 4), generator=torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+    return cfg, {k: v.to(dev) for k, v in sd.items()}, pts, vdp, g
+
+
+def _in_grads(grads, d0, d1, packed, names):
+    return dict(b7.unpack_trunk_grads(grads, packed), **{names[0]: d0, names[1]: d1})
+
+
+@pytest.mark.parametrize("kw", TNERF_CASES, ids=TNERF_IDS)
+def test_b7p_fp32_matches_plain(dev, kw):
+    """B7' (fp32) against its twin: raw atol/rtol 1e-4, the parameter
+    gradients, demb and dvemb at the fallback bar (the colour ReLU's mask can
+    tie at a logit of 0, as B4's does), one launch each way, the
+    forward-only launch bit-equal to train mode."""
+    cfg, sd, emb, vemb, g = _b7p_case(dev, kw)
+    packed = b7.pack_tnerf_trunk_params(sd, cfg, torch.float32)
+    before = (launches["trunk[tnerf]"], launches["trunk[tnerf,bwd]"])
+    raw, grads, demb, dvemb = b7.trunk_fwd_bwd(packed, emb, vemb, g, True, True)
+    torch.cuda.synchronize()
+    assert (launches["trunk[tnerf]"], launches["trunk[tnerf,bwd]"]) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(raw, b7.trunk_plain(packed, emb, vemb), atol=1e-4, rtol=1e-4)
+    assert torch.equal(b7.trunk(packed, emb, vemb), raw) and (raw[:, :3] >= 0).all()
+    names = ("demb", "dvemb")
+    ref = b7.trunk_plain_bwd(packed, emb, vemb, g, True, True)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    g64 = b7.trunk_plain_bwd(p64, emb.double(), vemb.double(), g.double(), True, True)
+    g64p = b7.trunk_plain_bwd(dataclasses.replace(p64, weights=_jitter(p64.weights)), emb.double(), vemb.double(),
+                              g.double(), True, True)
+    _assert_fp32_grads(_in_grads(grads, demb, dvemb, packed, names), _in_grads(*ref, packed, names),
+                       _in_grads(*g64, p64, names), _in_grads(*g64p, p64, names))
+
+
+def test_b7p_bf16_matches_plain_and_repeats(dev):
+    """B7' (bf16, the T-NeRF config) against its bf16 twin: raw within 1e-2
+    of its largest value, gradients rel L2 1e-2, bit-equal repeats."""
+    cfg, sd, emb, vemb, g = _b7p_case(dev, {}, n=500, s=64)
+    packed = b7.pack_tnerf_trunk_params(sd, cfg, torch.bfloat16)
+    raw, grads, demb, _ = b7.trunk_fwd_bwd(packed, emb, vemb, g)
+    _, grads2, demb2, _ = b7.trunk_fwd_bwd(packed, emb, vemb, g)
+    ref = b7.trunk_plain(packed, emb, vemb)
+    gr, dr, _ = b7.trunk_plain_bwd(packed, emb, vemb, g)
+    torch.cuda.synchronize()
+    assert (raw - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    rel = _rel_l2(_b7_grads(grads, demb, packed), _b7_grads(gr, dr, packed))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(grads[0], grads2[0]) and torch.equal(grads[1], grads2[1]) and torch.equal(demb, demb2)
+
+
+def test_b8_fp32_matches_plain(dev):
+    """B8 (fp32) on 010000.tar's fine network against its twin: raw
+    atol/rtol 1e-4, the parameter gradients, d pts and d viewdirs at the
+    fallback bar, one launch each way, the forward-only launch bit-equal."""
+    cfg, sd, pts, vd, g = _b8_case(dev)
+    packed = b7.pack_trunk_params(sd, cfg, torch.float32)
+    before = (launches["trunk[raw]"], launches["trunk[raw,bwd]"])
+    raw, grads, dpts, dvd = b7.field_raw_fwd_bwd(packed, pts, vd, g)
+    torch.cuda.synchronize()
+    assert (launches["trunk[raw]"], launches["trunk[raw,bwd]"]) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(raw, b7.field_raw_plain(packed, pts, vd), atol=1e-4, rtol=1e-4)
+    assert torch.equal(b7.field_raw(packed, pts, vd), raw)
+    names = ("dpts", "dviewdirs")
+    ref = b7.field_raw_plain_bwd(packed, pts, vd, g)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    g64 = b7.field_raw_plain_bwd(p64, pts.double(), vd.double(), g.double())
+    g64p = b7.field_raw_plain_bwd(dataclasses.replace(p64, weights=_jitter(p64.weights)), pts.double(), vd.double(),
+                                  g.double())
+    _assert_fp32_grads(_in_grads(grads, dpts, dvd, packed, names), _in_grads(*ref, packed, names),
+                       _in_grads(*g64, p64, names), _in_grads(*g64p, p64, names))
+    with pytest.raises(ValueError):  # B8 takes positions [P, 3], not embeddings
+        b7.field_raw(packed, positional_encoding(pts, 10).contiguous(), vd)
+
+
+def test_b8_bf16_matches_plain_and_repeats(dev):
+    """B8 (bf16): raw within 1e-2 of its largest value, gradients and input
+    cotangents rel L2 1e-2 of the bf16 twin, bit-equal repeats."""
+    cfg, sd, pts, vd, g = _b8_case(dev, n=500, s=64)
+    packed = b7.pack_trunk_params(sd, cfg, torch.bfloat16)
+    raw, grads, dpts, dvd = b7.field_raw_fwd_bwd(packed, pts, vd, g)
+    _, grads2, dpts2, _ = b7.field_raw_fwd_bwd(packed, pts, vd, g)
+    ref = b7.field_raw_plain(packed, pts, vd)
+    gr, dr, dvr = b7.field_raw_plain_bwd(packed, pts, vd, g)
+    torch.cuda.synchronize()
+    assert (raw - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    names = ("dpts", "dviewdirs")
+    rel = _rel_l2(_in_grads(grads, dpts, dvd, packed, names), _in_grads(gr, dr, dvr, packed, names))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(grads[0], grads2[0]) and torch.equal(grads[1], grads2[1]) and torch.equal(dpts, dpts2)
+
+
+def _field_route_check(kern, plain, inputs, g, names, dtype, twin_grads, render):
+    """Forward + backward (one launch each way), the no-grad forward (one
+    forward-only launch, bit-equal), a no-grad render. fp32: raw atol/rtol
+    1e-4 and the gradients rel L2 1e-3 of the plain route (ReLU ties at D=8
+    move single tensors past 1e-4, ROADMAP Queue C), rgb 1e-4. bf16: raw
+    within 1e-2 of the plain fp32 route's largest value, the gradients rel
+    L2 1e-2 of the bf16 twin's (``twin_grads()``: the same function in torch
+    ops, rounded where the kernel rounds), the render's rgb within 2e-2 of
+    the plain route's (mean 2e-3)."""
+    before = [launches[k] for k in names]
+    raw = kern(*inputs)
+    (raw * g).sum().backward()
+    torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(names, before)] == [1, 1]
+    rp = plain(*inputs)
+    (rp * g).sum().backward()
+    grads = {k: p.grad for k, p in kern.named_parameters()}
+    if dtype == torch.float32:
+        torch.testing.assert_close(raw, rp, atol=1e-4, rtol=1e-4)
+        rel = _rel_l2(grads, {k: p.grad for k, p in plain.named_parameters()})
+        assert max(rel.values()) <= 1e-3, rel
+    else:
+        assert (raw - rp).abs().max().item() <= 1e-2 * rp.abs().max().item()
+        rel = _rel_l2(grads, twin_grads())
+        assert max(rel.values()) <= 1e-2, rel
+    with torch.no_grad():
+        before = [launches[k] for k in names]
+        raw_nograd = kern(*inputs)
+        torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(names, before)] == [1, 0]
+    assert torch.equal(raw_nograd, raw.detach())
+    rk, rpl = render()
+    drgb = (rk - rpl).abs()
+    bar = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-3)
+    assert drgb.max().item() <= bar[0] and drgb.mean().item() <= bar[1], (drgb.max().item(), drgb.mean().item())
+
+
+@pytest.mark.parametrize("raw_route", [False, True], ids=["b7", "b8"])
+@pytest.mark.parametrize("dtype", [torch.float32, None], ids=["fp32", "default_bf16"])
+def test_vanilla_field_kernel_route_matches_plain_route(dev, raw_route, dtype, monkeypatch):
+    """VanillaNeRF(fused=None) on the card (B7; B8 under SWNERF_FUSED_RAW=1)
+    against fused=False, 010000.tar's fine weights: _field_route_check's
+    bars, a 16x16 render of 32 samples."""
+    from swnerf_torch.render.core import RenderConfig, make_rays_from_camera, render_image
+
+    monkeypatch.setenv("SWNERF_FUSED_RAW", "1" if raw_route else "0")
+    cfg, sd, pts, vd, _ = _b8_case(dev, n=200, s=16, seed=3)
+    kern = VanillaNeRF(cfg, device=dev, compute_dtype=dtype)
+    plain = VanillaNeRF(cfg, device=dev, fused=False)
+    kern.load_state_dict(sd)
+    plain.load_state_dict(sd)
+    assert kern.fused and kern.uses_field_raw() is raw_route and not plain.fused
+    g = torch.randn((200, 16, 4), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    names = ("trunk[raw]", "trunk[raw,bwd]") if raw_route else ("trunk", "trunk[bwd]")
+    rays = make_rays_from_camera(16, 16, 20.0, CAM, 2.0, 6.0,
+                                 device=dev)
+
+    def render():
+        with torch.no_grad():
+            rc = RenderConfig(n_samples=32, white_bkgd=True)
+            return render_image(kern, rays, rc)["rgb"], render_image(plain, rays, rc)["rgb"]
+
+    def twin_grads():
+        packed = b7.pack_trunk_params(sd, cfg, torch.bfloat16)
+        gg = g.reshape(-1, 4)
+        if raw_route:
+            grads = b7.field_raw_plain_bwd(packed, pts, vd, gg, False, False)[0]
+        else:
+            emb, vemb = positional_encoding(pts, cfg.nf_pts), positional_encoding(vd, cfg.nf_views)
+            grads = b7.trunk_plain_bwd(packed, emb, vemb, gg, False, False)[0]
+        return b7.unpack_trunk_grads(grads, packed)
+
+    _field_route_check(kern, plain, (pts.reshape(200, 16, 3), vd.reshape(200, 16, 3)[:, 0]), g, names, dtype,
+                       twin_grads, render)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, None], ids=["fp32", "default_bf16"])
+def test_tnerf_field_kernel_route_matches_plain_route(dev, dtype):
+    """TNeRF(fused=None) on the card (B7') against fused=False with the
+    round-5 800000.tar weights: _field_route_check's bars, a 16x16 render
+    at time 0.5."""
+    from swnerf_torch.render.core import RenderConfig, make_rays_from_camera, render_image
+    from swnerf_torch.train.checkpoint import load_tar, tnerf_state_dict
+
+    cfg = TNeRFConfig()
+    sd = tnerf_state_dict(load_tar(str(TNERF_CKPT))["network_fn_state_dict"])
+    kern = TNeRF(cfg, device=dev, compute_dtype=dtype)
+    plain = TNeRF(cfg, device=dev, fused=False)
+    kern.load_state_dict(sd)
+    plain.load_state_dict(sd)
+    assert kern.fused and not plain.fused
+    o, d, vd, z, _ = _rays(dev, 200, 16, 4)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+    t = torch.full((200, 1), 0.5, device=dev)
+    g = torch.randn((200, 16, 4), generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    rays = make_rays_from_camera(16, 16, 20.0, CAM, 2.0, 6.0,
+                                 device=dev, time=0.5)
+
+    def render():
+        with torch.no_grad():
+            rc = RenderConfig(n_samples=32, white_bkgd=True)
+            return render_image(kern, rays, rc)["rgb"], render_image(plain, rays, rc)["rgb"]
+
+    def twin_grads():
+        packed = b7.pack_tnerf_trunk_params(kern.state_dict(), cfg, torch.bfloat16)
+        emb = torch.cat([positional_encoding(pts, cfg.nf_pts),
+                         positional_encoding(t[:, None, :].expand(200, 16, 1), cfg.nf_time)], -1).reshape(3200, -1)
+        vemb = positional_encoding(vd, cfg.nf_views)[:, None, :].expand(200, 16, -1).reshape(3200, -1)
+        grads = b7.trunk_plain_bwd(packed, emb, vemb, g.reshape(-1, 4), False, False)[0]
+        return b7.unpack_trunk_grads(grads, packed)
+
+    _field_route_check(kern, plain, (pts, vd, t), g, ("trunk[tnerf]", "trunk[tnerf,bwd]"), dtype, twin_grads, render)
