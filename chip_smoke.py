@@ -4,8 +4,9 @@ hold each against its plain PyTorch twin, render test views of the trained
 vanilla NeRF, T-NeRF and D-NeRF and resume their training through the real
 CLIs, train a MultiRes D-NeRF from scratch through its CLI, drive the
 fields' kernel routes (the eager steps, renders with no eval pass), extract
-meshes from the trained vanilla NeRF and solve their metric scale, and time
-the kernels.
+meshes from the trained vanilla NeRF and solve their metric scale, render
+and train MultiRes on the render kernels, run the resample merge and the
+deformation MLP's input cotangents, and time the kernels.
 
     python3 chip_smoke.py
 
@@ -149,7 +150,48 @@ Phases (each raises on failure; nothing is caught):
      projected into the capture's train poses, calculate_3d_corners ->
      marker_edge_lengths -> scale -> alignment_matrix -> transform_mesh on
      the B7 mesh: the scale real_length / 0.5 within 1e-4 relative, the
-     marker normal onto +z within 1e-6; then the JSON lines.
+     marker normal onto +z within 1e-6;
+ 31. B3's pts mode at the MultiRes widths (levels 0-2: 123 / 123 and 63 / 63
+     columns on 128-row pads) and B9 (the external-cotangent backward of the
+     fused phase 2; levels 0-2 wide, the identity level narrow) against
+     their twins with 000200.tar's per-level weights on 1,024 seeded pixels
+     x 64 jittered samples of train view 37, noise std 1, seeded non-zero
+     cotangents of rgb, acc and depth: fp32 outputs at phase 18's bars,
+     gradients and d pts at phase 17's; bf16 outputs within 1e-2, gradients
+     rel L2 1e-2; bit-equal repeats; B9's recomputed forward bit-equal to
+     the B3 launch; B3 wide at the test render's 32,768-ray chunk (level 0,
+     000200.tar's and seeded weights, whose rgb does not saturate) at the
+     same bars (bf16 depth atol and rtol 1e-2); times there and at phase 2's level-0
+     rows (1,024 x 64);
+ 32. the MultiRes test render of 000200.tar through render_testset on test
+     frames 0/5/10/15/20: levels 0-2 through the D-NeRF eval pass, level 3
+     through its fields, against SWNERF_FUSED_EVAL=0 (every level through
+     its fields): each of levels 0-2's frames within max 1e-2, mean 1e-3,
+     mean PSNR of the reconstructions within 0.1 dB, 20 B3-wide launches,
+     ms per reconstructed frame on both routes;
+ 33. the fused phase 2: one step over the four levels with fused=True
+     against the field-route step, same weights (phase 24's seeded ones:
+     000200.tar's saturated levels give noise gradients) and draws: fp32
+     loss rel 1e-5, gradients at phase 17's bar; bf16 loss rel 2e-2; then
+     run_multires resumed from 000200.tar for 100 phase-2 steps under
+     SWNERF_FUSED_MULTIRES=1 and under the default: the loss moves, the
+     global PSNR is finite, B9 once per level per step; in 000300.tar every
+     level's weights moved, its Adam first moment is more than 10 times what
+     stale momentum alone leaves, and the two routes' moves are within
+     2-fold at each level whose fp32 routes agree within 0.1 (rel L2) on
+     000200.tar's weights (at least one does); ms per phase-2 step on both
+     routes and their idle shares (torch.profiler);
+ 34. B10 at phase 3's shape on 010000.tar's coarse weights: bit-equal to
+     B2 + torch.sort for linspace and sorted random uniforms, the twin
+     bit-equal, B2's unsorted rows counted; run_nerf --render_only under
+     SWNERF_PDF_MERGE=1 with phase 5's PSNRs exactly; 50 vanilla and 50
+     D-NeRF kernel steps under the switch at phases 9 / 21's floors; B10's
+     time beside B2 + torch.sort;
+ 35. B11 (fused_time_net_pts with input cotangents) against its twin with
+     the D-NeRF 800000.tar deformation weights on phase 17's points and at
+     MultiRes level 0's widths: dx bit-equal to B6's forward, fp32
+     gradients, d pts and d times at phase 17's bar, bf16 rel L2 1e-2;
+     times; then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -269,6 +311,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain twins in true fp32
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     # ---- 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -509,9 +552,13 @@ def main() -> int:
         # ---- 26-30. B7' and B8 against their twins, the fields' kernel
         # routes through the CLIs, the SW mesh chain and its metric scale
         kernels += field_phases(dev, tmp, tmp / "data_dyn_400", metrics["psnr"][0])
+        # ---- 31-35. MultiRes on the render kernels (B3's pts mode at its
+        # widths, B9: the test render and the fused phase 2), B10, B11
+        kernels += render_kernel_phases(dev, tmp, tmp / "data_dyn_400", metrics["psnr"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    print(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
@@ -2554,8 +2601,9 @@ def phase25_train(dev, tmp, data):
         fail(f"the global PSNR is not finite: {gpsnr}")
     if len({v for _, v in totals}) < 2:
         fail(f"the phase-2 loss did not move: {totals}")
-    print(f"[25 test set] {res['test_frame_ms']:.1f} ms per reconstructed test frame (every level's 64-sample render "
-          "through B6 + B7 forward and the reconstruction, 25 frames)")
+    print(f"[25 test set] {res['test_frame_ms']:.1f} ms per reconstructed test frame (every level's 64-sample render, "
+          "levels 0-2 through the eval pass: B6 + B3's pts mode, level 3 through B6 + B7, and the reconstruction, "
+          "25 frames)")
     for i in (100, 200):
         ck = torch.load(str(exp / f"{i:06d}.tar"), map_location="cpu", weights_only=True)
         keys = sorted(ck)
@@ -2617,7 +2665,6 @@ def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
     clock around the steps (synchronized): the device's idle share."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
     from swnerf_torch.pipelines import run_multires as mr
@@ -2658,29 +2705,40 @@ def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
                 ("B6/B7 backward GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
                                                          "cotangent_kernel", "round_cotangent")))
     for name, step in (("phase 1, level 0", phase1), ("phase 2", phase2)):
-        for i in range(3):
-            step(1000 + i)
+        profile_steps("25", name, step, families)
+
+
+def profile_steps(tag, name, step, families):
+    """Device time by kernel family (``families``: (name, key substrings))
+    over 10 calls of ``step(i)`` after 3 warm-up calls, from torch.profiler's
+    CUDA activity, against the host clock around the calls (synchronized):
+    prints the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        step(1000 + i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(10):
+            step(2000 + i)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(10):
-                step(2000 + i)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / 10
-        by = dict.fromkeys([f for f, _ in families] + ["other device work (PyTorch)"], 0.0)
-        for evt in prof.key_averages():
-            us = _device_us(evt)
-            if not us or not str(evt.device_type).endswith("CUDA"):  # kernels only, not the ops that launch them
-                continue
-            fam = next((f for f, keys in families if any(k in evt.key for k in keys)), "other device work (PyTorch)")
-            by[fam] += us / 1e3 / 10
-        busy = sum(by.values())
-        if busy == 0.0:
-            print(f"[25 breakdown] {name}: torch.profiler recorded no device time; wall {wall:.3f} ms per step")
+        wall = (time.perf_counter() - t0) * 1e3 / 10
+    by = dict.fromkeys([f for f, _ in families] + ["other device work (PyTorch)"], 0.0)
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if not us or not str(evt.device_type).endswith("CUDA"):  # kernels only, not the ops that launch them
             continue
-        print(f"[25 breakdown] {name}, device ms per step by kernel family (torch.profiler, 10 steps): " + ", ".join(
-            f"{k} {v:.3f} ({100 * v / busy:.1f}%)" for k, v in by.items()) + f"; busy {busy:.3f} of {wall:.3f} ms "
-            f"wall per step: idle share {100 * (1 - busy / wall):.1f}%")
+        fam = next((f for f, keys in families if any(k in evt.key for k in keys)), "other device work (PyTorch)")
+        by[fam] += us / 1e3 / 10
+    busy = sum(by.values())
+    if busy == 0.0:
+        print(f"[{tag} breakdown] {name}: torch.profiler recorded no device time; wall {wall:.3f} ms per step")
+        return
+    print(f"[{tag} breakdown] {name}, device ms per step by kernel family (torch.profiler, 10 steps): " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / busy:.1f}%)" for k, v in by.items()) + f"; busy {busy:.3f} of {wall:.3f} ms "
+        f"wall per step: idle share {100 * (1 - busy / wall):.1f}%")
 
 
 # ---------------------------------------------------------------- the fields' kernel routes and the mesh chain
@@ -3205,6 +3263,753 @@ def phase30_scale(mesh_path, tmp):
           f"{moved:.2e} of T (s v); solve + transform {1e3 * wall:.1f} ms")
     if len(info) < 3 or rel > 1e-4 or np.abs(n2 - [0.0, 0.0, 1.0]).max() > 1e-6 or moved > 1e-5 * max(1.0, scale):
         fail("30 scale: the metric-scale solve missed the known scale, the +z alignment or the transform")
+
+
+# ---------------------------------------------------------------- MultiRes on the render kernels; B10; B11
+
+MR_CKPT_ITER = 200  # phase 25's last checkpoint, 000200.tar
+
+
+def render_kernel_phases(dev, tmp, data, psnr5):
+    """Phases 31-35 on phase 25's 000200.tar (the MultiRes run from scratch,
+    live densities), phase 11's scene and phase 5's PSNRs. Returns the
+    [kernel] rows of B3's pts mode at the MultiRes widths, B9 (wide and
+    narrow), B10 and B11, with their paths' launch counts."""
+    import torch
+
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.pipelines.common import load_scene
+
+    args = mr_args("--datadir", str(data), "--basedir", str(tmp / "mr_logs"), "--device", "cuda", *MR_NOISE)
+    args.dataset_type = "blender_dnerf"
+    scene = load_scene(args)
+    args.dataset_type = "blender"
+    _, states, pyr_hwf, rcfg, start = mr.create_multires(args, scene, dev)
+    if start != MR_CKPT_ITER:
+        fail(f"phases 31-33 need {MR_CKPT_ITER:06d}.tar, found {start}")
+    t0 = time.perf_counter()
+
+    def done(phase):
+        nonlocal t0
+        print(f"[{phase} done] in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    rows = phase31_b3w_b9(dev, data, states)
+    done(31)
+    serve = phase32_testset(dev, args, scene, states, pyr_hwf, rcfg)
+    done(32)
+    del states
+    torch.cuda.empty_cache()
+    train = phase33_fused(dev, tmp, data, scene, pyr_hwf)
+    done(33)
+    rows.update(phase34_b10(dev, tmp, data, psnr5))
+    done(34)
+    rows.update(phase35_b11(dev, data))
+    done(35)
+    rows["render_pass[pts,wide]"]["launches"] = serve.get("render_pass[pts,wide,S=64]", 0) + \
+        train.get("render_pass[pts,wide,S=64]", 0)
+    rows["render_loss[ext,wide]"]["launches"] = train.get("render_loss[ext,wide,S=64]", 0)
+    rows["render_loss[ext]"]["launches"] = train.get("render_loss[ext,S=64]", 0)
+    for name, row in rows.items():
+        print(f"[35 kernel] {name}: {row['ms']:.3f} ms/launch (plain {row['plain_ms']:.3f} ms"
+              + (f", library {row['library_ms']:.3f} ms" if row["library_ms"] is not None else "")
+              + f"), bound {row['bound_ms']:.4f} ms by {row['bound_by']} -> "
+              f"{100 * row['bound_ms'] / row['ms']:.2f}% of the bound, {row['launches']} launches on its path")
+    return list(rows.values())
+
+
+def mr_inputs(dev, data, states, n=1024, seed=0):
+    """``n`` seeded pixels of train view 37 at its frame time x 64 jittered
+    samples, noise std 1, a seeded per-ray cotangent of (rgb, acc, depth)
+    (all non-zero), and per level of ``states``: the warped positions
+    (pts + dx by the level's fp32 B6 twin, the t == 0 mask) and the view
+    embedding."""
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.sampling import sample_along_rays
+
+    rays, _ = frame_rays(dev, data, "train", 37)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sel = torch.randint(0, rays.origins.shape[0], (n,), generator=g, device=dev)
+    r = type(rays)(*(x[sel] for x in rays))
+    z = sample_along_rays(r.near, r.far, 64, 1.0, generator=g).contiguous()
+    pts = (r.origins[:, None, :] + r.directions[:, None, :] * z[..., None]).contiguous()
+    t = r.times.reshape(-1).contiguous()
+    noise = torch.randn(z.shape, generator=g, device=dev)
+    gct = torch.randn((n, 5), generator=g, device=dev)
+    levels = []
+    for st in states:
+        cfg = st.coarse.cfg
+        dx = b6.time_net_plain(b6.pack_time_params(st.coarse.state_dict(), cfg, torch.float32), pts, t)
+        if cfg.zero_canonical:
+            dx = torch.where((t == 0.0)[:, None, None], torch.zeros_like(dx), dx)
+        levels.append(((pts + dx).contiguous(), positional_encoding(r.viewdirs, cfg.nf_views).contiguous()))
+    return {"z": z, "dist": b3_dists(z, r.directions), "noise": noise, "gct": gct, "pts": pts, "times": t,
+            "levels": levels}
+
+
+def phase31_b3w_b9(dev, data, states):
+    """B3's pts mode at the MultiRes widths (levels 0-2) and B9 (levels 0-3,
+    narrow at the identity level) against their twins with 000200.tar's
+    per-level weights on 1,024 pixels x 64 samples; then their times at the
+    test render's chunk (32,768 rays x 64, level 0) and phase 2's level-0
+    rows (1,024 x 64). Returns the [kernel] rows."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.render.fused_eval import canonical_params
+
+    inp = mr_inputs(dev, data, states)
+    z, dist, noise, gct = inp["z"], inp["dist"], inp["noise"], inp["gct"]
+    err16 = {"b3": 0.0, "b9": 0.0, "b9n": 0.0}
+    packs = {}
+    for level, st in enumerate(states):
+        cfg = st.coarse.cfg
+        canon = canonical_params(st.coarse.state_dict())
+        warped, ve = inp["levels"][level]
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            packed = b3.pack_params(canon, cfg, dtype)
+            packs[(level, tag)] = (packed, warped, ve)
+            got = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, warped)
+            if level < 3:  # B3 at the wide widths: the test render's levels
+                ref = b3.render_pass_plain(packed, None, None, ve, z, dist, noise, True, None, warped)
+                torch.cuda.synchronize()
+                drgb = (got.rgb - ref.rgb).abs()
+                dacc = (got.acc - ref.acc).abs().max().item()
+                depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
+                print(f"[31 B3 wide {tag} level {level}] {packed.cin} / {packed.input_ch_views} of {packed.cin_pad} / "
+                      f"{packed.cv_pad} rows: max|drgb|={drgb.max().item():.3e} mean|drgb|={drgb.mean().item():.3e} "
+                      f"max|dacc|={dacc:.3e} depth_within_rtol={depth_ok}")
+                if dtype == torch.float32 and (drgb.max().item() > 1e-4 or dacc > 1e-4 or not depth_ok):
+                    fail(f"B3 wide fp32 level {level} outside atol 1e-4 (rgb, acc) / rtol 1e-4 (depth)")
+                if dtype == torch.bfloat16:
+                    err16["b3"] = max(err16["b3"], drgb.max().item())
+                    if drgb.max().item() > 1e-2:
+                        fail(f"B3 wide bf16 level {level}: max |drgb| > 1e-2")
+                del ref
+            fwd, gk, dk = b1.render_loss_ext(packed, warped, ve, z, dist, noise, gct, True)
+            _, gk2, dk2 = b1.render_loss_ext(packed, warped, ve, z, dist, noise, gct, True)
+            _, gr, dr = b1.render_loss_ext_plain(packed, warped, ve, z, dist, noise, gct, True)
+            torch.cuda.synchronize()
+            same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1]) and torch.equal(dk, dk2)
+            fwd_same = all(torch.equal(getattr(fwd, k), getattr(got, k)) for k in ("rgb", "acc", "depth", "weights"))
+            print(f"[31 B9 {tag} level {level}] wide={packed.wide}: recomputed forward bit-equal to the B3 launch="
+                  f"{fwd_same}, repeat bit-equal={same}, max|ddpts|={(dk - dr).abs().max().item():.3e} (max|dpts| "
+                  f"{dr.abs().max().item():.3e})")
+            if not same or not fwd_same:
+                fail(f"B9 {tag} level {level}: repeats differ or its forward differs from the B3 launch")
+            if dtype == torch.float32:
+                p64 = dataclasses.replace(packed, weights=packed.weights.double())
+                a64 = [x.double() for x in (ve, z, dist, noise)]
+                _, g64, d64 = b1.render_loss_ext_plain(p64, warped.double(), *a64, gct.double(), True)
+                _, g64p, d64p = b1.render_loss_ext_plain(dataclasses.replace(p64, weights=jitter(p64.weights)),
+                                                         warped.double(), *a64, gct.double(), True)
+                check_fp32_grads(f"31 B9 fp32 level {level}", *(
+                    dict(b1.unpack_grads(gg, pp), dpts=dd)
+                    for gg, dd, pp in ((gk, dk, packed), (gr, dr, packed), (g64, d64, p64), (g64p, d64p, p64))))
+                del g64, g64p
+            else:
+                rel = rel_l2(dict(b1.unpack_grads(gk, packed), dpts=dk), dict(b1.unpack_grads(gr, packed), dpts=dr))
+                drgb = (fwd.rgb - b3.render_pass_plain(packed, None, None, ve, z, dist, noise, True, None,
+                                                       warped).rgb).abs().max().item()
+                print(f"[31 B9 bf16 level {level}] max|drgb|={drgb:.3e} grads and dpts max rel L2="
+                      f"{max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+                if drgb > 1e-2 or max(rel.values()) > 1e-2:
+                    fail(f"B9 bf16 level {level}: rgb beyond 1e-2 or gradient rel L2 > 1e-2")
+                key = "b9n" if level == 3 else "b9"
+                err16[key] = max(err16[key], drgb)
+            del gk, gk2, gr, fwd, got
+            torch.cuda.empty_cache()
+
+    # B3 wide at the test render's chunk (level 0, 32,768 rays x 64: 32
+    # copies of the 1,024 rays) against its twin, on 000200.tar's weights and
+    # on seeded ones (mr_level_model, seed 10), whose outputs do not saturate
+    # as 000200.tar's do (ROADMAP Queue C); then the times, bf16: B3 there,
+    # B9 at phase 2's rows
+    p16, warped, ve = packs[(0, "bf16")]
+    big = [x.repeat(32, *([1] * (x.dim() - 1))).contiguous() for x in (warped, ve, z, dist)]
+    nb = big[2].numel()
+    seeded = canonical_params(mr_level_model(dev, 0, seed=10, fused=False).state_dict())
+    for weights, canon in (("000200.tar", canonical_params(states[0].coarse.state_dict())), ("seeded", seeded)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            pk = b3.pack_params(canon, states[0].coarse.cfg, dtype)
+            got = b3.render_pass(pk, None, None, big[1], big[2], big[3], None, True, None, big[0])
+            ref = b3.render_pass_plain(pk, None, None, big[1], big[2], big[3], None, True, None, big[0])
+            torch.cuda.synchronize()
+            drgb = (got.rgb - ref.rgb).abs()
+            dacc = (got.acc - ref.acc).abs().max().item()
+            depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4 if tag == "fp32" else 1e-2,
+                                      atol=1e-5 if tag == "fp32" else 1e-2)
+            live = ((ref.rgb > 1e-3) & (ref.rgb < 1 - 1e-3)).float().mean().item()
+            print(f"[31 B3 wide {tag} level 0, {weights}] the test render's chunk (32,768 x 64): max|drgb|="
+                  f"{drgb.max().item():.3e} mean|drgb|={drgb.mean().item():.3e} max|dacc|={dacc:.3e} "
+                  f"depth_within_rtol={depth_ok}; share of rgb values inside (1e-3, 1 - 1e-3): {live:.4f}")
+            bar = 1e-4 if tag == "fp32" else 1e-2
+            if drgb.max().item() > bar or dacc > bar or not depth_ok:
+                fail(f"B3 wide {tag} at the test render's chunk ({weights}): rgb or acc beyond {bar}, or depth "
+                     f"beyond {'rtol 1e-4' if tag == 'fp32' else 'atol and rtol 1e-2'}")
+            if tag == "bf16":
+                err16["b3"] = max(err16["b3"], drgb.max().item(), dacc)
+            if weights == "seeded" and live < 0.1:
+                fail(f"31: the seeded weights' rgb is saturated ({live:.4f} of it live): the comparison sees nothing")
+            del got, ref
+    torch.cuda.empty_cache()
+    rows = {}
+    b3ms = cuda_ms(lambda: b3.render_pass(p16, None, None, big[1], big[2], big[3], None, True, None, big[0]), 5)
+    b3plain = cuda_ms(lambda: b3.render_pass_plain(p16, None, None, big[1], big[2], big[3], None, True, None,
+                                                   big[0]), 2)
+    small = b3.render_pass(p16, None, None, ve, z, dist, noise, True, None, warped)
+    b3small = cuda_ms(lambda: b3.render_pass(p16, None, None, ve, z, dist, noise, True, None, warped), 20)
+    nw, nbias = p16.weights.numel(), p16.biases.numel()
+    rows["render_pass[pts,wide]"] = entry(
+        "render_pass[pts,wide]", "swnerf_torch/csrc/render_pass.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+        0, err16["b3"], b3ms, b3plain,
+        4 * (3 * nb + big[1].numel() + 2 * nb + 5 * big[2].shape[0] + nb) + 2 * nw + 4 * nbias,
+        2 * p16.macs_per_sample * nb, "bf16")
+    del big, small
+    torch.cuda.empty_cache()
+    print(f"[31 times] B3 wide level 0 ({p16.macs_per_sample} MACs per sample): the test render's chunk "
+          f"(32,768 x 64) {b3ms:.3f} ms ({2 * p16.macs_per_sample * nb / b3ms / 1e9:.2f} TFLOP/s); phase 2's "
+          f"1,024 x 64 rows {b3small:.3f} ms")
+    for key, level, n_rays in (("render_loss[ext,wide]", 0, 1024), ("render_loss[ext]", 3, 16)):
+        pk, wp, vv = packs[(level, "bf16")]
+        args = (pk, wp[:n_rays].contiguous(), vv[:n_rays].contiguous(), z[:n_rays].contiguous(),
+                dist[:n_rays].contiguous(), noise[:n_rays].contiguous(), gct[:n_rays].contiguous(), True)
+        ms = cuda_ms(lambda: b1.render_loss_ext(*args), 20)
+        plain = cuda_ms(lambda: b1.render_loss_ext_plain(*args), 5)
+        rows_n = n_rays * 64
+        macs = b1.pts_train_macs_per_sample(pk)
+        nbytes = (4 * (3 * rows_n + args[2].numel() + 3 * rows_n + 5 * n_rays) + 2 * pk.weights.numel()
+                  + 4 * pk.biases.numel() + 4 * (5 * n_rays + rows_n + 3 * rows_n)
+                  + 4 * (pk.weights.numel() + pk.biases.numel()))
+        rows[key] = entry(key, "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276", 0,
+                          err16["b9n" if level == 3 else "b9"], ms, plain, nbytes, 2 * macs * rows_n, "bf16")
+        print(f"[31 times] B9 level {level} ({macs} MACs per sample), {n_rays} x 64 rows: {ms:.3f} ms "
+              f"({2 * macs * rows_n / ms / 1e9:.2f} TFLOP/s); twin {plain:.3f} ms")
+    return rows
+
+
+def phase32_testset(dev, args, scene, states, pyr_hwf, rcfg):
+    """The MultiRes test render of 000200.tar through run_multires'
+    render_testset on test frames 0/5/10/15/20 (phase 25's CLI render ran
+    all 25 through the eval pass): levels 0-2 through the D-NeRF eval pass
+    (B6, then B3's pts mode at the MultiRes widths), level 3 through its
+    fields; then again with SWNERF_FUSED_EVAL=0 (every level through its
+    fields, the route the eval pass replaces). Levels 0-2's frames before the reconstruction
+    within max 1e-2, mean 1e-3 (phase 4's bf16 bars); mean PSNR within 0.1
+    dB; B3-wide launches; ms per reconstructed frame. Returns the eval-pass
+    render's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.train.loop import mse_to_psnr
+
+    scene = dataclasses.replace(scene, i_test=scene.i_test[list(MR_FRAMES)])
+    gt = torch.as_tensor(scene.images[scene.i_test])
+    n = len(MR_FRAMES)
+    out, counts = {}, {}
+    for route, fused_eval in (("eval pass", "1"), ("fields", "0")):
+        with env(SWNERF_FUSED_EVAL=fused_eval):
+            passes = mr.make_level_eval_passes(states, dev)
+            launches.clear()
+            recon, ms, frames = mr.render_testset(args, scene, states, pyr_hwf, rcfg, MR_CKPT_ITER, passes)
+            torch.cuda.synchronize()
+            counts[route] = dict(launches)
+        rec = torch.as_tensor(recon)
+        psnr = [mse_to_psnr(torch.mean((rec[k] - gt[k]) ** 2).item()) for k in range(n)]
+        out[route] = (rec, psnr, ms, [p is not None for p in passes], frames)
+        print(f"[32 test set] {route}: eval passes per level {out[route][3]}; launches "
+              f"{json.dumps(counts[route], sort_keys=True)} ({n} frames); {ms:.1f} ms per reconstructed frame; "
+              f"frames {MR_FRAMES} reconstructed PSNR {[round(x, 3) for x in psnr]} (mean {sum(psnr) / len(psnr):.4f})")
+    (ra, pa, ma, la, fa), (rb, pb, mb, lb, fb) = out["eval pass"], out["fields"]
+    for level in range(3):  # each eval-pass level's frames before the reconstruction: bf16 B3 wide against B7
+        dl = (fa[level] - fb[level]).abs()
+        live = ((fb[level] > 1e-3) & (fb[level] < 1 - 1e-3)).float().mean().item()
+        print(f"[32 test set] level {level} frames {tuple(fa[level].shape)}, eval pass against the fields: max|d|="
+              f"{dl.max().item():.3e} mean|d|={dl.mean().item():.3e}; share of values inside (1e-3, 1 - 1e-3): "
+              f"{live:.4f}")
+        if dl.max().item() > 1e-2 or dl.mean().item() > 1e-3:
+            fail(f"32: level {level}'s frames through the eval pass beyond max 1e-2 / mean 1e-3 of its fields'")
+    d = abs(sum(pa) / len(pa) - sum(pb) / len(pb))
+    drec = (ra - rb).abs()
+    n_wide = counts["eval pass"].get("render_pass[pts,wide,S=64]", 0)
+    print(f"[32 test set] eval pass against the fields: |delta mean PSNR| {d:.4f} dB, max |delta| in the "
+          f"reconstruction {drec.max().item():.3e} (mean {drec.mean().item():.3e}); {ma:.1f} against {mb:.1f} ms per "
+          f"reconstructed frame; B3 wide launched {n_wide} times")
+    if la != [True, True, True, False] or any(lb) or d > 0.1:
+        fail(f"32: eval passes {la} / {lb}, or the reconstructions {d} dB apart (> 0.1)")
+    if n_wide != n * 4 or counts["fields"].get("render_pass[pts,wide,S=64]", 0) or \
+            counts["eval pass"].get("trunk", 0) != n:
+        fail(f"32: B3 wide launched {n_wide} times (want {n * 4}: 2 + 1 + 1 chunks a frame), or level 3 did not "
+             "render through its fields alone (B7 once a frame)")
+    return counts["eval pass"]
+
+
+def phase33_fused(dev, tmp, data, scene, pyr_hwf):
+    """The fused phase 2: one step over the four levels with fused=True (B6,
+    B3's pts mode, B9) against the field-route step (B6, B7), from the same
+    weights (phase 24's) and draws (the plain route in float64 the
+    reference of the fallback); then run_multires resumed from 000200.tar
+    for 100 phase-2 steps under SWNERF_FUSED_MULTIRES=1 and under the
+    default (the field route), each through the CLI: every level's weights
+    move and its Adam sees gradients (level_moves), and the two routes move
+    each level by norms within 2-fold of each other where the level's
+    gradients are signal (its fp32 routes agree within 0.1 on 000200.tar's
+    weights); and the device's idle share of each step from
+    torch.profiler. Returns the fused run's launch counts."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.render.core import Draws, RenderConfig, make_draws
+    from swnerf_torch.train.checkpoint import dnerf_state_dict, load_tar
+    from swnerf_torch.train.loop import init_train_state
+
+    ckpt = load_tar(str(tmp / "mr_logs" / "lego" / f"{MR_CKPT_ITER:06d}.tar"))
+    rcfg = RenderConfig(n_samples=64, perturb=1.0, raw_noise_std=1.0, white_bkgd=True)
+    images = torch.as_tensor(scene.images, device=dev)
+    poses = torch.as_tensor(scene.poses[:, :3, :4], device=dev)
+    L, patch_sizes = 4, [32, 16, 8, 4]
+    coords = [(10 << (L - 1 - l), 10 << (L - 1 - l)) for l in range(L)]
+    with torch.no_grad():
+        lap = generate_laplacian_pyramid(images[37:38], levels=L)
+    pixels = [torch.stack(torch.meshgrid(torch.arange(y, y + ps, device=dev), torch.arange(x, x + ps, device=dev),
+                                         indexing="ij"), -1).reshape(-1, 2) for (y, x), ps in zip(coords, patch_sizes)]
+    targets = [lap[l][0, y : y + ps, x : x + ps] for l, ((y, x), ps) in enumerate(zip(coords, patch_sizes))]
+    full = images[37, 80:112, 80:112]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = [make_draws(rcfg, ps * ps, gen, dev) for ps in patch_sizes]
+
+    def models(fused_route, dtype=torch.float32, perturb=False, compute_dtype=torch.float32):
+        """Phase 24's weights: per level seeded (10 + level), the
+        deformation head scaled by 1e-3. On 000200.tar's saturated levels
+        (ROADMAP Queue C) the fp32 deformation gradients of level 0 are
+        noise: on an H100 both routes' worst tensor lay 300-600 times its
+        norm from the float64 step's, so the bar would compare noise."""
+        out = []
+        for l in range(L):
+            m = mr_level_model(dev, l, seed=10 + l, fused=fused_route, compute_dtype=compute_dtype)
+            with torch.no_grad():
+                m._time_out.weight.mul_(1e-3)
+                m._time_out.bias.mul_(1e-3)
+            m = m.to(dtype)
+            if perturb:
+                with torch.no_grad():
+                    for p in m.parameters():
+                        p.copy_(jitter(p))
+            out.append(m)
+        return out
+
+    def step(ms, fused, device=dev, dtype=torch.float32, compute_dtype=None):
+        states = [init_train_state(m, None, 5e-4, 250) for m in ms]
+        cast = lambda x: None if x is None else x.to(device=device, dtype=dtype)  # noqa: E731
+        fn = mr.make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=fused,
+                                 compute_dtype=compute_dtype)
+        m = fn(states, [p.to(device) for p in pixels], [cast(x) for x in targets], cast(full), cast(poses[37]),
+               float(scene.times[37]), 1.0, draws=[Draws(cast(d.t_rand), cast(d.noise0), None, None) for d in draws])
+        return m, [{k: p.grad.detach().clone() for k, p in s.coarse.named_parameters()} for s in states]
+
+    from swnerf_torch.ops.kernels import launches
+
+    launches.clear()
+    mk, gk = step(models(False), True, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    one = dict(launches)
+    mf, gf = step(models(None), False)
+    m64, g64 = step(models(False, torch.float64), False, dtype=torch.float64)
+    m64p, g64p = step(models(False, torch.float64, perturb=True), False, dtype=torch.float64)
+    torch.cuda.synchronize()
+    lk, lf, l64, l64p = (m["total_loss"].item() for m in (mk, mf, m64, m64p))
+    dl = abs(lk - lf) / lf
+    print(f"[33 step fp32] launches of the fused step {json.dumps(one, sort_keys=True)}; total_loss fused {lk:.8f} "
+          f"field route {lf:.8f} rel {dl:.3e} (global {mk['global_loss'].item():.6f} vs "
+          f"{mf['global_loss'].item():.6f}); float64 plain {l64:.8f} (perturbed {l64p:.8f})")
+    if one.get("render_loss[ext,wide,S=64]", 0) != 3 or one.get("render_loss[ext,S=64]", 0) != 1:
+        fail(f"33: the fused step launched B9 {one} (want once per level)")
+    if dl > 1e-5 and abs(lk - l64) > 2 * max(abs(lf - l64), abs(l64p - l64)):
+        fail(f"33: fused step loss rel {dl} > 1e-5, and further from the float64 step than fp32 moves it")
+    for l in range(L):
+        check_fp32_grads(f"33 step fp32 level {l}", gk[l], gf[l], g64[l], g64p[l])
+    del gk, gf, g64, g64p
+    m16, _ = step(models(False), True)  # the card's default operands: bf16
+    d16 = abs(m16["total_loss"].item() - lf) / lf
+    print(f"[33 step bf16] total_loss {m16['total_loss'].item():.8f} vs the fp32 field route: rel {d16:.3e}")
+    if d16 > 2e-2:
+        fail(f"33: bf16 fused step loss rel {d16} > 2e-2")
+
+    # On 000200.tar's own weights the two fp32 routes agree only at the
+    # levels whose gradients are signal: at a saturated level they are
+    # rounding noise (ROADMAP Queue C), and so are the CLI runs' moves there.
+    def tar_models(fused_route):
+        out = []
+        for l in range(L):
+            m = mr_level_model(dev, l, seed=0, fused=fused_route, compute_dtype=torch.float32)
+            m.load_state_dict(dnerf_state_dict(ckpt[f"network_fn_{l}"]))
+            out.append(m)
+        return out
+
+    _, gk = step(tar_models(False), True, compute_dtype=torch.float32)
+    _, gf = step(tar_models(None), False)
+    agree = [sum((gk[l][k].double() - gf[l][k].double()).norm().item() ** 2 for k in gf[l]) ** 0.5
+             / sum(gf[l][k].double().norm().item() ** 2 for k in gf[l]) ** 0.5 for l in range(L)]
+    print(f"[33 step fp32, 000200.tar] per level, the fused step's gradients from the field route's (rel L2 over the "
+          f"level): {[f'{a:.3e}' for a in agree]}")
+    del gk, gf
+    torch.cuda.empty_cache()
+
+    # the CLI, resumed from 000200.tar for 100 phase-2 steps (phase 1 skipped), each route from its own copy
+    def level_moves(lego):
+        """Per level: the L2 norm of the parameters' move from 000200.tar to
+        000300.tar, and the norm of Adam's first moment at 000300.tar over
+        0.9^100 times its norm at 000200.tar (1 if no gradient came: the
+        resumed optimizer state would still move the weights)."""
+        a, b = (load_tar(str(lego / f"{i:06d}.tar")) for i in (MR_CKPT_ITER, MR_CKPT_ITER + 100))
+        out = []
+        for l in range(L):
+            pa, pb = a[f"network_fn_{l}"], b[f"network_fn_{l}"]
+            move = sum(((pb[k].double() - pa[k].double()) ** 2).sum().item() for k in pa) ** 0.5
+            m = [sum((x["exp_avg"].double() ** 2).sum().item() for x in c[f"optimizer_{l}"]["state"].values()) ** 0.5
+                 for c in (a, b)]
+            out.append((move, m[1] / (0.9**100 * m[0])))
+        return out
+
+    res, moves = {}, {}
+    for route, mode in (("fused", "1"), ("field", "0")):
+        base = tmp / f"mr33_{route}"
+        (base / "lego").mkdir(parents=True)
+        shutil.copy(tmp / "mr_logs" / "lego" / f"{MR_CKPT_ITER:06d}.tar", base / "lego")
+        argv = ["--config", str(MULTIRES_CONFIG), "--basedir", str(base), "--datadir", str(data), "--device",
+                "cuda", "--global_optimization_epoch", "100", "--i_testset", "100000", "--i_video", "100000",
+                "--i_weights", "100", *MR_NOISE]
+        with env(SWNERF_FUSED_MULTIRES=mode, SWNERF_PHASE1_ITERS="0", SWNERF_MAX_ITERS=str(MR_CKPT_ITER + 101)):
+            launches.clear()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+                r = mr.train(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(launches)
+        recs = [json.loads(line) for line in (base / "lego" / "metrics.jsonl").read_text().splitlines()]
+        gpsnr = [(x["step"], round(x["global_psnr"], 3)) for x in recs if "global_psnr" in x]
+        totals = [(x["step"], x["total_loss"]) for x in recs if "total_loss" in x]
+        quiet = [v for i, v in r["phase2_step_ms"].items() if i % 20 and (i - 1) % 20 and i % 100 and (i - 1) % 100]
+        res[route] = (counts, statistics.median(quiet), buf.getvalue())
+        print(f"[33 train {route}] launches {json.dumps(counts, sort_keys=True)}, CLI wall {wall:.2f} s; ms per "
+              f"phase-2 step, median of {len(quiet)} steps that neither print nor save: {statistics.median(quiet):.3f}"
+              f" (min {min(quiet):.3f}, max {max(quiet):.3f}); global PSNR at the prints {gpsnr}; total loss {totals}")
+        if not gpsnr or not all(np.isfinite(p) for _, p in gpsnr) or len({v for _, v in totals}) < 2:
+            fail(f"33 {route}: the global PSNR is not finite or the loss did not move: {gpsnr}, {totals}")
+        if not (base / "lego" / f"{MR_CKPT_ITER + 100:06d}.tar").exists():
+            fail(f"33 {route}: no {MR_CKPT_ITER + 100:06d}.tar")
+        moves[route] = level_moves(base / "lego")
+        print(f"[33 train {route}] per level, |params(300) - params(200)| and Adam's first moment at 300 over the "
+              f"0.9^100 of 200's that stale momentum alone leaves: "
+              f"{[(f'{mv:.4e}', f'{mo:.3e}') for mv, mo in moves[route]]}")
+        if not all(mv > 0 and mo > 10 for mv, mo in moves[route]):
+            fail(f"33 {route}: a level did not move, or no gradient reached its Adam: {moves[route]}")
+    ratio = [f[0] / g[0] for f, g in zip(moves["fused"], moves["field"])]
+    signal = [a < 0.1 for a in agree]
+    print(f"[33 train] per level, the fused run's move over the field route's: {[round(r, 4) for r in ratio]}; "
+          f"held to 2-fold at the levels whose fp32 routes agree within 0.1 on 000200.tar: {signal}")
+    if not any(signal) or not all(0.5 <= r <= 2.0 for r, sg in zip(ratio, signal) if sg):
+        fail(f"33: the fused and field runs moved a level with signal gradients by norms more than 2-fold apart, "
+             f"or no level has them: {ratio}, {agree}")
+    counts = res["fused"][0]
+    if "fused phase 2 on levels [0, 1, 2, 3]" not in res["fused"][2] or counts.get("render_loss[ext,wide,S=64]", 0) \
+            != 300 or counts.get("render_loss[ext,S=64]", 0) != 100 or res["field"][0].get("render_loss[ext,S=64]"):
+        fail(f"33: the fused run launched B9 {counts} (want 300 wide + 100 narrow: once per level per step)")
+    print(f"[33 train] ms per phase-2 step: fused {res['fused'][1]:.3f}, field route {res['field'][1]:.3f}")
+    phase2_profile(dev, scene, pyr_hwf, ckpt)
+    return counts
+
+
+def phase2_profile(dev, scene, pyr_hwf, ckpt):
+    """Device time by kernel family over 10 phase-2 steps on each route
+    (after 3 warm-up steps), from torch.profiler, against the host clock
+    around the steps: the device's idle share (multires_breakdown's)."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.models import make_dnerf_model
+    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.render.core import RenderConfig
+    from swnerf_torch.train.checkpoint import dnerf_state_dict
+    from swnerf_torch.train.loop import init_train_state
+
+    images = torch.as_tensor(scene.images, device=dev)
+    poses = torch.as_tensor(scene.poses[:, :3, :4], device=dev)
+    rcfg = RenderConfig(n_samples=64, perturb=1.0, raw_noise_std=1.0, white_bkgd=True)
+    with torch.no_grad():
+        lap = generate_laplacian_pyramid(images, levels=4)
+    patch_sizes = [32, 16, 8, 4]
+    families = (("B3 wide / B3 pts forward", ("render_pass_kernel",)), ("B9 forward", ("render_loss_fwd",)),
+                ("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd",)),
+                ("backward GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
+                                                   "cotangent_kernel", "round_cotangent", "encode_bwd")))
+    for route in (True, False):
+        states = []
+        for l in range(4):
+            cfg = mr._level_cfg(mr_args(), mr.CHANNEL_LIST[l])
+            m = make_dnerf_model("direct_temporal", cfg, dev)
+            m.load_state_dict(dnerf_state_dict(ckpt[f"network_fn_{l}"]))
+            states.append(init_train_state(m, None, 5e-4, 250))
+        fn = mr.make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=route)
+        rng = np.random.default_rng(7)
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def one(i):
+            coords = mr.initialize_patches(rng, pyr_hwf, i)
+            img_i = int(rng.choice(scene.i_train))
+            pixels = [torch.stack(torch.meshgrid(torch.arange(y, y + ps, device=dev),
+                                                 torch.arange(x, x + ps, device=dev), indexing="ij"), -1).reshape(-1, 2)
+                      for (y, x), ps in zip(coords, patch_sizes)]
+            targets = [lap[l][img_i, y : y + ps, x : x + ps] for l, ((y, x), ps) in enumerate(zip(coords, patch_sizes))]
+            y0, x0 = coords[0]
+            fn(states, pixels, targets, images[img_i, y0 : y0 + 32, x0 : x0 + 32], poses[img_i],
+               float(scene.times[img_i]), 1.0, gen)
+
+        profile_steps("33", f"phase 2, {'fused' if route else 'field route'}", one, families)
+        del states
+        torch.cuda.empty_cache()
+
+
+def phase34_b10(dev, tmp, data, psnr5):
+    """B10 at phase 3's shape (160,000 rays of test view 0, 63 bins, 128
+    samples) on 010000.tar's coarse weights (the coarse B3 pass's): bit-equal
+    to B2 + torch.sort for linspace and for sorted random uniforms, the twin
+    bit-equal to the kernel, B2's unsorted rows counted; then the serving
+    main path under SWNERF_PDF_MERGE=1 (PSNRs equal to phase 5's), 50
+    vanilla and 50 D-NeRF kernel steps under the switch (train PSNR at
+    phases 9 / 21's floors), and B10's time beside B2 + torch.sort. Returns
+    B10's [kernel] row with its launches there."""
+    import torch
+
+    from swnerf_torch.ops import sampling
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.pipelines import run_dnerf, run_nerf
+
+    cfg, coarse, _ = load_models(dev)
+    rays = view0_rays(dev)
+    pc = b3.pack_params(coarse.state_dict(), cfg)
+    ws, zs = [], []
+    for start in range(0, 160_000, 32768):
+        o, d, ve, z, dist = pass_inputs(rays.slice(start, min(160_000, start + 32768)), cfg, 64)
+        ws.append(b3.render_pass(pc, o, d, ve, z, dist, None, True).weights)
+        zs.append(z)
+    w64, z64 = torch.cat(ws), torch.cat(zs).contiguous()
+    del ws, zs
+    n = z64.shape[0]
+    bins = (0.5 * (z64[:, 1:] + z64[:, :-1])).contiguous()
+    wsl = w64[:, 1:-1]
+    err = 0.0
+    for mode in ("det", "sorted random"):
+        u = (torch.linspace(0.0, 1.0, 128, device=dev).expand(n, 128) if mode == "det"
+             else sampling.sorted_uniforms(n, 128, torch.Generator(device=dev).manual_seed(3), dev))
+        got = b2.sample_pdf_merge(z64, bins, wsl, u)
+        samples = b2.sample_pdf(bins, wsl, u)
+        ref = torch.sort(torch.cat([z64, samples], -1), -1).values
+        twin = b2.sample_pdf_merge_plain(z64, bins, wsl, u)
+        torch.cuda.synchronize()
+        unsorted = int((samples[:, 1:] < samples[:, :-1]).any(-1).sum().item())
+        print(f"[34 B10 {mode}] N={n} M=63 S=128: bit-equal to B2 + torch.sort={torch.equal(got, ref)}, twin "
+              f"bit-equal={torch.equal(twin, got)}; B2 rows not sorted for sorted u: {unsorted} of {n}")
+        if not torch.equal(got, ref) or not torch.equal(twin, got):
+            fail(f"B10 {mode}: differs from B2 + torch.sort or from its twin")
+        err = max(err, (got - ref).abs().max().item())
+    u = torch.linspace(0.0, 1.0, 128, device=dev).expand(n, 128)
+    frame_ms = cuda_ms(lambda: b2.sample_pdf_merge(z64, bins, wsl, u), 20)
+    frame_lib = cuda_ms(lambda: torch.sort(torch.cat([z64, b2.sample_pdf(bins, wsl, u)], -1), -1).values, 20)
+    chunk = slice(0, 32768)
+    zc, bc, wc, uc = z64[chunk], bins[chunk], wsl[chunk], u[chunk]
+    ms = cuda_ms(lambda: b2.sample_pdf_merge(zc, bc, wc, uc), 50)
+    plain = cuda_ms(lambda: b2.sample_pdf_merge_plain(zc, bc, wc, uc), 5)
+    lib = cuda_ms(lambda: torch.sort(torch.cat([zc, b2.sample_pdf(bc, wc, uc)], -1), -1).values, 50)
+    step_rows = {}
+    for name, nr in (("vanilla step", 1024), ("D-NeRF step", 500)):
+        uu = sampling.sorted_uniforms(nr, 128, torch.Generator(device=dev).manual_seed(4), dev)
+        a = (z64[:nr], bins[:nr], wsl[:nr], uu)
+        step_rows[name] = (cuda_ms(lambda: b2.sample_pdf_merge(*a), 50),
+                           cuda_ms(lambda: torch.sort(torch.cat([a[0], b2.sample_pdf(*a[1:])], -1), -1).values, 50))
+    print(f"[34 times] B10 per frame (160,000 rays, one launch) {frame_ms:.3f} ms against B2 + torch.sort "
+          f"{frame_lib:.3f} ms; per 32,768-ray chunk {ms:.4f} against {lib:.4f} ms (twin {plain:.3f}); per step "
+          + ", ".join(f"{k} {a:.4f} against {b:.4f} ms" for k, (a, b) in step_rows.items()))
+    nc = zc.shape[0]
+    row = entry("sample_pdf_merge", "swnerf_torch/csrc/sample_pdf.cu", "swnerf_tpu/ops/pallas/sample_pdf.py:155",
+                0, err, ms, plain, 4 * (nc * 63 + nc * 62 + 128 + nc * 64 + nc * 192), nc * 128 * 63, "fp32")
+    row["library_ms"] = lib
+    del z64, bins, w64, u
+    torch.cuda.empty_cache()
+
+    # the serving main path under the switch: det uniforms make z_all, and so every PSNR, bit-equal
+    base = tmp / "pdf_merge"
+    argv = ["--config", str(CONFIG), "--render_only", "--render_test", "--testskip", "5", "--device", "cuda",
+            "--basedir", str(base), "--datadir", str(DATADIR), "--ft_path", str(CKPT)]
+    with env(SWNERF_PDF_MERGE="1"):
+        launches.clear()
+        metrics = json.loads((Path(run_nerf.main(argv)) / "metrics.json").read_text())
+        serve = dict(launches)
+    print(f"[34 serve] SWNERF_PDF_MERGE=1: launches {json.dumps(serve, sort_keys=True)} (5 frames); PSNR "
+          f"{metrics['psnr']} against phase 5's {psnr5}")
+    if metrics["psnr"] != psnr5 or serve.get("sample_pdf_merge", 0) != 25 or serve.get("sample_pdf", 0):
+        fail("34: the PSNRs under SWNERF_PDF_MERGE=1 differ from phase 5's, or B10 did not replace B2 (25 launches)")
+    # 50 vanilla and 50 D-NeRF kernel steps under the switch
+    counts = {}
+    with env(SWNERF_PDF_MERGE="1", SWNERF_MAX_ITERS="10051"):
+        launches.clear()
+        res = run_nerf.main(["--config", str(CONFIG), "--ft_path", str(CKPT), "--basedir", str(base), "--datadir",
+                             str(DATADIR), "--device", "cuda", "--i_print", "25", "--i_weights", "100000"])
+        counts["vanilla"] = dict(launches)
+    recs = [json.loads(x) for x in (base / "full_nerf_200k" / "metrics.jsonl").read_text().splitlines()]
+    pv = [(r["step"], round(r["psnr"], 3)) for r in recs if "psnr" in r]
+    exp = base / "logs" / "full_dnerf_800k"
+    exp.mkdir(parents=True)
+    shutil.copy(DNERF_CKPT, exp / "800000.tar")
+    with env(SWNERF_PDF_MERGE="1", SWNERF_MAX_ITERS="800051"):
+        launches.clear()
+        res_d = run_dnerf.main(["--config", str(DNERF_CONFIG), "--basedir", str(base / "logs"), "--datadir",
+                                str(data), "--device", "cuda", "--i_print", "25", "--i_weights", "100000"])
+        counts["dnerf"] = dict(launches)
+    recs = [json.loads(x) for x in (exp / "metrics.jsonl").read_text().splitlines()]
+    pd = [(r["step"], round(r["psnr"], 3)) for r in recs if "psnr" in r]
+    med = {k: statistics.median(v for i, v in r["step_ms"].items() if i % 25 and (i - 1) % 25)
+           for k, r in (("vanilla", res), ("dnerf", res_d))}
+    print(f"[34 train] SWNERF_PDF_MERGE=1: vanilla launches {json.dumps(counts['vanilla'], sort_keys=True)}, train "
+          f"PSNR {pv}, {med['vanilla']:.3f} ms per step; D-NeRF launches {json.dumps(counts['dnerf'], sort_keys=True)}"
+          f", train PSNR {pd}, {med['dnerf']:.3f} ms per step")
+    if len(pv) != 2 or min(p for _, p in pv) < 30.0 or len(pd) != 2 or min(p for _, p in pd) < 34.0:
+        fail(f"34: train PSNR under SWNERF_PDF_MERGE=1 below the floors (30 / 34 dB): {pv}, {pd}")
+    if any(c.get("sample_pdf_merge", 0) != 50 or c.get("sample_pdf", 0) for c in counts.values()):
+        fail(f"34: the steps under SWNERF_PDF_MERGE=1 launched B10 / B2 {counts} (want 50 B10 each, no B2)")
+    row["launches"] = serve["sample_pdf_merge"] + sum(c["sample_pdf_merge"] for c in counts.values())
+    return {"sample_pdf_merge": row}
+
+
+def phase35_b11(dev, data):
+    """B11 (fused_time_net_pts with input cotangents) against its twin with
+    the D-NeRF 800000.tar deformation weights on phase 17's points (500
+    rays x 64 and x 192) and at MultiRes level 0's widths (seeded weights,
+    500 rays x 64): dx bit-equal to B6's forward; fp32 gradients, d pts and
+    d times at phase 17's bar; bf16 rel L2 1e-2; times. Its entry point has
+    no product caller: this phase drives it, each point set once, and those
+    launches are its row's. Returns B11's [kernel] row."""
+    import dataclasses
+
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.pipelines.run_dnerf import _model_config
+    from swnerf_torch.train.checkpoint import dnerf_state_dict, load_tar
+    from swnerf_torch.utils.config import config_parser_dnerf
+
+    args = config_parser_dnerf().parse_args(["--config", str(DNERF_CONFIG)])
+    cfg = _model_config(args, args.netdepth, args.netwidth)
+    sd = dnerf_state_dict(load_tar(str(DNERF_CKPT))["network_fn_state_dict"])
+    sd = {k: v.to(dev) for k, v in sd.items()}
+    inputs = dnerf_train_inputs(dev, cfg, sd, data)
+    lvl0 = mr_level_model(dev, 0, seed=35, fused=False)
+    g = torch.Generator(device=dev).manual_seed(11)
+    rays, _ = frame_rays(dev, data, "train", 37)
+    sel = torch.randint(0, rays.origins.shape[0], (500,), generator=g, device=dev)
+    from swnerf_torch.ops.sampling import sample_along_rays
+
+    r = type(rays)(*(x[sel] for x in rays))
+    z = sample_along_rays(r.near, r.far, 64, 1.0, generator=g)
+    cases = [(f"D-NeRF S={S}", cfg, sd, inputs[S][0], inputs["times"]) for S in (64, 192)]
+    cases.append(("MultiRes level 0", lvl0.cfg, lvl0.state_dict(),
+                  (r.origins[:, None, :] + r.directions[:, None, :] * z[..., None]).contiguous(),
+                  r.times.reshape(-1).contiguous()))
+    cots = [torch.randn(c[3].shape, generator=g, device=dev) for c in cases]
+
+    def drive(packed, pts, times, cot, dtype):
+        leaf = dataclasses.replace(packed, weights=packed.weights.detach().float().clone().requires_grad_(True),
+                                   biases=packed.biases.detach().clone().requires_grad_(True))
+        p, t = pts.clone().requires_grad_(True), times.clone().requires_grad_(True)
+        dx = b6.fused_time_net_pts(leaf, p, t, need_input_grads=True, dtype=dtype)
+        (dx * cot).sum().backward()
+        return dx.detach(), (leaf.weights.grad, leaf.biases.grad), p.grad, t.grad
+
+    launches.clear()  # the path: the entry point, once per point set (bf16, the card's operands)
+    for (_, c, s, pts, times), cot in zip(cases, cots):
+        drive(b6.pack_time_params(s, c, torch.float32), pts, times, cot, torch.bfloat16)
+    torch.cuda.synchronize()
+    path = dict(launches)
+    print(f"[35 B11 path] launches {json.dumps(path, sort_keys=True)}")
+    if path.get("time_net[pts,bwd]", 0) != 3 or path.get("time_net", 0) != 3 or path.get("time_net[bwd]", 0):
+        fail(f"35: fused_time_net_pts launched {path} (want B6's forward and B11's backward 3 times each)")
+
+    def named(grads, dpts, dtimes, pk):
+        return dict(b6.unpack_time_grads(grads, pk), dpts=dpts, dtimes=dtimes)
+
+    err16, row = 0.0, None
+    for (tag, c, s, pts, times), cot in zip(cases, cots):
+        p32 = b6.pack_time_params(s, c, torch.float32)
+        dx, gk, dpk, dtk = drive(p32, pts, times, cot, torch.float32)
+        dx2, gk2, dpk2, dtk2 = drive(p32, pts, times, cot, torch.float32)
+        ref = b6.time_net_plain_bwd(p32, pts, times, cot, True)
+        p64 = dataclasses.replace(p32, weights=p32.weights.double())
+        r64 = b6.time_net_plain_bwd(p64, pts.double(), times.double(), cot.double(), True)
+        r64p = b6.time_net_plain_bwd(dataclasses.replace(p64, weights=jitter(p64.weights)), pts.double(),
+                                     times.double(), cot.double(), True)
+        torch.cuda.synchronize()
+        fwd_same = torch.equal(dx, b6.time_net(p32, pts, times))
+        same = all(torch.equal(a, b) for a, b in zip((*gk, dpk, dtk), (*gk2, dpk2, dtk2)))
+        print(f"[35 B11 fp32 {tag}] {p32.cin} of {p32.cin_pad} rows: dx bit-equal to B6's forward={fwd_same}, "
+              f"repeat bit-equal={same}, max|ddpts|={(dpk - ref[1]).abs().max().item():.3e} (max|dpts| "
+              f"{ref[1].abs().max().item():.3e}), max|ddtimes|={(dtk - ref[2]).abs().max().item():.3e} (max|dtimes| "
+              f"{ref[2].abs().max().item():.3e})")
+        if not fwd_same or not same:
+            fail(f"B11 fp32 {tag}: dx differs from B6's forward or repeats differ")
+        check_fp32_grads(f"35 B11 fp32 {tag}", named(gk, dpk, dtk, p32), named(*ref, p32), named(*r64, p64),
+                         named(*r64p, p64))
+        del r64, r64p
+        p16 = b6.pack_time_params(s, c, torch.bfloat16)
+        dx16, gk, dpk, dtk = drive(p16, pts, times, cot, torch.bfloat16)
+        ref = b6.time_net_plain_bwd(p16, pts, times, cot, True)
+        torch.cuda.synchronize()
+        rel = rel_l2(named(gk, dpk, dtk, p16), named(*ref, p16))
+        print(f"[35 B11 bf16 {tag}] max|ddx|={(dx16 - b6.time_net_plain(p16, pts, times)).abs().max().item():.3e} "
+              f"grads, dpts, dtimes max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+        if max(rel.values()) > 1e-2:
+            fail(f"B11 bf16 {tag}: gradient rel L2 > 1e-2")
+        err16 = max(err16, (dx16 - b6.time_net_plain(p16, pts, times)).abs().max().item())
+        if tag == "D-NeRF S=192":  # the row: the TV pair's rows of the D-NeRF step, as B6's backward row
+            M = pts.shape[0] * pts.shape[1]
+            sc = b6._din_scratch(p16, M, dev)
+            b6._launch_fwd(p16, pts, times, sc)
+            g2 = cot.reshape(M, 3).contiguous()
+            ms = cuda_ms(lambda: b6._launch_bwd_din(p16, pts, times, g2, sc), 10)
+            b6ms = cuda_ms(lambda: b6._launch_bwd(p16, M, g2, sc), 10)
+            plain = cuda_ms(lambda: b6.time_net_plain_bwd(p16, pts, times, cot, True), 3)
+            nw, nb = p16.weights.numel(), p16.biases.numel()
+            row = entry("time_net[pts,bwd]", "swnerf_torch/csrc/time_net.cu", "swnerf_tpu/ops/pallas/raymarch.py:519",
+                        0, err16, ms, plain, 4 * (3 * M + pts.shape[0] + 3 * M) + 2 * nw + 4 * (nw + nb + 3 * M
+                                                                                              + pts.shape[0]),
+                        2 * p16.din_macs_per_row * M, "bf16")
+            print(f"[35 times] B11 backward, {M} rows ({p16.din_macs_per_row} MACs per row): {ms:.3f} ms "
+                  f"({2 * p16.din_macs_per_row * M / ms / 1e9:.2f} TFLOP/s) against B6's backward {b6ms:.3f} ms "
+                  f"(no input cotangent); twin {plain:.3f} ms")
+            del sc
+        torch.cuda.empty_cache()
+    row["launches"] = path["time_net[pts,bwd]"]
+    row["max_abs_err"] = err16
+    return {"time_net[pts,bwd]": row}
 
 
 if __name__ == "__main__":

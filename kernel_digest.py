@@ -4,8 +4,11 @@ B2 sample_pdf, B3 render_pass (vanilla, from rays, and its pts mode), B1
 render_loss (vanilla), B4 (T-NeRF, both modes), B5 render_loss_pts, B6
 time_net (forward, and forward with backward), B7 trunk (the ReLU family:
 forward only, and train-mode forward with backward) and, where the checkout
-has them, B7' (the ELU T-NeRF trunk) and B8 (the trunk with the encode in
-the kernel), on seeded inputs at the main paths' shapes. Two checkouts whose digests agree give
+has them, B7' (the ELU T-NeRF trunk), B8 (the trunk with the encode in
+the kernel), B3's pts mode at the MultiRes widths, B9 (the
+external-cotangent backward, wide and narrow), B10 (sample + merge) and B11
+(the deformation MLP's backward with input cotangents), on seeded inputs at
+the main paths' shapes. Two checkouts whose digests agree give
 bit-equal outputs; run both in one call, in turns, to compare their times on
 one card:
 
@@ -45,6 +48,7 @@ def main() -> int:
     from swnerf_torch.ops.kernels import sample_pdf as b2
     from swnerf_torch.ops.kernels import time_net as b6
     from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.render.fused_eval import canonical_params
 
     assert Path(b3.__file__).resolve().is_relative_to(Path(a.root).resolve()), b3.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,6 +101,11 @@ def main() -> int:
     w = torch.rand((32768, 64), generator=g, device=dev)[:, 1:-1]
     u = torch.linspace(0.0, 1.0, 128, device=dev).expand(32768, 128)
     out["sample_pdf"] = {"sha256": digest([b2.sample_pdf(bins, w, u)]), "ms": timed(lambda: b2.sample_pdf(bins, w, u))}
+    if hasattr(b2, "sample_pdf_merge"):  # B10, on the coarse depths the bins are the midpoints of
+        zc = torch.cat([bins[:, :1] - 0.01, 0.5 * (bins[:, 1:] + bins[:, :-1]), bins[:, -1:] + 0.01], -1)
+        zc = torch.sort(zc, -1).values.contiguous()
+        out["sample_pdf_merge"] = {"sha256": digest([b2.sample_pdf_merge(zc, bins, w, u)]),
+                                   "ms": timed(lambda: b2.sample_pdf_merge(zc, bins, w, u))}
 
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         pv = b3.pack_params(vsd, vcfg, dtype)
@@ -184,6 +193,39 @@ def main() -> int:
             res8 = b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)
             out[f"trunk[raw]+bwd {tag}"] = {"sha256": digest([res8[0], *res8[1], res8[2], res8[3]]),
                                             "ms": timed(lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True))}
+        if hasattr(b1, "render_loss_ext"):  # B3 wide, B9, B11 at the MultiRes level-0 widths (and B9 narrow)
+            wcfg = DNeRFConfig(multires=20, multires_views=20, multires_time=8)
+            ncfg = DNeRFConfig(multires=-1, multires_views=-1, multires_time=-1, i_embed=-1)
+            for name, cfg9, seed in (("wide", wcfg, 9), ("narrow", ncfg, 10)):
+                m9 = DirectTemporalNeRF(cfg9, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
+                p9 = b3.pack_params(canonical_params(m9.state_dict()), cfg9, dtype)
+                o, d, vd, z, dist, noise, target, t = rays(1024, 64, 30 + seed)
+                pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+                ve = positional_encoding(vd, cfg9.nf_views).contiguous()
+                gct = torch.randn((1024, 5), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+                args9 = (p9, pts, ve, z, dist, noise, gct, True)
+                res9, g9, dp9 = b1.render_loss_ext(*args9)
+                out[f"render_loss[ext,{name},S=64] {tag}"] = {"sha256": digest(list(res9) + list(g9) + [dp9]),
+                                                              "ms": timed(lambda: b1.render_loss_ext(*args9))}
+                if name == "wide":
+                    o, d, vd, z, dist, noise, target, t = rays(32768, 64, 40)
+                    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+                    ve = positional_encoding(vd, cfg9.nf_views).contiguous()
+                    args3 = (p9, None, None, ve, z, dist, None, True, None, pts)
+                    out[f"render_pass[pts,wide,S=64] {tag}"] = {"sha256": digest(b3.render_pass(*args3)),
+                                                                "ms": timed(lambda: b3.render_pass(*args3))}
+                    t11 = b6.pack_time_params(m9.state_dict(), cfg9, dtype)
+                    o, d, vd, z, dist, noise, target, t = rays(500, 64, 41)
+                    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+                    cot = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(12), device=dev)
+                    M = pts.shape[0] * pts.shape[1]
+                    sc = b6._din_scratch(t11, M, dev)
+                    dx11 = b6._launch_fwd(t11, pts, t, sc)
+                    g11 = cot.reshape(M, 3).contiguous()
+                    res11 = b6._launch_bwd_din(t11, pts, t, g11, sc)
+                    out[f"time_net[pts,bwd] {tag}"] = {"sha256": digest([dx11, *res11[0], res11[1], res11[2]]),
+                                                       "ms": timed(lambda: b6._launch_bwd_din(t11, pts, t, g11, sc))}
+                    del sc
         torch.cuda.empty_cache()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -21,24 +21,37 @@ namespace {
 constexpr int CH = 64;    // sample rows per MLP chunk
 constexpr int NT = 256;   // threads per block: 8 warps x 8 rows = CH rows
 constexpr int KT = 16;    // weight rows per shared-memory tile
-constexpr int CV = 32;    // padded view-embedding width
 constexpr int NRED = 4 * CH * 3;
 
 enum class Act { None, Relu, Elu };
 
-// The two field families of the one body (render_fused.py: act, rgb_relu,
+// The field families of the one body (render_fused.py: act, rgb_relu,
 // and the combined [embed(xyz) | embed(t)] constants of
 // raymarch.py::build_embed_consts_xt). CIN is the padded input width: a
-// multiple of KT with room for B1's column of ones after the live columns.
+// multiple of KT with room for B1's column of ones after the live columns;
+// CV the padded view-embedding width.
 struct Vanilla {
   static constexpr int CIN = 64;          // embed(xyz): 3 + 6L <= 63
+  static constexpr int CV = 32;           // embed(viewdirs): 3 + 6L' <= 27
   static constexpr Act ACT = Act::Relu;   // trunk and view layer
+  static constexpr bool TIME = false;
+  static constexpr bool RGB_RELU = false;
+  static __host__ __device__ int cin(int L) { return 3 + 6 * L; }
+};
+// A vanilla field at the MultiRes widths (raymarch.py:49-59: inputs up to
+// 128 columns): B3's pts mode and B9 on levels 0-2, (20, 20) and (10, 10)
+// frequencies, 123 / 123 and 63 / 63 columns.
+struct VanillaWide {
+  static constexpr int CIN = 128;         // embed(xyz): 3 + 6L <= 127
+  static constexpr int CV = 128;          // embed(viewdirs) <= 128
+  static constexpr Act ACT = Act::Relu;
   static constexpr bool TIME = false;
   static constexpr bool RGB_RELU = false;
   static __host__ __device__ int cin(int L) { return 3 + 6 * L; }
 };
 struct TNerf {
   static constexpr int CIN = 96;          // [embed(xyz) | embed(t)]: 4 + 8L <= 95
+  static constexpr int CV = 32;
   static constexpr Act ACT = Act::Elu;
   static constexpr bool TIME = true;
   static constexpr bool RGB_RELU = true;  // rgb = sigmoid(max(logit, 0))
@@ -84,6 +97,39 @@ template <> struct Op<__nv_bfloat16> {
     *reinterpret_cast<uint4*>(p) = raw;
   }
 };
+
+// Dynamic shared memory of one block of the render body (render_pass.cu's
+// forward, render_loss.cu's train-mode forward), as both launchers size it:
+// LANES floats per sample of the block's rays (4: the raw lanes; 5 in train
+// mode, with the log-transmittances), the reduction buffer, and the tiles:
+// two activation buffers, the embeddings and the weight tile, CH rows + pad.
+constexpr size_t SMEM_OPTIN = 232448;  // bytes a block may opt into on Hopper
+
+template <typename T, int W, typename A, int LANES>
+size_t render_smem(int S) {
+  const int rays_per_block = S < CH ? CH / S : 1;
+  return sizeof(float) * ((size_t)rays_per_block * S * LANES + NRED) +
+         sizeof(T) * ((size_t)(2 * W + A::CIN + A::CV) * Op<T>::LDA + KT * W);
+}
+
+// The most samples per ray (at most 1024) whose block fits SMEM_OPTIN, for
+// the family of tnerf / wide at width W (128 or 256; else 0). Binding only
+// for the wide family in fp32 at W=256: 256 forward only, 204 in train mode.
+template <int LANES>
+int render_max_samples(int tnerf, int bf16, int wide, int W) {
+  int S = 1024;
+  for (; S > 0; --S) {
+    size_t smem = 0;
+#define SWNERF_SMEM(AA)                                                                                  \
+  (bf16 ? (W == 256 ? render_smem<__nv_bfloat16, 256, AA, LANES>(S) : render_smem<__nv_bfloat16, 128, AA, LANES>(S)) \
+        : (W == 256 ? render_smem<float, 256, AA, LANES>(S) : render_smem<float, 128, AA, LANES>(S)))
+    if (W != 128 && W != 256) return 0;
+    smem = tnerf ? SWNERF_SMEM(TNerf) : wide ? SWNERF_SMEM(VanillaWide) : SWNERF_SMEM(Vanilla);
+#undef SWNERF_SMEM
+    if (smem <= SMEM_OPTIN) break;
+  }
+  return S;
+}
 
 // acc[i][j] += sum_k A[k][row_i] * Wg[k][col_j] over K (a multiple of KT).
 // A: shared, k-major [K][LDA]; Wg: global, row-major [K][NC]. Thread (warp
@@ -173,8 +219,8 @@ __device__ __forceinline__ void zero(float (&acc)[R][C]) {
 // columns from A::cin(L) to A::CIN are zero. With PTS (B3's pts mode, B5,
 // B6, B8) the positions are given: ``origins`` then holds them, [ray][S][3],
 // and dirs and z are not read. With VEMB the per-ray view embeddings (vemb
-// [ray][cv], computed outside) follow into vemb_s, padded with zeros to CV
-// rows; B8 encodes its view directions with a second call instead.
+// [ray][cv], computed outside) follow into vemb_s, padded with zeros to
+// A::CV rows; B8 encodes its view directions with a second call instead.
 template <typename T, typename A, bool PTS = false, bool VEMB = true>
 __device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict__ vemb_s, int row0, int rows,
                                              long long ray0, int S, int L, int cv,
@@ -223,7 +269,7 @@ __device__ __forceinline__ void encode_chunk(T* __restrict__ emb, T* __restrict_
     }
   }
   if (VEMB)
-    for (int k = p; k < CV; k += 4)
+    for (int k = p; k < A::CV; k += 4)
       vemb_s[k * LDA + r] = Op<T>::q((valid && k < cv) ? vemb[ray * cv + k] : 0.f);
 }
 

@@ -22,6 +22,18 @@
 // encode. Both are compile-time switches (PTS): B1's and B4's
 // instantiations are the code they were.
 //
+// B9 (render_loss_ext_launch; render_fused.py's ext_ct=True, :313-314 and
+// :428-453, behind train/fused_step.py::make_render_outputs' backward) is
+// B5 with a second compile-time switch (EXT): the per-ray cotangent comes
+// from the caller, gct [N, 5] = d loss / d (rgb_map after the white
+// background, acc, depth), in place of the squared error's, so that
+// dL/dw = sum_c g_c rgb_c + g_acc + g_depth z, with g_acc = gct[3] -
+// sum_c g_c on a white background. It serves MultiRes' fused phase 2, whose
+// pyramid reconstruction couples the levels, at the narrow widths (the
+// identity level) and at the wide ones (VanillaWide: 128 / 128 padded rows,
+// levels 0-2); there the fp32 tiles at W=256 leave S <= 204 within the
+// 232,448 bytes of shared memory a block may opt into.
+//
 // Bound on the card: operations. At D=8, W=256 the forward is 593,408
 // multiply-adds per sample and the backward's dX and dW products about twice
 // that (T-NeRF at D=8, W=128: 162,816 and 465,216 in all), against ~1 KB of
@@ -71,7 +83,7 @@ namespace {
 template <typename T>
 struct Scratch {
   T* emb;    // [P][A::CIN], column A::cin(L) = 1
-  T* vemb;   // [P][CV]
+  T* vemb;   // [P][A::CV]
   T* h;      // D x [P][W + PADC], column W = 1, layer i at h + i * hstride
   size_t hstride;
   T* feat;   // [P][W + PADC]
@@ -81,13 +93,13 @@ struct Scratch {
   float* graw;  // [P][4]
 };
 
-template <typename T, int W, typename A, bool PTS = false>
+template <typename T, int W, typename A, bool PTS = false, bool EXT = false>
 __global__ void __launch_bounds__(NT)
 render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                        const float* __restrict__ times, const float* __restrict__ vemb, int cv,
                        const float* __restrict__ z,
                        const float* __restrict__ dist, const float* __restrict__ noise,
-                       const float* __restrict__ target, const T* __restrict__ wts,
+                       const float* __restrict__ target, const float* __restrict__ gct, const T* __restrict__ wts,
                        const float* __restrict__ bias, int D, int skip, int L, int white, float loss_scale,
                        int N, int S, int rays_per_block, float* __restrict__ rgb_out,
                        float* __restrict__ acc_out, float* __restrict__ depth_out,
@@ -109,8 +121,8 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   T* actA = reinterpret_cast<T*>(red + NRED);          // [W][LDA]
   T* actB = actA + W * LDA;                            // [W][LDA]
   T* emb = actB + W * LDA;                             // [A::CIN][LDA]
-  T* vemb_s = emb + A::CIN * LDA;                      // [CV][LDA]
-  T* Ws = vemb_s + CV * LDA;                           // [KT][W]
+  T* vemb_s = emb + A::CIN * LDA;                      // [A::CV][LDA]
+  T* Ws = vemb_s + A::CV * LDA;                        // [KT][W]
 
   const float* b_views = bias + (D + 1) * W;
   const float* b_rgb = b_views + WH;
@@ -124,7 +136,7 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
     encode_chunk<T, A, PTS>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
     __syncthreads();
     spill<T>(emb, cin, sc.emb, A::CIN, pr, nvalid, true);
-    spill<T>(vemb_s, cv, sc.vemb, CV, pr, nvalid, false);
+    spill<T>(vemb_s, cv, sc.vemb, A::CV, pr, nvalid, false);
     const T* wp = wts;
     const float* bp = bias;
     T* h = actA;
@@ -179,8 +191,8 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       zero(acc);
       mm_acc<T, WH>(acc, g, W, wp, Ws);
       wp += W * WH;
-      mm_acc<T, WH>(acc, vemb_s, CV, wp, Ws);
-      wp += CV * WH;
+      mm_acc<T, WH>(acc, vemb_s, A::CV, wp, Ws);
+      wp += A::CV * WH;
       store_act<T, WH, A::ACT>(acc, b_views, h);
     }
     __syncthreads();
@@ -241,14 +253,29 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
     rgb_out[ray * 3 + 2] = c2;
     acc_out[ray] = acc;
     depth_out[ray] = dep;
-    const float e0 = c0 - target[ray * 3 + 0];
-    const float e1 = c1 - target[ray * 3 + 1];
-    const float e2 = c2 - target[ray * 3 + 2];
-    sqerr_out[ray] = (e0 * e0 + e1 * e1) + e2 * e2;
-    // d loss / d rgb_map = loss_scale * 2 * err; white: d / d acc = -sum_c.
-    const float gs = loss_scale * 2.f;
-    const float g0 = gs * e0, g1 = gs * e1, g2 = gs * e2;
-    const float gacc = white ? -((g0 + g1) + g2) : 0.f;
+    float g0, g1, g2, gacc, gdep = 0.f;
+    if (EXT) {
+      // B9: the caller's cotangent (render_fused.py:428-440): d loss /
+      // d rgb_map after the white background, d acc and d depth. White:
+      // rgb_map holds + (1 - acc), so d / d acc also takes -sum_c.
+      const float* gr = gct + ray * 5;
+      g0 = gr[0];
+      g1 = gr[1];
+      g2 = gr[2];
+      gacc = white ? gr[3] - ((g0 + g1) + g2) : gr[3];
+      gdep = gr[4];
+    } else {
+      const float e0 = c0 - target[ray * 3 + 0];
+      const float e1 = c1 - target[ray * 3 + 1];
+      const float e2 = c2 - target[ray * 3 + 2];
+      sqerr_out[ray] = (e0 * e0 + e1 * e1) + e2 * e2;
+      // d loss / d rgb_map = loss_scale * 2 * err; white: d / d acc = -sum_c.
+      const float gs = loss_scale * 2.f;
+      g0 = gs * e0;
+      g1 = gs * e1;
+      g2 = gs * e2;
+      gacc = white ? -((g0 + g1) + g2) : 0.f;
+    }
     float suff = 0.f;  // sum over later samples of dL/dw_c * w_c
     for (int s = S - 1; s >= 0; --s) {
       const float* rw = raw_s + (t * S + s) * 4;
@@ -261,7 +288,8 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
       float rgb[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) rgb[c] = rgb_of<A>(rw[c]);
-      const float dldw = ((g0 * rgb[0] + g1 * rgb[1]) + g2 * rgb[2]) + gacc;
+      float dldw = ((g0 * rgb[0] + g1 * rgb[1]) + g2 * rgb[2]) + gacc;
+      if (EXT) dldw += gdep * zr[s];  // depth = sum_s w_s z_s
       const float dalpha = dldw * tr - suff / safe;
       suff += dldw * w;
       const float dsig = sigma > 0.f ? dalpha * dr[s] * ex : 0.f;
@@ -286,7 +314,7 @@ size_t scratch_bytes(int W, int D, long long P) {
   const int WH = W / 2;
   size_t b = 0;
   b += align256(sizeof(T) * P * A::CIN);
-  b += align256(sizeof(T) * P * CV);
+  b += align256(sizeof(T) * P * A::CV);
   b += align256(sizeof(T) * P * (W + PADC)) * D;
   b += align256(sizeof(T) * P * (W + PADC));        // feat
   b += align256(sizeof(T) * P * (WH + PADC));       // hv
@@ -297,19 +325,21 @@ size_t scratch_bytes(int W, int D, long long P) {
   b += align256(sizeof(float) * P * 4);             // graw
   b += align256(sizeof(float) * P * WH);            // dhv32
   b += align256(sizeof(float) * part_floats(W));    // split partials
-  if (PTS) b += align256(sizeof(float) * P * A::CIN);  // demb (B5)
+  if (PTS) b += align256(sizeof(float) * P * A::CIN);  // demb (B5, B9)
   return b;
 }
 
 // With PTS (B5), origins holds the sample positions [N][S][3] and dpts
-// [N][S][3] receives d(loss_scale * sum sqerr) / d pts.
-template <typename T, int W, typename A, bool PTS = false>
+// [N][S][3] receives d(loss_scale * sum sqerr) / d pts. With EXT (B9, PTS
+// too) the cotangent is the caller's gct [N][5] in place of the squared
+// error's (target, loss_scale and sqerr are unused).
+template <typename T, int W, typename A, bool PTS = false, bool EXT = false>
 int launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
-           const float* dist, const float* noise, const float* target, const void* wts_v, const float* bias, int D,
+           const float* dist, const float* noise, const float* target, const float* gct, const void* wts_v,
+           const float* bias, int D,
            int skip, int L, int white, float loss_scale, int N, int S, float* rgb, float* acc, float* depth,
            float* sqerr, float* w_out, float* gw, float* gb, float* dpts, void* scratch, cudaStream_t st) {
   constexpr int CIN = A::CIN;
-  constexpr int LDA = Op<T>::LDA;
   constexpr int WH = W / 2;
   constexpr int LDW = W + PADC;
   constexpr int LDH = WH + PADC;
@@ -320,7 +350,7 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   Carver cv_{static_cast<unsigned char*>(scratch)};
   Scratch<T> sc;
   sc.emb = cv_.take<T>(P * CIN);
-  sc.vemb = cv_.take<T>(P * CV);
+  sc.vemb = cv_.take<T>(P * A::CV);
   sc.hstride = align256(sizeof(T) * P * LDW) / sizeof(T);
   sc.h = cv_.take<T>(sc.hstride * D);
   sc.feat = cv_.take<T>(P * LDW);
@@ -337,12 +367,13 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
 
   // 1. forward, loss and the composite backward
   const int rays_per_block = std::max(1, CH / S);
-  const size_t smem = sizeof(float) * ((size_t)rays_per_block * S * 5 + NRED) +
-                      sizeof(T) * ((size_t)(2 * W + CIN + CV) * LDA + KT * W);
-  auto kern = render_loss_fwd_kernel<T, W, A, PTS>;
+  // The wide family in fp32 at W=256 leaves S <= 204 (render_loss_max_samples).
+  const size_t smem = render_smem<T, W, A, 5>(S);
+  if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = render_loss_fwd_kernel<T, W, A, PTS, EXT>;
   SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
-  kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, wts, bias, D,
+  kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, gct, wts, bias, D,
                                             skip, L, white, loss_scale, N, S, rays_per_block, rgb, acc, depth,
                                             sqerr, w_out, sc);
   SWNERF_CHECK(cudaGetLastError());
@@ -350,8 +381,8 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   // 2-4. the heads, d feat next to d sigma, the trunk (with B5's input
   //      cotangent): gemm_common.cuh::field_reverse
   FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, sc.graw, dz, dhv_c, dhv32, part};
-  SWNERF_RUN((field_reverse<T, W, A::ACT>(wts, D, skip, CIN, cin, CV, cv, P, tape, gw, gb, demb, nullptr, st)));
-  if (PTS) {  // 5. B5: through the encode to the positions
+  SWNERF_RUN((field_reverse<T, W, A::ACT>(wts, D, skip, CIN, cin, A::CV, cv, P, tape, gw, gb, demb, nullptr, st)));
+  if (PTS) {  // 5. B5, B9: through the encode to the positions
     encode_bwd_kernel<<<ceil_div(P * 3, 256), 256, 0, st>>>(origins, demb, cin, L, P, dpts);
     SWNERF_CHECK(cudaGetLastError());
   }
@@ -364,6 +395,12 @@ extern "C" {
 
 const char* swnerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The most samples per ray render_loss_launch (tnerf) and
+// render_loss_ext_launch (wide) take: the train-mode block's shared memory.
+int render_loss_max_samples(int tnerf, int bf16, int wide, int W) {
+  return render_max_samples<5>(tnerf, bf16, wide, W);
 }
 
 // Bytes of scratch render_loss_launch needs, or -1 for an unsupported width.
@@ -391,11 +428,11 @@ int render_loss_launch(int tnerf, int bf16, int W, const float* origins, const f
   if (N == 0) return 0;
   // cin < CIN leaves room for the column of ones of the embedding's dW.
   const bool cin_ok = tnerf ? times != nullptr && TNerf::cin(L) < TNerf::CIN : Vanilla::cin(L) < Vanilla::CIN;
-  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || !cin_ok || cv > CV)
+  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || !cin_ok || cv > Vanilla::CV || cv > TNerf::CV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWNERF_LAUNCH(T, WW, AA)                                                                               \
-  launch<T, WW, AA>(origins, dirs, times, vemb, cv, z, dist, noise, target, wts, bias, D, skip, L, white,     \
+  launch<T, WW, AA>(origins, dirs, times, vemb, cv, z, dist, noise, target, nullptr, wts, bias, D, skip, L, white, \
                     loss_scale, N, S, rgb, acc, depth, sqerr, w_out, gw, gb, nullptr, scratch, st)
   if (tnerf) {
     if (bf16) {
@@ -434,18 +471,71 @@ int render_loss_pts_launch(int bf16, int W, const float* pts, const float* vemb,
                            float* rgb, float* acc, float* depth, float* sqerr, float* w_out, float* gw, float* gb,
                            float* dpts, void* scratch, void* stream) {
   if (N == 0) return 0;
-  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || Vanilla::cin(L) >= Vanilla::CIN || cv > CV)
+  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || Vanilla::cin(L) >= Vanilla::CIN || cv > Vanilla::CV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWNERF_LAUNCH(T, WW)                                                                                      \
-  launch<T, WW, Vanilla, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, target, wts, bias, D, skip, L,     \
-                               white, loss_scale, N, S, rgb, acc, depth, sqerr, w_out, gw, gb, dpts, scratch, st)
+  launch<T, WW, Vanilla, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, target, nullptr, wts, bias, D, skip, \
+                               L, white, loss_scale, N, S, rgb, acc, depth, sqerr, w_out, gw, gb, dpts, scratch, st)
   if (bf16) {
     if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256);
     if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128);
   } else {
     if (W == 256) return SWNERF_LAUNCH(float, 256);
     if (W == 128) return SWNERF_LAUNCH(float, 128);
+  }
+#undef SWNERF_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B9's scratch bytes (wide != 0: the MultiRes widths, VanillaWide), or -1
+// for an unsupported width.
+long long render_loss_ext_scratch_bytes(int bf16, int wide, int W, int D, int N, int S) {
+  if (W != 128 && W != 256) return -1;
+  const long long P = (long long)N * S;
+  if (wide)
+    return (long long)(bf16 ? scratch_bytes<__nv_bfloat16, VanillaWide, true>(W, D, P)
+                            : scratch_bytes<float, VanillaWide, true>(W, D, P));
+  return (long long)(bf16 ? scratch_bytes<__nv_bfloat16, Vanilla, true>(W, D, P)
+                          : scratch_bytes<float, Vanilla, true>(W, D, P));
+}
+
+// B9 (train/fused_step.py::make_render_outputs' backward; the MultiRes fused
+// phase 2): B5's body on given positions pts [N, S, 3] with the caller's
+// per-ray cotangent gct [N, 5] (d loss / d rgb_map after the white
+// background, d acc, d depth) in place of the squared error's. It recomputes
+// the forward (rgb, acc, depth, w_out as B3's pts mode gives them) and
+// writes the fp32 parameter gradients gw / gb (zeroed by the caller) and
+// dpts [N, S, 3]. wide as render_pass_pts_launch's; scratch:
+// render_loss_ext_scratch_bytes.
+int render_loss_ext_launch(int bf16, int wide, int W, const float* pts, const float* vemb, int cv, const float* z,
+                           const float* dist, const float* noise, const float* gct, const void* wts,
+                           const float* bias, int D, int skip, int L, int white, int N, int S, float* rgb, float* acc,
+                           float* depth, float* w_out, float* gw, float* gb, float* dpts, void* scratch,
+                           void* stream) {
+  if (N == 0) return 0;
+  const bool shape_ok = wide ? VanillaWide::cin(L) < VanillaWide::CIN && cv <= VanillaWide::CV
+                             : Vanilla::cin(L) < Vanilla::CIN && cv <= Vanilla::CV;
+  if (D < 2 || D > 16 || skip < 0 || skip + 1 >= D || L < 0 || !shape_ok || gct == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SWNERF_LAUNCH(T, WW, AA)                                                                                  \
+  launch<T, WW, AA, true, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, nullptr, gct, wts, bias, D, skip, \
+                                L, white, 0.f, N, S, rgb, acc, depth, nullptr, w_out, gw, gb, dpts, scratch, st)
+  if (wide) {
+    if (bf16) {
+      if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, VanillaWide);
+      if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, VanillaWide);
+    } else {
+      if (W == 256) return SWNERF_LAUNCH(float, 256, VanillaWide);
+      if (W == 128) return SWNERF_LAUNCH(float, 128, VanillaWide);
+    }
+  } else if (bf16) {
+    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, Vanilla);
+  } else {
+    if (W == 256) return SWNERF_LAUNCH(float, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(float, 128, Vanilla);
   }
 #undef SWNERF_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

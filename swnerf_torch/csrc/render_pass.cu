@@ -17,7 +17,13 @@
 // render_fused.py:349-356, used by the D-NeRF eval pass and the shared
 // coarse pass of its train step) takes the sample positions pts [N, S, 3]
 // in place of o + d*z: a compile-time switch (PTS), so the from-rays
-// instantiations are the code they were.
+// instantiations are the code they were. At the MultiRes widths (levels 0-2
+// of the test render, run_multires.py:148 with models/dnerf.py:294-306;
+// raymarch.py:49-59 takes inputs up to 128 columns) the pts mode runs the
+// VanillaWide traits: 128 padded position rows and 128 view rows, where the
+// narrow family has 64 and 32. Its fp32 tiles at W=256 take 225,280 of the
+// 232,448 bytes of shared memory a block may opt into, which bounds S at
+// 256 (launch() refuses more).
 //
 // Bound on the card: operations (~1.19 MFLOP of MLP per sample at D=8,
 // W=256; ~0.33 MFLOP for T-NeRF at D=8, W=128; against ~1 KB of per-ray
@@ -33,7 +39,8 @@
 // SIMT kernel: tensor cores (mma/wgmma) and TMA are later work.
 //
 // No --use_fast_math (see ops/kernels/build.py): sinf/cosf stay accurate at
-// the 2^9-frequency arguments, and the transmittance floor is not folded.
+// the 2^9-frequency arguments (2^19 at MultiRes level 0), and the
+// transmittance floor is not folded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,8 +71,8 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
   T* actA = reinterpret_cast<T*>(red + NRED);          // [W][LDA]
   T* actB = actA + W * LDA;                            // [W][LDA]
   T* emb = actB + W * LDA;                             // [A::CIN][LDA]
-  T* vemb_s = emb + A::CIN * LDA;                      // [CV][LDA]
-  T* Ws = vemb_s + CV * LDA;                           // [KT][W]
+  T* vemb_s = emb + A::CIN * LDA;                      // [A::CV][LDA]
+  T* Ws = vemb_s + A::CV * LDA;                        // [KT][W]
 
   const float* b_views = bias + (D + 1) * W;
   const float* b_rgb = b_views + WH;
@@ -123,8 +130,8 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
       zero(acc);
       mm_acc<T, WH>(acc, g, W, wp, Ws);
       wp += W * WH;
-      mm_acc<T, WH>(acc, vemb_s, CV, wp, Ws);
-      wp += CV * WH;
+      mm_acc<T, WH>(acc, vemb_s, A::CV, wp, Ws);
+      wp += A::CV * WH;
       store_act<T, WH, A::ACT>(acc, b_views, h);
     }
     __syncthreads();
@@ -191,10 +198,11 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
            const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
            int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
            cudaStream_t stream) {
-  constexpr int LDA = Op<T>::LDA;
   const int rays_per_block = std::max(1, CH / S);
-  const size_t smem = sizeof(float) * ((size_t)rays_per_block * S * 4 + NRED) +
-                      sizeof(T) * ((size_t)(2 * W + A::CIN + CV) * LDA + KT * W);
+  // The wide family in fp32 at W=256 takes 225,280 bytes of tiles, which
+  // leaves S <= 256 (render_pass_max_samples; the wrapper refuses more first).
+  const size_t smem = render_smem<T, W, A, 4>(S);
+  if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = render_pass_kernel<T, W, A, PTS>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -211,6 +219,12 @@ extern "C" {
 
 const char* swnerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The most samples per ray render_pass_launch (tnerf) and
+// render_pass_pts_launch (wide) take: the block's shared memory.
+int render_pass_max_samples(int tnerf, int bf16, int wide, int W) {
+  return render_max_samples<4>(tnerf, bf16, wide, W);
 }
 
 // tnerf: 0 for a vanilla field (B3), 1 for a T-NeRF (B4). origins, dirs
@@ -252,23 +266,35 @@ int render_pass_launch(int tnerf, int bf16, int W, const float* origins, const f
 // B3's pts mode (the D-NeRF canonical pass, vanilla field): the sample
 // positions pts [N, S, 3] are given (o + d*z, plus the deformation) and
 // encoded in-block; z and dist still drive the depth and the compositing.
-// Other arguments as render_pass_launch's.
-int render_pass_pts_launch(int bf16, int W, const float* pts, const float* vemb, int cv, const float* z,
+// wide != 0 takes weights packed at the MultiRes widths (128 / 128 padded
+// rows, VanillaWide), else the narrow pads (64 / 32). Other arguments as
+// render_pass_launch's.
+int render_pass_pts_launch(int bf16, int wide, int W, const float* pts, const float* vemb, int cv, const float* z,
                            const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
                            int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
                            void* stream) {
   if (N == 0) return 0;
-  if (Vanilla::cin(L) > Vanilla::CIN) return static_cast<int>(cudaErrorInvalidValue);
+  if (wide ? (VanillaWide::cin(L) > VanillaWide::CIN || cv > VanillaWide::CV)
+           : (Vanilla::cin(L) > Vanilla::CIN || cv > Vanilla::CV))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWNERF_LAUNCH(T, WW)                                                                                    \
-  launch<T, WW, Vanilla, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, \
-                               S, rgb, acc, depth, w_out, st)
-  if (bf16) {
-    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256);
-    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128);
+#define SWNERF_LAUNCH(T, WW, AA)                                                                                  \
+  launch<T, WW, AA, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S, rgb, \
+                          acc, depth, w_out, st)
+  if (wide) {
+    if (bf16) {
+      if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, VanillaWide);
+      if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, VanillaWide);
+    } else {
+      if (W == 256) return SWNERF_LAUNCH(float, 256, VanillaWide);
+      if (W == 128) return SWNERF_LAUNCH(float, 128, VanillaWide);
+    }
+  } else if (bf16) {
+    if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(__nv_bfloat16, 128, Vanilla);
   } else {
-    if (W == 256) return SWNERF_LAUNCH(float, 256);
-    if (W == 128) return SWNERF_LAUNCH(float, 128);
+    if (W == 256) return SWNERF_LAUNCH(float, 256, Vanilla);
+    if (W == 128) return SWNERF_LAUNCH(float, 128, Vanilla);
   }
 #undef SWNERF_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

@@ -14,10 +14,20 @@
 // MultiRes levels (10, 4) (72) and the identity level (Lx = Lt = 0: [x | t],
 // 4); CIN = 144 holds MultiRes level 0's (20, 8) (140). Each keeps a row for
 // the dW column of ones. That in-block encode is also what B11
-// (fused_time_net_pts) computes. The input cotangent is not formed: every
-// caller feeds the positions detached (fused_step.py:478-481, 499-503;
-// models/dnerf.py:264-268). The plain twin is
-// swnerf_torch/ops/kernels/time_net.py::time_net_plain / time_net_plain_bwd.
+// (raymarch.py::_fwd_kernel_plain_raw :505, fused_time_net_pts :851)
+// computes, so B11's forward is B6's launch. The product callers feed the
+// positions detached (fused_step.py:478-481, 499-503; models/dnerf.py:264-268)
+// and form no input cotangent: time_net_bwd_launch. B11's backward
+// (_bwd_kernel_plain_raw :519, need_input_grads) is
+// time_net_bwd_din_launch: the same sweep, which also forms the embedding's
+// cotangent demb = dz_{skip+1} W_emb^T + dz_0 W_0^T over the live
+// [embed(x) | embed(t)] columns in fp32 (the skip's embed(t) rows are zero,
+// so the position columns take two contributions and the time columns one),
+// then encode_xt_bwd_kernel chains it through the encode to d pts [M, 3]
+// and per-row d t, and ray_sum_kernel adds those over each ray's S samples,
+// in order, into d times [N]. The plain twin is
+// swnerf_torch/ops/kernels/time_net.py::time_net_plain / time_net_plain_bwd
+// (need_input_grads for B11).
 //
 // Bound on the card: operations. At D=8, W=256, 84 input columns the
 // forward is 497,152 multiply-adds per row and the backward's dW and dH
@@ -210,6 +220,21 @@ Scratch<T> carve(void* scratch, int CIN, int W, int D, long long M) {
   return sc;
 }
 
+// B11's extra scratch, after the train-mode scratch: demb [M][cin] and the
+// per-row d t [M], fp32.
+struct DinScratch {
+  float* demb;
+  float* dt_rows;
+};
+
+DinScratch carve_din(void* scratch, size_t base, int cin, long long M) {
+  Carver cv{static_cast<unsigned char*>(scratch) + base};
+  DinScratch d;
+  d.demb = cv.take<float>(M * cin);
+  d.dt_rows = cv.take<float>(M);
+  return d;
+}
+
 template <typename T>
 size_t scratch_bytes(int CIN, int W, int D, long long M) {
   size_t b = 0;
@@ -219,6 +244,56 @@ size_t scratch_bytes(int CIN, int W, int D, long long M) {
   b += align256(sizeof(T) * M * 4);
   b += align256(sizeof(float) * part_floats(W));
   return b;
+}
+
+size_t din_scratch_bytes(int cin, long long M) {
+  return align256(sizeof(float) * M * cin) + align256(sizeof(float) * M);
+}
+
+// B11: d pts [M][3] and the per-row d t [M] from demb [M][cin], the
+// cotangent of [embed(x) | embed(t)] (encode_xt's columns): the identity
+// columns, then per frequency f the derivative 2^f cos(2^f x) of the sin
+// column and -2^f sin(2^f x) of the cos column (raymarch.py::_embed_bwd,
+// which takes the latter as 2^f cos(2^f x + pi/2)). One thread per (row,
+// lane): lanes 0-2 the position, lane 3 the time.
+__global__ void encode_xt_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ times,
+                                     const float* __restrict__ demb, int cin, int Lx, int Lt, int S, long long M,
+                                     float* __restrict__ dpts, float* __restrict__ dt_rows) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= M * 4) return;
+  const long long m = idx / 4;
+  const int a = (int)(idx - m * 4);
+  const float* g = demb + m * cin;
+  if (a < 3) {
+    const float x = pts[m * 3 + a];
+    float s = g[a];
+    for (int f = 0; f < Lx; ++f) {
+      const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
+      const float u = x * scale;
+      s += scale * (cosf(u) * g[3 + 6 * f + a] - sinf(u) * g[6 + 6 * f + a]);
+    }
+    dpts[m * 3 + a] = s;
+  } else {
+    const int dpos = 3 + 6 * Lx;
+    const float t = times[m / S];
+    float s = g[dpos];
+    for (int f = 0; f < Lt; ++f) {
+      const float scale = (float)(1 << f);
+      const float u = t * scale;
+      s += scale * (cosf(u) * g[dpos + 1 + 2 * f] - sinf(u) * g[dpos + 2 + 2 * f]);
+    }
+    dt_rows[m] = s;
+  }
+}
+
+// d times [N]: each ray's S per-row d t, added in sample order.
+__global__ void ray_sum_kernel(const float* __restrict__ dt_rows, int S, int N, float* __restrict__ dtimes) {
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ray >= N) return;
+  const float* r = dt_rows + (size_t)ray * S;
+  float s = 0.f;
+  for (int k = 0; k < S; ++k) s += r[k];
+  dtimes[ray] = s;
 }
 
 template <typename T, int W, int CIN>
@@ -235,9 +310,12 @@ int fwd(const float* pts, const float* times, const void* wts, const float* bias
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward: the parameter gradients and, with din (B11), demb through
+// trunk_reverse, then d pts and d times.
 template <typename T>
 int bwd(int CIN, int W, const void* wts_v, int D, int skip, int Lx, int Lt, int M, const float* g, float* gw,
-        float* gb, void* scratch, cudaStream_t st) {
+        float* gb, void* scratch, cudaStream_t st, const DinScratch* din = nullptr, const float* pts = nullptr,
+        const float* times = nullptr, int S = 1, float* dpts = nullptr, float* dtimes = nullptr) {
   const T* wts = static_cast<const T*>(wts_v);
   const int LDW = W + PADC;
   Scratch<T> sc = carve<T>(scratch, CIN, W, D, M);
@@ -258,8 +336,18 @@ int bwd(int CIN, int W, const void* wts_v, int D, int skip, int Lx, int Lt, int 
     a.ldc = W;
     SWNERF_RUN((gemm_act<T, false>(a, st)));
   }
-  return trunk_reverse<T, false>(wts, off_w, off_wemb, sc.emb, CIN, cin_of(Lx, Lt), hl, sc.dz, D, skip, W, M, gw,
-                                 gb, sc.part, nullptr, st);
+  const int cin = cin_of(Lx, Lt);
+  SWNERF_RUN((trunk_reverse<T, false>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, sc.dz, D, skip, W, M, gw, gb,
+                                      sc.part, din ? din->demb : nullptr, st)));
+  if (din) {
+    encode_xt_bwd_kernel<<<ceil_div((long long)M * 4, 256), 256, 0, st>>>(pts, times, din->demb, cin, Lx, Lt, S, M,
+                                                                        dpts, din->dt_rows);
+    SWNERF_CHECK(cudaGetLastError());
+    const int N = M / S;
+    ray_sum_kernel<<<ceil_div(N, 256), 256, 0, st>>>(din->dt_rows, S, N, dtimes);
+    SWNERF_CHECK(cudaGetLastError());
+  }
+  return 0;
 }
 
 // The padded input widths: D-NeRF's and MultiRes levels 1-3's, and level 0's.
@@ -318,6 +406,33 @@ int time_net_bwd_launch(int bf16, int W, int cin_pad, const void* wts, int D, in
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? bwd<__nv_bfloat16>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st)
               : bwd<float>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st);
+}
+
+// B11's scratch: time_net_scratch_bytes' and demb, d t, or -1.
+long long time_net_din_scratch_bytes(int bf16, int cin_pad, int W, int D, int Lx, int Lt, long long M) {
+  const long long base = time_net_scratch_bytes(bf16, cin_pad, W, D, M);
+  if (base < 0) return -1;
+  return base + (long long)din_scratch_bytes(cin_of(Lx, Lt), M);
+}
+
+// B11's backward (fused_time_net_pts with need_input_grads): as
+// time_net_bwd_launch, after a train-mode forward on a scratch of
+// time_net_din_scratch_bytes, and also d pts [N, S, 3] and d times [N] of
+// sum(g * dx), fp32, at the forward's pts [N, S, 3] and times [N].
+int time_net_bwd_din_launch(int bf16, int W, int cin_pad, const void* wts, int D, int skip, int Lx, int Lt, int N,
+                            int S, const float* pts, const float* times, const float* g, float* gw, float* gb,
+                            float* dpts, float* dtimes, void* scratch, void* stream) {
+  const long long M = (long long)N * S;
+  if (M == 0) return 0;
+  if (!shape_ok(cin_pad, W, D, skip, Lx, Lt, M) || (long long)M * cin_pad >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t base = (size_t)time_net_scratch_bytes(bf16, cin_pad, W, D, M);
+  const DinScratch din = carve_din(scratch, base, cin_of(Lx, Lt), M);
+  return bf16 ? bwd<__nv_bfloat16>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st, &din, pts, times,
+                                   S, dpts, dtimes)
+              : bwd<float>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st, &din, pts, times, S,
+                           dpts, dtimes);
 }
 
 }  // extern "C"

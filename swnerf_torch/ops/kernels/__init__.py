@@ -12,6 +12,10 @@
 | B7 | ``trunk.trunk``, ``trunk.trunk_autograd`` | ``csrc/trunk.cu`` | ``swnerf_tpu/ops/pallas/raymarch.py::_fwd_kernel`` / ``_bwd_kernel`` (``fused_trunk``) |
 | B7' | the same on ``trunk.pack_tnerf_trunk_params`` weights | ``csrc/trunk.cu`` (``TrunkElu``) | the same bodies with ``act="elu"``, ``rgb_relu=True`` (``fused_tnerf``) |
 | B8 | ``trunk.field_raw``, ``trunk.field_raw_autograd`` | ``csrc/trunk.cu`` (``TrunkRaw``) | ``raymarch.py::_fwd_kernel_raw`` / ``_bwd_kernel_raw`` (``fused_field_raw``) |
+| B3 ``pts``, wide | ``render_pass.render_pass(pts=...)`` on a wide pack | ``csrc/render_pass.cu`` (``VanillaWide``) | ``_render_loss_kernel`` with ``pts=``, inputs up to 128 columns (the MultiRes eval pass) |
+| B9 | ``render_loss.render_loss_ext``, ``render_loss.render_outputs_autograd`` | ``csrc/render_loss.cu`` (``EXT``) | ``_render_loss_kernel`` with ``ext_ct=True`` (``make_render_outputs``) |
+| B10 | ``sample_pdf.sample_pdf_merge`` | ``csrc/sample_pdf.cu`` | ``swnerf_tpu/ops/pallas/sample_pdf.py::_merge_kernel`` (``sample_pdf_merge_pallas``) |
+| B11 | ``time_net.fused_time_net_pts`` | ``csrc/time_net.cu`` (``time_net_bwd_din_launch``) | ``raymarch.py::_fwd_kernel_plain_raw`` / ``_bwd_kernel_plain_raw`` (``fused_time_net_pts``) |
 
 B4 is B3's and B1's body instantiated for the T-NeRF family (the ``TNerf``
 traits of ``csrc/mlp_common.cuh``); its launches count as
@@ -19,7 +23,10 @@ traits of ``csrc/mlp_common.cuh``); its launches count as
 and B5 count as ``render_pass[pts,S=..]`` and ``render_loss[pts,S=..]``,
 B6 as ``time_net`` and ``time_net[bwd]``, B7 as ``trunk`` and
 ``trunk[bwd]``, B7' as ``trunk[tnerf]`` and ``trunk[tnerf,bwd]``, B8 as
-``trunk[raw]`` and ``trunk[raw,bwd]``.
+``trunk[raw]`` and ``trunk[raw,bwd]``, B3's pts mode at the MultiRes widths
+as ``render_pass[pts,wide,S=..]``, B9 as ``render_loss[ext,S=..]`` and
+``render_loss[ext,wide,S=..]``, B10 as ``sample_pdf_merge``, B11's backward
+as ``time_net[pts,bwd]`` (its forward is B6's ``time_net``).
 
 A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches its kernel or raises. ``launches`` counts kernel launches by

@@ -12,6 +12,14 @@ JAX package; nothing here goes through autograd. B4's reverse takes ELU'
 from each stored activation (``h > 0 ? 1 : h + 1``) and masks the colour
 cotangent with its ReLU (``[logit > 0]``).
 
+B9 (``render_loss_ext``, the backward half of
+``train/fused_step.py::make_render_outputs``; render_fused.py's
+``ext_ct=True``) is B5 with the caller's per-ray cotangent of (rgb_map, acc,
+depth) in place of the squared error's, at the narrow or the wide pads:
+:func:`render_outputs_autograd` runs B3's pts mode forward and B9 as its
+backward, so a loss the kernel cannot form (MultiRes' pyramid
+reconstruction) still trains the field through the kernels.
+
 Weights arrive packed by ``render_pass.pack_params`` /
 ``pack_tnerf_params``; the gradients come back as one fp32 buffer in
 ``weight_layout`` order and one in ``bias_layout`` order, which
@@ -31,15 +39,19 @@ from swnerf_torch.ops.kernels import build, launches
 from swnerf_torch.ops.kernels.render_pass import (
     WIDTHS,
     PackedParams,
+    RenderPassOutput,
     _check,
     _check_weights,
     bias_layout,
     check_pts,
+    check_samples,
     check_times,
     colour,
     field_forward,
     launch_key,
     quantizer,
+    render_pass,
+    render_pass_plain,
     weight_layout,
 )
 
@@ -193,8 +205,29 @@ def field_reverse_plain(packed, emb, vemb, hs, feat, hv, graw, need_demb: bool =
     return grads, None if demb is None else demb[:, : packed.cin], dvemb
 
 
+def render_loss_ext_plain(
+    packed: PackedParams,
+    pts: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    gct: torch.Tensor,
+    white_bkgd: bool,
+) -> Tuple[RenderPassOutput, Grads, torch.Tensor]:
+    """B9's arithmetic: :func:`render_loss_pts_plain` with the caller's
+    per-ray cotangent ``gct`` [N, 5] (d loss / d rgb_map after the white
+    background, d acc, d depth) in place of the squared error's
+    (render_fused.py:428-453): ``dL/dw = sum_c g_c rgb_c + g_acc + g_depth z``
+    with ``g_acc = gct[3] - sum_c g_c`` on a white background. Returns the
+    recomputed forward, the packed fp32 gradients and ``dpts`` [N, S, 3]."""
+    out, grads, dpts = _twin(packed, None, None, views_emb, z_vals, dists, noise, None, white_bkgd, 0.0, None, pts,
+                             gct)
+    return RenderPassOutput(out.rgb, out.acc, out.depth, out.weights), grads, dpts
+
+
 def _twin(packed, origins, directions, views_emb, z_vals, dists, noise, target, white_bkgd, loss_scale, times=None,
-          pts=None):
+          pts=None, gct=None):
     _, acc_dt = quantizer(packed)
     arch = packed.arch
     N, S = z_vals.shape
@@ -220,12 +253,19 @@ def _twin(packed, origins, directions, views_emb, z_vals, dists, noise, target, 
     rgb_map = (w[..., None] * rgb).sum(-2)
     if white_bkgd:
         rgb_map = rgb_map + (1.0 - acc[:, None])
-    err = rgb_map - target
-    sqerr = (err * err).sum(-1)
-
-    g = loss_scale * 2.0 * err  # d loss / d rgb_map
-    g_acc = -g.sum(-1) if white_bkgd else torch.zeros_like(acc)
+    if gct is None:
+        err = rgb_map - target
+        sqerr = (err * err).sum(-1)
+        g = loss_scale * 2.0 * err  # d loss / d rgb_map
+        g_acc = -g.sum(-1) if white_bkgd else torch.zeros_like(acc)
+    else:  # B9: the caller's cotangent of (rgb_map, acc, depth)
+        sqerr = None
+        gct = gct.to(acc.dtype)
+        g = gct[:, :3]
+        g_acc = gct[:, 3] - g.sum(-1) if white_bkgd else gct[:, 3]
     dldw = (g[:, None, :] * rgb).sum(-1) + g_acc[:, None]
+    if gct is not None:
+        dldw = dldw + gct[:, 4:5] * z_vals
     dalpha = dldw * trans - _excl_suffix_sum(dldw * w) / safe
     dsig = torch.where(sigma > 0, dalpha * dists * ex, torch.zeros_like(dalpha))
     drgb = w[..., None] * g[:, None, :] * rgb * (1.0 - rgb)
@@ -382,6 +422,139 @@ def render_loss_pts(
     build.check(lib, code, "render_loss_pts")
     launches[launch_key(NAME, packed, S, pts=True)] += 1
     return RenderLossOutput(rgb, acc, depth, sqerr, weights), (gw, gb), dpts
+
+
+def ext_launch_key(packed: PackedParams, S: int) -> str:
+    """B9's ``launches`` key: ``render_loss[ext,S=64]``, or
+    ``render_loss[ext,wide,S=64]`` at the MultiRes widths."""
+    return f"{NAME}[ext,wide,S={S}]" if packed.wide else f"{NAME}[ext,S={S}]"
+
+
+def render_loss_ext(
+    packed: PackedParams,
+    pts: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    gct: torch.Tensor,
+    white_bkgd: bool,
+) -> Tuple[RenderPassOutput, Grads, torch.Tensor]:
+    """B9 on CUDA tensors, its twin :func:`render_loss_ext_plain` on CPU
+    tensors: the forward of B3's pts mode recomputed, the packed fp32
+    parameter gradients and ``dpts`` [N, S, 3] for the per-ray cotangent
+    ``gct`` [N, 5] of (rgb_map, acc, depth)."""
+    N, S = z_vals.shape
+    check_pts(packed, None, None, pts, (N, S, 3), "render_loss_ext")
+    dev = z_vals.device
+    if dev.type == "cpu":
+        return render_loss_ext_plain(packed, pts, views_emb, z_vals, dists, noise, gct, white_bkgd)
+    cv = views_emb.shape[-1]
+    if dev.type != "cuda" or packed.W not in WIDTHS or cv != packed.input_ch_views or N * S * (packed.W + 8) >= 2**31:
+        raise ValueError(f"render_loss_ext: unsupported call (device {dev}, W {packed.W}, N {N}, S {S}, views {cv})")
+    check_samples(NAME, packed, S, "render_loss_ext")
+    for x, name, shape in (
+        (pts, "pts", (N, S, 3)), (views_emb, "views_emb", (N, cv)), (z_vals, "z_vals", (N, S)),
+        (dists, "dists", (N, S)), (gct, "gct", (N, 5)),
+    ) + (((noise, "noise", (N, S)),) if noise is not None else ()):
+        _check(x, name, shape, dev)
+    _check_weights(packed, dev, "render_loss_ext")
+    lib = build.load(NAME)
+    bf16, wide = int(packed.weights.dtype == torch.bfloat16), int(packed.wide)
+    size_fn = lib.render_loss_ext_scratch_bytes
+    size_fn.restype = ctypes.c_longlong
+    size_fn.argtypes = [ctypes.c_int] * 6
+    nbytes = size_fn(bf16, wide, packed.W, packed.D, N, S)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    rgb, acc, depth, weights, dpts = out(N, 3), out(N), out(N), out(N, S), out(N, S, 3)
+    gw = torch.zeros(packed.weights.numel(), dtype=torch.float32, device=dev)
+    gb = torch.zeros(packed.biases.numel(), dtype=torch.float32, device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    fn = lib.render_loss_ext_launch
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, i, p, p, i, p, p, p, p, p, p, i, i, i, i, i, i] + [p] * 9
+    with torch.cuda.device(dev):
+        code = fn(
+            bf16, wide, packed.W, pts.data_ptr(), views_emb.data_ptr(), cv, z_vals.data_ptr(), dists.data_ptr(),
+            noise.data_ptr() if noise is not None else None, gct.data_ptr(),
+            packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, packed.n_freqs,
+            int(bool(white_bkgd)), N, S,
+            rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
+            gw.data_ptr(), gb.data_ptr(), dpts.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(lib, code, "render_loss_ext")
+    launches[ext_launch_key(packed, S)] += 1
+    return RenderPassOutput(rgb, acc, depth, weights), (gw, gb), dpts
+
+
+class _RenderOutputs(torch.autograd.Function):
+    """B3's pts mode forward, B9 as its backward (``make_render_outputs``,
+    fused_step.py:270-321): the backward recomputes the forward from the
+    saved inputs, as the Pallas VJP does, and hands back the packed
+    gradients and d pts for the cotangents of rgb, acc and depth. The
+    weights output, and ``views_emb``, ``z_vals``, ``dists`` and ``noise``,
+    carry no gradient. On CPU tensors the twins run."""
+
+    @staticmethod
+    def forward(ctx, weights, biases, pts, packed, dtype, views_emb, z_vals, dists, noise, white_bkgd):
+        run = dataclasses.replace(packed, weights=weights.detach().to(dtype).contiguous(),
+                                  biases=biases.detach().contiguous())
+        pts = pts.detach().contiguous()
+        out = render_pass(run, None, None, views_emb, z_vals, dists, noise, white_bkgd, None, pts)
+        ctx.run, ctx.inputs = run, (pts, views_emb, z_vals, dists, noise, white_bkgd)
+        ctx.mark_non_differentiable(out.weights)
+        return out.rgb, out.acc, out.depth, out.weights
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_acc, g_depth, _):
+        pts, views_emb, z_vals, dists, noise, white_bkgd = ctx.inputs
+        n = z_vals.shape[0]
+
+        def ct(g, *shape):
+            return torch.zeros(shape, dtype=torch.float32, device=z_vals.device) if g is None else g.float()
+
+        gct = torch.cat([ct(g_rgb, n, 3), ct(g_acc, n)[:, None], ct(g_depth, n)[:, None]], -1).contiguous()
+        _, (gw, gb), dpts = render_loss_ext(ctx.run, pts, views_emb, z_vals, dists, noise, gct, white_bkgd)
+        ctx.run = ctx.inputs = None
+        return (gw, gb, dpts) + (None,) * 7
+
+
+def render_outputs_autograd(
+    packed: PackedParams,
+    dtype: torch.dtype,
+    pts: torch.Tensor,
+    views_emb: torch.Tensor,
+    z_vals: torch.Tensor,
+    dists: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    white_bkgd: bool,
+) -> Dict[str, torch.Tensor]:
+    """A render pass as a differentiable function of the packed weights and
+    the positions (``make_render_outputs``): ``{rgb, acc, depth, weights}``
+    from one forward-only B3 pts-mode launch with ``dtype`` operands; the
+    backward is one B9 launch. ``packed`` holds fp32 buffers packed by
+    plain, differentiable torch from the modules' parameters, so autograd
+    carries B9's packed gradients back to them. ``weights`` has a zero
+    tangent (its consumers detach it for importance sampling), as have
+    ``views_emb``, ``z_vals``, ``dists`` and ``noise``. Its plain
+    counterpart is :func:`render_outputs_plain`."""
+    rgb, acc, depth, weights = _RenderOutputs.apply(packed.weights, packed.biases, pts, packed, dtype, views_emb,
+                                                    z_vals, dists, noise, white_bkgd)
+    return {"rgb": rgb, "acc": acc, "depth": depth, "weights": weights}
+
+
+def render_outputs_plain(packed, dtype, pts, views_emb, z_vals, dists, noise, white_bkgd) -> Dict[str, torch.Tensor]:
+    """:func:`render_outputs_autograd`'s twin: B3's plain pts-mode forward
+    under torch autograd (the weights rounded to ``dtype`` differentiably),
+    its ``weights`` detached."""
+    run = dataclasses.replace(packed, weights=packed.weights.to(dtype))
+    out = render_pass_plain(run, None, None, views_emb, z_vals, dists, noise, white_bkgd, None, pts)
+    return {"rgb": out.rgb, "acc": out.acc, "depth": out.depth, "weights": out.weights.detach()}
 
 
 class _RenderLossPts(torch.autograd.Function):

@@ -14,11 +14,17 @@ B4 is B3's body with three changes (the Pallas kernel's ``act="elu"``,
 ``[embed(xyz) | embed(t)]``, the trunk and the view layer use ELU, and a
 ReLU on the rgb logits comes before the compositor's sigmoid.
 
+B3's pts mode also runs at the MultiRes widths (the wide family, 123 / 123
+columns at level 0: ``raymarch.py:49-59`` takes inputs up to 128 columns),
+which the D-NeRF eval pass of levels 0-2 and the fused phase 2
+(``render_loss.render_outputs_autograd``, B9) take.
+
 ``pack_params`` and ``pack_tnerf_params`` lay the weights out for this card
 rather than for the TPU's 128 lanes: one contiguous buffer in the operand
 type (fp32 or bf16), each matrix ``[in, out]`` row-major, the input
-embedding padded to 64 rows (96 for B4) and the view embedding to 32;
-biases in a separate fp32 buffer. The skip layer is split into its
+embedding padded to 64 rows (96 for B4) and the view embedding to 32, or
+both to 128 where those do not fit (``wide``); biases in a separate fp32
+buffer. The skip layer is split into its
 embedding and hidden rows, as ``swnerf_tpu/ops/pallas/raymarch.py::
 pack_params`` / ``pack_tnerf_params`` do.
 """
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -42,20 +49,31 @@ CIN_PAD = 64  # padded position-embedding width (multires <= 10)
 # of ones after the live columns.
 CIN_PAD_T = 96
 CV_PAD = 32  # padded view-embedding width (multires_views <= 4)
+# The wide family (B3's pts mode and B9 at the MultiRes widths): both
+# embeddings padded to 128 rows, the position's up to 127 live columns so
+# that B9's train-mode body keeps its column of ones.
+CIN_PAD_WIDE = 128
+CV_PAD_WIDE = 128
 WIDTHS = (128, 256)
 
 
-def supports_config(cfg) -> bool:
+def supports_config(cfg, wide: bool = False) -> bool:
     """The shapes the kernel is built for: Fourier encoding, view
-    directions, one skip strictly inside the trunk, W in (128, 256)."""
+    directions, one skip strictly inside the trunk, W in (128, 256), the
+    embeddings within the narrow pads (64 / 32 columns). ``wide`` (B3's pts
+    mode and B9, ``raymarch.py::supports_config``) also takes the MultiRes
+    widths, a position embedding within 127 columns and a view embedding
+    within 128, and the identity embedding (``i_embed == -1``: 3 columns
+    each, the narrow pads)."""
+    cin_max, cv_max = (CIN_PAD_WIDE - 1, CV_PAD_WIDE) if wide else (CIN_PAD, CV_PAD)
     return (
         cfg.use_viewdirs
-        and cfg.i_embed == 0
+        and (cfg.i_embed == 0 or (wide and cfg.i_embed == -1))
         and cfg.netwidth in WIDTHS
         and len(cfg.skips) == 1
         and 0 < cfg.skips[0] < cfg.netdepth - 1
-        and cfg.input_ch <= CIN_PAD
-        and cfg.input_ch_views <= CV_PAD
+        and cfg.input_ch <= cin_max
+        and cfg.input_ch_views <= cv_max
     )
 
 
@@ -111,9 +129,10 @@ class PackedParams:
     D: int
     W: int
     skip: int
-    n_freqs: int  # position-encoding frequencies (multires; also the time's for B4)
+    n_freqs: int  # position-encoding frequencies (multires; also the time's for B4; 0: the identity)
     input_ch_views: int
     arch: str = "vanilla"
+    wide: bool = False  # the MultiRes widths: both embeddings padded to 128 rows
 
     @property
     def cin(self) -> int:
@@ -122,9 +141,13 @@ class PackedParams:
 
     @property
     def cin_pad(self) -> int:
+        if self.wide:
+            return CIN_PAD_WIDE
         return CIN_PAD_T if self.arch == "tnerf" else CIN_PAD
 
-    cv_pad = CV_PAD
+    @property
+    def cv_pad(self) -> int:
+        return CV_PAD_WIDE if self.wide else CV_PAD
 
     def matrices(self) -> Dict[str, torch.Tensor]:
         """Views of the packed matrices, by weight_layout name."""
@@ -187,9 +210,12 @@ def pack_buffers(trunk, heads, skip: int, cin: int, cin_pad: int, cv_pad: int, d
 
 
 def _pack(trunk, heads, skip: int, cin: int, dtype: torch.dtype, **meta) -> PackedParams:
-    cin_pad = CIN_PAD_T if meta.get("arch") == "tnerf" else CIN_PAD
-    weights, biases = pack_buffers(trunk, heads, skip, cin, cin_pad, CV_PAD, dtype)
-    return PackedParams(weights=weights, biases=biases, D=len(trunk), W=trunk[0][0].shape[0], skip=skip, **meta)
+    tnerf = meta.get("arch") == "tnerf"
+    wide = not tnerf and (cin > CIN_PAD or meta["input_ch_views"] > CV_PAD)  # the narrow pads do not hold them
+    cin_pad = CIN_PAD_WIDE if wide else CIN_PAD_T if tnerf else CIN_PAD
+    weights, biases = pack_buffers(trunk, heads, skip, cin, cin_pad, CV_PAD_WIDE if wide else CV_PAD, dtype)
+    return PackedParams(weights=weights, biases=biases, D=len(trunk), W=trunk[0][0].shape[0], skip=skip, wide=wide,
+                        **meta)
 
 
 def layer(sd, key):
@@ -201,14 +227,16 @@ def layer(sd, key):
 
 def pack_params(state_dict, cfg, dtype: torch.dtype = torch.bfloat16) -> PackedParams:
     """Pack a vanilla state dict (torch ``[out, in]`` layout, the ``.tar``
-    keys) for B3. The result lies on the state dict's device."""
-    if not supports_config(cfg):
+    keys) for B3, at the narrow pads where the embeddings fit them, else at
+    the wide ones (``supports_config(cfg, wide=True)``: B3's pts mode and B9
+    only). The result lies on the state dict's device."""
+    if not supports_config(cfg, wide=True):
         raise ValueError(f"render_pass does not support {cfg}")
     trunk = [layer(state_dict, f"pts_linears.{i}") for i in range(cfg.netdepth)]
     heads = {k: layer(state_dict, key) for k, key in (
         ("feature", "feature_linear"), ("alpha", "alpha_linear"), ("views", "views_linears.0"), ("rgb", "rgb_linear"),
     )}
-    return _pack(trunk, heads, cfg.skips[0], cfg.input_ch, dtype, n_freqs=cfg.multires,
+    return _pack(trunk, heads, cfg.skips[0], cfg.input_ch, dtype, n_freqs=max(cfg.nf_pts, 0),
                  input_ch_views=cfg.input_ch_views)
 
 
@@ -253,7 +281,7 @@ class FieldForward(NamedTuple):
     operands the kernels keep and the fp32 head outputs."""
 
     emb: torch.Tensor  # [P, cin_pad]
-    vemb: torch.Tensor  # [P, CV_PAD]
+    vemb: torch.Tensor  # [P, cv_pad]
     hs: List[torch.Tensor]  # each trunk layer's output [P, W]
     feat: torch.Tensor  # [P, W]
     hv: torch.Tensor  # [P, W/2]
@@ -308,8 +336,8 @@ def field_forward(packed: PackedParams, origins, directions, views_emb, z_vals, 
         t = times.reshape(N, 1, 1).expand(N, S, 1).reshape(P, 1)
         emb = torch.cat([emb, positional_encoding(t, packed.n_freqs)], -1)
     emb = q(F.pad(emb, (0, packed.cin_pad - emb.shape[-1])))
-    vemb = q(F.pad(views_emb, (0, CV_PAD - views_emb.shape[-1])))
-    vemb = vemb[:, None, :].expand(N, S, CV_PAD).reshape(P, CV_PAD)
+    vemb = q(F.pad(views_emb, (0, packed.cv_pad - views_emb.shape[-1])))
+    vemb = vemb[:, None, :].expand(N, S, packed.cv_pad).reshape(P, packed.cv_pad)
     hs, feat, hv, sigma, logits = field_mlp(packed, emb, vemb)
     return FieldForward(emb, vemb, hs, feat, hv, sigma.reshape(N, S), logits)
 
@@ -376,9 +404,10 @@ def check_times(packed: PackedParams, times: Optional[torch.Tensor], n: int, wha
 def launch_key(name: str, packed: PackedParams, S: int, pts: bool = False) -> str:
     """The ``launches`` key of one kernel call: ``render_pass[S=64]`` for
     B3, ``render_pass[pts,S=64]`` for its pts mode (``render_loss[pts,..]``:
-    B5), ``render_pass[tnerf,S=64]`` for B4."""
+    B5), ``render_pass[pts,wide,S=64]`` for the pts mode at the MultiRes
+    widths, ``render_pass[tnerf,S=64]`` for B4."""
     if pts:
-        return f"{name}[pts,S={S}]"
+        return f"{name}[pts,wide,S={S}]" if packed.wide else f"{name}[pts,S={S}]"
     return f"{name}[S={S}]" if packed.arch == "vanilla" else f"{name}[{packed.arch},S={S}]"
 
 
@@ -396,6 +425,24 @@ def check_pts(packed: PackedParams, origins, directions, pts, shape, what: str) 
         raise ValueError(f"{what}: pts must be {shape}, got {tuple(pts.shape)}")
 
 
+@functools.lru_cache(maxsize=None)
+def max_samples(name: str, tnerf: bool, bf16: bool, wide: bool, W: int) -> int:
+    """The most samples per ray a launch of ``csrc/<name>.cu`` takes for this
+    field family, operand type and width, as the source sizes its block's
+    shared memory (``<name>_max_samples``; its launchers refuse more)."""
+    fn = getattr(build.load(name), f"{name}_max_samples")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 4
+    return fn(int(tnerf), int(bf16), int(wide), W)
+
+
+def check_samples(name: str, packed: PackedParams, S: int, what: str) -> None:
+    """Refuse a launch whose block would not fit in shared memory."""
+    limit = max_samples(name, packed.arch == "tnerf", packed.weights.dtype == torch.bfloat16, packed.wide, packed.W)
+    if not 1 <= S <= limit:
+        raise ValueError(f"{what}: S={S} samples per ray; this field's block fits {limit} at most")
+
+
 def render_pass(
     packed: PackedParams,
     origins: torch.Tensor,
@@ -410,7 +457,8 @@ def render_pass(
 ) -> RenderPassOutput:
     """B3 (vanilla), B4 (T-NeRF, with per-ray ``times`` [N]) or B3's pts
     mode (``pts`` [N, S, 3] in place of origins and directions, which are
-    then None) on CUDA tensors, the plain twin on CPU tensors."""
+    then None; at the narrow or the wide pads) on CUDA tensors, the plain
+    twin on CPU tensors."""
     N, S = z_vals.shape
     check_times(packed, times, N, "render_pass")
     check_pts(packed, origins, directions, pts, (N, S, 3), "render_pass")
@@ -418,8 +466,10 @@ def render_pass(
     if dev.type == "cpu":
         return render_pass_plain(packed, origins, directions, views_emb, z_vals, dists, noise, white_bkgd, times, pts)
     cv = views_emb.shape[-1]
-    if dev.type != "cuda" or packed.W not in WIDTHS or cv != packed.input_ch_views or not 1 <= S <= 1024:
-        raise ValueError(f"render_pass: unsupported call (device {dev}, W {packed.W}, S {S}, views {cv})")
+    if dev.type != "cuda" or packed.W not in WIDTHS or cv != packed.input_ch_views or (packed.wide and pts is None):
+        raise ValueError(f"render_pass: unsupported call (device {dev}, W {packed.W}, S {S}, views {cv}, "
+                         f"wide {packed.wide}: the wide pads serve the pts mode only)")
+    check_samples(NAME, packed, S, "render_pass")
     rays_in = ((pts, "pts", (N, S, 3)),) if pts is not None else (
         (origins, "origins", (N, 3)), (directions, "directions", (N, 3)))
     for x, name, shape in rays_in + (
@@ -449,8 +499,8 @@ def render_pass(
         if pts is not None:
             fn = lib.render_pass_pts_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [i, i, p] + tail_types
-            code = fn(bf16, packed.W, pts.data_ptr(), *tail)
+            fn.argtypes = [i, i, i, p] + tail_types
+            code = fn(bf16, int(packed.wide), packed.W, pts.data_ptr(), *tail)
         else:
             fn = lib.render_pass_launch
             fn.restype = ctypes.c_int

@@ -1,10 +1,14 @@
-"""Kernel B2: inverse-CDF importance sampling (``csrc/sample_pdf.cu``) and
-its plain PyTorch twin.
+"""Kernels B2, inverse-CDF importance sampling, and B10, the same with the
+sorted union with the coarse depths (``csrc/sample_pdf.cu``), and their
+plain PyTorch twins.
 
-Replaces ``swnerf_tpu/ops/pallas/sample_pdf.py::_kernel``. The uniforms
-``u`` are built outside, as the JAX wrapper does (``sample_pdf.py:103-109``).
-The twin sums in the kernel's order (explicit sequential scans), so the two
-agree bit for bit on the card.
+B2 replaces ``swnerf_tpu/ops/pallas/sample_pdf.py::_kernel``, B10
+``_merge_kernel`` (``sample_pdf_merge_pallas``, the ``SWNERF_PDF_MERGE=1``
+path). The uniforms ``u`` are built outside, as the JAX wrappers do
+(``sample_pdf.py:103-109``, ``:266-275``). The twin sums in the kernel's
+order (explicit sequential scans), so the two agree bit for bit on the
+card; B10's samples are B2's, and its output is their sorted union with the
+coarse depths whatever their order.
 """
 
 from __future__ import annotations
@@ -79,4 +83,46 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> to
         )
     build.check(lib, code, "sample_pdf")
     launches[NAME] += 1
+    return out
+
+
+MERGE_NAME = "sample_pdf_merge"
+
+
+def sample_pdf_merge_plain(z_vals: torch.Tensor, bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor
+                           ) -> torch.Tensor:
+    """z_vals [N, Mz], bins [N, M], weights [N, M-1], u [N, S] -> the sorted
+    union of z_vals and B2's samples, [N, Mz + S] (fp32)."""
+    return torch.sort(torch.cat([z_vals, sample_pdf_plain(bins, weights, u)], -1), -1).values
+
+
+def sample_pdf_merge(z_vals: torch.Tensor, bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor
+                     ) -> torch.Tensor:
+    """B10 on CUDA tensors, the plain twin on CPU tensors."""
+    if bins.device.type == "cpu":
+        return sample_pdf_merge_plain(z_vals, bins, weights, u)
+    N, M = bins.shape
+    S, Mz = u.shape[-1], z_vals.shape[-1]
+    if any(x.device != bins.device for x in (weights, u, z_vals)) or bins.device.type != "cuda":
+        raise ValueError("sample_pdf_merge: z_vals, bins, weights and u must lie on one CUDA device")
+    if weights.shape != (N, M - 1) or u.shape != (N, S) or z_vals.shape != (N, Mz) or not 2 <= M <= 1024 \
+            or 4 * 4 * (2 * M + Mz + S) > 48 * 1024:
+        raise ValueError(
+            f"sample_pdf_merge: bad shapes z_vals {tuple(z_vals.shape)}, bins {tuple(bins.shape)}, weights "
+            f"{tuple(weights.shape)}, u {tuple(u.shape)}"
+        )
+    strides = [_row_stride(x, n) for x, n in ((bins, "bins"), (weights, "weights"), (u, "u"), (z_vals, "z_vals"))]
+    out = torch.empty((N, Mz + S), dtype=torch.float32, device=bins.device)
+    lib = build.load(NAME)
+    fn = lib.sample_pdf_merge_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    with torch.cuda.device(bins.device):
+        code = fn(
+            bins.data_ptr(), strides[0], weights.data_ptr(), strides[1], u.data_ptr(), strides[2],
+            z_vals.data_ptr(), strides[3], out.data_ptr(), N, M, Mz, S, stream,
+        )
+    build.check(lib, code, "sample_pdf_merge")
+    launches[MERGE_NAME] += 1
     return out

@@ -8,9 +8,14 @@ MLP([embed(x) | embed(t)])`` with ReLU layers, a skip that concatenates
 ``embed(x)`` only, and a 3-wide head. B6 encodes in-block from the sample
 positions ``pts`` [N, S, 3] and the per-ray times [N], with its own
 position and time frequency counts (0: the identity, a MultiRes level's
-``-1``), which is what B11 (``fused_time_net_pts``) computes too. The input
-cotangent is not formed: the positions enter detached in every caller
-(fused_step.py:478-481, 499-503; models/dnerf.py:264-268).
+``-1``), which is what B11 (``raymarch.py::fused_time_net_pts``) computes
+too: :func:`fused_time_net_pts` runs B6's forward launch and, with
+``need_input_grads``, B11's backward, which also forms the fp32 cotangent
+of ``[embed(x) | embed(t)]`` and chains it through the encode to d pts and
+d times (``_bwd_kernel_plain_raw``, raymarch.py:519-553). The product
+callers feed the positions detached (fused_step.py:478-481, 499-503;
+models/dnerf.py:264-268) and form no input cotangent, as in the JAX
+package, where ``fused_time_net_pts`` has no product caller either.
 
 ``pack_time_params`` is the port of ``raymarch.py::pack_time_params``
 (:786-816) for this card: one buffer in the operand type, each matrix
@@ -126,6 +131,12 @@ class PackedTimeParams:
         forward) and the dH products (no input cotangent)."""
         return self.macs_per_row + (self.D - 1) * self.W * self.W + self.W * 3
 
+    @property
+    def din_macs_per_row(self) -> int:
+        """B11's backward: B6's and the input cotangent (dz_0 W_0^T over
+        every live column, dz_{skip+1} W_emb^T over embed(x)'s)."""
+        return self.bwd_macs_per_row + (self.cin + self.input_ch) * self.W
+
 
 def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(w, (0, 0, 0, rows - w.shape[0]))
@@ -226,14 +237,44 @@ def time_net_plain(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Ten
     return _forward(packed, pts, times, keep=False)[2].reshape(pts.shape)
 
 
+def encode_xt_backward(pts: torch.Tensor, times: torch.Tensor, demb: torch.Tensor, n_freqs: int,
+                       n_freqs_time: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """d pts [N, S, 3] and d times [N] from the cotangent ``demb`` [N*S,
+    cin] of ``[embed(x) | embed(t)]`` (positional_encoding's columns; 0
+    frequencies: the identity), in the kernel's order of sums
+    (``raymarch.py::_embed_bwd``, which takes cos's derivative as
+    cos(u + pi/2)); d times adds each ray's samples."""
+    N, S, _ = pts.shape
+    x = pts.reshape(-1, 3).to(demb.dtype)
+    s = demb[:, 0:3]
+    for f in range(n_freqs):
+        scale = float(2**f)
+        u = x * scale
+        c = 3 + 6 * f
+        s = s + scale * (torch.cos(u) * demb[:, c : c + 3] - torch.sin(u) * demb[:, c + 3 : c + 6])
+    dpos = 3 + 6 * n_freqs
+    t = times.reshape(N, 1).expand(N, S).reshape(-1).to(demb.dtype)
+    dt = demb[:, dpos]
+    for f in range(n_freqs_time):
+        scale = float(2**f)
+        u = t * scale
+        c = dpos + 1 + 2 * f
+        dt = dt + scale * (torch.cos(u) * demb[:, c] - torch.sin(u) * demb[:, c + 1])
+    return s.reshape(N, S, 3), dt.reshape(N, S).sum(-1)
+
+
 def time_net_plain_bwd(
-    packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor, g: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor, g: torch.Tensor,
+    need_input_grads: bool = False,
+):
     """B6's backward in torch ops: the packed fp32 gradients (weights in
     ``weight_layout``, biases in ``bias_layout`` order) of ``sum(g * dx)``
     for the cotangent g [N, S, 3], from a recomputed forward.
     ``_trunk_backward``'s plain head: q(g) into dW_out and dH, the fp32 g
-    into db_out, every dz rounded."""
+    into db_out, every dz rounded. With ``need_input_grads`` (B11) it
+    returns ``(grads, dpts [N, S, 3], dtimes [N])``: the fp32 embedding
+    cotangent (dz_{skip+1} W_emb^T, then + dz_0 W_0^T over the live
+    columns) through :func:`encode_xt_backward`."""
     cdt = packed.weights.dtype
     acc_dt = torch.float64 if cdt == torch.float64 else torch.float32
     m = {k: v.to(acc_dt) for k, v in packed.matrices().items()}
@@ -252,12 +293,19 @@ def time_net_plain_bwd(
             gw[f"pts{i}_emb"] = emb.t() @ dz
         gw[f"pts{i}"] = (emb if i == 0 else hs[i - 1]).t() @ dz
         gb[f"pts{i}"] = dz.sum(0)
+        if need_input_grads and i == packed.skip + 1:
+            demb = dz @ m[f"pts{i}_emb"].t()
         if i > 0:
             dz = q(torch.where(hs[i - 1] > 0, dz @ m[f"pts{i}"].t(), torch.zeros_like(hs[i - 1])))
-    return (
+        elif need_input_grads:
+            demb = demb + dz @ m["pts0"].t()
+    grads = (
         torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(packed.D, packed.W, packed.skip, packed.cin_pad)]),
         torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(packed.D, packed.W)]),
     )
+    if not need_input_grads:
+        return grads
+    return (grads, *encode_xt_backward(pts, times, demb[:, : packed.cin], packed.n_freqs, packed.n_freqs_time))
 
 
 def _lib_fn(lib, name, restype, argtypes):
@@ -315,6 +363,44 @@ def _scratch(packed: PackedTimeParams, M: int, dev) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
+def _din_scratch(packed: PackedTimeParams, M: int, dev) -> torch.Tensor:
+    """B11's train-mode scratch: B6's, then the fp32 embedding cotangent
+    and the per-row d t."""
+    lib = build.load(NAME)
+    i = ctypes.c_int
+    fn = _lib_fn(lib, "time_net_din_scratch_bytes", ctypes.c_longlong, [i, i, i, i, i, i, ctypes.c_longlong])
+    nbytes = fn(int(packed.weights.dtype == torch.bfloat16), packed.cin_pad, packed.W, packed.D, packed.n_freqs,
+                packed.n_freqs_time, M)
+    if nbytes < 0:
+        raise ValueError(f"time_net: unsupported width {packed.W} or input {packed.cin}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch_bwd_din(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor, g: torch.Tensor,
+                    scratch: torch.Tensor):
+    """B11's backward launch: the packed gradients, d pts and d times."""
+    N, S, _ = pts.shape
+    dev = g.device
+    _check(g, "g", (N * S, 3), dev)
+    lib = build.load(NAME)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _lib_fn(lib, "time_net_bwd_din_launch", ctypes.c_int, [i, i, i, p, i, i, i, i, i, i] + [p] * 9)
+    gw = torch.zeros(packed.weights.numel(), dtype=torch.float32, device=dev)
+    gb = torch.zeros(packed.biases.numel(), dtype=torch.float32, device=dev)
+    dpts = torch.empty((N, S, 3), dtype=torch.float32, device=dev)
+    dtimes = torch.empty((N,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = fn(
+            int(packed.weights.dtype == torch.bfloat16), packed.W, packed.cin_pad, packed.weights.data_ptr(),
+            packed.D, packed.skip, packed.n_freqs, packed.n_freqs_time, N, S, pts.data_ptr(), times.data_ptr(),
+            g.data_ptr(), gw.data_ptr(), gb.data_ptr(), dpts.data_ptr(), dtimes.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.check(lib, code, "time_net backward (input grads)")
+    launches[f"{NAME}[pts,bwd]"] += 1
+    return (gw, gb), dpts, dtimes
+
+
 def _launch_bwd(packed: PackedTimeParams, M: int, g: torch.Tensor, scratch: torch.Tensor):
     dev = g.device
     _check(g, "g", (M, 3), dev)
@@ -351,32 +437,38 @@ def time_net_fwd_bwd(
 
 
 class _TimeNet(torch.autograd.Function):
-    """B6 under autograd. On the card the forward keeps the spilled
-    activations (its scratch) for the backward kernel; on the CPU the twin's
-    backward recomputes the forward. Only the parameters get gradients."""
+    """B6 under autograd, and B11 with ``din``. On the card the forward
+    keeps the spilled activations (its scratch) for the backward kernel; on
+    the CPU the twin's backward recomputes the forward. Without ``din`` only
+    the parameters get gradients; with it also pts and times."""
 
     @staticmethod
-    def forward(ctx, weights, biases, packed, dtype, pts, times):
+    def forward(ctx, weights, biases, packed, dtype, pts, times, din=False):
         run = dataclasses.replace(packed, weights=weights.detach().to(dtype).contiguous(),
                                   biases=biases.detach().contiguous())
         pts, times = pts.detach().contiguous(), times.detach().contiguous()
-        ctx.run, ctx.pts, ctx.times = run, pts, times
+        ctx.run, ctx.pts, ctx.times, ctx.din = run, pts, times, din
         if pts.device.type == "cpu":
             ctx.scratch = None
             return time_net_plain(run, pts, times)
-        ctx.scratch = _scratch(run, pts.shape[0] * pts.shape[1], pts.device)
+        M = pts.shape[0] * pts.shape[1]
+        ctx.scratch = _din_scratch(run, M, pts.device) if din else _scratch(run, M, pts.device)
         return _launch_fwd(run, pts, times, ctx.scratch)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
+        dpts = dtimes = None
+        M = ctx.pts.shape[0] * ctx.pts.shape[1]
         if ctx.scratch is None:
-            gw, gb = time_net_plain_bwd(ctx.run, ctx.pts, ctx.times, g)
+            out = time_net_plain_bwd(ctx.run, ctx.pts, ctx.times, g, ctx.din)
+            (gw, gb), dpts, dtimes = out if ctx.din else (out, None, None)
+        elif ctx.din:
+            (gw, gb), dpts, dtimes = _launch_bwd_din(ctx.run, ctx.pts, ctx.times, g.reshape(M, 3), ctx.scratch)
         else:
-            M = ctx.pts.shape[0] * ctx.pts.shape[1]
             gw, gb = _launch_bwd(ctx.run, M, g.reshape(M, 3), ctx.scratch)
         ctx.scratch = None
-        return gw, gb, None, None, None, None
+        return gw, gb, None, None, dpts, dtimes, None
 
 
 def time_net_autograd(packed: PackedTimeParams, dtype: torch.dtype, pts: torch.Tensor, times: torch.Tensor
@@ -387,3 +479,17 @@ def time_net_autograd(packed: PackedTimeParams, dtype: torch.dtype, pts: torch.T
     torch.float32)``), so autograd carries the kernel's packed gradients back
     to them. pts and times enter detached."""
     return _TimeNet.apply(packed.weights, packed.biases, packed, dtype, pts, times)
+
+
+def fused_time_net_pts(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor,
+                       need_input_grads: bool = False, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """B11 (``raymarch.py::fused_time_net_pts``): dx [N, S, 3] at the raw
+    positions pts [N, S, 3] and per-ray times [N], the encode in the
+    kernel, differentiable in ``packed``'s buffers (``dtype`` operands;
+    None: the buffers' own type). Its forward is B6's launch. Without
+    ``need_input_grads`` the backward is B6's and pts and times enter
+    detached, exactly as :func:`time_net_autograd`; with it the backward
+    also hands back d pts and d times (B11). No product path calls it, as in
+    the JAX package."""
+    return _TimeNet.apply(packed.weights, packed.biases, packed, dtype or packed.weights.dtype, pts, times,
+                          need_input_grads)

@@ -23,14 +23,23 @@ one D-NeRF field per Laplacian-pyramid level, trained in two phases.
 
 On the card each field runs kernels B6 and B7 (``models/dnerf.py``'s kernel
 route, bf16 operands; the fp32 plain route under ``SWNERF_FUSED=0`` or
-``SWNERF_FUSED_DTYPE=f32``) in both phases and in the test-set renders,
-which go through the fields chunk by chunk: the D-NeRF eval pass does not
-cover the MultiRes widths. The host stream (patch corners, image indices, neighbour
-times) is seeded from ``SWNERF_SEED``; at seed 0 it draws the JAX package's
-(which hard-codes 0). Not ported yet (ROADMAP.md): K steps per dispatch,
-tensor and data parallelism, the native/orbax checkpoints, the mp4 writer
-(``--i_video`` writes PNG frames), ``SWNERF_FUSED_MULTIRES`` and kernel B9.
-``SWNERF_MAX_ITERS`` caps the iteration count (testing).
+``SWNERF_FUSED_DTYPE=f32``) in both phases. The test-set renders and the
+``--i_video`` time sweep run levels 0-2 through the D-NeRF eval pass (B6,
+then B3's pts mode at the MultiRes widths: ``make_level_eval_passes``, the
+eval pass ``make_dnerf_field`` attaches there, models/dnerf.py:294-306),
+and the identity level 3 through its fields, as on the TPU;
+``SWNERF_FUSED_EVAL=0`` renders every level through its fields.
+``SWNERF_FUSED_MULTIRES`` (``"1"``, or a per-level list ``"1,0,0,0"``)
+runs phase 2 fused on the chosen levels (``make_phase2_step(fused=...)``):
+B6 under autograd, then B3's pts mode forward and kernel B9 as its
+backward (``render_loss.render_outputs_autograd``), so the pyramid
+reconstruction's gradient reaches every level through the kernels; on the
+CPU the twins stand in. The host stream (patch corners, image indices,
+neighbour times) is seeded from ``SWNERF_SEED``; at seed 0 it draws the JAX
+package's (which hard-codes 0). Not ported yet (ROADMAP.md): K steps per
+dispatch, tensor and data parallelism, the native/orbax checkpoints and the
+mp4 writer (``--i_video`` writes PNG frames). ``SWNERF_MAX_ITERS`` caps the
+iteration count (testing).
 """
 
 from __future__ import annotations
@@ -45,9 +54,14 @@ import numpy as np
 import torch
 
 from swnerf_torch.device import resolve_device
-from swnerf_torch.models import DNeRFConfig, make_dnerf_model
+from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig, make_dnerf_model
+from swnerf_torch.ops.embedding import positional_encoding
+from swnerf_torch.ops.kernels import render_loss as b1
+from swnerf_torch.ops.kernels import render_pass as b3
+from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.pyramid import generate_gaussian_pyramid, generate_laplacian_pyramid, reconstruct_from_pyramid
 from swnerf_torch.ops.rays import get_rays_at
+from swnerf_torch.ops.sampling import sample_along_rays
 from swnerf_torch.pipelines.common import (
     ImageSampler,
     Scene,
@@ -60,11 +74,19 @@ from swnerf_torch.pipelines.common import (
     seed_value,
 )
 from swnerf_torch.render.core import Draws, RenderConfig, build_rays, make_draws, render_rays
+from swnerf_torch.render.fused_eval import (
+    DNeRFEvalPass,
+    _dists_scaled,
+    canonical_params,
+    make_dnerf_eval_pass,
+    supports_dnerf_eval_pass,
+)
 from swnerf_torch.train.checkpoint import dnerf_state_dict, find_checkpoints, load_tar, save_tar
 from swnerf_torch.train.loop import TrainState, init_train_state, make_dnerf_train_step, mse, mse_to_psnr
 from swnerf_torch.utils.config import config_parser_dnerf
 from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
 from swnerf_torch.utils.media import write_png
+from swnerf_torch.utils.switches import eval_pass_route, fused_multires, operand_dtype
 
 # (position, time, view) frequencies per level; -1 = identity (multires_dnerf.py:665-668).
 CHANNEL_LIST = [(20, 8, 20), (10, 4, 10), (10, 4, 10), (-1, -1, -1)]
@@ -164,6 +186,23 @@ def create_multires(args, scene: Scene, device: torch.device):
     return kind, states, pyr_hwf, rcfg, start
 
 
+def make_level_eval_passes(states: List[TrainState], device: torch.device) -> List[Optional[DNeRFEvalPass]]:
+    """Per level, the D-NeRF eval pass ``make_dnerf_field`` attaches to it
+    (models/dnerf.py:294-306 there): a DirectTemporalNeRF with the Fourier
+    encoding (``i_embed == 0``) whose widths B3's pts mode and B6 take,
+    where ``switches.eval_pass_route`` holds (bf16 on the card, the fp32
+    twins on the CPU). At the config's channels that is levels 0-2; the
+    identity level 3 gets None and renders through its fields."""
+    out: List[Optional[DNeRFEvalPass]] = []
+    for st in states:
+        cfg = getattr(st.coarse, "cfg", None)
+        ok = (isinstance(st.coarse, DirectTemporalNeRF) and cfg.i_embed == 0 and supports_dnerf_eval_pass(cfg)
+              and eval_pass_route(device))
+        out.append(make_dnerf_eval_pass(cfg, torch.bfloat16 if device.type == "cuda" else torch.float32)
+                   if ok else None)
+    return out
+
+
 def save_multires_ckpt(args, states: List[TrainState], i: int) -> str:
     """``{i:06d}.tar`` with per-level keys (multires_dnerf.py:1010-1024):
     ``network_fn_{l}``, ``network_fine_{l}`` (two models only) and
@@ -193,22 +232,84 @@ def level_scene(scene: Scene, hwf, images: Optional[np.ndarray] = None) -> Scene
     )
 
 
-def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: float, far: float):
-    """The joint step (``make_phase2_step(fused=False)`` of the JAX package,
-    run_multires.py:362-407): ``(states, pixels_all, targets_all,
+def supports_fused_phase2(model, rcfg: RenderConfig) -> bool:
+    """A level can run phase 2 fused (run_multires.py:226-240 there): a
+    DirectTemporalNeRF whose canonical trunk B3's pts mode and B9 take (the
+    wide widths, the identity level too) and whose deformation MLP B6
+    takes, rendered in one pass (the joint patch step has no fine pass)."""
+    cfg = getattr(model, "cfg", None)
+    return (
+        isinstance(model, DirectTemporalNeRF)
+        and b3.supports_config(cfg, wide=True)
+        and b6.supports_time_net(cfg)
+        and cfg.i_embed in (0, -1)
+        and rcfg.n_importance == 0
+    )
+
+
+def _can_fuse(st: TrainState, rcfg: RenderConfig) -> bool:
+    return supports_fused_phase2(st.coarse, rcfg) and st.fine is None  # the joint step has no fine pass
+
+
+def fused_levels(states: List[TrainState], rcfg: RenderConfig, device) -> List[bool]:
+    """Per level, whether phase 2 runs it fused: ``SWNERF_FUSED_MULTIRES``
+    (``switches.fused_multires``) on the levels that can."""
+    return fused_multires(device, [_can_fuse(st, rcfg) for st in states])
+
+
+def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: float, far: float,
+                     fused=None, compute_dtype: Optional[torch.dtype] = None):
+    """The joint step (``make_phase2_step`` of the JAX package,
+    run_multires.py:243-407): ``(states, pixels_all, targets_all,
     target_full, pose, t, gw, generator=None, draws=None) -> metrics``.
     Every level renders its patch of ``pixels_all[l]`` [ps^2, 2] at frame
-    time ``t`` through its fields (``render_rays``), adds its MSE against
-    ``targets_all[l]`` [ps, ps, 3] (its Laplacian band), then ``gw`` times
-    the MSE of the reconstructed patches against ``target_full``; one
-    backward, then each level's Adam. ``draws`` (one ``Draws`` per level)
+    time ``t``, adds its MSE against ``targets_all[l]`` [ps, ps, 3] (its
+    Laplacian band), then ``gw`` times the MSE of the reconstructed patches
+    against ``target_full``; one backward, then each level's Adam.
+
+    ``fused`` chooses per level how it renders: None reads
+    ``SWNERF_FUSED_MULTIRES`` (:func:`fused_levels`), a bool for all
+    levels, or a list. An unfused level renders through its fields (``render_rays``); a fused level runs ``fused_rgb`` (run_multires.py:
+    306-344 there): the stratified z from the draws, dx by B6 under autograd
+    on the detached positions, the ``t == 0`` mask, then
+    ``render_outputs_autograd`` at ``pts + dx`` (B3's pts mode, B9 as its
+    backward) with ``compute_dtype`` operands (None: bf16 on the card, fp32
+    on the CPU, whose twins stand in). ``draws`` (one ``Draws`` per level)
     or ``generator`` give the random numbers: the JAX package renders every
     level of every phase-2 step with one key (run_multires.py:622), the port
     draws fresh numbers each time."""
     L = len(pyr_hwf)
 
+    def fused_rgb(st: TrainState, rays, dl: Draws, dtype: torch.dtype) -> torch.Tensor:
+        cfg = st.coarse.cfg
+        params = dict(st.coarse.named_parameters())
+        pdt = next(st.coarse.parameters()).dtype  # float32; float64 for a float64 reference run on the twins
+        canon = b3.pack_params(canonical_params(params), cfg, pdt)
+        tnet = b6.pack_time_params(params, cfg, pdt)
+        z = sample_along_rays(rays.near, rays.far, rcfg.n_samples, rcfg.perturb, rcfg.lindisp,
+                              t_rand=dl.t_rand).contiguous()
+        pts = (rays.origins[:, None, :] + rays.directions[:, None, :] * z[..., None]).contiguous()
+        t = rays.times.reshape(-1).to(pts.dtype).contiguous()
+        dx = b6.time_net_autograd(tnet, dtype, pts, t)
+        if cfg.zero_canonical:
+            dx = torch.where((t == 0.0)[:, None, None], torch.zeros_like(dx), dx)
+        noise = dl.noise0.contiguous() if rcfg.raw_noise_std > 0.0 and dl.noise0 is not None else None
+        vd_emb = positional_encoding(rays.viewdirs, cfg.nf_views).contiguous()
+        out = b1.render_outputs_autograd(canon, dtype, (pts + dx).contiguous(), vd_emb, z,
+                                         _dists_scaled(z, rays.directions).contiguous(), noise, rcfg.white_bkgd)
+        return out["rgb"]
+
     def step(states: List[TrainState], pixels_all, targets_all, target_full, pose, t: float, gw: float,
              generator: Optional[torch.Generator] = None, draws: Optional[List[Draws]] = None):
+        device = pixels_all[0].device
+        if fused is None:
+            flags = fused_levels(states, rcfg, device)
+        else:
+            flags = [fused] * L if isinstance(fused, bool) else list(fused)
+            bad = [l for l, st in enumerate(states) if flags[l] and not _can_fuse(st, rcfg)]
+            if bad:
+                raise ValueError(f"make_phase2_step: levels {bad} cannot run phase 2 fused")
+        dtype = operand_dtype(device, compute_dtype)
         for st in states:
             st.zero_grad()
         total = 0.0
@@ -222,7 +323,10 @@ def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: 
             times = torch.full((ps * ps, 1), float(t), dtype=torch.float32, device=pixels.device)
             rays = build_rays(rays_o, rays_d, near, far, use_viewdirs=rcfg.use_viewdirs, times=times)
             dl = draws[l] if draws is not None else make_draws(rcfg, ps * ps, generator, pixels.device)
-            out = render_rays(states[l].coarse, rays, rcfg, fine_model=states[l].fine, draws=dl)
+            if flags[l]:
+                out = {"rgb": fused_rgb(states[l], rays, dl, dtype)}
+            else:
+                out = render_rays(states[l].coarse, rays, rcfg, fine_model=states[l].fine, draws=dl)
             rgb = out["rgb"].reshape(ps, ps, 3)
             img_loss = mse(rgb, targets_all[l])
             total = total + img_loss
@@ -246,14 +350,18 @@ def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: 
     return step
 
 
-def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: RenderConfig, i: int
-                   ) -> Tuple[np.ndarray, float]:
-    """Every level renders the test views at their frame times through its
-    fields (``layer_{l}/``), and the reconstructions go to
+def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: RenderConfig, i: int,
+                   eval_passes: Optional[List[Optional[DNeRFEvalPass]]] = None
+                   ) -> Tuple[np.ndarray, float, List[torch.Tensor]]:
+    """Every level renders the test views at their frame times
+    (``layer_{l}/``) through its eval pass where ``eval_passes`` gives one
+    (:func:`make_level_eval_passes`), else through its fields, and the
+    reconstructions go to
     ``recon_{k:03d}.png`` in ``testset_{i:06d}``. Returns the reconstructed
-    frames [T, H, W, 3] (clipped to [0, 1]) and the milliseconds per
+    frames [T, H, W, 3] (clipped to [0, 1]), the milliseconds per
     reconstructed frame (every level's render and the reconstruction; on a
-    card between two synchronizations; the PNG writes come after)."""
+    card between two synchronizations; the PNG writes come after) and each
+    level's frames [T, H / 2^l, W / 2^l, 3] as rendered."""
     testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
     device = next(states[0].coarse.parameters()).device
     if device.type == "cuda":
@@ -262,7 +370,8 @@ def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: 
     level_frames = []
     for l, st in enumerate(states):
         rgbs, _, _ = render_path(st.coarse, st.fine, scene.poses[scene.i_test], level_scene(scene, pyr_hwf[l]), rcfg,
-                                 args.chunk, times=scene.times[scene.i_test])
+                                 args.chunk, eval_pass=eval_passes[l] if eval_passes else None,
+                                 times=scene.times[scene.i_test])
         level_frames.append(torch.as_tensor(rgbs))
     recon = reconstruct_from_pyramid(level_frames).clamp(0.0, 1.0).numpy()
     ms = (time.perf_counter() - t0) * 1e3 / max(len(scene.i_test), 1)
@@ -272,13 +381,15 @@ def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: 
     for k, frame in enumerate(recon):
         write_png(os.path.join(testsavedir, f"recon_{k:03d}.png"), frame)
     print(f"Saved test set reconstructed images ({ms:.1f} ms per reconstructed frame)")
-    return recon, ms
+    return recon, ms, level_frames
 
 
-def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: RenderConfig, i: int) -> None:
+def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: RenderConfig, i: int,
+                      eval_passes: Optional[List[Optional[DNeRFEvalPass]]] = None) -> None:
     """The first render pose swept over ``SWNERF_VIDEO_FRAMES`` (120) times
-    per level, reconstructed to PNG frames (run_multires.py:639-661; the mp4
-    writer is a later slice)."""
+    per level (through its eval pass where ``eval_passes`` gives one),
+    reconstructed to PNG frames (run_multires.py:639-661; the mp4 writer is
+    a later slice)."""
     n = int(os.environ.get("SWNERF_VIDEO_FRAMES", 120))
     poses = np.broadcast_to(scene.render_poses[0], (n, 4, 4))
     times = np.linspace(0, 1, n).astype(np.float32)
@@ -286,7 +397,7 @@ def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcf
     for l, st in enumerate(states):
         savedir = os.path.join(args.basedir, args.expname, f"frames_layer_{l}_{i:06d}_time")
         rgbs, _, _ = render_path(st.coarse, st.fine, poses, level_scene(scene, pyr_hwf[l]), rcfg, args.chunk,
-                                 savedir=savedir, times=times)
+                                 savedir=savedir, eval_pass=eval_passes[l] if eval_passes else None, times=times)
         level_frames.append(torch.as_tensor(rgbs))
     recon = reconstruct_from_pyramid(level_frames).clamp(0.0, 1.0).numpy()
     outdir = os.path.join(args.basedir, args.expname, f"{args.expname}_reconstructed_{i:06d}_rgb")
@@ -318,6 +429,7 @@ def train(argv=None) -> Dict:
     log_txt = os.path.join(args.basedir, args.expname, "log.txt")
 
     kind, states, pyr_hwf, rcfg, start = create_multires(args, scene, device)
+    eval_passes = make_level_eval_passes(states, device)
     L = args.layer_num
     result: Dict = {"metrics": {}, "phase1_loss": {}, "phase1_step_ms": {}, "phase2_step_ms": {},
                     "test_frame_ms": None}
@@ -388,8 +500,9 @@ def train(argv=None) -> Dict:
             print(f"[MULTIRES] phase 1 level {layer}: median {med:.3f} ms per step over {len(timer.step_ms)} steps")
 
     # ---------------- phase 2: joint patch optimization
-    step_fn = make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far)
-    print("Begin joint training")
+    fused = fused_levels(states, rcfg, device)
+    step_fn = make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=fused)
+    print(f"Begin joint training (fused phase 2 on levels {[l for l, f in enumerate(fused) if f]})")
     timer = StepTimer(device, start)
     metrics = {}
     for i in range(start + 1, n_iters):
@@ -425,9 +538,9 @@ def train(argv=None) -> Dict:
             timer.collect()
             result["phase2_step_ms"].update(timer.step_ms)
             if render_video:
-                render_time_sweep(args, scene, states, pyr_hwf, rcfg, i)
+                render_time_sweep(args, scene, states, pyr_hwf, rcfg, i, eval_passes)
             if render_test:
-                _, result["test_frame_ms"] = render_testset(args, scene, states, pyr_hwf, rcfg, i)
+                _, result["test_frame_ms"], _ = render_testset(args, scene, states, pyr_hwf, rcfg, i, eval_passes)
             timer = StepTimer(device, i)
 
     timer.collect()

@@ -24,8 +24,9 @@ import torch
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models.common import Field
 from swnerf_torch.ops.rays import get_rays, ndc_rays
-from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays, sample_pdf
+from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays, sample_pdf, sorted_uniforms
 from swnerf_torch.ops.volume import composite
+from swnerf_torch.utils.switches import pdf_merge
 
 
 class Rays(NamedTuple):
@@ -76,7 +77,9 @@ class Draws(NamedTuple):
 
 def make_draws(cfg: RenderConfig, n: int, generator: Optional[torch.Generator], device) -> Draws:
     """Draw what :func:`render_rays` would draw for ``n`` rays, in its
-    order; None where the config needs no randomness."""
+    order; None where the config needs no randomness. Under
+    ``SWNERF_PDF_MERGE=1`` the importance uniforms are sorted, drawn as
+    order statistics (``sampling.sorted_uniforms``), as B10 needs them."""
 
     def rand(*shape):
         return torch.rand(shape, generator=generator, device=device)
@@ -91,7 +94,8 @@ def make_draws(cfg: RenderConfig, n: int, generator: Optional[torch.Generator], 
     return Draws(
         t_rand=rand(n, cfg.n_samples) if jitter else None,
         noise0=noise(n, cfg.n_samples) if noisy else None,
-        u=rand(n, cfg.n_importance) if fine and jitter else None,
+        u=(sorted_uniforms(n, cfg.n_importance, generator, device) if pdf_merge() else rand(n, cfg.n_importance))
+        if fine and jitter else None,
         noise1=noise(n, s_all) if fine and noisy else None,
     )
 

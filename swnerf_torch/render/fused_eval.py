@@ -4,7 +4,9 @@ or B6 and B3's pts mode for a D-NeRF (port of
 ``make_tnerf_eval_pass`` and ``make_dnerf_eval_pass``).
 
 One render-pass kernel per pass computes encode + trunk + composite; B2
-resamples between the passes and ``torch.sort`` merges the depths. The
+resamples between the passes and ``torch.sort`` merges the depths, or B10
+does both under ``SWNERF_PDF_MERGE=1`` (``ops/sampling.py::
+sample_pdf_merge``, as the JAX passes call it). The
 semantics are the deterministic eval mode of ``render_rays``: linspace z,
 no noise, ``det`` resampling, and disp = 1/max(1e-10, depth/acc) with its
 0/0 -> NaN kept (computed here with ``torch.maximum``, not in the kernel).
@@ -18,9 +20,8 @@ import torch
 
 from swnerf_torch.ops.embedding import positional_encoding
 from swnerf_torch.ops.kernels import render_pass as b3
-from swnerf_torch.ops.kernels import sample_pdf as b2
 from swnerf_torch.ops.kernels import time_net as b6
-from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
+from swnerf_torch.ops.sampling import sample_along_rays, sample_pdf_merge
 from swnerf_torch.render.core import Rays, RenderConfig
 
 
@@ -52,8 +53,8 @@ class VanillaEvalPass:
     def __init__(self, mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False):
         self.mcfg = mcfg
         self.compute_dtype = compute_dtype
+        self.plain = plain
         self._render = b3.render_pass_plain if plain else b3.render_pass
-        self._sample_pdf = b2.sample_pdf_plain if plain else b2.sample_pdf
 
     def pack(self, model) -> b3.PackedParams:
         return b3.pack_params(model.state_dict(), model.cfg, self.compute_dtype)
@@ -77,11 +78,7 @@ class VanillaEvalPass:
         z_vals = sample_along_rays(rays.near, rays.far, ecfg.n_samples, 0.0, ecfg.lindisp).contiguous()
         res = one(packed, z_vals)
         if ecfg.n_importance > 0:
-            n = z_vals.shape[0]
-            z_mid = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
-            u = torch.linspace(0.0, 1.0, ecfg.n_importance, device=z_vals.device).expand(n, ecfg.n_importance)
-            z_samples = self._sample_pdf(z_mid, res.weights[:, 1:-1], u)
-            z_all = merge_z_vals(z_vals, z_samples)
+            z_all = sample_pdf_merge(z_vals, res.weights, ecfg.n_importance, det=True, plain=self.plain)
             res = one(packed_fine if packed_fine is not None else packed, z_all)
         disp = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
         return res.rgb, disp, res.acc, res.depth
@@ -140,9 +137,10 @@ def canonical_params(params, prefix: str = "_occ."):
 
 
 def supports_dnerf_eval_pass(mcfg) -> bool:
-    """The D-NeRF fields the kernel eval pass covers: a canonical trunk B3
-    takes and a deformation MLP B6 takes."""
-    return b3.supports_config(mcfg) and b6.supports_time_net(mcfg)
+    """The D-NeRF fields the kernel eval pass covers: the Fourier encoding, a
+    canonical trunk B3's pts mode takes (the narrow or the MultiRes widths)
+    and a deformation MLP B6 takes."""
+    return mcfg.i_embed == 0 and b3.supports_config(mcfg, wide=True) and b6.supports_time_net(mcfg)
 
 
 class DNeRFEvalPass:
@@ -159,8 +157,8 @@ class DNeRFEvalPass:
     def __init__(self, mcfg, compute_dtype: torch.dtype = torch.bfloat16, plain: bool = False):
         self.mcfg = mcfg
         self.compute_dtype = compute_dtype
+        self.plain = plain
         self._render = b3.render_pass_plain if plain else b3.render_pass
-        self._sample_pdf = b2.sample_pdf_plain if plain else b2.sample_pdf
         self._time_net = b6.time_net_plain if plain else b6.time_net
 
     def pack(self, model):
@@ -190,10 +188,7 @@ class DNeRFEvalPass:
         z_vals = sample_along_rays(rays.near, rays.far, ecfg.n_samples, 0.0, ecfg.lindisp).contiguous()
         res = one(packed, z_vals)
         if ecfg.n_importance > 0:
-            n = z_vals.shape[0]
-            z_mid = 0.5 * (z_vals[:, 1:] + z_vals[:, :-1])
-            u = torch.linspace(0.0, 1.0, ecfg.n_importance, device=z_vals.device).expand(n, ecfg.n_importance)
-            z_all = merge_z_vals(z_vals, self._sample_pdf(z_mid, res.weights[:, 1:-1], u)).contiguous()
+            z_all = sample_pdf_merge(z_vals, res.weights, ecfg.n_importance, det=True, plain=self.plain).contiguous()
             res = one(packed_fine if packed_fine is not None else packed, z_all)
         disp = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
         return res.rgb, disp, res.acc, res.depth

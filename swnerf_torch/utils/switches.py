@@ -14,6 +14,12 @@
   attached on the kernel route, so their cotangents are formed.
 - ``SWNERF_FUSED_RAW`` (unset): ``"1"`` runs the vanilla field's kernel
   route on B8 (the encode inside the kernel) in place of B7.
+- ``SWNERF_FUSED_MULTIRES`` (default ``"0"``): ``"1"`` runs MultiRes phase 2
+  fused (B6, B3's pts mode, B9) on every level that supports it, a comma
+  list (``"1,0,0,0"``) chooses per level (run_multires.py:276-290 there).
+- ``SWNERF_PDF_MERGE`` (default ``"0"``): ``"1"`` runs the importance
+  resample and its sorted union as B10 (``ops/sampling.py:190-195`` there),
+  with sorted uniforms.
 
 :func:`kernel_route` is the JAX package's ``use_fused`` with the card in
 place of the TPU. A field built with ``fused=None`` resolves it once, at
@@ -78,6 +84,28 @@ def input_grads() -> bool:
 def raw_route() -> bool:
     """``SWNERF_FUSED_RAW=1``: the vanilla field runs B8."""
     return _env("SWNERF_FUSED_RAW") == "1"
+
+
+def fused_multires(device: Device, can) -> list:
+    """Per level, whether MultiRes phase 2 runs fused: ``can[l]`` (the
+    level supports it) and ``SWNERF_FUSED_MULTIRES`` chooses it (``"1"``:
+    every level, ``"1,0,0,0"``: per level, else none), with the switches on
+    (the twins on the CPU, as :func:`kernel_step`)."""
+    mode = _env("SWNERF_FUSED_MULTIRES", "0")
+    if not _twins_or_kernels(device):
+        return [False] * len(can)
+    if mode == "1":
+        return list(can)
+    if "," in mode:
+        flags = [x.strip() == "1" for x in mode.split(",")]
+        return [c and l < len(flags) and flags[l] for l, c in enumerate(can)]
+    return [False] * len(can)
+
+
+def pdf_merge() -> bool:
+    """``SWNERF_PDF_MERGE=1``: the importance resample and its sorted union
+    run as B10 (its twin on the CPU)."""
+    return _env("SWNERF_PDF_MERGE", "0") == "1"
 
 
 def operand_dtype(device: Device, compute_dtype: Optional[torch.dtype] = None) -> torch.dtype:

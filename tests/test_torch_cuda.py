@@ -1,4 +1,4 @@
-"""The CUDA kernels B1, B2, B3 and B4 against their plain twins, on the card.
+"""The CUDA kernels B1-B11 against their plain twins, on the card.
 
 Marked ``cuda``; without a card every test skips. Run on a machine with an
 H100 (the repo's conftest imports JAX, which that machine need not have):
@@ -34,6 +34,13 @@ route (fp32, the float64 plain route on the CPU as the fallback's
 reference), with small deformation heads so that level 0's 2^19 encoding
 stays well conditioned (tests/test_torch_multires.py); ``NeRFOriginal``'s
 kernel route (B7 alone) against its plain route, fp32 and the default bf16.
+MultiRes on the render kernels: B3's pts mode on the wide pack at B3's bars
+(up to its shared-memory bound S = 256, past which it refuses); B9 at B6's
+bars with its recomputed forward bit-equal to the B3 launch, bf16 rel L2
+1e-2 and bit-equal repeats; the fused phase-2 step against the plain
+route's at the phase-2 bars. B10 bit-equal to B2 + torch.sort and to its
+twin; B11 (fused_time_net_pts with input grads) at B6's bars, dx bit-equal
+to B6's forward.
 """
 
 import dataclasses
@@ -1187,3 +1194,285 @@ def test_tnerf_field_kernel_route_matches_plain_route(dev, dtype):
         return b7.unpack_trunk_grads(grads, packed)
 
     _field_route_check(kern, plain, (pts, vd, t), g, ("trunk[tnerf]", "trunk[tnerf,bwd]"), dtype, twin_grads, render)
+
+
+# ---------------------------------------------------------------- MultiRes on the render kernels: B3 wide, B9;
+# B10; B11
+
+
+def _wide_case(dev, level, n, s, seed=0):
+    """A MultiRes level's canonical field (D=8, W=256) at given sample
+    positions (o + d*z plus a small offset), its view embedding, noise std 1
+    and seeded per-ray cotangents of (rgb, acc, depth)."""
+    cfg = DNeRFConfig(**MR_LEVELS[level])
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
+    o, d, vd, z, dist = _rays(dev, n, s, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]
+           + 0.05 * torch.randn((n, s, 3), generator=g, device=dev)).contiguous()
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    noise = torch.randn((n, s), generator=g, device=dev)
+    gct = torch.randn((n, 5), generator=g, device=dev)
+    return cfg, canonical_params(model.state_dict()), pts, (ve, z, dist, noise), gct
+
+
+@pytest.mark.parametrize("level", ["level0", "level1"])
+@pytest.mark.parametrize("n_samples", [8, 64, 192, 256])
+def test_b3_wide_fp32_matches_plain(dev, level, n_samples):
+    """B3's pts mode on the wide pack (128 / 128 rows) at B3's fp32 bars, up
+    to the shared-memory bound S = 256; S = 257 is refused."""
+    cfg, sd, pts, (ve, z, dist, noise), _ = _wide_case(dev, level, 200, n_samples)
+    packed = b3.pack_params(sd, cfg, torch.float32)
+    assert packed.wide
+    key = f"render_pass[pts,wide,S={n_samples}]"
+    before = launches[key]
+    got = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, pts)
+    ref = b3.render_pass_plain(packed, None, None, ve, z, dist, noise, True, None, pts)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got.weights, ref.weights, atol=1e-4, rtol=0)
+    if n_samples == 256:
+        big = torch.cat([z, z[:, -1:]], -1).contiguous()
+        with pytest.raises(ValueError, match="fits 256 at most"):
+            b3.render_pass(packed, None, None, ve, big, big, None, True, None,
+                           torch.cat([pts, pts[:, -1:]], 1).contiguous())
+
+
+def test_render_block_sample_limits(dev):
+    """The most samples per ray that render_pass.cu and render_loss.cu take,
+    from their own shared-memory layout: the wide family in fp32 at W=256
+    fits 256 (forward only) and 204 (train mode, B9); bf16, W=128 and the
+    narrow families fit the cap of 1024. check_samples refuses beyond."""
+    for tnerf, wide in ((0, 0), (1, 0), (0, 1)):
+        for bf16 in (0, 1):
+            for W in (128, 256):
+                want = (256, 204) if (wide, bf16, W) == (1, 0, 256) else (1024, 1024)
+                got = tuple(b3.max_samples(name, tnerf, bf16, wide, W) for name in ("render_pass", "render_loss"))
+                assert got == want, (tnerf, wide, bf16, W)
+    assert b3.max_samples("render_pass", 0, 0, 0, 192) == 0  # no such width
+    cfg, sd, _, _, _ = _wide_case(dev, "level1", 1, 8)
+    packed = b3.pack_params(sd, cfg, torch.float32)
+    b3.check_samples(b1.NAME, packed, 204, "render_loss_ext")
+    with pytest.raises(ValueError, match="fits 204 at most"):
+        b3.check_samples(b1.NAME, packed, 205, "render_loss_ext")
+
+
+@pytest.mark.parametrize("level", ["level0", "level1"])
+def test_b3_wide_bf16_matches_plain(dev, level):
+    cfg, sd, pts, (ve, z, dist, _), _ = _wide_case(dev, level, 512, 64)
+    packed = b3.pack_params(sd, cfg, torch.bfloat16)
+    got = b3.render_pass(packed, None, None, ve, z, dist, None, True, None, pts)
+    ref = b3.render_pass_plain(packed, None, None, ve, z, dist, None, True, None, pts)
+    torch.cuda.synchronize()
+    diff = (got.rgb - ref.rgb).abs()
+    assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
+
+
+def _b9_grads(grads, dpts, packed):
+    return dict(b1.unpack_grads(grads, packed), dpts=dpts)
+
+
+@pytest.mark.parametrize("level", list(MR_LEVELS))
+@pytest.mark.parametrize("n_samples", [8, 64, 192])
+@pytest.mark.parametrize("white", [True, False])
+def test_b9_fp32_matches_plain(dev, level, n_samples, white):
+    """B9 (the external-cotangent backward, narrow at the identity level and
+    wide at levels 0-1) against its twin: its recomputed forward bit-equal
+    to the B3 launch, the parameter gradients and d pts at B6's fallback
+    bar (float64 twin, and on jittered weights)."""
+    cfg, sd, pts, args, gct = _wide_case(dev, level, 300, n_samples)
+    packed = b3.pack_params(sd, cfg, torch.float32)
+    key = b1.ext_launch_key(packed, n_samples)
+    before = launches[key]
+    fwd, gg, dp = b1.render_loss_ext(packed, pts, *args, gct, white)
+    _, gr, dr = b1.render_loss_ext_plain(packed, pts, *args, gct, white)
+    b3out = b3.render_pass(packed, None, None, args[0], args[1], args[2], args[3], white, None, pts)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    for k in ("rgb", "acc", "depth", "weights"):
+        assert torch.equal(getattr(fwd, k), getattr(b3out, k)), k
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    a64 = [x.double() for x in args]
+    _, g64, d64 = b1.render_loss_ext_plain(p64, pts.double(), *a64, gct.double(), white)
+    _, g64p, d64p = b1.render_loss_ext_plain(dataclasses.replace(p64, weights=_jitter(p64.weights)), pts.double(),
+                                             *a64, gct.double(), white)
+    _assert_fp32_grads(_b9_grads(gg, dp, packed), _b9_grads(gr, dr, packed), _b9_grads(g64, d64, p64),
+                       _b9_grads(g64p, d64p, p64))
+
+
+@pytest.mark.parametrize("level", ["level0", "identity"])
+def test_b9_bf16_matches_plain_and_repeats(dev, level):
+    cfg, sd, pts, args, gct = _wide_case(dev, level, 500, 64)
+    packed = b3.pack_params(sd, cfg, torch.bfloat16)
+    fwd, gg, dp = b1.render_loss_ext(packed, pts, *args, gct, True)
+    _, gg2, dp2 = b1.render_loss_ext(packed, pts, *args, gct, True)
+    ref, gr, dr = b1.render_loss_ext_plain(packed, pts, *args, gct, True)
+    torch.cuda.synchronize()
+    assert (fwd.rgb - ref.rgb).abs().max().item() <= 1e-2
+    rel = _rel_l2(_b9_grads(gg, dp, packed), _b9_grads(gr, dr, packed))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(gg[0], gg2[0]) and torch.equal(gg[1], gg2[1]) and torch.equal(dp, dp2)
+
+
+def test_render_outputs_autograd_on_the_card(dev):
+    """render_outputs_autograd launches B3's pts mode forward and B9 as its
+    backward (once each) and hands B9's gradients to the parameters and the
+    positions; the outputs are B3's, the weights carry no gradient."""
+    cfg, sd, pts, (ve, z, dist, noise), gct = _wide_case(dev, "level1", 64, 32)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+    packed = b3.pack_params(leaves, cfg, torch.float32)
+    p = pts.clone().requires_grad_(True)
+    keys = ("render_pass[pts,wide,S=32]", "render_loss[ext,wide,S=32]")
+    before = [launches[k] for k in keys]
+    out = b1.render_outputs_autograd(packed, torch.float32, p, ve, z, dist, noise, True)
+    loss = (out["rgb"] * gct[:, :3]).sum() + (out["acc"] * gct[:, 3]).sum() + (out["depth"] * gct[:, 4]).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(keys, before)] == [1, 1] and not out["weights"].requires_grad
+    detached = b3.pack_params(sd, cfg, torch.float32)
+    _, grads, dpts = b1.render_loss_ext(detached, pts, ve, z, dist, noise, gct, True)
+    assert torch.equal(p.grad, dpts)
+    for k, v in b1.unpack_grads(grads, detached).items():
+        torch.testing.assert_close(leaves[k].grad, v, rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", ["det", "sorted", "random"])
+def test_b10_matches_b2_and_sort(dev, mode):
+    """B10 bit-equal to B2 + torch.sort(torch.cat(...)) and to its twin, for
+    linspace, sorted and unsorted uniforms (it sorts its samples itself)."""
+    n, m, s = 20000, 63, 128
+    g = torch.Generator(device=dev).manual_seed(1)
+    z = torch.sort(torch.rand((n, m + 1), generator=g, device=dev) * 4 + 2, -1).values
+    bins = (0.5 * (z[:, 1:] + z[:, :-1])).contiguous()
+    w = torch.rand((n, m + 1), generator=g, device=dev)
+    w[: n // 3, 5:] = 0.0
+    u = torch.rand((n, s), generator=g, device=dev)
+    if mode == "det":
+        u = torch.linspace(0.0, 1.0, s, device=dev).expand(n, s)
+    elif mode == "sorted":
+        u = torch.sort(u, -1).values
+    before = launches["sample_pdf_merge"]
+    got = b2.sample_pdf_merge(z, bins, w[:, 1:-1], u)
+    ref = torch.sort(torch.cat([z, b2.sample_pdf(bins, w[:, 1:-1], u)], -1), -1).values
+    torch.cuda.synchronize()
+    assert launches["sample_pdf_merge"] == before + 1
+    assert torch.equal(got, ref) and torch.equal(got, b2.sample_pdf_merge_plain(z, bins, w[:, 1:-1], u))
+
+
+@pytest.mark.parametrize("level", list(MR_LEVELS))
+def test_b11_fp32_matches_plain(dev, level):
+    """fused_time_net_pts(need_input_grads=True): dx bit-equal to B6's
+    forward, the parameter gradients, d pts and d times at B6's fallback
+    bar; without input grads it launches B6's backward."""
+    cfg = DNeRFConfig(**MR_LEVELS[level])
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(2), fused=False)
+    packed = b6.pack_time_params(model.state_dict(), cfg, torch.float32)
+    o, d, _, z, _ = _rays(dev, 300, 64, 3)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+    times = torch.rand((300,), generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    leaf = dataclasses.replace(packed, weights=packed.weights.clone().requires_grad_(True),
+                               biases=packed.biases.clone().requires_grad_(True))
+    p, t = pts.clone().requires_grad_(True), times.clone().requires_grad_(True)
+    before = (launches["time_net[pts,bwd]"], launches["time_net[bwd]"])
+    dx = b6.fused_time_net_pts(leaf, p, t, need_input_grads=True)
+    (dx * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (launches["time_net[pts,bwd]"], launches["time_net[bwd]"]) == (before[0] + 1, before[1])
+    assert torch.equal(dx.detach(), b6.time_net(packed, pts, times))
+
+    def named(grads, dpts, dtimes, pk):
+        return dict(b6.unpack_time_grads(grads, pk), dpts=dpts, dtimes=dtimes)
+
+    ref = b6.time_net_plain_bwd(packed, pts, times, g, True)
+    p64 = dataclasses.replace(packed, weights=packed.weights.double())
+    r64 = b6.time_net_plain_bwd(p64, pts.double(), times.double(), g.double(), True)
+    r64p = b6.time_net_plain_bwd(dataclasses.replace(p64, weights=_jitter(p64.weights)), pts.double(),
+                                 times.double(), g.double(), True)
+    _assert_fp32_grads(named((leaf.weights.grad, leaf.biases.grad), p.grad, t.grad, packed), named(*ref, packed),
+                       named(*r64, p64), named(*r64p, p64))
+    x = pts.clone().requires_grad_(True)
+    (b6.fused_time_net_pts(leaf, x, times) * g).sum().backward()
+    torch.cuda.synchronize()
+    assert launches["time_net[bwd]"] == before[1] + 1 and x.grad is None
+
+
+def test_b11_bf16_matches_plain_and_repeats(dev):
+    cfg = DNeRFConfig(**MR_LEVELS["level0"])
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(6), fused=False)
+    packed = b6.pack_time_params(model.state_dict(), cfg, torch.bfloat16)
+    o, d, _, z, _ = _rays(dev, 500, 64, 7)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+    times = torch.rand((500,), generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+    outs = []
+    for _ in range(2):
+        leaf = dataclasses.replace(packed, weights=packed.weights.float().requires_grad_(True),
+                                   biases=packed.biases.clone().requires_grad_(True))
+        p, t = pts.clone().requires_grad_(True), times.clone().requires_grad_(True)
+        (b6.fused_time_net_pts(leaf, p, t, True, torch.bfloat16) * g).sum().backward()
+        outs.append((leaf.weights.grad, leaf.biases.grad, p.grad, t.grad))
+    ref = b6.time_net_plain_bwd(packed, pts, times, g, True)
+    torch.cuda.synchronize()
+    rel = _rel_l2(dict(b6.unpack_time_grads(outs[0][:2], packed), dpts=outs[0][2], dtimes=outs[0][3]),
+                  dict(b6.unpack_time_grads(ref[0], packed), dpts=ref[1], dtimes=ref[2]))
+    assert max(rel.values()) <= 1e-2, rel
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_multires_fused_phase2_step_matches_plain_route(dev):
+    """One fused phase-2 step (B6, B3's pts mode and B9 on every level, fp32
+    operands) against the plain route's step from the same weights and
+    draws, at full width on 32/16/8/4-pixel patches: every metric rel 1e-4,
+    every level's gradients at the fallback bar (the plain route in float64
+    on the CPU as its reference); B9 launches once per level."""
+    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
+    from swnerf_torch.pipelines.run_multires import make_phase2_step
+    from swnerf_torch.render.core import Draws, RenderConfig, make_draws
+    from swnerf_torch.train.loop import init_train_state
+
+    rcfg = RenderConfig(n_samples=16, perturb=1.0, white_bkgd=True)
+    levels = ["level0", "level1", "level1", "identity"]
+    pairs = [_mr_pair(dev, lv, seed=l) for l, lv in enumerate(levels)]
+    size = 64
+    pyr_hwf = [[size // 2**l, size // 2**l, 80.0 / 2**l] for l in range(4)]
+    patch_sizes = [32, 16, 8, 4]
+    g = torch.Generator(device=dev).manual_seed(7)
+    images = torch.rand((1, size, size, 3), generator=g, device=dev)
+    lap = generate_laplacian_pyramid(images, levels=4)
+    pixels = [torch.stack(torch.meshgrid(torch.arange(8 // 2**l, 8 // 2**l + ps, device=dev),
+                                         torch.arange(8 // 2**l, 8 // 2**l + ps, device=dev), indexing="ij"), -1)
+              .reshape(-1, 2) for l, ps in enumerate(patch_sizes)]
+    targets = [lap[l][0, 8 // 2**l : 8 // 2**l + ps, 8 // 2**l : 8 // 2**l + ps] for l, ps in enumerate(patch_sizes)]
+    pose = torch.eye(4, device=dev)[:3]
+    pose[2, 3] = 4.0
+    draws = [make_draws(rcfg, ps * ps, g, dev) for ps in patch_sizes]
+
+    def run(models, device, dtype, fused):
+        step = make_phase2_step(rcfg, pyr_hwf, patch_sizes, 2.0, 6.0, fused=fused,
+                                compute_dtype=torch.float32 if fused else None)
+        states = [init_train_state(m, None, 5e-4, 250) for m in models]
+        cast = lambda x: x.to(device=device, dtype=dtype)  # noqa: E731
+        m = step(states, [p.to(device) for p in pixels], [cast(t) for t in targets], cast(images[0, 8:40, 8:40]),
+                 cast(pose), 0.4, 1.0, draws=[Draws(cast(d.t_rand), None, None, None) for d in draws])
+        return m, [{k: p.grad for k, p in s.coarse.named_parameters()} for s in states]
+
+    keys = ["render_loss[ext,wide,S=16]", "render_loss[ext,S=16]"]
+    before = [launches[k] for k in keys]
+    mk, gk = run([k for k, _ in pairs], dev, torch.float32, True)  # the fused step packs their parameters
+    torch.cuda.synchronize()
+    assert [launches[k] - b for k, b in zip(keys, before)] == [3, 1]
+    mp, gp = run([p for _, p in pairs], dev, torch.float32, False)
+    cpu64 = []
+    for _, p in pairs:
+        m = DirectTemporalNeRF(p.cfg, device="cpu", fused=False)
+        m.load_state_dict(p.state_dict())
+        cpu64.append(m.double())
+    _, g64 = run(cpu64, "cpu", torch.float64, False)
+    for key in mk:
+        assert mk[key].item() == pytest.approx(mp[key].item(), rel=1e-4), key
+    for a, b, c in zip(gk, gp, g64):
+        _assert_fp32_grads(a, b, c)

@@ -28,7 +28,7 @@ from swnerf_torch.train.checkpoint import params_from_jax
 from swnerf_tpu.models.dnerf import DNeRFConfig as JaxConfig
 from swnerf_tpu.models.dnerf import apply_time_net, init_nerf_original_params, init_time_net_params
 from swnerf_tpu.ops.embedding import positional_encoding as jax_pe
-from swnerf_tpu.ops.pallas.raymarch import fused_time_net
+from swnerf_tpu.ops.pallas.raymarch import fused_time_net, fused_time_net_pts
 from swnerf_tpu.ops.pallas.render_fused import fused_render_pass
 
 torch.set_num_threads(2)
@@ -360,3 +360,84 @@ def test_b5_autograd_function_and_wrappers_on_cpu():
     with pytest.raises(ValueError, match="pts must be"):
         b1.render_loss_pts(detached, pts[:, :4], ve, z, dist, noise, target, True, 0.05)
     assert b3.launch_key("render_pass", detached, 64, pts=True) == "render_pass[pts,S=64]"
+
+
+# ---------------------------------------------------------------- B11: fused_time_net_pts
+
+
+B11_LEVEL0 = dict(SKIP1, multires=20, multires_time=8)  # MultiRes level 0's 140 input columns
+
+
+@pytest.mark.parametrize("kw,scale", [(SMALL, 1.0), (MULTIRES10, 1.0), (B11_LEVEL0, 2.0**-10)],
+                         ids=["small", "multires10", "level0"])
+def test_b11_twin_matches_pallas_vjp(kw, scale):
+    """fused_time_net_pts(need_input_grads=True) on the CPU (B6's twin
+    forward, B11's twin backward: the fp32 [embed(x) | embed(t)] cotangent
+    through the encode) against raymarch.py::fused_time_net_pts(
+    need_input_grads=True, interpret=True, f32), N=11 x S=8, per-ray times a
+    quarter at 0: dx atol 1e-5 (rtol 5e-4), and jax.vjp for a seeded
+    cotangent in every parameter, pts and times within 1e-4 * max|g| +
+    1e-7. At level 0's 2^19 frequencies the Pallas encode's
+    cos(u) = sin(u + pi/2) (ROADMAP Queue C) holds to fp32 on |x| <= 2^-10
+    only. Measured over seeds 0-3: dx within 6.7e-7, gradients within
+    3.9e-6 * max|g|."""
+    jcfg, tp = _jax_time_net(kw, 6)
+    pts, times, *_ = _pts_inputs(11, 8, 6)
+    pts = (pts * np.float32(scale)).astype(np.float32)
+    g = np.random.default_rng(7).standard_normal((11, 8, 3)).astype(np.float32)
+    t3 = np.broadcast_to(times[:, None, None], (11, 1, 1)).copy()  # per ray, broadcast over the samples
+
+    def f(p, x, t):
+        return fused_time_net_pts(p, jcfg, x, t, block=64, interpret=True, compute_dtype=jnp.float32,
+                                  need_input_grads=True)
+
+    ref, vjp = jax.vjp(f, tp, jnp.asarray(pts), jnp.asarray(t3))
+    gp, gx, gt = vjp(jnp.asarray(g))
+    params = {k: v.clone().requires_grad_(True) for k, v in _time_tree_to_port(tp).items()}
+    packed = b6.pack_time_params(params, DNeRFConfig(**kw), torch.float32)
+    p, t = torch.from_numpy(pts).requires_grad_(True), torch.from_numpy(times).requires_grad_(True)
+    before = sum(launches.values())
+    dx = b6.fused_time_net_pts(packed, p, t, need_input_grads=True)
+    (dx * torch.from_numpy(g)).sum().backward()
+    assert sum(launches.values()) == before
+    np.testing.assert_allclose(dx.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=5e-4)
+    got = dict({k: v.grad.numpy() for k, v in params.items()}, dpts=p.grad.numpy(), dtimes=t.grad.numpy())
+    want = dict({k: v.numpy() for k, v in _time_tree_to_port(jax.tree.map(np.asarray, gp)).items()},
+                dpts=np.asarray(gx), dtimes=np.asarray(gt).reshape(11))
+    _assert_close(got, want)
+
+
+def test_b11_twin_backward_matches_autograd_and_b6():
+    """B11's written-out input cotangent against autograd through the
+    module's own deformation MLP (float64; the skip takes embed(x) only, so
+    the position columns take two contributions and the time columns one),
+    within 1e-10 relative; without need_input_grads fused_time_net_pts is
+    time_net_autograd: the same parameter gradients bit for bit and no
+    gradient for pts or times."""
+    cfg = DNeRFConfig(**dict(SMALL, multires_time=3))
+    model = DirectTemporalNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(8)).double()
+    params = dict(model.named_parameters())
+    pts, times, *_ = (torch.from_numpy(x).double() for x in _pts_inputs(5, 7, 8))
+    g = torch.randn((5, 7, 3), generator=torch.Generator().manual_seed(9), dtype=torch.float64)
+    p, t = pts.clone().requires_grad_(True), times.clone().requires_grad_(True)
+    dx = model.time_net(positional_encoding(p, cfg.nf_pts), positional_encoding(t[:, None, None].expand(5, 7, 1),
+                                                                                 cfg.nf_time))
+    (dx * g).sum().backward()
+    packed = b6.pack_time_params({k: v.detach() for k, v in params.items()}, cfg, torch.float64)
+    grads, dpts, dtimes = b6.time_net_plain_bwd(packed, pts, times, g, need_input_grads=True)
+    _assert_close(dict({k: v.numpy() for k, v in b6.unpack_time_grads(grads, packed).items()}, dpts=dpts.numpy(),
+                       dtimes=dtimes.numpy()),
+                  dict({k: v.grad.numpy() for k, v in params.items() if k.startswith("_time")}, dpts=p.grad.numpy(),
+                       dtimes=t.grad.numpy()), rel=1e-10)
+    assert torch.equal(grads[0], b6.time_net_plain_bwd(packed, pts, times, g)[0])
+    p32 = b6.pack_time_params({k: v.detach().float() for k, v in params.items()}, cfg, torch.float32)
+    out = {}
+    for name, fn in (("b11", lambda pk, x, tt: b6.fused_time_net_pts(pk, x, tt)),
+                     ("b6", lambda pk, x, tt: b6.time_net_autograd(pk, torch.float32, x, tt))):
+        w = p32.weights.clone().requires_grad_(True)
+        x, tt = pts.float().requires_grad_(True), times.float().requires_grad_(True)
+        (fn(dataclasses.replace(p32, weights=w), x, tt) * g.float()).sum().backward()
+        assert x.grad is None and tt.grad is None
+        out[name] = w.grad
+    assert torch.equal(out["b11"], out["b6"])
+    assert packed.din_macs_per_row == packed.bwd_macs_per_row + (packed.cin + packed.input_ch) * packed.W
