@@ -12,7 +12,9 @@ deformation MLP's input cotangents, and time the kernels.
 
 Phases (each raises on failure; nothing is caught):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the kernels from swnerf_torch/csrc (nvcc, sm_90a);
+  2. build the kernels from swnerf_torch/csrc (nvcc, sm_90a); the
+     tensor-core kernels' registers and spill bytes from build.log (a spill
+     fails);
   3. B2 sample_pdf vs its twin at N=160,000, M=63, S=128: bit-exact;
   4. B3 render_pass vs its twin with the 010000.tar weights (D=8, W=256) on
      4,096 rays of test view 0, S=64 and S=192: fp32 atol 1e-4 (rgb, acc),
@@ -23,7 +25,8 @@ Phases (each raises on failure; nothing is caught):
      plain twins in fp32 (|dPSNR| <= 0.1 dB);
   6. each kernel against its twin again at the main path's chunk shape
      (32,768 rays, bf16), its time there beside its bound and a per-stage
-     breakdown of one frame;
+     breakdown of one frame; B3's composite and heads' shares of its blocks'
+     clock cycles (csrc/tc_chunk.cuh::g_prof);
   7. B1 render_loss vs its twin with the 010000.tar weights on 1024 seeded
      pixels of train view r_0 (coarse S=64 jittered, fine S=192 from a B2
      pass), noise std 1: fp32 rgb/acc within 1e-4, depth and sqerr rtol
@@ -73,6 +76,7 @@ Phases (each raises on failure; nothing is caught):
      noise std 1: outputs as in phase 7, gradients and dpts as in phase 17,
      bf16 1e-2, bit-equal repeats; then B6 and B3's pts mode against their
      twins at the serving path's chunk shape (32,768 rays), and the times;
+     B6's head share and B3's composite share there (as in phase 6);
  19. the kernel D-NeRF step against the eager step from the same state and
      draws (TV on): fp32 loss rel 1e-5 (or phase 17's fallback), gradients as
      in phase 17 (the float64 eager step on the CPU as the reference); bf16
@@ -162,7 +166,8 @@ Phases (each raises on failure; nothing is caught):
      the B3 launch; B3 wide at the test render's 32,768-ray chunk (level 0,
      000200.tar's and seeded weights, whose rgb does not saturate) at the
      same bars (bf16 depth atol and rtol 1e-2); times there and at phase 2's level-0
-     rows (1,024 x 64);
+     rows (1,024 x 64); B9's gradients on seeded level-0 weights beside the
+     bf16 twin's own distance from itself summed on the CPU (printed);
  32. the MultiRes test render of 000200.tar through render_testset on test
      frames 0/5/10/15/20: levels 0-2 through the D-NeRF eval pass, level 3
      through its fields, against SWNERF_FUSED_EVAL=0 (every level through
@@ -191,7 +196,9 @@ Phases (each raises on failure; nothing is caught):
      the D-NeRF 800000.tar deformation weights on phase 17's points and at
      MultiRes level 0's widths: dx bit-equal to B6's forward, fp32
      gradients, d pts and d times at phase 17's bar, bf16 rel L2 1e-2;
-     times; then the JSON lines.
+     times; then the [tc] lines: each bf16 tensor-core launch's TFLOP/s and
+     share of its bound, B3's composite and the heads' shares of the blocks'
+     cycles, the vanilla and D-NeRF ms per frame; then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -247,6 +254,77 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The bf16 tensor-core launches (csrc/tc_chunk.cuh) and what the run learns
+# of them, printed together before the JSON lines: registers and spills
+# from build.log, TFLOP/s and share of bound per launch, B3's composite and
+# the narrow heads' share of the blocks' cycles, the frames' ms.
+TC_LAUNCHES = ("render_pass[S=64]", "render_pass[S=192]", "render_pass[pts,S=64]", "render_pass[pts,S=192]",
+               "render_pass[pts,wide]", "time_net", "time_net[multires]")
+TC_SUMMARY: dict = {}
+
+
+def tc_ptxas(libs) -> None:
+    """Registers and spill bytes of the tensor-core kernels (the bf16 B6
+    forward, B3 / B9's body, the weight-image packer) from each library's
+    build.log; fails on a spill."""
+    import re
+
+    for name in ("time_net", "render_pass", "render_loss"):
+        entry_name = None
+        for line in (libs[name].parent / "build.log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry_name = line.split("'")[1] if "'" in line else line
+                continue
+            if not entry_name or not re.search(r"time_net_tc_kernel|tc13render_kernel|tc11pack_kernel", entry_name):
+                continue
+            kernel = re.sub(r"^.*?(time_net_tc_kernel|render_kernel|pack_kernel)", r"\1", entry_name)[:60]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} / {m.group(2)} bytes spill stores / loads")
+                if int(m.group(1)) or int(m.group(2)):
+                    fail(f"{name}: {kernel} spills")
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} registers at launch (setmaxnreg: 56 for the "
+                      f"producer warpgroup, 224 for the consumers)")
+
+
+def tc_shares(lib_name: str, fn) -> tuple:
+    """B3's composite and the narrow heads' shares of the blocks' clock
+    cycles during one ``fn()`` of a tensor-core kernel of ``lib_name``
+    (``<lib>_profile``: tc_chunk.cuh::g_prof, per block the cycles of the
+    first composite thread, which overlaps the products, and of warpgroup
+    1's first thread in the heads and in all)."""
+    import ctypes
+
+    import torch
+
+    from swnerf_torch.ops.kernels import build
+
+    hook = getattr(build.load(lib_name), f"{lib_name}_profile")
+    hook.restype, hook.argtypes = None, [ctypes.c_void_p]
+    buf = torch.zeros(3 * torch.cuda.get_device_properties(0).multi_processor_count, dtype=torch.int64,
+                      device="cuda")
+    hook(buf.data_ptr())
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        hook(None)
+    comp, head, total = buf.view(-1, 3).sum(0).tolist()
+    return comp / total, head / total
+
+
+def tc_summary(kernels) -> None:
+    for k in kernels:
+        if k["name"] in TC_LAUNCHES and k["bound_by"] == "operations":
+            share = k["bound_ms"] / k["ms"]
+            print(f"[tc] {k['name']}: {k['ms']:.3f} ms/launch, {share * PEAK_FLOPS['bf16'] / 1e12:.1f} TFLOP/s, "
+                  f"{100 * share:.2f}% of its bound ({k['bound_ms']:.4f} ms)")
+    for key, value in TC_SUMMARY.items():
+        print(f"[tc] {key}: {value}")
 
 
 def load_models(dev):
@@ -333,6 +411,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[2 ptxas {name}] {line.strip()}")
+    tc_ptxas(libs)
 
     # ---- 3. B2 vs plain at a full frame of rays
     n, m, s = 160_000, 63, 128
@@ -419,6 +498,7 @@ def main() -> int:
     print(f"[5 main] seconds per frame {[round(x, 4) for x in secs]}")
     print(f"[5 main] after warm-up: {per_frame * 1e3:.1f} ms/frame, {rays_per_frame / per_frame:.4g} rays/s, "
           f"{rays_per_frame * (64 + 192) / per_frame:.4g} samples/s")
+    TC_SUMMARY["vanilla serving (phase 5)"] = f"{per_frame * 1e3:.1f} ms per frame"
     for i, (p, q) in enumerate(zip(metrics["psnr"], metrics["ssim"])):
         print(f"[5 main] frame {i}: PSNR {p:.3f} dB SSIM {q:.4f}")
     mean_psnr = sum(metrics["psnr"]) / len(metrics["psnr"])
@@ -485,6 +565,10 @@ def main() -> int:
         if drgb.max().item() > 1e-2 or drgb.mean().item() > 1e-3:
             fail(f"B3 bf16 S={S} at the main path's shape: max |drgb| > 1e-2 or mean > 1e-3")
         del got, ref
+        comp, head = tc_shares("render_pass", lambda: b3.render_pass(packed, o, d, ve, zz, dd, None, True))
+        TC_SUMMARY[f"render_pass[S={S}] at the serving chunk"] = (
+            f"composite busy {100 * comp:.2f}% (overlapped with the products), alpha + rgb heads {100 * head:.2f}% "
+            "of the blocks' cycles")
         flops = 2 * packed.macs_per_sample * n * S
         nbytes = 4 * (6 * n + ve.numel() + 2 * zz.numel() + 5 * n + zz.numel()) + packed.weights.numel() * 2
         kernels.append(entry(
@@ -507,11 +591,13 @@ def main() -> int:
           f"-> {100 * bound32 / ms32:.2f}% of the bound")
 
     # per-stage breakdown of one frame (device time by stage, events per chunk)
-    stages = frame_breakdown(rays, cfg, pc, pf, args.chunk)
+    stages, first = frame_breakdown(rays, cfg, pc, pf, args.chunk)
     total = sum(stages.values())
-    print("[6 breakdown] frame 0, device ms by stage: " + ", ".join(
+    print("[6 breakdown] frame 0, device ms by stage (second pass): " + ", ".join(
         f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
-    print(f"[6 breakdown] stage sum {total:.1f} ms vs timed frame {per_frame * 1e3:.1f} ms")
+    print(f"[6 breakdown] stage sum {total:.1f} ms vs timed frame {per_frame * 1e3:.1f} ms; the first pass, "
+          f"right after empty_cache: sum {sum(first.values()):.1f} ms, " + ", ".join(
+              f"{k} {v:.2f}" for k, v in first.items()))
     del pc, pf, res_c, zf, distf
     torch.cuda.empty_cache()
 
@@ -558,6 +644,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    tc_summary(kernels)
     print(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -583,7 +670,11 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, kind
 
 def frame_breakdown(rays, cfg, pc, pf, chunk):
     """Device milliseconds of each eval-pass stage over one frame, chunk by
-    chunk as render_image runs it (CUDA events around each stage)."""
+    chunk as render_image runs it (CUDA events around each stage), twice:
+    returns the second pass's stages, then the first's. The first pass runs
+    right after the allocator's cache was emptied; where the host falls
+    behind and the device drains, the idle time lands in the stage that
+    waits (B2's, there), which the second pass does not see."""
     import torch
 
     from swnerf_torch.ops.kernels import render_pass as b3
@@ -591,31 +682,32 @@ def frame_breakdown(rays, cfg, pc, pf, chunk):
     from swnerf_torch.ops.sampling import merge_z_vals
 
     names = ("rays+z", "coarse B3", "B2", "sort merge", "fine B3", "disp")
-    acc = dict.fromkeys(names, 0.0)
+    reps = [dict.fromkeys(names, 0.0) for _ in range(2)]
     n_all = rays.origins.shape[0]
-    for start in range(0, n_all, chunk):
-        tile = rays.slice(start, min(n_all, start + chunk))
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        o, d, ve, z, dist = pass_inputs(tile, cfg, 64)
-        ev[1].record()
-        res = b3.render_pass(pc, o, d, ve, z, dist, None, True)
-        ev[2].record()
-        n = z.shape[0]
-        z_mid = (0.5 * (z[:, 1:] + z[:, :-1])).contiguous()
-        u = torch.linspace(0.0, 1.0, 128, device=z.device).expand(n, 128)
-        zs = b2.sample_pdf(z_mid, res.weights[:, 1:-1], u)
-        ev[3].record()
-        zf = merge_z_vals(z, zs)
-        ev[4].record()
-        res = b3.render_pass(pf, o, d, ve, zf, b3_dists(zf, d), None, True)
-        ev[5].record()
-        _ = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
-        ev[6].record()
-        torch.cuda.synchronize()
-        for i, k in enumerate(names):
-            acc[k] += ev[i].elapsed_time(ev[i + 1])
-    return acc
+    for acc in reps:
+        for start in range(0, n_all, chunk):
+            tile = rays.slice(start, min(n_all, start + chunk))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            ev[0].record()
+            o, d, ve, z, dist = pass_inputs(tile, cfg, 64)
+            ev[1].record()
+            res = b3.render_pass(pc, o, d, ve, z, dist, None, True)
+            ev[2].record()
+            n = z.shape[0]
+            z_mid = (0.5 * (z[:, 1:] + z[:, :-1])).contiguous()
+            u = torch.linspace(0.0, 1.0, 128, device=z.device).expand(n, 128)
+            zs = b2.sample_pdf(z_mid, res.weights[:, 1:-1], u)
+            ev[3].record()
+            zf = merge_z_vals(z, zs)
+            ev[4].record()
+            res = b3.render_pass(pf, o, d, ve, zf, b3_dists(zf, d), None, True)
+            ev[5].record()
+            _ = 1.0 / torch.maximum(torch.full_like(res.depth, 1e-10), res.depth / res.acc)
+            ev[6].record()
+            torch.cuda.synchronize()
+            for i, k in enumerate(names):
+                acc[k] += ev[i].elapsed_time(ev[i + 1])
+    return reps[1], reps[0]
 
 
 # ---------------------------------------------------------------- training phases
@@ -1774,6 +1866,15 @@ def phase18_pts(dev, cfg, sd, inputs, data):
         )
         torch.cuda.empty_cache()
     pts, _, _, _, _, ddx = serve[192]
+    _, head = tc_shares("time_net", lambda: b6.time_net(tn16, pts, t))
+    TC_SUMMARY["time_net at the serving chunk's fine rows"] = f"head {100 * head:.2f}% of the blocks' cycles"
+    pts64, warped64, z64, dist64 = serve[64][:4]
+    comp, head = tc_shares("render_pass", lambda: b3.render_pass(c16, None, None, ve, z64, dist64, None, True, None,
+                                                                 warped64))
+    TC_SUMMARY["render_pass[pts,S=64] at the serving chunk"] = (
+        f"composite busy {100 * comp:.2f}% (overlapped with the products), alpha + rgb heads {100 * head:.2f}% "
+            "of the blocks' cycles")
+    del pts64, warped64, z64, dist64
     m = pts.shape[0] * pts.shape[1]
     rows["time_net"] = entry(
         "time_net", "swnerf_torch/csrc/time_net.cu", "swnerf_tpu/ops/pallas/raymarch.py:470", 0, ddx,
@@ -1898,6 +1999,7 @@ def phase20_serve(dev, cfg, tmp, data):
     print(f"[20 main] seconds per frame {[round(x, 4) for x in secs]}")
     print(f"[20 main] frames 5-20: {per_frame * 1e3:.2f} ms/frame, {n_rays / per_frame:.4g} rays/s, "
           f"{n_rays * (64 + 192) / per_frame:.4g} samples/s (canonical samples)")
+    TC_SUMMARY["D-NeRF serving (phase 20)"] = f"{per_frame * 1e3:.2f} ms per frame"
     ref = json.loads(DNERF_RESULT.read_text())["test_frames"]
     unit = dnerf_unit_psnr(metrics["psnr"], data, DNERF_FRAMES)
     for i, p, u, q in zip(DNERF_FRAMES, metrics["psnr"], unit, metrics["ssim"]):
@@ -2701,7 +2803,7 @@ def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
         p2(states, pixels, targets, images[img_i, y0 : y0 + 32, x0 : x0 + 32], poses[img_i],
            float(scene.times[img_i]), 1.0, gen)
 
-    families = (("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd",)),
+    families = (("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
                 ("B6/B7 backward GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
                                                          "cotangent_kernel", "round_cotangent")))
     for name, step in (("phase 1, level 0", phase1), ("phase 2", phase2)):
@@ -3393,15 +3495,17 @@ def phase31_b3w_b9(dev, data, states):
                     if drgb.max().item() > 1e-2:
                         fail(f"B3 wide bf16 level {level}: max |drgb| > 1e-2")
                 del ref
+            # the training path's B3 launch (bf16: the SIMT body, as B9 recomputes it)
+            train = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, warped, ordered=True)
             fwd, gk, dk = b1.render_loss_ext(packed, warped, ve, z, dist, noise, gct, True)
             _, gk2, dk2 = b1.render_loss_ext(packed, warped, ve, z, dist, noise, gct, True)
             _, gr, dr = b1.render_loss_ext_plain(packed, warped, ve, z, dist, noise, gct, True)
             torch.cuda.synchronize()
             same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1]) and torch.equal(dk, dk2)
-            fwd_same = all(torch.equal(getattr(fwd, k), getattr(got, k)) for k in ("rgb", "acc", "depth", "weights"))
-            print(f"[31 B9 {tag} level {level}] wide={packed.wide}: recomputed forward bit-equal to the B3 launch="
-                  f"{fwd_same}, repeat bit-equal={same}, max|ddpts|={(dk - dr).abs().max().item():.3e} (max|dpts| "
-                  f"{dr.abs().max().item():.3e})")
+            fwd_same = all(torch.equal(getattr(fwd, k), getattr(train, k)) for k in ("rgb", "acc", "depth", "weights"))
+            print(f"[31 B9 {tag} level {level}] wide={packed.wide}: recomputed forward bit-equal to the training "
+                  f"path's B3 launch={fwd_same}, repeat bit-equal={same}, max|ddpts|={(dk - dr).abs().max().item():.3e} "
+                  f"(max|dpts| {dr.abs().max().item():.3e})")
             if not same or not fwd_same:
                 fail(f"B9 {tag} level {level}: repeats differ or its forward differs from the B3 launch")
             if dtype == torch.float32:
@@ -3424,8 +3528,34 @@ def phase31_b3w_b9(dev, data, states):
                     fail(f"B9 bf16 level {level}: rgb beyond 1e-2 or gradient rel L2 > 1e-2")
                 key = "b9n" if level == 3 else "b9"
                 err16[key] = max(err16[key], drgb)
-            del gk, gk2, gr, fwd, got
+            del gk, gk2, gr, fwd, got, train
             torch.cuda.empty_cache()
+
+    # B9's bf16 gradients on seeded, unsaturated weights (levels 0, 1 and the
+    # identity level; 000200.tar's level 0 saturates) held at the bar, beside
+    # the twin's distance from itself summed in another order (the same bf16
+    # twin on the CPU): the gradients' sensitivity to fp32 summation order
+    # (PERF.md §6)
+    n9 = 256
+    for level in (0, 1, 3):
+        model = mr_level_model(dev, level, seed=10, fused=False)
+        pk = b3.pack_params(canonical_params(model.state_dict()), model.cfg, torch.bfloat16)
+        warped_l, ve_l = inp["levels"][level]
+        args = [x[:n9].contiguous() for x in (warped_l, ve_l, z, dist, noise, gct)]
+        _, gk, dk = b1.render_loss_ext(pk, *args, True)
+        _, gr, dr = b1.render_loss_ext_plain(pk, *args, True)
+        pkc = dataclasses.replace(pk, weights=pk.weights.cpu(), biases=pk.biases.cpu())
+        _, gc, dc = b1.render_loss_ext_plain(pkc, *(x.cpu() for x in args), True)
+        ref = dict(b1.unpack_grads(gr, pk), dpts=dr)
+        kern = rel_l2(dict(b1.unpack_grads(gk, pk), dpts=dk), ref)
+        twin = rel_l2(dict(b1.unpack_grads(gc, pkc), dpts=dc), ref)
+        print(f"[31 B9 bf16 seeded level {level}] {n9} x 64 rows: the kernel's gradients and d pts within max rel L2 "
+              f"{max(kern.values()):.3e} ({max(kern, key=kern.get)}) of the CUDA twin (bar 1e-2); the same twin "
+              f"summed on the CPU within {max(twin.values()):.3e} ({max(twin, key=twin.get)})")
+        if max(kern.values()) > 1e-2:
+            fail(f"B9 bf16 on seeded level-{level} weights: gradient rel L2 > 1e-2")
+        del gk, gr, gc, pk, pkc, model
+        torch.cuda.empty_cache()
 
     # B3 wide at the test render's chunk (level 0, 32,768 rays x 64: 32
     # copies of the 1,024 rays) against its twin, on 000200.tar's weights and
@@ -3459,14 +3589,32 @@ def phase31_b3w_b9(dev, data, states):
                 err16["b3"] = max(err16["b3"], drgb.max().item(), dacc)
             if weights == "seeded" and live < 0.1:
                 fail(f"31: the seeded weights' rgb is saturated ({live:.4f} of it live): the comparison sees nothing")
+            if tag == "bf16":  # the training path's launch, on the SIMT body
+                got = b3.render_pass(pk, None, None, big[1], big[2], big[3], None, True, None, big[0], ordered=True)
+                du = (got.rgb - ref.rgb).abs()
+                print(f"[31 B3 wide bf16 level 0, {weights}, ordered] max|drgb|={du.max().item():.3e} "
+                      f"mean|drgb|={du.mean().item():.3e}")
+                if du.max().item() > 1e-2 or du.mean().item() > 1e-3:
+                    fail(f"B3 wide bf16, ordered, at the test render's chunk ({weights}): max |drgb| > 1e-2 or "
+                         "mean > 1e-3")
+                err16["b3"] = max(err16["b3"], du.max().item())
             del got, ref
     torch.cuda.empty_cache()
     rows = {}
     b3ms = cuda_ms(lambda: b3.render_pass(p16, None, None, big[1], big[2], big[3], None, True, None, big[0]), 5)
     b3plain = cuda_ms(lambda: b3.render_pass_plain(p16, None, None, big[1], big[2], big[3], None, True, None,
                                                    big[0]), 2)
+    comp, head = tc_shares("render_pass", lambda: b3.render_pass(p16, None, None, big[1], big[2], big[3], None,
+                                                                 True, None, big[0]))
+    TC_SUMMARY["render_pass[pts,wide] at the test render's chunk"] = (
+        f"composite busy {100 * comp:.2f}% (overlapped with the products), alpha + rgb heads {100 * head:.2f}% "
+            "of the blocks' cycles")
+    b3ms_o = cuda_ms(lambda: b3.render_pass(p16, None, None, big[1], big[2], big[3], None, True, None, big[0],
+                                            ordered=True), 3)
     small = b3.render_pass(p16, None, None, ve, z, dist, noise, True, None, warped)
     b3small = cuda_ms(lambda: b3.render_pass(p16, None, None, ve, z, dist, noise, True, None, warped), 20)
+    b3small_o = cuda_ms(lambda: b3.render_pass(p16, None, None, ve, z, dist, noise, True, None, warped,
+                                               ordered=True), 20)
     nw, nbias = p16.weights.numel(), p16.biases.numel()
     rows["render_pass[pts,wide]"] = entry(
         "render_pass[pts,wide]", "swnerf_torch/csrc/render_pass.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
@@ -3477,7 +3625,8 @@ def phase31_b3w_b9(dev, data, states):
     torch.cuda.empty_cache()
     print(f"[31 times] B3 wide level 0 ({p16.macs_per_sample} MACs per sample): the test render's chunk "
           f"(32,768 x 64) {b3ms:.3f} ms ({2 * p16.macs_per_sample * nb / b3ms / 1e9:.2f} TFLOP/s); phase 2's "
-          f"1,024 x 64 rows {b3small:.3f} ms")
+          f"1,024 x 64 rows {b3small:.3f} ms; the training path's ordered launch (SIMT) {b3ms_o:.3f} "
+          f"and {b3small_o:.3f} ms")
     for key, level, n_rays in (("render_loss[ext,wide]", 0, 1024), ("render_loss[ext]", 3, 16)):
         pk, wp, vv = packs[(level, "bf16")]
         args = (pk, wp[:n_rays].contiguous(), vv[:n_rays].contiguous(), z[:n_rays].contiguous(),
@@ -3755,8 +3904,8 @@ def phase2_profile(dev, scene, pyr_hwf, ckpt):
     with torch.no_grad():
         lap = generate_laplacian_pyramid(images, levels=4)
     patch_sizes = [32, 16, 8, 4]
-    families = (("B3 wide / B3 pts forward", ("render_pass_kernel",)), ("B9 forward", ("render_loss_fwd",)),
-                ("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd",)),
+    families = (("B9 forward", ("render_loss_fwd",)), ("B3 wide / B3 pts forward", ("render_pass_kernel", "render_kernel<")),
+                ("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
                 ("backward GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
                                                    "cotangent_kernel", "round_cotangent", "encode_bwd")))
     for route in (True, False):

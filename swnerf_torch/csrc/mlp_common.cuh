@@ -1,10 +1,14 @@
 // Device code shared by the render kernels B1/B3/B5 (vanilla) and B4
 // (T-NeRF) in render_pass.cu and render_loss.cu, the deformation MLP B6 in
 // time_net.cu and the field trunks B7, B7' and B8 in trunk.cu: operand-type
-// traits, the field families of the render kernels, the 64-row MLP chunk
-// product, the activation epilogue, the in-block Fourier encoding and its
-// backward.
+// traits, the field families of the render kernels, the 64-row SIMT MLP
+// chunk product, the activation epilogue, the in-block Fourier encoding and
+// its backward, and the per-ray composite of the tensor-core B3.
 //
+// The SIMT chunk product (mm_acc) serves every fp32 instantiation (the
+// parity mode) and, in bf16, B1, B4, B5, B7, B7', B8, B9 and the training
+// path's B3 launch (ordered); bf16 B3 otherwise, and B6's forward, run
+// tc_chunk.cuh's tensor-core product instead.
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
 // padded so the epilogue's column-wise stores are conflict-free); weights
@@ -98,7 +102,7 @@ template <> struct Op<__nv_bfloat16> {
   }
 };
 
-// Dynamic shared memory of one block of the render body (render_pass.cu's
+// Dynamic shared memory of one block of the SIMT render body (render_pass.cu's
 // forward, render_loss.cu's train-mode forward), as both launchers size it:
 // LANES floats per sample of the block's rays (4: the raw lanes; 5 in train
 // mode, with the log-transmittances), the reduction buffer, and the tiles:
@@ -200,6 +204,46 @@ template <typename A>
 __device__ __forceinline__ float rgb_of(float logit) {
   const float l = A::RGB_RELU ? fmaxf(logit, 0.f) : logit;
   return 1.f / (1.f + expf(-l));
+}
+
+// Composite one ray's S samples in order (raw2outputs): raw [S][4] holds
+// each sample's rgb logits and sigma, zr / dr / nz (nullable) its z, dist
+// and noise. Writes the weights wr [S] and, with lt, each sample's
+// log-transmittance before it; returns the colour (white-composited when
+// asked), acc and depth.
+template <typename A>
+__device__ __forceinline__ void composite(const float* __restrict__ raw, int S, const float* __restrict__ zr,
+                                          const float* __restrict__ dr, const float* __restrict__ nz, int white,
+                                          float* __restrict__ wr, float* __restrict__ lt, float& c0, float& c1,
+                                          float& c2, float& acc, float& dep) {
+  float log_t = 0.f;
+  acc = 0.f;
+  dep = 0.f;
+  c0 = 0.f;
+  c1 = 0.f;
+  c2 = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float* rw = raw + s * 4;
+    const float sigma = nz ? rw[3] + nz[s] : rw[3];
+    const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dr[s]);
+    // The max() floor keeps log() finite at alpha == 1 whatever the
+    // compiler does to (1 - alpha) + 1e-10 (render_fused.py:372-377).
+    const float safe = fmaxf(1.f - alpha + 1e-10f, 1e-10f);
+    const float w = alpha * expf(log_t);
+    if (lt) lt[s] = log_t;
+    log_t += logf(safe);
+    wr[s] = w;
+    acc += w;
+    dep += w * zr[s];
+    c0 += w * rgb_of<A>(rw[0]);
+    c1 += w * rgb_of<A>(rw[1]);
+    c2 += w * rgb_of<A>(rw[2]);
+  }
+  if (white) {
+    c0 += 1.f - acc;
+    c1 += 1.f - acc;
+    c2 += 1.f - acc;
+  }
 }
 
 template <int R, int C>

@@ -64,8 +64,15 @@
 // Operands are fp32 (parity mode) or bf16, rounded where the plain twin and
 // _trunk_reverse round them (embedding, activations, dz, g_rgb, dhv, dfa);
 // products accumulate in fp32, and the gradients are fp32. The per-sample
-// colour stays fp32 (the TPU kernel rounds it in bf16 mode). SIMT only:
-// mma/wgmma and TMA are later work. No --use_fast_math (ops/kernels/build.py):
+// colour stays fp32 (the TPU kernel rounds it in bf16 mode). SIMT: fp32
+// FMAs in order, the body B3's ordered pts launch runs (render_pass.cu), so
+// that B9's recomputed forward equals the training path's B3 launch bit for
+// bit. On the tensor cores (tc_render.cuh), whose products round each k16
+// step toward zero (tc_rounding.py), B9's bf16 gradients left the twin's
+// bar at MultiRes level 0, and an unbiased fold of each step did not keep
+// them inside it on every seeded case; this body shares the twin's fp32
+// order up to the skip layer. B1, B5 and B9's backward on the tensor cores
+// are later work. No --use_fast_math (ops/kernels/build.py):
 // sinf/cosf stay accurate at the 2^9-frequency arguments, and the
 // transmittance floor max(1 - alpha + 1e-10, 1e-10), which is also the
 // divisor of d alpha, is not folded.

@@ -27,16 +27,24 @@
 //
 // Bound on the card: operations (~1.19 MFLOP of MLP per sample at D=8,
 // W=256; ~0.33 MFLOP for T-NeRF at D=8, W=128; against ~1 KB of per-ray
-// input). Design: one block of 256 threads
-// owns whole rays and runs the MLP over 64-row chunks of their samples
-// (mlp_common.cuh): the chunk's embedding and its two ping-pong activation
-// buffers live in shared memory, and weights stream from global memory
-// (they stay L2-resident) through a 16-row shared tile. Only the 4 raw
-// lanes of each sample are kept, in shared memory; then one thread per ray
-// composites in order.
+// input). Two bodies:
+//  - bf16, vanilla (B3 from rays, pts, pts wide): tc_render.cuh on the
+//    tensor cores (tc_chunk.cuh: bf16 wgmma, an async weight ring, 128 rows
+//    per pass over the weights, a persistent grid), about 9.4 KB of weights
+//    from L2 per row (9.9 KB wide), half the SIMT body's.
+//  - fp32 (the parity mode), B4, and the ordered bf16 pts launch (the
+//    training path's, which B9's recomputed forward matches bit for bit:
+//    the tensor cores round each k16 step toward zero, tc_rounding.py, and
+//    B9's gradients then leave the twin's bar): the SIMT body below, fp32
+//    FMAs in order. One block of 256 threads owns whole rays and runs the
+//    MLP over 64-row chunks of their samples (mlp_common.cuh): the chunk's
+//    embedding and its two ping-pong activation buffers live in shared
+//    memory, and weights stream from global memory (they stay L2-resident)
+//    through a 16-row shared tile.
+// Only the 4 raw lanes of each sample are kept, in shared memory; then one
+// thread per ray composites in order (mlp_common.cuh::composite).
 // Operands are fp32 (parity mode) or bf16 (rounded exactly where the plain
-// twin rounds); accumulation, biases and compositing are fp32. This is a
-// SIMT kernel: tensor cores (mma/wgmma) and TMA are later work.
+// twin rounds); accumulation, biases and compositing are fp32.
 //
 // No --use_fast_math (see ops/kernels/build.py): sinf/cosf stay accurate at
 // the 2^9-frequency arguments (2^19 at MultiRes level 0), and the
@@ -48,6 +56,7 @@
 #include <algorithm>
 
 #include "mlp_common.cuh"
+#include "tc_render.cuh"
 
 namespace {
 
@@ -159,32 +168,9 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
   if ((int)threadIdx.x < nr) {
     const int t = threadIdx.x;
     const long long ray = ray0 + t;
-    const float* zr = z + ray * S;
-    const float* dr = dist + ray * S;
-    const float* nz = noise ? noise + ray * S : nullptr;
-    float* wr = w_out + ray * S;
-    float log_t = 0.f, acc = 0.f, dep = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float* rw = raw_s + (t * S + s) * 4;
-      const float sigma = nz ? rw[3] + nz[s] : rw[3];
-      const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dr[s]);
-      // The max() floor keeps log() finite at alpha == 1 whatever the
-      // compiler does to (1 - alpha) + 1e-10 (render_fused.py:372-377).
-      const float safe = fmaxf(1.f - alpha + 1e-10f, 1e-10f);
-      const float w = alpha * expf(log_t);
-      log_t += logf(safe);
-      wr[s] = w;
-      acc += w;
-      dep += w * zr[s];
-      c0 += w * rgb_of<A>(rw[0]);
-      c1 += w * rgb_of<A>(rw[1]);
-      c2 += w * rgb_of<A>(rw[2]);
-    }
-    if (white) {
-      c0 += 1.f - acc;
-      c1 += 1.f - acc;
-      c2 += 1.f - acc;
-    }
+    float c0, c1, c2, acc, dep;
+    composite<A>(raw_s + t * S * 4, S, z + ray * S, dist + ray * S, noise ? noise + ray * S : nullptr, white,
+                 w_out + ray * S, nullptr, c0, c1, c2, acc, dep);
     rgb_out[ray * 3 + 0] = c0;
     rgb_out[ray * 3 + 1] = c1;
     rgb_out[ray * 3 + 2] = c2;
@@ -194,10 +180,10 @@ render_pass_kernel(const float* __restrict__ origins, const float* __restrict__ 
 }
 
 template <typename T, int W, typename A, bool PTS = false>
-int launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
-           const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
-           int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
-           cudaStream_t stream) {
+int launch_simt(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
+                const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
+                int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
+                cudaStream_t stream) {
   const int rays_per_block = std::max(1, CH / S);
   // The wide family in fp32 at W=256 takes 225,280 bytes of tiles, which
   // leaves S <= 256 (render_pass_max_samples; the wrapper refuses more first).
@@ -213,6 +199,20 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int W, typename A, bool PTS = false>
+int launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
+           const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
+           int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out, void* img,
+           long long img_bytes, bool ordered, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2 && !A::TIME) {  // bf16 vanilla: the tensor-core body, unless ordered
+    if (!ordered)
+      return tc::render_launch<W, A, PTS>(origins, dirs, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S,
+                                          rgb, acc, depth, w_out, img, img_bytes, stream);
+  }
+  return launch_simt<T, W, A, PTS>(origins, dirs, times, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S,
+                                   rgb, acc, depth, w_out, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -224,26 +224,47 @@ const char* swnerf_error_string(int code) {
 // The most samples per ray render_pass_launch (tnerf) and
 // render_pass_pts_launch (wide) take: the block's shared memory.
 int render_pass_max_samples(int tnerf, int bf16, int wide, int W) {
-  return render_max_samples<4>(tnerf, bf16, wide, W);
+  const int simt = render_max_samples<4>(tnerf, bf16, wide, W);  // fp32, the T-NeRF, bf16 ordered
+  return bf16 && !tnerf && simt > 0 ? std::min(simt, tc::max_samples(wide, W)) : simt;
 }
+
+// Bytes of the weight image render_pass_launch and render_pass_pts_launch
+// read for these weights (tc_render.cuh::render_plan): 0 where the SIMT
+// body runs (fp32, the T-NeRF) or for an unsupported width.
+long long render_pass_image_bytes(int tnerf, int bf16, int wide, int W, int D, int skip) {
+  if (tnerf || !bf16 || (W != 128 && W != 256)) return 0;
+  if (wide)
+    return W == 256 ? tc::render_plan<256, VanillaWide>(D, skip).bytes
+                    : tc::render_plan<128, VanillaWide>(D, skip).bytes;
+  return W == 256 ? tc::render_plan<256, Vanilla>(D, skip).bytes : tc::render_plan<128, Vanilla>(D, skip).bytes;
+}
+
+// With a device buffer of 3 x (blocks) int64, the next bf16 vanilla
+// launches record per block the clock cycles of the composite (beside the
+// products), of the narrow heads and of the whole block
+// (tc_chunk.cuh::g_prof); null stops it.
+void render_pass_profile(void* buf) { tc::g_prof = static_cast<long long*>(buf); }
 
 // tnerf: 0 for a vanilla field (B3), 1 for a T-NeRF (B4). origins, dirs
 // [N, 3]; times [N] (B4 only, else null); vemb [N, cv]; z, dist, noise
 // (nullable) [N, S]; wts / bias: the packed buffers of
 // ops/kernels/render_pass.py::pack_params / pack_tnerf_params (bf16 != 0:
 // bf16 operands, else fp32); outputs rgb [N, 3], acc [N], depth [N],
-// w_out [N, S]. All contiguous.
+// w_out [N, S]; img: img_bytes of scratch for the bf16 vanilla body's weight
+// image (render_pass_image_bytes; null where that is 0).
+// All contiguous.
 int render_pass_launch(int tnerf, int bf16, int W, const float* origins, const float* dirs, const float* times,
                        const float* vemb, int cv, const float* z, const float* dist, const float* noise,
                        const void* wts, const float* bias, int D, int skip, int L, int white, int N, int S,
-                       float* rgb, float* acc, float* depth, float* w_out, void* stream) {
+                       float* rgb, float* acc, float* depth, float* w_out, void* img, long long img_bytes,
+                       void* stream) {
   if (N == 0) return 0;
   if (tnerf ? (times == nullptr || TNerf::cin(L) > TNerf::CIN) : Vanilla::cin(L) > Vanilla::CIN)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWNERF_LAUNCH(T, WW, AA)                                                                                  \
   launch<T, WW, AA>(origins, dirs, times, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S, rgb, acc, \
-                    depth, w_out, st)
+                    depth, w_out, img, img_bytes, false, st)
   if (tnerf) {
     if (bf16) {
       if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, TNerf);
@@ -267,12 +288,14 @@ int render_pass_launch(int tnerf, int bf16, int W, const float* origins, const f
 // positions pts [N, S, 3] are given (o + d*z, plus the deformation) and
 // encoded in-block; z and dist still drive the depth and the compositing.
 // wide != 0 takes weights packed at the MultiRes widths (128 / 128 padded
-// rows, VanillaWide), else the narrow pads (64 / 32). Other arguments as
-// render_pass_launch's.
+// rows, VanillaWide), else the narrow pads (64 / 32). ordered != 0 (bf16:
+// the training path's launch) runs the SIMT body, whose fp32 FMAs in order
+// B9's recomputed forward shares, so that the two agree bit for bit; fp32
+// runs it either way. Other arguments as render_pass_launch's.
 int render_pass_pts_launch(int bf16, int wide, int W, const float* pts, const float* vemb, int cv, const float* z,
                            const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
                            int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out,
-                           void* stream) {
+                           void* img, long long img_bytes, int ordered, void* stream) {
   if (N == 0) return 0;
   if (wide ? (VanillaWide::cin(L) > VanillaWide::CIN || cv > VanillaWide::CV)
            : (Vanilla::cin(L) > Vanilla::CIN || cv > Vanilla::CV))
@@ -280,7 +303,7 @@ int render_pass_pts_launch(int bf16, int wide, int W, const float* pts, const fl
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SWNERF_LAUNCH(T, WW, AA)                                                                                  \
   launch<T, WW, AA, true>(pts, nullptr, nullptr, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S, rgb, \
-                          acc, depth, w_out, st)
+                          acc, depth, w_out, img, img_bytes, ordered != 0, st)
   if (wide) {
     if (bf16) {
       if (W == 256) return SWNERF_LAUNCH(__nv_bfloat16, 256, VanillaWide);

@@ -32,10 +32,16 @@
 // Bound on the card: operations. At D=8, W=256, 84 input columns the
 // forward is 497,152 multiply-adds per row and the backward's dW and dH
 // products about twice that, against 16 bytes of input per row. Design:
-//  1. time_net_fwd_kernel: one 256-thread block per 64-row chunk, B3's chunk
-//     product (weights streamed from L2 through a 16-row shared tile,
-//     activations ping-pong in shared memory) and the 3-wide head as three
-//     dots per row. With a scratch buffer (train mode) it spills the
+//  1. The forward in bf16 (both modes): time_net_tc_kernel on the tensor
+//     cores (tc_chunk.cuh): a persistent grid over 128-row chunks, bf16
+//     wgmma into fp32 accumulators, the weights (an image of 1.05 MB, 1.12 MB
+//     at 144 input rows) streamed by a producer warpgroup through a ring of
+//     32 KB slabs, about 8.2 KB per row from L2; activations in place in
+//     shared memory; the 3-wide head an m64n8 product. In fp32 (the parity
+//     mode) time_net_fwd_kernel: one 256-thread block per 64-row chunk, B3's
+//     SIMT chunk product (weights streamed from L2 through a 16-row shared
+//     tile, activations ping-pong in shared memory) and the head as three
+//     dots per row. With a scratch buffer (train mode) either spills the
 //     embedding and every layer's output, each with a column of ones, as B1
 //     does.
 //  2. time_net_bwd_launch, once the cotangent g = d loss / d dx is known:
@@ -45,7 +51,7 @@
 //     no atomics, bit-equal repeats.
 // Operands fp32 (parity mode) or bf16, rounded where the plain twin rounds
 // (the embedding, each layer's output, q(g), every dz); products accumulate
-// in fp32; gradients are fp32. SIMT only: mma/wgmma are later work. No
+// in fp32; gradients are fp32. The backward is SIMT. No
 // --use_fast_math (ops/kernels/build.py): at Lx = 20 the encode's arguments
 // reach 2^19 |x|, where sinf/cosf take their slow, exact reduction path.
 
@@ -56,6 +62,7 @@
 
 #include "gemm_common.cuh"
 #include "mlp_common.cuh"
+#include "tc_chunk.cuh"
 
 namespace {
 
@@ -184,6 +191,157 @@ time_net_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ tim
   }
 }
 
+// encode_xt for the tensor-core forward: the 64 rows of one consumer
+// warpgroup (tid 0..127, two threads a row) into its swizzled tile (columns
+// cin .. atoms(CIN) * 64 zero), in encode_xt's order and arithmetic. With
+// eg (train mode) each valid row's cin rounded columns, then a 1, also go
+// to eg [M][CIN].
+template <int CIN>
+__device__ __forceinline__ void encode_xt_tile(unsigned char* emb, int tid, int row0, int M, int S, int Lx, int Lt,
+                                               const float* __restrict__ pts, const float* __restrict__ times,
+                                               __nv_bfloat16* __restrict__ eg) {
+  const int r = tid & 63;
+  const int part = tid >> 6;  // two threads share a row
+  const int g = row0 + r;
+  const int dpos = 3 + 6 * Lx;
+  const int cin = cin_of(Lx, Lt);
+  float x[3] = {0.f, 0.f, 0.f};
+  float t = 0.f;
+  __nv_bfloat16* e = nullptr;
+  if (g < M) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) x[a] = pts[(size_t)g * 3 + a];
+    t = times[g / S];
+    if (eg != nullptr) e = eg + (size_t)g * CIN;
+  }
+  auto col = [&](int c, float v) {
+    const __nv_bfloat16 q = tc::put(emb, r, c, v);
+    if (e != nullptr) e[c] = q;
+  };
+  if (part == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) col(a, x[a]);
+    col(dpos, t);
+  } else {
+    for (int c = cin; c < tc::atoms(CIN) * 64; ++c) tc::put(emb, r, c, 0.f);
+    if (e != nullptr) e[cin] = __float2bfloat16_rn(1.f);
+  }
+  for (int f = part; f < Lx; f += 2) {
+    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float u = x[a] * scale;
+      col(3 + 6 * f + a, sinf(u));
+      col(6 + 6 * f + a, cosf(u));
+    }
+  }
+  for (int f = part; f < Lt; f += 2) {
+    const float u = t * (float)(1 << f);
+    col(dpos + 1 + 2 * f, sinf(u));
+    col(dpos + 2 + 2 * f, cosf(u));
+  }
+}
+
+// Stages of the weight ring, and the tensor-core forward's shared memory:
+// the ring, each consumer's activation and embedding tiles, the barriers.
+constexpr int TC_STAGES = 3;
+
+template <int W, int CIN>
+constexpr size_t tc_smem() {
+  return 1024 + (size_t)TC_STAGES * tc::STAGE_BYTES + 2 * (size_t)(W / 64 + tc::atoms(CIN)) * tc::ATOM_BYTES +
+         tc::BAR_BYTES;
+}
+
+// B6's forward in bf16 on the tensor cores (tc_chunk.cuh): a persistent
+// grid over 128-row chunks; per chunk each consumer warpgroup encodes its 64
+// rows, runs the D layers (the skip layer as two products into the same
+// accumulators) in place in its activation tile, and the 3-wide head as an
+// m64n8 product. With STORE (train mode) the embedding and every layer's
+// output, each with its column of ones, also go to the scratch, as
+// time_net_fwd_kernel spills them.
+template <int W, int CIN, bool STORE>
+__global__ void __launch_bounds__(tc::NTHREADS, 1)
+time_net_tc_kernel(const float* __restrict__ pts, const float* __restrict__ times, const __grid_constant__ tc::Plan plan,
+                   const unsigned char* __restrict__ img, const float* __restrict__ bias, int D, int skip, int Lx,
+                   int Lt, int S, int M, float* __restrict__ dx_out, __nv_bfloat16* __restrict__ emb_g,
+                   __nv_bfloat16* __restrict__ h_g, size_t hstride, long long* __restrict__ prof) {
+  constexpr int LDW = W + PADC;
+  constexpr int KE = tc::atoms(CIN);
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned_smem: 1024
+  unsigned char* sm = tc::aligned_smem(smem_raw);
+  unsigned char* act_s = sm + TC_STAGES * tc::STAGE_BYTES;   // [2][W / 64 atoms]
+  unsigned char* emb_s = act_s + 2 * (W / 64) * tc::ATOM_BYTES;  // [2][KE atoms]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(emb_s + 2 * KE * tc::ATOM_BYTES);
+  tc::init_ring(bars, TC_STAGES);
+  const int chunks = (M + tc::ROWS - 1) / tc::ROWS;
+  const int wg = threadIdx.x / tc::WGT;
+
+  if (wg == 0) {  // the producer
+    tc::set_regs<tc::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int st = 0, ph = 0;
+      for (int c = blockIdx.x; c < chunks; c += gridDim.x)
+        tc::produce(plan, img, tc::smem_u32(sm), bars, bars + TC_STAGES, TC_STAGES, st, ph);
+    }
+  } else {
+    tc::set_regs<tc::CONSUMER_REGS>();
+    const int w = wg - 1;
+    const int tid = threadIdx.x - wg * tc::WGT;
+    unsigned char* act = act_s + w * (W / 64) * tc::ATOM_BYTES;
+    unsigned char* emb = emb_s + w * KE * tc::ATOM_BYTES;
+    const uint32_t act_a = tc::smem_u32(act), emb_a = tc::smem_u32(emb);
+    tc::Ring ring{tc::smem_u32(sm), bars, bars + TC_STAGES, TC_STAGES, 0, 0, -1};
+    const bool timer = prof != nullptr && tid == 0 && w == 0;
+    if (timer) tc::start_clock(prof);
+    for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+      float acc[W / 2];  // dead, its registers free, outside a layer's products (wgmma_zero)
+      const int row0 = c * tc::ROWS + w * 64;
+      const int nvalid = max(0, min(64, M - row0));
+      encode_xt_tile<CIN>(emb, tid, row0, M, S, Lx, Lt, pts, times, STORE ? emb_g : nullptr);
+      tc::publish(w);
+      const float* bp = bias;
+      for (int i = 0; i < D; ++i) {
+        if (i == 0 || i == skip + 1) {
+          tc::mma<W, true>(acc, emb_a, CIN, ring);  // cat([embed(x), h]) @ W == emb @ W_emb + h @ W_h
+          if (i > 0) tc::mma<W, false>(acc, act_a, W, ring);
+        } else {
+          tc::mma<W, true>(acc, act_a, W, ring);
+        }
+        tc::mma_done<W>(acc, ring, w);
+        tc::epilogue<W, Act::Relu>(acc, bp, act, tid, STORE ? h_g + i * hstride : nullptr, LDW, row0, nvalid, true);
+        tc::publish(w);
+        bp += W;
+      }
+      const long long th = timer ? clock64() : 0;
+      {  // the head: an m64n8 product on the zero-padded [W][8] weights
+        tc::mma<8, true>(acc, act_a, W, ring);
+        tc::mma_done<8>(acc, ring, w);
+        const int lane = tid & 31;
+        const int r = (tid >> 5) * 16 + (lane >> 2);
+        const int c0 = 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (r + 8 * h >= nvalid) continue;
+          float* out = dx_out + (size_t)(row0 + r + 8 * h) * 3;
+          if (c0 < 3) out[c0] = acc[2 * h] + bp[c0];
+          if (c0 + 1 < 3) out[c0 + 1] = acc[2 * h + 1] + bp[c0 + 1];
+        }
+      }
+      if (timer) tc::add_clock(prof, 1, th);
+    }
+    if (timer) tc::add_clock(prof, 2, 0);
+  }
+}
+
+// The image of B6's packed weights (tc_chunk.cuh): the trunk, then the head
+// [W][3] padded to 8 columns.
+tc::Plan time_net_plan(int W, int CIN, int D, int skip) {
+  tc::Plan p{};
+  const long long o = tc::add_trunk(p, D, skip, CIN, W);
+  tc::add_seg(p, o, W, 3, W, 8);
+  return p;
+}
+
 // gq[m] = (q(g[m][0..2]), 0): the cotangent in the operand type.
 template <typename T>
 __global__ void round_cotangent_kernel(const float* __restrict__ g, long long M, T* __restrict__ gq) {
@@ -296,9 +454,11 @@ __global__ void ray_sum_kernel(const float* __restrict__ dt_rows, int S, int N, 
   dtimes[ray] = s;
 }
 
-template <typename T, int W, int CIN>
+// The fp32 forward (the parity mode): SIMT, 64-row chunks.
+template <int W, int CIN>
 int fwd(const float* pts, const float* times, const void* wts, const float* bias, int D, int skip, int Lx, int Lt,
-        int S, int M, float* dx, void* scratch, cudaStream_t st) {
+        int S, int M, float* dx, void* scratch, void*, long long, cudaStream_t st) {
+  using T = float;
   constexpr int LDA = Op<T>::LDA;
   const size_t smem = sizeof(float) * NRED + sizeof(T) * ((size_t)(2 * W + CIN) * LDA + KT * W);
   Scratch<T> sc{};
@@ -307,6 +467,25 @@ int fwd(const float* pts, const float* times, const void* wts, const float* bias
   SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   kern<<<ceil_div(M, CH), NT, smem, st>>>(pts, times, static_cast<const T*>(wts), bias, D, skip, Lx, Lt, S, M, dx,
                                           sc.emb, sc.h, sc.hstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forward: the weight image into img, then the tensor-core kernel.
+template <int W, int CIN>
+int fwd_tc(const float* pts, const float* times, const void* wts, const float* bias, int D, int skip, int Lx, int Lt,
+           int S, int M, float* dx, void* scratch, void* img, long long img_bytes, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  const tc::Plan plan = time_net_plan(W, CIN, D, skip);
+  if (img == nullptr || img_bytes < plan.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  Scratch<T> sc{};
+  if (scratch) sc = carve<T>(scratch, CIN, W, D, M);
+  SWNERF_CHECK(tc::pack(wts, plan, img, st));
+  constexpr size_t smem = tc_smem<W, CIN>();
+  auto kern = scratch ? time_net_tc_kernel<W, CIN, true> : time_net_tc_kernel<W, CIN, false>;
+  SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  kern<<<tc::grid_for(ceil_div(M, tc::ROWS)), tc::NTHREADS, smem, st>>>(
+      pts, times, plan, static_cast<const unsigned char*>(img), bias, D, skip, Lx, Lt, S, M, dx, sc.emb, sc.h,
+      sc.hstride, tc::g_prof);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,26 +552,36 @@ long long time_net_scratch_bytes(int bf16, int cin_pad, int W, int D, long long 
   return (long long)(bf16 ? scratch_bytes<__nv_bfloat16>(cin_pad, W, D, M) : scratch_bytes<float>(cin_pad, W, D, M));
 }
 
+// Bytes of the bf16 forward's weight image (time_net_plan); 0 in fp32, whose
+// forward runs the SIMT body, or for an unsupported shape.
+long long time_net_image_bytes(int bf16, int cin_pad, int W, int D, int skip) {
+  if (!bf16 || (W != 128 && W != 256) || !cin_pad_ok(cin_pad)) return 0;
+  return time_net_plan(W, cin_pad, D, skip).bytes;
+}
+
 // dx [N*S, 3] of the deformation MLP at pts [N, S, 3] and per-ray times
 // [N], with Lx position and Lt time frequencies (0: the identity); wts /
 // bias: the packed buffers of ops/kernels/time_net.py::pack_time_params,
 // input padded to cin_pad (96 or 144) rows (bf16 != 0: bf16 operands, else
 // fp32). scratch (train mode, time_net_scratch_bytes) or null: with it the
-// forward keeps what the backward needs. All contiguous.
+// forward keeps what the backward needs. img: img_bytes of scratch for the
+// bf16 forward's weight image (time_net_image_bytes; null in
+// fp32). All contiguous.
 int time_net_fwd_launch(int bf16, int W, int cin_pad, const float* pts, const float* times, const void* wts,
                         const float* bias, int D, int skip, int Lx, int Lt, int N, int S, float* dx, void* scratch,
-                        void* stream) {
+                        void* img, long long img_bytes, void* stream) {
   const long long M = (long long)N * S;
   if (M == 0) return 0;
   if (!shape_ok(cin_pad, W, D, skip, Lx, Lt, M)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SWNERF_FWD(T, WW, CC) fwd<T, WW, CC>(pts, times, wts, bias, D, skip, Lx, Lt, S, (int)M, dx, scratch, st)
+#define SWNERF_FWD(F, WW, CC) \
+  F<WW, CC>(pts, times, wts, bias, D, skip, Lx, Lt, S, (int)M, dx, scratch, img, img_bytes, st)
   if (cin_pad == 96) {
-    if (bf16) return W == 256 ? SWNERF_FWD(__nv_bfloat16, 256, 96) : SWNERF_FWD(__nv_bfloat16, 128, 96);
-    return W == 256 ? SWNERF_FWD(float, 256, 96) : SWNERF_FWD(float, 128, 96);
+    if (bf16) return W == 256 ? SWNERF_FWD(fwd_tc, 256, 96) : SWNERF_FWD(fwd_tc, 128, 96);
+    return W == 256 ? SWNERF_FWD(fwd, 256, 96) : SWNERF_FWD(fwd, 128, 96);
   }
-  if (bf16) return W == 256 ? SWNERF_FWD(__nv_bfloat16, 256, 144) : SWNERF_FWD(__nv_bfloat16, 128, 144);
-  return W == 256 ? SWNERF_FWD(float, 256, 144) : SWNERF_FWD(float, 128, 144);
+  if (bf16) return W == 256 ? SWNERF_FWD(fwd_tc, 256, 144) : SWNERF_FWD(fwd_tc, 128, 144);
+  return W == 256 ? SWNERF_FWD(fwd, 256, 144) : SWNERF_FWD(fwd, 128, 144);
 #undef SWNERF_FWD
 }
 
@@ -407,6 +596,11 @@ int time_net_bwd_launch(int bf16, int W, int cin_pad, const void* wts, int D, in
   return bf16 ? bwd<__nv_bfloat16>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st)
               : bwd<float>(cin_pad, W, wts, D, skip, Lx, Lt, (int)M, g, gw, gb, scratch, st);
 }
+
+// With a device buffer of 3 x (blocks) int64, the next bf16 forwards
+// record per block the clock cycles of the head and of the whole block
+// (tc_chunk.cuh::g_prof); null stops it.
+void time_net_profile(void* buf) { tc::g_prof = static_cast<long long*>(buf); }
 
 // B11's scratch: time_net_scratch_bytes' and demb, d t, or -1.
 long long time_net_din_scratch_bytes(int bf16, int cin_pad, int W, int D, int Lx, int Lt, long long M) {

@@ -28,6 +28,14 @@ as ``render_pass[pts,wide,S=..]``, B9 as ``render_loss[ext,S=..]`` and
 ``render_loss[ext,wide,S=..]``, B10 as ``sample_pdf_merge``, B11's backward
 as ``time_net[pts,bwd]`` (its forward is B6's ``time_net``).
 
+In bf16, B3 (every mode) and B6's forward run on the tensor cores
+(``csrc/tc_chunk.cuh``, ``csrc/tc_render.cuh``); their wrappers hand the
+launchers a scratch for the weight image, of the size the libraries give
+(``render_pass_image_bytes``, ``time_net_image_bytes``). The rest, every
+fp32 instantiation, B9 and the training path's B3 launch
+(``render_pass(..., ordered=True)``, which B9's recomputed forward equals)
+are SIMT.
+
 A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches its kernel or raises. ``launches`` counts kernel launches by
 kernel name; only a wrapper's launch site adds to it.

@@ -505,7 +505,7 @@ class _RenderOutputs(torch.autograd.Function):
         run = dataclasses.replace(packed, weights=weights.detach().to(dtype).contiguous(),
                                   biases=biases.detach().contiguous())
         pts = pts.detach().contiguous()
-        out = render_pass(run, None, None, views_emb, z_vals, dists, noise, white_bkgd, None, pts)
+        out = render_pass(run, None, None, views_emb, z_vals, dists, noise, white_bkgd, None, pts, ordered=True)
         ctx.run, ctx.inputs = run, (pts, views_emb, z_vals, dists, noise, white_bkgd)
         ctx.mark_non_differentiable(out.weights)
         return out.rgb, out.acc, out.depth, out.weights
@@ -536,7 +536,8 @@ def render_outputs_autograd(
 ) -> Dict[str, torch.Tensor]:
     """A render pass as a differentiable function of the packed weights and
     the positions (``make_render_outputs``): ``{rgb, acc, depth, weights}``
-    from one forward-only B3 pts-mode launch with ``dtype`` operands; the
+    from one forward-only B3 pts-mode launch with ``dtype`` operands (on
+    the SIMT body in bf16, as B9's recomputed forward: ``ordered``); the
     backward is one B9 launch. ``packed`` holds fp32 buffers packed by
     plain, differentiable torch from the modules' parameters, so autograd
     carries B9's packed gradients back to them. ``weights`` has a zero

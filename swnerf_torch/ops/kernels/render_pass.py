@@ -454,14 +454,20 @@ def render_pass(
     white_bkgd: bool = False,
     times: Optional[torch.Tensor] = None,
     pts: Optional[torch.Tensor] = None,
+    ordered: bool = False,
 ) -> RenderPassOutput:
     """B3 (vanilla), B4 (T-NeRF, with per-ray ``times`` [N]) or B3's pts
     mode (``pts`` [N, S, 3] in place of origins and directions, which are
     then None; at the narrow or the wide pads) on CUDA tensors, the plain
-    twin on CPU tensors."""
+    twin on CPU tensors. ``ordered`` (pts mode) runs bf16 on the SIMT body,
+    fp32 FMAs in order, as B9's recomputed forward does, so that a training
+    step's forward and B9 agree bit for bit (``render_outputs_autograd``);
+    serving leaves it off and runs the tensor cores."""
     N, S = z_vals.shape
     check_times(packed, times, N, "render_pass")
     check_pts(packed, origins, directions, pts, (N, S, 3), "render_pass")
+    if ordered and pts is None:
+        raise ValueError("render_pass: ordered serves the pts mode only")
     dev = z_vals.device
     if dev.type == "cpu":
         return render_pass_plain(packed, origins, directions, views_emb, z_vals, dists, noise, white_bkgd, times, pts)
@@ -486,21 +492,27 @@ def render_pass(
     lib = build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
     bf16 = int(packed.weights.dtype == torch.bfloat16)
+    size_fn = lib.render_pass_image_bytes  # the bf16 vanilla body's weight image (csrc/tc_render.cuh), else 0
+    size_fn.restype = ctypes.c_longlong
+    size_fn.argtypes = [i] * 6
+    img_bytes = size_fn(int(packed.arch == "tnerf"), bf16, int(packed.wide), packed.W, packed.D, packed.skip)
+    img = torch.empty(img_bytes, dtype=torch.uint8, device=dev) if img_bytes else None
     tail = (
         views_emb.data_ptr(), cv,
         z_vals.data_ptr(), dists.data_ptr(), noise.data_ptr() if noise is not None else None,
         packed.weights.data_ptr(), packed.biases.data_ptr(),
         packed.D, packed.skip, packed.n_freqs, int(bool(white_bkgd)), N, S,
         rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), weights.data_ptr(),
+        img.data_ptr() if img is not None else None, img_bytes,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    tail_types = [p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    tail_types = [p, i, p, p, p, p, p, i, i, i, i, i, i, p, p, p, p, p, ctypes.c_longlong, p]
     with torch.cuda.device(dev):
         if pts is not None:
             fn = lib.render_pass_pts_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [i, i, i, p] + tail_types
-            code = fn(bf16, int(packed.wide), packed.W, pts.data_ptr(), *tail)
+            fn.argtypes = [i, i, i, p] + tail_types[:-1] + [i, p]
+            code = fn(bf16, int(packed.wide), packed.W, pts.data_ptr(), *tail[:-1], int(bool(ordered)), tail[-1])
         else:
             fn = lib.render_pass_launch
             fn.restype = ctypes.c_int

@@ -331,14 +331,19 @@ def _launch_fwd(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor
         raise ValueError("time_net: packed weights must be a 16-byte aligned fp32/bf16 buffer on the device")
     lib = build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _lib_fn(lib, "time_net_fwd_launch", ctypes.c_int, [i, i, i, p, p, p, p, i, i, i, i, i, i, p, p, p])
+    fn = _lib_fn(lib, "time_net_fwd_launch", ctypes.c_int,
+                 [i, i, i, p, p, p, p, i, i, i, i, i, i, p, p, p, ctypes.c_longlong, p])
     dx = torch.empty((N, S, 3), dtype=torch.float32, device=dev)
+    bf16 = int(packed.weights.dtype == torch.bfloat16)
+    size_fn = _lib_fn(lib, "time_net_image_bytes", ctypes.c_longlong, [i, i, i, i, i])
+    img_bytes = size_fn(bf16, packed.cin_pad, packed.W, packed.D, packed.skip)  # the bf16 weight image, else 0
+    img = torch.empty(img_bytes, dtype=torch.uint8, device=dev) if img_bytes else None
     with torch.cuda.device(dev):
         code = fn(
-            int(packed.weights.dtype == torch.bfloat16), packed.W, packed.cin_pad, pts.data_ptr(), times.data_ptr(),
+            bf16, packed.W, packed.cin_pad, pts.data_ptr(), times.data_ptr(),
             packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, packed.n_freqs,
             packed.n_freqs_time, N, S, dx.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-            torch.cuda.current_stream(dev).cuda_stream,
+            img.data_ptr() if img is not None else None, img_bytes, torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(lib, code, "time_net")
     launches[NAME] += 1

@@ -1,0 +1,226 @@
+#!/usr/bin/env python3
+"""How the bf16 tensor-core products round, on the card, and what that does
+to B9's gradients.
+
+Models the fp32 sums of a bf16 product as the tensor core's k16 steps, each
+the exact sum of 16 products (float64 here) added to the accumulator and
+rounded to fp32: ``rz`` rounds each step toward zero, ``rn`` to nearest;
+``fold`` takes each step from zero, toward zero, then the even of it and
+its neighbour away from zero, and adds it to an fp32 accumulator to
+nearest (an unbiased fold); ``exact`` sums in float64. On MultiRes fields
+(D=8, W=256, seeded weights) at the levels given, it prints
+
+- per layer of B6's trunk (csrc/tc_chunk.cuh's chain; its train-mode
+  forward keeps each layer's bf16 output), how many outputs each model
+  misses, computed from the kernel's own inputs;
+- how far B3's serving launch (the same chain) lies from each model's
+  forward (max |rgb|);
+- the gradients' distance (max rel L2 over the unpacked tensors and d pts)
+  from the bf16 twin on the card: of B9 (the SIMT body, fp32 FMAs in
+  order), of the twin summed on the CPU, and of each model's forward run
+  through the twin's backward, which is what B9 would give on that
+  product.
+
+    python3 tc_rounding.py [--levels level0 level1 identity] [--rays 500]
+
+Needs a CUDA device; builds the kernels at first use.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+
+LEVELS = {
+    "level0": dict(multires=20, multires_time=8, multires_views=20),
+    "level1": dict(multires=10, multires_time=4, multires_views=10),
+    "identity": dict(multires=-1, multires_time=-1, multires_views=-1, i_embed=-1),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--levels", nargs="+", default=list(LEVELS), choices=list(LEVELS))
+    ap.add_argument("--rays", type=int, default=500)
+    ap.add_argument("--samples", type=int, default=64)
+    a = ap.parse_args()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("tc_rounding: needs a CUDA device", file=sys.stderr)
+        return 1
+    from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.render.fused_eval import canonical_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    def case(level, n, s, seed=0):
+        """tests/test_torch_cuda.py::_wide_case: the canonical field, jittered
+        sample positions, the view embedding, noise std 1 and a cotangent."""
+        cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **LEVELS[level])
+        model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        o = torch.randn((n, 3), generator=g, device=dev) * 0.3 + torch.tensor([0.0, 0.0, 4.0], device=dev)
+        d = torch.randn((n, 3), generator=g, device=dev)
+        d[:, 2] = -d[:, 2].abs() - 1.0
+        z = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4 + 2, -1).values.contiguous()
+        dist = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n, 1), 1e10, device=dev)], -1)
+        dist = (dist * torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]
+               + 0.05 * torch.randn((n, s, 3), generator=g, device=dev)).contiguous()
+        ve = positional_encoding(vd, cfg.nf_views).contiguous()
+        noise = torch.randn((n, s), generator=g, device=dev)
+        gct = torch.randn((n, 5), generator=g, device=dev)
+        return model, b3.pack_params(canonical_params(model.state_dict()), cfg, torch.bfloat16), (pts, ve, z, dist,
+                                                                                                   noise, gct)
+
+    def b6_layers(model, pts):
+        """B6's train-mode forward on a scratch this function keeps: the
+        packed deformation MLP, its bf16 embedding and each layer's output,
+        carved as time_net.cu::carve carves them."""
+        N, S, _ = pts.shape
+        packed = b6.pack_time_params(model.state_dict(), model.cfg, torch.bfloat16)
+        times = torch.rand((N,), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        M = N * S
+        scratch = b6._scratch(packed, M, dev)
+        b6._launch_fwd(packed, pts, times, scratch)
+        torch.cuda.synchronize()
+        CIN, W, ldw = packed.cin_pad, packed.W, packed.W + 8  # PADC
+        emb = scratch[: 2 * M * CIN].view(torch.bfloat16).view(M, CIN)[:, : packed.cin].double()
+        off = -(-2 * M * CIN // 256) * 256
+        hstride = -(-2 * M * ldw // 256) * 256
+        hs = [scratch[off + k * hstride: off + k * hstride + 2 * M * ldw].view(torch.bfloat16).view(M, ldw)[:, :W]
+              .double() for k in range(packed.D)]
+        return packed, emb, hs
+
+    def rnd32(x, mode):
+        r = x.float()
+        if mode == "rz":
+            r = torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+        return r.double()
+
+    def ulp32(x):
+        a = x.abs().float()
+        u = torch.ldexp(torch.ones_like(a), (torch.frexp(a).exponent - 24).to(torch.int32)).double()
+        return torch.where(a > 0, u, torch.zeros_like(u))
+
+    def product(X, Wm, acc, mode):
+        """acc (+)= X Wm, K padded to whole 64-row atoms as the image pads it."""
+        K = -(-X.shape[1] // 64) * 64
+        X, Wm = F.pad(X, (0, K - X.shape[1])), F.pad(Wm, (0, 0, 0, K - Wm.shape[0]))
+        if mode == "exact":
+            return X @ Wm if acc is None else acc + X @ Wm
+        for k0 in range(0, K, 16):
+            g = X[:, k0:k0 + 16] @ Wm[k0:k0 + 16]
+            if mode == "fold":
+                t = rnd32(g, "rz")
+                t = rnd32(t + torch.sign(t) * 0.5 * ulp32(t), "rn")  # the tie goes to the even neighbour
+                acc = t if acc is None else rnd32(acc + t, "rn")
+            else:
+                acc = rnd32(g if acc is None else acc + g, mode)
+        return acc
+
+    def model_forward(packed, emb, vemb, mode):
+        m = {k: v.double() for k, v in packed.matrices().items()}
+        bv = {k: v.double() for k, v in packed.bias_vectors().items()}
+
+        def fin(zz, b):
+            return zz + b if mode == "exact" else rnd32(zz + b, "rn")
+
+        def q(x):
+            return x.to(torch.bfloat16).double()
+
+        hs, h = [], emb
+        for i in range(packed.D):
+            first = product(emb, m[f"pts{i}_emb"], None, mode) if i == packed.skip + 1 else None
+            h = q(torch.relu(fin(product(emb if i == 0 else h, m[f"pts{i}"], first, mode), bv[f"pts{i}"])))
+            hs.append(h)
+        feat = q(fin(product(h, m["feature"], None, mode), bv["feature"]))
+        sigma = fin(product(h, m["alpha"], None, mode), bv["alpha"])[:, 0]
+        hv = q(torch.relu(fin(product(vemb, m["views_emb"], product(feat, m["views_feat"], None, mode), mode),
+                              bv["views"])))
+        return hs, feat, hv, sigma, fin(product(hv, m["rgb"], None, mode), bv["rgb"])
+
+    def composite(sigma, logits, args, N, S):
+        """The twin's composite in float64: rgb_map (white) and the raw cotangent."""
+        _, _, z, dist, noise, gct = (x.double() for x in args)
+        sg = sigma.reshape(N, S) + noise
+        rgb = torch.sigmoid(logits).reshape(N, S, 3)
+        ex = torch.exp(-torch.relu(sg) * dist)
+        alpha = 1.0 - ex
+        safe = torch.maximum(1.0 - alpha + 1e-10, torch.full_like(alpha, 1e-10))
+        trans = torch.exp(torch.cat([torch.zeros_like(sg[:, :1]), torch.cumsum(torch.log(safe), -1)[:, :-1]], -1))
+        w = alpha * trans
+        rgb_map = (w[..., None] * rgb).sum(-2) + (1.0 - w.sum(-1))[:, None]
+        g = gct[:, :3]
+        dldw = (g[:, None, :] * rgb).sum(-1) + (gct[:, 3] - g.sum(-1))[:, None] + gct[:, 4:5] * z
+        excl = torch.flip(torch.cumsum(torch.flip(dldw * w, [-1]), -1), [-1]) - dldw * w
+        dsig = torch.where(sg > 0, (dldw * trans - excl / safe) * dist * ex, torch.zeros_like(sg))
+        graw = torch.cat([w[..., None] * g[:, None, :] * rgb * (1.0 - rgb), dsig[..., None]], -1).reshape(N * S, 4)
+        return rgb_map, graw
+
+    print(f"tc_rounding: {torch.cuda.get_device_name(0)}, {a.rays} rays x {a.samples} samples")
+    for level in a.levels:
+        model, packed, args = case(level, a.rays, a.samples)
+        pts, ve, z, dist, noise, gct = args
+        N, S = z.shape
+        P = N * S
+        def names(gg, dp):
+            return {k: v.to(dev) for k, v in dict(b1.unpack_grads(gg, packed), dpts=dp).items()}
+
+        _, gr, dr = b1.render_loss_ext_plain(packed, *args, True)
+        twin = names(gr, dr)
+
+        def dist_to_twin(got):
+            return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item() for k in twin)
+
+        fwd = b3.field_forward(packed, None, None, ve, z, None, pts)
+        emb, vemb = fwd.emb.double(), fwd.vemb.double()
+        tn, temb, hk = b6_layers(model, pts)
+        m = {k: v.double() for k, v in tn.matrices().items()}
+        bv = {k: v.double() for k, v in tn.bias_vectors().items()}
+        misses = {md: [] for md in ("rz", "rn", "exact")}
+        for i in range(tn.D):
+            x = temb if i == 0 else hk[i - 1]
+            for md in misses:
+                first = product(temb, m[f"pts{i}_emb"][: tn.cin], None, md) if i == tn.skip + 1 else None
+                w0 = m[f"pts{i}"][: x.shape[1]]
+                zz = product(x, w0, first, md) + bv[f"pts{i}"]
+                h = torch.relu(zz if md == "exact" else rnd32(zz, "rn")).to(torch.bfloat16).double()
+                misses[md].append(int((h != hk[i]).sum()))
+        print(f"[{level}] B6's trunk ({tn.cin} inputs), {hk[0].numel()} outputs per layer, missed by the model on the "
+              f"kernel's own inputs: " + "; ".join(f"{md} {v}" for md, v in misses.items()))
+        grads = b1.render_loss_ext(packed, *args, True)
+        serve = b3.render_pass(packed, None, None, ve, z, dist, None, True, None, pts)
+        pc = dataclasses.replace(packed, weights=packed.weights.cpu(), biases=packed.biases.cpu())
+        _, gc, dc = b1.render_loss_ext_plain(pc, *(x.cpu() for x in args), True)
+        print(f"[{level}] gradients and d pts, max rel L2 from the bf16 twin: B9 {dist_to_twin(names(*grads[1:])):.3e}"
+              f"; the twin summed on the CPU {dist_to_twin(names(gc, dc)):.3e}")
+        for mode in ("rz", "rn", "fold", "exact"):
+            hs, feat, hv, sigma, logits = model_forward(packed, emb, vemb, mode)
+            no_noise = (pts, ve, z, dist, torch.zeros_like(noise), gct)
+            rgb_map, _ = composite(sigma, logits, no_noise, N, S)
+            _, graw = composite(sigma, logits, args, N, S)
+            g2, demb, _ = b1.field_reverse_plain(packed, emb.float(), vemb.float(), [h.float() for h in hs],
+                                                  feat.float(), hv.float(), graw.float(), need_demb=True)
+            d2 = b1.encode_backward(pts.reshape(P, 3), demb, packed.n_freqs).reshape(N, S, 3)
+            print(f"[{level}] model {mode:5s}: the serving B3 launch's rgb within "
+                  f"{(serve.rgb.double() - rgb_map).abs().max().item():.3e} of its forward; its gradients "
+                  f"{dist_to_twin(names(g2, d2)):.3e} from the twin's")
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1303,7 +1303,7 @@ def test_b9_fp32_matches_plain(dev, level, n_samples, white):
                        _b9_grads(g64p, d64p, p64))
 
 
-@pytest.mark.parametrize("level", ["level0", "identity"])
+@pytest.mark.parametrize("level", ["level0", "level1", "identity"])
 def test_b9_bf16_matches_plain_and_repeats(dev, level):
     cfg, sd, pts, args, gct = _wide_case(dev, level, 500, 64)
     packed = b3.pack_params(sd, cfg, torch.bfloat16)
@@ -1476,3 +1476,94 @@ def test_multires_fused_phase2_step_matches_plain_route(dev):
         assert mk[key].item() == pytest.approx(mp[key].item(), rel=1e-4), key
     for a, b, c in zip(gk, gp, g64):
         _assert_fp32_grads(a, b, c)
+
+
+# ---------------------------------------------------------------- the bf16 tensor-core bodies: B6's forward, B3
+
+
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("level", ["level0", "identity"])
+@pytest.mark.parametrize("shape", [(37, 7), (3, 43), (129, 64)], ids=["259rows", "129rows", "8256rows"])
+def test_b6_tc_bf16_matches_plain_and_train_mode(dev, width, level, shape):
+    """B6's bf16 forward (csrc/tc_chunk.cuh) at row counts that fill no
+    64- or 128-row chunk, at MultiRes level 0's widths (Lx = 20, Lt = 8: 144
+    padded rows) and the identity level (Lx = Lt = 0: 96), W 128 and 256:
+    dx within 1e-2 of the bf16 twin, repeats bit-equal, and the
+    forward-only launch bit-equal to the train-mode one."""
+    n, s = shape
+    cfg, sd, pts, times, _ = _dnerf_case(dev, dict(MR_LEVELS[level], netwidth=width), n, s)
+    packed = b6.pack_time_params(sd, cfg, torch.bfloat16)
+    assert packed.cin_pad == (144 if level == "level0" else 96) and packed.W == width
+    g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    dx = b6.time_net(packed, pts, times)
+    dx2 = b6.time_net(packed, pts, times)
+    dx_train, _ = b6.time_net_fwd_bwd(packed, pts, times, g)
+    ref = b6.time_net_plain(packed, pts, times)
+    torch.cuda.synchronize()
+    assert (dx - ref).abs().max().item() <= 1e-2
+    assert torch.equal(dx, dx2) and torch.equal(dx, dx_train)
+
+
+def _b3_tc_case(dev, family, n, s):
+    """(packed bf16 field, render_pass arguments) of one B3 family: a vanilla
+    field from rays, a D-NeRF canonical field in pts mode, MultiRes level 0's
+    in pts mode at the wide pads; noise std 1. A "+ordered" family is the
+    training path's launch of the same (the SIMT body)."""
+    family = family.split("+")[0]
+    if family == "pts_wide":
+        cfg, sd, pts, (ve, z, dist, noise), _ = _wide_case(dev, "level0", n, s)
+        return b3.pack_params(sd, cfg, torch.bfloat16), (None, None, ve, z, dist, noise), pts
+    if family == "pts":
+        cfg, sd, pts, _, (ve, z, dist, noise, _) = _dnerf_case(dev, {}, n, s)
+        return b3.pack_params(canonical_params(sd), cfg, torch.bfloat16), (None, None, ve, z, dist, noise), pts
+    cfg = VanillaNeRFConfig()
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
+    o, d, vd, z, dist = _rays(dev, n, s)
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    noise = torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    return b3.pack_params(model.state_dict(), cfg, torch.bfloat16), (o, d, ve, z, dist, noise), None
+
+
+# (samples per ray, rays): each ray count leaves the last work unit's last
+# 128-row chunk partly filled (S=1: 300 rows past two full units; S=63 and
+# S=64: one ray of two; S=192: one ray of two, 1.5 chunks; S=1024: whole).
+B3_TC_SHAPES = [(1, 300), (63, 41), (64, 41), (192, 21), (1024, 5)]
+
+
+@pytest.mark.parametrize("family", ["rays", "pts", "pts_wide", "pts+ordered", "pts_wide+ordered"])
+@pytest.mark.parametrize("s,n", B3_TC_SHAPES, ids=[f"S{s}" for s, _ in B3_TC_SHAPES])
+@pytest.mark.parametrize("white", [True, False])
+def test_b3_tc_bf16_matches_plain(dev, family, s, n, white):
+    """B3's bf16 body (csrc/tc_render.cuh) in each mode, and the training
+    path's ordered pts launch (the SIMT body), up to the 1,024 samples per
+    ray every bf16 family takes: rgb within max 1e-2 / mean 1e-3 of the bf16
+    twin, acc likewise, and repeats bit-equal."""
+    packed, (o, d, ve, z, dist, noise), pts = _b3_tc_case(dev, family, n, s)
+    ordered = family.endswith("+ordered")
+    got = b3.render_pass(packed, o, d, ve, z, dist, noise, white, None, pts, ordered=ordered)
+    again = b3.render_pass(packed, o, d, ve, z, dist, noise, white, None, pts, ordered=ordered)
+    ref = b3.render_pass_plain(packed, o, d, ve, z, dist, noise, white, None, pts)
+    torch.cuda.synchronize()
+    for k in ("rgb", "acc"):
+        diff = (getattr(got, k) - getattr(ref, k)).abs()
+        assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3, (k, diff.max().item())
+    for k in ("rgb", "acc", "depth", "weights"):
+        assert torch.equal(getattr(got, k), getattr(again, k)), k
+
+
+@pytest.mark.parametrize("family", ["pts_wide", "pts"])
+@pytest.mark.parametrize("s,n", [(64, 41), (192, 21)], ids=["S64", "S192"])
+def test_b9_forward_is_the_training_b3_launch(dev, family, s, n):
+    """B9's bf16 forward recompute: its rgb, acc, depth and weights
+    bit-equal to the training path's B3 launch (``ordered``, the SIMT body)
+    at the wide and the narrow pads, with half-filled chunks; the serving
+    launch (tensor cores) differs from it."""
+    packed, (_, _, ve, z, dist, noise), pts = _b3_tc_case(dev, family, n, s)
+    gct = torch.randn((n, 5), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    fwd, _, _ = b1.render_loss_ext(packed, pts, ve, z, dist, noise, gct, True)
+    out = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, pts, ordered=True)
+    serve = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, pts)
+    torch.cuda.synchronize()
+    for k in ("rgb", "acc", "depth", "weights"):
+        assert torch.equal(getattr(fwd, k), getattr(out, k)), k
+    assert not torch.equal(serve.weights, out.weights)

@@ -168,6 +168,28 @@ def test_wide_pack_and_predicates():
     assert b1.ext_launch_key(packed, 64) == "render_loss[ext,wide,S=64]"
 
 
+@pytest.mark.parametrize("level", ["level0", "identity"])
+def test_ordered_launch_on_the_cpu_is_the_twin(level):
+    """``ordered`` chooses the body of a card launch in bf16 (the training
+    path's B3 launch runs the SIMT body, as B9's recomputed forward does);
+    on CPU tensors the wrapper runs the plain twin either way, and the
+    switch serves the pts mode only."""
+    kw = dict(LEVELS[level], netdepth=3, netwidth=128, skips=(1,))
+    cfg = DNeRFConfig(**kw)
+    model = DirectTemporalNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(2), fused=False)
+    sd = {k[len("_occ."):]: v for k, v in model.state_dict().items() if k.startswith("_occ.")}
+    packed = b3.pack_params(sd, cfg, torch.bfloat16)
+    pts, z, dist, ve, noise, _ = (torch.from_numpy(np.ascontiguousarray(x)) for x in _inputs(kw, n=5, s=8))
+    got = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, pts, ordered=True)
+    ref = b3.render_pass_plain(packed, None, None, ve, z, dist, noise, True, None, pts)
+    for k in ("rgb", "acc", "depth", "weights"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    if not packed.wide:
+        o, d = pts[:, 0].contiguous(), torch.ones(5, 3)
+        with pytest.raises(ValueError, match="pts mode only"):
+            b3.render_pass(packed, o, d, ve, z, dist, noise, True, ordered=True)
+
+
 # ---------------------------------------------------------------- B9 and render_outputs_autograd
 
 
