@@ -104,8 +104,10 @@ Phases (each raises on failure; nothing is caught):
      at phase 17's bar; bf16 raw within 1e-2 of its largest value, dx 1e-2,
      gradients rel L2 1e-2; bit-equal repeats; the forward-only launches
      (the test render's) at the same bars and bit-equal to the train-mode
-     ones; the last 500 rays of the test render's 2.1M-row chunk against
-     the twins at the bf16 bars; then their times at each level's rows;
+     ones, but for B7's in bf16 (the tensor cores): at the bf16 raw bar and
+     bit-equal to a repeat; the last 500 rays of the test render's 2.1M-row
+     chunk against the twins at the bf16 bars; then their times at each
+     level's rows;
  24. one phase-1 step (level 0) and one phase-2 step (all four levels) on
      the kernel route against the plain route, same weights and draws: fp32
      loss rel 1e-5, gradients at phase 17's bar; bf16 loss rel 2e-2;
@@ -131,8 +133,11 @@ Phases (each raises on failure; nothing is caught):
      chunk;
  27. B8 (the trunk with the encode in the kernel) against its twin with
      010000.tar's fine weights on 1024 rays x 192 jittered samples, the
-     same bars, d pts and d viewdirs at the fp32 bar; times at 32,000 rows
-     and at one mesh tile (2,048 points x 100 views = 204,800 rows);
+     same bars (its bf16 forward-only launch, on the tensor cores, at the
+     bf16 raw bar and bit-equal to a repeat), d pts and d viewdirs at the
+     fp32 bar; times at 32,000 rows; the forward-only launch at one mesh
+     tile (2,048 points x 100 views = 204,800 rows) within 1e-2 of the
+     twin's largest raw, and its time;
  28. the fields' kernel routes through the CLIs: run_nerf resumed from
      010000.tar for 200 eager steps (SWNERF_FUSED_STEP=0: B7), then again
      under SWNERF_FUSED_RAW=1 (B8), >= 30 dB at every print; test frame 0
@@ -149,7 +154,8 @@ Phases (each raises on failure; nothing is caught):
      of the plain mesh's, bounding boxes within one voxel (4/127), the
      symmetric mean nearest-vertex distance under 0.25 voxel; ms for the
      sweep and for marching + OBJ write, 1,024 launches per kernel sweep;
-     B7's time at the sweep's tile;
+     B7's time at the sweep's tile; the B7 sweep's device ms split per tile
+     with CUDA events (encode, weight packing, embedding copy, B7, rest);
  30. the metric-scale solve without cv2: a 0.5-unit square marker
      projected into the capture's train poses, calculate_3d_corners ->
      marker_edge_lengths -> scale -> alignment_matrix -> transform_mesh on
@@ -197,8 +203,10 @@ Phases (each raises on failure; nothing is caught):
      MultiRes level 0's widths: dx bit-equal to B6's forward, fp32
      gradients, d pts and d times at phase 17's bar, bf16 rel L2 1e-2;
      times; then the [tc] lines: each bf16 tensor-core launch's TFLOP/s and
-     share of its bound, B3's composite and the heads' shares of the blocks'
-     cycles, the vanilla and D-NeRF ms per frame; then the JSON lines.
+     share of its bound (B3, B6, B7 and B8 at the mesh tile, B7 at the
+     MultiRes test chunk), B3's composite and the heads' shares of the
+     blocks' cycles, the vanilla and D-NeRF ms per frame, the mesh sweep;
+     then the JSON lines.
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
@@ -261,25 +269,27 @@ def cuda_ms(fn, reps: int) -> float:
 # from build.log, TFLOP/s and share of bound per launch, B3's composite and
 # the narrow heads' share of the blocks' cycles, the frames' ms.
 TC_LAUNCHES = ("render_pass[S=64]", "render_pass[S=192]", "render_pass[pts,S=64]", "render_pass[pts,S=192]",
-               "render_pass[pts,wide]", "time_net", "time_net[multires]")
+               "render_pass[pts,wide]", "time_net", "time_net[multires]", "trunk[mesh]", "trunk[raw,mesh]")
 TC_SUMMARY: dict = {}
 
 
 def tc_ptxas(libs) -> None:
     """Registers and spill bytes of the tensor-core kernels (the bf16 B6
-    forward, B3 / B9's body, the weight-image packer) from each library's
-    build.log; fails on a spill."""
+    forward, B3's body, B7 / B8's forward-only launch, the weight-image
+    packer) from each library's build.log; fails on a spill."""
     import re
 
-    for name in ("time_net", "render_pass", "render_loss"):
+    for name in ("time_net", "render_pass", "render_loss", "trunk"):
         entry_name = None
         for line in (libs[name].parent / "build.log").read_text().splitlines():
             if "Compiling entry function" in line:
                 entry_name = line.split("'")[1] if "'" in line else line
                 continue
-            if not entry_name or not re.search(r"time_net_tc_kernel|tc13render_kernel|tc11pack_kernel", entry_name):
+            tc_names = r"time_net_tc_kernel|trunk_tc_kernel|tc13render_kernel|tc11pack_kernel"
+            if not entry_name or not re.search(tc_names, entry_name):
                 continue
-            kernel = re.sub(r"^.*?(time_net_tc_kernel|render_kernel|pack_kernel)", r"\1", entry_name)[:60]
+            kernel = re.sub(r"^.*?(time_net_tc_kernel|trunk_tc_kernel|render_kernel|pack_kernel)", r"\1",
+                            entry_name)[:60]
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} / {m.group(2)} bytes spill stores / loads")
@@ -2411,20 +2421,21 @@ def phase23_kernels(dev, data):
         _, gk2, dk2, _ = b7.trunk_fwd_bwd(c16, emb, vemb, graw)
         rref = b7.trunk_plain(c16, emb, vemb)
         gr, dr, _ = b7.trunk_plain_bwd(c16, emb, vemb, graw)
-        rawf = b7.trunk(c16, emb, vemb)
+        rawf, rawf2 = b7.trunk(c16, emb, vemb), b7.trunk(c16, emb, vemb)  # the tensor-core launch
         torch.cuda.synchronize()
         draw = (raw - rref).abs().max().item()
+        drawf = (rawf - rref).abs().max().item()
         scale = rref.abs().max().item()
         rel = rel_l2(dict(b7.unpack_trunk_grads(gk, c16), demb=dk), dict(b7.unpack_trunk_grads(gr, c16), demb=dr))
         same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1]) and torch.equal(dk, dk2)
-        fwd_same = torch.equal(rawf, raw)
+        fwd_same = torch.equal(rawf, rawf2)
         print(f"[23 B7 bf16 level {level}] max|draw|={draw:.3e} (max|raw| {scale:.3e}) grads and demb max rel "
               f"L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}; forward-only launch "
-              f"max|draw|={(rawf - rref).abs().max().item():.3e}, bit-equal to train mode={fwd_same}")
-        if draw > 1e-2 * scale or max(rel.values()) > 1e-2 or not same or not fwd_same:
-            fail(f"B7 bf16 level {level}: raw beyond 1e-2 of its largest value, gradient rel L2 > 1e-2, repeats "
-                 "differ or the forward-only launch differs from the train-mode one")
-        err16["trunk"] = max(err16["trunk"], draw)
+              f"(tensor cores) max|draw|={drawf:.3e}, repeat bit-equal={fwd_same}")
+        if max(draw, drawf) > 1e-2 * scale or max(rel.values()) > 1e-2 or not same or not fwd_same:
+            fail(f"B7 bf16 level {level}: raw (train mode or forward only) beyond 1e-2 of its largest value, "
+                 "gradient rel L2 > 1e-2 or repeats differ")
+        err16["trunk"] = max(err16["trunk"], draw, drawf)
         cases[level] = (p16, c16, cfg)
         del gk, gk2, gr
         torch.cuda.empty_cache()
@@ -2503,6 +2514,10 @@ def phase23_kernels(dev, data):
     del raw_big, dx_big, rref, dref
     f7 = cuda_ms(lambda: b7.trunk(c16, big_emb, big_vemb), 3)
     f6 = cuda_ms(lambda: b6.time_net(p16, big_pts, big_t), 3)
+    bound7 = 2 * c16.macs_per_row * big_emb.shape[0] / PEAK_FLOPS["bf16"] * 1e3
+    TC_SUMMARY["trunk[multires] forward only at the test render's chunk (wide pads)"] = (
+        f"{f7:.3f} ms/launch, {2 * c16.macs_per_row * big_emb.shape[0] / f7 / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound7 / f7:.2f}% of its bound ({bound7:.4f} ms)")
     # the slow path of sinf/cosf: B6 at level 0 against the same launch with the encode's arguments small
     small = (big_pts * 2.0**-19).contiguous()
     f6s = cuda_ms(lambda: b6.time_net(p16, small, big_t), 3)
@@ -2898,8 +2913,10 @@ def hold_to_twin(tag, packed, x, xv, graw, raw):
     at check_fp32_grads' bar (float64 twin, and on weights perturbed at fp32's
     size); bf16 raw within 1e-2 of its largest value and the gradients within
     rel L2 1e-2; bit-equal repeats, and the forward-only launch bit-equal to
-    the train-mode one, in both types. ``packed`` is fp32; returns (the bf16
-    packing, max |d raw| in bf16)."""
+    the train-mode one, in both types, except B7 / B8's bf16 forward-only
+    launch (the tensor cores, a different sum order): it is held to the twin
+    at the bf16 bar and to a second launch bit for bit. ``packed`` is fp32;
+    returns (the bf16 packing, max |d raw| in bf16, both launches)."""
     import dataclasses
 
     import torch
@@ -2922,11 +2939,16 @@ def hold_to_twin(tag, packed, x, xv, graw, raw):
         _, gk2, d02, d12 = fwd_bwd(pk, x, xv, graw, True, True)
         ref = plain(pk, x, xv)
         gr, r0, r1 = plain_bwd(pk, x, xv, graw, True, True)
-        outf = fwd(pk, x, xv)
+        outf, outf2 = fwd(pk, x, xv), fwd(pk, x, xv)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in ((gk[0], gk2[0]), (gk[1], gk2[1]), (d0, d02), (d1, d12)))
-        fwd_same = torch.equal(outf, out)
+        # B7 / B8's bf16 forward-only launch runs on the tensor cores: held to
+        # the twin at the bf16 bar, and to itself bit for bit, instead
+        tc = dtype == torch.bfloat16 and packed.arch == "vanilla"
+        fwd_same = torch.equal(outf, outf2) if tc else torch.equal(outf, out)
         draw = (out - ref).abs().max().item()
+        if tc:
+            draw = max(draw, (outf - ref).abs().max().item())
         scale = ref.abs().max().item()
         kind = "fp32" if dtype == torch.float32 else "bf16"
         if dtype == torch.float32:
@@ -2944,12 +2966,14 @@ def hold_to_twin(tag, packed, x, xv, graw, raw):
         else:
             rel = rel_l2(gdict(gk, pk, d0, d1), gdict(gr, pk, r0, r1))
             err16 = draw
-            print(f"[{tag} {kind}] max|draw|={draw:.3e} (max|raw| {scale:.3e}) grads and input cotangents max rel "
-                  f"L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}; forward-only "
-                  f"launch bit-equal to train mode={fwd_same}")
+            what = "forward-only launch (tensor cores) repeat bit-equal" if tc else \
+                "forward-only launch bit-equal to train mode"
+            print(f"[{tag} {kind}] max|draw|={draw:.3e} (max|raw| {scale:.3e}{', both launches' if tc else ''}) grads "
+                  f"and input cotangents max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat "
+                  f"bit-equal={same}; {what}={fwd_same}")
             if draw > 1e-2 * scale or max(rel.values()) > 1e-2 or not same or not fwd_same:
                 fail(f"{tag} bf16: raw beyond 1e-2 of its largest value, gradient rel L2 > 1e-2, repeats differ or "
-                     "the forward-only launch differs from the train-mode one")
+                     f"the {what} check failed")
             pk16 = pk
         del gk, gk2, gr
         torch.cuda.empty_cache()
@@ -3046,8 +3070,9 @@ def phase27_b8(dev):
     """B8 against its twin with 010000.tar's fine weights on 1024 rays of
     train view r_0 x 192 jittered samples (196,608 rows; d pts and d
     viewdirs at the fp32 bar): hold_to_twin's bars. Then its times at
-    32,000 rows (train-mode forward, backward) and forward only at one mesh
-    tile (2,048 points x 100 views = 204,800 rows)."""
+    32,000 rows (train-mode forward, backward), and the forward-only launch
+    at one mesh tile (2,048 points x 100 views = 204,800 rows) held to its
+    twin (raw within 1e-2 of its largest value) and timed."""
     import torch
 
     from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
@@ -3078,9 +3103,16 @@ def phase27_b8(dev):
     tp = grid[None].expand(100, 2048, 3).reshape(-1, 3).contiguous()
     tv = dirs[:, None, :].expand(100, 2048, 3).reshape(-1, 3).contiguous()
     n = tp.shape[0]
+    out, ref = b7.field_raw(p16, tp, tv), b7.field_raw_plain(p16, tp, tv)
+    draw = (out - ref).abs().max().item()
+    print(f"[27 B8 check] one mesh tile ({n} rows), forward only (tensor cores), bf16: max|draw|={draw:.3e} (max|raw| "
+          f"{ref.abs().max().item():.3e})")
+    if draw > 1e-2 * ref.abs().max().item():
+        fail("B8 bf16 at the mesh tile: raw beyond 1e-2 of its largest value")
+    del out, ref
     nw, nb = p16.weights.numel(), p16.biases.numel()
     rows["trunk[raw,mesh]"] = entry(
-        "trunk[raw,mesh]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:556", 0, err,
+        "trunk[raw,mesh]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:556", 0, draw,
         cuda_ms(lambda: b7.field_raw(p16, tp, tv), 5), cuda_ms(lambda: b7.field_raw_plain(p16, tp, tv), 2),
         4 * (tp.numel() + tv.numel()) + 16 * n + 2 * nw + 4 * nb, 2 * p16.macs_per_row * n, "bf16")
     for k, row in rows.items():
@@ -3305,9 +3337,75 @@ def phase29_mesh(dev, tmp):
     print(f"[29 times] trunk[mesh]: {row['ms']:.3f} ms per tile, {100 * row['bound_ms'] / row['ms']:.2f}% of the bf16 "
           f"bound ({p16.macs_per_row} MACs per row); 1,024 tiles at the bound: {sweep_bound:.1f} ms, measured sweep "
           f"{1e3 * meshes['B7'][2]['sweep_s']:.1f} ms")
-    del fine, emb, vemb
+    del emb, vemb
+    torch.cuda.empty_cache()
+    split, wall = sweep_split(fine, cfg)
+    total = sum(split.values())
+    print(f"[29 sweep split] the B7 sweep's 1,024 tiles as query_views runs them, weights packed at every tile (as "
+          f"apply_field does outside trunk.packed_once; sample_grid packs once): device ms by step, CUDA events per "
+          f"tile: " + ", ".join(
+              f"{k} {v:.1f} ({100 * v / total:.1f}%)" for k, v in split.items()) + f"; sum {total:.1f} ms, host clock "
+          f"{1e3 * wall:.1f} ms; the sweep through extract_mesh (one packing) "
+          f"{1e3 * meshes['B7'][2]['sweep_s']:.1f} ms")
+    TC_SUMMARY["B7 mesh sweep (phase 29)"] = (
+        f"{1e3 * meshes['B7'][2]['sweep_s']:.1f} ms for 1,024 tiles through extract_mesh; per tile "
+        f"{split['B7 launch'] / 1024:.3f} ms in the B7 launch, {split['weight packing'] / 1024:.3f} ms packing when "
+        "packed per tile")
+    del fine
     torch.cuda.empty_cache()
     return {"trunk[mesh]": row}, counts
+
+
+def sweep_split(fine, cfg):
+    """The B7 mesh sweep of phase 29 (128^3 points over [-2, 2]^3 x 100 views
+    in 2,048-point tiles, bf16) split per tile with CUDA events, in the steps
+    VanillaNeRF.query_views and trunk.apply_field take: the encode of the
+    points and the directions, the weight packing (pack_trunk_params at
+    every tile), the copy of the broadcast embeddings to contiguous rows, the
+    B7 launch, and the rest (the mean over the views, the store, and the
+    device's idle time between the steps). Returns (device ms by step, summed
+    over the tiles; the host clock's seconds for the loop)."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.pipelines.extract_mesh import fibonacci_sphere
+
+    dev = next(fine.parameters()).device
+    ax = np.linspace(-2.0, 2.0, 128)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    pts = torch.as_tensor(np.stack([X.ravel(), Y.ravel(), Z.ravel()], -1).astype(np.float32), device=dev)
+    dirs = torch.as_tensor(fibonacci_sphere(100), device=dev)
+    V, C = dirs.shape[0], 2048
+    params = dict(fine.named_parameters())
+    out = torch.empty((pts.shape[0], 4), device=dev)
+    steps = ("encode", "weight packing", "embedding copy", "B7 launch")
+    tiles = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for start in range(0, pts.shape[0], C):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            pe, ve = positional_encoding(pts[start : start + C], cfg.nf_pts), positional_encoding(dirs, cfg.nf_views)
+            ev[1].record()
+            packed = b7.pack_trunk_params(params, cfg, torch.bfloat16)
+            ev[2].record()
+            x = pe[None].expand(V, C, pe.shape[-1]).reshape(-1, pe.shape[-1])
+            xv = ve[:, None, :].expand(V, C, ve.shape[-1]).reshape(-1, ve.shape[-1]).contiguous()
+            ev[3].record()
+            raw = b7.trunk(packed, x, xv)
+            ev[4].record()
+            out[start : start + C] = raw.reshape(V, C, 4).mean(0)
+            tiles.append(ev)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = {k: sum(ev[i].elapsed_time(ev[i + 1]) for ev in tiles) for i, k in enumerate(steps)}
+    split["rest"] = tiles[0][0].elapsed_time(end) - sum(split.values())
+    return split, wall
 
 
 def phase30_scale(mesh_path, tmp):

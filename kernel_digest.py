@@ -5,8 +5,11 @@ render_loss (vanilla), B4 (T-NeRF, both modes), B5 render_loss_pts, B6
 time_net (forward, and forward with backward), B7 trunk (the ReLU family:
 forward only, and train-mode forward with backward) and, where the checkout
 has them, B7' (the ELU T-NeRF trunk), B8 (the trunk with the encode in
-the kernel), B3's pts mode at the MultiRes widths, B9 (the
-external-cotangent backward, wide and narrow), B10 (sample + merge) and B11
+the kernel; forward only at a mesh tile, and train mode with backward),
+B7's forward only at MultiRes level 0's widths, the mesh sweep
+(extract_mesh.sample_grid at 128^3 x 100 views, one timed run), B3's pts
+mode at the MultiRes widths, B9 (the external-cotangent backward, wide and
+narrow), B10 (sample + merge) and B11
 (the deformation MLP's backward with input cotangents), on seeded inputs at
 the main paths' shapes. Two checkouts whose digests agree give
 bit-equal outputs; run both in one call, in turns, to compare their times on
@@ -174,6 +177,9 @@ def main() -> int:
             res7 = b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False)
             out[f"{name}+bwd {tag}"] = {"sha256": digest([res7[0], *res7[1], res7[2]]),
                                         "ms": timed(lambda: b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False))}
+            if name == "trunk[multires]":  # forward only at the wide pads
+                out[f"trunk[multires] {tag}"] = {"sha256": digest([b7.trunk(p7, emb, vemb)]),
+                                                 "ms": timed(lambda: b7.trunk(p7, emb, vemb))}
             if name == "trunk":
                 big = torch.rand((204800, cfg7.input_ch), generator=g7, device=dev) * 2 - 1
                 bigv = torch.rand((204800, cfg7.input_ch_views), generator=g7, device=dev) * 2 - 1
@@ -193,6 +199,13 @@ def main() -> int:
             res8 = b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)
             out[f"trunk[raw]+bwd {tag}"] = {"sha256": digest([res8[0], *res8[1], res8[2], res8[3]]),
                                             "ms": timed(lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True))}
+            # B8 forward only at a mesh tile: 2,048 points x 100 directions
+            g8 = torch.Generator(device=dev).manual_seed(13)
+            tile = (torch.rand((2048, 3), generator=g8, device=dev) * 4 - 2)[None].expand(100, 2048, 3)
+            dirs = torch.nn.functional.normalize(torch.randn((100, 3), generator=g8, device=dev), dim=-1)
+            tp, tv = tile.reshape(-1, 3).contiguous(), dirs[:, None, :].expand(100, 2048, 3).reshape(-1, 3).contiguous()
+            out[f"trunk[raw,mesh] {tag}"] = {"sha256": digest([b7.field_raw(p8, tp, tv)]),
+                                             "ms": timed(lambda: b7.field_raw(p8, tp, tv))}
         if hasattr(b1, "render_loss_ext"):  # B3 wide, B9, B11 at the MultiRes level-0 widths (and B9 narrow)
             wcfg = DNeRFConfig(multires=20, multires_views=20, multires_time=8)
             ncfg = DNeRFConfig(multires=-1, multires_views=-1, multires_time=-1, i_embed=-1)
@@ -227,6 +240,22 @@ def main() -> int:
                                                        "ms": timed(lambda: b6._launch_bwd_din(t11, pts, t, g11, sc))}
                     del sc
         torch.cuda.empty_cache()
+
+    # the mesh sweep through extract_mesh.sample_grid on the field's default
+    # route (B7, bf16): 128^3 points over [-2, 2]^3 x 100 views, 1,024 tiles;
+    # one sweep after a warm-up at 32^3, timed on the host clock
+    import time
+
+    from swnerf_torch.pipelines.extract_mesh import sample_grid
+
+    model = VanillaNeRF(vcfg, device=dev, generator=torch.Generator().manual_seed(0))
+    bounds = ((-2.0, 2.0),) * 3
+    sample_grid(model, bounds, 32, 100)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    density, colors, _ = sample_grid(model, bounds, 128, 100)
+    out["mesh_sweep bf16"] = {"sha256": digest([torch.from_numpy(density), torch.from_numpy(colors)]),
+                              "ms": 1e3 * (time.perf_counter() - t0)}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]

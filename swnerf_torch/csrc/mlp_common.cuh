@@ -6,8 +6,9 @@
 // its backward, and the per-ray composite of the tensor-core B3.
 //
 // The SIMT chunk product (mm_acc) serves every fp32 instantiation (the
-// parity mode) and, in bf16, B1, B4, B5, B7, B7', B8, B9 and the training
-// path's B3 launch (ordered); bf16 B3 otherwise, and B6's forward, run
+// parity mode) and, in bf16, B1, B4, B5, B7', B9, the train-mode forwards
+// of B7 and B8 and the training path's B3 launch (ordered); bf16 B3
+// otherwise, B6's forward and B7's and B8's forward-only launch run
 // tc_chunk.cuh's tensor-core product instead.
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows

@@ -1,10 +1,11 @@
 // The tensor-core chunk product for Hopper, shared by the bf16
-// instantiations of B6's forward (time_net.cu) and of B3 (render_pass.cu:
-// from rays, pts, pts wide): bf16 wgmma with fp32 accumulators, an
-// asynchronous ring of weight slabs, and 128 sample rows per pass over the
-// weights. The fp32 instantiations (the parity mode), the T-NeRF traits
-// (B4), B1, B5, B7, B7', B8, B9 and the training path's B3 launch (ordered)
-// keep mlp_common.cuh's SIMT chunk product (mm_acc).
+// instantiations of B6's forward (time_net.cu), of B3 (render_pass.cu:
+// from rays, pts, pts wide) and of B7's and B8's forward-only launch
+// (trunk.cu): bf16 wgmma with fp32 accumulators, an asynchronous ring of
+// weight slabs, and 128 sample rows per pass over the weights. The fp32
+// instantiations (the parity mode), the T-NeRF traits (B4, B7'), B1, B5,
+// B9, the train-mode forwards of B7 and B8 and the training path's B3
+// launch (ordered) keep mlp_common.cuh's SIMT chunk product (mm_acc).
 //
 // Why: the SIMT product keeps the tensor cores idle and re-reads a ~1 MB
 // weight set from L2 for every 64 rows (about 16-19 KB per row); a
@@ -38,8 +39,10 @@
 //    (1-3% of the blocks' cycles on the card: no other head could save more).
 //  - The chain of k16 steps rounds its fp32 sum toward zero at each step
 //    (tc_rounding.py), so a bf16 layer's outputs are not those of fp32 FMAs
-//    in order: B9's forward, whose gradients the twin's bar holds, and the
-//    training path's B3 launch that it equals keep the SIMT body.
+//    in order: B9's forward, whose gradients the twin's bar holds, the
+//    training path's B3 launch that it equals, and B7's and B8's train-mode
+//    forwards, whose spilled activations their backward reads, keep the
+//    SIMT body.
 //
 // Deterministic: no atomics; each output element's sum runs in the tensor
 // core's fixed order, whatever the row's chunk or block.
@@ -105,15 +108,15 @@ inline void add_seg(Plan& p, long long src, int k_src, int n_src, int k, int n) 
 }
 
 // A D-layer ReLU trunk with one skip, input CIN rows, width W, packed as
-// gemm_common.cuh::trunk_offsets lays it out; returns the element offset
-// past it.
-inline long long add_trunk(Plan& p, int D, int skip, int CIN, int W) {
+// gemm_common.cuh::trunk_offsets lays it out, the embedding products taking
+// the first K of their CIN rows; returns the element offset past it.
+inline long long add_trunk(Plan& p, int D, int skip, int CIN, int W, int K) {
   long long o = 0;
-  add_seg(p, o, CIN, W, CIN, W);
+  add_seg(p, o, CIN, W, K, W);
   o += (long long)CIN * W;
   for (int i = 1; i < D; ++i) {
     if (i == skip + 1) {
-      add_seg(p, o, CIN, W, CIN, W);
+      add_seg(p, o, CIN, W, K, W);
       o += (long long)CIN * W;
     }
     add_seg(p, o, W, W, W, W);

@@ -1,10 +1,11 @@
 // The bf16 render body of a vanilla field on the tensor cores
 // (tc_chunk.cuh): B3 from rays and in pts mode, at the narrow and the wide
-// (MultiRes) pads (render_pass.cu). B9's recomputed forward, and the
-// training path's B3 launch that must equal it (render_pass_pts_launch's
-// ordered), stay on the SIMT body: its fp32 FMAs in order keep B9's
-// gradients at the twin's bar, which this body's products, rounded toward
-// zero at every k16 step, leave.
+// (MultiRes) pads (render_pass.cu); its field product (field_rows) also
+// runs B7's and B8's forward-only launch (trunk.cu). B9's recomputed
+// forward, and the training path's B3 launch that must equal it
+// (render_pass_pts_launch's ordered), stay on the SIMT body: its fp32 FMAs
+// in order keep B9's gradients at the twin's bar, which this body's
+// products, rounded toward zero at every k16 step, leave.
 //
 // A block takes whole rays, R per work unit (render_rays: up to 1,024 rows,
 // a whole number of 128-row chunks where one fits). Per chunk each consumer
@@ -71,24 +72,50 @@ size_t render_smem(int S) {
 }
 
 // The image of a vanilla field's packed weights (ops/kernels/render_pass.py::
-// weight_layout) in the order the consumers take them: the trunk, the alpha
-// head [W][1] (before the feature layer, which overwrites its input), the
-// feature layer, the view layer's feature and view-embedding rows, the rgb
-// head [W/2][3]; the heads padded to 8 columns.
+// weight_layout, the embeddings' rows padded to cin_pad / cv_pad) in the
+// order the consumers take them: the trunk, the alpha head [W][1] (before
+// the feature layer, which overwrites its input), the feature layer, the
+// view layer's feature and view-embedding rows, the rgb head [W/2][3]; the
+// heads padded to 8 columns. The embedding products take A::CIN / A::CV
+// rows of their cin_pad / cv_pad (B3: all of them; B7 and B8 pack 128-row
+// pads and take the live atoms only: trunk.cu::trunk_tc_plan).
 template <int W, typename A>
-Plan render_plan(int D, int skip) {
+Plan render_plan(int D, int skip, int cin_pad = A::CIN, int cv_pad = A::CV) {
   Plan p{};
-  const long long feat = add_trunk(p, D, skip, A::CIN, W);
+  const long long feat = add_trunk(p, D, skip, cin_pad, W, A::CIN);
   const long long alpha = feat + (long long)W * W;
   const long long vf = alpha + W;
   const long long ve = vf + (long long)W * (W / 2);
-  const long long rgb = ve + (long long)A::CV * (W / 2);
+  const long long rgb = ve + (long long)cv_pad * (W / 2);
   add_seg(p, alpha, W, 1, W, 8);
   add_seg(p, feat, W, W, W, W);
   add_seg(p, vf, W, W / 2, W, W / 2);
-  add_seg(p, ve, A::CV, W / 2, A::CV, W / 2);
+  add_seg(p, ve, cv_pad, W / 2, A::CV, W / 2);
   add_seg(p, rgb, W / 2, 3, W / 2, 8);
   return p;
+}
+
+// Row r's Fourier encode of x into a tile, two threads a row (part 0 and
+// 1), in encode_chunk's arithmetic (sinf/cosf of the exact x * 2^f): x at
+// columns 0-2, then per frequency f < L sin at 3 + 6f and cos at 6 + 6f;
+// columns c_end .. k_end zero.
+__device__ __forceinline__ void encode_row(unsigned char* t, int r, int part, const float (&x)[3], int L, int c_end,
+                                           int k_end) {
+  if (part == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) put(t, r, a, x[a]);
+  } else {
+    for (int c = c_end; c < k_end; ++c) put(t, r, c, 0.f);
+  }
+  for (int f = part; f < L; f += 2) {
+    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float u = x[a] * scale;
+      put(t, r, 3 + 6 * f + a, sinf(u));
+      put(t, r, 6 + 6 * f + a, cosf(u));
+    }
+  }
 }
 
 // encode_chunk for one consumer warpgroup's 64 rows (unit rows lrow0 ..,
@@ -119,21 +146,7 @@ __device__ __forceinline__ void encode_rows(unsigned char* emb, unsigned char* v
       for (int a = 0; a < 3; ++a) x[a] = __fadd_rn(origins[ray * 3 + a], __fmul_rn(dirs[ray * 3 + a], zz));
     }
   }
-  if (part == 0) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) put(emb, r, a, x[a]);
-  } else {
-    for (int c = cin; c < atoms(A::CIN) * 64; ++c) put(emb, r, c, 0.f);
-  }
-  for (int f = part; f < L; f += 2) {
-    const float scale = (float)(1 << f);  // exact: x * 2^f rounds nothing
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float u = x[a] * scale;
-      put(emb, r, 3 + 6 * f + a, sinf(u));
-      put(emb, r, 6 + 6 * f + a, cosf(u));
-    }
-  }
+  encode_row(emb, r, part, x, L, cin, atoms(A::CIN) * 64);
   for (int k = part; k < atoms(A::CV) * 64; k += 2) put(vt, r, k, (valid && k < cv) ? vemb[ray * cv + k] : 0.f);
 }
 
@@ -161,6 +174,80 @@ __device__ __forceinline__ void composite_unit(const float* raw, int t, int nthr
   }
 }
 
+// One consumer warpgroup's 64 rows through a vanilla field on the tensor
+// cores, from its encoded tiles (emb at emb_a: A::CIN columns; the view
+// embedding at vt_a: A::CV), shared by B3 (consume) and B7 / B8's
+// forward-only launch (trunk.cu::trunk_tc_kernel): the trunk in place in
+// act (the skip as a second product into the same accumulators), the alpha
+// head (m64n8), the feature layer, the view layer on [feature | view
+// embedding] and the rgb head (m64n8). Row r's raw lanes (rgb logits,
+// sigma; fp32) go to raw[r * 4 ..] for r < nvalid, in shared or global
+// memory. With prof (one thread of the block), the heads' clock cycles.
+template <int W, typename A>
+__device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, uint32_t vt_a,
+                                           const float* __restrict__ bias, int D, int skip, int tid, int w, Ring& ring,
+                                           float* raw, int nvalid, long long* prof) {
+  constexpr int WH = W / 2;
+  const uint32_t act_a = smem_u32(act);
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // the accumulator rows r0, r0 + 8
+  const int c0 = 2 * (lane & 3);                 // and columns c0, c0 + 1
+  float acc[W / 2];  // dead, its registers free, outside a layer's products (wgmma_zero)
+  const float* bp = bias;
+  for (int i = 0; i < D; ++i) {
+    if (i == 0 || i == skip + 1) {
+      mma<W, true>(acc, emb_a, A::CIN, ring);  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
+      if (i > 0) mma<W, false>(acc, act_a, W, ring);
+    } else {
+      mma<W, true>(acc, act_a, W, ring);
+    }
+    mma_done<W>(acc, ring, w);
+    epilogue<W, A::ACT>(acc, bp, act, tid, nullptr, 0, 0, 0, false);
+    publish(w);
+    bp += W;
+  }
+  long long th = prof ? clock64() : 0;
+  {  // the alpha head -> raw lane 3
+    mma<8, true>(acc, act_a, W, ring);
+    mma_done<8>(acc, ring, w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (c0 == 0 && r0 + 8 * h < nvalid) raw[(r0 + 8 * h) * 4 + 3] = acc[2 * h] + bias[(D + 1) * W + WH + 3];
+  }
+  if (prof) add_clock(prof, 1, th);
+  {  // the feature layer (no activation), in place
+    mma<W, true>(acc, act_a, W, ring);
+    mma_done<W>(acc, ring, w);
+    epilogue<W, Act::None>(acc, bias + D * W, act, tid, nullptr, 0, 0, 0, false);
+    publish(w);
+  }
+  {  // the view layer on cat([feature, view embedding]), in place
+    mma<WH, true>(acc, act_a, W, ring);
+    mma<WH, false>(acc, vt_a, A::CV, ring);
+    mma_done<WH>(acc, ring, w);
+    epilogue<WH, A::ACT>(acc, bias + (D + 1) * W, act, tid, nullptr, 0, 0, 0, false);
+    publish(w);
+  }
+  th = prof ? clock64() : 0;
+  {  // the rgb head -> raw lanes 0-2
+    const float* b_rgb = bias + (D + 1) * W + WH;
+    mma<8, true>(acc, act_a, WH, ring);
+    mma_done<8>(acc, ring, w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* rr = raw + (r0 + 8 * h) * 4;
+      if (r0 + 8 * h >= nvalid) continue;
+      if (c0 == 0) {
+        rr[0] = acc[2 * h] + b_rgb[0];
+        rr[1] = acc[2 * h + 1] + b_rgb[1];
+      } else if (c0 == 2) {
+        rr[2] = acc[2 * h] + b_rgb[2];
+      }
+    }
+  }
+  if (prof) add_clock(prof, 1, th);
+}
+
 // The consumers' side of render_kernel (warpgroups 1 and 2): each unit's
 // raw lanes go to the composite warps through raw_full / raw_free (two
 // buffers).
@@ -170,7 +257,6 @@ __device__ __forceinline__ void consume(const float* __restrict__ origins, const
                                         const float* __restrict__ bias, int D, int skip, int L, int N, int S,
                                         int R, long long* __restrict__ prof, unsigned char* sm, uint64_t* bars,
                                         uint64_t* raw_full, uint64_t* raw_free, float* raw_s) {
-  constexpr int WH = W / 2;
   constexpr int KE = atoms(A::CIN), KV = atoms(A::CV);
   constexpr int NST = render_stages<W, A>();
   unsigned char* act_s = sm + NST * STAGE_BYTES;              // [2][W / 64 atoms]
@@ -185,11 +271,8 @@ __device__ __forceinline__ void consume(const float* __restrict__ origins, const
   unsigned char* act = act_s + w * (W / 64) * ATOM_BYTES;
   unsigned char* emb = emb_s + w * KE * ATOM_BYTES;
   unsigned char* vt = vemb_s + w * KV * ATOM_BYTES;
-  const uint32_t act_a = smem_u32(act), emb_a = smem_u32(emb), vt_a = smem_u32(vt);
+  const uint32_t emb_a = smem_u32(emb), vt_a = smem_u32(vt);
   Ring ring{smem_u32(sm), bars, bars + NST, NST, 0, 0, -1};
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * 16 + (lane >> 2);  // the accumulator rows r0, r0 + 8
-  const int c0 = 2 * (lane & 3);                 // and columns c0, c0 + 1
   const bool timer = prof != nullptr && ct == 0;  // the cycle counts live in prof, not in registers
   if (timer) start_clock(prof);
 
@@ -205,62 +288,9 @@ __device__ __forceinline__ void consume(const float* __restrict__ origins, const
       const int lrow0 = ch + w * 64;
       const int nvalid = max(0, min(64, rows - lrow0));
       float* raw = raw_u + (size_t)lrow0 * 4;
-      float acc[W / 2];  // dead, its registers free, outside a layer's products (wgmma_zero)
       encode_rows<A, PTS>(emb, vt, tid, lrow0, rows, ray0, S, L, cv, origins, dirs, z, vemb);
       publish(w);
-      const float* bp = bias;
-      for (int i = 0; i < D; ++i) {
-        if (i == 0 || i == skip + 1) {
-          mma<W, true>(acc, emb_a, A::CIN, ring);  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
-          if (i > 0) mma<W, false>(acc, act_a, W, ring);
-        } else {
-          mma<W, true>(acc, act_a, W, ring);
-        }
-        mma_done<W>(acc, ring, w);
-        epilogue<W, A::ACT>(acc, bp, act, tid, nullptr, 0, 0, 0, false);
-        publish(w);
-        bp += W;
-      }
-      long long th = timer ? clock64() : 0;
-      {  // the alpha head -> raw lane 3
-        mma<8, true>(acc, act_a, W, ring);
-        mma_done<8>(acc, ring, w);
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if (c0 == 0 && r0 + 8 * h < nvalid) raw[(r0 + 8 * h) * 4 + 3] = acc[2 * h] + bias[(D + 1) * W + WH + 3];
-      }
-      if (timer) add_clock(prof, 1, th);
-      {  // the feature layer (no activation), in place
-        mma<W, true>(acc, act_a, W, ring);
-        mma_done<W>(acc, ring, w);
-        epilogue<W, Act::None>(acc, bias + D * W, act, tid, nullptr, 0, 0, 0, false);
-        publish(w);
-      }
-      {  // the view layer on cat([feature, view embedding]), in place
-        mma<WH, true>(acc, act_a, W, ring);
-        mma<WH, false>(acc, vt_a, A::CV, ring);
-        mma_done<WH>(acc, ring, w);
-        epilogue<WH, A::ACT>(acc, bias + (D + 1) * W, act, tid, nullptr, 0, 0, 0, false);
-        publish(w);
-      }
-      th = timer ? clock64() : 0;
-      {  // the rgb head -> raw lanes 0-2
-        const float* b_rgb = bias + (D + 1) * W + WH;
-        mma<8, true>(acc, act_a, WH, ring);
-        mma_done<8>(acc, ring, w);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* rr = raw + (r0 + 8 * h) * 4;
-          if (r0 + 8 * h >= nvalid) continue;
-          if (c0 == 0) {
-            rr[0] = acc[2 * h] + b_rgb[0];
-            rr[1] = acc[2 * h + 1] + b_rgb[1];
-          } else if (c0 == 2) {
-            rr[2] = acc[2 * h] + b_rgb[2];
-          }
-        }
-      }
-      if (timer) add_clock(prof, 1, th);
+      field_rows<W, A>(act, emb_a, vt_a, bias, D, skip, tid, w, ring, raw, nvalid, timer ? prof : nullptr);
     }
     mbar_arrive(&raw_full[buf]);  // this thread's raw lanes of the unit are written
   }

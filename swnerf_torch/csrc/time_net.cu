@@ -337,7 +337,7 @@ time_net_tc_kernel(const float* __restrict__ pts, const float* __restrict__ time
 // [W][3] padded to 8 columns.
 tc::Plan time_net_plan(int W, int CIN, int D, int skip) {
   tc::Plan p{};
-  const long long o = tc::add_trunk(p, D, skip, CIN, W);
+  const long long o = tc::add_trunk(p, D, skip, CIN, W, CIN);
   tc::add_seg(p, o, W, 3, W, 8);
   return p;
 }

@@ -51,13 +51,18 @@
 //     Shared memory at fp32, W=256: (2 W + CIN + CV) rows of 68 floats plus
 //     the weight tile and the head reduction, 228,352 of the 232,448 bytes a
 //     block may take.
+//     In bf16 only the train-mode forward runs it: the forward-only launch
+//     of B7 and B8 runs trunk_tc_kernel (3.), and B7' keeps this body.
 //  2. trunk_bwd_launch: the cotangent in the operand type (and q(d alpha)
 //     next to d feat), then gemm_common.cuh::field_reverse, B1's reverse
 //     sweep: fixed-order dW splits, no atomics, bit-equal repeats; demb as
 //     dz_{skip+1} W_emb^T + dz_0 W_0^T over the live columns, in fp32 (the
 //     Pallas backward rounds it to the compute dtype, raymarch.py:765).
+//  3. trunk_tc_kernel (bf16, B7 and B8 without a scratch: the mesh sweep,
+//     the no-grad field routes): tc_render.cuh's field product on the
+//     tensor cores, 128 rows per pass over the weight image.
 // Operands fp32 (parity mode) or bf16, rounded where the plain twin rounds;
-// products accumulate in fp32; gradients are fp32. SIMT only.
+// products accumulate in fp32; gradients are fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +72,7 @@
 
 #include "gemm_common.cuh"
 #include "mlp_common.cuh"
+#include "tc_render.cuh"
 
 namespace {
 
@@ -315,6 +321,143 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
   }
 }
 
+// B7's and B8's bf16 forward-only launch on the tensor cores (tc_chunk.cuh,
+// the body tc_render.cuh::field_rows that B3 runs): a persistent grid over
+// 128-row chunks; per chunk each consumer warpgroup fills its embedding
+// tiles for its 64 rows, then runs the field. The tiles take KE = A::CIN /
+// 64 and KV = A::CV / 64 atoms: one each at the narrow pads (cin, cv <= 64:
+// the mesh tile's 63 / 27), two at the wide ones (MultiRes level 0's
+// 123 / 123), the weights' 128-row pads read that far only (tc_fwd's plan).
+//  - B7: rows of emb [M][cin] and vemb [M][cv] (fp32, each chunk's rows
+//    contiguous, read in order) into the tiles, rounded to bf16 where
+//    trunk.py::_padded rounds; the pad columns are zeroed once, rows past M
+//    are zero.
+//  - B8 (RAW): pts and viewdirs [M][3] encoded in the block at
+//    (cin - 3) / 6 and (cv - 3) / 6 frequencies (tc_render.cuh::encode_row).
+// raw [M][4] (fp32) comes straight from the heads' epilogues. The
+// train-mode forward, whose spilled activations the backward reads, stays
+// on trunk_fwd_kernel: the tensor cores round each k16 step's sum toward
+// zero (tc_rounding.py), and the backward's gradients are held to the
+// twin's fp32-order bar.
+constexpr int TC_STAGES = 3;
+
+// B7 / B8's narrow tiles: one atom for each embedding.
+struct TrunkNarrow {
+  static constexpr int CIN = 64;
+  static constexpr int CV = 64;
+  static constexpr Act ACT = Act::Relu;
+};
+
+template <int W, typename A>
+constexpr size_t trunk_tc_smem() {
+  return 1024 + (size_t)TC_STAGES * tc::STAGE_BYTES +
+         2 * (size_t)(W / 64 + tc::atoms(A::CIN) + tc::atoms(A::CV)) * tc::ATOM_BYTES + tc::BAR_BYTES;
+}
+static_assert(trunk_tc_smem<256, VanillaWide>() <= SMEM_OPTIN, "the wide W=256 block fits");
+
+// Rows row0 .. row0+63 of a row-major fp32 [.][n] input into a tile's
+// columns 0 .. n-1, rounded to bf16 (rows past nvalid: zero). The rows are
+// contiguous in memory, so the warpgroup reads them word by word.
+__device__ __forceinline__ void load_tile(unsigned char* t, int tid, const float* __restrict__ g, int n,
+                                          long long row0, int nvalid) {
+  const float* src = g + row0 * n;
+  const int live = nvalid * n;
+  for (int i = tid; i < 64 * n; i += tc::WGT) {
+    const int r = i / n;
+    tc::put(t, r, i - r * n, i < live ? __ldg(src + i) : 0.f);
+  }
+}
+
+template <int W, typename A, bool RAW>
+__global__ void __launch_bounds__(tc::NTHREADS, 1)
+trunk_tc_kernel(const float* __restrict__ in0, int cin, const float* __restrict__ in1, int cv,
+                const __grid_constant__ tc::Plan plan, const unsigned char* __restrict__ img,
+                const float* __restrict__ bias, int D, int skip, long long M, float* __restrict__ raw) {
+  constexpr int KE = tc::atoms(A::CIN), KV = tc::atoms(A::CV);
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned_smem: 1024
+  unsigned char* sm = tc::aligned_smem(smem_raw);
+  unsigned char* act_s = sm + TC_STAGES * tc::STAGE_BYTES;       // [2][W / 64 atoms]
+  unsigned char* emb_s = act_s + 2 * (W / 64) * tc::ATOM_BYTES;  // [2][KE atoms]
+  unsigned char* vemb_s = emb_s + 2 * KE * tc::ATOM_BYTES;       // [2][KV atoms]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vemb_s + 2 * KV * tc::ATOM_BYTES);
+  tc::init_ring(bars, TC_STAGES);
+  const long long chunks = (M + tc::ROWS - 1) / tc::ROWS;
+  const int wg = threadIdx.x / tc::WGT;
+
+  if (wg == 0) {  // the producer
+    tc::set_regs<tc::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int st = 0, ph = 0;
+      for (long long c = blockIdx.x; c < chunks; c += gridDim.x)
+        tc::produce(plan, img, tc::smem_u32(sm), bars, bars + TC_STAGES, TC_STAGES, st, ph);
+    }
+  } else {
+    tc::set_regs<tc::CONSUMER_REGS>();
+    const int w = wg - 1;
+    const int tid = threadIdx.x - wg * tc::WGT;
+    unsigned char* act = act_s + w * (W / 64) * tc::ATOM_BYTES;
+    unsigned char* emb = emb_s + w * KE * tc::ATOM_BYTES;
+    unsigned char* vt = vemb_s + w * KV * tc::ATOM_BYTES;
+    tc::Ring ring{tc::smem_u32(sm), bars, bars + TC_STAGES, TC_STAGES, 0, 0, -1};
+    if constexpr (!RAW) {  // the pad columns, which no chunk writes
+      for (int i = tid; i < 64 * KE * 64; i += tc::WGT) tc::put(emb, i / (KE * 64), i % (KE * 64), 0.f);
+      for (int i = tid; i < 64 * KV * 64; i += tc::WGT) tc::put(vt, i / (KV * 64), i % (KV * 64), 0.f);
+    }
+    for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
+      const long long row0 = c * tc::ROWS + w * 64;
+      const int nvalid = (int)max(0LL, min(64LL, M - row0));
+      if constexpr (RAW) {  // two threads a row, as B3's encode
+        const int r = tid & 63, part = tid >> 6;
+        float x[3] = {0.f, 0.f, 0.f}, v[3] = {0.f, 0.f, 0.f};
+        if (r < nvalid)
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            x[a] = in0[(row0 + r) * 3 + a];
+            v[a] = in1[(row0 + r) * 3 + a];
+          }
+        tc::encode_row(emb, r, part, x, (cin - 3) / 6, cin, KE * 64);
+        tc::encode_row(vt, r, part, v, (cv - 3) / 6, cv, KV * 64);
+      } else {
+        load_tile(emb, tid, in0, cin, row0, nvalid);
+        load_tile(vt, tid, in1, cv, row0, nvalid);
+      }
+      tc::publish(w);
+      tc::field_rows<W, A>(act, tc::smem_u32(emb), tc::smem_u32(vt), bias, D, skip, tid, w, ring, raw + row0 * 4,
+                           nvalid, nullptr);
+    }
+  }
+}
+
+// The tiles a launch takes: narrow where both embeddings fit one atom.
+inline bool narrow(int cin, int cv) { return cin <= 64 && cv <= 64; }
+
+// The weight image of B7 / B8's packed buffers (ops/kernels/trunk.py: both
+// embeddings on 128-row pads) for the tensor-core launch's tiles.
+template <int W>
+tc::Plan trunk_tc_plan(int D, int skip, int cin, int cv) {
+  return narrow(cin, cv) ? tc::render_plan<W, TrunkNarrow>(D, skip, Trunk::CIN, Trunk::CV)
+                         : tc::render_plan<W, VanillaWide>(D, skip, Trunk::CIN, Trunk::CV);
+}
+
+// Packs the image into img (img_bytes long) and launches trunk_tc_kernel
+// on a persistent grid.
+template <int W, bool RAW>
+int tc_fwd(const float* in0, int cin, const float* in1, int cv, const void* wts, const float* bias, int D, int skip,
+           long long M, float* raw, void* img, long long img_bytes, cudaStream_t st) {
+  const tc::Plan plan = trunk_tc_plan<W>(D, skip, cin, cv);
+  if (img == nullptr || img_bytes < plan.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = tc::pack(wts, plan, img, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto go = [&](auto kern, size_t smem) {
+    SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    kern<<<tc::grid_for((M + tc::ROWS - 1) / tc::ROWS), tc::NTHREADS, smem, st>>>(
+        in0, cin, in1, cv, plan, static_cast<const unsigned char*>(img), bias, D, skip, M, raw);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (narrow(cin, cv)) return go(trunk_tc_kernel<W, TrunkNarrow, RAW>, trunk_tc_smem<W, TrunkNarrow>());
+  return go(trunk_tc_kernel<W, VanillaWide, RAW>, trunk_tc_smem<W, VanillaWide>());
+}
+
 // gq = q(g); column W of dfa = q(d alpha). With MASK (B7'), the colour
 // columns first take the ReLU's mask u > 0, and gm keeps the masked fp32
 // cotangent.
@@ -333,17 +476,31 @@ __global__ void cotangent_kernel(const float* __restrict__ g, const float* __res
   if ((idx & 3) == 3) dfa[(idx >> 2) * (W + PADC) + W] = v;
 }
 
+// The bf16 forward-only launch of B7 and B8 runs on the tensor cores.
+template <typename T, typename A>
+constexpr bool on_tc() {
+  return sizeof(T) == 2 && !A::RGB_RELU;
+}
+
+// The forward: with scratch, train mode on trunk_fwd_kernel; without it,
+// the forward-only launch (B7 / B8 in bf16: tc_fwd, which takes the weight
+// image img; else trunk_fwd_kernel).
 template <typename T, int W, typename A>
 int fwd(const float* emb, int cin, const float* vemb, int cv, const void* wts, const float* bias, int D, int skip,
-        long long M, float* raw, void* scratch, cudaStream_t st) {
+        long long M, float* raw, void* scratch, void* img, long long img_bytes, cudaStream_t st) {
   constexpr int LDA = Op<T>::LDA;
   const size_t smem = sizeof(float) * NRED + sizeof(T) * ((size_t)(2 * W + A::CIN + A::CV) * LDA + KT * W);
-  Scratch<T> sc{};
-  if (scratch) sc = carve<T, A>(scratch, W, D, M);
-  auto kern = scratch ? trunk_fwd_kernel<T, W, A, true> : trunk_fwd_kernel<T, W, A, false>;
-  SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  kern<<<ceil_div(M, CH), NT, smem, st>>>(emb, cin, vemb, cv, static_cast<const T*>(wts), bias, D, skip, M, raw, sc);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = [&](auto kern, Scratch<T> sc) {
+    SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    kern<<<ceil_div(M, CH), NT, smem, st>>>(emb, cin, vemb, cv, static_cast<const T*>(wts), bias, D, skip, M, raw,
+                                            sc);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (scratch) return launch(trunk_fwd_kernel<T, W, A, true>, carve<T, A>(scratch, W, D, M));
+  if constexpr (on_tc<T, A>())
+    return tc_fwd<W, A::RAW>(emb, cin, vemb, cv, wts, bias, D, skip, M, raw, img, img_bytes, st);
+  else
+    return launch(trunk_fwd_kernel<T, W, A, false>, Scratch<T>{});
 }
 
 // The backward from the train-mode forward's scratch. demb / dvemb: B7 and
@@ -418,21 +575,32 @@ long long trunk_scratch_bytes(int arch, int bf16, int W, int D, long long P) {
   });
 }
 
+// Bytes of the weight image that the forward-only launch of family arch
+// takes (B7 and B8 in bf16: the tensor-core kernel), else 0; -1 for an
+// unsupported shape.
+long long trunk_image_bytes(int arch, int bf16, int W, int D, int skip, int cin, int cv) {
+  if (!shape_ok(arch, W, D, skip, cin, cv, 1)) return -1;
+  if (!bf16 || arch == 1) return 0;
+  return W == 256 ? trunk_tc_plan<256>(D, skip, cin, cv).bytes : trunk_tc_plan<128>(D, skip, cin, cv).bytes;
+}
+
 // raw [P, 4] of field family ``arch``: B7 (0) and B7' (1) at emb [P, cin]
 // and vemb [P, cv] (fp32, contiguous; B7': rgb after the colour ReLU); B8
 // (2) at positions emb [P, 3] and view directions vemb [P, 3], encoded in
 // the block to cin = 3 + 6L and cv = 3 + 6Lv columns. wts / bias: the
 // packed buffers of ops/kernels/trunk.py (bf16 != 0: bf16 operands, else
 // fp32). scratch (train mode, trunk_scratch_bytes) or null: with it the
-// forward keeps what the backward needs.
+// forward keeps what the backward needs. img (img_bytes long): the
+// forward-only launch's weight image where trunk_image_bytes is not 0.
 int trunk_fwd_launch(int arch, int bf16, int W, const float* emb, int cin, const float* vemb, int cv, const void* wts,
-                     const float* bias, int D, int skip, long long P, float* raw, void* scratch, void* stream) {
+                     const float* bias, int D, int skip, long long P, float* raw, void* scratch, void* img,
+                     long long img_bytes, void* stream) {
   if (P == 0) return 0;
   if (!shape_ok(arch, W, D, skip, cin, cv, P)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(arch, bf16, W, [&](auto t, auto w, auto a) {
     return fwd<typename decltype(t)::type, decltype(w)::value, typename decltype(a)::type>(
-        emb, cin, vemb, cv, wts, bias, D, skip, P, raw, scratch, st);
+        emb, cin, vemb, cv, wts, bias, D, skip, P, raw, scratch, img, img_bytes, st);
   });
 }
 

@@ -28,6 +28,14 @@ through.
   and, where autograd asks, d pts and d viewdirs ``[P, 3]`` in fp32 (the
   Pallas VJP returns both, ``:1003-1013``).
 
+In bf16, the forward-only launch of B7 and B8 (no scratch: the mesh sweep,
+``apply_field`` without autograd) runs on the tensor cores
+(``csrc/trunk.cu::trunk_tc_kernel``, B3's field product), whose sums round
+in another order than the train-mode forward's: the two launches agree at
+the bf16 bar, not bit for bit. The train-mode forward, which keeps the
+activations its backward reads, B7' and every fp32 launch run the SIMT
+body.
+
 The ``pack_*`` functions lay the weights out as ``render_pass.pack_params``
 does (``render_pass.weight_layout``), with both embeddings padded to 128
 rows: one buffer in the operand type, biases fp32. The field family is the
@@ -37,6 +45,7 @@ packed weights' ``arch``; the twins (``trunk_plain``, ``trunk_plain_bwd``,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
@@ -290,8 +299,9 @@ def _scratch(packed: PackedTrunkParams, P: int, dev, raw: bool = False) -> torch
 
 def _launch_fwd(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor, scratch: Optional[torch.Tensor],
                 raw: bool = False):
-    """One forward launch. B7/B7': emb [P, cin], vemb [P, cv]; B8 (raw):
-    pts and viewdirs [P, 3] in their places."""
+    """One forward launch: train mode with ``scratch``, else forward only.
+    B7/B7': emb [P, cin], vemb [P, cv]; B8 (raw): pts and viewdirs [P, 3] in
+    their places."""
     dev = emb.device
     P = emb.shape[0]
     shapes = ((P, 3), (P, 3)) if raw else ((P, packed.cin), (P, packed.input_ch_views))
@@ -302,14 +312,20 @@ def _launch_fwd(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor
     _check(emb, "pts" if raw else "emb", shapes[0], dev)
     _check(vemb, "viewdirs" if raw else "vemb", shapes[1], dev)
     _check_weights(packed, dev, "trunk")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _lib_fn("trunk_fwd_launch", ctypes.c_int, [i, i, i, p, i, p, i, p, p, i, i, ctypes.c_longlong, p, p, p])
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    img_bytes = 0
+    if scratch is None:  # the bf16 B7 / B8 forward-only launch's weight image (csrc/trunk.cu::tc_fwd), else 0
+        img_bytes = _lib_fn("trunk_image_bytes", ll, [i] * 7)(
+            _code(packed, raw), _bf16(packed), packed.W, packed.D, packed.skip, packed.cin, packed.input_ch_views)
+    img = torch.empty(img_bytes, dtype=torch.uint8, device=dev) if img_bytes > 0 else None
+    fn = _lib_fn("trunk_fwd_launch", ctypes.c_int, [i, i, i, p, i, p, i, p, p, i, i, ll, p, p, p, ll, p])
     out = torch.empty((P, 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = fn(
             _code(packed, raw), _bf16(packed), packed.W, emb.data_ptr(), packed.cin, vemb.data_ptr(),
             packed.input_ch_views, packed.weights.data_ptr(), packed.biases.data_ptr(), packed.D, packed.skip, P,
             out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            img.data_ptr() if img is not None else None, max(img_bytes, 0),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(build.load(NAME), code, "trunk")
@@ -348,8 +364,9 @@ def _launch_bwd(packed: PackedTrunkParams, P: int, g: torch.Tensor, scratch: tor
 
 
 def trunk(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor) -> torch.Tensor:
-    """B7's / B7''s forward on CUDA tensors (raw [P, 4] at emb [P, cin] and
-    vemb [P, cv], fp32), the plain twin on CPU tensors."""
+    """B7's / B7''s forward-only launch on CUDA tensors (raw [P, 4] at emb
+    [P, cin] and vemb [P, cv], fp32; B7 in bf16 on the tensor cores), the
+    plain twin on CPU tensors."""
     if emb.device.type == "cpu":
         return trunk_plain(packed, emb, vemb)
     return _launch_fwd(packed, emb, vemb, None)
@@ -369,8 +386,9 @@ def trunk_fwd_bwd(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tens
 
 
 def field_raw(packed: PackedTrunkParams, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
-    """B8's forward on CUDA tensors (raw [P, 4] at pts and viewdirs [P, 3],
-    fp32), the plain twin on CPU tensors."""
+    """B8's forward-only launch on CUDA tensors (raw [P, 4] at pts and
+    viewdirs [P, 3], fp32; in bf16 on the tensor cores), the plain twin on
+    CPU tensors."""
     if pts.device.type == "cpu":
         return field_raw_plain(packed, pts, viewdirs)
     return _launch_fwd(packed, pts, viewdirs, None, raw=True)
@@ -440,6 +458,20 @@ def field_raw_autograd(packed: PackedTrunkParams, dtype: torch.dtype, pts: torch
     return _Trunk.apply(packed.weights, packed.biases, pts, viewdirs, packed, dtype, True)
 
 
+@contextlib.contextmanager
+def packed_once(module: torch.nn.Module):
+    """Inside the block, :func:`apply_field`'s forward-only launches on
+    ``module`` pack its weights once per packing and operand type and reuse
+    them: the same values and launches as packing at every call, for a run
+    of many no-grad calls on weights that do not change (the mesh sweep's
+    1,024 tiles, ``extract_mesh.sample_grid``)."""
+    module._packed_once = {}
+    try:
+        yield module
+    finally:
+        del module._packed_once
+
+
 def apply_field(module: torch.nn.Module, pack, dtype: torch.dtype, x: torch.Tensor, xv: torch.Tensor,
                 raw: bool = False) -> torch.Tensor:
     """A field module's raw [P, 4] through B7 / B7' at embeddings x, xv (B8
@@ -447,9 +479,16 @@ def apply_field(module: torch.nn.Module, pack, dtype: torch.dtype, x: torch.Tens
     Under autograd its parameters are packed differentiably (``pack``:
     :func:`pack_trunk_params` or :func:`pack_tnerf_trunk_params`, in the
     parameters' own dtype) and the kernel's backward runs; without it, the
-    forward-only launch on weights packed in ``dtype``."""
-    params = dict(module.named_parameters())
+    forward-only launch on weights packed in ``dtype`` (once per
+    :func:`packed_once` block)."""
     if torch.is_grad_enabled():
         pdt = next(module.parameters()).dtype  # fp32; float64 for a float64 run on the twins
-        return (field_raw_autograd if raw else trunk_autograd)(pack(params, module.cfg, pdt), dtype, x, xv)
-    return (field_raw if raw else trunk)(pack(params, module.cfg, dtype), x.contiguous(), xv.contiguous())
+        packed = pack(dict(module.named_parameters()), module.cfg, pdt)
+        return (field_raw_autograd if raw else trunk_autograd)(packed, dtype, x, xv)
+    cache = getattr(module, "_packed_once", None)
+    packed = None if cache is None else cache.get((pack, dtype))
+    if packed is None:
+        packed = pack(dict(module.named_parameters()), module.cfg, dtype)
+        if cache is not None:
+            cache[(pack, dtype)] = packed
+    return (field_raw if raw else trunk)(packed, x.contiguous(), xv.contiguous())

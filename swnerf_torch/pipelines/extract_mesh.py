@@ -20,7 +20,8 @@ The sweep runs without autograd in tiles of ``chunk`` points x V views:
 each tile is one field call of ``chunk * V`` rows
 (``VanillaNeRF.query_views``: the points and the directions are each
 encoded once and broadcast), the mean over the views is taken on the card,
-and the grid comes to the host once, at the end. On a card the field's
+and the grid comes to the host once, at the end. The kernel route packs
+the weights once per sweep (``trunk.packed_once``). On a card the field's
 kernel route runs each tile as one B7 forward-only launch in bf16 (one B8
 launch under ``SWNERF_FUSED_RAW=1``); ``SWNERF_FUSED=0`` gives the fp32
 plain trunk. The field is the fine network when there is one (reference
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from swnerf_torch.device import resolve_device
+from swnerf_torch.ops.kernels.trunk import packed_once
 from swnerf_torch.ops.marching import marching_tetrahedra
 from swnerf_torch.utils.config import config_parser
 from swnerf_torch.utils.mesh import save_obj
@@ -73,8 +75,9 @@ def sample_grid(model, bounds=DEFAULT_BOUNDS, resolution: int = 128, num_views: 
     pts = torch.as_tensor(np.concatenate([points, np.zeros((pad, 3), np.float32)], 0), device=dev)
     viewdirs = torch.as_tensor(fibonacci_sphere(num_views), device=dev)  # [V, 3]
     out = torch.empty((n + pad, 4), dtype=torch.float32, device=dev)
-    for start in range(0, n + pad, chunk):
-        out[start : start + chunk] = model.query_views(pts[start : start + chunk], viewdirs).mean(0)
+    with packed_once(model):  # the kernel route packs the weights once, not once a tile
+        for start in range(0, n + pad, chunk):
+            out[start : start + chunk] = model.query_views(pts[start : start + chunk], viewdirs).mean(0)
     out = out[:n].cpu().numpy()
     density = out[:, 3].reshape(resolution, resolution, resolution)
     colors = out[:, :3].reshape(resolution, resolution, resolution, 3)

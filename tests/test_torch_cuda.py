@@ -34,6 +34,11 @@ route (fp32, the float64 plain route on the CPU as the fallback's
 reference), with small deformation heads so that level 0's 2^19 encoding
 stays well conditioned (tests/test_torch_multires.py); ``NeRFOriginal``'s
 kernel route (B7 alone) against its plain route, fp32 and the default bf16.
+B7's and B8's bf16 forward-only launches (the tensor cores) at both pads,
+W 128 and 256, from one row to a 204,800-row mesh tile: raw within 1e-2
+(max) and 1e-3 (mean) of the twin's largest value, bit-equal repeats; they
+sum in another order than the train-mode launch, so the fields' no-grad
+forwards are held to that bar, not to the autograd forward bit for bit.
 MultiRes on the render kernels: B3's pts mode on the wide pack at B3's bars
 (up to its shared-memory bound S = 256, past which it refuses); B9 at B6's
 bars with its recomputed forward bit-equal to the B3 launch, bf16 rel L2
@@ -835,7 +840,10 @@ def test_nerf_original_kernel_route_matches_plain_route(dev, level, dtype):
     autograd. Against ``fused=False`` on the same weights: fp32 raw atol /
     rtol 1e-4 and gradients at the fallback bar (the float64 plain route on
     the CPU); bf16 raw within 1e-2 of its largest value and gradients rel L2
-    1e-2 of B7's bf16 twin. A no-grad render of 256 rays, 32 samples: fp32
+    1e-2 of B7's bf16 twin. The no-grad forward: fp32 bit-equal to the
+    autograd forward; bf16 (B7 on the tensor cores, whose sum order differs
+    from the train-mode launch's) within 1e-2 of the twin's largest value
+    and bit-equal to a second no-grad call. A no-grad render of 256 rays, 32 samples: fp32
     rgb atol 1e-4; bf16 against the fp32 plain route max |drgb| 2e-2, mean
     2e-3 (phase 24's bf16 bar, five of bf16's unit roundoffs, on rgb). The
     D-NeRF configuration renders with the canonical weights of the round-5
@@ -890,9 +898,14 @@ def test_nerf_original_kernel_route_matches_plain_route(dev, level, dtype):
     with torch.no_grad():
         before = [launches[k] for k in names]
         raw_nograd, _ = kern(pts, vd, t)
+        raw_nograd2, _ = kern(pts, vd, t)
         torch.cuda.synchronize()
-    assert [launches[k] - b for k, b in zip(names, before)] == [1, 0]
-    assert torch.equal(raw_nograd, raw.detach())
+    assert [launches[k] - b for k, b in zip(names, before)] == [2, 0]
+    if dtype == torch.float32:
+        assert torch.equal(raw_nograd, raw.detach())
+    else:  # the bf16 forward-only launch runs on the tensor cores: another sum order than train mode's
+        assert (raw_nograd - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+        assert torch.equal(raw_nograd, raw_nograd2)
     c2w = torch.eye(4)[:3].numpy()
     c2w[2, 3] = 4.0
     rays = make_rays_from_camera(16, 16, 20.0, c2w, 2.0, 6.0, device=dev, time=0.5)
@@ -1082,9 +1095,71 @@ def test_b8_bf16_matches_plain_and_repeats(dev):
     assert torch.equal(grads[0], grads2[0]) and torch.equal(grads[1], grads2[1]) and torch.equal(dpts, dpts2)
 
 
-def _field_route_check(kern, plain, inputs, g, names, dtype, twin_grads, render):
+TC_ROWS = [1, 127, 129, 8256, 204800]  # 204,800: one mesh tile (2,048 points x 100 views)
+TC_PADS = {"narrow": dict(multires=10, multires_views=4), "wide": dict(multires=20, multires_views=20)}
+
+
+def _tc_field(dev, pad, width, rows, seed=0):
+    """A seeded vanilla field (D=8, W=width, skip 4) at the narrow pads (63 /
+    27 columns: the mesh sweep's) or the wide ones (123 / 123: MultiRes level
+    0's), packed in bf16, and ``rows`` seeded positions in [-2, 2]^3 with unit
+    view directions (fp32, on the card)."""
+    cfg = VanillaNeRFConfig(netwidth=width, **TC_PADS[pad])
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    pts = torch.rand((rows, 3), generator=g, device=dev) * 4 - 2
+    vd = torch.nn.functional.normalize(torch.randn((rows, 3), generator=g, device=dev), dim=-1)
+    return cfg, b7.pack_trunk_params(model.state_dict(), cfg, torch.bfloat16), pts, vd
+
+
+def _assert_tc_raw(got, again, ref):
+    """raw within 1e-2 (max) and 1e-3 (mean) of the twin's largest value;
+    a repeat bit-equal."""
+    scale = ref.abs().max().item()
+    d = (got - ref).abs()
+    assert d.max().item() <= 1e-2 * scale and d.mean().item() <= 1e-3 * scale, (d.max().item(), d.mean().item(),
+                                                                                 scale)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows", TC_ROWS)
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("pad", list(TC_PADS))
+def test_b7_tc_forward_matches_plain(dev, pad, width, rows):
+    """B7's bf16 forward-only launch (the tensor cores, csrc/trunk.cu::
+    trunk_tc_kernel) against trunk_plain at both pads, W 128 and 256, D=8
+    with skip 4, from one row to one mesh tile: _assert_tc_raw's bars, one
+    launch a call."""
+    cfg, packed, pts, vd = _tc_field(dev, pad, width, rows)
+    emb = positional_encoding(pts, cfg.nf_pts).contiguous()
+    vemb = positional_encoding(vd, cfg.nf_views).contiguous()
+    before = launches["trunk"]
+    got, again = b7.trunk(packed, emb, vemb), b7.trunk(packed, emb, vemb)
+    torch.cuda.synchronize()
+    assert launches["trunk"] == before + 2
+    _assert_tc_raw(got, again, b7.trunk_plain(packed, emb, vemb))
+
+
+@pytest.mark.parametrize("rows", TC_ROWS)
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("pad", list(TC_PADS))
+def test_b8_tc_forward_matches_plain(dev, pad, width, rows):
+    """B8's bf16 forward-only launch (the encodes in the block, the tensor
+    cores) against field_raw_plain at the same cases and bars as B7's."""
+    cfg, packed, pts, vd = _tc_field(dev, pad, width, rows, seed=2)
+    before = launches["trunk[raw]"]
+    got, again = b7.field_raw(packed, pts, vd), b7.field_raw(packed, pts, vd)
+    torch.cuda.synchronize()
+    assert launches["trunk[raw]"] == before + 2
+    _assert_tc_raw(got, again, b7.field_raw_plain(packed, pts, vd))
+
+
+def _field_route_check(kern, plain, inputs, g, names, dtype, twin_grads, render, tc=False):
     """Forward + backward (one launch each way), the no-grad forward (one
-    forward-only launch, bit-equal), a no-grad render. fp32: raw atol/rtol
+    forward-only launch, bit-equal to the autograd forward; with ``tc``, B7 /
+    B8's bf16 forward-only launch on the tensor cores, whose sum order
+    differs from train mode's: held to the plain route at the bf16 raw bar
+    and bit-equal to a second no-grad call), a no-grad render. fp32: raw atol/rtol
     1e-4 and the gradients rel L2 1e-3 of the plain route (ReLU ties at D=8
     move single tensors past 1e-4, ROADMAP Queue C), rgb 1e-4. bf16: raw
     within 1e-2 of the plain fp32 route's largest value, the gradients rel
@@ -1111,8 +1186,12 @@ def _field_route_check(kern, plain, inputs, g, names, dtype, twin_grads, render)
         before = [launches[k] for k in names]
         raw_nograd = kern(*inputs)
         torch.cuda.synchronize()
-    assert [launches[k] - b for k, b in zip(names, before)] == [1, 0]
-    assert torch.equal(raw_nograd, raw.detach())
+        assert [launches[k] - b for k, b in zip(names, before)] == [1, 0]
+        if tc:
+            assert (raw_nograd - rp).abs().max().item() <= 1e-2 * rp.abs().max().item()
+            assert torch.equal(kern(*inputs), raw_nograd)
+        else:
+            assert torch.equal(raw_nograd, raw.detach())
     rk, rpl = render()
     drgb = (rk - rpl).abs()
     bar = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-3)
@@ -1155,7 +1234,7 @@ def test_vanilla_field_kernel_route_matches_plain_route(dev, raw_route, dtype, m
         return b7.unpack_trunk_grads(grads, packed)
 
     _field_route_check(kern, plain, (pts.reshape(200, 16, 3), vd.reshape(200, 16, 3)[:, 0]), g, names, dtype,
-                       twin_grads, render)
+                       twin_grads, render, tc=dtype is None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, None], ids=["fp32", "default_bf16"])
