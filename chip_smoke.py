@@ -33,13 +33,18 @@ Phases (each raises on failure; nothing is caught):
      1e-4 (atol 1e-5 / 1e-7), gradients rel L2 1e-4 (or, on ReLU ties, no
      further from the float64 twin than twice the fp32 twin, PERF.md); bf16
      rgb max 1e-2 / mean 1e-3, gradients rel L2 1e-2; bit-equal repeats;
+     bf16 B1's time beside its bound, its device time by kernel family
+     (the SIMT forward, the reverse sweep's tensor-core products, the split
+     reductions, the SIMT heads; torch.profiler) and the sweep's large
+     products as bf16 torch.matmul calls (cuBLAS, summed: the yardstick);
   8. the kernel train step vs the eager autograd step from the same state
      and draws: fp32 loss rel 1e-5, gradients as in 7 (float64 eager step as
      the reference); bf16 loss rel 1e-2;
   9. the training main path: ``run_nerf`` resumed from 010000.tar for 200
      full-width bf16 steps (train PSNR >= 30 dB at every print, checkpoints
      010100/010200 with Adam step 10200, B1 and B2 launch counts), ms per
-     step, rays/s, samples/s and a per-stage breakdown of one step;
+     step, rays/s, samples/s and a per-stage breakdown of one step, B1's
+     stages beside their bounds;
  10. test frame 0 rendered from 010200.tar through the serving path:
      >= 30 dB and within 0.5 dB of phase 5's frame 0;
  11. the T-NeRF scene: the dynamic 400x400 textured Blender scene the
@@ -71,7 +76,9 @@ Phases (each raises on failure; nothing is caught):
      scene: fp32 dx atol 1e-5, gradients rel L2 1e-4 (the float64 fallback
      of phase 7, which also admits the distance a perturbation of fp32 size
      moves the float64 twin: the ReLUs tie, check_fp32_grads); bf16 dx
-     max 1e-2, gradients rel L2 1e-2; bit-equal repeats;
+     max 1e-2, gradients rel L2 1e-2; bit-equal repeats; B6's backward at
+     the TV pair's rows beside its bound, by kernel family and against its
+     sweep's products on cuBLAS (as phase 7);
  18. B3's pts mode and B5 against their twins on pts + dx of those rays,
      noise std 1: outputs as in phase 7, gradients and dpts as in phase 17,
      bf16 1e-2, bit-equal repeats; then B6 and B3's pts mode against their
@@ -92,7 +99,8 @@ Phases (each raises on failure; nothing is caught):
  21. the D-NeRF training main path: ``run_dnerf`` resumed from that copy for
      200 bf16 steps with the config's flags (train PSNR >= 34 dB at every
      print, 800100.tar and 800200.tar with Adam step 800200, the B5 and B6
-     launch counts), ms per step, rays/s, samples/s, a per-stage breakdown;
+     launch counts), ms per step, rays/s, samples/s, a per-stage breakdown
+     (the backward's stage beside B6's backward bound);
  22. test frame 5 from 800200.tar through the serving path, within 0.5 dB
      of phase 20's;
  23. MultiRes: B7 (the field trunk on embedded inputs, forward and backward
@@ -107,7 +115,7 @@ Phases (each raises on failure; nothing is caught):
      ones, but for B7's in bf16 (the tensor cores): at the bf16 raw bar and
      bit-equal to a repeat; the last 500 rays of the test render's 2.1M-row
      chunk against the twins at the bf16 bars; then their times at each
-     level's rows;
+     level's rows, B6's backward at level 0 as in phase 17;
  24. one phase-1 step (level 0) and one phase-2 step (all four levels) on
      the kernel route against the plain route, same weights and draws: fp32
      loss rel 1e-5, gradients at phase 17's bar; bf16 loss rel 2e-2;
@@ -276,7 +284,8 @@ TC_SUMMARY: dict = {}
 def tc_ptxas(libs) -> None:
     """Registers and spill bytes of the tensor-core kernels (the bf16 B6
     forward, B3's body, B7 / B8's forward-only launch, the weight-image
-    packer) from each library's build.log; fails on a spill."""
+    packer, the reverse sweep's dW and dH products of B1 and B6) from each
+    library's build.log; fails on a spill."""
     import re
 
     for name in ("time_net", "render_pass", "render_loss", "trunk"):
@@ -285,11 +294,11 @@ def tc_ptxas(libs) -> None:
             if "Compiling entry function" in line:
                 entry_name = line.split("'")[1] if "'" in line else line
                 continue
-            tc_names = r"time_net_tc_kernel|trunk_tc_kernel|tc13render_kernel|tc11pack_kernel"
+            tc_names = r"time_net_tc_kernel|trunk_tc_kernel|tc13render_kernel|tc11pack_kernel|sweep_d[wh]_kernel"
             if not entry_name or not re.search(tc_names, entry_name):
                 continue
-            kernel = re.sub(r"^.*?(time_net_tc_kernel|trunk_tc_kernel|render_kernel|pack_kernel)", r"\1",
-                            entry_name)[:60]
+            kernel = re.sub(r"^.*?(time_net_tc_kernel|trunk_tc_kernel|render_kernel|pack_kernel|sweep_d[wh]_kernel)",
+                            r"\1", entry_name)[:60]
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} / {m.group(2)} bytes spill stores / loads")
@@ -297,8 +306,9 @@ def tc_ptxas(libs) -> None:
                     fail(f"{name}: {kernel} spills")
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} registers at launch (setmaxnreg: 56 for the "
-                      f"producer warpgroup, 224 for the consumers)")
+                note = ("two warpgroups, every thread copies and both multiply" if kernel.startswith("sweep") else
+                        "setmaxnreg: 56 for the producer warpgroup, 224 for the consumers")
+                print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} registers at launch ({note})")
 
 
 def tc_shares(lib_name: str, fn) -> tuple:
@@ -668,14 +678,101 @@ def b3_dists(z, d):
     return _dists_scaled(z, d).contiguous()
 
 
-def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, kind):
+def bound(nbytes, ops, kind):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[kind] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, kind):
+    bound_ms, bound_by = bound(nbytes, ops, kind)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
     }
+
+
+# B1's and B6's backward by kernel family (kernel_split): the forward, the
+# reverse sweep's tensor-core products (csrc/tc_gemm.cuh), the split
+# reductions, the SIMT heads and narrow products.
+SWEEP_FAMILIES = (("forward", ("render_loss_fwd", "time_net_fwd", "time_net_tc")),
+                  ("tensor-core products", ("sweep_dw", "sweep_dh")),
+                  ("split reductions", ("reduce_kernel", "colsum")),
+                  ("SIMT products and heads", ("gemm_kernel", "head_bwd", "round_cotangent")))
+
+
+def kernel_split(fn, families=SWEEP_FAMILIES):
+    """Device ms of one ``fn()`` by kernel family (torch.profiler's CUDA
+    activity, after a warm-up), or None when it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = dict.fromkeys([f for f, _ in families] + ["other"], 0.0)
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us and str(evt.device_type).endswith("CUDA"):
+            by[next((f for f, keys in families if any(k in evt.key for k in keys)), "other")] += us / 1e3
+    return by if sum(by.values()) > 0 else None
+
+
+def sweep_products(W, D, skip, cin_pad, cv_pad=None):
+    """The reverse sweep's large products, as ("dw", in, out) for dW = X^T
+    dZ and ("dh", out, in) for dH = dZ W^T: per trunk layer its dW and
+    (above layer 0) its dH, the embedding rows' dW at layer 0 and the skip
+    layer; with cv_pad (B1) first the view layer's two dW, d feat, the
+    feature dW and the top layer's dH."""
+    out = []
+    if cv_pad is not None:
+        out += [("dw", W, W // 2), ("dw", cv_pad, W // 2), ("dh", W // 2, W), ("dw", W, W), ("dh", W, W)]
+    for i in range(D - 1, -1, -1):
+        if i in (0, skip + 1):
+            out.append(("dw", cin_pad, W))
+        if i > 0:
+            out += [("dw", W, W), ("dh", W, W)]
+    return out
+
+
+def library_sweep_ms(P, products, dev):
+    """The products at P rows as bf16 torch.matmul calls (cuBLAS) on seeded
+    operands, each timed with CUDA events: (sum of ms, multiply-adds). The
+    port never calls them; they are the sweep's yardstick."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    total, macs = 0.0, 0
+    for kind, a, b in products:
+        if kind == "dw":  # [a, P] @ [P, b]: both operands row-major over P, as the spills are
+            x = torch.randn((P, a), generator=g, device=dev).bfloat16()
+            z = torch.randn((P, b), generator=g, device=dev).bfloat16()
+            total += cuda_ms(lambda: torch.matmul(x.t(), z), 5)
+        else:  # [P, a] @ [a, b]: the packed [b][a] matrix, transposed
+            z = torch.randn((P, a), generator=g, device=dev).bfloat16()
+            w = torch.randn((b, a), generator=g, device=dev).bfloat16()
+            total += cuda_ms(lambda: torch.matmul(z, w.t()), 5)
+        macs += P * a * b
+    return total, macs
+
+
+def report_sweep(tag, name, fn, ms, bound_ms, P, products, dev):
+    """Prints a bf16 B1 / B6-backward launch's time beside its bound, its
+    device time by kernel family and its sweep's large products on cuBLAS;
+    returns (family split or None, the cuBLAS sum)."""
+    split = kernel_split(fn)
+    lib, macs = library_sweep_ms(P, products, dev)
+    parts = ("not measured (torch.profiler recorded no device time)" if split is None
+             else ", ".join(f"{k} {v:.3f}" for k, v in split.items() if v))
+    print(f"[{tag} sweep] {name}: {ms:.3f} ms per launch, bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.2f}%); "
+          f"device ms by family: {parts}; its {len(products)} large products at {P} rows: bound "
+          f"{2 * macs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms, as bf16 torch.matmul calls (cuBLAS, summed) {lib:.3f} ms")
+    TC_SUMMARY[f"{name}, the sweep's products on cuBLAS"] = f"{lib:.3f} ms beside the launch's {ms:.3f} ms"
+    return split, lib
 
 
 def frame_breakdown(rays, cfg, pc, pf, chunk):
@@ -852,6 +949,9 @@ def phase7_b1(dev, cfg, coarse, fine):
         ms = cuda_ms(lambda: b1.render_loss(p16, *args, True, scale), 5)
         plain_ms = cuda_ms(lambda: b1.render_loss_plain(p16, *args, True, scale), 2)
         rows[S] = (diff.max().item(), ms, plain_ms, nbytes, flops, "bf16")
+        report_sweep("7", f"render_loss[S={S}] bf16", lambda: b1.render_loss(p16, *args, True, scale), ms,
+                     bound(nbytes, flops, "bf16")[0], zz.numel(),
+                     sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), dev)
         del gk, gr, gk2, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -981,6 +1081,13 @@ def phase9_train(dev, cfg, coarse, fine, tmp):
     print("[9 breakdown] one step, device ms by stage: " + ", ".join(
         f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
     print(f"[9 breakdown] stage sum {total:.2f} ms vs median step {med:.2f} ms")
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+
+    macs = b1.train_macs_per_sample(b3.pack_params(fine.state_dict(), cfg))
+    print("[9 breakdown] " + ", ".join(
+        f"{k} {stages[k]:.3f} ms against its bound {2 * macs * 1024 * s / PEAK_FLOPS['bf16'] * 1e3:.4f} ms"
+        for k, s in (("coarse B1", 64), ("fine B1", 192))))
     return counts, exp / "010200.tar"
 
 
@@ -1735,12 +1842,14 @@ def phase17_b6(dev, cfg, sd, inputs):
     b6._launch_fwd(p16, pair, t2, scratch)
     bwd_ms = cuda_ms(lambda: b6._launch_bwd(p16, m, cot, scratch), 10)
     bwd_plain = cuda_ms(lambda: b6.time_net_plain_bwd(p16, pair, t2, cot), 2)
-    del scratch
     bwd_row = entry(
         "time_net[bwd]", "swnerf_torch/csrc/time_net.cu", "swnerf_tpu/ops/pallas/raymarch.py:480", 0, err16,
         bwd_ms, bwd_plain, 4 * (3 * m + 3 * m + pair.shape[0]) + 2 * p16.weights.numel() + 4 * p16.weights.numel(),
         2 * p16.bwd_macs_per_row * m, "bf16",
     )
+    report_sweep("17", "time_net[bwd] bf16, the TV pair", lambda: b6._launch_bwd(p16, m, cot, scratch), bwd_ms,
+                 bwd_row["bound_ms"], m, sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad), dev)
+    del scratch
     torch.cuda.empty_cache()
     return {"time_net[bwd]": bwd_row}
 
@@ -2176,6 +2285,13 @@ def phase21_train(dev, cfg, tmp, data):
     print("[21 breakdown] one step, device ms by stage: " + ", ".join(
         f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in stages.items()))
     print(f"[21 breakdown] stage sum {total:.2f} ms vs median step {med:.2f} ms")
+    from swnerf_torch.models import DirectTemporalNeRF
+    from swnerf_torch.ops.kernels import time_net as b6
+
+    p6 = b6.pack_time_params(DirectTemporalNeRF(cfg, device=dev).state_dict(), cfg)
+    bwd = [k for k in stages if k.startswith("backward")]
+    print(f"[21 breakdown] {bwd[0]} {stages[bwd[0]]:.3f} ms; B6's backward over the TV pair's 2 x 500 x 192 rows "
+          f"at its bound: {2 * p6.bwd_macs_per_row * 192000 / PEAK_FLOPS['bf16'] * 1e3:.4f} ms")
     return counts
 
 
@@ -2486,6 +2602,10 @@ def phase23_kernels(dev, data):
                     cuda_ms(lambda: b6.time_net_plain_bwd(p16, pp, tt, cc), 3),
                     4 * (3 * n_rows + 3 * n_rows + n_rays) + 2 * nw6 + 4 * (nw6 + nb6),
                     2 * p16.bwd_macs_per_row * n_rows, "bf16")
+                report_sweep("23", "time_net[multires,bwd] bf16, level 0",
+                             lambda: b6._launch_bwd(p16, n_rows, cc, sc6), b6ms,
+                             rows["time_net[multires,bwd]"]["bound_ms"], n_rows,
+                             sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad), dev)
                 print(f"[23 B6 level 0] {p16.macs_per_row} / {p16.bwd_macs_per_row} MACs per row: forward "
                       f"{2 * p16.macs_per_row * n_rows / f6 / 1e9:.2f} TFLOP/s, backward "
                       f"{2 * p16.bwd_macs_per_row * n_rows / b6ms / 1e9:.2f} TFLOP/s; B7 {c16.macs_per_row} / "
@@ -2819,8 +2939,9 @@ def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
            float(scene.times[img_i]), 1.0, gen)
 
     families = (("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
-                ("B6/B7 backward GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
-                                                         "cotangent_kernel", "round_cotangent")))
+                ("B6 backward, tensor-core products", ("sweep_dw", "sweep_dh")),
+                ("B6/B7 backward SIMT GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
+                                                              "cotangent_kernel", "round_cotangent")))
     for name, step in (("phase 1, level 0", phase1), ("phase 2", phase2)):
         profile_steps("25", name, step, families)
 
@@ -4004,8 +4125,9 @@ def phase2_profile(dev, scene, pyr_hwf, ckpt):
     patch_sizes = [32, 16, 8, 4]
     families = (("B9 forward", ("render_loss_fwd",)), ("B3 wide / B3 pts forward", ("render_pass_kernel", "render_kernel<")),
                 ("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
-                ("backward GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
-                                                   "cotangent_kernel", "round_cotangent", "encode_bwd")))
+                ("B6 backward, tensor-core products", ("sweep_dw", "sweep_dh")),
+                ("backward SIMT GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
+                                                        "cotangent_kernel", "round_cotangent", "encode_bwd")))
     for route in (True, False):
         states = []
         for l in range(4):

@@ -18,8 +18,17 @@ one card:
     python3 kernel_digest.py --root <checkout> [--reps N]
 
 Prints one JSON line: the card, and per kernel and operand type the sha256
-of its outputs and its mean milliseconds per launch (CUDA events, after a
-warm-up). Needs a CUDA device; builds the checkout's kernels at first use.
+of its outputs (a train-mode entry: ``fwd``, of its forward outputs, and
+``grads``, of its gradients and input cotangents) and its mean milliseconds
+per launch (CUDA events, after a warm-up; B6's entries also ``ms_bwd``, the
+backward launch alone). B6's train mode runs at the D-NeRF widths and at
+MultiRes level 0's (144 input rows, 32,000 rows). Needs a CUDA device;
+builds the checkout's kernels at first use.
+
+    python3 kernel_digest.py --diff <run.json> <run.json> ...
+
+compares saved runs (each the printed line, or a file holding it) digest by
+digest against the first, and prints the entries that differ.
 """
 
 from __future__ import annotations
@@ -32,11 +41,33 @@ import sys
 from pathlib import Path
 
 
+DIGESTS = ("sha256", "fwd", "grads")
+
+
+def diff(paths) -> int:
+    """Print, per later run, the digests that differ from the first run's."""
+    runs = []
+    for p in paths:
+        lines = [ln for ln in Path(p).read_text().splitlines() if ln.startswith('{"root"')]
+        runs.append(json.loads(lines[-1]))
+    base = runs[0]["kernels"]
+    for path, run in zip(paths[1:], runs[1:]):
+        kern = run["kernels"]
+        differ = [f"{name} {d}" for name in base for d in DIGESTS
+                  if d in base[name] and name in kern and kern[name].get(d) != base[name][d]]
+        n = sum(d in v for v in base.values() for d in DIGESTS)
+        print(f"{path} against {paths[0]}: {len(differ)} of {n} digests differ" + "".join(f"\n  {x}" for x in differ))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent), help="the checkout to load")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--diff", nargs="+", metavar="RUN", help="compare saved runs instead of running")
     a = ap.parse_args()
+    if a.diff:
+        return diff(a.diff)
     sys.path.insert(0, str(Path(a.root).resolve()))
     import torch
 
@@ -72,6 +103,10 @@ def main() -> int:
         times = torch.rand((n,), generator=g, device=dev)
         return o, d, vd, z, dist, noise, target, times
 
+    def train(res, grads, ms, **extra):
+        """A train-mode entry: the forward outputs' and the gradients' digests apart."""
+        return {"fwd": digest(res), "grads": digest(grads), "ms": ms, **extra}
+
     def digest(out):
         h = hashlib.sha256()
         for x in out:
@@ -90,6 +125,17 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / a.reps
+
+    def b6_train(packed, pts, times, cot):
+        """B6's train-mode forward and backward: digests, the pair's time and
+        the backward launch's alone (on the forward's scratch)."""
+        dx, grads = b6.time_net_fwd_bwd(packed, pts, times, cot)
+        m = pts.shape[0] * pts.shape[1]
+        sc = b6._scratch(packed, m, dev)
+        b6._launch_fwd(packed, pts, times, sc)
+        g = cot.reshape(m, 3).contiguous()
+        ms_bwd = timed(lambda: b6._launch_bwd(packed, m, g, sc))
+        return train([dx], list(grads), timed(lambda: b6.time_net_fwd_bwd(packed, pts, times, cot)), ms_bwd=ms_bwd)
 
     out = {}
     vcfg, tcfg = VanillaNeRFConfig(), TNeRFConfig()
@@ -123,8 +169,7 @@ def main() -> int:
             ve = positional_encoding(vd, vcfg.nf_views).contiguous()
             args = (pv, o, d, ve, z, dist, noise, target, True, 1.0 / 3072)
             res, grads = b1.render_loss(*args)
-            out[f"render_loss[S={s}] {tag}"] = {"sha256": digest(list(res) + list(grads)),
-                                                "ms": timed(lambda: b1.render_loss(*args))}
+            out[f"render_loss[S={s}] {tag}"] = train(list(res), list(grads), timed(lambda: b1.render_loss(*args)))
         o, d, vd, z, dist, noise, target, t = rays(32768, 64, 3)
         ve = positional_encoding(vd, tcfg.nf_views).contiguous()
         args = (pt, o, d, ve, z, dist, None, True, t)
@@ -134,8 +179,7 @@ def main() -> int:
         ve = positional_encoding(vd, tcfg.nf_views).contiguous()
         args = (pt, o, d, ve, z, dist, noise, target, True, 1.0 / 1500, t)
         res, grads = b1.render_loss(*args)
-        out[f"render_loss[tnerf,S=64] {tag}"] = {"sha256": digest(list(res) + list(grads)),
-                                                 "ms": timed(lambda: b1.render_loss(*args))}
+        out[f"render_loss[tnerf,S=64] {tag}"] = train(list(res), list(grads), timed(lambda: b1.render_loss(*args)))
         # D-NeRF (its main paths' shapes): B3's pts mode at the serving chunk, B5 at
         # 500 x 192, B6 forward at the serving chunk's fine rows and forward
         # with backward at the TV pair's 2 x 500 x 192 rows
@@ -156,13 +200,20 @@ def main() -> int:
         ve = positional_encoding(vd, dcfg.nf_views).contiguous()
         args = (pc, pts, ve, z, dist, noise, target, True, 1.0 / 1500)
         res, grads, dpts = b1.render_loss_pts(*args)
-        out[f"render_loss[pts,S=192] {tag}"] = {"sha256": digest(list(res) + list(grads) + [dpts]),
-                                                "ms": timed(lambda: b1.render_loss_pts(*args))}
+        out[f"render_loss[pts,S=192] {tag}"] = train(list(res), list(grads) + [dpts],
+                                                     timed(lambda: b1.render_loss_pts(*args)))
         pair, t2 = torch.cat([pts, pts]).contiguous(), torch.cat([t, torch.full_like(t, 0.41)]).contiguous()
         cot = torch.randn(pair.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
-        dx, grads = b6.time_net_fwd_bwd(pt6, pair, t2, cot)
-        out[f"time_net+bwd {tag}"] = {"sha256": digest([dx, *grads]),
-                                      "ms": timed(lambda: b6.time_net_fwd_bwd(pt6, pair, t2, cot))}
+        out[f"time_net+bwd {tag}"] = b6_train(pt6, pair, t2, cot)
+        # B6 at MultiRes level 0's widths (Lx 20, Lt 8: 144 input rows), one
+        # phase-1 step's 500 x 64 rows
+        m0 = DirectTemporalNeRF(DNeRFConfig(multires=20, multires_time=8, multires_views=20), device=dev,
+                                generator=torch.Generator().manual_seed(14))
+        pm0 = b6.pack_time_params(m0.state_dict(), m0.cfg, dtype)
+        o, d, vd, z, dist, noise, target, t = rays(500, 64, 15)
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
+        cot = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(16), device=dev)
+        out[f"time_net+bwd[multires] {tag}"] = b6_train(pm0, pts, t, cot)
         # B7 (ReLU) at the vanilla widths (63 / 27 columns): forward only at a
         # mesh tile's 204,800 rows, train mode with the backward (and demb) at
         # 65,536 rows; at MultiRes level 0's widths (123 / 123) at 32,000 rows
@@ -175,8 +226,8 @@ def main() -> int:
             vemb = torch.rand((rows, cfg7.input_ch_views), generator=g7, device=dev) * 2 - 1
             gr7 = torch.randn((rows, 4), generator=g7, device=dev)
             res7 = b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False)
-            out[f"{name}+bwd {tag}"] = {"sha256": digest([res7[0], *res7[1], res7[2]]),
-                                        "ms": timed(lambda: b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False))}
+            out[f"{name}+bwd {tag}"] = train([res7[0]], [*res7[1], res7[2]],
+                                             timed(lambda: b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False)))
             if name == "trunk[multires]":  # forward only at the wide pads
                 out[f"trunk[multires] {tag}"] = {"sha256": digest([b7.trunk(p7, emb, vemb)]),
                                                  "ms": timed(lambda: b7.trunk(p7, emb, vemb))}
@@ -191,14 +242,14 @@ def main() -> int:
             vemb = torch.rand((32000, pt7.input_ch_views), generator=g7, device=dev) * 2 - 1
             gr7 = torch.randn((32000, 4), generator=g7, device=dev)
             res7 = b7.trunk_fwd_bwd(pt7, emb, vemb, gr7, False, False)
-            out[f"trunk[tnerf]+bwd {tag}"] = {"sha256": digest([res7[0], *res7[1]]),
-                                              "ms": timed(lambda: b7.trunk_fwd_bwd(pt7, emb, vemb, gr7, False, False))}
+            out[f"trunk[tnerf]+bwd {tag}"] = train([res7[0]], list(res7[1]),
+                                                   timed(lambda: b7.trunk_fwd_bwd(pt7, emb, vemb, gr7, False, False)))
             p8 = b7.pack_trunk_params(vsd, vcfg, dtype)
             pts = torch.rand((32000, 3), generator=g7, device=dev) * 4 - 2
             vd = torch.nn.functional.normalize(torch.randn((32000, 3), generator=g7, device=dev), dim=-1)
             res8 = b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)
-            out[f"trunk[raw]+bwd {tag}"] = {"sha256": digest([res8[0], *res8[1], res8[2], res8[3]]),
-                                            "ms": timed(lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True))}
+            out[f"trunk[raw]+bwd {tag}"] = train([res8[0]], [*res8[1], res8[2], res8[3]],
+                                                 timed(lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)))
             # B8 forward only at a mesh tile: 2,048 points x 100 directions
             g8 = torch.Generator(device=dev).manual_seed(13)
             tile = (torch.rand((2048, 3), generator=g8, device=dev) * 4 - 2)[None].expand(100, 2048, 3)
@@ -218,8 +269,8 @@ def main() -> int:
                 gct = torch.randn((1024, 5), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
                 args9 = (p9, pts, ve, z, dist, noise, gct, True)
                 res9, g9, dp9 = b1.render_loss_ext(*args9)
-                out[f"render_loss[ext,{name},S=64] {tag}"] = {"sha256": digest(list(res9) + list(g9) + [dp9]),
-                                                              "ms": timed(lambda: b1.render_loss_ext(*args9))}
+                out[f"render_loss[ext,{name},S=64] {tag}"] = train(list(res9), list(g9) + [dp9],
+                                                                   timed(lambda: b1.render_loss_ext(*args9)))
                 if name == "wide":
                     o, d, vd, z, dist, noise, target, t = rays(32768, 64, 40)
                     pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
@@ -236,8 +287,8 @@ def main() -> int:
                     dx11 = b6._launch_fwd(t11, pts, t, sc)
                     g11 = cot.reshape(M, 3).contiguous()
                     res11 = b6._launch_bwd_din(t11, pts, t, g11, sc)
-                    out[f"time_net[pts,bwd] {tag}"] = {"sha256": digest([dx11, *res11[0], res11[1], res11[2]]),
-                                                       "ms": timed(lambda: b6._launch_bwd_din(t11, pts, t, g11, sc))}
+                    out[f"time_net[pts,bwd] {tag}"] = train([dx11], [*res11[0], res11[1], res11[2]],
+                                                            timed(lambda: b6._launch_bwd_din(t11, pts, t, g11, sc)))
                     del sc
         torch.cuda.empty_cache()
 

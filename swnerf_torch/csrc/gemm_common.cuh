@@ -9,15 +9,20 @@
 // reduce_kernel adds in split order: no atomics, so two launches on the same
 // inputs give bit-equal gradients. dH = dZ W^T runs row-parallel with the
 // activation's derivative and the rounding to the operand type (or, for the
-// input cotangent of B5, an fp32 store or accumulate) in its epilogue.
+// input cotangent of B5, an fp32 store or accumulate) in its epilogue. Under
+// the sweeps' TC switch (bf16 B1, and B6 without input cotangents) the two
+// large products of each layer run on the tensor cores instead
+// (tc_gemm.cuh: tc_reduce, tc_act), with the same split reduction.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "mlp_common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -231,6 +236,46 @@ int colsum(const float* src, long long ld, int ncol, long long rows, float* part
   return static_cast<int>(cudaGetLastError());
 }
 
+// gemm_reduce on the tensor cores (bf16; tc_gemm.cuh::sweep_dw_kernel):
+// dW = X^T dZ for the M weight rows, X [K][ldx] (columns < mx read), dZ
+// [K][ldz] N wide (64, 128 or 256); with bias the row of ones' product
+// (dZ's column sums) after them, with extra the column N of dZ as one more
+// output column. Split so that one wave fills the card, at most cap
+// partial floats; then reduce_kernel as gemm_reduce's.
+template <typename T>
+int tc_reduce(const T* x, long long ldx, int mx, int M, const T* z, long long ldz, int N, long long K, bool bias,
+              bool extra, float* part, size_t cap, Region ra, Region rb, cudaStream_t st) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core sweep is bf16 only");
+  const int Mr = M + (bias ? 1 : 0), Nr = N + (extra ? 1 : 0);
+  const int mblocks = ceil_div(M, 128);
+  int splits = std::max(1, std::min({tc::grid_for(1LL << 30) / mblocks, (int)(cap / ((size_t)Mr * Nr)),
+                                     ceil_div(K, tc::SWEEP_KT)}));
+  tc::DwArgs g{x, ldx, mx, z, ldz, M, K, 0, bias ? 1 : 0, extra ? 1 : 0, part};
+  g.kchunk = (long long)ceil_div(ceil_div(K, splits), tc::SWEEP_KT) * tc::SWEEP_KT;
+  splits = ceil_div(K, g.kchunk);
+  SWNERF_CHECK(N == 256   ? tc::dw_launch<256>(g, splits, st)
+               : N == 128 ? tc::dw_launch<128>(g, splits, st)
+               : N == 64  ? tc::dw_launch<64>(g, splits, st)
+                          : cudaErrorInvalidValue);
+  reduce_kernel<<<ceil_div((long long)Mr * Nr, 256), 256, 0, st>>>(part, splits, Mr, Nr, M, N, ra, rb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gemm_act on the tensor cores (bf16, ReLU; tc_gemm.cuh::sweep_dh_kernel):
+// c = q(([dz w^T](m, n) + u[m su] v[n]) * [mask(m, n) > 0]) over P rows, dz
+// [P][lda] K wide, w the packed [N][K] matrix; mask and u nullable.
+template <typename T>
+int tc_act(const T* dz, long long lda, const T* w, int K, int N, long long P, const T* mask, long long ldm, const T* u,
+           long long su, const T* v, T* c, long long ldc, cudaStream_t st) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core sweep is bf16 only");
+  const tc::DhArgs g{dz, lda, w, P, mask, ldm, u, su, v, c, ldc};
+  if (N == 256 && K == 256) return static_cast<int>(tc::dh_launch<256, 256>(g, st));
+  if (N == 256 && K == 128) return static_cast<int>(tc::dh_launch<256, 128>(g, st));
+  if (N == 128 && K == 128) return static_cast<int>(tc::dh_launch<128, 128>(g, st));
+  if (N == 128 && K == 64) return static_cast<int>(tc::dh_launch<128, 64>(g, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 GemmArgs gemm_args(const void* A, long long sam, long long sat, const void* B, long long sbt, long long sbn, int M,
                    int N, int K) {
   GemmArgs g{};
@@ -270,18 +315,26 @@ size_t trunk_offsets(int D, int skip, int cin_pad, int W, size_t* off_w, size_t*
 // spilled input [P][CIN] (cin live columns, then the ones); h(i) layer i's
 // spilled output [P][W + PADC]. With demb (B5), the input cotangent over the
 // cin live columns, fp32 [P][cin]: dz_{skip+1} W_emb^T, then + dz_0 W_0^T.
-template <typename T, bool ELU, typename H>
+// TC (bf16, ReLU, no demb): dW and dH on the tensor cores (tc_reduce,
+// tc_act), the bias rows as dz's column sums.
+template <typename T, bool ELU, typename H, bool TC = false>
 int trunk_reverse(const T* wts, const size_t* off_w, size_t off_wemb, const T* emb, int CIN, int cin, H h, T* const* dz,
                   int D, int skip, int W, long long P, float* gw, float* gb, float* part, float* demb,
                   cudaStream_t st) {
   const int LDW = W + PADC;
   const Region none{nullptr, 0, nullptr};
+  if (TC && (ELU || demb)) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = D - 1; i >= 0; --i) {
     const T* dzi = dz[i & 1];
     if (i == 0 || i == skip + 1) {  // embedding rows, with the bias row
       const size_t off = i == 0 ? off_w[0] : off_wemb;
-      SWNERF_RUN(gemm_reduce<T>(gemm_args(emb, 1, CIN, dzi, W, 1, cin + 1, W, (int)P), part, cin, W,
-                                Region{gw + off, W, gb + (size_t)i * W}, none, st));
+      const Region out{gw + off, W, gb + (size_t)i * W};
+      if constexpr (TC) {
+        SWNERF_RUN(tc_reduce<T>(emb, CIN, CIN, cin, dzi, W, W, P, true, false, part, part_floats(W), out, none, st));
+      } else {
+        SWNERF_RUN(gemm_reduce<T>(gemm_args(emb, 1, CIN, dzi, W, 1, cin + 1, W, (int)P), part, cin, W, out, none,
+                                  st));
+      }
       if (demb) {  // d emb = dz W_emb^T over the live columns; W_emb is [CIN][W]
         GemmArgs g = gemm_args(dzi, W, 1, wts + off, 1, W, (int)P, cin, W);
         g.C = demb;
@@ -291,15 +344,22 @@ int trunk_reverse(const T* wts, const size_t* off_w, size_t off_wemb, const T* e
     }
     if (i > 0) {
       const bool bias_here = i != skip + 1;
-      SWNERF_RUN(gemm_reduce<T>(gemm_args(h(i - 1), 1, LDW, dzi, W, 1, bias_here ? W + 1 : W, W, (int)P), part,
-                                W, W, Region{gw + off_w[i], W, bias_here ? gb + (size_t)i * W : nullptr}, none,
+      const Region out{gw + off_w[i], W, bias_here ? gb + (size_t)i * W : nullptr};
+      if constexpr (TC) {
+        SWNERF_RUN(tc_reduce<T>(h(i - 1), LDW, W, W, dzi, W, W, P, bias_here, false, part, part_floats(W), out, none,
                                 st));
-      GemmArgs g = gemm_args(dzi, W, 1, wts + off_w[i], 1, W, (int)P, W, W);
-      g.mask = h(i - 1);
-      g.ldm = LDW;
-      g.C = dz[(i - 1) & 1];
-      g.ldc = W;
-      SWNERF_RUN((gemm_act<T, ELU>(g, st)));
+        SWNERF_RUN(tc_act<T>(dzi, W, wts + off_w[i], W, W, P, h(i - 1), LDW, nullptr, 0, nullptr, dz[(i - 1) & 1], W,
+                             st));
+      } else {
+        SWNERF_RUN(gemm_reduce<T>(gemm_args(h(i - 1), 1, LDW, dzi, W, 1, bias_here ? W + 1 : W, W, (int)P), part,
+                                  W, W, out, none, st));
+        GemmArgs g = gemm_args(dzi, W, 1, wts + off_w[i], 1, W, (int)P, W, W);
+        g.mask = h(i - 1);
+        g.ldm = LDW;
+        g.C = dz[(i - 1) & 1];
+        g.ldc = W;
+        SWNERF_RUN((gemm_act<T, ELU>(g, st)));
+      }
     }
   }
   return 0;
@@ -353,8 +413,10 @@ struct FieldTape {
 // next to d sigma, the feature + alpha product, then the trunk
 // (trunk_reverse). gw / gb are the packed fp32 gradients (zeroed by the
 // caller); demb [P][cin] (B5, B7) and dvemb [P][cv] (B7) are the input
-// cotangents in fp32, formed where not null.
-template <typename T, int W, Act ACT, typename H>
+// cotangents in fp32, formed where not null. TC (bf16 B1): the view layer's
+// two dW, d feat, the feature + alpha dW (its d sigma column and bias row
+// beside the product) and dz_{D-1} on the tensor cores, then the trunk's.
+template <typename T, int W, Act ACT, typename H, bool TC = false>
 int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int cv, long long P,
                   const FieldTape<T, H>& tp, float* gw, float* gb, float* demb, float* dvemb, cudaStream_t st) {
   constexpr bool ELU = ACT == Act::Elu;
@@ -370,6 +432,7 @@ int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int 
   float* gb_rgb = gb_views + WH;
   float* gb_alpha = gb_rgb + 3;
   const Region none{nullptr, 0, nullptr};
+  if (TC && (ELU || demb || dvemb)) return static_cast<int>(cudaErrorInvalidValue);
 
   // rgb head and view layer
   head_bwd_kernel<T, WH, ACT><<<ceil_div(P * WH, 256), 256, 0, st>>>(tp.gq, tp.hv, LDH, wts + off_rgb, P, tp.dhv32,
@@ -379,10 +442,17 @@ int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int 
                             Region{gw + off_rgb, 3, nullptr}, none, st));
   SWNERF_RUN(colsum(tp.graw, 4, 3, P, tp.part, gb_rgb, st));
   SWNERF_RUN(colsum(tp.dhv32, WH, WH, P, tp.part, gb_views, st));
-  SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.feat, 1, LDW, tp.dhv_c, WH, 1, W, WH, (int)P), tp.part, W, WH,
+  if constexpr (TC) {
+    SWNERF_RUN(tc_reduce<T>(tp.feat, LDW, W, W, tp.dhv_c, WH, WH, P, false, false, tp.part, part_floats(W),
                             Region{gw + off_vf, WH, nullptr}, none, st));
-  SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.vemb, 1, CVP, tp.dhv_c, WH, 1, cv, WH, (int)P), tp.part, cv, WH,
+    SWNERF_RUN(tc_reduce<T>(tp.vemb, CVP, CVP, cv, tp.dhv_c, WH, WH, P, false, false, tp.part, part_floats(W),
                             Region{gw + off_vv, WH, nullptr}, none, st));
+  } else {
+    SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.feat, 1, LDW, tp.dhv_c, WH, 1, W, WH, (int)P), tp.part, W, WH,
+                              Region{gw + off_vf, WH, nullptr}, none, st));
+    SWNERF_RUN(gemm_reduce<T>(gemm_args(tp.vemb, 1, CVP, tp.dhv_c, WH, 1, cv, WH, (int)P), tp.part, cv, WH,
+                              Region{gw + off_vv, WH, nullptr}, none, st));
+  }
   if (dvemb) {  // d vemb = dhv W_vv^T over the live columns; W_vv is [CVP][W/2]
     GemmArgs g = gemm_args(tp.dhv_c, WH, 1, wts + off_vv, 1, WH, (int)P, cv, WH);
     g.C = dvemb;
@@ -392,6 +462,16 @@ int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int 
 
   // d feat = q(dhv @ W_vf^T) next to the d sigma column, then the feature +
   // alpha product's dW (its ones row gives both biases)
+  if constexpr (TC) {
+    SWNERF_RUN(tc_act<T>(tp.dhv_c, WH, wts + off_vf, WH, W, P, nullptr, 0, nullptr, 0, nullptr, tp.dfa, LDW, st));
+    SWNERF_RUN(tc_reduce<T>(tp.h(D - 1), LDW, W, W, tp.dfa, LDW, W, P, true, true, tp.part, part_floats(W),
+                            Region{gw + off_feat, W, gb_feat}, Region{gw + off_alpha, 1, gb_alpha}, st));
+    // dz_{D-1} = q((dfeat @ W_feat^T + dsigma * w_alpha^T) * [h_{D-1} > 0])
+    SWNERF_RUN(tc_act<T>(tp.dfa, LDW, wts + off_feat, W, W, P, tp.h(D - 1), LDW, tp.dfa + W, LDW, wts + off_alpha,
+                         tp.dz[(D - 1) & 1], W, st));
+    return trunk_reverse<T, ELU, H, TC>(wts, off_w, off_wemb, tp.emb, CIN, cin, tp.h, tp.dz, D, skip, W, P, gw, gb,
+                                        tp.part, demb, st);
+  }
   {
     GemmArgs g = gemm_args(tp.dhv_c, WH, 1, wts + off_vf, 1, WH, (int)P, W, WH);
     g.C = tp.dfa;

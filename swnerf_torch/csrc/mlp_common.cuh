@@ -106,14 +106,18 @@ template <> struct Op<__nv_bfloat16> {
 // Dynamic shared memory of one block of the SIMT render body (render_pass.cu's
 // forward, render_loss.cu's train-mode forward), as both launchers size it:
 // LANES floats per sample of the block's rays (4: the raw lanes; 5 in train
-// mode, with the log-transmittances), the reduction buffer, and the tiles:
-// two activation buffers, the embeddings and the weight tile, CH rows + pad.
+// mode, with the log-transmittances, whose run is padded to a multiple of 4
+// floats so the tiles after it stay 16-byte aligned), the reduction buffer,
+// and the tiles: two activation buffers, the embeddings and the weight
+// tile, CH rows + pad.
 constexpr size_t SMEM_OPTIN = 232448;  // bytes a block may opt into on Hopper
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
 template <typename T, int W, typename A, int LANES>
 size_t render_smem(int S) {
   const int rays_per_block = S < CH ? CH / S : 1;
-  return sizeof(float) * ((size_t)rays_per_block * S * LANES + NRED) +
+  return sizeof(float) * ((size_t)rays_per_block * S * 4 + (size_t)(LANES - 4) * pad4(rays_per_block * S) + NRED) +
          sizeof(T) * ((size_t)(2 * W + A::CIN + A::CV) * Op<T>::LDA + KT * W);
 }
 

@@ -52,14 +52,17 @@
 //  2. gemm_common.cuh::field_reverse (shared with B7, trunk.cu), from the
 //     raw cotangent: head_bwd_kernel, d hv through the rgb head and the view
 //     layer's activation;
-//  3. gemm_kernel, per layer from the top: dH = dZ W^T with the activation's
-//     derivative
+//  3. per layer from the top: dH = dZ W^T with the activation's derivative
 //     and the rounding to the operand type in its epilogue (row-parallel over
 //     samples), and dW = X^T dZ as partial sums over a fixed split of the
 //     samples. reduce_kernel adds the partials in split order and scatters
 //     them into the packed gradient buffers; colsum_kernel does the same for
 //     the fp32 bias sums of the heads. No atomics: two launches on the same
-//     inputs give bit-equal gradients.
+//     inputs give bit-equal gradients. B1 in bf16 runs both products of
+//     every layer, the view layer's dW and d feat on the tensor cores
+//     (tc_gemm.cuh: bf16 wgmma into fp32, dW with both operands MN-major;
+//     the bias rows and the d sigma column in fp32 beside the product); the
+//     fp32 parity mode, B4, B5 and B9 keep gemm_kernel's SIMT product.
 //
 // Operands are fp32 (parity mode) or bf16, rounded where the plain twin and
 // _trunk_reverse round them (embedding, activations, dz, g_rgb, dhv, dfa);
@@ -71,8 +74,11 @@
 // step toward zero (tc_rounding.py), B9's bf16 gradients left the twin's
 // bar at MultiRes level 0, and an unbiased fold of each step did not keep
 // them inside it on every seeded case; this body shares the twin's fp32
-// order up to the skip layer. B1, B5 and B9's backward on the tensor cores
-// are later work. No --use_fast_math (ops/kernels/build.py):
+// order up to the skip layer. So every forward here stays SIMT, and only
+// B1's reverse sweep moved to the tensor cores (its masks come from the
+// stored activations, which that product does not rewrite); B4's, B5's and
+// B9's backward on the tensor cores are later work. No --use_fast_math
+// (ops/kernels/build.py):
 // sinf/cosf stay accurate at the 2^9-frequency arguments, and the
 // transmittance floor max(1 - alpha + 1e-10, 1e-10), which is also the
 // divisor of d alpha, is not folded.
@@ -81,6 +87,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "gemm_common.cuh"
 #include "mlp_common.cuh"
@@ -123,8 +130,8 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
   const int cin = A::cin(L);
 
   float* raw_s = reinterpret_cast<float*>(smem_raw);  // [rays_per_block * S][4]
-  float* lt_s = raw_s + rays_per_block * S * 4;        // [rays_per_block * S]
-  float* red = lt_s + rays_per_block * S;              // [4][CH][3]
+  float* lt_s = raw_s + rays_per_block * S * 4;        // [rays_per_block * S], padded to 4 (render_smem)
+  float* red = lt_s + pad4(rays_per_block * S);        // [4][CH][3]
   T* actA = reinterpret_cast<T*>(red + NRED);          // [W][LDA]
   T* actB = actA + W * LDA;                            // [W][LDA]
   T* emb = actB + W * LDA;                             // [A::CIN][LDA]
@@ -386,9 +393,12 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   SWNERF_CHECK(cudaGetLastError());
 
   // 2-4. the heads, d feat next to d sigma, the trunk (with B5's input
-  //      cotangent): gemm_common.cuh::field_reverse
+  //      cotangent): gemm_common.cuh::field_reverse; bf16 B1's large
+  //      products on the tensor cores (TC)
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value && std::is_same<A, Vanilla>::value && !PTS && !EXT;
   FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, sc.graw, dz, dhv_c, dhv32, part};
-  SWNERF_RUN((field_reverse<T, W, A::ACT>(wts, D, skip, CIN, cin, A::CV, cv, P, tape, gw, gb, demb, nullptr, st)));
+  SWNERF_RUN((field_reverse<T, W, A::ACT, decltype(hl), TC>(wts, D, skip, CIN, cin, A::CV, cv, P, tape, gw, gb, demb,
+                                                            nullptr, st)));
   if (PTS) {  // 5. B5, B9: through the encode to the positions
     encode_bwd_kernel<<<ceil_div(P * 3, 256), 256, 0, st>>>(origins, demb, cin, L, P, dpts);
     SWNERF_CHECK(cudaGetLastError());

@@ -48,10 +48,14 @@
 //     dW_out = h_{D-1}^T q(g), db_out = sum(g) in fp32 (as _trunk_backward's
 //     jnp.sum(g)), dz_{D-1} = q((q(g) W_out^T) * [h_{D-1} > 0]), then B1's
 //     trunk sweep (gemm_common.cuh::trunk_reverse): fixed-order dW splits,
-//     no atomics, bit-equal repeats.
+//     no atomics, bit-equal repeats. In bf16 each layer's dW and dH run on
+//     the tensor cores (tc_gemm.cuh; the bias rows as dz's fp32 column
+//     sums); the 3-wide head's products, the fp32 parity mode and B11's
+//     backward (time_net_bwd_din_launch, with the input cotangent) keep
+//     gemm_kernel's SIMT product.
 // Operands fp32 (parity mode) or bf16, rounded where the plain twin rounds
 // (the embedding, each layer's output, q(g), every dz); products accumulate
-// in fp32; gradients are fp32. The backward is SIMT. No
+// in fp32; gradients are fp32. No
 // --use_fast_math (ops/kernels/build.py): at Lx = 20 the encode's arguments
 // reach 2^19 |x|, where sinf/cosf take their slow, exact reduction path.
 
@@ -59,6 +63,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "gemm_common.cuh"
 #include "mlp_common.cuh"
@@ -516,8 +521,14 @@ int bwd(int CIN, int W, const void* wts_v, int D, int skip, int Lx, int Lt, int 
     SWNERF_RUN((gemm_act<T, false>(a, st)));
   }
   const int cin = cin_of(Lx, Lt);
-  SWNERF_RUN((trunk_reverse<T, false>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, sc.dz, D, skip, W, M, gw, gb,
-                                      sc.part, din ? din->demb : nullptr, st)));
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  if (BF16 && din == nullptr) {  // the tensor-core sweep (tc_gemm.cuh)
+    SWNERF_RUN((trunk_reverse<T, false, decltype(hl), BF16>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, sc.dz, D, skip,
+                                                            W, M, gw, gb, sc.part, nullptr, st)));
+  } else {
+    SWNERF_RUN((trunk_reverse<T, false>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, sc.dz, D, skip, W, M, gw, gb,
+                                        sc.part, din ? din->demb : nullptr, st)));
+  }
   if (din) {
     encode_xt_bwd_kernel<<<ceil_div((long long)M * 4, 256), 256, 0, st>>>(pts, times, din->demb, cin, Lx, Lt, S, M,
                                                                         dpts, din->dt_rows);

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """How the bf16 tensor-core products round, on the card, and what that does
-to B9's gradients.
+to B9's and B1's gradients.
 
 Models the fp32 sums of a bf16 product as the tensor core's k16 steps, each
 the exact sum of 16 products (float64 here) added to the accumulator and
-rounded to fp32: ``rz`` rounds each step toward zero, ``rn`` to nearest;
+rounded to fp32 (swnerf_torch/ops/kernels/tc_model.py, which the CPU tests
+share): ``rz`` rounds each step toward zero, ``rn`` to nearest;
 ``fold`` takes each step from zero, toward zero, then the even of it and
 its neighbour away from zero, and adds it to an fp32 accumulator to
 nearest (an unbiased fold); ``exact`` sums in float64. On MultiRes fields
@@ -21,7 +22,17 @@ nearest (an unbiased fold); ``exact`` sums in float64. On MultiRes fields
   through the twin's backward, which is what B9 would give on that
   product.
 
+With ``--backward``, B1 instead (the vanilla flagship, D=8, W=256, seeded
+weights, S=64 and S=192; its bf16 reverse sweep runs on the tensor cores,
+csrc/tc_gemm.cuh): the gradients' distance from the bf16 twin of B1 on the
+card, of each model with only the backward's products on it (the twin's
+forward, tc_model.sweep_field), and of each model with the forward's
+products on it too (tc_model.field_forward_model, then the sweep). That
+last number says whether B1's forward can move onto the tensor cores under
+the 1e-2 bar.
+
     python3 tc_rounding.py [--levels level0 level1 identity] [--rays 500]
+    python3 tc_rounding.py --backward [--rays 500]
 
 Needs a CUDA device; builds the kernels at first use.
 """
@@ -45,10 +56,10 @@ def main() -> int:
     ap.add_argument("--levels", nargs="+", default=list(LEVELS), choices=list(LEVELS))
     ap.add_argument("--rays", type=int, default=500)
     ap.add_argument("--samples", type=int, default=64)
+    ap.add_argument("--backward", action="store_true", help="B1 with the reverse sweep on the tensor cores")
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("tc_rounding: needs a CUDA device", file=sys.stderr)
@@ -58,6 +69,7 @@ def main() -> int:
     from swnerf_torch.ops.kernels import render_loss as b1
     from swnerf_torch.ops.kernels import render_pass as b3
     from swnerf_torch.ops.kernels import time_net as b6
+    from swnerf_torch.ops.kernels.tc_model import composite, field_forward_model, product, rnd32
     from swnerf_torch.render.fused_eval import canonical_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -104,73 +116,9 @@ def main() -> int:
               .double() for k in range(packed.D)]
         return packed, emb, hs
 
-    def rnd32(x, mode):
-        r = x.float()
-        if mode == "rz":
-            r = torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
-        return r.double()
-
-    def ulp32(x):
-        a = x.abs().float()
-        u = torch.ldexp(torch.ones_like(a), (torch.frexp(a).exponent - 24).to(torch.int32)).double()
-        return torch.where(a > 0, u, torch.zeros_like(u))
-
-    def product(X, Wm, acc, mode):
-        """acc (+)= X Wm, K padded to whole 64-row atoms as the image pads it."""
-        K = -(-X.shape[1] // 64) * 64
-        X, Wm = F.pad(X, (0, K - X.shape[1])), F.pad(Wm, (0, 0, 0, K - Wm.shape[0]))
-        if mode == "exact":
-            return X @ Wm if acc is None else acc + X @ Wm
-        for k0 in range(0, K, 16):
-            g = X[:, k0:k0 + 16] @ Wm[k0:k0 + 16]
-            if mode == "fold":
-                t = rnd32(g, "rz")
-                t = rnd32(t + torch.sign(t) * 0.5 * ulp32(t), "rn")  # the tie goes to the even neighbour
-                acc = t if acc is None else rnd32(acc + t, "rn")
-            else:
-                acc = rnd32(g if acc is None else acc + g, mode)
-        return acc
-
-    def model_forward(packed, emb, vemb, mode):
-        m = {k: v.double() for k, v in packed.matrices().items()}
-        bv = {k: v.double() for k, v in packed.bias_vectors().items()}
-
-        def fin(zz, b):
-            return zz + b if mode == "exact" else rnd32(zz + b, "rn")
-
-        def q(x):
-            return x.to(torch.bfloat16).double()
-
-        hs, h = [], emb
-        for i in range(packed.D):
-            first = product(emb, m[f"pts{i}_emb"], None, mode) if i == packed.skip + 1 else None
-            h = q(torch.relu(fin(product(emb if i == 0 else h, m[f"pts{i}"], first, mode), bv[f"pts{i}"])))
-            hs.append(h)
-        feat = q(fin(product(h, m["feature"], None, mode), bv["feature"]))
-        sigma = fin(product(h, m["alpha"], None, mode), bv["alpha"])[:, 0]
-        hv = q(torch.relu(fin(product(vemb, m["views_emb"], product(feat, m["views_feat"], None, mode), mode),
-                              bv["views"])))
-        return hs, feat, hv, sigma, fin(product(hv, m["rgb"], None, mode), bv["rgb"])
-
-    def composite(sigma, logits, args, N, S):
-        """The twin's composite in float64: rgb_map (white) and the raw cotangent."""
-        _, _, z, dist, noise, gct = (x.double() for x in args)
-        sg = sigma.reshape(N, S) + noise
-        rgb = torch.sigmoid(logits).reshape(N, S, 3)
-        ex = torch.exp(-torch.relu(sg) * dist)
-        alpha = 1.0 - ex
-        safe = torch.maximum(1.0 - alpha + 1e-10, torch.full_like(alpha, 1e-10))
-        trans = torch.exp(torch.cat([torch.zeros_like(sg[:, :1]), torch.cumsum(torch.log(safe), -1)[:, :-1]], -1))
-        w = alpha * trans
-        rgb_map = (w[..., None] * rgb).sum(-2) + (1.0 - w.sum(-1))[:, None]
-        g = gct[:, :3]
-        dldw = (g[:, None, :] * rgb).sum(-1) + (gct[:, 3] - g.sum(-1))[:, None] + gct[:, 4:5] * z
-        excl = torch.flip(torch.cumsum(torch.flip(dldw * w, [-1]), -1), [-1]) - dldw * w
-        dsig = torch.where(sg > 0, (dldw * trans - excl / safe) * dist * ex, torch.zeros_like(sg))
-        graw = torch.cat([w[..., None] * g[:, None, :] * rgb * (1.0 - rgb), dsig[..., None]], -1).reshape(N * S, 4)
-        return rgb_map, graw
-
     print(f"tc_rounding: {torch.cuda.get_device_name(0)}, {a.rays} rays x {a.samples} samples")
+    if a.backward:
+        return backward_b1(a.rays, dev)
     for level in a.levels:
         model, packed, args = case(level, a.rays, a.samples)
         pts, ve, z, dist, noise, gct = args
@@ -208,16 +156,64 @@ def main() -> int:
         print(f"[{level}] gradients and d pts, max rel L2 from the bf16 twin: B9 {dist_to_twin(names(*grads[1:])):.3e}"
               f"; the twin summed on the CPU {dist_to_twin(names(gc, dc)):.3e}")
         for mode in ("rz", "rn", "fold", "exact"):
-            hs, feat, hv, sigma, logits = model_forward(packed, emb, vemb, mode)
-            no_noise = (pts, ve, z, dist, torch.zeros_like(noise), gct)
-            rgb_map, _ = composite(sigma, logits, no_noise, N, S)
-            _, graw = composite(sigma, logits, args, N, S)
+            hs, feat, hv, sigma, logits = field_forward_model(packed, emb, vemb, mode)
+            rgb_map, _ = composite(sigma, logits, z, dist, None, True, gct=gct)
+            _, graw = composite(sigma, logits, z, dist, noise, True, gct=gct)
             g2, demb, _ = b1.field_reverse_plain(packed, emb.float(), vemb.float(), [h.float() for h in hs],
                                                   feat.float(), hv.float(), graw.float(), need_demb=True)
             d2 = b1.encode_backward(pts.reshape(P, 3), demb, packed.n_freqs).reshape(N, S, 3)
             print(f"[{level}] model {mode:5s}: the serving B3 launch's rgb within "
                   f"{(serve.rgb.double() - rgb_map).abs().max().item():.3e} of its forward; its gradients "
                   f"{dist_to_twin(names(g2, d2)):.3e} from the twin's")
+        torch.cuda.empty_cache()
+    return 0
+
+
+def backward_b1(n: int, dev) -> int:
+    """B1's gradients with the reverse sweep on the tensor cores, on the card
+    and under each model, against the bf16 twin (module docstring)."""
+    import torch
+
+    from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels.tc_model import composite, field_forward_model, sweep_field
+
+    cfg = VanillaNeRFConfig()
+    model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
+    packed = b3.pack_params(model.state_dict(), cfg, torch.bfloat16)
+    for s in (64, 192):
+        g = torch.Generator(device=dev).manual_seed(s)
+        o = torch.randn((n, 3), generator=g, device=dev) * 0.3 + torch.tensor([0.0, 0.0, 4.0], device=dev)
+        d = torch.randn((n, 3), generator=g, device=dev)
+        d[:, 2] = -d[:, 2].abs() - 1.0
+        z = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4 + 2, -1).values.contiguous()
+        dist = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n, 1), 1e10, device=dev)], -1)
+        dist = (dist * torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        ve = positional_encoding(d / torch.linalg.norm(d, dim=-1, keepdim=True), cfg.nf_views).contiguous()
+        noise = torch.randn((n, s), generator=g, device=dev)
+        target = torch.rand((n, 3), generator=g, device=dev)
+        scale = 1.0 / (3 * n)
+        _, twin = b1.render_loss_plain(packed, o, d, ve, z, dist, noise, target, True, scale)
+        twin = b1.unpack_grads(twin, packed)
+
+        def dist_to_twin(grads):
+            got = b1.unpack_grads(tuple(x.float() for x in grads), packed)
+            return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item() for k in twin)
+
+        _, card = b1.render_loss(packed, o, d, ve, z, dist, noise, target, True, scale)
+        line = [f"the card {dist_to_twin(card):.3e}"]
+        fwd = b3.field_forward(packed, o, d, ve, z)
+        args = (z, dist, noise, True, target, scale)
+        _, graw = composite(fwd.sigma, fwd.logits, *args)
+        for mode in ("rz", "rn", "exact"):
+            bwd = sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), mode)
+            hs, feat, hv, sigma, logits = field_forward_model(packed, fwd.emb, fwd.vemb, mode)
+            _, graw_m = composite(sigma, logits, *args)
+            both = sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw_m.float(), mode)
+            line.append(f"model {mode}: backward only {dist_to_twin(bwd):.3e}, forward too {dist_to_twin(both):.3e}")
+        print(f"[B1 S={s}] {n} rays, gradients max rel L2 from the bf16 twin: " + "; ".join(line))
         torch.cuda.empty_cache()
     return 0
 

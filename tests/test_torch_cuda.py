@@ -46,6 +46,11 @@ bars with its recomputed forward bit-equal to the B3 launch, bf16 rel L2
 route's at the phase-2 bars. B10 bit-equal to B2 + torch.sort and to its
 twin; B11 (fused_time_net_pts with input grads) at B6's bars, dx bit-equal
 to B6's forward.
+The reverse sweep's products on the tensor cores (csrc/tc_gemm.cuh: bf16 B1
+and B6's backward without input cotangents) are held by the bf16 bars
+above, at D-NeRF and every MultiRes level's widths, and at ragged shapes
+(rows not a multiple of 128, live input columns not a multiple of 64):
+gradients rel L2 1e-2 of the twin, bit-equal repeats.
 """
 
 import dataclasses
@@ -206,7 +211,7 @@ def _assert_fp32_grads(got, ref32, ref64, ref64p=None):
 @pytest.mark.parametrize(
     "kw", [dict(netdepth=3, netwidth=128, skips=(1,), multires=4, multires_views=2), dict()], ids=["small", "flagship"]
 )
-@pytest.mark.parametrize("n_samples", [8, 64, 192])
+@pytest.mark.parametrize("n_samples", [7, 8, 64, 192])  # 7: rays x samples per block not a multiple of 4
 @pytest.mark.parametrize("white", [True, False])
 def test_b1_fp32_matches_plain(dev, kw, n_samples, white):
     packed, args = _b1_case(dev, kw, 300, n_samples, torch.float32)
@@ -488,7 +493,9 @@ def test_b6_bf16_matches_plain_and_repeats(dev, n_samples):
     cfg, sd, pts, times, _ = _dnerf_case(dev, {}, 500, n_samples)
     packed = b6.pack_time_params(sd, cfg, torch.bfloat16)
     g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    before = launches["time_net[bwd]"]
     dx, (w1, b1_) = b6.time_net_fwd_bwd(packed, pts, times, g)
+    assert launches["time_net[bwd]"] == before + 1
     _, (w2, b2_) = b6.time_net_fwd_bwd(packed, pts, times, g)
     ref = b6.time_net_plain_bwd(packed, pts, times, g)
     torch.cuda.synchronize()
@@ -755,7 +762,7 @@ def test_b6_level_widths_fp32_matches_plain(dev, level):
     _assert_fp32_grads(*(_time_grads(x, packed) for x in (grads, ref, ref64, ref64p)))
 
 
-@pytest.mark.parametrize("level", ["level0", "level1"])
+@pytest.mark.parametrize("level", ["level0", "level1", "identity"])
 def test_b6_level_widths_bf16_matches_plain_and_repeats(dev, level):
     cfg = DNeRFConfig(**MR_LEVELS[level])
     model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(2))
@@ -770,6 +777,42 @@ def test_b6_level_widths_bf16_matches_plain_and_repeats(dev, level):
     rel = _rel_l2(_time_grads((w1, b1_), packed), _time_grads(ref, packed))
     assert max(rel.values()) <= 1e-2, rel
     assert torch.equal(w1, w2) and torch.equal(b1_, b2_)
+
+
+SWEEP_RAGGED = [
+    ("b1", dict(), 37, 7),  # 259 rows; 63 live input columns of 64
+    ("b1", dict(netdepth=3, netwidth=128, skips=(1,), multires=4, multires_views=2), 3, 43),  # W 128: 129 rows
+    ("b1", dict(), 5, 192),  # 960 rows: whole 64-row stages, not whole 128-row tiles
+    ("b6", dict(MR_BASE, multires=20, multires_time=8, multires_views=20), 37, 7),  # 140 of 144 input rows
+    ("b6", dict(MR_BASE, multires=20, multires_time=8, multires_views=20, netwidth=128), 3, 43),
+    ("b6", dict(), 41, 13),  # D-NeRF: 84 of 96 input rows, 533 rows
+    ("b6", dict(MR_BASE, multires=-1, multires_time=-1, multires_views=-1, i_embed=-1), 1, 1),  # one row, 4 columns
+]
+
+
+@pytest.mark.parametrize("kernel, kw, n, s", SWEEP_RAGGED,
+                         ids=["b1-259rows", "b1-w128-129rows", "b1-960rows", "b6-level0-259rows",
+                              "b6-level0-w128-129rows", "b6-dnerf-533rows", "b6-identity-1row"])
+def test_tc_sweep_ragged_shapes(dev, kernel, kw, n, s):
+    """The tensor-core sweep (csrc/tc_gemm.cuh) at row counts that fill no
+    128-row tile or dW stage, and input widths that fill no 64-column atom:
+    bf16 gradients within rel L2 1e-2 of the twin, bit-equal repeats."""
+    if kernel == "b1":
+        packed, args = _b1_case(dev, kw, n, s, torch.bfloat16)
+        _, g1 = b1.render_loss(packed, *args, True, 1.0 / (3 * n))
+        _, g2 = b1.render_loss(packed, *args, True, 1.0 / (3 * n))
+        _, gr = b1.render_loss_plain(packed, *args, True, 1.0 / (3 * n))
+        rel = _rel_l2(b1.unpack_grads(g1, packed), b1.unpack_grads(gr, packed))
+    else:
+        cfg, sd, pts, times, _ = _dnerf_case(dev, kw, n, s)
+        packed = b6.pack_time_params(sd, cfg, torch.bfloat16)
+        g = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+        _, g1 = b6.time_net_fwd_bwd(packed, pts, times, g)
+        _, g2 = b6.time_net_fwd_bwd(packed, pts, times, g)
+        rel = _rel_l2(_time_grads(g1, packed), _time_grads(b6.time_net_plain_bwd(packed, pts, times, g), packed))
+    torch.cuda.synchronize()
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
 
 
 def _mr_pair(dev, level, seed=0, head=1e-3):
