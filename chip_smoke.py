@@ -52,11 +52,16 @@ Phases (each raises on failure; nothing is caught):
      samples), written by the port's writer on the card;
  12. B4 against its twin with the 800000.tar weights (D=8, W=128): forward
      on 4,096 rays of test view 0 at its frame time, S=64 (fp32 rgb/acc atol
-     1e-4, depth rtol 1e-4; bf16 max |drgb| <= 1e-2, mean <= 1e-3); train
-     mode on 500 seeded pixels of a train view, noise std 1 (fp32 sqerr rtol
-     1e-4, gradients rel L2 1e-4 with the float64 fallback of phase 7 on
-     mask ties; bf16 gradients rel L2 1e-2; bit-equal repeats); B4's times at
-     the main paths' shapes;
+     1e-4, depth rtol 1e-4; bf16, on the tensor cores, max |drgb| <= 1e-2,
+     mean <= 1e-3); train mode on 500 seeded pixels of a train view, noise
+     std 1 (fp32 sqerr rtol 1e-4, gradients rel L2 1e-4 with the float64
+     fallback of phase 7 on mask ties; bf16, its reverse sweep on the tensor
+     cores, gradients rel L2 1e-2; bit-equal repeats); B4's times at the main
+     paths' shapes, the train launch's device time by kernel family (its SIMT
+     forward, the sweep's tensor-core products, ...) and the sweep's large
+     products as bf16 torch.matmul calls (as phase 7); the forward beside
+     B3 on a seeded vanilla field of the same width, depth and rows (ReLU,
+     no time columns) and its composite and heads' shares of the cycles;
  13. the kernel T-NeRF step against the eager step, same state and draws:
      fp32 loss rel 1e-5, gradients as in 12; bf16 loss rel 1e-2;
  14. the T-NeRF serving main path: ``run_tnerf --render_only --render_test``
@@ -113,9 +118,10 @@ Phases (each raises on failure; nothing is caught):
      gradients rel L2 1e-2; bit-equal repeats; the forward-only launches
      (the test render's) at the same bars and bit-equal to the train-mode
      ones, but for B7's in bf16 (the tensor cores): at the bf16 raw bar and
-     bit-equal to a repeat; the last 500 rays of the test render's 2.1M-row
+     bit-equal to a repeat; B7's bf16 backward (with demb) runs its sweep on
+     the tensor cores; the last 500 rays of the test render's 2.1M-row
      chunk against the twins at the bf16 bars; then their times at each
-     level's rows, B6's backward at level 0 as in phase 17;
+     level's rows, B6's and B7's backward at level 0 as in phase 17;
  24. one phase-1 step (level 0) and one phase-2 step (all four levels) on
      the kernel route against the plain route, same weights and draws: fp32
      loss rel 1e-5, gradients at phase 17's bar; bf16 loss rel 2e-2;
@@ -129,7 +135,11 @@ Phases (each raises on failure; nothing is caught):
      launched; ms per phase-1 step (per level), per phase-2 step and per
      reconstructed test frame; test frames 0/5/10/15/20 from 000200.tar
      reconstructed by the bf16 kernels within 0.1 dB (mean PSNR) of the fp32
-     plain route, and not equal to it;
+     plain route, and not equal to it; a digest of 000200.tar (every tensor's
+     bytes, the keys in order: two runs on one card print the same one), and
+     the pyramid reconstruction's backward at phase 2's patch sizes bit-equal
+     across two launches (F.interpolate's own, atomic backward: whether its
+     two launches differ, printed);
  26. B7' (the ELU T-NeRF trunk on embedded inputs) against its twin with the
      800000.tar weights on one eager step's rows (500 seeded pixels of a
      train view x 64 jittered samples = 32,000 rows): fp32 raw within 1e-5
@@ -276,7 +286,8 @@ def cuda_ms(fn, reps: int) -> float:
 # of them, printed together before the JSON lines: registers and spills
 # from build.log, TFLOP/s and share of bound per launch, B3's composite and
 # the narrow heads' share of the blocks' cycles, the frames' ms.
-TC_LAUNCHES = ("render_pass[S=64]", "render_pass[S=192]", "render_pass[pts,S=64]", "render_pass[pts,S=192]",
+TC_LAUNCHES = ("render_pass[S=64]", "render_pass[S=192]", "render_pass[tnerf,S=64]", "render_pass[pts,S=64]",
+               "render_pass[pts,S=192]",
                "render_pass[pts,wide]", "time_net", "time_net[multires]", "trunk[mesh]", "trunk[raw,mesh]")
 TC_SUMMARY: dict = {}
 
@@ -722,18 +733,21 @@ def kernel_split(fn, families=SWEEP_FAMILIES):
     return by if sum(by.values()) > 0 else None
 
 
-def sweep_products(W, D, skip, cin_pad, cv_pad=None):
+def sweep_products(W, D, skip, cin_pad, cv_pad=None, demb=False):
     """The reverse sweep's large products, as ("dw", in, out) for dW = X^T
     dZ and ("dh", out, in) for dH = dZ W^T: per trunk layer its dW and
     (above layer 0) its dH, the embedding rows' dW at layer 0 and the skip
-    layer; with cv_pad (B1) first the view layer's two dW, d feat, the
-    feature dW and the top layer's dH."""
+    layer (with demb, B7, also dz W_emb^T there); with cv_pad (B1, B4, B7)
+    first the view layer's two dW, d feat, the feature dW and the top
+    layer's dH."""
     out = []
     if cv_pad is not None:
         out += [("dw", W, W // 2), ("dw", cv_pad, W // 2), ("dh", W // 2, W), ("dw", W, W), ("dh", W, W)]
     for i in range(D - 1, -1, -1):
         if i in (0, skip + 1):
             out.append(("dw", cin_pad, W))
+            if demb:
+                out.append(("dh", W, cin_pad))
         if i > 0:
             out += [("dw", W, W), ("dh", W, W)]
     return out
@@ -1375,15 +1389,17 @@ def phase12_b4(dev, cfg, model, data):
           f"grads max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
     if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
         fail("B4 train bf16: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+    train_ms = cuda_ms(lambda: b1.render_loss(p16, *args, True, scale, t), 20)
     train_row = entry(
         "render_loss[tnerf,S=64]", "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
-        0, diff.max().item(),
-        cuda_ms(lambda: b1.render_loss(p16, *args, True, scale, t), 20),
+        0, diff.max().item(), train_ms,
         cuda_ms(lambda: b1.render_loss_plain(p16, *args, True, scale, t), 5),
         4 * (7 * n + ve.numel() + 3 * z.numel() + 3 * n) + 2 * p16.weights.numel() + 4 * p16.biases.numel()
         + 4 * (4 * n + z.numel()) + 4 * (p16.weights.numel() + p16.biases.numel()),
         2 * b1.train_macs_per_sample(p16) * z.numel(), "bf16",
     )
+    report_sweep("12", "render_loss[tnerf,S=64] bf16", lambda: b1.render_loss(p16, *args, True, scale, t), train_ms,
+                 train_row["bound_ms"], z.numel(), sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), dev)
 
     # forward at the serving path's shape: the first 32,768-ray chunk of test view 0
     rays, _ = frame_rays(dev, data, "test", 0)
@@ -1406,6 +1422,23 @@ def phase12_b4(dev, cfg, model, data):
         4 * (7 * nc + ve.numel() + 2 * z.numel() + 5 * nc + z.numel()) + 2 * p16.weights.numel(),
         2 * p16.macs_per_sample * z.numel(), "bf16",
     )
+    comp, head = tc_shares("render_pass", lambda: b3.render_pass(p16, o, d, ve, z, dist, None, True, t))
+    TC_SUMMARY["render_pass[tnerf,S=64] at the serving chunk"] = (
+        f"composite busy {100 * comp:.2f}% (overlapped with the products), alpha + rgb heads {100 * head:.2f}% "
+        "of the blocks' cycles")
+    # the same body on a seeded vanilla field of the same width and depth
+    # (ReLU, no time columns, 63 input columns: one atom) at the same rows
+    from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+
+    vcfg = VanillaNeRFConfig(netdepth=8, netwidth=128)
+    pv = b3.pack_params(VanillaNeRF(vcfg, device=dev, generator=torch.Generator().manual_seed(0),
+                                    fused=False).state_dict(), vcfg, torch.bfloat16)
+    vms = cuda_ms(lambda: b3.render_pass(pv, o, d, ve, z, dist, None, True), 10)
+    print(f"[12 times] B4 forward (bf16, tensor cores) at the serving chunk: {fwd_row['ms']:.3f} ms "
+          f"({2 * p16.macs_per_sample * z.numel() / fwd_row['ms'] / 1e9:.2f} TFLOP/s); B3 on a vanilla field at the "
+          f"same W=128, D=8 and rows (ReLU, no time columns, {pv.cin} input columns): {vms:.3f} ms "
+          f"({2 * pv.macs_per_sample * z.numel() / vms / 1e9:.2f} TFLOP/s)")
+    del pv
     torch.cuda.empty_cache()
     return {"render_pass": fwd_row, "render_loss": train_row}
 
@@ -2589,6 +2622,10 @@ def phase23_kernels(dev, data):
                     "trunk[multires,bwd]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:446", 0,
                     err16["trunk"], bwd, cuda_ms(lambda: b7.trunk_plain_bwd(c16, e, v, gg), 3),
                     4 * (4 * n_rows + e.numel()) + 2 * nw + 4 * (nw + nb), 2 * c16.bwd_macs_per_row() * n_rows, "bf16")
+                report_sweep("23", "trunk[multires,bwd] bf16 (with demb), level 0",
+                             lambda: b7._launch_bwd(c16, n_rows, gg, sc, True, False), bwd,
+                             rows["trunk[multires,bwd]"]["bound_ms"], n_rows,
+                             sweep_products(c16.W, c16.D, c16.skip, c16.cin_pad, c16.cv_pad, demb=True), dev)
                 # B6's MultiRes rows: its 144-row instantiation at the same
                 # rows; the D-NeRF rows keep the 96-row code at its shapes
                 nw6, nb6 = p16.weights.numel(), p16.biases.numel()
@@ -2885,10 +2922,80 @@ def phase25_train(dev, tmp, data):
         fail(f"the bf16 reconstruction of 000200.tar is {d} dB from the fp32 plain route (> 0.1 dB)")
     if drec.max().item() == 0.0:
         fail("the bf16 and fp32 reconstructions are equal: the 0.1 dB bar saw no bf16 error (saturated frames)")
+    print(f"[25 digest] 000200.tar: {ckpt_digest(exp / '000200.tar')} (sha256 of every tensor's bytes, keys in order; "
+          "000100.tar: " + ckpt_digest(exp / "000100.tar") + ")")
+    pyramid_repeats(dev)
     multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args)
     del states
     torch.cuda.empty_cache()
     return counts
+
+
+def ckpt_digest(path) -> str:
+    """sha256 over a checkpoint's contents: every tensor's dtype, shape and
+    bytes and every other value's repr, walking the keys in sorted order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(key, v):
+        h.update(str(key).encode())
+        if isinstance(v, torch.Tensor):
+            t = v.detach().cpu().contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        elif isinstance(v, dict):
+            for k in sorted(v, key=str):
+                walk(k, v[k])
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(i, x)
+        else:
+            h.update(repr(v).encode())
+
+    walk("", torch.load(str(path), map_location="cpu", weights_only=True))
+    return h.hexdigest()[:16]
+
+
+def pyramid_repeats(dev):
+    """The pyramid reconstruction's backward at phase 2's patch sizes (32,
+    16, 8, 4; ops/pyramid.py's fixed-order backward) launched twice on one
+    seeded cotangent: bit-equal, and the forward bit-equal to F.interpolate's.
+    Beside it, the same with F.interpolate's own backward (atomics), whose
+    two launches may differ: printed, not held."""
+    import torch
+
+    from swnerf_torch.ops import pyramid as tp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    bands = [torch.rand((1, 32 >> l, 32 >> l, 3), generator=g, device=dev) for l in range(4)]
+    ct = torch.randn((1, 32, 32, 3), generator=g, device=dev)
+
+    def grads(resize):
+        saved, tp._resize = tp._resize, resize
+        try:
+            bb = [b.clone().requires_grad_(True) for b in bands]
+            out = tp.reconstruct_from_pyramid(bb)
+            (out * ct).sum().backward()
+            torch.cuda.synchronize()
+            return out.detach(), [b.grad for b in bb]
+        finally:
+            tp._resize = saved
+
+    (o1, g1), (o2, g2) = grads(tp._resize), grads(tp._resize)
+    (o3, g3), (_, g4) = grads(tp._interpolate), grads(tp._interpolate)
+    same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    atomic_same = all(torch.equal(a, b) for a, b in zip(g3, g4))
+    dmax = max((a - b).abs().max().item() for a, b in zip(g1, g3))
+    print(f"[25 pyramid] the reconstruction at phase 2's patches: forward bit-equal to F.interpolate's="
+          f"{torch.equal(o1, o3) and torch.equal(o1, o2)}; fixed-order backward, two launches bit-equal={same}; "
+          f"F.interpolate's own backward, two launches bit-equal={atomic_same}; the two backwards max|d|={dmax:.3e}")
+    if not same or not torch.equal(o1, o3):
+        fail("the pyramid's fixed-order backward differs between two launches, or its forward from F.interpolate's")
+    if dmax > 1e-5:
+        fail(f"the pyramid's fixed-order backward is {dmax} from F.interpolate's (> 1e-5)")
 
 
 def _device_us(evt):
@@ -2939,7 +3046,7 @@ def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
            float(scene.times[img_i]), 1.0, gen)
 
     families = (("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
-                ("B6 backward, tensor-core products", ("sweep_dw", "sweep_dh")),
+                ("B6/B7 backward, tensor-core products", ("sweep_dw", "sweep_dh")),
                 ("B6/B7 backward SIMT GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
                                                               "cotangent_kernel", "round_cotangent")))
     for name, step in (("phase 1, level 0", phase1), ("phase 2", phase2)):

@@ -10,9 +10,10 @@
 // inputs give bit-equal gradients. dH = dZ W^T runs row-parallel with the
 // activation's derivative and the rounding to the operand type (or, for the
 // input cotangent of B5, an fp32 store or accumulate) in its epilogue. Under
-// the sweeps' TC switch (bf16 B1, and B6 without input cotangents) the two
-// large products of each layer run on the tensor cores instead
-// (tc_gemm.cuh: tc_reduce, tc_act), with the same split reduction.
+// the sweeps' TC switch (bf16 B1 and B4, B6 without input cotangents, B7)
+// the two large products of each layer, and B7's input cotangent, run on
+// the tensor cores instead (tc_gemm.cuh: tc_reduce, tc_act, tc_demb), with
+// the same split reduction.
 
 #pragma once
 
@@ -45,10 +46,6 @@ __device__ __forceinline__ void spill(const T* __restrict__ s, int ncopy, T* __r
   if (ones)
     for (int r = threadIdx.x; r < nvalid; r += NT) g[(p0 + r) * ld + ncopy] = Op<T>::q(1.f);
 }
-
-// ELU's derivative from its stored output h (h = expm1(z) for z <= 0), in
-// fp32 from h in the operand type, as _act_grad takes it.
-__device__ __forceinline__ float elu_grad(float h) { return h > 0.f ? 1.f : h + 1.f; }
 
 // C[M, N] = sum_t A(m, t) B(t, n), A(m, t) = A[m*sam + t*sat] and
 // B(t, n) = B[t*sbt + n*sbn]. blockIdx.z is a split of t.
@@ -261,19 +258,38 @@ int tc_reduce(const T* x, long long ldx, int mx, int M, const T* z, long long ld
   return static_cast<int>(cudaGetLastError());
 }
 
-// gemm_act on the tensor cores (bf16, ReLU; tc_gemm.cuh::sweep_dh_kernel):
-// c = q(([dz w^T](m, n) + u[m su] v[n]) * [mask(m, n) > 0]) over P rows, dz
-// [P][lda] K wide, w the packed [N][K] matrix; mask and u nullable.
-template <typename T>
+// gemm_act on the tensor cores (bf16; tc_gemm.cuh::sweep_dh_kernel): c =
+// q(([dz w^T](m, n) + u[m su] v[n]) * act'(mask(m, n))) over P rows, act'
+// ReLU's [mask > 0] or (ELU) elu_grad(mask), dz [P][lda] K wide, w the
+// packed [N][K] matrix; mask and u nullable.
+template <typename T, bool ELU = false>
 int tc_act(const T* dz, long long lda, const T* w, int K, int N, long long P, const T* mask, long long ldm, const T* u,
            long long su, const T* v, T* c, long long ldc, cudaStream_t st) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core sweep is bf16 only");
-  const tc::DhArgs g{dz, lda, w, P, mask, ldm, u, su, v, c, ldc};
-  if (N == 256 && K == 256) return static_cast<int>(tc::dh_launch<256, 256>(g, st));
-  if (N == 256 && K == 128) return static_cast<int>(tc::dh_launch<256, 128>(g, st));
-  if (N == 128 && K == 128) return static_cast<int>(tc::dh_launch<128, 128>(g, st));
-  if (N == 128 && K == 64) return static_cast<int>(tc::dh_launch<128, 64>(g, st));
+  constexpr tc::Epi E = ELU ? tc::Epi::Elu : tc::Epi::Relu;
+  const tc::DhArgs g{dz, lda, w, P, mask, ldm, u, su, v, c, ldc, nullptr, 0};
+  if (N == 256 && K == 256) return static_cast<int>(tc::dh_launch<256, 256, E>(g, st));
+  if (N == 256 && K == 128) return static_cast<int>(tc::dh_launch<256, 128, E>(g, st));
+  if (N == 128 && K == 128) return static_cast<int>(tc::dh_launch<128, 128, E>(g, st));
+  if (N == 128 && K == 64) return static_cast<int>(tc::dh_launch<128, 64, E>(g, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The input cotangent's product on the tensor cores (B7): demb [P][cin]
+// fp32 = (add ? demb + : ) dz w_emb^T over the live columns n < cin, dz
+// [P][W], w_emb the packed [CIN][W] embedding rows (CIN = 128: the product
+// runs all 128 columns, whose pad rows are zero, and stores the live ones).
+template <typename T>
+int tc_demb(const T* dz, int W, const T* w_emb, int CIN, int cin, long long P, float* demb, bool add,
+            cudaStream_t st) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core sweep is bf16 only");
+  const tc::DhArgs g{dz, W, w_emb, P, nullptr, 0, nullptr, 0, nullptr, nullptr, cin, demb, cin};
+  if (CIN != 128 || (W != 256 && W != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  if (W == 256)
+    return static_cast<int>(add ? tc::dh_launch<128, 256, tc::Epi::Add32>(g, st)
+                                : tc::dh_launch<128, 256, tc::Epi::Store32>(g, st));
+  return static_cast<int>(add ? tc::dh_launch<128, 128, tc::Epi::Add32>(g, st)
+                              : tc::dh_launch<128, 128, tc::Epi::Store32>(g, st));
 }
 
 GemmArgs gemm_args(const void* A, long long sam, long long sat, const void* B, long long sbt, long long sbn, int M,
@@ -315,15 +331,15 @@ size_t trunk_offsets(int D, int skip, int cin_pad, int W, size_t* off_w, size_t*
 // spilled input [P][CIN] (cin live columns, then the ones); h(i) layer i's
 // spilled output [P][W + PADC]. With demb (B5), the input cotangent over the
 // cin live columns, fp32 [P][cin]: dz_{skip+1} W_emb^T, then + dz_0 W_0^T.
-// TC (bf16, ReLU, no demb): dW and dH on the tensor cores (tc_reduce,
-// tc_act), the bias rows as dz's column sums.
+// TC (bf16): dW, dH (ELU' or ReLU's mask in its epilogue) and demb on the
+// tensor cores (tc_reduce, tc_act, tc_demb), the bias rows as dz's column
+// sums.
 template <typename T, bool ELU, typename H, bool TC = false>
 int trunk_reverse(const T* wts, const size_t* off_w, size_t off_wemb, const T* emb, int CIN, int cin, H h, T* const* dz,
                   int D, int skip, int W, long long P, float* gw, float* gb, float* part, float* demb,
                   cudaStream_t st) {
   const int LDW = W + PADC;
   const Region none{nullptr, 0, nullptr};
-  if (TC && (ELU || demb)) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = D - 1; i >= 0; --i) {
     const T* dzi = dz[i & 1];
     if (i == 0 || i == skip + 1) {  // embedding rows, with the bias row
@@ -336,10 +352,14 @@ int trunk_reverse(const T* wts, const size_t* off_w, size_t off_wemb, const T* e
                                   st));
       }
       if (demb) {  // d emb = dz W_emb^T over the live columns; W_emb is [CIN][W]
-        GemmArgs g = gemm_args(dzi, W, 1, wts + off, 1, W, (int)P, cin, W);
-        g.C = demb;
-        g.ldc = cin;
-        SWNERF_RUN(i == 0 ? (gemm_act<T, false, 2>(g, st)) : (gemm_act<T, false, 1>(g, st)));
+        if constexpr (TC) {
+          SWNERF_RUN(tc_demb<T>(dzi, W, wts + off, CIN, cin, P, demb, i == 0, st));
+        } else {
+          GemmArgs g = gemm_args(dzi, W, 1, wts + off, 1, W, (int)P, cin, W);
+          g.C = demb;
+          g.ldc = cin;
+          SWNERF_RUN(i == 0 ? (gemm_act<T, false, 2>(g, st)) : (gemm_act<T, false, 1>(g, st)));
+        }
       }
     }
     if (i > 0) {
@@ -348,8 +368,8 @@ int trunk_reverse(const T* wts, const size_t* off_w, size_t off_wemb, const T* e
       if constexpr (TC) {
         SWNERF_RUN(tc_reduce<T>(h(i - 1), LDW, W, W, dzi, W, W, P, bias_here, false, part, part_floats(W), out, none,
                                 st));
-        SWNERF_RUN(tc_act<T>(dzi, W, wts + off_w[i], W, W, P, h(i - 1), LDW, nullptr, 0, nullptr, dz[(i - 1) & 1], W,
-                             st));
+        SWNERF_RUN((tc_act<T, ELU>(dzi, W, wts + off_w[i], W, W, P, h(i - 1), LDW, nullptr, 0, nullptr,
+                                   dz[(i - 1) & 1], W, st)));
       } else {
         SWNERF_RUN(gemm_reduce<T>(gemm_args(h(i - 1), 1, LDW, dzi, W, 1, bias_here ? W + 1 : W, W, (int)P), part,
                                   W, W, out, none, st));
@@ -413,9 +433,11 @@ struct FieldTape {
 // next to d sigma, the feature + alpha product, then the trunk
 // (trunk_reverse). gw / gb are the packed fp32 gradients (zeroed by the
 // caller); demb [P][cin] (B5, B7) and dvemb [P][cv] (B7) are the input
-// cotangents in fp32, formed where not null. TC (bf16 B1): the view layer's
-// two dW, d feat, the feature + alpha dW (its d sigma column and bias row
-// beside the product) and dz_{D-1} on the tensor cores, then the trunk's.
+// cotangents in fp32, formed where not null. TC (bf16 B1, B4, B7): the view
+// layer's two dW, d feat, the feature + alpha dW (its d sigma column and
+// bias row beside the product) and dz_{D-1} on the tensor cores, then the
+// trunk's with demb (dvemb, which no tensor-core caller's main path asks
+// for, stays a SIMT product).
 template <typename T, int W, Act ACT, typename H, bool TC = false>
 int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int cv, long long P,
                   const FieldTape<T, H>& tp, float* gw, float* gb, float* demb, float* dvemb, cudaStream_t st) {
@@ -432,7 +454,6 @@ int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int 
   float* gb_rgb = gb_views + WH;
   float* gb_alpha = gb_rgb + 3;
   const Region none{nullptr, 0, nullptr};
-  if (TC && (ELU || demb || dvemb)) return static_cast<int>(cudaErrorInvalidValue);
 
   // rgb head and view layer
   head_bwd_kernel<T, WH, ACT><<<ceil_div(P * WH, 256), 256, 0, st>>>(tp.gq, tp.hv, LDH, wts + off_rgb, P, tp.dhv32,
@@ -466,9 +487,9 @@ int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int 
     SWNERF_RUN(tc_act<T>(tp.dhv_c, WH, wts + off_vf, WH, W, P, nullptr, 0, nullptr, 0, nullptr, tp.dfa, LDW, st));
     SWNERF_RUN(tc_reduce<T>(tp.h(D - 1), LDW, W, W, tp.dfa, LDW, W, P, true, true, tp.part, part_floats(W),
                             Region{gw + off_feat, W, gb_feat}, Region{gw + off_alpha, 1, gb_alpha}, st));
-    // dz_{D-1} = q((dfeat @ W_feat^T + dsigma * w_alpha^T) * [h_{D-1} > 0])
-    SWNERF_RUN(tc_act<T>(tp.dfa, LDW, wts + off_feat, W, W, P, tp.h(D - 1), LDW, tp.dfa + W, LDW, wts + off_alpha,
-                         tp.dz[(D - 1) & 1], W, st));
+    // dz_{D-1} = q((dfeat @ W_feat^T + dsigma * w_alpha^T) * act'(h_{D-1}))
+    SWNERF_RUN((tc_act<T, ELU>(tp.dfa, LDW, wts + off_feat, W, W, P, tp.h(D - 1), LDW, tp.dfa + W, LDW,
+                               wts + off_alpha, tp.dz[(D - 1) & 1], W, st)));
     return trunk_reverse<T, ELU, H, TC>(wts, off_w, off_wemb, tp.emb, CIN, cin, tp.h, tp.dz, D, skip, W, P, gw, gb,
                                         tp.part, demb, st);
   }

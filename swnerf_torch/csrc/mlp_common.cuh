@@ -6,10 +6,11 @@
 // its backward, and the per-ray composite of the tensor-core B3.
 //
 // The SIMT chunk product (mm_acc) serves every fp32 instantiation (the
-// parity mode) and, in bf16, B1, B4, B5, B7', B9, the train-mode forwards
-// of B7 and B8 and the training path's B3 launch (ordered); bf16 B3
-// otherwise, B6's forward and B7's and B8's forward-only launch run
-// tc_chunk.cuh's tensor-core product instead.
+// parity mode) and, in bf16, B1, B4's train-mode forward, B5, B7', B9, the
+// train-mode forwards of B7 and B8 and the training path's B3 launch
+// (ordered); bf16 B3 otherwise, B4's forward-only launch, B6's forward and
+// B7's and B8's forward-only launch run tc_chunk.cuh's tensor-core product
+// instead.
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
 // padded so the epilogue's column-wise stores are conflict-free); weights
@@ -174,6 +175,10 @@ __device__ __forceinline__ void mm_acc(float (&acc)[8][NC / 32], const T* __rest
 
 // ELU as jax.nn.elu and F.elu write it (expm1, not exp - 1).
 __device__ __forceinline__ float elu(float z) { return z > 0.f ? z : expm1f(z); }
+
+// ELU's derivative from its stored output h (h = expm1(z) for z <= 0), in
+// fp32 from h in the operand type, as _act_grad takes it.
+__device__ __forceinline__ float elu_grad(float h) { return h > 0.f ? 1.f : h + 1.f; }
 
 template <Act A>
 __device__ __forceinline__ float act(float z) {

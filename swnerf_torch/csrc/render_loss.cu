@@ -58,11 +58,14 @@
 //     samples. reduce_kernel adds the partials in split order and scatters
 //     them into the packed gradient buffers; colsum_kernel does the same for
 //     the fp32 bias sums of the heads. No atomics: two launches on the same
-//     inputs give bit-equal gradients. B1 in bf16 runs both products of
-//     every layer, the view layer's dW and d feat on the tensor cores
+//     inputs give bit-equal gradients. B1 and B4 in bf16 run both products
+//     of every layer, the view layer's dW and d feat on the tensor cores
 //     (tc_gemm.cuh: bf16 wgmma into fp32, dW with both operands MN-major;
-//     the bias rows and the d sigma column in fp32 beside the product); the
-//     fp32 parity mode, B4, B5 and B9 keep gemm_kernel's SIMT product.
+//     the bias rows and the d sigma column in fp32 beside the product; B4's
+//     ELU' from the stored output in the dH epilogue, its 96-column spilled
+//     embedding read as two 64-wide blocks whose last 32 columns the copy
+//     zero-fills); the fp32 parity mode, B5 and B9 keep gemm_kernel's SIMT
+//     product.
 //
 // Operands are fp32 (parity mode) or bf16, rounded where the plain twin and
 // _trunk_reverse round them (embedding, activations, dz, g_rgb, dhv, dfa);
@@ -75,9 +78,10 @@
 // bar at MultiRes level 0, and an unbiased fold of each step did not keep
 // them inside it on every seeded case; this body shares the twin's fp32
 // order up to the skip layer. So every forward here stays SIMT, and only
-// B1's reverse sweep moved to the tensor cores (its masks come from the
-// stored activations, which that product does not rewrite); B4's, B5's and
-// B9's backward on the tensor cores are later work. No --use_fast_math
+// B1's and B4's reverse sweeps moved to the tensor cores (their masks and
+// ELU' come from the stored activations, which that product does not
+// rewrite); B5's and B9's backward on the tensor cores are later work. No
+// --use_fast_math
 // (ops/kernels/build.py):
 // sinf/cosf stay accurate at the 2^9-frequency arguments, and the
 // transmittance floor max(1 - alpha + 1e-10, 1e-10), which is also the
@@ -393,9 +397,10 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   SWNERF_CHECK(cudaGetLastError());
 
   // 2-4. the heads, d feat next to d sigma, the trunk (with B5's input
-  //      cotangent): gemm_common.cuh::field_reverse; bf16 B1's large
-  //      products on the tensor cores (TC)
-  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value && std::is_same<A, Vanilla>::value && !PTS && !EXT;
+  //      cotangent): gemm_common.cuh::field_reverse; bf16 B1's and B4's
+  //      large products on the tensor cores (TC)
+  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value &&
+                      (std::is_same<A, Vanilla>::value || std::is_same<A, TNerf>::value) && !PTS && !EXT;
   FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, sc.graw, dz, dhv_c, dhv32, part};
   SWNERF_RUN((field_reverse<T, W, A::ACT, decltype(hl), TC>(wts, D, skip, CIN, cin, A::CV, cv, P, tape, gw, gb, demb,
                                                             nullptr, st)));

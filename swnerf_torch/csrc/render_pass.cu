@@ -28,11 +28,13 @@
 // Bound on the card: operations (~1.19 MFLOP of MLP per sample at D=8,
 // W=256; ~0.33 MFLOP for T-NeRF at D=8, W=128; against ~1 KB of per-ray
 // input). Two bodies:
-//  - bf16, vanilla (B3 from rays, pts, pts wide): tc_render.cuh on the
-//    tensor cores (tc_chunk.cuh: bf16 wgmma, an async weight ring, 128 rows
-//    per pass over the weights, a persistent grid), about 9.4 KB of weights
-//    from L2 per row (9.9 KB wide), half the SIMT body's.
-//  - fp32 (the parity mode), B4, and the ordered bf16 pts launch (the
+//  - bf16 (B3 from rays, pts, pts wide; B4): tc_render.cuh on the tensor
+//    cores (tc_chunk.cuh: bf16 wgmma, an async weight ring, 128 rows per
+//    pass over the weights, a persistent grid), about 9.4 KB of weights
+//    from L2 per row (9.9 KB wide), half the SIMT body's. B4 runs it at
+//    W=128 with its time columns encoded in the block and ELU in the
+//    epilogues.
+//  - fp32 (the parity mode) and the ordered bf16 pts launch (the
 //    training path's, which B9's recomputed forward matches bit for bit:
 //    the tensor cores round each k16 step toward zero, tc_rounding.py, and
 //    B9's gradients then leave the twin's bar): the SIMT body below, fp32
@@ -204,10 +206,10 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
            const float* dist, const float* noise, const void* wts, const float* bias, int D, int skip,
            int L, int white, int N, int S, float* rgb, float* acc, float* depth, float* w_out, void* img,
            long long img_bytes, bool ordered, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2 && !A::TIME) {  // bf16 vanilla: the tensor-core body, unless ordered
+  if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core body, unless ordered
     if (!ordered)
-      return tc::render_launch<W, A, PTS>(origins, dirs, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S,
-                                          rgb, acc, depth, w_out, img, img_bytes, stream);
+      return tc::render_launch<W, A, PTS>(origins, dirs, times, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white,
+                                          N, S, rgb, acc, depth, w_out, img, img_bytes, stream);
   }
   return launch_simt<T, W, A, PTS>(origins, dirs, times, vemb, cv, z, dist, noise, wts, bias, D, skip, L, white, N, S,
                                    rgb, acc, depth, w_out, stream);
@@ -224,22 +226,23 @@ const char* swnerf_error_string(int code) {
 // The most samples per ray render_pass_launch (tnerf) and
 // render_pass_pts_launch (wide) take: the block's shared memory.
 int render_pass_max_samples(int tnerf, int bf16, int wide, int W) {
-  const int simt = render_max_samples<4>(tnerf, bf16, wide, W);  // fp32, the T-NeRF, bf16 ordered
-  return bf16 && !tnerf && simt > 0 ? std::min(simt, tc::max_samples(wide, W)) : simt;
+  const int simt = render_max_samples<4>(tnerf, bf16, wide, W);  // fp32, bf16 ordered
+  return bf16 && simt > 0 ? std::min(simt, tc::max_samples(tnerf, wide, W)) : simt;
 }
 
 // Bytes of the weight image render_pass_launch and render_pass_pts_launch
 // read for these weights (tc_render.cuh::render_plan): 0 where the SIMT
-// body runs (fp32, the T-NeRF) or for an unsupported width.
+// body runs (fp32) or for an unsupported width.
 long long render_pass_image_bytes(int tnerf, int bf16, int wide, int W, int D, int skip) {
-  if (tnerf || !bf16 || (W != 128 && W != 256)) return 0;
+  if (!bf16 || (W != 128 && W != 256)) return 0;
+  if (tnerf) return W == 256 ? tc::render_plan<256, TNerf>(D, skip).bytes : tc::render_plan<128, TNerf>(D, skip).bytes;
   if (wide)
     return W == 256 ? tc::render_plan<256, VanillaWide>(D, skip).bytes
                     : tc::render_plan<128, VanillaWide>(D, skip).bytes;
   return W == 256 ? tc::render_plan<256, Vanilla>(D, skip).bytes : tc::render_plan<128, Vanilla>(D, skip).bytes;
 }
 
-// With a device buffer of 3 x (blocks) int64, the next bf16 vanilla
+// With a device buffer of 3 x (blocks) int64, the next bf16 tensor-core
 // launches record per block the clock cycles of the composite (beside the
 // products), of the narrow heads and of the whole block
 // (tc_chunk.cuh::g_prof); null stops it.
@@ -250,8 +253,8 @@ void render_pass_profile(void* buf) { tc::g_prof = static_cast<long long*>(buf);
 // (nullable) [N, S]; wts / bias: the packed buffers of
 // ops/kernels/render_pass.py::pack_params / pack_tnerf_params (bf16 != 0:
 // bf16 operands, else fp32); outputs rgb [N, 3], acc [N], depth [N],
-// w_out [N, S]; img: img_bytes of scratch for the bf16 vanilla body's weight
-// image (render_pass_image_bytes; null where that is 0).
+// w_out [N, S]; img: img_bytes of scratch for the bf16 body's weight image
+// (render_pass_image_bytes; null where that is 0).
 // All contiguous.
 int render_pass_launch(int tnerf, int bf16, int W, const float* origins, const float* dirs, const float* times,
                        const float* vemb, int cv, const float* z, const float* dist, const float* noise,

@@ -1,11 +1,12 @@
 // The tensor-core chunk product for Hopper, shared by the bf16
 // instantiations of B6's forward (time_net.cu), of B3 (render_pass.cu:
-// from rays, pts, pts wide) and of B7's and B8's forward-only launch
-// (trunk.cu): bf16 wgmma with fp32 accumulators, an asynchronous ring of
-// weight slabs, and 128 sample rows per pass over the weights. The fp32
-// instantiations (the parity mode), the T-NeRF traits (B4, B7'), B1, B5,
-// B9, the train-mode forwards of B7 and B8 and the training path's B3
-// launch (ordered) keep mlp_common.cuh's SIMT chunk product (mm_acc).
+// from rays, pts, pts wide), of B4's forward-only launch (the T-NeRF
+// traits, same file) and of B7's and B8's forward-only launch (trunk.cu):
+// bf16 wgmma with fp32 accumulators, an asynchronous ring of weight slabs,
+// and 128 sample rows per pass over the weights. The fp32 instantiations
+// (the parity mode), B7', the train-mode forwards of B1, B4, B5, B9, B7 and
+// B8 and the training path's B3 launch (ordered) keep mlp_common.cuh's
+// SIMT chunk product (mm_acc).
 //
 // Why: the SIMT product keeps the tensor cores idle and re-reads a ~1 MB
 // weight set from L2 for every 64 rows (about 16-19 KB per row); a
@@ -560,8 +561,36 @@ __device__ __forceinline__ bf16 put(unsigned char* tile, int r, int c, float v) 
   return q;
 }
 
+// ELU in the tensor-core epilogue (B4's forward), branch-free: expm1 from
+// ex2.approx (__expf(z) - 1) for z < -1/2, where the result's magnitude
+// keeps the subtraction to ~3e-7 relative, and the degree-7 Taylor
+// polynomial of expm1 by Horner's rule on [-1/2, 0] (remainder below 1e-7
+// absolute), both computed and one selected. Within ~3e-7 relative of
+// expm1f, so the bf16 it rounds to is expm1f's but for the ~1e-5 of values
+// that sit that close to a rounding boundary. expm1f (or this form with
+// branches) made the epilogue, which unrolls one per output of every layer
+// in the consumers' critical path between two layers' products, most of
+// B4's time on the H100 (PERF.md §6). tc_model.elu_tc is its twin.
+__device__ __forceinline__ float elu_tc(float z) {
+  const float e = __expf(z) - 1.f;
+  float p = fmaf(z, 1.f / 5040.f, 1.f / 720.f);
+  p = fmaf(z, p, 1.f / 120.f);
+  p = fmaf(z, p, 1.f / 24.f);
+  p = fmaf(z, p, 1.f / 6.f);
+  p = fmaf(z, p, 0.5f);
+  p = fmaf(z, p, 1.f);
+  const float n = z < -0.5f ? e : z * p;
+  return z > 0.f ? z : n;
+}
+
+template <Act A>
+__device__ __forceinline__ float epi_act(float z) {
+  return A == Act::Elu ? elu_tc(z) : act<A>(z);
+}
+
 // The epilogue of an N-wide layer: tile[r][c] = q(act(acc + bias[c])), in
-// place, for the warpgroup's 64 rows (tid: the thread in the warpgroup).
+// place, for the warpgroup's 64 rows (tid: the thread in the warpgroup);
+// ELU as elu_tc.
 // With g, the rounded values of rows < nvalid also go to the row-major
 // g[row0 + r][c] (ld columns), and with ones a 1 to column N.
 template <int N, Act ACT>
@@ -576,8 +605,8 @@ __device__ __forceinline__ void epilogue(const float* acc, const float* __restri
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
-      const __nv_bfloat162 v = __floats2bfloat162_rn(act<ACT>(acc[4 * j + 2 * h] + b.x),
-                                                     act<ACT>(acc[4 * j + 2 * h + 1] + b.y));
+      const __nv_bfloat162 v = __floats2bfloat162_rn(epi_act<ACT>(acc[4 * j + 2 * h] + b.x),
+                                                     epi_act<ACT>(acc[4 * j + 2 * h + 1] + b.y));
       *reinterpret_cast<__nv_bfloat162*>(tile + tile_off(r, c)) = v;
       if (g != nullptr && r < nvalid) {
         *reinterpret_cast<__nv_bfloat162*>(g + (row0 + r) * ld + c) = v;

@@ -1,16 +1,18 @@
 // The reverse sweep's two large products on Hopper's tensor cores, for the
-// bf16 backward of B1 (render_loss.cu, vanilla train mode) and of B6
-// (time_net.cu, without input cotangents): dW = X^T dZ and dH = dZ W^T,
-// the shapes of gemm_common.cuh::gemm_reduce and gemm_act, which
+// bf16 backward of B1 (render_loss.cu, vanilla train mode), of B4 (the
+// same, T-NeRF: ELU), of B6 (time_net.cu, without input cotangents) and of
+// B7 (trunk.cu, with the input cotangent demb): dW = X^T dZ and dH = dZ
+// W^T, the shapes of gemm_common.cuh::gemm_reduce and gemm_act, which
 // trunk_reverse and field_reverse call here instead under their TC switch.
-// Every other instantiation (the fp32 parity mode, B4, B5, B7, B7', B8, B9,
-// B11) keeps gemm_common.cuh's SIMT product, and so do the narrow products
-// of the swept kernels (the rgb head, B6's 3-wide output head,
-// head_bwd_kernel) and the column sums of fp32 cotangents.
+// Every other instantiation (the fp32 parity mode, B5, B7', B8, B9, B11)
+// keeps gemm_common.cuh's SIMT product, and so do the narrow products of
+// the swept kernels (the rgb head, B6's 3-wide output head,
+// head_bwd_kernel), B7's dvemb and the column sums of fp32 cotangents.
 //
 // Replaces, on the card, the products of swnerf_tpu/ops/pallas/
-// render_fused.py::_trunk_reverse (:184-268, inside _render_loss_kernel)
-// and raymarch.py::_bwd_kernel_plain (:480).
+// render_fused.py::_trunk_reverse (:184-268, inside _render_loss_kernel),
+// raymarch.py::_bwd_kernel_plain (:480) and raymarch.py::_bwd_kernel
+// (:446, _trunk_backward :393-418).
 //
 // Bound: operations. At D=8, W=256 one sample's dW and dH products are
 // about 1.1M multiply-adds, 0.46 ms of B1's fine pass (196,608 samples) at
@@ -32,9 +34,12 @@
 //    in the packed [in][out] buffer, so each block copies the whole matrix
 //    (128 KB at W=256) into shared memory once, straight from the packed
 //    weights: no second weight image. The epilogue, from the accumulators:
-//    + u[m] v[n] (the top layer's d sigma w_alpha term), times ReLU's
-//    derivative from the stored activation, rounded to bf16 where
-//    gemm_kernel rounds.
+//    + u[m] v[n] (the top layer's d sigma w_alpha term), times the
+//    activation's derivative from the stored activation (ReLU's mask, or
+//    ELU's h + 1 for h <= 0: B4), rounded to bf16 where gemm_kernel rounds.
+//    B7's input cotangent demb = dz W_emb^T takes the same product with an
+//    fp32 epilogue and no mask: stored over the live columns for the skip
+//    layer's rows, then added to for layer 0's (gemm_act's F32 = 1, 2).
 //  - dW = X^T dZ (sweep_dw_kernel): both operands have the reduction (the
 //    rows) as their slow dimension, so both are MN-major (wgmma's transpose
 //    flags): per row, 64 values in 128 bytes; 8 rows an atom (SBO 1024),
@@ -326,14 +331,21 @@ struct DhArgs {
   long long lda;
   const bf16* w;     // the packed [N in][K out] matrix: B(k, n) = w[n K + k]
   long long P;
-  const bf16* mask;  // nullable: times [mask[m ldm + n] > 0], ReLU's derivative
+  const bf16* mask;  // nullable: times the activation's derivative at mask[m ldm + n]
   long long ldm;
   const bf16* u;     // nullable: + u[m su] v[n], before the mask
   long long su;
   const bf16* v;
   bf16* c;           // q(result) into c[m ldc + n]
   long long ldc;
+  float* c32;        // Epi::Store32 / Add32: the fp32 result into (onto) c32[m ldc + n], n < ncol
+  int ncol;
 };
+
+// The dH epilogue: times ReLU's derivative [mask > 0] (B1, B6, B7) or
+// ELU's from the stored output (B4), rounded to bf16 into c; or the fp32
+// sum stored into c32, or added to it, with no mask (B7's demb).
+enum class Epi { Relu, Elu, Store32, Add32 };
 
 // The matrix (K / 64 atoms of N rows), then the ring of 128-row A stages.
 template <int N, int K>
@@ -341,7 +353,7 @@ __host__ __device__ constexpr size_t dh_smem() {
   return 1024 + (size_t)(K / 64) * N * 128 + (size_t)SWEEP_STAGES * 2 * ATOM_BYTES;
 }
 
-template <int N, int K>
+template <int N, int K, Epi E = Epi::Relu>
 __global__ void __launch_bounds__(SWEEP_THREADS, 1) sweep_dh_kernel(const DhArgs g) {
   constexpr int KA = K / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -402,6 +414,22 @@ __global__ void __launch_bounds__(SWEEP_THREADS, 1) sweep_dh_kernel(const DhArgs
     // instead, unused: no load of the epilogue can leave valid memory.
     const int lane = tid & 31;
     const long long r0 = (blockIdx.x + (u / KA) * gridDim.x) * 128 + wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
+    if constexpr (E == Epi::Store32 || E == Epi::Add32) {  // fp32, the live columns; ldc may be odd
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long m = r0 + 8 * h;
+        if (m >= g.P) continue;
+        float* crow = g.c32 + m * g.ldc;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = j * 8 + 2 * (lane & 3) + e;
+            if (n < g.ncol) crow[n] = E == Epi::Add32 ? crow[n] + acc[4 * j + 2 * h + e] : acc[4 * j + 2 * h + e];
+          }
+      }
+      continue;
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long m = r0 + 8 * h;
@@ -423,8 +451,13 @@ __global__ void __launch_bounds__(SWEEP_THREADS, 1) sweep_dh_kernel(const DhArgs
         }
         if (g.mask) {
           const float2 f = __bfloat1622float2(mk[j]);
-          if (!(f.x > 0.f)) v0 = 0.f;
-          if (!(f.y > 0.f)) v1 = 0.f;
+          if constexpr (E == Epi::Elu) {
+            v0 *= elu_grad(f.x);
+            v1 *= elu_grad(f.y);
+          } else {
+            if (!(f.x > 0.f)) v0 = 0.f;
+            if (!(f.y > 0.f)) v1 = 0.f;
+          }
         }
         *reinterpret_cast<__nv_bfloat162*>(g.c + m * g.ldc + n) = __floats2bfloat162_rn(v0, v1);
       }
@@ -432,13 +465,13 @@ __global__ void __launch_bounds__(SWEEP_THREADS, 1) sweep_dh_kernel(const DhArgs
   }
 }
 
-template <int N, int K>
+template <int N, int K, Epi E = Epi::Relu>
 inline cudaError_t dh_launch(const DhArgs& g, cudaStream_t st) {
   constexpr size_t smem = dh_smem<N, K>();
   const cudaError_t e =
-      cudaFuncSetAttribute(sweep_dh_kernel<N, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(sweep_dh_kernel<N, K, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  sweep_dh_kernel<N, K><<<grid_for((g.P + 127) / 128), SWEEP_THREADS, smem, st>>>(g);
+  sweep_dh_kernel<N, K, E><<<grid_for((g.P + 127) / 128), SWEEP_THREADS, smem, st>>>(g);
   return cudaGetLastError();
 }
 

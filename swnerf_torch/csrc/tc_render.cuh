@@ -1,7 +1,13 @@
-// The bf16 render body of a vanilla field on the tensor cores
-// (tc_chunk.cuh): B3 from rays and in pts mode, at the narrow and the wide
-// (MultiRes) pads (render_pass.cu); its field product (field_rows) also
-// runs B7's and B8's forward-only launch (trunk.cu). B9's recomputed
+// The bf16 render body of a field on the tensor cores (tc_chunk.cuh): B3
+// from rays and in pts mode, at the narrow and the wide (MultiRes) pads, and
+// B4, the T-NeRF (render_pass.cu: its [embed(x) | embed(t)] input, 84 of
+// 96 columns at multires 10, ELU in the trunk's and the view layer's
+// epilogues as tc_chunk.cuh::elu_tc, the colour ReLU in the composite);
+// its field product (field_rows) also runs B7's and B8's forward-only
+// launch (trunk.cu). B4's two embedding products (layer 0, the skip) run
+// six k16 steps over two 64-column atoms, the second atom's last 32
+// columns skipped; 12 of the 96 columns are zeros past cin, an eighth of
+// those two products' work. B9's recomputed
 // forward, and the training path's B3 launch that must equal it
 // (render_pass_pts_launch's ordered), stay on the SIMT body: its fp32 FMAs
 // in order keep B9's gradients at the twin's bar, which this body's
@@ -98,12 +104,17 @@ Plan render_plan(int D, int skip, int cin_pad = A::CIN, int cv_pad = A::CV) {
 // Row r's Fourier encode of x into a tile, two threads a row (part 0 and
 // 1), in encode_chunk's arithmetic (sinf/cosf of the exact x * 2^f): x at
 // columns 0-2, then per frequency f < L sin at 3 + 6f and cos at 6 + 6f;
-// columns c_end .. k_end zero.
+// columns c_end .. k_end zero. With time (B4), the ray's frame time t at
+// column dpos = 3 + 6L, then sin / cos of t * 2^f at dpos + 1 + 2f /
+// dpos + 2 + 2f (encode_chunk's A::TIME columns).
+template <bool TIME = false>
 __device__ __forceinline__ void encode_row(unsigned char* t, int r, int part, const float (&x)[3], int L, int c_end,
-                                           int k_end) {
+                                           int k_end, float tt = 0.f) {
+  const int dpos = 3 + 6 * L;
   if (part == 0) {
 #pragma unroll
     for (int a = 0; a < 3; ++a) put(t, r, a, x[a]);
+    if (TIME) put(t, r, dpos, tt);
   } else {
     for (int c = c_end; c < k_end; ++c) put(t, r, c, 0.f);
   }
@@ -115,19 +126,24 @@ __device__ __forceinline__ void encode_row(unsigned char* t, int r, int part, co
       put(t, r, 3 + 6 * f + a, sinf(u));
       put(t, r, 6 + 6 * f + a, cosf(u));
     }
+    if (TIME) {
+      const float u = tt * scale;
+      put(t, r, dpos + 1 + 2 * f, sinf(u));
+      put(t, r, dpos + 2 + 2 * f, cosf(u));
+    }
   }
 }
 
 // encode_chunk for one consumer warpgroup's 64 rows (unit rows lrow0 ..,
 // two threads a row) into its swizzled tiles, in encode_chunk's order and
-// arithmetic: the embedding (columns cin .. atoms(CIN) * 64 zero) and the
-// ray's view embedding (cv .. atoms(CV) * 64 zero).
+// arithmetic: the embedding (with A::TIME the ray's times[ray] columns;
+// columns cin .. atoms(CIN) * 64 zero) and the ray's view embedding
+// (cv .. atoms(CV) * 64 zero).
 template <typename A, bool PTS>
 __device__ __forceinline__ void encode_rows(unsigned char* emb, unsigned char* vt, int tid, int lrow0, int rows,
                                             long long ray0, int S, int L, int cv, const float* __restrict__ origins,
-                                            const float* __restrict__ dirs, const float* __restrict__ z,
-                                            const float* __restrict__ vemb) {
-  static_assert(!A::TIME, "the tensor-core body serves the vanilla families");
+                                            const float* __restrict__ dirs, const float* __restrict__ times,
+                                            const float* __restrict__ z, const float* __restrict__ vemb) {
   const int r = tid & 63;
   const int part = tid >> 6;  // two threads share a row
   const int g = lrow0 + r;
@@ -135,6 +151,7 @@ __device__ __forceinline__ void encode_rows(unsigned char* emb, unsigned char* v
   const long long ray = ray0 + (valid ? g / S : 0);
   const int cin = A::cin(L);
   float x[3] = {0.f, 0.f, 0.f};
+  float t = 0.f;
   if (valid) {
     if (PTS) {
       const long long row = ray * S + g % S;
@@ -145,8 +162,9 @@ __device__ __forceinline__ void encode_rows(unsigned char* emb, unsigned char* v
 #pragma unroll
       for (int a = 0; a < 3; ++a) x[a] = __fadd_rn(origins[ray * 3 + a], __fmul_rn(dirs[ray * 3 + a], zz));
     }
+    if (A::TIME) t = times[ray];
   }
-  encode_row(emb, r, part, x, L, cin, atoms(A::CIN) * 64);
+  encode_row<A::TIME>(emb, r, part, x, L, cin, atoms(A::CIN) * 64, t);
   for (int k = part; k < atoms(A::CV) * 64; k += 2) put(vt, r, k, (valid && k < cv) ? vemb[ray * cv + k] : 0.f);
 }
 
@@ -253,7 +271,8 @@ __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, u
 // buffers).
 template <int W, typename A, bool PTS>
 __device__ __forceinline__ void consume(const float* __restrict__ origins, const float* __restrict__ dirs,
-                                        const float* __restrict__ vemb, int cv, const float* __restrict__ z,
+                                        const float* __restrict__ times, const float* __restrict__ vemb, int cv,
+                                        const float* __restrict__ z,
                                         const float* __restrict__ bias, int D, int skip, int L, int N, int S,
                                         int R, long long* __restrict__ prof, unsigned char* sm, uint64_t* bars,
                                         uint64_t* raw_full, uint64_t* raw_free, float* raw_s) {
@@ -288,7 +307,7 @@ __device__ __forceinline__ void consume(const float* __restrict__ origins, const
       const int lrow0 = ch + w * 64;
       const int nvalid = max(0, min(64, rows - lrow0));
       float* raw = raw_u + (size_t)lrow0 * 4;
-      encode_rows<A, PTS>(emb, vt, tid, lrow0, rows, ray0, S, L, cv, origins, dirs, z, vemb);
+      encode_rows<A, PTS>(emb, vt, tid, lrow0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
       publish(w);
       field_rows<W, A>(act, emb_a, vt_a, bias, D, skip, tid, w, ring, raw, nvalid, timer ? prof : nullptr);
     }
@@ -299,8 +318,8 @@ __device__ __forceinline__ void consume(const float* __restrict__ origins, const
 
 template <int W, typename A, bool PTS>
 __global__ void __launch_bounds__(NTHREADS, 1)
-render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs, const float* __restrict__ vemb, int cv,
-              const float* __restrict__ z, const float* __restrict__ dist, const float* __restrict__ noise,
+render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs, const float* __restrict__ times,
+              const float* __restrict__ vemb, int cv, const float* __restrict__ z, const float* __restrict__ dist, const float* __restrict__ noise,
               const __grid_constant__ Plan plan, const unsigned char* __restrict__ img, const float* __restrict__ bias,
               int D, int skip, int L, int white, int N, int S, int R, float* __restrict__ rgb_out,
               float* __restrict__ acc_out, float* __restrict__ depth_out, float* __restrict__ w_out,
@@ -347,15 +366,16 @@ render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
       }
     }
   } else {
-    consume<W, A, PTS>(origins, dirs, vemb, cv, z, bias, D, skip, L, N, S, R, prof, sm, bars, raw_full, raw_free,
-                       raw_s);
+    consume<W, A, PTS>(origins, dirs, times, vemb, cv, z, bias, D, skip, L, N, S, R, prof, sm, bars, raw_full,
+                       raw_free, raw_s);
   }
 }
 
 // Packs the image into img (img_bytes long) and launches the body on a
 // persistent grid.
 template <int W, typename A, bool PTS>
-int render_launch(const float* origins, const float* dirs, const float* vemb, int cv, const float* z, const float* dist,
+int render_launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
+                  const float* dist,
                   const float* noise, const void* wts, const float* bias, int D, int skip, int L, int white, int N,
                   int S, float* rgb, float* acc, float* depth, float* w_out, void* img, long long img_bytes,
                   cudaStream_t st) {
@@ -369,20 +389,22 @@ int render_launch(const float* origins, const float* dirs, const float* vemb, in
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long units = ((long long)N + R - 1) / R;
-  kern<<<grid_for(units), NTHREADS, smem, st>>>(origins, dirs, vemb, cv, z, dist, noise, plan,
+  kern<<<grid_for(units), NTHREADS, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, plan,
                                                 static_cast<const unsigned char*>(img), bias, D, skip, L, white, N, S,
                                                 R, rgb, acc, depth, w_out, g_prof);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The most samples per ray (at most 1024) whose block of this body fits
-// SMEM_OPTIN at width W (128 or 256) and the narrow or the wide pads: 1024
-// for every family (one ray per unit where two do not fit).
-inline int max_samples(int wide, int W) {
+// SMEM_OPTIN at width W (128 or 256) and the narrow, the wide or the T-NeRF
+// pads: 1024 for every family (one ray per unit where two do not fit).
+inline int max_samples(int tnerf, int wide, int W) {
   int S = 1024;
   for (; S > 0; --S) {
-    const size_t smem = wide ? (W == 256 ? render_smem<256, VanillaWide>(S) : render_smem<128, VanillaWide>(S))
-                             : (W == 256 ? render_smem<256, Vanilla>(S) : render_smem<128, Vanilla>(S));
+    const size_t smem =
+        tnerf  ? (W == 256 ? render_smem<256, TNerf>(S) : render_smem<128, TNerf>(S))
+        : wide ? (W == 256 ? render_smem<256, VanillaWide>(S) : render_smem<128, VanillaWide>(S))
+               : (W == 256 ? render_smem<256, Vanilla>(S) : render_smem<128, Vanilla>(S));
     if (smem <= SMEM_OPTIN) break;
   }
   return S;

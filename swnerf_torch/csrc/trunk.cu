@@ -57,7 +57,10 @@
 //     next to d feat), then gemm_common.cuh::field_reverse, B1's reverse
 //     sweep: fixed-order dW splits, no atomics, bit-equal repeats; demb as
 //     dz_{skip+1} W_emb^T + dz_0 W_0^T over the live columns, in fp32 (the
-//     Pallas backward rounds it to the compute dtype, raymarch.py:765).
+//     Pallas backward rounds it to the compute dtype, raymarch.py:765). B7
+//     in bf16 runs the sweep's large products and demb on the tensor cores
+//     (tc_gemm.cuh, as B1: dW, dH with ReLU's mask, demb as an fp32 store
+//     then add over its 128-column pad); dvemb, B7' and B8 stay SIMT.
 //  3. trunk_tc_kernel (bf16, B7 and B8 without a scratch: the mesh sweep,
 //     the no-grad field routes): tc_render.cuh's field product on the
 //     tensor cores, 128 rows per pass over the weight image.
@@ -529,7 +532,9 @@ int bwd(const void* wts_v, int D, int skip, int cin, int cv, long long P, const 
     }
     return 0;
   } else {
-    return field_reverse<T, W, A::ACT>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb, demb, dvemb, st);
+    constexpr bool TC = std::is_same<T, __nv_bfloat16>::value && std::is_same<A, Trunk>::value;  // B7
+    return field_reverse<T, W, A::ACT, decltype(hl), TC>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb, demb,
+                                                         dvemb, st);
   }
 }
 

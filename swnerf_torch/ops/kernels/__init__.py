@@ -28,11 +28,13 @@ as ``render_pass[pts,wide,S=..]``, B9 as ``render_loss[ext,S=..]`` and
 ``render_loss[ext,wide,S=..]``, B10 as ``sample_pdf_merge``, B11's backward
 as ``time_net[pts,bwd]`` (its forward is B6's ``time_net``).
 
-In bf16, B3 (every mode) and B6's forward run on the tensor cores
-(``csrc/tc_chunk.cuh``, ``csrc/tc_render.cuh``); their wrappers hand the
-launchers a scratch for the weight image, of the size the libraries give
-(``render_pass_image_bytes``, ``time_net_image_bytes``). The rest, every
-fp32 instantiation, B9 and the training path's B3 launch
+In bf16, B3 (every mode), B4's forward and B6's forward run on the tensor
+cores (``csrc/tc_chunk.cuh``, ``csrc/tc_render.cuh``); their wrappers hand
+the launchers a scratch for the weight image, of the size the libraries give
+(``render_pass_image_bytes``, ``time_net_image_bytes``). The reverse sweeps
+of bf16 B1, B4, B6 and B7 (with B7's input cotangent) run their large
+products on them too (``csrc/tc_gemm.cuh``). The rest, every fp32
+instantiation, B9 and the training path's B3 launch
 (``render_pass(..., ordered=True)``, which B9's recomputed forward equals)
 are SIMT.
 

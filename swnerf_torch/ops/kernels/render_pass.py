@@ -492,7 +492,7 @@ def render_pass(
     lib = build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
     bf16 = int(packed.weights.dtype == torch.bfloat16)
-    size_fn = lib.render_pass_image_bytes  # the bf16 vanilla body's weight image (csrc/tc_render.cuh), else 0
+    size_fn = lib.render_pass_image_bytes  # the bf16 body's weight image (csrc/tc_render.cuh), else 0
     size_fn.restype = ctypes.c_longlong
     size_fn.argtypes = [i] * 6
     img_bytes = size_fn(int(packed.arch == "tnerf"), bf16, int(packed.wide), packed.W, packed.D, packed.skip)

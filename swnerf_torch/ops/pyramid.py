@@ -13,11 +13,20 @@ it grows: ``F.interpolate(mode="bilinear", align_corners=False,
 antialias=True)`` computes the same, odd sizes (25 -> 12) included
 (tests/test_torch_multires.py). The reference PyTorch code resizes without
 the antialias; the port follows the JAX package.
+
+The resize's backward is its own (:class:`_Resize`): ``F.interpolate``'s
+antialiased backward on CUDA adds into the input's gradient with atomics,
+so two launches on the same cotangent differed in the last bits and a
+MultiRes phase 2 (whose global term runs through the reconstruction) did
+not repeat run to run. The forward stays ``F.interpolate``'s, bit for bit;
+the backward applies the adjoint of the same separable map, G -> A_h^T G
+A_w, with the per-axis weight matrices taken once per size pair from
+``F.interpolate`` itself, as two fixed-order products.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,10 +48,52 @@ def gaussian_blur(images: torch.Tensor, kernel_size: int = 3, sigma: float = 1.0
     return out.permute(0, 2, 3, 1)
 
 
-def _resize(images: torch.Tensor, H: int, W: int) -> torch.Tensor:
+def _interpolate(images: torch.Tensor, H: int, W: int) -> torch.Tensor:
     x = images.permute(0, 3, 1, 2)
     out = F.interpolate(x, size=(H, W), mode="bilinear", align_corners=False, antialias=True)
     return out.permute(0, 2, 3, 1)
+
+
+_AXIS: Dict[Tuple[int, int, torch.dtype, str], torch.Tensor] = {}
+
+
+def axis_matrix(n_in: int, n_out: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """The 1-D resize ``n_in -> n_out`` as ``F.interpolate`` computes it, a
+    [n_out, n_in] matrix A (out = A @ in along the axis): the identity basis
+    resized along the width (the antialiased CPU kernel mishandles a width of
+    one, so both axes take theirs from the width), in float64, cached."""
+    key = (n_in, n_out, dtype, str(device))
+    if key not in _AXIS:
+        eye = torch.eye(n_in, dtype=torch.float64)[None, :, None, :]
+        a = F.interpolate(eye, size=(1, n_out), mode="bilinear", align_corners=False, antialias=True)
+        _AXIS[key] = a[0, :, 0, :].t().contiguous().to(dtype=dtype, device=device)
+    return _AXIS[key]
+
+
+def resize_backward(g: torch.Tensor, H_in: int, W_in: int) -> torch.Tensor:
+    """The adjoint of :func:`_resize` at a cotangent g [N, H, W, C]:
+    A_h^T g A_w, two matrix products in a fixed order (no atomics)."""
+    N, H, W, C = g.shape
+    ah = axis_matrix(H_in, H, g.dtype, g.device)
+    aw = axis_matrix(W_in, W, g.dtype, g.device)
+    t = torch.matmul(ah.t(), g.reshape(N, H, W * C))  # [N, H_in, W * C]
+    t = torch.matmul(aw.t(), t.reshape(N * H_in, W, C))  # [N * H_in, W_in, C]
+    return t.reshape(N, H_in, W_in, C)
+
+
+class _Resize(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, images: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        ctx.in_hw = images.shape[1], images.shape[2]
+        return _interpolate(images, H, W)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return resize_backward(g, *ctx.in_hw), None, None
+
+
+def _resize(images: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    return _Resize.apply(images, H, W)
 
 
 def generate_gaussian_pyramid(images: torch.Tensor, levels: int = 4, kernel_size: int = 3, sigma: float = 1.0

@@ -29,10 +29,16 @@ card, of each model with only the backward's products on it (the twin's
 forward, tc_model.sweep_field), and of each model with the forward's
 products on it too (tc_model.field_forward_model, then the sweep). That
 last number says whether B1's forward can move onto the tensor cores under
-the 1e-2 bar.
+the 1e-2 bar. ``--backward b4`` does the same for B4 (the T-NeRF flagship,
+D=8, W=128, multires 10 / 4, ELU, seeded weights, S=64; its bf16 reverse
+sweep runs on the tensor cores with ELU' in the dH epilogue), and
+``--backward b7`` for B7's backward with the input cotangent demb at the
+MultiRes levels given (D=8, W=256, seeded weights, rays x samples rows on
+[-1.2, 1.2]^3): the card's gradients and demb against the bf16 twin, and
+each model's (tc_model.sweep_trunk) on the twin's forward.
 
     python3 tc_rounding.py [--levels level0 level1 identity] [--rays 500]
-    python3 tc_rounding.py --backward [--rays 500]
+    python3 tc_rounding.py --backward [b1] [b4] [b7] [--rays 500] [--levels ...]
 
 Needs a CUDA device; builds the kernels at first use.
 """
@@ -56,7 +62,8 @@ def main() -> int:
     ap.add_argument("--levels", nargs="+", default=list(LEVELS), choices=list(LEVELS))
     ap.add_argument("--rays", type=int, default=500)
     ap.add_argument("--samples", type=int, default=64)
-    ap.add_argument("--backward", action="store_true", help="B1 with the reverse sweep on the tensor cores")
+    ap.add_argument("--backward", nargs="*", choices=["b1", "b4", "b7"], default=None,
+                    help="kernels with the reverse sweep on the tensor cores (no value: b1)")
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
@@ -117,8 +124,15 @@ def main() -> int:
         return packed, emb, hs
 
     print(f"tc_rounding: {torch.cuda.get_device_name(0)}, {a.rays} rays x {a.samples} samples")
-    if a.backward:
-        return backward_b1(a.rays, dev)
+    if a.backward is not None:
+        for kernel in a.backward or ["b1"]:
+            if kernel == "b1":
+                backward_b1(a.rays, dev)
+            elif kernel == "b4":
+                backward_b4(a.rays, dev)
+            else:
+                backward_b7(a.rays, a.samples, a.levels, dev)
+        return 0
     for level in a.levels:
         model, packed, args = case(level, a.rays, a.samples)
         pts, ve, z, dist, noise, gct = args
@@ -184,13 +198,7 @@ def backward_b1(n: int, dev) -> int:
     model = VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
     packed = b3.pack_params(model.state_dict(), cfg, torch.bfloat16)
     for s in (64, 192):
-        g = torch.Generator(device=dev).manual_seed(s)
-        o = torch.randn((n, 3), generator=g, device=dev) * 0.3 + torch.tensor([0.0, 0.0, 4.0], device=dev)
-        d = torch.randn((n, 3), generator=g, device=dev)
-        d[:, 2] = -d[:, 2].abs() - 1.0
-        z = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4 + 2, -1).values.contiguous()
-        dist = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n, 1), 1e10, device=dev)], -1)
-        dist = (dist * torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        o, d, z, dist, g = _rays(n, s, dev, s)
         ve = positional_encoding(d / torch.linalg.norm(d, dim=-1, keepdim=True), cfg.nf_views).contiguous()
         noise = torch.randn((n, s), generator=g, device=dev)
         target = torch.rand((n, 3), generator=g, device=dev)
@@ -214,6 +222,106 @@ def backward_b1(n: int, dev) -> int:
             both = sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw_m.float(), mode)
             line.append(f"model {mode}: backward only {dist_to_twin(bwd):.3e}, forward too {dist_to_twin(both):.3e}")
         print(f"[B1 S={s}] {n} rays, gradients max rel L2 from the bf16 twin: " + "; ".join(line))
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _rays(n, s, dev, seed):
+    """n seeded rays toward the origin, s sorted samples in [2, 6], dists."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.randn((n, 3), generator=g, device=dev) * 0.3 + torch.tensor([0.0, 0.0, 4.0], device=dev)
+    d = torch.randn((n, 3), generator=g, device=dev)
+    d[:, 2] = -d[:, 2].abs() - 1.0
+    z = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4 + 2, -1).values.contiguous()
+    dist = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n, 1), 1e10, device=dev)], -1)
+    dist = (dist * torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+    return o, d, z, dist, g
+
+
+def backward_b4(n: int, dev) -> int:
+    """B4's gradients with the reverse sweep on the tensor cores, on the card
+    and under each model, against the bf16 twin (module docstring)."""
+    import torch
+
+    from swnerf_torch.models import TNeRF, TNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels.tc_model import composite, field_forward_model, sweep_field
+
+    cfg = TNeRFConfig()
+    model = TNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
+    packed = b3.pack_tnerf_params(model.state_dict(), cfg, torch.bfloat16)
+    o, d, z, dist, g = _rays(n, 64, dev, 64)
+    ve = positional_encoding(d / torch.linalg.norm(d, dim=-1, keepdim=True), cfg.nf_views).contiguous()
+    times = torch.rand((n,), generator=g, device=dev)
+    noise = torch.randn(z.shape, generator=g, device=dev)
+    target = torch.rand((n, 3), generator=g, device=dev)
+    scale = 1.0 / (3 * n)
+    _, twin = b1.render_loss_plain(packed, o, d, ve, z, dist, noise, target, True, scale, times)
+    twin = b1.unpack_tnerf_grads(twin, packed)
+
+    def dist_to_twin(grads):
+        got = b1.unpack_tnerf_grads(tuple(x.float() for x in grads), packed)
+        return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item() for k in twin)
+
+    _, card = b1.render_loss(packed, o, d, ve, z, dist, noise, target, True, scale, times)
+    line = [f"the card {dist_to_twin(card):.3e}"]
+    fwd = b3.field_forward(packed, o, d, ve, z, times)
+    args = (z, dist, noise, True, target, scale)
+    _, graw = composite(fwd.sigma, fwd.logits, *args, rgb_relu=True)
+    for mode in ("rz", "rn", "exact"):
+        bwd = sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), mode)
+        hs, feat, hv, sigma, logits = field_forward_model(packed, fwd.emb, fwd.vemb, mode)
+        _, graw_m = composite(sigma, logits, *args, rgb_relu=True)
+        both = sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw_m.float(), mode)
+        line.append(f"model {mode}: backward only {dist_to_twin(bwd):.3e}, forward too {dist_to_twin(both):.3e}")
+    print(f"[B4 S=64] {n} rays, W={packed.W}, {packed.cin} of {packed.cin_pad} input columns, gradients max rel L2 "
+          "from the bf16 twin: " + "; ".join(line))
+    torch.cuda.empty_cache()
+    return 0
+
+
+def backward_b7(n: int, s: int, levels, dev) -> int:
+    """B7's gradients and demb with its backward on the tensor cores, on the
+    card and under each model, against the bf16 twin (module docstring)."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.ops.kernels.render_pass import field_mlp
+    from swnerf_torch.ops.kernels.tc_model import sweep_trunk
+
+    for level in levels:
+        cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **LEVELS[level])
+        model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
+        packed = b7.pack_trunk_params(model._occ.state_dict(), cfg, torch.bfloat16)
+        g = torch.Generator(device=dev).manual_seed(1)
+        P = n * s
+        pts = torch.rand((P, 3), generator=g, device=dev) * 2.4 - 1.2
+        vd = torch.randn((n, 3), generator=g, device=dev)
+        vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True))[:, None, :].expand(n, s, 3).reshape(P, 3)
+        emb = positional_encoding(pts, cfg.nf_pts).contiguous()
+        vemb = positional_encoding(vd, cfg.nf_views).contiguous()
+        cot = torch.randn((P, 4), generator=g, device=dev)
+        gt, dt, _ = b7.trunk_plain_bwd(packed, emb, vemb, cot)
+        twin = dict(b7.unpack_trunk_grads(gt, packed), demb=dt)
+
+        def dist_to_twin(grads, demb):
+            got = dict(b7.unpack_trunk_grads(tuple(x.float() for x in grads), packed), demb=demb)
+            return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item() for k in twin)
+
+        _, card, dcard, _ = b7.trunk_fwd_bwd(packed, emb, vemb, cot)
+        line = [f"the card {dist_to_twin(card, dcard):.3e}"]
+        e, v = b7._padded(packed, emb, vemb)
+        hs, feat, hv, _, _ = field_mlp(packed, e, v)
+        for mode in ("rz", "rn", "exact"):
+            line.append(f"model {mode} {dist_to_twin(*sweep_trunk(packed, e, v, hs, feat, hv, cot, mode)):.3e}")
+        print(f"[B7 {level}] {P} rows, {packed.cin} of {packed.cin_pad} input columns, gradients and demb max rel "
+              "L2 from the bf16 twin: " + "; ".join(line))
         torch.cuda.empty_cache()
     return 0
 

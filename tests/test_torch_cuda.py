@@ -47,10 +47,16 @@ route's at the phase-2 bars. B10 bit-equal to B2 + torch.sort and to its
 twin; B11 (fused_time_net_pts with input grads) at B6's bars, dx bit-equal
 to B6's forward.
 The reverse sweep's products on the tensor cores (csrc/tc_gemm.cuh: bf16 B1
-and B6's backward without input cotangents) are held by the bf16 bars
-above, at D-NeRF and every MultiRes level's widths, and at ragged shapes
-(rows not a multiple of 128, live input columns not a multiple of 64):
-gradients rel L2 1e-2 of the twin, bit-equal repeats.
+and B4, B6's backward without input cotangents, B7's with demb) are held
+by the bf16 bars above, at the T-NeRF, D-NeRF and every MultiRes level's
+widths, and at ragged shapes (rows not a multiple of 128, live input
+columns not a multiple of 64): gradients (and demb) rel L2 1e-2 of the
+twin, bit-equal repeats. B4's bf16 forward on the tensor cores
+(csrc/tc_render.cuh with the T-NeRF traits) at B3's bf16 bars at ragged
+shapes and W 128 / 256, its rgb at a PSNR of 40 dB or more against the
+fp32 route's render. The
+MultiRes pyramid's resize: its forward bit-equal to F.interpolate's and its
+fixed-order backward bit-equal across launches at phase 2's sizes.
 """
 
 import dataclasses
@@ -372,6 +378,49 @@ def test_b4_train_bf16_matches_plain(dev):
     assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
     rel = _rel_l2(b1.unpack_tnerf_grads(gg, packed), b1.unpack_tnerf_grads(gr, packed))
     assert max(rel.values()) <= 1e-2, rel
+
+
+@pytest.mark.parametrize("kw", TNERF_CASES, ids=TNERF_IDS)
+@pytest.mark.parametrize("n,s", [(37, 7), (300, 64), (41, 100)], ids=["259rows", "19200rows", "4100rows"])
+@pytest.mark.parametrize("white", [True, False])
+def test_b4_tc_forward_bf16_matches_plain(dev, kw, n, s, white):
+    """bf16 B4 on the tensor cores (tc_render.cuh, T-NeRF traits) at rows
+    that fill no 128-row chunk or 1,024-row unit, W 128 and 256: B3's bf16
+    bars against the bf16 twin, bit-equal repeats, and its rgb within a
+    PSNR of 40 dB of the fp32 route's render (a broken kernel lands near
+    10 dB; bf16 rounding near 60)."""
+    packed, (o, d, ve, z, dist, noise, _), times = _b4_case(dev, kw, n, s, torch.bfloat16)
+    p32, _, _ = _b4_case(dev, kw, n, s, torch.float32)
+    before = launches[f"render_pass[tnerf,S={s}]"]
+    got = b3.render_pass(packed, o, d, ve, z, dist, noise, white, times)
+    again = b3.render_pass(packed, o, d, ve, z, dist, noise, white, times)
+    ref = b3.render_pass_plain(packed, o, d, ve, z, dist, noise, white, times)
+    f32 = b3.render_pass(p32, o, d, ve, z, dist, noise, white, times)
+    torch.cuda.synchronize()
+    assert launches[f"render_pass[tnerf,S={s}]"] == before + 3
+    diff = (got.rgb - ref.rgb).abs()
+    assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3, (diff.max().item(), diff.mean().item())
+    assert torch.equal(got.rgb, again.rgb) and torch.equal(got.weights, again.weights)
+
+    def psnr(x):
+        return -10.0 * torch.log10(((x.rgb - f32.rgb) ** 2).mean().clamp_min(1e-20)).item()
+
+    assert psnr(got) >= 40.0, (psnr(got), psnr(ref))
+
+
+@pytest.mark.parametrize("kw", TNERF_CASES, ids=TNERF_IDS)
+def test_b4_train_bf16_tc_sweep_matches_plain_and_repeats(dev, kw):
+    """bf16 B4's reverse sweep on the tensor cores (ELU' in the dH epilogue,
+    the 96-column embedding spill): gradients rel L2 1e-2 of the twin,
+    bit-equal repeats, at W 128 and 256."""
+    packed, args, times = _b4_case(dev, kw, 300, 64, torch.bfloat16, seed=3)
+    _, g1 = b1.render_loss(packed, *args, True, 1.0 / 900, times)
+    _, g2 = b1.render_loss(packed, *args, True, 1.0 / 900, times)
+    _, gr = b1.render_loss_plain(packed, *args, True, 1.0 / 900, times)
+    torch.cuda.synchronize()
+    rel = _rel_l2(b1.unpack_tnerf_grads(g1, packed), b1.unpack_tnerf_grads(gr, packed))
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -702,7 +751,7 @@ def test_b7_fp32_matches_plain(dev, level):
                        _b7_grads(g64p, d64p, p64))
 
 
-@pytest.mark.parametrize("level", ["level0", "level1"])
+@pytest.mark.parametrize("level", ["level0", "level1", "identity"])
 def test_b7_bf16_matches_plain_and_repeats(dev, level):
     cfg, sd, emb, vemb, g = _b7_case(dev, level, n=500, s=64)
     packed = b7.pack_trunk_params(sd, cfg, torch.bfloat16)
@@ -787,17 +836,38 @@ SWEEP_RAGGED = [
     ("b6", dict(MR_BASE, multires=20, multires_time=8, multires_views=20, netwidth=128), 3, 43),
     ("b6", dict(), 41, 13),  # D-NeRF: 84 of 96 input rows, 533 rows
     ("b6", dict(MR_BASE, multires=-1, multires_time=-1, multires_views=-1, i_embed=-1), 1, 1),  # one row, 4 columns
+    ("b4", dict(), 37, 7),  # 259 rows; 84 live input columns of 96, 27 view columns of 32
+    ("b4", dict(TNERF_SMALL, net_dim=256), 3, 43),  # W 256: 129 rows, 36 input columns
+    ("b7", "level0", 37, 7),  # 259 rows; 123 live columns of 128: demb over them
+    ("b7", "level1", 3, 43),  # 129 rows; 63 live columns
+    ("b7", "identity", 1, 1),  # one row, 3 columns
 ]
 
 
 @pytest.mark.parametrize("kernel, kw, n, s", SWEEP_RAGGED,
                          ids=["b1-259rows", "b1-w128-129rows", "b1-960rows", "b6-level0-259rows",
-                              "b6-level0-w128-129rows", "b6-dnerf-533rows", "b6-identity-1row"])
+                              "b6-level0-w128-129rows", "b6-dnerf-533rows", "b6-identity-1row", "b4-259rows",
+                              "b4-w256-129rows", "b7-level0-259rows", "b7-level1-129rows", "b7-identity-1row"])
 def test_tc_sweep_ragged_shapes(dev, kernel, kw, n, s):
     """The tensor-core sweep (csrc/tc_gemm.cuh) at row counts that fill no
     128-row tile or dW stage, and input widths that fill no 64-column atom:
-    bf16 gradients within rel L2 1e-2 of the twin, bit-equal repeats."""
-    if kernel == "b1":
+    bf16 gradients (B7: and demb) within rel L2 1e-2 of the twin, bit-equal
+    repeats."""
+    if kernel == "b4":
+        packed, args, times = _b4_case(dev, kw, n, s, torch.bfloat16)
+        _, g1 = b1.render_loss(packed, *args, True, 1.0 / (3 * n), times)
+        _, g2 = b1.render_loss(packed, *args, True, 1.0 / (3 * n), times)
+        _, gr = b1.render_loss_plain(packed, *args, True, 1.0 / (3 * n), times)
+        rel = _rel_l2(b1.unpack_tnerf_grads(g1, packed), b1.unpack_tnerf_grads(gr, packed))
+    elif kernel == "b7":
+        cfg, sd, emb, vemb, g = _b7_case(dev, kw, n=n, s=s)
+        packed = b7.pack_trunk_params(sd, cfg, torch.bfloat16)
+        _, g1, d1, _ = b7.trunk_fwd_bwd(packed, emb, vemb, g)
+        _, g2, d2, _ = b7.trunk_fwd_bwd(packed, emb, vemb, g)
+        gr, dr, _ = b7.trunk_plain_bwd(packed, emb, vemb, g)
+        rel = _rel_l2(_b7_grads(g1, d1, packed), _b7_grads(gr, dr, packed))
+        assert torch.equal(d1, d2)
+    elif kernel == "b1":
         packed, args = _b1_case(dev, kw, n, s, torch.bfloat16)
         _, g1 = b1.render_loss(packed, *args, True, 1.0 / (3 * n))
         _, g2 = b1.render_loss(packed, *args, True, 1.0 / (3 * n))
@@ -1689,3 +1759,39 @@ def test_b9_forward_is_the_training_b3_launch(dev, family, s, n):
     for k in ("rgb", "acc", "depth", "weights"):
         assert torch.equal(getattr(fwd, k), getattr(out, k)), k
     assert not torch.equal(serve.weights, out.weights)
+
+
+# ---------------------------------------------------------------- the pyramid's resize
+
+
+@pytest.mark.parametrize("n_in,n_out", [(25, 50), (50, 100), (100, 200), (200, 100), (25, 12)],
+                         ids=["25to50", "50to100", "100to200", "200to100", "25to12"])
+def test_pyramid_resize_backward_repeats_on_the_card(dev, n_in, n_out):
+    """MultiRes phase 2's resize on the card: the forward bit-equal to
+    F.interpolate's, the fixed-order backward bit-equal across two launches
+    and within atol 1e-5 / rtol 1e-6 of F.interpolate's own (atomic)
+    backward; and the reconstruction's backward at phase 2's four levels
+    (200x200, 32 images) bit-equal across two launches."""
+    from swnerf_torch.ops import pyramid as tp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((4, n_in, n_in, 3), generator=g, device=dev)
+    ct = torch.randn((4, n_out, n_out, 3), generator=g, device=dev)
+    assert torch.equal(tp._resize(x, n_out, n_out), tp._interpolate(x, n_out, n_out))
+    grads = []
+    for fn in (tp._resize, tp._resize, tp._interpolate):
+        xx = x.clone().requires_grad_(True)
+        (fn(xx, n_out, n_out) * ct).sum().backward()
+        grads.append(xx.grad)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], grads[2], atol=1e-5, rtol=1e-6)
+    bands = [torch.rand((32, 200 >> i, 200 >> i, 3), generator=g, device=dev) for i in range(4)]
+    ct = torch.randn((32, 200, 200, 3), generator=g, device=dev)
+    out = []
+    for _ in range(2):
+        bb = [b.clone().requires_grad_(True) for b in bands]
+        (tp.reconstruct_from_pyramid(bb) * ct).sum().backward()
+        out.append([b.grad for b in bb])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*out))
