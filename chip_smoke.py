@@ -88,7 +88,9 @@ Phases (each raises on failure; nothing is caught):
      noise std 1: outputs as in phase 7, gradients and dpts as in phase 17,
      bf16 1e-2, bit-equal repeats; then B6 and B3's pts mode against their
      twins at the serving path's chunk shape (32,768 rays), and the times;
-     B6's head share and B3's composite share there (as in phase 6);
+     B6's head share and B3's composite share there (as in phase 6); B5's
+     S=192 launch (its reverse sweep and demb on the tensor cores) by kernel
+     family and against its sweep's products on cuBLAS (as phase 7);
  19. the kernel D-NeRF step against the eager step from the same state and
      draws (TV on): fp32 loss rel 1e-5 (or phase 17's fallback), gradients as
      in phase 17 (the float64 eager step on the CPU as the reference); bf16
@@ -191,7 +193,10 @@ Phases (each raises on failure; nothing is caught):
      000200.tar's and seeded weights, whose rgb does not saturate) at the
      same bars (bf16 depth atol and rtol 1e-2); times there and at phase 2's level-0
      rows (1,024 x 64); B9's gradients on seeded level-0 weights beside the
-     bf16 twin's own distance from itself summed on the CPU (printed);
+     bf16 twin's own distance from itself summed on the CPU (printed); B9
+     wide at level 0 and narrow at the identity level (phase 2's 16 x 64
+     rows and 1,024 x 64) by kernel family and against its sweep's products
+     on cuBLAS (as phase 7);
  32. the MultiRes test render of 000200.tar through render_testset on test
      frames 0/5/10/15/20: levels 0-2 through the D-NeRF eval pass, level 3
      through its fields, against SWNERF_FUSED_EVAL=0 (every level through
@@ -716,19 +721,25 @@ SWEEP_FAMILIES = (("forward", ("render_loss_fwd", "time_net_fwd", "time_net_tc")
 
 def kernel_split(fn, families=SWEEP_FAMILIES):
     """Device ms of one ``fn()`` by kernel family (torch.profiler's CUDA
-    activity, after a warm-up), or None when it records no device time."""
+    activity, after a warm-up), or None when it records no device time.
+    Thirty-two short spin kernels open the profiled window and are left out
+    of the sums: late in this script's run, profiles without them lost their
+    first few device records (B5's and B9's SIMT forwards in phases 18 and
+    31 were missing from the families; one long spin did not help)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            torch.cuda._sleep(100_000)
         fn()
         torch.cuda.synchronize()
     by = dict.fromkeys([f for f, _ in families] + ["other"], 0.0)
     for evt in prof.key_averages():
         us = _device_us(evt)
-        if us and str(evt.device_type).endswith("CUDA"):
+        if us and str(evt.device_type).endswith("CUDA") and "spin_kernel" not in evt.key:
             by[next((f for f, keys in families if any(k in evt.key for k in keys)), "other")] += us / 1e3
     return by if sum(by.values()) > 0 else None
 
@@ -737,9 +748,9 @@ def sweep_products(W, D, skip, cin_pad, cv_pad=None, demb=False):
     """The reverse sweep's large products, as ("dw", in, out) for dW = X^T
     dZ and ("dh", out, in) for dH = dZ W^T: per trunk layer its dW and
     (above layer 0) its dH, the embedding rows' dW at layer 0 and the skip
-    layer (with demb, B7, also dz W_emb^T there); with cv_pad (B1, B4, B7)
-    first the view layer's two dW, d feat, the feature dW and the top
-    layer's dH."""
+    layer (with demb, B5, B7, B9, also dz W_emb^T there); with cv_pad (B1,
+    B4, B5, B7, B9) first the view layer's two dW, d feat, the feature dW
+    and the top layer's dH."""
     out = []
     if cv_pad is not None:
         out += [("dw", W, W // 2), ("dw", cv_pad, W // 2), ("dh", W // 2, W), ("dw", W, W), ("dh", W, W)]
@@ -775,7 +786,8 @@ def library_sweep_ms(P, products, dev):
 
 
 def report_sweep(tag, name, fn, ms, bound_ms, P, products, dev):
-    """Prints a bf16 B1 / B6-backward launch's time beside its bound, its
+    """Prints a bf16 train-mode launch's (B1, B4, B5, B9) or backward's
+    (B6, B7) time beside its bound, its
     device time by kernel family and its sweep's large products on cuBLAS;
     returns (family split or None, the cuBLAS sum)."""
     split = kernel_split(fn)
@@ -1976,6 +1988,10 @@ def phase18_pts(dev, cfg, sd, inputs, data):
                 cuda_ms(lambda: b1.render_loss_pts_plain(p16, warped, *args, True, scale), 5),
                 nbytes, 2 * b1.pts_train_macs_per_sample(p16) * z.numel(), "bf16",
             )
+            row = rows["render_loss[pts,S=192]"]
+            report_sweep("18", "render_loss[pts,S=192] bf16",
+                         lambda: b1.render_loss_pts(p16, warped, *args, True, scale), row["ms"], row["bound_ms"],
+                         z.numel(), sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad, demb=True), dev)
         del gk, gk2, gr, got, ref
         torch.cuda.empty_cache()
 
@@ -3953,7 +3969,10 @@ def phase31_b3w_b9(dev, data, states):
           f"(32,768 x 64) {b3ms:.3f} ms ({2 * p16.macs_per_sample * nb / b3ms / 1e9:.2f} TFLOP/s); phase 2's "
           f"1,024 x 64 rows {b3small:.3f} ms; the training path's ordered launch (SIMT) {b3ms_o:.3f} "
           f"and {b3small_o:.3f} ms")
-    for key, level, n_rays in (("render_loss[ext,wide]", 0, 1024), ("render_loss[ext]", 3, 16)):
+    # B9 at phase 2's rows (wide at level 0, narrow at the identity level),
+    # and narrow at level 0's 1,024 x 64 too; each with its sweep by kernel
+    # family and the sweep's products on cuBLAS
+    for key, level, n_rays in (("render_loss[ext,wide]", 0, 1024), ("render_loss[ext]", 3, 16), (None, 3, 1024)):
         pk, wp, vv = packs[(level, "bf16")]
         args = (pk, wp[:n_rays].contiguous(), vv[:n_rays].contiguous(), z[:n_rays].contiguous(),
                 dist[:n_rays].contiguous(), noise[:n_rays].contiguous(), gct[:n_rays].contiguous(), True)
@@ -3964,10 +3983,14 @@ def phase31_b3w_b9(dev, data, states):
         nbytes = (4 * (3 * rows_n + args[2].numel() + 3 * rows_n + 5 * n_rays) + 2 * pk.weights.numel()
                   + 4 * pk.biases.numel() + 4 * (5 * n_rays + rows_n + 3 * rows_n)
                   + 4 * (pk.weights.numel() + pk.biases.numel()))
-        rows[key] = entry(key, "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276", 0,
-                          err16["b9n" if level == 3 else "b9"], ms, plain, nbytes, 2 * macs * rows_n, "bf16")
+        if key is not None:
+            rows[key] = entry(key, "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+                              0, err16["b9n" if level == 3 else "b9"], ms, plain, nbytes, 2 * macs * rows_n, "bf16")
         print(f"[31 times] B9 level {level} ({macs} MACs per sample), {n_rays} x 64 rows: {ms:.3f} ms "
               f"({2 * macs * rows_n / ms / 1e9:.2f} TFLOP/s); twin {plain:.3f} ms")
+        report_sweep("31", f"render_loss[ext{',wide' if pk.wide else ''},S=64] bf16, level {level}, {n_rays} x 64",
+                     lambda: b1.render_loss_ext(*args), ms, bound(nbytes, 2 * macs * rows_n, "bf16")[0], rows_n,
+                     sweep_products(pk.W, pk.D, pk.skip, pk.cin_pad, pk.cv_pad, demb=True), dev)
     return rows
 
 
@@ -4232,7 +4255,7 @@ def phase2_profile(dev, scene, pyr_hwf, ckpt):
     patch_sizes = [32, 16, 8, 4]
     families = (("B9 forward", ("render_loss_fwd",)), ("B3 wide / B3 pts forward", ("render_pass_kernel", "render_kernel<")),
                 ("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
-                ("B6 backward, tensor-core products", ("sweep_dw", "sweep_dh")),
+                ("backward tensor-core products (B6, B7, B9)", ("sweep_dw", "sweep_dh")),
                 ("backward SIMT GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
                                                         "cotangent_kernel", "round_cotangent", "encode_bwd")))
     for route in (True, False):

@@ -9,11 +9,11 @@
 // reduce_kernel adds in split order: no atomics, so two launches on the same
 // inputs give bit-equal gradients. dH = dZ W^T runs row-parallel with the
 // activation's derivative and the rounding to the operand type (or, for the
-// input cotangent of B5, an fp32 store or accumulate) in its epilogue. Under
-// the sweeps' TC switch (bf16 B1 and B4, B6 without input cotangents, B7)
-// the two large products of each layer, and B7's input cotangent, run on
-// the tensor cores instead (tc_gemm.cuh: tc_reduce, tc_act, tc_demb), with
-// the same split reduction.
+// input cotangent, an fp32 store or accumulate) in its epilogue. Under the
+// sweeps' TC switch (bf16 B1, B4, B5, B9, B6 without input cotangents, B7)
+// the two large products of each layer, and the input cotangent of B5, B7
+// and B9, run on the tensor cores instead (tc_gemm.cuh: tc_reduce, tc_act,
+// tc_demb), with the same split reduction.
 
 #pragma once
 
@@ -275,21 +275,28 @@ int tc_act(const T* dz, long long lda, const T* w, int K, int N, long long P, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The input cotangent's product on the tensor cores (B7): demb [P][cin]
-// fp32 = (add ? demb + : ) dz w_emb^T over the live columns n < cin, dz
-// [P][W], w_emb the packed [CIN][W] embedding rows (CIN = 128: the product
-// runs all 128 columns, whose pad rows are zero, and stores the live ones).
+// The input cotangent's product on the tensor cores (B5, B7, B9): demb
+// [P][cin] fp32 = (add ? demb + : ) dz w_emb^T over the live columns n <
+// cin, dz [P][W], w_emb the packed [CIN][W] embedding rows (CIN = 64, the
+// vanilla pad of B5 and narrow B9, or 128, B7's and wide B9's: the product
+// runs all CIN columns, whose pad rows are zero, and stores the live ones).
+template <int CIN>
+int tc_demb_at(const tc::DhArgs& g, int W, bool add, cudaStream_t st) {
+  if (W == 256)
+    return static_cast<int>(add ? tc::dh_launch<CIN, 256, tc::Epi::Add32>(g, st)
+                                : tc::dh_launch<CIN, 256, tc::Epi::Store32>(g, st));
+  return static_cast<int>(add ? tc::dh_launch<CIN, 128, tc::Epi::Add32>(g, st)
+                              : tc::dh_launch<CIN, 128, tc::Epi::Store32>(g, st));
+}
+
 template <typename T>
 int tc_demb(const T* dz, int W, const T* w_emb, int CIN, int cin, long long P, float* demb, bool add,
             cudaStream_t st) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core sweep is bf16 only");
   const tc::DhArgs g{dz, W, w_emb, P, nullptr, 0, nullptr, 0, nullptr, nullptr, cin, demb, cin};
-  if (CIN != 128 || (W != 256 && W != 128)) return static_cast<int>(cudaErrorInvalidValue);
-  if (W == 256)
-    return static_cast<int>(add ? tc::dh_launch<128, 256, tc::Epi::Add32>(g, st)
-                                : tc::dh_launch<128, 256, tc::Epi::Store32>(g, st));
-  return static_cast<int>(add ? tc::dh_launch<128, 128, tc::Epi::Add32>(g, st)
-                              : tc::dh_launch<128, 128, tc::Epi::Store32>(g, st));
+  if ((CIN != 128 && CIN != 64) || cin > CIN || (W != 256 && W != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return CIN == 128 ? tc_demb_at<128>(g, W, add, st) : tc_demb_at<64>(g, W, add, st);
 }
 
 GemmArgs gemm_args(const void* A, long long sam, long long sat, const void* B, long long sbt, long long sbn, int M,
@@ -329,8 +336,9 @@ size_t trunk_offsets(int D, int skip, int cin_pad, int W, size_t* off_w, size_t*
 // dz[(D-1) & 1]) down: per layer its dW with the bias row (the spilled
 // inputs carry a column of ones), then dz of the layer below. emb is the
 // spilled input [P][CIN] (cin live columns, then the ones); h(i) layer i's
-// spilled output [P][W + PADC]. With demb (B5), the input cotangent over the
-// cin live columns, fp32 [P][cin]: dz_{skip+1} W_emb^T, then + dz_0 W_0^T.
+// spilled output [P][W + PADC]. With demb (B5, B7, B9), the input
+// cotangent over the cin live columns, fp32 [P][cin]: dz_{skip+1} W_emb^T,
+// then + dz_0 W_0^T.
 // TC (bf16): dW, dH (ELU' or ReLU's mask in its epilogue) and demb on the
 // tensor cores (tc_reduce, tc_act, tc_demb), the bias rows as dz's column
 // sums.
@@ -426,18 +434,18 @@ struct FieldTape {
   float* part;
 };
 
-// The field's reverse sweep from the raw cotangent (B1, B4, B5 after their
-// composite backward; B7 from its given cotangent), in the packed layout of
-// ops/kernels/render_pass.py::weight_layout with the input padded to CIN and
-// the view embedding to CVP rows: the rgb head and the view layer, d feat
-// next to d sigma, the feature + alpha product, then the trunk
-// (trunk_reverse). gw / gb are the packed fp32 gradients (zeroed by the
-// caller); demb [P][cin] (B5, B7) and dvemb [P][cv] (B7) are the input
-// cotangents in fp32, formed where not null. TC (bf16 B1, B4, B7): the view
-// layer's two dW, d feat, the feature + alpha dW (its d sigma column and
-// bias row beside the product) and dz_{D-1} on the tensor cores, then the
-// trunk's with demb (dvemb, which no tensor-core caller's main path asks
-// for, stays a SIMT product).
+// The field's reverse sweep from the raw cotangent (B1, B4, B5, B9 after
+// their composite backward; B7 from its given cotangent), in the packed
+// layout of ops/kernels/render_pass.py::weight_layout with the input padded
+// to CIN and the view embedding to CVP rows: the rgb head and the view
+// layer, d feat next to d sigma, the feature + alpha product, then the
+// trunk (trunk_reverse). gw / gb are the packed fp32 gradients (zeroed by the
+// caller); demb [P][cin] (B5, B7, B9) and dvemb [P][cv] (B7) are the input
+// cotangents in fp32, formed where not null. TC (bf16 B1, B4, B5, B7, B9):
+// the view layer's two dW, d feat, the feature + alpha dW (its d sigma
+// column and bias row beside the product) and dz_{D-1} on the tensor
+// cores, then the trunk's with demb (dvemb, which no tensor-core caller's
+// main path asks for, stays a SIMT product).
 template <typename T, int W, Act ACT, typename H, bool TC = false>
 int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int cv, long long P,
                   const FieldTape<T, H>& tp, float* gw, float* gb, float* demb, float* dvemb, cudaStream_t st) {

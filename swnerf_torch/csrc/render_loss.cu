@@ -58,14 +58,16 @@
 //     samples. reduce_kernel adds the partials in split order and scatters
 //     them into the packed gradient buffers; colsum_kernel does the same for
 //     the fp32 bias sums of the heads. No atomics: two launches on the same
-//     inputs give bit-equal gradients. B1 and B4 in bf16 run both products
-//     of every layer, the view layer's dW and d feat on the tensor cores
-//     (tc_gemm.cuh: bf16 wgmma into fp32, dW with both operands MN-major;
-//     the bias rows and the d sigma column in fp32 beside the product; B4's
-//     ELU' from the stored output in the dH epilogue, its 96-column spilled
-//     embedding read as two 64-wide blocks whose last 32 columns the copy
-//     zero-fills); the fp32 parity mode, B5 and B9 keep gemm_kernel's SIMT
-//     product.
+//     inputs give bit-equal gradients. In bf16, B1, B4, B5 and B9 run both
+//     products of every layer, the view layer's dW and d feat, and B5's and
+//     B9's input cotangent on the tensor cores (tc_gemm.cuh: bf16 wgmma
+//     into fp32, dW with both operands MN-major; the bias rows and the d
+//     sigma column in fp32 beside the product; B4's ELU' from the stored
+//     output in the dH epilogue, its 96-column spilled embedding read as
+//     two 64-wide blocks whose last 32 columns the copy zero-fills; demb
+//     over the 64-column pad of B5 and narrow B9 or the 128-column pad of
+//     wide B9, stored in fp32 for the skip layer, added to for layer 0);
+//     the fp32 parity mode keeps gemm_kernel's SIMT product.
 //
 // Operands are fp32 (parity mode) or bf16, rounded where the plain twin and
 // _trunk_reverse round them (embedding, activations, dz, g_rgb, dhv, dfa);
@@ -78,9 +80,8 @@
 // bar at MultiRes level 0, and an unbiased fold of each step did not keep
 // them inside it on every seeded case; this body shares the twin's fp32
 // order up to the skip layer. So every forward here stays SIMT, and only
-// B1's and B4's reverse sweeps moved to the tensor cores (their masks and
-// ELU' come from the stored activations, which that product does not
-// rewrite); B5's and B9's backward on the tensor cores are later work. No
+// the reverse sweeps moved to the tensor cores (their masks and ELU' come
+// from the stored activations, which that product does not rewrite). No
 // --use_fast_math
 // (ops/kernels/build.py):
 // sinf/cosf stay accurate at the 2^9-frequency arguments, and the
@@ -396,11 +397,12 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
                                             sqerr, w_out, sc);
   SWNERF_CHECK(cudaGetLastError());
 
-  // 2-4. the heads, d feat next to d sigma, the trunk (with B5's input
-  //      cotangent): gemm_common.cuh::field_reverse; bf16 B1's and B4's
+  // 2-4. the heads, d feat next to d sigma, the trunk (with B5's and B9's
+  //      input cotangent): gemm_common.cuh::field_reverse; in bf16 its
   //      large products on the tensor cores (TC)
   constexpr bool TC = std::is_same<T, __nv_bfloat16>::value &&
-                      (std::is_same<A, Vanilla>::value || std::is_same<A, TNerf>::value) && !PTS && !EXT;
+                      (std::is_same<A, Vanilla>::value || std::is_same<A, VanillaWide>::value ||
+                       std::is_same<A, TNerf>::value);
   FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, sc.graw, dz, dhv_c, dhv32, part};
   SWNERF_RUN((field_reverse<T, W, A::ACT, decltype(hl), TC>(wts, D, skip, CIN, cin, A::CV, cv, P, tape, gw, gb, demb,
                                                             nullptr, st)));
@@ -473,6 +475,25 @@ int render_loss_launch(int tnerf, int bf16, int W, const float* origins, const f
   }
 #undef SWNERF_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The input cotangent's product alone, for the card's tests: demb [P][cin]
+// fp32 = (add ? demb + : ) dz w_emb^T, dz [P][W] and w_emb (the packed
+// [CIN][W] embedding rows, CIN 64 or 128) bf16, on the tensor cores (tc !=
+// 0: gemm_common.cuh::tc_demb, the product B5, B7 and B9 run) or on the
+// SIMT gemm_act that it replaced.
+int render_loss_demb_probe(int tc, int W, int CIN, int cin, long long P, const void* dz, const void* w_emb,
+                           float* demb, int add, void* stream) {
+  using T = __nv_bfloat16;
+  if (P <= 0 || cin < 1 || cin > CIN) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* z = static_cast<const T*>(dz);
+  const T* w = static_cast<const T*>(w_emb);
+  if (tc) return tc_demb<T>(z, W, w, CIN, cin, P, demb, add != 0, st);
+  GemmArgs g = gemm_args(z, W, 1, w, 1, W, (int)P, cin, W);
+  g.C = demb;
+  g.ldc = cin;
+  return add ? gemm_act<T, false, 2>(g, st) : gemm_act<T, false, 1>(g, st);
 }
 
 // B5's scratch bytes, or -1 for an unsupported width.

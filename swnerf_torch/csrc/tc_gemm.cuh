@@ -1,13 +1,14 @@
 // The reverse sweep's two large products on Hopper's tensor cores, for the
 // bf16 backward of B1 (render_loss.cu, vanilla train mode), of B4 (the
-// same, T-NeRF: ELU), of B6 (time_net.cu, without input cotangents) and of
-// B7 (trunk.cu, with the input cotangent demb): dW = X^T dZ and dH = dZ
-// W^T, the shapes of gemm_common.cuh::gemm_reduce and gemm_act, which
-// trunk_reverse and field_reverse call here instead under their TC switch.
-// Every other instantiation (the fp32 parity mode, B5, B7', B8, B9, B11)
-// keeps gemm_common.cuh's SIMT product, and so do the narrow products of
-// the swept kernels (the rgb head, B6's 3-wide output head,
-// head_bwd_kernel), B7's dvemb and the column sums of fp32 cotangents.
+// same, T-NeRF: ELU), of B5 and B9 (the same body on given positions, with
+// the input cotangent demb), of B6 (time_net.cu, without input cotangents)
+// and of B7 (trunk.cu, with demb): dW = X^T dZ and dH = dZ W^T, the shapes
+// of gemm_common.cuh::gemm_reduce and gemm_act, which trunk_reverse and
+// field_reverse call here instead under their TC switch. Every other
+// instantiation (the fp32 parity mode, B7', B8, B11) keeps
+// gemm_common.cuh's SIMT product, and so do the narrow products of the
+// swept kernels (the rgb head, B6's 3-wide output head, head_bwd_kernel),
+// B7's dvemb and the column sums of fp32 cotangents.
 //
 // Replaces, on the card, the products of swnerf_tpu/ops/pallas/
 // render_fused.py::_trunk_reverse (:184-268, inside _render_loss_kernel),
@@ -37,8 +38,9 @@
 //    + u[m] v[n] (the top layer's d sigma w_alpha term), times the
 //    activation's derivative from the stored activation (ReLU's mask, or
 //    ELU's h + 1 for h <= 0: B4), rounded to bf16 where gemm_kernel rounds.
-//    B7's input cotangent demb = dz W_emb^T takes the same product with an
-//    fp32 epilogue and no mask: stored over the live columns for the skip
+//    The input cotangent demb = dz W_emb^T (B5, B7, B9) takes the same
+//    product, N = 64 or 128 columns of the embedding's pad, with an fp32
+//    epilogue and no mask: stored over the live columns for the skip
 //    layer's rows, then added to for layer 0's (gemm_act's F32 = 1, 2).
 //  - dW = X^T dZ (sweep_dw_kernel): both operands have the reduction (the
 //    rows) as their slow dimension, so both are MN-major (wgmma's transpose
@@ -342,9 +344,9 @@ struct DhArgs {
   int ncol;
 };
 
-// The dH epilogue: times ReLU's derivative [mask > 0] (B1, B6, B7) or
-// ELU's from the stored output (B4), rounded to bf16 into c; or the fp32
-// sum stored into c32, or added to it, with no mask (B7's demb).
+// The dH epilogue: times ReLU's derivative [mask > 0] (B1, B5, B6, B7, B9)
+// or ELU's from the stored output (B4), rounded to bf16 into c; or the fp32
+// sum stored into c32, or added to it, with no mask (demb).
 enum class Epi { Relu, Elu, Store32, Add32 };
 
 // The matrix (K / 64 atoms of N rows), then the ring of 128-row A stages.

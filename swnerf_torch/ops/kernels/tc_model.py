@@ -13,16 +13,18 @@ On top of it, what the kernels would give with their products on that
 model, for any device:
 
 - :func:`sweep_field` is ``gemm_common.cuh::field_reverse`` with its
-  tensor-core switch (bf16 B1's and B4's reverse sweep): the view layer's
-  two dW, d feat, the feature dW, dz of the top layer and every trunk
-  layer's dW and dH on the model; the rgb head, dhv, the d sigma column and
-  the bias sums as the plain twin's fp32 (``render_loss.field_reverse_plain``).
-  The packed weights' ``arch`` picks the family: ReLU's mask, or (T-NeRF)
-  ELU's derivative from the stored output, h > 0 ? 1 : h + 1, multiplied in
-  fp32 where the dH epilogue multiplies;
-- :func:`sweep_trunk` is the same sweep for B7's backward with its input
-  cotangent: demb = dz_{skip+1} W_emb^T stored in fp32, then + dz_0 W_0^T,
-  each product on the model, their sum rounded to nearest;
+  tensor-core switch (bf16 B1's and B4's reverse sweep; with ``need_demb``
+  B5's and B9's): the view layer's two dW, d feat, the feature dW, dz of
+  the top layer and every trunk layer's dW and dH on the model; the rgb
+  head, dhv, the d sigma column and the bias sums as the plain twin's fp32
+  (``render_loss.field_reverse_plain``). The packed weights' ``arch`` picks
+  the family: ReLU's mask, or (T-NeRF) ELU's derivative from the stored
+  output, h > 0 ? 1 : h + 1, multiplied in fp32 where the dH epilogue
+  multiplies. The input cotangent (``need_demb``): demb = dz_{skip+1}
+  W_emb^T stored in fp32, then + dz_0 W_0^T, each product on the model
+  over the embedding's pad (64 or 128 columns, the pad rows zero), their
+  sum rounded to nearest (B7's backward runs the same sweep from its given
+  cotangent);
 - :func:`sweep_time_net` is B6's backward under the same switch (the
   3-wide head's products stay fp32: ``time_net.time_net_plain_bwd``);
 - :func:`field_forward_model` is the field's forward on the model (B3's
@@ -174,23 +176,21 @@ def _sweep(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str,
     return grads, None if demb is None else demb[:, : packed.cin]
 
 
-def sweep_field(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str = "rz"):
+def sweep_field(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str = "rz",
+                need_demb: bool = False):
     """bf16 B1's or B4's reverse sweep with its tensor-core products on the
     model: the packed (weights, biases) gradients in float64, from the
     forward's rounded operands (``render_pass.field_forward``) and the raw
     cotangent ``graw`` [P, 4] (B4: the colour ReLU's mask already applied,
     as the composite applies it), as ``render_loss.field_reverse_plain``
-    takes them."""
-    return _sweep(packed, emb, vemb, hs, feat, hv, graw, mode, False)[0]
-
-
-def sweep_trunk(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, g, mode: str = "rz"):
-    """bf16 B7's backward with its tensor-core products and the input
-    cotangent on the model: ((weights, biases) gradients, demb [P, cin]) in
-    float64, from the padded rounded inputs and the forward's outputs
-    (``trunk._padded``, ``render_pass.field_mlp``) and the cotangent g
-    [P, 4], as ``trunk.trunk_plain_bwd`` takes them."""
-    return _sweep(packed, emb, vemb, hs, feat, hv, g, mode, True)
+    takes them. With ``need_demb`` (B5, B9: the sweep on given positions;
+    B7's backward from its cotangent g [P, 4] in place of graw, on the
+    padded inputs and outputs of ``trunk._padded`` and
+    ``render_pass.field_mlp``), ``((weights, biases), demb [P, cin])``, demb
+    in float64 holding fp32 values, which ``render_loss.encode_backward``
+    carries to d pts."""
+    out = _sweep(packed, emb, vemb, hs, feat, hv, graw, mode, need_demb)
+    return out if need_demb else out[0]
 
 
 def sweep_time_net(packed, emb, hs: List[torch.Tensor], g, mode: str = "rz"):

@@ -35,10 +35,17 @@ sweep runs on the tensor cores with ELU' in the dH epilogue), and
 ``--backward b7`` for B7's backward with the input cotangent demb at the
 MultiRes levels given (D=8, W=256, seeded weights, rays x samples rows on
 [-1.2, 1.2]^3): the card's gradients and demb against the bf16 twin, and
-each model's (tc_model.sweep_trunk) on the twin's forward.
+each model's (tc_model.sweep_field with need_demb) on the twin's forward. ``b5`` is B5
+(the D-NeRF canonical field, D=8, W=256, multires 10 / 4, seeded weights,
+S=192; its sweep with demb over the 64-column pad runs on the tensor cores),
+``b9`` B9 at the MultiRes levels given (the phase-1 case below, rays x
+samples, a seeded cotangent of (rgb, acc, depth)): the card's gradients and
+d pts against the bf16 twin, each model's (tc_model.sweep_field with
+need_demb, carried to d pts) with the twin's forward, and (B5) with the
+forward on the model too.
 
     python3 tc_rounding.py [--levels level0 level1 identity] [--rays 500]
-    python3 tc_rounding.py --backward [b1] [b4] [b7] [--rays 500] [--levels ...]
+    python3 tc_rounding.py --backward [b1] [b4] [b5] [b7] [b9] [--rays 500] [--levels ...]
 
 Needs a CUDA device; builds the kernels at first use.
 """
@@ -62,7 +69,7 @@ def main() -> int:
     ap.add_argument("--levels", nargs="+", default=list(LEVELS), choices=list(LEVELS))
     ap.add_argument("--rays", type=int, default=500)
     ap.add_argument("--samples", type=int, default=64)
-    ap.add_argument("--backward", nargs="*", choices=["b1", "b4", "b7"], default=None,
+    ap.add_argument("--backward", nargs="*", choices=["b1", "b4", "b5", "b7", "b9"], default=None,
                     help="kernels with the reverse sweep on the tensor cores (no value: b1)")
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -71,38 +78,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tc_rounding: needs a CUDA device", file=sys.stderr)
         return 1
-    from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig
-    from swnerf_torch.ops.embedding import positional_encoding
     from swnerf_torch.ops.kernels import render_loss as b1
     from swnerf_torch.ops.kernels import render_pass as b3
     from swnerf_torch.ops.kernels import time_net as b6
     from swnerf_torch.ops.kernels.tc_model import composite, field_forward_model, product, rnd32
-    from swnerf_torch.render.fused_eval import canonical_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-
-    def case(level, n, s, seed=0):
-        """tests/test_torch_cuda.py::_wide_case: the canonical field, jittered
-        sample positions, the view embedding, noise std 1 and a cotangent."""
-        cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **LEVELS[level])
-        model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        o = torch.randn((n, 3), generator=g, device=dev) * 0.3 + torch.tensor([0.0, 0.0, 4.0], device=dev)
-        d = torch.randn((n, 3), generator=g, device=dev)
-        d[:, 2] = -d[:, 2].abs() - 1.0
-        z = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4 + 2, -1).values.contiguous()
-        dist = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n, 1), 1e10, device=dev)], -1)
-        dist = (dist * torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
-        vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-        g = torch.Generator(device=dev).manual_seed(seed + 1)
-        pts = (o[:, None, :] + d[:, None, :] * z[..., None]
-               + 0.05 * torch.randn((n, s, 3), generator=g, device=dev)).contiguous()
-        ve = positional_encoding(vd, cfg.nf_views).contiguous()
-        noise = torch.randn((n, s), generator=g, device=dev)
-        gct = torch.randn((n, 5), generator=g, device=dev)
-        return model, b3.pack_params(canonical_params(model.state_dict()), cfg, torch.bfloat16), (pts, ve, z, dist,
-                                                                                                   noise, gct)
 
     def b6_layers(model, pts):
         """B6's train-mode forward on a scratch this function keeps: the
@@ -130,11 +112,15 @@ def main() -> int:
                 backward_b1(a.rays, dev)
             elif kernel == "b4":
                 backward_b4(a.rays, dev)
-            else:
+            elif kernel == "b5":
+                backward_b5(a.rays, dev)
+            elif kernel == "b7":
                 backward_b7(a.rays, a.samples, a.levels, dev)
+            else:
+                backward_b9(a.rays, a.samples, a.levels, dev)
         return 0
     for level in a.levels:
-        model, packed, args = case(level, a.rays, a.samples)
+        model, packed, args = _mr_case(level, a.rays, a.samples, dev)
         pts, ve, z, dist, noise, gct = args
         N, S = z.shape
         P = N * S
@@ -179,6 +165,121 @@ def main() -> int:
             print(f"[{level}] model {mode:5s}: the serving B3 launch's rgb within "
                   f"{(serve.rgb.double() - rgb_map).abs().max().item():.3e} of its forward; its gradients "
                   f"{dist_to_twin(names(g2, d2)):.3e} from the twin's")
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _mr_case(level, n, s, dev, seed=0):
+    """tests/test_torch_cuda.py::_wide_case: a MultiRes level's canonical
+    field (seeded), jittered sample positions, the view embedding, noise std
+    1 and a cotangent of (rgb, acc, depth): (model, bf16 pack, (pts, ve, z,
+    dist, noise, gct))."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.render.fused_eval import canonical_params
+
+    cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **LEVELS[level])
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(seed), fused=False)
+    o, d, z, dist, _ = _rays(n, s, dev, seed)
+    vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]
+           + 0.05 * torch.randn((n, s, 3), generator=g, device=dev)).contiguous()
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    noise = torch.randn((n, s), generator=g, device=dev)
+    gct = torch.randn((n, 5), generator=g, device=dev)
+    return model, b3.pack_params(canonical_params(model.state_dict()), cfg, torch.bfloat16), (pts, ve, z, dist,
+                                                                                               noise, gct)
+
+
+def _pts_models(packed, pts, ve, z, dist, noise, dist_to_twin, forward_too, **loss):
+    """Per model, the distance from the twin of B5's / B9's sweep with demb
+    on it (tc_model.sweep_field, d pts through encode_backward) from the
+    twin's forward and, with forward_too, from the forward on the model."""
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels.tc_model import composite, field_forward_model, sweep_field
+
+    x = pts.reshape(-1, 3)
+    fwd = b3.field_forward(packed, None, None, ve, z, None, pts)
+
+    def sweep(emb, vemb, hs, feat, hv, sigma, logits, mode):
+        _, graw = composite(sigma, logits, z, dist, noise, **loss)
+        grads, demb = sweep_field(packed, emb, vemb, hs, feat, hv, graw.float(), mode, need_demb=True)
+        return dist_to_twin(tuple(t.float() for t in grads), b1.encode_backward(x, demb.float(), packed.n_freqs))
+
+    line = []
+    for mode in ("rz", "rn", "exact"):
+        text = f"model {mode}: backward only {sweep(*fwd, mode):.3e}"
+        if forward_too:
+            model_fwd = field_forward_model(packed, fwd.emb, fwd.vemb, mode)
+            text += f", forward too {sweep(fwd.emb, fwd.vemb, *model_fwd, mode):.3e}"
+        line.append(text)
+    return line
+
+
+def backward_b5(n: int, dev) -> int:
+    """B5's gradients and d pts with its sweep on the tensor cores, on the
+    card and under each model, against the bf16 twin (module docstring)."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import render_loss as b1
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.render.fused_eval import canonical_params
+
+    cfg = DNeRFConfig()
+    model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
+    packed = b3.pack_params(canonical_params(model.state_dict()), cfg, torch.bfloat16)
+    o, d, z, dist, g = _rays(n, 192, dev, 192)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]
+           + 0.05 * torch.randn(z.shape + (3,), generator=g, device=dev)).contiguous()
+    ve = positional_encoding(d / torch.linalg.norm(d, dim=-1, keepdim=True), cfg.nf_views).contiguous()
+    noise = torch.randn(z.shape, generator=g, device=dev)
+    target = torch.rand((n, 3), generator=g, device=dev)
+    scale = 1.0 / (3 * n)
+    _, tg, td = b1.render_loss_pts_plain(packed, pts, ve, z, dist, noise, target, True, scale)
+    twin = dict(b1.unpack_grads(tg, packed), dpts=td.reshape(-1, 3))
+
+    def dist_to_twin(grads, dpts):
+        got = dict(b1.unpack_grads(grads, packed), dpts=dpts.reshape(-1, 3))
+        return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item() for k in twin)
+
+    _, card, dcard = b1.render_loss_pts(packed, pts, ve, z, dist, noise, target, True, scale)
+    line = [f"the card {dist_to_twin(card, dcard):.3e}"]
+    line += _pts_models(packed, pts, ve, z, dist, noise, dist_to_twin, True, white=True, target=target,
+                        loss_scale=scale)
+    print(f"[B5 S=192] {n} rays, W={packed.W}, {packed.cin} of {packed.cin_pad} input columns, gradients and d pts "
+          "max rel L2 from the bf16 twin: " + "; ".join(line))
+    torch.cuda.empty_cache()
+    return 0
+
+
+def backward_b9(n: int, s: int, levels, dev) -> int:
+    """B9's gradients and d pts with its sweep on the tensor cores, on the
+    card and under each model, against the bf16 twin (module docstring)."""
+    import torch
+
+    from swnerf_torch.ops.kernels import render_loss as b1
+
+    for level in levels:
+        _, packed, (pts, ve, z, dist, noise, gct) = _mr_case(level, n, s, dev)
+        _, tg, td = b1.render_loss_ext_plain(packed, pts, ve, z, dist, noise, gct, True)
+        twin = dict(b1.unpack_grads(tg, packed), dpts=td.reshape(-1, 3))
+
+        def dist_to_twin(grads, dpts):
+            got = dict(b1.unpack_grads(grads, packed), dpts=dpts.reshape(-1, 3))
+            return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item() for k in twin)
+
+        _, card, dcard = b1.render_loss_ext(packed, pts, ve, z, dist, noise, gct, True)
+        line = [f"the card {dist_to_twin(card, dcard):.3e}"]
+        line += _pts_models(packed, pts, ve, z, dist, noise, dist_to_twin, False, white=True, gct=gct)
+        print(f"[B9 {level}] {n} x {s} rows, wide={packed.wide}, {packed.cin} of {packed.cin_pad} input columns, "
+              "gradients and d pts max rel L2 from the bf16 twin: " + "; ".join(line))
         torch.cuda.empty_cache()
     return 0
 
@@ -293,7 +394,7 @@ def backward_b7(n: int, s: int, levels, dev) -> int:
     from swnerf_torch.ops.embedding import positional_encoding
     from swnerf_torch.ops.kernels import trunk as b7
     from swnerf_torch.ops.kernels.render_pass import field_mlp
-    from swnerf_torch.ops.kernels.tc_model import sweep_trunk
+    from swnerf_torch.ops.kernels.tc_model import sweep_field
 
     for level in levels:
         cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **LEVELS[level])
@@ -319,7 +420,8 @@ def backward_b7(n: int, s: int, levels, dev) -> int:
         e, v = b7._padded(packed, emb, vemb)
         hs, feat, hv, _, _ = field_mlp(packed, e, v)
         for mode in ("rz", "rn", "exact"):
-            line.append(f"model {mode} {dist_to_twin(*sweep_trunk(packed, e, v, hs, feat, hv, cot, mode)):.3e}")
+            swept = sweep_field(packed, e, v, hs, feat, hv, cot, mode, need_demb=True)
+            line.append(f"model {mode} {dist_to_twin(*swept):.3e}")
         print(f"[B7 {level}] {P} rows, {packed.cin} of {packed.cin_pad} input columns, gradients and demb max rel "
               "L2 from the bf16 twin: " + "; ".join(line))
         torch.cuda.empty_cache()

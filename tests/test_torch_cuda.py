@@ -46,12 +46,15 @@ bars with its recomputed forward bit-equal to the B3 launch, bf16 rel L2
 route's at the phase-2 bars. B10 bit-equal to B2 + torch.sort and to its
 twin; B11 (fused_time_net_pts with input grads) at B6's bars, dx bit-equal
 to B6's forward.
-The reverse sweep's products on the tensor cores (csrc/tc_gemm.cuh: bf16 B1
-and B4, B6's backward without input cotangents, B7's with demb) are held
-by the bf16 bars above, at the T-NeRF, D-NeRF and every MultiRes level's
-widths, and at ragged shapes (rows not a multiple of 128, live input
-columns not a multiple of 64): gradients (and demb) rel L2 1e-2 of the
-twin, bit-equal repeats. B4's bf16 forward on the tensor cores
+The reverse sweep's products on the tensor cores (csrc/tc_gemm.cuh: bf16 B1,
+B4, B5 and B9, B6's backward without input cotangents, B7's with demb) are
+held by the bf16 bars above, at the T-NeRF, D-NeRF and every MultiRes
+level's widths, and at ragged shapes (rows not a multiple of 128, live
+input columns not a multiple of 64): gradients (and demb, d pts) rel L2
+1e-2 of the twin, bit-equal repeats. The input cotangent's product alone
+(tc_demb, 64- and 128-column pads) against the SIMT product it replaced:
+within 2^-15 of the sum of the absolute products (and of the added-to
+value), the columns past the live ones untouched, bit-equal repeats. B4's bf16 forward on the tensor cores
 (csrc/tc_render.cuh with the T-NeRF traits) at B3's bf16 bars at ragged
 shapes and W 128 / 256, its rgb at a PSNR of 40 dB or more against the
 fp32 route's render. The
@@ -841,19 +844,55 @@ SWEEP_RAGGED = [
     ("b7", "level0", 37, 7),  # 259 rows; 123 live columns of 128: demb over them
     ("b7", "level1", 3, 43),  # 129 rows; 63 live columns
     ("b7", "identity", 1, 1),  # one row, 3 columns
+    ("b5", dict(), 37, 7),  # 259 rows; 63 live input columns of 64: demb over them
+    ("b5", DNERF_SMALL, 3, 7),  # W 128: 21 rows, 27 input columns
+    ("b9", "level0", 37, 7),  # wide: 259 rows, 123 of 128 columns
+    ("b9", "level1", 3, 7),  # wide: 21 rows, 63 of 128 columns
+    ("b9", "identity", 19, 7),  # narrow: 133 rows, 3 of 64 columns
 ]
 
 
 @pytest.mark.parametrize("kernel, kw, n, s", SWEEP_RAGGED,
                          ids=["b1-259rows", "b1-w128-129rows", "b1-960rows", "b6-level0-259rows",
                               "b6-level0-w128-129rows", "b6-dnerf-533rows", "b6-identity-1row", "b4-259rows",
-                              "b4-w256-129rows", "b7-level0-259rows", "b7-level1-129rows", "b7-identity-1row"])
+                              "b4-w256-129rows", "b7-level0-259rows", "b7-level1-129rows", "b7-identity-1row",
+                              "b5-259rows", "b5-w128-21rows", "b9-level0-259rows", "b9-level1-21rows",
+                              "b9-identity-133rows"])
 def test_tc_sweep_ragged_shapes(dev, kernel, kw, n, s):
     """The tensor-core sweep (csrc/tc_gemm.cuh) at row counts that fill no
     128-row tile or dW stage, and input widths that fill no 64-column atom:
-    bf16 gradients (B7: and demb) within rel L2 1e-2 of the twin, bit-equal
-    repeats."""
-    if kernel == "b4":
+    bf16 gradients (B7: and demb; B5, B9: and d pts) within rel L2 1e-2 of
+    the twin, bit-equal repeats. B5, B9: a tensor whose twin, summed on the
+    CPU, itself lies further than 5e-3 from the card's twin is held to
+    twice that distance instead (b5-259rows' alpha bias: a sum of d sigma
+    that cancels, whose bf16 rounding flips with the forward's fp32 order,
+    so the twin on the CPU lands as far from the card's twin as the kernel
+    does; both distances are printed)."""
+    bar = {}
+    if kernel in ("b5", "b9"):
+        if kernel == "b5":
+            cfg, sd, pts, _, args = _dnerf_case(dev, kw, n, s)
+            packed = b3.pack_params(canonical_params(sd), cfg, torch.bfloat16)
+            run, plain, rest = b1.render_loss_pts, b1.render_loss_pts_plain, (True, 1.0 / (3 * n))
+        else:
+            cfg, sd, pts, args, gct = _wide_case(dev, kw, n, s)
+            packed = b3.pack_params(sd, cfg, torch.bfloat16)
+            run, plain, rest = b1.render_loss_ext, b1.render_loss_ext_plain, (gct, True)
+            assert packed.wide == (kw != "identity")
+        _, g1, d1 = run(packed, pts, *args, *rest)
+        _, g2, d2 = run(packed, pts, *args, *rest)
+        _, gr, dr = plain(packed, pts, *args, *rest)
+        rel = _rel_l2(_b5_grads(g1, d1, packed), _b5_grads(gr, dr, packed))
+        assert torch.equal(d1, d2)
+        pc = dataclasses.replace(packed, weights=packed.weights.cpu(), biases=packed.biases.cpu())
+        cpu_rest = (x.cpu() if torch.is_tensor(x) else x for x in rest)
+        _, gc, dc = plain(pc, pts.cpu(), *(x.cpu() for x in args), *cpu_rest)
+        own = _rel_l2(_b5_grads(gc, dc, pc), _b5_grads(gr, dr, packed))
+        bar = {k: 2 * v for k, v in own.items() if v > 5e-3}
+        worst = max(rel, key=rel.get)
+        print(f"{kernel} {n}x{s}: max rel L2 {rel[worst]:.3e} ({worst}; the CPU twin's {own[worst]:.3e}), "
+              f"the CPU twin's max {max(own.values()):.3e}")
+    elif kernel == "b4":
         packed, args, times = _b4_case(dev, kw, n, s, torch.bfloat16)
         _, g1 = b1.render_loss(packed, *args, True, 1.0 / (3 * n), times)
         _, g2 = b1.render_loss(packed, *args, True, 1.0 / (3 * n), times)
@@ -881,8 +920,59 @@ def test_tc_sweep_ragged_shapes(dev, kernel, kw, n, s):
         _, g2 = b6.time_net_fwd_bwd(packed, pts, times, g)
         rel = _rel_l2(_time_grads(g1, packed), _time_grads(b6.time_net_plain_bwd(packed, pts, times, g), packed))
     torch.cuda.synchronize()
-    assert max(rel.values()) <= 1e-2, rel
+    assert all(v <= bar.get(k, 1e-2) for k, v in rel.items()), (rel, bar)
     assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
+
+
+def _demb_probe(tc, dz, w_emb, cin, out, add):
+    """render_loss.cu::render_loss_demb_probe: out[:P * cin] (fp32 [P, cin])
+    = (add: out +) dz w_emb^T over the live columns, on the tensor cores
+    (tc) or on the SIMT product; returns the launcher's code."""
+    import ctypes
+
+    fn = build.load("render_loss").render_loss_demb_probe
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, i, i, ctypes.c_longlong, p, p, p, i, p]
+    return fn(int(tc), dz.shape[1], w_emb.shape[0], cin, dz.shape[0], dz.data_ptr(), w_emb.data_ptr(),
+              out.data_ptr(), int(add), torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["store", "add"])
+@pytest.mark.parametrize("rows", [1, 259, 8257])
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("cin_pad,cin", [(64, 63), (128, 123)], ids=["pad64", "pad128"])
+def test_tc_demb_matches_the_simt_product(dev, cin_pad, cin, width, rows, add):
+    """The input cotangent's product on the tensor cores
+    (gemm_common.cuh::tc_demb: the skip layer's store, layer 0's add) against
+    the SIMT gemm_act it replaced, at row counts that fill no 128-row tile:
+    within 2^-15 of the sum of the absolute products plus the added-to
+    value (K = W deep: the tensor cores' k16 steps and the SIMT FMA chain
+    each stay well inside it), a guard past the last row untouched,
+    bit-equal repeats. The pad rows of the packed matrix are zero, as
+    pack_params leaves them."""
+    g = torch.Generator(device=dev).manual_seed(rows + width)
+    dz = torch.randn((rows, width), generator=g, device=dev).bfloat16()
+    w = torch.randn((cin_pad, width), generator=g, device=dev)
+    w[cin:] = 0.0
+    w = w.bfloat16().contiguous()
+    n = rows * cin
+    start = torch.randn(n + 64, generator=g, device=dev)
+    start[n:] = 12345.0
+
+    def run(tc):
+        out = start.clone()
+        assert _demb_probe(tc, dz, w, cin, out, add) == 0
+        return out
+
+    got, ref, again = run(True), run(False), run(True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[n:], start[n:]) and torch.equal(ref[n:], start[n:])
+    scale = (dz.float().abs() @ w.float().abs().t())[:, :cin].reshape(-1)
+    if add:
+        scale = scale + start[:n].abs()
+    assert bool(((got[:n] - ref[:n]).abs() <= 2.0**-15 * scale).all()), (got[:n] - ref[:n]).abs().max().item()
+    assert torch.equal(got, again)
 
 
 def _mr_pair(dev, level, seed=0, head=1e-3):

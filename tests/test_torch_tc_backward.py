@@ -1,15 +1,17 @@
-"""What the tensor-core reverse sweep of B1, B4, B6 and B7 should give, on
-the CPU.
+"""What the tensor-core reverse sweep of B1, B4, B5, B6, B7 and B9 should
+give, on the CPU.
 
-``csrc/tc_gemm.cuh`` runs bf16 B1's, B4's, B6's and B7's backward products
-(B7's input cotangent demb too) on the tensor cores, which add each k16
-step to an fp32 sum rounded toward zero
+``csrc/tc_gemm.cuh`` runs bf16 B1's, B4's, B5's, B6's, B7's and B9's
+backward products (the input cotangent demb of B5, B7 and B9 too) on the
+tensor cores, which add each k16 step to an fp32 sum rounded toward zero
 (``swnerf_torch/ops/kernels/tc_model.py``, the model ``tc_rounding.py``
 holds against the card). Here the bf16 twins' backward runs on that model
 at D=8, W 128 and 256 (B4: the T-NeRF at W=128, 84 of 96 input columns,
-ELU; B7: MultiRes levels 0, 1 and identity at W=256), a few hundred rows,
-seeds 0-3, from the twins' own forward: its gradients (and demb) must land
-within rel L2 2e-3 of the twins' (the card's bar is 1e-2). The control: the same model on the *forward* (as the
+ELU; B5: the D-NeRF canonical field, 63 of 64 input columns, demb carried
+to d pts; B7 and B9: MultiRes levels 0, 1 and identity at W=256), a few
+hundred rows, seeds 0-3, from the twins' own forward: its gradients (and
+demb, d pts) must land within rel L2 2e-3 of the twins' (B5: 3e-3; the
+card's bar is 1e-2). The control: the same model on the *forward* (as the
 tensor-core forward B9 once had), with the twin's backward, lands further
 from the twin than the backward on the model does, because a rounding
 flip in a stored activation moves a ReLU mask for the whole sweep. That is
@@ -28,6 +30,7 @@ from swnerf_torch.ops.kernels import tc_model
 from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.kernels import trunk as b7
 from swnerf_torch.ops.kernels.render_pass import field_mlp
+from swnerf_torch.render.fused_eval import canonical_params
 
 BAR = 2e-3
 
@@ -171,12 +174,92 @@ def test_b7_sweep_with_demb_on_the_tensor_core_model_holds_the_twin(level, seed)
     (gw, gb), demb, _ = b7.trunk_plain_bwd(packed, emb, vemb, g)
     e, v = b7._padded(packed, emb, vemb)
     hs, feat, hv, _, _ = field_mlp(packed, e, v)
-    (mw, mb), mdemb = tc_model.sweep_trunk(packed, e, v, hs, feat, hv, g, "rz")
+    (mw, mb), mdemb = tc_model.sweep_field(packed, e, v, hs, feat, hv, g, "rz", need_demb=True)
     assert mdemb.shape == demb.shape == (300, packed.cin)
     ref = dict(b7.unpack_trunk_grads((gw, gb), packed), demb=demb)
     got = dict(b7.unpack_trunk_grads((mw.float(), mb.float()), packed), demb=mdemb)
     rel = _rel_l2(got, ref)
     assert max(rel.values()) <= BAR, rel
+
+
+def _pts_inputs(cfg, seed, n=10, s=30):
+    """A seeded D-NeRF canonical field packed for B5 / B9 (bf16; the wide
+    pads where its embeddings need them) and n x s sample positions as the
+    card's tests make them (o + d z plus a jitter of std 0.05), the view
+    embedding, z, dists, noise std 1 and the numpy generator."""
+    model = DirectTemporalNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(seed), fused=False)
+    packed = b3.pack_params(canonical_params(model.state_dict()), cfg, torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.normal(0.0, 0.3, (n, 3)) + [0.0, 0.0, 4.0]).float()
+    d = torch.from_numpy(rng.normal(0.0, 1.0, (n, 3))).float()
+    d[:, 2] = -d[:, 2].abs() - 1.0
+    z = torch.from_numpy(np.sort(rng.uniform(2.0, 6.0, (n, s)), -1)).float()
+    dist = torch.cat([z[:, 1:] - z[:, :-1], torch.full((n, 1), 1e10)], -1) * torch.linalg.norm(d, dim=-1, keepdim=True)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None] + torch.from_numpy(rng.normal(0.0, 0.05, (n, s, 3)))).float()
+    ve = positional_encoding(d / torch.linalg.norm(d, dim=-1, keepdim=True), cfg.nf_views)
+    noise = torch.from_numpy(rng.normal(0.0, 1.0, (n, s))).float()
+    return packed, pts, (ve, z, dist, noise), rng
+
+
+def _pts_sweep_distance(packed, pts, ve, z, dist, noise, **loss):
+    """B5's / B9's sweep with demb on the rz model against the twin's
+    (field_reverse_plain with need_demb), both from the twin's forward and
+    the composite's raw cotangent of ``loss`` (target and loss_scale, or the
+    external gct), both carried to d pts by encode_backward: the per-tensor
+    rel L2 over the unpacked gradients and d pts."""
+    fwd = b3.field_forward(packed, None, None, ve, z, None, pts)
+    _, graw = tc_model.composite(fwd.sigma, fwd.logits, z, dist, noise, **loss)
+    graw = graw.float()
+    x = pts.reshape(-1, 3)
+    gr, dr, _ = b1.field_reverse_plain(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, need_demb=True)
+    (mw, mb), md = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "rz",
+                                        need_demb=True)
+    assert md.shape == dr.shape == (x.shape[0], packed.cin)
+    ref = dict(b1.unpack_grads(gr, packed), dpts=b1.encode_backward(x, dr, packed.n_freqs))
+    got = dict(b1.unpack_grads((mw.float(), mb.float()), packed),
+               dpts=b1.encode_backward(x, md.float(), packed.n_freqs))
+    return _rel_l2(got, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("width", [128, 256])
+def test_b5_sweep_with_demb_on_the_tensor_core_model_holds_the_twin(width, seed):
+    """bf16 B5's reverse sweep (the D-NeRF canonical field at D=8, 63 of 64
+    input columns: demb over the 64-column pad, the skip layer's product
+    stored, layer 0's added) with its large products and demb on the rz
+    model against the twin's, its gradients and d pts, 10 rays x 30 samples
+    with the squared error's cotangent on a white background. Bar 3e-3:
+    seeds 0-3 printed 2.4e-7 to 3.2e-4 at W=128 and 1.9e-4 to 2.9e-3 at
+    W=256, the largest at seed 3 on layer 0's weights (the exact model
+    there: 3.5e-5), where the k16 steps' rounding toward zero moves a few
+    dz values across a bf16 boundary on the way down the trunk."""
+    packed, pts, (ve, z, dist, noise), rng = _pts_inputs(DNeRFConfig(netwidth=width), seed)
+    assert (packed.cin, packed.cin_pad, packed.wide) == (63, 64, False)
+    target = torch.from_numpy(rng.uniform(0.0, 1.0, (10, 3))).float()
+    rel = _pts_sweep_distance(packed, pts, ve, z, dist, noise, white=True, target=target, loss_scale=1.0 / 30)
+    print(f"B5 W={width} seed {seed}: max rel L2 {max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+    assert max(rel.values()) <= 3e-3, rel
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("level", list(B7_LEVELS))
+def test_b9_sweep_on_the_tensor_core_model_holds_the_twin(level, seed):
+    """bf16 B9's reverse sweep (the MultiRes canonical field at D=8,
+    W=256: wide at levels 0 and 1, 123 and 63 of 128 input columns; narrow
+    at the identity level, 3 of 64) with its large products and demb on the
+    rz model against the twin's, its gradients and d pts, from a seeded
+    external cotangent gct [N, 5] of (rgb, acc, depth) on a white and on a
+    black background, 10 rays x 30 samples. Bar 2e-3: seeds 0-3 printed
+    2.1e-7 to 2.3e-4 at level 0, 6.4e-5 to 1.7e-3 at level 1 and 2.1e-6 to
+    1.1e-4 at the identity level."""
+    cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **B7_LEVELS[level])
+    packed, pts, args, rng = _pts_inputs(cfg, seed)
+    assert packed.wide == (level != "identity")
+    gct = torch.from_numpy(rng.normal(size=(10, 5))).float()
+    for white in (True, False):
+        rel = _pts_sweep_distance(packed, pts, *args, white=white, gct=gct)
+        print(f"B9 {level} seed {seed} white={white}: max rel L2 {max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+        assert max(rel.values()) <= BAR, (white, rel)
 
 
 @pytest.mark.parametrize("lo,hi", [(-30.0, -0.5), (-0.5, 0.0), (-1e-3, 0.0), (0.0, 8.0)],
