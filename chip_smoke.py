@@ -299,9 +299,9 @@ TC_SUMMARY: dict = {}
 
 def tc_ptxas(libs) -> None:
     """Registers and spill bytes of the tensor-core kernels (the bf16 B6
-    forward, B3's body, B7 / B8's forward-only launch, the weight-image
-    packer, the reverse sweep's dW and dH products of B1 and B6) from each
-    library's build.log; fails on a spill."""
+    forward, B3's body, B1's and B4's train-mode forward on it, B7 / B8's
+    forward-only launch, the weight-image packer, the reverse sweep's dW and
+    dH products) from each library's build.log; fails on a spill."""
     import re
 
     for name in ("time_net", "render_pass", "render_loss", "trunk"):
@@ -310,11 +310,12 @@ def tc_ptxas(libs) -> None:
             if "Compiling entry function" in line:
                 entry_name = line.split("'")[1] if "'" in line else line
                 continue
-            tc_names = r"time_net_tc_kernel|trunk_tc_kernel|tc13render_kernel|tc11pack_kernel|sweep_d[wh]_kernel"
+            tc_names = (r"time_net_tc_kernel|trunk_tc_kernel|tc13render_kernel|tc21render_loss_tc_kernel|"
+                        r"tc11pack_kernel|sweep_d[wh]_kernel")
             if not entry_name or not re.search(tc_names, entry_name):
                 continue
-            kernel = re.sub(r"^.*?(time_net_tc_kernel|trunk_tc_kernel|render_kernel|pack_kernel|sweep_d[wh]_kernel)",
-                            r"\1", entry_name)[:60]
+            kernel = re.sub(r"^.*?(time_net_tc_kernel|trunk_tc_kernel|render_loss_tc_kernel|render_kernel|pack_kernel|"
+                            r"sweep_d[wh]_kernel)", r"\1", entry_name)[:60]
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} / {m.group(2)} bytes spill stores / loads")
@@ -323,6 +324,8 @@ def tc_ptxas(libs) -> None:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 note = ("two warpgroups, every thread copies and both multiply" if kernel.startswith("sweep") else
+                        "setmaxnreg: 72 for the producer warpgroup, 216 for the consumers"
+                        if kernel.startswith("render_loss_tc") else
                         "setmaxnreg: 56 for the producer warpgroup, 224 for the consumers")
                 print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} registers at launch ({note})")
 
@@ -614,6 +617,11 @@ def main() -> int:
             cuda_ms(lambda: b3.render_pass_plain(packed, o, d, ve, zz, dd, None, True), 2),
             nbytes, flops, "bf16",
         ))
+        lib, macs = library_sweep_ms(zz.numel(), forward_products(packed.W, packed.D, packed.skip, packed.cin_pad,
+                                                                  packed.cv_pad), dev)
+        print(f"[6 kernel] render_pass[S={S}]: its forward's large products at {zz.numel()} rows as bf16 torch.matmul "
+              f"calls (cuBLAS, summed) {lib:.3f} ms (bound {2 * macs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms)")
+        TC_SUMMARY[f"render_pass[S={S}] bf16, the forward's products on cuBLAS"] = f"{lib:.3f} ms"
         torch.cuda.empty_cache()
     for k in kernels:
         print(f"[6 kernel] {k['name']}: {k['ms']:.3f} ms/launch (plain {k['plain_ms']:.3f} ms), bound "
@@ -710,18 +718,20 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, kind
     }
 
 
-# B1's and B6's backward by kernel family (kernel_split): the forward, the
+# B1's and B6's backward by kernel family (kernel_split): the forward (SIMT,
+# or on the tensor cores: render_loss_tc_kernel, time_net_tc_kernel), the
 # reverse sweep's tensor-core products (csrc/tc_gemm.cuh), the split
 # reductions, the SIMT heads and narrow products.
-SWEEP_FAMILIES = (("forward", ("render_loss_fwd", "time_net_fwd", "time_net_tc")),
+SWEEP_FAMILIES = (("forward", ("render_loss_fwd", "render_loss_tc", "time_net_fwd", "time_net_tc")),
                   ("tensor-core products", ("sweep_dw", "sweep_dh")),
                   ("split reductions", ("reduce_kernel", "colsum")),
                   ("SIMT products and heads", ("gemm_kernel", "head_bwd", "round_cotangent")))
 
 
-def kernel_split(fn, families=SWEEP_FAMILIES):
+def kernel_split(fn, families=SWEEP_FAMILIES, names=None):
     """Device ms of one ``fn()`` by kernel family (torch.profiler's CUDA
-    activity, after a warm-up), or None when it records no device time.
+    activity, after a warm-up), or None when it records no device time;
+    with ``names`` (a dict), each family's kernels' short names go there.
     Thirty-two short spin kernels open the profiled window and are left out
     of the sums: late in this script's run, profiles without them lost their
     first few device records (B5's and B9's SIMT forwards in phases 18 and
@@ -740,7 +750,11 @@ def kernel_split(fn, families=SWEEP_FAMILIES):
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us and str(evt.device_type).endswith("CUDA") and "spin_kernel" not in evt.key:
-            by[next((f for f, keys in families if any(k in evt.key for k in keys)), "other")] += us / 1e3
+            fam = next((f for f, keys in families if any(k in evt.key for k in keys)), "other")
+            by[fam] += us / 1e3
+            if names is not None:
+                short = next((k for _, keys in families for k in keys if k in evt.key), evt.key[:40])
+                names.setdefault(fam, set()).add(short)
     return by if sum(by.values()) > 0 else None
 
 
@@ -764,10 +778,25 @@ def sweep_products(W, D, skip, cin_pad, cv_pad=None, demb=False):
     return out
 
 
+def forward_products(W, D, skip, cin_pad, cv_pad):
+    """The field forward's large products, as ("fw", in, out) for X [P,
+    in] @ W [in, out]: the trunk (the embedding rows at layer 0 and the
+    skip layer), the feature layer and the view layer's two (the narrow
+    alpha and rgb heads left out, as sweep_products leaves them out)."""
+    out = []
+    for i in range(D):
+        if i in (0, skip + 1):
+            out.append(("fw", cin_pad, W))
+        if i > 0:
+            out.append(("fw", W, W))
+    return out + [("fw", W, W), ("fw", W, W // 2), ("fw", cv_pad, W // 2)]
+
+
 def library_sweep_ms(P, products, dev):
     """The products at P rows as bf16 torch.matmul calls (cuBLAS) on seeded
     operands, each timed with CUDA events: (sum of ms, multiply-adds). The
-    port never calls them; they are the sweep's yardstick."""
+    port never calls them; they are the yardstick of the sweep's (and of
+    the forward's: forward_products) products."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -777,6 +806,10 @@ def library_sweep_ms(P, products, dev):
             x = torch.randn((P, a), generator=g, device=dev).bfloat16()
             z = torch.randn((P, b), generator=g, device=dev).bfloat16()
             total += cuda_ms(lambda: torch.matmul(x.t(), z), 5)
+        elif kind == "fw":  # [P, a] @ [a, b]: the packed [in][out] matrix as it is
+            x = torch.randn((P, a), generator=g, device=dev).bfloat16()
+            w = torch.randn((a, b), generator=g, device=dev).bfloat16()
+            total += cuda_ms(lambda: torch.matmul(x, w), 5)
         else:  # [P, a] @ [a, b]: the packed [b][a] matrix, transposed
             z = torch.randn((P, a), generator=g, device=dev).bfloat16()
             w = torch.randn((b, a), generator=g, device=dev).bfloat16()
@@ -785,19 +818,28 @@ def library_sweep_ms(P, products, dev):
     return total, macs
 
 
-def report_sweep(tag, name, fn, ms, bound_ms, P, products, dev):
+def report_sweep(tag, name, fn, ms, bound_ms, P, products, dev, fwd=None):
     """Prints a bf16 train-mode launch's (B1, B4, B5, B9) or backward's
-    (B6, B7) time beside its bound, its
-    device time by kernel family and its sweep's large products on cuBLAS;
-    returns (family split or None, the cuBLAS sum)."""
-    split = kernel_split(fn)
+    (B6, B7) time beside its bound, its device time by kernel family (with
+    the forward's kernels named) and its sweep's large products on cuBLAS;
+    with ``fwd`` (forward_products), the forward's too. Returns (family
+    split or None, the sweep's cuBLAS sum)."""
+    names = {}
+    split = kernel_split(fn, names=names)
     lib, macs = library_sweep_ms(P, products, dev)
     parts = ("not measured (torch.profiler recorded no device time)" if split is None
-             else ", ".join(f"{k} {v:.3f}" for k, v in split.items() if v))
-    print(f"[{tag} sweep] {name}: {ms:.3f} ms per launch, bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.2f}%); "
-          f"device ms by family: {parts}; its {len(products)} large products at {P} rows: bound "
-          f"{2 * macs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms, as bf16 torch.matmul calls (cuBLAS, summed) {lib:.3f} ms")
+             else ", ".join(f"{k} {v:.3f}" + (f" ({'/'.join(sorted(names[k]))})" if k == "forward" and k in names
+                                               else "") for k, v in split.items() if v))
+    text = (f"[{tag} sweep] {name}: {ms:.3f} ms per launch, bound {bound_ms:.4f} ms ({100 * bound_ms / ms:.2f}%); "
+            f"device ms by family: {parts}; its {len(products)} large products at {P} rows: bound "
+            f"{2 * macs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms, as bf16 torch.matmul calls (cuBLAS, summed) {lib:.3f} ms")
     TC_SUMMARY[f"{name}, the sweep's products on cuBLAS"] = f"{lib:.3f} ms beside the launch's {ms:.3f} ms"
+    if fwd is not None:
+        flib, fmacs = library_sweep_ms(P, fwd, dev)
+        text += (f"; the forward's {len(fwd)} large products: bound {2 * fmacs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms, "
+                 f"on cuBLAS {flib:.3f} ms")
+        TC_SUMMARY[f"{name}, the forward's products on cuBLAS"] = f"{flib:.3f} ms"
+    print(text)
     return split, lib
 
 
@@ -902,6 +944,18 @@ def check_fp32_grads(tag, kern, ref32, ref64, ref64p=None):
         fail(f"{tag}: gradients off the fp32 reference and further from the float64 one than fp32 moves it: {bad}")
 
 
+def check_tc_forward(tag, got, fwd):
+    """B1's / B4's bf16 train-mode forward runs B3's tensor-core body
+    (render_loss_tc_kernel): its rgb, acc, depth and weights must equal the
+    bf16 render_pass launch's on the same inputs bit for bit."""
+    import torch
+
+    same = {k: torch.equal(getattr(got, k), getattr(fwd, k)) for k in ("rgb", "acc", "depth", "weights")}
+    print(f"[{tag}] outputs bit-equal to the bf16 tensor-core render_pass launch: {same}")
+    if not all(same.values()):
+        fail(f"{tag}: the train-mode forward differs from the bf16 render_pass launch: {same}")
+
+
 def phase7_b1(dev, cfg, coarse, fine):
     """B1 against its twin on the main path's shapes; returns, per S, the
     [6 kernel] row fields (max_abs_err, ms, plain_ms, bytes, ops, kind)."""
@@ -969,6 +1023,7 @@ def phase7_b1(dev, cfg, coarse, fine):
               f"grads max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
         if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
             fail(f"B1 bf16 S={S}: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+        check_tc_forward(f"7 B1 bf16 S={S}", got, b3.render_pass(p16, o, d, ve, zz, b3_dists(zz, d), nz, True))
         nbytes = (4 * (6 * n + ve.numel() + 3 * zz.numel() + 3 * n) + 2 * p16.weights.numel() + 4 * p16.biases.numel()
                   + 4 * (4 * n + zz.numel()) + 4 * (p16.weights.numel() + p16.biases.numel()))
         flops = 2 * b1.train_macs_per_sample(p16) * zz.numel()
@@ -977,7 +1032,8 @@ def phase7_b1(dev, cfg, coarse, fine):
         rows[S] = (diff.max().item(), ms, plain_ms, nbytes, flops, "bf16")
         report_sweep("7", f"render_loss[S={S}] bf16", lambda: b1.render_loss(p16, *args, True, scale), ms,
                      bound(nbytes, flops, "bf16")[0], zz.numel(),
-                     sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), dev)
+                     sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), dev,
+                     fwd=forward_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad))
         del gk, gr, gk2, got, ref
         torch.cuda.empty_cache()
     return rows
@@ -1401,6 +1457,7 @@ def phase12_b4(dev, cfg, model, data):
           f"grads max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
     if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
         fail("B4 train bf16: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+    check_tc_forward("12 B4 train bf16", got, b3.render_pass(p16, o, d, ve, z, dist, noise, True, t))
     train_ms = cuda_ms(lambda: b1.render_loss(p16, *args, True, scale, t), 20)
     train_row = entry(
         "render_loss[tnerf,S=64]", "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
@@ -1411,7 +1468,8 @@ def phase12_b4(dev, cfg, model, data):
         2 * b1.train_macs_per_sample(p16) * z.numel(), "bf16",
     )
     report_sweep("12", "render_loss[tnerf,S=64] bf16", lambda: b1.render_loss(p16, *args, True, scale, t), train_ms,
-                 train_row["bound_ms"], z.numel(), sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), dev)
+                 train_row["bound_ms"], z.numel(), sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), dev,
+                 fwd=forward_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad))
 
     # forward at the serving path's shape: the first 32,768-ray chunk of test view 0
     rays, _ = frame_rays(dev, data, "test", 0)
@@ -3246,6 +3304,12 @@ def trunk_rows(prefix, pk16, x, xv, graw, raw, err, source_line, bwd_line):
                         in_bytes + 16 * n + 2 * nw + 4 * (nw + nb), 2 * pk16.bwd_macs_per_row(False, False) * n,
                         "bf16"),
     }
+    products = sweep_products(pk16.W, pk16.D, pk16.skip, pk16.cin_pad, pk16.cv_pad)
+    lib, macs = library_sweep_ms(n, products, x.device)
+    print(f"[{prefix} bwd] the backward's {len(products)} large products at {n} rows as bf16 torch.matmul calls "
+          f"(cuBLAS, summed) {lib:.3f} ms (their bound {2 * macs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms) beside its "
+          f"{bwd:.3f} ms")
+    TC_SUMMARY[f"{bwd_name}, the backward's products on cuBLAS"] = f"{lib:.3f} ms beside the launch's {bwd:.3f} ms"
     del sc
     return rows
 

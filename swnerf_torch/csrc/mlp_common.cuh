@@ -6,11 +6,11 @@
 // its backward, and the per-ray composite of the tensor-core B3.
 //
 // The SIMT chunk product (mm_acc) serves every fp32 instantiation (the
-// parity mode) and, in bf16, B1, B4's train-mode forward, B5, B7', B9, the
-// train-mode forwards of B7 and B8 and the training path's B3 launch
-// (ordered); bf16 B3 otherwise, B4's forward-only launch, B6's forward and
-// B7's and B8's forward-only launch run tc_chunk.cuh's tensor-core product
-// instead.
+// parity mode) and, in bf16, B5, B7', B9, the train-mode forwards of B7, B8
+// and of the T-NeRF at W=256, and the training path's B3 launch (ordered);
+// bf16 B3 otherwise, B4's forward-only launch, B1's and B4's (W=128)
+// train-mode forwards, B6's forward and B7's and B8's forward-only launch
+// run tc_chunk.cuh's tensor-core product instead.
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
 // padded so the epilogue's column-wise stores are conflict-free); weights
@@ -253,6 +253,75 @@ __device__ __forceinline__ void composite(const float* __restrict__ raw, int S, 
     c0 += 1.f - acc;
     c1 += 1.f - acc;
     c2 += 1.f - acc;
+  }
+}
+
+// The loss of one composited ray and its reverse over the samples
+// (render_fused.py:428-473), after composite() with lt: the squared error of
+// (c0, c1, c2) against target[ray] into sqerr[ray], d loss / d rgb_map =
+// loss_scale * 2 * err (white: d / d acc = -sum_c); or, EXT (B9), the
+// caller's cotangent gct[ray] = d loss / d (rgb_map after the white
+// background, acc, depth). Then from the last sample: d alpha from the
+// suffix sum of dL/dw_c * w_c, and the raw cotangent, out(s, d, dsig): d
+// [3] the rgb logits' through the sigmoid (masked by B4's colour ReLU),
+// dsig d sigma. raw [S][4] and lt [S] (each sample's log-transmittance
+// before it) as composite() left them; out may overwrite sample s's raw
+// lanes, which are read before it.
+template <typename A, bool EXT, typename Out>
+__device__ __forceinline__ void ray_reverse(const float* raw, const float* __restrict__ lt, int S,
+                                            const float* __restrict__ zr, const float* __restrict__ dr,
+                                            const float* __restrict__ nz, int white, float c0, float c1, float c2,
+                                            long long ray, const float* __restrict__ target,
+                                            const float* __restrict__ gct, float loss_scale,
+                                            float* __restrict__ sqerr_out, Out&& out) {
+  float g0, g1, g2, gacc, gdep = 0.f;
+  if (EXT) {
+    // B9: the caller's cotangent (render_fused.py:428-440): d loss /
+    // d rgb_map after the white background, d acc and d depth. White:
+    // rgb_map holds + (1 - acc), so d / d acc also takes -sum_c.
+    const float* gr = gct + ray * 5;
+    g0 = gr[0];
+    g1 = gr[1];
+    g2 = gr[2];
+    gacc = white ? gr[3] - ((g0 + g1) + g2) : gr[3];
+    gdep = gr[4];
+  } else {
+    const float e0 = c0 - target[ray * 3 + 0];
+    const float e1 = c1 - target[ray * 3 + 1];
+    const float e2 = c2 - target[ray * 3 + 2];
+    sqerr_out[ray] = (e0 * e0 + e1 * e1) + e2 * e2;
+    // d loss / d rgb_map = loss_scale * 2 * err; white: d / d acc = -sum_c.
+    const float gs = loss_scale * 2.f;
+    g0 = gs * e0;
+    g1 = gs * e1;
+    g2 = gs * e2;
+    gacc = white ? -((g0 + g1) + g2) : 0.f;
+  }
+  float suff = 0.f;  // sum over later samples of dL/dw_c * w_c
+  for (int s = S - 1; s >= 0; --s) {
+    const float* rw = raw + s * 4;
+    const float sigma = nz ? rw[3] + nz[s] : rw[3];
+    const float ex = expf(-fmaxf(sigma, 0.f) * dr[s]);
+    const float alpha = 1.f - ex;
+    const float safe = fmaxf(1.f - alpha + 1e-10f, 1e-10f);
+    const float tr = expf(lt[s]);
+    const float w = alpha * tr;
+    float rgb[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[c] = rgb_of<A>(rw[c]);
+    float dldw = ((g0 * rgb[0] + g1 * rgb[1]) + g2 * rgb[2]) + gacc;
+    if (EXT) dldw += gdep * zr[s];  // depth = sum_s w_s z_s
+    const float dalpha = dldw * tr - suff / safe;
+    suff += dldw * w;
+    const float dsig = sigma > 0.f ? dalpha * dr[s] * ex : 0.f;
+    const float gcol[3] = {g0, g1, g2};
+    float d[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      d[c] = w * gcol[c] * rgb[c] * (1.f - rgb[c]);
+      if (A::RGB_RELU && !(rw[c] > 0.f)) d[c] = 0.f;  // the colour ReLU's mask
+    }
+    out(s, d, dsig);
   }
 }
 

@@ -42,13 +42,21 @@
 // shared memory, less than one fine ray's activations (192 x 256 x 4 B per
 // layer). So this kernel stores them instead:
 //
-//  1. render_loss_fwd_kernel: B3's forward (mlp_common.cuh: whole rays per
-//     256-thread block, 64-row chunks, weights streamed from L2), which also
-//     spills the embedding, every layer's post-activation, feat and hv to a
-//     global scratch buffer, row-major with a column of ones after the last
-//     feature (so dW's bias row falls out of the same product). One thread
-//     per ray then composites, forms the loss cotangent and sweeps the ray
-//     backwards for the raw cotangent [P, 4] (d rgb logits, d sigma).
+//  1. the forward, which also stores the embedding, the view embedding,
+//     every layer's post-activation, feat and hv in a global scratch
+//     buffer, row-major with a column of ones after the last feature (so
+//     dW's bias row falls out of the same product). One thread per ray then
+//     composites, forms the loss cotangent and sweeps the ray backwards for
+//     the raw cotangent [P, 4] (d rgb logits, d sigma;
+//     mlp_common.cuh::ray_reverse). In bf16, B1 and B4 at W=128 run it on
+//     the tensor cores: tc_render.cuh::render_loss_tc_kernel, B3's body
+//     (the same products and composite, so rgb, acc, depth and the weights
+//     equal the bf16 render_pass launch bit for bit), each tile copied to
+//     the scratch while the next product reads it, the composite, loss and
+//     reverse on the producer warpgroup's three spare warps beside the next
+//     unit's products. Otherwise render_loss_fwd_kernel: B3's SIMT forward
+//     (mlp_common.cuh: whole rays per 256-thread block, 64-row chunks,
+//     weights streamed from L2).
 //  2. gemm_common.cuh::field_reverse (shared with B7, trunk.cu), from the
 //     raw cotangent: head_bwd_kernel, d hv through the rgb head and the view
 //     layer's activation;
@@ -72,17 +80,21 @@
 // Operands are fp32 (parity mode) or bf16, rounded where the plain twin and
 // _trunk_reverse round them (embedding, activations, dz, g_rgb, dhv, dfa);
 // products accumulate in fp32, and the gradients are fp32. The per-sample
-// colour stays fp32 (the TPU kernel rounds it in bf16 mode). SIMT: fp32
-// FMAs in order, the body B3's ordered pts launch runs (render_pass.cu), so
-// that B9's recomputed forward equals the training path's B3 launch bit for
-// bit. On the tensor cores (tc_render.cuh), whose products round each k16
-// step toward zero (tc_rounding.py), B9's bf16 gradients left the twin's
-// bar at MultiRes level 0, and an unbiased fold of each step did not keep
-// them inside it on every seeded case; this body shares the twin's fp32
-// order up to the skip layer. So every forward here stays SIMT, and only
-// the reverse sweeps moved to the tensor cores (their masks and ELU' come
-// from the stored activations, which that product does not rewrite). No
-// --use_fast_math
+// colour stays fp32 (the TPU kernel rounds it in bf16 mode). The tensor
+// cores round each k16 step of a product toward zero (tc_rounding.py), and
+// a forward on them moves the stored activations, and with them the masks
+// and ELU' of the whole sweep. B1's and B4's train-mode forwards moved:
+// with the forward, composite and sweep on that rounding model their
+// gradients stay within 5e-3 of the twin's (tests/test_torch_tc_backward.py;
+// on the card within 1e-2). These stay SIMT, fp32 FMAs in order: B9's
+// recomputed forward, which must equal the training path's B3 launch (the
+// ordered pts launch, render_pass.cu) bit for bit and whose gradients left
+// the twin's bar at MultiRes level 0 on the tensor cores; B5's, whose
+// gradients with the forward on the model land 1.04e-2 from the twin
+// (tc_rounding.py --backward b5); the T-NeRF at W=256 (no configuration
+// trains one), whose card test case moves two colour-ReLU masks under the
+// rounding and lands 3.5e-2 from the twin, as the model predicts; and fp32.
+// No --use_fast_math
 // (ops/kernels/build.py):
 // sinf/cosf stay accurate at the 2^9-frequency arguments, and the
 // transmittance floor max(1 - alpha + 1e-10, 1e-10), which is also the
@@ -96,8 +108,26 @@
 
 #include "gemm_common.cuh"
 #include "mlp_common.cuh"
+#include "tc_render.cuh"
 
 namespace {
+
+// B1's and B4's bf16 train-mode forward runs tc_render.cuh's tensor-core
+// body (render_loss_tc_kernel); fp32, B5 (PTS), B9 (EXT) and the T-NeRF at
+// W=256 keep render_loss_fwd_kernel (the header says why).
+template <typename T, int W, typename A, bool PTS, bool EXT>
+constexpr bool tc_forward() {
+  return std::is_same<T, __nv_bfloat16>::value &&
+         (std::is_same<A, Vanilla>::value || (std::is_same<A, TNerf>::value && W == 128)) && !PTS && !EXT;
+}
+
+// Bytes of the tensor-core forward's weight image (tc::render_plan). The
+// skip's place does not change its size: one embedding product at skip + 1
+// < D, which the launchers require.
+template <typename A>
+long long image_bytes(int W, int D) {
+  return W == 256 ? tc::render_plan<256, A>(D, 0).bytes : tc::render_plan<128, A>(D, 0).bytes;
+}
 
 template <typename T>
 struct Scratch {
@@ -272,59 +302,18 @@ render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restric
     rgb_out[ray * 3 + 2] = c2;
     acc_out[ray] = acc;
     depth_out[ray] = dep;
-    float g0, g1, g2, gacc, gdep = 0.f;
-    if (EXT) {
-      // B9: the caller's cotangent (render_fused.py:428-440): d loss /
-      // d rgb_map after the white background, d acc and d depth. White:
-      // rgb_map holds + (1 - acc), so d / d acc also takes -sum_c.
-      const float* gr = gct + ray * 5;
-      g0 = gr[0];
-      g1 = gr[1];
-      g2 = gr[2];
-      gacc = white ? gr[3] - ((g0 + g1) + g2) : gr[3];
-      gdep = gr[4];
-    } else {
-      const float e0 = c0 - target[ray * 3 + 0];
-      const float e1 = c1 - target[ray * 3 + 1];
-      const float e2 = c2 - target[ray * 3 + 2];
-      sqerr_out[ray] = (e0 * e0 + e1 * e1) + e2 * e2;
-      // d loss / d rgb_map = loss_scale * 2 * err; white: d / d acc = -sum_c.
-      const float gs = loss_scale * 2.f;
-      g0 = gs * e0;
-      g1 = gs * e1;
-      g2 = gs * e2;
-      gacc = white ? -((g0 + g1) + g2) : 0.f;
-    }
-    float suff = 0.f;  // sum over later samples of dL/dw_c * w_c
-    for (int s = S - 1; s >= 0; --s) {
-      const float* rw = raw_s + (t * S + s) * 4;
-      const float sigma = nz ? rw[3] + nz[s] : rw[3];
-      const float ex = expf(-fmaxf(sigma, 0.f) * dr[s]);
-      const float alpha = 1.f - ex;
-      const float safe = fmaxf(1.f - alpha + 1e-10f, 1e-10f);
-      const float tr = expf(lt[s]);
-      const float w = alpha * tr;
-      float rgb[3];
+    ray_reverse<A, EXT>(raw_s + t * S * 4, lt, S, zr, dr, nz, white, c0, c1, c2, ray, target, gct, loss_scale,
+                        sqerr_out, [&](int s, const float (&d)[3], float dsig) {
+                          const long long pp = ray * S + s;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) rgb[c] = rgb_of<A>(rw[c]);
-      float dldw = ((g0 * rgb[0] + g1 * rgb[1]) + g2 * rgb[2]) + gacc;
-      if (EXT) dldw += gdep * zr[s];  // depth = sum_s w_s z_s
-      const float dalpha = dldw * tr - suff / safe;
-      suff += dldw * w;
-      const float dsig = sigma > 0.f ? dalpha * dr[s] * ex : 0.f;
-      const float gcol[3] = {g0, g1, g2};
-      const long long pp = ray * S + s;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float d = w * gcol[c] * rgb[c] * (1.f - rgb[c]);
-        if (A::RGB_RELU && !(rw[c] > 0.f)) d = 0.f;  // the colour ReLU's mask
-        sc.graw[pp * 4 + c] = d;
-        sc.gq[pp * 4 + c] = Op<T>::q(d);
-      }
-      sc.graw[pp * 4 + 3] = dsig;
-      sc.gq[pp * 4 + 3] = Op<T>::q(dsig);
-      sc.dfa[pp * LDW + W] = Op<T>::q(dsig);
-    }
+                          for (int c = 0; c < 3; ++c) {
+                            sc.graw[pp * 4 + c] = d[c];
+                            sc.gq[pp * 4 + c] = Op<T>::q(d[c]);
+                          }
+                          sc.graw[pp * 4 + 3] = dsig;
+                          sc.gq[pp * 4 + 3] = Op<T>::q(dsig);
+                          sc.dfa[pp * LDW + W] = Op<T>::q(dsig);
+                        });
   }
 }
 
@@ -345,6 +334,8 @@ size_t scratch_bytes(int W, int D, long long P) {
   b += align256(sizeof(float) * P * WH);            // dhv32
   b += align256(sizeof(float) * part_floats(W));    // split partials
   if (PTS) b += align256(sizeof(float) * P * A::CIN);  // demb (B5, B9)
+  if (W == 256 ? tc_forward<T, 256, A, PTS, PTS>() : tc_forward<T, 128, A, PTS, PTS>())  // EXT implies PTS
+    b += align256(image_bytes<A>(W, D));
   return b;
 }
 
@@ -385,17 +376,29 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
   auto hl = [&](int i) { return sc.h + (size_t)i * sc.hstride; };
 
   // 1. forward, loss and the composite backward
-  const int rays_per_block = std::max(1, CH / S);
-  // The wide family in fp32 at W=256 leaves S <= 204 (render_loss_max_samples).
-  const size_t smem = render_smem<T, W, A, 5>(S);
-  if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = render_loss_fwd_kernel<T, W, A, PTS, EXT>;
-  SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
-  kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, gct, wts, bias, D,
-                                            skip, L, white, loss_scale, N, S, rays_per_block, rgb, acc, depth,
-                                            sqerr, w_out, sc);
-  SWNERF_CHECK(cudaGetLastError());
+  if constexpr (tc_forward<T, W, A, PTS, EXT>()) {
+    // On the tensor cores: the weight image after the scratch, the
+    // composite's log-transmittances in dhv32's room (P of its P * W/2
+    // floats), which the sweep writes only after this launch.
+    const long long img_bytes = image_bytes<A>(W, D);
+    void* img = cv_.take<unsigned char>(img_bytes);
+    const tc::TrainTape tp{sc.emb, sc.vemb, sc.h,  sc.hstride, sc.feat, sc.hv,      sc.dfa, sc.gq,
+                           sc.graw, dhv32,  LDW,   LDH,        target,  loss_scale, sqerr};
+    SWNERF_RUN((tc::render_launch<W, A, false, true>(origins, dirs, times, vemb, cv, z, dist, noise, wts, bias, D, skip,
+                                                     L, white, N, S, rgb, acc, depth, w_out, img, img_bytes, st, &tp)));
+  } else {
+    const int rays_per_block = std::max(1, CH / S);
+    // The wide family in fp32 at W=256 leaves S <= 204 (render_loss_max_samples).
+    const size_t smem = render_smem<T, W, A, 5>(S);
+    if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
+    auto kern = render_loss_fwd_kernel<T, W, A, PTS, EXT>;
+    SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+    const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
+    kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, gct, wts, bias,
+                                              D, skip, L, white, loss_scale, N, S, rays_per_block, rgb, acc, depth,
+                                              sqerr, w_out, sc);
+    SWNERF_CHECK(cudaGetLastError());
+  }
 
   // 2-4. the heads, d feat next to d sigma, the trunk (with B5's and B9's
   //      input cotangent): gemm_common.cuh::field_reverse; in bf16 its
@@ -422,9 +425,13 @@ const char* swnerf_error_string(int code) {
 }
 
 // The most samples per ray render_loss_launch (tnerf) and
-// render_loss_ext_launch (wide) take: the train-mode block's shared memory.
+// render_loss_ext_launch (wide) take: the train-mode block's shared memory,
+// in bf16 at the narrow pads the lesser of the SIMT body's (B9 narrow) and
+// the tensor-core body's (B1, B4 at W=128).
 int render_loss_max_samples(int tnerf, int bf16, int wide, int W) {
-  return render_max_samples<5>(tnerf, bf16, wide, W);
+  const int simt = render_max_samples<5>(tnerf, bf16, wide, W);
+  const bool tc = bf16 && !wide && (!tnerf || W == 128);
+  return tc && simt > 0 ? std::min(simt, tc::max_samples(tnerf, 0, W)) : simt;
 }
 
 // Bytes of scratch render_loss_launch needs, or -1 for an unsupported width.

@@ -1,12 +1,13 @@
 // The tensor-core chunk product for Hopper, shared by the bf16
 // instantiations of B6's forward (time_net.cu), of B3 (render_pass.cu:
 // from rays, pts, pts wide), of B4's forward-only launch (the T-NeRF
-// traits, same file) and of B7's and B8's forward-only launch (trunk.cu):
-// bf16 wgmma with fp32 accumulators, an asynchronous ring of weight slabs,
-// and 128 sample rows per pass over the weights. The fp32 instantiations
-// (the parity mode), B7', the train-mode forwards of B1, B4, B5, B9, B7 and
-// B8 and the training path's B3 launch (ordered) keep mlp_common.cuh's
-// SIMT chunk product (mm_acc).
+// traits, same file), of B1's and B4's train-mode forward (render_loss.cu;
+// B4 at W=128) and of B7's and B8's forward-only launch (trunk.cu): bf16
+// wgmma with fp32 accumulators, an asynchronous ring of weight slabs, and
+// 128 sample rows per pass over the weights. The fp32 instantiations (the
+// parity mode), B7', the train-mode forwards of B5, B9, B7 and B8 and of
+// the T-NeRF at W=256, and the training path's B3 launch (ordered) keep
+// mlp_common.cuh's SIMT chunk product (mm_acc).
 //
 // Why: the SIMT product keeps the tensor cores idle and re-reads a ~1 MB
 // weight set from L2 for every 64 rows (about 16-19 KB per row); a
@@ -40,10 +41,13 @@
 //    (1-3% of the blocks' cycles on the card: no other head could save more).
 //  - The chain of k16 steps rounds its fp32 sum toward zero at each step
 //    (tc_rounding.py), so a bf16 layer's outputs are not those of fp32 FMAs
-//    in order: B9's forward, whose gradients the twin's bar holds, the
-//    training path's B3 launch that it equals, and B7's and B8's train-mode
-//    forwards, whose spilled activations their backward reads, keep the
-//    SIMT body.
+//    in order, and a train-mode forward on it moves the masks its backward
+//    reads. B1's and B4's (W=128) train-mode forwards run here: on the
+//    rounding model their gradients stay within 5e-3 of the twin's. B9's
+//    forward (its gradients leave the bar at MultiRes level 0), the
+//    training path's B3 launch that it equals, B5's (1.04e-2 on the model)
+//    and B7's and B8's train-mode forwards (not yet checked on the model at
+//    their widths) keep the SIMT body.
 //
 // Deterministic: no atomics; each output element's sum runs in the tensor
 // core's fixed order, whatever the row's chunk or block.
@@ -74,6 +78,11 @@ constexpr int BAR_BYTES = 128;         // mbarriers: the ring's (3 full + 3 empt
 // forever). 56 keeps tc_render.cuh's composite warps from spilling.
 constexpr int PRODUCER_REGS = 56;      // the producer, and tc_render.cuh's composite warps
 constexpr int CONSUMER_REGS = 224;
+// tc_render.cuh's train-mode block (render_loss_tc_kernel), whose composite
+// warps also run each ray's reverse: 128 x 72 + 256 x 216 = 64,512 (with 56,
+// the T-NeRF's spilled; 216 still holds an m64n256 accumulator unspilled).
+constexpr int TRAIN_PRODUCER_REGS = 72;
+constexpr int TRAIN_CONSUMER_REGS = 216;
 
 __host__ __device__ constexpr int atoms(int k) { return (k + 63) / 64; }
 // Atoms of a B operand with N columns that one slab holds (each N x 128 bytes).

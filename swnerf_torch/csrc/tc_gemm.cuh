@@ -60,8 +60,9 @@
 //    its own, for one row and one column.
 //  - The chain of k16 steps rounds its fp32 sum toward zero at each step
 //    (tc_rounding.py); a dW split's chain is a few hundred steps, a bias
-//    near 1e-5 relative. The forwards stay where they were: the ReLU masks
-//    come from the stored activations, which this product never rewrites.
+//    near 1e-5 relative. The ReLU masks come from the stored activations,
+//    which this product never rewrites: whichever body wrote them (B1's and
+//    B4's tensor-core forward, render_loss.cu says which stayed SIMT).
 
 #pragma once
 

@@ -7,11 +7,15 @@
 // launch (trunk.cu). B4's two embedding products (layer 0, the skip) run
 // six k16 steps over two 64-column atoms, the second atom's last 32
 // columns skipped; 12 of the 96 columns are zeros past cin, an eighth of
-// those two products' work. B9's recomputed
-// forward, and the training path's B3 launch that must equal it
-// (render_pass_pts_launch's ordered), stay on the SIMT body: its fp32 FMAs
-// in order keep B9's gradients at the twin's bar, which this body's
-// products, rounded toward zero at every k16 step, leave.
+// those two products' work. render_loss_tc_kernel is the same body in
+// train mode, for B1 and B4 at W=128 (render_loss.cu): each tile also goes
+// to a global tape for the reverse sweep, and the composite warps form the
+// squared error and each ray's raw cotangent. B9's recomputed forward, and
+// the training path's B3 launch that must equal it (render_pass_pts_launch's
+// ordered), stay on the SIMT body: its fp32 FMAs in order keep B9's
+// gradients at the twin's bar, which this body's products, rounded toward
+// zero at every k16 step, leave; so do B5's and the T-NeRF's at W=256
+// (render_loss.cu says why).
 //
 // A block takes whole rays, R per work unit (render_rays: up to 1,024 rows,
 // a whole number of 128-row chunks where one fits). Per chunk each consumer
@@ -70,6 +74,27 @@ inline int render_rays(int S) {
   for (int r = most; r > 1; --r)
     if (r * S % ROWS == 0) return r;
   return most;
+}
+
+// Rays per unit of the train-mode launch (render_loss_tc_kernel) at N rays
+// of S samples: of 1 .. render_rays(S), the count that puts the fewest
+// 128-row chunks on the busiest SM, the larger on a tie. A train step's
+// launch holds about a thousand rays, and render_rays' units would leave
+// SMs idle (S=64: 64 units of 16 rays for 132 SMs). A row meets the same
+// products in any unit, so the outputs do not change.
+inline int train_rays(int S, long long N) {
+  const long long sms = grid_for(1LL << 30);
+  int best = 1;
+  long long fewest = -1;
+  for (int r = 1; r <= render_rays(S); ++r) {
+    const long long units = (N + r - 1) / r;
+    const long long chunks = (units + sms - 1) / sms * (((long long)r * S + ROWS - 1) / ROWS);
+    if (fewest < 0 || chunks <= fewest) {
+      fewest = chunks;
+      best = r;
+    }
+  }
+  return best;
 }
 
 template <int W, typename A>
@@ -192,6 +217,94 @@ __device__ __forceinline__ void composite_unit(const float* raw, int t, int nthr
   }
 }
 
+// What B1's and B4's train-mode launch (render_loss_tc_kernel) stores for
+// the reverse sweep (render_loss.cu::Scratch, gemm_common.cuh::FieldTape),
+// row-major over the launch's samples: the embedding [P][A::CIN] with a 1 at
+// column A::cin(L) (columns past it 0), the view embedding [P][A::CV], each
+// trunk layer's output at h + i * hstride [P][ldw] with a 1 at column W,
+// feat [P][ldw], hv [P][ldh]; the composite's raw cotangent (graw fp32, gq
+// rounded, [P][4]), q(d sigma) at column W of dfa [P][ldw], the
+// log-transmittances lt [P] (fp32, read back by the same thread), and the
+// squared error sqerr [N] against target [N][3], scaled by loss_scale.
+struct TrainTape {
+  bf16* emb;
+  bf16* vemb;
+  bf16* h;
+  size_t hstride;
+  bf16* feat;
+  bf16* hv;
+  bf16* dfa;
+  bf16* gq;
+  float* graw;
+  float* lt;
+  int ldw, ldh;
+  const float* target;
+  float loss_scale;
+  float* sqerr;
+};
+
+// Rows r < nvalid of a consumer's swizzled tile, columns 0 .. n-1 (a
+// multiple of 8), to the row-major g[row0 + r][ld], 16 bytes a copy (a warp
+// writes 512 contiguous bytes). Column one of each row goes out as 1: in
+// place of the tile's 0 for one < n, after the row's n columns for one ==
+// n; none for one < 0.
+__device__ __forceinline__ void spill_tile(const unsigned char* tile, int tid, int n, bf16* __restrict__ g, int ld,
+                                           long long row0, int nvalid, int one) {
+  const int chunks = n / 8;
+  for (int i = tid; i < 64 * chunks; i += WGT) {
+    const int r = i / chunks, c = i - r * chunks;
+    if (r >= nvalid) break;
+    uint4 v = *reinterpret_cast<const uint4*>(tile + tile_off(r, c * 8));
+    if (one >= c * 8 && one < c * 8 + 8) reinterpret_cast<bf16*>(&v)[one - c * 8] = __float2bfloat16_rn(1.f);
+    *reinterpret_cast<uint4*>(g + (row0 + r) * ld + c * 8) = v;
+  }
+  if (one == n)
+    for (int r = tid; r < nvalid; r += WGT) g[(row0 + r) * ld + n] = __float2bfloat16_rn(1.f);
+}
+
+// composite_unit in train mode, over the unit's raw lanes raw [nr][S][4]:
+// per ray the same composite (its log-transmittances to tp.lt), then the
+// squared error and the reverse (mlp_common.cuh::ray_reverse, B1's SIMT
+// body's), which leaves each sample's raw cotangent in its lanes; then, once
+// every composite thread is done (named barrier 4), the unit's lanes go out
+// sample by sample, coalesced: graw, gq and q(d sigma) at column W of dfa.
+template <int W, typename A>
+__device__ __forceinline__ void composite_loss_unit(float* raw, int t, int nthreads, long long ray0, int nr, int S,
+                                                    const float* __restrict__ z, const float* __restrict__ dist,
+                                                    const float* __restrict__ noise, int white,
+                                                    float* __restrict__ rgb_out, float* __restrict__ acc_out,
+                                                    float* __restrict__ depth_out, float* __restrict__ w_out,
+                                                    const TrainTape& tp) {
+  for (int i = t; i < nr; i += nthreads) {
+    const long long ray = ray0 + i;
+    const long long p = ray * S;
+    float* rr = raw + (size_t)i * S * 4;
+    const float* nz = noise ? noise + p : nullptr;
+    float c_0, c_1, c_2, a, dep;
+    composite<A>(rr, S, z + p, dist + p, nz, white, w_out + p, tp.lt + p, c_0, c_1, c_2, a, dep);
+    rgb_out[ray * 3 + 0] = c_0;
+    rgb_out[ray * 3 + 1] = c_1;
+    rgb_out[ray * 3 + 2] = c_2;
+    acc_out[ray] = a;
+    depth_out[ray] = dep;
+    ray_reverse<A, false>(rr, tp.lt + p, S, z + p, dist + p, nz, white, c_0, c_1, c_2, ray, tp.target, nullptr,
+                          tp.loss_scale, tp.sqerr, [rr](int s, const float (&d)[3], float dsig) {
+                            *reinterpret_cast<float4*>(rr + s * 4) = make_float4(d[0], d[1], d[2], dsig);
+                          });
+  }
+  asm volatile("bar.sync 4, %0;\n" ::"r"(nthreads) : "memory");
+  const long long p0 = ray0 * S;
+  for (int k = t; k < nr * S; k += nthreads) {
+    const float4 g = *reinterpret_cast<const float4*>(raw + (size_t)k * 4);
+    *reinterpret_cast<float4*>(tp.graw + (p0 + k) * 4) = g;
+    uint2 q;
+    reinterpret_cast<__nv_bfloat162*>(&q)[0] = __floats2bfloat162_rn(g.x, g.y);
+    reinterpret_cast<__nv_bfloat162*>(&q)[1] = __floats2bfloat162_rn(g.z, g.w);
+    *reinterpret_cast<uint2*>(tp.gq + (p0 + k) * 4) = q;
+    tp.dfa[(p0 + k) * tp.ldw + W] = __float2bfloat16_rn(g.w);
+  }
+}
+
 // One consumer warpgroup's 64 rows through a vanilla field on the tensor
 // cores, from its encoded tiles (emb at emb_a: A::CIN columns; the view
 // embedding at vt_a: A::CV), shared by B3 (consume) and B7 / B8's
@@ -201,16 +314,25 @@ __device__ __forceinline__ void composite_unit(const float* raw, int t, int nthr
 // embedding] and the rgb head (m64n8). Row r's raw lanes (rgb logits,
 // sigma; fp32) go to raw[r * 4 ..] for r < nvalid, in shared or global
 // memory. With prof (one thread of the block), the heads' clock cycles.
-template <int W, typename A>
+// TRAIN (B1's and B4's train mode): each trunk layer's output (with its
+// column of ones), feat and hv of rows r < nvalid also go to the tape at
+// global row grow0 + r, copied from the tile while the next product, which
+// reads the same tile, runs (the epilogue that overwrites it waits for the
+// warpgroup in mma_done).
+template <int W, typename A, bool TRAIN = false>
 __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, uint32_t vt_a,
                                            const float* __restrict__ bias, int D, int skip, int tid, int w, Ring& ring,
-                                           float* raw, int nvalid, long long* prof) {
+                                           float* raw, int nvalid, long long* prof, const TrainTape* tp = nullptr,
+                                           long long grow0 = 0) {
   constexpr int WH = W / 2;
   const uint32_t act_a = smem_u32(act);
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * 16 + (lane >> 2);  // the accumulator rows r0, r0 + 8
   const int c0 = 2 * (lane & 3);                 // and columns c0, c0 + 1
   float acc[W / 2];  // dead, its registers free, outside a layer's products (wgmma_zero)
+  auto keep = [&](int n, bf16* g, int ld, int one) {  // TRAIN: the tile's rows to the tape
+    if constexpr (TRAIN) spill_tile(act, tid, n, g, ld, grow0, nvalid, one);
+  };
   const float* bp = bias;
   for (int i = 0; i < D; ++i) {
     if (i == 0 || i == skip + 1) {
@@ -219,6 +341,8 @@ __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, u
     } else {
       mma<W, true>(acc, act_a, W, ring);
     }
+    if constexpr (TRAIN)
+      if (i > 0) keep(W, tp->h + (i - 1) * tp->hstride, tp->ldw, W);
     mma_done<W>(acc, ring, w);
     epilogue<W, A::ACT>(acc, bp, act, tid, nullptr, 0, 0, 0, false);
     publish(w);
@@ -227,6 +351,7 @@ __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, u
   long long th = prof ? clock64() : 0;
   {  // the alpha head -> raw lane 3
     mma<8, true>(acc, act_a, W, ring);
+    if constexpr (TRAIN) keep(W, tp->h + (D - 1) * tp->hstride, tp->ldw, W);
     mma_done<8>(acc, ring, w);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -242,6 +367,7 @@ __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, u
   {  // the view layer on cat([feature, view embedding]), in place
     mma<WH, true>(acc, act_a, W, ring);
     mma<WH, false>(acc, vt_a, A::CV, ring);
+    if constexpr (TRAIN) keep(W, tp->feat, tp->ldw, -1);
     mma_done<WH>(acc, ring, w);
     epilogue<WH, A::ACT>(acc, bias + (D + 1) * W, act, tid, nullptr, 0, 0, 0, false);
     publish(w);
@@ -250,6 +376,7 @@ __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, u
   {  // the rgb head -> raw lanes 0-2
     const float* b_rgb = bias + (D + 1) * W + WH;
     mma<8, true>(acc, act_a, WH, ring);
+    if constexpr (TRAIN) keep(WH, tp->hv, tp->ldh, -1);
     mma_done<8>(acc, ring, w);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -268,14 +395,15 @@ __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, u
 
 // The consumers' side of render_kernel (warpgroups 1 and 2): each unit's
 // raw lanes go to the composite warps through raw_full / raw_free (two
-// buffers).
-template <int W, typename A, bool PTS>
+// buffers). TRAIN: each chunk's embedding and view embedding also go to the
+// tape, and field_rows stores the layers' outputs.
+template <int W, typename A, bool PTS, bool TRAIN>
 __device__ __forceinline__ void consume(const float* __restrict__ origins, const float* __restrict__ dirs,
                                         const float* __restrict__ times, const float* __restrict__ vemb, int cv,
                                         const float* __restrict__ z,
                                         const float* __restrict__ bias, int D, int skip, int L, int N, int S,
                                         int R, long long* __restrict__ prof, unsigned char* sm, uint64_t* bars,
-                                        uint64_t* raw_full, uint64_t* raw_free, float* raw_s) {
+                                        uint64_t* raw_full, uint64_t* raw_free, float* raw_s, const TrainTape* tp) {
   constexpr int KE = atoms(A::CIN), KV = atoms(A::CV);
   constexpr int NST = render_stages<W, A>();
   unsigned char* act_s = sm + NST * STAGE_BYTES;              // [2][W / 64 atoms]
@@ -283,7 +411,7 @@ __device__ __forceinline__ void consume(const float* __restrict__ origins, const
   unsigned char* vemb_s = emb_s + 2 * KE * ATOM_BYTES;        // [2][KV atoms]
   const int units = (N + R - 1) / R;
   const int wg = threadIdx.x / WGT;
-  set_regs<CONSUMER_REGS>();
+  set_regs<TRAIN ? TRAIN_CONSUMER_REGS : CONSUMER_REGS>();
   const int w = wg - 1;
   const int tid = threadIdx.x - wg * WGT;
   const int ct = threadIdx.x - WGT;  // 0..255 over both consumers
@@ -309,21 +437,34 @@ __device__ __forceinline__ void consume(const float* __restrict__ origins, const
       float* raw = raw_u + (size_t)lrow0 * 4;
       encode_rows<A, PTS>(emb, vt, tid, lrow0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
       publish(w);
-      field_rows<W, A>(act, emb_a, vt_a, bias, D, skip, tid, w, ring, raw, nvalid, timer ? prof : nullptr);
+      if constexpr (TRAIN) {
+        const long long grow0 = ray0 * S + lrow0;
+        spill_tile(emb, tid, A::CIN, tp->emb, A::CIN, grow0, nvalid, A::cin(L));
+        spill_tile(vt, tid, A::CV, tp->vemb, A::CV, grow0, nvalid, -1);
+        field_rows<W, A, true>(act, emb_a, vt_a, bias, D, skip, tid, w, ring, raw, nvalid, timer ? prof : nullptr,
+                               tp, grow0);
+      } else {
+        field_rows<W, A>(act, emb_a, vt_a, bias, D, skip, tid, w, ring, raw, nvalid, timer ? prof : nullptr);
+      }
     }
     mbar_arrive(&raw_full[buf]);  // this thread's raw lanes of the unit are written
   }
   if (timer) add_clock(prof, 2, 0);
 }
 
-template <int W, typename A, bool PTS>
-__global__ void __launch_bounds__(NTHREADS, 1)
-render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs, const float* __restrict__ times,
-              const float* __restrict__ vemb, int cv, const float* __restrict__ z, const float* __restrict__ dist, const float* __restrict__ noise,
-              const __grid_constant__ Plan plan, const unsigned char* __restrict__ img, const float* __restrict__ bias,
-              int D, int skip, int L, int white, int N, int S, int R, float* __restrict__ rgb_out,
-              float* __restrict__ acc_out, float* __restrict__ depth_out, float* __restrict__ w_out,
-              long long* __restrict__ prof) {
+// The block of render_kernel and render_loss_tc_kernel: the producer
+// warpgroup (thread 0 streams the weight slabs, warps 1-3 composite each
+// unit; TRAIN: with the loss and its reverse) and the two consumers.
+template <int W, typename A, bool PTS, bool TRAIN>
+__device__ __forceinline__ void render_block(const float* __restrict__ origins, const float* __restrict__ dirs,
+                                             const float* __restrict__ times, const float* __restrict__ vemb, int cv,
+                                             const float* __restrict__ z, const float* __restrict__ dist,
+                                             const float* __restrict__ noise, const Plan& plan,
+                                             const unsigned char* __restrict__ img, const float* __restrict__ bias,
+                                             int D, int skip, int L, int white, int N, int S, int R,
+                                             float* __restrict__ rgb_out, float* __restrict__ acc_out,
+                                             float* __restrict__ depth_out, float* __restrict__ w_out,
+                                             long long* __restrict__ prof, const TrainTape* tp) {
   constexpr int NST = render_stages<W, A>();
   // The ring, each consumer's activation, embedding and view-embedding tiles
   // (consume), the barriers (the ring's, then raw_full[2] and raw_free[2]),
@@ -344,7 +485,7 @@ render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
   const int wg = threadIdx.x / WGT;
 
   if (wg == 0) {  // the producer (thread 0) and the composite (warps 1-3)
-    set_regs<PRODUCER_REGS>();
+    set_regs<TRAIN ? TRAIN_PRODUCER_REGS : PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       int st = 0, ph = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
@@ -359,39 +500,84 @@ render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
         const int buf = it & 1;
         mbar_wait(&raw_full[buf], (it >> 1) & 1);
         const long long t0 = timer ? clock64() : 0;
-        composite_unit<A>(raw_s + (size_t)buf * R * S * 4, t, WGT - 32, (long long)u * R, min(R, N - u * R), S, z,
-                          dist, noise, white, rgb_out, acc_out, depth_out, w_out);
+        float* raw_u = raw_s + (size_t)buf * R * S * 4;
+        if constexpr (TRAIN)
+          composite_loss_unit<W, A>(raw_u, t, WGT - 32, (long long)u * R, min(R, N - u * R), S, z, dist, noise,
+                                    white, rgb_out, acc_out, depth_out, w_out, *tp);
+        else
+          composite_unit<A>(raw_u, t, WGT - 32, (long long)u * R, min(R, N - u * R), S, z, dist, noise, white,
+                            rgb_out, acc_out, depth_out, w_out);
         if (timer) add_clock(prof, 0, t0);
         mbar_arrive(&raw_free[buf]);
       }
     }
   } else {
-    consume<W, A, PTS>(origins, dirs, times, vemb, cv, z, bias, D, skip, L, N, S, R, prof, sm, bars, raw_full,
-                       raw_free, raw_s);
+    consume<W, A, PTS, TRAIN>(origins, dirs, times, vemb, cv, z, bias, D, skip, L, N, S, R, prof, sm, bars, raw_full,
+                              raw_free, raw_s, tp);
   }
 }
 
-// Packs the image into img (img_bytes long) and launches the body on a
-// persistent grid.
+// B3 (from rays, pts, pts wide) and B4's forward-only launch.
 template <int W, typename A, bool PTS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+render_kernel(const float* __restrict__ origins, const float* __restrict__ dirs, const float* __restrict__ times,
+              const float* __restrict__ vemb, int cv, const float* __restrict__ z, const float* __restrict__ dist, const float* __restrict__ noise,
+              const __grid_constant__ Plan plan, const unsigned char* __restrict__ img, const float* __restrict__ bias,
+              int D, int skip, int L, int white, int N, int S, int R, float* __restrict__ rgb_out,
+              float* __restrict__ acc_out, float* __restrict__ depth_out, float* __restrict__ w_out,
+              long long* __restrict__ prof) {
+  render_block<W, A, PTS, false>(origins, dirs, times, vemb, cv, z, dist, noise, plan, img, bias, D, skip, L, white, N,
+                                 S, R, rgb_out, acc_out, depth_out, w_out, prof, nullptr);
+}
+
+// B1's and B4's bf16 train-mode forward (render_loss.cu): B3's / B4's
+// forward body from rays, storing the tape for the reverse sweep, with the
+// squared error and the composite's reverse in the composite warps.
+template <int W, typename A>
+__global__ void __launch_bounds__(NTHREADS, 1)
+render_loss_tc_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
+                      const float* __restrict__ times, const float* __restrict__ vemb, int cv,
+                      const float* __restrict__ z, const float* __restrict__ dist, const float* __restrict__ noise,
+                      const __grid_constant__ Plan plan, const unsigned char* __restrict__ img,
+                      const float* __restrict__ bias, int D, int skip, int L, int white, int N, int S, int R,
+                      float* __restrict__ rgb_out, float* __restrict__ acc_out, float* __restrict__ depth_out,
+                      float* __restrict__ w_out, const __grid_constant__ TrainTape tp) {
+  // No cycle counts (render_loss has no profile hook): fewer registers held
+  // across the composite warps' reverse.
+  render_block<W, A, false, true>(origins, dirs, times, vemb, cv, z, dist, noise, plan, img, bias, D, skip, L, white,
+                                  N, S, R, rgb_out, acc_out, depth_out, w_out, nullptr, &tp);
+}
+
+// Packs the image into img (img_bytes long) and launches the body on a
+// persistent grid; with tp (TRAIN), render_loss_tc_kernel.
+template <int W, typename A, bool PTS, bool TRAIN = false>
 int render_launch(const float* origins, const float* dirs, const float* times, const float* vemb, int cv, const float* z,
                   const float* dist,
                   const float* noise, const void* wts, const float* bias, int D, int skip, int L, int white, int N,
                   int S, float* rgb, float* acc, float* depth, float* w_out, void* img, long long img_bytes,
-                  cudaStream_t st) {
-  const int R = render_rays(S);
+                  cudaStream_t st, const TrainTape* tp = nullptr) {
+  const int R = TRAIN ? train_rays(S, N) : render_rays(S);  // render_smem holds render_rays(S)'s lanes
   const size_t smem = render_smem<W, A>(S);
   const Plan plan = render_plan<W, A>(D, skip);
-  if (smem > SMEM_OPTIN || img == nullptr || img_bytes < plan.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > SMEM_OPTIN || img == nullptr || img_bytes < plan.bytes || (TRAIN && tp == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = pack(wts, plan, img, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  auto kern = render_kernel<W, A, PTS>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const long long units = ((long long)N + R - 1) / R;
-  kern<<<grid_for(units), NTHREADS, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, plan,
-                                                static_cast<const unsigned char*>(img), bias, D, skip, L, white, N, S,
-                                                R, rgb, acc, depth, w_out, g_prof);
+  const unsigned char* im = static_cast<const unsigned char*>(img);
+  if constexpr (TRAIN) {
+    auto kern = render_loss_tc_kernel<W, A>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid_for(units), NTHREADS, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, plan, im, bias, D,
+                                                  skip, L, white, N, S, R, rgb, acc, depth, w_out, *tp);
+  } else {
+    auto kern = render_kernel<W, A, PTS>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid_for(units), NTHREADS, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, plan, im, bias, D,
+                                                  skip, L, white, N, S, R, rgb, acc, depth, w_out, g_prof);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,11 @@ the compositing backward and the trunk reverse. The gradients are those of
 ``loss_scale * sum_r sqerr_r`` and come out of the kernel itself, as in the
 JAX package; nothing here goes through autograd. B4's reverse takes ELU'
 from each stored activation (``h > 0 ? 1 : h + 1``) and masks the colour
-cotangent with its ReLU (``[logit > 0]``).
+cotangent with its ReLU (``[logit > 0]``). With bf16 weights the forward
+runs on the tensor cores (``csrc/tc_render.cuh::render_loss_tc_kernel``,
+its rgb / acc / depth / weights bit-equal to :func:`render_pass`'s bf16
+launch) and so does the reverse sweep's products (``csrc/tc_gemm.cuh``);
+fp32 weights keep the SIMT body.
 
 B9 (``render_loss_ext``, the backward half of
 ``train/fused_step.py::make_render_outputs``; render_fused.py's
@@ -305,14 +309,9 @@ def render_loss(
         )
     dev = origins.device
     cv = views_emb.shape[-1]
-    if (
-        dev.type != "cuda"
-        or packed.W not in WIDTHS
-        or cv != packed.input_ch_views
-        or not 1 <= S <= 1024
-        or N * S * (packed.W + 8) >= 2**31
-    ):
+    if dev.type != "cuda" or packed.W not in WIDTHS or cv != packed.input_ch_views or N * S * (packed.W + 8) >= 2**31:
         raise ValueError(f"render_loss: unsupported call (device {dev}, W {packed.W}, N {N}, S {S}, views {cv})")
+    check_samples(NAME, packed, S, "render_loss")
     for x, name, shape in (
         (origins, "origins", (N, 3)), (directions, "directions", (N, 3)), (views_emb, "views_emb", (N, cv)),
         (z_vals, "z_vals", (N, S)), (dists, "dists", (N, S)), (target, "target", (N, 3)),

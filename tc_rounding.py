@@ -35,7 +35,10 @@ sweep runs on the tensor cores with ELU' in the dH epilogue), and
 ``--backward b7`` for B7's backward with the input cotangent demb at the
 MultiRes levels given (D=8, W=256, seeded weights, rays x samples rows on
 [-1.2, 1.2]^3): the card's gradients and demb against the bf16 twin, and
-each model's (tc_model.sweep_field with need_demb) on the twin's forward. ``b5`` is B5
+each model's (tc_model.sweep_field with need_demb) on the twin's forward
+and with B7's train-mode forward on the model too (the masks of the sweep
+from tc_model.field_forward_model's activations; the cotangent is given),
+which says whether that forward can move onto the tensor cores. ``b5`` is B5
 (the D-NeRF canonical field, D=8, W=256, multires 10 / 4, seeded weights,
 S=192; its sweep with demb over the 64-column pad runs on the tensor cores),
 ``b9`` B9 at the MultiRes levels given (the phase-1 case below, rays x
@@ -394,7 +397,7 @@ def backward_b7(n: int, s: int, levels, dev) -> int:
     from swnerf_torch.ops.embedding import positional_encoding
     from swnerf_torch.ops.kernels import trunk as b7
     from swnerf_torch.ops.kernels.render_pass import field_mlp
-    from swnerf_torch.ops.kernels.tc_model import sweep_field
+    from swnerf_torch.ops.kernels.tc_model import field_forward_model, sweep_field
 
     for level in levels:
         cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **LEVELS[level])
@@ -421,7 +424,9 @@ def backward_b7(n: int, s: int, levels, dev) -> int:
         hs, feat, hv, _, _ = field_mlp(packed, e, v)
         for mode in ("rz", "rn", "exact"):
             swept = sweep_field(packed, e, v, hs, feat, hv, cot, mode, need_demb=True)
-            line.append(f"model {mode} {dist_to_twin(*swept):.3e}")
+            mhs, mfeat, mhv, _, _ = field_forward_model(packed, e, v, mode)
+            both = sweep_field(packed, e, v, mhs, mfeat, mhv, cot, mode, need_demb=True)
+            line.append(f"model {mode}: backward only {dist_to_twin(*swept):.3e}, forward too {dist_to_twin(*both):.3e}")
         print(f"[B7 {level}] {P} rows, {packed.cin} of {packed.cin_pad} input columns, gradients and demb max rel "
               "L2 from the bf16 twin: " + "; ".join(line))
         torch.cuda.empty_cache()

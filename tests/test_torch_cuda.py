@@ -57,7 +57,10 @@ within 2^-15 of the sum of the absolute products (and of the added-to
 value), the columns past the live ones untouched, bit-equal repeats. B4's bf16 forward on the tensor cores
 (csrc/tc_render.cuh with the T-NeRF traits) at B3's bf16 bars at ragged
 shapes and W 128 / 256, its rgb at a PSNR of 40 dB or more against the
-fp32 route's render. The
+fp32 route's render. B1's and B4's bf16 train-mode forward on the tensor
+cores (render_loss_tc_kernel): rgb, acc, depth and the weights bit-equal
+to the bf16 render_pass launch, bit-equal repeats, gradients rel L2 1e-2
+of the twin, at S = 64 and 192 and ragged rows. The
 MultiRes pyramid's resize: its forward bit-equal to F.interpolate's and its
 fixed-order backward bit-equal across launches at phase 2's sizes.
 """
@@ -433,6 +436,54 @@ def test_b4_gradients_are_deterministic(dev, dtype):
     _, (w2, b2_) = b1.render_loss(packed, *args, True, 1.0 / 1500, times)
     torch.cuda.synchronize()
     assert torch.equal(w1, w2) and torch.equal(b1_, b2_)
+
+
+TRAIN_TC_CASES = [
+    ("b1", {}, 1024, 64),  # the coarse pass
+    ("b1", {}, 512, 192),  # the fine pass
+    ("b1", {}, 37, 7),  # 259 rows: no whole 128-row chunk, 18 rays per unit
+    ("b1", dict(netdepth=3, netwidth=128, skips=(1,), multires=4, multires_views=2), 3, 43),  # W 128: 129 rows
+    ("b4", {}, 500, 64),
+    ("b4", {}, 200, 192),
+    ("b4", {}, 37, 7),
+    ("b4", TNERF_SMALL, 3, 43),  # 129 rows, 36 input columns (the T-NeRF at W=256 keeps the SIMT forward)
+]
+
+
+@pytest.mark.parametrize("kernel, kw, n, s", TRAIN_TC_CASES,
+                         ids=["b1-S64", "b1-S192", "b1-259rows", "b1-w128-129rows", "b4-S64", "b4-S192",
+                              "b4-259rows", "b4-small-129rows"])
+def test_train_tc_forward_equals_the_render_pass_and_repeats(dev, kernel, kw, n, s):
+    """bf16 B1 / B4 in train mode, whose forward runs on the tensor cores
+    (csrc/tc_render.cuh::render_loss_tc_kernel): rgb, acc, depth and the
+    weights equal the bf16 tensor-core render_pass launch on the same inputs
+    (noise std 1) bit for bit, sqerr is the squared error of that rgb, two
+    launches give bit-equal outputs and gradients, and the gradients lie
+    within rel L2 1e-2 of the bf16 twin's."""
+    if kernel == "b1":
+        packed, args = _b1_case(dev, kw, n, s, torch.bfloat16)
+        times, unpack = None, b1.unpack_grads
+    else:
+        packed, args, times = _b4_case(dev, kw, n, s, torch.bfloat16)
+        unpack = b1.unpack_tnerf_grads
+    o, d, ve, z, dist, noise, target = args
+    scale = 1.0 / (3 * n)
+    key = b3.launch_key("render_loss", packed, s)
+    before = launches[key]
+    got, g1 = b1.render_loss(packed, *args, True, scale, times)
+    again, g2 = b1.render_loss(packed, *args, True, scale, times)
+    fwd = b3.render_pass(packed, o, d, ve, z, dist, noise, True, times)
+    _, gr = b1.render_loss_plain(packed, *args, True, scale, times)
+    torch.cuda.synchronize()
+    assert launches[key] == before + 2
+    for name in ("rgb", "acc", "depth", "weights"):
+        assert torch.equal(getattr(got, name), getattr(fwd, name)), name
+    for name in b1.RenderLossOutput._fields:
+        assert torch.equal(getattr(got, name), getattr(again, name)), name
+    torch.testing.assert_close(got.sqerr, ((got.rgb - target) ** 2).sum(-1), rtol=1e-6, atol=0)
+    assert torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
+    rel = _rel_l2(unpack(g1, packed), unpack(gr, packed))
+    assert max(rel.values()) <= 1e-2, rel
 
 
 def test_b4_rejects_bad_times(dev):
