@@ -719,10 +719,12 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, kind
 
 
 # B1's and B6's backward by kernel family (kernel_split): the forward (SIMT,
-# or on the tensor cores: render_loss_tc_kernel, time_net_tc_kernel), the
+# or on the tensor cores: render_loss_tc_kernel, time_net_tc_kernel,
+# trunk_tc_kernel's forward-only launches), the
 # reverse sweep's tensor-core products (csrc/tc_gemm.cuh), the split
 # reductions, the SIMT heads and narrow products.
-SWEEP_FAMILIES = (("forward", ("render_loss_fwd", "render_loss_tc", "time_net_fwd", "time_net_tc")),
+SWEEP_FAMILIES = (("forward", ("render_loss_fwd", "render_loss_tc", "time_net_fwd", "time_net_tc", "trunk_fwd",
+                              "trunk_tc")),
                   ("tensor-core products", ("sweep_dw", "sweep_dh")),
                   ("split reductions", ("reduce_kernel", "colsum")),
                   ("SIMT products and heads", ("gemm_kernel", "head_bwd", "round_cotangent")))
@@ -778,18 +780,19 @@ def sweep_products(W, D, skip, cin_pad, cv_pad=None, demb=False):
     return out
 
 
-def forward_products(W, D, skip, cin_pad, cv_pad):
+def forward_products(W, D, skip, cin_pad, cv_pad=None):
     """The field forward's large products, as ("fw", in, out) for X [P,
     in] @ W [in, out]: the trunk (the embedding rows at layer 0 and the
-    skip layer), the feature layer and the view layer's two (the narrow
-    alpha and rgb heads left out, as sweep_products leaves them out)."""
+    skip layer) and, with cv_pad (a field, not B6's trunk), the feature
+    layer and the view layer's two (the narrow alpha and rgb heads, and
+    B6's 3-wide head, left out, as sweep_products leaves them out)."""
     out = []
     for i in range(D):
         if i in (0, skip + 1):
             out.append(("fw", cin_pad, W))
         if i > 0:
             out.append(("fw", W, W))
-    return out + [("fw", W, W), ("fw", W, W // 2), ("fw", cv_pad, W // 2)]
+    return out if cv_pad is None else out + [("fw", W, W), ("fw", W, W // 2), ("fw", cv_pad, W // 2)]
 
 
 def library_sweep_ms(P, products, dev):
@@ -816,6 +819,19 @@ def library_sweep_ms(P, products, dev):
             total += cuda_ms(lambda: torch.matmul(z, w.t()), 5)
         macs += P * a * b
     return total, macs
+
+
+def report_library(tag, name, P, products, ms, dev, what="forward"):
+    """Prints, and keeps for the [tc] lines, a launch's large products
+    (forward_products or sweep_products) at P rows as bf16 torch.matmul
+    calls on cuBLAS, summed, beside the launch's ms: PERF.md's library
+    column where no one PyTorch call computes the kernel. Returns the sum."""
+    lib, macs = library_sweep_ms(P, products, dev)
+    print(f"[{tag} library] {name}: the {what}'s {len(products)} large products at {P} rows as bf16 torch.matmul "
+          f"calls (cuBLAS, summed) {lib:.3f} ms (their bound {2 * macs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms) beside its "
+          f"{ms:.3f} ms")
+    TC_SUMMARY[f"{name}, the {what}'s products on cuBLAS"] = f"{lib:.3f} ms beside the launch's {ms:.3f} ms"
+    return lib
 
 
 def report_sweep(tag, name, fn, ms, bound_ms, P, products, dev, fwd=None):
@@ -2107,6 +2123,8 @@ def phase18_pts(dev, cfg, sd, inputs, data):
         cuda_ms(lambda: b6.time_net(tn16, pts, t), 3), cuda_ms(lambda: b6.time_net_plain(tn16, pts, t), 2),
         4 * (3 * m + nc + 3 * m) + 2 * tn16.weights.numel(), 2 * tn16.macs_per_row * m, "bf16",
     )
+    report_library("18", "time_net bf16 forward, the serving chunk's fine rows", m,
+                   forward_products(tn16.W, tn16.D, tn16.skip, tn16.cin_pad), rows["time_net"]["ms"], dev)
     del serve
     torch.cuda.empty_cache()
     return rows
@@ -2700,6 +2718,8 @@ def phase23_kernels(dev, data):
                              lambda: b7._launch_bwd(c16, n_rows, gg, sc, True, False), bwd,
                              rows["trunk[multires,bwd]"]["bound_ms"], n_rows,
                              sweep_products(c16.W, c16.D, c16.skip, c16.cin_pad, c16.cv_pad, demb=True), dev)
+                report_library("23", "trunk[multires] bf16 train-mode forward, level 0", n_rows,
+                               forward_products(c16.W, c16.D, c16.skip, c16.cin_pad, c16.cv_pad), fwd, dev)
                 # B6's MultiRes rows: its 144-row instantiation at the same
                 # rows; the D-NeRF rows keep the 96-row code at its shapes
                 nw6, nb6 = p16.weights.numel(), p16.biases.numel()
@@ -2717,6 +2737,8 @@ def phase23_kernels(dev, data):
                              lambda: b6._launch_bwd(p16, n_rows, cc, sc6), b6ms,
                              rows["time_net[multires,bwd]"]["bound_ms"], n_rows,
                              sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad), dev)
+                report_library("23", "time_net[multires] bf16 train-mode forward, level 0", n_rows,
+                               forward_products(p16.W, p16.D, p16.skip, p16.cin_pad), f6, dev)
                 print(f"[23 B6 level 0] {p16.macs_per_row} / {p16.bwd_macs_per_row} MACs per row: forward "
                       f"{2 * p16.macs_per_row * n_rows / f6 / 1e9:.2f} TFLOP/s, backward "
                       f"{2 * p16.bwd_macs_per_row * n_rows / b6ms / 1e9:.2f} TFLOP/s; B7 {c16.macs_per_row} / "
@@ -2745,6 +2767,10 @@ def phase23_kernels(dev, data):
     del raw_big, dx_big, rref, dref
     f7 = cuda_ms(lambda: b7.trunk(c16, big_emb, big_vemb), 3)
     f6 = cuda_ms(lambda: b6.time_net(p16, big_pts, big_t), 3)
+    report_library("23", "trunk[multires] forward only, the test render's chunk", big_emb.shape[0],
+                   forward_products(c16.W, c16.D, c16.skip, c16.cin_pad, c16.cv_pad), f7, dev)
+    report_library("23", "time_net[multires] forward only, the test render's chunk", big_emb.shape[0],
+                   forward_products(p16.W, p16.D, p16.skip, p16.cin_pad), f6, dev)
     bound7 = 2 * c16.macs_per_row * big_emb.shape[0] / PEAK_FLOPS["bf16"] * 1e3
     TC_SUMMARY["trunk[multires] forward only at the test render's chunk (wide pads)"] = (
         f"{f7:.3f} ms/launch, {2 * c16.macs_per_row * big_emb.shape[0] / f7 / 1e9:.1f} TFLOP/s, "
@@ -3119,7 +3145,7 @@ def multires_breakdown(dev, scene, states, pyr_hwf, rcfg, args):
         p2(states, pixels, targets, images[img_i, y0 : y0 + 32, x0 : x0 + 32], poses[img_i],
            float(scene.times[img_i]), 1.0, gen)
 
-    families = (("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
+    families = (("B7 forward", ("trunk_fwd", "trunk_tc")), ("B6 forward", ("time_net_fwd", "time_net_tc")),
                 ("B6/B7 backward, tensor-core products", ("sweep_dw", "sweep_dh")),
                 ("B6/B7 backward SIMT GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
                                                               "cotangent_kernel", "round_cotangent")))
@@ -3284,7 +3310,8 @@ def hold_to_twin(tag, packed, x, xv, graw, raw):
 
 def trunk_rows(prefix, pk16, x, xv, graw, raw, err, source_line, bwd_line):
     """The forward and backward [kernel] rows of one field trunk kernel at
-    the rows of x (bf16, train-mode forward as the eager steps run it)."""
+    the rows of x (bf16, train-mode forward as the eager steps run it), and
+    both launches' large products on cuBLAS beside their times."""
     from swnerf_torch.ops.kernels import trunk as b7
 
     n = x.shape[0]
@@ -3304,12 +3331,10 @@ def trunk_rows(prefix, pk16, x, xv, graw, raw, err, source_line, bwd_line):
                         in_bytes + 16 * n + 2 * nw + 4 * (nw + nb), 2 * pk16.bwd_macs_per_row(False, False) * n,
                         "bf16"),
     }
-    products = sweep_products(pk16.W, pk16.D, pk16.skip, pk16.cin_pad, pk16.cv_pad)
-    lib, macs = library_sweep_ms(n, products, x.device)
-    print(f"[{prefix} bwd] the backward's {len(products)} large products at {n} rows as bf16 torch.matmul calls "
-          f"(cuBLAS, summed) {lib:.3f} ms (their bound {2 * macs / PEAK_FLOPS['bf16'] * 1e3:.4f} ms) beside its "
-          f"{bwd:.3f} ms")
-    TC_SUMMARY[f"{bwd_name}, the backward's products on cuBLAS"] = f"{lib:.3f} ms beside the launch's {bwd:.3f} ms"
+    report_library(prefix, f"{bwd_name} bf16", n, sweep_products(pk16.W, pk16.D, pk16.skip, pk16.cin_pad,
+                                                                  pk16.cv_pad), bwd, x.device, "backward")
+    report_library(prefix, f"{prefix} bf16 train-mode forward", n,
+                   forward_products(pk16.W, pk16.D, pk16.skip, pk16.cin_pad, pk16.cv_pad), fwd, x.device)
     del sc
     return rows
 
@@ -3641,6 +3666,8 @@ def phase29_mesh(dev, tmp):
     row = entry("trunk[mesh]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:435", 0, draw,
                 cuda_ms(lambda: b7.trunk(p16, emb, vemb), 5), cuda_ms(lambda: b7.trunk_plain(p16, emb, vemb), 2),
                 4 * (emb.numel() + vemb.numel()) + 16 * n + 2 * nw + 4 * nb, 2 * p16.macs_per_row * n, "bf16")
+    report_library("29", "trunk[mesh] bf16 forward only, one tile", n,
+                   forward_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), row["ms"], dev)
     sweep_bound = 1024 * row["bound_ms"]
     print(f"[29 times] trunk[mesh]: {row['ms']:.3f} ms per tile, {100 * row['bound_ms'] / row['ms']:.2f}% of the bf16 "
           f"bound ({p16.macs_per_row} MACs per row); 1,024 tiles at the bound: {sweep_bound:.1f} ms, measured sweep "
@@ -4029,6 +4056,8 @@ def phase31_b3w_b9(dev, data, states):
         2 * p16.macs_per_sample * nb, "bf16")
     del big, small
     torch.cuda.empty_cache()
+    report_library("31", "render_pass[pts,wide] bf16, the test render's chunk", nb,
+                   forward_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), b3ms, dev)
     print(f"[31 times] B3 wide level 0 ({p16.macs_per_sample} MACs per sample): the test render's chunk "
           f"(32,768 x 64) {b3ms:.3f} ms ({2 * p16.macs_per_sample * nb / b3ms / 1e9:.2f} TFLOP/s); phase 2's "
           f"1,024 x 64 rows {b3small:.3f} ms; the training path's ordered launch (SIMT) {b3ms_o:.3f} "
@@ -4318,7 +4347,7 @@ def phase2_profile(dev, scene, pyr_hwf, ckpt):
         lap = generate_laplacian_pyramid(images, levels=4)
     patch_sizes = [32, 16, 8, 4]
     families = (("B9 forward", ("render_loss_fwd",)), ("B3 wide / B3 pts forward", ("render_pass_kernel", "render_kernel<")),
-                ("B7 forward", ("trunk_fwd",)), ("B6 forward", ("time_net_fwd", "time_net_tc")),
+                ("B7 forward", ("trunk_fwd", "trunk_tc")), ("B6 forward", ("time_net_fwd", "time_net_tc")),
                 ("backward tensor-core products (B6, B7, B9)", ("sweep_dw", "sweep_dh")),
                 ("backward SIMT GEMMs and reductions", ("gemm_kernel", "reduce_kernel", "colsum", "head_bwd",
                                                         "cotangent_kernel", "round_cotangent", "encode_bwd")))
@@ -4568,6 +4597,8 @@ def phase35_b11(dev, data):
             print(f"[35 times] B11 backward, {M} rows ({p16.din_macs_per_row} MACs per row): {ms:.3f} ms "
                   f"({2 * p16.din_macs_per_row * M / ms / 1e9:.2f} TFLOP/s) against B6's backward {b6ms:.3f} ms "
                   f"(no input cotangent); twin {plain:.3f} ms")
+            report_library("35", "time_net[pts,bwd] bf16 (d pts, d times)", M,
+                           sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, demb=True), ms, dev, "backward")
             del sc
         torch.cuda.empty_cache()
     row["launches"] = path["time_net[pts,bwd]"]

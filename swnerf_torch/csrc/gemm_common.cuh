@@ -10,10 +10,10 @@
 // inputs give bit-equal gradients. dH = dZ W^T runs row-parallel with the
 // activation's derivative and the rounding to the operand type (or, for the
 // input cotangent, an fp32 store or accumulate) in its epilogue. Under the
-// sweeps' TC switch (bf16 B1, B4, B5, B9, B6 without input cotangents, B7)
-// the two large products of each layer, and the input cotangent of B5, B7
-// and B9, run on the tensor cores instead (tc_gemm.cuh: tc_reduce, tc_act,
-// tc_demb), with the same split reduction.
+// sweeps' TC switch (bf16 B1, B4, B5, B9, B6 without input cotangents, B7,
+// B8) the two large products of each layer, and the input cotangents of B5,
+// B7, B8 and B9, run on the tensor cores instead (tc_gemm.cuh: tc_reduce,
+// tc_act, tc_demb, tc_dvemb), with the same split reduction.
 
 #pragma once
 
@@ -34,10 +34,11 @@ constexpr int GEMM_BLOCKS = 1056;  // dW split target: 8 blocks per SM
 
 // Rows 0..nvalid-1 of a k-major shared chunk (columns 0..ncopy-1) into
 // global rows p0.. of a row-major [.][ld] buffer; with ones, column ncopy
-// of each row is set to 1.
+// of each row is set to 1; the columns after those, up to width, are set
+// to 0 (a pad that a tensor-core product reads whole).
 template <typename T>
 __device__ __forceinline__ void spill(const T* __restrict__ s, int ncopy, T* __restrict__ g, int ld,
-                                      long long p0, int nvalid, bool ones) {
+                                      long long p0, int nvalid, bool ones, int width = 0) {
   constexpr int LDA = Op<T>::LDA;
   for (int idx = threadIdx.x; idx < CH * ncopy; idx += NT) {
     const int r = idx / ncopy, k = idx - r * ncopy;
@@ -45,6 +46,11 @@ __device__ __forceinline__ void spill(const T* __restrict__ s, int ncopy, T* __r
   }
   if (ones)
     for (int r = threadIdx.x; r < nvalid; r += NT) g[(p0 + r) * ld + ncopy] = Op<T>::q(1.f);
+  const int z0 = ncopy + (ones ? 1 : 0), nz = width - z0;
+  for (int idx = threadIdx.x; idx < CH * nz; idx += NT) {
+    const int r = idx / nz;
+    if (r < nvalid) g[(p0 + r) * ld + z0 + idx - r * nz] = Op<T>::q(0.f);
+  }
 }
 
 // C[M, N] = sum_t A(m, t) B(t, n), A(m, t) = A[m*sam + t*sat] and
@@ -299,6 +305,21 @@ int tc_demb(const T* dz, int W, const T* w_emb, int CIN, int cin, long long P, f
   return CIN == 128 ? tc_demb_at<128>(g, W, add, st) : tc_demb_at<64>(g, W, add, st);
 }
 
+// The view embedding's cotangent on the tensor cores (B7, B8): dvemb
+// [P][cv] fp32 = dhv w_vv^T over the live columns n < cv, dhv [P][WH] (WH =
+// W / 2: 128 or 64 deep), w_vv the packed [CVP = 128][WH] view rows; the
+// product runs the 128 columns of the pad and stores the live ones
+// (tc_demb's shape, stored once).
+template <typename T>
+int tc_dvemb(const T* dhv, int WH, const T* w_vv, int CVP, int cv, long long P, float* dvemb, cudaStream_t st) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core sweep is bf16 only");
+  const tc::DhArgs g{dhv, WH, w_vv, P, nullptr, 0, nullptr, 0, nullptr, nullptr, cv, dvemb, cv};
+  if (CVP != 128 || cv > CVP) return static_cast<int>(cudaErrorInvalidValue);
+  if (WH == 128) return static_cast<int>(tc::dh_launch<128, 128, tc::Epi::Store32>(g, st));
+  if (WH == 64) return static_cast<int>(tc::dh_launch<128, 64, tc::Epi::Store32>(g, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 GemmArgs gemm_args(const void* A, long long sam, long long sat, const void* B, long long sbt, long long sbn, int M,
                    int N, int K) {
   GemmArgs g{};
@@ -440,12 +461,11 @@ struct FieldTape {
 // to CIN and the view embedding to CVP rows: the rgb head and the view
 // layer, d feat next to d sigma, the feature + alpha product, then the
 // trunk (trunk_reverse). gw / gb are the packed fp32 gradients (zeroed by the
-// caller); demb [P][cin] (B5, B7, B9) and dvemb [P][cv] (B7) are the input
-// cotangents in fp32, formed where not null. TC (bf16 B1, B4, B5, B7, B9):
-// the view layer's two dW, d feat, the feature + alpha dW (its d sigma
-// column and bias row beside the product) and dz_{D-1} on the tensor
-// cores, then the trunk's with demb (dvemb, which no tensor-core caller's
-// main path asks for, stays a SIMT product).
+// caller); demb [P][cin] (B5, B7, B8, B9) and dvemb [P][cv] (B7, B8) are the input
+// cotangents in fp32, formed where not null. TC (bf16 B1, B4, B5, B7, B8,
+// B9): the view layer's two dW, dvemb (tc_dvemb), d feat, the feature +
+// alpha dW (its d sigma column and bias row beside the product) and
+// dz_{D-1} on the tensor cores, then the trunk's with demb.
 template <typename T, int W, Act ACT, typename H, bool TC = false>
 int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int cv, long long P,
                   const FieldTape<T, H>& tp, float* gw, float* gb, float* demb, float* dvemb, cudaStream_t st) {
@@ -483,10 +503,14 @@ int field_reverse(const T* wts, int D, int skip, int CIN, int cin, int CVP, int 
                               Region{gw + off_vv, WH, nullptr}, none, st));
   }
   if (dvemb) {  // d vemb = dhv W_vv^T over the live columns; W_vv is [CVP][W/2]
-    GemmArgs g = gemm_args(tp.dhv_c, WH, 1, wts + off_vv, 1, WH, (int)P, cv, WH);
-    g.C = dvemb;
-    g.ldc = cv;
-    SWNERF_RUN((gemm_act<T, false, 1>(g, st)));
+    if constexpr (TC) {
+      SWNERF_RUN(tc_dvemb<T>(tp.dhv_c, WH, wts + off_vv, CVP, cv, P, dvemb, st));
+    } else {
+      GemmArgs g = gemm_args(tp.dhv_c, WH, 1, wts + off_vv, 1, WH, (int)P, cv, WH);
+      g.C = dvemb;
+      g.ldc = cv;
+      SWNERF_RUN((gemm_act<T, false, 1>(g, st)));
+    }
   }
 
   // d feat = q(dhv @ W_vf^T) next to the d sigma column, then the feature +

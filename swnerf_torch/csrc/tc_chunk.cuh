@@ -46,8 +46,10 @@
 //    rounding model their gradients stay within 5e-3 of the twin's. B9's
 //    forward (its gradients leave the bar at MultiRes level 0), the
 //    training path's B3 launch that it equals, B5's (1.04e-2 on the model)
-//    and B7's and B8's train-mode forwards (not yet checked on the model at
-//    their widths) keep the SIMT body.
+//    and B7's and B8's train-mode forwards keep the SIMT body: on the model
+//    at their widths no accumulation tried (this chain, or a fresh chain
+//    per 4 or per 1 k16 steps folded into an fp32 sum) keeps their bars
+//    (tc_rounding.py --backward b7 b8, PERF.md §6).
 //
 // Deterministic: no atomics; each output element's sum runs in the tensor
 // core's fixed order, whatever the row's chunk or block.

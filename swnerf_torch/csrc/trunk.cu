@@ -58,9 +58,10 @@
 //     sweep: fixed-order dW splits, no atomics, bit-equal repeats; demb as
 //     dz_{skip+1} W_emb^T + dz_0 W_0^T over the live columns, in fp32 (the
 //     Pallas backward rounds it to the compute dtype, raymarch.py:765). B7
-//     in bf16 runs the sweep's large products and demb on the tensor cores
-//     (tc_gemm.cuh, as B1: dW, dH with ReLU's mask, demb as an fp32 store
-//     then add over its 128-column pad); dvemb, B7' and B8 stay SIMT.
+//     and B8 in bf16 run the sweep's large products, demb and dvemb on the
+//     tensor cores (tc_gemm.cuh, as B1: dW, dH with ReLU's mask, demb as an
+//     fp32 store then add over its 128-column pad, dvemb as one store over
+//     the view rows' pad); B7' stays SIMT.
 //  3. trunk_tc_kernel (bf16, B7 and B8 without a scratch: the mesh sweep,
 //     the no-grad field routes): tc_render.cuh's field product on the
 //     tensor cores, 128 rows per pass over the weight image.
@@ -232,8 +233,9 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
   }
   __syncthreads();
   if (STORE) {
-    spill<T>(emb, cin, sc.emb, A::CIN, row0, nvalid, true);
-    spill<T>(vemb_s, cv, sc.vemb, A::CV, row0, nvalid, false);
+    // the pads up to A::CIN / A::CV as zeros: the tensor-core sweep's dW reads them
+    spill<T>(emb, cin, sc.emb, A::CIN, row0, nvalid, true, A::CIN);
+    spill<T>(vemb_s, cv, sc.vemb, A::CV, row0, nvalid, false, A::CV);
   }
   const T* wp = wts;
   const float* bp = bias;
@@ -341,7 +343,8 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
 // train-mode forward, whose spilled activations the backward reads, stays
 // on trunk_fwd_kernel: the tensor cores round each k16 step's sum toward
 // zero (tc_rounding.py), and the backward's gradients are held to the
-// twin's fp32-order bar.
+// twin's fp32-order bar, which on the rounding model neither this chain nor
+// a fold of its sums keeps for B7 or B8 (PERF.md §6, PR 14).
 constexpr int TC_STAGES = 3;
 
 // B7 / B8's narrow tiles: one atom for each embedding.
@@ -479,7 +482,8 @@ __global__ void cotangent_kernel(const float* __restrict__ g, const float* __res
   if ((idx & 3) == 3) dfa[(idx >> 2) * (W + PADC) + W] = v;
 }
 
-// The bf16 forward-only launch of B7 and B8 runs on the tensor cores.
+// The bf16 forward-only launches of B7 and B8 run on the tensor cores, and
+// so do their backwards' products (tc_gemm.cuh); B7' and fp32 stay SIMT.
 template <typename T, typename A>
 constexpr bool on_tc() {
   return sizeof(T) == 2 && !A::RGB_RELU;
@@ -519,9 +523,11 @@ int bwd(const void* wts_v, int D, int skip, int cin, int cv, long long P, const 
   auto hl = [&](int i) { return static_cast<const T*>(sc.h + (size_t)i * sc.hstride); };
   FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, A::RGB_RELU ? sc.gm : g,
                                   sc.dz, sc.dhv_c, sc.dhv32, sc.part};
+  constexpr bool TC = on_tc<T, A>();  // B7 and B8 in bf16: the sweep's products on the tensor cores
   if constexpr (A::RAW) {
-    SWNERF_RUN((field_reverse<T, W, A::ACT>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb,
-                                            demb ? sc.demb : nullptr, dvemb ? sc.dvemb : nullptr, st)));
+    SWNERF_RUN((field_reverse<T, W, A::ACT, decltype(hl), TC>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb,
+                                                              demb ? sc.demb : nullptr, dvemb ? sc.dvemb : nullptr,
+                                                              st)));
     if (demb) {
       encode_bwd_kernel<<<ceil_div(P * 3, 256), 256, 0, st>>>(x, sc.demb, cin, (cin - 3) / 6, P, demb);
       SWNERF_CHECK(cudaGetLastError());
@@ -532,7 +538,6 @@ int bwd(const void* wts_v, int D, int skip, int cin, int cv, long long P, const 
     }
     return 0;
   } else {
-    constexpr bool TC = std::is_same<T, __nv_bfloat16>::value && std::is_same<A, Trunk>::value;  // B7
     return field_reverse<T, W, A::ACT, decltype(hl), TC>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb, demb,
                                                          dvemb, st);
   }

@@ -5,16 +5,21 @@ the fp32 accumulator in k16 steps: each step's 16 products are summed
 exactly, added to the accumulator and the result rounded to fp32. The card
 rounds that step toward zero (``tc_rounding.py`` measured it against B6's
 kept activations). :func:`product` models a product step by step: ``rz``
-toward zero, ``rn`` to nearest, ``fold`` (each step from zero, toward zero,
-then the even of it and its neighbour away from zero, added to nearest: an
-unbiased fold), ``exact`` (float64 throughout).
+toward zero, ``rn`` to nearest, ``fold`` (a chain of ``group`` steps from
+zero, toward zero, then the even of its sum and that sum's neighbour away
+from zero, added to an fp32 master sum to nearest: an unbiased fold;
+``group`` 1 folds every step, 4 every 64-deep atom: a fresh ``wgmma``
+chain of G steps, its sum's odd significand stepped away from zero, an
+fp32 add; no kernel runs it, ``tc_rounding.py`` weighs it), ``exact``
+(float64 throughout).
 
 On top of it, what the kernels would give with their products on that
 model, for any device:
 
 - :func:`sweep_field` is ``gemm_common.cuh::field_reverse`` with its
   tensor-core switch (bf16 B1's and B4's reverse sweep; with ``need_demb``
-  B5's and B9's): the view layer's two dW, d feat, the feature dW, dz of
+  B5's, B7's and B9's; with ``need_dvemb`` too, B7's and B8's): the view
+  layer's two dW, d feat (and dvemb, stored in fp32), the feature dW, dz of
   the top layer and every trunk layer's dW and dH on the model; the rgb
   head, dhv, the d sigma column and the bias sums as the plain twin's fp32
   (``render_loss.field_reverse_plain``). The packed weights' ``arch`` picks
@@ -66,23 +71,30 @@ def ulp32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(a > 0, u, torch.zeros_like(u))
 
 
-def product(X: torch.Tensor, Wm: torch.Tensor, acc: Optional[torch.Tensor] = None, mode: str = "rz") -> torch.Tensor:
+def product(X: torch.Tensor, Wm: torch.Tensor, acc: Optional[torch.Tensor] = None, mode: str = "rz",
+            group: int = 1) -> torch.Tensor:
     """``acc (+)= X @ Wm`` in float64 as the tensor cores sum it: K padded
     to whole 64-deep atoms (the zero rows add nothing), then one fp32
-    rounding per k16 step in ``mode``."""
+    rounding per k16 step in ``mode``; ``fold`` chains ``group`` steps
+    (1, 2 or 4: within an atom) toward zero from a fresh sum before each
+    fold."""
     X, Wm = X.double(), Wm.double()
     K = -(-X.shape[1] // 64) * 64
     X, Wm = F.pad(X, (0, K - X.shape[1])), F.pad(Wm, (0, 0, 0, K - Wm.shape[0]))
     if mode == "exact":
         return X @ Wm if acc is None else acc + X @ Wm
-    for k0 in range(0, K, 16):
-        g = X[:, k0:k0 + 16] @ Wm[k0:k0 + 16]
-        if mode == "fold":
-            t = rnd32(g, "rz")
+    if mode == "fold":
+        for k0 in range(0, K, 16 * group):
+            t = None
+            for k1 in range(k0, k0 + 16 * group, 16):
+                g = X[:, k1:k1 + 16] @ Wm[k1:k1 + 16]
+                t = rnd32(g if t is None else t + g, "rz")
             t = rnd32(t + torch.sign(t) * 0.5 * ulp32(t), "rn")  # the tie goes to the even neighbour
             acc = t if acc is None else rnd32(acc + t, "rn")
-        else:
-            acc = rnd32(g if acc is None else acc + g, mode)
+        return acc
+    for k0 in range(0, K, 16):
+        g = X[:, k0:k0 + 16] @ Wm[k0:k0 + 16]
+        acc = rnd32(g if acc is None else acc + g, mode)
     return acc
 
 
@@ -146,7 +158,21 @@ def _trunk(m, emb, hs, dz, D: int, skip: int, mode: str, gw: Dict, gb: Dict, elu
     return demb
 
 
-def _sweep(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str, need_demb: bool):
+def sweep_field(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str = "rz",
+                need_demb: bool = False, need_dvemb: bool = False):
+    """bf16 B1's or B4's reverse sweep with its tensor-core products on the
+    model, as ``((weights, biases), demb, dvemb)``: the packed gradients in
+    float64, from the forward's rounded operands
+    (``render_pass.field_forward``) and the raw cotangent ``graw`` [P, 4]
+    (B4: the colour ReLU's mask already applied, as the composite applies
+    it), as ``render_loss.field_reverse_plain`` takes them. demb [P, cin]
+    with ``need_demb`` (B5, B9: the sweep on given positions; B7's backward
+    from its cotangent g [P, 4] in place of graw, on the padded inputs and
+    outputs of ``trunk._padded`` and ``render_pass.field_mlp``), in float64
+    holding fp32 values, which ``render_loss.encode_backward`` carries to d
+    pts; dvemb [P, cv] with ``need_dvemb`` (B7's and B8's backward): dhv
+    W_vv^T on the model over the view embedding's pad, stored in fp32. Each
+    is None where it was not asked for."""
     from swnerf_torch.ops.kernels.render_pass import bias_layout, weight_layout
 
     m = {k: v.double() for k, v in packed.matrices().items()}
@@ -161,6 +187,7 @@ def _sweep(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str,
     gw["rgb"], gb["rgb"] = _f32(hv.t() @ gq[:, :3]), _f32(graw[:, :3].sum(0))
     gw["views_feat"], gw["views_emb"] = _dw(feat, dhv_c, mode), _dw(vemb, dhv_c, mode)
     gb["views"] = _f32(dhv.sum(0))
+    dvemb = _dh(dhv_c, m["views_emb"], mode)[:, : packed.input_ch_views] if need_dvemb else None
     dfeat = _bf16(_dh(dhv_c, m["views_feat"], mode))
     dsq = gq[:, 3]
     top = hs[-1]
@@ -173,24 +200,9 @@ def _sweep(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str,
         torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(D, packed.W, skip, packed.cin_pad, packed.cv_pad)]),
         torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(D, packed.W)]),
     )
-    return grads, None if demb is None else demb[:, : packed.cin]
+    return grads, None if demb is None else demb[:, : packed.cin], dvemb
 
 
-def sweep_field(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode: str = "rz",
-                need_demb: bool = False):
-    """bf16 B1's or B4's reverse sweep with its tensor-core products on the
-    model: the packed (weights, biases) gradients in float64, from the
-    forward's rounded operands (``render_pass.field_forward``) and the raw
-    cotangent ``graw`` [P, 4] (B4: the colour ReLU's mask already applied,
-    as the composite applies it), as ``render_loss.field_reverse_plain``
-    takes them. With ``need_demb`` (B5, B9: the sweep on given positions;
-    B7's backward from its cotangent g [P, 4] in place of graw, on the
-    padded inputs and outputs of ``trunk._padded`` and
-    ``render_pass.field_mlp``), ``((weights, biases), demb [P, cin])``, demb
-    in float64 holding fp32 values, which ``render_loss.encode_backward``
-    carries to d pts."""
-    out = _sweep(packed, emb, vemb, hs, feat, hv, graw, mode, need_demb)
-    return out if need_demb else out[0]
 
 
 def sweep_time_net(packed, emb, hs: List[torch.Tensor], g, mode: str = "rz"):
@@ -214,11 +226,12 @@ def sweep_time_net(packed, emb, hs: List[torch.Tensor], g, mode: str = "rz"):
     )
 
 
-def field_forward_model(packed, emb, vemb, mode: str = "rz"):
+def field_forward_model(packed, emb, vemb, mode: str = "rz", group: int = 1):
     """The packed field's forward with its products on the model, rounded
     to bf16 where the kernels round: (each trunk layer's output, feat, hv,
     sigma [P], rgb logits [P, 3]), float64. ReLU, or ELU (:func:`elu_tc`,
-    the tensor-core epilogue's) for the T-NeRF family."""
+    the tensor-core epilogue's) for the T-NeRF family; ``group``: the fold's
+    (:func:`product`)."""
     m = {k: v.double() for k, v in packed.matrices().items()}
     bv = {k: v.double() for k, v in packed.bias_vectors().items()}
     emb, vemb = emb.double(), vemb.double()
@@ -229,16 +242,18 @@ def field_forward_model(packed, emb, vemb, mode: str = "rz"):
     def fin(zz, b):
         return zz + b if mode == "exact" else rnd32(zz + b, "rn")
 
+    def mm(x, w, acc=None):
+        return product(x, w, acc, mode, group)
+
     hs, h = [], emb
     for i in range(packed.D):
-        first = product(emb, m[f"pts{i}_emb"], None, mode) if i == packed.skip + 1 else None
-        h = _bf16(act(fin(product(emb if i == 0 else h, m[f"pts{i}"], first, mode), bv[f"pts{i}"])))
+        first = mm(emb, m[f"pts{i}_emb"]) if i == packed.skip + 1 else None
+        h = _bf16(act(fin(mm(emb if i == 0 else h, m[f"pts{i}"], first), bv[f"pts{i}"])))
         hs.append(h)
-    feat = _bf16(fin(product(h, m["feature"], None, mode), bv["feature"]))
-    sigma = fin(product(h, m["alpha"], None, mode), bv["alpha"])[:, 0]
-    hv = _bf16(act(fin(product(vemb, m["views_emb"], product(feat, m["views_feat"], None, mode), mode),
-                       bv["views"])))
-    return hs, feat, hv, sigma, fin(product(hv, m["rgb"], None, mode), bv["rgb"])
+    feat = _bf16(fin(mm(h, m["feature"]), bv["feature"]))
+    sigma = fin(mm(h, m["alpha"]), bv["alpha"])[:, 0]
+    hv = _bf16(act(fin(mm(vemb, m["views_emb"], mm(feat, m["views_feat"])), bv["views"])))
+    return hs, feat, hv, sigma, fin(mm(hv, m["rgb"]), bv["rgb"])
 
 
 def composite(sigma, logits, z, dist, noise, white: bool = True, target=None, loss_scale: float = 1.0,

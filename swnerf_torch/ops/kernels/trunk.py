@@ -34,8 +34,11 @@ In bf16, the forward-only launch of B7 and B8 (no scratch: the mesh sweep,
 in another order than the train-mode forward's: the two launches agree at
 the bf16 bar, not bit for bit. The train-mode forward, which keeps the
 activations its backward reads, B7' and every fp32 launch run the SIMT
-body. B7's bf16 backward runs its reverse sweep's large products and demb
-on the tensor cores (``csrc/tc_gemm.cuh``); B7' and B8's stay SIMT.
+body (``tc_rounding.py --backward b7 b8``: with B7's or B8's train-mode
+forward on the tensor cores, under their own rounding or a fold of it, the
+gradients leave the twin's bars). B7's and B8's bf16 backwards run their
+reverse sweep's large products and the embeddings' cotangents (demb,
+dvemb) on the tensor cores (``csrc/tc_gemm.cuh``); B7''s stays SIMT.
 
 The ``pack_*`` functions lay the weights out as ``render_pass.pack_params``
 does (``render_pass.weight_layout``), with both embeddings padded to 128

@@ -34,11 +34,20 @@ D=8, W=128, multires 10 / 4, ELU, seeded weights, S=64; its bf16 reverse
 sweep runs on the tensor cores with ELU' in the dH epilogue), and
 ``--backward b7`` for B7's backward with the input cotangent demb at the
 MultiRes levels given (D=8, W=256, seeded weights, rays x samples rows on
-[-1.2, 1.2]^3): the card's gradients and demb against the bf16 twin, and
-each model's (tc_model.sweep_field with need_demb) on the twin's forward
-and with B7's train-mode forward on the model too (the masks of the sweep
-from tc_model.field_forward_model's activations; the cotangent is given),
-which says whether that forward can move onto the tensor cores. ``b5`` is B5
+[-1.2, 1.2]^3, and the training path's case: MultiRes phase 1's 500 rays x
+64 samples with raw through the composite, noise std 1, to the squared
+error's cotangent against a seeded target, for the twin, the card and each
+model alike): the card's gradients and demb against the bf16 twin, the rz
+sweep (tc_model.sweep_field with need_demb) on the twin's forward
+("backward only"), and on B7's train-mode forward on the model in each of
+rz, fold G=4, fold G=1, rn and exact (tc_model.field_forward_model; the
+sweep after it on the rz model, as the card's), which says which forward
+accumulation holds the bar. ``b8`` does the same for B8 at the vanilla
+widths (D=8, W=256, multires 10 / 4) on 010000.tar's fine weights and on
+seeded weights, and at the wide pads (multires 20 / 20, 123 / 123 columns)
+on seeded weights, rays through the object (the card test's geometry), a
+random cotangent and the training path's: the sweep with demb and dvemb,
+both carried through the encode's backward to d pts and d viewdirs. ``b5`` is B5
 (the D-NeRF canonical field, D=8, W=256, multires 10 / 4, seeded weights,
 S=192; its sweep with demb over the 64-column pad runs on the tensor cores),
 ``b9`` B9 at the MultiRes levels given (the phase-1 case below, rays x
@@ -48,7 +57,7 @@ need_demb, carried to d pts) with the twin's forward, and (B5) with the
 forward on the model too.
 
     python3 tc_rounding.py [--levels level0 level1 identity] [--rays 500]
-    python3 tc_rounding.py --backward [b1] [b4] [b5] [b7] [b9] [--rays 500] [--levels ...]
+    python3 tc_rounding.py --backward [b1] [b4] [b5] [b7] [b8] [b9] [--rays 500] [--samples 64] [--levels ...]
 
 Needs a CUDA device; builds the kernels at first use.
 """
@@ -72,7 +81,7 @@ def main() -> int:
     ap.add_argument("--levels", nargs="+", default=list(LEVELS), choices=list(LEVELS))
     ap.add_argument("--rays", type=int, default=500)
     ap.add_argument("--samples", type=int, default=64)
-    ap.add_argument("--backward", nargs="*", choices=["b1", "b4", "b5", "b7", "b9"], default=None,
+    ap.add_argument("--backward", nargs="*", choices=["b1", "b4", "b5", "b7", "b8", "b9"], default=None,
                     help="kernels with the reverse sweep on the tensor cores (no value: b1)")
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -119,6 +128,8 @@ def main() -> int:
                 backward_b5(a.rays, dev)
             elif kernel == "b7":
                 backward_b7(a.rays, a.samples, a.levels, dev)
+            elif kernel == "b8":
+                backward_b8(a.rays, a.samples, dev)
             else:
                 backward_b9(a.rays, a.samples, a.levels, dev)
         return 0
@@ -211,7 +222,7 @@ def _pts_models(packed, pts, ve, z, dist, noise, dist_to_twin, forward_too, **lo
 
     def sweep(emb, vemb, hs, feat, hv, sigma, logits, mode):
         _, graw = composite(sigma, logits, z, dist, noise, **loss)
-        grads, demb = sweep_field(packed, emb, vemb, hs, feat, hv, graw.float(), mode, need_demb=True)
+        grads, demb, _ = sweep_field(packed, emb, vemb, hs, feat, hv, graw.float(), mode, need_demb=True)
         return dist_to_twin(tuple(t.float() for t in grads), b1.encode_backward(x, demb.float(), packed.n_freqs))
 
     line = []
@@ -320,10 +331,10 @@ def backward_b1(n: int, dev) -> int:
         args = (z, dist, noise, True, target, scale)
         _, graw = composite(fwd.sigma, fwd.logits, *args)
         for mode in ("rz", "rn", "exact"):
-            bwd = sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), mode)
+            bwd, _, _ = sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), mode)
             hs, feat, hv, sigma, logits = field_forward_model(packed, fwd.emb, fwd.vemb, mode)
             _, graw_m = composite(sigma, logits, *args)
-            both = sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw_m.float(), mode)
+            both, _, _ = sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw_m.float(), mode)
             line.append(f"model {mode}: backward only {dist_to_twin(bwd):.3e}, forward too {dist_to_twin(both):.3e}")
         print(f"[B1 S={s}] {n} rays, gradients max rel L2 from the bf16 twin: " + "; ".join(line))
         torch.cuda.empty_cache()
@@ -377,10 +388,10 @@ def backward_b4(n: int, dev) -> int:
     args = (z, dist, noise, True, target, scale)
     _, graw = composite(fwd.sigma, fwd.logits, *args, rgb_relu=True)
     for mode in ("rz", "rn", "exact"):
-        bwd = sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), mode)
+        bwd, _, _ = sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), mode)
         hs, feat, hv, sigma, logits = field_forward_model(packed, fwd.emb, fwd.vemb, mode)
         _, graw_m = composite(sigma, logits, *args, rgb_relu=True)
-        both = sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw_m.float(), mode)
+        both, _, _ = sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw_m.float(), mode)
         line.append(f"model {mode}: backward only {dist_to_twin(bwd):.3e}, forward too {dist_to_twin(both):.3e}")
     print(f"[B4 S=64] {n} rays, W={packed.W}, {packed.cin} of {packed.cin_pad} input columns, gradients max rel L2 "
           "from the bf16 twin: " + "; ".join(line))
@@ -388,48 +399,156 @@ def backward_b4(n: int, dev) -> int:
     return 0
 
 
+# The forward's accumulations the trunk kernels (B7, B8) can run in train
+# mode, cheapest first: (label, tc_model mode, fold group). The sweep after
+# each is the card's, on the rz model.
+FORWARD_MODES = (("rz", "rz", 1), ("fold G=4", "fold", 4), ("fold G=1", "fold", 1), ("rn", "rn", 1),
+                 ("exact", "exact", 1))
+
+
+def _trunk_rows(packed, e, v, cot_of, sweep_to, dist_to_twin, need_dvemb):
+    """Per forward mode (FORWARD_MODES), the distance from the twin of the
+    gradients (and the input cotangents, ``sweep_to``) of the trunk's
+    forward on the model, the cotangent it gives (``cot_of(sigma,
+    logits)``), and the sweep on the rz model; first the rz sweep from the
+    twin's own forward ("backward only")."""
+    from swnerf_torch.ops.kernels.render_pass import field_mlp
+    from swnerf_torch.ops.kernels.tc_model import field_forward_model, sweep_field
+
+    def swept(fwd):
+        hs, feat, hv, sigma, logits = fwd
+        out = sweep_field(packed, e, v, hs, feat, hv, cot_of(sigma, logits), "rz", need_demb=True,
+                          need_dvemb=need_dvemb)
+        return dist_to_twin(*sweep_to(*out))
+
+    line = [f"backward only {swept(field_mlp(packed, e, v)):.3e}"]
+    for label, mode, group in FORWARD_MODES:
+        line.append(f"forward {label} {swept(field_forward_model(packed, e, v, mode, group)):.3e}")
+    return line
+
+
 def backward_b7(n: int, s: int, levels, dev) -> int:
-    """B7's gradients and demb with its backward on the tensor cores, on the
-    card and under each model, against the bf16 twin (module docstring)."""
+    """B7's gradients and demb, its backward on the tensor cores, on the card
+    and with each forward mode on the model, against the bf16 twin, on two
+    cases per level (module docstring)."""
     import torch
 
     from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig
     from swnerf_torch.ops.embedding import positional_encoding
     from swnerf_torch.ops.kernels import trunk as b7
-    from swnerf_torch.ops.kernels.render_pass import field_mlp
-    from swnerf_torch.ops.kernels.tc_model import field_forward_model, sweep_field
+    from swnerf_torch.ops.kernels.tc_model import composite
 
     for level in levels:
         cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **LEVELS[level])
         model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(0), fused=False)
         packed = b7.pack_trunk_params(model._occ.state_dict(), cfg, torch.bfloat16)
-        g = torch.Generator(device=dev).manual_seed(1)
         P = n * s
+        # the random cotangent on points of [-1.2, 1.2]^3
+        g = torch.Generator(device=dev).manual_seed(1)
         pts = torch.rand((P, 3), generator=g, device=dev) * 2.4 - 1.2
         vd = torch.randn((n, 3), generator=g, device=dev)
         vd = (vd / torch.linalg.norm(vd, dim=-1, keepdim=True))[:, None, :].expand(n, s, 3).reshape(P, 3)
-        emb = positional_encoding(pts, cfg.nf_pts).contiguous()
-        vemb = positional_encoding(vd, cfg.nf_views).contiguous()
-        cot = torch.randn((P, 4), generator=g, device=dev)
-        gt, dt, _ = b7.trunk_plain_bwd(packed, emb, vemb, cot)
-        twin = dict(b7.unpack_trunk_grads(gt, packed), demb=dt)
+        cases = [("random cotangent", positional_encoding(pts, cfg.nf_pts).contiguous(),
+                  positional_encoding(vd, cfg.nf_views).contiguous(), None,
+                  torch.randn((P, 4), generator=g, device=dev))]
+        # the training path's: MultiRes phase 1's rays x samples, raw through
+        # the composite (noise std 1) to the squared error's cotangent
+        o, d, z, dist, g = _rays(n, s, dev, 7)
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(P, 3)
+        vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True))[:, None, :].expand(n, s, 3).reshape(P, 3)
+        loss = (z, dist, torch.randn((n, s), generator=g, device=dev), True,
+                torch.rand((n, 3), generator=g, device=dev), 1.0 / (3 * n))
+        cases.append(("training path", positional_encoding(pts, cfg.nf_pts).contiguous(),
+                      positional_encoding(vd, cfg.nf_views).contiguous(), loss, None))
+        for name, emb, vemb, loss, cot in cases:
+            def cot_of(sigma, logits, cot=cot, loss=loss):
+                return cot if loss is None else composite(sigma, logits, *loss)[1].float()
 
-        def dist_to_twin(grads, demb):
-            got = dict(b7.unpack_trunk_grads(tuple(x.float() for x in grads), packed), demb=demb)
-            return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item() for k in twin)
+            raw = b7.trunk_plain(packed, emb, vemb)
+            gt, dt, _ = b7.trunk_plain_bwd(packed, emb, vemb, cot_of(raw[:, 3], raw[:, :3]))
+            twin = dict(b7.unpack_trunk_grads(gt, packed), demb=dt)
 
-        _, card, dcard, _ = b7.trunk_fwd_bwd(packed, emb, vemb, cot)
-        line = [f"the card {dist_to_twin(card, dcard):.3e}"]
-        e, v = b7._padded(packed, emb, vemb)
-        hs, feat, hv, _, _ = field_mlp(packed, e, v)
-        for mode in ("rz", "rn", "exact"):
-            swept = sweep_field(packed, e, v, hs, feat, hv, cot, mode, need_demb=True)
-            mhs, mfeat, mhv, _, _ = field_forward_model(packed, e, v, mode)
-            both = sweep_field(packed, e, v, mhs, mfeat, mhv, cot, mode, need_demb=True)
-            line.append(f"model {mode}: backward only {dist_to_twin(*swept):.3e}, forward too {dist_to_twin(*both):.3e}")
-        print(f"[B7 {level}] {P} rows, {packed.cin} of {packed.cin_pad} input columns, gradients and demb max rel "
-              "L2 from the bf16 twin: " + "; ".join(line))
-        torch.cuda.empty_cache()
+            def dist_to_twin(grads, demb):
+                got = dict(b7.unpack_trunk_grads(tuple(x.float() for x in grads), packed), demb=demb.float())
+                return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item()
+                           for k in twin)
+
+            sc = b7._scratch(packed, P, dev)
+            rk = b7._launch_fwd(packed, emb, vemb, sc)
+            card, dcard, _ = b7._launch_bwd(packed, P, cot_of(rk[:, 3], rk[:, :3]).contiguous(), sc, True, False)
+            line = [f"the card {dist_to_twin(card, dcard):.3e}"]
+            e, v = b7._padded(packed, emb, vemb)
+            line += _trunk_rows(packed, e, v, cot_of, lambda gr, de, _: (gr, de), dist_to_twin, False)
+            print(f"[B7 {level}, {name}] {P} rows, {packed.cin} of {packed.cin_pad} input columns, gradients and "
+                  "demb max rel L2 from the bf16 twin, the sweep on the rz model: " + "; ".join(line))
+            del sc
+            torch.cuda.empty_cache()
+    return 0
+
+
+def backward_b8(n: int, s: int, dev) -> int:
+    """B8's gradients, d pts and d viewdirs, its backward on the tensor cores
+    (demb and dvemb), on the card and with each forward mode on the model,
+    against the bf16 twin: the vanilla widths on 010000.tar's fine weights
+    and on seeded weights, a random cotangent (the card test's case) and the
+    training path's (module docstring)."""
+    import torch
+
+    from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.ops.kernels.render_loss import encode_backward
+    from swnerf_torch.ops.kernels.tc_model import composite
+    from swnerf_torch.train.checkpoint import load_tar, vanilla_state_dict
+
+    cfg, wide = VanillaNeRFConfig(), VanillaNeRFConfig(multires=20, multires_views=20)
+    ckpt = Path(__file__).resolve().parent / "benchmarks" / "full_scale" / "logs" / "full_nerf_200k" / "010000.tar"
+
+    def seeded(c):
+        return VanillaNeRF(c, device=dev, generator=torch.Generator().manual_seed(0), fused=False).state_dict()
+
+    weights = {"010000.tar": (cfg, {k: v.to(dev) for k, v in
+                                    vanilla_state_dict(load_tar(str(ckpt))["network_fine_state_dict"]).items()}),
+               "seeded": (cfg, seeded(cfg)), "seeded, wide pads": (wide, seeded(wide))}
+    P = n * s
+    o, d, z, dist, g = _rays(n, s, dev, 8)
+    o = o * torch.tensor([1.0, 1.0, 0.0], device=dev)  # rays through the object, as the card test's
+    pts = (o[:, None, :] + d[:, None, :] * (z[..., None] - 4.0) * 0.4).reshape(P, 3).contiguous()
+    vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True))[:, None, :].expand(n, s, 3).reshape(P, 3).contiguous()
+    loss = (z, dist, torch.randn((n, s), generator=g, device=dev), True, torch.rand((n, 3), generator=g, device=dev),
+            1.0 / (3 * n))
+    cot = torch.randn((P, 4), generator=g, device=dev)
+    for wname, (c, sd) in weights.items():
+        packed = b7.pack_trunk_params(sd, c, torch.bfloat16)
+        lp, lv = packed.n_freqs
+        for name, lo in (("random cotangent", None), ("training path", loss)):
+            def cot_of(sigma, logits, lo=lo):
+                return cot if lo is None else composite(sigma, logits, *lo)[1].float()
+
+            raw = b7.field_raw_plain(packed, pts, vd)
+            gt, dpt, dvt = b7.field_raw_plain_bwd(packed, pts, vd, cot_of(raw[:, 3], raw[:, :3]))
+            twin = dict(b7.unpack_trunk_grads(gt, packed), dpts=dpt, dviewdirs=dvt)
+
+            def dist_to_twin(grads, dp, dv):
+                got = dict(b7.unpack_trunk_grads(tuple(x.float() for x in grads), packed), dpts=dp, dviewdirs=dv)
+                return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item()
+                           for k in twin)
+
+            def to_inputs(grads, demb, dvemb):
+                return grads, encode_backward(pts, demb.float(), lp), encode_backward(vd, dvemb.float(), lv)
+
+            sc = b7._scratch(packed, P, dev, raw=True)
+            rk = b7._launch_fwd(packed, pts, vd, sc, raw=True)
+            card, dpc, dvc = b7._launch_bwd(packed, P, cot_of(rk[:, 3], rk[:, :3]).contiguous(), sc, True, True,
+                                            (pts, vd))
+            line = [f"the card {dist_to_twin(card, dpc, dvc):.3e}"]
+            e, v = b7._padded(packed, positional_encoding(pts, lp), positional_encoding(vd, lv))
+            line += _trunk_rows(packed, e, v, cot_of, to_inputs, dist_to_twin, True)
+            print(f"[B8 {wname}, {name}] {P} rows, {packed.cin} / {packed.input_ch_views} of 128 input columns, "
+                  "gradients, d pts and d viewdirs max rel L2 from the bf16 twin, the sweep on the rz model: "
+                  + "; ".join(line))
+            del sc
+            torch.cuda.empty_cache()
     return 0
 
 

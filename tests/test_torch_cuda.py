@@ -1408,6 +1408,164 @@ def test_b8_tc_forward_matches_plain(dev, pad, width, rows):
     _assert_tc_raw(got, again, b7.field_raw_plain(packed, pts, vd))
 
 
+TRAIN_ROWS = [1, 127, 129, 32000, 65536]
+
+
+def _rows_case(rows):
+    """(rays, samples per ray) giving ``rows``: 64 samples where they divide."""
+    return (rows // 64, 64) if rows % 64 == 0 else (rows, 1)
+
+
+def _tape(scratch, P):
+    """The first two regions of a trunk train-mode scratch (csrc/trunk.cu::
+    carve): the embedding and the view embedding, bf16 [P, 128] each."""
+    nb = 2 * P * 128
+    off = -(-nb // 256) * 256
+    return (scratch[:nb].view(torch.bfloat16).view(P, 128).clone(),
+            scratch[off:off + nb].view(torch.bfloat16).view(P, 128).clone())
+
+
+@pytest.mark.parametrize("rows", TRAIN_ROWS)
+@pytest.mark.parametrize("level", list(MR_LEVELS))
+def test_b7_bf16_train_mode_at_ragged_rows(dev, level, rows):
+    """B7's bf16 train-mode forward (trunk_fwd_kernel: with its forward on
+    the tensor cores its gradients leave the card's bar on tc_rounding.py's
+    cases, PERF.md §6) and its backward with demb and dvemb (the tensor
+    cores: tc_demb, tc_dvemb) at each MultiRes level, from one row to phase
+    2's 65,536: raw within 1e-2 of the twin's largest value, the gradients,
+    demb and dvemb rel L2 1e-2 of the twin summed on the CPU, bit-equal
+    repeats, one launch each way per call. The CPU twin, not the card's:
+    at 127 and 129 rows a pre-activation within fp32 rounding of 0 flips
+    a ReLU mask between the card twin's order and the others, which moves
+    a lower layer's gradient by ~2e-2 (the kernel's distance from the
+    card's twin is printed beside)."""
+    n, s = _rows_case(rows)
+    cfg, sd, emb, vemb, g = _b7_case(dev, level, n=n, s=s, seed=rows)
+    packed = b7.pack_trunk_params(sd, cfg, torch.bfloat16)
+    before = (launches["trunk"], launches["trunk[bwd]"])
+    raw, grads, demb, dvemb = b7.trunk_fwd_bwd(packed, emb, vemb, g, True, True)
+    assert (launches["trunk"], launches["trunk[bwd]"]) == (before[0] + 1, before[1] + 1)
+    raw2, grads2, demb2, dvemb2 = b7.trunk_fwd_bwd(packed, emb, vemb, g, True, True)
+    ref = b7.trunk_plain(packed, emb, vemb)
+    gr, dr, dvr = b7.trunk_plain_bwd(packed, emb, vemb, g, True, True)
+    torch.cuda.synchronize()
+    assert (raw - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    names = ("demb", "dvemb")
+    pc = dataclasses.replace(packed, weights=packed.weights.cpu(), biases=packed.biases.cpu())
+    ref = {k: v.to(dev) for k, v in
+           _in_grads(*b7.trunk_plain_bwd(pc, emb.cpu(), vemb.cpu(), g.cpu(), True, True), pc, names).items()}
+    got = _in_grads(grads, demb, dvemb, packed, names)
+    rel = _rel_l2(got, ref)
+    card = _rel_l2(got, _in_grads(gr, dr, dvr, packed, names))
+    worst = max(rel, key=rel.get)
+    print(f"B7 {level} {rows} rows: max rel L2 {rel[worst]:.3e} ({worst}) from the CPU twin, "
+          f"{max(card.values()):.3e} from the card's")
+    assert max(rel.values()) <= 1e-2, rel
+    assert torch.equal(raw, raw2) and all(torch.equal(a, b) for a, b in zip(
+        (*grads, demb, dvemb), (*grads2, demb2, dvemb2)))
+
+
+@pytest.mark.parametrize("rows", TRAIN_ROWS)
+@pytest.mark.parametrize("pad", list(TC_PADS))
+def test_b8_bf16_train_mode_at_ragged_rows(dev, pad, rows):
+    """B8's bf16 train-mode forward (trunk_fwd_kernel: with its forward on
+    the tensor cores its gradients leave the bars, PERF.md §6) and its
+    backward with d pts and d viewdirs (the tensor cores: tc_demb,
+    tc_dvemb) at the narrow pads (63 / 27 columns) and the wide ones (123 /
+    123), W=256, from one row to 65,536: raw within 1e-2 of the twin's
+    largest value and of the forward-only launch's (the tensor cores); the
+    tape's embeddings are the twin's rounded ones (all but 1e-3 of them bit
+    for bit, the rest one bf16 ulp off) with the column of ones at cin and
+    zeros past the live columns up to the scratch's 128; the gradients and
+    input cotangents rel L2 1e-2 of the twin summed on the CPU, as
+    test_b7_bf16_train_mode_at_ragged_rows holds B7 (the distance from the
+    card's twin printed beside); bit-equal repeats; one launch each way per
+    call."""
+    cfg, packed, pts, vd = _tc_field(dev, pad, 256, rows, seed=3)
+    g = torch.randn((rows, 4), generator=torch.Generator(device=dev).manual_seed(rows), device=dev)
+    before = (launches["trunk[raw]"], launches["trunk[raw,bwd]"])
+    sc = b7._scratch(packed, rows, dev, raw=True)
+    raw = b7._launch_fwd(packed, pts, vd, sc, raw=True)
+    emb_t, vemb_t = _tape(sc, rows)
+    grads, dpts, dvd = b7._launch_bwd(packed, rows, g, sc, True, True, (pts, vd))
+    assert (launches["trunk[raw]"], launches["trunk[raw,bwd]"]) == (before[0] + 1, before[1] + 1)
+    raw2, grads2, dpts2, dvd2 = b7.field_raw_fwd_bwd(packed, pts, vd, g)
+    ref = b7.field_raw_plain(packed, pts, vd)
+    gr, dr, dvr = b7.field_raw_plain_bwd(packed, pts, vd, g)
+    lp, lv = packed.n_freqs
+    emb, vemb = b7._padded(packed, positional_encoding(pts, lp), positional_encoding(vd, lv))
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw2)
+    assert (raw - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    assert (raw - b7.field_raw(packed, pts, vd)).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    cin, cv = packed.cin, packed.input_ch_views
+    for tape, want in ((emb_t[:, :cin], emb[:, :cin]), (vemb_t[:, :cv], vemb[:, :cv])):
+        # the kernel's sinf / cosf and torch's may part by an fp32 ulp, which
+        # moves a rare bf16 rounding by one bf16 ulp
+        assert (tape != want).float().mean().item() <= 1e-3
+        torch.testing.assert_close(tape.float(), want.float(), rtol=2.0**-7, atol=1e-6)
+    assert bool((emb_t[:, cin] == 1).all()) and not emb_t[:, cin + 1:].any() and not vemb_t[:, cv:].any()
+    names = ("dpts", "dviewdirs")
+    pc = dataclasses.replace(packed, weights=packed.weights.cpu(), biases=packed.biases.cpu())
+    cpu = _in_grads(*b7.field_raw_plain_bwd(pc, pts.cpu(), vd.cpu(), g.cpu()), pc, names)
+    got = _in_grads(grads, dpts, dvd, packed, names)
+    rel = _rel_l2(got, cpu)
+    card = _rel_l2(got, _in_grads(gr, dr, dvr, packed, names))
+    print(f"B8 {pad} {rows} rows: max rel L2 {max(rel.values()):.3e} ({max(rel, key=rel.get)}) from the CPU twin, "
+          f"{max(card.values()):.3e} from the card's")
+    assert max(rel.values()) <= 1e-2, rel
+    assert all(torch.equal(a, b) for a, b in zip((*grads, dpts, dvd), (*grads2, dpts2, dvd2)))
+
+
+B8_TRAIN_WEIGHTS = ("010000.tar", "seeded", "seeded, wide pads")
+
+
+@pytest.mark.parametrize("weights", B8_TRAIN_WEIGHTS)
+def test_b8_bf16_train_mode_holds_the_forward_bar_on_the_training_path(dev, weights):
+    """B8's bf16 train-mode forward (trunk_fwd_kernel) and backward (the
+    tensor cores, demb and dvemb) on the training path's case at its size,
+    tc_rounding.py --backward b8's: 500 rays x 64 samples through the
+    object (ray seed 8), on 010000.tar's fine weights or seeded ones (the
+    vanilla widths, or the wide pads 123 / 123), raw through the composite
+    (noise std 1) to the squared error's cotangent against a seeded target,
+    each side's cotangent from its own raw: the gradients, d pts and d
+    viewdirs within 5e-3 rel L2 (tests/test_torch_tc_backward.py's
+    FORWARD_BAR) of the bf16 twin's. There the forward on the tensor core's
+    own chain put the seeded weights' at 8.4e-3 (PERF.md §6)."""
+    from swnerf_torch.ops.kernels.tc_model import composite
+    from swnerf_torch.train.checkpoint import load_tar, vanilla_state_dict
+
+    n, s = 500, 64
+    cfg = VanillaNeRFConfig(**(TC_PADS["wide"] if weights.endswith("wide pads") else {}))
+    if weights == "010000.tar":
+        sd = vanilla_state_dict(load_tar(str(VANILLA_CKPT))["network_fine_state_dict"])
+    else:
+        sd = VanillaNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(0), fused=False).state_dict()
+    packed = b7.pack_trunk_params({k: v.to(dev) for k, v in sd.items()}, cfg, torch.bfloat16)
+    o, d, vd, z, dist = _rays(dev, n, s, 8)
+    g = torch.Generator(device=dev).manual_seed(8)  # past _rays' draws (o, d, z), as tc_rounding.py draws on
+    torch.randn((n, 3), generator=g, device=dev), torch.randn((n, 3), generator=g, device=dev)
+    torch.rand((n, s), generator=g, device=dev)
+    loss = (z, dist, torch.randn((n, s), generator=g, device=dev), True,
+            torch.rand((n, 3), generator=g, device=dev), 1.0 / (3 * n))
+    o = o * torch.tensor([1.0, 1.0, 0.0], device=dev)
+    pts = (o[:, None, :] + d[:, None, :] * (z[..., None] - 4.0) * 0.4).reshape(-1, 3).contiguous()
+    vdp = vd[:, None, :].expand(n, s, 3).reshape(-1, 3).contiguous()
+    before = (launches["trunk[raw]"], launches["trunk[raw,bwd]"])
+    sc = b7._scratch(packed, n * s, dev, raw=True)
+    raw = b7._launch_fwd(packed, pts, vdp, sc, raw=True)
+    grads, dpts, dvd = b7._launch_bwd(packed, n * s, composite(raw[:, 3], raw[:, :3], *loss)[1].float().contiguous(),
+                                      sc, True, True, (pts, vdp))
+    assert (launches["trunk[raw]"], launches["trunk[raw,bwd]"]) == (before[0] + 1, before[1] + 1)
+    ref = b7.field_raw_plain(packed, pts, vdp)
+    gr, dr, dvr = b7.field_raw_plain_bwd(packed, pts, vdp, composite(ref[:, 3], ref[:, :3], *loss)[1].float())
+    names = ("dpts", "dviewdirs")
+    rel = _rel_l2(_in_grads(grads, dpts, dvd, packed, names), _in_grads(gr, dr, dvr, packed, names))
+    print(f"B8 {weights}, training path, {n * s} rows: max rel L2 {max(rel.values()):.3e} "
+          f"({max(rel, key=rel.get)})")
+    assert max(rel.values()) <= 5e-3, rel
+
+
 def _field_route_check(kern, plain, inputs, g, names, dtype, twin_grads, render, tc=False):
     """Forward + backward (one launch each way), the no-grad forward (one
     forward-only launch, bit-equal to the autograd forward; with ``tc``, B7 /

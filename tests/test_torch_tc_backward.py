@@ -1,5 +1,5 @@
-"""What the tensor-core reverse sweep of B1, B4, B5, B6, B7 and B9 should
-give, on the CPU.
+"""What the tensor-core reverse sweep of B1, B4, B5, B6, B7, B8 and B9
+should give, on the CPU.
 
 ``csrc/tc_gemm.cuh`` runs bf16 B1's, B4's, B5's, B6's, B7's and B9's
 backward products (the input cotangent demb of B5, B7 and B9 too) on the
@@ -19,8 +19,16 @@ forward moves onto the tensor cores only where the forward, the composite
 and the sweep all on the model still hold half the card's bar: B1 (W 128
 and 256) and B4 here, within 5e-3 of the twin's gradients, which is why
 their train-mode forwards run csrc/tc_render.cuh's body in bf16 (B5's
-lands 1.04e-2 on the card's model, tc_rounding.py, and stays SIMT).
-Torch only; no card, no JAX.
+lands 1.04e-2 on the card's model, tc_rounding.py, and stays SIMT). B7
+and B8 on the training path's case (raw through the composite): each with
+its SIMT forward (the twin's) and its backward with demb and dvemb on the
+model within 5e-3 (B8 at 10 rays x 30 samples and at the card's 500 x 64
+too), and with its forward on the rz model or on tc_model.product's folds
+further from the twin (B7 on the card's 32,000 rows past 1e-2; B8 past
+5e-3 at 500 x 64 on the chain, on a seed here on the fold per atom and on
+a ragged card case on the fold per step: both stay SIMT). The fold group
+of tc_model.product: G=1 is the per-step fold, G=1 and 4 bounded by rz
+and rn. Torch only; no card, no JAX.
 """
 
 import numpy as np
@@ -107,10 +115,10 @@ def test_b1_sweep_on_the_tensor_core_model_holds_the_twin(width, seed):
     against the twin's (render_loss.field_reverse_plain) on the same tape."""
     packed, fwd, graw, _ = _b1_inputs(width, seed)
     ref, _, _ = b1.field_reverse_plain(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw)
-    got = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "rz")
+    got, _, _ = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "rz")
     rel = _rel_l2(b1.unpack_grads(tuple(x.float() for x in got), packed), b1.unpack_grads(ref, packed))
     assert max(rel.values()) <= BAR, rel
-    exact = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "exact")
+    exact, _, _ = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "exact")
     rel_exact = _rel_l2(b1.unpack_grads(tuple(x.float() for x in exact), packed), b1.unpack_grads(ref, packed))
     assert max(rel_exact.values()) <= BAR, rel_exact  # the twin's fp32 sums are that close to exact ones
 
@@ -164,7 +172,7 @@ def test_b4_sweep_on_the_tensor_core_model_holds_the_twin(seed):
     _, graw = tc_model.composite(fwd.sigma, fwd.logits, z, dist, noise, True, target, 1.0 / (3 * n), rgb_relu=True)
     assert bool((graw[:, :3] == 0).any()) and bool((fwd.hs[0] < 0).any())  # the masks and ELU's tail are live
     ref, _, _ = b1.field_reverse_plain(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float())
-    got = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), "rz")
+    got, _, _ = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw.float(), "rz")
     rel = _rel_l2(b1.unpack_tnerf_grads(tuple(x.float() for x in got), packed), b1.unpack_tnerf_grads(ref, packed))
     assert max(rel.values()) <= BAR, rel
 
@@ -182,29 +190,38 @@ def _forward_and_sweep_on_the_model(packed, fwd, args, mode="rz", rgb_relu=False
     gradients as fp32."""
     hs, feat, hv, sigma, logits = tc_model.field_forward_model(packed, fwd.emb, fwd.vemb, mode)
     _, graw = tc_model.composite(sigma, logits, *args, rgb_relu=rgb_relu)
-    got = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw.float(), mode)
+    got, _, _ = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, hs, feat, hv, graw.float(), mode)
     return tuple(x.float() for x in got)
 
 
-def _assert_forward_bar(tag, unpack, packed, fwd, args, ref, rgb_relu=False):
-    """Every unpacked gradient of the rz model's forward + sweep within
-    FORWARD_BAR of the twin's (``ref``). Where the same chain with exact
-    sums (float64, no k16 rounding) itself lies further than FORWARD_BAR
-    from the twin, the twin's own fp32 order has flipped a ReLU mask that
-    any other order flips too (a pre-activation within fp32 rounding of 0),
-    and that tensor is held to twice the exact chain's distance instead, as
-    the card's ragged tests hold the twin's own spread; both are printed."""
-    ref = unpack(ref, packed)
-    rel = _rel_l2(unpack(_forward_and_sweep_on_the_model(packed, fwd, args, "rz", rgb_relu), packed), ref)
+def _assert_forward_bar(tag, run, ref, mode=("rz", 1)):
+    """Every gradient tensor of ``run(mode, group)`` (a dict: the forward,
+    the cotangent and the sweep on the model, the sweep on rz where the
+    forward folds) within FORWARD_BAR of the twin's (``ref``). Where the
+    same chain with exact sums (float64, no k16 rounding: ``run("exact",
+    1)``) itself lies further than FORWARD_BAR from the twin, the twin's own
+    fp32 order has flipped a ReLU mask that any other order flips too (a
+    pre-activation within fp32 rounding of 0), and that tensor is held to
+    twice the exact chain's distance instead, as the card's ragged tests
+    hold the twin's own spread; both are printed."""
+    rel = _rel_l2(run(*mode), ref)
     worst = max(rel, key=rel.get)
     bar = {}
     text = f"{tag}, forward too: max rel L2 {rel[worst]:.3e} ({worst})"
     if rel[worst] > FORWARD_BAR:
-        own = _rel_l2(unpack(_forward_and_sweep_on_the_model(packed, fwd, args, "exact", rgb_relu), packed), ref)
+        own = _rel_l2(run("exact", 1), ref)
         bar = {k: 2 * v for k, v in own.items() if v > FORWARD_BAR}
         text += f"; exact sums {own[worst]:.3e}"
     print(text)
     assert all(v <= bar.get(k, FORWARD_BAR) for k, v in rel.items()), (rel, bar)
+
+
+def _render_run(unpack, packed, fwd, args, rgb_relu=False):
+    """B1's / B4's train-mode launch on the model (sweep on the same mode),
+    for _assert_forward_bar."""
+    def run(mode, group):
+        return unpack(_forward_and_sweep_on_the_model(packed, fwd, args, mode, rgb_relu), packed)
+    return run
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -221,8 +238,9 @@ def test_b1_forward_and_sweep_on_the_tensor_core_model_hold_the_twin(width, seed
     packed, (o, d, ve, z, dist, noise, target), scale = _b1_case(width, seed)
     _, ref = b1.render_loss_plain(packed, o, d, ve, z, dist, noise, target, True, scale)
     fwd = b3.field_forward(packed, o, d, ve, z)
-    _assert_forward_bar(f"B1 W={width} seed {seed}", b1.unpack_grads, packed, fwd,
-                        (z, dist, noise, True, target, scale), ref)
+    _assert_forward_bar(f"B1 W={width} seed {seed}",
+                        _render_run(b1.unpack_grads, packed, fwd, (z, dist, noise, True, target, scale)),
+                        b1.unpack_grads(ref, packed))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
@@ -235,8 +253,9 @@ def test_b4_forward_and_sweep_on_the_tensor_core_model_hold_the_twin(seed):
     packed, (o, d, ve, z, dist, noise, target), times, scale = _b4_case(seed)
     _, ref = b1.render_loss_plain(packed, o, d, ve, z, dist, noise, target, True, scale, times)
     fwd = b3.field_forward(packed, o, d, ve, z, times)
-    _assert_forward_bar(f"B4 seed {seed}", b1.unpack_tnerf_grads, packed, fwd,
-                        (z, dist, noise, True, target, scale), ref, rgb_relu=True)
+    _assert_forward_bar(f"B4 seed {seed}",
+                        _render_run(b1.unpack_tnerf_grads, packed, fwd, (z, dist, noise, True, target, scale), True),
+                        b1.unpack_tnerf_grads(ref, packed))
 
 
 B7_LEVELS = {
@@ -266,7 +285,7 @@ def test_b7_sweep_with_demb_on_the_tensor_core_model_holds_the_twin(level, seed)
     (gw, gb), demb, _ = b7.trunk_plain_bwd(packed, emb, vemb, g)
     e, v = b7._padded(packed, emb, vemb)
     hs, feat, hv, _, _ = field_mlp(packed, e, v)
-    (mw, mb), mdemb = tc_model.sweep_field(packed, e, v, hs, feat, hv, g, "rz", need_demb=True)
+    (mw, mb), mdemb, _ = tc_model.sweep_field(packed, e, v, hs, feat, hv, g, "rz", need_demb=True)
     assert mdemb.shape == demb.shape == (300, packed.cin)
     ref = dict(b7.unpack_trunk_grads((gw, gb), packed), demb=demb)
     got = dict(b7.unpack_trunk_grads((mw.float(), mb.float()), packed), demb=mdemb)
@@ -304,8 +323,8 @@ def _pts_sweep_distance(packed, pts, ve, z, dist, noise, **loss):
     graw = graw.float()
     x = pts.reshape(-1, 3)
     gr, dr, _ = b1.field_reverse_plain(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, need_demb=True)
-    (mw, mb), md = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "rz",
-                                        need_demb=True)
+    (mw, mb), md, _ = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "rz",
+                                           need_demb=True)
     assert md.shape == dr.shape == (x.shape[0], packed.cin)
     ref = dict(b1.unpack_grads(gr, packed), dpts=b1.encode_backward(x, dr, packed.n_freqs))
     got = dict(b1.unpack_grads((mw.float(), mb.float()), packed),
@@ -384,7 +403,7 @@ def test_forward_on_the_model_lands_further_than_the_backward(seed):
     packed, fwd, graw, args = _b1_inputs(256, seed, n=12, s=32)
     ref, _, _ = b1.field_reverse_plain(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw)
     ref = b1.unpack_grads(ref, packed)
-    bwd = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "rz")
+    bwd, _, _ = tc_model.sweep_field(packed, fwd.emb, fwd.vemb, fwd.hs, fwd.feat, fwd.hv, graw, "rz")
     d_bwd = max(_rel_l2(b1.unpack_grads(tuple(x.float() for x in bwd), packed), ref).values())
     hs, feat, hv, sigma, logits = tc_model.field_forward_model(packed, fwd.emb, fwd.vemb, "rz")
     _, graw_m = tc_model.composite(sigma, logits, *args)
@@ -392,3 +411,207 @@ def test_forward_on_the_model_lands_further_than_the_backward(seed):
                                       graw_m.float())
     d_fwd = max(_rel_l2(b1.unpack_grads(fw, packed), ref).values())
     assert d_fwd > d_bwd, (d_fwd, d_bwd)
+
+
+def _fold_per_step(X, Wm):
+    """The fold of every k16 step, written out: each step's exact sum
+    rounded toward zero, then to the even of it and its neighbour away from
+    zero, then added to the fp32 sum at nearest."""
+    acc = None
+    for k0 in range(0, X.shape[1], 16):
+        t = tc_model.rnd32(X[:, k0:k0 + 16] @ Wm[k0:k0 + 16], "rz")
+        t = tc_model.rnd32(t + torch.sign(t) * 0.5 * tc_model.ulp32(t), "rn")
+        acc = t if acc is None else tc_model.rnd32(acc + t, "rn")
+    return acc
+
+
+def test_fold_group_one_is_the_per_step_fold_and_four_is_bounded_by_rz_and_rn():
+    """tc_model.product's fold group: G=1 is bit-equal to the per-step fold;
+    G=1 and G=4 (one chain toward zero per 64-deep atom, then the fold) land
+    within rz's mean |error| against the exact sum and within twice rn's,
+    and their mean error toward zero is under a quarter of rz's, over a
+    1,024-deep product of bf16 values (printed, relative to the mean
+    |exact|: mean |error| rz 1.08e-6, rn 1.26e-7, fold G=1 1.39e-7, G=4
+    9.3e-8, fewer roundings at the master sum's magnitude; toward zero rz
+    9.5e-7, the folds and rn below 2e-8). The fold's step to the even
+    neighbour away from zero is the bits' odd-to-even step, as a kernel
+    would take it (u + (u & 1) on the fp32 bits)."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.normal(size=(64, 1024))).to(torch.bfloat16).double()
+    b = torch.from_numpy(rng.normal(size=(1024, 48))).to(torch.bfloat16).double()
+    assert torch.equal(tc_model.product(a, b, None, "fold"), _fold_per_step(a, b))
+    assert torch.equal(tc_model.product(a, b, None, "fold", 1), tc_model.product(a, b, None, "fold"))
+    exact = a @ b
+    err = {f"{m}{g}": tc_model.product(a, b, None, m, g) - exact
+           for m, g in (("rz", 1), ("fold", 4), ("fold", 1), ("rn", 1))}
+    scale = exact.abs().mean().item()
+    mean_abs = {m: e.abs().mean().item() / scale for m, e in err.items()}
+    toward_zero = {m: -(e * torch.sign(exact)).mean().item() / scale for m, e in err.items()}
+    print(mean_abs, toward_zero)
+    assert max(mean_abs["fold4"], mean_abs["fold1"]) <= min(mean_abs["rz1"], 2 * mean_abs["rn1"]), mean_abs
+    assert max(abs(toward_zero["fold4"]), abs(toward_zero["fold1"])) <= 0.25 * toward_zero["rz1"], toward_zero
+    t = tc_model.rnd32(torch.from_numpy(rng.normal(size=4096)), "rz")
+    folded = tc_model.rnd32(t + torch.sign(t) * 0.5 * tc_model.ulp32(t), "rn")
+    bits = t.float().view(torch.int32)
+    assert torch.equal(folded.float().view(torch.int32), bits + (bits & 1))
+
+
+# The train-mode forward of B7 and B8 on the card: both stay on the SIMT
+# body, whose fp32 FMAs in order are the twin's own forward ("twin");
+# tc_rounding.py and these tests chose it, PERF.md §6.
+B7_TRAIN_MODE = ("twin", 1)
+B8_TRAIN_MODE = ("twin", 1)
+
+
+def _trunk_train_run(packed, e, v, loss, to_inputs=None):
+    """run(mode, group) for _assert_forward_bar: B7's / B8's bf16 train-mode
+    forward (``mode`` "twin": the twin's own, render_pass.field_mlp; else on
+    the model, tc_model.field_forward_model at the padded embeddings e, v),
+    the composite's raw cotangent of the squared error (``loss``: z, dist,
+    noise, white, target, loss_scale), the sweep on the rz model (the
+    card's; exact with the exact forward) with demb and dvemb (tc_demb,
+    tc_dvemb); with ``to_inputs`` (B8) both carried to the inputs'
+    cotangents."""
+    def run(mode, group):
+        fwd = field_mlp(packed, e, v) if mode == "twin" else tc_model.field_forward_model(packed, e, v, mode, group)
+        hs, feat, hv, sigma, logits = fwd
+        _, graw = tc_model.composite(sigma, logits, *loss)
+        grads, demb, dvemb = tc_model.sweep_field(packed, e, v, hs, feat, hv, graw.float(),
+                                                  "exact" if mode == "exact" else "rz", need_demb=True,
+                                                  need_dvemb=True)
+        grads = b7.unpack_trunk_grads(tuple(x.float() for x in grads), packed)
+        if to_inputs is None:
+            return dict(grads, demb=demb.float(), dvemb=dvemb.float())
+        return dict(grads, **to_inputs(demb.float(), dvemb.float()))
+    return run
+
+
+def _trunk_rays(rng, n, s, nf_views, through_object=False):
+    """n x s sample positions on _seeded_rays (MultiRes phase 1's
+    geometry; ``through_object``: the card's B8 case, rays from z = 0 at a
+    scale of 0.4), per-sample unit view directions and the squared error's
+    loss arguments for tc_model.composite (noise std 1, a seeded target)."""
+    o, d, _, z, dist = _seeded_rays(rng, n, s, nf_views)
+    if through_object:
+        o = o * torch.tensor([1.0, 1.0, 0.0])
+        pts = o[:, None, :] + d[:, None, :] * (z[..., None] - 4.0) * 0.4
+    else:
+        pts = o[:, None, :] + d[:, None, :] * z[..., None]
+    vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True))[:, None, :].expand(n, s, 3)
+    noise = torch.from_numpy(rng.normal(0.0, 1.0, (n, s))).float()
+    target = torch.from_numpy(rng.uniform(0.0, 1.0, (n, 3))).float()
+    return pts.reshape(-1, 3).contiguous(), vd.reshape(-1, 3).contiguous(), (z, dist, noise, True, target, 1.0 / (3 * n))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("level", list(B7_LEVELS))
+def test_b7_train_mode_and_sweep_with_dvemb_on_the_tensor_core_model_hold_the_twin(level, seed):
+    """bf16 B7 as it trains on the card: its train-mode forward on the SIMT
+    body (the twin's own, B7_TRAIN_MODE), then its backward with demb and
+    dvemb on the rz model (tc_dvemb new), on the training path's case
+    (MultiRes phase 1's geometry at the level's widths, D=8, W=256, raw
+    through the composite to the squared error's cotangent; 10 rays x 30
+    samples): within FORWARD_BAR of the twin's gradients, demb and dvemb
+    (trunk_plain, the composite, trunk_plain_bwd) through
+    _assert_forward_bar."""
+    cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **B7_LEVELS[level])
+    model = DirectTemporalNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(seed), fused=False)
+    packed = b7.pack_trunk_params(model._occ.state_dict(), cfg, torch.bfloat16)
+    pts, vd, loss = _trunk_rays(np.random.default_rng(seed), 10, 30, cfg.nf_views)
+    emb, vemb = positional_encoding(pts, cfg.nf_pts), positional_encoding(vd, cfg.nf_views)
+    raw = b7.trunk_plain(packed, emb, vemb)
+    _, graw = tc_model.composite(raw[:, 3], raw[:, :3], *loss)
+    grads, demb, dvemb = b7.trunk_plain_bwd(packed, emb, vemb, graw.float(), True, True)
+    ref = dict(b7.unpack_trunk_grads(grads, packed), demb=demb, dvemb=dvemb)
+    e, v = b7._padded(packed, emb, vemb)
+    _assert_forward_bar(f"B7 {level} seed {seed}", _trunk_train_run(packed, e, v, loss), ref, B7_TRAIN_MODE)
+
+
+def _b8_train_case(seed, n, s):
+    """B8's training-path case (the vanilla field at D=8, W=256, multires
+    10 / 4, seeded weights; the card test's rays through the object, n x s
+    samples): the twin's gradients, d pts and d viewdirs (field_raw_plain,
+    the composite, field_raw_plain_bwd) and the run of _trunk_train_run."""
+    cfg = VanillaNeRFConfig()
+    model = VanillaNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(seed), fused=False)
+    packed = b7.pack_trunk_params(model.state_dict(), cfg, torch.bfloat16)
+    pts, vd, loss = _trunk_rays(np.random.default_rng(seed), n, s, cfg.nf_views, through_object=True)
+    raw = b7.field_raw_plain(packed, pts, vd)
+    _, graw = tc_model.composite(raw[:, 3], raw[:, :3], *loss)
+    grads, dpts, dvd = b7.field_raw_plain_bwd(packed, pts, vd, graw.float())
+    ref = dict(b7.unpack_trunk_grads(grads, packed), dpts=dpts, dviewdirs=dvd)
+    lp, lv = packed.n_freqs
+    e, v = b7._padded(packed, positional_encoding(pts, lp), positional_encoding(vd, lv))
+
+    def to_inputs(demb, dvemb):
+        return dict(dpts=b1.encode_backward(pts, demb, lp), dviewdirs=b1.encode_backward(vd, dvemb, lv))
+
+    return ref, _trunk_train_run(packed, e, v, loss, to_inputs)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_b8_forward_and_sweep_on_the_tensor_core_model_hold_the_twin(seed):
+    """bf16 B8 (the vanilla field at D=8, W=256, multires 10 / 4, seeded
+    weights) as it trains on the card: its train-mode forward on the SIMT
+    body (B8_TRAIN_MODE), then its backward on the rz model with demb and
+    dvemb (tc_dvemb), carried through the encode's
+    backward to d pts and d viewdirs, on the training path's case (the card
+    test's rays through the object, raw through the composite to the
+    squared error's cotangent; 10 rays x 30 samples): within FORWARD_BAR of
+    the twin's (field_raw_plain_bwd) through _assert_forward_bar."""
+    ref, run = _b8_train_case(seed, 10, 30)
+    _assert_forward_bar(f"B8 seed {seed}", run, ref, B8_TRAIN_MODE)
+
+
+def test_b8_forward_and_sweep_on_the_tensor_core_model_hold_the_twin_at_the_cards_rows():
+    """The same at the training path's size on the card, 500 rays x 64
+    samples (32,000 rows, seed 0), where the sweep's roundings add up:
+    B8_TRAIN_MODE's forward and the rz sweep within FORWARD_BAR of the twin
+    (on tc_rounding.py's case on the card the tensor core's own chain for
+    the forward lands at 8.5e-3, PERF.md §6)."""
+    ref, run = _b8_train_case(0, 500, 64)
+    _assert_forward_bar("B8 seed 0, 500 x 64", run, ref, B8_TRAIN_MODE)
+
+
+def test_b8_forward_on_every_tensor_core_accumulation_lands_further_than_the_simt_forward():
+    """Why B8's train-mode forward stays SIMT (B8_TRAIN_MODE), the control
+    on the training path's case at 10 rays x 30 samples, seeds 0-3: on the
+    worst seed, the gradients, d pts and d viewdirs with the forward on the
+    rz model, on a fold every 4 k16 steps or on a fold every step land
+    further from the twin's than with the SIMT forward (the twin's own),
+    the sweep on the rz model after each; the fold every 4 steps past
+    FORWARD_BAR. On the card the chain lands past it at 500 x 64 and the
+    fold every step past 1e-2 on a ragged case (PERF.md §6)."""
+    modes = (B8_TRAIN_MODE, ("rz", 1), ("fold", 4), ("fold", 1))
+    dist = dict.fromkeys(modes, 0.0)
+    for seed in range(4):
+        ref, run = _b8_train_case(seed, 10, 30)
+        for m in modes:
+            dist[m] = max(dist[m], max(_rel_l2(run(*m), ref).values()))
+    print(dist)
+    assert all(dist[m] > dist[B8_TRAIN_MODE] for m in modes if m != B8_TRAIN_MODE), dist
+    assert dist[("fold", 4)] > FORWARD_BAR, dist
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_b7_forward_on_every_tensor_core_accumulation_lands_further_than_the_simt_forward(seed):
+    """Why B7's train-mode forward stays SIMT (B7_TRAIN_MODE), the control
+    at MultiRes level 0 on the training path's case: with the forward on
+    the rz model, on a fold every 4 k16 steps or on a fold every step
+    (tc_model.product), the gradients land further from the twin's than
+    with the SIMT forward (the twin's own), the sweep on the rz model after
+    each. On the card's 32,000 rows (tc_rounding.py --backward b7, PERF.md
+    §6) all three, and exact sums too, land past its 1e-2 bar there."""
+    cfg = DNeRFConfig(netdepth=8, netwidth=256, skips=(4,), **B7_LEVELS["level0"])
+    model = DirectTemporalNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(seed), fused=False)
+    packed = b7.pack_trunk_params(model._occ.state_dict(), cfg, torch.bfloat16)
+    pts, vd, loss = _trunk_rays(np.random.default_rng(seed), 10, 30, cfg.nf_views)
+    emb, vemb = positional_encoding(pts, cfg.nf_pts), positional_encoding(vd, cfg.nf_views)
+    raw = b7.trunk_plain(packed, emb, vemb)
+    _, graw = tc_model.composite(raw[:, 3], raw[:, :3], *loss)
+    grads, demb, dvemb = b7.trunk_plain_bwd(packed, emb, vemb, graw.float(), True, True)
+    ref = dict(b7.unpack_trunk_grads(grads, packed), demb=demb, dvemb=dvemb)
+    run = _trunk_train_run(packed, *b7._padded(packed, emb, vemb), loss)
+    dist = {m: max(_rel_l2(run(*m), ref).values()) for m in (B7_TRAIN_MODE, ("rz", 1), ("fold", 4), ("fold", 1))}
+    print(dist)
+    assert all(dist[m] > dist[B7_TRAIN_MODE] for m in dist if m != B7_TRAIN_MODE), dist
