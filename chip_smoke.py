@@ -146,11 +146,15 @@ Phases (each raises on failure; nothing is caught):
      800000.tar weights on one eager step's rows (500 seeded pixels of a
      train view x 64 jittered samples = 32,000 rows): fp32 raw within 1e-5
      of its largest value, the gradients and the embeddings' cotangents at
-     phase 17's bar; bf16 raw within 1e-2 of its largest value, gradients
-     rel L2 1e-2; bit-equal repeats; the forward-only launch bit-equal to
-     the train-mode one; the serving chunk's last 32,000 rows at the bf16
-     bar; times at 32,000 rows (forward, backward) and at the 2.1M-row
-     chunk;
+     phase 17's bar, the forward-only launch bit-equal to the train-mode
+     one; bf16 (on the tensor cores: its forward-only launch, its
+     train-mode forward at the config's W=128, its backward's products)
+     raw within 1e-2 of its largest value, gradients rel L2
+     1e-2, bit-equal repeats, the forward-only launch bit-equal to a
+     repeat; the serving chunk's last 32,000 rows at the bf16 bar; times at
+     32,000 rows (train-mode forward, backward) and at the 2.1M-row chunk
+     (forward only), each with its share of the bound and its large
+     products on cuBLAS;
  27. B8 (the trunk with the encode in the kernel) against its twin with
      010000.tar's fine weights on 1024 rays x 192 jittered samples, the
      same bars (its bf16 forward-only launch, on the tensor cores, at the
@@ -165,8 +169,10 @@ Phases (each raises on failure; nothing is caught):
      B3 frame; run_tnerf resumed from 800000.tar for 200 eager steps (B7'),
      >= 19 dB at every print and no B4 launch; run_tnerf --render_only
      --testskip 5 through B4 and through B7' (SWNERF_FUSED_EVAL=0), mean
-     PSNRs within 0.1 dB; run_dnerf for 10 steps under SWNERF_FUSED=0: the
-     fp32 plain route, no field kernel launched;
+     PSNRs within 0.1 dB; the B7' frame's ms and the eager T-NeRF step's
+     median beside B4's (its eval pass, phase 15's kernel step); run_dnerf
+     for 10 steps under SWNERF_FUSED=0: the fp32 plain route, no field
+     kernel launched;
  29. the SW mesh chain at the drill recipe: extract_mesh on 010000.tar,
      128^3 points x 100 views over [-2, 2]^3, threshold 25, through B7
      (bf16, the default), B8 (SWNERF_FUSED_RAW=1) and the plain fp32 route
@@ -293,8 +299,10 @@ def cuda_ms(fn, reps: int) -> float:
 # the narrow heads' share of the blocks' cycles, the frames' ms.
 TC_LAUNCHES = ("render_pass[S=64]", "render_pass[S=192]", "render_pass[tnerf,S=64]", "render_pass[pts,S=64]",
                "render_pass[pts,S=192]",
-               "render_pass[pts,wide]", "time_net", "time_net[multires]", "trunk[mesh]", "trunk[raw,mesh]")
+               "render_pass[pts,wide]", "time_net", "time_net[multires]", "trunk[mesh]", "trunk[raw,mesh]",
+               "trunk[tnerf,render]")
 TC_SUMMARY: dict = {}
+TNERF_STEP_MS: dict = {}  # the T-NeRF step's median ms by route: B4's kernel step (phase 15), B7''s eager (28)
 
 
 def tc_ptxas(libs) -> None:
@@ -1714,6 +1722,7 @@ def phase15_train(dev, cfg, tmp, data):
         fail(f"the T-NeRF training path launched B4 {counts.get('render_loss[tnerf,S=64]', 0)} times, not 1000")
     quiet = {i: ms for i, ms in res["step_ms"].items() if i % 100 and (i - 1) % 100}
     med = statistics.median(quiet.values())
+    TNERF_STEP_MS["B4 kernel step (phase 15)"] = med
     print(f"[15 train] ms per step, median of {len(quiet)} steps that neither print nor save (CUDA events): "
           f"{med:.4f} ms (min {min(quiet.values()):.4f}, max {max(quiet.values()):.4f}); "
           f"{500 / med * 1e3:.4g} rays/s, {500 * 64 / med * 1e3:.4g} samples/s")
@@ -3240,11 +3249,12 @@ def hold_to_twin(tag, packed, x, xv, graw, raw):
     hundreds, where fp32's ulp is ~6e-5), the gradients and both input cotangents
     at check_fp32_grads' bar (float64 twin, and on weights perturbed at fp32's
     size); bf16 raw within 1e-2 of its largest value and the gradients within
-    rel L2 1e-2; bit-equal repeats, and the forward-only launch bit-equal to
-    the train-mode one, in both types, except B7 / B8's bf16 forward-only
-    launch (the tensor cores, a different sum order): it is held to the twin
-    at the bf16 bar and to a second launch bit for bit. ``packed`` is fp32;
-    returns (the bf16 packing, max |d raw| in bf16, both launches)."""
+    rel L2 1e-2; bit-equal repeats; in fp32 the forward-only launch
+    bit-equal to the train-mode one, in bf16 (the tensor cores, whose sum
+    order is not the SIMT train-mode forward's) held to the twin at the
+    bf16 bar and to a second launch bit for bit instead. ``packed``
+    is fp32; returns (the bf16 packing, max |d raw| in bf16, both
+    launches)."""
     import dataclasses
 
     import torch
@@ -3270,9 +3280,9 @@ def hold_to_twin(tag, packed, x, xv, graw, raw):
         outf, outf2 = fwd(pk, x, xv), fwd(pk, x, xv)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in ((gk[0], gk2[0]), (gk[1], gk2[1]), (d0, d02), (d1, d12)))
-        # B7 / B8's bf16 forward-only launch runs on the tensor cores: held to
-        # the twin at the bf16 bar, and to itself bit for bit, instead
-        tc = dtype == torch.bfloat16 and packed.arch == "vanilla"
+        # the bf16 forward-only launch runs on the tensor cores: held to the
+        # twin at the bf16 bar, and to itself bit for bit, instead
+        tc = dtype == torch.bfloat16
         fwd_same = torch.equal(outf, outf2) if tc else torch.equal(outf, out)
         draw = (out - ref).abs().max().item()
         if tc:
@@ -3339,6 +3349,43 @@ def trunk_rows(prefix, pk16, x, xv, graw, raw, err, source_line, bwd_line):
     return rows
 
 
+def b7p_inputs(rays, cfg, z):
+    """B7''s inputs at rays x the samples z [n, s]: the embedding [embed(x)
+    | embed(t)] and the view embedding, [n * s, .] each."""
+    import torch
+
+    from swnerf_torch.ops.embedding import positional_encoding
+
+    n, s = z.shape
+    pts = rays.origins[:, None, :] + rays.directions[:, None, :] * z[..., None]
+    t = rays.times.reshape(n, 1, 1).expand(n, s, 1)
+    emb = torch.cat([positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time)], -1)
+    vemb = positional_encoding(rays.viewdirs, cfg.nf_views)[:, None, :].expand(n, s, cfg.dir_feat)
+    return emb.reshape(n * s, -1).contiguous(), vemb.reshape(n * s, -1).contiguous()
+
+
+def b7p_rows(dev, data, cfg):
+    """Phase 26's rows, one eager T-NeRF step's: 500 seeded pixels of train
+    view 61 of phase 11's scene at its frame time x 64 jittered samples
+    (32,000 rows). Returns emb, vemb, a seeded cotangent of raw [32,000, 4]
+    and the training path's loss arguments for tc_model.composite (z,
+    dists, noise std 1, white, the pixels' colours, 1 / (3 * 500)), drawn
+    after the cotangent."""
+    import torch
+
+    from swnerf_torch.ops.sampling import sample_along_rays
+
+    rays, img = frame_rays(dev, data, "train", 61)
+    g = torch.Generator(device=dev).manual_seed(8)
+    sel = torch.randint(0, img.shape[0], (500,), generator=g, device=dev)
+    r = type(rays)(*(x[sel] for x in rays))
+    z = sample_along_rays(r.near, r.far, 64, 1.0, generator=g)
+    emb, vemb = b7p_inputs(r, cfg, z)
+    graw = torch.randn((emb.shape[0], 4), generator=g, device=dev)
+    noise = torch.randn(z.shape, generator=g, device=dev)
+    return emb, vemb, graw, (z, b3_dists(z, r.directions), noise, True, img[sel], 1.0 / (3 * 500))
+
+
 def phase26_b7p(dev, data):
     """B7' against its twin with the round-5 T-NeRF 800000.tar weights on
     one eager step's rows (500 seeded pixels of train view 61 at its frame
@@ -3348,7 +3395,6 @@ def phase26_b7p(dev, data):
     import torch
 
     from swnerf_torch.models import TNeRF, TNeRFConfig
-    from swnerf_torch.ops.embedding import positional_encoding
     from swnerf_torch.ops.kernels import trunk as b7
     from swnerf_torch.ops.sampling import sample_along_rays
     from swnerf_torch.train.checkpoint import load_tar, tnerf_state_dict
@@ -3357,28 +3403,14 @@ def phase26_b7p(dev, data):
     model = TNeRF(cfg, device=dev, fused=False)
     model.load_state_dict(tnerf_state_dict(load_tar(str(TNERF_CKPT))["network_fn_state_dict"]))
     p32 = b7.pack_tnerf_trunk_params(model.state_dict(), cfg, torch.float32)
-
-    def inputs(rays, z):
-        n, s = z.shape
-        pts = rays.origins[:, None, :] + rays.directions[:, None, :] * z[..., None]
-        t = rays.times.reshape(n, 1, 1).expand(n, s, 1)
-        emb = torch.cat([positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time)], -1)
-        vemb = positional_encoding(rays.viewdirs, cfg.nf_views)[:, None, :].expand(n, s, cfg.dir_feat)
-        return emb.reshape(n * s, -1).contiguous(), vemb.reshape(n * s, -1).contiguous()
-
-    rays, img = frame_rays(dev, data, "train", 61)
-    g = torch.Generator(device=dev).manual_seed(8)
-    sel = torch.randint(0, img.shape[0], (500,), generator=g, device=dev)
-    r = type(rays)(*(x[sel] for x in rays))
-    emb, vemb = inputs(r, sample_along_rays(r.near, r.far, 64, 1.0, generator=g))
-    graw = torch.randn((emb.shape[0], 4), generator=g, device=dev)
+    emb, vemb, graw, _ = b7p_rows(dev, data, cfg)
     print(f"[26 B7'] {emb.shape[0]} rows, emb {p32.cin} of 128, vemb {p32.input_ch_views} of 128, D={p32.D}, "
           f"W={p32.W}; colour logits > 0: {(b7.trunk_plain(p32, emb, vemb)[:, :3] > 0).float().mean().item():.3f}")
     p16, err = hold_to_twin("26 B7'", p32, emb, vemb, graw, False)
     rows = trunk_rows("trunk[tnerf]", p16, emb, vemb, graw, False, err, 435, 446)
     rays, _ = frame_rays(dev, data, "test", 0)
     chunk = rays.slice(0, 32768)
-    big, bigv = inputs(chunk, sample_along_rays(chunk.near, chunk.far, 64, 0.0))
+    big, bigv = b7p_inputs(chunk, cfg, sample_along_rays(chunk.near, chunk.far, 64, 0.0))
     out, ref = b7.trunk(p16, big[-32000:], bigv[-32000:]), b7.trunk_plain(p16, big[-32000:], bigv[-32000:])
     draw = (out - ref).abs().max().item()
     print(f"[26 B7' check] the serving chunk's last 32,000 rows, forward only, bf16: max|draw|={draw:.3e} "
@@ -3391,6 +3423,9 @@ def phase26_b7p(dev, data):
         "trunk[tnerf,render]", "swnerf_torch/csrc/trunk.cu", "swnerf_tpu/ops/pallas/raymarch.py:435", 0, draw,
         cuda_ms(lambda: b7.trunk(p16, big, bigv), 3), cuda_ms(lambda: b7.trunk_plain(p16, big, bigv), 2),
         4 * (big.numel() + bigv.numel()) + 16 * n + 2 * nw + 4 * nb, 2 * p16.macs_per_row * n, "bf16")
+    report_library("26", "trunk[tnerf,render] bf16 forward only, the serving chunk", n,
+                   forward_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), rows["trunk[tnerf,render]"]["ms"],
+                   dev)
     for k, row in rows.items():
         print(f"[26 times] {k}: {row['ms']:.3f} ms, {100 * row['bound_ms'] / row['ms']:.2f}% of the bf16 bound "
               f"({p16.macs_per_row} MACs per row forward, {p16.bwd_macs_per_row(False, False)} backward)")
@@ -3458,7 +3493,8 @@ def phase27_b8(dev):
 def _train_cli(run, argv, envs, exp, prints, floor, tag):
     """One trainer CLI run under ``envs``: its output, launch counts, train
     PSNRs at the prints (each >= ``floor``) and its median step (ms) over
-    the steps that neither print nor save."""
+    the steps that neither print nor save. Returns (launch counts, that
+    median)."""
     import torch
 
     from swnerf_torch.ops.kernels import launches
@@ -3484,7 +3520,7 @@ def _train_cli(run, argv, envs, exp, prints, floor, tag):
         fail(f"{tag}: the run did not take the eager step")
     if len(psnrs) != prints or min(p for _, p in psnrs) < floor:
         fail(f"{tag}: train PSNR below {floor} dB at a print (or not {prints} prints): {psnrs}")
-    return counts
+    return counts, med
 
 
 def phase28_routes(dev, tmp, data, psnr_b3_frame0):
@@ -3513,7 +3549,7 @@ def phase28_routes(dev, tmp, data, psnr_b3_frame0):
         base = tmp / tag.replace(" ", "_")
         argv = ["--config", str(CONFIG), "--ft_path", str(CKPT), "--basedir", str(base), "--datadir", str(DATADIR),
                 "--device", "cuda", "--i_print", "50", "--i_weights", "100000"]
-        c = _train_cli(run_nerf.main, argv, dict(SWNERF_FUSED_STEP="0", SWNERF_MAX_ITERS="10201", **extra),
+        c, _ = _train_cli(run_nerf.main, argv, dict(SWNERF_FUSED_STEP="0", SWNERF_MAX_ITERS="10201", **extra),
                        base / "full_nerf_200k", 4, 30.0, f"28 {tag}")
         kern, kern_bwd, other = ("trunk[raw]", "trunk[raw,bwd]", "trunk") if extra else ("trunk", "trunk[bwd]",
                                                                                          "trunk[raw]")
@@ -3540,12 +3576,13 @@ def phase28_routes(dev, tmp, data, psnr_b3_frame0):
     base = tmp / "tnerf_eager"
     argv = ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--basedir", str(base), "--datadir", str(data),
             "--device", "cuda", "--i_print", "50", "--i_weights", "100000"]
-    c = _train_cli(run_tnerf.main, argv, dict(SWNERF_FUSED_STEP="0", SWNERF_MAX_ITERS="800201"),
-                   base / "full_tnerf_800k", 4, 19.0, "28 tnerf step B7'")
+    c, TNERF_STEP_MS["B7' eager step (phase 28)"] = _train_cli(
+        run_tnerf.main, argv, dict(SWNERF_FUSED_STEP="0", SWNERF_MAX_ITERS="800201"), base / "full_tnerf_800k", 4,
+        19.0, "28 tnerf step B7'")
     if c.get("trunk[tnerf]", 0) < 200 or c.get("trunk[tnerf,bwd]", 0) < 200 or c.get("render_loss[tnerf,S=64]", 0):
         fail(f"28 tnerf step B7': launches {c}")
     counts["tnerf step"] = c
-    psnr = {}
+    psnr, frame_ms = {}, {}
     for tag, envs in (("B4 eval pass", {}), ("B7' (SWNERF_FUSED_EVAL=0)", {"SWNERF_FUSED_EVAL": "0"})):
         argv = ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--basedir", str(tmp / "tnerf_serve"),
                 "--datadir", str(data), "--device", "cuda", "--render_only", "--render_test", "--testskip", "5"]
@@ -3557,6 +3594,7 @@ def phase28_routes(dev, tmp, data, psnr_b3_frame0):
         m = json.loads((savedir / "metrics.json").read_text())
         psnr[tag] = m["psnr"]
         secs = m["seconds_per_frame"]
+        frame_ms[tag] = 1e3 * sum(secs[1:]) / len(secs[1:])
         print(f"[28 tnerf render {tag}] PSNR {[round(p, 4) for p in m['psnr']]} (mean {sum(m['psnr']) / len(secs):.4f}"
               f" dB), {1e3 * sum(secs[1:]) / len(secs[1:]):.2f} ms per frame after the first; launches "
               f"{json.dumps(c, sort_keys=True)}")
@@ -3567,6 +3605,12 @@ def phase28_routes(dev, tmp, data, psnr_b3_frame0):
     means = [sum(v) / len(v) for v in psnr.values()]
     print(f"[28 tnerf render] mean PSNR B4 {means[0]:.4f} dB, B7' {means[1]:.4f} dB: |delta| "
           f"{abs(means[0] - means[1]):.4f} dB")
+    steps = "; ".join(f"{k} {v:.3f}" for k, v in TNERF_STEP_MS.items())
+    fms = list(frame_ms.values())
+    print(f"[28 tnerf routes] ms per frame after the first: B7' {fms[1]:.2f}, B4 eval pass {fms[0]:.2f}; ms per "
+          f"step, median: {steps}")
+    TC_SUMMARY["T-NeRF frame through B7' (phase 28)"] = f"{fms[1]:.2f} ms per frame (B4's eval pass {fms[0]:.2f})"
+    TC_SUMMARY["T-NeRF step, median (phases 15, 28)"] = steps
     if abs(means[0] - means[1]) > 0.1 or len(psnr["B4 eval pass"]) != 5:
         fail("28 tnerf render: B7''s mean PSNR more than 0.1 dB from the B4 eval pass's (or not 5 frames)")
 

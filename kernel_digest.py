@@ -4,7 +4,8 @@ B2 sample_pdf, B3 render_pass (vanilla, from rays, and its pts mode), B1
 render_loss (vanilla), B4 (T-NeRF, both modes), B5 render_loss_pts, B6
 time_net (forward, and forward with backward), B7 trunk (the ReLU family:
 forward only, and train-mode forward with backward) and, where the checkout
-has them, B7' (the ELU T-NeRF trunk), B8 (the trunk with the encode in
+has them, B7' (the ELU T-NeRF trunk: train mode with backward, and forward
+only at the serving chunk's 2.1M rows), B8 (the trunk with the encode in
 the kernel; forward only at a mesh tile, and train mode with backward),
 B7's forward only at MultiRes level 0's widths, the mesh sweep
 (extract_mesh.sample_grid at 128^3 x 100 views, one timed run), B3's pts
@@ -244,6 +245,12 @@ def main() -> int:
             res7 = b7.trunk_fwd_bwd(pt7, emb, vemb, gr7, False, False)
             out[f"trunk[tnerf]+bwd {tag}"] = train([res7[0]], list(res7[1]),
                                                    timed(lambda: b7.trunk_fwd_bwd(pt7, emb, vemb, gr7, False, False)))
+            gs = torch.Generator(device=dev).manual_seed(17)  # the serving chunk's rows
+            big = torch.rand((32768 * 64, pt7.cin), generator=gs, device=dev) * 2 - 1
+            bigv = torch.rand((32768 * 64, pt7.input_ch_views), generator=gs, device=dev) * 2 - 1
+            out[f"trunk[tnerf] {tag}"] = {"sha256": digest([b7.trunk(pt7, big, bigv)]),
+                                          "ms": timed(lambda: b7.trunk(pt7, big, bigv))}
+            del big, bigv
             p8 = b7.pack_trunk_params(vsd, vcfg, dtype)
             pts = torch.rand((32000, 3), generator=g7, device=dev) * 4 - 2
             vd = torch.nn.functional.normalize(torch.randn((32000, 3), generator=g7, device=dev), dim=-1)

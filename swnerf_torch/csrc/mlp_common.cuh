@@ -6,11 +6,11 @@
 // its backward, and the per-ray composite of the tensor-core B3.
 //
 // The SIMT chunk product (mm_acc) serves every fp32 instantiation (the
-// parity mode) and, in bf16, B5, B7', B9, the train-mode forwards of B7, B8
-// and of the T-NeRF at W=256, and the training path's B3 launch (ordered);
-// bf16 B3 otherwise, B4's forward-only launch, B1's and B4's (W=128)
-// train-mode forwards, B6's forward and B7's and B8's forward-only launch
-// run tc_chunk.cuh's tensor-core product instead.
+// parity mode) and, in bf16, B5, B9, the train-mode forwards of B7, B8 and
+// of the T-NeRF (B4, B7') at W=256, and the training path's B3 launch
+// (ordered); bf16 B3 otherwise, B4's forward-only launch, B1's, B4's and
+// B7''s (W=128) train-mode forwards, B6's forward and the forward-only
+// launch of B7, B7' and B8 run tc_chunk.cuh's tensor-core product instead.
 // A block of NT threads runs the MLP over CH sample rows at a time. The
 // chunk's activations live in shared memory k-major ([feature][LDA], rows
 // padded so the epilogue's column-wise stores are conflict-free); weights

@@ -2,11 +2,12 @@
 // instantiations of B6's forward (time_net.cu), of B3 (render_pass.cu:
 // from rays, pts, pts wide), of B4's forward-only launch (the T-NeRF
 // traits, same file), of B1's and B4's train-mode forward (render_loss.cu;
-// B4 at W=128) and of B7's and B8's forward-only launch (trunk.cu): bf16
-// wgmma with fp32 accumulators, an asynchronous ring of weight slabs, and
-// 128 sample rows per pass over the weights. The fp32 instantiations (the
-// parity mode), B7', the train-mode forwards of B5, B9, B7 and B8 and of
-// the T-NeRF at W=256, and the training path's B3 launch (ordered) keep
+// B4 at W=128) and of the forward-only launch of B7, B7' and B8 and B7''s
+// train-mode forward at W=128 (trunk.cu): bf16 wgmma with fp32
+// accumulators, an asynchronous ring of weight slabs, and 128 sample rows
+// per pass over the weights. The fp32 instantiations (the parity mode),
+// the train-mode forwards of B5, B9, B7 and B8 and of the T-NeRF (B4, B7')
+// at W=256, and the training path's B3 launch (ordered) keep
 // mlp_common.cuh's SIMT chunk product (mm_acc).
 //
 // Why: the SIMT product keeps the tensor cores idle and re-reads a ~1 MB

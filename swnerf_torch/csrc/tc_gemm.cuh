@@ -2,10 +2,11 @@
 // bf16 backward of B1 (render_loss.cu, vanilla train mode), of B4 (the
 // same, T-NeRF: ELU), of B5 and B9 (the same body on given positions, with
 // the input cotangent demb), of B6 (time_net.cu, without input cotangents)
-// and of B7 and B8 (trunk.cu, with demb and dvemb): dW = X^T dZ and dH =
-// dZ W^T, the shapes of gemm_common.cuh::gemm_reduce and gemm_act, which
-// trunk_reverse and field_reverse call here instead under their TC switch.
-// Every other instantiation (the fp32 parity mode, B7', B11) keeps
+// and of B7, B7' and B8 (trunk.cu, with demb and dvemb; B7' with ELU):
+// dW = X^T dZ and dH = dZ W^T, the shapes of gemm_common.cuh::gemm_reduce
+// and gemm_act, which trunk_reverse and field_reverse call here instead
+// under their TC switch. Every other instantiation (the fp32 parity mode,
+// B11) keeps
 // gemm_common.cuh's SIMT product, and so do the narrow products of the
 // swept kernels (the rgb head, B6's 3-wide output head, head_bwd_kernel)
 // and the column sums of fp32 cotangents.

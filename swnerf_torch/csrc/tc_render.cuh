@@ -3,10 +3,10 @@
 // B4, the T-NeRF (render_pass.cu: its [embed(x) | embed(t)] input, 84 of
 // 96 columns at multires 10, ELU in the trunk's and the view layer's
 // epilogues as tc_chunk.cuh::elu_tc, the colour ReLU in the composite);
-// its field product (field_rows) also runs B7's and B8's forward-only
-// launch (trunk.cu). B4's two embedding products (layer 0, the skip) run
-// six k16 steps over two 64-column atoms, the second atom's last 32
-// columns skipped; 12 of the 96 columns are zeros past cin, an eighth of
+// its field product (field_rows) also runs the forward-only launch of B7,
+// B7' and B8 and B7''s train-mode forward at W=128 (trunk.cu). B4's two
+// embedding products (layer 0, the skip) run six k16 steps over two
+// 64-column atoms, the second atom's last 32 columns skipped; 12 of the 96 columns are zeros past cin, an eighth of
 // those two products' work. render_loss_tc_kernel is the same body in
 // train mode, for B1 and B4 at W=128 (render_loss.cu): each tile also goes
 // to a global tape for the reverse sweep, and the composite warps form the
@@ -226,6 +226,8 @@ __device__ __forceinline__ void composite_unit(const float* raw, int t, int nthr
 // rounded, [P][4]), q(d sigma) at column W of dfa [P][ldw], the
 // log-transmittances lt [P] (fp32, read back by the same thread), and the
 // squared error sqerr [N] against target [N][3], scaled by loss_scale.
+// B7''s train-mode launch (trunk.cu) uses the activations' fields and u,
+// its colour logits before the clip [P][4] (fp32; null elsewhere).
 struct TrainTape {
   bf16* emb;
   bf16* vemb;
@@ -241,6 +243,7 @@ struct TrainTape {
   const float* target;
   float loss_scale;
   float* sqerr;
+  float* u;
 };
 
 // Rows r < nvalid of a consumer's swizzled tile, columns 0 .. n-1 (a
@@ -305,6 +308,12 @@ __device__ __forceinline__ void composite_loss_unit(float* raw, int t, int nthre
   }
 }
 
+template <bool CLIP>
+__device__ __forceinline__ float clip_rgb(float u) {
+  if constexpr (CLIP) return fmaxf(u, 0.f);
+  return u;
+}
+
 // One consumer warpgroup's 64 rows through a vanilla field on the tensor
 // cores, from its encoded tiles (emb at emb_a: A::CIN columns; the view
 // embedding at vt_a: A::CV), shared by B3 (consume) and B7 / B8's
@@ -314,12 +323,15 @@ __device__ __forceinline__ void composite_loss_unit(float* raw, int t, int nthre
 // embedding] and the rgb head (m64n8). Row r's raw lanes (rgb logits,
 // sigma; fp32) go to raw[r * 4 ..] for r < nvalid, in shared or global
 // memory. With prof (one thread of the block), the heads' clock cycles.
-// TRAIN (B1's and B4's train mode): each trunk layer's output (with its
-// column of ones), feat and hv of rows r < nvalid also go to the tape at
+// TRAIN (B1's, B4's and B7''s train mode): each trunk layer's output (with
+// its column of ones), feat and hv of rows r < nvalid also go to the tape at
 // global row grow0 + r, copied from the tile while the next product, which
 // reads the same tile, runs (the epilogue that overwrites it waits for the
-// warpgroup in mma_done).
-template <int W, typename A, bool TRAIN = false>
+// warpgroup in mma_done). CLIP (B7', whose raw is the field's output: rgb
+// = max(u, 0)): raw lanes 0-2 leave clipped at 0, and in train mode u goes
+// to tp->u; B3's and B4's composites, and B7 / B8, take the logits as they
+// are.
+template <int W, typename A, bool TRAIN = false, bool CLIP = false>
 __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, uint32_t vt_a,
                                            const float* __restrict__ bias, int D, int skip, int tid, int w, Ring& ring,
                                            float* raw, int nvalid, long long* prof, const TrainTape* tp = nullptr,
@@ -382,11 +394,20 @@ __device__ __forceinline__ void field_rows(unsigned char* act, uint32_t emb_a, u
     for (int h = 0; h < 2; ++h) {
       float* rr = raw + (r0 + 8 * h) * 4;
       if (r0 + 8 * h >= nvalid) continue;
+      if constexpr (TRAIN && CLIP) {  // B7': the logits before the clip, whose sign masks the backward's colour
+        float* u = tp->u + (grow0 + r0 + 8 * h) * 4;
+        if (c0 == 0) {
+          u[0] = acc[2 * h] + b_rgb[0];
+          u[1] = acc[2 * h + 1] + b_rgb[1];
+        } else if (c0 == 2) {
+          u[2] = acc[2 * h] + b_rgb[2];
+        }
+      }
       if (c0 == 0) {
-        rr[0] = acc[2 * h] + b_rgb[0];
-        rr[1] = acc[2 * h + 1] + b_rgb[1];
+        rr[0] = clip_rgb<CLIP>(acc[2 * h] + b_rgb[0]);
+        rr[1] = clip_rgb<CLIP>(acc[2 * h + 1] + b_rgb[1]);
       } else if (c0 == 2) {
-        rr[2] = acc[2 * h] + b_rgb[2];
+        rr[2] = clip_rgb<CLIP>(acc[2 * h] + b_rgb[2]);
       }
     }
   }

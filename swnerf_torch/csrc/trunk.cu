@@ -51,20 +51,24 @@
 //     Shared memory at fp32, W=256: (2 W + CIN + CV) rows of 68 floats plus
 //     the weight tile and the head reduction, 228,352 of the 232,448 bytes a
 //     block may take.
-//     In bf16 only the train-mode forward runs it: the forward-only launch
-//     of B7 and B8 runs trunk_tc_kernel (3.), and B7' keeps this body.
+//     In bf16 only the train-mode forward runs it (not B7''s at W=128):
+//     the forward-only launch of B7, B7' and B8 runs trunk_tc_kernel (3.).
 //  2. trunk_bwd_launch: the cotangent in the operand type (and q(d alpha)
 //     next to d feat), then gemm_common.cuh::field_reverse, B1's reverse
 //     sweep: fixed-order dW splits, no atomics, bit-equal repeats; demb as
 //     dz_{skip+1} W_emb^T + dz_0 W_0^T over the live columns, in fp32 (the
-//     Pallas backward rounds it to the compute dtype, raymarch.py:765). B7
-//     and B8 in bf16 run the sweep's large products, demb and dvemb on the
-//     tensor cores (tc_gemm.cuh, as B1: dW, dH with ReLU's mask, demb as an
-//     fp32 store then add over its 128-column pad, dvemb as one store over
-//     the view rows' pad); B7' stays SIMT.
-//  3. trunk_tc_kernel (bf16, B7 and B8 without a scratch: the mesh sweep,
-//     the no-grad field routes): tc_render.cuh's field product on the
-//     tensor cores, 128 rows per pass over the weight image.
+//     Pallas backward rounds it to the compute dtype, raymarch.py:765). In
+//     bf16 every family runs the sweep's large products, demb and dvemb on
+//     the tensor cores (tc_gemm.cuh, as B1 and B4: dW, dH with ReLU's mask
+//     or ELU' from the stored output, demb as an fp32 store then add over
+//     its 128-column pad, dvemb as one store over the view rows' pad).
+//  3. trunk_tc_kernel (bf16, B7, B7' and B8 without a scratch: the mesh
+//     sweep, the no-grad field routes, the T-NeRF render with no eval
+//     pass): tc_render.cuh's field product on the tensor cores, 128 rows
+//     per pass over the weight image; B7' with ELU in the epilogues
+//     (tc_chunk.cuh::elu_tc, as B4) and its colour lanes clipped at 0.
+//     B7''s bf16 train-mode forward at W=128 runs it too (TRAIN), filling
+//     trunk_fwd_kernel's scratch tape from the tiles (train_on_tc).
 // Operands fp32 (parity mode) or bf16, rounded where the plain twin rounds;
 // products accumulate in fp32; gradients are fp32.
 
@@ -131,13 +135,37 @@ struct Scratch {
   float* gm;     // B7': [P][4], the cotangent with the colour masked
   float* demb;   // B8: [P][cin], fp32
   float* dvemb;  // B8: [P][cv], fp32
+  unsigned char* img;  // B7' in bf16 at a width train_tc_at takes: the weight image of its train-mode launch
 };
+
+// B7''s bf16 train-mode forward runs on the tensor cores (trunk_tc_kernel's
+// TRAIN) at the widths where the rounding model keeps its backward's bars
+// (tc_rounding.py --backward b7p, PERF.md §6); elsewhere, and for
+// B7, B8 and fp32, on trunk_fwd_kernel.
+template <typename T, int W, typename A>
+constexpr bool train_on_tc() {
+  return sizeof(T) == 2 && A::RGB_RELU && W == 128;
+}
+
+template <typename T, typename A>
+bool train_tc_at(int W) {
+  return W == 256 ? train_on_tc<T, 256, A>() : train_on_tc<T, 128, A>();
+}
+
+template <int W>
+tc::Plan trunk_tc_plan(int arch, int D, int skip, int cin, int cv);
+
+// Bytes of B7''s train-mode weight image at width W: the wide tiles' plan,
+// which no cin < 128, cv <= 128 exceeds.
+inline long long train_image_bytes(int W, int D) {
+  return W == 256 ? trunk_tc_plan<256>(1, D, 0, 127, 128).bytes : trunk_tc_plan<128>(1, D, 0, 127, 128).bytes;
+}
 
 template <typename T, typename A>
 Scratch<T> carve(void* scratch, int W, int D, long long P) {
   const int WH = W / 2;
   Carver cv{static_cast<unsigned char*>(scratch)};
-  Scratch<T> sc;
+  Scratch<T> sc{};
   sc.emb = cv.take<T>(P * A::CIN);
   sc.vemb = cv.take<T>(P * A::CV);
   sc.hstride = align256(sizeof(T) * P * (W + PADC)) / sizeof(T);
@@ -159,6 +187,7 @@ Scratch<T> carve(void* scratch, int W, int D, long long P) {
     sc.demb = cv.take<float>(P * A::CIN);
     sc.dvemb = cv.take<float>(P * A::CV);
   }
+  if (train_tc_at<T, A>(W)) sc.img = cv.take<unsigned char>(train_image_bytes(W, D));
   return sc;
 }
 
@@ -179,6 +208,7 @@ size_t scratch_bytes(int W, int D, long long P) {
   b += align256(sizeof(float) * part_floats(W));
   if (A::RGB_RELU) b += 2 * align256(sizeof(float) * P * 4);  // u, gm
   if (A::RAW) b += align256(sizeof(float) * P * A::CIN) + align256(sizeof(float) * P * A::CV);  // demb, dvemb
+  if (train_tc_at<T, A>(W)) b += align256(train_image_bytes(W, D));  // B7''s train-mode weight image
   return b;
 }
 
@@ -326,25 +356,32 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
   }
 }
 
-// B7's and B8's bf16 forward-only launch on the tensor cores (tc_chunk.cuh,
-// the body tc_render.cuh::field_rows that B3 runs): a persistent grid over
-// 128-row chunks; per chunk each consumer warpgroup fills its embedding
-// tiles for its 64 rows, then runs the field. The tiles take KE = A::CIN /
-// 64 and KV = A::CV / 64 atoms: one each at the narrow pads (cin, cv <= 64:
-// the mesh tile's 63 / 27), two at the wide ones (MultiRes level 0's
-// 123 / 123), the weights' 128-row pads read that far only (tc_fwd's plan).
-//  - B7: rows of emb [M][cin] and vemb [M][cv] (fp32, each chunk's rows
-//    contiguous, read in order) into the tiles, rounded to bf16 where
+// The bf16 forward-only launch of B7, B7' and B8 on the tensor cores
+// (tc_chunk.cuh, the body tc_render.cuh::field_rows that B3 and B4 run): a
+// persistent grid over 128-row chunks; per chunk each consumer warpgroup
+// fills its embedding tiles for its 64 rows, then runs the field. The tiles
+// take KE = atoms(A::CIN) and KV = atoms(A::CV) atoms: one each at the
+// narrow pads (cin, cv <= 64: the mesh tile's 63 / 27), two at the wide
+// ones (MultiRes level 0's 123 / 123), and for B7' two and one at 96 / 64
+// columns (the T-NeRF config's 84 / 27: the embedding products run six k16
+// steps, the dead ones past 96 skipped, as B4's); the weights' 128-row pads
+// are read that far only (tc_fwd's plan). CLIP (B7'): raw rgb = max(u, 0).
+//  - B7, B7': rows of emb [M][cin] and vemb [M][cv] (fp32, each chunk's
+//    rows contiguous, read in order) into the tiles, rounded to bf16 where
 //    trunk.py::_padded rounds; the pad columns are zeroed once, rows past M
 //    are zero.
 //  - B8 (RAW): pts and viewdirs [M][3] encoded in the block at
 //    (cin - 3) / 6 and (cv - 3) / 6 frequencies (tc_render.cuh::encode_row).
-// raw [M][4] (fp32) comes straight from the heads' epilogues. The
-// train-mode forward, whose spilled activations the backward reads, stays
-// on trunk_fwd_kernel: the tensor cores round each k16 step's sum toward
-// zero (tc_rounding.py), and the backward's gradients are held to the
-// twin's fp32-order bar, which on the rounding model neither this chain nor
-// a fold of its sums keeps for B7 or B8 (PERF.md §6, PR 14).
+// raw [M][4] (fp32) comes straight from the heads' epilogues. TRAIN (B7'
+// at W=128): the tiles also go to the scratch's tape as trunk_fwd_kernel
+// spills them (the embedding with its ones at cin and zeros to 128, the
+// view embedding, each layer with its ones, feat, hv; u, the colour logits
+// before the clip). The other train-mode forwards, whose spilled
+// activations the backward reads, stay on trunk_fwd_kernel: the tensor
+// cores round each k16 step's sum toward zero (tc_rounding.py), and the
+// backward's gradients are held to the twin's fp32-order bar, which on the
+// rounding model neither this chain nor a fold of its sums keeps for B7,
+// B8 or B7' at W=256 (PERF.md §6).
 constexpr int TC_STAGES = 3;
 
 // B7 / B8's narrow tiles: one atom for each embedding.
@@ -352,6 +389,19 @@ struct TrunkNarrow {
   static constexpr int CIN = 64;
   static constexpr int CV = 64;
   static constexpr Act ACT = Act::Relu;
+};
+
+// B7''s tiles: ELU in the epilogues, 96 / 64 columns where the embeddings
+// fit them (cin <= 96, cv <= 64), else the wide 128 / 128.
+struct TrunkEluTile {
+  static constexpr int CIN = 96;
+  static constexpr int CV = 64;
+  static constexpr Act ACT = Act::Elu;
+};
+struct TrunkEluWide {
+  static constexpr int CIN = 128;
+  static constexpr int CV = 128;
+  static constexpr Act ACT = Act::Elu;
 };
 
 template <int W, typename A>
@@ -374,11 +424,12 @@ __device__ __forceinline__ void load_tile(unsigned char* t, int tid, const float
   }
 }
 
-template <int W, typename A, bool RAW>
+template <int W, typename A, bool RAW, bool CLIP, bool TRAIN>
 __global__ void __launch_bounds__(tc::NTHREADS, 1)
 trunk_tc_kernel(const float* __restrict__ in0, int cin, const float* __restrict__ in1, int cv,
                 const __grid_constant__ tc::Plan plan, const unsigned char* __restrict__ img,
-                const float* __restrict__ bias, int D, int skip, long long M, float* __restrict__ raw) {
+                const float* __restrict__ bias, int D, int skip, long long M, float* __restrict__ raw,
+                const __grid_constant__ tc::TrainTape tp) {
   constexpr int KE = tc::atoms(A::CIN), KV = tc::atoms(A::CV);
   extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned_smem: 1024
   unsigned char* sm = tc::aligned_smem(smem_raw);
@@ -428,40 +479,59 @@ trunk_tc_kernel(const float* __restrict__ in0, int cin, const float* __restrict_
         load_tile(vt, tid, in1, cv, row0, nvalid);
       }
       tc::publish(w);
-      tc::field_rows<W, A>(act, tc::smem_u32(emb), tc::smem_u32(vt), bias, D, skip, tid, w, ring, raw + row0 * 4,
-                           nvalid, nullptr);
+      if constexpr (TRAIN) {  // the tiles to the tape: the embedding with its ones at cin, the view embedding
+        tc::spill_tile(emb, tid, KE * 64, tp.emb, Trunk::CIN, row0, nvalid, cin);
+        tc::spill_tile(vt, tid, KV * 64, tp.vemb, Trunk::CV, row0, nvalid, -1);
+      }
+      tc::field_rows<W, A, TRAIN, CLIP>(act, tc::smem_u32(emb), tc::smem_u32(vt), bias, D, skip, tid, w, ring,
+                                        raw + row0 * 4, nvalid, nullptr, &tp, row0);
     }
   }
 }
 
-// The tiles a launch takes: narrow where both embeddings fit one atom.
-inline bool narrow(int cin, int cv) { return cin <= 64 && cv <= 64; }
+// The tiles a launch of family arch takes (0: B7, 1: B7', 2: B8): the
+// narrow ones (B7 / B8: one atom each; B7': 96 / 64 columns) where both
+// embeddings fit them, else the wide ones.
+inline bool narrow(int arch, int cin, int cv) { return arch == 1 ? cin <= 96 && cv <= 64 : cin <= 64 && cv <= 64; }
 
-// The weight image of B7 / B8's packed buffers (ops/kernels/trunk.py: both
-// embeddings on 128-row pads) for the tensor-core launch's tiles.
+// The weight image of the family's packed buffers (ops/kernels/trunk.py:
+// both embeddings on 128-row pads) for the tensor-core launch's tiles.
 template <int W>
-tc::Plan trunk_tc_plan(int D, int skip, int cin, int cv) {
-  return narrow(cin, cv) ? tc::render_plan<W, TrunkNarrow>(D, skip, Trunk::CIN, Trunk::CV)
-                         : tc::render_plan<W, VanillaWide>(D, skip, Trunk::CIN, Trunk::CV);
+tc::Plan trunk_tc_plan(int arch, int D, int skip, int cin, int cv) {
+  const bool n = narrow(arch, cin, cv);
+  if (arch == 1)
+    return n ? tc::render_plan<W, TrunkEluTile>(D, skip, Trunk::CIN, Trunk::CV)
+             : tc::render_plan<W, TrunkEluWide>(D, skip, Trunk::CIN, Trunk::CV);
+  return n ? tc::render_plan<W, TrunkNarrow>(D, skip, Trunk::CIN, Trunk::CV)
+           : tc::render_plan<W, VanillaWide>(D, skip, Trunk::CIN, Trunk::CV);
 }
 
 // Packs the image into img (img_bytes long) and launches trunk_tc_kernel
-// on a persistent grid.
-template <int W, bool RAW>
+// for the field family A on a persistent grid; with TRAIN (B7'), the train
+// mode that fills tp.
+template <int W, typename A, bool TRAIN = false>
 int tc_fwd(const float* in0, int cin, const float* in1, int cv, const void* wts, const float* bias, int D, int skip,
-           long long M, float* raw, void* img, long long img_bytes, cudaStream_t st) {
-  const tc::Plan plan = trunk_tc_plan<W>(D, skip, cin, cv);
+           long long M, float* raw, void* img, long long img_bytes, cudaStream_t st, const tc::TrainTape& tp = {}) {
+  constexpr int arch = A::RGB_RELU ? 1 : A::RAW ? 2 : 0;
+  const tc::Plan plan = trunk_tc_plan<W>(arch, D, skip, cin, cv);
   if (img == nullptr || img_bytes < plan.bytes) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = tc::pack(wts, plan, img, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   auto go = [&](auto kern, size_t smem) {
     SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
     kern<<<tc::grid_for((M + tc::ROWS - 1) / tc::ROWS), tc::NTHREADS, smem, st>>>(
-        in0, cin, in1, cv, plan, static_cast<const unsigned char*>(img), bias, D, skip, M, raw);
+        in0, cin, in1, cv, plan, static_cast<const unsigned char*>(img), bias, D, skip, M, raw, tp);
     return static_cast<int>(cudaGetLastError());
   };
-  if (narrow(cin, cv)) return go(trunk_tc_kernel<W, TrunkNarrow, RAW>, trunk_tc_smem<W, TrunkNarrow>());
-  return go(trunk_tc_kernel<W, VanillaWide, RAW>, trunk_tc_smem<W, VanillaWide>());
+  const bool n = narrow(arch, cin, cv);
+  if constexpr (A::RGB_RELU) {
+    return n ? go(trunk_tc_kernel<W, TrunkEluTile, false, true, TRAIN>, trunk_tc_smem<W, TrunkEluTile>())
+             : go(trunk_tc_kernel<W, TrunkEluWide, false, true, TRAIN>, trunk_tc_smem<W, TrunkEluWide>());
+  } else {
+    static_assert(!TRAIN, "B7's and B8's train-mode forwards stay on trunk_fwd_kernel");
+    return n ? go(trunk_tc_kernel<W, TrunkNarrow, A::RAW, false, false>, trunk_tc_smem<W, TrunkNarrow>())
+             : go(trunk_tc_kernel<W, VanillaWide, A::RAW, false, false>, trunk_tc_smem<W, VanillaWide>());
+  }
 }
 
 // gq = q(g); column W of dfa = q(d alpha). With MASK (B7'), the colour
@@ -482,16 +552,10 @@ __global__ void cotangent_kernel(const float* __restrict__ g, const float* __res
   if ((idx & 3) == 3) dfa[(idx >> 2) * (W + PADC) + W] = v;
 }
 
-// The bf16 forward-only launches of B7 and B8 run on the tensor cores, and
-// so do their backwards' products (tc_gemm.cuh); B7' and fp32 stay SIMT.
-template <typename T, typename A>
-constexpr bool on_tc() {
-  return sizeof(T) == 2 && !A::RGB_RELU;
-}
-
-// The forward: with scratch, train mode on trunk_fwd_kernel; without it,
-// the forward-only launch (B7 / B8 in bf16: tc_fwd, which takes the weight
-// image img; else trunk_fwd_kernel).
+// The forward: with scratch, train mode (B7' in bf16 where train_on_tc:
+// tc_fwd's, its weight image in the scratch; else trunk_fwd_kernel);
+// without it, the forward-only launch (bf16: tc_fwd, which takes the weight
+// image img; fp32: trunk_fwd_kernel).
 template <typename T, int W, typename A>
 int fwd(const float* emb, int cin, const float* vemb, int cv, const void* wts, const float* bias, int D, int skip,
         long long M, float* raw, void* scratch, void* img, long long img_bytes, cudaStream_t st) {
@@ -503,9 +567,21 @@ int fwd(const float* emb, int cin, const float* vemb, int cv, const void* wts, c
                                             sc);
     return static_cast<int>(cudaGetLastError());
   };
-  if (scratch) return launch(trunk_fwd_kernel<T, W, A, true>, carve<T, A>(scratch, W, D, M));
-  if constexpr (on_tc<T, A>())
-    return tc_fwd<W, A::RAW>(emb, cin, vemb, cv, wts, bias, D, skip, M, raw, img, img_bytes, st);
+  if (scratch) {
+    const Scratch<T> sc = carve<T, A>(scratch, W, D, M);
+    if constexpr (train_on_tc<T, W, A>()) {
+      if (narrow(1, cin, cv))  // the view tile's 64 columns leave the pad up to 128 to zero here
+        SWNERF_CHECK(cudaMemsetAsync(sc.vemb, 0, sizeof(T) * M * A::CV, st));
+      const tc::TrainTape tp{sc.emb, sc.vemb, sc.h,    sc.hstride, sc.feat, sc.hv,   nullptr, nullptr,
+                             nullptr, nullptr, W + PADC, W / 2 + PADC, nullptr, 0.f, nullptr, sc.u};
+      return tc_fwd<W, A, true>(emb, cin, vemb, cv, wts, bias, D, skip, M, raw, sc.img, train_image_bytes(W, D), st,
+                                tp);
+    } else {
+      return launch(trunk_fwd_kernel<T, W, A, true>, sc);
+    }
+  }
+  if constexpr (sizeof(T) == 2)  // every family's bf16 forward-only launch: the tensor cores
+    return tc_fwd<W, A>(emb, cin, vemb, cv, wts, bias, D, skip, M, raw, img, img_bytes, st);
   else
     return launch(trunk_fwd_kernel<T, W, A, false>, Scratch<T>{});
 }
@@ -523,7 +599,7 @@ int bwd(const void* wts_v, int D, int skip, int cin, int cv, long long P, const 
   auto hl = [&](int i) { return static_cast<const T*>(sc.h + (size_t)i * sc.hstride); };
   FieldTape<T, decltype(hl)> tape{sc.emb, sc.vemb, hl, sc.feat, sc.hv, sc.dfa, sc.gq, A::RGB_RELU ? sc.gm : g,
                                   sc.dz, sc.dhv_c, sc.dhv32, sc.part};
-  constexpr bool TC = on_tc<T, A>();  // B7 and B8 in bf16: the sweep's products on the tensor cores
+  constexpr bool TC = sizeof(T) == 2;  // bf16: the sweep's products on the tensor cores (tc_gemm.cuh)
   if constexpr (A::RAW) {
     SWNERF_RUN((field_reverse<T, W, A::ACT, decltype(hl), TC>(wts, D, skip, A::CIN, cin, A::CV, cv, P, tape, gw, gb,
                                                               demb ? sc.demb : nullptr, dvemb ? sc.dvemb : nullptr,
@@ -586,12 +662,13 @@ long long trunk_scratch_bytes(int arch, int bf16, int W, int D, long long P) {
 }
 
 // Bytes of the weight image that the forward-only launch of family arch
-// takes (B7 and B8 in bf16: the tensor-core kernel), else 0; -1 for an
-// unsupported shape.
+// takes (bf16: the tensor-core kernel), else 0; -1 for an unsupported
+// shape.
 long long trunk_image_bytes(int arch, int bf16, int W, int D, int skip, int cin, int cv) {
   if (!shape_ok(arch, W, D, skip, cin, cv, 1)) return -1;
-  if (!bf16 || arch == 1) return 0;
-  return W == 256 ? trunk_tc_plan<256>(D, skip, cin, cv).bytes : trunk_tc_plan<128>(D, skip, cin, cv).bytes;
+  if (!bf16) return 0;
+  return W == 256 ? trunk_tc_plan<256>(arch, D, skip, cin, cv).bytes
+                  : trunk_tc_plan<128>(arch, D, skip, cin, cv).bytes;
 }
 
 // raw [P, 4] of field family ``arch``: B7 (0) and B7' (1) at emb [P, cin]

@@ -28,17 +28,19 @@ through.
   and, where autograd asks, d pts and d viewdirs ``[P, 3]`` in fp32 (the
   Pallas VJP returns both, ``:1003-1013``).
 
-In bf16, the forward-only launch of B7 and B8 (no scratch: the mesh sweep,
-``apply_field`` without autograd) runs on the tensor cores
-(``csrc/trunk.cu::trunk_tc_kernel``, B3's field product), whose sums round
-in another order than the train-mode forward's: the two launches agree at
-the bf16 bar, not bit for bit. The train-mode forward, which keeps the
-activations its backward reads, B7' and every fp32 launch run the SIMT
-body (``tc_rounding.py --backward b7 b8``: with B7's or B8's train-mode
-forward on the tensor cores, under their own rounding or a fold of it, the
-gradients leave the twin's bars). B7's and B8's bf16 backwards run their
-reverse sweep's large products and the embeddings' cotangents (demb,
-dvemb) on the tensor cores (``csrc/tc_gemm.cuh``); B7''s stays SIMT.
+In bf16, the forward-only launch of B7, B7' and B8 (no scratch: the mesh
+sweep, ``apply_field`` without autograd, the T-NeRF render with no eval
+pass) runs on the tensor cores (``csrc/trunk.cu::trunk_tc_kernel``, B3's
+and B4's field product; B7' with ELU in the epilogues and its colour
+lanes clipped at 0), whose sums round in another order than the SIMT
+train-mode forward's: the two launches agree at the bf16 bar, not bit for
+bit. B7''s bf16 train-mode forward at W=128 (the T-NeRF config's width)
+runs the same product and fills the tape its backward reads; B7's, B8's,
+B7''s at W=256 and every fp32 launch run the SIMT body
+(``tc_rounding.py --backward b7 b7p b8``: with those forwards on the
+tensor cores the gradients leave the twin's bars). Every bf16 backward
+runs its reverse sweep's large products and the embeddings' cotangents
+(demb, dvemb) on the tensor cores (``csrc/tc_gemm.cuh``).
 
 The ``pack_*`` functions lay the weights out as ``render_pass.pack_params``
 does (``render_pass.weight_layout``), with both embeddings padded to 128
@@ -318,7 +320,7 @@ def _launch_fwd(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor
     _check_weights(packed, dev, "trunk")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     img_bytes = 0
-    if scratch is None:  # the bf16 B7 / B8 forward-only launch's weight image (csrc/trunk.cu::tc_fwd), else 0
+    if scratch is None:  # the bf16 forward-only launch's weight image (csrc/trunk.cu::tc_fwd), else 0
         img_bytes = _lib_fn("trunk_image_bytes", ll, [i] * 7)(
             _code(packed, raw), _bf16(packed), packed.W, packed.D, packed.skip, packed.cin, packed.input_ch_views)
     img = torch.empty(img_bytes, dtype=torch.uint8, device=dev) if img_bytes > 0 else None
@@ -369,7 +371,7 @@ def _launch_bwd(packed: PackedTrunkParams, P: int, g: torch.Tensor, scratch: tor
 
 def trunk(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor) -> torch.Tensor:
     """B7's / B7''s forward-only launch on CUDA tensors (raw [P, 4] at emb
-    [P, cin] and vemb [P, cv], fp32; B7 in bf16 on the tensor cores), the
+    [P, cin] and vemb [P, cv], fp32; in bf16 on the tensor cores), the
     plain twin on CPU tensors."""
     if emb.device.type == "cpu":
         return trunk_plain(packed, emb, vemb)

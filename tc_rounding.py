@@ -54,10 +54,18 @@ S=192; its sweep with demb over the 64-column pad runs on the tensor cores),
 samples, a seeded cotangent of (rgb, acc, depth)): the card's gradients and
 d pts against the bf16 twin, each model's (tc_model.sweep_field with
 need_demb, carried to d pts) with the twin's forward, and (B5) with the
-forward on the model too.
+forward on the model too. ``b7p`` is B7' (the T-NeRF field kernel, ELU and
+the colour ReLU; its bf16 backward on the tensor cores with demb and
+dvemb) as ``b7``: on chip_smoke.py phase 26's 32,000 rows (500 pixels of
+train view 61 of phase 11's scene, written to a temporary directory, x 64
+jittered samples) with the round-5 ``800000.tar`` (W=128) and a seeded
+W=256 T-NeRF, a random cotangent and the training path's (raw through the
+composite with the colour ReLU to the squared error against the pixels),
+each masked by the forward's own colour logits > 0, as the kernel's
+backward masks them.
 
     python3 tc_rounding.py [--levels level0 level1 identity] [--rays 500]
-    python3 tc_rounding.py --backward [b1] [b4] [b5] [b7] [b8] [b9] [--rays 500] [--samples 64] [--levels ...]
+    python3 tc_rounding.py --backward [b1] [b4] [b5] [b7] [b7p] [b8] [b9] [--rays 500] [--samples 64] [--levels ...]
 
 Needs a CUDA device; builds the kernels at first use.
 """
@@ -81,7 +89,7 @@ def main() -> int:
     ap.add_argument("--levels", nargs="+", default=list(LEVELS), choices=list(LEVELS))
     ap.add_argument("--rays", type=int, default=500)
     ap.add_argument("--samples", type=int, default=64)
-    ap.add_argument("--backward", nargs="*", choices=["b1", "b4", "b5", "b7", "b8", "b9"], default=None,
+    ap.add_argument("--backward", nargs="*", choices=["b1", "b4", "b5", "b7", "b7p", "b8", "b9"], default=None,
                     help="kernels with the reverse sweep on the tensor cores (no value: b1)")
     a = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -128,6 +136,8 @@ def main() -> int:
                 backward_b5(a.rays, dev)
             elif kernel == "b7":
                 backward_b7(a.rays, a.samples, a.levels, dev)
+            elif kernel == "b7p":
+                backward_b7p(dev)
             elif kernel == "b8":
                 backward_b8(a.rays, a.samples, dev)
             else:
@@ -481,6 +491,68 @@ def backward_b7(n: int, s: int, levels, dev) -> int:
             line += _trunk_rows(packed, e, v, cot_of, lambda gr, de, _: (gr, de), dist_to_twin, False)
             print(f"[B7 {level}, {name}] {P} rows, {packed.cin} of {packed.cin_pad} input columns, gradients and "
                   "demb max rel L2 from the bf16 twin, the sweep on the rz model: " + "; ".join(line))
+            del sc
+            torch.cuda.empty_cache()
+    return 0
+
+
+def backward_b7p(dev) -> int:
+    """B7''s gradients, demb and dvemb, its backward on the tensor cores, on
+    the card and with each forward mode on the model, against the bf16
+    twin: 800000.tar's weights and a seeded W=256 T-NeRF on phase 26's
+    rows, a random cotangent and the training path's (module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import chip_smoke
+    from swnerf_torch.models import TNeRF, TNeRFConfig
+    from swnerf_torch.ops.kernels import trunk as b7
+    from swnerf_torch.ops.kernels.tc_model import composite
+    from swnerf_torch.train.checkpoint import load_tar, tnerf_state_dict
+
+    tmp = Path(tempfile.mkdtemp(prefix="tc_rounding_b7p_"))
+    try:
+        data = chip_smoke.phase11_scene(dev, tmp / "scene")
+        cfg = TNeRFConfig()
+        emb, vemb, cot, loss = chip_smoke.b7p_rows(dev, data, cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    P = emb.shape[0]
+    wide = TNeRFConfig(net_dim=256)
+    weights = {"800000.tar": (cfg, {k: v.to(dev) for k, v in tnerf_state_dict(
+                   load_tar(str(chip_smoke.TNERF_CKPT))["network_fn_state_dict"]).items()}),
+               "seeded W=256": (wide, TNeRF(wide, device=dev, generator=torch.Generator().manual_seed(0),
+                                            fused=False).state_dict())}
+    for wname, (c, sd) in weights.items():
+        packed = b7.pack_tnerf_trunk_params(sd, c, torch.bfloat16)
+        for name, lo in (("random cotangent", None), ("training path", loss)):
+            def cot_of(sigma, logits, lo=lo):
+                """The cotangent of raw, masked by the forward's colour logits > 0."""
+                if lo is not None:
+                    return composite(sigma, logits, *lo, rgb_relu=True)[1].float()
+                return torch.cat([torch.where(logits > 0, cot[:, :3], torch.zeros_like(cot[:, :3])), cot[:, 3:]], -1)
+
+            raw = b7.trunk_plain(packed, emb, vemb)
+            gt, dt, dvt = b7.trunk_plain_bwd(packed, emb, vemb, cot_of(raw[:, 3], raw[:, :3]), True, True)
+            twin = dict(b7.unpack_trunk_grads(gt, packed), demb=dt, dvemb=dvt)
+
+            def dist_to_twin(grads, demb, dvemb):
+                got = dict(b7.unpack_trunk_grads(tuple(x.float() for x in grads), packed), demb=demb.float(),
+                           dvemb=dvemb.float())
+                return max(((got[k].double() - twin[k].double()).norm() / twin[k].double().norm()).item()
+                           for k in twin)
+
+            sc = b7._scratch(packed, P, dev)
+            rk = b7._launch_fwd(packed, emb, vemb, sc)
+            card, dcard, dvcard = b7._launch_bwd(packed, P, cot_of(rk[:, 3], rk[:, :3]).contiguous(), sc, True, True)
+            line = [f"the card {dist_to_twin(card, dcard, dvcard):.3e}"]
+            e, v = b7._padded(packed, emb, vemb)
+            line += _trunk_rows(packed, e, v, cot_of, lambda gr, de, dv: (gr, de, dv), dist_to_twin, True)
+            print(f"[B7' {wname}, {name}] {P} rows, W={packed.W}, {packed.cin} / {packed.input_ch_views} of 128 input "
+                  "columns, gradients, demb and dvemb max rel L2 from the bf16 twin, the sweep on the rz model: "
+                  + "; ".join(line))
             del sc
             torch.cuda.empty_cache()
     return 0

@@ -39,6 +39,13 @@ W 128 and 256, from one row to a 204,800-row mesh tile: raw within 1e-2
 (max) and 1e-3 (mean) of the twin's largest value, bit-equal repeats; they
 sum in another order than the train-mode launch, so the fields' no-grad
 forwards are held to that bar, not to the autograd forward bit for bit.
+B7''s the same (ELU in the epilogues, raw rgb clipped at 0) at its 96 / 64-
+and 128 / 128-column tiles, W 128 and 256, one to 32,000 rows; its bf16
+train mode (the tensor cores at W=128, SIMT at W=256) and its backward on
+the tensor cores from one row to 32,000: raw at the bf16 bar, the colour
+masks the twin's on all but 1e-3, the tape's embeddings and pads, the
+gradients, demb and dvemb rel L2 1e-2 of the CPU twin on the kernel
+forward's colour mask, bit-equal repeats.
 MultiRes on the render kernels: B3's pts mode on the wide pack at B3's bars
 (up to its shared-memory bound S = 256, past which it refuses); B9 at B6's
 bars with its recomputed forward bit-equal to the B3 launch, bf16 rel L2
@@ -80,6 +87,7 @@ from swnerf_torch.ops.kernels import render_pass as b3
 from swnerf_torch.ops.kernels import sample_pdf as b2
 from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.kernels import trunk as b7
+from swnerf_torch.ops.kernels.render_pass import field_mlp
 from swnerf_torch.render.fused_eval import canonical_params
 
 torch.set_num_threads(2)
@@ -1515,6 +1523,98 @@ def test_b8_bf16_train_mode_at_ragged_rows(dev, pad, rows):
           f"{max(card.values()):.3e} from the card's")
     assert max(rel.values()) <= 1e-2, rel
     assert all(torch.equal(a, b) for a, b in zip((*grads, dpts, dvd), (*grads2, dpts2, dvd2)))
+
+
+B7P_TILES = {"tile": dict(), "wide": dict(multires=12, multires_views=10)}  # 84 / 27 and 100 / 63 columns
+B7P_ROWS = [1, 127, 32000]
+
+
+def _b7p_rows_case(dev, tile, width, rows, seed):
+    """_b7p_case at W=width, the T-NeRF config's 84 / 27 columns (B7''s
+    96 / 64-column tiles) or 100 / 63 (the wide 128 / 128 tiles), ``rows``
+    rows, packed in bf16."""
+    n, s = _rows_case(rows)
+    cfg, sd, emb, vemb, g = _b7p_case(dev, dict(B7P_TILES[tile], net_dim=width), n=n, s=s, seed=seed)
+    return b7.pack_tnerf_trunk_params(sd, cfg, torch.bfloat16), emb, vemb, g
+
+
+@pytest.mark.parametrize("rows", B7P_ROWS)
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("tile", list(B7P_TILES))
+def test_b7p_tc_forward_matches_plain(dev, tile, width, rows):
+    """B7''s bf16 forward-only launch (the tensor cores: csrc/trunk.cu::
+    trunk_tc_kernel with ELU in the epilogues and the colour lanes clipped)
+    against trunk_plain at both tiles, W 128 and 256, from one row to an
+    eager step's 32,000: _assert_tc_raw's bars (within 1e-2 of the twin's
+    largest |raw|, a repeat bit-equal), raw rgb >= 0, one launch a call."""
+    packed, emb, vemb, _ = _b7p_rows_case(dev, tile, width, rows, seed=rows)
+    before = launches["trunk[tnerf]"]
+    got, again = b7.trunk(packed, emb, vemb), b7.trunk(packed, emb, vemb)
+    torch.cuda.synchronize()
+    assert launches["trunk[tnerf]"] == before + 2
+    assert bool((got[:, :3] >= 0).all())
+    _assert_tc_raw(got, again, b7.trunk_plain(packed, emb, vemb))
+
+
+def _b7p_twin_bwd(packed, emb, vemb, g, mask):
+    """trunk_plain_bwd with demb and dvemb, the colour cotangent masked by
+    ``mask`` [P, 3] (the kernel forward's raw rgb > 0, i.e. its u > 0) in
+    place of the twin's own logits > 0; on the tensors' device."""
+    e, v = b7._padded(packed, emb, vemb)
+    hs, feat, hv, _, _ = field_mlp(packed, e, v)
+    gm = torch.cat([torch.where(mask, g[:, :3], torch.zeros_like(g[:, :3])), g[:, 3:]], -1)
+    return b1.field_reverse_plain(packed, e, v, hs, feat, hv, gm, True, True)
+
+
+@pytest.mark.parametrize("rows", B7P_ROWS)
+@pytest.mark.parametrize("width", [128, 256])
+def test_b7p_bf16_train_mode_at_ragged_rows(dev, width, rows):
+    """B7''s bf16 train-mode forward (the tensor cores at W=128, the SIMT
+    body at W=256: tc_rounding.py --backward b7p, PERF.md §6) and its
+    backward on the tensor cores (field_reverse's TC branch with ELU' from
+    the stored outputs, demb over the 128-column pad, dvemb) at the T-NeRF
+    config's widths, W 128 and 256, from one row to 32,000: raw within 1e-2
+    of the twin's largest value and rgb >= 0; the colour masks (raw rgb > 0)
+    the twin's on all but 1e-3 of them; the tape's embeddings the twin's
+    rounded ones with the column of ones at cin and zeros past the live
+    columns up to the scratch's 128; the gradients, demb and dvemb rel L2
+    1e-2 of the twin summed on the CPU on the kernel forward's colour mask,
+    which the backward reads (a logit within rounding of 0 flips a mask
+    between any two forwards, and one flip moves the colour bias's gradient
+    by ~1e-2 at 32,000 rows of a random cotangent: with the twin's own mask
+    the SIMT forward at W=256 lands 1.427e-2 from both twins; that distance
+    and the flips are printed); bit-equal repeats; one launch each way per
+    call."""
+    packed, emb, vemb, g = _b7p_rows_case(dev, "tile", width, rows, seed=rows)
+    before = (launches["trunk[tnerf]"], launches["trunk[tnerf,bwd]"])
+    sc = b7._scratch(packed, rows, dev)
+    raw = b7._launch_fwd(packed, emb, vemb, sc)
+    emb_t, vemb_t = _tape(sc, rows)
+    grads, demb, dvemb = b7._launch_bwd(packed, rows, g, sc, True, True)
+    assert (launches["trunk[tnerf]"], launches["trunk[tnerf,bwd]"]) == (before[0] + 1, before[1] + 1)
+    raw2, grads2, demb2, dvemb2 = b7.trunk_fwd_bwd(packed, emb, vemb, g, True, True)
+    ref = b7.trunk_plain(packed, emb, vemb)
+    e, v = b7._padded(packed, emb, vemb)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw2) and bool((raw[:, :3] >= 0).all())
+    assert (raw - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    mask = raw[:, :3] > 0
+    flips = (mask != (ref[:, :3] > 0)).sum().item()
+    assert flips <= 1e-3 * mask.numel(), flips
+    cin, cv = packed.cin, packed.input_ch_views
+    assert torch.equal(emb_t[:, :cin].float(), e[:, :cin]) and torch.equal(vemb_t[:, :cv].float(), v[:, :cv])
+    assert bool((emb_t[:, cin] == 1).all()) and not emb_t[:, cin + 1:].any() and not vemb_t[:, cv:].any()
+    names = ("demb", "dvemb")
+    pc = dataclasses.replace(packed, weights=packed.weights.cpu(), biases=packed.biases.cpu())
+    cpu = _in_grads(*_b7p_twin_bwd(pc, emb.cpu(), vemb.cpu(), g.cpu(), mask.cpu()), pc, names)
+    own = _in_grads(*b7.trunk_plain_bwd(pc, emb.cpu(), vemb.cpu(), g.cpu(), True, True), pc, names)
+    got = _in_grads(grads, demb, dvemb, packed, names)
+    rel = _rel_l2(got, cpu)
+    print(f"B7' W={width} {rows} rows: max rel L2 {max(rel.values()):.3e} ({max(rel, key=rel.get)}) from the CPU "
+          f"twin on the kernel's colour mask, {max(_rel_l2(got, own).values()):.3e} on the twin's own; {flips} of "
+          f"{mask.numel()} colour masks flipped")
+    assert max(rel.values()) <= 1e-2, rel
+    assert all(torch.equal(a, b) for a, b in zip((*grads, demb, dvemb), (*grads2, demb2, dvemb2)))
 
 
 B8_TRAIN_WEIGHTS = ("010000.tar", "seeded", "seeded, wide pads")

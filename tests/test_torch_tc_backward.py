@@ -1,5 +1,5 @@
-"""What the tensor-core reverse sweep of B1, B4, B5, B6, B7, B8 and B9
-should give, on the CPU.
+"""What the tensor-core reverse sweep of B1, B4, B5, B6, B7, B7', B8 and
+B9 should give, on the CPU.
 
 ``csrc/tc_gemm.cuh`` runs bf16 B1's, B4's, B5's, B6's, B7's and B9's
 backward products (the input cotangent demb of B5, B7 and B9 too) on the
@@ -26,9 +26,15 @@ model within 5e-3 (B8 at 10 rays x 30 samples and at the card's 500 x 64
 too), and with its forward on the rz model or on tc_model.product's folds
 further from the twin (B7 on the card's 32,000 rows past 1e-2; B8 past
 5e-3 at 500 x 64 on the chain, on a seed here on the fold per atom and on
-a ragged card case on the fold per step: both stay SIMT). The fold group
-of tc_model.product: G=1 is the per-step fold, G=1 and 4 bounded by rz
-and rn. Torch only; no card, no JAX.
+a ragged card case on the fold per step: both stay SIMT). B7' (the T-NeRF
+field kernel, ELU and the colour ReLU, W 128 and 256): its backward with
+demb and dvemb on the model from the twin's forward within the card's
+1e-2, and at W=128 its train-mode forward on the rz chain too, the
+composite's colour mask from that forward, within FORWARD_BAR on the
+training path's case (which is why that forward runs on the tensor cores
+at W=128; at W=256 it stays SIMT, tc_rounding.py --backward b7p). The fold
+group of tc_model.product: G=1 is the per-step fold, G=1 and 4 bounded by
+rz and rn. Torch only; no card, no JAX.
 """
 
 import numpy as np
@@ -463,19 +469,20 @@ B7_TRAIN_MODE = ("twin", 1)
 B8_TRAIN_MODE = ("twin", 1)
 
 
-def _trunk_train_run(packed, e, v, loss, to_inputs=None):
-    """run(mode, group) for _assert_forward_bar: B7's / B8's bf16 train-mode
-    forward (``mode`` "twin": the twin's own, render_pass.field_mlp; else on
-    the model, tc_model.field_forward_model at the padded embeddings e, v),
-    the composite's raw cotangent of the squared error (``loss``: z, dist,
-    noise, white, target, loss_scale), the sweep on the rz model (the
-    card's; exact with the exact forward) with demb and dvemb (tc_demb,
-    tc_dvemb); with ``to_inputs`` (B8) both carried to the inputs'
-    cotangents."""
+def _trunk_train_run(packed, e, v, loss, to_inputs=None, rgb_relu=False):
+    """run(mode, group) for _assert_forward_bar: B7's / B8's / B7''s bf16
+    train-mode forward (``mode`` "twin": the twin's own,
+    render_pass.field_mlp; else on the model, tc_model.field_forward_model
+    at the padded embeddings e, v), the composite's raw cotangent of the
+    squared error (``loss``: z, dist, noise, white, target, loss_scale;
+    ``rgb_relu``, B7': the colour ReLU and its mask from the forward's
+    logits), the sweep on the rz model (the card's; exact with the exact
+    forward) with demb and dvemb (tc_demb, tc_dvemb); with ``to_inputs``
+    (B8) both carried to the inputs' cotangents."""
     def run(mode, group):
         fwd = field_mlp(packed, e, v) if mode == "twin" else tc_model.field_forward_model(packed, e, v, mode, group)
         hs, feat, hv, sigma, logits = fwd
-        _, graw = tc_model.composite(sigma, logits, *loss)
+        _, graw = tc_model.composite(sigma, logits, *loss, rgb_relu=rgb_relu)
         grads, demb, dvemb = tc_model.sweep_field(packed, e, v, hs, feat, hv, graw.float(),
                                                   "exact" if mode == "exact" else "rz", need_demb=True,
                                                   need_dvemb=True)
@@ -615,3 +622,81 @@ def test_b7_forward_on_every_tensor_core_accumulation_lands_further_than_the_sim
     dist = {m: max(_rel_l2(run(*m), ref).values()) for m in (B7_TRAIN_MODE, ("rz", 1), ("fold", 4), ("fold", 1))}
     print(dist)
     assert all(dist[m] > dist[B7_TRAIN_MODE] for m in dist if m != B7_TRAIN_MODE), dist
+
+
+def _b7p_case(width, seed, n=10, s=30):
+    """B7''s case (the T-NeRF field at D=8, W=width, multires 10 / 4: 84 of
+    128 input columns, 27 view columns; seeded weights, bf16) on the
+    training path's geometry (_trunk_rays, a seeded time per ray): packed,
+    the embeddings [embed(x) | embed(t)] and embed(d), the squared error's
+    loss arguments for tc_model.composite and the numpy generator."""
+    cfg = TNeRFConfig(net_dim=width)
+    model = TNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(seed), fused=False)
+    packed = b7.pack_tnerf_trunk_params(model.state_dict(), cfg, torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    pts, vd, loss = _trunk_rays(rng, n, s, cfg.nf_views)
+    t = torch.from_numpy(rng.uniform(0.0, 1.0, (n, 1, 1))).float().expand(n, s, 1).reshape(-1, 1)
+    emb = torch.cat([positional_encoding(pts, cfg.nf_pts), positional_encoding(t, cfg.nf_time)], -1)
+    return packed, emb, positional_encoding(vd, cfg.nf_views), loss, rng
+
+
+def _colour_masked(g, logits):
+    """The cotangent of raw with its colour columns masked by logits > 0, as
+    B7''s backward masks them (trunk.cu::cotangent_kernel)."""
+    return torch.cat([torch.where(logits > 0, g[:, :3], torch.zeros_like(g[:, :3])), g[:, 3:]], -1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("width", [128, 256])
+def test_b7p_sweep_with_demb_and_dvemb_on_the_tensor_core_model_holds_the_twin(width, seed):
+    """bf16 B7''s backward on the tensor cores (field_reverse's TC branch:
+    ELU' from the stored outputs, the colour mask from the forward's logits,
+    demb over the 128-column pad, dvemb over the view rows') on the rz model
+    (tc_model.sweep_field with need_demb and need_dvemb) from the twin's own
+    forward, against trunk_plain_bwd on a random cotangent, 300 rows: the
+    gradients, demb and dvemb within the card's 1e-2 bar (printed: 3e-4 to
+    1.6e-3 at 10 x 30 rows)."""
+    packed, emb, vemb, _, rng = _b7p_case(width, seed)
+    assert (packed.cin, packed.input_ch_views, packed.arch) == (84, 27, "tnerf")
+    g = torch.from_numpy(rng.standard_normal((emb.shape[0], 4))).float()
+    (gw, gb), demb, dvemb = b7.trunk_plain_bwd(packed, emb, vemb, g, True, True)
+    e, v = b7._padded(packed, emb, vemb)
+    hs, feat, hv, _, logits = field_mlp(packed, e, v)
+    assert bool((logits <= 0).any()) and bool((hs[0] < 0).any())  # the colour mask and ELU's tail are live
+    (mw, mb), mdemb, mdvemb = tc_model.sweep_field(packed, e, v, hs, feat, hv, _colour_masked(g, logits), "rz",
+                                                   need_demb=True, need_dvemb=True)
+    assert mdemb.shape == demb.shape and mdvemb.shape == dvemb.shape == (300, 27)
+    ref = dict(b7.unpack_trunk_grads((gw, gb), packed), demb=demb, dvemb=dvemb)
+    got = dict(b7.unpack_trunk_grads((mw.float(), mb.float()), packed), demb=mdemb.float(), dvemb=mdvemb.float())
+    rel = _rel_l2(got, ref)
+    print(f"B7' W={width} seed {seed}: max rel L2 {max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+    assert max(rel.values()) <= 1e-2, rel
+
+
+# B7''s bf16 train-mode forward by width: the tensor cores' rz chain at W=128
+# (trunk.cu::train_on_tc), the SIMT body (the twin's own order) at W=256,
+# where every accumulation lands past FORWARD_BAR on tc_rounding.py
+# --backward b7p's random cotangent (rz 8.1e-3; PERF.md §6).
+B7P_TRAIN_MODE = {128: ("rz", 1), 256: ("twin", 1)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_b7p_train_mode_forward_on_the_tensor_core_model_holds_the_twin(seed):
+    """bf16 B7' as it trains on the card at W=128, the T-NeRF config's
+    width: its train-mode forward on the tensor cores' chain (rz,
+    B7P_TRAIN_MODE), the composite's colour ReLU and its mask from that
+    forward's logits, then its backward with demb and dvemb on the rz model,
+    on the training path's case (10 rays x 30 samples, a time per ray):
+    within FORWARD_BAR of the twin's gradients, demb and dvemb (trunk_plain,
+    the composite, trunk_plain_bwd) through _assert_forward_bar. On the
+    card's 32,000 rows with 800000.tar the model printed 3.26e-3 (train)
+    and 2.91e-3 (random cotangent)."""
+    packed, emb, vemb, loss, _ = _b7p_case(128, seed)
+    raw = b7.trunk_plain(packed, emb, vemb)
+    _, graw = tc_model.composite(raw[:, 3], raw[:, :3], *loss, rgb_relu=True)
+    grads, demb, dvemb = b7.trunk_plain_bwd(packed, emb, vemb, graw.float(), True, True)
+    ref = dict(b7.unpack_trunk_grads(grads, packed), demb=demb, dvemb=dvemb)
+    e, v = b7._padded(packed, emb, vemb)
+    _assert_forward_bar(f"B7' W=128 seed {seed}", _trunk_train_run(packed, e, v, loss, rgb_relu=True), ref,
+                        B7P_TRAIN_MODE[128])
+
