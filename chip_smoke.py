@@ -226,11 +226,14 @@ Phases (each raises on failure; nothing is caught):
      bit-equal, B2's unsorted rows counted; run_nerf --render_only under
      SWNERF_PDF_MERGE=1 with phase 5's PSNRs exactly; 50 vanilla and 50
      D-NeRF kernel steps under the switch at phases 9 / 21's floors; B10's
-     time beside B2 + torch.sort;
+     time beside B2 + torch.sort, and queued behind a sleep (the device
+     alone, without the host's time to issue each launch);
  35. B11 (fused_time_net_pts with input cotangents) against its twin with
      the D-NeRF 800000.tar deformation weights on phase 17's points and at
      MultiRes level 0's widths: dx bit-equal to B6's forward, fp32
-     gradients, d pts and d times at phase 17's bar, bf16 rel L2 1e-2;
+     gradients, d pts and d times at phase 17's bar, bf16 (its products
+     and demb on the tensor cores, at the 96- and 144-column pads) rel L2
+     1e-2;
      times; then the [tc] lines: each bf16 tensor-core launch's TFLOP/s and
      share of its bound (B3, B6, B7 and B8 at the mesh tile, B7 at the
      MultiRes test chunk), B3's composite and the heads' shares of the
@@ -285,6 +288,23 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """As cuda_ms, with the launches queued behind a ~0.1 s sleep kernel: the
+    device's time for ``fn()`` alone, without the host's time to issue it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -4480,10 +4500,15 @@ def phase34_b10(dev, tmp, data, psnr5):
         uu = sampling.sorted_uniforms(nr, 128, torch.Generator(device=dev).manual_seed(4), dev)
         a = (z64[:nr], bins[:nr], wsl[:nr], uu)
         step_rows[name] = (cuda_ms(lambda: b2.sample_pdf_merge(*a), 50),
-                           cuda_ms(lambda: torch.sort(torch.cat([a[0], b2.sample_pdf(*a[1:])], -1), -1).values, 50))
+                           cuda_ms(lambda: torch.sort(torch.cat([a[0], b2.sample_pdf(*a[1:])], -1), -1).values, 50),
+                           queued_ms(lambda: b2.sample_pdf_merge(*a), 50))
+    alone = (queued_ms(lambda: b2.sample_pdf_merge(z64, bins, wsl, u), 20),
+             queued_ms(lambda: b2.sample_pdf_merge(zc, bc, wc, uc), 50))
     print(f"[34 times] B10 per frame (160,000 rays, one launch) {frame_ms:.3f} ms against B2 + torch.sort "
           f"{frame_lib:.3f} ms; per 32,768-ray chunk {ms:.4f} against {lib:.4f} ms (twin {plain:.3f}); per step "
-          + ", ".join(f"{k} {a:.4f} against {b:.4f} ms" for k, (a, b) in step_rows.items()))
+          + ", ".join(f"{k} {a:.4f} against {b:.4f} ms" for k, (a, b, _) in step_rows.items())
+          + f"; queued behind a sleep (the device alone): frame {alone[0]:.4f}, chunk {alone[1]:.4f}, "
+          + ", ".join(f"{k} {c:.4f}" for k, (_, _, c) in step_rows.items()) + " ms")
     nc = zc.shape[0]
     row = entry("sample_pdf_merge", "swnerf_torch/csrc/sample_pdf.cu", "swnerf_tpu/ops/pallas/sample_pdf.py:155",
                 0, err, ms, plain, 4 * (nc * 63 + nc * 62 + 128 + nc * 64 + nc * 192), nc * 128 * 63, "fp32")

@@ -11,7 +11,8 @@ B7's forward only at MultiRes level 0's widths, the mesh sweep
 (extract_mesh.sample_grid at 128^3 x 100 views, one timed run), B3's pts
 mode at the MultiRes widths, B9 (the external-cotangent backward, wide and
 narrow), B10 (sample + merge) and B11
-(the deformation MLP's backward with input cotangents), on seeded inputs at
+(the deformation MLP's backward with input cotangents, at the D-NeRF pad's
+96,000 rows and MultiRes level 0's 32,000), on seeded inputs at
 the main paths' shapes. Two checkouts whose digests agree give
 bit-equal outputs; run both in one call, in turns, to compare their times on
 one card:
@@ -138,6 +139,16 @@ def main() -> int:
         ms_bwd = timed(lambda: b6._launch_bwd(packed, m, g, sc))
         return train([dx], list(grads), timed(lambda: b6.time_net_fwd_bwd(packed, pts, times, cot)), ms_bwd=ms_bwd)
 
+    def b11_train(packed, pts, times, cot):
+        """B11: B6's train-mode forward on B11's scratch, then the backward
+        with d pts and d times: digests, and the backward launch's time."""
+        m = pts.shape[0] * pts.shape[1]
+        sc = b6._din_scratch(packed, m, dev)
+        dx = b6._launch_fwd(packed, pts, times, sc)
+        g = cot.reshape(m, 3).contiguous()
+        res = b6._launch_bwd_din(packed, pts, times, g, sc)
+        return train([dx], [*res[0], res[1], res[2]], timed(lambda: b6._launch_bwd_din(packed, pts, times, g, sc)))
+
     out = {}
     vcfg, tcfg = VanillaNeRFConfig(), TNeRFConfig()
     vsd = VanillaNeRF(vcfg, device=dev, generator=torch.Generator().manual_seed(0)).state_dict()
@@ -206,6 +217,8 @@ def main() -> int:
         pair, t2 = torch.cat([pts, pts]).contiguous(), torch.cat([t, torch.full_like(t, 0.41)]).contiguous()
         cot = torch.randn(pair.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
         out[f"time_net+bwd {tag}"] = b6_train(pt6, pair, t2, cot)
+        if hasattr(b6, "_launch_bwd_din"):  # B11 at the D-NeRF pad (84 of 96 columns), 96,000 rows
+            out[f"time_net[pts,bwd,dnerf] {tag}"] = b11_train(pt6, pts, t, cot[:500])
         # B6 at MultiRes level 0's widths (Lx 20, Lt 8: 144 input rows), one
         # phase-1 step's 500 x 64 rows
         m0 = DirectTemporalNeRF(DNeRFConfig(multires=20, multires_time=8, multires_views=20), device=dev,
@@ -289,14 +302,7 @@ def main() -> int:
                     o, d, vd, z, dist, noise, target, t = rays(500, 64, 41)
                     pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
                     cot = torch.randn(pts.shape, generator=torch.Generator(device=dev).manual_seed(12), device=dev)
-                    M = pts.shape[0] * pts.shape[1]
-                    sc = b6._din_scratch(t11, M, dev)
-                    dx11 = b6._launch_fwd(t11, pts, t, sc)
-                    g11 = cot.reshape(M, 3).contiguous()
-                    res11 = b6._launch_bwd_din(t11, pts, t, g11, sc)
-                    out[f"time_net[pts,bwd] {tag}"] = train([dx11], [*res11[0], res11[1], res11[2]],
-                                                            timed(lambda: b6._launch_bwd_din(t11, pts, t, g11, sc)))
-                    del sc
+                    out[f"time_net[pts,bwd] {tag}"] = b11_train(t11, pts, t, cot)
         torch.cuda.empty_cache()
 
     # the mesh sweep through extract_mesh.sample_grid on the field's default

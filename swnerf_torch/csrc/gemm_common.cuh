@@ -10,9 +10,9 @@
 // inputs give bit-equal gradients. dH = dZ W^T runs row-parallel with the
 // activation's derivative and the rounding to the operand type (or, for the
 // input cotangent, an fp32 store or accumulate) in its epilogue. Under the
-// sweeps' TC switch (bf16 B1, B4, B5, B9, B6 without input cotangents, B7,
-// B8) the two large products of each layer, and the input cotangents of B5,
-// B7, B8 and B9, run on the tensor cores instead (tc_gemm.cuh: tc_reduce,
+// sweeps' TC switch (bf16 B1, B4, B5, B9, B6 and B11, B7, B8) the two
+// large products of each layer, and the input cotangents of B5, B7, B8, B9
+// and B11, run on the tensor cores instead (tc_gemm.cuh: tc_reduce,
 // tc_act, tc_demb, tc_dvemb), with the same split reduction.
 
 #pragma once
@@ -281,11 +281,12 @@ int tc_act(const T* dz, long long lda, const T* w, int K, int N, long long P, co
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The input cotangent's product on the tensor cores (B5, B7, B9): demb
-// [P][cin] fp32 = (add ? demb + : ) dz w_emb^T over the live columns n <
-// cin, dz [P][W], w_emb the packed [CIN][W] embedding rows (CIN = 64, the
-// vanilla pad of B5 and narrow B9, or 128, B7's and wide B9's: the product
-// runs all CIN columns, whose pad rows are zero, and stores the live ones).
+// The input cotangent's product on the tensor cores (B5, B7, B9, B11):
+// demb [P][cin] fp32 = (add ? demb + : ) dz w_emb^T over the live columns
+// n < cin, dz [P][W], w_emb the packed [CIN][W] embedding rows (CIN = 64,
+// the vanilla pad of B5 and narrow B9; 128, B7's and wide B9's; 96 or 144,
+// the deformation net's, B11's: the product runs all CIN columns, one
+// wgmma of that width, whose pad rows are zero, and stores the live ones).
 template <int CIN>
 int tc_demb_at(const tc::DhArgs& g, int W, bool add, cudaStream_t st) {
   if (W == 256)
@@ -300,9 +301,14 @@ int tc_demb(const T* dz, int W, const T* w_emb, int CIN, int cin, long long P, f
             cudaStream_t st) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "the tensor-core sweep is bf16 only");
   const tc::DhArgs g{dz, W, w_emb, P, nullptr, 0, nullptr, 0, nullptr, nullptr, cin, demb, cin};
-  if ((CIN != 128 && CIN != 64) || cin > CIN || (W != 256 && W != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return CIN == 128 ? tc_demb_at<128>(g, W, add, st) : tc_demb_at<64>(g, W, add, st);
+  if (cin > CIN || (W != 256 && W != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (CIN) {
+    case 64: return tc_demb_at<64>(g, W, add, st);
+    case 96: return tc_demb_at<96>(g, W, add, st);
+    case 128: return tc_demb_at<128>(g, W, add, st);
+    case 144: return tc_demb_at<144>(g, W, add, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The view embedding's cotangent on the tensor cores (B7, B8): dvemb
@@ -357,7 +363,7 @@ size_t trunk_offsets(int D, int skip, int cin_pad, int W, size_t* off_w, size_t*
 // dz[(D-1) & 1]) down: per layer its dW with the bias row (the spilled
 // inputs carry a column of ones), then dz of the layer below. emb is the
 // spilled input [P][CIN] (cin live columns, then the ones); h(i) layer i's
-// spilled output [P][W + PADC]. With demb (B5, B7, B9), the input
+// spilled output [P][W + PADC]. With demb (B5, B7, B9, B11), the input
 // cotangent over the cin live columns, fp32 [P][cin]: dz_{skip+1} W_emb^T,
 // then + dz_0 W_0^T.
 // TC (bf16): dW, dH (ELU' or ReLU's mask in its epilogue) and demb on the

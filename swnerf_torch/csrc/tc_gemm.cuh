@@ -1,12 +1,11 @@
 // The reverse sweep's two large products on Hopper's tensor cores, for the
 // bf16 backward of B1 (render_loss.cu, vanilla train mode), of B4 (the
 // same, T-NeRF: ELU), of B5 and B9 (the same body on given positions, with
-// the input cotangent demb), of B6 (time_net.cu, without input cotangents)
+// the input cotangent demb), of B6 and B11 (time_net.cu; B11 with demb)
 // and of B7, B7' and B8 (trunk.cu, with demb and dvemb; B7' with ELU):
 // dW = X^T dZ and dH = dZ W^T, the shapes of gemm_common.cuh::gemm_reduce
 // and gemm_act, which trunk_reverse and field_reverse call here instead
-// under their TC switch. Every other instantiation (the fp32 parity mode,
-// B11) keeps
+// under their TC switch. The fp32 parity mode keeps
 // gemm_common.cuh's SIMT product, and so do the narrow products of the
 // swept kernels (the rgb head, B6's 3-wide output head, head_bwd_kernel)
 // and the column sums of fp32 cotangents.
@@ -39,8 +38,9 @@
 //    + u[m] v[n] (the top layer's d sigma w_alpha term), times the
 //    activation's derivative from the stored activation (ReLU's mask, or
 //    ELU's h + 1 for h <= 0: B4), rounded to bf16 where gemm_kernel rounds.
-//    The input cotangent demb = dz W_emb^T (B5, B7, B8, B9) takes the same
-//    product, N = 64 or 128 columns of the embedding's pad, with an fp32
+//    The input cotangent demb = dz W_emb^T (B5, B7, B8, B9, B11) takes the
+//    same product, N = 64 or 128 columns of the embedding's pad (96 or 144,
+//    the deformation net's, for B11), with an fp32
 //    epilogue and no mask: stored over the live columns for the skip
 //    layer's rows, then added to for layer 0's (gemm_act's F32 = 1, 2);
 //    dvemb = dhv W_vv^T (B7, B8) too, over the 128 columns of the view

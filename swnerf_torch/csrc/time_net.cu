@@ -50,9 +50,12 @@
 //     trunk sweep (gemm_common.cuh::trunk_reverse): fixed-order dW splits,
 //     no atomics, bit-equal repeats. In bf16 each layer's dW and dH run on
 //     the tensor cores (tc_gemm.cuh; the bias rows as dz's fp32 column
-//     sums); the 3-wide head's products, the fp32 parity mode and B11's
-//     backward (time_net_bwd_din_launch, with the input cotangent) keep
-//     gemm_kernel's SIMT product.
+//     sums), and so, in B11's backward (time_net_bwd_din_launch), does
+//     demb: tc_demb's product over the whole 96- or 144-column pad (one
+//     m64n96 or m64n144 wgmma per k16 step; the pad rows of W_emb and W_0
+//     are zero), the skip layer's stored in fp32, layer 0's added to it,
+//     the live columns kept. The 3-wide head's products and the fp32
+//     parity mode keep gemm_kernel's SIMT product.
 // Operands fp32 (parity mode) or bf16, rounded where the plain twin rounds
 // (the embedding, each layer's output, q(g), every dz); products accumulate
 // in fp32; gradients are fp32. No
@@ -522,13 +525,10 @@ int bwd(int CIN, int W, const void* wts_v, int D, int skip, int Lx, int Lt, int 
   }
   const int cin = cin_of(Lx, Lt);
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  if (BF16 && din == nullptr) {  // the tensor-core sweep (tc_gemm.cuh)
-    SWNERF_RUN((trunk_reverse<T, false, decltype(hl), BF16>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, sc.dz, D, skip,
-                                                            W, M, gw, gb, sc.part, nullptr, st)));
-  } else {
-    SWNERF_RUN((trunk_reverse<T, false>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, sc.dz, D, skip, W, M, gw, gb,
-                                        sc.part, din ? din->demb : nullptr, st)));
-  }
+  // bf16: the tensor-core sweep (tc_gemm.cuh), demb too (tc_demb over the
+  // 96- or 144-column pad); fp32: gemm_kernel
+  SWNERF_RUN((trunk_reverse<T, false, decltype(hl), BF16>(wts, off_w, off_wemb, sc.emb, CIN, cin, hl, sc.dz, D, skip,
+                                                          W, M, gw, gb, sc.part, din ? din->demb : nullptr, st)));
   if (din) {
     encode_xt_bwd_kernel<<<ceil_div((long long)M * 4, 256), 256, 0, st>>>(pts, times, din->demb, cin, Lx, Lt, S, M,
                                                                         dpts, din->dt_rows);

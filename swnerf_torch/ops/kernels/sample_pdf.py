@@ -8,7 +8,11 @@ path). The uniforms ``u`` are built outside, as the JAX wrappers do
 (``sample_pdf.py:103-109``, ``:266-275``). The twin sums in the kernel's
 order (explicit sequential scans), so the two agree bit for bit on the
 card; B10's samples are B2's, and its output is their sorted union with the
-coarse depths whatever their order.
+coarse depths whatever their order. B10 counts the cdf values <= u by a
+binary search where B2 and the twins count them one by one, and places the
+union by co-ranks: :func:`count_le` and :func:`co_rank` are those searches
+in torch, which ``tests/test_torch_pdf_merge.py`` holds to the linear
+counts.
 """
 
 from __future__ import annotations
@@ -22,19 +26,56 @@ from swnerf_torch.ops.kernels import build, launches
 NAME = "sample_pdf"
 
 
-def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """bins [N, M], weights [N, M-1], u [N, S] -> samples [N, S] (fp32)."""
-    M = bins.shape[-1]
+def cdf_plain(weights: torch.Tensor) -> torch.Tensor:
+    """weights [N, M-1] -> the cdf [N, M] in the kernels' order: w = weights
+    + 1e-5, its sum left to right, each w / sum added to a running sum from
+    0."""
     w = weights + 1e-5  # prevent nans (reference ray.py:111)
     total = w[:, 0]
-    for j in range(1, M - 1):
+    for j in range(1, w.shape[-1]):
         total = total + w[:, j]
     pdf = w / total[:, None]
     cols = [torch.zeros_like(total)]
-    for j in range(M - 1):
+    for j in range(w.shape[-1]):
         cols.append(cols[-1] + pdf[:, j])
-    cdf = torch.stack(cols, -1)  # [N, M]
+    return torch.stack(cols, -1)
 
+
+def count_le(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """|{k : x[n, k] <= v[n, s]}| for x [N, M] non-decreasing along its rows
+    and v [N, S], by B10's binary search (``csrc/sample_pdf.cu::count_le``):
+    halving steps from the largest power of two <= M, each taken where the
+    element it reaches is <= v."""
+    M = x.shape[-1]
+    pos = torch.zeros(v.shape, dtype=torch.long, device=v.device)
+    step = 1 << (M.bit_length() - 1) if M else 0
+    while step:
+        p = pos + step
+        pos = torch.where((p <= M) & (torch.gather(x, 1, p.clamp(max=M) - 1) <= v), p, pos)
+        step >>= 1
+    return pos
+
+
+def co_rank(z: torch.Tensor, s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """How many of the sorted depths z [N, Mz] come first among the first d
+    [N, D] elements of their union with the sorted samples s [N, S], ties
+    to the depth, by B10's bisection (``csrc/sample_pdf.cu::co_rank``: the
+    k with s[d - k - 1] >= z[k])."""
+    Mz, S = z.shape[-1], s.shape[-1]
+    lo, hi = (d - S).clamp(min=0), d.clamp(max=Mz)
+    while bool((lo < hi).any()):
+        k = (lo + hi) // 2
+        live = lo < hi
+        take = torch.gather(s, 1, (d - k - 1).clamp(0, S - 1)) >= torch.gather(z, 1, k.clamp(max=Mz - 1))
+        lo = torch.where(live & take, k + 1, lo)
+        hi = torch.where(live & ~take, k, hi)
+    return lo
+
+
+def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """bins [N, M], weights [N, M-1], u [N, S] -> samples [N, S] (fp32)."""
+    M = bins.shape[-1]
+    cdf = cdf_plain(weights)  # [N, M]
     inds = (cdf[:, None, :] <= u[:, :, None]).sum(-1)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=M - 1)
@@ -105,15 +146,18 @@ def sample_pdf_merge(z_vals: torch.Tensor, bins: torch.Tensor, weights: torch.Te
     S, Mz = u.shape[-1], z_vals.shape[-1]
     if any(x.device != bins.device for x in (weights, u, z_vals)) or bins.device.type != "cuda":
         raise ValueError("sample_pdf_merge: z_vals, bins, weights and u must lie on one CUDA device")
+    lib = build.load(NAME)
+    smem = lib.sample_pdf_merge_smem_bytes
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int] * 3
     if weights.shape != (N, M - 1) or u.shape != (N, S) or z_vals.shape != (N, Mz) or not 2 <= M <= 1024 \
-            or 4 * 4 * (2 * M + Mz + S) > 48 * 1024:
+            or min(S, Mz) < 1 or smem(M, Mz, S) < 0:
         raise ValueError(
             f"sample_pdf_merge: bad shapes z_vals {tuple(z_vals.shape)}, bins {tuple(bins.shape)}, weights "
             f"{tuple(weights.shape)}, u {tuple(u.shape)}"
         )
     strides = [_row_stride(x, n) for x, n in ((bins, "bins"), (weights, "weights"), (u, "u"), (z_vals, "z_vals"))]
     out = torch.empty((N, Mz + S), dtype=torch.float32, device=bins.device)
-    lib = build.load(NAME)
     fn = lib.sample_pdf_merge_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]

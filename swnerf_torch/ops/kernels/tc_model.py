@@ -31,7 +31,9 @@ model, for any device:
   sum rounded to nearest (B7's backward runs the same sweep from its given
   cotangent);
 - :func:`sweep_time_net` is B6's backward under the same switch (the
-  3-wide head's products stay fp32: ``time_net.time_net_plain_bwd``);
+  3-wide head's products stay fp32: ``time_net.time_net_plain_bwd``), with
+  ``need_demb`` B11's: demb over the deformation net's 96- or 144-column
+  pad, as ``sweep_field`` forms it;
 - :func:`field_forward_model` is the field's forward on the model (B3's
   and B4's tensor-core chain, or any forward moved onto it), and
   :func:`composite` the render's composite and its backward in float64
@@ -205,11 +207,15 @@ def sweep_field(packed, emb, vemb, hs: List[torch.Tensor], feat, hv, graw, mode:
 
 
 
-def sweep_time_net(packed, emb, hs: List[torch.Tensor], g, mode: str = "rz"):
-    """bf16 B6's backward (no input cotangents) with its trunk's products on
-    the model: the packed gradients of ``sum(g * dx)`` in float64, from the
-    twin's forward (``time_net._forward``: the rounded embedding and each
-    layer's output) and the cotangent ``g`` [P, 3]."""
+def sweep_time_net(packed, emb, hs: List[torch.Tensor], g, mode: str = "rz", need_demb: bool = False):
+    """bf16 B6's backward with its trunk's products on the model: the packed
+    gradients of ``sum(g * dx)`` in float64, from the twin's forward
+    (``time_net._forward``: the rounded embedding and each layer's output)
+    and the cotangent ``g`` [P, 3]. With ``need_demb`` (B11's backward) it
+    returns ``(grads, demb)``: demb [P, cin], the skip layer's product over
+    the 96- or 144-column pad stored in fp32, layer 0's added to nearest
+    (tc_demb), in float64 holding fp32 values, which
+    ``time_net.encode_xt_backward`` carries to d pts and d times."""
     from swnerf_torch.ops.kernels.time_net import bias_layout, weight_layout
 
     m = {k: v.double() for k, v in packed.matrices().items()}
@@ -219,11 +225,12 @@ def sweep_time_net(packed, emb, hs: List[torch.Tensor], g, mode: str = "rz"):
     gw: Dict[str, torch.Tensor] = {"out": _f32(hs[-1].t() @ gq)}
     gb: Dict[str, torch.Tensor] = {"out": _f32(g.sum(0))}
     dz = _bf16(torch.where(hs[-1] > 0, _f32(gq @ m["out"].t()), torch.zeros_like(hs[-1])))
-    _trunk(m, emb, hs, dz, packed.D, packed.skip, mode, gw, gb)
-    return (
+    demb = _trunk(m, emb, hs, dz, packed.D, packed.skip, mode, gw, gb, need_demb=need_demb)
+    grads = (
         torch.cat([gw[n].reshape(-1) for n, _, _ in weight_layout(packed.D, packed.W, packed.skip, packed.cin_pad)]),
         torch.cat([gb[n].reshape(-1) for n, _ in bias_layout(packed.D, packed.W)]),
     )
+    return (grads, demb[:, : packed.cin]) if need_demb else grads
 
 
 def field_forward_model(packed, emb, vemb, mode: str = "rz", group: int = 1):

@@ -51,10 +51,11 @@ MultiRes on the render kernels: B3's pts mode on the wide pack at B3's bars
 bars with its recomputed forward bit-equal to the B3 launch, bf16 rel L2
 1e-2 and bit-equal repeats; the fused phase-2 step against the plain
 route's at the phase-2 bars. B10 bit-equal to B2 + torch.sort and to its
-twin; B11 (fused_time_net_pts with input grads) at B6's bars, dx bit-equal
-to B6's forward.
+twin (sorted and unsorted uniforms and depths, ragged shapes, a broadcast
+row of uniforms); B11 (fused_time_net_pts with input grads) at B6's bars,
+dx bit-equal to B6's forward; in bf16 at both of its pads.
 The reverse sweep's products on the tensor cores (csrc/tc_gemm.cuh: bf16 B1,
-B4, B5 and B9, B6's backward without input cotangents, B7's with demb) are
+B4, B5 and B9, B6's backward, B11's and B7's with demb) are
 held by the bf16 bars above, at the T-NeRF, D-NeRF and every MultiRes
 level's widths, and at ragged shapes (rows not a multiple of 128, live
 input columns not a multiple of 64): gradients (and demb, d pts) rel L2
@@ -1930,11 +1931,21 @@ def test_render_outputs_autograd_on_the_card(dev):
         torch.testing.assert_close(leaves[k].grad, v, rtol=1e-6, atol=1e-12)
 
 
-@pytest.mark.parametrize("mode", ["det", "sorted", "random"])
+B10_CASES = {  # n rays, m bins (m + 1 coarse depths), s samples
+    "det": (20000, 63, 128), "sorted": (20000, 63, 128), "random": (20000, 63, 128),
+    "unsorted_z": (20000, 63, 128), "ragged": (19237, 47, 100), "broadcast_u": (20000, 63, 128),
+}
+
+
+@pytest.mark.parametrize("mode", list(B10_CASES))
 def test_b10_matches_b2_and_sort(dev, mode):
     """B10 bit-equal to B2 + torch.sort(torch.cat(...)) and to its twin, for
-    linspace, sorted and unsorted uniforms (it sorts its samples itself)."""
-    n, m, s = 20000, 63, 128
+    linspace (row stride 0), sorted and unsorted uniforms (the sort path),
+    unsorted coarse depths, a ragged shape (S = 100, not a multiple of 32;
+    48 depths; N not a multiple of the 64 rays a block takes) and one row
+    of unsorted uniforms broadcast with row stride 0. A third of the rays
+    have zero weights past column 5."""
+    n, m, s = B10_CASES[mode]
     g = torch.Generator(device=dev).manual_seed(1)
     z = torch.sort(torch.rand((n, m + 1), generator=g, device=dev) * 4 + 2, -1).values
     bins = (0.5 * (z[:, 1:] + z[:, :-1])).contiguous()
@@ -1943,13 +1954,19 @@ def test_b10_matches_b2_and_sort(dev, mode):
     u = torch.rand((n, s), generator=g, device=dev)
     if mode == "det":
         u = torch.linspace(0.0, 1.0, s, device=dev).expand(n, s)
-    elif mode == "sorted":
+    elif mode in ("sorted", "ragged"):
         u = torch.sort(u, -1).values
+    elif mode == "unsorted_z":
+        u = torch.sort(u, -1).values
+        z = torch.gather(z, 1, torch.argsort(torch.rand(z.shape, generator=g, device=dev), -1))
+    elif mode == "broadcast_u":
+        u = u[:1].expand(n, s)
+    assert u.stride(0) == (0 if mode in ("det", "broadcast_u") else s)
     before = launches["sample_pdf_merge"]
     got = b2.sample_pdf_merge(z, bins, w[:, 1:-1], u)
     ref = torch.sort(torch.cat([z, b2.sample_pdf(bins, w[:, 1:-1], u)], -1), -1).values
     torch.cuda.synchronize()
-    assert launches["sample_pdf_merge"] == before + 1
+    assert launches["sample_pdf_merge"] == before + 1 and got.shape == (n, m + 1 + s)
     assert torch.equal(got, ref) and torch.equal(got, b2.sample_pdf_merge_plain(z, bins, w[:, 1:-1], u))
 
 
@@ -1991,10 +2008,17 @@ def test_b11_fp32_matches_plain(dev, level):
     assert launches["time_net[bwd]"] == before[1] + 1 and x.grad is None
 
 
-def test_b11_bf16_matches_plain_and_repeats(dev):
-    cfg = DNeRFConfig(**MR_LEVELS["level0"])
+@pytest.mark.parametrize("level", ["dnerf", "level0"])
+def test_b11_bf16_matches_plain_and_repeats(dev, level):
+    """bf16 fused_time_net_pts(need_input_grads=True), its dW, dH and demb
+    products on the tensor cores at the D-NeRF config's 96-column pad (84
+    live) and MultiRes level 0's 144 (140 live), 500 rays x 64: the
+    gradients, d pts and d times within rel L2 1e-2 of the bf16 twin, and a
+    second run bit-equal."""
+    cfg = DNeRFConfig() if level == "dnerf" else DNeRFConfig(**MR_LEVELS["level0"])
     model = DirectTemporalNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(6), fused=False)
     packed = b6.pack_time_params(model.state_dict(), cfg, torch.bfloat16)
+    assert packed.cin_pad == (96 if level == "dnerf" else 144)
     o, d, _, z, _ = _rays(dev, 500, 64, 7)
     pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
     times = torch.rand((500,), generator=torch.Generator(device=dev).manual_seed(8), device=dev)

@@ -7,8 +7,9 @@ it. The CUDA kernel is held to the twin on the card (tests/test_torch_cuda.py,
 chip_smoke.py phase 34).
 
 Bars: the twin against the Pallas kernel atol 1e-5 (its cdf is a matmul, the
-twin's a sequential sum: B2's bar, tests/test_torch_kernels_plain.py);
-everything else bit for bit."""
+twin's a sequential sum: B2's bar, tests/test_torch_kernels_plain.py), one
+bin on rows whose cdf steps fall near the 1e-5 guard; everything else bit
+for bit, B10's searches against the linear counts among it."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +72,71 @@ def test_b10_wrapper_runs_the_twin_on_cpu_and_takes_any_order():
     perm = torch.randperm(128, generator=torch.Generator().manual_seed(0))
     assert torch.equal(got, b2.sample_pdf_merge_plain(z.flip(-1), bins, w, u[:, perm]))
 
+
+
+SEARCH_FAMILIES = ("regular", "near_plateaus", "exact_plateaus", "small_weights")
+
+
+def _search_inputs(family, n=12, m=64, seed=0):
+    """n rays of one weight family, as _merge_kernel reads them: sorted z
+    [n, 64], bins [n, 63] their midpoints, weights [n, 62] (regular: in
+    [0.5, 1]; near plateaus: zero past column 5, so the cdf rises by 1e-5 /
+    sum a column; exact plateaus: 200 in columns 0-3, zero after, so the
+    rise is below half an ulp and the cdf repeats its value; small weights:
+    in [0, 1e-3]), and per row the sorted uniforms 0, 1, every value of the
+    row's twin cdf (63) and 63 draws: [n, 128]."""
+    rng = np.random.default_rng(seed + SEARCH_FAMILIES.index(family))
+    z = np.sort(rng.uniform(2, 6, (n, m)), -1).astype(np.float32)
+    bins = (0.5 * (z[:, 1:] + z[:, :-1])).astype(np.float32)
+    w = {"regular": lambda: rng.uniform(0.5, 1, (n, m - 2)),
+         "near_plateaus": lambda: np.where(np.arange(m - 2) < 5, rng.uniform(0, 1, (n, m - 2)), 0.0),
+         "exact_plateaus": lambda: np.where(np.arange(m - 2) < 4, 200.0, np.zeros((n, m - 2))),
+         "small_weights": lambda: rng.uniform(0, 1e-3, (n, m - 2))}[family]().astype(np.float32)
+    cdf = b2.cdf_plain(torch.from_numpy(w))
+    u = np.concatenate([np.zeros((n, 1)), np.ones((n, 1)), cdf.numpy(), rng.uniform(0, 1, (n, 128 - 2 - cdf.shape[1]))], -1)
+    return z, bins, w, np.sort(u, -1).astype(np.float32), cdf
+
+
+@pytest.mark.parametrize("family", SEARCH_FAMILIES)
+def test_b10_binary_search_is_the_linear_count(family):
+    """B10's binary search (sample_pdf.count_le, the steps of
+    csrc/sample_pdf.cu::count_le) on the twin's cdf (sample_pdf_plain's
+    order) gives the linear count of cdf values <= u for every u: 0, 1, u
+    exactly on each cdf value (on the plateaus, ties across equal values)
+    and draws, on rows whose last cdf value is not 1 too. B10's co-rank
+    bisection (sample_pdf.co_rank) counts, for every d, the coarse depths
+    among the first d elements of the union (ties to the depth) as the
+    linear ranks do, and reading the union off those counts gives the
+    twin's merge bit for bit. The inputs go through
+    sample_pdf_merge_pallas(interpret=True): the twin within atol 1e-5 on
+    the regular and exact-plateau rows (u on the cdf values included), and
+    within one bin elsewhere, where the guard denom < 1e-5 jumps a bin when
+    the Pallas kernel's matmul cdf and the twin's sum differ in a last bit."""
+    z, bins, w, u, cdf = _search_inputs(family)
+    ut = torch.from_numpy(u)
+    assert bool((cdf[:, 1:] >= cdf[:, :-1]).all())
+    assert torch.equal(b2.count_le(cdf, ut), (cdf[:, None, :] <= ut[:, :, None]).sum(-1))
+    if family == "exact_plateaus":
+        assert bool((cdf[:, 1:] == cdf[:, :-1]).any(-1).all())
+    all_cdf = torch.cat([_search_inputs(f)[4] for f in SEARCH_FAMILIES])
+    assert bool((all_cdf[:, -1] > 1).any()) and bool((all_cdf[:, -1] < 1).any())
+
+    zt, bt, wt = (torch.from_numpy(x) for x in (z, bins, w))
+    smp = torch.sort(b2.sample_pdf_plain(bt, wt, ut), -1).values
+    d = torch.arange(193).expand(12, 193)
+    i = b2.co_rank(zt, smp, d)
+    rank_z = torch.arange(64) + (smp[:, None, :] < zt[:, :, None]).sum(-1)  # z_k's place in the union
+    assert torch.equal(i, (rank_z[:, None, :] < d[:, :, None]).sum(-1))
+    from_z = i[:, 1:] > i[:, :-1]
+    placed = torch.where(from_z, torch.gather(zt, 1, i[:, :-1].clamp(max=63)),
+                         torch.gather(smp, 1, (d[:, :-1] - i[:, :-1]).clamp(max=127)))
+    got = b2.sample_pdf_merge_plain(zt, bt, wt, ut)
+    assert torch.equal(placed, got)
+
+    ref = np.asarray(sample_pdf_merge_pallas(jnp.asarray(z), jnp.asarray(bins), jnp.asarray(w), 128,
+                                             u=jnp.asarray(u), interpret=True))
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= (1e-5 if family in ("regular", "exact_plateaus") else np.diff(bins, axis=-1).max()), err
 
 def test_sorted_uniforms_are_order_statistics():
     """Exponential spacings give sorted rows in (0, 1) whose i-th entry has

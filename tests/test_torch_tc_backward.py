@@ -1,5 +1,5 @@
-"""What the tensor-core reverse sweep of B1, B4, B5, B6, B7, B7', B8 and
-B9 should give, on the CPU.
+"""What the tensor-core reverse sweep of B1, B4, B5, B6, B7, B7', B8, B9
+and B11 should give, on the CPU.
 
 ``csrc/tc_gemm.cuh`` runs bf16 B1's, B4's, B5's, B6's, B7's and B9's
 backward products (the input cotangent demb of B5, B7 and B9 too) on the
@@ -34,9 +34,15 @@ composite's colour mask from that forward, within FORWARD_BAR on the
 training path's case (which is why that forward runs on the tensor cores
 at W=128; at W=256 it stays SIMT, tc_rounding.py --backward b7p). The fold
 group of tc_model.product: G=1 is the per-step fold, G=1 and 4 bounded by
-rz and rn. Torch only; no card, no JAX.
+rz and rn. B11 (the deformation net's backward with d pts and d times, D=4,
+W=128, at the 96- and 144-column pads): its sweep and demb on the model
+from the bf16 twin's forward within BAR, and the fp32 twin against the JAX
+package's fused_time_net_pts VJP in interpret mode. No card; JAX only for
+that last check.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -50,6 +56,9 @@ from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.kernels import trunk as b7
 from swnerf_torch.ops.kernels.render_pass import field_mlp
 from swnerf_torch.render.fused_eval import canonical_params
+from swnerf_tpu.models.dnerf import DNeRFConfig as JaxConfig
+from swnerf_tpu.models.dnerf import init_time_net_params
+from swnerf_tpu.ops.pallas.raymarch import fused_time_net_pts as jax_fused_time_net_pts
 
 BAR = 2e-3
 
@@ -148,6 +157,83 @@ def test_b6_sweep_on_the_tensor_core_model_holds_the_twin(width, seed):
     rel = _rel_l2(b6.unpack_time_grads(tuple(x.float() for x in got), packed), b6.unpack_time_grads(ref, packed))
     assert max(rel.values()) <= BAR, rel
 
+
+
+B11_PADS = {  # D=4, W=128, skip 2: the D-NeRF pad (84 of 96 columns) and MultiRes level 0's (140 of 144)
+    "dnerf96": dict(netdepth=4, netwidth=128, skips=(2,), multires=10, multires_views=4),
+    "level0_144": dict(netdepth=4, netwidth=128, skips=(2,), multires=20, multires_time=8, multires_views=4),
+}
+
+
+def _time_tree_to_port(tree):
+    """A JAX time-net tree {"layers": [{"w", "b"}], "out"} -> the port's
+    ``_time.*`` state-dict keys, ``[out, in]``."""
+    out = {}
+    for name, lyr in [(f"_time.{i}", lyr) for i, lyr in enumerate(tree["layers"])] + [("_time_out", tree["out"])]:
+        out[f"{name}.weight"] = torch.tensor(np.asarray(lyr["w"]).T)
+        out[f"{name}.bias"] = torch.tensor(np.asarray(lyr["b"]))
+    return out
+
+
+@pytest.mark.parametrize("pad", list(B11_PADS))
+def test_b11_sweep_with_demb_on_the_tensor_core_model_holds_the_twin(pad):
+    """bf16 B11's backward (fused_time_net_pts with need_input_grads) with
+    its trunk's products and demb on the rz model (tc_demb over the whole
+    96- or 144-column pad: the skip layer's product stored, layer 0's added
+    to nearest) against time_net_plain_bwd(need_input_grads=True): the
+    gradients, d pts and d times (demb carried through the encode, whose
+    backward multiplies it by up to 2^19 at level 0), seeds 0-3, 12 rays x
+    25 samples in [-1.2, 1.2]^3, within BAR (2e-3) rel L2. Seeds 0-3
+    printed 2.0e-7 to 2.3e-5 at the D-NeRF pad and 2.4e-7 to 1.3e-4 at
+    level 0. The twin itself, in fp32, against raymarch.py's
+    fused_time_net_pts VJP (_plain_raw_call, interpret mode) on 11 rays x 8
+    samples: dx atol 1e-5 (rtol 5e-4), every gradient, d pts and d times
+    within 1e-4 * max|g| + 1e-7 (test_torch_dnerf_kernels.py's bar; level
+    0's positions scaled by 2^-10 there, where the Pallas encode's cos(u) =
+    sin(u + pi/2) holds to fp32)."""
+    kw = B11_PADS[pad]
+    cfg = DNeRFConfig(**kw)
+    for seed in range(4):
+        model = DirectTemporalNeRF(cfg, device="cpu", generator=torch.Generator().manual_seed(seed), fused=False)
+        packed = b6.pack_time_params(model.state_dict(), cfg, torch.bfloat16)
+        assert (packed.cin, packed.cin_pad) == ((84, 96) if pad == "dnerf96" else (140, 144))
+        rng = np.random.default_rng(seed)
+        pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (12, 25, 3))).float()
+        times = torch.from_numpy(rng.uniform(0.0, 1.0, 12)).float()
+        g = torch.from_numpy(rng.normal(size=(12, 25, 3))).float()
+        ref, dpts, dtimes = b6.time_net_plain_bwd(packed, pts, times, g, need_input_grads=True)
+        emb, hs, _ = b6._forward(packed, pts, times)
+        got, demb = tc_model.sweep_time_net(packed, emb, hs, g, "rz", need_demb=True)
+        assert demb.shape == (300, packed.cin)
+        mp, mt = b6.encode_xt_backward(pts, times, demb.float(), packed.n_freqs, packed.n_freqs_time)
+        rel = _rel_l2(dict(b6.unpack_time_grads(tuple(x.float() for x in got), packed), dpts=mp, dtimes=mt),
+                      dict(b6.unpack_time_grads(ref, packed), dpts=dpts, dtimes=dtimes))
+        print(f"B11 {pad} seed {seed}: max rel L2 {max(rel.values()):.3e} ({max(rel, key=rel.get)})")
+        assert max(rel.values()) <= BAR, (seed, rel)
+
+    jcfg = JaxConfig(**kw)
+    tp = jax.tree.map(np.asarray, init_time_net_params(jax.random.PRNGKey(6), jcfg))
+    rng = np.random.default_rng(6)
+    x = (rng.uniform(-1.2, 1.2, (11, 8, 3)) * (1.0 if pad == "dnerf96" else 2.0**-10)).astype(np.float32)
+    t = rng.uniform(0.0, 1.0, 11).astype(np.float32)
+    g = rng.standard_normal((11, 8, 3)).astype(np.float32)
+
+    def f(p, xx, tt):
+        return jax_fused_time_net_pts(p, jcfg, xx, tt, block=64, interpret=True, compute_dtype=jnp.float32,
+                                      need_input_grads=True)
+
+    jdx, vjp = jax.vjp(f, tp, jnp.asarray(x), jnp.asarray(t[:, None, None]))
+    gp, gx, gt = vjp(jnp.asarray(g))
+    p32 = b6.pack_time_params(_time_tree_to_port(tp), cfg, torch.float32)
+    xt, tt = torch.from_numpy(x), torch.from_numpy(t)
+    np.testing.assert_allclose(b6.time_net_plain(p32, xt, tt).numpy(), np.asarray(jdx), atol=1e-5, rtol=5e-4)
+    grads, dpts, dtimes = b6.time_net_plain_bwd(p32, xt, tt, torch.from_numpy(g), need_input_grads=True)
+    got = dict(b6.unpack_time_grads(grads, p32), dpts=dpts, dtimes=dtimes)
+    want = dict(_time_tree_to_port(jax.tree.map(np.asarray, gp)), dpts=torch.tensor(np.asarray(gx)),
+                dtimes=torch.tensor(np.asarray(gt).reshape(11)))
+    for k, r in want.items():
+        err = (got[k].double() - r.double()).abs().max().item()
+        assert err <= 1e-4 * r.double().abs().max().item() + 1e-7, (k, err)
 
 def _b4_case(seed, n=10, s=30):
     """A seeded bf16 T-NeRF (D=8, W=128, multires 10 / 4) and B4's inputs on
