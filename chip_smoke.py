@@ -15,7 +15,10 @@ Phases (each raises on failure; nothing is caught):
   2. build the kernels from swnerf_torch/csrc (nvcc, sm_90a); the
      tensor-core kernels' registers and spill bytes from build.log (a spill
      fails);
-  3. B2 sample_pdf vs its twin at N=160,000, M=63, S=128: bit-exact;
+  3. B2 sample_pdf vs its twin at N=160,000, M=63, S=128: bit-exact
+     (torch.equal); its time through the wrapper and queued behind a sleep
+     (the device alone) per frame, per 32,768-ray chunk and per training
+     step (1,024 / 500 rays), and the wrapper's host microseconds a call;
   4. B3 render_pass vs its twin with the 010000.tar weights (D=8, W=256) on
      4,096 rays of test view 0, S=64 and S=192: fp32 atol 1e-4 (rgb, acc),
      rtol 1e-4 (depth); bf16 max |drgb| <= 1e-2, mean <= 1e-3;
@@ -313,6 +316,58 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds per ``fn()``: the wall time to issue ``reps`` calls,
+    with no synchronize inside the loop, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def b2_times(dev, bins, weights, g) -> None:
+    """B2's time through the wrapper and queued behind a sleep (the device
+    alone) at phase 3's 160,000-ray frame and a 32,768-ray chunk of it
+    (linspace u, as serving draws it), and at the training steps' 1,024 and
+    500 rays (random u, as a step draws it); the wrapper's host microseconds
+    a call at 1,024 rays, and the same with the launcher's ctypes signature
+    set on every call, as the wrapper once did."""
+    import ctypes
+
+    import torch
+
+    from swnerf_torch.ops.kernels import build
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+
+    n, s = bins.shape[0], 128
+    u = torch.linspace(0.0, 1.0, s, device=dev).expand(n, s)
+    cases = {"frame (160,000 rays)": (bins, weights, u),
+             "chunk (32,768 rays)": (bins[:32768], weights[:32768], u[:32768])}
+    for nr in (1024, 500):
+        cases[f"step ({nr:,} rays)"] = (bins[:nr], weights[:nr], torch.rand((nr, s), generator=g, device=dev))
+    times = {k: (cuda_ms(lambda: b2.sample_pdf(*a), 50), queued_ms(lambda: b2.sample_pdf(*a), 50))
+             for k, a in cases.items()}
+    print("[3 B2 times] ms through the wrapper / queued behind a sleep (the device alone): " + ", ".join(
+        f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items()))
+    step = cases["step (1,024 rays)"]
+    fn = build.load("sample_pdf").sample_pdf_f32
+    sig = [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def each_call():
+        fn.restype, fn.argtypes = ctypes.c_int, sig
+        return b2.sample_pdf(*step)
+
+    once, each = host_us(lambda: b2.sample_pdf(*step)), host_us(each_call)
+    print(f"[3 B2 host] at 1,024 rays: {once:.1f} us a call with the signature set once, {each:.1f} us set on "
+          f"every call; the device alone {1e3 * times['step (1,024 rays)'][1]:.1f} us")
+
+
 # The bf16 tensor-core launches (csrc/tc_chunk.cuh) and what the run learns
 # of them, printed together before the JSON lines: registers and spills
 # from build.log, TFLOP/s and share of bound per launch, B3's composite and
@@ -497,8 +552,9 @@ def main() -> int:
         err = (got - ref).abs().max().item()
         b2_err = max(b2_err, err)
         print(f"[3 B2 {mode}] N={n} M={m} S={s} bit_exact={torch.equal(got, ref)} max|d|={err:.3e}")
-        if err > 1e-6:
-            fail(f"B2 {mode}: max |d| {err} > 1e-6")
+        if not torch.equal(got, ref):
+            fail(f"B2 {mode}: not bit-equal to its twin (max |d| {err})")
+    b2_times(dev, bins, weights, g)
 
     # ---- 4. B3 vs plain, real weights, 4096 rays of test view 0
     cfg, coarse, fine = load_models(dev)
@@ -603,10 +659,11 @@ def main() -> int:
     u = torch.linspace(0.0, 1.0, 128, device=dev).expand(n, 128)
     wsl = res_c.weights[:, 1:-1]
     zs = b2.sample_pdf(z_mid, wsl, u)
-    err = (zs - b2.sample_pdf_plain(z_mid, wsl, u)).abs().max().item()
-    print(f"[6 check] sample_pdf N={n}: max|d|={err:.3e}")
-    if err > 1e-6:
-        fail(f"B2 at the main path's shape: max |d| {err} > 1e-6")
+    zs_plain = b2.sample_pdf_plain(z_mid, wsl, u)
+    err = (zs - zs_plain).abs().max().item()
+    print(f"[6 check] sample_pdf N={n}: bit_exact={torch.equal(zs, zs_plain)} max|d|={err:.3e}")
+    if not torch.equal(zs, zs_plain):
+        fail(f"B2 at the main path's shape: not bit-equal to its twin (max |d| {err})")
     b2_err = max(b2_err, err)
     from swnerf_torch.ops.sampling import merge_z_vals
 
@@ -615,7 +672,7 @@ def main() -> int:
     kernels = []
 
     b2_bytes = 4 * (z_mid.numel() + n * 62 + 128 + n * 128)  # det u: one row
-    b2_ops = n * 128 * 63  # compares of the search, the dominant count
+    b2_ops = n * (128 * (6 + 7) + 3 * 62)  # a sample's 6 search steps and 7 lerp operations, a ray's scan
     kernels.append(entry(
         "sample_pdf", "swnerf_torch/csrc/sample_pdf.cu", "swnerf_tpu/ops/pallas/sample_pdf.py:37",
         counts.get("sample_pdf", 0), b2_err,

@@ -23,8 +23,11 @@ Prints one JSON line: the card, and per kernel and operand type the sha256
 of its outputs (a train-mode entry: ``fwd``, of its forward outputs, and
 ``grads``, of its gradients and input cotangents) and its mean milliseconds
 per launch (CUDA events, after a warm-up; B6's entries also ``ms_bwd``, the
-backward launch alone). B6's train mode runs at the D-NeRF widths and at
-MultiRes level 0's (144 input rows, 32,000 rows). Needs a CUDA device;
+backward launch alone; B2's and B10's also ``alone_ms``, queued behind a
+sleep, and at a training step's 1,024 rays the wrapper's host microseconds
+a call, ``step_host_us``, and B2's ``step_alone_ms``). B6's train mode
+runs at the D-NeRF widths and at MultiRes level 0's (144 input rows,
+32,000 rows). Needs a CUDA device;
 builds the checkout's kernels at first use.
 
     python3 kernel_digest.py --diff <run.json> <run.json> ...
@@ -40,6 +43,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -128,6 +132,31 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / a.reps
 
+    def alone(fn, reps=50):
+        """As timed, with the launches queued behind a ~0.1 s sleep kernel:
+        the device's time alone, without the host's time to issue them."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def host_us(fn, reps=200):
+        """Host microseconds a call: the wall time to issue ``reps`` calls."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / reps * 1e6
+
     def b6_train(packed, pts, times, cot):
         """B6's train-mode forward and backward: digests, the pair's time and
         the backward launch's alone (on the forward's scratch)."""
@@ -161,12 +190,18 @@ def main() -> int:
     bins = torch.sort(torch.rand((32768, 63), generator=g, device=dev) * 4 + 2, -1).values
     w = torch.rand((32768, 64), generator=g, device=dev)[:, 1:-1]
     u = torch.linspace(0.0, 1.0, 128, device=dev).expand(32768, 128)
-    out["sample_pdf"] = {"sha256": digest([b2.sample_pdf(bins, w, u)]), "ms": timed(lambda: b2.sample_pdf(bins, w, u))}
+    step = (bins[:1024], w[:1024], u[:1024])  # a vanilla training step's rays
+    out["sample_pdf"] = {"sha256": digest([b2.sample_pdf(bins, w, u)]), "ms": timed(lambda: b2.sample_pdf(bins, w, u)),
+                         "alone_ms": alone(lambda: b2.sample_pdf(bins, w, u)),
+                         "step_alone_ms": alone(lambda: b2.sample_pdf(*step)),
+                         "step_host_us": host_us(lambda: b2.sample_pdf(*step))}
     if hasattr(b2, "sample_pdf_merge"):  # B10, on the coarse depths the bins are the midpoints of
         zc = torch.cat([bins[:, :1] - 0.01, 0.5 * (bins[:, 1:] + bins[:, :-1]), bins[:, -1:] + 0.01], -1)
         zc = torch.sort(zc, -1).values.contiguous()
         out["sample_pdf_merge"] = {"sha256": digest([b2.sample_pdf_merge(zc, bins, w, u)]),
-                                   "ms": timed(lambda: b2.sample_pdf_merge(zc, bins, w, u))}
+                                   "ms": timed(lambda: b2.sample_pdf_merge(zc, bins, w, u)),
+                                   "alone_ms": alone(lambda: b2.sample_pdf_merge(zc, bins, w, u)),
+                                   "step_host_us": host_us(lambda: b2.sample_pdf_merge(zc[:1024], *step))}
 
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         pv = b3.pack_params(vsd, vcfg, dtype)
@@ -308,8 +343,6 @@ def main() -> int:
     # the mesh sweep through extract_mesh.sample_grid on the field's default
     # route (B7, bf16): 128^3 points over [-2, 2]^3 x 100 views, 1,024 tiles;
     # one sweep after a warm-up at 32^3, timed on the host clock
-    import time
-
     from swnerf_torch.pipelines.extract_mesh import sample_grid
 
     model = VanillaNeRF(vcfg, device=dev, generator=torch.Generator().manual_seed(0))

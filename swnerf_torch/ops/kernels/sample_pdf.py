@@ -8,16 +8,18 @@ path). The uniforms ``u`` are built outside, as the JAX wrappers do
 (``sample_pdf.py:103-109``, ``:266-275``). The twin sums in the kernel's
 order (explicit sequential scans), so the two agree bit for bit on the
 card; B10's samples are B2's, and its output is their sorted union with the
-coarse depths whatever their order. B10 counts the cdf values <= u by a
-binary search where B2 and the twins count them one by one, and places the
-union by co-ranks: :func:`count_le` and :func:`co_rank` are those searches
-in torch, which ``tests/test_torch_pdf_merge.py`` holds to the linear
-counts.
+coarse depths whatever their order. The kernels count the cdf values <= u
+by a binary search where the twins count them one by one, and B10 places
+the union by co-ranks: :func:`count_le` and :func:`co_rank` are those
+searches in torch, which ``tests/test_torch_pdf_merge.py`` holds to the
+linear counts, and :func:`inverse_cdf` the step that turns the counts into
+samples.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,7 +45,7 @@ def cdf_plain(weights: torch.Tensor) -> torch.Tensor:
 
 def count_le(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """|{k : x[n, k] <= v[n, s]}| for x [N, M] non-decreasing along its rows
-    and v [N, S], by B10's binary search (``csrc/sample_pdf.cu::count_le``):
+    and v [N, S], by the kernels' binary search (``csrc/sample_pdf.cu::count_le``):
     halving steps from the largest power of two <= M, each taken where the
     element it reaches is <= v."""
     M = x.shape[-1]
@@ -72,11 +74,12 @@ def co_rank(z: torch.Tensor, s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return lo
 
 
-def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """bins [N, M], weights [N, M-1], u [N, S] -> samples [N, S] (fp32)."""
+def inverse_cdf(cdf: torch.Tensor, bins: torch.Tensor, u: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """The kernels' inverse-CDF step (``csrc/sample_pdf.cu::inverse_cdf``):
+    cdf and bins [N, M], u [N, S] and inds [N, S], the counts of cdf values
+    <= u -> samples [N, S]: the below/above clamp, the denom < 1e-5 guard,
+    the lerp."""
     M = bins.shape[-1]
-    cdf = cdf_plain(weights)  # [N, M]
-    inds = (cdf[:, None, :] <= u[:, :, None]).sum(-1)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=M - 1)
     cdf_b = torch.gather(cdf, 1, below)
@@ -89,12 +92,31 @@ def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor)
     return bins_b + t * (bins_a - bins_b)
 
 
+def sample_pdf_plain(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """bins [N, M], weights [N, M-1], u [N, S] -> samples [N, S] (fp32)."""
+    cdf = cdf_plain(weights)  # [N, M]
+    return inverse_cdf(cdf, bins, u, (cdf[:, None, :] <= u[:, :, None]).sum(-1))
+
+
 def _row_stride(x: torch.Tensor, name: str) -> int:
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"{name}: expected a 2-D float32 tensor, got {tuple(x.shape)} {x.dtype}")
     if x.shape[1] > 1 and x.stride(1) != 1:
         raise ValueError(f"{name}: the last dimension must be contiguous")
     return x.stride(0)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built library with its launchers' signatures set, once."""
+    lib = build.load(NAME)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.sample_pdf_f32.restype = lib.sample_pdf_merge_f32.restype = i32
+    lib.sample_pdf_f32.argtypes = [ptr, i64] * 3 + [ptr] + [i32] * 3 + [ptr]
+    lib.sample_pdf_merge_f32.argtypes = [ptr, i64] * 4 + [ptr] + [i32] * 4 + [ptr]
+    lib.sample_pdf_merge_smem_bytes.restype = i64
+    lib.sample_pdf_merge_smem_bytes.argtypes = [i32] * 3
+    return lib
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -112,13 +134,10 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> to
         )
     strides = [_row_stride(x, n) for x, n in ((bins, "bins"), (weights, "weights"), (u, "u"))]
     out = torch.empty((N, S), dtype=torch.float32, device=bins.device)
-    lib = build.load(NAME)
-    fn = lib.sample_pdf_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib = _lib()
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     with torch.cuda.device(bins.device):
-        code = fn(
+        code = lib.sample_pdf_f32(
             bins.data_ptr(), strides[0], weights.data_ptr(), strides[1], u.data_ptr(), strides[2],
             out.data_ptr(), N, M, S, stream,
         )
@@ -146,10 +165,8 @@ def sample_pdf_merge(z_vals: torch.Tensor, bins: torch.Tensor, weights: torch.Te
     S, Mz = u.shape[-1], z_vals.shape[-1]
     if any(x.device != bins.device for x in (weights, u, z_vals)) or bins.device.type != "cuda":
         raise ValueError("sample_pdf_merge: z_vals, bins, weights and u must lie on one CUDA device")
-    lib = build.load(NAME)
+    lib = _lib()
     smem = lib.sample_pdf_merge_smem_bytes
-    smem.restype = ctypes.c_longlong
-    smem.argtypes = [ctypes.c_int] * 3
     if weights.shape != (N, M - 1) or u.shape != (N, S) or z_vals.shape != (N, Mz) or not 2 <= M <= 1024 \
             or min(S, Mz) < 1 or smem(M, Mz, S) < 0:
         raise ValueError(
@@ -158,12 +175,9 @@ def sample_pdf_merge(z_vals: torch.Tensor, bins: torch.Tensor, weights: torch.Te
         )
     strides = [_row_stride(x, n) for x, n in ((bins, "bins"), (weights, "weights"), (u, "u"), (z_vals, "z_vals"))]
     out = torch.empty((N, Mz + S), dtype=torch.float32, device=bins.device)
-    fn = lib.sample_pdf_merge_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     stream = torch.cuda.current_stream(bins.device).cuda_stream
     with torch.cuda.device(bins.device):
-        code = fn(
+        code = lib.sample_pdf_merge_f32(
             bins.data_ptr(), strides[0], weights.data_ptr(), strides[1], u.data_ptr(), strides[2],
             z_vals.data_ptr(), strides[3], out.data_ptr(), N, M, Mz, S, stream,
         )

@@ -116,16 +116,51 @@ def _pdf_inputs(dev, n, m=63, s=128, seed=0):
     return bins, w64[:, 1:-1], torch.rand((n, s), generator=g, device=dev)
 
 
-@pytest.mark.parametrize("det", [True, False])
-def test_b2_bit_exact(dev, det):
-    bins, w, u = _pdf_inputs(dev, 4099)  # strided weights, N % 4 != 0
-    if det:
-        u = torch.linspace(0, 1, 128, device=dev).expand(4099, 128)
+B2_CASES = {  # n rays, m bins, s samples
+    "det": (4099, 63, 128), "random": (4099, 63, 128), "sorted": (20000, 63, 128), "ragged": (19237, 47, 100),
+    "broadcast_u": (20000, 63, 128), "step_1024": (1024, 63, 128), "step_500": (500, 63, 128),
+    "one_weight": (4099, 2, 128), "m1024": (3000, 1024, 256), "one_sample": (4099, 63, 1),
+    "inf_nan": (4099, 63, 128),
+}
+
+
+def _same_bits(a, b):
+    """Bit-equal, NaN equal to NaN."""
+    return a.shape == b.shape and bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("mode", list(B2_CASES))
+def test_b2_bit_exact(dev, mode):
+    """B2 bit-equal to its twin, one launch, and again bit for bit on a
+    second call: linspace u (row stride 0), random and sorted u, a ragged
+    shape (N = 19,237, not a multiple of a block's rays; 47 bins; S = 100,
+    not a multiple of a lane's batch), one row of random u broadcast with
+    row stride 0, the training steps' 1,024 and 500 rays (two rays a warp),
+    one weight (M = 2), M = 1024 (two rays a warp, past 48 KB of shared
+    memory), S = 1, and rows with a +inf and a NaN weight (NaN where the
+    twin is NaN). The weights are strided (row stride M + 1, as the
+    callers slice them); a third of the rays have zero weights past column
+    5 (the denom < 1e-5 guard)."""
+    n, m, s = B2_CASES[mode]
+    bins, w, u = _pdf_inputs(dev, n, m, s)
+    if mode == "det":
+        u = torch.linspace(0, 1, s, device=dev).expand(n, s)
+    elif mode == "sorted":
+        u = torch.sort(u, -1).values
+    elif mode == "broadcast_u":
+        u = u[:1].expand(n, s)
+    elif mode == "inf_nan":
+        w[0, m // 2] = float("inf")
+        w[1, m // 2] = float("nan")
+    assert w.stride(0) == m + 1 and u.stride(0) == (0 if mode in ("det", "broadcast_u") else s)
     before = launches["sample_pdf"]
     got = b2.sample_pdf(bins, w, u)
-    torch.cuda.synchronize()
     assert launches["sample_pdf"] == before + 1
-    assert torch.equal(got, b2.sample_pdf_plain(bins, w, u))
+    again = b2.sample_pdf(bins, w, u)
+    torch.cuda.synchronize()
+    ref = b2.sample_pdf_plain(bins, w, u)
+    assert _same_bits(got, ref) and _same_bits(again, got)
+    assert bool(got[:2].isnan().any()) if mode == "inf_nan" else not bool(got.isnan().any())
 
 
 def test_b2_rejects_bad_inputs(dev):

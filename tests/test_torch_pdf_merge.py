@@ -4,12 +4,15 @@ the JAX package's ``sample_pdf_merge_pallas`` in interpret mode, and the
 switch's routes: the vanilla and D-NeRF kernel steps and eval passes take
 B10 under the switch and compute exactly what they computed before without
 it. The CUDA kernel is held to the twin on the card (tests/test_torch_cuda.py,
-chip_smoke.py phase 34).
+chip_smoke.py phase 34). B2's binary search, which B2 and B10 share, is held
+to the linear count at the B2 wrapper's edge shapes, with the Pallas B2
+kernel beside the twin (test_b2_binary_search_is_the_linear_count).
 
 Bars: the twin against the Pallas kernel atol 1e-5 (its cdf is a matmul, the
 twin's a sequential sum: B2's bar, tests/test_torch_kernels_plain.py), one
-bin on rows whose cdf steps fall near the 1e-5 guard; everything else bit
-for bit, B10's searches against the linear counts among it."""
+bin on rows whose cdf steps fall near the 1e-5 guard (at 1024 bins, wider:
+see that test); everything else bit for bit, the searches against the linear
+counts among it."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +27,7 @@ from swnerf_torch.render.core import Rays, RenderConfig, make_draws
 from swnerf_torch.render.fused_eval import make_dnerf_eval_pass, make_vanilla_eval_pass
 from swnerf_torch.train.fused_step import make_fused_dnerf_step, make_fused_train_step
 from swnerf_torch.train.loop import init_train_state
-from swnerf_tpu.ops.pallas.sample_pdf import sample_pdf_merge_pallas
+from swnerf_tpu.ops.pallas.sample_pdf import sample_pdf_merge_pallas, sample_pdf_pallas
 
 torch.set_num_threads(2)
 
@@ -137,6 +140,69 @@ def test_b10_binary_search_is_the_linear_count(family):
                                              u=jnp.asarray(u), interpret=True))
     err = np.abs(got.numpy() - ref).max()
     assert err <= (1e-5 if family in ("regular", "exact_plateaus") else np.diff(bins, axis=-1).max()), err
+
+
+def _b2_edge_inputs(m, n=8, seed=0):
+    """n rays at B2's edge shapes, as sample_pdf_f32 reads them: sorted bins
+    [n, m] in [2, 6] and weights [n, m-1]: rows 0-1 in [0.5, 1]; row 2
+    zero past column 3 (the cdf rises by 1e-5 / sum a column); row 3 zero
+    (all w = 1e-5); rows 4-5 200 up to column 3 and zero after (the rise is
+    below half an ulp: the cdf repeats its value); row 6 +inf and row 7 NaN
+    at the middle column. u [n, m + 16] per row: 0, 1, every value of the
+    row's twin cdf (a draw where it is NaN) and 14 draws."""
+    rng = np.random.default_rng(seed + m)
+    bins = np.sort(rng.uniform(2, 6, (n, m)), -1).astype(np.float32)
+    w = rng.uniform(0.5, 1, (n, m - 1))
+    col = np.arange(m - 1)
+    w[2, col > 3] = 0.0
+    w[3] = 0.0
+    w[4:6] = np.where(col <= 3, 200.0, 0.0)
+    w[6, (m - 1) // 2] = np.inf
+    w[7, (m - 1) // 2] = np.nan
+    w = w.astype(np.float32)
+    cdf = b2.cdf_plain(torch.from_numpy(w))
+    draws = rng.uniform(0, 1, (n, m + 14)).astype(np.float32)
+    on_cdf = np.where(np.isnan(cdf.numpy()), draws[:, :m], cdf.numpy())
+    u = np.concatenate([np.zeros((n, 1)), np.ones((n, 1)), on_cdf, draws[:, m:]], -1).astype(np.float32)
+    return bins, w, u, cdf
+
+
+@pytest.mark.parametrize("m", [2, 63, 1024])
+def test_b2_binary_search_is_the_linear_count(m):
+    """B2's binary search (sample_pdf.count_le, the steps of
+    csrc/sample_pdf.cu::count_le) on the twin's cdf gives the linear count
+    of cdf values <= u at the wrapper's edge bin counts (one weight, the
+    product's 63, 1024) for u = 0, 1, exactly on each cdf value and draws,
+    on rows with zero weights past a column, with a +inf and with a NaN
+    weight (the cdf non-decreasing up to a NaN suffix). The sample built
+    from those counts by the kernel's inverse-CDF step (sample_pdf.
+    inverse_cdf) is sample_pdf_plain's bit for bit, NaN where it is NaN.
+    The finite rows go through sample_pdf_pallas(interpret=True): the twin
+    within B2's atol 1e-5 (test_b2_plain_matches_pallas_and_jnp) on the
+    rows in [0.5, 1], the zero row and the exact-plateau rows; within one
+    bin on row 2, where the guard denom < 1e-5 jumps a bin when the Pallas
+    kernel's matmul cdf and the twin's sum differ in a last bit (B10's
+    search test above). At m = 1024 the two cdfs sum 1023 terms in
+    different orders, not 62, and their difference grows with the count:
+    the bar is 1e-5 * 1023 / 62 (1.2e-5 to 2.2e-5 measured on this seed),
+    and two bins on row 2, whose cdfs differ by up to 4.1e-6, more than its
+    plateau's step of 3.1e-6, so the counts differ by up to two."""
+    bins, w, u, cdf = _b2_edge_inputs(m)
+    bt, wt, ut = (torch.from_numpy(x) for x in (bins, w, u))
+    assert bool((cdf[:6, 1:] >= cdf[:6, :-1]).all()) and bool(cdf[6:, -1].isnan().all())
+    inds = b2.count_le(cdf, ut)
+    assert torch.equal(inds, (cdf[:, None, :] <= ut[:, :, None]).sum(-1))
+    got, ref = b2.inverse_cdf(cdf, bt, ut, inds), b2.sample_pdf_plain(bt, wt, ut)
+    assert bool(((got.view(torch.int32) == ref.view(torch.int32)) | (got.isnan() & ref.isnan())).all())
+    assert bool(got[6:].isnan().any()) and not bool(got[:6].isnan().any())
+
+    pallas = np.asarray(sample_pdf_pallas(jnp.asarray(bins[:6]), jnp.asarray(w[:6]), u.shape[1],
+                                          u=jnp.asarray(u[:6]), interpret=True))
+    err = np.abs(ref[:6].numpy() - pallas).max(-1)
+    bar = 1e-5 * max(1.0, (m - 1) / 62)
+    assert err[[0, 1, 3, 4, 5]].max() <= bar, err
+    span = 1 if m <= 63 else 2
+    assert err[2] <= (bins[2, span:] - bins[2, :-span]).max(), err
 
 def test_sorted_uniforms_are_order_statistics():
     """Exponential spacings give sorted rows in (0, 1) whose i-th entry has
