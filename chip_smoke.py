@@ -6,7 +6,8 @@ CLIs, train a MultiRes D-NeRF from scratch through its CLI, drive the
 fields' kernel routes (the eager steps, renders with no eval pass), extract
 meshes from the trained vanilla NeRF and solve their metric scale, render
 and train MultiRes on the render kernels, run the resample merge and the
-deformation MLP's input cotangents, and time the kernels.
+deformation MLP's input cotangents, time the kernels, and hold K training
+steps per dispatch (CUDA-graph replays) to one step a dispatch.
 
     python3 chip_smoke.py
 
@@ -241,13 +242,30 @@ Phases (each raises on failure; nothing is caught):
      share of its bound (B3, B6, B7 and B8 at the mesh tile, B7 at the
      MultiRes test chunk), B3's composite and the heads' shares of the
      blocks' cycles, the vanilla and D-NeRF ms per frame, the mesh sweep;
+ 36. K steps per dispatch: run_nerf, run_tnerf and run_dnerf each resumed
+     twice from their checkpoints for 60 steps (print 20, save 60), at
+     SWNERF_STEPS_PER_DISPATCH=1 and at 20 (CUDA-graph replays): the saved
+     parameters, Adam's moments and counts, metrics.jsonl's values at every
+     print, the checkpoint iterations and the launch counts bit-equal, one
+     capture at K = 20 (its pool's size printed) and none at K = 1; both
+     runs' median ms per step, and the kernel step's host microseconds a
+     step, ms a step and idle share over 20 steps (torch.profiler); then
+     run_nerf from scratch for 30 steps under
+     SWNERF_FUSED_DTYPE_SCHEDULE=f32@10: no B1 launch in steps 1-10 (B7's
+     fp32 launches there), B1 twice in every later step, finite losses, a
+     graph for each step;
      then the JSON lines.
+
+The training phases (9, 15, 21, 28, 34) run at the card's default of 20
+steps a dispatch: their launch counts are the graphs' replays' (each
+replay adds what its capture recorded).
 
 Exits non-zero without a CUDA device, and when the package is missing.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -770,6 +788,11 @@ def main() -> int:
         # ---- 31-35. MultiRes on the render kernels (B3's pts mode at its
         # widths, B9: the test render and the fused phase 2), B10, B11
         kernels += render_kernel_phases(dev, tmp, tmp / "data_dyn_400", metrics["psnr"])
+        # ---- 36. K steps per dispatch: the CUDA-graph replays against one
+        # step a dispatch in each trainer, and the fp32 warm start
+        t0 = time.perf_counter()
+        phase36_dispatch(dev, tmp, tmp / "data_dyn_400")
+        print(f"[36 done] in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1140,7 +1163,7 @@ def phase7_b1(dev, cfg, coarse, fine):
     return rows
 
 
-def _fresh_state(cfg, coarse, fine, device, dtype=None):
+def _fresh_state(cfg, coarse, fine, device, dtype=None, graphs=False):
     from swnerf_torch.models import VanillaNeRF
     from swnerf_torch.train.loop import init_train_state
 
@@ -1149,7 +1172,7 @@ def _fresh_state(cfg, coarse, fine, device, dtype=None):
         m.load_state_dict(model.state_dict())
         return m.to(dtype) if dtype is not None else m
 
-    return init_train_state(copy(coarse), copy(fine), 5e-4, 500, step=10000)
+    return init_train_state(copy(coarse), copy(fine), 5e-4, 500, step=10000, graphs=graphs)
 
 
 def _grads(state):
@@ -1304,7 +1327,7 @@ def step_breakdown(dev, cfg, coarse, fine):
     poses_dev = torch.as_tensor(poses[:, :3, :4], device=dev)
     sampler = ImageSampler(scene, 1024, 0, 0.5)
     rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True)
-    state = _fresh_state(cfg, coarse, fine, dev)
+    state = _fresh_state(cfg, coarse, fine, dev, graphs=True)  # the trainer's Adam
     g = torch.Generator(device=dev).manual_seed(0)
     names = ("host sampler", "rays + z", "pack coarse", "coarse B1", "B2", "sort", "pack fine", "fine B1",
              "unpack + Adam")
@@ -1845,7 +1868,7 @@ def tnerf_step_breakdown(dev, cfg, data):
     times = torch.linspace(0, 1, n_views, device=dev)
     sampler = ImageSampler(scene, 500, 0, 0.5)
     rcfg = RenderConfig(n_samples=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
-    state = init_train_state(TNeRF(cfg, device=dev, fused=False), None, 5e-4, 500)
+    state = init_train_state(TNeRF(cfg, device=dev, fused=False), None, 5e-4, 500, graphs=True)
     g = torch.Generator(device=dev).manual_seed(0)
     names = ("host sampler + pixel upload", "rays + z + draws", "pack weights", "B4 train", "unpack + Adam")
     acc = dict.fromkeys(names, 0.0)
@@ -2529,7 +2552,7 @@ def dnerf_step_breakdown(dev, cfg, data):
     rays, img = frame_rays(dev, data, "train", 37)
     model = DirectTemporalNeRF(cfg, device=dev)
     model.load_state_dict(dnerf_state_dict(load_tar(str(DNERF_CKPT))["network_fn_state_dict"]))
-    state = init_train_state(model, None, 5e-4, 500, step=800000)
+    state = init_train_state(model, None, 5e-4, 500, step=800000, graphs=True)
     rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True, raw_noise_std=1.0,
                         coarse_contributes=False)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -4730,6 +4753,215 @@ def phase35_b11(dev, data):
     row["launches"] = path["time_net[pts,bwd]"]
     row["max_abs_err"] = err16
     return {"time_net[pts,bwd]": row}
+
+
+
+# ---------------------------------------------------------------- K steps per dispatch
+DISPATCH_PRINT, DISPATCH_STEPS = 20, 60  # phase 36's print cadence, run length and save cadence
+
+
+def dispatch_trainers(data):
+    """Phase 36's trainers: (name, CLI module, argv without --basedir, the
+    iteration it resumes at, its expname)."""
+    from swnerf_torch.pipelines import run_dnerf, run_nerf, run_tnerf
+
+    every = ["--device", "cuda", "--i_print", str(DISPATCH_PRINT), "--i_weights", str(DISPATCH_STEPS)]
+    return (
+        ("vanilla", run_nerf, ["--config", str(CONFIG), "--ft_path", str(CKPT), "--datadir", str(DATADIR), *every],
+         10000, "full_nerf_200k"),
+        ("tnerf", run_tnerf, ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--datadir", str(data),
+                              *every], 800000, "full_tnerf_800k"),
+        ("dnerf", run_dnerf, ["--config", str(DNERF_CONFIG), "--ft_path", str(DNERF_CKPT), "--datadir", str(data),
+                              *every], 800000, "full_dnerf_800k"),
+    )
+
+
+def clock_free_records(exp):
+    """metrics.jsonl without its clock fields (the time and the rates)."""
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    return [{k: v for k, v in r.items() if k not in ("t", "steps_per_sec", "ray_samples_per_sec_per_chip")}
+            for r in recs]
+
+
+def window_timer(module, start):
+    """The trainer's StepTimer with phase 36's two 20-step windows inside
+    the CLI run (prints at start + 20, 40, 60): steps start+21..start+40 on
+    the host's clock, from the end of the print before them to the enqueue
+    of the last (the host's time to draw and dispatch a step); steps
+    start+41..start+60 under torch.profiler, from the end of the print
+    before them to the synchronization of the print that ends them (device
+    busy time against that wall, and the launches the device ran). Returns
+    (the class, the dict it fills)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from swnerf_torch.ops.kernels import launches, traced_launches
+
+    win = {}
+
+    class WindowTimer(module.StepTimer):
+        def record(self, i):
+            super().record(i)
+            self.last = i
+            if i == start + 2 * DISPATCH_PRINT and "t0" in win:
+                win["host_us"] = (time.perf_counter() - win.pop("t0")) / DISPATCH_PRINT * 1e6
+
+        def collect(self):
+            super().collect()
+            if self.last == start + DISPATCH_PRINT:
+                win["t0"] = time.perf_counter()
+            elif self.last == start + 2 * DISPATCH_PRINT and "prof" not in win:
+                win["counted"] = collections.Counter(launches)
+                win["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                win["prof"].__enter__()
+                win["p0"] = time.perf_counter()
+            elif self.last == start + 3 * DISPATCH_PRINT and "p0" in win:
+                torch.cuda.synchronize()
+                win["pwall"] = (time.perf_counter() - win.pop("p0")) / DISPATCH_PRINT * 1e3
+                prof = win["prof"]
+                prof.__exit__(None, None, None)
+                avg = prof.key_averages()
+                win["busy"] = sum(_device_us(e) for e in avg if str(e.device_type).endswith("CUDA")) / 1e3 / \
+                    DISPATCH_PRINT
+                win["traced"] = traced_launches(avg)
+                counted = collections.Counter(launches)
+                counted.subtract(win["counted"])
+                win["counted"] = +counted
+
+    return WindowTimer, win
+
+
+def phase36_dispatch(dev, tmp, data):
+    """K steps per dispatch (CUDA-graph replays): each trainer resumed twice
+    from its checkpoint for 60 steps (print 20, save 60: one checkpoint, on
+    the multiple of 60 inside the run), at
+    SWNERF_STEPS_PER_DISPATCH=1 and 20: the saved parameters, Adam's moments
+    and counts, metrics.jsonl's values at every print, the checkpoint
+    iterations and the launch counts bit-equal (torch.equal, ==); the K = 20
+    run captures once, the K = 1 run never. In each run (window_timer):
+    the median ms per step over steps start+1..start+40 that neither start
+    a chunk nor print (CUDA events), the host's microseconds a step over
+    start+21..start+40, and over start+41..start+60 under torch.profiler
+    the device's idle share and the port's kernels the device ran, by
+    name, which must be the same at K = 20 (graph replays, counted from the
+    capture) as at K = 1 (each launch counted where it happens) and at
+    least the launches counted. Then phase36_warm_start."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.train.checkpoint import load_tar
+
+    for name, module, argv, start, expname in dispatch_trainers(data):
+        # the cadences count from iteration 0: 010020.tar, 800040.tar
+        saved = next(f"{i:06d}.tar" for i in range(start + 1, start + DISPATCH_STEPS + 1) if i % DISPATCH_STEPS == 0)
+        runs = {}
+        for k in (1, 20):
+            base = tmp / f"dispatch_{name}_k{k}"
+            buf = io.StringIO()
+            timer, win = window_timer(module, start)
+            plain_timer, module.StepTimer = module.StepTimer, timer
+            try:
+                with env(SWNERF_STEPS_PER_DISPATCH=str(k), SWNERF_MAX_ITERS=str(start + DISPATCH_STEPS + 1)):
+                    launches.clear()
+                    with contextlib.redirect_stdout(buf):
+                        res = module.main(argv + ["--basedir", str(base)])
+                    torch.cuda.synchronize()
+                    counts = dict(launches)
+            finally:
+                module.StepTimer = plain_timer
+            exp = base / expname
+            quiet = {i: ms for i, ms in res["step_ms"].items()
+                     if i % DISPATCH_PRINT and (i - 1) % DISPATCH_PRINT and i <= start + 2 * DISPATCH_PRINT}
+            runs[k] = dict(counts=counts, tars=sorted(p.name for p in exp.glob("*.tar")),
+                           tar=load_tar(str(exp / saved)), recs=clock_free_records(exp),
+                           med=statistics.median(quiet.values()), metrics=res["metrics"], win=win,
+                           captured=[ln for ln in buf.getvalue().splitlines() if ln.startswith("Captured")])
+        a, b = runs[1], runs[20]
+        nets = [key for key in a["tar"] if key.startswith("network")]
+        adam_a, adam_b = (list(r["tar"]["optimizer_state_dict"]["state"].values()) for r in (a, b))
+        wa, wb = a["win"], b["win"]
+        same = {
+            "checkpoint iterations": a["tars"] == b["tars"] == [saved],
+            "parameters": all(torch.equal(v, b["tar"][key][n]) for key in nets for n, v in a["tar"][key].items()),
+            "Adam moments and counts": len(adam_a) == len(adam_b) > 0 and all(
+                set(x) == set(y) and all(torch.equal(torch.as_tensor(x[f]), torch.as_tensor(y[f])) for f in x)
+                for x, y in zip(adam_a, adam_b)),
+            "metrics.jsonl at the prints": a["recs"] == b["recs"] and [r["step"] for r in a["recs"] if "psnr" in r]
+            == [start + DISPATCH_PRINT * j for j in (1, 2, 3)],
+            "last metrics": a["metrics"] == b["metrics"],
+            "launch counts": a["counts"] == b["counts"] and sum(a["counts"].values()) > 0,
+            "kernels the device ran": wa["traced"] == wb["traced"] and sum(wa["counted"].values()) > 0
+            and wa["counted"] == wb["counted"] and sum(wb["traced"].values()) >= sum(wb["counted"].values()),
+        }
+        per_step = {n: c / DISPATCH_PRINT for n, c in sorted(wb["traced"].items())}
+        print(f"[36 {name}] K=20 against K=1, 60 steps from {start}: " + ", ".join(
+            f"{k} {'equal' if v else 'DIFFER'}" for k, v in same.items()) + f"; launches {json.dumps(b['counts'], sort_keys=True)}")
+        print(f"[36 {name}] over 20 steps under torch.profiler: launches counted {dict(wb['counted'])} (K=1: "
+              f"{dict(wa['counted'])}); the port's kernels the device ran per step at K=20 {per_step} (K=1 "
+              f"{'the same' if wa['traced'] == wb['traced'] else dict(wa['traced'])})")
+        print(f"[36 {name}] K=20: {b['captured']}")
+        if not all(same.values()) or a["captured"] or len(b["captured"]) != 1:
+            fail(f"36 {name}: K=20 differs from K=1 ({same}), or the captures {a['captured']} / {b['captured']}")
+        for k, r in runs.items():
+            w = r["win"]
+            idle = f"idle share {100 * (1 - w['busy'] / w['pwall']):.1f}% (busy {w['busy']:.3f} of " \
+                f"{w['pwall']:.3f} ms)" if w["busy"] else "torch.profiler recorded no device time"
+            print(f"[36 {name} K={k}] CLI median {r['med']:.3f} ms per step (CUDA events, steps 1-40 of the "
+                  f"60-step run); host {w['host_us']:.1f} us per step to draw and dispatch (steps 21-40); under "
+                  f"torch.profiler (steps 41-60) {idle}")
+        torch.cuda.empty_cache()
+    phase36_warm_start(tmp)
+
+
+def phase36_warm_start(tmp):
+    """run_nerf from scratch (the config's widths, seeded weights) for 30
+    steps under SWNERF_FUSED_DTYPE_SCHEDULE=f32@10, print 10, at the default
+    K: no B1 launch in steps 1-10 (the eager step with fp32 field operands:
+    B7's fp32 launches), B1 twice in every step after, finite losses, two
+    captures (the warm graph and the kernel step's)."""
+    import math
+
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import run_nerf
+
+    per_step = {}
+
+    class CountingTimer(run_nerf.StepTimer):
+        def record(self, i):
+            super().record(i)
+            per_step[i] = dict(launches)
+
+    base = tmp / "dispatch_warm"
+    argv = ["--config", str(CONFIG), "--datadir", str(DATADIR), "--basedir", str(base), "--device", "cuda",
+            "--i_print", "10", "--i_weights", "100000"]
+    buf = io.StringIO()
+    plain_timer, run_nerf.StepTimer = run_nerf.StepTimer, CountingTimer
+    try:
+        with env(SWNERF_FUSED_DTYPE_SCHEDULE="f32@10", SWNERF_MAX_ITERS="31"):
+            launches.clear()
+            with contextlib.redirect_stdout(buf):
+                res = run_nerf.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        run_nerf.StepTimer = plain_timer
+    out = buf.getvalue()
+
+    def step_launches(i):
+        return {k: v - per_step[i - 1].get(k, 0) for k, v in per_step[i].items() if v - per_step[i - 1].get(k, 0)}
+
+    b1 = {i: sum(v for k, v in step_launches(i).items() if k.startswith("render_loss")) for i in range(1, 31)}
+    b7 = {i: step_launches(i).get("trunk", 0) for i in range(1, 11)}
+    losses = [r["total_loss"] for r in clock_free_records(base / "full_nerf_200k") if "total_loss" in r]
+    captured = [ln for ln in out.splitlines() if ln.startswith("Captured")]
+    print(f"[36 warm start] f32@10 from scratch, 30 steps: B1 launches per step {list(b1.values())}; B7 (fp32) "
+          f"launches in steps 1-10 {list(b7.values())}; total_loss at 10/20/30 {losses}; {captured}")
+    if "Precision warm-start: f32 autodiff step through iter 10" not in out or any(b1[i] for i in range(1, 11)) or \
+            any(b1[i] != 2 for i in range(11, 31)) or not all(b7.values()) or len(losses) != 3 or \
+            not all(math.isfinite(x) for x in losses + list(res["metrics"].values())) or len(captured) != 2:
+        fail("36 warm start: B1 ran in the warm steps or not in every later one, the loss is not finite, or the "
+             "run did not capture both steps")
 
 
 if __name__ == "__main__":

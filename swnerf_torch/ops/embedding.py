@@ -6,6 +6,8 @@ frequencies ``2^0 .. 2^(F-1)``; ``num_freqs == -1`` is the identity.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -17,6 +19,14 @@ def embedding_dim(num_freqs: int, input_dims: int = 3, include_input: bool = Tru
     if include_input:
         out += input_dims
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _octaves(num_freqs: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``2^0 .. 2^(F-1)``, exact, so x * f is exact in fp32. Made once per
+    device and read from then on: a copy from the host at every call would
+    synchronize, and a train step captured in a CUDA graph may not copy."""
+    return torch.tensor([2.0**i for i in range(num_freqs)], dtype=dtype, device=device)
 
 
 def positional_encoding(
@@ -31,8 +41,7 @@ def positional_encoding(
     if num_freqs == 0:
         return x if include_input else x[..., :0]
     if log_sampling:
-        # Exact powers of two, so x * f is exact in fp32.
-        freqs = torch.tensor([2.0**i for i in range(num_freqs)], dtype=x.dtype, device=x.device)
+        freqs = _octaves(num_freqs, x.dtype, x.device)
     else:
         freqs = torch.linspace(1.0, 2.0 ** (num_freqs - 1), num_freqs, dtype=x.dtype, device=x.device)
     xb = x[..., None, :] * freqs[:, None]  # [..., F, d]

@@ -40,11 +40,45 @@ are SIMT.
 
 A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches its kernel or raises. ``launches`` counts kernel launches by
-kernel name; only a wrapper's launch site adds to it.
+kernel name; only a wrapper's launch site adds to it, and a CUDA graph's
+replay adds what its capture counted (``pipelines/common.py::KStepRoute``).
+:func:`traced_launches` counts what the device really ran, from a
+``torch.profiler`` trace.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
+import re
 
 launches: "collections.Counter[str]" = collections.Counter()
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_names() -> frozenset:
+    """The ``__global__`` functions of ``csrc``."""
+    from swnerf_torch.ops.kernels.build import CSRC
+
+    decl = re.compile(r"__global__\s+(?:void\s+)?(?:__launch_bounds__\s*\([^)]*\)\s*)?(?:void\s+)?(\w+)\s*\(")
+    return frozenset(m.group(1) for f in CSRC.glob("*.cu*") for m in decl.finditer(f.read_text()))
+
+
+# The port's kernels live in csrc's anonymous namespace (and its ``tc``):
+# their trace names, demangled or not, start there; torch's own kernels
+# start in ``at::`` or elsewhere.
+_TRACE_NAME = re.compile(r"^(?:void\s+)?\(anonymous namespace\)::(?:tc::)?(\w+)|^_ZN12_GLOBAL__N_1(?:2tc)?\d+(\w+?)(?:I|E)")
+
+
+def traced_launches(averages) -> "collections.Counter[str]":
+    """Launches of the port's own kernels in a ``torch.profiler`` trace
+    (``prof.key_averages()``), by ``__global__`` name: what the device ran,
+    uncaptured or in a graph's replays. One wrapper launch may run several
+    (a reverse sweep's products and reductions)."""
+    names, out = _kernel_names(), collections.Counter()
+    for e in averages:
+        m = _TRACE_NAME.match(e.key)
+        name = m and (m.group(1) or m.group(2))
+        if name in names:
+            out[name] += e.count
+    return out

@@ -13,6 +13,25 @@ from typing import NamedTuple, Optional
 import torch
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of a tensor with no zero entry
+    (the transmittance factors ``1 - alpha + 1e-10``), with torch's own
+    backward for that case, ``reversed cumsum(out * g) / x``, but without
+    torch's test for zeros, which reads a flag on the host: a step captured
+    in a CUDA graph may not synchronize, and each uncaptured one waits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, -1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 class CompositeOutput(NamedTuple):
     rgb: torch.Tensor  # [N, 3]
     disp: torch.Tensor  # [N]
@@ -49,9 +68,7 @@ def composite(
         sigma = sigma + noise
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1), -1
-    )[..., :-1]
+    trans = _CumprodNonzero.apply(torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1))[..., :-1]
     weights = alpha * trans
 
     rgb_map = torch.sum(weights[..., None] * rgb, -2)

@@ -10,6 +10,7 @@ The samplers stay numpy and, unlike the JAX package's, are seeded from
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -19,6 +20,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from swnerf_torch.ops.kernels import launches
 from swnerf_torch.ops.rays import get_rays_at, get_rays_np
 from swnerf_torch.render.core import RenderConfig, build_rays, make_rays_from_camera, render_image
 from swnerf_torch.utils.media import write_png
@@ -174,9 +176,41 @@ def _scene_rays(rays_o, rays_d, cfg: RenderConfig, scene: Scene):
     )
 
 
+def _intrinsics(scene: Scene) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``scene.K`` in ``c2w``'s dtype on its device, copied there once (a copy
+    from the host at every step would synchronize, and a step captured in a
+    CUDA graph may not copy)."""
+    cache = {}
+
+    def K_like(c2w: torch.Tensor) -> torch.Tensor:
+        key = (c2w.dtype, c2w.device)
+        if key not in cache:
+            cache[key] = torch.as_tensor(scene.K, dtype=c2w.dtype, device=c2w.device)
+        return cache[key]
+
+    return K_like
+
+
+def _at(x: torch.Tensor, img_i) -> torch.Tensor:
+    """``x[img_i]`` for a Python int, or for a 0-d index tensor on ``x``'s
+    device (what the dispatch loop passes), read there with no host
+    synchronization (indexing with a 0-d tensor reads it on the host)."""
+    if isinstance(img_i, torch.Tensor):
+        return x.index_select(0, img_i.reshape(1))[0]
+    return x[img_i]
+
+
+def _target(images: torch.Tensor, img_i, pixels: torch.Tensor) -> torch.Tensor:
+    """``images[img_i]`` at ``pixels`` [N, 2], ``img_i`` as for :func:`_at`."""
+    if isinstance(img_i, torch.Tensor):
+        img_i = img_i.reshape(1)
+    return images[img_i, pixels[:, 0], pixels[:, 1]]
+
+
 def make_pool_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
     """Wrap a train step to consume ``(state, pool, idx, generator)``: gather
-    origins, directions and targets from the device pool."""
+    origins, directions and targets from the device pool at ``idx`` (a
+    device tensor, or host indices)."""
 
     def step(state, pool: torch.Tensor, idx, generator=None):
         batch = pool[torch.as_tensor(idx, device=pool.device)]
@@ -189,12 +223,17 @@ def make_pool_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
 def make_image_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
     """Wrap a train step to consume ``(state, images, poses, img_i, pixels,
     generator)`` with images ``[N, H, W, 3]`` and poses ``[N, 3, 4]`` on the
-    device: rays only at the chosen pixels, targets gathered there."""
+    device: rays only at the chosen pixels, targets gathered there.
+    ``img_i`` is an int or a 0-d device tensor, ``pixels`` a device tensor
+    or host coordinates."""
 
-    def step(state, images: torch.Tensor, poses: torch.Tensor, img_i: int, pixels, generator=None):
+    K_like = _intrinsics(scene)
+
+    def step(state, images: torch.Tensor, poses: torch.Tensor, img_i, pixels, generator=None):
         pixels = torch.as_tensor(pixels, device=images.device)
-        rays_o, rays_d = get_rays_at(pixels, scene.H, scene.W, scene.K, poses[img_i])
-        target = images[img_i][pixels[:, 0], pixels[:, 1]]
+        c2w = _at(poses, img_i)
+        rays_o, rays_d = get_rays_at(pixels, scene.H, scene.W, K_like(c2w), c2w)
+        target = _target(images, img_i, pixels)
         return train_step(state, _scene_rays(rays_o, rays_d, cfg, scene), target, generator)
 
     return step
@@ -206,29 +245,197 @@ def make_time_image_step(train_step, cfg: RenderConfig, scene: Scene, pass_neigh
     :func:`make_image_step`, every ray carrying the frame time of image
     ``img_i`` in ``rays.times``. With ``pass_neighbor`` (the D-NeRF steps)
     it consumes ``(state, images, poses, times, img_i, pixels,
-    neighbor_time, generator)`` and forwards the TV loss's neighbour time."""
+    neighbor_time, generator)`` and forwards the TV loss's neighbour time (a
+    float or a 0-d device tensor)."""
+
+    K_like = _intrinsics(scene)
 
     def rays_and_target(images, poses, times, img_i, pixels):
         pixels = torch.as_tensor(pixels, device=images.device)
-        rays_o, rays_d = get_rays_at(pixels, scene.H, scene.W, scene.K, poses[img_i])
-        target = images[img_i][pixels[:, 0], pixels[:, 1]]
-        t = times[img_i].reshape(1, 1).expand(pixels.shape[0], 1).contiguous()
+        c2w = _at(poses, img_i)
+        rays_o, rays_d = get_rays_at(pixels, scene.H, scene.W, K_like(c2w), c2w)
+        target = _target(images, img_i, pixels)
+        t = _at(times, img_i).reshape(1, 1).expand(pixels.shape[0], 1).contiguous()
         return build_rays(rays_o, rays_d, scene.near, scene.far, use_viewdirs=cfg.use_viewdirs, times=t), target
 
     if pass_neighbor:
-        def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i: int, pixels,
-                 neighbor_time: float, generator=None):
+        def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i, pixels,
+                 neighbor_time, generator=None):
             rays, target = rays_and_target(images, poses, times, img_i, pixels)
             return train_step(state, rays, target, neighbor_time, generator)
 
         return step
 
-    def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i: int, pixels,
+    def step(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i, pixels,
              generator=None):
         rays, target = rays_and_target(images, poses, times, img_i, pixels)
         return train_step(state, rays, target, generator)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# K steps per dispatch
+# ---------------------------------------------------------------------------
+
+
+def steps_per_dispatch(device) -> int:
+    """How many train steps a trainer dispatches at a time (the JAX
+    package's ``steps_per_dispatch``, 20 on a TPU): 20 on a card, where the
+    chunk's steps are replays of one CUDA graph (:class:`KStepRoute`), and
+    1 on the CPU. ``SWNERF_STEPS_PER_DISPATCH`` overrides it (at least 1)."""
+    env = os.environ.get("SWNERF_STEPS_PER_DISPATCH")
+    if env:
+        return max(1, int(env))
+    return 20 if torch.device(device).type == "cuda" else 1
+
+
+def chunk_until_event(i: int, n_iters: int, k_max: int, cadences) -> int:
+    """Largest k <= k_max such that steps i..i+k-1 cross no cadence boundary
+    except at the chunk's END, so checkpoints, prints, renders and the warm
+    start's switch land on exactly the iterations of a one-step loop
+    (``common.py:456-465`` of the JAX package). A cadence of 0 or None is
+    none."""
+    k = min(k_max, n_iters - i)
+    for c in cadences:
+        if c and c > 0:
+            k = min(k, c - ((i - 1) % c))
+    return max(1, k)
+
+
+class KStepRoute:
+    """``k`` train steps a call, the port of the JAX package's K-step
+    dispatch (``lax.scan`` over a chunk's host draws): ``route(state, fixed,
+    draws_k, generator, record)`` runs ``step(state, *fixed, *row_j,
+    generator)`` for each row ``j`` of ``draws_k`` (numpy ``[k, ...]``
+    arrays: the chunk's host draws) and returns the last step's metrics.
+
+    On the CPU that is a loop, each row's draws as CPU tensors. On a card the
+    rows enter the step as device tensors (0-d for a scalar draw): static
+    buffers, each filled before its step from a pinned copy of the chunk (a
+    new one a chunk, so no host write races a pending copy). The first chunk
+    of two or more steps runs its first step uncaptured on the capture
+    stream (the warm-up: kernel builds and ``lru_cache``s, scratch sizes,
+    Adam's and autograd's state), captures the step once in a
+    ``torch.cuda.CUDAGraph`` and replays it for each further step; later
+    chunks replay it for every step. Before the capture a one-step chunk
+    runs uncaptured, so ``SWNERF_STEPS_PER_DISPATCH=1`` never captures.
+    Nothing is caught: a capture that meets a host synchronization raises.
+
+    The capture runs nothing, so its host side effects are undone and
+    repeated per replay: ``state.step`` is restored and advances by one a
+    replay (the device count advances in the graph), and ``launches`` gains
+    the counts that the capture recorded on every replay. ``generator`` is
+    registered with the graph, whose replays advance it as uncaptured steps
+    would. The graph is bound to the state, the fixed inputs and the
+    generator it was captured with; a call with others captures anew (a new
+    trainer run after a resume or an auto-reseed builds new routes anyway).
+    ``record(j)`` runs once step ``j`` is enqueued (the trainers'
+    :class:`StepTimer`)."""
+
+    def __init__(self, step: Callable):
+        self.step = step
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._bound: tuple = ()
+        self._static: List[torch.Tensor] = []
+        self._out = None
+        self._launches: collections.Counter = collections.Counter()
+        self._stream = None
+
+    def __call__(self, state, fixed: tuple, draws_k: tuple, generator=None,
+                 record: Optional[Callable[[int], None]] = None):
+        record = record or (lambda j: None)
+        k = len(draws_k[0])
+        dev = next(state.coarse.parameters()).device
+        if dev.type != "cuda":
+            for j in range(k):
+                metrics = self.step(state, *fixed, *(torch.as_tensor(d[j]) for d in draws_k), generator)
+                record(j)
+            return metrics
+        staged = [torch.from_numpy(np.ascontiguousarray(d)).pin_memory() for d in draws_k]
+        bound = (state, *fixed, generator)
+        shapes = [(x.shape[1:], x.dtype) for x in staged]
+        same = len(bound) == len(self._bound) and all(a is b for a, b in zip(bound, self._bound))
+        if not same or [(x.shape, x.dtype) for x in self._static] != shapes:
+            self.graph, self._out, self._bound = None, None, bound
+            self._static = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in shapes]
+        first = 0
+        if self.graph is None:
+            self._load(staged, 0)
+            if k == 1:
+                metrics = self.step(state, *fixed, *self._static, generator)
+                record(0)
+                return metrics
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            main = torch.cuda.current_stream(dev)
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                self.step(state, *fixed, *self._static, generator)
+            main.wait_stream(self._stream)
+            record(0)
+            self._capture(state, fixed, generator, dev)
+            first = 1
+        for j in range(first, k):
+            self._load(staged, j)
+            self.graph.replay()
+            launches.update(self._launches)
+            state.step += 1
+            record(j)
+        return self._out
+
+    def _load(self, staged: List[torch.Tensor], j: int) -> None:
+        for buf, rows in zip(self._static, staged):
+            buf.copy_(rows[j], non_blocking=True)
+
+    def _capture(self, state, fixed: tuple, generator, dev) -> None:
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before, step = collections.Counter(launches), state.step
+        with torch.cuda.graph(graph, stream=self._stream):
+            self._out = self.step(state, *fixed, *self._static, generator)
+        recorded = collections.Counter(launches)
+        recorded.subtract(before)
+        self._launches = +recorded
+        launches.clear()
+        launches.update(before)
+        state.step = step
+        self.graph = graph
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        print(f"Captured the train step in a CUDA graph: {pool / 2**20:.1f} MiB in its pool, "
+              f"{sum(self._launches.values())} kernel launches a replay", flush=True)
+
+
+def make_pool_scan_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
+    """K pool steps per dispatch (``common.py:407`` of the JAX package):
+    ``(state, pool, idx_k [K, N_rand], generator, record=None) -> the last
+    step's metrics``, what a one-step loop would print at the chunk's end.
+    A :class:`KStepRoute` over :func:`make_pool_step`."""
+    route = KStepRoute(make_pool_step(train_step, cfg, scene))
+
+    def step_k(state, pool: torch.Tensor, idx_k: np.ndarray, generator=None, record=None):
+        return route(state, (pool,), (idx_k,), generator, record)
+
+    return step_k
+
+
+def make_image_scan_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
+    """K per-image steps per dispatch (``common.py:430`` there): ``(state,
+    images, poses, img_i_k [K], pixels_k [K, N_rand, 2], generator,
+    record=None) -> the last step's metrics``; the host keeps the precrop
+    curriculum and the image choice. A :class:`KStepRoute` over
+    :func:`make_image_step`."""
+    route = KStepRoute(make_image_step(train_step, cfg, scene))
+
+    def step_k(state, images: torch.Tensor, poses: torch.Tensor, img_i_k: np.ndarray, pixels_k: np.ndarray,
+               generator=None, record=None):
+        return route(state, (images, poses), (img_i_k, pixels_k), generator, record)
+
+    return step_k
 
 
 def neighbor_time_rng(seed: Optional[int] = None) -> np.random.Generator:
@@ -255,9 +462,10 @@ def pick_neighbor_time(rng: np.random.Generator, times: np.ndarray, img_i: int) 
 
 
 class StepTimer:
-    """Per-step device milliseconds: a CUDA event recorded after every step,
-    read only at :meth:`collect` (no synchronization inside the loop).
-    Records nothing on the CPU."""
+    """Per-step device milliseconds: a CUDA event recorded after every step
+    (each replay of a chunk's graph: :class:`KStepRoute` calls
+    :meth:`record` once a step), read only at :meth:`collect` (no
+    synchronization inside the loop). Records nothing on the CPU."""
 
     def __init__(self, device: torch.device, start: int):
         self.cuda = device.type == "cuda"

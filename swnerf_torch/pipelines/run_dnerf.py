@@ -26,9 +26,10 @@ times every ``--i_testset`` and the render path as PNG frames every
 Serving: ``--render_only --render_test`` renders the test views at their
 frame times through the D-NeRF eval pass (B6, B3's pts mode, B2) and writes
 PNG frames and metrics.json; ``--render_only`` alone renders the first render
-pose swept over 120 times into ``time_only/`` (run_dnerf.py:553-566). Not
-ported yet (ROADMAP.md): the mp4 writer, K steps per dispatch, tensor and
-data parallelism, the native/orbax checkpoint formats, the TensorBoard image
+pose swept over 120 times into ``time_only/`` (run_dnerf.py:553-566). Steps
+run ``SWNERF_STEPS_PER_DISPATCH`` at a time (:func:`make_dnerf_scan_step`;
+20 on a card: CUDA-graph replays). Not ported yet (ROADMAP.md): the mp4
+writer, tensor and data parallelism, the native/orbax checkpoint formats, the TensorBoard image
 log of ``--i_img``; ``--do_half_precision`` has no effect (the kernels run
 bf16 on the card; the plain route runs fp32).
 
@@ -40,7 +41,7 @@ for training only: ``--testskip`` strides the train split too, so
 from __future__ import annotations
 
 import os
-from typing import Dict, Union
+from typing import Callable, Dict, Union
 
 import numpy as np
 import torch
@@ -50,8 +51,11 @@ from swnerf_torch.models import DNeRFConfig, make_dnerf_model
 from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
+    KStepRoute,
+    Scene,
     StepTimer,
     auto_reseed_loop,
+    chunk_until_event,
     load_scene,
     make_time_image_step,
     neighbor_time_rng,
@@ -59,6 +63,7 @@ from swnerf_torch.pipelines.common import (
     render_only,
     render_path,
     seed_value,
+    steps_per_dispatch,
 )
 from swnerf_torch.render.core import RenderConfig
 from swnerf_torch.render.fused_eval import make_dnerf_eval_pass, supports_dnerf_eval_pass
@@ -104,13 +109,13 @@ def create_dnerf(args, device: torch.device):
         raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd, use_viewdirs=args.use_viewdirs,
         coarse_contributes=args.use_two_models_for_fine,
     )
-    state = init_train_state(model, fine, args.lrate, args.lrate_decay)
+    state = init_train_state(model, fine, args.lrate, args.lrate_decay, graphs=True)
 
     ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
     if ckpts and not args.no_reload:
         print("Reloading from", ckpts[-1])
         ckpt = load_tar(ckpts[-1])
-        state.step = int(ckpt["global_step"])
+        state.set_step(int(ckpt["global_step"]))
         model.load_state_dict(dnerf_state_dict(ckpt["network_fn_state_dict"]))
         if fine is not None and ckpt.get("network_fine_state_dict"):
             fine.load_state_dict(dnerf_state_dict(ckpt["network_fine_state_dict"]))
@@ -141,6 +146,24 @@ def save_dnerf_ckpt(args, state: TrainState, i: int) -> str:
     save_tar(path, payload)
     print("Saved checkpoints at", path)
     return path
+
+
+def make_dnerf_scan_step(train_step, cfg: RenderConfig, scene: Scene, pass_neighbor: bool = True) -> Callable:
+    """K time-conditioned steps per dispatch (``run_dnerf.py:218`` of the JAX
+    package, which ``run_tnerf`` reuses): ``(state, images, poses, times,
+    img_i_k [K], pixels_k [K, N, 2], neighbor_k [K], generator, record=None)
+    -> the last step's metrics``. ``pass_neighbor=False`` (the T-NeRF step)
+    ignores ``neighbor_k``, as the JAX T-NeRF passes zeros. A
+    :class:`~swnerf_torch.pipelines.common.KStepRoute` over
+    :func:`~swnerf_torch.pipelines.common.make_time_image_step`."""
+    route = KStepRoute(make_time_image_step(train_step, cfg, scene, pass_neighbor=pass_neighbor))
+
+    def step_k(state, images: torch.Tensor, poses: torch.Tensor, times: torch.Tensor, img_i_k: np.ndarray,
+               pixels_k: np.ndarray, neighbor_k: np.ndarray, generator=None, record=None):
+        draws = (img_i_k, pixels_k, neighbor_k) if pass_neighbor else (img_i_k, pixels_k)
+        return route(state, (images, poses, times), draws, generator, record)
+
+    return step_k
 
 
 def train(argv=None):
@@ -194,15 +217,18 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     else:
         train_step = make_dnerf_train_step(rcfg, args.add_tv_loss, args.tv_loss_weight)
         print("Using the eager autograd train step")
-    step_fn = make_time_image_step(train_step, rcfg, scene, pass_neighbor=True)
+    scan_fn = make_dnerf_scan_step(train_step, rcfg, scene)
     images_dev = torch.as_tensor(scene.images, device=device)
     poses_dev = torch.as_tensor(scene.poses[:, :3, :4], device=device)
     times_dev = torch.as_tensor(scene.times, device=device)
     generator = torch.Generator(device=device).manual_seed(seed_value(1))
     host_rng = neighbor_time_rng()
+    k_disp = steps_per_dispatch(device)
 
     n_iters = int(os.environ.get("SWNERF_MAX_ITERS", args.N_iter + 1))
     samples_per_step = args.N_rand * (rcfg.n_samples + (rcfg.n_samples + rcfg.n_importance if rcfg.n_importance else 0))
+    # i_img ends chunks as in the JAX package, though the port logs no image yet.
+    cadences = (args.i_weights, args.i_print, args.i_img, args.i_video, args.i_testset)
     print("Begin")
     print("TRAIN views are", scene.i_train)
     print("TEST views are", scene.i_test)
@@ -211,11 +237,16 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     timer = StepTimer(device, start)
 
     metrics = {}
-    for i in range(start + 1, n_iters):
-        img_i, pixels = sampler.next(i)
-        neighbor_time = pick_neighbor_time(host_rng, scene.times, img_i) if args.add_tv_loss else 0.0
-        metrics = step_fn(state, images_dev, poses_dev, times_dev, img_i, pixels, neighbor_time, generator)
-        timer.record(i)
+    i = start + 1
+    while i < n_iters:
+        k = chunk_until_event(i, n_iters, k_disp, cadences)
+        picks = [sampler.next(i + j) for j in range(k)]
+        img_i_k = np.asarray([p[0] for p in picks], np.int64)
+        neighbor_k = np.asarray([pick_neighbor_time(host_rng, scene.times, int(ii)) if args.add_tv_loss else 0.0
+                                 for ii in img_i_k], np.float32)
+        metrics = scan_fn(state, images_dev, poses_dev, times_dev, img_i_k, np.stack([p[1] for p in picks]),
+                          neighbor_k, generator, lambda j, i=i: timer.record(i + j))
+        i = i + k - 1  # the chunk's last iteration
 
         if i % args.i_weights == 0:
             save_dnerf_ckpt(args, state, i)
@@ -238,6 +269,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
                         savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test])
             print("Saved test set")
+        i += 1
 
     timer.collect()
     logger.close()

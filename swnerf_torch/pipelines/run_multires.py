@@ -176,7 +176,7 @@ def create_multires(args, scene: Scene, device: torch.device):
             if st.fine is not None and ckpt.get(f"network_fine_{layer}"):
                 st.fine.load_state_dict(dnerf_state_dict(ckpt[f"network_fine_{layer}"]))
             st.optimizer.load_state_dict(ckpt[f"optimizer_{layer}"])
-            st.step = _adam_steps(ckpt[f"optimizer_{layer}"])
+            st.set_step(_adam_steps(ckpt[f"optimizer_{layer}"]))
 
     rcfg = RenderConfig(
         n_samples=args.N_samples, n_importance=args.N_importance, perturb=args.perturb, lindisp=args.lindisp,

@@ -14,6 +14,11 @@ whose fields run B7 on a card, or B8 under ``SWNERF_FUSED_RAW=1``), saves
 B3 every ``--i_testset`` and the spiral path as PNG frames every
 ``--i_video``, and prints and logs to ``metrics.jsonl`` every
 ``--i_print``. ``SWNERF_MAX_ITERS`` caps the iteration count (testing).
+Steps run ``SWNERF_STEPS_PER_DISPATCH`` at a time (20 on a card: one CUDA
+graph of the step replayed per step, ``pipelines/common.py::KStepRoute``),
+in chunks that end on every save, render, print and warm-start iteration.
+``SWNERF_FUSED_DTYPE_SCHEDULE=f32@<iters>`` runs the eager step with fp32
+field operands through ``<iters>`` before the kernel step (:func:`warm_start`).
 Serving renders the test views or the spiral path through B3 and B2.
 """
 
@@ -22,6 +27,7 @@ from __future__ import annotations
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 from swnerf_torch.device import resolve_device
@@ -33,11 +39,13 @@ from swnerf_torch.pipelines.common import (
     StepTimer,
     auto_reseed_loop,
     load_scene,
-    make_image_step,
-    make_pool_step,
+    chunk_until_event,
+    make_image_scan_step,
+    make_pool_scan_step,
     render_only,
     render_path,
     seed_value,
+    steps_per_dispatch,
 )
 from swnerf_torch.render.core import RenderConfig
 from swnerf_torch.render.fused_eval import make_vanilla_eval_pass, supports_eval_pass
@@ -84,13 +92,13 @@ def create_vanilla(args, device: torch.device):
         lindisp=args.lindisp, raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd,
         use_viewdirs=args.use_viewdirs,
     )
-    state = init_train_state(model, fine_model, args.lrate, args.lrate_decay)
+    state = init_train_state(model, fine_model, args.lrate, args.lrate_decay, graphs=True)
 
     ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
     if ckpts and not args.no_reload:
         print("Reloading from", ckpts[-1])
         ckpt = load_tar(ckpts[-1])
-        state.step = int(ckpt["global_step"])
+        state.set_step(int(ckpt["global_step"]))
         model.load_state_dict(vanilla_state_dict(ckpt["network_fn_state_dict"]))
         if fine_model is not None and ckpt.get("network_fine_state_dict"):
             fine_model.load_state_dict(vanilla_state_dict(ckpt["network_fine_state_dict"]))
@@ -121,6 +129,22 @@ def save_vanilla_ckpt(args, state: TrainState, i: int) -> str:
     return path
 
 
+def warm_start(use_kernel_step: bool, rcfg: RenderConfig):
+    """``SWNERF_FUSED_DTYPE_SCHEDULE=f32@<iters>`` (``run_nerf.py:268-287``
+    of the JAX package): where the kernel step is taken, the eager autograd
+    step with fp32 field operands runs through iteration ``<iters>`` and the
+    bf16 kernel step after it, on the same TrainState. Returns
+    ``(warm_until, warm train step or None)``; ``(0, None)`` without it."""
+    sched = os.environ.get("SWNERF_FUSED_DTYPE_SCHEDULE", "")
+    if not (sched and use_kernel_step):
+        return 0, None
+    kind, _, at = sched.partition("@")
+    if kind != "f32" or not at.isdigit():
+        raise ValueError(f"SWNERF_FUSED_DTYPE_SCHEDULE={sched!r}: expected 'f32@<iters>'")
+    print(f"Precision warm-start: f32 autodiff step through iter {int(at)}, fused bf16 step after")
+    return int(at), make_train_step(rcfg, compute_dtype=torch.float32)
+
+
 def train(argv=None):
     """Product entry; with ``SWNERF_AUTO_RESEED=N`` a watchdog-confirmed
     dead-density init restarts training (at most N times) with a new seed."""
@@ -128,7 +152,7 @@ def train(argv=None):
 
 
 def _train_impl(argv=None) -> Dict:
-    """The training loop (JAX ``_train_impl``, one step per iteration).
+    """The training loop (JAX ``_train_impl``: K steps a dispatch).
 
     Returns ``{"metrics": the last step's metrics, "step_ms": {iteration:
     device ms}}``; on the card each step's time is read from CUDA events
@@ -142,32 +166,41 @@ def _train_impl(argv=None) -> Dict:
     start = state.step
     logger = ExperimentLogger(args.basedir, args.expname)
 
-    if supports_fused_step(mcfg, fcfg, rcfg) and kernel_step(device):
+    use_kernel_step = supports_fused_step(mcfg, fcfg, rcfg) and kernel_step(device)
+    if use_kernel_step:
         train_step = make_fused_train_step(mcfg, rcfg, fcfg=fcfg)
         print("Using the kernel train step (B1 render-loss, B2 sample_pdf)")
     else:
         train_step = make_train_step(rcfg)
         print("Using the eager autograd train step")
+    warm_until, warm_train_step = warm_start(use_kernel_step, rcfg)
     generator = torch.Generator(device=device).manual_seed(seed_value(1))
 
+    # K steps per dispatch: each chunk's steps are replays of one CUDA graph
+    # on a card (KStepRoute); SWNERF_STEPS_PER_DISPATCH=1 dispatches each.
+    k_disp = steps_per_dispatch(device)
+    make_scan = make_image_scan_step if args.no_batching else make_pool_scan_step
+    scan_fn = make_scan(train_step, rcfg, scene)
+    warm_scan_fn = make_scan(warm_train_step, rcfg, scene) if warm_train_step is not None else None
     if args.no_batching:
         sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac)
-        step_fn = make_image_step(train_step, rcfg, scene)
         images_dev = torch.as_tensor(scene.images, device=device)
         poses_dev = torch.as_tensor(scene.poses[:, :3, :4], device=device)
 
-        def one_step(i):
-            img_i, pixels = sampler.next(i)
-            return step_fn(state, images_dev, poses_dev, img_i, pixels, generator)
+        def run_chunk(fn, i, k, record):
+            picks = [sampler.next(i + j) for j in range(k)]
+            img_i_k = np.asarray([p[0] for p in picks], np.int64)
+            return fn(state, images_dev, poses_dev, img_i_k, np.stack([p[1] for p in picks]), generator, record)
     else:
         sampler = RayPoolSampler(scene, args.N_rand, device)
-        step_fn = make_pool_step(train_step, rcfg, scene)
 
-        def one_step(i):
-            return step_fn(state, sampler.pool, sampler.next_indices(), generator)
+        def run_chunk(fn, i, k, record):
+            return fn(state, sampler.pool, np.stack([sampler.next_indices() for _ in range(k)]), generator, record)
 
     n_iters = int(os.environ.get("SWNERF_MAX_ITERS", N_ITERS))
     samples_per_step = args.N_rand * (rcfg.n_samples + (rcfg.n_samples + rcfg.n_importance if rcfg.n_importance else 0))
+    # warm_until is a chunk boundary too, so no dispatch mixes the two steps.
+    cadences = (args.i_weights, args.i_video, args.i_testset, args.i_print, warm_until)
     print("Training Begin")
     print("TRAIN views are", scene.i_train)
     print("TEST views are", scene.i_test)
@@ -177,9 +210,15 @@ def _train_impl(argv=None) -> Dict:
     timer = StepTimer(device, start)
 
     metrics = {}
-    for i in range(start + 1, n_iters):
-        metrics = one_step(i)
-        timer.record(i)
+    i = start + 1
+    while i < n_iters:
+        k = chunk_until_event(i, n_iters, k_disp, cadences)
+        # The whole chunk lies on one side of warm_until (a cadence).
+        if i > warm_until and warm_scan_fn is not None:
+            warm_scan_fn = None  # the warm start is over: its graph's pool goes
+        fn = warm_scan_fn if i <= warm_until else scan_fn
+        metrics = run_chunk(fn, i, k, lambda j, i=i: timer.record(i + j))
+        i = i + k - 1  # the chunk's last iteration
 
         if i % args.i_weights == 0:
             save_vanilla_ckpt(args, state, i)
@@ -203,6 +242,7 @@ def _train_impl(argv=None) -> Dict:
             rate = f" {tp['ray_samples_per_sec_per_chip'] / 1e6:.2f}M samp/s" if tp else ""
             print(f"[TRAIN] Iter: {i} Loss: {m['total_loss']:.6f}  PSNR: {m['psnr']:.3f}{rate}", flush=True)
             watchdog.check(i, m["psnr"])
+        i += 1
 
     timer.collect()
     logger.close()

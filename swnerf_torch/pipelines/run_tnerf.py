@@ -19,8 +19,11 @@ frame times every ``--i_testset`` and the render path as PNG frames every
 ``--i_video``, and prints and logs to ``metrics.jsonl`` every ``--i_print``.
 ``SWNERF_MAX_ITERS`` caps the iteration count (testing). Serving renders the
 test views (or the render path) at their frame times through B4 and writes
-PNG frames and metrics.json; the mp4 writer is a later slice. K steps per
-dispatch, tensor parallelism and multi-GPU are not ported yet (ROADMAP.md).
+PNG frames and metrics.json; the mp4 writer is a later slice. Steps run
+``SWNERF_STEPS_PER_DISPATCH`` at a time (20 on a card: CUDA-graph replays,
+``pipelines/common.py::KStepRoute``), through ``run_dnerf``'s
+``make_dnerf_scan_step`` as in the JAX package. Tensor parallelism and
+multi-GPU are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import os
 from typing import Dict, Union
 
+import numpy as np
 import torch
 
 from swnerf_torch.device import resolve_device
@@ -38,12 +42,14 @@ from swnerf_torch.pipelines.common import (
     ImageSampler,
     StepTimer,
     auto_reseed_loop,
+    chunk_until_event,
     load_scene,
-    make_time_image_step,
     render_only,
     render_path,
     seed_value,
+    steps_per_dispatch,
 )
+from swnerf_torch.pipelines.run_dnerf import make_dnerf_scan_step
 from swnerf_torch.render.core import RenderConfig
 from swnerf_torch.render.fused_eval import make_tnerf_eval_pass
 from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, save_tar, tnerf_state_dict
@@ -74,13 +80,13 @@ def create_tnerf(args, device: torch.device):
         n_samples=args.N_samples, n_importance=0, perturb=args.perturb, lindisp=args.lindisp,
         raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd, use_viewdirs=True,
     )
-    state = init_train_state(model, None, args.lrate, args.lrate_decay)
+    state = init_train_state(model, None, args.lrate, args.lrate_decay, graphs=True)
 
     ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
     if ckpts and not args.no_reload:
         print("Reloading from", ckpts[-1])
         ckpt = load_tar(ckpts[-1])
-        state.step = int(ckpt["global_step"])
+        state.set_step(int(ckpt["global_step"]))
         model.load_state_dict(tnerf_state_dict(ckpt["network_fn_state_dict"]))
         if ckpt.get("optimizer_state_dict"):
             state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
@@ -146,14 +152,16 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     else:
         train_step = make_train_step(rcfg)
         print("Using the eager autograd train step")
-    step_fn = make_time_image_step(train_step, rcfg, scene)
+    scan_fn = make_dnerf_scan_step(train_step, rcfg, scene, pass_neighbor=False)
     images_dev = torch.as_tensor(scene.images, device=device)
     poses_dev = torch.as_tensor(scene.poses[:, :3, :4], device=device)
     times_dev = torch.as_tensor(scene.times, device=device)
     generator = torch.Generator(device=device).manual_seed(seed_value(1))
+    k_disp = steps_per_dispatch(device)
 
     n_iters = int(os.environ.get("SWNERF_MAX_ITERS", args.N_iter + 1))
     samples_per_step = args.N_rand * rcfg.n_samples
+    cadences = (args.i_weights, args.i_print, args.i_video, args.i_testset)
     print("Begin")
     print("TRAIN views are", scene.i_train)
     print("TEST views are", scene.i_test)
@@ -162,10 +170,14 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     timer = StepTimer(device, start)
 
     metrics = {}
-    for i in range(start + 1, n_iters):
-        img_i, pixels = sampler.next(i)
-        metrics = step_fn(state, images_dev, poses_dev, times_dev, img_i, pixels, generator)
-        timer.record(i)
+    i = start + 1
+    while i < n_iters:
+        k = chunk_until_event(i, n_iters, k_disp, cadences)
+        picks = [sampler.next(i + j) for j in range(k)]
+        img_i_k = np.asarray([p[0] for p in picks], np.int64)
+        metrics = scan_fn(state, images_dev, poses_dev, times_dev, img_i_k, np.stack([p[1] for p in picks]),
+                          np.zeros((k,), np.float32), generator, lambda j, i=i: timer.record(i + j))
+        i = i + k - 1  # the chunk's last iteration
 
         if i % args.i_weights == 0:
             save_tnerf_ckpt(args, state, i)
@@ -187,6 +199,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             render_path(state.coarse, None, scene.poses[scene.i_test], scene, rcfg, args.chunk,
                         savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test])
             print("Saved test set")
+        i += 1
 
     timer.collect()
     logger.close()

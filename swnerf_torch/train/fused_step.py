@@ -30,7 +30,7 @@ from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.sampling import sample_along_rays, sample_pdf_merge
 from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
 from swnerf_torch.render.fused_eval import _dists_scaled, canonical_params
-from swnerf_torch.train.loop import TrainState, mse_to_psnr
+from swnerf_torch.train.loop import TrainState, mse_to_psnr, time_like
 
 
 def _dtype(compute_dtype: Optional[torch.dtype], dev: torch.device) -> torch.dtype:
@@ -207,7 +207,7 @@ def make_fused_dnerf_step(cfg, rcfg: RenderConfig, fcfg=None, add_tv_loss: bool 
         pdt = next(model.parameters()).dtype  # float32; float64 for a float64 reference run
         return (b3.pack_params(canonical_params(params), mcfg, pdt), b6.pack_time_params(params, mcfg, pdt), mcfg)
 
-    def train_step(state: TrainState, rays: Rays, target: torch.Tensor, neighbor_time: float,
+    def train_step(state: TrainState, rays: Rays, target: torch.Tensor, neighbor_time,
                    generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None
                    ) -> Dict[str, torch.Tensor]:
         dev = rays.origins.device
@@ -220,7 +220,7 @@ def make_fused_dnerf_step(cfg, rcfg: RenderConfig, fcfg=None, add_tv_loss: bool 
         target = target.contiguous()
         vd_emb = positional_encoding(rays.viewdirs, cfg.nf_views).contiguous()
         t = rays.times.reshape(-1).contiguous()
-        t_n = torch.full_like(t, float(neighbor_time))
+        t_n = time_like(t, neighbor_time)
 
         def noise_of(x):
             return x.contiguous() if rcfg.raw_noise_std > 0.0 and x is not None else None

@@ -70,7 +70,12 @@ cores (render_loss_tc_kernel): rgb, acc, depth and the weights bit-equal
 to the bf16 render_pass launch, bit-equal repeats, gradients rel L2 1e-2
 of the twin, at S = 64 and 192 and ragged rows. The
 MultiRes pyramid's resize: its forward bit-equal to F.interpolate's and its
-fixed-order backward bit-equal across launches at phase 2's sizes.
+fixed-order backward bit-equal across launches at phase 2's sizes. K steps
+per dispatch: the K-step route's CUDA-graph replays bit-equal to
+uncaptured one-step dispatches for every training step (the kernel steps,
+the eager steps, the fp32 warm step, the plain D-NeRF step), the device
+learning rate equal to the schedule in fp32, launches counted per replay,
+a checkpoint's Adam state moved onto the card.
 """
 
 import dataclasses
@@ -2253,3 +2258,189 @@ def test_pyramid_resize_backward_repeats_on_the_card(dev, n_in, n_out):
         out.append([b.grad for b in bb])
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+# ---------------------------------------------------------------- K steps per dispatch (CUDA-graph replays)
+
+KSTEP_KINDS = ["vanilla", "vanilla_pool", "tnerf", "dnerf_tv",  # the kernel steps
+               "vanilla_eager", "vanilla_warm", "tnerf_eager", "dnerf_eager", "dnerf_plain"]  # the eager steps
+
+
+def _kstep_case(dev, kind, start=0, steps=12):
+    """A fresh train state (seeded weights, ``start`` updates done) and
+    ``run(state, j, k, generator, record=None)``, its train step's K-step
+    route on rows ``j .. j+k-1`` of ``steps`` rows of host draws made up
+    front: a 32 x 32 scene of four random frames, 256 rays a step, perturbed
+    depths and density noise (drawn from ``generator``). The kinds: the
+    kernel steps; the eager steps with the fields on their kernel routes
+    (B7, B7', B6 + B7), run_nerf's fp32 warm step (``_warm``) and the
+    D-NeRF's plain fp32 fields (``_plain``)."""
+    from swnerf_torch.pipelines.common import Scene, make_image_scan_step, make_pool_scan_step
+    from swnerf_torch.pipelines.run_dnerf import make_dnerf_scan_step
+    from swnerf_torch.render.core import RenderConfig
+    from swnerf_torch.train.fused_step import make_fused_dnerf_step, make_fused_tnerf_step, make_fused_train_step
+    from swnerf_torch.train.loop import init_train_state, make_dnerf_train_step, make_train_step
+
+    eager = kind.endswith(("_eager", "_warm", "_plain"))
+    rng = np.random.default_rng(0)
+    n, size = 4, 32
+    poses = np.stack([np.eye(4, dtype=np.float32) for _ in range(n)])
+    poses[:, :3, 3] = rng.standard_normal((n, 3)) * 0.2 + np.array([0.0, 0.0, 4.0])
+    images = rng.uniform(0, 1, (n, size, size, 3)).astype(np.float32)
+    K_ = np.array([[30.0, 0, 0.5 * size], [0, 30.0, 0.5 * size], [0, 0, 1]])
+    times = np.linspace(0, 1, n, dtype=np.float32)
+    scene = Scene(images=images, poses=poses, render_poses=poses, H=size, W=size, focal=30.0, K=K_, near=2.0,
+                  far=6.0, i_train=np.arange(n), i_val=np.arange(0), i_test=np.arange(0), times=times)
+    img_i = rng.integers(0, n, (steps,)).astype(np.int64)
+    pixels = rng.integers(0, size, (steps, 256, 2)).astype(np.int64)
+    neighbor = rng.uniform(0, 1, (steps,)).astype(np.float32)
+    gen = torch.Generator().manual_seed(0)
+    images_d, poses_d, times_d = (torch.from_numpy(x).to(dev) for x in (images, poses[:, :3, :4], times))
+    if kind.startswith("vanilla"):
+        cfg = VanillaNeRFConfig(netdepth=6, netwidth=128, skips=(4,), multires=10, multires_views=4)
+        rcfg = RenderConfig(n_samples=32, n_importance=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+        state = init_train_state(VanillaNeRF(cfg, device=dev, generator=gen),
+                                 VanillaNeRF(cfg, device=dev, generator=gen), 5e-4, 250, step=start,
+                                 graphs=True)
+        step = make_fused_train_step(cfg, rcfg, fcfg=cfg) if not eager else make_train_step(
+            rcfg, compute_dtype=torch.float32 if kind == "vanilla_warm" else None)
+        if kind == "vanilla_pool":
+            pool = torch.from_numpy(rng.standard_normal((4096, 3, 3)).astype(np.float32)).to(dev)
+            pool[:, 0] = pool[:, 0] * 0.2 + torch.tensor([0.0, 0.0, 4.0], device=dev)
+            pool[:, 1, 2] = -pool[:, 1, 2].abs() - 1.0
+            pool[:, 2] = pool[:, 2].abs().clamp(max=1.0)
+            idx = rng.integers(0, 4096, (steps, 256)).astype(np.int64)
+            fn = make_pool_scan_step(step, rcfg, scene)
+            return state, lambda st, j, k, g, record=None: fn(st, pool, idx[j:j + k], g, record)
+        fn = make_image_scan_step(step, rcfg, scene)
+        return state, lambda st, j, k, g, record=None: fn(
+            st, images_d, poses_d, img_i[j:j + k], pixels[j:j + k], g, record)
+    if kind == "tnerf":
+        cfg = TNeRFConfig(**TNERF_SMALL)
+        rcfg = RenderConfig(n_samples=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+        state = init_train_state(TNeRF(cfg, device=dev, generator=gen), None, 5e-4, 250, step=start, graphs=True)
+        step = make_train_step(rcfg) if eager else make_fused_tnerf_step(cfg, rcfg)
+        fn = make_dnerf_scan_step(step, rcfg, scene, pass_neighbor=False)
+    else:
+        cfg = DNeRFConfig(netdepth=6, netwidth=128, skips=(4,), multires=10, multires_views=4)
+        rcfg = RenderConfig(n_samples=32, n_importance=32, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+        model = DirectTemporalNeRF(cfg, device=dev, generator=gen, fused=False if kind == "dnerf_plain" else None)
+        state = init_train_state(model, None, 5e-4, 250, step=start, graphs=True)
+        step = make_dnerf_train_step(rcfg, True, 1e-2) if eager else make_fused_dnerf_step(
+            cfg, rcfg, add_tv_loss=True, tv_loss_weight=1e-2)
+        fn = make_dnerf_scan_step(step, rcfg, scene)
+    return state, lambda st, j, k, g, record=None: fn(
+        st, images_d, poses_d, times_d, img_i[j:j + k], pixels[j:j + k], neighbor[j:j + k], g, record)
+
+
+def _train_state_tensors(state):
+    out = {f"{i}.{k}": v for i, m in enumerate(state.modules()) for k, v in m.state_dict().items()}
+    for p, st in state.optimizer.state.items():
+        for k, v in st.items():
+            out[f"adam.{id(p)}.{k}"] = v
+    return list(out.values())
+
+
+@pytest.mark.parametrize("kind", KSTEP_KINDS)
+def test_kstep_replays_equal_uncaptured_steps(dev, kind):
+    """Seven train steps as one chunk (the first uncaptured, then a capture
+    replayed six times) and as seven one-step chunks (never captured) from
+    the same state, draws and generator seed: parameters, Adam's moments and
+    counts, the device count, the host step, each step's metrics and the
+    launch counts bit-equal. A further chunk of three replays the same
+    graph and stays equal. The eager steps' torch ops (cuBLAS products,
+    ``torch.sort``, the composite) give the same bits captured."""
+    runs = []
+    for chunks in ((7, 3), (1,) * 10):
+        state, run = _kstep_case(dev, kind, start=5)
+        g = torch.Generator(device=dev).manual_seed(11)
+        launches.clear()
+        metrics, j = [], 0
+        for k in chunks:
+            m = run(state, j, k, g)
+            metrics.append({key: v.clone() for key, v in m.items()})
+            j += k
+        torch.cuda.synchronize()
+        runs.append((state, metrics, dict(launches), g.get_state()))
+    (sa, ma, la, ga), (sb, mb, lb, gb) = runs
+    assert sa.step == sb.step == 15 and int(sa.count) == int(sb.count) == 15
+    assert all(torch.equal(a, b) for a, b in zip(_train_state_tensors(sa), _train_state_tensors(sb)))
+    for a, b in ((ma[0], mb[6]), (ma[1], mb[9])):
+        assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    assert la == lb and sum(la.values()) > 0
+    assert torch.equal(ga, gb)
+
+
+def test_device_lr_follows_the_schedule(dev):
+    """Each captured step's learning rate is exp_decay_schedule at the
+    update count, rounded to fp32, from a resumed count of 123,456."""
+    from swnerf_torch.train.loop import exp_decay_schedule
+
+    state, run = _kstep_case(dev, "vanilla", start=123456)
+    lrs = []
+    g = torch.Generator(device=dev).manual_seed(1)
+    run(state, 0, 6, g, lambda j: lrs.append(state.lr.clone()))
+    run(state, 6, 3, g, lambda j: lrs.append(state.lr.clone()))
+    torch.cuda.synchronize()
+    sched = exp_decay_schedule(5e-4, 250)
+    want = [torch.tensor(sched(123456 + j), dtype=torch.float32) for j in range(9)]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(lrs, want)) and len(lrs) == 9
+    assert state.step == 123465 and int(state.count) == 123465
+
+
+def test_launches_count_each_replay(dev):
+    """launches counts what the graph launches: each replay adds the counts
+    its capture recorded (B1 twice and B2 once a vanilla kernel step), and
+    the device runs, by torch.profiler's trace, the same kernels of the
+    port in four replays as in four uncaptured steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from swnerf_torch.ops.kernels import traced_launches
+
+    state, run = _kstep_case(dev, "vanilla")
+    g = torch.Generator(device=dev).manual_seed(1)
+    launches.clear()
+    run(state, 0, 5, g)
+    assert dict(launches) == {"render_loss[S=32]": 5, "render_loss[S=96]": 5, "sample_pdf": 5}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as replays:
+        run(state, 5, 4, g)
+        torch.cuda.synchronize()
+    assert dict(launches) == {"render_loss[S=32]": 9, "render_loss[S=96]": 9, "sample_pdf": 9}
+    plain, run_plain = _kstep_case(dev, "vanilla")
+    for j in range(5):
+        run_plain(plain, j, 1, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as steps:
+        for j in range(5, 9):
+            run_plain(plain, j, 1, g)
+        torch.cuda.synchronize()
+    traced = traced_launches(replays.key_averages())
+    assert traced == traced_launches(steps.key_averages())
+    assert traced["sample_pdf_kernel"] == 4 and sum(traced.values()) >= 12
+
+
+def test_resumed_capturable_adam_moves_its_counts_to_the_card(dev, tmp_path):
+    """A checkpoint's Adam state (counts on the CPU, a float learning rate,
+    torch's default Adam) loads into a trainer's fused, capturable Adam on
+    the card: the counts on the card, the groups reading the device
+    learning rate."""
+    from swnerf_torch.train.checkpoint import load_tar, save_tar
+
+    state, run = _kstep_case(dev, "vanilla", start=40)
+    run(state, 0, 2, torch.Generator(device=dev).manual_seed(1))
+    sd = state.optimizer.state_dict()
+    for group in sd["param_groups"]:
+        group["lr"], group["capturable"], group["fused"] = 1e-3, False, None
+    save_tar(str(tmp_path / "x.tar"), {"optimizer_state_dict": sd})
+    fresh, run_fresh = _kstep_case(dev, "vanilla", start=0)
+    fresh.optimizer.load_state_dict(load_tar(str(tmp_path / "x.tar"))["optimizer_state_dict"])
+    fresh.set_step(42)
+    for group in fresh.optimizer.param_groups:
+        assert group["capturable"] and group["fused"] and group["lr"] is fresh.lr
+        assert all(fresh.optimizer.state[p]["step"].device.type == "cuda" for p in group["params"])
+    assert int(fresh.count) == 42
+    run_fresh(fresh, 0, 3, torch.Generator(device=dev).manual_seed(1))  # an uncaptured step, then replays
+    assert int(fresh.count) == fresh.step == 45
+    assert all(float(fresh.optimizer.state[p]["step"]) == 5 for p in fresh.optimizer.param_groups[0]["params"])
+    assert all(torch.isfinite(p).all() for p in fresh.coarse.parameters())
