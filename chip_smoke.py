@@ -6,8 +6,10 @@ CLIs, train a MultiRes D-NeRF from scratch through its CLI, drive the
 fields' kernel routes (the eager steps, renders with no eval pass), extract
 meshes from the trained vanilla NeRF and solve their metric scale, render
 and train MultiRes on the render kernels, run the resample merge and the
-deformation MLP's input cotangents, time the kernels, and hold K training
-steps per dispatch (CUDA-graph replays) to one step a dispatch.
+deformation MLP's input cotangents, time the kernels, hold K training
+steps per dispatch (CUDA-graph replays) to one step a dispatch, and run the
+forward-facing LLFF path (NDC rays, the ray pool, the spiral) at fern's
+shape and on the LLFF quality recipe.
 
     python3 chip_smoke.py
 
@@ -254,9 +256,34 @@ Phases (each raises on failure; nothing is caught):
      SWNERF_FUSED_DTYPE_SCHEDULE=f32@10: no B1 launch in steps 1-10 (B7's
      fp32 launches there), B1 twice in every later step, finite losses, a
      graph for each step;
+ 37. the fern shape: write_llff_scene(n_images=20, size=504, n_samples=192,
+     scene="textured") on the card, then configs/nerf/fern.txt (its paths
+     and --factor 1 aside) through run_nerf from scratch for 1,000 steps at
+     K = 20 (NDC rays inside the captured pool step): the loss at the last
+     print below the first's, B1 at S = 64 and 128 and B2 once a step, ms
+     per step, host us per step and the idle share; K = 20 against K = 1
+     over 40 steps, bit-equal; --render_only --render_test from
+     001000.tar over the 3 holdout views (B3, B2, B3 once per 32,768-ray
+     chunk): ms per frame, PSNR at data_range 1 within 0.1 dB (mean) of the
+     fp32 plain route's, a per-stage breakdown; the 120-view spiral at
+     --render_factor 4 (120 PNG frames); 20 steps under SWNERF_PDF_MERGE=1
+     (B10, no B2);
+ 38. B1, B3, B2 and B10 against their twins at the NDC shapes, with
+     001000.tar's weights: B1 on 1,024 seeded pixels of a train view at S =
+     64 and 128 (phase 7's bars, no background), B3 at S = 64 and 128 on
+     every chunk of a 254,016-ray holdout frame (phase 4's bars; fp32 on
+     the first chunk), B2 at 63 bins -> 64 samples bit-equal to its twin,
+     B10 at Mz = 64, S = 64 bit-equal to B2 + torch.sort and to its twin;
+     their times beside their bounds;
+ 39. the LLFF quality recipe (PARITY_TORCH.md, round 4): the port's
+     write_llff_scene(n_images=24, size=64, scene="textured"), run_nerf
+     from scratch on benchmarks/parity_vs_torch.py's llff flags for 5,000
+     steps (seed 0, K = 20), --render_only --render_test of views 0, 8 and
+     16: mean test PSNR at data_range 1 >= 28.0 dB, the fp32 plain route
+     within 0.1 dB; ms per step;
      then the JSON lines.
 
-The training phases (9, 15, 21, 28, 34) run at the card's default of 20
+The training phases (9, 15, 21, 28, 34, 37, 39) run at the card's default of 20
 steps a dispatch: their launch counts are the graphs' replays' (each
 replay adds what its capture recorded).
 
@@ -793,6 +820,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase36_dispatch(dev, tmp, tmp / "data_dyn_400")
         print(f"[36 done] in {time.perf_counter() - t0:.1f} s")
+        # ---- 37-39. the forward-facing LLFF path: the fern shape through
+        # run_nerf, the kernels against their twins on its NDC rays, and
+        # the LLFF quality recipe
+        kernels += llff_phases(dev, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -967,10 +998,11 @@ def report_sweep(tag, name, fn, ms, bound_ms, P, products, dev, fwd=None):
     return split, lib
 
 
-def frame_breakdown(rays, cfg, pc, pf, chunk):
-    """Device milliseconds of each eval-pass stage over one frame, chunk by
-    chunk as render_image runs it (CUDA events around each stage), twice:
-    returns the second pass's stages, then the first's. The first pass runs
+def frame_breakdown(rays, cfg, pc, pf, chunk, n_importance=128):
+    """Device milliseconds of each eval-pass stage over one frame (64 +
+    ``n_importance`` samples), chunk by chunk as render_image runs it (CUDA
+    events around each stage), twice: returns the second pass's stages,
+    then the first's. The first pass runs
     right after the allocator's cache was emptied; where the host falls
     behind and the device drains, the idle time lands in the stage that
     waits (B2's, there), which the second pass does not see."""
@@ -994,7 +1026,7 @@ def frame_breakdown(rays, cfg, pc, pf, chunk):
             ev[2].record()
             n = z.shape[0]
             z_mid = (0.5 * (z[:, 1:] + z[:, :-1])).contiguous()
-            u = torch.linspace(0.0, 1.0, 128, device=z.device).expand(n, 128)
+            u = torch.linspace(0.0, 1.0, n_importance, device=z.device).expand(n, n_importance)
             zs = b2.sample_pdf(z_mid, res.weights[:, 1:-1], u)
             ev[3].record()
             zf = merge_z_vals(z, zs)
@@ -1083,6 +1115,17 @@ def check_tc_forward(tag, got, fwd):
 def phase7_b1(dev, cfg, coarse, fine):
     """B1 against its twin on the main path's shapes; returns, per S, the
     [6 kernel] row fields (max_abs_err, ms, plain_ms, bytes, ops, kind)."""
+    return hold_b1("7", dev, cfg, coarse, fine, *train_view_rays(dev, 1024, seed=0), n_importance=128)
+
+
+def hold_b1(tag, dev, cfg, coarse, fine, rays, target, n_importance, white=True):
+    """B1 against its twin on ``rays`` (a train step's, with their target
+    colours): the coarse pass at 64 jittered samples, the fine pass at 64 +
+    ``n_importance`` from a B2 pass, noise std 1, on a white background or
+    (``white`` False) none, at phase 7's bars (fp32
+    and bf16 outputs and gradients, bit-equal repeats, the bf16 forward
+    bit-equal to the render_pass launch); times, the family split and the
+    products on cuBLAS. Returns, per S, the [kernel] row fields."""
     import torch
 
     from swnerf_torch.ops.embedding import positional_encoding
@@ -1091,8 +1134,7 @@ def phase7_b1(dev, cfg, coarse, fine):
     from swnerf_torch.ops.kernels import sample_pdf as b2
     from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays
 
-    rays, target = train_view_rays(dev, 1024, seed=0)
-    n = 1024
+    n = rays.origins.shape[0]
     scale = 1.0 / (3 * n)
     g = torch.Generator(device=dev).manual_seed(1)
     o, d = rays.origins, rays.directions
@@ -1100,61 +1142,61 @@ def phase7_b1(dev, cfg, coarse, fine):
     z64 = sample_along_rays(rays.near, rays.far, 64, 1.0, generator=g).contiguous()
     noise64 = torch.randn(z64.shape, generator=g, device=dev)  # std 1: the sigma > 0 mask is exercised
     pc32 = b3.pack_params(coarse.state_dict(), cfg, torch.float32)
-    w64 = b1.render_loss_plain(pc32, o, d, ve, z64, b3_dists(z64, d), noise64, target, True, scale)[0].weights
-    u = torch.rand((n, 128), generator=g, device=dev)
+    w64 = b1.render_loss_plain(pc32, o, d, ve, z64, b3_dists(z64, d), noise64, target, white, scale)[0].weights
+    u = torch.rand((n, n_importance), generator=g, device=dev)
     zf = merge_z_vals(z64, b2.sample_pdf((0.5 * (z64[:, 1:] + z64[:, :-1])).contiguous(), w64[:, 1:-1], u))
     zf = zf.contiguous()
-    noise192 = torch.randn(zf.shape, generator=g, device=dev)
+    noise_f = torch.randn(zf.shape, generator=g, device=dev)
     rows = {}
-    for S, model, zz, nz in ((64, coarse, z64, noise64), (192, fine, zf, noise192)):
+    for S, model, zz, nz in ((64, coarse, z64, noise64), (zf.shape[1], fine, zf, noise_f)):
         args = (o, d, ve, zz, b3_dists(zz, d), nz, target)
         sd = model.state_dict()
         # fp32 operands: kernel vs twin, the float64 twin as the conditioning reference
         p32 = b3.pack_params(sd, cfg, torch.float32)
-        got, gk = b1.render_loss(p32, *args, True, scale)
-        ref, gr = b1.render_loss_plain(p32, *args, True, scale)
+        got, gk = b1.render_loss(p32, *args, white, scale)
+        ref, gr = b1.render_loss_plain(p32, *args, white, scale)
         p64 = b3.pack_params(sd, cfg, torch.float64)
-        _, g64 = b1.render_loss_plain(p64, *(x.double() for x in args), True, scale)
+        _, g64 = b1.render_loss_plain(p64, *(x.double() for x in args), white, scale)
         torch.cuda.synchronize()
         drgb = (got.rgb - ref.rgb).abs().max().item()
         dacc = (got.acc - ref.acc).abs().max().item()
         depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
         # sqerr: rel 1e-4, with atol 1e-7 for the rays whose error is ~0
         sq_ok = torch.allclose(got.sqerr, ref.sqerr, rtol=1e-4, atol=1e-7)
-        print(f"[7 B1 fp32 S={S}] max|drgb|={drgb:.3e} max|dacc|={dacc:.3e} "
+        print(f"[{tag} B1 fp32 S={S}] max|drgb|={drgb:.3e} max|dacc|={dacc:.3e} "
               f"max|ddepth|={(got.depth - ref.depth).abs().max().item():.3e} depth_within_rtol={depth_ok} "
               f"max|dsqerr|={(got.sqerr - ref.sqerr).abs().max().item():.3e} sqerr_within_rtol={sq_ok} "
               f"max|dw|={(got.weights - ref.weights).abs().max().item():.3e}")
         if drgb > 1e-4 or dacc > 1e-4 or not depth_ok or not sq_ok:
-            fail(f"B1 fp32 S={S} outputs outside rgb/acc 1e-4, depth and sqerr rtol 1e-4 (atol 1e-5 / 1e-7)")
-        check_fp32_grads(f"7 B1 fp32 S={S}", b1.unpack_grads(gk, p32), b1.unpack_grads(gr, p32),
+            fail(f"{tag} B1 fp32 S={S} outputs outside rgb/acc 1e-4, depth and sqerr rtol 1e-4 (atol 1e-5 / 1e-7)")
+        check_fp32_grads(f"{tag} B1 fp32 S={S}", b1.unpack_grads(gk, p32), b1.unpack_grads(gr, p32),
                          b1.unpack_grads(g64, p64))
-        _, gk2 = b1.render_loss(p32, *args, True, scale)
+        _, gk2 = b1.render_loss(p32, *args, white, scale)
         torch.cuda.synchronize()
         if not (torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])):
-            fail(f"B1 fp32 S={S}: two launches gave different gradients")
+            fail(f"{tag} B1 fp32 S={S}: two launches gave different gradients")
         del gr, g64, gk2
         # bf16 operands (the main path's): kernel vs the bf16 twin
         p16 = b3.pack_params(sd, cfg, torch.bfloat16)
-        got, gk = b1.render_loss(p16, *args, True, scale)
-        ref, gr = b1.render_loss_plain(p16, *args, True, scale)
-        _, gk2 = b1.render_loss(p16, *args, True, scale)
+        got, gk = b1.render_loss(p16, *args, white, scale)
+        ref, gr = b1.render_loss_plain(p16, *args, white, scale)
+        _, gk2 = b1.render_loss(p16, *args, white, scale)
         torch.cuda.synchronize()
         diff = (got.rgb - ref.rgb).abs()
         rel = rel_l2(b1.unpack_grads(gk, p16), b1.unpack_grads(gr, p16))
         same = torch.equal(gk[0], gk2[0]) and torch.equal(gk[1], gk2[1])
-        print(f"[7 B1 bf16 S={S}] max|drgb|={diff.max().item():.3e} mean|drgb|={diff.mean().item():.3e} "
+        print(f"[{tag} B1 bf16 S={S}] max|drgb|={diff.max().item():.3e} mean|drgb|={diff.mean().item():.3e} "
               f"grads max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
         if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
-            fail(f"B1 bf16 S={S}: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
-        check_tc_forward(f"7 B1 bf16 S={S}", got, b3.render_pass(p16, o, d, ve, zz, b3_dists(zz, d), nz, True))
+            fail(f"{tag} B1 bf16 S={S}: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+        check_tc_forward(f"{tag} B1 bf16 S={S}", got, b3.render_pass(p16, o, d, ve, zz, b3_dists(zz, d), nz, white))
         nbytes = (4 * (6 * n + ve.numel() + 3 * zz.numel() + 3 * n) + 2 * p16.weights.numel() + 4 * p16.biases.numel()
                   + 4 * (4 * n + zz.numel()) + 4 * (p16.weights.numel() + p16.biases.numel()))
         flops = 2 * b1.train_macs_per_sample(p16) * zz.numel()
-        ms = cuda_ms(lambda: b1.render_loss(p16, *args, True, scale), 5)
-        plain_ms = cuda_ms(lambda: b1.render_loss_plain(p16, *args, True, scale), 2)
+        ms = cuda_ms(lambda: b1.render_loss(p16, *args, white, scale), 5)
+        plain_ms = cuda_ms(lambda: b1.render_loss_plain(p16, *args, white, scale), 2)
         rows[S] = (diff.max().item(), ms, plain_ms, nbytes, flops, "bf16")
-        report_sweep("7", f"render_loss[S={S}] bf16", lambda: b1.render_loss(p16, *args, True, scale), ms,
+        report_sweep(tag, f"render_loss[S={S}] bf16", lambda: b1.render_loss(p16, *args, white, scale), ms,
                      bound(nbytes, flops, "bf16")[0], zz.numel(),
                      sweep_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad), dev,
                      fwd=forward_products(p16.W, p16.D, p16.skip, p16.cin_pad, p16.cv_pad))
@@ -3590,11 +3632,9 @@ def phase27_b8(dev):
     return rows
 
 
-def _train_cli(run, argv, envs, exp, prints, floor, tag):
-    """One trainer CLI run under ``envs``: its output, launch counts, train
-    PSNRs at the prints (each >= ``floor``) and its median step (ms) over
-    the steps that neither print nor save. Returns (launch counts, that
-    median)."""
+def _cli(run, argv, envs, tee=False):
+    """One CLI call under ``envs`` with the launch counts cleared just
+    before it: (its result, its output, its launch counts, wall seconds)."""
     import torch
 
     from swnerf_torch.ops.kernels import launches
@@ -3603,12 +3643,20 @@ def _train_cli(run, argv, envs, exp, prints, floor, tag):
     with env(**envs):
         launches.clear()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf) if tee else buf):
             res = run(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(launches)
-    out = buf.getvalue()
+    return res, buf.getvalue(), counts, wall
+
+
+def _train_cli(run, argv, envs, exp, prints, floor, tag):
+    """One trainer CLI run under ``envs``: its output, launch counts, train
+    PSNRs at the prints (each >= ``floor``) and its median step (ms) over
+    the steps that neither print nor save. Returns (launch counts, that
+    median)."""
+    res, out, counts, wall = _cli(run, argv, envs, tee=True)
     recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
     psnrs = [(r["step"], round(r["psnr"], 3)) for r in recs if "psnr" in r]
     every = int(argv[argv.index("--i_print") + 1])
@@ -4783,15 +4831,16 @@ def clock_free_records(exp):
             for r in recs]
 
 
-def window_timer(module, start):
-    """The trainer's StepTimer with phase 36's two 20-step windows inside
-    the CLI run (prints at start + 20, 40, 60): steps start+21..start+40 on
-    the host's clock, from the end of the print before them to the enqueue
-    of the last (the host's time to draw and dispatch a step); steps
-    start+41..start+60 under torch.profiler, from the end of the print
-    before them to the synchronization of the print that ends them (device
-    busy time against that wall, and the launches the device ran). Returns
-    (the class, the dict it fills)."""
+def window_timer(module, start, every=DISPATCH_PRINT):
+    """The trainer's StepTimer with two windows of ``every`` steps inside
+    the CLI run (phase 36: prints at start + 20, 40, 60): steps
+    start+every+1..start+2*every on the host's clock, from the end of the
+    print before them to the enqueue of the last (the host's time to draw
+    and dispatch a step); steps start+2*every+1..start+3*every under
+    torch.profiler, from the end of the print before them to the
+    synchronization of the print that ends them (device busy time against
+    that wall, and the launches the device ran). Returns (the class, the
+    dict it fills)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4803,26 +4852,26 @@ def window_timer(module, start):
         def record(self, i):
             super().record(i)
             self.last = i
-            if i == start + 2 * DISPATCH_PRINT and "t0" in win:
-                win["host_us"] = (time.perf_counter() - win.pop("t0")) / DISPATCH_PRINT * 1e6
+            if i == start + 2 * every and "t0" in win:
+                win["host_us"] = (time.perf_counter() - win.pop("t0")) / every * 1e6
 
         def collect(self):
             super().collect()
-            if self.last == start + DISPATCH_PRINT:
+            if self.last == start + every:
                 win["t0"] = time.perf_counter()
-            elif self.last == start + 2 * DISPATCH_PRINT and "prof" not in win:
+            elif self.last == start + 2 * every and "prof" not in win:
                 win["counted"] = collections.Counter(launches)
                 win["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                 win["prof"].__enter__()
                 win["p0"] = time.perf_counter()
-            elif self.last == start + 3 * DISPATCH_PRINT and "p0" in win:
+            elif self.last == start + 3 * every and "p0" in win:
                 torch.cuda.synchronize()
-                win["pwall"] = (time.perf_counter() - win.pop("p0")) / DISPATCH_PRINT * 1e3
+                win["pwall"] = (time.perf_counter() - win.pop("p0")) / every * 1e3
                 prof = win["prof"]
                 prof.__exit__(None, None, None)
                 avg = prof.key_averages()
                 win["busy"] = sum(_device_us(e) for e in avg if str(e.device_type).endswith("CUDA")) / 1e3 / \
-                    DISPATCH_PRINT
+                    every
                 win["traced"] = traced_launches(avg)
                 counted = collections.Counter(launches)
                 counted.subtract(win["counted"])
@@ -4848,7 +4897,6 @@ def phase36_dispatch(dev, tmp, data):
     least the launches counted. Then phase36_warm_start."""
     import torch
 
-    from swnerf_torch.ops.kernels import launches
     from swnerf_torch.train.checkpoint import load_tar
 
     for name, module, argv, start, expname in dispatch_trainers(data):
@@ -4857,16 +4905,11 @@ def phase36_dispatch(dev, tmp, data):
         runs = {}
         for k in (1, 20):
             base = tmp / f"dispatch_{name}_k{k}"
-            buf = io.StringIO()
             timer, win = window_timer(module, start)
             plain_timer, module.StepTimer = module.StepTimer, timer
             try:
-                with env(SWNERF_STEPS_PER_DISPATCH=str(k), SWNERF_MAX_ITERS=str(start + DISPATCH_STEPS + 1)):
-                    launches.clear()
-                    with contextlib.redirect_stdout(buf):
-                        res = module.main(argv + ["--basedir", str(base)])
-                    torch.cuda.synchronize()
-                    counts = dict(launches)
+                res, out, counts, _ = _cli(module.main, argv + ["--basedir", str(base)], {
+                    "SWNERF_STEPS_PER_DISPATCH": str(k), "SWNERF_MAX_ITERS": str(start + DISPATCH_STEPS + 1)})
             finally:
                 module.StepTimer = plain_timer
             exp = base / expname
@@ -4875,7 +4918,7 @@ def phase36_dispatch(dev, tmp, data):
             runs[k] = dict(counts=counts, tars=sorted(p.name for p in exp.glob("*.tar")),
                            tar=load_tar(str(exp / saved)), recs=clock_free_records(exp),
                            med=statistics.median(quiet.values()), metrics=res["metrics"], win=win,
-                           captured=[ln for ln in buf.getvalue().splitlines() if ln.startswith("Captured")])
+                           captured=[ln for ln in out.splitlines() if ln.startswith("Captured")])
         a, b = runs[1], runs[20]
         nets = [key for key in a["tar"] if key.startswith("network")]
         adam_a, adam_b = (list(r["tar"]["optimizer_state_dict"]["state"].values()) for r in (a, b))
@@ -4962,6 +5005,409 @@ def phase36_warm_start(tmp):
             not all(math.isfinite(x) for x in losses + list(res["metrics"].values())) or len(captured) != 2:
         fail("36 warm start: B1 ran in the warm steps or not in every later one, the loss is not finite, or the "
              "run did not capture both steps")
+
+
+# ---------------------------------------------------------------- the forward-facing LLFF path (NDC)
+FERN_CONFIG = ROOT / "configs" / "nerf" / "fern.txt"
+FERN_SIZE, FERN_IMAGES = 504, 20  # the width of fern's factor-8 frames, and its image count
+FERN_STEPS, FERN_PRINT = 1000, 100
+QUALITY_STEPS = 5000
+QUALITY_VIEWS = (0, 8, 16)  # llffhold 8 on 24 views
+
+
+def llff_phases(dev, tmp):
+    """Phases 37-39. Returns the [kernel] rows of B1, B3, B2 and B10 at the
+    NDC path's shapes, with their launches on its main paths."""
+    t0 = time.perf_counter()
+    data, ckpt, counts = phase37_fern(dev, tmp)
+    rows = phase38_holds(dev, data, ckpt, counts)
+    phase39_quality(tmp)
+    print(f"[39 done] phases 37-39 in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def fern_args(data, base, *extra):
+    """configs/nerf/fern.txt unchanged but for the capture, the log
+    directory and factor 1 (the capture holds images_1/)."""
+    return ["--config", str(FERN_CONFIG), "--datadir", str(data), "--basedir", str(base), "--expname", "fern_test",
+            "--factor", "1", "--device", "cuda", *extra]
+
+
+def unit_psnrs(psnrs, gts):
+    """metrics.json's PSNRs (skimage's data range: the ground truth's max -
+    min) at data_range 1, as the LLFF references were scored."""
+    import math
+
+    return [p - 20.0 * math.log10(float(g.max() - g.min())) for p, g in zip(psnrs, gts)]
+
+
+def _render_test(argv, envs):
+    """``--render_only --render_test``: (metrics.json, launches, wall s)."""
+    from swnerf_torch.pipelines import run_nerf
+
+    savedir, _, counts, wall = _cli(run_nerf.main, argv + ["--render_only", "--render_test"], envs)
+    return json.loads((Path(savedir) / "metrics.json").read_text()), counts, wall
+
+
+def phase37_fern(dev, tmp):
+    """The fern shape: write_llff_scene(n_images=20, size=504,
+    n_samples=192, scene="textured") on the card, then fern.txt through
+    run_nerf from scratch for 1,000 steps at the card's K = 20 (print 100):
+    the loss at the last print below the first's, B1 at S = 64 and 128 and
+    B2 once a step, one capture; ms per step (CUDA events), host us per step
+    and the idle share (window_timer: steps 101-200 and 201-300). K = 20
+    against K = 1 over 40 steps: parameters, Adam, metrics.jsonl and launch
+    counts bit-equal. --render_only --render_test from 001000.tar over the 3
+    holdout views (B3, B2, B3 on NDC rays): ms per frame, PSNR, the fp32
+    plain route (SWNERF_FUSED=0) within 0.1 dB mean, a per-stage breakdown;
+    the 120-view spiral at --render_factor 4 (120 PNG frames, wall time);
+    20 steps under SWNERF_PDF_MERGE=1 (B10, no B2). Returns (the capture,
+    001000.tar, the launch counts of the training, serving, spiral and B10
+    runs)."""
+    import torch
+
+    from swnerf_torch.data.synthetic import write_llff_scene
+    from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.pipelines import run_nerf
+    from swnerf_torch.pipelines.common import load_scene
+    from swnerf_torch.render.core import make_rays_from_camera
+    from swnerf_torch.train.checkpoint import load_tar, vanilla_state_dict
+    from swnerf_torch.utils.config import config_parser
+    from swnerf_torch.utils.png import read_png
+
+    data = tmp / "fern_504"
+    t0 = time.perf_counter()
+    write_llff_scene(str(data), n_images=FERN_IMAGES, size=FERN_SIZE, n_samples=192, scene="textured", device=dev)
+    torch.cuda.synchronize()
+    print(f"[37 scene] forward-facing textured {FERN_SIZE}x{FERN_SIZE}, {FERN_IMAGES} views, 192 GT samples: "
+          f"written in {time.perf_counter() - t0:.2f} s")
+
+    # 1,000 steps from scratch at K = 20
+    base = tmp / "fern"
+    timer, win = window_timer(run_nerf, 0, every=FERN_PRINT)
+    plain_timer, run_nerf.StepTimer = run_nerf.StepTimer, timer
+    try:
+        res, out, train, wall = _cli(run_nerf.main, fern_args(data, base, "--i_print", str(FERN_PRINT), "--i_weights",
+                                                              str(FERN_STEPS)), {"SWNERF_MAX_ITERS": str(FERN_STEPS + 1)},
+                                     tee=True)
+    finally:
+        run_nerf.StepTimer = plain_timer
+    exp = base / "fern_test"
+    recs = [r for r in clock_free_records(exp) if "total_loss" in r]
+    losses = [(r["step"], round(r["total_loss"], 6)) for r in recs]
+    captured = [ln for ln in out.splitlines() if ln.startswith("Captured")]
+    print(f"[37 train] launches {json.dumps(train, sort_keys=True)} ({FERN_STEPS} steps), CLI wall {wall:.2f} s; "
+          f"total_loss at the prints {losses}; {captured}")
+    want = {"render_loss[S=64]": FERN_STEPS, "render_loss[S=128]": FERN_STEPS, "sample_pdf": FERN_STEPS}
+    if "kernel train step" not in out or len(captured) != 1 or any(train.get(k) != v for k, v in want.items()):
+        fail(f"37: the fern run did not take the captured kernel step with {want} launches: {train}, {captured}")
+    if len(losses) != FERN_STEPS // FERN_PRINT or not losses[-1][1] < losses[0][1]:
+        fail(f"37: the loss at the last print is not below the first's: {losses}")
+    quiet = [ms for i, ms in res["step_ms"].items() if i > 20 and i % 20 and (i - 1) % 20]
+    med = statistics.median(quiet)
+    idle = (f"idle share {100 * (1 - win['busy'] / win['pwall']):.1f}% (busy {win['busy']:.3f} of "
+            f"{win['pwall']:.3f} ms a step)" if win.get("busy") else "torch.profiler recorded no device time")
+    spr = 1024 * (64 + 128)
+    print(f"[37 train] median {med:.3f} ms per step over {len(quiet)} steps that neither start a chunk nor print "
+          f"(CUDA events; {1024 / med * 1e3:.4g} rays/s, {spr / med * 1e3:.4g} samples/s); host "
+          f"{win['host_us']:.1f} us per step to draw and dispatch (steps 101-200); steps 201-300 under "
+          f"torch.profiler: {idle}")
+
+    # K = 20 against K = 1 over the first 40 steps
+    runs = {}
+    for k in (1, 20):
+        b = tmp / f"fern_k{k}"
+        res_k, out_k, counts_k, _ = _cli(run_nerf.main, fern_args(data, b, "--i_print", "20", "--i_weights", "40"),
+                                         {"SWNERF_STEPS_PER_DISPATCH": str(k), "SWNERF_MAX_ITERS": "41"})
+        runs[k] = dict(tar=load_tar(str(b / "fern_test" / "000040.tar")), recs=clock_free_records(b / "fern_test"),
+                       metrics=res_k["metrics"], counts=counts_k,
+                       captured=[ln for ln in out_k.splitlines() if ln.startswith("Captured")])
+    a, b = runs[1], runs[20]
+    adam_a, adam_b = (list(r["tar"]["optimizer_state_dict"]["state"].values()) for r in (a, b))
+    same = {
+        "parameters": all(torch.equal(v, b["tar"][key][n]) for key in a["tar"] if key.startswith("network")
+                          for n, v in a["tar"][key].items()),
+        "Adam moments and counts": len(adam_a) == len(adam_b) > 0 and all(
+            set(x) == set(y) and all(torch.equal(torch.as_tensor(x[f]), torch.as_tensor(y[f])) for f in x)
+            for x, y in zip(adam_a, adam_b)),
+        "metrics.jsonl at the prints": a["recs"] == b["recs"] and [r["step"] for r in a["recs"] if "psnr" in r]
+        == [20, 40],
+        "last metrics": a["metrics"] == b["metrics"],
+        "launch counts": a["counts"] == b["counts"] and a["counts"].get("render_loss[S=128]") == 40,
+    }
+    print(f"[37 dispatch] K=20 against K=1, 40 steps from scratch: " + ", ".join(
+        f"{k} {'equal' if v else 'DIFFER'}" for k, v in same.items()) + f"; K=20: {b['captured']}")
+    if not all(same.values()) or a["captured"] or len(b["captured"]) != 1:
+        fail(f"37: K=20 differs from K=1 on the NDC pool step ({same}), or the captures {a['captured']} / "
+             f"{b['captured']}")
+
+    # the holdout views from 001000.tar, kernels and the fp32 plain route
+    ckpt = exp / f"{FERN_STEPS:06d}.tar"
+    argv = fern_args(data, tmp / "fern_serve", "--ft_path", str(ckpt))
+    metrics, serve, wall = _render_test(argv, {})
+    plain, _, _ = _render_test(fern_args(data, tmp / "fern_serve_plain", "--ft_path", str(ckpt)), {"SWNERF_FUSED": "0"})
+    scene = load_scene(config_parser().parse_args(argv + ["--render_test"]))
+    gts = scene.images[scene.i_test]
+    ours, ref = unit_psnrs(metrics["psnr"], gts), unit_psnrs(plain["psnr"], gts)
+    mean_k, mean_p = sum(ours) / len(ours), sum(ref) / len(ref)
+    per_frame = statistics.mean(metrics["seconds_per_frame"][1:]) * 1e3
+    print(f"[37 serve] launches {json.dumps(serve, sort_keys=True)} ({len(ours)} holdout views, "
+          f"{FERN_SIZE}x{FERN_SIZE}, 64 + 64 samples), CLI wall {wall:.2f} s; seconds per frame "
+          f"{[round(x, 4) for x in metrics['seconds_per_frame']]}: {per_frame:.1f} ms per frame after the first, "
+          f"{FERN_SIZE ** 2 / per_frame * 1e3:.4g} rays/s")
+    print(f"[37 serve] PSNR at data_range 1, views {list(scene.i_test)}: kernels {[round(x, 3) for x in ours]} "
+          f"(mean {mean_k:.3f} dB), fp32 plain route {[round(x, 3) for x in ref]} (mean {mean_p:.3f} dB), "
+          f"|d mean| {abs(mean_k - mean_p):.4f} dB; SSIM {[round(x, 4) for x in metrics['ssim']]}")
+    chunks = len(ours) * -(-FERN_SIZE ** 2 // 32768)
+    if abs(mean_k - mean_p) > 0.1 or any(serve.get(k) != chunks for k in
+                                         ("render_pass[S=64]", "render_pass[S=128]", "sample_pdf")):
+        fail(f"37: the holdout views' mean PSNR differs from the fp32 plain route's by more than 0.1 dB, or the "
+             f"render did not run B3, B2, B3 once per chunk ({chunks}): {serve}")
+    cfg = VanillaNeRFConfig()
+    ck = load_tar(str(ckpt))
+    models = []
+    for key in ("network_fn_state_dict", "network_fine_state_dict"):
+        m = VanillaNeRF(cfg, device=dev, fused=False)
+        m.load_state_dict(vanilla_state_dict(ck[key]))
+        models.append(m.eval())
+    pc, pf = (b3.pack_params(m.state_dict(), cfg) for m in models)
+    rays = make_rays_from_camera(scene.H, scene.W, scene.K, scene.poses[scene.i_test[0]][:3, :4], 0.0, 1.0,
+                                 ndc=True, device=dev)
+    stages, first = frame_breakdown(rays, cfg, pc, pf, 32768, n_importance=64)
+    total = sum(stages.values())
+    print(f"[37 breakdown] holdout view {scene.i_test[0]}, device ms by stage (second pass): " + ", ".join(
+        f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in stages.items()) + f"; sum {total:.1f} ms against the "
+        f"timed {per_frame:.1f} ms; the first pass {sum(first.values()):.1f} ms")
+    del pc, pf, models, rays
+
+    # the spiral path at --render_factor 4
+    spiral, _, spiral_counts, wall = _cli(run_nerf.main, argv + ["--render_only", "--render_factor", "4"], {})
+    frames = sorted(Path(spiral).glob("*.png"))
+    shape = read_png(str(frames[0])).shape if frames else None
+    print(f"[37 spiral] {len(frames)} PNG frames of {shape} at --render_factor 4 in {wall:.2f} s "
+          f"({wall / max(len(frames), 1) * 1e3:.1f} ms a frame, CLI wall); launches "
+          f"{json.dumps(spiral_counts, sort_keys=True)}")
+    side = FERN_SIZE // 4
+    if len(frames) != 120 or shape != (side, side, 3) or spiral_counts.get("render_pass[S=128]", 0) != 120:
+        fail(f"37: the spiral wrote {len(frames)} frames of {shape} (want 120 of {side}x{side})")
+
+    # B10 on the NDC step: 20 steps from 001000.tar under SWNERF_PDF_MERGE=1
+    _, _, merge, _ = _cli(run_nerf.main, fern_args(data, tmp / "fern_merge", "--ft_path", str(ckpt), "--i_print", "20",
+                                                   "--i_weights", "100000"),
+                          {"SWNERF_PDF_MERGE": "1", "SWNERF_MAX_ITERS": str(FERN_STEPS + 21)})
+    print(f"[37 merge] 20 steps under SWNERF_PDF_MERGE=1: launches {json.dumps(merge, sort_keys=True)}")
+    if merge.get("sample_pdf_merge") != 20 or merge.get("sample_pdf"):
+        fail(f"37: under SWNERF_PDF_MERGE=1 the NDC step launched B10 / B2 {merge} (want 20 B10, no B2)")
+    TC_SUMMARY["fern shape (phase 37)"] = (f"{med:.3f} ms per train step, {per_frame:.1f} ms per {FERN_SIZE}x"
+                                           f"{FERN_SIZE} frame")
+    return data, ckpt, dict(train=train, serve=serve, spiral=spiral_counts, merge=merge)
+
+
+def phase38_holds(dev, data, ckpt, counts):
+    """The kernels against their twins at the NDC path's shapes, with
+    001000.tar's weights (phase 37) on the fern-shaped capture: B1 on 1,024
+    seeded pixels of its first train view (the step's rays: S = 64 jittered,
+    S = 128 from a B2 pass at 63 bins -> 64 samples) at phase 7's bars; B3
+    at S = 64 and 128 on every chunk of holdout view 0 (254,016 rays: 7
+    chunks of 32,768 and a ragged one of 24,640) at phase 4's bars (fp32 on
+    the first chunk); B2 at 63 bins -> 64 samples over the frame, bit-equal
+    to its twin (linspace and random u); B10 at Mz = 64, S = 64, bit-equal
+    to B2 + torch.sort and to its twin. Times at the step's and the serving
+    chunk's shapes beside their bounds. Returns the [kernel] rows."""
+    import torch
+
+    from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+    from swnerf_torch.ops import sampling
+    from swnerf_torch.ops.kernels import render_pass as b3
+    from swnerf_torch.ops.kernels import sample_pdf as b2
+    from swnerf_torch.ops.rays import get_rays_at
+    from swnerf_torch.pipelines.common import load_scene
+    from swnerf_torch.render.core import build_rays, make_rays_from_camera
+    from swnerf_torch.train.checkpoint import load_tar, vanilla_state_dict
+    from swnerf_torch.utils.config import config_parser
+
+    scene = load_scene(config_parser().parse_args(fern_args(data, data.parent / "unused")))
+    cfg = VanillaNeRFConfig()
+    ck = load_tar(str(ckpt))
+    coarse, fine = (VanillaNeRF(cfg, device=dev, fused=False) for _ in range(2))
+    coarse.load_state_dict(vanilla_state_dict(ck["network_fn_state_dict"]))
+    fine.load_state_dict(vanilla_state_dict(ck["network_fine_state_dict"]))
+    H, W = scene.H, scene.W
+
+    # B1: a train step's rays
+    view = int(scene.i_train[0])
+    g = torch.Generator(device=dev).manual_seed(0)
+    pix = torch.stack([torch.randint(0, H, (1024,), generator=g, device=dev),
+                       torch.randint(0, W, (1024,), generator=g, device=dev)], -1)
+    c2w = torch.as_tensor(scene.poses[view][:3, :4], device=dev)
+    o, d = get_rays_at(pix, H, W, scene.K, c2w)
+    rays = build_rays(o, d, 0.0, 1.0, ndc=True, H=H, W=W, focal=scene.focal)
+    target = torch.as_tensor(scene.images[view], device=dev)[pix[:, 0], pix[:, 1]].contiguous()
+    b1_rows = hold_b1("38", dev, cfg, coarse, fine, rays, target, n_importance=64, white=False)
+
+    # B3 over holdout view 0, chunk by chunk; B2 and B10 on its coarse weights
+    frame = make_rays_from_camera(H, W, scene.K, scene.poses[scene.i_test[0]][:3, :4], 0.0, 1.0, ndc=True,
+                                  device=dev)
+    n_all = frame.origins.shape[0]
+    pc, pf = b3.pack_params(coarse.state_dict(), cfg), b3.pack_params(fine.state_dict(), cfg)
+    worst = {64: [0.0, 0.0], 128: [0.0, 0.0]}
+    zs64, ws64 = [], []
+    for start in range(0, n_all, 32768):
+        o, d, ve, z, dist = pass_inputs(frame.slice(start, min(n_all, start + 32768)), cfg, 64)
+        n = z.shape[0]
+        if start == 0:  # fp32 operands on the first chunk
+            for S, model in ((64, coarse), (128, fine)):
+                p32 = b3.pack_params(model.state_dict(), cfg, torch.float32)
+                if S == 64:
+                    zz, dd = z, dist
+                else:
+                    w = b3.render_pass_plain(b3.pack_params(coarse.state_dict(), cfg, torch.float32), o, d, ve, z,
+                                             dist, None, False).weights
+                    zz = fine_z(z, w, 64).contiguous()
+                    dd = b3_dists(zz, d)
+                got = b3.render_pass(p32, o, d, ve, zz, dd, None, False)
+                ref = b3.render_pass_plain(p32, o, d, ve, zz, dd, None, False)
+                torch.cuda.synchronize()
+                drgb, dacc = (got.rgb - ref.rgb).abs().max().item(), (got.acc - ref.acc).abs().max().item()
+                depth_ok = torch.allclose(got.depth, ref.depth, rtol=1e-4, atol=1e-5)
+                print(f"[38 B3 fp32 S={S}] chunk 0 ({n} NDC rays): max|drgb|={drgb:.3e} max|dacc|={dacc:.3e} "
+                      f"depth_within_rtol={depth_ok}")
+                if drgb > 1e-4 or dacc > 1e-4 or not depth_ok:
+                    fail(f"38: B3 fp32 S={S} on NDC rays outside atol 1e-4 (rgb, acc) / rtol 1e-4 (depth)")
+                del got, ref
+        res = b3.render_pass(pc, o, d, ve, z, dist, None, False)
+        zf = sampling.merge_z_vals(z, b2.sample_pdf((0.5 * (z[:, 1:] + z[:, :-1])).contiguous(), res.weights[:, 1:-1],
+                                                    torch.linspace(0.0, 1.0, 64, device=dev).expand(n, 64)))
+        zf = zf.contiguous()
+        for S, packed, zz, dd in ((64, pc, z, dist), (128, pf, zf, b3_dists(zf, d))):
+            got = res if S == 64 else b3.render_pass(packed, o, d, ve, zz, dd, None, False)
+            ref = b3.render_pass_plain(packed, o, d, ve, zz, dd, None, False)
+            diff = (got.rgb - ref.rgb).abs()
+            worst[S][0] = max(worst[S][0], diff.max().item())
+            worst[S][1] = max(worst[S][1], diff.mean().item())
+        zs64.append(z)
+        ws64.append(res.weights)
+        if start + 32768 >= n_all:
+            print(f"[38 B3 bf16] holdout view {scene.i_test[0]}, {n_all} NDC rays in chunks of 32,768 (the last "
+                  f"{n}): " + ", ".join(f"S={S} worst chunk max|drgb|={a:.3e} mean|drgb|={b:.3e}"
+                                        for S, (a, b) in worst.items()))
+    if any(a > 1e-2 or b > 1e-3 for a, b in worst.values()):
+        fail(f"38: B3 bf16 on NDC rays: max |drgb| > 1e-2 or mean > 1e-3 in a chunk ({worst})")
+    z64, w64 = torch.cat(zs64).contiguous(), torch.cat(ws64)
+    del zs64, ws64
+    bins = (0.5 * (z64[:, 1:] + z64[:, :-1])).contiguous()
+    wsl = w64[:, 1:-1]
+    b2_err = b10_err = 0.0
+    gu = torch.Generator(device=dev).manual_seed(5)
+    for mode in ("det", "random"):
+        u = (torch.linspace(0.0, 1.0, 64, device=dev).expand(n_all, 64) if mode == "det"
+             else torch.rand((n_all, 64), generator=gu, device=dev))
+        got, ref = b2.sample_pdf(bins, wsl, u), b2.sample_pdf_plain(bins, wsl, u)
+        us = u if mode == "det" else sampling.sorted_uniforms(n_all, 64, gu, dev)
+        merged = b2.sample_pdf_merge(z64, bins, wsl, us)
+        chain = torch.sort(torch.cat([z64, b2.sample_pdf(bins, wsl, us)], -1), -1).values
+        twin = b2.sample_pdf_merge_plain(z64, bins, wsl, us)
+        torch.cuda.synchronize()
+        b2_err = max(b2_err, (got - ref).abs().max().item())
+        b10_err = max(b10_err, (merged - chain).abs().max().item())
+        print(f"[38 B2 {mode}] N={n_all} M=63 S=64: bit-equal to its twin {torch.equal(got, ref)}; B10 Mz=64 S=64: "
+              f"bit-equal to B2 + torch.sort {torch.equal(merged, chain)}, to its twin {torch.equal(twin, merged)}")
+        if not (torch.equal(got, ref) and torch.equal(merged, chain) and torch.equal(twin, merged)):
+            fail(f"38 {mode}: B2 differs from its twin, or B10 from B2 + torch.sort or from its twin")
+
+    # times at the serving chunk's shapes (B3 at S = 64 and 128, B2, B10) beside their bounds
+    o, d, ve, z, dist = pass_inputs(frame.slice(0, 32768), cfg, 64)
+    n = z.shape[0]
+    zc, bc, wc = z64[:n], bins[:n], wsl[:n]
+    uc = torch.linspace(0.0, 1.0, 64, device=dev).expand(n, 64)
+    zf = sampling.merge_z_vals(z, b2.sample_pdf(bc, wc, uc)).contiguous()
+    rows = {}
+    for S, packed, zz in ((64, pc, z), (128, pf, zf)):
+        dd = b3_dists(zz, d)
+        nbytes = 4 * (6 * n + ve.numel() + 2 * zz.numel() + 5 * n + zz.numel()) + packed.weights.numel() * 2
+        rows[f"render_pass[ndc,S={S}]"] = entry(
+            f"render_pass[ndc,S={S}]", "swnerf_torch/csrc/render_pass.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+            counts["serve"].get(f"render_pass[S={S}]", 0) + counts["spiral"].get(f"render_pass[S={S}]", 0),
+            worst[S][0], cuda_ms(lambda: b3.render_pass(packed, o, d, ve, zz, dd, None, False), 5),
+            cuda_ms(lambda: b3.render_pass_plain(packed, o, d, ve, zz, dd, None, False), 2), nbytes,
+            2 * packed.macs_per_sample * zz.numel(), "bf16")
+    b2_launches = sum(c.get("sample_pdf", 0) for k, c in counts.items() if k != "merge")
+    rows["sample_pdf[ndc,S=64]"] = entry(
+        "sample_pdf[ndc,S=64]", "swnerf_torch/csrc/sample_pdf.cu", "swnerf_tpu/ops/pallas/sample_pdf.py:37",
+        b2_launches, b2_err, cuda_ms(lambda: b2.sample_pdf(bc, wc, uc), 50),
+        cuda_ms(lambda: b2.sample_pdf_plain(bc, wc, uc), 5), 4 * (bc.numel() + n * 62 + 64 + n * 64),
+        n * (64 * (6 + 7) + 3 * 62), "fp32")
+    row = entry("sample_pdf_merge[ndc,S=64]", "swnerf_torch/csrc/sample_pdf.cu",
+                "swnerf_tpu/ops/pallas/sample_pdf.py:155", counts["merge"].get("sample_pdf_merge", 0), b10_err,
+                cuda_ms(lambda: b2.sample_pdf_merge(zc, bc, wc, uc), 50),
+                cuda_ms(lambda: b2.sample_pdf_merge_plain(zc, bc, wc, uc), 5),
+                4 * (n * 64 + n * 63 + n * 62 + 64 + n * 128), n * 64 * 63, "fp32")
+    row["library_ms"] = cuda_ms(lambda: torch.sort(torch.cat([zc, b2.sample_pdf(bc, wc, uc)], -1), -1).values, 50)
+    rows[row["name"]] = row
+    for S, fields in b1_rows.items():
+        rows[f"render_loss[ndc,S={S}]"] = entry(
+            f"render_loss[ndc,S={S}]", "swnerf_torch/csrc/render_loss.cu", "swnerf_tpu/ops/pallas/render_fused.py:276",
+            counts["train"].get(f"render_loss[S={S}]", 0), *fields)
+    for k in rows.values():
+        print(f"[38 kernel] {k['name']}: {k['ms']:.4f} ms/launch (plain {k['plain_ms']:.3f} ms"
+              + (f", B2 + torch.sort {k['library_ms']:.4f} ms" if k["library_ms"] is not None else "")
+              + f"), bound {k['bound_ms']:.4f} ms by {k['bound_by']} -> {100 * k['bound_ms'] / k['ms']:.2f}% of the "
+              f"bound, {k['launches']} launches on the NDC main paths")
+        if not k["launches"]:
+            fail(f"38: {k['name']} was not launched on the NDC main paths")
+    del z64, w64, bins, frame, pc, pf
+    torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def phase39_quality(tmp):
+    """The LLFF quality recipe (PARITY_TORCH.md, round 4): the port's
+    write_llff_scene(n_images=24, size=64, scene="textured"), trained from
+    scratch by run_nerf on benchmarks/parity_vs_torch.py's llff flags (D=8,
+    W=256, multires 10 / 4, N_rand 128, 32 + 32 samples, lrate 5e-4, decay
+    250, raw_noise_std 1, factor 1, llffhold 8, black background,
+    use_viewdirs, batching) for 5,000 steps at seed 0 and the card's K = 20;
+    --render_only --render_test of views 0, 8, 16 by the kernels and by the
+    fp32 plain route: mean PSNR at data_range 1 >= 28.0 dB, the two within
+    0.1 dB; ms per step and the phase's wall time."""
+    from swnerf_torch.data.synthetic import write_llff_scene
+    from swnerf_torch.pipelines import run_nerf
+    from swnerf_torch.pipelines.common import load_scene
+    from swnerf_torch.utils.config import config_parser
+
+    t_phase = time.perf_counter()
+    data = tmp / "llff_quality"
+    write_llff_scene(str(data), n_images=24, size=64, scene="textured", device="cuda")
+    base = tmp / "llff_quality_logs"
+    argv = ["--expname", "llff", "--basedir", str(base), "--datadir", str(data), "--dataset_type", "llff",
+            "--factor", "1", "--llffhold", "8", "--use_viewdirs", "--netdepth", "8", "--netwidth", "256",
+            "--netdepth_fine", "8", "--netwidth_fine", "256", "--multires", "10", "--multires_views", "4",
+            "--N_rand", "128", "--N_samples", "32", "--N_importance", "32", "--lrate", "5e-4", "--lrate_decay", "250",
+            "--raw_noise_std", "1e0", "--chunk", "8192", "--precrop_iters", "0", "--i_weights", str(QUALITY_STEPS),
+            "--i_print", "500", "--i_video", "10000000", "--i_testset", "10000000", "--device", "cuda"]
+    res, out, counts, wall = _cli(run_nerf.main, argv, {"SWNERF_MAX_ITERS": str(QUALITY_STEPS + 1),
+                                                        "SWNERF_SEED": "0"})
+    med = statistics.median(ms for i, ms in res["step_ms"].items() if i > 20 and i % 20 and (i - 1) % 20)
+    psnrs = [(r["step"], round(r["psnr"], 2)) for r in clock_free_records(base / "llff") if "psnr" in r]
+    print(f"[39 train] {QUALITY_STEPS} steps from scratch: CLI wall {wall:.2f} s, median {med:.3f} ms per step "
+          f"(CUDA events); launches {json.dumps(counts, sort_keys=True)}; train PSNR at the prints {psnrs}")
+    if "kernel train step" not in out or counts.get("render_loss[S=64]") != QUALITY_STEPS:
+        fail(f"39: the quality run did not take the kernel step ({counts})")
+    metrics, serve, swall = _render_test(argv, {})
+    plain, _, _ = _render_test(argv, {"SWNERF_FUSED": "0"})
+    scene = load_scene(config_parser().parse_args(argv + ["--render_test"]))
+    gts = scene.images[scene.i_test]
+    ours, ref = unit_psnrs(metrics["psnr"], gts), unit_psnrs(plain["psnr"], gts)
+    mean_k, mean_p = sum(ours) / len(ours), sum(ref) / len(ref)
+    print(f"[39 quality] test PSNR at data_range 1, views {list(scene.i_test)}: kernels {[round(x, 3) for x in ours]} "
+          f"(mean {mean_k:.3f} dB), fp32 plain route on the same checkpoint {[round(x, 3) for x in ref]} (mean "
+          f"{mean_p:.3f} dB); SSIM {[round(x, 4) for x in metrics['ssim']]}; render launches "
+          f"{json.dumps(serve, sort_keys=True)}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    if list(scene.i_test) != list(QUALITY_VIEWS) or not mean_k >= 28.0 or abs(mean_k - mean_p) > 0.1:
+        fail(f"39: mean test PSNR {mean_k:.3f} dB below 28.0, or {abs(mean_k - mean_p):.4f} dB from the fp32 plain "
+             f"route's (views {list(scene.i_test)})")
+    TC_SUMMARY["LLFF quality (phase 39)"] = f"{med:.3f} ms per train step, mean test PSNR {mean_k:.3f} dB"
 
 
 if __name__ == "__main__":

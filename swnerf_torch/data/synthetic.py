@@ -1,13 +1,15 @@
 """Procedural ground-truth scenes (port of ``swnerf_tpu/data/synthetic.py``:
-the analytic fields, their dense ground-truth render and the Blender-format
-scene writer), in torch on a given device.
+the analytic fields, their dense ground-truth render and the scene
+writers of the Blender, LLFF, LINEMOD, DeepVoxels and custom formats), in
+torch on a given device.
 
-The writer draws its camera poses from numpy's ``default_rng(seed)`` exactly
-as the JAX writer does, renders each view with the port's compositor and
-writes 8-bit PNGs with the port's own encoder (``utils/png.py``). The
-fields' arithmetic is the JAX package's; its values differ from it by float
-rounding only, so a written pixel may land one 8-bit level away. The LLFF,
-LINEMOD, DeepVoxels and custom writers wait for their loaders.
+Each writer draws its camera poses from numpy's ``default_rng(seed)``
+exactly as the JAX writer does, keeps its signature and on-disk schema,
+renders each view with the port's compositor (row chunks of
+:func:`_render_pose_chunked`, so a 512 x 512 view stays small) and writes
+8-bit PNGs with the port's own encoder (``utils/png.py``). The fields'
+arithmetic is the JAX package's; its values differ from it by float
+rounding only, so a written pixel may land one 8-bit level away.
 """
 
 from __future__ import annotations
@@ -149,3 +151,182 @@ def write_blender_scene(
             frames.append(frame)
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)
+
+
+def _render_pose_chunked(H, W, focal, c2w, near, far, n_samples, scene, white_bkgd, device, chunk_rows=64) -> np.ndarray:
+    """Ground-truth rgb [H, W, 3] of one view, rendered ``chunk_rows`` rows
+    at a time (a one-shot render would hold [H * W, n_samples, 3] at once)."""
+    rays = make_rays_from_camera(H, W, float(focal), c2w, near=near, far=far, device=device)
+    step = chunk_rows * W
+    out = [render_gt(rays.slice(s, s + step), n_samples, white_bkgd=white_bkgd, scene=scene)
+           for s in range(0, H * W, step)]
+    return torch.cat(out).reshape(H, W, 3).cpu().numpy()
+
+
+def _png8(rgb: np.ndarray) -> np.ndarray:
+    return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+
+
+def write_llff_scene(
+    root: str,
+    n_images: int = 24,
+    size: int = 64,
+    n_samples: int = 192,
+    seed: int = 0,
+    scene: str = "textured",
+    z_dist: float = 4.0,
+    device: Optional[torch.device] = None,
+) -> None:
+    """Write a renderable LLFF forward-facing capture: ``images/`` (and the
+    same files as the factor-1 cache ``images_1/``) and ``poses_bounds.npy``,
+    per image a flattened 3x5 [down, right, back | t | hwf] matrix and its
+    [near, far] bounds. The cameras sit on a jittered grid in a plane at
+    distance ``z_dist``, looking at the origin, on a black background."""
+    device = resolve_device(device)
+    H = W = size
+    focal = 0.9 * W
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images_1"), exist_ok=True)
+
+    side = int(np.ceil(np.sqrt(n_images)))
+    rows = []
+    for i in range(n_images):
+        gx, gy = i % side, i // side
+        x = (gx / max(side - 1, 1) - 0.5) * 1.4 + float(rng.uniform(-0.08, 0.08))
+        y = (gy / max(side - 1, 1) - 0.5) * 1.4 + float(rng.uniform(-0.08, 0.08))
+        z = z_dist + float(rng.uniform(-0.25, 0.25))
+        eye = np.array([x, y, z], np.float32)
+        back = eye / np.linalg.norm(eye)  # the camera looks at the origin
+        right = np.cross([0.0, 1.0, 0.0], back)
+        right /= np.linalg.norm(right)
+        up = np.cross(back, right)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up, back, eye
+
+        # The analytic scenes lie within ~1.5 units of the origin.
+        dist = float(np.linalg.norm(eye))
+        near_b, far_b = dist - 1.7, dist + 1.7
+        png = _png8(_render_pose_chunked(H, W, focal, c2w, near_b, far_b, n_samples, scene, False, device))
+        name = f"image{i:03d}.png"
+        write_png_bytes(os.path.join(root, "images", name), png)
+        write_png_bytes(os.path.join(root, "images_1", name), png)
+
+        # Stored columns [down (-up), right, back, t, hwf]: the loader's
+        # column reorder inverts this.
+        m = np.stack([-c2w[:3, 1], c2w[:3, 0], c2w[:3, 2], c2w[:3, 3], np.array([H, W, focal], np.float32)], axis=1)
+        rows.append(np.concatenate([m.reshape(-1), [near_b, far_b]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows).astype(np.float64))
+
+
+def write_linemod_scene(
+    root: str,
+    n_train: int = 4,
+    n_val: int = 1,
+    n_test: int = 2,
+    size: int = 16,
+    n_samples: int = 64,
+    seed: int = 0,
+    scene: str = "sphere",
+    device: Optional[torch.device] = None,
+) -> np.ndarray:
+    """Write a renderable LINEMOD-format dataset: per split a
+    transforms_{split}.json with absolute ``file_path`` entries, each
+    frame's ``intrinsic_matrix`` and the split's ``near`` / ``far`` (not
+    integers: train 2.3 / 5.3, test 2.7 / 5.7, so the loader's floor / ceil
+    gives 2 / 6), and 3-channel PNGs. Returns the 3x3 K written."""
+    device = resolve_device(device)
+    H = W = size
+    focal = 0.9 * W
+    K = np.array([[focal, 0.0, 0.5 * W], [0.0, focal, 0.5 * H], [0.0, 0.0, 1.0]])
+    rng = np.random.default_rng(seed)
+    bounds = {"train": (2.3, 5.3), "val": (2.5, 5.5), "test": (2.7, 5.7)}
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            theta = float(rng.uniform(-180.0, 180.0))
+            phi = float(rng.uniform(-60.0, -10.0))
+            c2w = pose_spherical(theta, phi, 4.0)
+            rgb = _render_pose_chunked(H, W, focal, c2w, 2.0, 6.0, n_samples, scene, True, device)
+            path = os.path.abspath(os.path.join(root, split, f"r_{i}.png"))
+            write_png_bytes(path, _png8(rgb))
+            frames.append({"file_path": path, "transform_matrix": c2w.tolist(), "intrinsic_matrix": K.tolist()})
+        near, far = bounds[split]
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"frames": frames, "near": near, "far": far}, f)
+    return K
+
+
+def write_deepvoxels_scene(
+    root: str,
+    scene_name: str = "cube",
+    n_train: int = 3,
+    n_val: int = 1,
+    n_test: int = 1,
+    n_samples: int = 32,
+    seed: int = 0,
+    scene: str = "sphere",
+    device: Optional[torch.device] = None,
+) -> None:
+    """Write a renderable DeepVoxels-format dataset:
+    ``{train,validation,test}/<scene_name>/{intrinsics.txt, pose/*.txt,
+    rgb/*.png}`` at the loader's fixed 512 x 512. Each pose file holds
+    ``c2w @ flip`` row-major, so the loader's y / z flip gives ``c2w``
+    back."""
+    device = resolve_device(device)
+    H = W = 512
+    focal = 0.9 * W
+    rng = np.random.default_rng(seed)
+    flip = np.array([[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0], [0, 0, 0, 1.0]])
+    for split, n in (("train", n_train), ("validation", n_val), ("test", n_test)):
+        base = os.path.join(root, split, scene_name)
+        os.makedirs(os.path.join(base, "pose"), exist_ok=True)
+        os.makedirs(os.path.join(base, "rgb"), exist_ok=True)
+        # intrinsics.txt: focal cx cy / barycenter / near / scale / H W / world2cam
+        with open(os.path.join(base, "intrinsics.txt"), "w") as f:
+            f.write(f"{focal} {0.5 * W} {0.5 * H} 0.\n")
+            f.write("0. 0. 0.\n1.\n1.\n")
+            f.write(f"{H} {W}\n")
+            f.write("0\n")
+        for i in range(n):
+            theta = float(rng.uniform(-180.0, 180.0))
+            phi = float(rng.uniform(-60.0, -10.0))
+            c2w = pose_spherical(theta, phi, 4.0)
+            rgb = _render_pose_chunked(H, W, focal, c2w, 2.0, 6.0, n_samples, scene, True, device)
+            write_png_bytes(os.path.join(base, "rgb", f"{i:04d}.png"), _png8(rgb))
+            stored = c2w @ flip
+            with open(os.path.join(base, "pose", f"{i:04d}.txt"), "w") as f:
+                f.write(" ".join(str(float(x)) for x in stored.reshape(-1)))
+
+
+def write_custom_scene(
+    root: str,
+    n_images: int = 10,
+    size: int = 16,
+    n_samples: int = 64,
+    seed: int = 0,
+    scene: str = "sphere",
+    device: Optional[torch.device] = None,
+) -> None:
+    """Write a renderable custom ("SW capture")-format dataset: one
+    transforms.json with ``fl_x`` / ``fl_y`` / ``cx`` / ``cy`` and relative
+    ``file_path`` entries with their extension, and RGB (3-channel) PNGs, so
+    that the loader pads the alpha; the loader makes the split."""
+    device = resolve_device(device)
+    H = W = size
+    focal = 0.9 * W
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    frames = []
+    for i in range(n_images):
+        theta = float(rng.uniform(-180.0, 180.0))
+        phi = float(rng.uniform(-60.0, -10.0))
+        c2w = pose_spherical(theta, phi, 4.0)
+        rgb = _render_pose_chunked(H, W, focal, c2w, 2.0, 6.0, n_samples, scene, True, device)
+        rel = f"images/frame_{i:03d}.png"
+        write_png_bytes(os.path.join(root, rel), _png8(rgb))
+        frames.append({"file_path": rel, "transform_matrix": c2w.tolist()})
+    meta = {"fl_x": focal, "fl_y": focal, "cx": 0.5 * W, "cy": 0.5 * H, "frames": frames}
+    with open(os.path.join(root, "transforms.json"), "w") as f:
+        json.dump(meta, f)

@@ -1,8 +1,8 @@
 """Shared pipeline machinery (port of ``swnerf_tpu/pipelines/common.py``):
 dataset dispatch, the training ray samplers and step wrappers, the
 dead-init watchdog with auto-reseed, path rendering and the eval-metrics
-dump of ``--render_only``. The port loads static and dynamic Blender
-scenes; the other loaders and the mp4 writer are later slices (ROADMAP.md).
+dump of ``--render_only``. ``load_scene`` takes every ``dataset_type`` of
+the JAX package's; the mp4 writer is a later slice (ROADMAP.md).
 
 The samplers stay numpy and, unlike the JAX package's, are seeded from
 ``SWNERF_SEED``; at seed 0 they draw exactly the JAX samplers' indices.
@@ -32,7 +32,7 @@ class Scene:
     """Loaded dataset + camera/bounds metadata."""
 
     images: np.ndarray  # [N, H, W, 3] float32 (already background-composited)
-    poses: np.ndarray  # [N, 4, 4]
+    poses: np.ndarray  # [N, 4, 4] or [N, 3, 4]
     render_poses: np.ndarray
     H: int
     W: int
@@ -57,29 +57,80 @@ def _composite_background(images: np.ndarray, white_bkgd: bool) -> np.ndarray:
 
 
 def load_scene(args) -> Scene:
-    """Dataset dispatch (reference run.py:431-511): ``blender`` and, for the
-    time-conditioned trainers, ``blender_dnerf``, whose ``--render_test``
-    also renders at the test frames' times."""
+    """Dataset dispatch (reference run.py:431-511): ``llff`` (NDC rays unless
+    ``--no_ndc``; every ``llffhold``-th view held out for test and val),
+    ``blender``, ``blender_dnerf`` (the time-conditioned trainers':
+    ``--render_test`` also renders at the test frames' times), ``LINEMOD``,
+    ``deepvoxels`` and ``custom``. ``K`` is the loader's where it gives
+    one."""
+    K = None
     times = render_times = None
-    if args.dataset_type == "blender":
+    ndc = False
+    if args.dataset_type == "llff":
+        from swnerf_torch.data.llff import load_llff_data
+
+        images, poses, bds, render_poses, i_test = load_llff_data(
+            args.datadir, args.factor, recenter=True, bd_factor=0.75, spherify=args.spherify
+        )
+        hwf = poses[0, :3, -1]
+        poses = poses[:, :3, :4]
+        if args.llffhold > 0:
+            i_test = np.arange(images.shape[0])[:: args.llffhold]
+        else:
+            i_test = np.array([i_test])
+        i_val = i_test
+        i_train = np.array([i for i in np.arange(images.shape[0]) if i not in i_test and i not in i_val])
+        if args.no_ndc:
+            near, far = float(bds.min() * 0.9), float(bds.max() * 1.0)
+        else:
+            near, far = 0.0, 1.0
+            ndc = True
+    elif args.dataset_type == "blender":
         from swnerf_torch.data.blender import load_blender_data
 
         images, poses, render_poses, hwf, (i_train, i_val, i_test) = load_blender_data(
             args.datadir, args.half_res, args.testskip
         )
+        near, far = 2.0, 6.0
+        images = _composite_background(images, args.white_bkgd)
     elif args.dataset_type == "blender_dnerf":
         from swnerf_torch.data.blender import load_blender_dynamic_data
 
         images, poses, times, render_poses, render_times, hwf, (i_train, i_val, i_test) = (
             load_blender_dynamic_data(args.datadir, args.half_res, args.testskip)
         )
-    else:
-        raise NotImplementedError(
-            f"dataset_type {args.dataset_type!r} is not ported yet (ROADMAP.md Queue A, other loaders)"
+        near, far = 2.0, 6.0
+        images = _composite_background(images, args.white_bkgd)
+    elif args.dataset_type == "LINEMOD":
+        from swnerf_torch.data.linemod import load_linemod_data
+
+        images, poses, render_poses, hwf, K, (i_train, i_val, i_test), near, far = load_linemod_data(
+            args.datadir, args.half_res, args.testskip
         )
-    images = _composite_background(images, args.white_bkgd)
+        images = _composite_background(images, args.white_bkgd)
+    elif args.dataset_type == "deepvoxels":
+        from swnerf_torch.data.deepvoxels import load_dv_data
+
+        images, poses, render_poses, hwf, (i_train, i_val, i_test) = load_dv_data(
+            scene=args.shape, basedir=args.datadir, testskip=args.testskip
+        )
+        hemi_r = float(np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1)))
+        near, far = hemi_r - 1.0, hemi_r + 1.0
+    elif args.dataset_type == "custom":
+        from swnerf_torch.data.custom import load_custom_data
+
+        images, poses, render_poses, K, hwf, (i_train, i_val, i_test) = load_custom_data(
+            args.datadir, args.half_res, args.testskip
+        )
+        near, far = 1.0, 6.0
+        images = _composite_background(images, args.white_bkgd)
+    else:
+        raise ValueError(f"Unknown dataset type {args.dataset_type!r}")
+
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
-    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], dtype=np.float64)
+    if K is None:
+        K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    K = np.asarray(K, dtype=np.float64)
     if getattr(args, "render_test", False):
         render_poses = np.array(poses[i_test])
         if times is not None:
@@ -88,9 +139,9 @@ def load_scene(args) -> Scene:
         images=np.asarray(images, np.float32),
         poses=np.asarray(poses, np.float32),
         render_poses=np.asarray(render_poses, np.float32),
-        H=H, W=W, focal=focal, K=K, near=2.0, far=6.0,
+        H=H, W=W, focal=focal, K=K, near=float(near), far=float(far),
         i_train=np.asarray(i_train), i_val=np.asarray(i_val), i_test=np.asarray(i_test),
-        times=times, render_times=render_times,
+        ndc=ndc, times=times, render_times=render_times,
     )
 
 

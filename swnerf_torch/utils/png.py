@@ -57,6 +57,8 @@ def _unfilter(ftype: np.ndarray, filt: np.ndarray) -> np.ndarray:
     """ftype [B, H], filt [B, H, W, C] -> reconstructed [B, H, W, C] uint8."""
     if ftype.max(initial=0) > 4:
         raise ValueError("PNG row filter type > 4")
+    if not ftype.any():  # every row unfiltered (as write_png_bytes writes them)
+        return filt.copy()
     B, H, W, C = filt.shape
     out = np.zeros((B, H + 1, W + 1, C), np.int32)  # row 0 / col 0: the zero border
     filt = filt.astype(np.int32)

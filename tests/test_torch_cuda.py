@@ -2262,7 +2262,7 @@ def test_pyramid_resize_backward_repeats_on_the_card(dev, n_in, n_out):
 
 # ---------------------------------------------------------------- K steps per dispatch (CUDA-graph replays)
 
-KSTEP_KINDS = ["vanilla", "vanilla_pool", "tnerf", "dnerf_tv",  # the kernel steps
+KSTEP_KINDS = ["vanilla", "vanilla_pool", "vanilla_ndc_pool", "tnerf", "dnerf_tv",  # the kernel steps
                "vanilla_eager", "vanilla_warm", "tnerf_eager", "dnerf_eager", "dnerf_plain"]  # the eager steps
 
 
@@ -2274,7 +2274,8 @@ def _kstep_case(dev, kind, start=0, steps=12):
     depths and density noise (drawn from ``generator``). The kinds: the
     kernel steps; the eager steps with the fields on their kernel routes
     (B7, B7', B6 + B7), run_nerf's fp32 warm step (``_warm``) and the
-    D-NeRF's plain fp32 fields (``_plain``)."""
+    D-NeRF's plain fp32 fields (``_plain``); ``vanilla_ndc_pool`` is the
+    LLFF pool step, its rays projected to NDC inside the step."""
     from swnerf_torch.pipelines.common import Scene, make_image_scan_step, make_pool_scan_step
     from swnerf_torch.pipelines.run_dnerf import make_dnerf_scan_step
     from swnerf_torch.render.core import RenderConfig
@@ -2299,12 +2300,15 @@ def _kstep_case(dev, kind, start=0, steps=12):
     if kind.startswith("vanilla"):
         cfg = VanillaNeRFConfig(netdepth=6, netwidth=128, skips=(4,), multires=10, multires_views=4)
         rcfg = RenderConfig(n_samples=32, n_importance=64, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+        if kind == "vanilla_ndc_pool":  # the LLFF step: NDC rays inside the step, 64 + 64 samples, no background
+            rcfg = RenderConfig(n_samples=64, n_importance=64, perturb=1.0, white_bkgd=False, raw_noise_std=1.0)
+            scene = dataclasses.replace(scene, ndc=True, near=0.0, far=1.0)
         state = init_train_state(VanillaNeRF(cfg, device=dev, generator=gen),
                                  VanillaNeRF(cfg, device=dev, generator=gen), 5e-4, 250, step=start,
                                  graphs=True)
         step = make_fused_train_step(cfg, rcfg, fcfg=cfg) if not eager else make_train_step(
             rcfg, compute_dtype=torch.float32 if kind == "vanilla_warm" else None)
-        if kind == "vanilla_pool":
+        if kind.endswith("_pool"):
             pool = torch.from_numpy(rng.standard_normal((4096, 3, 3)).astype(np.float32)).to(dev)
             pool[:, 0] = pool[:, 0] * 0.2 + torch.tensor([0.0, 0.0, 4.0], device=dev)
             pool[:, 1, 2] = -pool[:, 1, 2].abs() - 1.0
@@ -2444,3 +2448,158 @@ def test_resumed_capturable_adam_moves_its_counts_to_the_card(dev, tmp_path):
     assert int(fresh.count) == fresh.step == 45
     assert all(float(fresh.optimizer.state[p]["step"]) == 5 for p in fresh.optimizer.param_groups[0]["params"])
     assert all(torch.isfinite(p).all() for p in fresh.coarse.parameters())
+
+
+# ---------------------------------------------------------------- the LLFF path's shapes (NDC rays)
+
+
+def _ndc_rays(dev, n, seed=0):
+    """Rays of a forward-facing camera (a 504 x 504 frame, focal 453.6)
+    projected to NDC as the LLFF path projects them: near 0, far 1, and 64
+    depths each, jittered."""
+    from swnerf_torch.ops.rays import ndc_rays
+    from swnerf_torch.ops.sampling import sample_along_rays
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pix = torch.rand((n, 2), generator=g, device=dev) * 504
+    d = torch.stack([(pix[:, 1] - 252) / 453.6, -(pix[:, 0] - 252) / 453.6, -torch.ones(n, device=dev)], -1)
+    o = torch.randn((n, 3), generator=g, device=dev) * 0.1
+    vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    o, d = ndc_rays(504, 504, 453.6, 1.0, o, d)
+    z = sample_along_rays(torch.zeros(n, device=dev), torch.ones(n, device=dev), 64, 1.0, generator=g)
+    return o.contiguous(), d.contiguous(), vd, z.contiguous(), g
+
+
+def _ndc_fine_z(dev, packed, o, d, ve, z, g):
+    """The fine pass's 64 + 64 depths: B2 on the coarse twin's weights."""
+    from swnerf_torch.ops.sampling import merge_z_vals
+
+    w = b3.render_pass_plain(packed, o, d, ve, z, _dists(z, d), None, False).weights
+    u = torch.rand((z.shape[0], 64), generator=g, device=dev)
+    return merge_z_vals(z, b2.sample_pdf((0.5 * (z[:, 1:] + z[:, :-1])).contiguous(), w[:, 1:-1], u)).contiguous()
+
+
+def _dists(z, d):
+    from swnerf_torch.render.fused_eval import _dists_scaled
+
+    return _dists_scaled(z, d).contiguous()
+
+
+def test_b2_ndc_64_samples_bit_exact(dev):
+    """B2 at the LLFF path's 63 bins -> 64 samples on NDC depths, linspace
+    (serving) and random (training) u: bit-equal to its twin."""
+    n = 20000
+    _, _, _, z, g = _ndc_rays(dev, n)
+    bins = (0.5 * (z[:, 1:] + z[:, :-1])).contiguous()
+    w64 = torch.rand((n, 64), generator=g, device=dev)
+    w64[: n // 4, 20:] = 0.0
+    for u in (torch.linspace(0.0, 1.0, 64, device=dev).expand(n, 64), torch.rand((n, 64), generator=g, device=dev)):
+        got, ref = b2.sample_pdf(bins, w64[:, 1:-1], u), b2.sample_pdf_plain(bins, w64[:, 1:-1], u)
+        torch.cuda.synchronize()
+        assert _same_bits(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [32768, 24640], ids=["chunk", "ragged"])
+def test_b3_ndc_s128_matches_plain(dev, dtype, n):
+    """B3 from rays at S = 64 and 128 (64 + 64) on NDC rays, at the serving
+    chunk and the ragged last chunk of a 504 x 504 frame: fp32 atol 1e-4 on
+    rgb / acc and rtol 1e-4 on depth; bf16 mean |drgb| <= 1e-3 over every
+    ray and max |drgb| <= 1e-2 over the rays whose last sample did not flip.
+    The last interval is 1e10 long, so there a density of +1e-5 or -1e-5
+    makes the sample opaque or empty; bf16 rounding moves such a density
+    across 0 (the bf16 twin against the fp32 twin: 66 of 32,768 rays of
+    seed 0's coarse net, up to 0.55 in rgb; the kernel against the bf16
+    twin: 2), on NDC and Blender rays alike (ROADMAP.md Queue C). A flip
+    (the last weight moved by more than 0.5) must sit at the kink (the
+    twin's last density within 1e-3 of 0) and stay under 0.1% of the
+    rays."""
+    cfg = VanillaNeRFConfig()
+    coarse, fine = (VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(s), fused=False)
+                    for s in (0, 1))
+    o, d, vd, z, g = _ndc_rays(dev, n)
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    zf = _ndc_fine_z(dev, b3.pack_params(coarse.state_dict(), cfg, torch.float32), o, d, ve, z, g)
+    for model, zz in ((coarse, z), (fine, zf)):
+        S = zz.shape[1]
+        packed = b3.pack_params(model.state_dict(), cfg, dtype)
+        before = launches[f"render_pass[S={S}]"]
+        got = b3.render_pass(packed, o, d, ve, zz, _dists(zz, d), None, False)
+        ref = b3.render_pass_plain(packed, o, d, ve, zz, _dists(zz, d), None, False)
+        torch.cuda.synchronize()
+        assert launches[f"render_pass[S={S}]"] == before + 1
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+            torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+            torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+        else:
+            diff = (got.rgb - ref.rgb).abs()
+            last = b3.field_forward(packed, o, d, ve, zz, None, None).sigma.reshape(n, S)[:, -1]
+            flip = (got.weights[:, -1] - ref.weights[:, -1]).abs() > 0.5
+            assert diff.mean().item() <= 1e-3 and diff[~flip].max().item() <= 1e-2, S
+            assert flip.sum().item() <= n // 1000 and bool((last[flip].abs() < 1e-3).all()), S
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b1_ndc_s128_matches_plain(dev, dtype):
+    """B1 in train mode on a fern step's shape (1,024 NDC rays, noise std 1,
+    no background) at S = 64 and 128: fp32 at the output bars and the fp32
+    gradient bar (with the float64 fallback), bf16 rgb max 1e-2 / mean
+    1e-3 and gradients rel L2 1e-2; two launches give bit-equal
+    gradients."""
+    cfg = VanillaNeRFConfig()
+    coarse, fine = (VanillaNeRF(cfg, device=dev, generator=torch.Generator().manual_seed(s), fused=False)
+                    for s in (2, 3))
+    n = 1024
+    o, d, vd, z, g = _ndc_rays(dev, n, seed=1)
+    ve = positional_encoding(vd, cfg.nf_views).contiguous()
+    zf = _ndc_fine_z(dev, b3.pack_params(coarse.state_dict(), cfg, torch.float32), o, d, ve, z, g)
+    target = torch.rand((n, 3), generator=g, device=dev)
+    scale = 1.0 / (3 * n)
+    for model, zz in ((coarse, z), (fine, zf)):
+        packed = b3.pack_params(model.state_dict(), cfg, dtype)
+        noise = torch.randn(zz.shape, generator=g, device=dev)
+        args = (o, d, ve, zz, _dists(zz, d), noise, target)
+        before = launches[f"render_loss[S={zz.shape[1]}]"]
+        got, gg = b1.render_loss(packed, *args, False, scale)
+        ref, gr = b1.render_loss_plain(packed, *args, False, scale)
+        _, gg2 = b1.render_loss(packed, *args, False, scale)
+        torch.cuda.synchronize()
+        assert launches[f"render_loss[S={zz.shape[1]}]"] == before + 2
+        assert torch.equal(gg[0], gg2[0]) and torch.equal(gg[1], gg2[1])
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.rgb, ref.rgb, atol=1e-4, rtol=0)
+            torch.testing.assert_close(got.acc, ref.acc, atol=1e-4, rtol=0)
+            torch.testing.assert_close(got.depth, ref.depth, atol=1e-5, rtol=1e-4)
+            torch.testing.assert_close(got.sqerr, ref.sqerr, atol=1e-7, rtol=1e-4)
+            p64 = dataclasses.replace(packed, weights=packed.weights.double())
+            _, g64 = b1.render_loss_plain(p64, *(x.double() for x in args), False, scale)
+            _assert_fp32_grads(b1.unpack_grads(gg, packed), b1.unpack_grads(gr, packed), b1.unpack_grads(g64, p64))
+        else:
+            diff = (got.rgb - ref.rgb).abs()
+            assert diff.max().item() <= 1e-2 and diff.mean().item() <= 1e-3
+            rel = _rel_l2(b1.unpack_grads(gg, packed), b1.unpack_grads(gr, packed))
+            assert max(rel.values()) <= 1e-2, rel
+
+
+def test_kstep_ndc_pool_k20_equals_one_step_dispatches(dev):
+    """The LLFF pool step (NDC rays inside the captured step) as one chunk
+    of 20 (one uncaptured step, a capture, 19 replays) and as 20 one-step
+    chunks from the same state, draws and generator: parameters, Adam, the
+    counts, the last metrics and the launches bit-equal."""
+    runs = []
+    for chunks in ((20,), (1,) * 20):
+        state, run = _kstep_case(dev, "vanilla_ndc_pool", steps=20)
+        g = torch.Generator(device=dev).manual_seed(11)
+        launches.clear()
+        j = 0
+        for k in chunks:
+            m = run(state, j, k, g)
+            j += k
+        torch.cuda.synchronize()
+        runs.append((state, {key: v.clone() for key, v in m.items()}, dict(launches)))
+    (sa, ma, la), (sb, mb, lb) = runs
+    assert sa.step == sb.step == 20 and int(sa.count) == int(sb.count) == 20
+    assert all(torch.equal(a, b) for a, b in zip(_train_state_tensors(sa), _train_state_tensors(sb)))
+    assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
+    assert la == lb == {"render_loss[S=64]": 20, "render_loss[S=128]": 20, "sample_pdf": 20}
