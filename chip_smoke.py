@@ -281,9 +281,28 @@ Phases (each raises on failure; nothing is caught):
      steps (seed 0, K = 20), --render_only --render_test of views 0, 8 and
      16: mean test PSNR at data_range 1 >= 28.0 dB, the fp32 plain route
      within 0.1 dB; ms per step;
+ 40. what the trainers save, log and check, at the flagship shape (the
+     config of phase 9: D=8, W=256, 1,024 rays x (64 + 64+128), bf16
+     kernels, K = 20, resumed from a copy of 010000.tar): run_nerf for 40
+     steps with SWNERF_CKPT_FORMAT=both, --i_weights 20, SWNERF_DEBUG_NANS=1
+     and SWNERF_PROFILE_DIR, bit-equal (parameters, Adam, metrics.jsonl) to
+     the same 40 steps with the switches off; the .tar and the .msgpack of
+     steps 20 and 40 bit-equal; the Chrome trace names B1's and B2's
+     kernels; 20 more steps resumed from the .msgpack alone bit-equal to
+     the resume from the .tar (the profiler on in one, its cost a step
+     from the two); a NaN planted in one weight of the snapshot raises
+     FloatingPointError in the first chunk; --render_only --render_test
+     (every run of the phase loads the test split at --testskip 5) with
+     SWNERF_LPIPS_DIR on seeded weights in the torchvision / lpips
+     layouts: LPIPS within 1e-4 of the same frames scored on the CPU; eval_dirs on that directory against its ground
+     truth; the spiral through write_video (a GIF without cv2); the native
+     snapshot's save and load ms, LPIPS's ms a frame; one
+     --do_half_precision D-NeRF step on the plain route (SWNERF_FUSED=0)
+     and the plain field held to a float64 reference with bf16-rounded
+     matmul inputs;
      then the JSON lines.
 
-The training phases (9, 15, 21, 28, 34, 37, 39) run at the card's default of 20
+The training phases (9, 15, 21, 28, 34, 37, 39, 40) run at the card's default of 20
 steps a dispatch: their launch counts are the graphs' replays' (each
 replay adds what its capture recorded).
 
@@ -824,6 +843,12 @@ def main() -> int:
         # run_nerf, the kernels against their twins on its NDC rays, and
         # the LLFF quality recipe
         kernels += llff_phases(dev, tmp)
+        # ---- 40. what the trainers save, log and check: the native
+        # snapshot, the debug-NaN switch, the step profiler, LPIPS,
+        # eval_dirs, the video writer and --do_half_precision
+        p40 = phase40_tools(dev, tmp, tmp / "data_dyn_400")
+        for k in kernels:
+            k["launches"] += p40.get(k["name"], 0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5408,6 +5433,350 @@ def phase39_quality(tmp):
         fail(f"39: mean test PSNR {mean_k:.3f} dB below 28.0, or {abs(mean_k - mean_p):.4f} dB from the fp32 plain "
              f"route's (views {list(scene.i_test)})")
     TC_SUMMARY["LLFF quality (phase 39)"] = f"{med:.3f} ms per train step, mean test PSNR {mean_k:.3f} dB"
+
+
+
+# ---------------------------------------------------------------- what the trainers save, log and check
+P40_STEPS, P40_SAVE = 40, 20  # phase 40's run length and its save and print cadence (K = 20 chunks)
+
+
+def write_lpips_weights(d, seed=0):
+    """Seeded LPIPS weights in the layouts SWNERF_LPIPS_DIR takes: the
+    torchvision backbones (alexnet.pth, vgg16.pth: features.N.*,
+    He-scaled) and the lpips heads (alex.pth, vgg.pth: linN.model.1.weight,
+    non-negative)."""
+    import torch
+
+    from swnerf_torch.utils import lpips as lpips_torch
+
+    g = torch.Generator().manual_seed(seed)
+    for net, (convs, feature_idx, taps, _) in lpips_torch.NETS.items():
+        sd = {}
+        for (cin, cout, k, _, _), fi in zip(convs, feature_idx):
+            sd[f"features.{fi}.weight"] = torch.randn((cout, cin, k, k), generator=g) * (2.0 / (cin * k * k)) ** 0.5
+            sd[f"features.{fi}.bias"] = torch.randn((cout,), generator=g) * 0.01
+        heads = {f"lin{i}.model.1.weight": torch.rand((1, convs[t][1], 1, 1), generator=g) for i, t in enumerate(taps)}
+        backbone, head = lpips_torch.NET_FILES[net]
+        torch.save(sd, str(d / backbone))
+        torch.save(heads, str(d / head))
+
+
+def snapshot_tensors(path):
+    """Every weight, Adam moment and count of a vanilla .tar or .msgpack as
+    {(where, name): CPU tensor}, in the port's layout."""
+    import torch
+
+    from swnerf_torch.train import checkpoint as ck
+    from swnerf_torch.utils import msgpack
+
+    out = {}
+    if path.suffix == ".tar":
+        ckpt = ck.load_tar(str(path))
+        for net in ("network_fn_state_dict", "network_fine_state_dict"):
+            out.update({(net, k): v for k, v in ckpt[net].items()})
+        opt = ckpt["optimizer_state_dict"]
+    else:
+        state = msgpack.unpackb(path.read_bytes())["state"]
+        for net, key in (("network_fn_state_dict", "coarse"), ("network_fine_state_dict", "fine")):
+            out.update({(net, k): v for k, v in ck.params_from_jax(state["params"][key]).items()})
+        opt = ck.adam_to_torch_dict(state["opt_state"]["0"], state["params"])
+    for idx, ent in opt["state"].items():
+        for f in ("exp_avg", "exp_avg_sq"):
+            out[("adam", idx, f)] = ent[f]
+        out[("adam", idx, "step")] = torch.as_tensor(float(ent["step"]))
+    return out
+
+
+def same_tensors(a, b):
+    import torch
+
+    return set(a) == set(b) and len(a) > 0 and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase40_tools(dev, tmp, dyn_data):
+    """Phase 40 (the module docstring). Returns its launch counts: the
+    40-step run's and the test render's."""
+    import numpy as np
+    import torch
+
+    from swnerf_torch.ops.kernels import _TRACE_NAME
+    from swnerf_torch.pipelines import common, eval_dirs, run_dnerf, run_nerf
+    from swnerf_torch.train import checkpoint as ck
+    from swnerf_torch.utils import msgpack
+    from swnerf_torch.utils.config import config_parser
+    from swnerf_torch.utils.metrics import lpips
+    from swnerf_torch.utils.png import write_png_bytes
+
+    t_phase = time.perf_counter()
+    start, expname = 10000, "full_nerf_200k"
+    end = start + P40_STEPS
+
+    def argv(base, *extra):
+        return ["--config", str(CONFIG), "--datadir", str(DATADIR), "--basedir", str(base), "--device", dev.type,
+                "--i_print", str(P40_SAVE), "--i_weights", str(P40_SAVE), "--testskip", "5", *extra]
+
+    def fresh(name, files=()):
+        """A log directory holding a copy of 010000.tar, or of ``files``."""
+        exp = tmp / name / expname
+        exp.mkdir(parents=True)
+        for f in files or (CKPT,):
+            shutil.copy(f, exp / Path(f).name)
+        return tmp / name
+
+    # -- 40 steps with every switch on, and with every switch off
+    prof_dir = tmp / "p40_profile"
+    on, off = fresh("p40_on"), fresh("p40_off")
+    switches = {"SWNERF_CKPT_FORMAT": "both", "SWNERF_DEBUG_NANS": "1", "SWNERF_PROFILE_DIR": str(prof_dir),
+                "SWNERF_MAX_ITERS": str(end + 1)}
+    res_on, out_on, counts, wall_on = _cli(run_nerf.main, argv(on), switches)
+    res_off, _, counts_off, wall_off = _cli(run_nerf.main, argv(off), {"SWNERF_MAX_ITERS": str(end + 1)})
+    exp_on, exp_off = on / expname, off / expname
+    saves = [f"{i:06d}" for i in range(start + P40_SAVE, end + 1, P40_SAVE)]
+    listing = sorted(p.name for p in exp_on.iterdir() if p.suffix in (".tar", ".msgpack"))
+    checks = {
+        "both formats at every save": listing == sorted([f"{start:06d}.tar"] + [f"{i}{x}" for i in saves
+                                                                               for x in (".msgpack", ".tar")]),
+        ".tar = .msgpack": all(same_tensors(snapshot_tensors(exp_on / f"{i}.tar"),
+                                            snapshot_tensors(exp_on / f"{i}.msgpack")) for i in saves),
+        "switches on = off": same_tensors(snapshot_tensors(exp_on / f"{end:06d}.tar"),
+                                          snapshot_tensors(exp_off / f"{end:06d}.tar")),
+        "metrics.jsonl": clock_free_records(exp_on) == clock_free_records(exp_off)
+        and len(clock_free_records(exp_on)) > 0,
+        "launches": counts == counts_off and counts.get("render_loss[S=192]") == P40_STEPS,
+        "one capture": sum(ln.startswith("Captured") for ln in out_on.splitlines()) == 1,
+    }
+    traces = sorted(prof_dir.glob("trace_*.json"))
+    names = collections.Counter()
+    if traces:
+        for e in json.loads(traces[0].read_text())["traceEvents"]:
+            m = _TRACE_NAME.match(e.get("name", "")) if e.get("cat") == "kernel" else None
+            if m:
+                names[m.group(1) or m.group(2)] += 1
+    checks["trace names B1 and B2"] = len(traces) == 1 and names["sample_pdf_kernel"] > 0 and (
+        names["render_loss_tc_kernel"] + names["render_loss_fwd_kernel"]) > 0
+    print(f"[40 switches] {P40_STEPS} steps from {start} with SWNERF_CKPT_FORMAT=both, SWNERF_DEBUG_NANS=1, "
+          f"SWNERF_PROFILE_DIR (CLI wall {wall_on:.2f} s) against none (CLI wall {wall_off:.2f} s): " + ", ".join(
+              f"{k} {'yes' if v else 'NO'}" for k, v in checks.items()) + f"; launches {json.dumps(counts, sort_keys=True)}")
+    print(f"[40 trace] {[t.name for t in traces]} ({sum(t.stat().st_size for t in traces) / 2**20:.1f} MiB): the "
+          f"port's kernels by name over the traced chunk {dict(sorted(names.items()))}")
+    if not all(checks.values()):
+        fail(f"40: {checks}")
+
+    # -- 20 more steps from the .msgpack alone (the profiler on) and from the .tar
+    last = exp_on / f"{end:06d}"
+    resumed = {}
+    for fmt, envs in (("msgpack", {"SWNERF_PROFILE_DIR": str(tmp / "p40_profile_resume")}), ("tar", {})):
+        base = fresh(f"p40_resume_{fmt}", [last.with_suffix("." + fmt)])
+        res, out, _, wall = _cli(run_nerf.main, argv(base), {"SWNERF_MAX_ITERS": str(end + P40_SAVE + 1), **envs})
+        if f"Reloading from {base / expname / (last.name + '.' + fmt)}" not in out:
+            fail(f"40: the resume did not read the {fmt}")
+        steps = [ms for i, ms in res["step_ms"].items() if i > end + 2]  # the replays after the capture
+        resumed[fmt] = (snapshot_tensors(base / expname / f"{end + P40_SAVE:06d}.tar"), clock_free_records(base / expname),
+                        statistics.median(steps), wall)
+    (ta, ra, ma, wa), (tb, rb, mb, wb) = resumed["msgpack"], resumed["tar"]
+    print(f"[40 resume] {P40_SAVE} steps from {last.name}.msgpack alone against {last.name}.tar: parameters and Adam "
+          f"{'equal' if same_tensors(ta, tb) else 'DIFFER'}, metrics.jsonl {'equal' if ra == rb and ra else 'DIFFER'}")
+    print(f"[40 profiler] its cost a step: median {ma:.3f} ms per step over the replays with the profiler on (the "
+          f"msgpack resume), {mb:.3f} ms without (CUDA events): {ma - mb:+.3f} ms; CLI wall {wa:.2f} s against "
+          f"{wb:.2f} s for {P40_SAVE} steps: {(wa - wb) / P40_SAVE * 1e3:+.1f} ms a step")
+    if not (same_tensors(ta, tb) and ra == rb and ra):
+        fail("40: the resume from the .msgpack differs from the resume from the .tar")
+
+    # -- a NaN planted in one weight of the snapshot
+    raw = msgpack.unpackb(last.with_suffix(".msgpack").read_bytes())
+    raw["state"]["params"]["coarse"]["pts_linears"]["1"]["w"][7, 11] = np.nan
+    nan_base = tmp / "p40_nan"
+    (nan_base / expname).mkdir(parents=True)
+    (nan_base / expname / f"{end:06d}.msgpack").write_bytes(msgpack.packb(raw))
+    try:
+        _cli(run_nerf.main, argv(nan_base), {"SWNERF_DEBUG_NANS": "1", "SWNERF_MAX_ITERS": str(end + P40_SAVE + 1)})
+    except FloatingPointError as e:
+        # B1's ReLU (fmaxf) maps the NaN pre-activations to 0, so the loss can
+        # stay finite: then the check names the parameter after the chunk
+        print(f"[40 debug nans] a NaN in coarse pts_linears.1.w[7, 11] of {end:06d}.msgpack: {e}")
+        if f"iteration {end + 1} " not in str(e) and f"iterations {end + 1}-{end + P40_SAVE}" not in str(e):
+            fail(f"40: the NaN was not caught in the first chunk ({end + 1}-{end + P40_SAVE}): {e}")
+    else:
+        fail("40: a NaN in the weights did not raise FloatingPointError under SWNERF_DEBUG_NANS=1")
+    torch.cuda.empty_cache()
+
+    # -- the native snapshot's save and load at full width
+    args = config_parser().parse_args(argv(on))
+    state = run_nerf.create_vanilla(args, dev)[0]
+    snap = tmp / "p40_snapshot.msgpack"
+    save_ms, load_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_native(str(snap), ck.native_state(state), {"global_step": end})
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        saved, _ = ck.load_native(str(snap), ck.native_state(state), {"global_step": 0})
+        ck.restore_native_state(state, saved, end)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    n_values = sum(p.numel() for m in state.modules() for p in m.parameters()) * 3
+    print(f"[40 snapshot] {snap.stat().st_size / 1e6:.2f} MB ({n_values:,} fp32 values: params, mu, nu of the two "
+          f"nets): save {statistics.median(save_ms):.1f} ms, load + restore {statistics.median(load_ms):.1f} ms "
+          f"(median of 5, card to host and back; host clock)")
+    del state
+
+    # -- the test views with LPIPS on seeded weights, against the CPU
+    lp_dir = tmp / "p40_lpips"
+    lp_dir.mkdir()
+    write_lpips_weights(lp_dir)
+    frames = []
+    scored = common.calculate_metrics
+
+    def recording(gt, pred, device="cpu"):
+        frames.append((gt, pred))
+        return scored(gt, pred, device=device)
+
+    common.calculate_metrics = recording
+    try:
+        savedir, _, serve, wall = _cli(run_nerf.main, argv(on, "--render_only", "--render_test"),
+                                       {"SWNERF_LPIPS_DIR": str(lp_dir)})
+    finally:
+        common.calculate_metrics = scored
+    metrics = json.loads((Path(savedir) / "metrics.json").read_text())
+    with env(SWNERF_LPIPS_DIR=str(lp_dir)):
+        cpu = [lpips(g, p, device="cpu") for g, p in frames]
+        ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lpips(*frames[0], device=dev)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    got = metrics["lpips"]
+    err = max(abs(a - b) for a, b in zip(got, cpu)) if None not in got and got else float("inf")
+    print(f"[40 lpips] {len(got)} test frames (400x400) through B3: LPIPS(alex) on the card {[round(x, 6) for x in got]}"
+          f", the CPU's max |d| {err:.3e}; {statistics.median(ms[1:]):.2f} ms a frame on the card (LPIPS alone, "
+          f"host clock, median of 5 after one); PSNR {[round(x, 3) for x in metrics['psnr']]}; 'lpips_note' "
+          f"{'present' if 'lpips_note' in metrics else 'absent'}; launches {json.dumps(serve, sort_keys=True)}")
+    if len(got) != 5 or err > 1e-4 or "lpips_note" in metrics or serve.get("render_pass[S=192]", 0) <= 0:
+        fail(f"40: LPIPS {got} against the CPU {cpu}, or the render did not run B3")
+    for k, v in serve.items():
+        counts[k] = counts.get(k, 0) + v
+
+    # -- eval_dirs on that directory against its ground truth
+    scene = common.load_scene(config_parser().parse_args(argv(on)))
+    gt_dir, ev_dir = tmp / "p40_gt", tmp / "p40_eval"
+    gt_dir.mkdir()
+    for i, img in enumerate(scene.images[scene.i_test]):
+        write_png_bytes(str(gt_dir / f"{i:03d}.png"), (255 * np.clip(img, 0, 1)).astype(np.uint8))
+    with env(SWNERF_LPIPS_DIR=str(lp_dir)):
+        ev = eval_dirs.main(["--pred", savedir, "--gt", str(gt_dir), "--out", str(ev_dir), "--device", dev.type])
+    print(f"[40 eval_dirs] {savedir} against the ground truth's PNGs: mean {ev['mean']}")
+    if len(ev["frames"]) != 5 or ev["mean"]["lpips"] is None or not ev["mean"]["psnr"] > 25.0:
+        fail(f"40: eval_dirs gave {ev['mean']}")
+
+    # -- the spiral through write_video
+    spiral, _, _, wall = _cli(run_nerf.main, argv(on, "--render_only", "--render_factor", "4"), {})
+    videos = sorted(p.name for p in Path(spiral).iterdir() if p.stem == "video")
+    try:
+        import cv2
+
+        want, writer = ["video.mp4"], f"cv2 {cv2.__version__} imports here: mp4v"
+    except ImportError:
+        want, writer = ["video.gif"], "no cv2 here: the port's GIF"
+    head = (Path(spiral) / want[0]).read_bytes()[:6] if videos == want else b""
+    print(f"[40 video] the spiral at --render_factor 4: {videos} in {spiral} ({writer}; CLI wall {wall:.2f} s)")
+    if videos != want or (want == ["video.gif"] and head != b"GIF89a"):
+        fail(f"40: the spiral's video is {videos}, not {want}")
+
+    # -- --do_half_precision on the plain route
+    half_precision_hold(dev)
+    dn_base = tmp / "p40_half"
+    _, out, dn_counts, _ = _cli(run_dnerf.main, [
+        "--config", str(DNERF_CONFIG), "--ft_path", str(DNERF_CKPT), "--datadir", str(dyn_data), "--basedir",
+        str(dn_base), "--device", dev.type, "--do_half_precision", "--i_print", "1", "--i_weights", "100000"],
+        {"SWNERF_FUSED": "0", "SWNERF_MAX_ITERS": "800002"})
+    rec = [r for r in clock_free_records(dn_base / "full_dnerf_800k") if "loss" in r]
+    field_kernels = {k: v for k, v in dn_counts.items() if k.startswith(("time_net", "trunk"))}
+    print(f"[40 half precision] one run_dnerf --do_half_precision step under SWNERF_FUSED=0 from 800000.tar: {rec}, "
+          f"field kernel launches {field_kernels}")
+    if len(rec) != 1 or not all(np.isfinite(v) for v in rec[0].values()) or field_kernels:
+        fail("40: the --do_half_precision step did not run on the plain route or its loss is not finite")
+    print(f"[40 done] phase 40 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def half_precision_hold(dev):
+    """D-NeRF's plain field at the config's widths (D=8, W=256, multires 10
+    / 4, seeded weights) with half_precision on 500 rays x 64 points on the
+    card: every dense layer within 1e-5 (relative L2) of float64 on its
+    input and weight rounded to bf16; over the whole forward the float64
+    chain parts from the fp32 one wherever an activation lies within
+    rounding of a bf16 boundary (on the CPU at these widths: dx 1.1e-4,
+    raw 1.4e-3), so dx within 1e-3 and raw within 5e-3 of it, and the
+    fp32 field at least 5 times further."""
+    import torch
+
+    from swnerf_torch.models import DirectTemporalNeRF, DNeRFConfig, common, dnerf, vanilla
+    from swnerf_torch.ops.embedding import positional_encoding
+
+    cfg = dict(netdepth=8, netwidth=256, skips=(4,), multires=10, multires_views=4, use_viewdirs=True,
+               output_ch=4, zero_canonical=False)
+    g = torch.Generator(device=dev).manual_seed(0)
+    half = DirectTemporalNeRF(DNeRFConfig(**cfg, half_precision=True), device=dev, generator=g, fused=False)
+    full = DirectTemporalNeRF(DNeRFConfig(**cfg), device=dev, fused=False)
+    full.load_state_dict(half.state_dict())
+    pts = torch.rand((500, 64, 3), generator=g, device=dev) * 3.0 - 1.5
+    vd = torch.nn.functional.normalize(torch.randn((500, 3), generator=g, device=dev), dim=-1)
+    t = torch.rand((500, 1), generator=g, device=dev)
+
+    def b16(x):
+        return x.detach().float().to(torch.bfloat16).double()
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a.detach().double() - b) / torch.linalg.norm(b))
+
+    errs = []
+
+    def checked(layer, x, flag=False):
+        out = common.dense(layer, x, flag)
+        errs.append(rel(out, b16(x) @ b16(layer.weight).T + layer.bias.detach().double()))
+        return out
+
+    saved = vanilla.dense, dnerf.dense
+    vanilla.dense = dnerf.dense = checked
+    try:
+        with torch.no_grad():
+            raw, extras = half(pts, vd, t)
+    finally:
+        vanilla.dense, dnerf.dense = saved
+    with torch.no_grad():
+        raw32, _ = full(pts, vd, t)
+
+    def ref_dense(lyr, x):
+        return b16(x) @ b16(lyr.weight).T + lyr.bias.detach().double()
+
+    # the encodings as the field computes them (fp32), then float64
+    te = t[..., None, :].expand(500, 64, 1)
+    pe = positional_encoding(pts, cfg["multires"]).double()
+    h = torch.cat([pe, positional_encoding(te, cfg["multires"]).double()], -1)
+    for i, lyr in enumerate(half._time):
+        h = torch.relu(ref_dense(lyr, h))
+        h = torch.cat([pe, h], -1) if i in cfg["skips"] else h
+    dx = ref_dense(half._time_out, h)
+    emb = positional_encoding(pts + dx.float(), cfg["multires"]).double()
+    occ, h = half._occ, emb
+    for i, lyr in enumerate(occ.pts_linears):
+        h = torch.relu(ref_dense(lyr, h))
+        h = torch.cat([emb, h], -1) if i in cfg["skips"] else h
+    alpha = ref_dense(occ.alpha_linear, h)
+    ve = positional_encoding(vd, cfg["multires_views"]).double()[:, None, :].expand(500, 64, -1)
+    h = torch.cat([ref_dense(occ.feature_linear, h), ve], -1)
+    for lyr in occ.views_linears:
+        h = torch.relu(ref_dense(lyr, h))
+    ref = torch.cat([ref_dense(occ.rgb_linear, h), alpha], -1)
+    e_dx, e_raw, e_32 = rel(extras["dx"], dx), rel(raw, ref), rel(raw32, ref)
+    print(f"[40 half precision] D-NeRF plain field, W=256, 32,000 points on the card: the {len(errs)} dense layers "
+          f"within {max(errs):.2e} of float64 on bf16-rounded inputs and weights; dx {e_dx:.2e}, raw {e_raw:.2e} "
+          f"from the float64 chain (the fp32 field {e_32:.2e})")
+    if len(errs) != 21 or max(errs) > 1e-5 or e_dx > 1e-3 or e_raw > 5e-3 or not e_32 > 5 * e_raw:
+        fail("40: the --do_half_precision field is outside its bars")
 
 
 if __name__ == "__main__":

@@ -99,6 +99,24 @@ def init_mlp_stack(
     return layers
 
 
-def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``x @ W^T + b`` in fp32."""
+class _RoundBF16(torch.autograd.Function):
+    """Round to bf16 and back in the forward; pass the cotangent through."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, half: bool = False) -> torch.Tensor:
+    """``x @ W^T + b`` in fp32. ``half`` (a field config's
+    ``half_precision``, D-NeRF's ``--do_half_precision``): ``x`` and ``W``
+    rounded to bf16 first, the product and the bias in fp32, the port of
+    the JAX package's ``dense(..., precision=Precision.DEFAULT)`` (one bf16
+    pass with an fp32 sum on a TPU); the cotangents stay fp32."""
+    if half:
+        return torch.nn.functional.linear(_RoundBF16.apply(x), _RoundBF16.apply(layer.weight), layer.bias)
     return torch.nn.functional.linear(x, layer.weight, layer.bias)

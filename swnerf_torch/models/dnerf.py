@@ -67,6 +67,8 @@ class DNeRFConfig:
     use_viewdirs: bool = True
     output_ch: int = 4
     zero_canonical: bool = True
+    # --do_half_precision: bf16-rounded dense inputs and weights on the plain route
+    half_precision: bool = False
 
     @property
     def nf_pts(self) -> int:
@@ -145,11 +147,12 @@ class DirectTemporalNeRF(Field):
         """``apply_time_net``: [embed(x) | embed(t)] -> dx, the skip
         concatenating embed(x) only."""
         h = torch.cat([pts_emb, time_emb], -1)
+        half = self.cfg.half_precision
         for i, lyr in enumerate(self._time):
-            h = torch.relu(dense(lyr, h))
+            h = torch.relu(dense(lyr, h, half))
             if i in self.cfg.skips:
                 h = torch.cat([pts_emb, h], -1)
-        return dense(self._time_out, h)
+        return dense(self._time_out, h, half)
 
     def forward(self, pts: torch.Tensor, viewdirs: Optional[torch.Tensor], times: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -53,6 +53,7 @@ class VanillaNeRFConfig:
     i_embed: int = 0  # 0: fourier encoding, -1: identity
     use_viewdirs: bool = True
     output_ch: int = 4  # only used when use_viewdirs=False
+    half_precision: bool = False  # bf16-rounded dense inputs and weights (common.dense)
 
     @property
     def nf_pts(self) -> int:
@@ -114,18 +115,19 @@ class VanillaNeRF(Field):
     def trunk(self, pts_emb: torch.Tensor, views_emb: Optional[torch.Tensor]) -> torch.Tensor:
         """The MLP on already-embedded inputs (``apply_vanilla_trunk``):
         raw ``[..., 4]`` (or ``[..., output_ch]`` without view directions)."""
+        half = self.cfg.half_precision
         h = pts_emb
         for i, lyr in enumerate(self.pts_linears):
-            h = torch.relu(dense(lyr, h))
+            h = torch.relu(dense(lyr, h, half))
             if i in self.cfg.skips:
                 h = torch.cat([pts_emb, h], -1)
         if self.cfg.use_viewdirs:
-            alpha = dense(self.alpha_linear, h)
-            h = torch.cat([dense(self.feature_linear, h), views_emb], -1)
+            alpha = dense(self.alpha_linear, h, half)
+            h = torch.cat([dense(self.feature_linear, h, half), views_emb], -1)
             for lyr in self.views_linears:
-                h = torch.relu(dense(lyr, h))
-            return torch.cat([dense(self.rgb_linear, h), alpha], -1)
-        return dense(self.output_linear, h)
+                h = torch.relu(dense(lyr, h, half))
+            return torch.cat([dense(self.rgb_linear, h, half), alpha], -1)
+        return dense(self.output_linear, h, half)
 
     def kernel_trunk(self, pts_emb: torch.Tensor, views_emb: torch.Tensor, need_input_grads: bool = False
                      ) -> torch.Tensor:

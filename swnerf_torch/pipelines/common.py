@@ -1,8 +1,8 @@
 """Shared pipeline machinery (port of ``swnerf_tpu/pipelines/common.py``):
 dataset dispatch, the training ray samplers and step wrappers, the
-dead-init watchdog with auto-reseed, path rendering and the eval-metrics
-dump of ``--render_only``. ``load_scene`` takes every ``dataset_type`` of
-the JAX package's; the mp4 writer is a later slice (ROADMAP.md).
+dead-init watchdog with auto-reseed, path rendering and the video and
+eval-metrics dump of ``--render_only``. ``load_scene`` takes every
+``dataset_type`` of the JAX package's.
 
 The samplers stay numpy and, unlike the JAX package's, are seeded from
 ``SWNERF_SEED``; at seed 0 they draw exactly the JAX samplers' indices.
@@ -23,7 +23,7 @@ import torch
 from swnerf_torch.ops.kernels import launches
 from swnerf_torch.ops.rays import get_rays_at, get_rays_np
 from swnerf_torch.render.core import RenderConfig, build_rays, make_rays_from_camera, render_image
-from swnerf_torch.utils.media import write_png
+from swnerf_torch.utils.media import write_png, write_video
 from swnerf_torch.utils.metrics import LPIPS_UNAVAILABLE_NOTE, calculate_metrics
 
 
@@ -677,8 +677,11 @@ def render_path(
 def render_only(model, fine_model, scene: Scene, cfg: RenderConfig, args, start: int, eval_pass=None) -> str:
     """The --render_only path (run.py:557-596): render the test poses or
     the spiral path (at ``scene.render_times`` for a dynamic scene), write
-    PNGs, and metrics.json when the ground truth is known. metrics.json also
-    records each frame's render seconds."""
+    PNGs and ``video.mp4`` (a GIF without cv2, ``utils/media.py``), and
+    metrics.json when the ground truth is known: PSNR, SSIM and LPIPS (alex,
+    on the model's device, where ``SWNERF_LPIPS_DIR`` holds its weights;
+    null with a note otherwise). metrics.json also records each frame's
+    render seconds."""
     suffix = "test" if args.render_test else "path"
     savedir = os.path.join(args.basedir, args.expname, f"renderonly_{suffix}_{start:06d}")
     os.makedirs(savedir, exist_ok=True)
@@ -686,14 +689,15 @@ def render_only(model, fine_model, scene: Scene, cfg: RenderConfig, args, start:
         model, fine_model, scene.render_poses, scene, cfg, chunk=args.chunk, savedir=savedir,
         render_factor=args.render_factor, eval_pass=eval_pass, times=scene.render_times,
     )
+    write_video(os.path.join(savedir, "video.mp4"), rgbs)
     payload = {"seconds_per_frame": seconds}
     if args.render_test and args.render_factor == 0:
         gt = scene.images[scene.i_test]
-        metrics = [calculate_metrics(g, p) for g, p in zip(gt, rgbs)]
-        payload.update(
-            psnr=[m[0] for m in metrics], ssim=[m[1] for m in metrics], lpips=[m[2] for m in metrics],
-            lpips_note=LPIPS_UNAVAILABLE_NOTE,
-        )
+        device = next(model.parameters()).device
+        metrics = [calculate_metrics(g, p, device=device) for g, p in zip(gt, rgbs)]
+        payload.update(psnr=[m[0] for m in metrics], ssim=[m[1] for m in metrics], lpips=[m[2] for m in metrics])
+        if any(m[2] is None for m in metrics):
+            payload["lpips_note"] = LPIPS_UNAVAILABLE_NOTE
     with open(os.path.join(savedir, "metrics.json"), "w") as f:
         json.dump(payload, f, indent=4)
     return savedir

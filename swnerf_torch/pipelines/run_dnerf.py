@@ -12,26 +12,32 @@ The dnerf flag set (``config_parser_dnerf``), the dynamic Blender loader,
 (NeRFOriginal), skip 4, ``--use_two_models_for_fine``, ``--add_tv_loss``
 (the same rays at a random interpolated neighbour time, penalising
 ``sum((dx - dx_neighbour)^2) * tv_loss_weight``, run_dnerf.py:690-725) and
-the time curriculum. Training resumes from the latest ``.tar`` of the
-experiment (or ``--ft_path``) with its Adam state and runs one train step per
-iteration: the kernel step (B6, B3's pts mode, B5, B2) where
-``supports_fused_dnerf_step`` and ``utils/switches.py::kernel_step`` hold,
-else the eager autograd step (B6 and B7 on a card, the fp32 plain route
-under ``SWNERF_FUSED=0`` or ``SWNERF_FUSED_DTYPE=f32``). It saves ``{iter:06d}.tar`` every ``--i_weights``
-(with a fine dict for two models), renders the test views at their frame
-times every ``--i_testset`` and the render path as PNG frames every
-``--i_video``, and prints and logs to ``metrics.jsonl`` every ``--i_print``.
+the time curriculum. Training resumes from the latest ``.tar`` or native
+``.msgpack`` of the experiment (or ``--ft_path``) with its Adam state and
+runs one train step per iteration: the kernel step (B6, B3's pts mode, B5,
+B2) where ``supports_fused_dnerf_step`` and ``utils/switches.py::kernel_step``
+hold, else the eager autograd step (B6 and B7 on a card, the fp32 plain
+route under ``SWNERF_FUSED=0`` or ``SWNERF_FUSED_DTYPE=f32``). It saves
+``{iter:06d}.tar`` (with a fine dict for two models; and/or the native
+``.msgpack``, ``SWNERF_CKPT_FORMAT``) every ``--i_weights``, renders the
+test views at their frame times every ``--i_testset`` and the render path as
+PNG frames and rgb / disp videos every ``--i_video``, logs the gt, rgb and
+disp of a val view to TensorBoard every ``--i_img`` (where tensorboardX
+imports), and prints and logs to ``metrics.jsonl`` every ``--i_print``.
 ``SWNERF_MAX_ITERS`` caps the iteration count (testing).
+``--do_half_precision`` rounds each dense layer's inputs and weights to bf16
+(fp32 products and sums) on the fields' plain route (``SWNERF_FUSED=0`` or
+``SWNERF_FUSED_DTYPE=f32``), the port of the JAX package's
+``Precision.DEFAULT`` there; the kernel route runs bf16 operands anyway.
 
 Serving: ``--render_only --render_test`` renders the test views at their
 frame times through the D-NeRF eval pass (B6, B3's pts mode, B2) and writes
-PNG frames and metrics.json; ``--render_only`` alone renders the first render
-pose swept over 120 times into ``time_only/`` (run_dnerf.py:553-566). Steps
-run ``SWNERF_STEPS_PER_DISPATCH`` at a time (:func:`make_dnerf_scan_step`;
-20 on a card: CUDA-graph replays). Not ported yet (ROADMAP.md): the mp4
-writer, tensor and data parallelism, the native/orbax checkpoint formats, the TensorBoard image
-log of ``--i_img``; ``--do_half_precision`` has no effect (the kernels run
-bf16 on the card; the plain route runs fp32).
+PNG frames, the video and metrics.json; ``--render_only`` alone renders the
+first render pose swept over 120 times into ``time_only/`` and the
+``time_rgb`` / ``time_disp`` videos (run_dnerf.py:553-566). Steps run
+``SWNERF_STEPS_PER_DISPATCH`` at a time (:func:`make_dnerf_scan_step`; 20 on
+a card: CUDA-graph replays). Not ported yet (ROADMAP.md): tensor and data
+parallelism.
 
 The train split's time checks (first 0, last 1, run_dnerf.py:297-298) hold
 for training only: ``--testskip`` strides the train split too, so
@@ -41,6 +47,7 @@ for training only: ``--testskip`` strides the train split too, so
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Callable, Dict, Union
 
 import numpy as np
@@ -67,19 +74,26 @@ from swnerf_torch.pipelines.common import (
 )
 from swnerf_torch.render.core import RenderConfig
 from swnerf_torch.render.fused_eval import make_dnerf_eval_pass, supports_dnerf_eval_pass
-from swnerf_torch.train.checkpoint import dnerf_state_dict, find_checkpoints, load_tar, save_tar
+from swnerf_torch.train.checkpoint import (
+    dnerf_state_dict,
+    native_state,
+    restore_native_state,
+    resume_checkpoint,
+    save_checkpoint,
+)
 from swnerf_torch.train.fused_step import make_fused_dnerf_step, supports_fused_dnerf_step
 from swnerf_torch.train.loop import TrainState, init_train_state, make_dnerf_train_step
 from swnerf_torch.utils.config import config_parser_dnerf
 from swnerf_torch.utils.switches import eval_pass_route, kernel_step
 from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
+from swnerf_torch.utils.media import write_video
 
 
 def _model_config(args, depth: int, width: int) -> DNeRFConfig:
     return DNeRFConfig(
         netdepth=depth, netwidth=width, skips=(4,), multires=args.multires, multires_views=args.multires_views,
         i_embed=args.i_embed, use_viewdirs=args.use_viewdirs, output_ch=5 if args.N_importance > 0 else 4,
-        zero_canonical=not args.not_zero_canonical,
+        zero_canonical=not args.not_zero_canonical, half_precision=args.do_half_precision,
     )
 
 
@@ -111,16 +125,16 @@ def create_dnerf(args, device: torch.device):
     )
     state = init_train_state(model, fine, args.lrate, args.lrate_decay, graphs=True)
 
-    ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
-    if ckpts and not args.no_reload:
-        print("Reloading from", ckpts[-1])
-        ckpt = load_tar(ckpts[-1])
+    def restore_tar(ckpt):
         state.set_step(int(ckpt["global_step"]))
         model.load_state_dict(dnerf_state_dict(ckpt["network_fn_state_dict"]))
         if fine is not None and ckpt.get("network_fine_state_dict"):
             fine.load_state_dict(dnerf_state_dict(ckpt["network_fine_state_dict"]))
         if ckpt.get("optimizer_state_dict"):
             state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+
+    resume_checkpoint(args.basedir, args.expname, args.ft_path, args.no_reload, lambda: native_state(state),
+                      partial(restore_native_state, state), restore_tar)
 
     eval_pass = None
     covered = kind == "direct_temporal" and supports_dnerf_eval_pass(mcfg) and (
@@ -132,20 +146,22 @@ def create_dnerf(args, device: torch.device):
 
 
 def save_dnerf_ckpt(args, state: TrainState, i: int) -> str:
-    """``{i:06d}.tar`` with the D-NeRF schema (run_dnerf.py:757-769): the fine
+    """``{i:06d}.tar`` with the D-NeRF schema (run_dnerf.py:757-769: the fine
     dict only for two models; the optimizer's learning rate is the
-    schedule's at ``i``, as the JAX package writes it."""
-    path = os.path.join(args.basedir, args.expname, f"{i:06d}.tar")
-    opt = state.optimizer.state_dict()
-    for group in opt["param_groups"]:
-        group["lr"] = state.schedule(i)
-    payload = {"global_step": i, "network_fn_state_dict": state.coarse.state_dict()}
-    if state.fine is not None:
-        payload["network_fine_state_dict"] = state.fine.state_dict()
-    payload["optimizer_state_dict"] = opt
-    save_tar(path, payload)
-    print("Saved checkpoints at", path)
-    return path
+    schedule's at ``i``, as the JAX package writes it) and/or the native
+    ``{i:06d}.msgpack``, as ``SWNERF_CKPT_FORMAT`` selects. Returns the
+    ``.tar``'s path."""
+    def tar_payload():
+        opt = state.optimizer.state_dict()
+        for group in opt["param_groups"]:
+            group["lr"] = state.schedule(i)
+        payload = {"global_step": i, "network_fn_state_dict": state.coarse.state_dict()}
+        if state.fine is not None:
+            payload["network_fine_state_dict"] = state.fine.state_dict()
+        payload["optimizer_state_dict"] = opt
+        return payload
+
+    return save_checkpoint(args.basedir, args.expname, i, tar_payload, lambda: native_state(state))
 
 
 def make_dnerf_scan_step(train_step, cfg: RenderConfig, scene: Scene, pass_neighbor: bool = True) -> Callable:
@@ -199,9 +215,12 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             savedir = os.path.join(args.basedir, args.expname, "time_only")
             os.makedirs(savedir, exist_ok=True)
             poses = np.broadcast_to(scene.render_poses[0], (120, 4, 4))
-            render_path(state.coarse, state.fine, poses, scene, rcfg, args.chunk, savedir=savedir,
-                        render_factor=args.render_factor, eval_pass=eval_pass,
-                        times=np.linspace(0.0, 1.0, 120).astype(np.float32))
+            rgbs, disps, _ = render_path(state.coarse, state.fine, poses, scene, rcfg, args.chunk, savedir=savedir,
+                                         render_factor=args.render_factor, eval_pass=eval_pass,
+                                         times=np.linspace(0.0, 1.0, 120).astype(np.float32))
+            base = os.path.join(args.basedir, args.expname, "time_")
+            write_video(base + "rgb.mp4", rgbs)
+            write_video(base + "disp.mp4", disps / np.max(disps))
         print("Done rendering", savedir)
         return savedir
 
@@ -227,7 +246,6 @@ def _train_impl(argv=None) -> Union[str, Dict]:
 
     n_iters = int(os.environ.get("SWNERF_MAX_ITERS", args.N_iter + 1))
     samples_per_step = args.N_rand * (rcfg.n_samples + (rcfg.n_samples + rcfg.n_importance if rcfg.n_importance else 0))
-    # i_img ends chunks as in the JAX package, though the port logs no image yet.
     cadences = (args.i_weights, args.i_print, args.i_img, args.i_video, args.i_testset)
     print("Begin")
     print("TRAIN views are", scene.i_train)
@@ -259,11 +277,22 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             tv = f" TV: {m['tv']:.6f}" if "tv" in m else ""
             print(f"[TRAIN] Iter: {i} Loss_fine: {m['loss']:.6f} PSNR: {m['psnr']:.3f}{tv}{rate}", flush=True)
             watchdog.check(i, m["psnr"])
+        if i % args.i_img == 0 and i > 0 and len(scene.i_val) and logger.tb is not None:
+            # One val view to TensorBoard (the render is skipped where no
+            # writer would take it).
+            img_i = int(np.random.default_rng(i).choice(scene.i_val))
+            rgbs, disps, _ = render_path(state.coarse, state.fine, scene.poses[img_i : img_i + 1], scene, rcfg,
+                                         args.chunk, eval_pass=eval_pass, times=scene.times[img_i : img_i + 1])
+            logger.image(i, "gt", scene.images[img_i])
+            logger.image(i, "rgb", rgbs[0])
+            logger.image(i, "disp", disps[0] / max(disps.max(), 1e-8))
         if i % args.i_video == 0 and i > 0:
-            # PNG frames of the render path at its times; the mp4 writer is a later slice.
             viddir = os.path.join(args.basedir, args.expname, f"frames_{args.expname}_spiral_{i:06d}_time")
-            render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk, savedir=viddir,
-                        eval_pass=eval_pass, times=scene.render_times)
+            rgbs, disps, _ = render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk,
+                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times)
+            base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
+            write_video(base + "rgb.mp4", rgbs)
+            write_video(base + "disp.mp4", disps / np.max(disps))
         if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
             render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,

@@ -36,10 +36,13 @@ backward (``render_loss.render_outputs_autograd``), so the pyramid
 reconstruction's gradient reaches every level through the kernels; on the
 CPU the twins stand in. The host stream (patch corners, image indices,
 neighbour times) is seeded from ``SWNERF_SEED``; at seed 0 it draws the JAX
-package's (which hard-codes 0). Not ported yet (ROADMAP.md): K steps per
-dispatch, tensor and data parallelism, the native/orbax checkpoints and the
-mp4 writer (``--i_video`` writes PNG frames). ``SWNERF_MAX_ITERS`` caps the
-iteration count (testing).
+package's (which hard-codes 0). ``SWNERF_CKPT_FORMAT`` selects the
+``.tar`` and/or the native ``.msgpack`` (``{"params_all", "opt_states"}``,
+the JAX package's MultiRes snapshot), and either resumes. ``--i_video``
+writes each level's PNG frames and the reconstructed video. Not ported yet
+(ROADMAP.md): tensor and data parallelism (the JAX package's MultiRes has
+no K-step dispatch, so the port gives it none). ``SWNERF_MAX_ITERS`` caps
+the iteration count (testing).
 """
 
 from __future__ import annotations
@@ -81,11 +84,17 @@ from swnerf_torch.render.fused_eval import (
     make_dnerf_eval_pass,
     supports_dnerf_eval_pass,
 )
-from swnerf_torch.train.checkpoint import dnerf_state_dict, find_checkpoints, load_tar, save_tar
+from swnerf_torch.train.checkpoint import (
+    dnerf_state_dict,
+    native_state,
+    restore_native_state,
+    resume_checkpoint,
+    save_checkpoint,
+)
 from swnerf_torch.train.loop import TrainState, init_train_state, make_dnerf_train_step, mse, mse_to_psnr
 from swnerf_torch.utils.config import config_parser_dnerf
 from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
-from swnerf_torch.utils.media import write_png
+from swnerf_torch.utils.media import write_png, write_video
 from swnerf_torch.utils.switches import eval_pass_route, fused_multires, operand_dtype
 
 # (position, time, view) frequencies per level; -1 = identity (multires_dnerf.py:665-668).
@@ -165,18 +174,17 @@ def create_multires(args, scene: Scene, device: torch.device):
         scale = 2**layer
         pyr_hwf.append([scene.H // scale, scene.W // scale, scene.focal / scale])
 
-    start = 0
-    ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
-    if ckpts and not args.no_reload:
-        print("Reloading from", ckpts[-1])
-        ckpt = load_tar(ckpts[-1])
-        start = int(ckpt["global_step"])
+    def restore_tar(ckpt):
         for layer, st in enumerate(states):
             st.coarse.load_state_dict(dnerf_state_dict(ckpt[f"network_fn_{layer}"]))
             if st.fine is not None and ckpt.get(f"network_fine_{layer}"):
                 st.fine.load_state_dict(dnerf_state_dict(ckpt[f"network_fine_{layer}"]))
             st.optimizer.load_state_dict(ckpt[f"optimizer_{layer}"])
             st.set_step(_adam_steps(ckpt[f"optimizer_{layer}"]))
+
+    start = resume_checkpoint(args.basedir, args.expname, args.ft_path, args.no_reload,
+                              lambda: native_multires(states),
+                              lambda payload, step: restore_native_multires(states, payload), restore_tar)
 
     rcfg = RenderConfig(
         n_samples=args.N_samples, n_importance=args.N_importance, perturb=args.perturb, lindisp=args.lindisp,
@@ -203,24 +211,44 @@ def make_level_eval_passes(states: List[TrainState], device: torch.device) -> Li
     return out
 
 
+def native_multires(states: List[TrainState]) -> Dict:
+    """The JAX package's MultiRes snapshot state (run_multires.py:223 there)
+    in state-dict form: ``{"params_all": {"l": {"coarse", "fine"}},
+    "opt_states": {"l": optax's chain state}}``, from each level's models and
+    torch Adam."""
+    levels = [native_state(st) for st in states]
+    return {"params_all": {str(l): lv["params"] for l, lv in enumerate(levels)},
+            "opt_states": {str(l): lv["opt_state"] for l, lv in enumerate(levels)}}
+
+
+def restore_native_multires(states: List[TrainState], payload: Dict) -> None:
+    """The inverse of :func:`native_multires`: each level's weights and
+    Adam, its step its Adam count (as the ``.tar`` resume sets it)."""
+    for layer, st in enumerate(states):
+        opt_state = payload["opt_states"][str(layer)]
+        restore_native_state(st, {"params": payload["params_all"][str(layer)], "opt_state": opt_state},
+                             step=int(opt_state["0"]["count"]))
+
+
 def save_multires_ckpt(args, states: List[TrainState], i: int) -> str:
     """``{i:06d}.tar`` with per-level keys (multires_dnerf.py:1010-1024):
     ``network_fn_{l}``, ``network_fine_{l}`` (two models only) and
     ``optimizer_{l}``, whose learning rate is the level's schedule at its
-    update count."""
-    path = os.path.join(args.basedir, args.expname, f"{i:06d}.tar")
-    payload = {"global_step": i}
-    for layer, st in enumerate(states):
-        payload[f"network_fn_{layer}"] = st.coarse.state_dict()
-        if st.fine is not None:
-            payload[f"network_fine_{layer}"] = st.fine.state_dict()
-        opt = st.optimizer.state_dict()
-        for group in opt["param_groups"]:
-            group["lr"] = st.schedule(st.step)
-        payload[f"optimizer_{layer}"] = opt
-    save_tar(path, payload)
-    print("Saved checkpoints at", path)
-    return path
+    update count; and/or the native ``{i:06d}.msgpack``, as
+    ``SWNERF_CKPT_FORMAT`` selects. Returns the ``.tar``'s path."""
+    def tar_payload():
+        payload = {"global_step": i}
+        for layer, st in enumerate(states):
+            payload[f"network_fn_{layer}"] = st.coarse.state_dict()
+            if st.fine is not None:
+                payload[f"network_fine_{layer}"] = st.fine.state_dict()
+            opt = st.optimizer.state_dict()
+            for group in opt["param_groups"]:
+                group["lr"] = st.schedule(st.step)
+            payload[f"optimizer_{layer}"] = opt
+        return payload
+
+    return save_checkpoint(args.basedir, args.expname, i, tar_payload, lambda: native_multires(states))
 
 
 def level_scene(scene: Scene, hwf, images: Optional[np.ndarray] = None) -> Scene:
@@ -387,9 +415,9 @@ def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: 
 def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: RenderConfig, i: int,
                       eval_passes: Optional[List[Optional[DNeRFEvalPass]]] = None) -> None:
     """The first render pose swept over ``SWNERF_VIDEO_FRAMES`` (120) times
-    per level (through its eval pass where ``eval_passes`` gives one),
-    reconstructed to PNG frames (run_multires.py:639-661; the mp4 writer is
-    a later slice)."""
+    per level (through its eval pass where ``eval_passes`` gives one; PNG
+    frames per level), reconstructed to the ``_reconstructed_{i}_rgb``
+    video (run_multires.py:639-661)."""
     n = int(os.environ.get("SWNERF_VIDEO_FRAMES", 120))
     poses = np.broadcast_to(scene.render_poses[0], (n, 4, 4))
     times = np.linspace(0, 1, n).astype(np.float32)
@@ -400,9 +428,7 @@ def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcf
                                  savedir=savedir, eval_pass=eval_passes[l] if eval_passes else None, times=times)
         level_frames.append(torch.as_tensor(rgbs))
     recon = reconstruct_from_pyramid(level_frames).clamp(0.0, 1.0).numpy()
-    outdir = os.path.join(args.basedir, args.expname, f"{args.expname}_reconstructed_{i:06d}_rgb")
-    for k, frame in enumerate(recon):
-        write_png(os.path.join(outdir, f"{k:03d}.png"), frame)
+    write_video(os.path.join(args.basedir, args.expname, f"{args.expname}_reconstructed_{i:06d}_rgb.mp4"), recon)
 
 
 def _median(ms: Dict[int, float]) -> Optional[float]:

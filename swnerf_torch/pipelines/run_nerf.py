@@ -10,10 +10,15 @@ Training resumes from the latest ``.tar`` of the experiment (or
 (the kernel step on B1 and B2 where ``supports_fused_step`` and
 ``utils/switches.py::kernel_step`` hold, else the eager autograd step,
 whose fields run B7 on a card, or B8 under ``SWNERF_FUSED_RAW=1``), saves
-``{iter:06d}.tar`` every ``--i_weights``, renders the test views through
-B3 every ``--i_testset`` and the spiral path as PNG frames every
-``--i_video``, and prints and logs to ``metrics.jsonl`` every
-``--i_print``. ``SWNERF_MAX_ITERS`` caps the iteration count (testing).
+``{iter:06d}.tar`` (and/or the native ``.msgpack``, ``SWNERF_CKPT_FORMAT``;
+a native snapshot resumes too) every ``--i_weights``, renders the test
+views through B3 every ``--i_testset`` and the spiral path's rgb and disp
+videos every ``--i_video``, and prints and logs to ``metrics.jsonl`` (and
+TensorBoard where tensorboardX imports) every ``--i_print``.
+``SWNERF_MAX_ITERS`` caps the iteration count (testing).
+``SWNERF_DEBUG_NANS=1`` checks each dispatch's losses and the parameters
+(``utils/logging.py::DebugNans``); ``SWNERF_PROFILE_DIR`` traces
+``SWNERF_PROFILE_STEPS`` steps (``utils/profiling.py::StepProfiler``).
 Steps run ``SWNERF_STEPS_PER_DISPATCH`` at a time (20 on a card: one CUDA
 graph of the step replayed per step, ``pipelines/common.py::KStepRoute``),
 in chunks that end on every save, render, print and warm-start iteration.
@@ -25,6 +30,7 @@ Serving renders the test views or the spiral path through B3 and B2.
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Dict
 
 import numpy as np
@@ -49,12 +55,20 @@ from swnerf_torch.pipelines.common import (
 )
 from swnerf_torch.render.core import RenderConfig
 from swnerf_torch.render.fused_eval import make_vanilla_eval_pass, supports_eval_pass
-from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, save_tar, vanilla_state_dict
+from swnerf_torch.train.checkpoint import (
+    native_state,
+    restore_native_state,
+    resume_checkpoint,
+    save_checkpoint,
+    vanilla_state_dict,
+)
 from swnerf_torch.train.fused_step import make_fused_train_step, supports_fused_step
 from swnerf_torch.train.loop import TrainState, init_train_state, make_train_step
 from swnerf_torch.utils.config import config_parser
 from swnerf_torch.utils.switches import eval_pass_route, kernel_step
-from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
+from swnerf_torch.utils.logging import ExperimentLogger, enable_debug_nans, snapshot_args
+from swnerf_torch.utils.media import write_video
+from swnerf_torch.utils.profiling import StepProfiler
 
 N_ITERS = 200000 + 1  # fixed in the vanilla runner (reference run.py:625)
 
@@ -94,16 +108,16 @@ def create_vanilla(args, device: torch.device):
     )
     state = init_train_state(model, fine_model, args.lrate, args.lrate_decay, graphs=True)
 
-    ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
-    if ckpts and not args.no_reload:
-        print("Reloading from", ckpts[-1])
-        ckpt = load_tar(ckpts[-1])
+    def restore_tar(ckpt):
         state.set_step(int(ckpt["global_step"]))
         model.load_state_dict(vanilla_state_dict(ckpt["network_fn_state_dict"]))
         if fine_model is not None and ckpt.get("network_fine_state_dict"):
             fine_model.load_state_dict(vanilla_state_dict(ckpt["network_fine_state_dict"]))
         if ckpt.get("optimizer_state_dict"):
             state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+
+    resume_checkpoint(args.basedir, args.expname, args.ft_path, args.no_reload, lambda: native_state(state),
+                      partial(restore_native_state, state), restore_tar)
 
     eval_pass = None
     if supports_eval_pass(mcfg, fcfg) and eval_pass_route(device):
@@ -113,20 +127,21 @@ def create_vanilla(args, device: torch.device):
 
 
 def save_vanilla_ckpt(args, state: TrainState, i: int) -> str:
-    """``{i:06d}.tar`` with the vanilla schema (run.py:717-723); the
+    """``{i:06d}.tar`` with the vanilla schema (run.py:717-723; the
     optimizer's learning rate is the schedule's at ``i``, as the JAX package
-    writes it."""
-    path = os.path.join(args.basedir, args.expname, f"{i:06d}.tar")
-    opt = state.optimizer.state_dict()
-    for group in opt["param_groups"]:
-        group["lr"] = state.schedule(i)
-    payload = {"global_step": i, "network_fn_state_dict": state.coarse.state_dict()}
-    if state.fine is not None:
-        payload["network_fine_state_dict"] = state.fine.state_dict()
-    payload["optimizer_state_dict"] = opt
-    save_tar(path, payload)
-    print("Saved checkpoints at", path)
-    return path
+    writes it) and/or the native ``{i:06d}.msgpack``, as
+    ``SWNERF_CKPT_FORMAT`` selects. Returns the ``.tar``'s path."""
+    def tar_payload():
+        opt = state.optimizer.state_dict()
+        for group in opt["param_groups"]:
+            group["lr"] = state.schedule(i)
+        payload = {"global_step": i, "network_fn_state_dict": state.coarse.state_dict()}
+        if state.fine is not None:
+            payload["network_fine_state_dict"] = state.fine.state_dict()
+        payload["optimizer_state_dict"] = opt
+        return payload
+
+    return save_checkpoint(args.basedir, args.expname, i, tar_payload, lambda: native_state(state))
 
 
 def warm_start(use_kernel_step: bool, rcfg: RenderConfig):
@@ -179,6 +194,15 @@ def _train_impl(argv=None) -> Dict:
     # K steps per dispatch: each chunk's steps are replays of one CUDA graph
     # on a card (KStepRoute); SWNERF_STEPS_PER_DISPATCH=1 dispatches each.
     k_disp = steps_per_dispatch(device)
+    nan_check = None
+    if os.environ.get("SWNERF_DEBUG_NANS") == "1":
+        # Opt-in analog of the reference's always-on anomaly detection
+        # (utils.py:2): each step records its loss on the device (captured
+        # with the step), each dispatch ends in one check.
+        nan_check = enable_debug_nans([p for m in state.modules() for p in m.parameters()], k_disp)
+        train_step = nan_check.wrap(train_step)
+        warm_train_step = warm_train_step and nan_check.wrap(warm_train_step)
+    profiler = StepProfiler()
     make_scan = make_image_scan_step if args.no_batching else make_pool_scan_step
     scan_fn = make_scan(train_step, rcfg, scene)
     warm_scan_fn = make_scan(warm_train_step, rcfg, scene) if warm_train_step is not None else None
@@ -211,39 +235,46 @@ def _train_impl(argv=None) -> Dict:
 
     metrics = {}
     i = start + 1
-    while i < n_iters:
-        k = chunk_until_event(i, n_iters, k_disp, cadences)
-        # The whole chunk lies on one side of warm_until (a cadence).
-        if i > warm_until and warm_scan_fn is not None:
-            warm_scan_fn = None  # the warm start is over: its graph's pool goes
-        fn = warm_scan_fn if i <= warm_until else scan_fn
-        metrics = run_chunk(fn, i, k, lambda j, i=i: timer.record(i + j))
-        i = i + k - 1  # the chunk's last iteration
+    try:
+        while i < n_iters:
+            k = chunk_until_event(i, n_iters, k_disp, cadences)
+            # The whole chunk lies on one side of warm_until (a cadence).
+            if i > warm_until and warm_scan_fn is not None:
+                warm_scan_fn = None  # the warm start is over: its graph's pool goes
+            fn = warm_scan_fn if i <= warm_until else scan_fn
+            profiler.step(i, start)
+            if nan_check is not None:
+                nan_check.begin(i, k)
+            metrics = run_chunk(fn, i, k, lambda j, i=i: timer.record(i + j))
+            if nan_check is not None:
+                nan_check.check()
+            i = i + k - 1  # the chunk's last iteration
 
-        if i % args.i_weights == 0:
-            save_vanilla_ckpt(args, state, i)
-        if i % args.i_video == 0 and i > 0:
-            # PNG frames of the spiral path; the mp4 writer is a later slice.
-            viddir = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}")
-            os.makedirs(viddir, exist_ok=True)
-            render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk, savedir=viddir,
-                        eval_pass=eval_pass)
-        if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
-            testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
-            os.makedirs(testsavedir, exist_ok=True)
-            render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
-                        savedir=testsavedir, eval_pass=eval_pass)
-            print("Saved test set")
-        if i % args.i_print == 0:
-            timer.collect()
-            m = {k: float(v) for k, v in metrics.items()}
-            logger.scalars(i, m)
-            tp = logger.throughput(i, samples_per_step)
-            rate = f" {tp['ray_samples_per_sec_per_chip'] / 1e6:.2f}M samp/s" if tp else ""
-            print(f"[TRAIN] Iter: {i} Loss: {m['total_loss']:.6f}  PSNR: {m['psnr']:.3f}{rate}", flush=True)
-            watchdog.check(i, m["psnr"])
-        i += 1
-
+            if i % args.i_weights == 0:
+                save_vanilla_ckpt(args, state, i)
+            if i % args.i_video == 0 and i > 0:
+                rgbs, disps, _ = render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk,
+                                             eval_pass=eval_pass)
+                base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
+                write_video(base + "rgb.mp4", rgbs)
+                write_video(base + "disp.mp4", disps / np.max(disps))
+            if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
+                testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
+                os.makedirs(testsavedir, exist_ok=True)
+                render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
+                            savedir=testsavedir, eval_pass=eval_pass)
+                print("Saved test set")
+            if i % args.i_print == 0:
+                timer.collect()
+                m = {k: float(v) for k, v in metrics.items()}
+                logger.scalars(i, m)
+                tp = logger.throughput(i, samples_per_step)
+                rate = f" {tp['ray_samples_per_sec_per_chip'] / 1e6:.2f}M samp/s" if tp else ""
+                print(f"[TRAIN] Iter: {i} Loss: {m['total_loss']:.6f}  PSNR: {m['psnr']:.3f}{rate}", flush=True)
+                watchdog.check(i, m["psnr"])
+            i += 1
+    finally:  # a trace still running is written, and the profiler stops, whatever ended the loop
+        profiler.close(i - 1)
     timer.collect()
     logger.close()
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "step_ms": timer.step_ms}

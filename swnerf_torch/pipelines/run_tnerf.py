@@ -9,17 +9,18 @@ Training (the default) and ``--render_only`` serving::
 The dnerf flag set (``config_parser_dnerf``), the dynamic Blender loader,
 ``net_dim`` 128 and skip 4 whatever ``--netwidth`` says, and
 ``N_importance`` forced to 0 (reference run_tnerf.py:264-280,329).
-Training resumes from the latest ``.tar`` of the experiment (or
-``--ft_path``) with its Adam state, runs one train step per iteration (the
-kernel step on B4 where ``supports_fused_tnerf_step`` and
+Training resumes from the latest ``.tar`` or native ``.msgpack`` of the
+experiment (or ``--ft_path``) with its Adam state, runs one train step per
+iteration (the kernel step on B4 where ``supports_fused_tnerf_step`` and
 ``utils/switches.py::kernel_step`` hold, else the eager autograd step, whose
-field runs B7' on a card), saves
-``{iter:06d}.tar`` every ``--i_weights``, renders the test views at their
-frame times every ``--i_testset`` and the render path as PNG frames every
-``--i_video``, and prints and logs to ``metrics.jsonl`` every ``--i_print``.
-``SWNERF_MAX_ITERS`` caps the iteration count (testing). Serving renders the
-test views (or the render path) at their frame times through B4 and writes
-PNG frames and metrics.json; the mp4 writer is a later slice. Steps run
+field runs B7' on a card), saves ``{iter:06d}.tar`` (and/or the native
+``.msgpack``, ``SWNERF_CKPT_FORMAT``) every ``--i_weights``, renders the
+test views at their frame times every ``--i_testset`` and the render path
+as PNG frames and rgb / disp videos every ``--i_video``, and prints and logs
+to ``metrics.jsonl`` (and TensorBoard where tensorboardX imports) every
+``--i_print``. ``SWNERF_MAX_ITERS`` caps the iteration count (testing).
+Serving renders the test views (or the render path) at their frame times
+through B4 and writes PNG frames, the video and metrics.json. Steps run
 ``SWNERF_STEPS_PER_DISPATCH`` at a time (20 on a card: CUDA-graph replays,
 ``pipelines/common.py::KStepRoute``), through ``run_dnerf``'s
 ``make_dnerf_scan_step`` as in the JAX package. Tensor parallelism and
@@ -29,6 +30,7 @@ multi-GPU are not ported yet (ROADMAP.md).
 from __future__ import annotations
 
 import os
+from functools import partial
 from typing import Dict, Union
 
 import numpy as np
@@ -52,12 +54,19 @@ from swnerf_torch.pipelines.common import (
 from swnerf_torch.pipelines.run_dnerf import make_dnerf_scan_step
 from swnerf_torch.render.core import RenderConfig
 from swnerf_torch.render.fused_eval import make_tnerf_eval_pass
-from swnerf_torch.train.checkpoint import find_checkpoints, load_tar, save_tar, tnerf_state_dict
+from swnerf_torch.train.checkpoint import (
+    native_state,
+    restore_native_state,
+    resume_checkpoint,
+    save_checkpoint,
+    tnerf_state_dict,
+)
 from swnerf_torch.train.fused_step import make_fused_tnerf_step, supports_fused_tnerf_step
 from swnerf_torch.train.loop import TrainState, init_train_state, make_train_step
 from swnerf_torch.utils.config import config_parser_dnerf
 from swnerf_torch.utils.switches import eval_pass_route, kernel_step
 from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
+from swnerf_torch.utils.media import write_video
 
 
 def create_tnerf(args, device: torch.device):
@@ -82,14 +91,14 @@ def create_tnerf(args, device: torch.device):
     )
     state = init_train_state(model, None, args.lrate, args.lrate_decay, graphs=True)
 
-    ckpts = find_checkpoints(args.basedir, args.expname, args.ft_path)
-    if ckpts and not args.no_reload:
-        print("Reloading from", ckpts[-1])
-        ckpt = load_tar(ckpts[-1])
+    def restore_tar(ckpt):
         state.set_step(int(ckpt["global_step"]))
         model.load_state_dict(tnerf_state_dict(ckpt["network_fn_state_dict"]))
         if ckpt.get("optimizer_state_dict"):
             state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+
+    resume_checkpoint(args.basedir, args.expname, args.ft_path, args.no_reload, lambda: native_state(state),
+                      partial(restore_native_state, state), restore_tar)
 
     eval_pass = None
     if supports_tnerf(mcfg) and eval_pass_route(device):
@@ -98,18 +107,17 @@ def create_tnerf(args, device: torch.device):
 
 
 def save_tnerf_ckpt(args, state: TrainState, i: int) -> str:
-    """``{i:06d}.tar`` with the T-NeRF schema (run_tnerf.py:719-728); the
+    """``{i:06d}.tar`` with the T-NeRF schema (run_tnerf.py:719-728; the
     optimizer's learning rate is the schedule's at ``i``, as the JAX package
-    writes it."""
-    path = os.path.join(args.basedir, args.expname, f"{i:06d}.tar")
-    opt = state.optimizer.state_dict()
-    for group in opt["param_groups"]:
-        group["lr"] = state.schedule(i)
-    save_tar(path, {
-        "global_step": i, "network_fn_state_dict": state.coarse.state_dict(), "optimizer_state_dict": opt,
-    })
-    print("Saved checkpoints at", path)
-    return path
+    writes it) and/or the native ``{i:06d}.msgpack``, as
+    ``SWNERF_CKPT_FORMAT`` selects. Returns the ``.tar``'s path."""
+    def tar_payload():
+        opt = state.optimizer.state_dict()
+        for group in opt["param_groups"]:
+            group["lr"] = state.schedule(i)
+        return {"global_step": i, "network_fn_state_dict": state.coarse.state_dict(), "optimizer_state_dict": opt}
+
+    return save_checkpoint(args.basedir, args.expname, i, tar_payload, lambda: native_state(state))
 
 
 def train(argv=None):
@@ -190,10 +198,12 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             print(f"[TRAIN] Iter: {i} Loss: {m['loss']:.6f} PSNR: {m['psnr']:.3f}{rate}", flush=True)
             watchdog.check(i, m["psnr"])
         if i % args.i_video == 0 and i > 0:
-            # PNG frames of the render path at its times; the mp4 writer is a later slice.
             viddir = os.path.join(args.basedir, args.expname, f"frames_{args.expname}_spiral_{i:06d}_time")
-            render_path(state.coarse, None, scene.render_poses, scene, rcfg, args.chunk, savedir=viddir,
-                        eval_pass=eval_pass, times=scene.render_times)
+            rgbs, disps, _ = render_path(state.coarse, None, scene.render_poses, scene, rcfg, args.chunk,
+                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times)
+            base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
+            write_video(base + "rgb.mp4", rgbs)
+            write_video(base + "disp.mp4", disps / np.max(disps))
         if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
             render_path(state.coarse, None, scene.poses[scene.i_test], scene, rcfg, args.chunk,

@@ -1,7 +1,10 @@
 """Evaluation metrics (port of ``swnerf_tpu/utils/metrics.py``): PSNR and
 SSIM to skimage's algorithms (uniform 7x7 filter, sample covariance, border
-crop). LPIPS needs pretrained networks that this port does not ship; it is
-reported as ``None`` with :data:`LPIPS_UNAVAILABLE_NOTE`.
+crop), and LPIPS through the port's own implementation
+(``utils/lpips.py``) on weights the user supplies in ``SWNERF_LPIPS_DIR``;
+without them LPIPS is ``None`` and the callers write
+:data:`LPIPS_UNAVAILABLE_NOTE`. The port does not try the ``lpips`` package
+(it downloads its backbone, and the card's machine has none).
 """
 
 from __future__ import annotations
@@ -10,10 +13,14 @@ from typing import Optional
 
 import numpy as np
 
+from swnerf_torch.utils import lpips as lpips_torch
+
 LPIPS_UNAVAILABLE_NOTE = (
     "lpips unavailable: LPIPS needs pretrained AlexNet/VGG weights, which "
-    "swnerf_torch does not ship or download; this column is null "
-    "(reference nerf/run.py:49-61 uses LPIPS(alex))."
+    "swnerf_torch does not ship or download; point SWNERF_LPIPS_DIR at a "
+    "directory holding torchvision backbone + lpips linear-head state dicts "
+    "({alexnet.pth, alex.pth} and/or {vgg16.pth, vgg.pth}, utils/lpips.py) "
+    "to populate this column (reference nerf/run.py:49-61 uses LPIPS(alex))."
 )
 
 
@@ -86,9 +93,26 @@ def ssim(
     return float(S[crop].mean())
 
 
-def calculate_metrics(gt: np.ndarray, pred: np.ndarray):
-    """Per-frame (psnr, ssim, lpips=None) — reference calculate_metrics
-    (nerf/run.py:49-61): pred clipped to [0,1], data_range from gt."""
+def lpips_available(net: str = "alex") -> bool:
+    """Does ``SWNERF_LPIPS_DIR`` hold ``net``'s weights (``utils/lpips.py``)?"""
+    return lpips_torch.from_env(net) is not None
+
+
+def lpips(gt: np.ndarray, pred: np.ndarray, net: str = "alex", device="cpu") -> Optional[float]:
+    """LPIPS(``net``) of HWC images on ``device``, pred clipped to [0, 1],
+    with the weights in ``SWNERF_LPIPS_DIR``; None without them (null in
+    metrics.json)."""
+    model = lpips_torch.from_env(net, device)
+    if model is None:
+        return None
+    return model.score(np.asarray(gt), np.clip(np.asarray(pred), 0, 1))
+
+
+def calculate_metrics(gt: np.ndarray, pred: np.ndarray, device="cpu"):
+    """Per-frame (psnr, ssim, lpips) — reference calculate_metrics
+    (nerf/run.py:49-61): pred clipped to [0,1], data_range from gt; LPIPS
+    (alex) on ``device``, None without its weights."""
     pred = np.clip(pred, 0.0, 1.0)
     dr = float(gt.max() - gt.min())
-    return psnr(gt, pred, data_range=dr), ssim(gt, pred, data_range=dr, win_size=7, channel_axis=2), None
+    return (psnr(gt, pred, data_range=dr), ssim(gt, pred, data_range=dr, win_size=7, channel_axis=2),
+            lpips(gt, pred, device=device))

@@ -2603,3 +2603,61 @@ def test_kstep_ndc_pool_k20_equals_one_step_dispatches(dev):
     assert all(torch.equal(a, b) for a, b in zip(_train_state_tensors(sa), _train_state_tensors(sb)))
     assert set(ma) == set(mb) and all(torch.equal(ma[k], mb[k]) for k in ma)
     assert la == lb == {"render_loss[S=64]": 20, "render_loss[S=128]": 20, "sample_pdf": 20}
+
+
+# ---------------------------------------------------------------- the native snapshot and LPIPS on the card
+
+
+def test_native_round_trip_of_a_capturable_adam_state(dev, tmp_path):
+    """A trainer's state on the card (fused, capturable Adam, its counts and
+    learning rate on the device) three K-step updates in: its native
+    snapshot restores into a fresh state with the same weights, moments and
+    counts bit for bit, the counts on the card and the groups reading the
+    device learning rate; three more steps from each give the same bits."""
+    from swnerf_torch.train import checkpoint as ck
+
+    state, run = _kstep_case(dev, "vanilla", start=40)
+    run(state, 0, 3, torch.Generator(device=dev).manual_seed(1))
+    path = str(tmp_path / "000043.msgpack")
+    ck.save_native(path, ck.native_state(state), {"global_step": state.step})
+    fresh, _ = _kstep_case(dev, "vanilla", start=0)
+    saved, extra = ck.load_native(path, ck.native_state(fresh), {"global_step": 0})
+    ck.restore_native_state(fresh, saved, int(extra["global_step"]))
+    assert fresh.step == int(fresh.count) == 43
+    assert all(torch.equal(a, b) for a, b in zip(_train_state_tensors(state), _train_state_tensors(fresh)))
+    for group in fresh.optimizer.param_groups:
+        assert group["capturable"] and group["fused"] and group["lr"] is fresh.lr
+        assert all(fresh.optimizer.state[p]["step"].device.type == "cuda" for p in group["params"])
+    for st in (state, fresh):
+        _, run = _kstep_case(dev, "vanilla", start=0)
+        run(st, 3, 3, torch.Generator(device=dev).manual_seed(2))
+    assert all(torch.equal(a, b) for a, b in zip(_train_state_tensors(state), _train_state_tensors(fresh)))
+
+
+@pytest.mark.parametrize("net,size", [("alex", 400), ("vgg", 128)])
+def test_lpips_on_the_card_against_the_cpu(dev, tmp_path, net, size):
+    """LPIPS on seeded weights on the card within 1e-4 of the CPU's (TF32
+    off: fp32 convolutions on both)."""
+    from swnerf_torch.utils import lpips as lpips_torch
+
+    convs, feature_idx, taps, _ = lpips_torch.NETS[net]
+    g = torch.Generator().manual_seed(0)
+    sd = {}
+    for (cin, cout, k, _, _), fi in zip(convs, feature_idx):
+        sd[f"features.{fi}.weight"] = torch.randn((cout, cin, k, k), generator=g) * (2.0 / (cin * k * k)) ** 0.5
+        sd[f"features.{fi}.bias"] = torch.randn((cout,), generator=g) * 0.01
+    bb, ln = lpips_torch.NET_FILES[net]
+    torch.save(sd, str(tmp_path / bb))
+    torch.save({f"lin{i}.model.1.weight": torch.rand((1, convs[t][1], 1, 1), generator=g) for i, t in enumerate(taps)},
+               str(tmp_path / ln))
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1, (size, size, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = lpips_torch.LPIPS(net, weights_dir=str(tmp_path), device=dev).score(a, b)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = lpips_torch.LPIPS(net, weights_dir=str(tmp_path), device="cpu").score(a, b)
+    assert want > 0 and abs(got - want) <= 1e-4, (got, want)
