@@ -9,7 +9,10 @@ and train MultiRes on the render kernels, run the resample merge and the
 deformation MLP's input cotangents, time the kernels, hold K training
 steps per dispatch (CUDA-graph replays) to one step a dispatch, and run the
 forward-facing LLFF path (NDC rays, the ray pool, the spiral) at fern's
-shape and on the LLFF quality recipe.
+shape and on the LLFF quality recipe, export the renderers as torch.export
+programs (the fused ones calling the kernels as ops), load a fern-sized
+JPEG capture and find ArUco markers in JPEG twins, and run the 2-D
+encoding study.
 
     python3 chip_smoke.py
 
@@ -300,6 +303,29 @@ Phases (each raises on failure; nothing is caught):
      --do_half_precision D-NeRF step on the plain route (SWNERF_FUSED=0)
      and the plain field held to a float64 reference with bf16-rounded
      matmul inputs;
+ 41. export: export_model run as a user runs it, five processes together:
+     010000.tar plain (--export_platforms cpu,cuda) and fused (B7), fused
+     under SWNERF_FUSED_RAW=1 (B8), and the round-5 T-NeRF (B7') and
+     D-NeRF (B6, B7) 800000.tar fused, at 32,768 rays, and beside them a
+     plain artifact at 256 rays (cpu,cuda) exported in this process; every
+     artifact with a fine pass calls B2 as swnerf::sample_pdf; test frame 0 in 5 tiles (the last padded from the frame's
+     first rays) through the fused artifact bit-equal (NaN where NaN) to
+     the eager kernel route and within 0.1 dB of the plain artifact; the
+     raw-route artifact's tile bit-equal to the eager raw route; the
+     256-ray cpu,cuda artifact on the card and on the CPU within 1e-4; a
+     T-NeRF and a D-NeRF tile bit-equal to their eager routes; each
+     export's process wall and bytes, the frames' ms (host clock), the
+     swnerf:: launches (added to the forward-only entries of B7, B8, B7'
+     and B6, and to B2's);
+ 42. a 20-view 4032 x 3024 JPEG LLFF capture (cv2.imencode, quality 95)
+     through load_llff_data at factor 8, the minify included, timed; its
+     images_8/ PNG cache of two views equal to area_resize of the decoded
+     JPEG; a 0.5-unit DICT_4X4_1000 marker warped into 13 of phase 30's
+     poses as 1600 x 1600 JPEG images_ori twins through cal_scale (the
+     port's detect_marker_corners): the scale within 2%
+     (tests/test_mesh_pipeline.py:297); a cv2 without aruco fails;
+ 43. pos2d on a 256 x 256 JPEG for 3 epochs on the card: the PSNR rises,
+     the .npz and the metrics.csv row are written; s per epoch;
      then the JSON lines.
 
 The training phases (9, 15, 21, 28, 34, 37, 39, 40) run at the card's default of 20
@@ -849,6 +875,18 @@ def main() -> int:
         p40 = phase40_tools(dev, tmp, tmp / "data_dyn_400")
         for k in kernels:
             k["launches"] += p40.get(k["name"], 0)
+        # ---- 41. export: the renderers as torch.export programs calling B2,
+        # the fused ones B6, B7, B7' and B8 too, as swnerf:: ops; 42. captures in
+        # JPEG; 43. the 2-D encoding study
+        t0 = time.perf_counter()
+        p41 = phase41_export(dev, tmp, tmp / "data_dyn_400")
+        rows = {"trunk[mesh]": "trunk", "trunk[raw,mesh]": "trunk[raw]", "trunk[tnerf,render]": "trunk[tnerf]",
+                "time_net": "time_net", "sample_pdf": "sample_pdf"}  # the forward-only rows of B7, B8, B7', B6; B2
+        for k in kernels:
+            k["launches"] += p41.get(rows.get(k["name"], ""), 0)
+        phase42_jpeg(dev, tmp)
+        phase43_pos2d(dev, tmp)
+        print(f"[41-43 done] in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5777,6 +5815,409 @@ def half_precision_hold(dev):
           f"from the float64 chain (the fp32 field {e_32:.2e})")
     if len(errs) != 21 or max(errs) > 1e-5 or e_dx > 1e-3 or e_raw > 5e-3 or not e_32 > 5 * e_raw:
         fail("40: the --do_half_precision field is outside its bars")
+
+
+# ---------------------------------------------------------------- export, JPEG captures, the 2-D encoding study
+
+P41_RAYS = 32768  # the artifacts' ray batch: the serving chunk of phase 5
+P41_SMALL = 256  # the cpu,cuda artifact run on both devices
+P42_VIEWS, P42_W, P42_H, P42_FACTOR = 20, 4032, 3024, 8  # fern's capture: 20 views of 4032 x 3024, factor 8
+P43_EPOCHS = 3
+
+
+def _same_bits(a, b) -> bool:
+    """Bit-equal, NaN where the other is NaN (0 / 0 disparities)."""
+    import torch
+
+    return a.shape == b.shape and bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
+
+
+def _tiles(rays, n_rays):
+    """The rays in tiles of ``n_rays`` as render_image cuts them, the last one
+    padded from the frame's first rays; yields (tile, live rows)."""
+    import torch
+
+    from swnerf_torch.render.core import Rays
+
+    n = rays.origins.shape[0]
+    for start in range(0, n, n_rays):
+        live = min(n_rays, n - start)
+        yield Rays(*(None if x is None else torch.cat([x[start : start + live], x[: n_rays - live]])
+                     for x in rays)), live
+
+
+def _serve(call, rays, n_rays):
+    """(rgb, disp, acc, depth) of all ``rays`` through ``call(tile)``, tiled."""
+    import torch
+
+    outs = [[r[:live] for r in call(tile)] for tile, live in _tiles(rays, n_rays)]
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def _eager(coarse, fine, rcfg):
+    """The eager route's render of a tile (the fields as they are built)."""
+    import torch
+
+    from swnerf_torch.render.core import render_rays
+
+    def call(tile):
+        with torch.no_grad():
+            out = render_rays(coarse, tile, rcfg.eval_mode(), fine_model=fine)
+        return out["rgb"], out["disp"], out["acc"], out["depth"]
+
+    return call
+
+
+def _artifact(art, params):
+    def call(tile):
+        return art(params, tile.origins, tile.directions, tile.viewdirs, tile.near, tile.far,
+                   *(() if tile.times is None else (tile.times,)))
+
+    return call
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _export_jobs(dyn_data):
+    """Phase 41's export_model runs: (artifact, argv, extra environment).
+    Each loads its checkpoint on the CPU (``--device cpu``: the program is
+    traced there either way) and names the devices its artifact runs on."""
+    vanilla = ["--config", str(CONFIG), "--ft_path", str(CKPT), "--datadir", str(DATADIR)]
+
+    def dyn(config, ckpt, mode):
+        return ["--config", str(config), "--ft_path", str(ckpt), "--datadir", str(dyn_data), "--export_mode", mode,
+                "--export_fused", "--export_platforms", "cuda"]
+
+    rays = ["--export_rays", str(P41_RAYS)]
+    fused = ["--export_fused", "--export_platforms", "cuda"]
+    return [
+        ("vanilla_plain.pt2", vanilla + rays + ["--export_platforms", "cpu,cuda"], {}),
+        ("vanilla_fused.pt2", vanilla + rays + fused, {}),
+        ("vanilla_fused_raw.pt2", vanilla + rays + fused, {"SWNERF_FUSED_RAW": "1"}),
+        ("tnerf_fused.pt2", dyn(TNERF_CONFIG, TNERF_CKPT, "tnerf") + rays, {}),
+        ("dnerf_fused.pt2", dyn(DNERF_CONFIG, DNERF_CKPT, "dnerf") + rays, {}),
+    ]
+
+
+def phase41_export(dev, tmp, dyn_data):
+    """Phase 41 (the module docstring). Returns the swnerf:: ops' launches
+    by ``launches`` key, the artifacts' calls alone."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.pipelines import export_model
+    from swnerf_torch.pipelines.run_dnerf import create_dnerf
+    from swnerf_torch.pipelines.run_nerf import create_vanilla
+    from swnerf_torch.pipelines.run_tnerf import create_tnerf
+    from swnerf_torch.utils.config import config_parser, config_parser_dnerf
+    from swnerf_torch.utils.export import export_renderer, kernel_ops, load_renderer
+    from swnerf_torch.utils.metrics import psnr as psnr_of
+    from swnerf_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    base = tmp / "p41"
+    base.mkdir()
+    counts = collections.Counter()
+
+    def params_of(coarse, fine):
+        return {k: None if f is None else {n: p.detach() for n, p in f.named_parameters()}
+                for k, f in (("coarse", coarse), ("fine", fine))}
+
+    # -- the exports: export_model as a user runs it, one process each, together
+    procs, walls = {}, {}
+    t0 = time.perf_counter()
+    for name, argv, extra in _export_jobs(dyn_data):
+        with open(base / f"{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "swnerf_torch.pipelines.export_model", "--export_out", str(base / name),
+                 "--basedir", str(base / "logs"), "--device", "cpu", *argv],
+                cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1", **extra}, stdout=log,
+                stderr=subprocess.STDOUT)
+
+    arts, loads, one_load = {}, {}, threading.Lock()
+
+    def waiter(name, proc):
+        """The process's wall; then its artifact loaded and moved to the
+        card (one at a time) while the other exports run."""
+        proc.wait()
+        walls[name] = time.perf_counter() - t0
+        if proc.returncode == 0:
+            with one_load:
+                t1 = time.perf_counter()
+                arts[name] = load_renderer((base / name).read_bytes())
+                arts[name].program("cuda")
+                loads[name] = time.perf_counter() - t1
+
+    threads = [threading.Thread(target=waiter, args=item) for item in procs.items()]
+    for t in threads:
+        t.start()
+    try:
+        # -- meanwhile, the eager kernel routes: 010000.tar, and the T-NeRF
+        # and D-NeRF 800000.tar on a tile of their test frame 0
+        argv = ["--config", str(CONFIG), "--ft_path", str(CKPT), "--basedir", str(base / "eager"), "--datadir",
+                str(DATADIR), "--device", dev.type]
+        state, rcfg, _, _ = create_vanilla(config_parser().parse_args(argv), dev)
+        coarse, fine = state.coarse.eval(), state.fine.eval()
+        if not (coarse.fused and fine.fused):
+            fail("41: the vanilla fields are not on their kernel route")
+        params = params_of(coarse, fine)
+        rays = view0_rays(dev)
+        tile = next(_tiles(rays, P41_RAYS))[0]
+        with env(SWNERF_FUSED_RAW="1"):
+            want_r = _eager(coarse, fine, rcfg)(tile)
+        frame_tile = next(_tiles(frame_rays(dev, dyn_data, "test", 0)[0], P41_RAYS))[0]
+        dynamic = {}
+        for name, config, ckpt, create in (("tnerf", TNERF_CONFIG, TNERF_CKPT, create_tnerf),
+                                           ("dnerf", DNERF_CONFIG, DNERF_CKPT, create_dnerf)):
+            dargv = ["--config", str(config), "--ft_path", str(ckpt), "--basedir", str(base / "eager"), "--datadir",
+                     str(dyn_data), "--device", dev.type]
+            dstate, drcfg = create(config_parser_dnerf().parse_args(dargv), dev)[:2]
+            dstate.coarse.eval()
+            dynamic[name] = (params_of(dstate.coarse, dstate.fine), _eager(dstate.coarse, dstate.fine, drcfg)(frame_tile))
+            del dstate
+        # and the cpu,cuda plain artifact at 256 rays, exported in this process
+        t1 = time.perf_counter()
+        plain_c, plain_f = export_model.export_fields(coarse, fine, False, dev)
+        small = load_renderer(export_renderer(plain_c, params, rcfg, P41_SMALL, fine_field=plain_f,
+                                              platforms=["cpu", "cuda"]))
+        small_s = time.perf_counter() - t1
+        del plain_c, plain_f
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        out = (base / f"{name}.log").read_text()
+        if proc.returncode != 0 or name not in loads:
+            fail(f"41: export_model for {name} exited with {proc.returncode}:\n{out[-3000:]}")
+        said = [ln for ln in out.splitlines() if ln.startswith("Exported")]
+        print(f"[41 export] {name}: process wall {walls[name]:.2f} s ({len(procs)} together), {said[-1]}; "
+              f"load_renderer + the move to the card {loads[name]:.2f} s, platforms {arts[name].meta['platforms']}, "
+              f"swnerf ops {kernel_ops(arts[name].program('cuda'))}")
+    print(f"[41 export] the {len(procs)} exports together: {max(walls.values()):.1f} s of wall")
+    b2 = {"swnerf.sample_pdf.default": 1}  # the fine pass's resample
+    want_ops = {"vanilla_plain.pt2": b2, "vanilla_fused.pt2": {"swnerf.trunk.default": 2, **b2},
+                "vanilla_fused_raw.pt2": {"swnerf.trunk.default": 2, **b2},
+                "tnerf_fused.pt2": {"swnerf.trunk.default": 1},
+                "dnerf_fused.pt2": {"swnerf.time_net.default": 2, "swnerf.trunk.default": 2, **b2}}
+    for name, want in want_ops.items():
+        if kernel_ops(arts[name].program("cuda")) != want:
+            fail(f"41: {name} calls {kernel_ops(arts[name].program('cuda'))}, not {want}")
+
+    def served(art, rays, params, envs=None):
+        """The artifact's outputs over ``rays`` and their ms (host clock),
+        after a first tile (the program moved to the card and warmed); its
+        launches counted."""
+        call = _artifact(art, params)
+        with env(**(envs or {})):
+            call(next(_tiles(rays, P41_RAYS))[0])
+            before = collections.Counter(launches)
+            out, ms = _timed(lambda: _serve(call, rays, P41_RAYS))
+        counts.update(collections.Counter(launches) - before)
+        return out, ms
+
+    # -- test frame 0 through the eager route, the fused and the plain artifact
+    _eager(coarse, fine, rcfg)(tile)
+    eager, eager_ms = _timed(lambda: _serve(_eager(coarse, fine, rcfg), rays, P41_RAYS))
+    got_f, fused_ms = served(arts["vanilla_fused.pt2"], rays, params)
+    got_p, plain_ms = served(arts["vanilla_plain.pt2"], rays, params)
+    same = [_same_bits(a, b) for a, b in zip(got_f, eager)]
+    with open(DATADIR / "transforms_test.json") as f:
+        frame = json.load(f)["frames"][0]
+    img = read_png(str(DATADIR / (frame["file_path"] + ".png"))).astype(np.float32) / 255.0
+    gt = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+    psnr = {k: psnr_of(gt, v[0].reshape(400, 400, 3).cpu().numpy())  # skimage's data range, as metrics.json
+            for k, v in (("fused", got_f), ("plain", got_p), ("eager", eager))}
+    print(f"[41 vanilla] test frame 0 in {(rays.origins.shape[0] + P41_RAYS - 1) // P41_RAYS} tiles of {P41_RAYS}: "
+          f"fused artifact {fused_ms:.1f} ms, plain artifact (fp32) {plain_ms:.1f} ms, eager kernel route "
+          f"{eager_ms:.1f} ms (host clock, synchronized); fused = eager bit for bit (rgb, disp, acc, depth) {same}; "
+          f"PSNR fused {psnr['fused']:.4f}, plain {psnr['plain']:.4f}, eager {psnr['eager']:.4f} dB")
+    if not all(same) or abs(psnr["fused"] - psnr["plain"]) > 0.1:
+        fail("41: the fused artifact's frame is not the eager route's, or not within 0.1 dB of the plain artifact")
+    # -- B8: the raw route's artifact on the first tile against the eager raw route
+    got_r, raw_ms = served(arts["vanilla_fused_raw.pt2"], tile, params, envs={"SWNERF_FUSED_RAW": "1"})
+    same_r = [_same_bits(a, b) for a, b in zip(got_r, want_r)]
+    print(f"[41 vanilla raw] one tile under SWNERF_FUSED_RAW=1 (B8): {raw_ms:.1f} ms, = the eager raw route {same_r}")
+    if not all(same_r):
+        fail("41: the fused raw-route artifact's tile is not the eager raw route's")
+    # -- the cpu,cuda artifact on both devices (the plain route at 256 rays)
+    first = rays.slice(0, P41_SMALL)
+    on_card = _artifact(small, params)(first)
+    cpu_params = {k: {n: t.cpu() for n, t in v.items()} for k, v in params.items()}
+    on_cpu = _artifact(small, cpu_params)(type(first)(*(None if x is None else x.cpu() for x in first)))
+    d_rgb = (on_card[0].cpu() - on_cpu[0]).abs().max().item()
+    d_acc = (on_card[2].cpu() - on_cpu[2]).abs().max().item()
+    print(f"[41 platforms] a cpu,cuda plain artifact ({P41_SMALL} rays; export_renderer + load_renderer in this "
+          f"process {small_s:.2f} s, beside the exports) on the card and on the CPU: max |drgb| {d_rgb:.2e}, max "
+          f"|dacc| {d_acc:.2e}")
+    if not (d_rgb <= 1e-4 and d_acc <= 1e-4):
+        fail("41: the cpu,cuda artifact's two devices disagree")
+    del state, coarse, fine, params, eager, got_f, got_p, small
+
+    # -- the T-NeRF and D-NeRF artifacts on their tile
+    for name, (params, want) in dynamic.items():
+        got, ms = served(arts[f"{name}_fused.pt2"], frame_tile, params)
+        same = [_same_bits(a, b) for a, b in zip(got, want)]
+        print(f"[41 {name}] one tile of test frame 0 at its time through the fused artifact: {ms:.1f} ms, "
+              f"= the eager kernel route {same}")
+        if not all(same):
+            fail(f"41: the {name} fused artifact's tile is not the eager route's")
+    del dynamic
+    torch.cuda.empty_cache()
+    print(f"[41 launches] the artifacts' swnerf:: ops launched {dict(counts)}")
+    for key in ("trunk", "trunk[raw]", "trunk[tnerf]", "time_net", "sample_pdf"):
+        if counts.get(key, 0) <= 0:
+            fail(f"41: no {key} launch through the exported programs")
+    print(f"[41 done] phase 41 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _pattern(H, W):
+    """A smooth, textured 8-bit BGR picture (for cv2) of H x W."""
+    import numpy as np
+
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    r = 127.5 + 127.5 * np.sin(xs * 0.004 + ys * 0.003)
+    g = 127.5 + 127.5 * np.cos(ys * 0.005 - xs * 0.002) * np.cos(xs * 0.03)
+    b = 127.5 + 127.5 * np.sin((xs + ys) * 0.0015) * np.cos(ys * 0.02)
+    return np.stack([b, g, r], -1).astype(np.uint8)
+
+
+P42_CHECKED = (0, 19)  # the views whose cache is held to area_resize of the decoded JPEG
+P42_ORI, P42_POSE_STRIDE = 1600, 8  # the marker twins' size, and every 8th of phase 30's 100 poses
+
+
+def phase42_jpeg(dev, tmp):
+    """Phase 42 (the module docstring)."""
+    import cv2
+    import numpy as np
+
+    from swnerf_torch.data.llff import load_llff_data
+    from swnerf_torch.data.synthetic import write_llff_scene
+    from swnerf_torch.pipelines import transform_mesh as tm
+    from swnerf_torch.utils.images import area_resize, list_images, read_images
+
+    t_phase = time.perf_counter()
+    root = tmp / "p42_fern"
+    write_llff_scene(str(root), n_images=P42_VIEWS, size=8, n_samples=8, device=dev)  # the poses
+    shutil.rmtree(root / "images")
+    shutil.rmtree(root / "images_1")
+    (root / "images").mkdir()
+    base = _pattern(P42_H, P42_W)
+    t0 = time.perf_counter()
+    for k in range(P42_VIEWS):
+        ok, buf = cv2.imencode(".jpg", np.roll(base, 97 * k, axis=1), [cv2.IMWRITE_JPEG_QUALITY, 95])
+        if not ok:
+            fail("42: cv2.imencode could not write a JPEG")
+        buf.tofile(str(root / "images" / f"IMG_{k:04d}.JPG"))
+    write_s = time.perf_counter() - t0
+    del base
+    size = sum(p.stat().st_size for p in (root / "images").iterdir())
+    t0 = time.perf_counter()
+    imgs = load_llff_data(str(root), factor=P42_FACTOR)[0]
+    load_s = time.perf_counter() - t0
+    cache = read_images(list_images(str(root / f"images_{P42_FACTOR}")))
+    srcs = list_images(str(root / "images"))
+    t0 = time.perf_counter()
+    decoded = read_images([srcs[k] for k in P42_CHECKED])
+    decode_s = (time.perf_counter() - t0) / len(P42_CHECKED)
+    size2 = (P42_W // P42_FACTOR, P42_H // P42_FACTOR)
+    same = [np.array_equal(cache[k], area_resize(img, size2)) for k, img in zip(P42_CHECKED, decoded)]
+    print(f"[42 fern JPEG] {P42_VIEWS} views of {P42_W} x {P42_H} written by cv2.imencode (quality 95, "
+          f"{size / 2**20:.1f} MiB) in {write_s:.2f} s; load_llff_data(factor={P42_FACTOR}), the minify included, "
+          f"{load_s:.2f} s (host clock, warm file cache) -> images {tuple(imgs.shape)}; one JPEG's decode alone "
+          f"{decode_s:.3f} s; the images_{P42_FACTOR}/ PNG cache of views {list(P42_CHECKED)} = area_resize of the "
+          f"decoded JPEG: {same}")
+    if imgs.shape != (P42_VIEWS, P42_H // P42_FACTOR, P42_W // P42_FACTOR, 3) or not all(same):
+        fail("42: the JPEG capture's factor-8 images are not the area resize of its decoded views")
+    del imgs, cache, decoded
+
+    # -- JPEG images_ori marker twins (phase 30's geometry) through detect_marker_corners
+    if not hasattr(cv2, "aruco"):
+        fail(f"42: cv2 {cv2.__version__} has no aruco module: the marker detection cannot run")
+    cap = tmp / "p42_marker"
+    (cap / "images_ori").mkdir(parents=True)
+    with open(DATADIR / "transforms_train.json") as f:
+        meta = json.load(f)
+    H = W = P42_ORI  # the twins at 4 x the scene's 400 x 400, as images_ori/ holds the originals
+    focal = 0.5 * W / np.tan(0.5 * float(meta["camera_angle_x"]))
+    e, msize = 0.5, 240
+    world = np.array([[-e / 2, e / 2, 0.0], [e / 2, e / 2, 0.0], [e / 2, -e / 2, 0.0], [-e / 2, -e / 2, 0.0]])
+    marker = cv2.aruco.generateImageMarker(cv2.aruco.getPredefinedDictionary(cv2.aruco.DICT_4X4_1000), 7, msize)
+    src = np.array([[0, 0], [msize - 1, 0], [msize - 1, msize - 1], [0, msize - 1]], np.float32)
+    flip = np.diag([1.0, -1.0, -1.0])
+    frames = []
+    for k, fr in enumerate(meta["frames"][::P42_POSE_STRIDE]):
+        c2w_gl = np.array(fr["transform_matrix"], np.float64)
+        R, t = c2w_gl[:3, :3] @ flip, c2w_gl[:3, 3]
+        cam = (world - t) @ R
+        if (cam[:, 2] <= 1e-6).any():
+            continue
+        px = focal * cam[:, :2] / cam[:, 2:] + np.array([W / 2.0, H / 2.0])
+        if px.min() < 32 or px.max() > W - 32:
+            continue
+        Hm, _ = cv2.findHomography(src, px.astype(np.float32))
+        canvas = cv2.warpPerspective(marker, Hm, (W, H), flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_CONSTANT,
+                                     borderValue=255)
+        ok, buf = cv2.imencode(".jpg", canvas, [cv2.IMWRITE_JPEG_QUALITY, 95])
+        buf.tofile(str(cap / "images_ori" / f"r_{k}.jpg"))
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = R, t
+        frames.append({"file_path": f"images/r_{k}.jpg", "transform_matrix": c2w.tolist()})
+    (cap / "transforms.json").write_text(json.dumps({"fl_x": focal, "fl_y": focal, "cx": W / 2.0, "cy": H / 2.0,
+                                                     "k1": 0.0, "k2": 0.0, "p1": 0.0, "p2": 0.0, "frames": frames}))
+    real = 0.05
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        scale, _ = tm.cal_scale(str(cap), real, "c2w")  # detect_marker_corners, then the solve
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    found = log.getvalue().splitlines()[0]  # "find ID: 7, in total N frames"
+    rel = abs(scale - real / e) / (real / e)
+    print(f"[42 marker] cv2 {cv2.__version__} with aruco on {len(frames)} JPEG images_ori twins ({W} x {H}, "
+          f"quality 95): {found}; scale {scale:.6f} (want {real / e}: rel {rel:.2e}, bar 0.02); detection + solve "
+          f"{solve_ms:.1f} ms")
+    if not found.startswith("find ID: 7,") or rel > 0.02:
+        fail("42: the marker twins in JPEG did not give the scale within 2%")
+    print(f"[42 done] phase 42 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase43_pos2d(dev, tmp):
+    """Phase 43 (the module docstring)."""
+    import cv2
+
+    from swnerf_torch.experiments import pos2d
+
+    t_phase = time.perf_counter()
+    pic = tmp / "p43_picture.jpg"
+    ok, buf = cv2.imencode(".jpg", _pattern(2048, 2048)[::8, ::8], [cv2.IMWRITE_JPEG_QUALITY, 95])
+    buf.tofile(str(pic))
+    out, ck = tmp / "p43" / "result", tmp / "p43" / "ckpt"
+    metrics = pos2d.main(["-pd", str(pic), "--L", "10", "--layer_num", "4", "--epochs", str(P43_EPOCHS), "-od", str(out),
+                          "-cs", str(ck), "--device", dev.type])
+    secs = metrics["seconds"]
+    rows = (tmp / "p43" / "metrics.csv").read_text().strip().splitlines()
+    print(f"[43 pos2d] a 256 x 256 JPEG, L 10, 4 layers, {P43_EPOCHS} epochs of 128 steps on the card: gray PSNR "
+          f"{[round(p, 3) for p in metrics['PSNR']]}; s per epoch {[round(s, 4) for s in secs]} (median after the "
+          f"first {statistics.median(secs[1:]):.4f}); checkpoint {sorted(p.name for p in ck.iterdir())}, metrics.csv "
+          f"{rows}, reconstructions {sorted(p.name for p in out.iterdir())}")
+    if not metrics["PSNR"][-1] > metrics["PSNR"][0] or not list(ck.glob("*.npz")) or len(rows) != 1:
+        fail("43: pos2d's PSNR did not rise, or its checkpoint or metrics.csv row is missing")
+    print(f"[43 done] phase 43 in {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -25,7 +25,9 @@ of its outputs (a train-mode entry: ``fwd``, of its forward outputs, and
 per launch (CUDA events, after a warm-up; B6's entries also ``ms_bwd``, the
 backward launch alone; B2's and B10's also ``alone_ms``, queued behind a
 sleep, and at a training step's 1,024 rays the wrapper's host microseconds
-a call, ``step_host_us``, and B2's ``step_alone_ms``). B6's train mode
+a call, ``step_host_us``, and B2's ``step_alone_ms``; the forward-only
+entries of B6, B7, B7' and B8 also ``host_us``, the wrapper's host
+microseconds a call at 1,024 to 1,536 rows). B6's train mode
 runs at the D-NeRF widths and at MultiRes level 0's (144 input rows,
 32,000 rows). Needs a CUDA device;
 builds the checkout's kernels at first use.
@@ -241,7 +243,8 @@ def main() -> int:
                                                     "ms": timed(lambda: b3.render_pass(*args))}
             if s == 192:
                 out[f"time_net {tag}"] = {"sha256": digest([b6.time_net(pt6, pts, t)]),
-                                          "ms": timed(lambda: b6.time_net(pt6, pts, t))}
+                                          "ms": timed(lambda: b6.time_net(pt6, pts, t)),
+                                          "host_us": host_us(lambda: b6.time_net(pt6, pts[:8], t[:8]))}
         o, d, vd, z, dist, noise, target, t = rays(500, 192, 5)
         pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
         ve = positional_encoding(vd, dcfg.nf_views).contiguous()
@@ -284,7 +287,8 @@ def main() -> int:
                 big = torch.rand((204800, cfg7.input_ch), generator=g7, device=dev) * 2 - 1
                 bigv = torch.rand((204800, cfg7.input_ch_views), generator=g7, device=dev) * 2 - 1
                 out[f"trunk {tag}"] = {"sha256": digest([b7.trunk(p7, big, bigv)]),
-                                       "ms": timed(lambda: b7.trunk(p7, big, bigv))}
+                                       "ms": timed(lambda: b7.trunk(p7, big, bigv)),
+                                       "host_us": host_us(lambda: b7.trunk(p7, big[:1024], bigv[:1024]))}
         if hasattr(b7, "pack_tnerf_trunk_params"):  # B7' and B8
             pt7 = b7.pack_tnerf_trunk_params(tsd, tcfg, dtype)
             emb = torch.rand((32000, pt7.cin), generator=g7, device=dev) * 2 - 1
@@ -297,7 +301,8 @@ def main() -> int:
             big = torch.rand((32768 * 64, pt7.cin), generator=gs, device=dev) * 2 - 1
             bigv = torch.rand((32768 * 64, pt7.input_ch_views), generator=gs, device=dev) * 2 - 1
             out[f"trunk[tnerf] {tag}"] = {"sha256": digest([b7.trunk(pt7, big, bigv)]),
-                                          "ms": timed(lambda: b7.trunk(pt7, big, bigv))}
+                                          "ms": timed(lambda: b7.trunk(pt7, big, bigv)),
+                                          "host_us": host_us(lambda: b7.trunk(pt7, big[:1024], bigv[:1024]))}
             del big, bigv
             p8 = b7.pack_trunk_params(vsd, vcfg, dtype)
             pts = torch.rand((32000, 3), generator=g7, device=dev) * 4 - 2
@@ -311,7 +316,8 @@ def main() -> int:
             dirs = torch.nn.functional.normalize(torch.randn((100, 3), generator=g8, device=dev), dim=-1)
             tp, tv = tile.reshape(-1, 3).contiguous(), dirs[:, None, :].expand(100, 2048, 3).reshape(-1, 3).contiguous()
             out[f"trunk[raw,mesh] {tag}"] = {"sha256": digest([b7.field_raw(p8, tp, tv)]),
-                                             "ms": timed(lambda: b7.field_raw(p8, tp, tv))}
+                                             "ms": timed(lambda: b7.field_raw(p8, tp, tv)),
+                                             "host_us": host_us(lambda: b7.field_raw(p8, tp[:1024], tv[:1024]))}
         if hasattr(b1, "render_loss_ext"):  # B3 wide, B9, B11 at the MultiRes level-0 widths (and B9 narrow)
             wcfg = DNeRFConfig(multires=20, multires_views=20, multires_time=8)
             ncfg = DNeRFConfig(multires=-1, multires_views=-1, multires_time=-1, i_embed=-1)

@@ -9,7 +9,10 @@ and a render path from transforms_render.json or a 40-pose orbit with
 render times ``linspace(0, 1)``.
 
 PNGs are decoded by the port's own reader (``utils/png.py``), not imageio.
-``half_res`` is a 2x2 box average, the JAX loader's fallback without cv2.
+``half_res`` resizes each image to (W // 2, H // 2) with
+``utils/images.py::area_resize``: cv2's INTER_AREA where cv2 imports, as the
+JAX loader's ``_resize_area``, else its numpy twin, which gives cv2's bytes
+where H and W are even (an odd size takes its float64 fractional path).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 import numpy as np
 
 from swnerf_torch.data.cameras import spherical_orbit
+from swnerf_torch.utils.images import area_resize
 from swnerf_torch.utils.png import read_pngs
 
 
@@ -60,7 +64,7 @@ def _frame_times(frames) -> np.ndarray:
 
 def _half_res(imgs: np.ndarray, H: int, W: int, focal: float):
     H, W, focal = H // 2, W // 2, focal / 2.0
-    return imgs.reshape(imgs.shape[0], H, 2, W, 2, -1).mean((2, 4)).astype(np.float32), H, W, focal
+    return np.stack([area_resize(img, (W, H)) for img in imgs]).astype(np.float32), H, W, focal
 
 
 def load_blender_data(basedir: str, half_res: bool = False, testskip: int = 1):

@@ -9,8 +9,10 @@ the ``images_{factor}/`` cache, which :func:`_minify` builds from
 column reorder, the ``bd_factor`` rescale, recentering, spherify for 360
 captures, the spiral render path and the holdout view nearest the mean.
 
-Images are read with ``utils/png.py``; a cache or folder of JPEG files
-raises ``NotImplementedError`` (``utils/images.py::read_images``).
+Images are read with ``utils/images.py::read_images``: PNG with
+``utils/png.py``, JPEG (real captures ship ``images/`` as JPEG) through
+cv2, where a missing cv2 raises ``NotImplementedError``. The cache is
+written as PNG either way, as the JAX ``_minify`` writes it.
 """
 
 from __future__ import annotations

@@ -25,7 +25,11 @@ def embedding_dim(num_freqs: int, input_dims: int = 3, include_input: bool = Tru
 def _octaves(num_freqs: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``2^0 .. 2^(F-1)``, exact, so x * f is exact in fp32. Made once per
     device and read from then on: a copy from the host at every call would
-    synchronize, and a train step captured in a CUDA graph may not copy."""
+    synchronize, and a train step captured in a CUDA graph may not copy.
+    Eager calls keep this cache rather than the traced path's factory ops:
+    those add three launches a call, which the host-paced mesh sweep pays
+    at every tile (its per-tile encode 34.5 ms a sweep with the cache,
+    83.1 ms with the factory ops, H100, chip_smoke.py phase 29)."""
     return torch.tensor([2.0**i for i in range(num_freqs)], dtype=dtype, device=device)
 
 
@@ -40,7 +44,11 @@ def positional_encoding(
         return x
     if num_freqs == 0:
         return x if include_input else x[..., :0]
-    if log_sampling:
+    if log_sampling and torch.compiler.is_exporting():
+        # Traced: the same exact octaves from a device factory op, neither a
+        # cached tensor (tracing would cache a fake one) nor a host constant.
+        freqs = torch.full((num_freqs,), 2.0, dtype=x.dtype, device=x.device).cumprod(0) * 0.5
+    elif log_sampling:
         freqs = _octaves(num_freqs, x.dtype, x.device)
     else:
         freqs = torch.linspace(1.0, 2.0 ** (num_freqs - 1), num_freqs, dtype=x.dtype, device=x.device)

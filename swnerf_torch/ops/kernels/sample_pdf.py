@@ -14,6 +14,12 @@ the union by co-ranks: :func:`count_le` and :func:`co_rank` are those
 searches in torch, which ``tests/test_torch_pdf_merge.py`` holds to the
 linear counts, and :func:`inverse_cdf` the step that turns the counts into
 samples.
+
+B2's wrapper :func:`sample_pdf` runs through the PyTorch op
+``swnerf::sample_pdf`` (``torch.library.custom_op``, with a fake that gives
+its shape), so a program exported by ``torch.export`` (``utils/export.py``)
+launches B2 on the card; eager calls and the op's calls count alike in
+``launches``.
 """
 
 from __future__ import annotations
@@ -119,8 +125,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """B2 on CUDA tensors, the plain twin on CPU tensors."""
+@torch.library.custom_op("swnerf::sample_pdf", mutates_args=())
+def _sample_pdf_op(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """B2 as a PyTorch op: what :func:`sample_pdf` and an exported program
+    call (``utils/export.py``)."""
     if bins.device.type == "cpu":
         return sample_pdf_plain(bins, weights, u)
     N, M = bins.shape
@@ -144,6 +152,17 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> to
     build.check(lib, code, "sample_pdf")
     launches[NAME] += 1
     return out
+
+
+@_sample_pdf_op.register_fake
+def _(bins, weights, u):
+    return u.new_empty((bins.shape[0], u.shape[-1]), dtype=torch.float32)
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """B2 on CUDA tensors, the plain twin on CPU tensors; through the op
+    ``swnerf::sample_pdf``."""
+    return torch.ops.swnerf.sample_pdf(bins, weights, u)
 
 
 MERGE_NAME = "sample_pdf_merge"

@@ -17,6 +17,11 @@ callers feed the positions detached (fused_step.py:478-481, 499-503;
 models/dnerf.py:264-268) and form no input cotangent, as in the JAX
 package, where ``fused_time_net_pts`` has no product caller either.
 
+The forward-only wrapper :func:`time_net` runs through the PyTorch op
+``swnerf::time_net`` (``torch.library.custom_op``, with a fake that gives
+its shape), so a program exported by ``torch.export`` (``utils/export.py``)
+calls B6; eager calls and the op's calls count alike in ``launches``.
+
 ``pack_time_params`` is the port of ``raymarch.py::pack_time_params``
 (:786-816) for this card: one buffer in the operand type, each matrix
 ``[in, out]`` row-major, the input padded to 96 rows (D-NeRF's multires 10:
@@ -350,12 +355,28 @@ def _launch_fwd(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor
     return dx
 
 
-def time_net(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
-    """B6's forward on CUDA tensors (dx [N, S, 3] at pts [N, S, 3] and
-    per-ray times [N]), the plain twin on CPU tensors."""
+@torch.library.custom_op("swnerf::time_net", mutates_args=())
+def _time_net_op(weights: torch.Tensor, biases: torch.Tensor, pts: torch.Tensor, times: torch.Tensor, D: int, W: int,
+                 skip: int, n_freqs: int, n_freqs_time: int) -> torch.Tensor:
+    """B6's forward as a PyTorch op: what an exported program calls
+    (``utils/export.py``)."""
+    packed = PackedTimeParams(weights, biases, D, W, skip, n_freqs, n_freqs_time)
     if pts.device.type == "cpu":
         return time_net_plain(packed, pts, times)
     return _launch_fwd(packed, pts, times, None)
+
+
+@_time_net_op.register_fake
+def _(weights, biases, pts, times, D, W, skip, n_freqs, n_freqs_time):
+    return pts.new_empty(pts.shape, dtype=torch.float64 if weights.dtype == torch.float64 else torch.float32)
+
+
+def time_net(packed: PackedTimeParams, pts: torch.Tensor, times: torch.Tensor) -> torch.Tensor:
+    """B6's forward on CUDA tensors (dx [N, S, 3] at pts [N, S, 3] and
+    per-ray times [N]), the plain twin on CPU tensors; through the op
+    ``swnerf::time_net``."""
+    return torch.ops.swnerf.time_net(packed.weights, packed.biases, pts, times, packed.D, packed.W, packed.skip,
+                                     packed.n_freqs, packed.n_freqs_time)
 
 
 def _scratch(packed: PackedTimeParams, M: int, dev) -> torch.Tensor:

@@ -28,6 +28,12 @@ through.
   and, where autograd asks, d pts and d viewdirs ``[P, 3]`` in fp32 (the
   Pallas VJP returns both, ``:1003-1013``).
 
+The forward-only wrappers (:func:`trunk`, :func:`field_raw`) run through
+the PyTorch op ``swnerf::trunk`` (``torch.library.custom_op``, with a fake
+that gives its shape), so a program exported by ``torch.export``
+(``utils/export.py``) calls the kernels; eager calls and the op's calls
+count alike in ``launches`` (at the launch).
+
 In bf16, the forward-only launch of B7, B7' and B8 (no scratch: the mesh
 sweep, ``apply_field`` without autograd, the T-NeRF render with no eval
 pass) runs on the tensor cores (``csrc/trunk.cu::trunk_tc_kernel``, B3's
@@ -369,13 +375,32 @@ def _launch_bwd(packed: PackedTrunkParams, P: int, g: torch.Tensor, scratch: tor
     return (gw, gb), demb, dvemb
 
 
+@torch.library.custom_op("swnerf::trunk", mutates_args=())
+def _trunk_op(weights: torch.Tensor, biases: torch.Tensor, emb: torch.Tensor, vemb: torch.Tensor, D: int, W: int,
+              skip: int, cin: int, cv: int, arch: str, raw: bool) -> torch.Tensor:
+    """B7 / B7' (``arch``) or B8 (``raw``), forward only, as a PyTorch op:
+    what an exported program calls (``utils/export.py``)."""
+    packed = PackedTrunkParams(weights, biases, D, W, skip, cin, cv, arch)
+    if emb.device.type == "cpu":
+        return (field_raw_plain if raw else trunk_plain)(packed, emb, vemb)
+    return _launch_fwd(packed, emb, vemb, None, raw)
+
+
+@_trunk_op.register_fake
+def _(weights, biases, emb, vemb, D, W, skip, cin, cv, arch, raw):
+    return emb.new_empty((emb.shape[0], 4), dtype=torch.float64 if weights.dtype == torch.float64 else torch.float32)
+
+
+def _call_op(packed: PackedTrunkParams, x: torch.Tensor, xv: torch.Tensor, raw: bool) -> torch.Tensor:
+    return torch.ops.swnerf.trunk(packed.weights, packed.biases, x, xv, packed.D, packed.W, packed.skip, packed.cin,
+                                  packed.input_ch_views, packed.arch, raw)
+
+
 def trunk(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor) -> torch.Tensor:
     """B7's / B7''s forward-only launch on CUDA tensors (raw [P, 4] at emb
     [P, cin] and vemb [P, cv], fp32; in bf16 on the tensor cores), the
-    plain twin on CPU tensors."""
-    if emb.device.type == "cpu":
-        return trunk_plain(packed, emb, vemb)
-    return _launch_fwd(packed, emb, vemb, None)
+    plain twin on CPU tensors; through the op ``swnerf::trunk``."""
+    return _call_op(packed, emb, vemb, False)
 
 
 def trunk_fwd_bwd(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor, g: torch.Tensor,
@@ -394,10 +419,8 @@ def trunk_fwd_bwd(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tens
 def field_raw(packed: PackedTrunkParams, pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
     """B8's forward-only launch on CUDA tensors (raw [P, 4] at pts and
     viewdirs [P, 3], fp32; in bf16 on the tensor cores), the plain twin on
-    CPU tensors."""
-    if pts.device.type == "cpu":
-        return field_raw_plain(packed, pts, viewdirs)
-    return _launch_fwd(packed, pts, viewdirs, None, raw=True)
+    CPU tensors; through the op ``swnerf::trunk`` with ``raw``."""
+    return _call_op(packed, pts, viewdirs, True)
 
 
 def field_raw_fwd_bwd(packed: PackedTrunkParams, pts: torch.Tensor, viewdirs: torch.Tensor, g: torch.Tensor,

@@ -7,8 +7,8 @@ it walks two directories of same-named frames (e.g. ``renderonly_test_*/``
 estim vs gt dumps), computes per-frame metrics, and writes ``metrics.txt`` +
 ``metrics.json``. LPIPS is LPIPS-vgg on the weights in ``SWNERF_LPIPS_DIR``
 (``utils/lpips.py``), on ``--device``; null with a note without them.
-Frames are read by the port's PNG reader (``utils/images.py``): a JPEG
-raises ``NotImplementedError``.
+Frames are read by ``utils/images.py::read_images``: PNG by the port's
+reader, JPEG through cv2 (``NotImplementedError`` where cv2 is missing).
 
 Usage: python -m swnerf_torch.pipelines.eval_dirs --pred DIR --gt DIR [--out DIR] [--device cuda|cpu]
 """

@@ -2,8 +2,8 @@
 frames (reference run.py:210-213) and the spiral and time-sweep videos
 (run.py:574,732-733 ``*_rgb.mp4`` / ``*_disp.mp4``).
 
-:func:`write_video` encodes mp4v through cv2 where cv2 imports. Without it
-(the card's machine has neither cv2 nor imageio) it writes an animated GIF
+:func:`write_video` encodes mp4v through cv2 where cv2 imports. Where it
+does not (a Python with torch and numpy alone) it writes an animated GIF
 with the port's own encoder: a fixed palette (256 greys for grey frames, a
 6 x 7 x 6 colour cube otherwise), each pixel its nearest entry, and an LZW
 code stream that clears the table before it could grow past 9-bit codes,

@@ -2661,3 +2661,61 @@ def test_lpips_on_the_card_against_the_cpu(dev, tmp_path, net, size):
         torch.backends.cudnn.allow_tf32 = tf32
     want = lpips_torch.LPIPS(net, weights_dir=str(tmp_path), device="cpu").score(a, b)
     assert want > 0 and abs(got - want) <= 1e-4, (got, want)
+
+
+@pytest.mark.parametrize("kind", ["vanilla", "vanilla_raw", "dnerf", "tnerf", "vanilla_fine"])
+def test_fused_export_launches_the_kernels(dev, kind, monkeypatch):
+    """A fused artifact (seeded fields, bf16 operands as export_model's
+    --export_fused builds them) on the card: its graph calls the swnerf::
+    ops (``vanilla_fine``: with a fine pass, whose resample is B2), each
+    call launches its kernel (counted in ``launches``), and its
+    render is the eager kernel route's bit for bit (NaN where NaN); on the
+    CPU the same artifact runs the twins."""
+    from swnerf_torch.pipelines.export_model import export_fields
+    from swnerf_torch.render.core import Rays, RenderConfig, render_rays
+    from swnerf_torch.utils.export import export_renderer, kernel_ops, load_renderer
+
+    monkeypatch.setenv("SWNERF_FUSED_RAW", "1" if kind == "vanilla_raw" else "0")
+    g = torch.Generator(device=dev).manual_seed(0)
+    if kind.startswith("vanilla"):
+        field = VanillaNeRF(VanillaNeRFConfig(netdepth=4, netwidth=128, skips=(1,), multires=6, multires_views=2),
+                            device=dev, generator=g)
+        keys = {"trunk[raw]" if kind == "vanilla_raw" else "trunk": 1}
+        if kind == "vanilla_fine":
+            keys = {"trunk": 2, "sample_pdf": 1}
+    elif kind == "dnerf":
+        field = DirectTemporalNeRF(DNeRFConfig(netdepth=4, netwidth=128, skips=(1,), multires=6, multires_views=2),
+                                   device=dev, generator=g)
+        keys = {"time_net": 1, "trunk": 1}
+    else:
+        field = TNeRF(TNeRFConfig(netdepth=6, net_dim=128, skip_layer=4, multires=6, multires_views=2), device=dev,
+                      generator=g)
+        keys = {"trunk[tnerf]": 1}
+    (fused,) = [f for f in export_fields(field, None, True, dev) if f is not None]
+    fine = field if kind == "vanilla_fine" else None  # the coarse architecture on the same params
+    rcfg = RenderConfig(n_samples=16, n_importance=16 if fine is not None else 0, white_bkgd=True)
+    n = 1000
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=-1)
+    o = torch.zeros((n, 3), device=dev)
+    o[:, 2] = 4.0
+    t = torch.rand((n, 1), generator=g, device=dev)
+    rays = Rays(o, d, d, torch.full((n,), 2.0, device=dev), torch.full((n,), 6.0, device=dev),
+                t if kind in ("dnerf", "tnerf") else None)
+    params = {"coarse": {k: p.detach() for k, p in field.named_parameters()}, "fine": None}
+    params["fine"] = None if fine is None else params["coarse"]
+    art = load_renderer(export_renderer(fused, params, rcfg, n, platforms=["cpu", "cuda"]))
+    assert set(kernel_ops(art.program("cuda"))) == {f"swnerf.{k.split('[')[0]}.default" for k in keys}
+    call = (lambda r, p: art(p, r.origins, r.directions, r.viewdirs, r.near, r.far,
+                             *(() if r.times is None else (r.times,))))
+    launches.clear()
+    got = call(rays, params)
+    torch.cuda.synchronize()
+    assert dict(launches) == keys
+    with torch.no_grad():
+        want = render_rays(field, rays, rcfg.eval_mode(), fine_model=fine)  # the field's own kernel route (bf16)
+    for k, a in zip(("rgb", "disp", "acc", "depth"), got):
+        b = want[k]
+        assert bool(torch.all((a == b) | (torch.isnan(a) & torch.isnan(b)))), k
+    cpu_params = {k: None if p is None else {n: v.cpu() for n, v in p.items()} for k, p in params.items()}
+    cpu = call(Rays(*(None if x is None else x.cpu() for x in rays)), cpu_params)
+    assert (cpu[0] - got[0].cpu()).abs().max().item() <= 2e-2  # the twins at bf16 against the tensor cores

@@ -86,15 +86,17 @@ def test_eval_dirs_matches_jax(with_lpips, frame_dirs, tmp_path, monkeypatch):
         assert got["lpips_note"] == LPIPS_UNAVAILABLE_NOTE
 
 
-def test_eval_dirs_refuses_a_count_mismatch_and_jpeg(frame_dirs):
+def test_eval_dirs_refuses_a_count_mismatch_and_jpeg(frame_dirs, monkeypatch):
     pred, gt = frame_dirs
     (pred / "003.png").write_bytes((pred / "000.png").read_bytes())
     with pytest.raises(ValueError, match="frame count mismatch"):
         eval_dirs.evaluate_dirs(str(pred), str(gt))
     (pred / "003.png").unlink()
     (pred / "002.png").rename(pred / "002.jpg")
-    with pytest.raises(NotImplementedError):
-        eval_dirs.evaluate_dirs(str(pred), str(gt))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "cv2", None)  # JPEG needs cv2: without it the read refuses
+        with pytest.raises(NotImplementedError, match=r"002\.jpg: JPEG decoding needs cv2"):
+            eval_dirs.evaluate_dirs(str(pred), str(gt))
 
 
 def test_hsv_to_rgb_bit_equal_to_jax():

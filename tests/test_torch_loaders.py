@@ -13,6 +13,7 @@ tests that run them skip without either."""
 import json
 import os
 import shutil
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -168,9 +169,10 @@ def test_write_llff_scene_matches_jax(tmp_path):
             assert np.abs(got - ref).max() <= 1
 
 
-def test_jpeg_folder_raises(tmp_path):
-    """A capture whose images/ holds JPEG files: building the factor-2
-    cache must decode them, and the port refuses, naming the file."""
+def test_jpeg_folder_raises(tmp_path, monkeypatch):
+    """A capture whose images/ holds JPEG files, on a machine without cv2:
+    building the factor-2 cache must decode them, and the port refuses,
+    naming the file (with cv2 it decodes them: tests/test_torch_images.py)."""
     from swnerf_torch.data.llff import load_llff_data
 
     root = _jax_llff(tmp_path / "cap")
@@ -179,9 +181,10 @@ def test_jpeg_folder_raises(tmp_path):
         img = imageio.imread(root / "images" / name)
         os.remove(root / "images" / name)
         imageio.imwrite(root / "images" / name.replace(".png", ".jpg"), img)
-    with pytest.raises(NotImplementedError, match=r"image000\.jpg: JPEG decoding is not ported"):
+    monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises ImportError
+    with pytest.raises(NotImplementedError, match=r"image000\.jpg: JPEG decoding needs cv2"):
         load_llff_data(str(root), factor=2)
-    with pytest.raises(NotImplementedError, match="JPEG decoding is not ported"):
+    with pytest.raises(NotImplementedError, match="JPEG decoding needs cv2"):
         load_llff_data(str(root), factor=1)
 
 
@@ -452,9 +455,9 @@ def test_every_nerf_config_reaches_its_loader(config, monkeypatch, tmp_path):
 
 
 def test_loaders_and_writers_run_without_imageio_cv2_pil(tmp_path):
-    """The card's machine has no imageio, cv2 or PIL: with the three
-    blocked, the port's writers write each format and its loaders read it
-    (the LLFF factor-2 cache built by _minify)."""
+    """With imageio, cv2 and PIL blocked, the port's writers write each
+    format and its loaders read it (the LLFF factor-2 cache built by
+    _minify, the float half_res resizes on their numpy path)."""
     import subprocess
     import sys
 
@@ -483,14 +486,21 @@ print(shapes)
 
 
 def test_port_data_modules_import_no_image_libraries():
-    """The port's loaders, writers and image helpers import no imageio,
-    cv2 or PIL (only transform_mesh's ArUco detection asks for cv2)."""
+    """The port's loaders, writers and image helpers import no imageio or
+    PIL, and cv2 only inside ``utils/images.py::_cv2`` (JPEG decoding and
+    the float area resize, each with its path without cv2; transform_mesh's
+    ArUco detection asks for cv2 too)."""
     import ast
 
     paths = sorted((REPO / "swnerf_torch" / "data").glob("*.py")) + [
         REPO / "swnerf_torch" / p for p in ("utils/images.py", "utils/png.py", "pipelines/common.py")]
     for path in paths:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        tree = ast.parse(path.read_text(), str(path))
+        lazy = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef) and f.name == "_cv2"
+                for n in ast.walk(f)} if path.name == "images.py" else set()
+        for node in ast.walk(tree):
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]
-                assert not any(n.split(".")[0] in ("imageio", "cv2", "PIL") for n in names), f"{path}: {names}"
+                banned = ("imageio", "PIL") if id(node) in lazy else ("imageio", "cv2", "PIL")
+                assert not any(n.split(".")[0] in banned for n in names), f"{path}: {names}"
+    assert "_cv2" in (REPO / "swnerf_torch" / "utils" / "images.py").read_text()
