@@ -326,7 +326,32 @@ Phases (each raises on failure; nothing is caught):
      (tests/test_mesh_pipeline.py:297); a cv2 without aruco fails;
  43. pos2d on a 256 x 256 JPEG for 3 epochs on the card: the PSNR rises,
      the .npz and the metrics.csv row are written; s per epoch;
-     then the JSON lines.
+ 44. data parallelism, one rank over NCCL: run_nerf resumed from 010000.tar
+     for 80 bf16 steps at K = 20 in two processes (no group, then a
+     one-rank NCCL world through SWNERF_COORDINATOR): the checkpoint,
+     metrics.jsonl, the last metrics and the launch counts bit-equal to
+     the first run's; the NCCL run calls all_reduce twice, the
+     uncaptured warm-up step and once inside the capture (the replays run
+     it from the graph), the runs with no group never; the NCCL kernels the
+     device ran in the replays under torch.profiler (an in-place sum over
+     one rank launches none); ms per step (CUDA events), host us per step
+     and idle share, as phase 36 measures them (saves at 10020 and 10080,
+     outside the windows);
+ 45. data parallelism, two gloo ranks sharing the card (each brings its
+     own group through a file store, then calls the trainers' CLIs at
+     K = 1): the fp32 kernel step at full width on 1,024 rays split 512 +
+     512 against one process on the global batch (loss rel 1e-5, gradients
+     rel L2 1e-4); 20 bf16 vanilla steps (train PSNR >= 30 dB, the ranks'
+     parameters bit-identical, rank 1 writes no file); --render_only of
+     test frame 0 bit-equal to phase 5's; 5 steps each of T-NeRF (B4) and
+     D-NeRF (B6, B3's pts mode, B5, B2), and one MultiRes fused phase-2
+     step with the global term from the replicated start (B6, B3's pts
+     mode, B9; each level's patch split by rows and assembled for the
+     reconstruction), each checkpoint within rtol 1e-5, atol 1e-6 of one
+     process's (MultiRes's weights through its one Adam update, which
+     normalises near-zero gradient entries: the start that each run's
+     weights and own moments give, at the bar; its moments at the bar);
+     every run's kernels counted; then the JSON lines.
 
 The training phases (9, 15, 21, 28, 34, 37, 39, 40) run at the card's default of 20
 steps a dispatch: their launch counts are the graphs' replays' (each
@@ -693,10 +718,12 @@ def main() -> int:
         ]
         launches.clear()
         t0 = time.perf_counter()
-        savedir = Path(run_nerf.main(argv))
+        with recorded_frames() as p5_frames:
+            savedir = Path(run_nerf.main(argv))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(launches)
+        frame0 = p5_frames[0]  # phase 45 holds the 2-rank render to it
         metrics = json.loads((savedir / "metrics.json").read_text())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -887,6 +914,13 @@ def main() -> int:
         phase42_jpeg(dev, tmp)
         phase43_pos2d(dev, tmp)
         print(f"[41-43 done] in {time.perf_counter() - t0:.1f} s")
+        # ---- 44. a one-rank NCCL world against no group at K = 20 (the
+        # all-reduce captured with the step); 45. two gloo ranks on the card
+        # against one process, each trainer and the sharded test render
+        p44 = phase44_nccl(tmp)
+        p45 = phase45_gloo(dev, tmp, tmp / "data_dyn_400", frame0)
+        for k in kernels:
+            k["launches"] += p44.get(k["name"], 0) + p45.get(k["name"], 0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6220,5 +6254,401 @@ def phase43_pos2d(dev, tmp):
     print(f"[43 done] phase 43 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- 44-45. data parallelism over ranks
+
+P44_START, P44_STEPS, P44_EVERY, P44_SAVE = 10000, 80, 20, 60  # phase 44: from 10000, 80 steps, print 20, save 60
+P44_ORDER = ("none", "nccl")  # the runs, once each: no group, then a one-rank NCCL world
+P45_VANILLA_STEPS, P45_STEPS = 20, 5  # phase 45: the vanilla run's steps, the other trainers'
+P45_KERNELS = {  # the launch keys (prefixes) each of phase 45's runs must count
+    "vanilla": ("render_loss[S=64]", "render_loss[S=192]", "sample_pdf"),
+    "render": ("render_pass[S=64]", "render_pass[S=192]", "sample_pdf"),
+    "tnerf": ("render_loss[tnerf",),
+    "dnerf": ("time_net", "time_net[bwd]", "render_pass[pts", "render_loss[pts", "sample_pdf"),
+    "multires": ("time_net", "time_net[bwd]", "render_pass[pts,wide", "render_loss[ext,wide", "render_loss[ext,S"),
+}
+
+
+@contextlib.contextmanager
+def recorded_frames():
+    """Every frame ``render_path`` renders (``pipelines.common``'s
+    ``render_image``), its rgb kept on the host, in the list the block gets."""
+    import swnerf_torch.pipelines.common as common
+
+    frames, render_image = [], common.render_image
+
+    def recording(*a, **kw):
+        out = render_image(*a, **kw)
+        frames.append(out["rgb"].detach().cpu())
+        return out
+
+    common.render_image = recording
+    try:
+        yield frames
+    finally:
+        common.render_image = render_image
+
+
+def _run_child(spec, envs, log, timeout):
+    """``chip_smoke.py --rank-child <spec>`` in one process under ``envs``;
+    its output to ``log``. Fails on a non-zero exit."""
+    spec_path = Path(str(log) + ".json")
+    spec_path.write_text(json.dumps(spec))
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-child", str(spec_path)],
+                            env=dict(os.environ, **envs), stdout=f, stderr=subprocess.STDOUT, timeout=timeout).returncode
+    if rc != 0:
+        print(Path(log).read_text()[-6000:])
+        fail(f"{spec['task']} child exited {rc}")
+
+
+def _digest(states) -> str:
+    """sha256 of the states' parameters, in order (the ranks' replicas)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for st in states if isinstance(states, (list, tuple)) else [states]:
+        for m in st.modules():
+            for p in m.parameters():
+                h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p44_child(spec):
+    """Phase 44's run (in its own process): run_nerf resumed from
+    010000.tar for P44_STEPS bf16 steps at K = 20, with window_timer's
+    windows; every all_reduce call recorded with whether a CUDA graph was
+    being captured, and the kernels the device ran under torch.profiler."""
+    import torch
+    import torch.distributed as dist
+
+    from swnerf_torch.pipelines import run_nerf
+
+    calls, all_reduce = [], dist.all_reduce
+
+    def recording(*a, **kw):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = recording
+    timer, win = window_timer(run_nerf, P44_START, P44_EVERY)
+    run_nerf.StepTimer = timer
+    argv = ["--config", str(CONFIG), "--ft_path", str(CKPT), "--basedir", spec["basedir"], "--datadir", str(DATADIR),
+            "--device", "cuda", "--i_print", str(P44_EVERY), "--i_weights", str(P44_SAVE)]
+    res, out, counts, wall = _cli(run_nerf.main, argv, {"SWNERF_MAX_ITERS": str(P44_START + P44_STEPS + 1)})
+    avg = win["prof"].key_averages()
+    device = {e.key: _device_us(e) for e in avg if str(e.device_type).endswith("CUDA")}
+    quiet = {i: ms for i, ms in res["step_ms"].items()
+             if i % P44_EVERY and (i - 1) % P44_EVERY and i <= P44_START + 2 * P44_EVERY}
+    lines = out.splitlines()
+    Path(spec["out"]).write_text(json.dumps(dict(
+        counts=counts, med=statistics.median(quiet.values()), host_us=win["host_us"], busy=win["busy"],
+        pwall=win["pwall"], nccl={k: v for k, v in device.items() if "nccl" in k.lower()},
+        nccl_cpu=[e.key for e in avg if "nccl" in e.key.lower() and not str(e.device_type).endswith("CUDA")],
+        calls=calls, wall=wall, captured=[ln for ln in lines if ln.startswith("Captured")],
+        sharding=[ln for ln in lines if ln.startswith("Data parallelism")], metrics=res["metrics"])))
+
+
+def phase44_nccl(tmp):
+    """Phase 44 (the module docstring). Returns the NCCL runs' launch
+    counts (the first)."""
+    import torch
+
+    from swnerf_torch.train.checkpoint import load_tar
+
+    t_phase = time.perf_counter()
+    runs = []
+    for j, tag in enumerate(P44_ORDER):
+        base = tmp / f"p44_{j}_{tag}"
+        envs = {"SWNERF_STEPS_PER_DISPATCH": "20"}
+        if tag == "nccl":  # a one-rank world: initialize_from_env joins it over NCCL
+            envs.update(SWNERF_COORDINATOR=f"file://{tmp}/p44_store_{j}", SWNERF_NUM_PROCESSES="1",
+                        SWNERF_PROCESS_ID="0")
+        _run_child({"task": "p44", "basedir": str(base), "out": str(base) + ".out.json"}, envs,
+                   str(base) + ".log", 300)
+        r = json.loads(Path(str(base) + ".out.json").read_text())
+        r["tag"], r["exp"] = tag, base / "full_nerf_200k"
+        runs.append(r)
+    last = f"{P44_START + P44_STEPS:06d}.tar"
+    ref = runs[0]
+    ref_tar = load_tar(str(ref["exp"] / last))
+    for r in runs:
+        tar = load_tar(str(r["exp"] / last))
+        tensors = dict(_flat_tensors(tar))
+        same_tar = tensors.keys() == dict(_flat_tensors(ref_tar)).keys() and all(
+            torch.equal(v, dict(_flat_tensors(ref_tar))[k]) for k, v in tensors.items())
+        same = dict(checkpoint=same_tar, metrics_jsonl=clock_free_records(r["exp"]) == clock_free_records(ref["exp"]),
+                    launches=r["counts"] == ref["counts"], last_metrics=r["metrics"] == ref["metrics"])
+        idle = 100 * (1 - r["busy"] / r["pwall"]) if r["busy"] else float("nan")
+        print(f"[44 {r['tag']}] {P44_STEPS} steps from {P44_START} at K=20: median {r['med']:.3f} ms per step (CUDA "
+              f"events, steps 1-40 that neither start a chunk nor print), host {r['host_us']:.1f} us per step "
+              f"(steps 21-40), idle share {idle:.1f}% (steps 41-60 under torch.profiler); against the first run: "
+              + ", ".join(f"{k} {'equal' if v else 'DIFFER'}" for k, v in same.items()))
+        print(f"[44 {r['tag']}] {r['sharding']} {r['captured']}; all_reduce calls (True: inside a capture) "
+              f"{r['calls']}; NCCL kernels the device ran in steps 41-60 (replays): {r['nccl'] or 'none'}; NCCL "
+              f"host events there: {sorted(set(r['nccl_cpu'])) or 'none'}")
+        if not all(same.values()) or len(r["captured"]) != 1:
+            fail(f"44 {r['tag']}: not bit-equal to the run with no group ({same}) or not one capture")
+        for key in ("render_loss[S=64]", "render_loss[S=192]", "sample_pdf"):
+            if r["counts"].get(key, 0) <= 0:
+                fail(f"44 {r['tag']}: the run launched no {key}")
+        if r["tag"] == "nccl" and (r["calls"] != [False, True] or not r["sharding"]):
+            fail(f"44: the NCCL run's all_reduce calls {r['calls']} are not [warm-up step, the capture]")
+        if r["tag"] == "none" and (r["calls"] or r["sharding"]):
+            fail(f"44: the run with no group called all_reduce {r['calls']} or sharded {r['sharding']}")
+    meds = {tag: [r["med"] for r in runs if r["tag"] == tag] for tag in ("none", "nccl")}
+    host = {tag: [r["host_us"] for r in runs if r["tag"] == tag] for tag in ("none", "nccl")}
+    print(f"[44 summary] ms per step: no group {meds['none']}, one-rank NCCL {meds['nccl']} (difference of the "
+          f"means {statistics.mean(meds['nccl']) - statistics.mean(meds['none']):+.4f} ms); host us per step: "
+          f"no group {[round(x, 1) for x in host['none']]}, NCCL {[round(x, 1) for x in host['nccl']]}")
+    print(f"[44 done] phase 44 in {time.perf_counter() - t_phase:.1f} s")
+    return next(r for r in runs if r["tag"] == "nccl")["counts"]
+
+
+def _flat_tensors(x, prefix=""):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield prefix, x
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _flat_tensors(v, f"{prefix}/{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from _flat_tensors(v, f"{prefix}/{i}")
+
+
+def p45_legs(base, data):
+    """Phase 45's trainer runs: (name, CLI module, argv, env, the last
+    checkpoint under ``base``)."""
+    from swnerf_torch.pipelines import run_dnerf, run_multires, run_nerf, run_tnerf
+
+    k1 = {"SWNERF_STEPS_PER_DISPATCH": "1"}
+    every = ["--device", "cuda", "--basedir", str(base)]
+    s = P45_STEPS
+    return (
+        ("vanilla", run_nerf, ["--config", str(CONFIG), "--ft_path", str(CKPT), "--datadir", str(DATADIR), *every,
+                               "--i_print", "10", "--i_weights", str(P45_VANILLA_STEPS)],
+         dict(k1, SWNERF_MAX_ITERS=str(P44_START + P45_VANILLA_STEPS + 1)),
+         f"full_nerf_200k/{P44_START + P45_VANILLA_STEPS:06d}.tar"),
+        ("render", run_nerf, ["--config", str(CONFIG), "--ft_path", str(CKPT), "--datadir", str(DATADIR), *every,
+                              "--render_only", "--render_test", "--testskip", "25"], {}, None),
+        ("tnerf", run_tnerf, ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--datadir", str(data),
+                              *every, "--i_print", str(s), "--i_weights", str(s)],
+         dict(k1, SWNERF_MAX_ITERS=str(800000 + s + 1)), f"full_tnerf_800k/{800000 + s:06d}.tar"),
+        ("dnerf", run_dnerf, ["--config", str(DNERF_CONFIG), "--ft_path", str(DNERF_CKPT), "--datadir", str(data),
+                              *every, "--i_print", str(s), "--i_weights", str(s)],
+         dict(k1, SWNERF_MAX_ITERS=str(800000 + s + 1)), f"full_dnerf_800k/{800000 + s:06d}.tar"),
+        # MultiRes: one fused phase-2 step with the global term from the
+        # replicated start (phase 1 left out: its summation order would move
+        # the deformation's last bits, which level 0's 2^19-frequency
+        # encoding turns into gradients past the bar)
+        ("multires", run_multires, ["--config", str(MULTIRES_CONFIG), "--datadir", str(data), *every,
+                                    "--global_optimization_epoch", "1", "--i_testset", "100000", "--i_weights", "1",
+                                    "--i_print", "1", *MR_NOISE],
+         dict(SWNERF_PHASE1_ITERS="0", SWNERF_MAX_ITERS="2", SWNERF_FUSED_MULTIRES="1"), "lego/000001.tar"),
+    )
+
+
+def p45_vanilla_step(dev, group):
+    """One fp32 kernel step (B1, B2) at full width on 1,024 seeded pixels
+    of train view r_0 from 010000.tar, jitter and noise on, its draws from
+    one seeded generator: this rank's rows with ``group``, the whole batch
+    without. Returns (metrics, gradients) on the host."""
+    import torch
+
+    from swnerf_torch.render.core import RenderConfig
+    from swnerf_torch.train.fused_step import make_fused_train_step
+
+    cfg, coarse, fine = load_models(dev)
+    rays, target = train_view_rays(dev, 1024, seed=2)
+    rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+    state = _fresh_state(cfg, coarse, fine, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m = make_fused_train_step(cfg, rcfg, fcfg=cfg, compute_dtype=torch.float32, group=group)(state, rays, target, gen)
+    torch.cuda.synchronize()
+    out = {k: float(v) for k, v in m.items()}, {k: g.cpu() for k, g in _grads(state).items()}
+    del state, coarse, fine
+    torch.cuda.empty_cache()
+    return out
+
+
+def p45_child(spec):
+    """A rank of phase 45: bring its own gloo group (the file store of
+    ``parallel/dryrun.py::launch``) on the one card, then the fp32 step and
+    every trainer run of p45_legs, each with its launch counts, the digest
+    of this rank's parameters after it and the frames it rendered."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from swnerf_torch.parallel import make_mesh
+
+    rank = int(os.environ["SWNERF_PROCESS_ID"])
+    dist.init_process_group("gloo", init_method=os.environ["SWNERF_COORDINATOR"], rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    out = {"step": p45_vanilla_step(dev, make_mesh())}
+    for name, module, argv, envs, _ in p45_legs(Path(spec["base"]) / f"rank{rank}", spec["data"]):
+        states, replicate = [], module.replicate
+
+        def capture(group, st, replicate=replicate):
+            states.append(st)
+            return replicate(group, st)
+
+        module.replicate = capture
+        try:
+            with recorded_frames() as frames:
+                res, log, counts, wall = _cli(module.main, argv, envs)
+        finally:
+            module.replicate = replicate
+        step_ms = res.get("step_ms") if isinstance(res, dict) else None
+        out[name] = dict(counts=counts, wall=wall, digest=_digest(states[-1]), frames=frames[:1],
+                         sharding=[ln for ln in log.splitlines() if ln.startswith("Data parallelism")],
+                         med=statistics.median(list(step_ms.values())[1:]) if step_ms else None)
+        dist.barrier()
+    torch.save(out, spec["out"].replace("RANK", str(rank)))
+
+
+def adam_start(tar):
+    """A MultiRes checkpoint's weights before their one Adam update (torch's
+    Adam, fused or not), from its own moments: w + lr * m_hat / (sqrt(v_hat)
+    + eps), m_hat = m / (1 - beta1), v_hat = v / (1 - beta2), at the
+    config's lrate (the schedule at update 0). Keyed as ``_flat_tensors``."""
+    lrate, out = mr_args().lrate, {}
+    for key in [k for k in tar if k.startswith("network_fn_")]:
+        level = key[len("network_fn_"):]
+        params = [(f"/{key}/{n}", w) for n, w in tar[key].items()]
+        params += [(f"/network_fine_{level}/{n}", w) for n, w in tar.get(f"network_fine_{level}", {}).items()]
+        opt = tar[f"optimizer_{level}"]
+        (group,) = opt["param_groups"]
+        (b1, b2), eps = group["betas"], group["eps"]
+        if len(group["params"]) != len(params):
+            fail(f"45: {key}'s optimizer holds {len(group['params'])} tensors for {len(params)} parameters")
+        for (name, w), i in zip(params, group["params"]):
+            st = opt["state"].get(i)
+            if st is None:  # no gradient, no update
+                out[name] = w.double()
+                continue
+            if int(st["step"]) != 1 or st["exp_avg"].shape != w.shape:
+                fail(f"45: {name}'s Adam state is not one update of its shape")
+            m, v = st["exp_avg"].double() / (1 - b1), st["exp_avg_sq"].double() / (1 - b2)
+            out[name] = w.double() + lrate * m / (v.sqrt() + eps)
+    return out
+
+
+def torch_allclose(g, r, rtol, atol):
+    return ((g.double() - r.double()).abs() <= atol + rtol * r.double().abs()).all().item()
+
+
+def phase45_gloo(dev, tmp, data, frame0):
+    """Phase 45 (the module docstring). Returns rank 0's launch counts by
+    kernel, summed over its trainer runs."""
+    import torch
+
+    from swnerf_torch.parallel.dryrun import launch
+    from swnerf_torch.train.checkpoint import load_tar
+
+    t_phase = time.perf_counter()
+    base = tmp / "p45"
+    base.mkdir(parents=True, exist_ok=True)
+    spec = base / "spec.json"
+    out_tpl = str(base / "rankRANK.pt")
+    spec.write_text(json.dumps({"task": "p45", "base": str(base), "data": str(data), "out": out_tpl}))
+    t0 = time.perf_counter()
+    logs = launch([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-child", str(spec)], 2, str(base),
+                  timeout=420, threads=4)
+    world_s = time.perf_counter() - t0
+    ranks = [torch.load(out_tpl.replace("RANK", str(r)), weights_only=False) for r in range(2)]
+    print(f"[45 world] 2 gloo ranks on one card, every run in {world_s:.1f} s; rank 0's sharding lines "
+          f"{sorted(set(ln for leg in ranks[0].values() if isinstance(leg, dict) and 'sharding' in leg for ln in leg['sharding']))}")
+    # (a) the fp32 step against one process on the global batch
+    m1, g1 = p45_vanilla_step(dev, None)
+    for r, (m2, g2) in enumerate(x["step"] for x in ranks):
+        dl = abs(m2["total_loss"] - m1["total_loss"]) / m1["total_loss"]
+        errs = rel_l2(g2, g1)
+        worst = max(errs, key=errs.get)
+        print(f"[45 step fp32 rank {r}] total_loss {m2['total_loss']:.7f} vs one process {m1['total_loss']:.7f}: rel "
+              f"{dl:.3e}; gradients rel L2 worst {worst} {errs[worst]:.3e}")
+        if dl > 1e-5 or errs[worst] > 1e-4:
+            fail(f"45: rank {r}'s fp32 step is not the one-process step (loss rel {dl}, gradient {errs[worst]})")
+    # (b) the runs: the ranks' replicas bit-identical, the kernels launched
+    for name in ("vanilla", "render", "tnerf", "dnerf", "multires"):
+        a, b = ranks[0][name], ranks[1][name]
+        med = f"; median ms per step after the first (CUDA events, rank 0) {a['med']:.3f}" if a["med"] else ""
+        print(f"[45 {name}] launches (rank 0) {json.dumps(a['counts'], sort_keys=True)}; CLI wall {a['wall']:.2f} / "
+              f"{b['wall']:.2f} s; the ranks' parameters {'bit-identical' if a['digest'] == b['digest'] else 'DIFFER'}"
+              f"{med}")
+        missing = [key for key in P45_KERNELS[name] if not any(c.startswith(key) for c in a["counts"])]
+        if a["digest"] != b["digest"] or missing or len(a["sharding"]) != 1:
+            fail(f"45 {name}: the ranks' parameters differ, or it launched no {missing}, or no sharding line")
+    exp = base / "rank0" / "full_nerf_200k"
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").read_text().splitlines()]
+    psnrs = [(rec["step"], round(rec["psnr"], 3)) for rec in recs if "psnr" in rec]
+    print(f"[45 vanilla] {P45_VANILLA_STEPS} bf16 steps at K = 1 over 2 gloo ranks: train PSNR at the prints {psnrs}")
+    if len(psnrs) != 2 or min(p for _, p in psnrs) < 30.0:
+        fail(f"45: train PSNR below 30 dB at a print (or not 2 prints): {psnrs}")
+    if (base / "rank1").exists() and any(p.is_file() for p in (base / "rank1").rglob("*")):
+        fail("45: rank 1 wrote files")
+    for r in range(2):
+        f = ranks[r]["render"]["frames"][0]
+        print(f"[45 render rank {r}] test frame 0 over 2 ranks against phase 5's: torch.equal {torch.equal(f, frame0)}, "
+              f"max |d| {(f - frame0).abs().max().item():.3e}")
+        if not torch.equal(f, frame0):
+            fail("45: the 2-rank frame 0 is not bit-equal to phase 5's")
+    # (c) T-NeRF, D-NeRF and MultiRes against one process
+    single = tmp / "p45_single"
+    for name, module, argv, envs, ckpt in p45_legs(single, data):
+        if name not in ("tnerf", "dnerf", "multires"):
+            continue
+        _cli(module.main, argv, envs)
+        got, ref = dict(_flat_tensors(load_tar(str(base / "rank0" / ckpt)))), dict(_flat_tensors(load_tar(str(single / ckpt))))
+        if got.keys() != ref.keys():
+            fail(f"45 {name}: the checkpoints' tensors differ in name")
+        dist = {k: (got[k].double() - v.double()).abs().max().item() for k, v in ref.items() if v.numel()}
+        rel = {k: d / max(ref[k].double().abs().max().item(), 1e-30) for k, d in dist.items()}
+        worst = max(rel, key=rel.get)
+        bad = [k for k, v in ref.items() if not torch_allclose(got[k], v, 1e-5, 1e-6)]
+        print(f"[45 {name}] over 2 ranks against one process, {ckpt}: {len(bad)} of {len(ref)} tensors outside rtol "
+              f"1e-5, atol 1e-6 {bad[:6]}; max |d| {max(dist.values()):.3e}, worst relative {worst} {rel[worst]:.3e}")
+        if name == "multires":
+            # One Adam update from the replicated start: its moments are held
+            # above; a weight moves by lrate * g / (|g| + eps), which the
+            # summation order can move by up to lrate where |g| is near eps,
+            # so the weights are held through that update: the start each
+            # run's weights and own moments give must agree at the bar.
+            start = adam_start(load_tar(str(base / "rank0" / ckpt)))
+            start_ref = adam_start(load_tar(str(single / ckpt)))
+            off = [k for k, v in start_ref.items() if not torch_allclose(start[k], v, 1e-5, 1e-6)]
+            print(f"[45 multires] the weights before the Adam update, from each run's weights and moments: {len(off)} "
+                  f"of {len(start_ref)} tensors outside rtol 1e-5, atol 1e-6 {off[:6]}; max |d| "
+                  f"{max((start[k] - v).abs().max().item() for k, v in start_ref.items()):.3e}")
+            bad = [k for k in bad if "/state/" in k] + off
+        if bad:
+            fail(f"45 {name}: the 2-rank run is not the one-process run within the bar")
+    print(f"[45 done] phase 45 in {time.perf_counter() - t_phase:.1f} s")
+    counts = collections.Counter()
+    for leg in ranks[0].values():
+        if isinstance(leg, dict) and "counts" in leg:
+            counts.update(leg["counts"])
+    return dict(counts)
+
+
+def rank_child(spec_path) -> int:
+    """``chip_smoke.py --rank-child <spec.json>``: one process of phase 44
+    or 45."""
+    import torch
+
+    # main()'s settings: the one-process references run in main()'s process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    {"p44": p44_child, "p45": p45_child}[spec["task"]](spec)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-child":
+        sys.exit(rank_child(sys.argv[2]))
     sys.exit(main())

@@ -22,6 +22,7 @@ import torch
 
 from swnerf_torch.ops.kernels import launches
 from swnerf_torch.ops.rays import get_rays_at, get_rays_np
+from swnerf_torch.parallel.multihost import is_primary
 from swnerf_torch.render.core import RenderConfig, build_rays, make_rays_from_camera, render_image
 from swnerf_torch.utils.media import write_png, write_video
 from swnerf_torch.utils.metrics import LPIPS_UNAVAILABLE_NOTE, calculate_metrics
@@ -261,7 +262,9 @@ def _target(images: torch.Tensor, img_i, pixels: torch.Tensor) -> torch.Tensor:
 def make_pool_step(train_step, cfg: RenderConfig, scene: Scene) -> Callable:
     """Wrap a train step to consume ``(state, pool, idx, generator)``: gather
     origins, directions and targets from the device pool at ``idx`` (a
-    device tensor, or host indices)."""
+    device tensor, or host indices). Under data parallelism the pool is
+    replicated and ``idx`` is the global batch's, which a step built with a
+    group cuts to its rank's rows."""
 
     def step(state, pool: torch.Tensor, idx, generator=None):
         batch = pool[torch.as_tensor(idx, device=pool.device)]
@@ -382,7 +385,14 @@ class KStepRoute:
     generator it was captured with; a call with others captures anew (a new
     trainer run after a resume or an auto-reseed builds new routes anyway).
     ``record(j)`` runs once step ``j`` is enqueued (the trainers'
-    :class:`StepTimer`)."""
+    :class:`StepTimer`).
+
+    Under data parallelism the draws are each step's global batch, staged
+    whole (a step built with a group takes its rank's rows on the device).
+    Under NCCL the step's one all-reduce is captured with it (the first,
+    uncaptured step also sets up the communicator); gloo collectives cannot
+    be captured, and the trainers refuse K > 1 under gloo on a card
+    (``mesh.check_dispatch``)."""
 
     def __init__(self, step: Callable):
         self.step = step
@@ -639,11 +649,14 @@ def render_path(
     render_factor: int = 0,
     eval_pass=None,
     times: Optional[np.ndarray] = None,
+    group=None,
 ) -> Tuple[np.ndarray, np.ndarray, List[float]]:
     """Render a pose path (reference render_path run.py:172-219) on the
     model's device, pose i at frame time ``times[i]`` for a time-conditioned
     field. Returns (rgbs [T, H, W, 3], disps [T, H, W], seconds per frame);
-    on a card each frame is timed between two synchronizations."""
+    on a card each frame is timed between two synchronizations. With a
+    ``group`` every rank renders its chunks of each frame and holds the
+    whole frame (``render_image``); only rank 0 writes the PNGs."""
     H, W, K = scene.H, scene.W, scene.K.copy()
     if render_factor != 0:
         H, W = H // render_factor, W // render_factor
@@ -660,7 +673,7 @@ def render_path(
             H, W, K, c2w[:3, :4], scene.near, scene.far, use_viewdirs=ecfg.use_viewdirs, ndc=scene.ndc,
             device=device, time=None if times is None else float(times[i]),
         )
-        out = render_image(model, rays, ecfg, chunk=chunk, fine_model=fine_model, eval_pass=eval_pass)
+        out = render_image(model, rays, ecfg, chunk=chunk, fine_model=fine_model, eval_pass=eval_pass, group=group)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds.append(time.perf_counter() - t0)
@@ -674,21 +687,25 @@ def render_path(
     return np.stack(rgbs), np.stack(disps), seconds
 
 
-def render_only(model, fine_model, scene: Scene, cfg: RenderConfig, args, start: int, eval_pass=None) -> str:
+def render_only(model, fine_model, scene: Scene, cfg: RenderConfig, args, start: int, eval_pass=None,
+                group=None) -> str:
     """The --render_only path (run.py:557-596): render the test poses or
     the spiral path (at ``scene.render_times`` for a dynamic scene), write
     PNGs and ``video.mp4`` (a GIF without cv2, ``utils/media.py``), and
     metrics.json when the ground truth is known: PSNR, SSIM and LPIPS (alex,
     on the model's device, where ``SWNERF_LPIPS_DIR`` holds its weights;
     null with a note otherwise). metrics.json also records each frame's
-    render seconds."""
+    render seconds. With a ``group`` the ranks share each frame's chunks
+    (:func:`render_path`) and rank 0 writes the files and scores them."""
     suffix = "test" if args.render_test else "path"
     savedir = os.path.join(args.basedir, args.expname, f"renderonly_{suffix}_{start:06d}")
     os.makedirs(savedir, exist_ok=True)
     rgbs, _, seconds = render_path(
         model, fine_model, scene.render_poses, scene, cfg, chunk=args.chunk, savedir=savedir,
-        render_factor=args.render_factor, eval_pass=eval_pass, times=scene.render_times,
+        render_factor=args.render_factor, eval_pass=eval_pass, times=scene.render_times, group=group,
     )
+    if not is_primary():
+        return savedir
     write_video(os.path.join(savedir, "video.mp4"), rgbs)
     payload = {"seconds_per_frame": seconds}
     if args.render_test and args.render_factor == 0:

@@ -36,8 +36,9 @@ PNG frames, the video and metrics.json; ``--render_only`` alone renders the
 first render pose swept over 120 times into ``time_only/`` and the
 ``time_rgb`` / ``time_disp`` videos (run_dnerf.py:553-566). Steps run
 ``SWNERF_STEPS_PER_DISPATCH`` at a time (:func:`make_dnerf_scan_step`; 20 on
-a card: CUDA-graph replays). Not ported yet (ROADMAP.md): tensor and data
-parallelism.
+a card: CUDA-graph replays). Launched as N processes the ranks share each
+step's rays and each frame's chunks (``parallel/``, as ``run_nerf``); tensor
+parallelism is not ported yet (ROADMAP.md).
 
 The train split's time checks (first 0, last 1, run_dnerf.py:297-298) hold
 for training only: ``--testskip`` strides the train split too, so
@@ -55,6 +56,7 @@ import torch
 
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models import DNeRFConfig, make_dnerf_model
+from swnerf_torch.parallel import check_dispatch, data_parallel_mesh, initialize_from_env, replicate
 from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
@@ -198,26 +200,30 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     args = config_parser_dnerf().parse_args(argv)
     if args.dataset_type != "blender":
         raise ValueError(f"Unknown dataset type {args.dataset_type!r} (dnerf supports blender)")
+    initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
+    group = data_parallel_mesh(0 if args.render_only else args.N_rand)
     args.dataset_type = "blender_dnerf"
     scene = load_scene(args)
     args.dataset_type = "blender"
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
     snapshot_args(args.basedir, args.expname, args, args.config)
     state, rcfg, eval_pass, (mcfg, fcfg) = create_dnerf(args, device)
+    replicate(group, state)
     start = state.step
 
     if args.render_only:
         print("RENDER ONLY")
         if args.render_test:
-            savedir = render_only(state.coarse, state.fine, scene, rcfg, args, start, eval_pass=eval_pass)
+            savedir = render_only(state.coarse, state.fine, scene, rcfg, args, start, eval_pass=eval_pass,
+                                  group=group)
         else:  # the live path: the first render pose swept over 120 times
             savedir = os.path.join(args.basedir, args.expname, "time_only")
             os.makedirs(savedir, exist_ok=True)
             poses = np.broadcast_to(scene.render_poses[0], (120, 4, 4))
             rgbs, disps, _ = render_path(state.coarse, state.fine, poses, scene, rcfg, args.chunk, savedir=savedir,
                                          render_factor=args.render_factor, eval_pass=eval_pass,
-                                         times=np.linspace(0.0, 1.0, 120).astype(np.float32))
+                                         times=np.linspace(0.0, 1.0, 120).astype(np.float32), group=group)
             base = os.path.join(args.basedir, args.expname, "time_")
             write_video(base + "rgb.mp4", rgbs)
             write_video(base + "disp.mp4", disps / np.max(disps))
@@ -231,10 +237,10 @@ def _train_impl(argv=None) -> Union[str, Dict]:
                            precrop_iters_time=args.precrop_iters_time)
     if args.nerf_type == "direct_temporal" and supports_fused_dnerf_step(mcfg, fcfg, rcfg) and kernel_step(device):
         train_step = make_fused_dnerf_step(mcfg, rcfg, fcfg=fcfg, add_tv_loss=args.add_tv_loss,
-                                           tv_loss_weight=args.tv_loss_weight)
+                                           tv_loss_weight=args.tv_loss_weight, group=group)
         print("Using the kernel D-NeRF train step (B6, B5, B3 pts mode, B2)")
     else:
-        train_step = make_dnerf_train_step(rcfg, args.add_tv_loss, args.tv_loss_weight)
+        train_step = make_dnerf_train_step(rcfg, args.add_tv_loss, args.tv_loss_weight, group=group)
         print("Using the eager autograd train step")
     scan_fn = make_dnerf_scan_step(train_step, rcfg, scene)
     images_dev = torch.as_tensor(scene.images, device=device)
@@ -243,6 +249,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     generator = torch.Generator(device=device).manual_seed(seed_value(1))
     host_rng = neighbor_time_rng()
     k_disp = steps_per_dispatch(device)
+    check_dispatch(group, device, k_disp)
 
     n_iters = int(os.environ.get("SWNERF_MAX_ITERS", args.N_iter + 1))
     samples_per_step = args.N_rand * (rcfg.n_samples + (rcfg.n_samples + rcfg.n_importance if rcfg.n_importance else 0))
@@ -279,7 +286,8 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             watchdog.check(i, m["psnr"])
         if i % args.i_img == 0 and i > 0 and len(scene.i_val) and logger.tb is not None:
             # One val view to TensorBoard (the render is skipped where no
-            # writer would take it).
+            # writer would take it: on every rank but 0, which renders it
+            # alone, with no collective).
             img_i = int(np.random.default_rng(i).choice(scene.i_val))
             rgbs, disps, _ = render_path(state.coarse, state.fine, scene.poses[img_i : img_i + 1], scene, rcfg,
                                          args.chunk, eval_pass=eval_pass, times=scene.times[img_i : img_i + 1])
@@ -289,14 +297,14 @@ def _train_impl(argv=None) -> Union[str, Dict]:
         if i % args.i_video == 0 and i > 0:
             viddir = os.path.join(args.basedir, args.expname, f"frames_{args.expname}_spiral_{i:06d}_time")
             rgbs, disps, _ = render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk,
-                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times)
+                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times, group=group)
             base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
             write_video(base + "rgb.mp4", rgbs)
             write_video(base + "disp.mp4", disps / np.max(disps))
         if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
             render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
-                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test])
+                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test], group=group)
             print("Saved test set")
         i += 1
 

@@ -39,10 +39,13 @@ neighbour times) is seeded from ``SWNERF_SEED``; at seed 0 it draws the JAX
 package's (which hard-codes 0). ``SWNERF_CKPT_FORMAT`` selects the
 ``.tar`` and/or the native ``.msgpack`` (``{"params_all", "opt_states"}``,
 the JAX package's MultiRes snapshot), and either resumes. ``--i_video``
-writes each level's PNG frames and the reconstructed video. Not ported yet
-(ROADMAP.md): tensor and data parallelism (the JAX package's MultiRes has
-no K-step dispatch, so the port gives it none). ``SWNERF_MAX_ITERS`` caps
-the iteration count (testing).
+writes each level's PNG frames and the reconstructed video. Launched as N
+processes (``parallel/``, as ``run_nerf``) the ranks share phase 1's rays
+and each level's phase-2 patch (:func:`make_phase2_step`) and each test
+frame's chunks; rank 0 writes the files. Not ported yet (ROADMAP.md):
+tensor parallelism (the JAX package's MultiRes has no K-step dispatch, so
+the port gives it none). ``SWNERF_MAX_ITERS`` caps the iteration count
+(testing).
 """
 
 from __future__ import annotations
@@ -65,6 +68,16 @@ from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.pyramid import generate_gaussian_pyramid, generate_laplacian_pyramid, reconstruct_from_pyramid
 from swnerf_torch.ops.rays import get_rays_at
 from swnerf_torch.ops.sampling import sample_along_rays
+from swnerf_torch.parallel import (
+    RaysGroup,
+    all_reduce_rows,
+    batch_rows,
+    data_parallel_mesh,
+    initialize_from_env,
+    is_primary,
+    reducer_for,
+    replicate,
+)
 from swnerf_torch.pipelines.common import (
     ImageSampler,
     Scene,
@@ -286,7 +299,7 @@ def fused_levels(states: List[TrainState], rcfg: RenderConfig, device) -> List[b
 
 
 def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: float, far: float,
-                     fused=None, compute_dtype: Optional[torch.dtype] = None):
+                     fused=None, compute_dtype: Optional[torch.dtype] = None, group: Optional[RaysGroup] = None):
     """The joint step (``make_phase2_step`` of the JAX package,
     run_multires.py:243-407): ``(states, pixels_all, targets_all,
     target_full, pose, t, gw, generator=None, draws=None) -> metrics``.
@@ -305,8 +318,19 @@ def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: 
     on the CPU, whose twins stand in). ``draws`` (one ``Draws`` per level)
     or ``generator`` give the random numbers: the JAX package renders every
     level of every phase-2 step with one key (run_multires.py:622), the port
-    draws fresh numbers each time."""
+    draws fresh numbers each time.
+
+    ``group`` (``parallel/mesh.py``; the JAX package shards each level's
+    patch pixels under ``shard_cli_step`` and GSPMD spans the
+    reconstruction): each rank renders its rows of every level's patch
+    (with those rows of the whole patch's draws), the whole patches are
+    assembled detached by one all-reduce of zero-filled buffers, every rank
+    computes the same loss on them and its gradient with respect to the
+    patches, backpropagates its rows' slice of it through its own renders,
+    and one all-reduce sums the parameter gradients of every level. The
+    metrics are the whole patches' on every rank."""
     L = len(pyr_hwf)
+    reducer = reducer_for(group)
 
     def fused_rgb(st: TrainState, rays, dl: Draws, dtype: torch.dtype) -> torch.Tensor:
         cfg = st.coarse.cfg
@@ -340,21 +364,35 @@ def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: 
         dtype = operand_dtype(device, compute_dtype)
         for st in states:
             st.zero_grad()
-        total = 0.0
-        metrics: Dict[str, torch.Tensor] = {}
-        outs = []
+        renders = []
         for l in range(L):
             H, W, focal = pyr_hwf[l]
             ps = patch_sizes[l]
-            pixels = pixels_all[l]
+            rows = batch_rows(group, ps * ps)
+            pixels = rows.take(pixels_all[l])
             rays_o, rays_d = get_rays_at(pixels, int(H), int(W), float(focal), pose)
-            times = torch.full((ps * ps, 1), float(t), dtype=torch.float32, device=pixels.device)
+            times = torch.full((pixels.shape[0], 1), float(t), dtype=torch.float32, device=pixels.device)
             rays = build_rays(rays_o, rays_d, near, far, use_viewdirs=rcfg.use_viewdirs, times=times)
-            dl = draws[l] if draws is not None else make_draws(rcfg, ps * ps, generator, pixels.device)
+            dl = rows.take_fields(make_draws(rcfg, ps * ps, generator, device) if draws is None else draws[l])
             if flags[l]:
                 out = {"rgb": fused_rgb(states[l], rays, dl, dtype)}
             else:
                 out = render_rays(states[l].coarse, rays, rcfg, fine_model=states[l].fine, draws=dl)
+            renders.append(({k: out[k] for k in ("rgb", "rgb0") if k in out}, rows))
+        if group is None:
+            maps = [out for out, _ in renders]
+        else:  # the whole patches, detached, as leaves of the loss
+            local = [(out[k], rows) for out, rows in renders for k in out]
+            whole_maps = all_reduce_rows(group, [x for x, _ in local], [r for _, r in local])
+            for x in whole_maps:
+                x.requires_grad_(True)
+            it = iter(whole_maps)
+            maps = [{k: next(it) for k in out} for out, _ in renders]
+        total = 0.0
+        metrics: Dict[str, torch.Tensor] = {}
+        outs = []
+        for l, out in enumerate(maps):
+            ps = patch_sizes[l]
             rgb = out["rgb"].reshape(ps, ps, 3)
             img_loss = mse(rgb, targets_all[l])
             total = total + img_loss
@@ -371,6 +409,9 @@ def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: 
         metrics["global_psnr"] = mse_to_psnr(global_loss.detach())
         metrics["total_loss"] = total.detach()
         total.backward()
+        if group is not None:  # each rank's rows of the patches' gradient, through its own renders
+            torch.autograd.backward([x for x, _ in local], [w.grad[r.lo : r.hi] for (_, r), w in zip(local, whole_maps)])
+            reducer([p for st in states for m in st.modules() for p in m.parameters()])
         for st in states:
             st.apply_update()
         return metrics
@@ -379,7 +420,7 @@ def make_phase2_step(rcfg: RenderConfig, pyr_hwf, patch_sizes: List[int], near: 
 
 
 def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: RenderConfig, i: int,
-                   eval_passes: Optional[List[Optional[DNeRFEvalPass]]] = None
+                   eval_passes: Optional[List[Optional[DNeRFEvalPass]]] = None, group: Optional[RaysGroup] = None
                    ) -> Tuple[np.ndarray, float, List[torch.Tensor]]:
     """Every level renders the test views at their frame times
     (``layer_{l}/``) through its eval pass where ``eval_passes`` gives one
@@ -389,7 +430,8 @@ def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: 
     frames [T, H, W, 3] (clipped to [0, 1]), the milliseconds per
     reconstructed frame (every level's render and the reconstruction; on a
     card between two synchronizations; the PNG writes come after) and each
-    level's frames [T, H / 2^l, W / 2^l, 3] as rendered."""
+    level's frames [T, H / 2^l, W / 2^l, 3] as rendered. With a ``group``
+    the ranks share each frame's chunks (``render_path``)."""
     testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
     device = next(states[0].coarse.parameters()).device
     if device.type == "cuda":
@@ -399,7 +441,7 @@ def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: 
     for l, st in enumerate(states):
         rgbs, _, _ = render_path(st.coarse, st.fine, scene.poses[scene.i_test], level_scene(scene, pyr_hwf[l]), rcfg,
                                  args.chunk, eval_pass=eval_passes[l] if eval_passes else None,
-                                 times=scene.times[scene.i_test])
+                                 times=scene.times[scene.i_test], group=group)
         level_frames.append(torch.as_tensor(rgbs))
     recon = reconstruct_from_pyramid(level_frames).clamp(0.0, 1.0).numpy()
     ms = (time.perf_counter() - t0) * 1e3 / max(len(scene.i_test), 1)
@@ -413,7 +455,8 @@ def render_testset(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: 
 
 
 def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcfg: RenderConfig, i: int,
-                      eval_passes: Optional[List[Optional[DNeRFEvalPass]]] = None) -> None:
+                      eval_passes: Optional[List[Optional[DNeRFEvalPass]]] = None,
+                      group: Optional[RaysGroup] = None) -> None:
     """The first render pose swept over ``SWNERF_VIDEO_FRAMES`` (120) times
     per level (through its eval pass where ``eval_passes`` gives one; PNG
     frames per level), reconstructed to the ``_reconstructed_{i}_rgb``
@@ -425,7 +468,8 @@ def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcf
     for l, st in enumerate(states):
         savedir = os.path.join(args.basedir, args.expname, f"frames_layer_{l}_{i:06d}_time")
         rgbs, _, _ = render_path(st.coarse, st.fine, poses, level_scene(scene, pyr_hwf[l]), rcfg, args.chunk,
-                                 savedir=savedir, eval_pass=eval_passes[l] if eval_passes else None, times=times)
+                                 savedir=savedir, eval_pass=eval_passes[l] if eval_passes else None, times=times,
+                                 group=group)
         level_frames.append(torch.as_tensor(rgbs))
     recon = reconstruct_from_pyramid(level_frames).clamp(0.0, 1.0).numpy()
     write_video(os.path.join(args.basedir, args.expname, f"{args.expname}_reconstructed_{i:06d}_rgb.mp4"), recon)
@@ -445,7 +489,9 @@ def train(argv=None) -> Dict:
     args = config_parser_dnerf().parse_args(argv)
     if args.dataset_type != "blender":
         raise ValueError(f"Unknown dataset type {args.dataset_type!r} (multires supports blender)")
+    initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
+    group = data_parallel_mesh(args.N_rand)
     args.dataset_type = "blender_dnerf"
     scene = load_scene(args)
     args.dataset_type = "blender"
@@ -455,6 +501,7 @@ def train(argv=None) -> Dict:
     log_txt = os.path.join(args.basedir, args.expname, "log.txt")
 
     kind, states, pyr_hwf, rcfg, start = create_multires(args, scene, device)
+    replicate(group, states)
     eval_passes = make_level_eval_passes(states, device)
     L = args.layer_num
     result: Dict = {"metrics": {}, "phase1_loss": {}, "phase1_step_ms": {}, "phase2_step_ms": {},
@@ -495,7 +542,7 @@ def train(argv=None) -> Dict:
 
     # ---------------- phase 1: each level alone, coarsest first
     phase1_iters = int(os.environ.get("SWNERF_PHASE1_ITERS", args.global_optimization_epoch))
-    train_step = make_dnerf_train_step(rcfg, args.add_tv_loss, args.tv_loss_weight)
+    train_step = make_dnerf_train_step(rcfg, args.add_tv_loss, args.tv_loss_weight, group=group)
     for layer in reversed(range(L)):
         print(f"=== Phase 1: private pretrain, level {layer} ===")
         lscene = level_scene(scene, pyr_hwf[layer], gauss_levels[layer].cpu().numpy())
@@ -516,8 +563,9 @@ def train(argv=None) -> Dict:
                 line = f"[PRETRAIN] Layer {layer} Iter: {i} Loss: {float(metrics['loss']):.6f} " \
                        f"PSNR: {float(metrics['psnr']):.3f}"
                 print(line, flush=True)
-                with open(log_txt, "a") as f:
-                    f.write(line + "\n")
+                if is_primary():
+                    with open(log_txt, "a") as f:
+                        f.write(line + "\n")
         timer.collect()
         result["phase1_loss"][layer] = losses
         result["phase1_step_ms"][layer] = timer.step_ms
@@ -527,7 +575,7 @@ def train(argv=None) -> Dict:
 
     # ---------------- phase 2: joint patch optimization
     fused = fused_levels(states, rcfg, device)
-    step_fn = make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=fused)
+    step_fn = make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=fused, group=group)
     print(f"Begin joint training (fused phase 2 on levels {[l for l, f in enumerate(fused) if f]})")
     timer = StepTimer(device, start)
     metrics = {}
@@ -556,17 +604,19 @@ def train(argv=None) -> Dict:
             line = (f"[GLOBAL OPT] Iter: {i} Global Loss: {m['global_loss']:.6f} "
                     f"Global PSNR: {m['global_psnr']:.2f}, Coords: {coords[0]}")
             print(line, flush=True)
-            with open(log_txt, "a") as f:
-                f.write(line + "\n")
+            if is_primary():
+                with open(log_txt, "a") as f:
+                    f.write(line + "\n")
         render_video = i % args.i_video == 0 and i > 0
         render_test = i % args.i_testset == 0 and i > 0 and len(scene.i_test)
         if render_video or render_test:  # the renders stay out of the step times
             timer.collect()
             result["phase2_step_ms"].update(timer.step_ms)
             if render_video:
-                render_time_sweep(args, scene, states, pyr_hwf, rcfg, i, eval_passes)
+                render_time_sweep(args, scene, states, pyr_hwf, rcfg, i, eval_passes, group)
             if render_test:
-                _, result["test_frame_ms"], _ = render_testset(args, scene, states, pyr_hwf, rcfg, i, eval_passes)
+                _, result["test_frame_ms"], _ = render_testset(args, scene, states, pyr_hwf, rcfg, i, eval_passes,
+                                                               group)
             timer = StepTimer(device, i)
 
     timer.collect()

@@ -25,6 +25,12 @@ in chunks that end on every save, render, print and warm-start iteration.
 ``SWNERF_FUSED_DTYPE_SCHEDULE=f32@<iters>`` runs the eager step with fp32
 field operands through ``<iters>`` before the kernel step (:func:`warm_start`).
 Serving renders the test views or the spiral path through B3 and B2.
+
+Launched as N processes (one per card: ``SWNERF_COORDINATOR`` /
+``SWNERF_NUM_PROCESSES`` / ``SWNERF_PROCESS_ID``, or ``torchrun``), each
+rank trains on its rows of every step's ray batch and the step sums the
+gradients with one all-reduce (``parallel/``); the renders split each
+frame's chunks over the ranks; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
+from swnerf_torch.parallel import check_dispatch, data_parallel_mesh, initialize_from_env, replicate
 from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
@@ -144,7 +151,7 @@ def save_vanilla_ckpt(args, state: TrainState, i: int) -> str:
     return save_checkpoint(args.basedir, args.expname, i, tar_payload, lambda: native_state(state))
 
 
-def warm_start(use_kernel_step: bool, rcfg: RenderConfig):
+def warm_start(use_kernel_step: bool, rcfg: RenderConfig, group=None):
     """``SWNERF_FUSED_DTYPE_SCHEDULE=f32@<iters>`` (``run_nerf.py:268-287``
     of the JAX package): where the kernel step is taken, the eager autograd
     step with fp32 field operands runs through iteration ``<iters>`` and the
@@ -157,7 +164,7 @@ def warm_start(use_kernel_step: bool, rcfg: RenderConfig):
     if kind != "f32" or not at.isdigit():
         raise ValueError(f"SWNERF_FUSED_DTYPE_SCHEDULE={sched!r}: expected 'f32@<iters>'")
     print(f"Precision warm-start: f32 autodiff step through iter {int(at)}, fused bf16 step after")
-    return int(at), make_train_step(rcfg, compute_dtype=torch.float32)
+    return int(at), make_train_step(rcfg, compute_dtype=torch.float32, group=group)
 
 
 def train(argv=None):
@@ -173,27 +180,31 @@ def _train_impl(argv=None) -> Dict:
     device ms}}``; on the card each step's time is read from CUDA events
     recorded after every step (no synchronization in the loop)."""
     args = config_parser().parse_args(argv)
+    initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
+    group = data_parallel_mesh(args.N_rand)
     scene = load_scene(args)
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
     snapshot_args(args.basedir, args.expname, args, args.config)
     state, rcfg, eval_pass, (mcfg, fcfg) = create_vanilla(args, device)
+    replicate(group, state)
     start = state.step
     logger = ExperimentLogger(args.basedir, args.expname)
 
     use_kernel_step = supports_fused_step(mcfg, fcfg, rcfg) and kernel_step(device)
     if use_kernel_step:
-        train_step = make_fused_train_step(mcfg, rcfg, fcfg=fcfg)
+        train_step = make_fused_train_step(mcfg, rcfg, fcfg=fcfg, group=group)
         print("Using the kernel train step (B1 render-loss, B2 sample_pdf)")
     else:
-        train_step = make_train_step(rcfg)
+        train_step = make_train_step(rcfg, group=group)
         print("Using the eager autograd train step")
-    warm_until, warm_train_step = warm_start(use_kernel_step, rcfg)
+    warm_until, warm_train_step = warm_start(use_kernel_step, rcfg, group)
     generator = torch.Generator(device=device).manual_seed(seed_value(1))
 
     # K steps per dispatch: each chunk's steps are replays of one CUDA graph
     # on a card (KStepRoute); SWNERF_STEPS_PER_DISPATCH=1 dispatches each.
     k_disp = steps_per_dispatch(device)
+    check_dispatch(group, device, k_disp)
     nan_check = None
     if os.environ.get("SWNERF_DEBUG_NANS") == "1":
         # Opt-in analog of the reference's always-on anomaly detection
@@ -254,7 +265,7 @@ def _train_impl(argv=None) -> Dict:
                 save_vanilla_ckpt(args, state, i)
             if i % args.i_video == 0 and i > 0:
                 rgbs, disps, _ = render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk,
-                                             eval_pass=eval_pass)
+                                             eval_pass=eval_pass, group=group)
                 base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
                 write_video(base + "rgb.mp4", rgbs)
                 write_video(base + "disp.mp4", disps / np.max(disps))
@@ -262,7 +273,7 @@ def _train_impl(argv=None) -> Dict:
                 testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
                 os.makedirs(testsavedir, exist_ok=True)
                 render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
-                            savedir=testsavedir, eval_pass=eval_pass)
+                            savedir=testsavedir, eval_pass=eval_pass, group=group)
                 print("Saved test set")
             if i % args.i_print == 0:
                 timer.collect()
@@ -284,14 +295,17 @@ def main(argv=None):
     """CLI entry. Returns the render directory of ``--render_only``, else
     what :func:`train` returns."""
     args = config_parser().parse_args(argv)
+    initialize_from_env(args.device)
     device = resolve_device(args.device)
     if not args.render_only:
         return train(argv)
+    group = data_parallel_mesh()
     scene = load_scene(args)
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
     state, rcfg, eval_pass, _ = create_vanilla(args, device)
+    replicate(group, state)
     print("RENDER ONLY")
-    savedir = render_only(state.coarse, state.fine, scene, rcfg, args, state.step, eval_pass=eval_pass)
+    savedir = render_only(state.coarse, state.fine, scene, rcfg, args, state.step, eval_pass=eval_pass, group=group)
     print("Done rendering", savedir)
     return savedir
 

@@ -23,8 +23,9 @@ Serving renders the test views (or the render path) at their frame times
 through B4 and writes PNG frames, the video and metrics.json. Steps run
 ``SWNERF_STEPS_PER_DISPATCH`` at a time (20 on a card: CUDA-graph replays,
 ``pipelines/common.py::KStepRoute``), through ``run_dnerf``'s
-``make_dnerf_scan_step`` as in the JAX package. Tensor parallelism and
-multi-GPU are not ported yet (ROADMAP.md).
+``make_dnerf_scan_step`` as in the JAX package. Launched as N processes the
+ranks share each step's rays and each frame's chunks (``parallel/``, as
+``run_nerf``); tensor parallelism is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models import TNeRF, TNeRFConfig
 from swnerf_torch.ops.kernels.render_pass import supports_tnerf
+from swnerf_torch.parallel import check_dispatch, data_parallel_mesh, initialize_from_env, replicate
 from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
@@ -136,18 +138,21 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     args = config_parser_dnerf().parse_args(argv)
     if args.dataset_type != "blender":
         raise ValueError(f"Unknown dataset type {args.dataset_type!r} (tnerf supports blender)")
+    initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
+    group = data_parallel_mesh(0 if args.render_only else args.N_rand)
     args.dataset_type = "blender_dnerf"
     scene = load_scene(args)
     args.dataset_type = "blender"
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
     snapshot_args(args.basedir, args.expname, args, args.config)
     state, rcfg, eval_pass, mcfg = create_tnerf(args, device)
+    replicate(group, state)
     start = state.step
 
     if args.render_only:
         print("RENDER ONLY")
-        savedir = render_only(state.coarse, None, scene, rcfg, args, start, eval_pass=eval_pass)
+        savedir = render_only(state.coarse, None, scene, rcfg, args, start, eval_pass=eval_pass, group=group)
         print("Done rendering", savedir)
         return savedir
 
@@ -155,10 +160,10 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac,
                            precrop_iters_time=args.precrop_iters_time)
     if supports_fused_tnerf_step(mcfg, rcfg) and kernel_step(device):
-        train_step = make_fused_tnerf_step(mcfg, rcfg)
+        train_step = make_fused_tnerf_step(mcfg, rcfg, group=group)
         print("Using the kernel T-NeRF train step (B4 render-loss)")
     else:
-        train_step = make_train_step(rcfg)
+        train_step = make_train_step(rcfg, group=group)
         print("Using the eager autograd train step")
     scan_fn = make_dnerf_scan_step(train_step, rcfg, scene, pass_neighbor=False)
     images_dev = torch.as_tensor(scene.images, device=device)
@@ -166,6 +171,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     times_dev = torch.as_tensor(scene.times, device=device)
     generator = torch.Generator(device=device).manual_seed(seed_value(1))
     k_disp = steps_per_dispatch(device)
+    check_dispatch(group, device, k_disp)
 
     n_iters = int(os.environ.get("SWNERF_MAX_ITERS", args.N_iter + 1))
     samples_per_step = args.N_rand * rcfg.n_samples
@@ -200,14 +206,14 @@ def _train_impl(argv=None) -> Union[str, Dict]:
         if i % args.i_video == 0 and i > 0:
             viddir = os.path.join(args.basedir, args.expname, f"frames_{args.expname}_spiral_{i:06d}_time")
             rgbs, disps, _ = render_path(state.coarse, None, scene.render_poses, scene, rcfg, args.chunk,
-                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times)
+                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times, group=group)
             base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
             write_video(base + "rgb.mp4", rgbs)
             write_video(base + "disp.mp4", disps / np.max(disps))
         if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
             render_path(state.coarse, None, scene.poses[scene.i_test], scene, rcfg, args.chunk,
-                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test])
+                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test], group=group)
             print("Saved test set")
         i += 1
 

@@ -26,6 +26,7 @@ from swnerf_torch.models.common import Field
 from swnerf_torch.ops.rays import get_rays, ndc_rays
 from swnerf_torch.ops.sampling import merge_z_vals, sample_along_rays, sample_pdf, sorted_uniforms
 from swnerf_torch.ops.volume import composite
+from swnerf_torch.parallel.mesh import Rows, all_reduce_rows
 from swnerf_torch.utils.switches import pdf_merge
 
 
@@ -240,11 +241,19 @@ def render_image(
     chunk: int = 8192,
     fine_model: Optional[Field] = None,
     eval_pass=None,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """Whole-image render in chunks of ``chunk`` rays, always in eval mode
     (deterministic). Returns rgb [N, 3], disp, acc, depth [N]. An eval pass
     is used only where it takes the rays' times or their absence
-    (``supports_times``), as in the JAX package."""
+    (``supports_times``), as in the JAX package.
+
+    With a ``group`` (``parallel/mesh.py``; ``render/core.py:329-350`` of
+    the JAX package shards the eval tiles) each rank renders chunks
+    ``host_shard_bounds(n_chunks)`` of the same chunk boundaries, and the
+    frame is assembled on every rank by one ``all_reduce`` of a zero-filled
+    buffer: the pieces are disjoint, so the frame is bit-equal to one
+    process's."""
     cfg = cfg.eval_mode()
     use_pass = (
         eval_pass is not None
@@ -256,12 +265,24 @@ def render_image(
         packed_fine = eval_pass.pack(fine_model) if fine_model is not None else None
     outs = []
     n = rays.origins.shape[0]
-    for start in range(0, n, chunk):
+    starts = list(range(0, n, chunk))
+    if group is not None:
+        mine = group.rows(len(starts))
+        starts = mine.take(starts)
+    for start in starts:
         tile = rays.slice(start, min(n, start + chunk))
         if use_pass:
             outs.append(eval_pass(packed, packed_fine, tile, cfg))
         else:
             out = render_rays(model, tile, cfg, fine_model=fine_model)
             outs.append((out["rgb"], out["disp"], out["acc"], out["depth"]))
-    rgb, disp, acc, depth = (torch.cat(parts, 0) for parts in zip(*outs))
+    if group is None:
+        rgb, disp, acc, depth = (torch.cat(parts, 0) for parts in zip(*outs))
+        return {"rgb": rgb, "disp": disp, "acc": acc, "depth": depth}
+    rows = Rows(mine.lo * chunk, min(n, mine.hi * chunk), n)
+    if outs:
+        pieces = [torch.cat(parts, 0) for parts in zip(*outs)]
+    else:  # more ranks than chunks
+        pieces = [torch.empty((0, 3), device=rays.origins.device)] + [torch.empty(0, device=rays.origins.device)] * 3
+    rgb, disp, acc, depth = all_reduce_rows(group, pieces, [rows] * 4)
     return {"rgb": rgb, "disp": disp, "acc": acc, "depth": depth}

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Seque
 import numpy as np
 import torch
 
+from swnerf_torch.parallel.multihost import is_primary
 from swnerf_torch.utils import msgpack
 
 
@@ -145,7 +146,11 @@ def vanilla_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def save_tar(path: str, payload: Mapping[str, Any]) -> None:
     """``torch.save`` a checkpoint payload; tensors are moved to the CPU
-    first, so the file loads on a machine without a card."""
+    first, so the file loads on a machine without a card. Rank 0 only
+    (``parallel/multihost.py``: every rank computes, the primary owns the
+    files)."""
+    if not is_primary():
+        return
 
     def cpu(x):
         if isinstance(x, torch.Tensor):
@@ -374,7 +379,9 @@ def _check_compat(saved, template, path: str = "state") -> None:
 def save_native(path: str, state: Mapping[str, Any], extra: Optional[Dict[str, Any]] = None) -> None:
     """The native snapshot: ``{"state": state, "extra": extra}`` (state-dict
     form, numpy leaves) as flax-msgpack bytes, written to ``path + ".tmp"``
-    and renamed into place."""
+    and renamed into place. Rank 0 only, as :func:`save_tar`."""
+    if not is_primary():
+        return
     blob = msgpack.packb({"state": state, "extra": extra or {}})
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
@@ -444,9 +451,11 @@ def save_checkpoint(basedir: str, expname: str, i: int, tar_payload: Callable[[]
     """Write ``{i:06d}.tar`` from ``tar_payload()`` and/or the native
     ``{i:06d}.msgpack`` from ``native_state()``, as ``SWNERF_CKPT_FORMAT``
     selects; each builder runs (a copy to the host) only when its format
-    is. Returns the ``.tar``'s path."""
+    is, and only on rank 0, which writes. Returns the ``.tar``'s path."""
     path = os.path.join(basedir, expname, f"{i:06d}.tar")
     fmts = ckpt_formats()
+    if not is_primary():
+        return path
     if "tar" in fmts:
         save_tar(path, tar_payload())
         print("Saved checkpoints at", path)

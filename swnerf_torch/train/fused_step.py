@@ -13,7 +13,16 @@ back the kernels' gradients. Random numbers, sampling and loss are those of
 the eager steps (``train/loop.py``; tested against them). On CUDA tensors
 the kernels run (bf16 operands by default); on CPU tensors, which must be
 asked for, their plain twins (fp32).
-Multi-GPU (``axis_name``/``pmean`` in the JAX step) is a later slice.
+
+Data parallelism (the JAX steps' ``axis_name`` / ``pmean`` under
+``shard_map``): a step built with a ``group`` (``parallel/mesh.py``) is
+called with the global batch and trains on its rank's rows of it
+(``loop.shard_batch``): it draws the global batch's random numbers and
+keeps its rows, scales its squared errors
+by the global batch (``1 / (3 N_global)``; the D-NeRF TV term, a global
+sum, enters unscaled), and after the backward sums every gradient and the
+loss terms over the ranks with one all-reduce (``StepReducer``) before
+Adam, so the sum is the global-batch gradient, uneven rows included.
 """
 
 from __future__ import annotations
@@ -28,9 +37,10 @@ from swnerf_torch.ops.kernels import render_loss as b1
 from swnerf_torch.ops.kernels import render_pass as b3
 from swnerf_torch.ops.kernels import time_net as b6
 from swnerf_torch.ops.sampling import sample_along_rays, sample_pdf_merge
-from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+from swnerf_torch.parallel.mesh import RaysGroup, reducer_for
+from swnerf_torch.render.core import Draws, Rays, RenderConfig
 from swnerf_torch.render.fused_eval import _dists_scaled, canonical_params
-from swnerf_torch.train.loop import TrainState, mse_to_psnr, time_like
+from swnerf_torch.train.loop import TrainState, mse_to_psnr, reduced_metrics, shard_batch, time_like
 
 
 def _dtype(compute_dtype: Optional[torch.dtype], dev: torch.device) -> torch.dtype:
@@ -47,19 +57,27 @@ def supports_fused_step(cfg, fcfg, rcfg: RenderConfig) -> bool:
     return ok
 
 
+def _params(state: TrainState):
+    return [p for m in state.modules() for p in m.parameters()]
+
+
 def _set_grads(model, grads: Dict[str, torch.Tensor]) -> None:
     for name, p in model.named_parameters():
         g = grads[name]
         p.grad = g if p.grad is None else p.grad + g
 
 
-def make_fused_train_step(cfg, rcfg: RenderConfig, fcfg=None, compute_dtype: Optional[torch.dtype] = None):
+def make_fused_train_step(cfg, rcfg: RenderConfig, fcfg=None, compute_dtype: Optional[torch.dtype] = None,
+                          group: Optional[RaysGroup] = None):
     """Build ``(state, rays, target, generator=None, draws=None) -> metrics``
-    with in-kernel gradients. ``cfg``/``fcfg`` are the coarse and fine
-    model configs (``state.fine`` None: the coarse net serves both passes
-    and its gradients from the two passes add). ``compute_dtype`` is B1's
-    operand type; None means bf16 on the card and fp32 on the CPU."""
+    with in-kernel gradients. ``cfg``/``fcfg`` are the coarse
+    and fine model configs (``state.fine`` None: the coarse net serves both
+    passes and its gradients from the two passes add). ``compute_dtype`` is
+    B1's operand type; None means bf16 on the card and fp32 on the CPU.
+    ``group``: the rays are the global batch, of which the step trains on
+    its rank's rows and reduces as the module docstring says."""
     fine_cfg = fcfg if fcfg is not None else cfg
+    reducer = reducer_for(group)
 
     def train_step(
         state: TrainState,
@@ -69,11 +87,9 @@ def make_fused_train_step(cfg, rcfg: RenderConfig, fcfg=None, compute_dtype: Opt
         draws: Optional[Draws] = None,
     ) -> Dict[str, torch.Tensor]:
         dev = rays.origins.device
-        n = rays.origins.shape[0]
-        if draws is None:
-            draws = make_draws(rcfg, n, generator, dev)
+        rays, target, draws, rows = shard_batch(group, rcfg, rays, target, generator, draws)
         dtype = _dtype(compute_dtype, dev)
-        scale = 1.0 / (3.0 * n)  # d mse / d sqerr_r
+        scale = 1.0 / (3.0 * rows.total)  # d mse / d sqerr_r (the global batch's)
         o, d = rays.origins.contiguous(), rays.directions.contiguous()
         target = target.contiguous()
         vd_emb = positional_encoding(rays.viewdirs, cfg.nf_views).contiguous()
@@ -92,7 +108,7 @@ def make_fused_train_step(cfg, rcfg: RenderConfig, fcfg=None, compute_dtype: Opt
         state.zero_grad()
         z_vals = sample_along_rays(rays.near, rays.far, rcfg.n_samples, rcfg.perturb, rcfg.lindisp, t_rand=draws.t_rand)
         outs_c, grads_c = run(state.coarse, cfg, z_vals, noise_of(draws.noise0))
-        mse0 = outs_c.sqerr.sum() * scale
+        terms = [outs_c.sqerr.sum() * scale]
         _set_grads(state.coarse, grads_c)
         if rcfg.n_importance > 0:
             det = rcfg.perturb == 0.0
@@ -100,9 +116,14 @@ def make_fused_train_step(cfg, rcfg: RenderConfig, fcfg=None, compute_dtype: Opt
             fine = state.fine if state.fine is not None else state.coarse
             outs_f, grads_f = run(fine, fine_cfg if state.fine is not None else cfg, z_all, noise_of(draws.noise1))
             _set_grads(fine, grads_f)  # the shared net adds the fine pass's gradients
-            mse1 = outs_f.sqerr.sum() * scale
+            terms.append(outs_f.sqerr.sum() * scale)
+        if reducer is not None:
+            terms = reducer(_params(state), terms)
+        if rcfg.n_importance > 0:
+            mse0, mse1 = terms
             metrics = {"loss": mse1, "psnr": mse_to_psnr(mse1), "psnr0": mse_to_psnr(mse0), "total_loss": mse1 + mse0}
         else:
+            (mse0,) = terms
             metrics = {"loss": mse0, "psnr": mse_to_psnr(mse0), "total_loss": mse0}
         state.apply_update()
         return metrics
@@ -117,13 +138,15 @@ def supports_fused_tnerf_step(cfg, rcfg: RenderConfig) -> bool:
     return b3.supports_tnerf(cfg) and rcfg.n_importance == 0
 
 
-def make_fused_tnerf_step(cfg, rcfg: RenderConfig, compute_dtype: Optional[torch.dtype] = None):
+def make_fused_tnerf_step(cfg, rcfg: RenderConfig, compute_dtype: Optional[torch.dtype] = None,
+                          group: Optional[RaysGroup] = None):
     """Build ``(state, rays, target, generator=None, draws=None) -> metrics``
     for a T-NeRF: one B4 train pass (the rays' frame times ride
     ``rays.times``), its gradients into ``.grad``, then Adam. Random numbers
     (``Draws``: t_rand, noise0) and loss are those of the eager
-    ``make_train_step``. ``compute_dtype`` as for
+    ``make_train_step``. ``compute_dtype`` and ``group`` as for
     :func:`make_fused_train_step`."""
+    reducer = reducer_for(group)
 
     def train_step(
         state: TrainState,
@@ -133,10 +156,8 @@ def make_fused_tnerf_step(cfg, rcfg: RenderConfig, compute_dtype: Optional[torch
         draws: Optional[Draws] = None,
     ) -> Dict[str, torch.Tensor]:
         dev = rays.origins.device
-        n = rays.origins.shape[0]
-        if draws is None:
-            draws = make_draws(rcfg, n, generator, dev)
-        scale = 1.0 / (3.0 * n)  # d mse / d sqerr_r
+        rays, target, draws, rows = shard_batch(group, rcfg, rays, target, generator, draws)
+        scale = 1.0 / (3.0 * rows.total)  # d mse / d sqerr_r (the global batch's)
         d = rays.directions.contiguous()
         state.zero_grad()
         z = sample_along_rays(rays.near, rays.far, rcfg.n_samples, rcfg.perturb, rcfg.lindisp, t_rand=draws.t_rand)
@@ -150,6 +171,8 @@ def make_fused_tnerf_step(cfg, rcfg: RenderConfig, compute_dtype: Optional[torch
         )
         _set_grads(state.coarse, b1.unpack_tnerf_grads(grads, packed))
         mse0 = out.sqerr.sum() * scale
+        if reducer is not None:
+            (mse0,) = reducer(_params(state), [mse0])
         state.apply_update()
         return {"loss": mse0, "psnr": mse_to_psnr(mse0), "total_loss": mse0}
 
@@ -173,7 +196,7 @@ def supports_fused_dnerf_step(cfg, fcfg, rcfg: RenderConfig) -> bool:
 
 
 def make_fused_dnerf_step(cfg, rcfg: RenderConfig, fcfg=None, add_tv_loss: bool = False, tv_loss_weight: float = 0.0,
-                          compute_dtype: Optional[torch.dtype] = None):
+                          compute_dtype: Optional[torch.dtype] = None, group: Optional[RaysGroup] = None):
     """Build ``(state, rays, target, neighbor_time, generator=None,
     draws=None) -> metrics`` for a DirectTemporalNeRF (``state.fine`` None:
     one model serves both passes), the port of ``make_fused_dnerf_step``
@@ -198,8 +221,11 @@ def make_fused_dnerf_step(cfg, rcfg: RenderConfig, fcfg=None, add_tv_loss: bool 
     autograd carries the kernels' packed gradients back to them; the kernels
     read them in ``compute_dtype`` (None: bf16 on the card, fp32 on the
     CPU). Random numbers (``Draws``) and loss are those of the eager
-    ``make_dnerf_train_step``."""
+    ``make_dnerf_train_step``. ``group`` as for
+    :func:`make_fused_train_step`; the TV term's local piece is summed
+    (the JAX step pre-scales it by the axis size for its ``pmean``)."""
     fine_cfg = fcfg if fcfg is not None else cfg
+    reducer = reducer_for(group)
     coarse_in_loss = rcfg.n_importance == 0 or rcfg.coarse_contributes
 
     def packs(model, mcfg):
@@ -211,11 +237,10 @@ def make_fused_dnerf_step(cfg, rcfg: RenderConfig, fcfg=None, add_tv_loss: bool 
                    generator: Optional[torch.Generator] = None, draws: Optional[Draws] = None
                    ) -> Dict[str, torch.Tensor]:
         dev = rays.origins.device
-        n = rays.origins.shape[0]
-        if draws is None:
-            draws = make_draws(rcfg, n, generator, dev)
+        rays, target, draws, rows = shard_batch(group, rcfg, rays, target, generator, draws)
+        n = rows.n
         dtype = _dtype(compute_dtype, dev)
-        scale = 1.0 / (3.0 * n)  # d mse / d sqerr_r
+        scale = 1.0 / (3.0 * rows.total)  # d mse / d sqerr_r (the global batch's)
         o, d = rays.origins, rays.directions
         target = target.contiguous()
         vd_emb = positional_encoding(rays.viewdirs, cfg.nf_views).contiguous()
@@ -288,17 +313,16 @@ def make_fused_dnerf_step(cfg, rcfg: RenderConfig, fcfg=None, add_tv_loss: bool 
 
         # The reference's order (run_dnerf.py:688-731): img_loss (+ tv) (+ img_loss0).
         loss = img_loss
-        metrics = {"loss": img_loss.detach(), "psnr": mse_to_psnr(img_loss.detach())}
+        terms = {"loss": img_loss}
         if add_tv_loss:
             tv = torch.sum((dx_used - dx_n) ** 2) * tv_loss_weight
             loss = loss + tv
-            metrics["tv"] = tv.detach()
+            terms["tv"] = tv
         if img_loss0 is not None:
             loss = loss + img_loss0
-            metrics["psnr0"] = mse_to_psnr(img_loss0.detach())
-        metrics["total_loss"] = loss.detach()
+            terms["loss0"] = img_loss0
+        terms["total_loss"] = loss
         loss.backward()
-        state.apply_update()
-        return metrics
+        return reduced_metrics(state, terms, reducer)
 
     return train_step

@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Union
 import torch
 from torch import nn
 
+from swnerf_torch.parallel.mesh import RaysGroup, Rows, StepReducer, batch_rows, reducer_for
 from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws, render_rays
 
 
@@ -182,7 +183,52 @@ def field_operands(modules: List[nn.Module], dtype: Optional[torch.dtype]):
             m.compute_dtype = d
 
 
-def make_train_step(cfg: RenderConfig, compute_dtype: Optional[torch.dtype] = None):
+def reduced_metrics(state: TrainState, terms: Dict[str, torch.Tensor], reducer: Optional[StepReducer]
+                    ) -> Dict[str, torch.Tensor]:
+    """After a step's backward: sum the gradients and the loss ``terms``
+    (``loss``, optional ``tv`` and ``loss0``, ``total_loss``) over the ranks
+    where there is a ``reducer``, run Adam, and return the metrics from the
+    summed terms: loss, psnr, tv, psnr0, total_loss (detached)."""
+    vals = {k: v.detach() for k, v in terms.items()}
+    if reducer is not None:
+        vals = dict(zip(vals, reducer([p for m in state.modules() for p in m.parameters()], list(vals.values()))))
+    metrics = {"loss": vals["loss"], "psnr": mse_to_psnr(vals["loss"])}
+    if "tv" in vals:
+        metrics["tv"] = vals["tv"]
+    if "loss0" in vals:
+        metrics["psnr0"] = mse_to_psnr(vals["loss0"])
+    metrics["total_loss"] = vals["total_loss"]
+    state.apply_update()
+    return metrics
+
+
+def shard_batch(group: Optional[RaysGroup], cfg: RenderConfig, rays: Rays, target: torch.Tensor,
+                generator: Optional[torch.Generator], draws: Optional[Draws]):
+    """A step's inputs on this rank: the global batch's random numbers
+    (``draws``, else drawn from ``generator``, so every rank draws what one
+    process would) and this rank's rows of the rays, the target and the
+    draws (``parallel/mesh.py::batch_rows``). Returns ``(rays, target,
+    draws, rows)``; without a group the inputs as they are and all rows."""
+    n = rays.origins.shape[0]
+    if draws is None:
+        draws = make_draws(cfg, n, generator, rays.origins.device)
+    rows = batch_rows(group, n)
+    if group is None:
+        return rays, target, draws, rows
+    return rows.take_fields(rays), rows.take(target), rows.take_fields(draws), rows
+
+
+def _share(rows: Rows) -> Optional[float]:
+    """A rank's share of the global batch, by which its MSE (a mean over its
+    rows) is a piece of the global mean; None for the whole batch."""
+    return None if rows.n == rows.total else rows.n / rows.total
+
+
+def _piece(loss: torch.Tensor, share: Optional[float]) -> torch.Tensor:
+    return loss if share is None else loss * share
+
+
+def make_train_step(cfg: RenderConfig, compute_dtype: Optional[torch.dtype] = None, group: Optional[RaysGroup] = None):
     """Build ``(state, rays, target, generator=None, draws=None) -> metrics``.
 
     Random numbers come from ``draws`` when given, else from ``generator``
@@ -190,8 +236,14 @@ def make_train_step(cfg: RenderConfig, compute_dtype: Optional[torch.dtype] = No
     detached tensors: loss (fine MSE), psnr, psnr0 (coarse), total_loss.
     ``compute_dtype`` (vanilla fields) sets the fields' operand type for the
     step: fp32 for ``run_nerf``'s warm start on a card, where the fields run
-    B7 in bf16 by default.
+    B7 in bf16 by default. ``group`` (``parallel/mesh.py``; the JAX
+    package's ``shard_cli_step``): the rays, target and draws are the global
+    batch's, of which the step trains on its rank's rows
+    (:func:`shard_batch`); each MSE is weighted by the rows' share of the
+    batch, and the gradients and loss terms are summed over the ranks
+    before Adam.
     """
+    reducer = reducer_for(group)
 
     def train_step(
         state: TrainState,
@@ -200,27 +252,27 @@ def make_train_step(cfg: RenderConfig, compute_dtype: Optional[torch.dtype] = No
         generator: Optional[torch.Generator] = None,
         draws: Optional[Draws] = None,
     ) -> Dict[str, torch.Tensor]:
-        if draws is None:
-            draws = make_draws(cfg, rays.origins.shape[0], generator, rays.origins.device)
+        rays, target, draws, rows = shard_batch(group, cfg, rays, target, generator, draws)
+        share = _share(rows)
         state.zero_grad()
         with field_operands(state.modules(), compute_dtype):
             out = render_rays(state.coarse, rays, cfg, fine_model=state.fine, draws=draws)
-        img_loss = mse(out["rgb"], target)
+        img_loss = _piece(mse(out["rgb"], target), share)
         loss = img_loss
-        metrics = {"loss": img_loss.detach(), "psnr": mse_to_psnr(img_loss.detach())}
+        terms = {"loss": img_loss}
         if "rgb0" in out:
-            img_loss0 = mse(out["rgb0"], target)
+            img_loss0 = _piece(mse(out["rgb0"], target), share)
             loss = loss + img_loss0
-            metrics["psnr0"] = mse_to_psnr(img_loss0.detach())
-        metrics["total_loss"] = loss.detach()
+            terms["loss0"] = img_loss0
+        terms["total_loss"] = loss
         loss.backward()
-        state.apply_update()
-        return metrics
+        return reduced_metrics(state, terms, reducer)
 
     return train_step
 
 
-def make_dnerf_train_step(cfg: RenderConfig, add_tv_loss: bool, tv_loss_weight: float):
+def make_dnerf_train_step(cfg: RenderConfig, add_tv_loss: bool, tv_loss_weight: float,
+                          group: Optional[RaysGroup] = None):
     """The eager D-NeRF step (port of ``swnerf_tpu/pipelines/run_dnerf.py::
     make_dnerf_step``): ``(state, rays, target, neighbor_time,
     generator=None, draws=None) -> metrics``. It renders through
@@ -228,7 +280,9 @@ def make_dnerf_train_step(cfg: RenderConfig, add_tv_loss: bool, tv_loss_weight: 
     ``neighbor_time`` on the first render's (detached) z_vals and adds
     ``sum((dx - dx_neighbour)^2) * tv_loss_weight``; then the MSE terms,
     autograd and Adam. The reference the kernel step
-    (``fused_step.make_fused_dnerf_step``) is held to."""
+    (``fused_step.make_fused_dnerf_step``) is held to. ``group`` as for
+    :func:`make_train_step`; the TV term, a sum, enters unweighted."""
+    reducer = reducer_for(group)
 
     def train_step(
         state: TrainState,
@@ -238,27 +292,26 @@ def make_dnerf_train_step(cfg: RenderConfig, add_tv_loss: bool, tv_loss_weight: 
         generator: Optional[torch.Generator] = None,
         draws: Optional[Draws] = None,
     ) -> Dict[str, torch.Tensor]:
-        if draws is None:
-            draws = make_draws(cfg, rays.origins.shape[0], generator, rays.origins.device)
+        rays, target, draws, rows = shard_batch(group, cfg, rays, target, generator, draws)
+        share = _share(rows)
         state.zero_grad()
         out = render_rays(state.coarse, rays, cfg, fine_model=state.fine, draws=draws)
-        img_loss = mse(out["rgb"], target)
+        img_loss = _piece(mse(out["rgb"], target), share)
         loss = img_loss
-        metrics = {"loss": img_loss.detach(), "psnr": mse_to_psnr(img_loss.detach())}
+        terms = {"loss": img_loss}
         if add_tv_loss:
             rays_n = rays._replace(times=time_like(rays.times, neighbor_time))
             out_n = render_rays(state.coarse, rays_n, cfg, fine_model=state.fine, draws=draws,
                                 z_vals=out["z_vals"].detach())
             tv = torch.sum((out["dx"] - out_n["dx"]) ** 2) * tv_loss_weight
             loss = loss + tv
-            metrics["tv"] = tv.detach()
+            terms["tv"] = tv
         if "rgb0" in out:
-            img_loss0 = mse(out["rgb0"], target)
+            img_loss0 = _piece(mse(out["rgb0"], target), share)
             loss = loss + img_loss0
-            metrics["psnr0"] = mse_to_psnr(img_loss0.detach())
-        metrics["total_loss"] = loss.detach()
+            terms["loss0"] = img_loss0
+        terms["total_loss"] = loss
         loss.backward()
-        state.apply_update()
-        return metrics
+        return reduced_metrics(state, terms, reducer)
 
     return train_step

@@ -5,7 +5,8 @@ always-on ``metrics.jsonl`` of scalars and throughput, and, where
 tensorboardX imports, TensorBoard scalars and images at
 ``<basedir>/summaries/<expname>`` (the reference's d_nerf SummaryWriter);
 without tensorboardX (the card's machine has none) only ``metrics.jsonl`` is
-written, as in the JAX package.
+written, as in the JAX package. In a run of several processes rank 0 owns
+these files (``parallel/multihost.py::is_primary``); the others write none.
 
 :func:`enable_debug_nans` is the port's ``SWNERF_DEBUG_NANS`` (the JAX
 package turns on ``jax_debug_nans``, which checks each dispatch's outputs):
@@ -25,9 +26,14 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from swnerf_torch.parallel.multihost import is_primary
+
 
 def snapshot_args(basedir: str, expname: str, args, config_path: Optional[str]) -> None:
-    """Write args.txt (and a copy of the config file as config.txt)."""
+    """Write args.txt (and a copy of the config file as config.txt); rank 0
+    only."""
+    if not is_primary():
+        return
     d = os.path.join(basedir, expname)
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "args.txt"), "w") as f:
@@ -41,25 +47,31 @@ def snapshot_args(basedir: str, expname: str, args, config_path: Optional[str]) 
 class ExperimentLogger:
     """Appends one JSON record per call to ``<basedir>/<expname>/metrics.jsonl``
     and, where tensorboardX imports, writes the same scalars and
-    :meth:`image` to TensorBoard."""
+    :meth:`image` to TensorBoard; on ranks other than 0 it writes nothing
+    (``tb`` is None there)."""
 
     def __init__(self, basedir: str, expname: str):
         self.dir = os.path.join(basedir, expname)
+        self._jsonl = None
+        self.tb = None
+        self._t_last = time.perf_counter()
+        self._step_last: Optional[int] = None
+        if not is_primary():
+            return
         os.makedirs(self.dir, exist_ok=True)
         self._jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")
-        self.tb = None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
             pass
         else:
             self.tb = SummaryWriter(os.path.join(basedir, "summaries", expname))
-        self._t_last = time.perf_counter()
-        self._step_last: Optional[int] = None
 
     def scalars(self, step: int, values: Dict[str, Any]) -> None:
         rec = {"step": int(step), "t": time.time()}
         rec.update({k: float(v) for k, v in values.items()})
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
         if self.tb is not None:
@@ -91,7 +103,8 @@ class ExperimentLogger:
         return out
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self.tb is not None:
             self.tb.close()
 

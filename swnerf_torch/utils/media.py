@@ -8,6 +8,9 @@ with the port's own encoder: a fixed palette (256 greys for grey frames, a
 6 x 7 x 6 colour cube otherwise), each pixel its nearest entry, and an LZW
 code stream that clears the table before it could grow past 9-bit codes,
 so every code is a literal and the stream packs with numpy alone.
+
+In a run of several processes only rank 0 writes (``parallel/multihost.py``):
+every rank renders, the primary owns the files.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import struct
 
 import numpy as np
 
+from swnerf_torch.parallel.multihost import is_primary
 from swnerf_torch.utils.metrics import to8b
 from swnerf_torch.utils.png import write_png_bytes
 
@@ -29,14 +33,18 @@ LITERALS_PER_CLEAR = 254
 
 
 def write_png(path: str, img01: np.ndarray) -> None:
-    """Write a [0, 1] float image as an 8-bit PNG."""
-    write_png_bytes(path, to8b(img01))
+    """Write a [0, 1] float image as an 8-bit PNG (rank 0 only)."""
+    if is_primary():
+        write_png_bytes(path, to8b(img01))
 
 
 def write_video(path: str, frames01: np.ndarray, fps: int = 30) -> str:
     """Write [T, H, W, 3] (or [T, H, W]) floats in [0, 1] as an mp4 (cv2's
     mp4v), or, where cv2 does not import, as ``<path stem>.gif``. Returns
-    the path written. A cv2 that imports but cannot open the writer raises."""
+    the path written. A cv2 that imports but cannot open the writer raises.
+    Rank 0 only: the other ranks write nothing and get ``path`` back."""
+    if not is_primary():
+        return path
     frames = to8b(np.asarray(frames01))
     if frames.ndim == 3:
         frames = np.repeat(frames[..., None], 3, axis=-1)
