@@ -348,10 +348,38 @@ Phases (each raises on failure; nothing is caught):
      step with the global term from the replicated start (B6, B3's pts
      mode, B9; each level's patch split by rows and assembled for the
      reconstruction), each checkpoint within rtol 1e-5, atol 1e-6 of one
-     process's (MultiRes's weights through its one Adam update, which
-     normalises near-zero gradient entries: the start that each run's
-     weights and own moments give, at the bar; its moments at the bar);
-     every run's kernels counted; then the JSON lines.
+     process's (MultiRes: its moments; its weights, one Adam update from
+     the shared start, are lr * g / (|g| + eps), which any summation order
+     moves by up to lr where |g| is near eps: printed, not held); every
+     run's kernels counted. Then, in the same two ranks, tensor
+     parallelism on a (rays 1, model 2) grid (SWNERF_TENSOR_PARALLEL=2,
+     K = 1): the fp32 eager step (the plain fields, B2) at full width on
+     512 rays against one process (loss rel 1e-5; the gathered
+     gradients at check_fp32_grads's bar: the row layers' partial sums
+     are another summation order, which can flip a ReLU mask), B2
+     counted; run_nerf resumed from 010000.tar and at W=512 from scratch,
+     T-NeRF and D-NeRF from their 800000.tar, 2 steps each (128 rays a
+     step but for T-NeRF's 500: gloo carries each row layer's activations
+     through host memory, ~0.5 GB/s between two ranks here) on the fp32
+     plain route (SWNERF_FUSED=0 here and in the one-process references),
+     each gathered checkpoint against one process's (W=512, one step from
+     scratch: its first moments, rel L2 1e-3, decide); MultiRes's joint
+     step with every level cut, called directly on phase 33's inputs: in
+     float64 each level's gathered gradients within rel L2 1e-8 of one
+     process's, in fp32 within rel L2 1e-5 of a control, one process
+     summing each cut layer's products as the grid does (level 0 encodes
+     positions at 2^19 frequencies, so any other fp32 order parts it by
+     ~1e-1): either fails on a wrong gradient of any level; MultiRes's CLI
+     one joint step, every tensor of its checkpoint within rel L2 1e-5 of
+     the control's CLI run, the JAX test's bars too (weights atol 6e-3, the
+     loss rel 2e-2); in every run the
+     replicated parameters bit-identical across
+     the two ranks and the bytes of parameters + Adam a rank holds equal
+     to the assignment's; --render_only of test frame 0 over the two ranks
+     (the loaded fields: a render cuts nothing; vanilla B3, T-NeRF B4,
+     D-NeRF B6 and B3's pts mode) and the vanilla frame from fields cut and
+     gathered (render_fields, the trainers' test renders), each bit-equal
+     to one process's; then the JSON lines.
 
 The training phases (9, 15, 21, 28, 34, 37, 39, 40) run at the card's default of 20
 steps a dispatch: their launch counts are the graphs' replays' (each
@@ -364,6 +392,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -4435,6 +4464,57 @@ def phase32_testset(dev, args, scene, states, pyr_hwf, rcfg):
     return counts["eval pass"]
 
 
+def mr_phase2_inputs(dev, scene):
+    """One joint step's inputs on train view 37 at its frame time: each
+    level's aligned patch (32 pixels at level 0, halved a level, corners
+    (80, 80) doubled down from (10, 10)) with its Laplacian band, the
+    full-resolution patch, noise std 1 and jitter, the draws of one seeded
+    generator. Returns (rcfg, patch sizes, pixels, targets, full, pose, t,
+    draws)."""
+    import torch
+
+    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
+    from swnerf_torch.render.core import RenderConfig, make_draws
+
+    rcfg = RenderConfig(n_samples=64, perturb=1.0, raw_noise_std=1.0, white_bkgd=True)
+    images = torch.as_tensor(scene.images, device=dev)
+    L, patch_sizes = 4, [32, 16, 8, 4]
+    coords = [(10 << (L - 1 - l), 10 << (L - 1 - l)) for l in range(L)]
+    with torch.no_grad():
+        lap = generate_laplacian_pyramid(images[37:38], levels=L)
+    pixels = [torch.stack(torch.meshgrid(torch.arange(y, y + ps, device=dev), torch.arange(x, x + ps, device=dev),
+                                         indexing="ij"), -1).reshape(-1, 2) for (y, x), ps in zip(coords, patch_sizes)]
+    targets = [lap[l][0, y : y + ps, x : x + ps] for l, ((y, x), ps) in enumerate(zip(coords, patch_sizes))]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = [make_draws(rcfg, ps * ps, gen, dev) for ps in patch_sizes]
+    pose = torch.as_tensor(scene.poses[37, :3, :4], device=dev)
+    return rcfg, patch_sizes, pixels, targets, images[37, 80:112, 80:112], pose, float(scene.times[37]), draws
+
+
+def mr_phase2_models(dev, fused_route, dtype=None, perturb=False, compute_dtype=None):
+    """Phase 24's weights for the four levels: per level seeded (10 +
+    level), the deformation head scaled by 1e-3, in ``dtype`` (fp32 by
+    default), with ``perturb`` each weight jittered. On 000200.tar's
+    saturated levels (ROADMAP Queue C) the fp32 deformation gradients of
+    level 0 are noise: on an H100 both routes' worst tensor lay 300-600
+    times its norm from the float64 step's, so a bar would compare noise."""
+    import torch
+
+    out = []
+    for l in range(4):
+        m = mr_level_model(dev, l, seed=10 + l, fused=fused_route, compute_dtype=compute_dtype or torch.float32)
+        with torch.no_grad():
+            m._time_out.weight.mul_(1e-3)
+            m._time_out.bias.mul_(1e-3)
+        m = m.to(dtype or torch.float32)
+        if perturb:
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.copy_(jitter(p))
+        out.append(m)
+    return out
+
+
 def phase33_fused(dev, tmp, data, scene, pyr_hwf):
     """The fused phase 2: one step over the four levels with fused=True (B6,
     B3's pts mode, B9) against the field-route step (B6, B7), from the same
@@ -4450,54 +4530,23 @@ def phase33_fused(dev, tmp, data, scene, pyr_hwf):
     import numpy as np
     import torch
 
-    from swnerf_torch.ops.pyramid import generate_laplacian_pyramid
     from swnerf_torch.pipelines import run_multires as mr
-    from swnerf_torch.render.core import Draws, RenderConfig, make_draws
+    from swnerf_torch.render.core import Draws
     from swnerf_torch.train.checkpoint import dnerf_state_dict, load_tar
     from swnerf_torch.train.loop import init_train_state
 
     ckpt = load_tar(str(tmp / "mr_logs" / "lego" / f"{MR_CKPT_ITER:06d}.tar"))
-    rcfg = RenderConfig(n_samples=64, perturb=1.0, raw_noise_std=1.0, white_bkgd=True)
-    images = torch.as_tensor(scene.images, device=dev)
-    poses = torch.as_tensor(scene.poses[:, :3, :4], device=dev)
-    L, patch_sizes = 4, [32, 16, 8, 4]
-    coords = [(10 << (L - 1 - l), 10 << (L - 1 - l)) for l in range(L)]
-    with torch.no_grad():
-        lap = generate_laplacian_pyramid(images[37:38], levels=L)
-    pixels = [torch.stack(torch.meshgrid(torch.arange(y, y + ps, device=dev), torch.arange(x, x + ps, device=dev),
-                                         indexing="ij"), -1).reshape(-1, 2) for (y, x), ps in zip(coords, patch_sizes)]
-    targets = [lap[l][0, y : y + ps, x : x + ps] for l, ((y, x), ps) in enumerate(zip(coords, patch_sizes))]
-    full = images[37, 80:112, 80:112]
-    gen = torch.Generator(device=dev).manual_seed(5)
-    draws = [make_draws(rcfg, ps * ps, gen, dev) for ps in patch_sizes]
-
-    def models(fused_route, dtype=torch.float32, perturb=False, compute_dtype=torch.float32):
-        """Phase 24's weights: per level seeded (10 + level), the
-        deformation head scaled by 1e-3. On 000200.tar's saturated levels
-        (ROADMAP Queue C) the fp32 deformation gradients of level 0 are
-        noise: on an H100 both routes' worst tensor lay 300-600 times its
-        norm from the float64 step's, so the bar would compare noise."""
-        out = []
-        for l in range(L):
-            m = mr_level_model(dev, l, seed=10 + l, fused=fused_route, compute_dtype=compute_dtype)
-            with torch.no_grad():
-                m._time_out.weight.mul_(1e-3)
-                m._time_out.bias.mul_(1e-3)
-            m = m.to(dtype)
-            if perturb:
-                with torch.no_grad():
-                    for p in m.parameters():
-                        p.copy_(jitter(p))
-            out.append(m)
-        return out
+    rcfg, patch_sizes, pixels, targets, full, pose, t, draws = mr_phase2_inputs(dev, scene)
+    L = len(patch_sizes)
+    models = functools.partial(mr_phase2_models, dev)
 
     def step(ms, fused, device=dev, dtype=torch.float32, compute_dtype=None):
         states = [init_train_state(m, None, 5e-4, 250) for m in ms]
         cast = lambda x: None if x is None else x.to(device=device, dtype=dtype)  # noqa: E731
         fn = mr.make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=fused,
                                  compute_dtype=compute_dtype)
-        m = fn(states, [p.to(device) for p in pixels], [cast(x) for x in targets], cast(full), cast(poses[37]),
-               float(scene.times[37]), 1.0, draws=[Draws(cast(d.t_rand), cast(d.noise0), None, None) for d in draws])
+        m = fn(states, [p.to(device) for p in pixels], [cast(x) for x in targets], cast(full), cast(pose), t, 1.0,
+               draws=[Draws(cast(d.t_rand), cast(d.noise0), None, None) for d in draws])
         return m, [{k: p.grad.detach().clone() for k, p in s.coarse.named_parameters()} for s in states]
 
     from swnerf_torch.ops.kernels import launches
@@ -6259,12 +6308,27 @@ def phase43_pos2d(dev, tmp):
 P44_START, P44_STEPS, P44_EVERY, P44_SAVE = 10000, 80, 20, 60  # phase 44: from 10000, 80 steps, print 20, save 60
 P44_ORDER = ("none", "nccl")  # the runs, once each: no group, then a one-rank NCCL world
 P45_VANILLA_STEPS, P45_STEPS = 20, 5  # phase 45: the vanilla run's steps, the other trainers'
+# phase 45's tensor-parallel legs: each trainer's steps (a divisor of 10000
+# and 800000, so the last is a save), the vanilla and D-NeRF legs' rays a
+# step (gloo carries each row layer's activations through host memory) and
+# the fp32 step's
+P45_TP_STEPS, P45_TP_RAYS, P45_TP_STEP_RAYS = 2, 128, 256
 P45_KERNELS = {  # the launch keys (prefixes) each of phase 45's runs must count
     "vanilla": ("render_loss[S=64]", "render_loss[S=192]", "sample_pdf"),
     "render": ("render_pass[S=64]", "render_pass[S=192]", "sample_pdf"),
     "tnerf": ("render_loss[tnerf",),
     "dnerf": ("time_net", "time_net[bwd]", "render_pass[pts", "render_loss[pts", "sample_pdf"),
     "multires": ("time_net", "time_net[bwd]", "render_pass[pts,wide", "render_loss[ext,wide", "render_loss[ext,S"),
+    # the tensor-parallel legs: the eager step's B2 where there is a fine
+    # pass, the --render_only legs' eval passes
+    "tp_vanilla": ("sample_pdf",),
+    "tp_w512": ("sample_pdf",),
+    "tp_render": ("render_pass[S=64]", "render_pass[S=192]", "sample_pdf"),
+    "tp_tnerf": (),
+    "tp_tnerf_render": ("render_pass[tnerf",),
+    "tp_dnerf": ("sample_pdf",),
+    "tp_dnerf_render": ("time_net", "render_pass[pts", "sample_pdf"),
+    "tp_multires": (),
 }
 
 
@@ -6449,6 +6513,244 @@ def p45_legs(base, data):
     )
 
 
+def p45_tp_legs(base, data):
+    """Phase 45's tensor-parallel runs: (name, CLI module, argv, env, the
+    last checkpoint under ``base``). The training legs run the fp32 plain
+    route (SWNERF_FUSED=0: the eager step, the plain fields, B2), which is
+    the route tensor parallelism takes and the one the one-process
+    references take; the --render_only legs render the loaded fields on
+    the kernel route (the eval passes)."""
+    from swnerf_torch.pipelines import run_dnerf, run_multires, run_nerf, run_tnerf
+
+    plain = {"SWNERF_STEPS_PER_DISPATCH": "1", "SWNERF_FUSED": "0"}
+    every = ["--device", "cuda", "--basedir", str(base)]
+    s = P45_TP_STEPS
+    saves = ["--i_print", str(s), "--i_weights", str(s), "--N_rand", str(P45_TP_RAYS)]
+    few = ["--testskip", "200"]  # the vanilla scene's test and val splits: their first view
+    return (
+        ("tp_vanilla", run_nerf, ["--config", str(CONFIG), "--ft_path", str(CKPT), "--datadir", str(DATADIR), *every,
+                                  *saves, *few], dict(plain, SWNERF_MAX_ITERS=str(P44_START + s + 1)),
+         f"full_nerf_200k/{P44_START + s:06d}.tar"),
+        ("tp_w512", run_nerf, ["--config", str(CONFIG), "--expname", "w512", "--netwidth", "512", "--netwidth_fine",
+                               "512", "--no_reload", "--datadir", str(DATADIR), *every, *saves, *few, "--i_weights",
+                               "1"], dict(plain, SWNERF_MAX_ITERS="2"), "w512/000001.tar"),
+        ("tp_render", run_nerf, ["--config", str(CONFIG), "--ft_path", str(CKPT), "--datadir", str(DATADIR), *every,
+                                 "--render_only", "--render_test", *few], {}, None),
+        ("tp_tnerf", run_tnerf, ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--datadir", str(data),
+                                 *every, *saves[:4]], dict(plain, SWNERF_MAX_ITERS=str(800000 + s + 1)),
+         f"full_tnerf_800k/{800000 + s:06d}.tar"),
+        ("tp_tnerf_render", run_tnerf, ["--config", str(TNERF_CONFIG), "--ft_path", str(TNERF_CKPT), "--datadir",
+                                        str(data), *every, "--render_only", "--render_test", "--testskip", "25"], {},
+         None),
+        ("tp_dnerf", run_dnerf, ["--config", str(DNERF_CONFIG), "--ft_path", str(DNERF_CKPT), "--datadir", str(data),
+                                 *every, *saves], dict(plain, SWNERF_MAX_ITERS=str(800000 + s + 1)),
+         f"full_dnerf_800k/{800000 + s:06d}.tar"),
+        ("tp_dnerf_render", run_dnerf, ["--config", str(DNERF_CONFIG), "--ft_path", str(DNERF_CKPT), "--datadir",
+                                        str(data), *every, "--render_only", "--render_test", "--testskip", "25"], {},
+         None),
+        ("tp_multires", run_multires, ["--config", str(MULTIRES_CONFIG), "--datadir", str(data), *every,
+                                       "--global_optimization_epoch", "1", "--i_testset", "100000", "--i_weights", "1",
+                                       "--i_print", "1", *MR_NOISE],
+         dict(plain, SWNERF_PHASE1_ITERS="0", SWNERF_MAX_ITERS="2"), "lego/000001.tar"),
+    )
+
+
+def p45_tp_step(dev, tp, f64=False):
+    """One eager step (the plain fields, B2) at full width on
+    P45_TP_STEP_RAYS seeded pixels of train view r_0 from 010000.tar,
+    jitter and noise on, the draws of one seeded generator: with ``tp`` on
+    the shards of a (rays 1, model 2) grid, else in one process; with
+    ``f64`` in float64 on the CPU (check_fp32_grads's reference). Returns (metrics, whole gradients on
+    the host, B2 launches, this rank's replicated parameters' digest or
+    None)."""
+    import torch
+
+    from swnerf_torch.ops.kernels import launches
+    from swnerf_torch.parallel import tensor as T
+    from swnerf_torch.render.core import Draws, Rays, RenderConfig, make_draws
+    from swnerf_torch.train.loop import make_train_step
+
+    cfg, coarse, fine = load_models(dev)
+    rays, target = train_view_rays(dev, P45_TP_STEP_RAYS, seed=2)
+    rcfg = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, white_bkgd=True, raw_noise_std=1.0)
+    draws = make_draws(rcfg, P45_TP_STEP_RAYS, torch.Generator(device=dev).manual_seed(3), dev)
+    if f64:
+        cpu64 = lambda x: None if x is None else x.detach().cpu().double()  # noqa: E731
+        rays, target, draws = Rays(*(cpu64(x) for x in rays)), cpu64(target), Draws(*(cpu64(x) for x in draws))
+        state = _fresh_state(cfg, coarse, fine, "cpu", torch.float64)
+    else:
+        state = _fresh_state(cfg, coarse, fine, dev)
+    group = mesh = None
+    if tp:
+        mesh, _, state = T.tensor_parallel_setup(state, P45_TP_STEP_RAYS, 2, quiet=True)
+        group = mesh.rays
+    launches.clear()
+    m = make_train_step(rcfg, group=group)(state, rays, target, draws=draws)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    b2 = launches.get("sample_pdf", 0)
+    if mesh is None:
+        grads, digest = _grads(state), None
+    else:
+        grads = T.gathered(mesh.model, {"coarse": state.coarse, "fine": state.fine}, grads=True)
+        digest = _replicated_digest(state)
+    out = {k: float(v) for k, v in m.items()}, {k: g.cpu() for k, g in grads.items()}, b2, digest
+    del state, coarse, fine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def grid_sums(n_model=2):
+    """One process summing every cut layer's products as a (rays 1, model
+    ``n_model``) grid does: a column layer as ``n_model`` products of its
+    output slices side by side, a row layer as the sum of ``n_model``
+    partial products over its input slices and then its bias. The layers
+    are those of the states given to the block's ``register``, or to
+    ``replicate`` (which every trainer calls on its fields once built).
+    Phase 45's control: MultiRes's level 0 encodes positions at 2^19
+    frequencies, so in fp32 any other order of the sums parts its
+    gradients by ~1e-1."""
+    import torch
+
+    from swnerf_torch.models import common
+    from swnerf_torch.parallel import tensor as T
+
+    kinds, linear, replicate = {}, common.linear, T.replicate
+
+    def register(states):
+        for st in states if isinstance(states, (list, tuple)) else [states]:
+            for field in (f for f in (st.coarse, st.fine) if f is not None):
+                kinds.update((id(field.get_submodule(n).weight), k) for n, k in T.mlp_param_specs(field, n_model).items())
+
+    def grid_linear(x, w, b, half=False):
+        kind = kinds.get(id(w))
+        if kind == T.COLUMN:
+            return torch.cat([linear(x, wm.contiguous(), bm.contiguous(), half)
+                              for wm, bm in zip(w.chunk(n_model, 0), b.chunk(n_model, 0))], -1)
+        if kind == T.ROW:
+            parts = [linear(xm.contiguous(), wm.contiguous(), None, half)
+                     for xm, wm in zip(x.chunk(n_model, -1), w.chunk(n_model, 1))]
+            return functools.reduce(torch.add, parts) + b
+        return linear(x, w, b, half)
+
+    def replicating(group, states):
+        register(states)
+        return replicate(group, states)
+
+    common.linear, T.replicate = grid_linear, replicating
+    try:
+        yield register
+    finally:
+        common.linear, T.replicate = linear, replicate
+
+
+def p45_tp_mr_step(dev, scene, tp, dtype=None, control=False):
+    """MultiRes's joint step (the field route, the global term on) at the
+    config's full width on phase 33's inputs and weights (mr_phase2_inputs,
+    mr_phase2_models) in ``dtype`` (fp32 by default): with ``tp`` every
+    level cut over a (rays 1, model 2) grid, else in one process, with
+    ``control`` under grid_sums. Returns (metrics, each level's whole
+    gradients on the host)."""
+    import torch
+
+    from swnerf_torch.parallel import tensor as T
+    from swnerf_torch.pipelines import run_multires as mr
+    from swnerf_torch.render.core import Draws
+    from swnerf_torch.train.loop import init_train_state
+
+    dtype = dtype or torch.float32
+    rcfg, patch_sizes, pixels, targets, full, pose, t, draws = mr_phase2_inputs(dev, scene)
+    states = [init_train_state(m, None, 5e-4, 250) for m in mr_phase2_models(dev, False, dtype)]
+    mesh = group = None
+    if tp:
+        mesh, _, states = T.tensor_parallel_setup_multires(states, min(patch_sizes) ** 2, 2, quiet=True)
+        group = mesh.rays
+    pyr_hwf = [[scene.H // 2**l, scene.W // 2**l, scene.focal / 2**l] for l in range(len(patch_sizes))]
+    cast = lambda x: x.to(dtype)  # noqa: E731
+    fn = mr.make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=False, group=group)
+    with grid_sums() if control else contextlib.nullcontext(lambda states: None) as register:
+        register(states)
+        m = fn(states, pixels, [cast(x) for x in targets], cast(full), cast(pose), t, 1.0,
+               draws=[Draws(cast(d.t_rand), cast(d.noise0), None, None) for d in draws])
+    if mesh is None:
+        grads = [{k: p.grad.detach().cpu() for k, p in st.coarse.named_parameters()} for st in states]
+    else:
+        grads = [{k: g.cpu() for k, g in T.gathered(mesh.model, {"": st.coarse}, grads=True).items()}
+                 for st in states]
+    out = {k: float(v) for k, v in m.items()}, grads
+    del states
+    torch.cuda.empty_cache()
+    return out
+
+
+def p45_gathered_frame(dev, base, data):
+    """run_nerf's --render_only of tp_render's checkpoint (010000.tar) from
+    fields cut over a (rays 1, model 2) grid and gathered again
+    (``render_fields``: the trainers' test renders under tensor
+    parallelism), the frames' chunks shared over the world. Returns test
+    frame 0 on the host."""
+    from swnerf_torch.parallel import tensor as T
+    from swnerf_torch.pipelines import run_nerf
+    from swnerf_torch.pipelines.common import load_scene
+
+    (_, _, argv, _, _), = [leg for leg in p45_tp_legs(base, data) if leg[0] == "tp_render"]
+    args = run_nerf.config_parser().parse_args(argv)
+    state, rcfg, eval_pass, _ = run_nerf.create_vanilla(args, dev, fused=False)
+    mesh, _, state = T.tensor_parallel_setup(state, 0, 2, quiet=True)
+    with recorded_frames() as frames:
+        run_nerf.render_only(*T.render_fields(mesh, state), load_scene(args), rcfg, args, state.step,
+                             eval_pass=eval_pass, group=mesh.world)
+    return frames[0]
+
+
+def p45_mr_scene(data):
+    """The MultiRes scene phase 45's direct steps read (the config's)."""
+    from swnerf_torch.pipelines.common import load_scene
+
+    args = mr_args("--datadir", str(data))
+    args.dataset_type = "blender_dnerf"
+    return load_scene(args)
+
+
+@contextlib.contextmanager
+def captured(name, into):
+    """``parallel/tensor.py``'s ``name`` (``replicate``,
+    ``tensor_parallel_setup``, ...), which the trainers reach through
+    ``parallel_setup``, with each call's (arguments, result) appended to
+    ``into``."""
+    from swnerf_torch.parallel import tensor as T
+
+    fn = getattr(T, name)
+
+    def call(*a, **kw):
+        into.append((a, fn(*a, **kw)))
+        return into[-1][1]
+
+    setattr(T, name, call)
+    try:
+        yield
+    finally:
+        setattr(T, name, fn)
+
+
+def _replicated_digest(states) -> str:
+    """sha256 of the replicated (whole) parameters a tensor-parallel rank
+    holds, in order: the same bits on every model rank."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for st in states if isinstance(states, (list, tuple)) else [states]:
+        for m in st.modules():
+            for name, p in m.named_parameters():
+                if isinstance(m.get_submodule(name.rpartition(".")[0]), torch.nn.Linear):
+                    h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def p45_vanilla_step(dev, group):
     """One fp32 kernel step (B1, B2) at full width on 1,024 seeded pixels
     of train view r_0 from 010000.tar, jitter and noise on, its draws from
@@ -6491,51 +6793,44 @@ def p45_child(spec):
     dev = torch.device("cuda")
     out = {"step": p45_vanilla_step(dev, make_mesh())}
     for name, module, argv, envs, _ in p45_legs(Path(spec["base"]) / f"rank{rank}", spec["data"]):
-        states, replicate = [], module.replicate
-
-        def capture(group, st, replicate=replicate):
-            states.append(st)
-            return replicate(group, st)
-
-        module.replicate = capture
-        try:
-            with recorded_frames() as frames:
-                res, log, counts, wall = _cli(module.main, argv, envs)
-        finally:
-            module.replicate = replicate
+        calls = []
+        with captured("replicate", calls), recorded_frames() as frames:
+            res, log, counts, wall = _cli(module.main, argv, envs)
         step_ms = res.get("step_ms") if isinstance(res, dict) else None
-        out[name] = dict(counts=counts, wall=wall, digest=_digest(states[-1]), frames=frames[:1],
+        out[name] = dict(counts=counts, wall=wall, digest=_digest(calls[-1][0][1]), frames=frames[:1],
                          sharding=[ln for ln in log.splitlines() if ln.startswith("Data parallelism")],
                          med=statistics.median(list(step_ms.values())[1:]) if step_ms else None)
         dist.barrier()
+    from swnerf_torch.parallel import tensor as T
+
+    t0 = time.perf_counter()
+    out["tp_step"] = p45_tp_step(dev, True)
+    out["tp_step_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    scene = p45_mr_scene(spec["data"])
+    out["tp_mr_step"] = {str(dt): p45_tp_mr_step(dev, scene, True, dt) for dt in (torch.float32, torch.float64)}
+    out["tp_mr_step_s"] = time.perf_counter() - t1
+    del scene
+    out["tp_gathered_frame"] = p45_gathered_frame(dev, Path(spec["base"]) / f"tp_rank{rank}", spec["data"])
+    for name, module, argv, envs, _ in p45_tp_legs(Path(spec["base"]) / f"tp_rank{rank}", spec["data"]):
+        grids = []
+        with captured("tensor_parallel_setup", grids), captured("tensor_parallel_setup_multires", grids), \
+                recorded_frames() as frames:
+            res, log, counts, wall = _cli(module.main, argv, dict(envs, SWNERF_TENSOR_PARALLEL="2"))
+        step_ms = res.get("step_ms") if isinstance(res, dict) else None
+        out[name] = dict(counts=counts, wall=wall, frames=frames[:1], rep_digest=None, bytes=None,
+                         grid=[ln for ln in log.splitlines() if ln.startswith("Tensor parallelism")],
+                         eager=any(line in log for line in ("eager autograd train step", "fused phase 2 on levels []")),
+                         med=statistics.median(list(step_ms.values())[1:]) if step_ms and len(step_ms) > 1 else None)
+        if grids:  # a training leg: the states it cut (a --render_only leg cuts nothing)
+            _, specs, st = grids[-1][1]
+            sts, specs = (st, specs) if isinstance(st, list) else ([st], [specs])
+            out[name].update(rep_digest=_replicated_digest(sts), bytes=sum(T.local_bytes(x) for x in sts),
+                             expected=sum(T.expected_local_bytes(p, x, 2) for p, x in zip(specs, sts)),
+                             whole=sum(T.expected_local_bytes(p, x, 1) for p, x in zip(specs, sts)))
+        dist.barrier()
+    out["tp_wall"] = time.perf_counter() - t0
     torch.save(out, spec["out"].replace("RANK", str(rank)))
-
-
-def adam_start(tar):
-    """A MultiRes checkpoint's weights before their one Adam update (torch's
-    Adam, fused or not), from its own moments: w + lr * m_hat / (sqrt(v_hat)
-    + eps), m_hat = m / (1 - beta1), v_hat = v / (1 - beta2), at the
-    config's lrate (the schedule at update 0). Keyed as ``_flat_tensors``."""
-    lrate, out = mr_args().lrate, {}
-    for key in [k for k in tar if k.startswith("network_fn_")]:
-        level = key[len("network_fn_"):]
-        params = [(f"/{key}/{n}", w) for n, w in tar[key].items()]
-        params += [(f"/network_fine_{level}/{n}", w) for n, w in tar.get(f"network_fine_{level}", {}).items()]
-        opt = tar[f"optimizer_{level}"]
-        (group,) = opt["param_groups"]
-        (b1, b2), eps = group["betas"], group["eps"]
-        if len(group["params"]) != len(params):
-            fail(f"45: {key}'s optimizer holds {len(group['params'])} tensors for {len(params)} parameters")
-        for (name, w), i in zip(params, group["params"]):
-            st = opt["state"].get(i)
-            if st is None:  # no gradient, no update
-                out[name] = w.double()
-                continue
-            if int(st["step"]) != 1 or st["exp_avg"].shape != w.shape:
-                fail(f"45: {name}'s Adam state is not one update of its shape")
-            m, v = st["exp_avg"].double() / (1 - b1), st["exp_avg_sq"].double() / (1 - b2)
-            out[name] = w.double() + lrate * m / (v.sqrt() + eps)
-    return out
 
 
 def torch_allclose(g, r, rtol, atol):
@@ -6558,7 +6853,7 @@ def phase45_gloo(dev, tmp, data, frame0):
     spec.write_text(json.dumps({"task": "p45", "base": str(base), "data": str(data), "out": out_tpl}))
     t0 = time.perf_counter()
     logs = launch([sys.executable, str(ROOT / "chip_smoke.py"), "--rank-child", str(spec)], 2, str(base),
-                  timeout=420, threads=4)
+                  timeout=600, threads=4)
     world_s = time.perf_counter() - t0
     ranks = [torch.load(out_tpl.replace("RANK", str(r)), weights_only=False) for r in range(2)]
     print(f"[45 world] 2 gloo ranks on one card, every run in {world_s:.1f} s; rank 0's sharding lines "
@@ -6613,26 +6908,190 @@ def phase45_gloo(dev, tmp, data, frame0):
         print(f"[45 {name}] over 2 ranks against one process, {ckpt}: {len(bad)} of {len(ref)} tensors outside rtol "
               f"1e-5, atol 1e-6 {bad[:6]}; max |d| {max(dist.values()):.3e}, worst relative {worst} {rel[worst]:.3e}")
         if name == "multires":
-            # One Adam update from the replicated start: its moments are held
-            # above; a weight moves by lrate * g / (|g| + eps), which the
-            # summation order can move by up to lrate where |g| is near eps,
-            # so the weights are held through that update: the start each
-            # run's weights and own moments give must agree at the bar.
-            start = adam_start(load_tar(str(base / "rank0" / ckpt)))
-            start_ref = adam_start(load_tar(str(single / ckpt)))
-            off = [k for k, v in start_ref.items() if not torch_allclose(start[k], v, 1e-5, 1e-6)]
-            print(f"[45 multires] the weights before the Adam update, from each run's weights and moments: {len(off)} "
-                  f"of {len(start_ref)} tensors outside rtol 1e-5, atol 1e-6 {off[:6]}; max |d| "
-                  f"{max((start[k] - v).abs().max().item() for k, v in start_ref.items()):.3e}")
-            bad = [k for k in bad if "/state/" in k] + off
+            # One Adam update from the replicated start: a weight moves by
+            # lr * g / (|g| + eps), which any summation order moves by up to
+            # lr where |g| is near eps, so the moments (the gradients' own
+            # record) decide; the weights are printed above
+            bad = [k for k in bad if "/state/" in k]
         if bad:
             fail(f"45 {name}: the 2-rank run is not the one-process run within the bar")
+    phase45_tp(dev, tmp, data, frame0, base, ranks)
     print(f"[45 done] phase 45 in {time.perf_counter() - t_phase:.1f} s")
     counts = collections.Counter()
     for leg in ranks[0].values():
         if isinstance(leg, dict) and "counts" in leg:
             counts.update(leg["counts"])
     return dict(counts)
+
+
+def _within(got, ref, rtol, atol):
+    """Tensors of ``ref`` (``_flat_tensors`` keys) outside the bar, and the
+    largest distance."""
+    bad = [k for k, v in ref.items() if not torch_allclose(got[k], v, rtol, atol)]
+    worst = max(((got[k].double() - v.double()).abs().max().item() for k, v in ref.items() if v.numel()), default=0.0)
+    return bad, worst
+
+
+def phase45_tp(dev, tmp, data, frame0, base, ranks):
+    """Phase 45's tensor-parallel legs (the module docstring), read from the
+    ranks' results against one process here."""
+    import torch
+
+    from swnerf_torch.parallel import tensor as T
+    from swnerf_torch.train.checkpoint import load_tar
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    # (a) the fp32 eager step on the shards against one process: the loss
+    # rel 1e-5, the gathered gradients at check_fp32_grads's bar (the row
+    # layers' partial sums are another summation order, which can flip a
+    # ReLU mask where a pre-activation sits within fp32 rounding of 0)
+    t_step = time.perf_counter()
+    m1, g1, b2_1, _ = p45_tp_step(dev, False)
+    _, g64, _, _ = p45_tp_step(dev, False, f64=True)
+    print(f"[45 tp step] the one-process fp32 and float64 references in {time.perf_counter() - t_step:.1f} s")
+    for r, x in enumerate(ranks):
+        m2, g2, b2, _ = x["tp_step"]
+        dl = abs(m2["total_loss"] - m1["total_loss"]) / m1["total_loss"]
+        print(f"[45 tp step fp32 rank {r}] total_loss {m2['total_loss']:.7f} vs one process {m1['total_loss']:.7f}: "
+              f"rel {dl:.3e}; B2 launches {b2} (one process {b2_1}); the rank's step with its set-up "
+              f"{x['tp_step_s']:.1f} s")
+        if dl > 1e-5 or b2 <= 0 or g2.keys() != g1.keys():
+            fail(f"45 tp: rank {r}'s fp32 step is not the one-process step (loss rel {dl}, B2 launches {b2})")
+        check_fp32_grads(f"45 tp step fp32 rank {r}", g2, g1, g64)
+    if ranks[0]["tp_step"][3] != ranks[1]["tp_step"][3]:
+        fail("45 tp: the replicated parameters differ between the model ranks after the fp32 step")
+    # MultiRes's joint step, every level cut: in float64 against one
+    # process, in fp32 against one process summing as the grid does
+    # (grid_sums); either fails on a wrong gradient of any level
+    t_step = time.perf_counter()
+    scene = p45_mr_scene(data)
+    one = {str(dt): p45_tp_mr_step(dev, scene, False, dt) for dt in (torch.float32, torch.float64)}
+    ctl_m, ctl_g = p45_tp_mr_step(dev, scene, False, control=True)
+    del scene
+    print(f"[45 tp multires step] one process's fp32 and float64 steps and the grid-sums control in "
+          f"{time.perf_counter() - t_step:.1f} s")
+    worst = lambda got, ref: [max(rel_l2(g, w).values()) for g, w in zip(got, ref)]  # noqa: E731
+    fmt = lambda errs: [f"{e:.3e}" for e in errs]  # noqa: E731
+    for r, x in enumerate(ranks):
+        (m64, g64), (m32, g32) = x["tp_mr_step"]["torch.float64"], x["tp_mr_step"]["torch.float32"]
+        l64 = abs(m64["total_loss"] - one["torch.float64"][0]["total_loss"]) / one["torch.float64"][0]["total_loss"]
+        l32 = abs(m32["total_loss"] - ctl_m["total_loss"]) / ctl_m["total_loss"]
+        e64, e32 = worst(g64, one["torch.float64"][1]), worst(g32, ctl_g)
+        print(f"[45 tp multires step rank {r}] float64 against one process: total_loss rel {l64:.3e}, each level's "
+              f"worst gradient rel L2 {fmt(e64)} (bar 1e-8); fp32 against the grid-sums control: total_loss rel "
+              f"{l32:.3e} (bar 1e-5), each level's worst {fmt(e32)} (bar 1e-5); fp32 against one process (read): "
+              f"{fmt(worst(g32, one['torch.float32'][1]))}, the control's {fmt(worst(ctl_g, one['torch.float32'][1]))}; "
+              f"the rank's steps with their set-up {x['tp_mr_step_s']:.1f} s")
+        if l64 > 1e-10 or max(e64) > 1e-8 or l32 > 1e-5 or max(e32) > 1e-5:
+            fail(f"45 tp: rank {r}'s MultiRes joint step over the grid is not one process's")
+    # (b) the trainers under SWNERF_TENSOR_PARALLEL=2 against one process
+    single = tmp / "p45_tp_single"
+    for name, module, argv, envs, ckpt in p45_tp_legs(single, data):
+        a, b = ranks[0][name], ranks[1][name]
+        train = ckpt is not None
+        med = f"; median ms per step after the first (CUDA events, rank 0) {a['med']:.3f}" if a["med"] else ""
+        held = (f"; replicated parameters {'bit-identical' if a['rep_digest'] == b['rep_digest'] else 'DIFFER'}; "
+                f"parameter + Adam bytes a rank holds {a['bytes']} / {b['bytes']} (by the assignment {a['expected']}, "
+                f"whole {a['whole']})") if train else " (render only: nothing cut)"
+        print(f"[45 {name}] launches (rank 0) {json.dumps(a['counts'], sort_keys=True)}; CLI wall {a['wall']:.2f} / "
+              f"{b['wall']:.2f} s; {a['grid']}{held}{med}; {smi}")
+        missing = [key for key in P45_KERNELS[name] if not any(c.startswith(key) for c in a["counts"])]
+        if (a["rep_digest"] != b["rep_digest"] or missing or len(a["grid"]) != 1
+                or (train and not (a["eager"] and a["bytes"] == a["expected"] == b["bytes"]))):
+            fail(f"45 {name}: the replicated parameters differ, it launched no {missing}, no grid line, not the eager "
+                 "step, or a rank holds other bytes than its shards'")
+        if not train:  # test frame 0 over the 2 ranks against one process's
+            ref = frame0
+            if name != "tp_render":
+                with recorded_frames() as frames:
+                    _cli(module.main, argv, envs)
+                ref = frames[0]
+            shown = [(f"{name} rank {r}", "the loaded fields", ranks[r][name]["frames"][0]) for r in range(2)]
+            if name == "tp_render":
+                shown += [(f"tp gathered rank {r}", "fields cut and gathered (render_fields)",
+                           ranks[r]["tp_gathered_frame"]) for r in range(2)]
+            for tag, what, f in shown:
+                print(f"[45 {tag}] test frame 0 from {what} over 2 ranks against one process's"
+                      f"{' (phase 5)' if name == 'tp_render' else ''}: torch.equal {torch.equal(f, ref)}, max |d| "
+                      f"{(f - ref).abs().max().item():.3e}")
+                if not torch.equal(f, ref):
+                    fail(f"45 {tag}: the frame over 2 ranks is not bit-equal to one process's")
+            continue
+        calls = []
+        t_leg = time.perf_counter()
+        with captured("replicate", calls):
+            _cli(module.main, argv, envs)
+        st = calls[-1][0][1]
+        one = sum(T.local_bytes(x) for x in (st if isinstance(st, list) else [st]))
+        del calls, st
+        got, ref = dict(_flat_tensors(load_tar(str(base / "tp_rank0" / ckpt)))), dict(_flat_tensors(load_tar(str(single / ckpt))))
+        if got.keys() != ref.keys() or any(got[k].shape != v.shape for k, v in ref.items()):
+            fail(f"45 {name}: the gathered checkpoint's tensors differ from one process's in name or shape")
+        # phase 45's bar above, rtol 1e-5, atol 1e-6, is read; the holds are the JAX
+        # tests' (tests/test_tensor_parallel.py:161-302): Adam normalises a
+        # gradient entry near 0 (its second moment is near 0 even in a
+        # resumed state), so the row layers' summation order moves such a
+        # weight by up to the learning rate: atol 2e-4; MultiRes's weights
+        # atol 6e-3 (printed; its moments decide, below)
+        if name in ("tp_w512", "tp_multires"):
+            # one Adam update from a shared start: each weight moves by
+            # lr * g / (|g| + eps), so an entry near 0 moves by up to lr
+            # either way and the weights against one process cannot show a
+            # wrong gradient; the first moments (0.1 g) decide. W=512: rel
+            # L2 1e-3 against one process (fp32 summation orders part by
+            # 1.8e-4 where a ReLU mask flips, the step above). MultiRes
+            # (level 0's 2^19 frequencies part any two fp32 orders by
+            # ~1e-1): every tensor, weights and moments, rel L2 1e-5 against
+            # the CLI run of one process summing as the grid does
+            ctl = {}
+            if name == "tp_multires":
+                with grid_sums():
+                    _cli(module.main, [a if a != str(single) else str(tmp / "p45_tp_control") for a in argv], envs)
+                ctl = dict(_flat_tensors(load_tar(str(tmp / "p45_tp_control" / ckpt))))
+                errs = rel_l2(got, ctl)
+                off = {k: e for k, e in errs.items() if e > 1e-5}
+                print(f"[45 {name}] every tensor against the grid-sums control's CLI run: worst rel L2 "
+                      f"{max(errs.values()):.3e} ({max(errs, key=errs.get)}), {len(off)} of {len(errs)} past 1e-5")
+                if off:
+                    fail(f"45 {name}: the tensor-parallel step is not one process's summing as the grid does: {off}")
+            opts = sorted({k.split("/")[1] for k in ref if k.startswith("/optimizer")})
+            for opt in opts:
+                for moment in ("exp_avg", "exp_avg_sq"):
+                    keys = [k for k in ref if k.startswith(f"/{opt}/") and k.endswith(f"/{moment}")]
+                    err = max(rel_l2({k: got[k] for k in keys}, {k: ref[k] for k in keys}).values())
+                    held = moment == "exp_avg" and not ctl
+                    moved = max(rel_l2({k: ctl[k] for k in keys}, {k: ref[k] for k in keys}).values()) if ctl else None
+                    print(f"[45 {name}] {opt}'s {moment} against one process: worst rel L2 {err:.3e}"
+                          + (f", the grid-sums control's {moved:.3e}" if ctl else "") + (" (bar 1e-3)" if held else " (read)"))
+                    if held and err > 1e-3:
+                        fail(f"45 {name}: {opt}'s first moments are not one process's")
+        if name == "tp_w512":
+            ref = {k: v for k, v in ref.items() if not k.startswith("/network_")}  # the moments, the counts
+        if name == "tp_multires":
+            ref = {k: v for k, v in ref.items() if k.startswith("/network_fn_")}
+        tight, worst = _within(got, ref, 1e-5, 1e-6)
+        atol = 2 * 6 * 5e-4 if name == "tp_multires" else 2e-4
+        bad, _ = _within(got, ref, 0.0, atol)
+        print(f"[45 {name}] gathered checkpoint {ckpt} against one process's: {len(tight)} of {len(ref)} tensors "
+              f"outside rtol 1e-5, atol 1e-6 {tight[:6]}, {len(bad)} outside atol {atol:g}; max |d| {worst:.3e}; one "
+              f"process holds {one} bytes of parameters + Adam, a rank {a['bytes']} ({a['bytes'] / one:.3f}); one "
+              f"process's CLI wall {time.perf_counter() - t_leg:.2f} s")
+        if bad:
+            fail(f"45 {name}: the tensor-parallel run is not the one-process run within the bar")
+        if name == "tp_multires":
+            recs = [[json.loads(line) for line in (d / "lego" / "metrics.jsonl").read_text().splitlines()
+                     if "global_loss" in line] for d in (base / "tp_rank0", single)]
+            rel = abs(recs[0][0]["global_loss"] - recs[1][0]["global_loss"]) / recs[1][0]["global_loss"]
+            print(f"[45 tp_multires] the joint step's global loss {recs[0][0]['global_loss']:.6f} vs one process "
+                  f"{recs[1][0]['global_loss']:.6f}: rel {rel:.3e} (bar 2e-2)")
+            if rel > 2e-2:
+                fail("45 tp_multires: the joint step's loss is not one process's")
+    if (base / "tp_rank1").exists() and any(p.is_file() for p in (base / "tp_rank1").rglob("*")):
+        fail("45 tp: rank 1 wrote files")
+    print(f"[45 tp done] the tensor-parallel legs in {ranks[0]['tp_wall']:.1f} s in the ranks and "
+          f"{time.perf_counter() - t0:.1f} s here; {smi}")
 
 
 def rank_child(spec_path) -> int:

@@ -25,6 +25,12 @@ class Field(nn.Module):
 
     cfg = None
 
+    def mlp_layout(self) -> Tuple[List[List[str]], List[str]]:
+        """The field's layers by module name, in the JAX param tree's order:
+        its stacks (each an ``init_mlp_stack`` list) and its lone heads.
+        Tensor parallelism (``parallel/tensor.py``) cuts them by this."""
+        raise NotImplementedError(f"{type(self).__name__} gives no layout of its layers")
+
 
 def safe_init_enabled() -> bool:
     """``SWNERF_SAFE_INIT=1``: opt-in remedy for the dead-density seed
@@ -111,12 +117,22 @@ class _RoundBF16(torch.autograd.Function):
         return g
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, half: bool = False) -> torch.Tensor:
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], half: bool = False) -> torch.Tensor:
+    """``x @ weight^T (+ bias)`` in fp32; ``half`` as :func:`dense`."""
+    if half:
+        return torch.nn.functional.linear(_RoundBF16.apply(x), _RoundBF16.apply(weight), bias)
+    return torch.nn.functional.linear(x, weight, bias)
+
+
+def dense(layer: nn.Module, x: torch.Tensor, half: bool = False) -> torch.Tensor:
     """``x @ W^T + b`` in fp32. ``half`` (a field config's
     ``half_precision``, D-NeRF's ``--do_half_precision``): ``x`` and ``W``
     rounded to bf16 first, the product and the bias in fp32, the port of
     the JAX package's ``dense(..., precision=Precision.DEFAULT)`` (one bf16
-    pass with an fp32 sum on a TPU); the cotangents stay fp32."""
-    if half:
-        return torch.nn.functional.linear(_RoundBF16.apply(x), _RoundBF16.apply(layer.weight), layer.bias)
-    return torch.nn.functional.linear(x, layer.weight, layer.bias)
+    pass with an fp32 sum on a TPU); the cotangents stay fp32. A layer cut
+    into shards by tensor parallelism (``parallel/tensor.py``'s column and
+    row layers) is called with ``half`` and runs the same product on its
+    shard, with its collectives around it."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x, half)
+    return linear(x, layer.weight, layer.bias, half)

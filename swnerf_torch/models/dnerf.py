@@ -41,7 +41,7 @@ against the plain one. No trainer sets it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -142,6 +142,13 @@ class DirectTemporalNeRF(Field):
         dims = [(in_x + cfg.input_ch_time, W)] + [((W + in_x, W) if i in cfg.skips else (W, W)) for i in range(D - 1)]
         self._time = nn.ModuleList(init_mlp_stack(dims, generator, device))
         (self._time_out,) = init_mlp_stack([(W, 3)], generator, device)
+
+    def mlp_layout(self) -> Tuple[List[List[str]], List[str]]:
+        """The canonical network's under ``_occ.``, then the deformation
+        stack ``_time`` and its head ``_time_out``."""
+        stacks, heads = self._occ.mlp_layout()
+        stacks = [[f"_occ.{n}" for n in s] for s in stacks] + [[f"_time.{i}" for i in range(len(self._time))]]
+        return stacks, [f"_occ.{n}" for n in heads] + ["_time_out"]
 
     def time_net(self, pts_emb: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
         """``apply_time_net``: [embed(x) | embed(t)] -> dx, the skip

@@ -28,7 +28,7 @@ mode.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,6 +115,11 @@ class TNeRF(Field):
         self.feature = _wrapped(init_mlp_stack([(nd, nd)], generator, device)[0])
         self.layer_9 = _wrapped(init_mlp_stack([(nd + cfg.dir_feat, nd // 2)], generator, device)[0])
         self.color = _wrapped(init_mlp_stack([(nd // 2, 3)], generator, device)[0])
+
+    def mlp_layout(self) -> Tuple[List[List[str]], List[str]]:
+        """The wrapped ``layers.{i}.0``; the heads ``density``, ``feature``,
+        ``layer_9``, ``color``."""
+        return [[f"layers.{i}.0" for i in range(len(self.layers))]], ["density.0", "feature.0", "layer_9.0", "color.0"]
 
     def trunk(self, pts_emb: torch.Tensor, views_emb: torch.Tensor, time_emb: torch.Tensor) -> torch.Tensor:
         """The MLP on embedded inputs (``apply_tnerf``): raw ``[..., 4]``

@@ -24,7 +24,7 @@ Operands are ``utils/switches.py::operand_dtype``'s: bf16 on a card,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -111,6 +111,16 @@ class VanillaNeRF(Field):
                 density_bias_floor(self.alpha_linear)
             else:
                 density_bias_floor(self.output_linear, index=3)
+
+    def mlp_layout(self) -> Tuple[List[List[str]], List[str]]:
+        """``pts_linears`` and ``views_linears``; the heads ``feature_linear``,
+        ``alpha_linear``, ``rgb_linear`` (``output_linear`` without view
+        directions)."""
+        stacks = [[f"pts_linears.{i}" for i in range(len(self.pts_linears))]]
+        if not self.cfg.use_viewdirs:
+            return stacks, ["output_linear"]
+        stacks.append([f"views_linears.{i}" for i in range(len(self.views_linears))])
+        return stacks, ["feature_linear", "alpha_linear", "rgb_linear"]
 
     def trunk(self, pts_emb: torch.Tensor, views_emb: Optional[torch.Tensor]) -> torch.Tensor:
         """The MLP on already-embedded inputs (``apply_vanilla_trunk``):

@@ -10,7 +10,10 @@ gloo processes on the CPU, at the full widths (D=8, W=256 trunks; the
 T-NeRF's 128) with tiny ray counts. Each rank joins through a file store
 (no TCP port); the run fails unless every rank finishes, every loss is
 finite and the ranks agree on every metric. It prints one JSON line of the
-metrics.
+metrics. Under ``SWNERF_TENSOR_PARALLEL=k`` (which the ranks inherit) the
+trainers cut their fields over a ``(rays, model)`` grid of the ranks
+(``parallel/tensor.py``): ``--ranks 4`` with k = 2 runs a 2 x 2 grid, and
+the JSON line names it.
 
 :func:`launch` is the launcher: it starts one process per rank with the
 ``SWNERF_COORDINATOR`` / ``SWNERF_NUM_PROCESSES`` / ``SWNERF_PROCESS_ID`` of
@@ -187,7 +190,9 @@ def main(argv=None) -> None:
             res = dryrun(a.ranks, tmp, a.steps, a.timeout)
     else:
         res = dryrun(a.ranks, a.workdir, a.steps, a.timeout)
-    print(json.dumps({"ranks": a.ranks, "results": res}))
+    k = int(os.environ.get("SWNERF_TENSOR_PARALLEL", "0") or 0)
+    grid = {"rays": a.ranks // k, "model": k} if k > 1 else None
+    print(json.dumps({"ranks": a.ranks, "tensor_parallel": grid, "results": res}))
 
 
 if __name__ == "__main__":

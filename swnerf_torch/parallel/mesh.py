@@ -78,8 +78,9 @@ class RaysGroup:
         return buf
 
     def broadcast_(self, buf: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """``buf`` from rank ``src`` on every rank, in place; returns it."""
-        dist.broadcast(buf, src=src, group=self.pg)
+        """``buf`` from rank ``src`` of this group on every rank, in place;
+        returns it."""
+        dist.broadcast(buf, src=src if self.pg is None else dist.get_global_rank(self.pg, src), group=self.pg)
         return buf
 
 
@@ -144,11 +145,13 @@ def _adam_moments(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
 
 @torch.no_grad()
 def replicate(group: Optional[RaysGroup], states) -> None:
-    """Broadcast rank 0's parameters and Adam moments to every rank (one
-    flat buffer, one ``broadcast``), so that the ranks cannot start apart:
-    at start-up and after any resume or auto-reseed. ``states`` is a
-    ``TrainState`` or a list of them (MultiRes's levels). No-op without a
-    group.
+    """Broadcast rank 0's parameters and Adam moments to every rank of
+    ``group`` (one flat buffer, one ``broadcast``), so that the ranks cannot
+    start apart: at start-up and after any resume or auto-reseed. Under
+    tensor parallelism ``group`` is the rays group of a model rank
+    (``parallel/tensor.py``), whose rank 0 holds the same shards. ``states``
+    is a ``TrainState`` or a list of them (MultiRes's levels). No-op without
+    a group.
 
     The ranks must have resumed alike (every rank reads rank 0's files, on
     a file system they share): a rank whose update counts, or whose number

@@ -37,8 +37,11 @@ first render pose swept over 120 times into ``time_only/`` and the
 ``time_rgb`` / ``time_disp`` videos (run_dnerf.py:553-566). Steps run
 ``SWNERF_STEPS_PER_DISPATCH`` at a time (:func:`make_dnerf_scan_step`; 20 on
 a card: CUDA-graph replays). Launched as N processes the ranks share each
-step's rays and each frame's chunks (``parallel/``, as ``run_nerf``); tensor
-parallelism is not ported yet (ROADMAP.md).
+step's rays and each frame's chunks (``parallel/``, as ``run_nerf``); under
+``SWNERF_TENSOR_PARALLEL=k`` the canonical and deformation networks are cut
+into column and row shards over a ``(rays, model)`` grid of ranks
+(``parallel/tensor.py``) and train through the eager step (B2 on a card);
+the saves and renders gather them, as ``run_nerf``'s.
 
 The train split's time checks (first 0, last 1, run_dnerf.py:297-298) hold
 for training only: ``--testskip`` strides the train split too, so
@@ -49,14 +52,21 @@ from __future__ import annotations
 
 import os
 from functools import partial
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models import DNeRFConfig, make_dnerf_model
-from swnerf_torch.parallel import check_dispatch, data_parallel_mesh, initialize_from_env, replicate
+from swnerf_torch.parallel import (
+    check_dispatch,
+    checkpoint_state,
+    field_route,
+    initialize_from_env,
+    parallel_setup,
+    render_fields,
+)
 from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
@@ -99,7 +109,7 @@ def _model_config(args, depth: int, width: int) -> DNeRFConfig:
     )
 
 
-def create_dnerf(args, device: torch.device):
+def create_dnerf(args, device: torch.device, fused: Optional[bool] = None):
     """The fields, train state, render config and eval pass from CLI args
     (reference create_nerf, run_dnerf.py:238-351), resuming from the latest
     checkpoint: weights (the fine model's too), Adam state and ``start =
@@ -110,16 +120,18 @@ def create_dnerf(args, device: torch.device):
     fp32 plain twins on the CPU; it is None where they do not cover the
     fields (``--nerf_type original`` among them: the plain path renders
     then, as in the JAX package) and under ``SWNERF_FUSED_EVAL=0``
-    (``switches.eval_pass_route``, ``dnerf.py:298-299`` there).
+    (``switches.eval_pass_route``, ``dnerf.py:298-299`` there). ``fused``:
+    the fields' kernel route (None: where the card and the switches take
+    it; False under tensor parallelism).
     """
     kind = args.nerf_type
     mcfg = _model_config(args, args.netdepth, args.netwidth)
     generator = torch.Generator().manual_seed(seed_value())
-    model = make_dnerf_model(kind, mcfg, device, generator)
+    model = make_dnerf_model(kind, mcfg, device, generator, fused=fused)
     fine, fcfg = None, None
     if args.use_two_models_for_fine:
         fcfg = _model_config(args, args.netdepth_fine, args.netwidth_fine)
-        fine = make_dnerf_model(kind, fcfg, device, generator)
+        fine = make_dnerf_model(kind, fcfg, device, generator, fused=fused)
     rcfg = RenderConfig(
         n_samples=args.N_samples, n_importance=args.N_importance, perturb=args.perturb, lindisp=args.lindisp,
         raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd, use_viewdirs=args.use_viewdirs,
@@ -202,28 +214,28 @@ def _train_impl(argv=None) -> Union[str, Dict]:
         raise ValueError(f"Unknown dataset type {args.dataset_type!r} (dnerf supports blender)")
     initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
-    group = data_parallel_mesh(0 if args.render_only else args.N_rand)
     args.dataset_type = "blender_dnerf"
     scene = load_scene(args)
     args.dataset_type = "blender"
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
     snapshot_args(args.basedir, args.expname, args, args.config)
-    state, rcfg, eval_pass, (mcfg, fcfg) = create_dnerf(args, device)
-    replicate(group, state)
+    state, rcfg, eval_pass, (mcfg, fcfg) = create_dnerf(args, device, fused=field_route(args.render_only))
+    # a mesh: the fields cut, the eager step
+    mesh, group, render_group = parallel_setup(state, 0 if args.render_only else args.N_rand, args.render_only)
     start = state.step
 
     if args.render_only:
         print("RENDER ONLY")
         if args.render_test:
             savedir = render_only(state.coarse, state.fine, scene, rcfg, args, start, eval_pass=eval_pass,
-                                  group=group)
+                                  group=render_group)
         else:  # the live path: the first render pose swept over 120 times
             savedir = os.path.join(args.basedir, args.expname, "time_only")
             os.makedirs(savedir, exist_ok=True)
             poses = np.broadcast_to(scene.render_poses[0], (120, 4, 4))
             rgbs, disps, _ = render_path(state.coarse, state.fine, poses, scene, rcfg, args.chunk, savedir=savedir,
                                          render_factor=args.render_factor, eval_pass=eval_pass,
-                                         times=np.linspace(0.0, 1.0, 120).astype(np.float32), group=group)
+                                         times=np.linspace(0.0, 1.0, 120).astype(np.float32), group=render_group)
             base = os.path.join(args.basedir, args.expname, "time_")
             write_video(base + "rgb.mp4", rgbs)
             write_video(base + "disp.mp4", disps / np.max(disps))
@@ -235,7 +247,8 @@ def _train_impl(argv=None) -> Union[str, Dict]:
     logger = ExperimentLogger(args.basedir, args.expname)
     sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac,
                            precrop_iters_time=args.precrop_iters_time)
-    if args.nerf_type == "direct_temporal" and supports_fused_dnerf_step(mcfg, fcfg, rcfg) and kernel_step(device):
+    if (mesh is None and args.nerf_type == "direct_temporal" and supports_fused_dnerf_step(mcfg, fcfg, rcfg)
+            and kernel_step(device)):
         train_step = make_fused_dnerf_step(mcfg, rcfg, fcfg=fcfg, add_tv_loss=args.add_tv_loss,
                                            tv_loss_weight=args.tv_loss_weight, group=group)
         print("Using the kernel D-NeRF train step (B6, B5, B3 pts mode, B2)")
@@ -274,7 +287,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
         i = i + k - 1  # the chunk's last iteration
 
         if i % args.i_weights == 0:
-            save_dnerf_ckpt(args, state, i)
+            save_dnerf_ckpt(args, checkpoint_state(mesh, state), i)
         if i % args.i_print == 0:
             timer.collect()
             m = {k: float(v) for k, v in metrics.items()}
@@ -284,27 +297,32 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             tv = f" TV: {m['tv']:.6f}" if "tv" in m else ""
             print(f"[TRAIN] Iter: {i} Loss_fine: {m['loss']:.6f} PSNR: {m['psnr']:.3f}{tv}{rate}", flush=True)
             watchdog.check(i, m["psnr"])
-        if i % args.i_img == 0 and i > 0 and len(scene.i_val) and logger.tb is not None:
+        if i % args.i_img == 0 and i > 0 and len(scene.i_val) and (logger.tb is not None or mesh is not None):
             # One val view to TensorBoard (the render is skipped where no
             # writer would take it: on every rank but 0, which renders it
-            # alone, with no collective).
-            img_i = int(np.random.default_rng(i).choice(scene.i_val))
-            rgbs, disps, _ = render_path(state.coarse, state.fine, scene.poses[img_i : img_i + 1], scene, rcfg,
-                                         args.chunk, eval_pass=eval_pass, times=scene.times[img_i : img_i + 1])
-            logger.image(i, "gt", scene.images[img_i])
-            logger.image(i, "rgb", rgbs[0])
-            logger.image(i, "disp", disps[0] / max(disps.max(), 1e-8))
+            # alone, with no collective; under tensor parallelism every
+            # rank gathers the fields for it first).
+            fields = render_fields(mesh, state)
+            if logger.tb is not None:
+                img_i = int(np.random.default_rng(i).choice(scene.i_val))
+                rgbs, disps, _ = render_path(*fields, scene.poses[img_i : img_i + 1], scene, rcfg, args.chunk,
+                                             eval_pass=eval_pass, times=scene.times[img_i : img_i + 1])
+                logger.image(i, "gt", scene.images[img_i])
+                logger.image(i, "rgb", rgbs[0])
+                logger.image(i, "disp", disps[0] / max(disps.max(), 1e-8))
         if i % args.i_video == 0 and i > 0:
             viddir = os.path.join(args.basedir, args.expname, f"frames_{args.expname}_spiral_{i:06d}_time")
-            rgbs, disps, _ = render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk,
-                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times, group=group)
+            rgbs, disps, _ = render_path(*render_fields(mesh, state), scene.render_poses, scene, rcfg, args.chunk,
+                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times,
+                                         group=render_group)
             base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
             write_video(base + "rgb.mp4", rgbs)
             write_video(base + "disp.mp4", disps / np.max(disps))
         if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
-            render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
-                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test], group=group)
+            render_path(*render_fields(mesh, state), scene.poses[scene.i_test], scene, rcfg, args.chunk,
+                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test],
+                        group=render_group)
             print("Saved test set")
         i += 1
 

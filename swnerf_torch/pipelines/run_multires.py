@@ -42,15 +42,20 @@ the JAX package's MultiRes snapshot), and either resumes. ``--i_video``
 writes each level's PNG frames and the reconstructed video. Launched as N
 processes (``parallel/``, as ``run_nerf``) the ranks share phase 1's rays
 and each level's phase-2 patch (:func:`make_phase2_step`) and each test
-frame's chunks; rank 0 writes the files. Not ported yet (ROADMAP.md):
-tensor parallelism (the JAX package's MultiRes has no K-step dispatch, so
-the port gives it none). ``SWNERF_MAX_ITERS`` caps the iteration count
+frame's chunks; rank 0 writes the files. Under
+``SWNERF_TENSOR_PARALLEL=k`` every level's fields and Adam moments are cut
+into column and row shards over one ``(rays, model)`` grid of ranks
+(``parallel/tensor.py``; the policy's batch is ``gcd(N_rand, the smallest
+patch^2)``), phase 2 takes the field route, and the saves and test renders
+gather every level. The JAX package's MultiRes has no K-step dispatch, so
+the port gives it none. ``SWNERF_MAX_ITERS`` caps the iteration count
 (testing).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import statistics
 import time
@@ -70,13 +75,16 @@ from swnerf_torch.ops.rays import get_rays_at
 from swnerf_torch.ops.sampling import sample_along_rays
 from swnerf_torch.parallel import (
     RaysGroup,
+    TensorMesh,
     all_reduce_rows,
     batch_rows,
-    data_parallel_mesh,
+    checkpoint_state,
+    field_route,
     initialize_from_env,
     is_primary,
+    parallel_setup,
     reducer_for,
-    replicate,
+    render_fields,
 )
 from swnerf_torch.pipelines.common import (
     ImageSampler,
@@ -171,18 +179,20 @@ def _adam_steps(opt_state: Dict) -> int:
     return 0
 
 
-def create_multires(args, scene: Scene, device: torch.device):
+def create_multires(args, scene: Scene, device: torch.device, fused: Optional[bool] = None):
     """Per-level fields, train states (Adam each) and cameras, with the
     per-level ``.tar`` auto-resume (multires_dnerf.py:242-346, 629-668).
     Returns (kind, states, pyr_hwf, rcfg, start); a level's ``step`` is its
-    Adam update count, which its learning-rate schedule reads."""
+    Adam update count, which its learning-rate schedule reads. ``fused``:
+    the fields' kernel route (None: where the card and the switches take
+    it; False under tensor parallelism)."""
     kind = args.nerf_type
     generator = torch.Generator().manual_seed(seed_value())
     states, pyr_hwf = [], []
     for layer in range(args.layer_num):
         cfg = _level_cfg(args, CHANNEL_LIST[layer % len(CHANNEL_LIST)])
-        coarse = make_dnerf_model(kind, cfg, device, generator)
-        fine = make_dnerf_model(kind, cfg, device, generator) if args.use_two_models_for_fine else None
+        coarse = make_dnerf_model(kind, cfg, device, generator, fused=fused)
+        fine = make_dnerf_model(kind, cfg, device, generator, fused=fused) if args.use_two_models_for_fine else None
         states.append(init_train_state(coarse, fine, args.lrate, args.lrate_decay))
         scale = 2**layer
         pyr_hwf.append([scene.H // scale, scene.W // scale, scene.focal / scale])
@@ -475,6 +485,15 @@ def render_time_sweep(args, scene: Scene, states: List[TrainState], pyr_hwf, rcf
     write_video(os.path.join(args.basedir, args.expname, f"{args.expname}_reconstructed_{i:06d}_rgb.mp4"), recon)
 
 
+def render_states(mesh: Optional[TensorMesh], states: List[TrainState]) -> List[TrainState]:
+    """The states the renders read: ``states`` without a grid, else each
+    level's whole fields gathered once for the call
+    (``parallel/tensor.py::render_fields``)."""
+    if mesh is None:
+        return states
+    return [dataclasses.replace(st, coarse=c, fine=f) for st in states for c, f in [render_fields(mesh, st)]]
+
+
 def _median(ms: Dict[int, float]) -> Optional[float]:
     return statistics.median(ms.values()) if ms else None
 
@@ -491,7 +510,6 @@ def train(argv=None) -> Dict:
         raise ValueError(f"Unknown dataset type {args.dataset_type!r} (multires supports blender)")
     initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
-    group = data_parallel_mesh(args.N_rand)
     args.dataset_type = "blender_dnerf"
     scene = load_scene(args)
     args.dataset_type = "blender"
@@ -499,11 +517,21 @@ def train(argv=None) -> Dict:
     snapshot_args(args.basedir, args.expname, args, args.config)
     logger = ExperimentLogger(args.basedir, args.expname)
     log_txt = os.path.join(args.basedir, args.expname, "log.txt")
-
-    kind, states, pyr_hwf, rcfg, start = create_multires(args, scene, device)
-    replicate(group, states)
-    eval_passes = make_level_eval_passes(states, device)
     L = args.layer_num
+
+    # The base patch, clamped to the image (the largest power of two <= min(H, W)).
+    base_ps = BASE_PATCH_SIZE
+    while base_ps > 1 and base_ps > min(scene.H, scene.W):
+        base_ps //= 2
+    if base_ps != BASE_PATCH_SIZE:
+        print(f"Patch size clamped to {base_ps} for {scene.H}x{scene.W} images")
+    patch_sizes = [max(base_ps // (2**l), 1) for l in range(L)]
+
+    kind, states, pyr_hwf, rcfg, start = create_multires(args, scene, device, fused=field_route())
+    # a mesh: every level cut over one grid, at a batch that divides N_rand and every patch
+    mesh, group, render_group = parallel_setup(states, args.N_rand,
+                                               tp_batch_size=math.gcd(args.N_rand, min(patch_sizes) ** 2))
+    eval_passes = make_level_eval_passes(states, device)
     result: Dict = {"metrics": {}, "phase1_loss": {}, "phase1_step_ms": {}, "phase2_step_ms": {},
                     "test_frame_ms": None}
     n_iters = int(os.environ.get("SWNERF_MAX_ITERS", args.N_iter + 1))
@@ -514,14 +542,6 @@ def train(argv=None) -> Dict:
               "(pass --no_reload to retrain).")
         logger.close()
         return result
-
-    # The base patch, clamped to the image (the largest power of two <= min(H, W)).
-    base_ps = BASE_PATCH_SIZE
-    while base_ps > 1 and base_ps > min(scene.H, scene.W):
-        base_ps //= 2
-    if base_ps != BASE_PATCH_SIZE:
-        print(f"Patch size clamped to {base_ps} for {scene.H}x{scene.W} images")
-    patch_sizes = [max(base_ps // (2**l), 1) for l in range(L)]
 
     images = torch.as_tensor(scene.images, device=device)
     with torch.no_grad():
@@ -574,7 +594,7 @@ def train(argv=None) -> Dict:
             print(f"[MULTIRES] phase 1 level {layer}: median {med:.3f} ms per step over {len(timer.step_ms)} steps")
 
     # ---------------- phase 2: joint patch optimization
-    fused = fused_levels(states, rcfg, device)
+    fused = [False] * L if mesh is not None else fused_levels(states, rcfg, device)  # kernels read whole weights
     step_fn = make_phase2_step(rcfg, pyr_hwf, patch_sizes, scene.near, scene.far, fused=fused, group=group)
     print(f"Begin joint training (fused phase 2 on levels {[l for l, f in enumerate(fused) if f]})")
     timer = StepTimer(device, start)
@@ -597,7 +617,7 @@ def train(argv=None) -> Dict:
         timer.record(i)
 
         if i % args.i_weights == 0:
-            save_multires_ckpt(args, states, i)
+            save_multires_ckpt(args, [checkpoint_state(mesh, st) for st in states], i)
         if i % args.i_print == 0:
             m = {k: float(v) for k, v in metrics.items()}
             logger.scalars(i, m)
@@ -613,10 +633,11 @@ def train(argv=None) -> Dict:
             timer.collect()
             result["phase2_step_ms"].update(timer.step_ms)
             if render_video:
-                render_time_sweep(args, scene, states, pyr_hwf, rcfg, i, eval_passes, group)
+                render_time_sweep(args, scene, render_states(mesh, states), pyr_hwf, rcfg, i, eval_passes,
+                                  render_group)
             if render_test:
-                _, result["test_frame_ms"], _ = render_testset(args, scene, states, pyr_hwf, rcfg, i, eval_passes,
-                                                               group)
+                _, result["test_frame_ms"], _ = render_testset(args, scene, render_states(mesh, states), pyr_hwf,
+                                                               rcfg, i, eval_passes, render_group)
             timer = StepTimer(device, i)
 
     timer.collect()

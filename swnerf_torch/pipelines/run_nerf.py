@@ -30,21 +30,33 @@ Launched as N processes (one per card: ``SWNERF_COORDINATOR`` /
 ``SWNERF_NUM_PROCESSES`` / ``SWNERF_PROCESS_ID``, or ``torchrun``), each
 rank trains on its rows of every step's ray batch and the step sums the
 gradients with one all-reduce (``parallel/``); the renders split each
-frame's chunks over the ranks; rank 0 writes the files.
+frame's chunks over the ranks; rank 0 writes the files. Under
+``SWNERF_TENSOR_PARALLEL=k`` the ranks form a ``(rays, model)`` grid
+(``parallel/tensor.py``): each field's layers are cut into column and row
+shards over the k ranks of a model group, the eager step runs on the
+shards (B2 on a card), the saves gather the whole fields and Adam moments
+and the renders whole fields on the kernel route.
 """
 
 from __future__ import annotations
 
 import os
 from functools import partial
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models import VanillaNeRF, VanillaNeRFConfig
-from swnerf_torch.parallel import check_dispatch, data_parallel_mesh, initialize_from_env, replicate
+from swnerf_torch.parallel import (
+    check_dispatch,
+    checkpoint_state,
+    field_route,
+    initialize_from_env,
+    parallel_setup,
+    render_fields,
+)
 from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
@@ -80,10 +92,12 @@ from swnerf_torch.utils.profiling import StepProfiler
 N_ITERS = 200000 + 1  # fixed in the vanilla runner (reference run.py:625)
 
 
-def create_vanilla(args, device: torch.device):
+def create_vanilla(args, device: torch.device, fused: Optional[bool] = None):
     """Models, train state, render config and eval pass from CLI args
     (reference create_nerf, run.py:222-311), resuming from the latest
-    checkpoint: weights, Adam state and ``start = global_step``.
+    checkpoint: weights, Adam state and ``start = global_step``. ``fused``:
+    the fields' kernel route (None: where the card and the switches take
+    it; False under tensor parallelism).
 
     Returns (state, rcfg, eval_pass, (mcfg, fcfg)). The eval pass runs bf16
     kernel operands on the card and fp32 plain twins on the CPU; it is None
@@ -102,11 +116,11 @@ def create_vanilla(args, device: torch.device):
         )
 
     mcfg = cfg(args.netdepth, args.netwidth)
-    model = VanillaNeRF(mcfg, device=device, generator=generator)
+    model = VanillaNeRF(mcfg, device=device, generator=generator, fused=fused)
     fine_model, fcfg = None, None
     if args.N_importance > 0:
         fcfg = cfg(args.netdepth_fine, args.netwidth_fine)
-        fine_model = VanillaNeRF(fcfg, device=device, generator=generator)
+        fine_model = VanillaNeRF(fcfg, device=device, generator=generator, fused=fused)
 
     rcfg = RenderConfig(
         n_samples=args.N_samples, n_importance=args.N_importance, perturb=args.perturb,
@@ -182,16 +196,15 @@ def _train_impl(argv=None) -> Dict:
     args = config_parser().parse_args(argv)
     initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
-    group = data_parallel_mesh(args.N_rand)
     scene = load_scene(args)
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
     snapshot_args(args.basedir, args.expname, args, args.config)
-    state, rcfg, eval_pass, (mcfg, fcfg) = create_vanilla(args, device)
-    replicate(group, state)
+    state, rcfg, eval_pass, (mcfg, fcfg) = create_vanilla(args, device, fused=field_route())
+    mesh, group, render_group = parallel_setup(state, args.N_rand)  # a mesh: the fields cut, the eager step
     start = state.step
     logger = ExperimentLogger(args.basedir, args.expname)
 
-    use_kernel_step = supports_fused_step(mcfg, fcfg, rcfg) and kernel_step(device)
+    use_kernel_step = mesh is None and supports_fused_step(mcfg, fcfg, rcfg) and kernel_step(device)
     if use_kernel_step:
         train_step = make_fused_train_step(mcfg, rcfg, fcfg=fcfg, group=group)
         print("Using the kernel train step (B1 render-loss, B2 sample_pdf)")
@@ -262,18 +275,18 @@ def _train_impl(argv=None) -> Dict:
             i = i + k - 1  # the chunk's last iteration
 
             if i % args.i_weights == 0:
-                save_vanilla_ckpt(args, state, i)
+                save_vanilla_ckpt(args, checkpoint_state(mesh, state), i)
             if i % args.i_video == 0 and i > 0:
-                rgbs, disps, _ = render_path(state.coarse, state.fine, scene.render_poses, scene, rcfg, args.chunk,
-                                             eval_pass=eval_pass, group=group)
+                rgbs, disps, _ = render_path(*render_fields(mesh, state), scene.render_poses, scene, rcfg, args.chunk,
+                                             eval_pass=eval_pass, group=render_group)
                 base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
                 write_video(base + "rgb.mp4", rgbs)
                 write_video(base + "disp.mp4", disps / np.max(disps))
             if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
                 testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
                 os.makedirs(testsavedir, exist_ok=True)
-                render_path(state.coarse, state.fine, scene.poses[scene.i_test], scene, rcfg, args.chunk,
-                            savedir=testsavedir, eval_pass=eval_pass, group=group)
+                render_path(*render_fields(mesh, state), scene.poses[scene.i_test], scene, rcfg, args.chunk,
+                            savedir=testsavedir, eval_pass=eval_pass, group=render_group)
                 print("Saved test set")
             if i % args.i_print == 0:
                 timer.collect()
@@ -299,11 +312,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     if not args.render_only:
         return train(argv)
-    group = data_parallel_mesh()
     scene = load_scene(args)
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
-    state, rcfg, eval_pass, _ = create_vanilla(args, device)
-    replicate(group, state)
+    state, rcfg, eval_pass, _ = create_vanilla(args, device, fused=field_route(render_only=True))
+    _, _, group = parallel_setup(state, render_only=True)
     print("RENDER ONLY")
     savedir = render_only(state.coarse, state.fine, scene, rcfg, args, state.step, eval_pass=eval_pass, group=group)
     print("Done rendering", savedir)

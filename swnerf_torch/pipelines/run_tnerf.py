@@ -25,14 +25,17 @@ through B4 and writes PNG frames, the video and metrics.json. Steps run
 ``pipelines/common.py::KStepRoute``), through ``run_dnerf``'s
 ``make_dnerf_scan_step`` as in the JAX package. Launched as N processes the
 ranks share each step's rays and each frame's chunks (``parallel/``, as
-``run_nerf``); tensor parallelism is not ported yet (ROADMAP.md).
+``run_nerf``); under ``SWNERF_TENSOR_PARALLEL=k`` the field is cut into
+column and row shards over a ``(rays, model)`` grid of ranks
+(``parallel/tensor.py``) and trains through the eager step, and the saves
+and renders gather it, as ``run_nerf``'s.
 """
 
 from __future__ import annotations
 
 import os
 from functools import partial
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -40,7 +43,14 @@ import torch
 from swnerf_torch.device import resolve_device
 from swnerf_torch.models import TNeRF, TNeRFConfig
 from swnerf_torch.ops.kernels.render_pass import supports_tnerf
-from swnerf_torch.parallel import check_dispatch, data_parallel_mesh, initialize_from_env, replicate
+from swnerf_torch.parallel import (
+    check_dispatch,
+    checkpoint_state,
+    field_route,
+    initialize_from_env,
+    parallel_setup,
+    render_fields,
+)
 from swnerf_torch.pipelines.common import (
     DeadInitWatchdog,
     ImageSampler,
@@ -71,10 +81,12 @@ from swnerf_torch.utils.logging import ExperimentLogger, snapshot_args
 from swnerf_torch.utils.media import write_video
 
 
-def create_tnerf(args, device: torch.device):
+def create_tnerf(args, device: torch.device, fused: Optional[bool] = None):
     """The field, train state, render config and eval pass from CLI args
     (reference run_tnerf.py:264-280), resuming from the latest checkpoint:
-    weights, Adam state and ``start = global_step``.
+    weights, Adam state and ``start = global_step``. ``fused``: the field's
+    kernel route (None: where the card and the switches take it; False
+    under tensor parallelism).
 
     Returns (state, rcfg, eval_pass, mcfg). The eval pass runs B4 with bf16
     operands on the card and its fp32 plain twin on the CPU; it is None for
@@ -86,7 +98,7 @@ def create_tnerf(args, device: torch.device):
         netdepth=args.netdepth, net_dim=128, skip_layer=4, multires=args.multires,
         multires_views=args.multires_views, i_embed=args.i_embed,
     )
-    model = TNeRF(mcfg, device=device, generator=torch.Generator().manual_seed(seed_value()))
+    model = TNeRF(mcfg, device=device, generator=torch.Generator().manual_seed(seed_value()), fused=fused)
     rcfg = RenderConfig(
         n_samples=args.N_samples, n_importance=0, perturb=args.perturb, lindisp=args.lindisp,
         raw_noise_std=args.raw_noise_std, white_bkgd=args.white_bkgd, use_viewdirs=True,
@@ -140,26 +152,26 @@ def _train_impl(argv=None) -> Union[str, Dict]:
         raise ValueError(f"Unknown dataset type {args.dataset_type!r} (tnerf supports blender)")
     initialize_from_env(args.device)  # before the first device query; a no-op single-process
     device = resolve_device(args.device)
-    group = data_parallel_mesh(0 if args.render_only else args.N_rand)
     args.dataset_type = "blender_dnerf"
     scene = load_scene(args)
     args.dataset_type = "blender"
     os.makedirs(os.path.join(args.basedir, args.expname), exist_ok=True)
     snapshot_args(args.basedir, args.expname, args, args.config)
-    state, rcfg, eval_pass, mcfg = create_tnerf(args, device)
-    replicate(group, state)
+    state, rcfg, eval_pass, mcfg = create_tnerf(args, device, fused=field_route(args.render_only))
+    # a mesh: the field cut, the eager step
+    mesh, group, render_group = parallel_setup(state, 0 if args.render_only else args.N_rand, args.render_only)
     start = state.step
 
     if args.render_only:
         print("RENDER ONLY")
-        savedir = render_only(state.coarse, None, scene, rcfg, args, start, eval_pass=eval_pass, group=group)
+        savedir = render_only(state.coarse, None, scene, rcfg, args, start, eval_pass=eval_pass, group=render_group)
         print("Done rendering", savedir)
         return savedir
 
     logger = ExperimentLogger(args.basedir, args.expname)
     sampler = ImageSampler(scene, args.N_rand, args.precrop_iters, args.precrop_frac,
                            precrop_iters_time=args.precrop_iters_time)
-    if supports_fused_tnerf_step(mcfg, rcfg) and kernel_step(device):
+    if mesh is None and supports_fused_tnerf_step(mcfg, rcfg) and kernel_step(device):
         train_step = make_fused_tnerf_step(mcfg, rcfg, group=group)
         print("Using the kernel T-NeRF train step (B4 render-loss)")
     else:
@@ -194,7 +206,7 @@ def _train_impl(argv=None) -> Union[str, Dict]:
         i = i + k - 1  # the chunk's last iteration
 
         if i % args.i_weights == 0:
-            save_tnerf_ckpt(args, state, i)
+            save_tnerf_ckpt(args, checkpoint_state(mesh, state), i)
         if i % args.i_print == 0:
             timer.collect()
             m = {k: float(v) for k, v in metrics.items()}
@@ -205,15 +217,17 @@ def _train_impl(argv=None) -> Union[str, Dict]:
             watchdog.check(i, m["psnr"])
         if i % args.i_video == 0 and i > 0:
             viddir = os.path.join(args.basedir, args.expname, f"frames_{args.expname}_spiral_{i:06d}_time")
-            rgbs, disps, _ = render_path(state.coarse, None, scene.render_poses, scene, rcfg, args.chunk,
-                                         savedir=viddir, eval_pass=eval_pass, times=scene.render_times, group=group)
+            rgbs, disps, _ = render_path(render_fields(mesh, state)[0], None, scene.render_poses, scene, rcfg,
+                                         args.chunk, savedir=viddir, eval_pass=eval_pass, times=scene.render_times,
+                                         group=render_group)
             base = os.path.join(args.basedir, args.expname, f"{args.expname}_spiral_{i:06d}_")
             write_video(base + "rgb.mp4", rgbs)
             write_video(base + "disp.mp4", disps / np.max(disps))
         if i % args.i_testset == 0 and i > 0 and len(scene.i_test):
             testsavedir = os.path.join(args.basedir, args.expname, f"testset_{i:06d}")
-            render_path(state.coarse, None, scene.poses[scene.i_test], scene, rcfg, args.chunk,
-                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test], group=group)
+            render_path(render_fields(mesh, state)[0], None, scene.poses[scene.i_test], scene, rcfg, args.chunk,
+                        savedir=testsavedir, eval_pass=eval_pass, times=scene.times[scene.i_test],
+                        group=render_group)
             print("Saved test set")
         i += 1
 
