@@ -19,8 +19,8 @@ encoding study.
 Phases (each raises on failure; nothing is caught):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the kernels from swnerf_torch/csrc (nvcc, sm_90a); the
-     tensor-core kernels' registers and spill bytes from build.log (a spill
-     fails);
+     tensor-core kernels' and the SIMT train-mode forwards' (mm_ring)
+     registers and spill bytes from build.log (a spill fails);
   3. B2 sample_pdf vs its twin at N=160,000, M=63, S=128: bit-exact
      (torch.equal); its time through the wrapper and queued behind a sleep
      (the device alone) per frame, per 32,768-ray chunk and per training
@@ -99,7 +99,10 @@ Phases (each raises on failure; nothing is caught):
      twins at the serving path's chunk shape (32,768 rays), and the times;
      B6's head share and B3's composite share there (as in phase 6); B5's
      S=192 launch (its reverse sweep and demb on the tensor cores) by kernel
-     family and against its sweep's products on cuBLAS (as phase 7);
+     family and against its sweep's products on cuBLAS (as phase 7); B5's
+     bf16 forward (rgb, acc, depth, weights) bit-equal to B3's ordered pts
+     launch at S=64 and 192, and its SIMT forward's ms against its SIMT
+     bound (the fp32 FMA rate at the max SM clock nvidia-smi reports);
  19. the kernel D-NeRF step against the eager step from the same state and
      draws (TV on): fp32 loss rel 1e-5 (or phase 17's fallback), gradients as
      in phase 17 (the float64 eager step on the CPU as the reference); bf16
@@ -132,7 +135,9 @@ Phases (each raises on failure; nothing is caught):
      bit-equal to a repeat; B7's bf16 backward (with demb) runs its sweep on
      the tensor cores; the last 500 rays of the test render's 2.1M-row
      chunk against the twins at the bf16 bars; then their times at each
-     level's rows, B6's and B7's backward at level 0 as in phase 17;
+     level's rows, B6's and B7's backward at level 0 as in phase 17; B7's
+     bf16 train-mode raw at level 0 bit-equal to trunk_ordered at 32,000
+     and 65,536 rows, its SIMT forward against its SIMT bound (phase 18);
  24. one phase-1 step (level 0) and one phase-2 step (all four levels) on
      the kernel route against the plain route, same weights and draws: fp32
      loss rel 1e-5, gradients at phase 17's bar; bf16 loss rel 2e-2;
@@ -150,7 +155,8 @@ Phases (each raises on failure; nothing is caught):
      bytes, the keys in order: two runs on one card print the same one), and
      the pyramid reconstruction's backward at phase 2's patch sizes bit-equal
      across two launches (F.interpolate's own, atomic backward: whether its
-     two launches differ, printed);
+     two launches differ, printed); B7's bf16 train-mode raw on 000200.tar's
+     level-0 field at 65,536 rows bit-equal to trunk_ordered;
  26. B7' (the ELU T-NeRF trunk on embedded inputs) against its twin with the
      800000.tar weights on one eager step's rows (500 seeded pixels of a
      train view x 64 jittered samples = 32,000 rows): fp32 raw within 1e-5
@@ -168,7 +174,8 @@ Phases (each raises on failure; nothing is caught):
      010000.tar's fine weights on 1024 rays x 192 jittered samples, the
      same bars (its bf16 forward-only launch, on the tensor cores, at the
      bf16 raw bar and bit-equal to a repeat), d pts and d viewdirs at the
-     fp32 bar; times at 32,000 rows; the forward-only launch at one mesh
+     fp32 bar; times at 32,000 rows (its SIMT train-mode forward against
+     its SIMT bound, as phase 18); the forward-only launch at one mesh
      tile (2,048 points x 100 views = 204,800 rows) within 1e-2 of the
      twin's largest raw, and its time;
  28. the fields' kernel routes through the CLIs: run_nerf resumed from
@@ -211,7 +218,8 @@ Phases (each raises on failure; nothing is caught):
      bf16 twin's own distance from itself summed on the CPU (printed); B9
      wide at level 0 and narrow at the identity level (phase 2's 16 x 64
      rows and 1,024 x 64) by kernel family and against its sweep's products
-     on cuBLAS (as phase 7);
+     on cuBLAS (as phase 7), B9 wide's SIMT forward against its SIMT bound
+     (as phase 18);
  32. the MultiRes test render of 000200.tar through render_testset on test
      frames 0/5/10/15/20: levels 0-2 through the D-NeRF eval pass, level 3
      through its fields, against SWNERF_FUSED_EVAL=0 (every level through
@@ -528,7 +536,9 @@ def tc_ptxas(libs) -> None:
     """Registers and spill bytes of the tensor-core kernels (the bf16 B6
     forward, B3's body, B1's and B4's train-mode forward on it, B7 / B8's
     forward-only launch, the weight-image packer, the reverse sweep's dW and
-    dH products) from each library's build.log; fails on a spill."""
+    dH products) and of the SIMT train-mode forwards on mm_ring
+    (trunk_fwd_kernel, render_loss_fwd_kernel) from each library's
+    build.log; fails on a spill."""
     import re
 
     for name in ("time_net", "render_pass", "render_loss", "trunk"):
@@ -538,11 +548,11 @@ def tc_ptxas(libs) -> None:
                 entry_name = line.split("'")[1] if "'" in line else line
                 continue
             tc_names = (r"time_net_tc_kernel|trunk_tc_kernel|tc13render_kernel|tc21render_loss_tc_kernel|"
-                        r"tc11pack_kernel|sweep_d[wh]_kernel")
+                        r"tc11pack_kernel|sweep_d[wh]_kernel|trunk_fwd_kernel|render_loss_fwd_kernel")
             if not entry_name or not re.search(tc_names, entry_name):
                 continue
             kernel = re.sub(r"^.*?(time_net_tc_kernel|trunk_tc_kernel|render_loss_tc_kernel|render_kernel|pack_kernel|"
-                            r"sweep_d[wh]_kernel)", r"\1", entry_name)[:60]
+                            r"sweep_d[wh]_kernel|trunk_fwd_kernel|render_loss_fwd_kernel)", r"\1", entry_name)[:60]
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
                 print(f"[2 tc ptxas {name}] {kernel}: {m.group(1)} / {m.group(2)} bytes spill stores / loads")
@@ -551,6 +561,8 @@ def tc_ptxas(libs) -> None:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 note = ("two warpgroups, every thread copies and both multiply" if kernel.startswith("sweep") else
+                        "setmaxnreg: mm_ring's producer warpgroup gives its registers to the consumers"
+                        if "fwd_kernel" in kernel else
                         "setmaxnreg: 72 for the producer warpgroup, 216 for the consumers"
                         if kernel.startswith("render_loss_tc") else
                         "setmaxnreg: 56 for the producer warpgroup, 224 for the consumers")
@@ -954,6 +966,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     tc_summary(kernels)
+    simt_summary()
     print(f"[chip_smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1023,6 +1036,65 @@ def kernel_split(fn, families=SWEEP_FAMILIES, names=None):
                 short = next((k for _, keys in families for k in keys if k in evt.key), evt.key[:40])
                 names.setdefault(fam, set()).add(short)
     return by if sum(by.values()) > 0 else None
+
+
+SIMT_FORWARDS: dict = {}  # the SIMT train-mode forwards' times against their SIMT bounds, summed up at the end
+
+
+def sm_clocks() -> tuple:
+    """(current, max) SM clock in MHz, as nvidia-smi reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    cur, top = (int(x) for x in out.split(","))
+    return cur, top
+
+
+def simt_forward(tag, name, fn, flops):
+    """The SIMT train-mode forward's own device ms in one ``fn()``
+    (trunk_fwd_kernel or render_loss_fwd_kernel: mm_ring, fp32 FMAs in
+    order; torch.profiler), against its SIMT bound: ``flops`` at the card's
+    fp32 FMA rate, SMs x 128 lanes x 2 x the max SM clock nvidia-smi
+    reports (66.9 TFLOP/s at 132 SMs and 1,980 MHz). The tensor cores
+    (989 TFLOP/s) cannot keep these forwards' fp32 order, so this is their
+    bound. Prints the SM clock read right after the window beside it."""
+    import torch
+
+    split = kernel_split(fn, (("forward", ("trunk_fwd_kernel", "render_loss_fwd_kernel")),))
+    cur, top = sm_clocks()
+    if not split or not split["forward"]:
+        fail(f"{name}: no SIMT train-mode forward in the profile")
+    ms = split["forward"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 128 * 2 * top * 1e6
+    bound = flops / rate * 1e3
+    SIMT_FORWARDS[name] = (ms, bound, cur, top)
+    print(f"[{tag} simt] {name}: forward {ms:.3f} ms, {100 * bound / ms:.1f}% of its SIMT bound {bound:.4f} ms "
+          f"({flops / 1e9:.2f} GFLOP at {rate / 1e12:.1f} TFLOP/s: {sms} SMs x 128 lanes x 2 x {top} MHz, the max SM "
+          f"clock); the SM clock after the window {cur} MHz")
+
+
+def ordered_check(tag, name, packed, emb, vemb):
+    """B7's bf16 train-mode raw bit-equal to trunk_ordered, the kernel's
+    order in torch ops (tests/test_torch_ordered_twin.py proves the two
+    agree where each FMA's product is exact)."""
+    import torch
+
+    from swnerf_torch.ops.kernels import trunk as b7
+
+    raw = b7._launch_fwd(packed, emb, vemb, b7._scratch(packed, emb.shape[0], emb.device))
+    ref = b7.trunk_ordered(packed, emb, vemb)
+    torch.cuda.synchronize()
+    same = torch.equal(raw, ref)
+    print(f"[{tag} ordered] {name}, {emb.shape[0]} rows: B7's bf16 train-mode raw bit-equal to trunk_ordered={same} "
+          f"(max|d| {(raw - ref).abs().max().item():.3e})")
+    if not same:
+        fail(f"{name}: B7's bf16 train-mode raw differs from trunk_ordered")
+
+
+def simt_summary() -> None:
+    for name, (ms, bound, cur, top) in SIMT_FORWARDS.items():
+        print(f"[simt] {name}: {ms:.3f} ms, {100 * bound / ms:.1f}% of its SIMT bound ({bound:.4f} ms at {top} MHz; "
+              f"{cur} MHz read after it)")
 
 
 def sweep_products(W, D, skip, cin_pad, cv_pad=None, demb=False):
@@ -2328,7 +2400,17 @@ def phase18_pts(dev, cfg, sd, inputs, data):
               f"grads and dpts max rel L2={max(rel.values()):.3e} ({max(rel, key=rel.get)}) repeat bit-equal={same}")
         if diff.max().item() > 1e-2 or diff.mean().item() > 1e-3 or max(rel.values()) > 1e-2 or not same:
             fail(f"B5 bf16 S={S}: rgb max > 1e-2, mean > 1e-3, gradient rel L2 > 1e-2 or repeats differ")
+        ordered = b3.render_pass(p16, None, None, ve, z, dist, noise, True, None, warped, ordered=True)
+        torch.cuda.synchronize()
+        fwd_same = all(torch.equal(getattr(got, k), getattr(ordered, k)) for k in ("rgb", "acc", "depth", "weights"))
+        print(f"[18 B5 bf16 S={S}] forward (rgb, acc, depth, weights) bit-equal to B3's ordered pts launch={fwd_same}")
+        if not fwd_same:
+            fail(f"B5 bf16 S={S}: its forward differs from B3's ordered pts launch")
+        del ordered
         if S == 192:  # the training main path's B5 launch: shared model, fine pass only
+            simt_forward("18", "B5 (render_loss[pts]) 500 x 192", lambda: b1.render_loss_pts(p16, warped, *args, True,
+                                                                                             scale),
+                         2 * p16.macs_per_sample * z.numel())
             nbytes = (4 * (3 * warped.numel() // 3 * 3 + ve.numel() + 3 * z.numel() + 3 * n)
                       + 2 * p16.weights.numel() + 4 * p16.biases.numel()
                       + 4 * (4 * n + z.numel() + warped.numel()) + 4 * (p16.weights.numel() + p16.biases.numel()))
@@ -2974,6 +3056,11 @@ def phase23_kernels(dev, data):
             sc = b7._scratch(c16, n_rows, dev)
             fwd = cuda_ms(lambda: b7._launch_fwd(c16, e, v, sc), 10)
             bwd = cuda_ms(lambda: b7._launch_bwd(c16, n_rows, gg, sc, True, False), 10)
+            if level == 0:  # phase 1's 32,000 rows and phase 2's 65,536
+                ordered_check("23", "level 0, seeded weights", c16, e, v)
+                if n_rows == P:
+                    simt_forward("23", f"B7 (trunk[multires]) train mode, level 0, {n_rows:,} rows",
+                                 lambda: b7._launch_fwd(c16, e, v, sc), 2 * c16.macs_per_row * n_rows)
             n_rays = n_rows // 64
             pp, tt, cc = pts_all[:n_rays], t_all[:n_rays], cot_all[:n_rows]
             sc6 = b6._scratch(p16, n_rows, dev)
@@ -3270,6 +3357,19 @@ def phase25_train(dev, tmp, data):
     scene = load_scene(args)
     args.dataset_type = "blender"
     _, states, pyr_hwf, rcfg, start = mr.create_multires(args, scene, dev)
+    # B7's bf16 train-mode raw on 000200.tar's level-0 canonical field at
+    # phase 2's 65,536 rows, against its ordered twin
+    from swnerf_torch.ops.embedding import positional_encoding
+    from swnerf_torch.ops.kernels import trunk as b7
+
+    occ, cfg0 = states[0].coarse._occ, states[0].coarse.cfg
+    g25 = torch.Generator(device=dev).manual_seed(25)
+    x25 = torch.rand((65536, 3), generator=g25, device=dev) * 2 - 1
+    v25 = torch.nn.functional.normalize(torch.randn((65536, 3), generator=g25, device=dev), dim=-1)
+    ordered_check("25", "000200.tar's level 0", b7.pack_trunk_params(occ.state_dict(), cfg0, torch.bfloat16),
+                  positional_encoding(x25, cfg0.nf_pts).contiguous(),
+                  positional_encoding(v25, cfg0.nf_views).contiguous())
+    del x25, v25
     idx = scene.i_test[list(MR_FRAMES)]
     psnr, recons, renders = {}, {}, {}
     for route in ("bf16 kernels", "fp32 plain"):
@@ -3595,6 +3695,9 @@ def trunk_rows(prefix, pk16, x, xv, graw, raw, err, source_line, bwd_line):
     n = x.shape[0]
     sc = b7._scratch(pk16, n, x.device, raw)
     fwd = cuda_ms(lambda: b7._launch_fwd(pk16, x, xv, sc, raw), 10)
+    if raw:  # B8's train mode runs trunk_fwd_kernel (B7''s at W=128, the tensor cores)
+        simt_forward(prefix, f"B8 ({prefix}) train mode, {n:,} rows", lambda: b7._launch_fwd(pk16, x, xv, sc, raw),
+                     2 * pk16.macs_per_row * n)
     bwd = cuda_ms(lambda: b7._launch_bwd(pk16, n, graw, sc, False, False, (x, xv) if raw else None), 10)
     plain, plain_bwd = (b7.field_raw_plain, b7.field_raw_plain_bwd) if raw else (b7.trunk_plain, b7.trunk_plain_bwd)
     nw, nb = pk16.weights.numel(), pk16.biases.numel()
@@ -4390,6 +4493,9 @@ def phase31_b3w_b9(dev, data, states):
         ms = cuda_ms(lambda: b1.render_loss_ext(*args), 20)
         plain = cuda_ms(lambda: b1.render_loss_ext_plain(*args), 5)
         rows_n = n_rays * 64
+        if key == "render_loss[ext,wide]":
+            simt_forward("31", f"B9 wide (render_loss[ext,wide]) level 0, {n_rays:,} x 64",
+                         lambda: b1.render_loss_ext(*args), 2 * pk.macs_per_sample * rows_n)
         macs = b1.pts_train_macs_per_sample(pk)
         nbytes = (4 * (3 * rows_n + args[2].numel() + 3 * rows_n + 5 * n_rays) + 2 * pk.weights.numel()
                   + 4 * pk.biases.numel() + 4 * (5 * n_rays + rows_n + 3 * rows_n)

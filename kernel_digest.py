@@ -19,11 +19,13 @@ one card:
 
     python3 kernel_digest.py --root <checkout> [--reps N]
 
-Prints one JSON line: the card, and per kernel and operand type the sha256
-of its outputs (a train-mode entry: ``fwd``, of its forward outputs, and
-``grads``, of its gradients and input cotangents) and its mean milliseconds
-per launch (CUDA events, after a warm-up; B6's entries also ``ms_bwd``, the
-backward launch alone; B2's and B10's also ``alone_ms``, queued behind a
+Prints one JSON line: the card, its SM clock after the run, and per
+kernel and operand type the sha256 of its outputs (a train-mode entry:
+``fwd``, of its forward outputs, and ``grads``, of its gradients and input
+cotangents) and its mean milliseconds per launch (CUDA events, after a
+warm-up; the train-mode entries of B5, B7, B8 and B9 also ``fwd_ms``, their
+SIMT forward's device ms alone from torch.profiler; B6's entries also
+``ms_bwd``, the backward launch alone; B2's and B10's also ``alone_ms``, queued behind a
 sleep, and at a training step's 1,024 rays the wrapper's host microseconds
 a call, ``step_host_us``, and B2's ``step_alone_ms``; the forward-only
 entries of B6, B7, B7' and B8 also ``host_us``, the wrapper's host
@@ -111,9 +113,33 @@ def main() -> int:
         times = torch.rand((n,), generator=g, device=dev)
         return o, d, vd, z, dist, noise, target, times
 
-    def train(res, grads, ms, **extra):
-        """A train-mode entry: the forward outputs' and the gradients' digests apart."""
-        return {"fwd": digest(res), "grads": digest(grads), "ms": ms, **extra}
+    def train(res, grads, ms, fn=None, **extra):
+        """A train-mode entry: the forward outputs' and the gradients' digests
+        apart; with fn (the timed call), also ``fwd_ms``, the SIMT train-mode
+        forward's own device ms a call."""
+        out = {"fwd": digest(res), "grads": digest(grads), "ms": ms, **extra}
+        if fn is not None:
+            out["fwd_ms"] = fwd_ms(fn)
+        return out
+
+    def fwd_ms(fn, reps=5):
+        """Device ms a call of the SIMT train-mode forwards (trunk_fwd_kernel,
+        render_loss_fwd_kernel) inside fn, from torch.profiler's CUDA
+        activity over ``reps`` calls (after 32 short spins, which keep the
+        window's first records), or None where fn runs neither."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                torch.cuda._sleep(100_000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum((getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages() if "trunk_fwd_kernel" in e.key or "render_loss_fwd_kernel" in e.key)
+        return us / 1e3 / reps if us else None
 
     def digest(out):
         h = hashlib.sha256()
@@ -251,7 +277,8 @@ def main() -> int:
         args = (pc, pts, ve, z, dist, noise, target, True, 1.0 / 1500)
         res, grads, dpts = b1.render_loss_pts(*args)
         out[f"render_loss[pts,S=192] {tag}"] = train(list(res), list(grads) + [dpts],
-                                                     timed(lambda: b1.render_loss_pts(*args)))
+                                                     timed(lambda: b1.render_loss_pts(*args)),
+                                                     lambda: b1.render_loss_pts(*args))
         pair, t2 = torch.cat([pts, pts]).contiguous(), torch.cat([t, torch.full_like(t, 0.41)]).contiguous()
         cot = torch.randn(pair.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
         out[f"time_net+bwd {tag}"] = b6_train(pt6, pair, t2, cot)
@@ -279,7 +306,8 @@ def main() -> int:
             gr7 = torch.randn((rows, 4), generator=g7, device=dev)
             res7 = b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False)
             out[f"{name}+bwd {tag}"] = train([res7[0]], [*res7[1], res7[2]],
-                                             timed(lambda: b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False)))
+                                             timed(lambda: b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False)),
+                                             lambda: b7.trunk_fwd_bwd(p7, emb, vemb, gr7, True, False))
             if name == "trunk[multires]":  # forward only at the wide pads
                 out[f"trunk[multires] {tag}"] = {"sha256": digest([b7.trunk(p7, emb, vemb)]),
                                                  "ms": timed(lambda: b7.trunk(p7, emb, vemb))}
@@ -309,7 +337,8 @@ def main() -> int:
             vd = torch.nn.functional.normalize(torch.randn((32000, 3), generator=g7, device=dev), dim=-1)
             res8 = b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)
             out[f"trunk[raw]+bwd {tag}"] = train([res8[0]], [*res8[1], res8[2], res8[3]],
-                                                 timed(lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)))
+                                                 timed(lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True)),
+                                                 lambda: b7.field_raw_fwd_bwd(p8, pts, vd, gr7, True, True))
             # B8 forward only at a mesh tile: 2,048 points x 100 directions
             g8 = torch.Generator(device=dev).manual_seed(13)
             tile = (torch.rand((2048, 3), generator=g8, device=dev) * 4 - 2)[None].expand(100, 2048, 3)
@@ -331,7 +360,8 @@ def main() -> int:
                 args9 = (p9, pts, ve, z, dist, noise, gct, True)
                 res9, g9, dp9 = b1.render_loss_ext(*args9)
                 out[f"render_loss[ext,{name},S=64] {tag}"] = train(list(res9), list(g9) + [dp9],
-                                                                   timed(lambda: b1.render_loss_ext(*args9)))
+                                                                   timed(lambda: b1.render_loss_ext(*args9)),
+                                                                   lambda: b1.render_loss_ext(*args9))
                 if name == "wide":
                     o, d, vd, z, dist, noise, target, t = rays(32768, 64, 40)
                     pts = (o[:, None, :] + d[:, None, :] * z[..., None]).contiguous()
@@ -362,7 +392,9 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"root": a.root, "card": smi, "kernels": out}))
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"root": a.root, "card": smi, "clock": clock, "kernels": out}))
     return 0
 
 

@@ -35,14 +35,14 @@ constexpr int GEMM_BLOCKS = 1056;  // dW split target: 8 blocks per SM
 // Rows 0..nvalid-1 of a k-major shared chunk (columns 0..ncopy-1) into
 // global rows p0.. of a row-major [.][ld] buffer; with ones, column ncopy
 // of each row is set to 1; the columns after those, up to width, are set
-// to 0 (a pad that a tensor-core product reads whole).
-template <typename T>
-__device__ __forceinline__ void spill(const T* __restrict__ s, int ncopy, T* __restrict__ g, int ld,
+// to 0 (a pad that a tensor-core product reads whole). Tile: the chunk's
+// layout (mlp_common.cuh: TileT for mm_acc's bodies, TileF for mm_ring's).
+template <typename T, typename Tile = TileT<T>>
+__device__ __forceinline__ void spill(const typename Tile::S* __restrict__ s, int ncopy, T* __restrict__ g, int ld,
                                       long long p0, int nvalid, bool ones, int width = 0) {
-  constexpr int LDA = Op<T>::LDA;
   for (int idx = threadIdx.x; idx < CH * ncopy; idx += NT) {
     const int r = idx / ncopy, k = idx - r * ncopy;
-    if (r < nvalid) g[(p0 + r) * ld + k] = s[k * LDA + r];
+    if (r < nvalid) g[(p0 + r) * ld + k] = Tile::get(s, k, r);
   }
   if (ones)
     for (int r = threadIdx.x; r < nvalid; r += NT) g[(p0 + r) * ld + ncopy] = Op<T>::q(1.f);

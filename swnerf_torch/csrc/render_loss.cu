@@ -31,8 +31,8 @@
 // sum_c g_c on a white background. It serves MultiRes' fused phase 2, whose
 // pyramid reconstruction couples the levels, at the narrow widths (the
 // identity level) and at the wide ones (VanillaWide: 128 / 128 padded rows,
-// levels 0-2); there the fp32 tiles at W=256 leave S <= 204 within the
-// 232,448 bytes of shared memory a block may opt into.
+// levels 0-2); there the ring block's fp32 tiles at W=256 leave S <= 225
+// within the 232,448 bytes of shared memory a block may opt into.
 //
 // Bound on the card: operations. At D=8, W=256 the forward is 593,408
 // multiply-adds per sample and the backward's dX and dW products about twice
@@ -54,9 +54,17 @@
 //     equal the bf16 render_pass launch bit for bit), each tile copied to
 //     the scratch while the next product reads it, the composite, loss and
 //     reverse on the producer warpgroup's three spare warps beside the next
-//     unit's products. Otherwise render_loss_fwd_kernel: B3's SIMT forward
-//     (mlp_common.cuh: whole rays per 256-thread block, 64-row chunks,
-//     weights streamed from L2).
+//     unit's products. Otherwise render_loss_fwd_kernel: a persistent grid
+//     over units of whole rays, 64-row chunks of their samples on
+//     mlp_common.cuh's mm_ring (two consumer warpgroups; one producer thread
+//     streams an fp32 image of the weights, widened once a launch in bf16,
+//     into a 3-stage mbarrier ring with cp.async.bulk, across layers, chunks
+//     and units), each layer's spill written from the epilogue's registers;
+//     a compositor warp composites and sweeps unit i's rays, a lane a ray,
+//     while the consumers run unit i + 1. Bound: the fp32 FMA rate (66.9
+//     TFLOP/s at 1.98 GHz: 1.703 ms for B5's 500 x 192, 1.247 ms for B9
+//     wide's 1,024 x 64), because this forward keeps the fp32 FMA order
+//     (below). Its outputs equal B3's ordered SIMT launch bit for bit.
 //  2. gemm_common.cuh::field_reverse (shared with B7, trunk.cu), from the
 //     raw cotangent: head_bwd_kernel, d hv through the rgb head and the view
 //     layer's activation;
@@ -86,14 +94,17 @@
 // and ELU' of the whole sweep. B1's and B4's train-mode forwards moved:
 // with the forward, composite and sweep on that rounding model their
 // gradients stay within 5e-3 of the twin's (tests/test_torch_tc_backward.py;
-// on the card within 1e-2). These stay SIMT, fp32 FMAs in order: B9's
-// recomputed forward, which must equal the training path's B3 launch (the
-// ordered pts launch, render_pass.cu) bit for bit and whose gradients left
-// the twin's bar at MultiRes level 0 on the tensor cores; B5's, whose
+// on the card within 1e-2). These keep fp32 FMAs in order, one accumulator
+// an output from +0 over k ascending (mm_ring, in mm_acc's order: the same
+// outputs bit for bit, and so the same gradients): B9's recomputed forward,
+// which must equal the training path's B3 launch (the ordered pts launch,
+// render_pass.cu, still on mm_acc) bit for bit and whose gradients left the
+// twin's bar at MultiRes level 0 on the tensor cores; B5's, whose
 // gradients with the forward on the model land 1.04e-2 from the twin
-// (tc_rounding.py --backward b5); the T-NeRF at W=256 (no configuration
-// trains one), whose card test case moves two colour-ReLU masks under the
-// rounding and lands 3.5e-2 from the twin, as the model predicts; and fp32.
+// (tc_rounding.py --backward b5), and which equals the same launch; the
+// T-NeRF at W=256 (no configuration trains one), whose card test case moves
+// two colour-ReLU masks under the rounding and lands 3.5e-2 from the twin,
+// as the model predicts; and fp32.
 // No --use_fast_math
 // (ops/kernels/build.py):
 // sinf/cosf stay accurate at the 2^9-frequency arguments, and the
@@ -142,178 +153,225 @@ struct Scratch {
   float* graw;  // [P][4]
 };
 
+// The rays of unit u: rays_per_block, but the last unit's rest.
+__device__ __forceinline__ int unit_rays(int u, int rays_per_block, int N) {
+  return min(rays_per_block, N - u * rays_per_block);
+}
+
+// A persistent grid over units of rays_per_block whole rays (one ray at S >=
+// 64), in blocks of NTR threads. In the producer warpgroup, warp 8 streams
+// the weight image img through the ring once per 64-row chunk of every
+// unit, and warp 9 composites and sweeps unit i's rays, a lane a ray, while
+// the two consumer warpgroups run the field on unit i + 1's chunks (wts,
+// the operand buffer, feeds the heads) and leave each unit's raw lanes in
+// one of two buffers. Two mbarriers a buffer hand it over: full (every
+// consumer thread arrives after its raw writes) and empty (every
+// compositor lane after its reads).
 template <typename T, int W, typename A, bool PTS = false, bool EXT = false>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NTR, 1)
 render_loss_fwd_kernel(const float* __restrict__ origins, const float* __restrict__ dirs,
                        const float* __restrict__ times, const float* __restrict__ vemb, int cv,
                        const float* __restrict__ z,
                        const float* __restrict__ dist, const float* __restrict__ noise,
                        const float* __restrict__ target, const float* __restrict__ gct, const T* __restrict__ wts,
-                       const float* __restrict__ bias, int D, int skip, int L, int white, float loss_scale,
-                       int N, int S, int rays_per_block, float* __restrict__ rgb_out,
+                       const float* __restrict__ img, const float* __restrict__ bias, int D, int skip, int L,
+                       int white, float loss_scale, int N, int S, int rays_per_block, float* __restrict__ rgb_out,
                        float* __restrict__ acc_out, float* __restrict__ depth_out,
                        float* __restrict__ sqerr_out, float* __restrict__ w_out, Scratch<T> sc) {
-  constexpr int LDA = Op<T>::LDA;
-  constexpr int WH = W / 2;
+  using TL = TileF<T>;
   constexpr int LDW = W + PADC;
+  constexpr int WH = W / 2;
   constexpr int LDH = WH + PADC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const long long ray0 = (long long)blockIdx.x * rays_per_block;
-  const int nr = (int)min((long long)rays_per_block, (long long)N - ray0);
-  const int rows = nr * S;
-  const long long p0 = ray0 * S;
+  const int lanes = rays_per_block * S;  // samples a unit
+  const int units = (N + rays_per_block - 1) / rays_per_block;
   const int cin = A::cin(L);
 
-  float* raw_s = reinterpret_cast<float*>(smem_raw);  // [rays_per_block * S][4]
-  float* lt_s = raw_s + rays_per_block * S * 4;        // [rays_per_block * S], padded to 4 (render_smem)
-  float* red = lt_s + pad4(rays_per_block * S);        // [4][CH][3]
-  T* actA = reinterpret_cast<T*>(red + NRED);          // [W][LDA]
-  T* actB = actA + W * LDA;                            // [W][LDA]
-  T* emb = actB + W * LDA;                             // [A::CIN][LDA]
-  T* vemb_s = emb + A::CIN * LDA;                      // [A::CV][LDA]
-  T* Ws = vemb_s + A::CV * LDA;                        // [KT][W]
+  float* raw_s = reinterpret_cast<float*>(smem_raw);  // [2][lanes][4]: a unit's raw, two buffers
+  float* lt_s = raw_s + 2 * lanes * 4;                 // [lanes], padded to 4 (ring_render_smem)
+  float* red = lt_s + pad4(lanes);                     // [4][CH][3]
+  float* tiles = red + NRED;                           // [RSTAGES][RT * W]: the ring
+  float* actA = tiles + RSTAGES * RT * W;              // [W][CH]
+  float* actB = actA + W * CH;                         // [W][CH]
+  float* emb = actB + W * CH;                          // [A::CIN][CH]
+  float* vemb_s = emb + A::CIN * CH;                   // [A::CV][CH]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vemb_s + A::CV * CH);  // the ring's, then raw full[2], empty[2]
+  uint64_t* raw_full = bars + 2 * RSTAGES;
+  uint64_t* raw_empty = raw_full + 2;
+  if (threadIdx.x == 0)
+    for (int b = 0; b < 2; ++b) {
+      tc::mbar_init(&raw_full[b], NT);
+      tc::mbar_init(&raw_empty[b], 32);
+    }
+  tc::init_ring(bars, RSTAGES);  // fences the inits above too
+  WRing ring{tiles, bars, bars + RSTAGES, RT * W, 0, 0};
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (warp >= NT / 32) {  // the producer warpgroup
+    tc::set_regs<tc::TRAIN_PRODUCER_REGS>();  // 72: room for the compositor warp's composite and reverse
+    if (warp == NT / 32) {  // the producer: one pass over the weights per chunk
+      if (lane == 0) {
+        int passes = 0;
+        for (int u = blockIdx.x; u < units; u += gridDim.x)
+          passes += (unit_rays(u, rays_per_block, N) * S + CH - 1) / CH;
+        produce_field<W>(img, D, skip, A::CIN, A::CV, passes, ring);
+      }
+      return;
+    }
+    if (warp > NT / 32 + 1) return;  // idle
+    // the compositor
+    int i = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+      const int b = i & 1;
+      tc::mbar_wait(&raw_full[b], (i >> 1) & 1);
+      const float* raw_u = raw_s + b * lanes * 4;
+      const int nr = unit_rays(u, rays_per_block, N);
+      // One lane per ray: composite in order (raw2outputs), the loss, then a
+      // reverse sweep for the raw cotangent (render_fused.py:442-473).
+      for (int t = lane; t < nr; t += 32) {
+        const long long ray = (long long)u * rays_per_block + t;
+        const float* zr = z + ray * S;
+        const float* dr = dist + ray * S;
+        const float* nz = noise ? noise + ray * S : nullptr;
+        float* wr = w_out + ray * S;
+        float* lt = lt_s + t * S;
+        float log_t = 0.f, acc = 0.f, dep = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+        for (int s = 0; s < S; ++s) {
+          const float* rw = raw_u + (t * S + s) * 4;
+          const float sigma = nz ? rw[3] + nz[s] : rw[3];
+          const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dr[s]);
+          const float safe = fmaxf(1.f - alpha + 1e-10f, 1e-10f);
+          const float w = alpha * expf(log_t);
+          lt[s] = log_t;
+          log_t += logf(safe);
+          wr[s] = w;
+          acc += w;
+          dep += w * zr[s];
+          c0 += w * rgb_of<A>(rw[0]);
+          c1 += w * rgb_of<A>(rw[1]);
+          c2 += w * rgb_of<A>(rw[2]);
+        }
+        if (white) {
+          c0 += 1.f - acc;
+          c1 += 1.f - acc;
+          c2 += 1.f - acc;
+        }
+        rgb_out[ray * 3 + 0] = c0;
+        rgb_out[ray * 3 + 1] = c1;
+        rgb_out[ray * 3 + 2] = c2;
+        acc_out[ray] = acc;
+        depth_out[ray] = dep;
+        ray_reverse<A, EXT>(raw_u + t * S * 4, lt, S, zr, dr, nz, white, c0, c1, c2, ray, target, gct, loss_scale,
+                            sqerr_out, [&](int s, const float (&d)[3], float dsig) {
+                              const long long pp = ray * S + s;
+#pragma unroll
+                              for (int c = 0; c < 3; ++c) {
+                                sc.graw[pp * 4 + c] = d[c];
+                                sc.gq[pp * 4 + c] = Op<T>::q(d[c]);
+                              }
+                              sc.graw[pp * 4 + 3] = dsig;
+                              sc.gq[pp * 4 + 3] = Op<T>::q(dsig);
+                              sc.dfa[pp * LDW + W] = Op<T>::q(dsig);
+                            });
+      }
+      __syncwarp();
+      tc::mbar_arrive(&raw_empty[b]);
+    }
+    return;
+  }
+  tc::set_regs<tc::TRAIN_CONSUMER_REGS>();
 
   const float* b_views = bias + (D + 1) * W;
   const float* b_rgb = b_views + WH;
   const float b_alpha = b_rgb[3];
   const int r = threadIdx.x & (CH - 1);
   const int p = threadIdx.x / CH;
-
-  for (int row0 = 0; row0 < rows; row0 += CH) {
-    const int nvalid = min(CH, rows - row0);
-    const long long pr = p0 + row0;
-    encode_chunk<T, A, PTS>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
-    __syncthreads();
-    spill<T>(emb, cin, sc.emb, A::CIN, pr, nvalid, true);
-    spill<T>(vemb_s, cv, sc.vemb, A::CV, pr, nvalid, false);
-    const T* wp = wts;
-    const float* bp = bias;
-    T* h = actA;
-    T* g = actB;
-    {
-      float acc[8][W / 32];
-      zero(acc);
-      mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
-      wp += A::CIN * W;
-      store_act<T, W, A::ACT>(acc, bp, h);
-      bp += W;
-      __syncthreads();
-      spill<T>(h, W, sc.h, LDW, pr, nvalid, true);
-    }
-    for (int i = 1; i < D; ++i) {
-      float acc[8][W / 32];
-      zero(acc);
-      if (i == skip + 1) {  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
-        mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
-        wp += A::CIN * W;
+  int i = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int b = i & 1;
+    const long long ray0 = (long long)u * rays_per_block;
+    const int rows = unit_rays(u, rays_per_block, N) * S;
+    const long long p0 = ray0 * S;
+    float* raw_u = raw_s + b * lanes * 4;
+    tc::mbar_wait(&raw_empty[b], ((i >> 1) & 1) ^ 1);  // the compositor is done with unit i - 2
+    for (int row0 = 0; row0 < rows; row0 += CH) {
+      const int nvalid = min(CH, rows - row0);
+      const long long pr = p0 + row0;
+      encode_chunk<T, A, PTS, true, TL>(emb, vemb_s, row0, rows, ray0, S, L, cv, origins, dirs, times, z, vemb);
+      consumer_sync();
+      spill<T, TL>(emb, cin, sc.emb, A::CIN, pr, nvalid, true);
+      spill<T, TL>(vemb_s, cv, sc.vemb, A::CV, pr, nvalid, false);
+      // Each warp's products read only the rows its own epilogues wrote: a
+      // warp barrier between layers, a consumer barrier where the heads
+      // read every row.
+      const float* bp = bias;
+      float* h = actA;
+      float* g = actB;
+      {
+        float acc[8][W / 32];
+        zero(acc);
+        mm_ring<W>(acc, emb, A::CIN, ring);
+        store_ring<T, W, A::ACT>(acc, bp, h, sc.h, LDW, pr, nvalid, true);
+        bp += W;
+        __syncwarp();
       }
-      mm_acc<T, W>(acc, h, W, wp, Ws);
-      wp += W * W;
-      store_act<T, W, A::ACT>(acc, bp, g);
-      bp += W;
-      T* t = h;
-      h = g;
-      g = t;
-      __syncthreads();
-      spill<T>(h, W, sc.h + i * sc.hstride, LDW, pr, nvalid, true);
-    }
-    {  // feature head (no activation) -> g
-      float acc[8][W / 32];
-      zero(acc);
-      mm_acc<T, W>(acc, h, W, wp, Ws);
-      wp += W * W;
-      store_act<T, W, Act::None>(acc, bp, g);
-      __syncthreads();
-      spill<T>(g, W, sc.feat, LDW, pr, nvalid, false);
-    }
-    {  // alpha head: one dot of length W per row, 4 threads per row
-      float s = 0.f;
-      for (int k = p; k < W; k += 4) s = fmaf(Op<T>::f(h[k * LDA + r]), Op<T>::f(wp[k]), s);
-      red[p * CH + r] = s;
-      __syncthreads();
-      if (p == 0 && row0 + r < rows)
-        raw_s[(row0 + r) * 4 + 3] = ((red[r] + red[CH + r]) + red[2 * CH + r]) + red[3 * CH + r] + b_alpha;
-      wp += W;
-    }
-    {  // view layer on cat([feature, view embedding]) -> h
-      float acc[8][WH / 32];
-      zero(acc);
-      mm_acc<T, WH>(acc, g, W, wp, Ws);
-      wp += W * WH;
-      mm_acc<T, WH>(acc, vemb_s, A::CV, wp, Ws);
-      wp += A::CV * WH;
-      store_act<T, WH, A::ACT>(acc, b_views, h);
-    }
-    __syncthreads();
-    spill<T>(h, WH, sc.hv, LDH, pr, nvalid, false);
-    {  // rgb head: three dots of length W/2 per row
-      float s[3] = {0.f, 0.f, 0.f};
-      for (int k = p; k < WH; k += 4) {
-        const float hv = Op<T>::f(h[k * LDA + r]);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) s[c] = fmaf(hv, Op<T>::f(wp[k * 3 + c]), s[c]);
+      for (int l = 1; l < D; ++l) {
+        float acc[8][W / 32];
+        zero(acc);
+        if (l == skip + 1) mm_ring<W>(acc, emb, A::CIN, ring);  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
+        mm_ring<W>(acc, h, W, ring);
+        store_ring<T, W, A::ACT>(acc, bp, g, sc.h + l * sc.hstride, LDW, pr, nvalid, true);
+        bp += W;
+        float* t = h;
+        h = g;
+        g = t;
+        __syncwarp();
       }
+      {  // feature head (no activation) -> g
+        float acc[8][W / 32];
+        zero(acc);
+        mm_ring<W>(acc, h, W, ring);
+        store_ring<T, W, Act::None>(acc, bp, g, sc.feat, LDW, pr, nvalid, false);
+      }
+      consumer_sync();
+      {  // alpha head: one dot of length W per row, 4 threads per row
+        const T* wa = wts + 2LL * A::CIN * W + (long long)D * W * W;
+        float s = 0.f;
+        for (int k = p; k < W; k += 4) s = fmaf(h[TL::at(k, r)], Op<T>::f(wa[k]), s);
+        red[p * CH + r] = s;
+        consumer_sync();
+        if (p == 0 && row0 + r < rows)
+          raw_u[(row0 + r) * 4 + 3] = ((red[r] + red[CH + r]) + red[2 * CH + r]) + red[3 * CH + r] + b_alpha;
+      }
+      {  // view layer on cat([feature, view embedding]) -> h
+        float acc[8][WH / 32];
+        zero(acc);
+        mm_ring<WH>(acc, g, W, ring);
+        mm_ring<WH>(acc, vemb_s, A::CV, ring);
+        store_ring<T, WH, A::ACT>(acc, b_views, h, sc.hv, LDH, pr, nvalid, false);
+      }
+      consumer_sync();
+      {  // rgb head: three dots of length W/2 per row
+        const T* wr = wts + ring_weight_floats(W, D, A::CIN, A::CV);
+        float s[3] = {0.f, 0.f, 0.f};
+        for (int k = p; k < WH; k += 4) {
+          const float hv = h[TL::at(k, r)];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) red[(p * CH + r) * 3 + c] = s[c];
-      __syncthreads();
-      if (p == 0 && row0 + r < rows) {
+          for (int c = 0; c < 3; ++c) s[c] = fmaf(hv, Op<T>::f(wr[k * 3 + c]), s[c]);
+        }
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          raw_s[(row0 + r) * 4 + c] = ((red[r * 3 + c] + red[(CH + r) * 3 + c]) + red[(2 * CH + r) * 3 + c]) +
-                                      red[(3 * CH + r) * 3 + c] + b_rgb[c];
+        for (int c = 0; c < 3; ++c) red[(p * CH + r) * 3 + c] = s[c];
+        consumer_sync();
+        if (p == 0 && row0 + r < rows) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            raw_u[(row0 + r) * 4 + c] = ((red[r * 3 + c] + red[(CH + r) * 3 + c]) + red[(2 * CH + r) * 3 + c]) +
+                                        red[(3 * CH + r) * 3 + c] + b_rgb[c];
+        }
       }
     }
-  }
-  __syncthreads();
-
-  // One thread per ray: composite in order (raw2outputs), the loss, then a
-  // reverse sweep for the raw cotangent (render_fused.py:442-473).
-  if ((int)threadIdx.x < nr) {
-    const int t = threadIdx.x;
-    const long long ray = ray0 + t;
-    const float* zr = z + ray * S;
-    const float* dr = dist + ray * S;
-    const float* nz = noise ? noise + ray * S : nullptr;
-    float* wr = w_out + ray * S;
-    float* lt = lt_s + t * S;
-    float log_t = 0.f, acc = 0.f, dep = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float* rw = raw_s + (t * S + s) * 4;
-      const float sigma = nz ? rw[3] + nz[s] : rw[3];
-      const float alpha = 1.f - expf(-fmaxf(sigma, 0.f) * dr[s]);
-      const float safe = fmaxf(1.f - alpha + 1e-10f, 1e-10f);
-      const float w = alpha * expf(log_t);
-      lt[s] = log_t;
-      log_t += logf(safe);
-      wr[s] = w;
-      acc += w;
-      dep += w * zr[s];
-      c0 += w * rgb_of<A>(rw[0]);
-      c1 += w * rgb_of<A>(rw[1]);
-      c2 += w * rgb_of<A>(rw[2]);
-    }
-    if (white) {
-      c0 += 1.f - acc;
-      c1 += 1.f - acc;
-      c2 += 1.f - acc;
-    }
-    rgb_out[ray * 3 + 0] = c0;
-    rgb_out[ray * 3 + 1] = c1;
-    rgb_out[ray * 3 + 2] = c2;
-    acc_out[ray] = acc;
-    depth_out[ray] = dep;
-    ray_reverse<A, EXT>(raw_s + t * S * 4, lt, S, zr, dr, nz, white, c0, c1, c2, ray, target, gct, loss_scale,
-                        sqerr_out, [&](int s, const float (&d)[3], float dsig) {
-                          const long long pp = ray * S + s;
-#pragma unroll
-                          for (int c = 0; c < 3; ++c) {
-                            sc.graw[pp * 4 + c] = d[c];
-                            sc.gq[pp * 4 + c] = Op<T>::q(d[c]);
-                          }
-                          sc.graw[pp * 4 + 3] = dsig;
-                          sc.gq[pp * 4 + 3] = Op<T>::q(dsig);
-                          sc.dfa[pp * LDW + W] = Op<T>::q(dsig);
-                        });
+    tc::mbar_arrive(&raw_full[b]);  // this thread's raw writes, released to the compositor
   }
 }
 
@@ -336,6 +394,8 @@ size_t scratch_bytes(int W, int D, long long P) {
   if (PTS) b += align256(sizeof(float) * P * A::CIN);  // demb (B5, B9)
   if (W == 256 ? tc_forward<T, 256, A, PTS, PTS>() : tc_forward<T, 128, A, PTS, PTS>())  // EXT implies PTS
     b += align256(image_bytes<A>(W, D));
+  else if (sizeof(T) == 2)  // the ring's fp32 weight image
+    b += align256(sizeof(float) * ring_weight_floats(W, D, A::CIN, A::CV));
   return b;
 }
 
@@ -388,15 +448,23 @@ int launch(const float* origins, const float* dirs, const float* times, const fl
                                                      L, white, N, S, rgb, acc, depth, w_out, img, img_bytes, st, &tp)));
   } else {
     const int rays_per_block = std::max(1, CH / S);
-    // The wide family in fp32 at W=256 leaves S <= 204 (render_loss_max_samples).
-    const size_t smem = render_smem<T, W, A, 5>(S);
+    // The wide family at W=256 leaves S <= 225 (render_loss_max_samples).
+    const size_t smem = ring_render_smem<W, A>(S);
     if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
+    const float* img = static_cast<const float*>(wts_v);  // fp32: the operands themselves
+    if constexpr (sizeof(T) == 2) {  // the ring copies fp32: widen the operands once, after the scratch
+      const long long n = ring_weight_floats(W, D, CIN, A::CV);
+      float* wimg = cv_.take<float>(n);
+      widen_kernel<<<ceil_div(n, 256), 256, 0, st>>>(wts, n, wimg);
+      SWNERF_CHECK(cudaGetLastError());
+      img = wimg;
+    }
     auto kern = render_loss_fwd_kernel<T, W, A, PTS, EXT>;
     SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-    const long long blocks = ((long long)N + rays_per_block - 1) / rays_per_block;
-    kern<<<(unsigned)blocks, NT, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, gct, wts, bias,
-                                              D, skip, L, white, loss_scale, N, S, rays_per_block, rgb, acc, depth,
-                                              sqerr, w_out, sc);
+    const int units = (N + rays_per_block - 1) / rays_per_block;
+    kern<<<tc::grid_for(units), NTR, smem, st>>>(origins, dirs, times, vemb, cv, z, dist, noise, target, gct, wts, img,
+                                               bias, D, skip, L, white, loss_scale, N, S, rays_per_block, rgb, acc,
+                                               depth, sqerr, w_out, sc);
     SWNERF_CHECK(cudaGetLastError());
   }
 
@@ -425,11 +493,11 @@ const char* swnerf_error_string(int code) {
 }
 
 // The most samples per ray render_loss_launch (tnerf) and
-// render_loss_ext_launch (wide) take: the train-mode block's shared memory,
-// in bf16 at the narrow pads the lesser of the SIMT body's (B9 narrow) and
-// the tensor-core body's (B1, B4 at W=128).
+// render_loss_ext_launch (wide) take: the train-mode block's shared memory
+// (the ring block's, the same in fp32 and bf16), in bf16 at the narrow pads
+// the lesser of it (B9 narrow) and the tensor-core body's (B1, B4 at W=128).
 int render_loss_max_samples(int tnerf, int bf16, int wide, int W) {
-  const int simt = render_max_samples<5>(tnerf, bf16, wide, W);
+  const int simt = ring_max_samples(tnerf, wide, W);
   const bool tc = bf16 && !wide && (!tnerf || W == 128);
   return tc && simt > 0 ? std::min(simt, tc::max_samples(tnerf, 0, W)) : simt;
 }

@@ -189,7 +189,7 @@ int launch_simt(const float* origins, const float* dirs, const float* times, con
   const int rays_per_block = std::max(1, CH / S);
   // The wide family in fp32 at W=256 takes 225,280 bytes of tiles, which
   // leaves S <= 256 (render_pass_max_samples; the wrapper refuses more first).
-  const size_t smem = render_smem<T, W, A, 4>(S);
+  const size_t smem = render_smem<T, W, A>(S);
   if (smem > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
   auto kern = render_pass_kernel<T, W, A, PTS>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -226,7 +226,7 @@ const char* swnerf_error_string(int code) {
 // The most samples per ray render_pass_launch (tnerf) and
 // render_pass_pts_launch (wide) take: the block's shared memory.
 int render_pass_max_samples(int tnerf, int bf16, int wide, int W) {
-  const int simt = render_max_samples<4>(tnerf, bf16, wide, W);  // fp32, bf16 ordered
+  const int simt = render_max_samples(tnerf, bf16, wide, W);  // fp32, bf16 ordered
   return bf16 && simt > 0 ? std::min(simt, tc::max_samples(tnerf, wide, W)) : simt;
 }
 

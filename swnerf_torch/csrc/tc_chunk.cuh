@@ -7,8 +7,9 @@
 // accumulators, an asynchronous ring of weight slabs, and 128 sample rows
 // per pass over the weights. The fp32 instantiations (the parity mode),
 // the train-mode forwards of B5, B9, B7 and B8 and of the T-NeRF (B4, B7')
-// at W=256, and the training path's B3 launch (ordered) keep
-// mlp_common.cuh's SIMT chunk product (mm_acc).
+// at W=256, and the training path's B3 launch (ordered) keep a SIMT chunk
+// product of mlp_common.cuh: fp32 FMAs in order (mm_ring for the train-mode
+// forwards and their fp32 twins, mm_acc for B3's and B6's SIMT launches).
 //
 // Why: the SIMT product keeps the tensor cores idle and re-reads a ~1 MB
 // weight set from L2 for every 64 rows (about 16-19 KB per row); a
@@ -197,10 +198,6 @@ inline int grid_for(long long units) {
 
 // ---- PTX wrappers (sm_90a) ----
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // A wgmma operand descriptor: k-major, 128-byte swizzle, 8-row groups 1024
 // bytes apart (SBO), the leading offset unused (1).
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
@@ -208,43 +205,7 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
          ((uint64_t)1 << 62);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// Waits for the phase of the given parity to complete. A wait of more than
-// ~2^35 cycles (about 20 s) can only be a broken ring: it traps, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  long long t0 = 0;
-  for (int spin = 0;; ++spin) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin == 0) t0 = clock64();
-    else if ((spin & 1023) == 0 && clock64() - t0 > (1LL << 35)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
-}
+// smem_u32, the mbarrier wrappers and bulk_load: mlp_common.cuh.
 
 // Named barrier over the consumers: id 1 + w for warpgroup w alone, 3 for both.
 __device__ __forceinline__ void wg_sync(int w) { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory"); }

@@ -41,16 +41,26 @@
 // Bound on the card: operations. At D=8, W=256 and MultiRes level 0's
 // widths (cin = cv = 123) the forward is 636,416 multiply-adds per row and
 // the backward about twice that, against ~1 KB of fp32 input per row.
-// Design, B1's without the compositor:
-//  1. trunk_fwd_kernel: one 256-thread block per 64-row chunk; the block
-//     reads its rows of emb and vemb (contiguous, coalesced) into shared
-//     memory rounded to the operand type, runs the chunk product of
-//     mlp_common.cuh layer by layer and the three heads, and writes raw.
-//     With a scratch buffer (train mode) it spills the embedding (with a
-//     column of ones), vemb, every layer's output, feat and hv, as B1 does.
-//     Shared memory at fp32, W=256: (2 W + CIN + CV) rows of 68 floats plus
-//     the weight tile and the head reduction, 228,352 of the 232,448 bytes a
-//     block may take.
+// Design:
+//  1. trunk_fwd_kernel (train mode in bf16, but B7''s at W=128; every fp32
+//     launch): one block of NTR = 384 threads per 64-row chunk, on
+//     mlp_common.cuh's mm_ring. Warp 8 streams the weights (bf16: an fp32
+//     image widened into the scratch once a launch; fp32: the operands) as
+//     8-row tiles with cp.async.bulk into a 3-stage mbarrier ring that runs
+//     across the layers; the eight consumer warps read the chunk's rows of
+//     emb and vemb (contiguous, coalesced) into fp32 tiles rounded to the
+//     operand type, then run the layers, each output one fp32 FMA chain in
+//     k order (the pad rows included, the skip's embedding rows first, the
+//     view layer's feature rows first), the bias, the activation and the
+//     rounding as the plain twin does. With a scratch buffer it spills the
+//     embedding (with a column of ones and the zero pads), vemb, every
+//     layer's output (straight from the epilogue's registers), feat and hv,
+//     the tape B1's sweep reads. The alpha and rgb heads keep their four
+//     k-strided partial sums. Bound: the fp32 FMA rate (66.9 TFLOP/s at
+//     1.98 GHz; 0.609 ms at 32,000 rows of level 0), since the tensor cores
+//     cannot keep that order (3. says why it matters). Shared memory at
+//     W=256: the two activation tiles, the embeddings' tiles and the ring,
+//     224,304 of the 232,448 bytes a block may take, fp32 or bf16.
 //     In bf16 only the train-mode forward runs it (not B7''s at W=128):
 //     the forward-only launch of B7, B7' and B8 runs trunk_tc_kernel (3.).
 //  2. trunk_bwd_launch: the cotangent in the operand type (and q(d alpha)
@@ -136,6 +146,7 @@ struct Scratch {
   float* demb;   // B8: [P][cin], fp32
   float* dvemb;  // B8: [P][cv], fp32
   unsigned char* img;  // B7' in bf16 at a width train_tc_at takes: the weight image of its train-mode launch
+  float* wimg;         // bf16 on trunk_fwd_kernel: the fp32 weight image its ring copies
 };
 
 // B7''s bf16 train-mode forward runs on the tensor cores (trunk_tc_kernel's
@@ -188,6 +199,7 @@ Scratch<T> carve(void* scratch, int W, int D, long long P) {
     sc.dvemb = cv.take<float>(P * A::CV);
   }
   if (train_tc_at<T, A>(W)) sc.img = cv.take<unsigned char>(train_image_bytes(W, D));
+  else if (sizeof(T) == 2) sc.wimg = cv.take<float>(ring_weight_floats(W, D, A::CIN, A::CV));
   return sc;
 }
 
@@ -209,30 +221,39 @@ size_t scratch_bytes(int W, int D, long long P) {
   if (A::RGB_RELU) b += 2 * align256(sizeof(float) * P * 4);  // u, gm
   if (A::RAW) b += align256(sizeof(float) * P * A::CIN) + align256(sizeof(float) * P * A::CV);  // demb, dvemb
   if (train_tc_at<T, A>(W)) b += align256(train_image_bytes(W, D));  // B7''s train-mode weight image
+  else if (sizeof(T) == 2) b += align256(sizeof(float) * ring_weight_floats(W, D, A::CIN, A::CV));  // ring image
   return b;
 }
 
-// Rows row0 .. row0+nvalid-1 of a row-major fp32 [.][ncols] input into
-// shared memory, k-major [npad][LDA] and rounded to the operand type; the
-// columns past ncols and the rows past nvalid are zero. The chunk's rows are
-// contiguous, so neighbouring threads read neighbouring words.
+// Rows row0 .. row0+nvalid-1 of a row-major fp32 [.][ncols] input into an
+// fp32 TileF tile of npad features, rounded to the operand type; the
+// columns past ncols and the rows past nvalid are zero. The chunk's rows
+// are contiguous, so neighbouring threads read neighbouring words.
 template <typename T>
-__device__ __forceinline__ void load_rows(T* __restrict__ s, const float* __restrict__ g, int ncols, int npad,
+__device__ __forceinline__ void load_rows(float* __restrict__ s, const float* __restrict__ g, int ncols, int npad,
                                           long long row0, int nvalid) {
-  constexpr int LDA = Op<T>::LDA;
   const float* src = g + row0 * ncols;
+#pragma unroll 4
   for (int idx = threadIdx.x; idx < CH * npad; idx += NT) {
     const int r = idx / npad, k = idx - r * npad;
-    s[k * LDA + r] = Op<T>::q((r < nvalid && k < ncols) ? src[(size_t)r * ncols + k] : 0.f);
+    TileF<T>::put(s, k, r, (r < nvalid && k < ncols) ? __ldg(src + (size_t)r * ncols + k) : 0.f);
   }
 }
 
+// trunk_fwd_kernel's shared memory is mm_ring's tiles: 224,304 bytes at the
+// 128-row pads, W=256.
+static_assert(ring_tiles_bytes<256, Trunk>() <= SMEM_OPTIN, "the W=256 ring block fits");
+
+// One 64-row chunk per block of NTR threads: thread 256 (the producer
+// warpgroup's first) streams the weight image img through the ring, the two
+// consumer warpgroups (224 registers a thread after setmaxnreg) run the
+// field on it. wts (the operand buffer) feeds the heads.
 template <typename T, int W, typename A, bool STORE>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NTR, 1)
 trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restrict__ vemb_in, int cv,
-                 const T* __restrict__ wts, const float* __restrict__ bias, int D, int skip, long long M,
-                 float* __restrict__ raw, Scratch<T> sc) {
-  constexpr int LDA = Op<T>::LDA;
+                 const T* __restrict__ wts, const float* __restrict__ img, const float* __restrict__ bias, int D,
+                 int skip, long long M, float* __restrict__ raw, Scratch<T> sc) {
+  using TL = TileF<T>;
   constexpr int WH = W / 2;
   constexpr int LDW = W + PADC;
   constexpr int LDH = WH + PADC;
@@ -241,11 +262,20 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
   const int nvalid = (int)min((long long)CH, M - row0);
 
   float* red = reinterpret_cast<float*>(smem_raw);  // [4][CH][3]
-  T* actA = reinterpret_cast<T*>(red + NRED);        // [W][LDA]
-  T* actB = actA + W * LDA;                          // [W][LDA]
-  T* emb = actB + W * LDA;                           // [A::CIN][LDA]
-  T* vemb_s = emb + A::CIN * LDA;                    // [A::CV][LDA]
-  T* Ws = vemb_s + A::CV * LDA;                      // [KT][W]
+  float* tiles = red + NRED;                         // [RSTAGES][RT * W]: the ring
+  float* actA = tiles + RSTAGES * RT * W;            // [W][CH]
+  float* actB = actA + W * CH;                       // [W][CH]
+  float* emb = actB + W * CH;                        // [A::CIN][CH]
+  float* vemb_s = emb + A::CIN * CH;                 // [A::CV][CH]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vemb_s + A::CV * CH);
+  tc::init_ring(bars, RSTAGES);
+  WRing ring{tiles, bars, bars + RSTAGES, RT * W, 0, 0};
+  if (threadIdx.x >= NT) {  // the producer warpgroup: one thread streams the ring, the rest give up registers
+    tc::set_regs<tc::PRODUCER_REGS>();
+    if (threadIdx.x == NT) produce_field<W>(img, D, skip, A::CIN, A::CV, 1, ring);
+    return;
+  }
+  tc::set_regs<tc::CONSUMER_REGS>();
   const float* b_views = bias + (D + 1) * W;
   const float* b_rgb = b_views + WH;
   const float b_alpha = b_rgb[3];
@@ -253,94 +283,81 @@ trunk_fwd_kernel(const float* __restrict__ emb_in, int cin, const float* __restr
   const int p = threadIdx.x / CH;
 
   if constexpr (A::RAW) {  // B8: emb_in / vemb_in are pts / viewdirs [M][3]; cin = 3 + 6L, cv = 3 + 6Lv
-    encode_chunk<T, A, true, false>(emb, nullptr, 0, nvalid, row0, 1, (cin - 3) / 6, 0, emb_in, nullptr, nullptr,
-                                    nullptr, nullptr);
-    encode_chunk<T, A, true, false>(vemb_s, nullptr, 0, nvalid, row0, 1, (cv - 3) / 6, 0, vemb_in, nullptr,
-                                    nullptr, nullptr, nullptr);
+    encode_chunk<T, A, true, false, TL>(emb, nullptr, 0, nvalid, row0, 1, (cin - 3) / 6, 0, emb_in, nullptr, nullptr,
+                                        nullptr, nullptr);
+    encode_chunk<T, A, true, false, TL>(vemb_s, nullptr, 0, nvalid, row0, 1, (cv - 3) / 6, 0, vemb_in, nullptr,
+                                        nullptr, nullptr, nullptr);
   } else {
     load_rows<T>(emb, emb_in, cin, A::CIN, row0, nvalid);
     load_rows<T>(vemb_s, vemb_in, cv, A::CV, row0, nvalid);
   }
-  __syncthreads();
+  consumer_sync();
   if (STORE) {
     // the pads up to A::CIN / A::CV as zeros: the tensor-core sweep's dW reads them
-    spill<T>(emb, cin, sc.emb, A::CIN, row0, nvalid, true, A::CIN);
-    spill<T>(vemb_s, cv, sc.vemb, A::CV, row0, nvalid, false, A::CV);
+    spill<T, TL>(emb, cin, sc.emb, A::CIN, row0, nvalid, true, A::CIN);
+    spill<T, TL>(vemb_s, cv, sc.vemb, A::CV, row0, nvalid, false, A::CV);
   }
-  const T* wp = wts;
+  // Each warp's products read only the rows its own epilogues wrote: a
+  // warp barrier between layers, a consumer barrier where the heads read
+  // every row.
   const float* bp = bias;
-  T* h = actA;
-  T* g = actB;
+  float* h = actA;
+  float* g = actB;
   {
     float acc[8][W / 32];
     zero(acc);
-    mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
-    wp += A::CIN * W;
-    store_act<T, W, A::ACT>(acc, bp, h);
+    mm_ring<W>(acc, emb, A::CIN, ring);
+    store_ring<T, W, A::ACT>(acc, bp, h, STORE ? sc.h : nullptr, LDW, row0, nvalid, true);
     bp += W;
-    if (STORE) {
-      __syncthreads();
-      spill<T>(h, W, sc.h, LDW, row0, nvalid, true);
-    }
+    __syncwarp();
   }
   for (int i = 1; i < D; ++i) {
     float acc[8][W / 32];
     zero(acc);
-    if (i == skip + 1) {  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
-      mm_acc<T, W>(acc, emb, A::CIN, wp, Ws);
-      wp += A::CIN * W;
-    }
-    mm_acc<T, W>(acc, h, W, wp, Ws);
-    wp += W * W;
-    store_act<T, W, A::ACT>(acc, bp, g);
+    if (i == skip + 1) mm_ring<W>(acc, emb, A::CIN, ring);  // cat([emb, h]) @ W == emb @ W_emb + h @ W_h
+    mm_ring<W>(acc, h, W, ring);
+    store_ring<T, W, A::ACT>(acc, bp, g, STORE ? sc.h + i * sc.hstride : nullptr, LDW, row0, nvalid, true);
     bp += W;
-    T* t = h;
+    float* t = h;
     h = g;
     g = t;
-    if (STORE) {
-      __syncthreads();
-      spill<T>(h, W, sc.h + i * sc.hstride, LDW, row0, nvalid, true);
-    }
+    __syncwarp();
   }
   {  // feature head (no activation) -> g
     float acc[8][W / 32];
     zero(acc);
-    mm_acc<T, W>(acc, h, W, wp, Ws);
-    wp += W * W;
-    store_act<T, W, Act::None>(acc, bp, g);
-    __syncthreads();
-    if (STORE) spill<T>(g, W, sc.feat, LDW, row0, nvalid, false);
+    mm_ring<W>(acc, h, W, ring);
+    store_ring<T, W, Act::None>(acc, bp, g, STORE ? sc.feat : nullptr, LDW, row0, nvalid, false);
   }
+  consumer_sync();
   {  // alpha head: one dot of length W per row, 4 threads per row
+    const T* wa = wts + 2LL * A::CIN * W + (long long)D * W * W;
     float s = 0.f;
-    for (int k = p; k < W; k += 4) s = fmaf(Op<T>::f(h[k * LDA + r]), Op<T>::f(wp[k]), s);
+    for (int k = p; k < W; k += 4) s = fmaf(h[TL::at(k, r)], Op<T>::f(wa[k]), s);
     red[p * CH + r] = s;
-    __syncthreads();
+    consumer_sync();
     if (p == 0 && r < nvalid)
       raw[(row0 + r) * 4 + 3] = ((red[r] + red[CH + r]) + red[2 * CH + r]) + red[3 * CH + r] + b_alpha;
-    wp += W;
   }
   {  // view layer on cat([feature, view embedding]) -> h
     float acc[8][WH / 32];
     zero(acc);
-    mm_acc<T, WH>(acc, g, W, wp, Ws);
-    wp += W * WH;
-    mm_acc<T, WH>(acc, vemb_s, A::CV, wp, Ws);
-    wp += A::CV * WH;
-    store_act<T, WH, A::ACT>(acc, b_views, h);
+    mm_ring<WH>(acc, g, W, ring);
+    mm_ring<WH>(acc, vemb_s, A::CV, ring);
+    store_ring<T, WH, A::ACT>(acc, b_views, h, STORE ? sc.hv : nullptr, LDH, row0, nvalid, false);
   }
-  __syncthreads();
-  if (STORE) spill<T>(h, WH, sc.hv, LDH, row0, nvalid, false);
+  consumer_sync();
   {  // rgb head: three dots of length W/2 per row (logits: no sigmoid)
+    const T* wr = wts + ring_weight_floats(W, D, A::CIN, A::CV);
     float s[3] = {0.f, 0.f, 0.f};
     for (int k = p; k < WH; k += 4) {
-      const float hv = Op<T>::f(h[k * LDA + r]);
+      const float hv = h[TL::at(k, r)];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) s[c] = fmaf(hv, Op<T>::f(wp[k * 3 + c]), s[c]);
+      for (int c = 0; c < 3; ++c) s[c] = fmaf(hv, Op<T>::f(wr[k * 3 + c]), s[c]);
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) red[(p * CH + r) * 3 + c] = s[c];
-    __syncthreads();
+    consumer_sync();
     if (p == 0 && r < nvalid) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
@@ -559,12 +576,11 @@ __global__ void cotangent_kernel(const float* __restrict__ g, const float* __res
 template <typename T, int W, typename A>
 int fwd(const float* emb, int cin, const float* vemb, int cv, const void* wts, const float* bias, int D, int skip,
         long long M, float* raw, void* scratch, void* img, long long img_bytes, cudaStream_t st) {
-  constexpr int LDA = Op<T>::LDA;
-  const size_t smem = sizeof(float) * NRED + sizeof(T) * ((size_t)(2 * W + A::CIN + A::CV) * LDA + KT * W);
-  auto launch = [&](auto kern, Scratch<T> sc) {
+  constexpr size_t smem = ring_tiles_bytes<W, A>();
+  auto launch = [&](auto kern, Scratch<T> sc, const float* wimg) {
     SWNERF_CHECK(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-    kern<<<ceil_div(M, CH), NT, smem, st>>>(emb, cin, vemb, cv, static_cast<const T*>(wts), bias, D, skip, M, raw,
-                                            sc);
+    kern<<<ceil_div(M, CH), NTR, smem, st>>>(emb, cin, vemb, cv, static_cast<const T*>(wts), wimg, bias, D, skip, M,
+                                             raw, sc);
     return static_cast<int>(cudaGetLastError());
   };
   if (scratch) {
@@ -576,14 +592,19 @@ int fwd(const float* emb, int cin, const float* vemb, int cv, const void* wts, c
                              nullptr, nullptr, W + PADC, W / 2 + PADC, nullptr, 0.f, nullptr, sc.u};
       return tc_fwd<W, A, true>(emb, cin, vemb, cv, wts, bias, D, skip, M, raw, sc.img, train_image_bytes(W, D), st,
                                 tp);
+    } else if constexpr (sizeof(T) == 2) {  // the ring copies fp32: widen the operands once
+      const long long n = ring_weight_floats(W, D, A::CIN, A::CV);
+      widen_kernel<<<ceil_div(n, 256), 256, 0, st>>>(static_cast<const __nv_bfloat16*>(wts), n, sc.wimg);
+      SWNERF_CHECK(cudaGetLastError());
+      return launch(trunk_fwd_kernel<T, W, A, true>, sc, sc.wimg);
     } else {
-      return launch(trunk_fwd_kernel<T, W, A, true>, sc);
+      return launch(trunk_fwd_kernel<T, W, A, true>, sc, static_cast<const float*>(wts));
     }
   }
   if constexpr (sizeof(T) == 2)  // every family's bf16 forward-only launch: the tensor cores
     return tc_fwd<W, A>(emb, cin, vemb, cv, wts, bias, D, skip, M, raw, img, img_bytes, st);
   else
-    return launch(trunk_fwd_kernel<T, W, A, false>, Scratch<T>{});
+    return launch(trunk_fwd_kernel<T, W, A, false>, Scratch<T>{}, static_cast<const float*>(wts));
 }
 
 // The backward from the train-mode forward's scratch. demb / dvemb: B7 and

@@ -48,6 +48,11 @@ tensor cores the gradients leave the twin's bars). Every bf16 backward
 runs its reverse sweep's large products and the embeddings' cotangents
 (demb, dvemb) on the tensor cores (``csrc/tc_gemm.cuh``).
 
+The SIMT train-mode forward keeps fp32 FMAs in order, one accumulator an
+output: :func:`trunk_ordered` repeats that order in torch ops for the
+ReLU family in bf16, so that B7's bf16 train-mode raw equals it bit for bit
+(the card's tests and ``chip_smoke.py``; nothing else calls it).
+
 The ``pack_*`` functions lay the weights out as ``render_pass.pack_params``
 does (``render_pass.weight_layout``), with both embeddings padded to 128
 rows: one buffer in the operand type, biases fp32. The field family is the
@@ -231,6 +236,52 @@ def trunk_plain(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor
     if packed.arch == "tnerf":
         logits = torch.relu(logits)
     return torch.cat([logits, sigma[:, None]], -1)
+
+
+def trunk_ordered(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor) -> torch.Tensor:
+    """B7's raw [P, 4] for the ReLU family in bf16, in the order of the SIMT
+    train-mode forward (``csrc/trunk.cu::trunk_fwd_kernel``): each output
+    one fp32 sum from +0, ``acc = acc + a * w`` over k ascending with the
+    pad rows (the skip layer's embedding rows before its h rows, the view
+    layer's feature rows before its view rows), then the bias, the ReLU and
+    the rounding to bf16; the alpha and rgb heads as four sums over k = p,
+    p + 4, ... (p = 0..3), added as ``(((s0 + s1) + s2) + s3) + b``. A
+    bf16 x bf16 product is exact in fp32 (away from underflow), so each step
+    rounds once, as ``fmaf`` does: the kernel's raw, bit for bit. ELU's
+    expm1 may differ by an ulp between the CPU and the card, so the ELU
+    family (B7') is refused."""
+    if packed.arch != "vanilla" or packed.weights.dtype != torch.bfloat16:
+        raise ValueError("trunk_ordered: the ReLU family in bf16 only")
+    e, v = _padded(packed, emb, vemb)
+    m = {k: w.float() for k, w in packed.matrices().items()}
+    b = packed.bias_vectors()
+    P = e.shape[0]
+
+    def chain(acc, x, w):
+        for k in range(x.shape[1]):
+            acc = acc + x[:, k : k + 1] * w[k]
+        return acc
+
+    def out(acc, bias, relu):
+        z = acc + bias
+        return (torch.relu(z) if relu else z).to(torch.bfloat16).float()
+
+    def head(x, w):
+        parts = [torch.zeros((P, w.shape[1]), dtype=torch.float32, device=x.device) for _ in range(4)]
+        for k in range(x.shape[1]):
+            parts[k % 4] = parts[k % 4] + x[:, k : k + 1] * w[k]
+        return ((parts[0] + parts[1]) + parts[2]) + parts[3]
+
+    zeros = lambda n: torch.zeros((P, n), dtype=torch.float32, device=e.device)  # noqa: E731
+    W = packed.W
+    h = out(chain(zeros(W), e, m["pts0"]), b["pts0"], True)
+    for i in range(1, packed.D):
+        acc = chain(zeros(W), e, m[f"pts{i}_emb"]) if i == packed.skip + 1 else zeros(W)
+        h = out(chain(acc, h, m[f"pts{i}"]), b[f"pts{i}"], True)
+    feat = out(chain(zeros(W), h, m["feature"]), b["feature"], False)
+    sigma = head(h, m["alpha"]) + b["alpha"]
+    hv = out(chain(chain(zeros(W // 2), feat, m["views_feat"]), v, m["views_emb"]), b["views"], True)
+    return torch.cat([head(hv, m["rgb"]) + b["rgb"], sigma], -1)
 
 
 def trunk_plain_bwd(packed: PackedTrunkParams, emb: torch.Tensor, vemb: torch.Tensor, g: torch.Tensor,

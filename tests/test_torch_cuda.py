@@ -1515,6 +1515,22 @@ def test_b7_bf16_train_mode_at_ragged_rows(dev, level, rows):
 
 
 @pytest.mark.parametrize("rows", TRAIN_ROWS)
+@pytest.mark.parametrize("level", list(MR_LEVELS))
+def test_b7_bf16_train_mode_raw_is_the_ordered_twin(dev, level, rows):
+    """B7's bf16 train-mode raw (trunk_fwd_kernel: fp32 FMAs in order, one
+    accumulator an output, csrc/mlp_common.cuh::mm_ring) bit-equal to
+    trunk_ordered, which repeats that order in torch ops on the card, at each
+    MultiRes level from one row to phase 2's 65,536."""
+    n, s = _rows_case(rows)
+    cfg, sd, emb, vemb, _ = _b7_case(dev, level, n=n, s=s, seed=rows)
+    packed = b7.pack_trunk_params(sd, cfg, torch.bfloat16)
+    raw = b7._launch_fwd(packed, emb, vemb, b7._scratch(packed, rows, dev))
+    ref = b7.trunk_ordered(packed, emb, vemb)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, ref), (raw - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("rows", TRAIN_ROWS)
 @pytest.mark.parametrize("pad", list(TC_PADS))
 def test_b8_bf16_train_mode_at_ragged_rows(dev, pad, rows):
     """B8's bf16 train-mode forward (trunk_fwd_kernel: with its forward on
@@ -1875,21 +1891,23 @@ def test_b3_wide_fp32_matches_plain(dev, level, n_samples):
 
 def test_render_block_sample_limits(dev):
     """The most samples per ray that render_pass.cu and render_loss.cu take,
-    from their own shared-memory layout: the wide family in fp32 at W=256
-    fits 256 (forward only) and 204 (train mode, B9); bf16, W=128 and the
-    narrow families fit the cap of 1024. check_samples refuses beyond."""
+    from their own shared-memory layout: the wide family at W=256 fits 256
+    in fp32 (forward only) and 225 in train mode (B9: the ring block's fp32
+    tiles and two buffers of raw lanes, the same in both operand types);
+    bf16 forward only, W=128 and the narrow families fit the cap of 1024.
+    check_samples refuses beyond."""
     for tnerf, wide in ((0, 0), (1, 0), (0, 1)):
         for bf16 in (0, 1):
             for W in (128, 256):
-                want = (256, 204) if (wide, bf16, W) == (1, 0, 256) else (1024, 1024)
+                want = ((256 if bf16 == 0 else 1024), 225) if (wide, W) == (1, 256) else (1024, 1024)
                 got = tuple(b3.max_samples(name, tnerf, bf16, wide, W) for name in ("render_pass", "render_loss"))
                 assert got == want, (tnerf, wide, bf16, W)
     assert b3.max_samples("render_pass", 0, 0, 0, 192) == 0  # no such width
     cfg, sd, _, _, _ = _wide_case(dev, "level1", 1, 8)
     packed = b3.pack_params(sd, cfg, torch.float32)
-    b3.check_samples(b1.NAME, packed, 204, "render_loss_ext")
-    with pytest.raises(ValueError, match="fits 204 at most"):
-        b3.check_samples(b1.NAME, packed, 205, "render_loss_ext")
+    b3.check_samples(b1.NAME, packed, 225, "render_loss_ext")
+    with pytest.raises(ValueError, match="fits 225 at most"):
+        b3.check_samples(b1.NAME, packed, 226, "render_loss_ext")
 
 
 @pytest.mark.parametrize("level", ["level0", "level1"])
@@ -2222,6 +2240,21 @@ def test_b9_forward_is_the_training_b3_launch(dev, family, s, n):
     for k in ("rgb", "acc", "depth", "weights"):
         assert torch.equal(getattr(fwd, k), getattr(out, k)), k
     assert not torch.equal(serve.weights, out.weights)
+
+
+@pytest.mark.parametrize("s,n", [(64, 41), (192, 21)], ids=["S64", "S192"])
+def test_b5_forward_is_the_ordered_b3_launch(dev, s, n):
+    """B5's bf16 forward (render_loss_fwd_kernel, the SIMT train-mode body):
+    its rgb, acc, depth and weights bit-equal to B3's ordered pts launch (the
+    SIMT forward-only body, csrc/render_pass.cu) on the same positions,
+    view embeddings and noise, as B9's are."""
+    cfg, sd, pts, _, (ve, z, dist, noise, target) = _dnerf_case(dev, {}, n, s)
+    packed = b3.pack_params(canonical_params(sd), cfg, torch.bfloat16)
+    fwd, _, _ = b1.render_loss_pts(packed, pts, ve, z, dist, noise, target, True, 1.0 / (3 * n))
+    out = b3.render_pass(packed, None, None, ve, z, dist, noise, True, None, pts, ordered=True)
+    torch.cuda.synchronize()
+    for k in ("rgb", "acc", "depth", "weights"):
+        assert torch.equal(getattr(fwd, k), getattr(out, k)), k
 
 
 # ---------------------------------------------------------------- the pyramid's resize
